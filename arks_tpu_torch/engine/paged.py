@@ -1,0 +1,132 @@
+"""Host-side page allocator for the paged device KV cache (copy of the
+allocator half of ``arks_tpu/engine/paged.py``).
+
+The device side is arks_tpu_torch.ops.paged_attention (pool + block
+tables); this is the authority over which pool page holds what.  The port's
+engine keeps device prefix sharing off for now (it allocates and frees
+only); the allocator keeps the reference's prefix index so that turning it
+on changes the engine alone:
+
+- **Free list + refcounts**: a page is free (refcount 0), private (held by
+  one slot), or shared (held by several slots and/or the prefix index).
+- **Prefix index**: chained content digests (``prefix_sketch``) -> page
+  id, LRU-ordered.
+- **Eviction**: allocation prefers the free list; under pressure it evicts
+  LRU index-retained pages (refcount held only by the index).
+
+The reference's spill hook (host prefix tier), routing-sketch mirror and
+hit-rate stats serve features the port does not have yet and are not
+copied.  Thread-safety: engine thread only.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+from arks_tpu_torch.prefix_sketch import chain_digests, iter_chain_digests
+
+__all__ = ["OutOfPagesError", "iter_chain_digests", "chain_digests",
+           "pages_needed", "PageAllocator"]
+
+
+class OutOfPagesError(RuntimeError):
+    pass
+
+
+def pages_needed(length: int, rows: int, page: int, max_pages: int) -> int:
+    """Block-table entries a slot needs before a dispatch writing ``rows``
+    rows from position ``length``, clamped to ``max_pages`` (growing the
+    table beyond its row width would corrupt the neighbouring slot's
+    row)."""
+    return min((length + rows - 1) // page + 1, max_pages)
+
+
+class PageAllocator:
+    def __init__(self, num_pages: int, page: int) -> None:
+        self.page = page
+        self.num_pages = num_pages
+        self._free = list(range(num_pages - 1, -1, -1))
+        self._ref = [0] * num_pages
+        # digest -> page id; LRU order (oldest first).  The index holds ONE
+        # reference on each registered page.
+        self._index: "OrderedDict[bytes, int]" = OrderedDict()
+        self._page_digest: dict[int, bytes] = {}
+
+    # -- allocation ----------------------------------------------------
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def retained_pages(self) -> int:
+        return len(self._index)
+
+    def alloc(self, n: int) -> list[int]:
+        """n fresh pages (refcount 1 each).  Evicts LRU retained pages as
+        needed; raises OutOfPagesError when even eviction cannot satisfy
+        (pool mis-sized)."""
+        while len(self._free) < n and self._index:
+            self._evict_lru()
+        if len(self._free) < n:
+            raise OutOfPagesError(
+                f"need {n} pages, {len(self._free)} free and nothing "
+                "evictable — pool too small for the active slots")
+        out = [self._free.pop() for _ in range(n)]
+        for p in out:
+            self._ref[p] = 1
+        return out
+
+    def _evict_lru(self) -> None:
+        _, pg = self._index.popitem(last=False)
+        del self._page_digest[pg]
+        self._ref[pg] -= 1
+        if self._ref[pg] == 0:
+            self._free.append(pg)
+
+    def incref(self, pages) -> None:
+        for p in pages:
+            self._ref[p] += 1
+
+    def decref(self, pages) -> None:
+        for p in pages:
+            self._ref[p] -= 1
+            if self._ref[p] == 0:
+                self._free.append(p)
+            elif self._ref[p] < 0:
+                raise AssertionError(f"page {p} refcount underflow")
+
+    # -- prefix index --------------------------------------------------
+
+    def match(self, digests: list[bytes]) -> list[int]:
+        """Pages for the longest indexed digest-chain prefix; each matched
+        page gets a caller reference (incref) and an LRU touch."""
+        pages = []
+        for d in digests:
+            pg = self._index.get(d)
+            if pg is None:
+                break
+            self._index.move_to_end(d)
+            self._ref[pg] += 1
+            pages.append(pg)
+        return pages
+
+    def register(self, digests: list[bytes], pages: list[int]) -> None:
+        """Put (digest, page) pairs into the index.  The index takes ONE
+        reference per newly-registered page; already-indexed digests keep
+        their existing page (the caller's duplicate page stays owned by the
+        caller alone and is freed on its decref).  A page already indexed
+        under a DIFFERENT digest is skipped: _page_digest is a one-to-one
+        reverse map, and overwriting it would leave the old digest's index
+        entry stale — evicting either digest would then delete the other's
+        reverse entry and a later eviction would KeyError mid-alloc (and
+        the refcount held for the old entry would leak)."""
+        for d, pg in zip(digests, pages):
+            if d in self._index:
+                self._index.move_to_end(d)
+                continue
+            if self._page_digest.get(pg, d) != d:
+                continue
+            self._index[d] = pg
+            self._page_digest[pg] = d
+            self._ref[pg] += 1

@@ -1,0 +1,139 @@
+"""Build and bind the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by nvcc, by hand, into a shared library
+with a plain C interface and loaded with ``ctypes`` — seconds per kernel, no
+PyTorch headers and no ninja.  Libraries land in ``build/arks_tpu_torch/``
+beside the package (listed in ``.gitignore``), named by a hash of the
+source and flags, so an edited source never loads a stale build.  Nothing
+is built at import time: a kernel is built by its first launch or by
+``build_all`` (which starts one nvcc per source, all at once).
+
+The flags keep IEEE division and round-to-nearest-even (no
+``--use_fast_math``): the quantized-pool kernels of the next slice need
+both, and the attention kernel's exp/divide stay close to the reference's.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "arks_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C entry points: name -> (source stem, argtypes).  Every entry returns the
+# cudaError_t of its launch (0 = success).
+_SIGNATURES: dict[str, tuple[str, list]] = {
+    "arks_paged_kv_update": ("paged_kv_update", [
+        _P, _P, _P, _P,          # k_pool, v_pool, k_new, v_new
+        _P, _P,                  # write_idx [T], tables [T, MaxP]
+        _I, _I, _I, _I, _I, _I,  # T, hkv, max_pages, n_pages, page, row_bytes
+        _I, _P]),                # layer, stream
+    "arks_paged_mixed_attention": ("paged_mixed_attention", [
+        _P, _P, _P, _P,          # q [T,H,D], out [T,H,D], k_pool, v_pool
+        _P, _P, _P, _P,          # tables [S,MaxP], pos_start, q_start, q_len
+        _P, _P, _P, _P, _P,      # work list: seq, head, qb, plo, pages
+        _I, _I, _I, _I, _I,      # n_items, n_heads, hkv, head_dim, page
+        _I, _I, _I, _I,          # n_pages, max_pages, layer, block_q
+        _F, _I, _P]),            # scale, dtype code (0 f32, 1 bf16), stream
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the CUDA "
+                       "kernels build from source at first use")
+
+
+def _lib_path(stem: str) -> Path:
+    src = (CSRC / f"{stem}.cu").read_bytes()
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{stem}-{tag}.so"
+
+
+def _start_build(stem: str):
+    """(library path, temp output, nvcc process or None when built)."""
+    out = _lib_path(stem)
+    if out.exists():
+        return out, None, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return out, tmp, proc
+
+
+def _finish_build(stem: str, out: Path, tmp: Path | None,
+                  proc: subprocess.Popen | None) -> str:
+    if proc is None:
+        return ""
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for csrc/{stem}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
+    os.replace(tmp, out)
+    return log
+
+
+def build_all() -> dict[str, str]:
+    """Compile every kernel source concurrently (one nvcc each); returns
+    {source stem: nvcc/ptxas output}.  Raises on the first failed build."""
+    stems = sorted({stem for stem, _ in _SIGNATURES.values()})
+    with _lock:
+        started = {s: _start_build(s) for s in stems}
+        return {s: _finish_build(s, *started[s]) for s in stems}
+
+
+def _load(stem: str) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(stem)
+        if lib is None:
+            out, tmp, proc = _start_build(stem)
+            _finish_build(stem, out, tmp, proc)
+            lib = ctypes.CDLL(str(out))
+            for fn, (fstem, argtypes) in _SIGNATURES.items():
+                if fstem == stem:
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+            _libs[stem] = lib
+        return lib
+
+
+def launch(fn: str, *args) -> None:
+    """Call C entry point ``fn`` (building its library on first use) and
+    raise if the launch reported a CUDA error."""
+    lib = _load(_SIGNATURES[fn][0])
+    err = getattr(lib, fn)(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA error {err} "
+                           f"({cuda_error_name(lib, err)})")
+
+
+def cuda_error_name(lib: ctypes.CDLL, err: int) -> str:
+    fn = lib.arks_cuda_error_string
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    return fn(err).decode()

@@ -1,0 +1,128 @@
+"""The port stands alone: importing every ``arks_tpu_torch`` module pulls in
+neither ``jax`` nor anything of ``arks_tpu``; no source file of the port (or
+``chip_smoke.py``) imports them; and entry points refuse to carry on on the
+CPU when no GPU is present and the caller did not ask for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import arks_tpu_torch
+from arks_tpu_torch import device as device_mod
+from arks_tpu_torch.engine import EngineConfig, InferenceEngine
+from arks_tpu_torch.engine.tokenizer import ByteTokenizer
+from arks_tpu_torch.models import get_config
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = Path(arks_tpu_torch.__file__).resolve().parent
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import arks_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(arks_tpu_torch.__path__,
+                                               "arks_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "arks_tpu"
+             or k.startswith("arks_tpu."))
+print(len(names), bad)
+"""
+
+
+def test_importing_every_module_loads_no_jax_and_no_arks_tpu():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split(maxsplit=1)
+    assert int(out[0]) >= 20          # every module was imported
+    assert out[1].strip() == "[]"
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
+                         + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "arks_tpu"), (path, mod)
+
+
+def test_engine_without_cuda_raises_unless_cpu_requested(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("tiny")
+    ecfg = EngineConfig(model="tiny", num_slots=1, max_cache_len=32,
+                        prefill_chunk=16, dtype="float32")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceEngine(cfg, ecfg, ByteTokenizer())
+    with pytest.raises(RuntimeError):
+        InferenceEngine(cfg, ecfg, ByteTokenizer(), device="cuda")
+    eng = InferenceEngine(cfg, ecfg, ByteTokenizer(), device="cpu")
+    assert eng.device.type == "cpu" and eng.cache.k.device.type == "cpu"
+
+
+def test_resolve_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert device_mod.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError):
+        device_mod.resolve_device(None)
+    with pytest.raises(ValueError):
+        device_mod.resolve_device("meta")
+
+
+def test_model_builders_without_cuda_raise_unless_cpu_requested(monkeypatch):
+    """init_params, init_paged_cache and params_from_numpy default to the
+    card too: without CUDA they raise rather than build on the CPU."""
+    from arks_tpu_torch.models import transformer as tf
+    from arks_tpu_torch.models.weights import params_from_numpy
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("tiny")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tf.init_params(cfg, 0, torch.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tf.init_paged_cache(cfg, 2, 16, torch.float32)
+    params = tf.init_params(cfg, 0, torch.float32, "cpu")
+    tree = {k: ({n: w.numpy() for n, w in v.items()} if isinstance(v, dict)
+                else v.numpy()) for k, v in params.items()}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy(tree, cfg)
+    back = params_from_numpy(tree, cfg, "cpu")
+    assert torch.equal(back["layers"]["wq"], params["layers"]["wq"])
+    assert tf.init_paged_cache(cfg, 2, 16, torch.float32, "cpu").k.is_cpu
+
+
+def test_server_cli_without_cuda_raises(monkeypatch):
+    from arks_tpu_torch.server.__main__ import main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        main(["--model", "tiny", "--max-model-len", "32", "--port", "0"])
+
+
+@pytest.mark.parametrize("field,value", [
+    ("kv_cache_dtype", "int8"), ("kv_cache_dtype", "int4"),
+    ("weight_dtype", "int8"), ("kv_layout", "slot"),
+    ("draft_model", "tiny"), ("tensor_parallel", 2),
+    ("data_parallel", 2), ("pipeline_parallel", 2),
+])
+def test_engine_config_outside_the_slice_raises(field, value):
+    ecfg = EngineConfig(model="tiny", max_cache_len=32, prefill_chunk=16,
+                        **{field: value})
+    with pytest.raises(NotImplementedError):
+        InferenceEngine(get_config("tiny"), ecfg, ByteTokenizer(),
+                        device="cpu")

@@ -1,0 +1,145 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips when no CUDA device is present (the check
+runs inside the fixture, never at import).  These tests import no JAX, so
+they run on a GPU machine without it:
+``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
+``chip_smoke.py`` holds the same kernels at the served path's shapes."""
+
+import numpy as np
+import pytest
+import torch
+
+from arks_tpu_torch.models.config import ModelConfig
+from arks_tpu_torch.models import transformer as tf
+from arks_tpu_torch.ops import paged_attention as pa
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _batch(dev, dtype, *, hkv, g, d, page, lanes, layers=2, n_pad=3,
+           seed=0):
+    """Flat mixed batch over ``lanes`` [(pos_start, q_len)], q_len 0 =
+    inactive, then padding tokens; random pools and tables."""
+    rng = np.random.default_rng(seed)
+    s = len(lanes)
+    max_pages = max(-(-(p + n) // page) for p, n in lanes) + 1
+    slot, pos = [], []
+    qs, ql, ps = (np.zeros(s, np.int32) for _ in range(3))
+    for lane, (p0, n) in enumerate(lanes):
+        qs[lane], ql[lane], ps[lane] = len(slot), n, p0
+        slot += [lane] * n
+        pos += range(p0, p0 + n)
+    slot += [-1] * n_pad
+    pos += [max_pages * page] * n_pad
+    n_pages = s * max_pages
+    tables = rng.permutation(n_pages).reshape(s, max_pages)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t = len(slot)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)  # noqa
+    b = dict(q=randn(t, hkv * g, d), k_new=randn(t, hkv, d),
+             v_new=randn(t, hkv, d), k_pool=randn(layers, n_pages, hkv, page, d),
+             v_pool=randn(layers, n_pages, hkv, page, d), layer=layers - 1,
+             tables=i32(tables), token_slot=i32(slot), token_pos=i32(pos),
+             seq_q_start=i32(qs), seq_q_len=i32(ql), seq_pos_start=i32(ps))
+    b["tables_tok"] = b["tables"][b["token_slot"].clamp(min=0).long()]
+    b["write_idx"] = torch.where(b["token_slot"] < 0,
+                                 torch.full_like(b["token_pos"],
+                                                 max_pages * page),
+                                 b["token_pos"])
+    return b
+
+
+LANES = [(0, 1), (15, 1), (16, 1), (40, 1), (8, 20), (3, 9), (0, 0), (30, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [8, 64, 128])
+def test_paged_kv_update_bit_exact(dev, dtype, d):
+    b = _batch(dev, dtype, hkv=4, g=1, d=d, page=16, lanes=LANES)
+    args = (b["k_new"], b["v_new"], b["write_idx"], b["tables_tok"],
+            b["layer"])
+    kk, vk = b["k_pool"].clone(), b["v_pool"].clone()
+    kp, vp = b["k_pool"].clone(), b["v_pool"].clone()
+    before = pa.paged_kv_update.launches
+    pa.paged_kv_update(kk, vk, *args)
+    pa.paged_kv_update(kp, vp, *args, impl="plain")
+    torch.cuda.synchronize()
+    assert pa.paged_kv_update.launches == before + 1
+    assert torch.equal(kk, kp) and torch.equal(vk, vp)
+    assert not torch.equal(kk, b["k_pool"])       # rows were written
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("hkv,g,d,page", [(4, 7, 128, 256), (2, 4, 64, 16),
+                                          (1, 8, 128, 32), (3, 1, 64, 64)])
+def test_paged_mixed_attention_vs_plain(dev, dtype, tol, hkv, g, d, page):
+    lanes = [(p * page // 16, n) for p, n in LANES] + [(page - 1, 2 * page)]
+    b = _batch(dev, dtype, hkv=hkv, g=g, d=d, page=page, lanes=lanes)
+    args = (b["tables"], b["seq_q_start"], b["seq_q_len"],
+            b["seq_pos_start"], b["layer"])
+    before = pa.paged_mixed_attention.launches
+    got = pa.paged_mixed_attention(b["q"], b["k_pool"], b["v_pool"], *args)
+    want = pa.paged_mixed_attention(b["q"], b["k_pool"], b["v_pool"], *args,
+                                    impl="plain")
+    torch.cuda.synchronize()
+    assert pa.paged_mixed_attention.launches == before + 1
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert not got[b["token_slot"] < 0].any()
+
+
+def test_kernels_raise_on_unsupported(dev):
+    b = _batch(dev, torch.float16, hkv=2, g=2, d=64, page=16, lanes=LANES)
+    with pytest.raises(TypeError):
+        pa.paged_mixed_attention(b["q"], b["k_pool"], b["v_pool"],
+                                 b["tables"], b["seq_q_start"],
+                                 b["seq_q_len"], b["seq_pos_start"], 0)
+    b = _batch(dev, torch.bfloat16, hkv=1, g=9, d=64, page=16, lanes=LANES)
+    with pytest.raises(ValueError):
+        pa.paged_mixed_attention(b["q"], b["k_pool"], b["v_pool"],
+                                 b["tables"], b["seq_q_start"],
+                                 b["seq_q_len"], b["seq_pos_start"], 0)
+
+
+def test_mixed_step_kernels_vs_plain(dev):
+    cfg = ModelConfig(name="test-d64", vocab_size=512, hidden_size=256,
+                      intermediate_size=512, num_layers=2, num_heads=8,
+                      num_kv_heads=2, head_dim=64, qkv_bias=True,
+                      dtype="float32")
+    params = tf.init_params(cfg, 0, torch.float32, dev)
+    tables = torch.arange(6, dtype=torch.int32, device=dev).reshape(2, 3)
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)  # noqa
+    # lane 0 prefills 40 tokens (crosses a 16-token page), lane 1 decodes
+    # at position 5 over a pool the first step wrote; 2 padding tokens.
+    steps = [
+        (list(range(2, 42)) + [7] * 6, [0] * 40 + [1] * 6,
+         list(range(40)) + list(range(6)), [39, 45], [0, 40], [40, 6],
+         [0, 0]),
+        ([9, 11, 0, 0], [0, 1, -1, -1], [40, 6, 48, 48], [0, 1], [0, 1],
+         [1, 1], [40, 6]),
+    ]
+    caches = {i: tf.init_paged_cache(cfg, 6, 16, torch.float32, dev)
+              for i in ("kernel", "plain")}
+    for step in steps:
+        out = {i: tf.mixed_step(params, cfg, caches[i], tables,
+                                *(i32(a) for a in step), impl=i)
+               for i in ("kernel", "plain")}
+        torch.testing.assert_close(out["kernel"], out["plain"], atol=1e-4,
+                                   rtol=0)
+        torch.testing.assert_close(caches["kernel"].k, caches["plain"].k,
+                                   atol=1e-5, rtol=0)

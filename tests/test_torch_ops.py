@@ -1,0 +1,279 @@
+"""The port's ops against the JAX reference on the same numpy inputs:
+norms and rope (f32, atol 1e-6), the ragged work list and the pool
+scatter (bit-exact), and ``paged_mixed_update_and_attend`` against both the
+reference's XLA oracle and its Pallas kernel run in interpret mode
+(f32, atol 1e-5)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from arks_tpu.ops import attention as jattn
+from arks_tpu.ops import norms as jnorms
+from arks_tpu.ops import paged_attention as jpa
+from arks_tpu.ops import rope as jrope
+from arks_tpu_torch.ops import attention as tattn
+from arks_tpu_torch.ops import norms as tnorms
+from arks_tpu_torch.ops import paged_attention as tpa
+from arks_tpu_torch.ops import rope as trope
+
+torch.set_num_threads(2)
+
+
+def _np(x):
+    """torch -> numpy, bfloat16 through its bit pattern."""
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy()
+    return x.numpy()
+
+
+def _jnp_bits(x):
+    x = np.asarray(x)
+    return x.view(np.int16) if x.dtype.name == "bfloat16" else x
+
+
+def test_rms_norm_matches_jax():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((3, 5, 64)).astype(np.float32)
+    w = rng.standard_normal((64,)).astype(np.float32)
+    want = np.asarray(jnorms.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-6))
+    got = tnorms.rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-6)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("shape,theta", [((7, 4, 16), 10000.0),
+                                         ((2, 9, 8, 8), 1e6)])
+def test_apply_rope_matches_jax(shape, theta):
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal(shape).astype(np.float32)
+    pos = rng.integers(0, 4000, shape[:-2]).astype(np.int32)
+    want = np.asarray(jrope.apply_rope(jnp.asarray(x), jnp.asarray(pos),
+                                       theta))
+    got = trope.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("qmax,hkv", [(1, 4), (7, 4), (257, 4), (33, 2),
+                                       (16, 8)])
+def test_mixed_grid_plan_matches_jax(qmax, hkv):
+    """The port's fixed plan is the reference's at block_q = MAX_BLOCK_Q
+    and head_group = 1."""
+    want = jpa.mixed_grid_plan(qmax, hkv=hkv, g=7, d=128, page=256,
+                               kv="bfloat16", block_q=tpa.MAX_BLOCK_Q,
+                               grid="ragged", dma_depth=2, head_group=1)
+    assert want["head_group"] == 1
+    got = tpa.mixed_grid_plan(qmax)
+    assert got == {k: want[k] for k in ("block_q", "qpad", "num_qb")}
+
+
+@pytest.mark.parametrize("seed,s,block_q,num_qb,head_groups,page,max_pages", [
+    (0, 4, 8, 3, 1, 16, 4),
+    (1, 8, 8, 33, 4, 256, 16),     # qwen2.5-7b engine shape, 4 KV heads
+    (2, 5, 4, 5, 2, 8, 3),
+    (3, 3, 2, 4, 1, 4, 2),         # causal ends clamp at the table width
+    (4, 6, 8, 2, 4, 16, 4),        # every lane inactive but one
+])
+def test_build_mixed_work_list_bit_exact(seed, s, block_q, num_qb,
+                                         head_groups, page, max_pages):
+    rng = np.random.default_rng(seed)
+    q_len = rng.integers(0, block_q * num_qb + 1, s).astype(np.int32)
+    q_len[rng.random(s) < 0.3] = 0
+    if seed == 4:
+        q_len[:] = 0
+        q_len[2] = 3
+    pos = rng.integers(0, page * max_pages, s).astype(np.int32)
+    want = jpa.build_mixed_work_list(
+        jnp.asarray(pos), jnp.asarray(q_len), page=page, block_q=block_q,
+        num_qb=num_qb, max_pages=max_pages, head_groups=head_groups)
+    got = tpa.build_mixed_work_list(
+        torch.from_numpy(pos), torch.from_numpy(q_len), page=page,
+        block_q=block_q, num_qb=num_qb, max_pages=max_pages,
+        head_groups=head_groups)
+    for w, g in zip(want, got):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _pool(rng, shape, jdt=jnp.float32, tdt=torch.float32):
+    x = rng.standard_normal(shape).astype(np.float32)
+    return jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
+
+
+_DT = {"float32": (jnp.float32, torch.float32),
+       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_update_bit_exact(dtype):
+    """Pool bytes after the scatter are identical to the reference's
+    (oracle scatter AND the Pallas update kernel in interpret mode); rows
+    at the coverage sentinel are dropped."""
+    jdt, tdt = _DT[dtype]
+    rng = np.random.default_rng(5)
+    l, n, hkv, p, d, maxp, t = 2, 6, 2, 16, 8, 3, 9
+    jk, tk = _pool(rng, (l, n, hkv, p, d), jdt, tdt)
+    jv, tv = _pool(rng, (l, n, hkv, p, d), jdt, tdt)
+    kn = rng.standard_normal((t, hkv, d)).astype(np.float32)
+    vn = rng.standard_normal((t, hkv, d)).astype(np.float32)
+    tables = np.stack([rng.permutation(n)[:maxp] for _ in range(t)]) \
+        .astype(np.int32)
+    widx = rng.permutation(maxp * p)[:t].astype(np.int32)
+    widx[[2, 6]] = maxp * p                       # dropped rows
+    layer = 1
+    want_k, want_v, _, _ = jpa.paged_update_xla(
+        jk, jv, None, None, jnp.asarray(kn, jdt), jnp.asarray(vn, jdt),
+        jnp.asarray(widx), jnp.asarray(tables), layer)
+    pal_k, pal_v = jpa.paged_kv_update(
+        jk, jv, jnp.asarray(kn, jdt), jnp.asarray(vn, jdt),
+        jnp.asarray(widx), jnp.asarray(tables), layer, interpret=True)
+    args = (torch.from_numpy(kn).to(tdt), torch.from_numpy(vn).to(tdt),
+            torch.from_numpy(widx), torch.from_numpy(tables), layer)
+    k0, v0 = tk.clone(), tv.clone()
+    tpa.paged_update_xla(tk, tv, None, None, *args)
+    for ref in (want_k, pal_k):
+        np.testing.assert_array_equal(_np(tk), _jnp_bits(ref))
+    for ref in (want_v, pal_v):
+        np.testing.assert_array_equal(_np(tv), _jnp_bits(ref))
+    # The kernel wrapper on CPU tensors runs the same plain scatter.
+    tpa.paged_kv_update(k0, v0, *args)
+    np.testing.assert_array_equal(_np(k0), _np(tk))
+    np.testing.assert_array_equal(_np(v0), _np(tv))
+
+
+def test_paged_gather_kv_bit_exact():
+    rng = np.random.default_rng(6)
+    jk, tk = _pool(rng, (2, 5, 2, 4, 8))
+    tables = rng.integers(0, 5, (3, 3)).astype(np.int32)
+    want = jpa.paged_gather_kv(jk, jnp.asarray(tables), 1)
+    got = tpa.paged_gather_kv(tk, torch.from_numpy(tables), 1)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _mixed_batch(rng, *, n, maxp, p):
+    """Flat mixed batch over 5 lanes: two decode lanes (one at a page
+    boundary), a chunk lane crossing pages mid-page, an inactive lane, a
+    chunk lane from position 0, then padding tokens."""
+    lanes = {0: (13, 1), 1: (p - 6, 10), 3: (0, 6), 4: (2 * p - 1, 1)}
+    s = 5
+    q_start = np.zeros(s, np.int32)
+    q_len = np.zeros(s, np.int32)
+    pos_start = np.zeros(s, np.int32)
+    slot, pos = [], []
+    for lane, (p0, ql) in lanes.items():
+        q_start[lane] = len(slot)
+        q_len[lane] = ql
+        pos_start[lane] = p0
+        slot += [lane] * ql
+        pos += list(range(p0, p0 + ql))
+    slot += [-1, -1, -1]                        # padding tokens
+    pos += [maxp * p] * 3
+    tables = np.stack([rng.permutation(n)[:maxp] for _ in range(s)]) \
+        .astype(np.int32)
+    return dict(tables=tables, token_slot=np.array(slot, np.int32),
+                token_pos=np.array(pos, np.int32), seq_q_start=q_start,
+                seq_q_len=q_len, seq_pos_start=pos_start)
+
+
+def _attend_case(seed=11):
+    rng = np.random.default_rng(seed)
+    l, n, hkv, g, p, d, maxp = 2, 12, 2, 3, 16, 16, 3
+    b = _mixed_batch(rng, n=n, maxp=maxp, p=p)
+    t = b["token_slot"].shape[0]
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa
+    return dict(q=f(t, hkv * g, d), k_new=f(t, hkv, d), v_new=f(t, hkv, d),
+                k_pool=f(l, n, hkv, p, d), v_pool=f(l, n, hkv, p, d),
+                layer=1, **b)
+
+
+_BATCH_KEYS = ("tables", "token_slot", "token_pos", "seq_q_start",
+               "seq_q_len", "seq_pos_start")
+
+
+def _jax_attend(c, impl):
+    out, kp, vp, _, _ = jattn.paged_mixed_update_and_attend(
+        jnp.asarray(c["q"]), jnp.asarray(c["k_new"]), jnp.asarray(c["v_new"]),
+        jnp.asarray(c["k_pool"]), jnp.asarray(c["v_pool"]),
+        *(jnp.asarray(c[k]) for k in _BATCH_KEYS), c["layer"], impl=impl)
+    return np.asarray(out), np.asarray(kp), np.asarray(vp)
+
+
+def _torch_attend(c, impl):
+    kp = torch.from_numpy(c["k_pool"].copy())
+    vp = torch.from_numpy(c["v_pool"].copy())
+    out = tattn.paged_mixed_update_and_attend(
+        torch.from_numpy(c["q"]), torch.from_numpy(c["k_new"]),
+        torch.from_numpy(c["v_new"]), kp, vp,
+        *(torch.from_numpy(c[k]) for k in _BATCH_KEYS), c["layer"],
+        impl=impl)
+    return out.numpy(), kp.numpy(), vp.numpy()
+
+
+def _valid_rows(c):
+    return c["token_slot"] >= 0
+
+
+@pytest.mark.parametrize("impl", ["plain", "kernel"])
+def test_mixed_update_and_attend_vs_jax_oracle(impl):
+    """Port vs the reference's XLA oracle (its CPU default).  The plain
+    path reproduces the oracle on every row; the kernel path (its plain
+    versions on CPU) on every valid row, with padding rows zero."""
+    c = _attend_case()
+    want, wk, wv = _jax_attend(c, "xla")
+    got, gk, gv = _torch_attend(c, impl)
+    np.testing.assert_array_equal(gk, wk)
+    np.testing.assert_array_equal(gv, wv)
+    rows = slice(None) if impl == "plain" else _valid_rows(c)
+    np.testing.assert_allclose(got[rows], want[rows], atol=1e-5, rtol=0)
+    if impl == "kernel":
+        assert not got[~_valid_rows(c)].any()
+
+
+def test_mixed_update_and_attend_vs_pallas_interpret(monkeypatch):
+    """Port kernel path vs the reference's ragged Pallas kernel, run
+    interpreted on the CPU: every row, padding rows exactly zero."""
+    monkeypatch.setenv("ARKS_ATTN_IMPL", "pallas")
+    c = _attend_case(seed=12)
+    want, wk, wv = _jax_attend(c, "pallas")
+    got, gk, gv = _torch_attend(c, "kernel")
+    np.testing.assert_array_equal(gk, wk)
+    np.testing.assert_array_equal(gv, wv)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    assert not got[~_valid_rows(c)].any() and not want[~_valid_rows(c)].any()
+
+
+def test_paged_mixed_attention_plain_vs_pallas_per_lane():
+    """The plain version of the attention kernel against the reference's
+    ``paged_mixed_attention`` on its own per-lane layout [S, Hkv, G, Q, D]
+    (the gather the port's kernel does not need is done here)."""
+    c = _attend_case(seed=13)
+    hkv, d = c["k_pool"].shape[2], c["q"].shape[-1]
+    g = c["q"].shape[1] // hkv
+    s = c["seq_q_len"].shape[0]
+    qmax = int(c["seq_q_len"].max())
+    span = c["seq_q_start"][:, None] + np.arange(qmax)
+    qs = c["q"][np.minimum(span, len(c["q"]) - 1)]       # [S, Q, H, D]
+    qs = qs.reshape(s, qmax, hkv, g, d).transpose(0, 2, 3, 1, 4)
+    want = np.asarray(jpa.paged_mixed_attention(
+        jnp.asarray(qs), jnp.asarray(c["k_pool"]), jnp.asarray(c["v_pool"]),
+        jnp.asarray(c["tables"]), jnp.asarray(c["seq_pos_start"]),
+        jnp.asarray(c["seq_q_len"]), c["layer"], interpret=True))
+    got = tpa.paged_mixed_attention_plain(
+        torch.from_numpy(c["q"]), torch.from_numpy(c["k_pool"]),
+        torch.from_numpy(c["v_pool"]), torch.from_numpy(c["tables"]),
+        torch.from_numpy(c["seq_q_start"]), torch.from_numpy(c["seq_q_len"]),
+        torch.from_numpy(c["seq_pos_start"]), c["layer"], qmax=qmax).numpy()
+    for lane in range(s):
+        for i in range(int(c["seq_q_len"][lane])):
+            t = c["seq_q_start"][lane] + i
+            np.testing.assert_allclose(
+                got[t].reshape(hkv, g, d), want[lane, :, :, i], atol=1e-5,
+                rtol=0)
+    assert not want[c["seq_q_len"] == 0].any()
+
+
+def test_kernel_wrappers_reject_bad_impl():
+    c = _attend_case()
+    with pytest.raises(ValueError):
+        _torch_attend(c, "fast")
