@@ -10,8 +10,10 @@ tokens, spread round-robin over every prefilling sequence.  A sequence
 whose prompt completes inside the batch samples its first token in the
 same step.  Every prompt rides the chunked path; page size == chunk size.
 
-What the reference does and this slice does not — device prefix sharing,
-host/disk prefix tiers, pipelined dispatch, quantized KV and weights,
+The KV pool is bf16/f32 (the engine dtype), int8 or int4
+(``kv_cache_dtype``).  Seeded sampling draws the reference's threefry
+keys.  What the reference does and this slice does not — device prefix
+sharing, host/disk prefix tiers, pipelined dispatch, quantized weights,
 speculative decoding, guided decoding, penalties and logprobs, fault
 recovery, parallelism — is rejected by ``EngineConfig.validate`` or
 ``add_request`` rather than silently ignored.
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from arks_tpu_torch.device import resolve_device
+from arks_tpu_torch.engine import prng
 from arks_tpu_torch.engine import sampler as sampler_mod
 from arks_tpu_torch.engine.paged import PageAllocator, pages_needed
 from arks_tpu_torch.engine.types import Request, RequestOutput
@@ -62,18 +65,15 @@ class EngineConfig:
     pipeline_parallel: int = 1
     draft_model: str | None = None
     dtype: str | None = None   # default: model config dtype
-    kv_cache_dtype: str = "auto"   # "auto" = the engine dtype; "bf16"
+    # "auto" = the model config's preference, else the engine dtype;
+    # "bf16", "int8" or "int4".
+    kv_cache_dtype: str = "auto"
     weight_dtype: str = "bf16"     # unquantized weights
     kv_layout: str = "auto"        # "auto" = "paged"
     seed: int = 0
 
     def validate(self) -> None:
-        if self.kv_cache_dtype in ("int8", "int4"):
-            raise NotImplementedError(
-                f"kv_cache_dtype={self.kv_cache_dtype}: quantized KV pools "
-                "arrive with the quantized-pool slice")
-        if self.kv_cache_dtype not in ("auto", "bf16"):
-            raise ValueError(f"kv_cache_dtype={self.kv_cache_dtype!r}")
+        self.resolve_kv_cache_dtype()
         if self.weight_dtype != "bf16":
             raise NotImplementedError(
                 f"weight_dtype={self.weight_dtype}: quantized weights arrive "
@@ -97,19 +97,25 @@ class EngineConfig:
         if self.num_slots < 1 or self.max_cache_len < 2:
             raise ValueError("num_slots >= 1 and max_cache_len >= 2")
 
-    def resolve_kv_cache_dtype(self, engine_dtype: torch.dtype) -> torch.dtype:
-        if self.kv_cache_dtype == "bf16" and engine_dtype != torch.bfloat16:
-            raise NotImplementedError(
-                "a bf16 pool under a float32 engine: the attention kernel "
-                "reads q and the pool in one dtype")
-        return engine_dtype
+    def resolve_kv_cache_dtype(self) -> str:
+        """'int8' | 'int4' | 'bf16' | 'engine' (= the engine dtype).
+        "auto" resolves as the reference resolves it off its own
+        accelerator: the engine dtype."""
+        if self.kv_cache_dtype not in ("auto", "bf16", "int8", "int4"):
+            raise ValueError(f"kv_cache_dtype={self.kv_cache_dtype!r}")
+        if self.kv_cache_dtype == "auto":
+            return "engine"
+        return self.kv_cache_dtype
+
+    @property
+    def kv_quantized(self) -> bool:
+        return self.resolve_kv_cache_dtype() in ("int8", "int4")
 
 
 @dataclasses.dataclass
 class _Slot:
     request: Request
     num_prompt: int
-    generator: torch.Generator | None
     generated: list[int] = dataclasses.field(default_factory=list)
     num_emitted: int = 0
 
@@ -121,7 +127,7 @@ class _ChunkState:
     request: Request
     ids: list[int]
     pos: int      # tokens already prefilled
-    generator: torch.Generator | None
+    key: np.ndarray   # np_prng_key(seed): the first token's key
 
 
 _UNSERVED = (("presence_penalty", 0.0, "penalties"),
@@ -144,6 +150,14 @@ class InferenceEngine:
     def __init__(self, cfg: ModelConfig, engine_cfg: EngineConfig,
                  tokenizer, params: tf.Params | None = None,
                  device: str | torch.device | None = None) -> None:
+        # A model config's KV dtype preference applies when the engine's
+        # setting is "auto" (an explicit engine setting wins).
+        if engine_cfg.kv_cache_dtype == "auto" and \
+                cfg.kv_cache_dtype != "auto":
+            engine_cfg = dataclasses.replace(
+                engine_cfg, kv_cache_dtype=cfg.kv_cache_dtype)
+            log.info("kv_cache_dtype=%s from the model config",
+                     cfg.kv_cache_dtype)
         engine_cfg.validate()
         if cfg.num_experts:
             raise NotImplementedError("MoE models arrive with the MoE slice")
@@ -164,15 +178,19 @@ class InferenceEngine:
         self._page = c
         self._max_pages = engine_cfg.max_cache_len // c
         num_pages = engine_cfg.num_slots * self._max_pages
+        kv = engine_cfg.resolve_kv_cache_dtype()
+        if kv == "bf16" and dtype != torch.bfloat16:
+            raise NotImplementedError(
+                "a bf16 pool under a float32 engine: the attention kernel "
+                "reads q and an unquantized pool in one dtype")
         self.cache = tf.init_paged_cache(
-            cfg, num_pages, c, engine_cfg.resolve_kv_cache_dtype(dtype),
-            self.device)
+            cfg, num_pages, c, dtype, self.device,
+            quantized=kv in ("int8", "int4"), kv_bits=4 if kv == "int4" else 8)
         self._alloc = PageAllocator(num_pages, c)
         budget = int(os.environ.get("ARKS_MIXED_CHUNK_TOKENS") or c)
         if budget < 1:
             raise ValueError(f"ARKS_MIXED_CHUNK_TOKENS={budget}: must be >= 1")
         self._mixed_budget = min(budget, engine_cfg.max_cache_len)
-        self._sample_width = sampler_mod.window(cfg.vocab_size)
 
         # Host-authoritative scheduler state (engine thread only).
         n = engine_cfg.num_slots
@@ -184,6 +202,9 @@ class InferenceEngine:
         self._slot_pages: dict[int, list[int]] = {}
         self._free: list[int] = list(range(n))
         self._request_seed = 0
+        # Each slot's threefry key [n, 2] (decoding slots only are read).
+        self._keys = torch.zeros((n, 2), dtype=torch.int64,
+                                 device=self.device)
 
         # Shared with caller threads.
         self._queue: queue.PriorityQueue = queue.PriorityQueue()
@@ -200,6 +221,14 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     # Request API
     # ------------------------------------------------------------------
+
+    @property
+    def kv_quantized(self) -> bool:
+        return self.cache.quantized
+
+    @property
+    def kv_bits(self) -> int:
+        return self.cache.kv_bits
 
     @property
     def max_prompt_len(self) -> int:
@@ -350,12 +379,8 @@ class InferenceEngine:
         self._slot_pages[slot] = pages
         self._tables[slot] = 0
         self._tables[slot, :total] = pages
-        gen = None
-        if req.params.temperature > 0:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(int(seed))
         self._prefilling[slot] = _ChunkState(request=req, ids=ids, pos=0,
-                                             generator=gen)
+                                             key=prng.np_prng_key(seed))
         self._lengths[slot] = len(ids)
         self._last_token[slot] = 0
 
@@ -445,27 +470,37 @@ class InferenceEngine:
             t += take
         return completing, chunk_take, t
 
-    def _lane_sampling(self, lanes: dict[int, tuple]):
-        """Per-lane sampling columns for the lanes that sample this step
-        ({slot: (params, generator)}); other lanes are greedy and unread."""
+    def _lane_sampling(self, dec_slots: list[int], completing: list[int]):
+        """Per-lane sampling columns for the lanes that sample this step;
+        other lanes are greedy and unread.  Decoding lanes draw with their
+        slot key and carry it on; a completing lane draws its first token
+        with its chunk key (the reference's override columns).  Returns
+        (temperature, top_p, top_k, keys, active), with keys and active
+        None when no lane samples: no key is read then, so none advances."""
         n = self.ecfg.num_slots
         temp = np.zeros((n,), np.float32)
         top_p = np.ones((n,), np.float32)
         top_k = np.zeros((n,), np.int32)
-        gens: list = [None] * n
-        for slot, (p, gen) in lanes.items():
+        lanes = [(s, self._slots[s].request.params) for s in dec_slots]
+        lanes += [(s, self._prefilling[s].request.params) for s in completing]
+        for slot, p in lanes:
             temp[slot] = p.temperature
             top_p[slot] = p.top_p
             top_k[slot] = p.top_k
-            if p.temperature > 0:
-                gens[slot] = gen
-        noise = None
-        if any(g is not None for g in gens):
-            noise = sampler_mod.gumbel_noise(gens, self._sample_width,
-                                             self.device)
         dev = self.device
-        return (torch.from_numpy(temp).to(dev), torch.from_numpy(top_p).to(dev),
-                torch.from_numpy(top_k).to(dev), noise)
+        cols = tuple(torch.from_numpy(x).to(dev) for x in (temp, top_p, top_k))
+        if not (temp > 0).any():
+            return (*cols, None, None)
+        override = np.zeros((n,), bool)
+        ov_keys = np.zeros((n, 2), np.uint32)
+        for slot in completing:
+            override[slot] = True
+            ov_keys[slot] = self._prefilling[slot].key
+        active = np.zeros((n,), bool)
+        active[dec_slots] = True
+        keys = torch.where(torch.from_numpy(override).to(dev)[:, None],
+                           prng.key_tensor(ov_keys, dev), self._keys)
+        return (*cols, keys, torch.from_numpy(active).to(dev))
 
     def _issue_mixed(self):
         """Build and run ONE mixed dispatch: every decoding slot's next
@@ -504,18 +539,16 @@ class InferenceEngine:
         qmax = max(int(a["seq_q_len"].max()), 1)
         dev = self.device
         d = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
-        lanes = {s: (self._slots[s].request.params, self._slots[s].generator)
-                 for s in dec_slots}
-        lanes.update({s: (self._prefilling[s].request.params,
-                          self._prefilling[s].generator)
-                      for s in completing})
         t0 = time.monotonic()
         logits = tf.mixed_step(
             self.params, self.cfg, self.cache,
             torch.from_numpy(self._tables.copy()).to(dev), d["tokens"],
             d["token_slot"], d["token_pos"], d["sample_src"],
             d["seq_q_start"], d["seq_q_len"], d["seq_pos_start"], qmax=qmax)
-        ids_dev = sampler_mod.sample(logits, *self._lane_sampling(lanes))
+        ids_dev, keys = sampler_mod.sample(
+            logits, *self._lane_sampling(dec_slots, completing))
+        if keys is not None:
+            self._keys = keys
         self.dispatches += 1
         self.shared_dispatches += bool(dec_slots and chunk_take)
         return dec_slots, completing, chunk_take, ids_dev, t0
@@ -548,8 +581,10 @@ class InferenceEngine:
 
     def _register_slot(self, cs: _ChunkState, slot: int, first: int) -> None:
         req = cs.request
-        st = _Slot(request=req, num_prompt=len(cs.ids),
-                   generator=cs.generator)
+        st = _Slot(request=req, num_prompt=len(cs.ids))
+        # The decode key stream is the chunk key folded with 1.
+        self._keys[slot] = prng.fold_in(
+            prng.key_tensor(cs.key, self.device), 1)
         st.generated.append(first)
         self._slots[slot] = st
         self._lengths[slot] = len(cs.ids)

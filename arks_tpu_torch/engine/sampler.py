@@ -3,38 +3,24 @@
 over the ``TOP_K_MAX`` highest logits.
 
 Greedy is ``argmax`` (the first index wins ties, as ``jnp.argmax``).  A
-sampled lane draws with Gumbel-max over its filtered window — what
-``jax.random.categorical`` does — from noise the caller makes with the
-lane's own ``torch.Generator``.  The draws are NOT the reference's:
-torch generators are not threefry, so seeded streams match the reference
-in distribution, not bit for bit.  Penalties, logit_bias, min_tokens,
-logprobs and guides are later slices.
+sampled lane splits its key into (step, carry) and draws
+``categorical`` over its filtered window with the step key, through the
+threefry port in ``engine/prng.py`` — the reference's draw, bit for bit in
+its integer path.  Penalties, logit_bias, min_tokens, logprobs and guides
+are later slices.
 """
 
 from __future__ import annotations
 
 import torch
 
+from arks_tpu_torch.engine import prng
+
 TOP_K_MAX = 64
 
 
 def window(vocab_size: int) -> int:
     return min(TOP_K_MAX, vocab_size)
-
-
-def gumbel_noise(generators: list, width: int,
-                 device: torch.device) -> torch.Tensor:
-    """[B, width] Gumbel(0, 1) noise, row b drawn from generators[b]
-    (zeros for rows with no generator: greedy lanes ignore it)."""
-    rows = []
-    for gen in generators:
-        if gen is None:
-            rows.append(torch.zeros(width, device=device))
-            continue
-        u = torch.rand(width, generator=gen, device=device)
-        u = u.clamp(min=torch.finfo(torch.float32).tiny)
-        rows.append(-torch.log(-torch.log(u)))
-    return torch.stack(rows)
 
 
 def _filtered_scaled(logits: torch.Tensor, temperature: torch.Tensor,
@@ -60,14 +46,21 @@ def sample(logits: torch.Tensor,        # [B, V] f32
            temperature: torch.Tensor,   # [B] f32; <= 0 means greedy
            top_p: torch.Tensor,         # [B] f32 in (0, 1]
            top_k: torch.Tensor,         # [B] int; 0 = whole window
-           noise: torch.Tensor | None = None,  # [B, W] Gumbel noise
-           ) -> torch.Tensor:
-    """One token per lane -> ids [B] int32.  With ``noise`` None every lane
-    is greedy."""
+           keys: torch.Tensor | None = None,    # [B, 2] threefry keys
+           active: torch.Tensor | None = None,  # [B] bool
+           ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One token per lane -> (ids [B] int32, carry keys [B, 2]).  With
+    ``keys`` None every lane is greedy and no key is returned.  Every
+    lane's key splits, greedy lanes' too (the reference's ``vmap``);
+    ``active`` False freezes a lane's key, as in the reference."""
     greedy_ids = torch.argmax(logits, dim=-1).to(torch.int32)
-    if noise is None:
-        return greedy_ids
+    if keys is None:
+        return greedy_ids, None
     scaled, top_idx = _filtered_scaled(logits, temperature, top_p, top_k)
-    choice = torch.argmax(scaled + noise, dim=-1)
+    new_keys = prng.split(keys, 2)
+    step_keys, carry = new_keys[:, 0], new_keys[:, 1]
+    choice = prng.categorical(step_keys, scaled)
     sampled = top_idx.gather(1, choice[:, None])[:, 0].to(torch.int32)
-    return torch.where(temperature <= 0, greedy_ids, sampled)
+    if active is not None:
+        carry = torch.where(active[:, None], carry, keys)
+    return torch.where(temperature <= 0, greedy_ids, sampled), carry

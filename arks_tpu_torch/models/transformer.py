@@ -38,14 +38,25 @@ def torch_dtype(name: str | torch.dtype) -> torch.dtype:
 
 
 class PagedKVCache(NamedTuple):
-    """Paged KV pool [num_layers, num_pages, Hkv, page, head_dim], bf16 or
-    f32 (int8/int4 pools with their scales are the next slice).  A page is
-    one (layer, kv-head)-major stripe of ``page`` consecutive positions of
-    one sequence; the engine's block tables [B, MaxP] map position p of
-    lane b to page tables[b, p // page].  The kernels write it in place."""
+    """Paged KV pool [num_layers, num_pages, Hkv, page, head_dim].  A page
+    is one (layer, kv-head)-major stripe of ``page`` consecutive positions
+    of one sequence; the engine's block tables [B, MaxP] map position p of
+    lane b to page tables[b, p // page].  The kernels write it in place.
+
+    bf16/f32 pools hold the rows; int8 pools hold quantized rows with
+    per-token scales [L, N, Hkv, page] f32; int4 pools pack token pairs
+    into nibble bytes along the page axis ([L, N, Hkv, page // 2, D] int8)
+    while the scales keep full token resolution — which is also how
+    int4-ness is detected (pool page rows != scale page)."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @property
     def num_pages(self) -> int:
@@ -53,7 +64,17 @@ class PagedKVCache(NamedTuple):
 
     @property
     def page(self) -> int:
+        """Tokens per page (position math uses this; an int4 pool's byte
+        rows are page // 2)."""
+        if self.k_scale is not None:
+            return self.k_scale.shape[3]
         return self.k.shape[3]
+
+    @property
+    def kv_bits(self) -> int:
+        if self.k_scale is None:
+            return self.k.element_size() * 8
+        return 4 if self.k.shape[3] != self.k_scale.shape[3] else 8
 
 
 def init_params(cfg: ModelConfig, seed: int, dtype=None,
@@ -108,12 +129,29 @@ def init_params(cfg: ModelConfig, seed: int, dtype=None,
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page: int, dtype=None,
-                     device: torch.device | str | None = None
+                     device: torch.device | str | None = None, *,
+                     quantized: bool = False, kv_bits: int = 8
                      ) -> PagedKVCache:
-    """A zeroed pool on ``device`` (CUDA unless the caller passes "cpu")."""
-    dtype = torch_dtype(dtype or cfg.dtype)
+    """A zeroed pool on ``device`` (CUDA unless the caller passes "cpu"):
+    of ``dtype``, or with ``quantized`` an int8 (``kv_bits`` 8) or int4
+    (``kv_bits`` 4, even ``page``) pool with f32 scales."""
     device = resolve_device(device)
     shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, page, cfg.head_dim)
+    if quantized:
+        if kv_bits not in (4, 8):
+            raise ValueError(f"quantized kv_bits must be 4 or 8, got "
+                             f"{kv_bits}")
+        if kv_bits == 4 and page % 2:
+            raise ValueError(f"int4 page size {page} must be even")
+        rows = page // 2 if kv_bits == 4 else page
+        vshape = shape[:3] + (rows, shape[4])
+        i8 = dict(dtype=torch.int8, device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        return PagedKVCache(k=torch.zeros(vshape, **i8),
+                            v=torch.zeros(vshape, **i8),
+                            k_scale=torch.zeros(shape[:-1], **f32),
+                            v_scale=torch.zeros(shape[:-1], **f32))
+    dtype = torch_dtype(dtype or cfg.dtype)
     return PagedKVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                         v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -198,7 +236,8 @@ def mixed_step(
     rope = rope_cos_sin(torch.clamp(token_pos, max=cover - 1), cfg.head_dim,
                         cfg.rope_theta)
     batch = prepare_mixed(cache.k, tables, token_slot, token_pos, seq_q_start,
-                          seq_q_len, seq_pos_start, impl=impl, qmax=qmax)
+                          seq_q_len, seq_pos_start, impl=impl, qmax=qmax,
+                          k_scale=cache.k_scale)
     layers = params["layers"]
     h = embed_lookup(params["embed"], tokens, layers["attn_norm"].dtype)
     for layer in range(cfg.num_layers):
@@ -207,7 +246,8 @@ def mixed_step(
         attn = paged_mixed_update_and_attend(
             q, k, v, cache.k, cache.v, tables, token_slot, token_pos,
             seq_q_start, seq_q_len, seq_pos_start, layer, impl=impl,
-            qmax=qmax, batch=batch)
+            qmax=qmax, batch=batch, k_scale=cache.k_scale,
+            v_scale=cache.v_scale)
         h = _block_tail(h, attn.reshape(t_flat, cfg.q_dim), lp, cfg)
     h_sel = h[sample_src.long()]                            # [B, E]
     return _unembed(h_sel, params, cfg)

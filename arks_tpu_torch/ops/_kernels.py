@@ -7,10 +7,14 @@ beside the package (listed in ``.gitignore``), named by a hash of the
 source and flags, so an edited source never loads a stale build.  Nothing
 is built at import time: a kernel is built by its first launch or by
 ``build_all`` (which starts one nvcc per source, all at once).
+``--split-compile=0`` lets nvcc optimise the template instances of one
+source in parallel threads (the attention source's 12 took 33 s in one
+thread on the H100 machine, 15 s split).
 
 The flags keep IEEE division and round-to-nearest-even (no
-``--use_fast_math``): the quantized-pool kernels of the next slice need
-both, and the attention kernel's exp/divide stay close to the reference's.
+``--use_fast_math``): the quantize-and-write kernel needs both to give the
+reference's int8/int4 values and scales bit for bit, and the attention
+kernel's exp/divide stay close to the reference's.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "arks_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,13 +46,20 @@ _SIGNATURES: dict[str, tuple[str, list]] = {
         _P, _P,                  # write_idx [T], tables [T, MaxP]
         _I, _I, _I, _I, _I, _I,  # T, hkv, max_pages, n_pages, page, row_bytes
         _I, _P]),                # layer, stream
+    "arks_paged_kv_update_quant": ("paged_kv_update_quant", [
+        _P, _P, _P, _P,          # k_pool, v_pool (int8), k_scale, v_scale
+        _P, _P, _P, _P,          # k_new, v_new, write_idx [T], tables
+        _I, _I, _I, _I, _I, _I,  # T, hkv, head_dim, max_pages, n_pages, page
+        _I, _I, _I, _P]),        # int4, layer, dtype code, stream
     "arks_paged_mixed_attention": ("paged_mixed_attention", [
         _P, _P, _P, _P,          # q [T,H,D], out [T,H,D], k_pool, v_pool
+        _P, _P,                  # k_scale, v_scale [L,N,Hkv,P] f32 or NULL
         _P, _P, _P, _P,          # tables [S,MaxP], pos_start, q_start, q_len
         _P, _P, _P, _P, _P,      # work list: seq, head, qb, plo, pages
         _I, _I, _I, _I, _I,      # n_items, n_heads, hkv, head_dim, page
         _I, _I, _I, _I,          # n_pages, max_pages, layer, block_q
-        _F, _I, _P]),            # scale, dtype code (0 f32, 1 bf16), stream
+        _F, _I, _I, _P]),        # scale, dtype code (0 f32, 1 bf16),
+                                 # kv code (0 q's dtype, 1 int8, 2 int4), stream
 }
 
 _lock = threading.Lock()

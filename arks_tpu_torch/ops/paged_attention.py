@@ -1,20 +1,28 @@
-"""Paged KV cache ops: block-table work lists, the plain PyTorch oracles, and
-the wrappers of the two CUDA kernels on the served path (port of
-``arks_tpu/ops/paged_attention.py``, bf16/f32 pools).
+"""Paged KV cache ops: the pool formats, block-table work lists, the plain
+PyTorch oracles, and the wrappers of the three CUDA kernels on the served
+path (port of ``arks_tpu/ops/paged_attention.py``).
 
 - **Pool layout** ``[L, N_pages, Hkv, P, D]``; block tables ``[B, MaxP]``
   int32 map position p of lane b to pool page ``tables[b, p // P]``.  The
   head dim is stored unpadded (the reference's 128-lane padding works
   around a TPU Mosaic limit Hopper does not have).
+- **Quantized pools** keep the reference's bytes.  An int8 pool is
+  ``[L, N, Hkv, P, D]`` int8; an int4 pool packs token pairs along the page
+  axis, ``[L, N, Hkv, P/2, D]`` int8 with token 2t in the low nibble and
+  2t+1 in the high nibble.  Both carry per-token f32 scales
+  ``[L, N, Hkv, P]``, and an int4 pool is detected by pool rows != scale
+  page.  Values are symmetric per token over D (``quantize_kv``).
 - **Pools are updated in place.**  The JAX functions return new arrays;
-  here ``paged_update_xla`` and ``paged_kv_update`` write into the pool
-  tensors they are given (and return them for symmetry).
-- **Kernels** (``csrc/paged_kv_update.cu``, ``csrc/paged_mixed_attention.cu``)
-  launch for CUDA tensors and raise on anything they do not take — a build
-  or launch error, an unsupported dtype or shape; there is no fallback.
-  Tensors on the CPU take each kernel's plain version, which
-  ``impl="plain"`` also selects on the card (for comparison only).
-  Each wrapper counts its launches in ``<wrapper>.launches``.
+  here ``paged_update_xla``, ``paged_kv_update`` and
+  ``paged_kv_update_quant`` write into the tensors they are given (and
+  return them for symmetry).
+- **Kernels** (``csrc/paged_kv_update.cu``, ``csrc/paged_kv_update_quant.cu``,
+  ``csrc/paged_mixed_attention.cu``) launch for CUDA tensors and raise on
+  anything they do not take — a build or launch error, an unsupported
+  dtype or shape; there is no fallback.  Tensors on the CPU take each
+  kernel's plain version, which ``impl="plain"`` also selects on the card
+  (for comparison only).  Each wrapper counts its launches in
+  ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -47,6 +55,79 @@ def _use_kernel(x: torch.Tensor, impl: str | None) -> bool:
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def _check_operands(kernel: str, device: torch.device, operands, *,
+                    aligned: bool = True) -> None:
+    """Raise unless every (name, tensor) lies on ``device`` and, with
+    ``aligned``, is contiguous and 16-byte aligned."""
+    for name, x in operands:
+        if not x.is_cuda or x.device != device:
+            raise ValueError(f"{kernel}: {name} is not on {device}")
+        if aligned and (not x.is_contiguous() or x.data_ptr() % 16):
+            raise ValueError(f"{kernel}: {name} must be contiguous and "
+                             "16-byte aligned")
+
+
+# ---------------------------------------------------------------------------
+# Quantized pool formats
+# ---------------------------------------------------------------------------
+
+
+def is_int4_pool(k_pool: torch.Tensor, k_scale: torch.Tensor | None) -> bool:
+    return k_scale is not None and k_pool.shape[3] != k_scale.shape[3]
+
+
+def pool_page_tokens(k_pool: torch.Tensor,
+                     k_scale: torch.Tensor | None) -> int:
+    """Tokens per page — the position-arithmetic page size (2x the packed
+    byte rows for int4 pools)."""
+    return k_scale.shape[3] if is_int4_pool(k_pool, k_scale) \
+        else k_pool.shape[3]
+
+
+def pack_int4(vals: torch.Tensor, axis: int) -> torch.Tensor:
+    """Pack int8 values in [-7, 7] into nibble pairs along ``axis`` (its
+    extent must be even): out[.., t, ..] = lo(2t) | hi(2t+1) << 4."""
+    axis = axis % vals.ndim
+    pr = vals.unflatten(axis, (vals.shape[axis] // 2, 2))
+    lo, hi = pr.select(axis + 1, 0), pr.select(axis + 1, 1)
+    return ((lo & 15) | (hi << 4)).to(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor, axis: int) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: int8 nibble pairs -> int8 values in
+    [-7, 7], doubling ``axis``.  Sign extension is two arithmetic shifts
+    (done in int32, so the left shift never overflows)."""
+    axis = axis % packed.ndim
+    w = packed.to(torch.int32)
+    lo = (w << 28) >> 28
+    hi = w >> 4
+    return torch.stack([lo, hi], dim=axis + 1).flatten(
+        axis, axis + 1).to(torch.int8)
+
+
+def unpack_int4_pool(pool: torch.Tensor) -> torch.Tensor:
+    """[L, N, Hkv, P//2, D] packed -> [L, N, Hkv, P, D] int8 — the oracle's
+    view (every int8 oracle then applies unchanged)."""
+    return unpack_int4(pool, axis=3)
+
+
+def quantize_kv(x: torch.Tensor, axis: int = -1,
+                qmax: int = 127) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-token quantization (the reference's
+    ``pallas_attention.quantize_kv``): returns (q int8, scale f32) with the
+    scale axis removed.  scale = max(amax / qmax, 1e-8) and q =
+    clip(round_half_even(x / scale), -qmax, qmax).  Bit for bit what the
+    reference computes, which always runs under ``jit``: there XLA turns
+    the division by the constant qmax into a multiplication by its f32
+    reciprocal, while x / scale stays an IEEE division."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=axis)
+    inv = torch.ones((), dtype=torch.float32, device=x.device) / qmax
+    scale = torch.clamp(amax * inv, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale.unsqueeze(axis)), -qmax, qmax)
+    return q.to(torch.int8), scale
 
 
 # ---------------------------------------------------------------------------
@@ -121,29 +202,53 @@ def build_mixed_work_list(pos_start: torch.Tensor, q_len: torch.Tensor, *,
 def paged_gather_kv(pool: torch.Tensor, tables: torch.Tensor,
                     layer: int) -> torch.Tensor:
     """Slot-contiguous [B, Hkv, MaxP*P, D] view of the paged pool (a copy) —
-    the oracle path; the kernel never does this."""
-    g = pool[layer][tables.long()]              # [B, MaxP, Hkv, P, D]
-    b, mp, hkv, p, d = g.shape
-    return g.permute(0, 2, 1, 3, 4).reshape(b, hkv, mp * p, d)
+    the oracle path; the kernel never does this.  A 4-D scale pool
+    [L, N, Hkv, P] gives [B, Hkv, MaxP*P]."""
+    g = pool[layer][tables.long()]              # [B, MaxP, Hkv, P, (D)]
+    b, mp, hkv, p = g.shape[:4]
+    return g.transpose(1, 2).reshape(b, hkv, mp * p, *g.shape[4:])
 
 
 def paged_update_xla(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
                      write_idx, tables, layer):
     """Scatter one KV row per token through its block-table row, IN PLACE
-    (the reference's oracle scatter; bf16/f32 pools).  ``write_idx`` at or
-    past the table's coverage (MaxP * P) is the inactive-token sentinel:
-    that row is dropped.  Returns (k_pool, v_pool, k_scale, v_scale)."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8/int4 KV pools arrive with the quantized-pool slice")
-    p = k_pool.shape[3]
+    (the reference's oracle scatter).  ``write_idx`` at or past the table's
+    coverage (MaxP * P) is the inactive-token sentinel: that row is
+    dropped, as is a table entry outside the pool.  Quantized pools
+    (``k_scale`` given) store ``quantize_kv`` values and scales; int4 pools
+    merge one nibble of the target byte, in two parity passes so that
+    pair-mates 2t and 2t+1 of one dispatch keep each other's nibble.
+    Returns (k_pool, v_pool, k_scale, v_scale)."""
+    int4 = is_int4_pool(k_pool, k_scale)
+    p = pool_page_tokens(k_pool, k_scale)
     keep = (write_idx < tables.shape[1] * p) & (write_idx >= 0)
     sel = torch.nonzero(keep).squeeze(1)
     idx = write_idx[sel].long()
     page = tables[sel].long().gather(1, (idx // p)[:, None])[:, 0]
+    inside = (page >= 0) & (page < k_pool.shape[1])
+    sel, idx, page = sel[inside], idx[inside], page[inside]
     off = idx % p
-    k_pool[layer][page, :, off] = k_new[sel].to(k_pool.dtype)
-    v_pool[layer][page, :, off] = v_new[sel].to(v_pool.dtype)
+    if k_scale is None:
+        k_pool[layer][page, :, off] = k_new[sel].to(k_pool.dtype)
+        v_pool[layer][page, :, off] = v_new[sel].to(v_pool.dtype)
+        return k_pool, v_pool, k_scale, v_scale
+    qmax = 7 if int4 else 127
+    for pool, scales, new in ((k_pool, k_scale, k_new),
+                              (v_pool, v_scale, v_new)):
+        vals, sc = quantize_kv(new[sel], qmax=qmax)
+        scales[layer][page, :, off] = sc
+        if not int4:
+            pool[layer][page, :, off] = vals
+            continue
+        for parity in (0, 1):
+            m = (off % 2) == parity
+            pg, row = page[m], off[m] // 2
+            old = pool[layer][pg, :, row]
+            if parity == 0:
+                merged = (old & -16) | (vals[m] & 15)
+            else:
+                merged = (old & 15) | (vals[m] << 4)
+            pool[layer][pg, :, row] = merged
     return k_pool, v_pool, k_scale, v_scale
 
 
@@ -187,14 +292,9 @@ def paged_kv_update(k_pool: torch.Tensor,    # [L, N, Hkv, P, D]
     if row_bytes % 16:
         raise ValueError(f"paged_kv_update kernel needs D * itemsize % 16 == "
                          f"0, got {row_bytes}")
-    for name, x in (("k_pool", k_pool), ("v_pool", v_pool), ("k_new", kn),
-                    ("v_new", vn), ("write_idx", widx), ("tables", tbl)):
-        if not x.is_cuda or x.device != k_pool.device:
-            raise ValueError(f"paged_kv_update: {name} is not on "
-                             f"{k_pool.device}")
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"paged_kv_update: {name} must be contiguous "
-                             "and 16-byte aligned")
+    _check_operands("paged_kv_update", k_pool.device, (
+        ("k_pool", k_pool), ("v_pool", v_pool), ("k_new", kn),
+        ("v_new", vn), ("write_idx", widx), ("tables", tbl)))
     if kn.shape != (t, hkv, d) or vn.shape != (t, hkv, d) or \
             widx.shape != (t,) or tbl.shape[0] != t:
         raise ValueError("paged_kv_update: shape mismatch "
@@ -214,6 +314,85 @@ paged_kv_update.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# Kernel #3: in-place quantize-and-write into an int8/int4 pool
+# ---------------------------------------------------------------------------
+
+
+def paged_kv_update_quant_plain(k_pool, v_pool, k_scale, v_scale, k_new,
+                                v_new, write_idx, tables, layer):
+    """Plain version of the quantized update kernel: ``quantize_kv`` plus
+    the oracle scatter (with its two-parity nibble merge), in place."""
+    return paged_update_xla(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
+                            write_idx, tables, layer)
+
+
+def paged_kv_update_quant(k_pool: torch.Tensor,   # [L, N, Hkv, P(/2), D] i8
+                          v_pool: torch.Tensor,
+                          k_scale: torch.Tensor,  # [L, N, Hkv, P] f32
+                          v_scale: torch.Tensor,
+                          k_new: torch.Tensor,    # [T, Hkv, D] bf16/f32
+                          v_new: torch.Tensor,
+                          write_idx: torch.Tensor,  # [T] int32
+                          tables: torch.Tensor,     # [T, MaxP] int32
+                          layer: int, *, impl: str | None = None):
+    """Quantize each token's K and V rows per token over D (qmax 127 for an
+    int8 pool, 7 for int4) and write values and f32 scales at the
+    table-mapped page, IN PLACE; rows with write_idx >= MaxP * P and table
+    entries outside the pool are dropped.  CUDA tensors launch
+    ``csrc/paged_kv_update_quant.cu`` (replaces the Pallas
+    ``_paged_update_quant_kernel``); CPU tensors take
+    ``paged_kv_update_quant_plain``."""
+    if not _use_kernel(k_pool, impl):
+        return paged_kv_update_quant_plain(k_pool, v_pool, k_scale, v_scale,
+                                           k_new, v_new, write_idx, tables,
+                                           layer)
+    _, n, hkv, rows, d = k_pool.shape
+    page = k_scale.shape[3]
+    int4 = rows != page
+    t = k_new.shape[0]
+    if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8 or \
+            k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise TypeError("paged_kv_update_quant kernel takes int8 pools and "
+                        f"f32 scales, got {k_pool.dtype}/{v_pool.dtype}/"
+                        f"{k_scale.dtype}/{v_scale.dtype}")
+    if k_new.dtype not in _KERNEL_DTYPES or v_new.dtype != k_new.dtype:
+        raise TypeError("paged_kv_update_quant kernel takes bf16/f32 rows, "
+                        f"got {k_new.dtype}/{v_new.dtype}")
+    if v_pool.shape != k_pool.shape or k_scale.shape != v_scale.shape or \
+            k_scale.shape != k_pool.shape[:3] + (page,) or \
+            rows != (page // 2 if int4 else page) or d % 4:
+        raise ValueError("paged_kv_update_quant: pools "
+                         f"{tuple(k_pool.shape)} and scales "
+                         f"{tuple(k_scale.shape)} are not an int8 or int4 "
+                         "pool pair with D % 4 == 0")
+    kn, vn = k_new.contiguous(), v_new.contiguous()
+    widx = write_idx.to(torch.int32).contiguous()
+    tbl = tables.to(torch.int32).contiguous()
+    _check_operands("paged_kv_update_quant", k_pool.device, (
+        ("k_pool", k_pool), ("v_pool", v_pool), ("k_scale", k_scale),
+        ("v_scale", v_scale), ("k_new", kn), ("v_new", vn),
+        ("write_idx", widx), ("tables", tbl)))
+    if kn.shape != (t, hkv, d) or vn.shape != (t, hkv, d) or \
+            widx.shape != (t,) or tbl.shape[0] != t:
+        raise ValueError("paged_kv_update_quant: shape mismatch "
+                         f"k_new {tuple(kn.shape)} write_idx "
+                         f"{tuple(widx.shape)} tables {tuple(tbl.shape)}")
+    if not 0 <= layer < k_pool.shape[0]:
+        raise ValueError(f"layer {layer} out of range")
+    _kernels.launch("arks_paged_kv_update_quant", k_pool.data_ptr(),
+                    v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+                    kn.data_ptr(), vn.data_ptr(), widx.data_ptr(),
+                    tbl.data_ptr(), t, hkv, d, tbl.shape[1], n, page,
+                    int(int4), int(layer), _KERNEL_DTYPES[kn.dtype],
+                    _stream())
+    paged_kv_update_quant.launches += 1
+    return k_pool, v_pool, k_scale, v_scale
+
+
+paged_kv_update_quant.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Kernel #1: ragged mixed prefill+decode attention
 # ---------------------------------------------------------------------------
 
@@ -224,33 +403,52 @@ def _default_qmax(t: int, s: int) -> int:
     return max(t - s + 1, 1)
 
 
+def gather_pool(pool, tables, layer, int4: bool) -> torch.Tensor:
+    """``paged_gather_kv`` of a value pool; an int4 pool is seen through
+    ``unpack_int4_pool``, one layer at a time."""
+    if int4:
+        pool, layer = unpack_int4_pool(pool[layer:layer + 1]), 0
+    return paged_gather_kv(pool, tables, layer)
+
+
 def paged_mixed_attention_plain(q, k_pool, v_pool, tables, seq_q_start,
-                                q_len, pos_start, layer, *, qmax=None):
+                                q_len, pos_start, layer, *, k_scale=None,
+                                v_scale=None, qmax=None):
     """Plain version of the attention kernel: gather each lane's queries
     into [S, Hkv, G, Qmax, D] and its pages into [S, Hkv, MaxP*P, D], do the
-    masked softmax in f32 in one pass (p rounded to the V dtype before p.V,
-    divide by l + 1e-9 after, as the kernel does), and scatter the valid
-    rows back to [T, H, D].  Rows no lane owns are zero."""
+    masked softmax in f32 in one pass, and scatter the valid rows back to
+    [T, H, D].  The kernel's folding: scores = (q.k) / sqrt(D), times the
+    per-token k scale of a quantized pool; p times the per-token v scale,
+    then rounded to the V dtype (q's dtype for a quantized pool) before
+    p.V; divide by l + 1e-9 after.  Rows no lane owns are zero."""
     t, h, d = q.shape
     s = q_len.shape[0]
     hkv = k_pool.shape[2]
     g = h // hkv
-    cover = tables.shape[1] * k_pool.shape[3]
+    int4 = is_int4_pool(k_pool, k_scale)
+    cover = tables.shape[1] * pool_page_tokens(k_pool, k_scale)
     qmax = qmax or _default_qmax(t, s)
     dev = q.device
     ar = torch.arange(qmax, device=dev)
     span = seq_q_start.long()[:, None] + ar                      # [S, Qmax]
     valid = ar[None, :] < q_len.long()[:, None]
     qs = q[span.clamp(max=t - 1)].reshape(s, qmax, hkv, g, d).float()
-    kc = paged_gather_kv(k_pool, tables, layer).float()          # [S,Hkv,C,D]
-    vc = paged_gather_kv(v_pool, tables, layer)
+    kc = gather_pool(k_pool, tables, layer, int4).float()       # [S,Hkv,C,D]
+    vc = gather_pool(v_pool, tables, layer, int4)
     scores = torch.einsum("sqkgd,skcd->skgqc", qs, kc) * (1.0 / math.sqrt(d))
+    if k_scale is not None:
+        scores = scores * paged_gather_kv(k_scale, tables,
+                                          layer)[:, :, None, None, :]
     qpos = pos_start.long()[:, None] + ar                        # [S, Qmax]
     seen = torch.arange(cover, device=dev)[None, None, :] <= qpos[:, :, None]
     scores = scores.masked_fill(~seen[:, None, None], _NEG_INF)
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
-    pv = torch.einsum("skgqc,skcd->skgqd", p.to(vc.dtype).float(), vc.float())
+    p_dtype = vc.dtype
+    if v_scale is not None:
+        p = p * paged_gather_kv(v_scale, tables, layer)[:, :, None, None, :]
+        p_dtype = q.dtype
+    pv = torch.einsum("skgqc,skcd->skgqd", p.to(p_dtype).float(), vc.float())
     o = (pv / (l + 1e-9)).to(q.dtype)                            # [S,Hkv,G,Q,D]
     rows = o.permute(0, 3, 1, 2, 4).reshape(s * qmax, h, d)
     out = torch.zeros((t + 1, h, d), dtype=q.dtype, device=dev)
@@ -286,13 +484,15 @@ def mixed_work(tables, seq_q_start, q_len, pos_start, *, page: int, hkv: int,
 
 def paged_mixed_attention(
     q: torch.Tensor,            # [T, H, D] flat mixed token batch
-    k_pool: torch.Tensor,       # [L, N, Hkv, P, D]
+    k_pool: torch.Tensor,       # [L, N, Hkv, P, D] ([.., P/2, D] int4)
     v_pool: torch.Tensor,
     tables: torch.Tensor,       # [S, MaxP] int32 — lane s's block table
     seq_q_start: torch.Tensor,  # [S] int32 — lane's first flat-token index
     q_len: torch.Tensor,        # [S] int32 — lane's token count (0 inactive)
     pos_start: torch.Tensor,    # [S] int32 — global position of that token
     layer: int, *,
+    k_scale: torch.Tensor | None = None,  # [L, N, Hkv, P] f32 (int8/int4)
+    v_scale: torch.Tensor | None = None,
     qmax: int | None = None,
     impl: str | None = None,
     work: MixedWork | None = None,
@@ -300,7 +500,9 @@ def paged_mixed_attention(
     """Ragged mixed attention over the flat token batch: token
     seq_q_start[s] + i (query i of lane s, global position pos_start[s] + i)
     attends lane s's table pages over positions [0, pos_start[s] + i].
-    Returns [T, H, D]; rows no lane owns (padding tokens) are zero.
+    Returns [T, H, D]; rows no lane owns (padding tokens) are zero.  With
+    ``k_scale``/``v_scale`` the pools are int8, or int4 when the pool has
+    half the scale page's rows.
 
     The reference's ``paged_mixed_attention`` takes per-lane queries
     [S, Hkv, G, Q, D]; this wrapper takes the flat batch the kernel reads
@@ -316,13 +518,27 @@ def paged_mixed_attention(
     if not _use_kernel(q, impl):
         return paged_mixed_attention_plain(q, k_pool, v_pool, tables,
                                            seq_q_start, q_len, pos_start,
-                                           layer, qmax=qmax)
-    _, n, hkv, page, dk = k_pool.shape
-    if q.dtype not in _KERNEL_DTYPES or k_pool.dtype != q.dtype or \
-            v_pool.dtype != q.dtype:
-        raise TypeError("paged_mixed_attention kernel takes q and pools of "
-                        f"one dtype (bf16/f32), got {q.dtype}/"
-                        f"{k_pool.dtype}/{v_pool.dtype}")
+                                           layer, k_scale=k_scale,
+                                           v_scale=v_scale, qmax=qmax)
+    _, n, hkv, rows, dk = k_pool.shape
+    quantized = k_scale is not None
+    page = pool_page_tokens(k_pool, k_scale)
+    kv_mode = (2 if rows != page else 1) if quantized else 0
+    pool_dtype = torch.int8 if quantized else q.dtype
+    if q.dtype not in _KERNEL_DTYPES or k_pool.dtype != pool_dtype or \
+            v_pool.dtype != pool_dtype or (v_scale is None) == quantized:
+        raise TypeError("paged_mixed_attention kernel takes bf16/f32 q over "
+                        "pools of q's dtype, or int8/int4 pools with both "
+                        f"scales; got {q.dtype}/{k_pool.dtype}/"
+                        f"{v_pool.dtype}")
+    if quantized:
+        if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32 \
+                or k_scale.shape != k_pool.shape[:3] + (page,) or \
+                v_scale.shape != k_scale.shape or \
+                v_pool.shape != k_pool.shape or page % 2:
+            raise ValueError("paged_mixed_attention: scales "
+                             f"{tuple(k_scale.shape)} {k_scale.dtype} do not "
+                             f"match the pool {tuple(k_pool.shape)}")
     if dk != d or d not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"paged_mixed_attention kernel takes head_dim in "
                          f"{_KERNEL_HEAD_DIMS} matching the pool, got q {d} "
@@ -336,24 +552,24 @@ def paged_mixed_attention(
         work = mixed_work(tables, seq_q_start, q_len, pos_start, page=page,
                           hkv=hkv, qmax=qmax)
     qc = q.contiguous()
-    for name, x in (("q", qc), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("work", work.tables)):
-        if not x.is_cuda or x.device != q.device:
-            raise ValueError(f"paged_mixed_attention: {name} is not on "
-                             f"{q.device}")
-    for name, x in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"paged_mixed_attention: {name} must be "
-                             "contiguous and 16-byte aligned")
+    scales = (("k_scale", k_scale), ("v_scale", v_scale)) if quantized \
+        else ()
+    _check_operands("paged_mixed_attention", q.device,
+                    (("q", qc), ("work", work.tables)), aligned=False)
+    _check_operands("paged_mixed_attention", q.device,
+                    (("k_pool", k_pool), ("v_pool", v_pool), *scales))
     out = torch.zeros_like(qc)
     _kernels.launch("arks_paged_mixed_attention", qc.data_ptr(),
                     out.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                    k_scale.data_ptr() if quantized else None,
+                    v_scale.data_ptr() if quantized else None,
                     work.tables.data_ptr(), work.pos_start.data_ptr(),
                     work.seq_q_start.data_ptr(), work.q_len.data_ptr(),
                     *(x.data_ptr() for x in work.items),
                     work.items[0].shape[0], h, hkv, d, page, n,
                     work.tables.shape[1], int(layer), work.block_q,
-                    1.0 / math.sqrt(d), _KERNEL_DTYPES[q.dtype], _stream())
+                    1.0 / math.sqrt(d), _KERNEL_DTYPES[q.dtype], kv_mode,
+                    _stream())
     paged_mixed_attention.launches += 1
     return out
 

@@ -26,6 +26,11 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--num-slots", type=int, default=8)
     p.add_argument("--max-model-len", type=int, default=1024)
     p.add_argument("--dtype", default=None)
+    p.add_argument("--kv-cache-dtype", default="auto",
+                   choices=("auto", "bf16", "int8", "int4"),
+                   help="KV pool: auto (the model's preference, else the "
+                        "engine dtype), bf16, int8 (per-token scales) or "
+                        "int4 (token pairs packed per byte)")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -38,7 +43,7 @@ def main(argv: list[str] | None = None) -> None:
     cfg = get_config(args.model)
     ecfg = EngineConfig(model=args.model, num_slots=args.num_slots,
                         max_cache_len=args.max_model_len, dtype=args.dtype,
-                        seed=args.seed)
+                        kv_cache_dtype=args.kv_cache_dtype, seed=args.seed)
     engine = InferenceEngine(cfg, ecfg, load_tokenizer(args.tokenizer_path),
                              device=args.device)
     server = OpenAIServer(engine, args.served_model_name or args.model,

@@ -7,34 +7,52 @@ Phases (any failure raises and exits non-zero):
   1. device   the card's name and power limit (nvidia-smi); no CUDA -> exit 2
   2. build    nvcc builds every kernel from arks_tpu_torch/csrc (timed)
   3. kernels  each kernel vs its plain version on the card at Qwen2.5-7B
-              shapes (Hkv=4, G=7, D=128, page 256, bf16) on a mixed batch:
-              8 decode lanes across page boundaries, prefill chunks of 256
+              shapes (Hkv=4, G=7, D=128, page 256) on a mixed batch: 8
+              decode lanes across page boundaries, prefill chunks of 256
               and 37 tokens (one starting mid-page), padding tokens and
-              inactive lanes.  The update must leave the pool bit-identical
-              to the plain scatter; the bf16 attention within 5e-3 of the
-              plain version in bf16 and 1e-2 of it in f32 on the same bf16
-              inputs; the f32 attention within 1e-5 of the plain version in
-              f32; rows no lane owns exactly zero.
+              inactive lanes.  bf16 pool: the update must leave the pool
+              bit-identical to the plain scatter; the bf16 attention within
+              5e-3 of the plain version in bf16 and 1e-2 of it in f32 on
+              the same bf16 inputs; the f32 attention within 1e-5 of the
+              plain version in f32.  int8 and int4 pools: the quantized
+              update bit-identical to its plain version (values and
+              scales); the attention within 5e-3 of the plain version in
+              bf16 and 1e-5 in f32.  Rows no lane owns exactly zero.  Then
+              the threefry bits, keys and uniforms of 64 seeds on the card
+              equal those on the CPU bit for bit.
   4. serve    the port's engine at Qwen2.5-7B full width (random bf16
               weights from a seed, 8 slots, max_cache_len 4096) behind its
-              OpenAI server: completions (plain, SSE across two prefill
-              chunks, repeated greedy), chat, and concurrent requests that
-              share dispatches; both kernels' launch counters must equal
-              num_layers x the mixed dispatches of this phase.
+              OpenAI server, once with a bf16 KV pool and once, on the same
+              weights, with an int8 pool: completions (plain, SSE across
+              two prefill chunks, repeated greedy, a seeded sampled request
+              twice), chat, and concurrent requests that share
+              dispatches.  Each run's counters are set to 0 just before it
+              and read just after: its update kernel (paged_kv_update, or
+              paged_kv_update_quant for int8) and paged_mixed_attention
+              must each count num_layers x that run's mixed dispatches, the
+              other update kernel none.
   5. parity   two mixed_steps through the kernels vs the same steps through
-              impl="plain": logits within 10% of the largest |logit| in
-              bf16 and within 5e-4 in f32, and the same argmax wherever the
-              top-2 margin exceeds that tolerance.  Then a traced decode
-              step: host time per step and the device's busy share.
+              impl="plain" at full width: logits within 10% of the largest
+              |logit| in bf16 and within 5e-4 in f32, and the same argmax
+              wherever the top-2 margin exceeds that tolerance — over all
+              28 layers with a bf16/f32 pool, over the first layer with an
+              int8 and an int4 pool.  Over all 28 layers the quantized
+              pools are read, not limited (see phase_parity): finite, and
+              the same argmax wherever the margin exceeds 10%.  Then traced
+              decode steps (bf16 and int8 pools): host time per step and
+              the device's busy share.
   6. times    CUDA-event kernel times (L2 flushed before each launch) beside
               their bounds, the plain versions and one PyTorch library call
-              computing the same function; end-to-end decode tok/s and TTFT.
+              computing the same function (none for the quantized update);
+              int8/int4 attention beside SDPA over pre-gathered,
+              pre-dequantized KV; end-to-end decode tok/s and TTFT.
 The line before the last is the kernels JSON; the last line is the device
-JSON.
+JSON.  A kernel's "launches" counts its launches in the phase-4 runs.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import http.client
 import json
 import math
@@ -51,7 +69,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 PAGE, MAX_PAGES = 256, 16        # engine page (= chunk) and table width
 UPDATE_SRC = "arks_tpu_torch/csrc/paged_kv_update.cu"
+QUANT_SRC = "arks_tpu_torch/csrc/paged_kv_update_quant.cu"
 ATTN_SRC = "arks_tpu_torch/csrc/paged_mixed_attention.cu"
+KV_BITS = {"int8": 8, "int4": 4}
 # Attention, phase 3: the bf16 kernel vs the bf16 plain version (one bf16
 # ulp at |x| < 1 is at most 3.9e-3) and vs the f32 plain version on the
 # same bf16 inputs; the f32 kernel vs the f32 plain version.
@@ -191,8 +211,102 @@ def phase_kernels(torch, dev):
             and err_f32k <= ATTN_TOL_F32_KERNEL and pad_max == 0.0):
         raise AssertionError("paged_mixed_attention disagrees with its plain "
                              "version")
+    b["pools_before"] = b["k_pool"], b["v_pool"]
     b["k_pool"], b["v_pool"] = k_kern, v_kern
     return b, upd_err, err_bf16
+
+
+def quant_pools(b, kv):
+    """Phase 3's bf16 pools (as they were before phase 3's update)
+    quantized per token as the served path stores them: int8 values (or
+    int4, packed along the page axis) and f32 scales — pools that already
+    hold data at realistic magnitudes."""
+    from arks_tpu_torch.ops import paged_attention as pa
+    out = {}
+    for name, pool in zip(("k", "v"), b["pools_before"]):
+        vals, scale = pa.quantize_kv(pool, qmax=7 if kv == "int4" else 127)
+        out[f"{name}_pool"] = pa.pack_int4(vals, 3) if kv == "int4" else vals
+        out[f"{name}_scale"] = scale
+    return out
+
+
+def phase_quant_kernels(torch, dev, b):
+    """The quantized update and the int8/int4 attention streams against
+    their plain versions on phase 3's batch.  Returns {kv: (pools, update
+    error, bf16 attention error)}."""
+    from arks_tpu_torch.ops import paged_attention as pa
+    names = ("k_pool", "v_pool", "k_scale", "v_scale")
+    upd = (b["k_new"], b["v_new"], b["write_idx"], b["tables_tok"],
+           b["layer"])
+    lane = (b["tables"], b["seq_q_start"], b["seq_q_len"], b["seq_pos_start"],
+            b["layer"])
+    pad = b["token_slot"] < 0
+    res = {}
+    for kv in KV_BITS:
+        pools = quant_pools(b, kv)
+        kern = [pools[k].clone() for k in names]
+        plain = [pools[k].clone() for k in names]
+        pa.paged_kv_update_quant(*kern, *upd)
+        pa.paged_kv_update_quant(*plain, *upd, impl="plain")
+        torch.cuda.synchronize()
+        same = all(torch.equal(g.view(torch.int8), w.view(torch.int8))
+                   for g, w in zip(kern, plain))
+        upd_err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(kern, plain))
+        written = not torch.equal(kern[0], pools["k_pool"])
+        log(f"[kernels] paged_kv_update_quant {kv}: values and scales "
+            f"bit-identical to the plain version: {same} (max abs err "
+            f"{upd_err}); rows written: {written}")
+        if not (same and written):
+            raise AssertionError(f"paged_kv_update_quant ({kv}) differs from "
+                                 "its plain version")
+        kp, vp, ks, vs = kern
+        sc = dict(k_scale=ks, v_scale=vs)
+        out_k = pa.paged_mixed_attention(b["q"], kp, vp, *lane, **sc)
+        out_p = pa.paged_mixed_attention(b["q"], kp, vp, *lane, impl="plain",
+                                         **sc)
+        qf = b["q"].float()
+        out_fk = pa.paged_mixed_attention(qf, kp, vp, *lane, **sc)
+        out_fp = pa.paged_mixed_attention(qf, kp, vp, *lane, impl="plain",
+                                          **sc)
+        torch.cuda.synchronize()
+        err_bf16 = (out_k.float() - out_p.float()).abs().max().item()
+        err_f32 = (out_fk - out_fp).abs().max().item()
+        pad_max = max(out_k[pad].float().abs().max().item(),
+                      out_fk[pad].abs().max().item())
+        finite = bool(torch.isfinite(out_k.float()).all().item()
+                      and torch.isfinite(out_fk).all().item())
+        log(f"[kernels] paged_mixed_attention {kv} pool: bf16 kernel max abs "
+            f"err vs plain bf16 {err_bf16:.3e} (tol {ATTN_TOL_BF16}); f32 "
+            f"kernel vs plain f32 {err_f32:.3e} (tol {ATTN_TOL_F32_KERNEL}); "
+            f"rows no lane owns max |x| {pad_max}; finite {finite}")
+        if not (finite and err_bf16 <= ATTN_TOL_BF16
+                and err_f32 <= ATTN_TOL_F32_KERNEL and pad_max == 0.0):
+            raise AssertionError(f"paged_mixed_attention ({kv} pool) "
+                                 "disagrees with its plain version")
+        res[kv] = (dict(zip(names, kern)), upd_err, err_bf16)
+    return res
+
+
+def phase_prng(torch, dev):
+    """Threefry on the card against the CPU: split, fold_in, random_bits
+    and uniform of 64 seeds (past 2**32 and negative ones included) bit for
+    bit."""
+    from arks_tpu_torch.engine import prng
+    seeds = list(range(60)) + [2**32 + 3, 2**40, -1, -77]
+    keys = prng.key_tensor(np.stack([prng.np_prng_key(x) for x in seeds]))
+    checks = {
+        "split": lambda k: prng.split(k, 3),
+        "fold_in": lambda k: prng.fold_in(k, 1),
+        "random_bits": lambda k: prng.random_bits(k, 257),
+        "uniform": lambda k: prng.uniform(k, 257).view(torch.int32),
+    }
+    same = {name: bool(torch.equal(fn(keys.to(dev)).cpu(), fn(keys)))
+            for name, fn in checks.items()}
+    log(f"[prng] threefry on the card == on the CPU for {len(seeds)} seeds: "
+        f"{same}")
+    if not all(same.values()):
+        raise AssertionError("threefry differs between the card and the CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +360,14 @@ def _check_usage(what, usage, prompt_len, max_tokens, finish):
         raise AssertionError(f"{what}: usage/finish_reason inconsistent")
 
 
-def phase_serve(torch, dev):
+def _pool_bytes(cache):
+    return sum(x.numel() * x.element_size() for x in cache
+               if x is not None)
+
+
+def phase_serve(torch, dev, kv="bf16", params=None):
+    """The served path with a ``kv`` pool ("bf16" or "int8"), on ``params``
+    (random weights from SEED when None).  Returns (engine, results)."""
     from arks_tpu_torch.engine import EngineConfig, InferenceEngine
     from arks_tpu_torch.engine.tokenizer import ByteTokenizer
     from arks_tpu_torch.models import get_config
@@ -257,19 +378,24 @@ def phase_serve(torch, dev):
     t0 = time.perf_counter()
     engine = InferenceEngine(cfg, EngineConfig(
         model=MODEL, num_slots=8, max_cache_len=MAX_PAGES * PAGE,
-        prefill_chunk=PAGE, dtype="bfloat16", seed=SEED), ByteTokenizer(),
-        device=dev)
+        prefill_chunk=PAGE, dtype="bfloat16", kv_cache_dtype=kv, seed=SEED),
+        ByteTokenizer(), params=params, device=dev)
     torch.cuda.synchronize()
-    log(f"[serve] {MODEL} engine up in {time.perf_counter() - t0:.1f} s: "
+    tag = f"[serve {kv}]"
+    res = {"pool_bytes": _pool_bytes(engine.cache)}
+    log(f"{tag} {MODEL} engine up in {time.perf_counter() - t0:.1f} s: "
         f"{sum(x.numel() for x in _leaves(engine.params)) / 1e9:.2f}B "
-        f"params bf16, pool {tuple(engine.cache.k.shape)}, "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+        f"params bf16, {kv} pool {tuple(engine.cache.k.shape)} "
+        f"{engine.cache.k.dtype}, K+V pool {res['pool_bytes']} B (scales "
+        f"included), {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+        "allocated")
     server = OpenAIServer(engine, MODEL, host="127.0.0.1", port=0)
     server.start(background=True)
     engine.start()
     port = server.port
     tok = engine.tokenizer
-    res = {}
+    counted = ("paged_kv_update", "paged_kv_update_quant",
+               "paged_mixed_attention")
     try:
         # Warm-up request (first cuBLAS/kernel calls), outside the counts.
         st, data, _, _ = _request(port, "/v1/completions", {
@@ -277,8 +403,8 @@ def phase_serve(torch, dev):
         if st != 200:
             raise AssertionError(f"warm-up failed: {st} {data}")
 
-        pa.paged_kv_update.launches = 0
-        pa.paged_mixed_attention.launches = 0
+        for name in counted:
+            getattr(pa, name).launches = 0
         d0, shared0 = engine.dispatches, engine.shared_dispatches
 
         prompt = "The port serves OpenAI completions on the card."
@@ -287,13 +413,28 @@ def phase_serve(torch, dev):
         if st != 200:
             raise AssertionError(f"completion: HTTP {st} {data}")
         text1 = data["choices"][0]["text"]
-        _check_usage("completion", data["usage"], len(tok.encode(prompt)),
-                     24, data["choices"][0]["finish_reason"])
+        _check_usage(f"{kv} completion", data["usage"],
+                     len(tok.encode(prompt)), 24,
+                     data["choices"][0]["finish_reason"])
         st, data2, _, _ = _request(port, "/v1/completions", body)
         if st != 200 or data2["choices"][0]["text"] != text1:
             raise AssertionError("a repeated greedy completion differs")
-        log(f"[serve] repeated greedy completion identical ({len(text1)} "
+        log(f"{tag} repeated greedy completion identical ({len(text1)} "
             "chars)")
+        seeded = {"prompt": prompt, "max_tokens": 12, "temperature": 0.9,
+                  "top_p": 0.95, "top_k": 50, "seed": 2**33 + 11,
+                  "ignore_eos": True}
+        texts = []
+        for _ in range(2):
+            st, data3, _, _ = _request(port, "/v1/completions", seeded)
+            if st != 200:
+                raise AssertionError(f"seeded completion: HTTP {st} {data3}")
+            texts.append(data3["choices"][0]["text"])
+        log(f"{tag} seeded sampled completion identical twice: "
+            f"{texts[0] == texts[1]}")
+        if texts[0] != texts[1]:
+            raise AssertionError("a seeded request gave two different "
+                                 "streams")
 
         long_ids = [int(x) for x in
                     np.random.default_rng(SEED).integers(2, 258, 300)]
@@ -304,8 +445,8 @@ def phase_serve(torch, dev):
         text, finish, usage = _stream_summary(frames)
         if st != 200 or len(finish) != 1 or len(usage) != 1:
             raise AssertionError(f"SSE completion: HTTP {st}, {finish}")
-        _check_usage("SSE completion (300-token prompt, 2 chunks)", usage[0],
-                     300, 32, finish[0])
+        _check_usage(f"{kv} SSE completion (300-token prompt, 2 chunks)",
+                     usage[0], 300, 32, finish[0])
         res["ttft_300_s"] = ttft
 
         msgs = [{"role": "user", "content": "Say something about pages."}]
@@ -313,7 +454,7 @@ def phase_serve(torch, dev):
             "messages": msgs, "max_tokens": 16, "temperature": 0})
         if st != 200 or data["choices"][0]["message"]["role"] != "assistant":
             raise AssertionError(f"chat: HTTP {st} {data}")
-        _check_usage("chat completion", data["usage"],
+        _check_usage(f"{kv} chat completion", data["usage"],
                      len(tok.apply_chat_template(msgs)), 16,
                      data["choices"][0]["finish_reason"])
 
@@ -340,24 +481,26 @@ def phase_serve(torch, dev):
             st, data, _, _ = out[key]
             if st != 200:
                 raise AssertionError(f"concurrent {key}: HTTP {st} {data}")
-            _check_usage(f"concurrent {key}", data["usage"], n_prompt, n_max,
+            _check_usage(f"{kv} concurrent {key}", data["usage"], n_prompt,
+                         n_max,
                          data["choices"][0]["finish_reason"])
         shared = engine.shared_dispatches - shared0
-        log(f"[serve] dispatches carrying decode and prefill tokens: {shared}")
+        log(f"{tag} dispatches carrying decode and prefill tokens: {shared}")
         if shared < 1:
             raise AssertionError("decode and prefill never shared a dispatch")
 
         dispatches = engine.dispatches - d0
-        launches = {"paged_kv_update": pa.paged_kv_update.launches,
-                    "paged_mixed_attention":
-                        pa.paged_mixed_attention.launches}
+        launches = {name: getattr(pa, name).launches for name in counted}
         want = cfg.num_layers * dispatches
-        log(f"[serve] mixed dispatches {dispatches}, launches {launches}, "
-            f"expected {want} each ({cfg.num_layers} layers)")
-        if any(v != want for v in launches.values()) or dispatches == 0:
+        update = "paged_kv_update_quant" if engine.kv_quantized \
+            else "paged_kv_update"
+        expected = {name: want if name in (update, "paged_mixed_attention")
+                    else 0 for name in counted}
+        log(f"{tag} mixed dispatches {dispatches}, launches {launches}, "
+            f"expected {expected} ({cfg.num_layers} layers)")
+        if launches != expected or dispatches == 0:
             raise AssertionError("kernel launch counts != layers x dispatches")
         res["launches"] = launches
-        res["launches_per_step"] = cfg.num_layers
 
         # End-to-end decode rate: one stream, then 8 concurrent.
         st, frames, t_first, secs = _request(port, "/v1/completions", {
@@ -378,7 +521,7 @@ def phase_serve(torch, dev):
         total = sum(out[f"b{i}"][1]["usage"]["completion_tokens"]
                     for i in range(8))
         res["decode_tok_s_b8"] = total / wall
-        log(f"[serve] decode {res['decode_tok_s_b1']:.1f} tok/s at batch 1, "
+        log(f"{tag} decode {res['decode_tok_s_b1']:.1f} tok/s at batch 1, "
             f"{res['decode_tok_s_b8']:.1f} tok/s aggregate at batch 8 "
             f"({total} tokens in {wall:.2f} s incl. prefill); TTFT of the "
             f"300-token prompt {res['ttft_300_s'] * 1e3:.1f} ms (first SSE "
@@ -406,8 +549,8 @@ def phase_parity(torch, dev, engine):
     """Two mixed steps (a 300-token chunk crossing a page + a short chunk,
     then a decode lane, the rest of that chunk and a new one) through the
     kernels and through impl="plain", in bf16 on the engine's weights and in
-    f32 on an f32 copy of them.  Both: the same argmax wherever the top-2
-    margin exceeds the tolerance.
+    f32 on an f32 copy of them, over a bf16/f32, an int8 and an int4 pool.
+    All: the same argmax wherever the top-2 margin exceeds the tolerance.
 
     f32 is the tight check: within 5e-4 absolute (6.6e-5 measured on an H100).  bf16
     is a loose one: within 10% of the largest |logit|.  The kernel rounds p
@@ -415,22 +558,47 @@ def phase_parity(torch, dev, engine):
     rounds the normalised probabilities; 28 random layers amplify the
     difference.  At 5% one H100 run passed with 0.297 against a limit of
     0.308, so the limit is 10%; at that width no lane's top-2 margin exceeds
-    it, and the argmax clause holds only in f32."""
+    it, and the argmax clause holds only in f32.
+
+    With a quantized pool each path quantizes the K/V rows it writes (and
+    the oracle folds the v scale after normalising, the kernel before: a
+    by-design difference, ROADMAP queue 3).  Over the first layer both
+    paths quantize identical rows, so the limits above hold (H100: f32
+    about 1e-5).  From the second layer on the rows differ by the rounding
+    of the first layer's attention, a value on a rounding edge lands one
+    quantization step apart on the two paths, and random layers amplify
+    that: over 28 layers, f32 1.3e-2 to 2.1e-2 with int8 and 6.8e-2 to
+    9.9e-2 with int4, and bf16 int4 up to 16% of the largest |logit|
+    (readings on an H100 80GB HBM3 at 700 W).  So the quantized pools are
+    held to the limits over the first layer, and over all layers read with
+    the argmax clause at a 10% margin."""
     from arks_tpu_torch.models import transformer as tf
+    cfg = engine.cfg
+    one = dataclasses.replace(cfg, num_layers=1)
     worst = {}
     for dtype, rel, abs_tol in ((torch.bfloat16, 0.10, 0.0),
                                 (torch.float32, 0.0, 5e-4)):
         params = engine.params if dtype == torch.bfloat16 else {
             k: ({n: w.float() for n, w in v.items()} if isinstance(v, dict)
                 else v.float()) for k, v in engine.params.items()}
-        worst[str(dtype)] = _parity_steps(torch, dev, tf, engine.cfg, params,
-                                          dtype, rel, abs_tol)
-        del params
+        first = {k: ({n: w[:1] for n, w in v.items()} if isinstance(v, dict)
+                     else v) for k, v in params.items()}
+        name = str(dtype).split(".")[1]
+        worst[f"{name} unquantized"] = _parity_steps(
+            torch, dev, tf, cfg, params, dtype, rel, abs_tol, None)
+        for kv in KV_BITS:
+            worst[f"{name} {kv} 1 layer"] = _parity_steps(
+                torch, dev, tf, one, first, dtype, rel, abs_tol, kv)
+            worst[f"{name} {kv} {cfg.num_layers} layers, read"] = \
+                _parity_steps(torch, dev, tf, cfg, params, dtype, 0.10, 0.0,
+                              kv, limit=False)
+        del params, first
         torch.cuda.empty_cache()
     return worst
 
 
-def _parity_steps(torch, dev, tf, cfg, params, dtype, rel, abs_tol):
+def _parity_steps(torch, dev, tf, cfg, params, dtype, rel, abs_tol, kv,
+                  limit=True):
     maxp, n_pages = 3, 9
     tables = torch.arange(n_pages, dtype=torch.int32,
                           device=dev).reshape(3, maxp)
@@ -456,8 +624,9 @@ def _parity_steps(torch, dev, tf, cfg, params, dtype, rel, abs_tol):
 
     steps = [batch([(0, p0, 0), (1, p1[:24], 0)]),
              batch([(0, [11], 300), (1, p1[24:], 24), (2, p1[:7], 0)])]
-    caches = {impl: tf.init_paged_cache(cfg, n_pages, PAGE, dtype, dev)
-              for impl in ("kernel", "plain")}
+    caches = {impl: tf.init_paged_cache(
+        cfg, n_pages, PAGE, dtype, dev, quantized=kv is not None,
+        kv_bits=KV_BITS.get(kv, 8)) for impl in ("kernel", "plain")}
     worst = 0.0
     for i, args in enumerate(steps):
         logits = {impl: tf.mixed_step(params, cfg, caches[impl], tables,
@@ -470,29 +639,34 @@ def _parity_steps(torch, dev, tf, cfg, params, dtype, rel, abs_tol):
         wide = (top2[:, 0] - top2[:, 1]) > tol
         agree = bool((k.argmax(-1) == p.argmax(-1))[wide].all().item())
         finite = bool(torch.isfinite(k).all().item())
-        log(f"[parity] {dtype} step {i}: max |logit diff| {err:.3e} (tol "
+        log(f"[parity] {dtype} {kv or 'unquantized'} pool, "
+            f"{cfg.num_layers} layer(s), step {i}: max |logit diff| "
+            f"{err:.3e} ({'limit' if limit else 'argmax margin'} "
             f"{tol:.3e}; max |logit| {p.abs().max().item():.3f}), argmax "
             f"agrees on the {int(wide.sum())} of 3 lanes with margin > tol: "
             f"{agree}; finite {finite}")
-        if not (err <= tol and agree and finite):
+        if not ((err <= tol or not limit) and agree and finite):
             raise AssertionError("mixed_step through the kernels disagrees "
                                  "with the plain path")
         worst = max(worst, err)
     return worst
 
 
-def phase_step_profile(torch, dev, engine):
+def phase_step_profile(torch, dev, engine, kv=None):
     """Where a decode step's time goes: one mixed_step + greedy sample over
-    8 decode lanes at context 512 on the engine's weights, timed on the host
-    clock (synchronised) and traced with torch.profiler for the device's
-    kernel time.  Device busy share = summed device kernel time / wall."""
+    8 decode lanes at context 512 on the engine's weights and a bf16 (or
+    ``kv``) pool, timed on the host clock (synchronised) and traced with
+    torch.profiler for the device's kernel time.  Device busy share =
+    summed device kernel time / wall."""
     from torch.profiler import ProfilerActivity, profile
 
     from arks_tpu_torch.engine import sampler
     from arks_tpu_torch.models import transformer as tf
     cfg, lanes, ctx = engine.cfg, 8, 512
     maxp = ctx // PAGE + 1
-    cache = tf.init_paged_cache(cfg, lanes * maxp, PAGE, torch.bfloat16, dev)
+    cache = tf.init_paged_cache(cfg, lanes * maxp, PAGE, torch.bfloat16, dev,
+                                quantized=kv is not None,
+                                kv_bits=KV_BITS.get(kv, 8))
     i32 = dict(dtype=torch.int32, device=dev)
     ar = torch.arange(lanes, **i32)
     args = (torch.arange(lanes * maxp, **i32).reshape(lanes, maxp),
@@ -501,7 +675,7 @@ def phase_step_profile(torch, dev, engine):
 
     def step():
         logits = tf.mixed_step(engine.params, cfg, cache, *args, qmax=1)
-        return sampler.sample(logits, None, None, None).cpu()
+        return sampler.sample(logits, None, None, None)[0].cpu()
 
     for _ in range(3):
         step()
@@ -523,7 +697,10 @@ def phase_step_profile(torch, dev, engine):
                        for x in _leaves(engine.params))
     bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"[profile] decode step, {lanes} lanes at context {ctx}: "
+    top += [e for e in kernels if e not in top and (
+        "paged_kv_update" in e.key or "mixed_attention" in e.key)]
+    log(f"[profile] decode step, {kv or 'bf16'} pool, {lanes} lanes at "
+        f"context {ctx}: "
         f"{wall_ms:.2f} ms host clock ({lanes / wall_ms * 1e3:.1f} tok/s), "
         f"device kernel time "
         + (f"{dev_us / 1e3:.2f} ms/step, busy share "
@@ -540,10 +717,17 @@ def phase_step_profile(torch, dev, engine):
 # ---------------------------------------------------------------------------
 
 
+SPIN_CYCLES = 200_000    # ~100 us of GPU clock at the H100's 1.98 GHz
+
+
 def _time_ms(torch, fn, iters=20, warmup=3):
     """Mean CUDA-event time of fn() over ``iters`` launches, with a 256 MiB
     write before each so L2 (50 MB) holds none of its inputs — the served
-    path streams 15 GB of weights between two calls of a kernel."""
+    path streams 15 GB of weights between two calls of a kernel.  A GPU
+    spin between the write and the start event keeps the card busy while
+    the host runs the wrapper and queues its launch, so a kernel's time is
+    its time on the device, not the wrapper's host-side checks (a chain of
+    small ops that outruns the spin still counts its host gaps)."""
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
@@ -551,11 +735,82 @@ def _time_ms(torch, fn, iters=20, warmup=3):
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         fn()
         e.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+def _attn_bytes(b, q_len, kv_elem_bytes, scale_bytes=0):
+    """Bytes attention must move for the lanes of ``q_len``: the lane view
+    (3 int32 per lane), each active lane's table entries for its pages,
+    its K/V prefix [0, pos_start + q_len) once per KV head (values of
+    ``kv_elem_bytes`` each, plus ``scale_bytes`` of scales per token), q
+    read and out written once (bf16)."""
+    t, h, d = b["q"].shape
+    hkv = b["k_pool"].shape[2]
+    ps = b["seq_pos_start"].cpu().numpy().astype(np.int64)
+    ends = np.where(q_len > 0, ps + q_len, 0)
+    return int(3 * len(q_len) * 4 + int((-(-ends // PAGE)).sum()) * 4
+               + int(ends.sum()) * hkv * (d * kv_elem_bytes + scale_bytes) * 2
+               + 2 * int(q_len.sum()) * h * d * 2)
+
+
+def _sdpa_inputs(torch, b):
+    """SDPA's inputs for phase 3's active lanes: q [S', H, Qmax, D], the
+    lanes' page tables cut to the longest causal end, and the causal mask.
+    The yardstick attends a KV gathered (and head-expanded) beforehand."""
+    t, h, d = b["q"].shape
+    dev = b["q"].device
+    ql = b["seq_q_len"].cpu().numpy().astype(np.int64)
+    ps = b["seq_pos_start"].cpu().numpy().astype(np.int64)
+    ends = np.where(ql > 0, ps + ql, 0)
+    act = torch.as_tensor(np.nonzero(ql)[0], device=dev)
+    qmax = int(ql.max())
+    kv_len = int(math.ceil(ends.max() / PAGE) * PAGE)
+    tab = b["tables"][act][:, : kv_len // PAGE]
+    ar = torch.arange(qmax, device=dev)
+    span = b["seq_q_start"][act].long()[:, None] + ar
+    qg = b["q"][span.clamp(max=t - 1)].permute(0, 2, 1, 3).contiguous()
+    qpos = b["seq_pos_start"][act].long()[:, None] + ar
+    mask = (torch.arange(kv_len, device=dev)[None, None, :]
+            <= qpos[:, :, None])[:, None]
+    return qg, tab, mask, qmax
+
+
+def _bound(nbytes, flops):
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flop_ms = flops / BF16_FLOPS * 1e3
+    return dict(bound_ms=max(byte_ms, flop_ms),
+                bound_by="bytes" if byte_ms >= flop_ms else "operations")
+
+
+def _attn_flops(b):
+    h, d = b["q"].shape[1:]
+    ql = b["seq_q_len"].cpu().numpy().astype(np.int64)
+    ps = b["seq_pos_start"].cpu().numpy().astype(np.int64)
+    pairs = sum(int(np.sum(np.arange(p, p + n) + 1)) for p, n in zip(ps, ql))
+    return 4 * h * d * pairs
+
+
+def _device_us(torch, fn, kernel, n=5):
+    """Mean device time of the CUDA kernels whose name holds ``kernel``
+    per call of fn(), from a torch.profiler trace of ``n`` calls (None if
+    the trace shows no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.key)
+    return us / n if us else None
 
 
 def phase_times(torch, b):
@@ -585,48 +840,26 @@ def phase_times(torch, b):
     def lib_upd():
         k_rows.index_put_((page_i, off_i), kv_sel)
         v_rows.index_put_((page_i, off_i), vv_sel)
+    upd_dev_us = _device_us(torch, lambda: pa.paged_kv_update(
+        k_pool, v_pool, *upd), "paged_kv_update_kernel")
     upd_times = dict(
         ms=_time_ms(torch, lambda: pa.paged_kv_update(k_pool, v_pool, *upd)),
         plain_ms=_time_ms(torch, lambda: pa.paged_kv_update(
             k_pool, v_pool, *upd, impl="plain")),
-        library_ms=_time_ms(torch, lib_upd))
-    upd_times["bound_ms"] = upd_bytes / HBM_BYTES_PER_S * 1e3
+        library_ms=_time_ms(torch, lib_upd), **_bound(upd_bytes, 0))
 
-    # paged_mixed_attention: the lane view (3 int32 per lane), each active
-    # lane's table entries for its pages, its K/V prefix
-    # [0, pos_start + q_len) once per KV head, q read and out written once;
-    # flops 4*D per (query head, query, key) pair over the causal span.
+    # paged_mixed_attention; flops 4*D per (query head, query, key) pair
+    # over the causal span.
     ql = b["seq_q_len"].cpu().numpy().astype(np.int64)
-    ps = b["seq_pos_start"].cpu().numpy().astype(np.int64)
-
-    def attn_bytes_of(q_len):
-        ends = np.where(q_len > 0, ps + q_len, 0)
-        return (3 * len(q_len) * 4 + int((-(-ends // PAGE)).sum()) * 4
-                + int(ends.sum()) * hkv * d * el * 2
-                + 2 * int(q_len.sum()) * h * d * el)
-    ends = np.where(ql > 0, ps + ql, 0)
-    attn_bytes = attn_bytes_of(ql)
-    pairs = sum(int(np.sum(np.arange(p, p + n) + 1)) for p, n in zip(ps, ql))
-    attn_flops = 4 * h * d * pairs
+    attn_bytes = _attn_bytes(b, ql, el)
+    attn_flops = _attn_flops(b)
     lane = (b["tables"], b["seq_q_start"], b["seq_q_len"], b["seq_pos_start"],
             layer)
     # Library yardstick: SDPA over the gathered KV of the active lanes.
-    act = np.nonzero(ql)[0]
-    qmax = int(ql.max())
-    kv_len = int(math.ceil(ends.max() / PAGE) * PAGE)
-    tab = b["tables"][torch.as_tensor(act, device=k_pool.device)]
-    tab = tab[:, : kv_len // PAGE]
-    from arks_tpu_torch.ops.paged_attention import paged_gather_kv
+    qg, tab, mask, qmax = _sdpa_inputs(torch, b)
     g = h // hkv                                        # GQA, expanded here
-    kg = paged_gather_kv(k_pool, tab, layer).repeat_interleave(g, dim=1)
-    vg = paged_gather_kv(v_pool, tab, layer).repeat_interleave(g, dim=1)
-    span = b["seq_q_start"][act].long()[:, None] + torch.arange(
-        qmax, device=k_pool.device)
-    qg = b["q"][span.clamp(max=t - 1)].permute(0, 2, 1, 3).contiguous()
-    qpos = b["seq_pos_start"][act].long()[:, None] + torch.arange(
-        qmax, device=k_pool.device)
-    mask = (torch.arange(kv_len, device=k_pool.device)[None, None, :]
-            <= qpos[:, :, None])[:, None]
+    kg = pa.paged_gather_kv(k_pool, tab, layer).repeat_interleave(g, dim=1)
+    vg = pa.paged_gather_kv(v_pool, tab, layer).repeat_interleave(g, dim=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     # The kernel with its work list prepared once, as mixed_step does for
     # all layers of a step; the wrapper building it per call is timed too.
@@ -638,11 +871,8 @@ def phase_times(torch, b):
             b["q"], k_pool, v_pool, *lane, work=work)),
         plain_ms=_time_ms(torch, lambda: pa.paged_mixed_attention(
             b["q"], k_pool, v_pool, *lane, impl="plain"), iters=5),
-        library_ms=_time_ms(torch, lambda: sdpa(qg, kg, vg, attn_mask=mask)))
-    byte_ms = attn_bytes / HBM_BYTES_PER_S * 1e3
-    flop_ms = attn_flops / BF16_FLOPS * 1e3
-    attn_times["bound_ms"] = max(byte_ms, flop_ms)
-    attn_times["bound_by"] = "bytes" if byte_ms >= flop_ms else "operations"
+        library_ms=_time_ms(torch, lambda: sdpa(qg, kg, vg, attn_mask=mask)),
+        **_bound(attn_bytes, attn_flops))
 
     # A decode-only batch (the 8 decode lanes alone) for the record.
     dec = b["seq_q_len"].clone()
@@ -652,9 +882,11 @@ def phase_times(torch, b):
     dec_ms = _time_ms(torch, lambda: pa.paged_mixed_attention(
         b["q"], k_pool, v_pool, b["tables"], b["seq_q_start"], dec,
         b["seq_pos_start"], layer, work=dec_work))
-    dec_bytes = attn_bytes_of(np.where(np.arange(len(ql)) < 8, ql, 0))
-    log(f"[times] paged_kv_update {upd_times['ms'] * 1e3:.1f} us (bound "
-        f"{upd_times['bound_ms'] * 1e3:.2f} us, {upd_bytes} B), plain "
+    dec_bytes = _attn_bytes(b, np.where(np.arange(len(ql)) < 8, ql, 0), el)
+    ps = b["seq_pos_start"].cpu().numpy()
+    log(f"[times] paged_kv_update {upd_times['ms'] * 1e3:.1f} us (profiler: "
+        f"{upd_dev_us} us on the device; bound "
+        f"{upd_times['bound_ms'] * 1e3:.3f} us, {upd_bytes} B), plain "
         f"{upd_times['plain_ms'] * 1e3:.1f} us, index_put_ x2 "
         f"{upd_times['library_ms'] * 1e3:.1f} us; T={t} tokens")
     log(f"[times] paged_mixed_attention {attn_times['ms'] * 1e3:.1f} us "
@@ -666,8 +898,79 @@ def phase_times(torch, b):
     log(f"[times] paged_mixed_attention decode-only (8 lanes, contexts "
         f"{list(ps[:8] + 1)}): {dec_ms * 1e3:.1f} us (bound "
         f"{dec_bytes / HBM_BYTES_PER_S * 1e6:.2f} us by bytes)")
-    upd_times["bound_by"] = "bytes"
     return upd_times, attn_times
+
+
+def phase_quant_times(torch, b, qres):
+    """The quantized update (bf16 rows into an int8 and an int4 pool) and
+    the int8/int4 attention streams at phase 3's batch.  No single PyTorch
+    call quantizes and scatters, so the update has no library time;
+    attention's yardstick is SDPA over a KV gathered, dequantized to bf16
+    and head-expanded beforehand."""
+    from arks_tpu_torch.ops import paged_attention as pa
+    t, h, d = b["q"].shape
+    hkv = b["k_pool"].shape[2]
+    g = h // hkv
+    layer = b["layer"]
+    upd = (b["k_new"], b["v_new"], b["write_idx"], b["tables_tok"], layer)
+    keep = b["token_slot"] >= 0
+    n_valid = int(keep.sum().item())
+    idx = b["write_idx"][keep].long()
+    pages = b["tables_tok"][keep].long().gather(1, (idx // PAGE)[:, None])[:, 0]
+    lane = (b["tables"], b["seq_q_start"], b["seq_q_len"], b["seq_pos_start"],
+            layer)
+    ql = b["seq_q_len"].cpu().numpy().astype(np.int64)
+    qg, tab, mask, qmax = _sdpa_inputs(torch, b)
+    work = pa.mixed_work(*lane[:4], page=PAGE, hkv=hkv, qmax=qmax)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    upd_t, attn_t = {}, {}
+    for kv, (pools, _, _) in qres.items():
+        kp, vp, ks, vs = (pools[k] for k in ("k_pool", "v_pool", "k_scale",
+                                             "v_scale"))
+        # Update: every write_idx; per valid token one table entry, its
+        # bf16 K and V rows read, its values and f32 scales written.  An
+        # int4 write merges into a byte its pair-mate may share: each byte
+        # row touched is read and written once.
+        if kv == "int8":
+            out_bytes = 2 * n_valid * hkv * (d + 4)
+        else:
+            rows = torch.unique(pages * PAGE + idx % PAGE // 2).numel()
+            out_bytes = 2 * (2 * rows * hkv * d // 2) + 2 * n_valid * hkv * 4
+        nbytes = t * 4 + n_valid * 4 + 2 * n_valid * hkv * d * 2 + out_bytes
+        upd_t[kv] = dict(
+            ms=_time_ms(torch, lambda: pa.paged_kv_update_quant(
+                kp, vp, ks, vs, *upd)),
+            plain_ms=_time_ms(torch, lambda: pa.paged_kv_update_quant(
+                kp, vp, ks, vs, *upd, impl="plain")),
+            library_ms=None, **_bound(nbytes, 0))
+        dev_us = _device_us(torch, lambda: pa.paged_kv_update_quant(
+            kp, vp, ks, vs, *upd), "paged_kv_update_quant_kernel")
+        int4 = kv == "int4"
+        deq = [(pa.gather_pool(pool, tab, layer, int4).float()
+                * pa.paged_gather_kv(sc, tab, layer)[..., None])
+               .to(torch.bfloat16).repeat_interleave(g, dim=1)
+               for pool, sc in ((kp, ks), (vp, vs))]
+        sc = dict(k_scale=ks, v_scale=vs)
+        a_bytes = _attn_bytes(b, ql, 0.5 if int4 else 1, 4)
+        attn_t[kv] = dict(
+            ms=_time_ms(torch, lambda: pa.paged_mixed_attention(
+                b["q"], kp, vp, *lane, work=work, **sc)),
+            plain_ms=_time_ms(torch, lambda: pa.paged_mixed_attention(
+                b["q"], kp, vp, *lane, impl="plain", **sc), iters=5),
+            library_ms=_time_ms(torch, lambda: sdpa(qg, *deq,
+                                                    attn_mask=mask)),
+            **_bound(a_bytes, _attn_flops(b)))
+        log(f"[times] paged_kv_update_quant {kv}: {upd_t[kv]['ms'] * 1e3:.1f}"
+            f" us (profiler: {dev_us} us on the device; bound "
+            f"{upd_t[kv]['bound_ms'] * 1e3:.3f} us by bytes, "
+            f"{nbytes} B), plain {upd_t[kv]['plain_ms'] * 1e3:.1f} us; T={t}")
+        log(f"[times] paged_mixed_attention {kv} pool: "
+            f"{attn_t[kv]['ms'] * 1e3:.1f} us (bound "
+            f"{attn_t[kv]['bound_ms'] * 1e3:.2f} us by "
+            f"{attn_t[kv]['bound_by']}, {a_bytes} B), plain "
+            f"{attn_t[kv]['plain_ms'] * 1e3:.1f} us, SDPA on gathered, "
+            f"dequantized KV {attn_t[kv]['library_ms'] * 1e3:.1f} us")
+    return upd_t, attn_t
 
 
 def main() -> int:
@@ -685,13 +988,30 @@ def main() -> int:
     phase_device(torch)
     phase_build()
     b, upd_err, attn_err = phase_kernels(torch, dev)
+    qres = phase_quant_kernels(torch, dev, b)
+    phase_prng(torch, dev)
     engine, serve = phase_serve(torch, dev)
-    worst = phase_parity(torch, dev, engine)
-    log(f"[parity] worst |logit diff| per dtype {worst}")
-    phase_step_profile(torch, dev, engine)
+    params = engine.params
     del engine
     torch.cuda.empty_cache()
+    engine, serve8 = phase_serve(torch, dev, "int8", params)
+    log(f"[serve] bf16 vs int8 pool on the same weights: K+V pool bytes "
+        f"{serve['pool_bytes']} vs {serve8['pool_bytes']}; decode tok/s "
+        f"batch 1 {serve['decode_tok_s_b1']:.1f} vs "
+        f"{serve8['decode_tok_s_b1']:.1f}, batch 8 "
+        f"{serve['decode_tok_s_b8']:.1f} vs {serve8['decode_tok_s_b8']:.1f}; "
+        f"TTFT 300 tokens {serve['ttft_300_s'] * 1e3:.1f} vs "
+        f"{serve8['ttft_300_s'] * 1e3:.1f} ms")
+    worst = phase_parity(torch, dev, engine)
+    log(f"[parity] worst |logit diff| per dtype and pool {worst}")
+    for kv in (None, "int8"):
+        phase_step_profile(torch, dev, engine, kv)
+    del engine, params
+    torch.cuda.empty_cache()
     upd_t, attn_t = phase_times(torch, b)
+    qupd_t, qattn_t = phase_quant_times(torch, b, qres)
+    attn_launches = (serve["launches"]["paged_mixed_attention"]
+                     + serve8["launches"]["paged_mixed_attention"])
     kernels = [
         dict(name="paged_kv_update", route="cuda", source=UPDATE_SRC,
              replaces="arks_tpu/ops/paged_attention.py:1127",
@@ -699,8 +1019,11 @@ def main() -> int:
              max_abs_err=upd_err, **upd_t),
         dict(name="paged_mixed_attention", route="cuda", source=ATTN_SRC,
              replaces="arks_tpu/ops/paged_attention.py:761",
-             launches=serve["launches"]["paged_mixed_attention"],
-             max_abs_err=attn_err, **attn_t),
+             launches=attn_launches, max_abs_err=attn_err, **attn_t),
+        dict(name="paged_kv_update_quant", route="cuda", source=QUANT_SRC,
+             replaces="arks_tpu/ops/paged_attention.py:1215",
+             launches=serve8["launches"]["paged_kv_update_quant"],
+             max_abs_err=qres["int8"][1], **qupd_t["int8"]),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,6 +1,7 @@
 """The port's engine against the JAX engine on the same weights: identical
-greedy token streams on the f32 ``tiny`` and ``tiny-gqa`` configs, with
-more requests than slots and prompts spanning several chunks."""
+greedy token streams on the f32 ``tiny`` and ``tiny-gqa`` configs (bf16,
+int8 and int4 KV pools), and identical seeded sampled streams, with more
+requests than slots and prompts spanning several chunks."""
 
 import jax
 import jax.numpy as jnp
@@ -50,16 +51,25 @@ def _drive(engine, busy, n_steps=500):
     raise AssertionError("engine did not drain")
 
 
-def _jax_streams(name, params, prompts, max_tokens, monkeypatch):
+def _sampling(i, max_tokens, seed):
+    """Request i's sampling fields: greedy, or seeded top-k/top-p draws
+    at temperature 0.8 with seed ``seed + i``."""
+    if seed is None:
+        return dict(max_tokens=max_tokens, temperature=0.0, ignore_eos=True)
+    return dict(max_tokens=max_tokens, temperature=0.8, top_k=20, top_p=0.9,
+                seed=seed + i, ignore_eos=True)
+
+
+def _jax_streams(name, params, prompts, max_tokens, monkeypatch, *,
+                 kv="auto", seed=None):
     monkeypatch.setenv("ARKS_MIXED_STEP", "1")
     ecfg = JaxEngineConfig(model=name, prefill_buckets=(8, 16, 32),
-                           kv_layout="paged", **ENGINE_KW)
+                           kv_layout="paged", kv_cache_dtype=kv, **ENGINE_KW)
     eng = JaxEngine(jax_get_config(name), ecfg, JaxByteTokenizer(),
                     params=params)
     assert eng._mixed and eng._paged
     reqs = [JaxRequest(f"r{i}", p, JaxSamplingParams(
-        max_tokens=max_tokens, temperature=0.0, ignore_eos=True))
-        for i, p in enumerate(prompts)]
+        **_sampling(i, max_tokens, seed))) for i, p in enumerate(prompts)]
     for r in reqs:
         eng.add_request(r)
     _drive(eng, lambda e: e.num_running or not e._queue.empty()
@@ -67,35 +77,72 @@ def _jax_streams(name, params, prompts, max_tokens, monkeypatch):
     return [_collect(r.outputs) for r in reqs]
 
 
-def _torch_streams(name, params, prompts, max_tokens):
-    eng = InferenceEngine(get_config(name), EngineConfig(model=name,
-                                                         **ENGINE_KW),
-                          ByteTokenizer(), params=params, device="cpu")
+def _torch_streams(name, params, prompts, max_tokens, *, kv="auto",
+                   seed=None):
+    eng = InferenceEngine(get_config(name), EngineConfig(
+        model=name, kv_cache_dtype=kv, **ENGINE_KW), ByteTokenizer(),
+        params=params, device="cpu")
     reqs = [Request(f"r{i}", p, SamplingParams(
-        max_tokens=max_tokens, temperature=0.0, ignore_eos=True))
-        for i, p in enumerate(prompts)]
+        **_sampling(i, max_tokens, seed))) for i, p in enumerate(prompts)]
     for r in reqs:
         eng.add_request(r)
     _drive(eng, lambda e: not e.idle)
     return [_collect(r.outputs) for r in reqs], eng
 
 
+def _params(name, key):
+    jparams = jtf.init_params(jax_get_config(name), jax.random.PRNGKey(key),
+                              jnp.float32)
+    return jparams, params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                      get_config(name), "cpu")
+
+
 @pytest.mark.parametrize("name", ["tiny", "tiny-gqa"])
 def test_greedy_streams_match_jax_engine(name, monkeypatch):
-    jcfg = jax_get_config(name)
-    jparams = jtf.init_params(jcfg, jax.random.PRNGKey(3), jnp.float32)
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams),
-                                get_config(name), "cpu")
-    prompts = _prompts(jcfg.vocab_size)
+    jparams, tparams = _params(name, 3)
+    prompts = _prompts(jax_get_config(name).vocab_size)
     want = _jax_streams(name, jparams, prompts, 7, monkeypatch)
     got, eng = _torch_streams(name, tparams, prompts, 7)
-    for (w_ids, w_fin), (g_ids, g_fin) in zip(want, got):
+    _same_streams(want, got)
+    assert eng._alloc.free_pages == eng._alloc.num_pages   # all pages back
+
+
+@pytest.mark.parametrize("kv", ["int8", "int4"])
+@pytest.mark.parametrize("name", ["tiny", "tiny-gqa"])
+def test_quantized_pool_greedy_streams_match_jax_engine(name, kv,
+                                                        monkeypatch):
+    """int8/int4 KV pools: the JAX engine runs its XLA oracle path, the
+    port the plain versions of its kernels; the greedy streams agree."""
+    jparams, tparams = _params(name, 3)
+    prompts = _prompts(jax_get_config(name).vocab_size)
+    want = _jax_streams(name, jparams, prompts, 7, monkeypatch, kv=kv)
+    got, eng = _torch_streams(name, tparams, prompts, 7, kv=kv)
+    assert eng.kv_quantized and eng.kv_bits == (8 if kv == "int8" else 4)
+    assert eng.cache.k.dtype == torch.int8 and eng.cache.k_scale is not None
+    _same_streams(want, got)
+
+
+@pytest.mark.parametrize("seed", [5, 2**33 + 7])
+def test_seeded_streams_match_jax_engine(seed, monkeypatch):
+    """Seeded draws at temperature 0.8 with top-k and top-p: the port's
+    threefry keys give the JAX engine's token streams (the second seed is
+    masked to 32 bits on both sides)."""
+    name = "tiny-gqa"
+    jparams, tparams = _params(name, 5)
+    prompts = _prompts(jax_get_config(name).vocab_size)
+    want = _jax_streams(name, jparams, prompts, 9, monkeypatch, seed=seed)
+    got, _ = _torch_streams(name, tparams, prompts, 9, seed=seed)
+    _same_streams(want, got)
+    assert len({tuple(ids) for ids, _ in got}) == len(prompts)
+
+
+def _same_streams(want, got):
+    for (w_ids, w_fin), (g_ids, g_fin) in zip(want, got, strict=True):
         assert g_ids == w_ids
         assert (g_fin.finish_reason, g_fin.num_prompt_tokens,
                 g_fin.num_generated_tokens) == (
             w_fin.finish_reason, w_fin.num_prompt_tokens,
             w_fin.num_generated_tokens)
-    assert eng._alloc.free_pages == eng._alloc.num_pages   # all pages back
 
 
 def test_mixed_token_budget_matches_jax_engine(monkeypatch):

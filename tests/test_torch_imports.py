@@ -4,6 +4,7 @@ neither ``jax`` nor anything of ``arks_tpu``; no source file of the port (or
 CPU when no GPU is present and the caller did not ask for the CPU."""
 
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -115,7 +116,7 @@ def test_server_cli_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("kv_cache_dtype", "int8"), ("kv_cache_dtype", "int4"),
+    ("weight_dtype", "int4"), ("context_parallel", 2),
     ("weight_dtype", "int8"), ("kv_layout", "slot"),
     ("draft_model", "tiny"), ("tensor_parallel", 2),
     ("data_parallel", 2), ("pipeline_parallel", 2),
@@ -126,3 +127,28 @@ def test_engine_config_outside_the_slice_raises(field, value):
     with pytest.raises(NotImplementedError):
         InferenceEngine(get_config("tiny"), ecfg, ByteTokenizer(),
                         device="cpu")
+
+
+@pytest.mark.parametrize("kv,bits", [("int8", 8), ("int4", 4)])
+def test_engine_config_quantized_pools_build(kv, bits):
+    """int8/int4 KV pools are inside the slice: the engine builds an int8
+    pool (int4: packed along the page axis) with f32 scales."""
+    ecfg = EngineConfig(model="tiny", max_cache_len=32, prefill_chunk=16,
+                        kv_cache_dtype=kv)
+    eng = InferenceEngine(get_config("tiny"), ecfg, ByteTokenizer(),
+                          device="cpu")
+    assert ecfg.kv_quantized and eng.kv_quantized and eng.kv_bits == bits
+    assert eng.cache.k.dtype == torch.int8
+    assert eng.cache.k.shape[3] == 16 * bits // 8 and eng.cache.page == 16
+    assert eng.cache.k_scale.shape == eng.cache.k.shape[:3] + (16,)
+
+
+def test_model_kv_preference_applies_under_auto():
+    cfg = dataclasses.replace(get_config("tiny"), kv_cache_dtype="int4")
+    auto = EngineConfig(model="tiny", max_cache_len=32, prefill_chunk=16)
+    assert InferenceEngine(cfg, auto, ByteTokenizer(),
+                           device="cpu").kv_bits == 4
+    assert auto.kv_cache_dtype == "auto"          # the caller's config
+    explicit = dataclasses.replace(auto, kv_cache_dtype="int8")
+    assert InferenceEngine(cfg, explicit, ByteTokenizer(),
+                           device="cpu").kv_bits == 8

@@ -103,6 +103,71 @@ def test_paged_mixed_attention_vs_plain(dev, dtype, tol, hkv, g, d, page):
     assert not got[b["token_slot"] < 0].any()
 
 
+def _quant_pools(b, kv):
+    """Replace the batch's pools with the same data quantized per token:
+    int8 (or int4, packed along the page axis) values and f32 scales."""
+    for name in ("k", "v"):
+        vals, scale = pa.quantize_kv(b[f"{name}_pool"],
+                                     qmax=7 if kv == "int4" else 127)
+        b[f"{name}_pool"] = pa.pack_int4(vals, 3) if kv == "int4" else vals
+        b[f"{name}_scale"] = scale
+    return b
+
+
+# Lanes with int4 pair-mates in one dispatch: chunks from odd and even
+# positions, of odd and even length.
+QUANT_LANES = [(0, 1), (15, 1), (16, 1), (40, 1), (9, 21), (3, 9), (0, 0),
+               (30, 0), (22, 6)]
+
+
+@pytest.mark.parametrize("kv", ["int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_kv_update_quant_bit_exact(dev, dtype, d, kv):
+    """Values and scales bit-identical to the plain version (quantize_kv
+    + the two-parity scatter), pair-mates of one dispatch included."""
+    b = _quant_pools(_batch(dev, dtype, hkv=4, g=1, d=d, page=16,
+                            lanes=QUANT_LANES), kv)
+    args = (b["k_new"] * 3, b["v_new"], b["write_idx"], b["tables_tok"],
+            b["layer"])
+    names = ("k_pool", "v_pool", "k_scale", "v_scale")
+    kern = [b[k].clone() for k in names]
+    plain = [b[k].clone() for k in names]
+    before = pa.paged_kv_update_quant.launches
+    pa.paged_kv_update_quant(*kern, *args)
+    pa.paged_kv_update_quant(*plain, *args, impl="plain")
+    torch.cuda.synchronize()
+    assert pa.paged_kv_update_quant.launches == before + 1
+    for g, w in zip(kern, plain):
+        assert torch.equal(g.view(torch.int8), w.view(torch.int8))
+    assert not torch.equal(kern[0], b["k_pool"])
+
+
+@pytest.mark.parametrize("kv", ["int8", "int4"])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("hkv,g,d,page", [(4, 7, 128, 256), (2, 4, 64, 16),
+                                          (3, 1, 64, 64)])
+def test_paged_mixed_attention_quant_vs_plain(dev, dtype, tol, hkv, g, d,
+                                              page, kv):
+    lanes = [(p * page // 16, n) for p, n in LANES] + [(page - 1, 2 * page)]
+    b = _quant_pools(_batch(dev, dtype, hkv=hkv, g=g, d=d, page=page,
+                            lanes=lanes), kv)
+    args = (b["tables"], b["seq_q_start"], b["seq_q_len"],
+            b["seq_pos_start"], b["layer"])
+    scales = dict(k_scale=b["k_scale"], v_scale=b["v_scale"])
+    before = pa.paged_mixed_attention.launches
+    got = pa.paged_mixed_attention(b["q"], b["k_pool"], b["v_pool"], *args,
+                                   **scales)
+    want = pa.paged_mixed_attention(b["q"], b["k_pool"], b["v_pool"], *args,
+                                    impl="plain", **scales)
+    torch.cuda.synchronize()
+    assert pa.paged_mixed_attention.launches == before + 1
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert not got[b["token_slot"] < 0].any()
+
+
 def test_kernels_raise_on_unsupported(dev):
     b = _batch(dev, torch.float16, hkv=2, g=2, d=64, page=16, lanes=LANES)
     with pytest.raises(TypeError):
@@ -116,7 +181,11 @@ def test_kernels_raise_on_unsupported(dev):
                                  b["seq_q_len"], b["seq_pos_start"], 0)
 
 
-def test_mixed_step_kernels_vs_plain(dev):
+@pytest.mark.parametrize("kv", [None, "int8", "int4"])
+def test_mixed_step_kernels_vs_plain(dev, kv):
+    """Two mixed steps through the kernels and through their plain
+    versions (``impl="plain"`` is the reference's oracle, which folds the
+    v scale after normalising: 1e-4 covers that in f32)."""
     cfg = ModelConfig(name="test-d64", vocab_size=512, hidden_size=256,
                       intermediate_size=512, num_layers=2, num_heads=8,
                       num_kv_heads=2, head_dim=64, qkv_bias=True,
@@ -133,7 +202,9 @@ def test_mixed_step_kernels_vs_plain(dev):
         ([9, 11, 0, 0], [0, 1, -1, -1], [40, 6, 48, 48], [0, 1], [0, 1],
          [1, 1], [40, 6]),
     ]
-    caches = {i: tf.init_paged_cache(cfg, 6, 16, torch.float32, dev)
+    caches = {i: tf.init_paged_cache(cfg, 6, 16, torch.float32, dev,
+                                     quantized=kv is not None,
+                                     kv_bits=4 if kv == "int4" else 8)
               for i in ("kernel", "plain")}
     for step in steps:
         out = {i: tf.mixed_step(params, cfg, caches[i], tables,
@@ -141,5 +212,10 @@ def test_mixed_step_kernels_vs_plain(dev):
                for i in ("kernel", "plain")}
         torch.testing.assert_close(out["kernel"], out["plain"], atol=1e-4,
                                    rtol=0)
-        torch.testing.assert_close(caches["kernel"].k, caches["plain"].k,
-                                   atol=1e-5, rtol=0)
+        if kv is None:
+            torch.testing.assert_close(caches["kernel"].k,
+                                       caches["plain"].k, atol=1e-5, rtol=0)
+        else:   # the K/V rows of both paths agree to 1e-5 in f32, so
+            # their quantized bytes may differ by one step at most
+            assert (caches["kernel"].k_scale - caches["plain"].k_scale
+                    ).abs().max() <= 1e-6

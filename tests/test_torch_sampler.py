@@ -1,7 +1,7 @@
 """The port's sampler against the reference's: greedy ties, the filtered
-top-k/top-p window, Gumbel-max draws fed the same noise, and seeded
-requests that reproduce across engines (the draws are torch's, not
-threefry — see ROADMAP queue 3)."""
+top-k/top-p window, threefry draws and key carries identical to
+``jax.random`` on the same keys, and seeded requests whose tokens depend
+on their seed alone."""
 
 from types import SimpleNamespace
 
@@ -13,6 +13,7 @@ import torch
 from arks_tpu.engine import sampler as jsampler
 from arks_tpu_torch.engine import EngineConfig, InferenceEngine, Request, \
     SamplingParams
+from arks_tpu_torch.engine import prng
 from arks_tpu_torch.engine import sampler as tsampler
 from arks_tpu_torch.engine.tokenizer import ByteTokenizer
 from arks_tpu_torch.models import get_config
@@ -34,8 +35,8 @@ def test_greedy_first_index_wins_ties():
     logits[0, [7, 3, 40]] = 2.0
     logits[1, [49, 0]] = 1.0
     want = np.asarray(jnp.argmax(jnp.asarray(logits), axis=-1))
-    got = tsampler.sample(torch.from_numpy(logits), None, None, None)
-    assert got.dtype == torch.int32
+    got, keys = tsampler.sample(torch.from_numpy(logits), None, None, None)
+    assert got.dtype == torch.int32 and keys is None
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -58,43 +59,42 @@ def test_filtered_window_matches_jax(seed):
                                atol=1e-6, rtol=1e-6)
 
 
+def _keys(seeds):
+    return np.stack([jsampler.np_prng_key(s) for s in seeds])
+
+
 @pytest.mark.parametrize("seed", [3, 4])
 def test_gumbel_max_draw_with_given_noise(seed):
-    """Fed the same Gumbel noise, the draw is argmax(scaled + noise) over
-    the reference's filtered window; greedy lanes ignore the noise."""
+    """The draw with lane keys is the reference's ``sample``: argmax of
+    the filtered window plus the Gumbel noise of each lane's step key;
+    greedy lanes take the argmax; active lanes carry the split key on and
+    inactive lanes keep theirs."""
     logits, temp, top_p, top_k = _case(seed)
-    noise = np.random.default_rng(seed + 10).gumbel(
-        size=(logits.shape[0], tsampler.TOP_K_MAX)).astype(np.float32)
-    state = SimpleNamespace(temperature=jnp.asarray(temp),
-                            top_p=jnp.asarray(top_p),
-                            top_k=jnp.asarray(top_k))
-    scaled, idx = (np.asarray(x) for x in jsampler._filtered_scaled(
-        jnp.asarray(logits), state))
-    choice = np.argmax(scaled + noise, axis=-1)
-    want = np.take_along_axis(idx, choice[:, None], 1)[:, 0]
-    want = np.where(temp <= 0, logits.argmax(-1), want)
-    got = tsampler.sample(torch.from_numpy(logits), torch.from_numpy(temp),
-                          torch.from_numpy(top_p), torch.from_numpy(top_k),
-                          torch.from_numpy(noise))
-    np.testing.assert_array_equal(got.numpy(), want)
+    keys = _keys(range(seed * 10, seed * 10 + len(temp)))
+    active = np.array([True, True, False, True, True, False])
+    state = jsampler.init_sampling_state(
+        len(temp), vocab_size=logits.shape[1])._replace(
+        temperature=jnp.asarray(temp), top_p=jnp.asarray(top_p),
+        top_k=jnp.asarray(top_k), key=jnp.asarray(keys))
+    want, wstate = jsampler.sample(jnp.asarray(logits), state,
+                                   jnp.asarray(active))
+    got, carry = tsampler.sample(
+        torch.from_numpy(logits), torch.from_numpy(temp),
+        torch.from_numpy(top_p), torch.from_numpy(top_k),
+        prng.key_tensor(keys), torch.from_numpy(active))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(carry.numpy(),
+                                  np.asarray(wstate.key).astype(np.int64))
+    np.testing.assert_array_equal(carry.numpy()[~active], keys[~active])
 
 
 def test_gumbel_noise_reproducible_per_generator():
-    def gens(seeds):
-        out = []
-        for s in seeds:
-            if s is None:
-                out.append(None)
-                continue
-            g = torch.Generator()
-            g.manual_seed(s)
-            out.append(g)
-        return out
-
-    a = tsampler.gumbel_noise(gens([1, None, 2]), 64, torch.device("cpu"))
-    b = tsampler.gumbel_noise(gens([1, None, 3]), 64, torch.device("cpu"))
-    assert torch.equal(a[0], b[0]) and not a[1].any()
-    assert not torch.equal(a[2], b[2]) and torch.isfinite(a).all()
+    """Each lane's noise comes from its own key alone: the same key gives
+    the same row whatever the other lanes hold, and finite values."""
+    a = prng.gumbel(prng.key_tensor(_keys([1, 7, 2])), 64)
+    b = prng.gumbel(prng.key_tensor(_keys([1, 8, 3])), 64)
+    assert torch.equal(a[0], b[0]) and not torch.equal(a[2], b[2])
+    assert torch.isfinite(a).all() and a.dtype == torch.float32
 
 
 def _sampled_run(seed, prompts):
