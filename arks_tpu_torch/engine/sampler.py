@@ -6,11 +6,14 @@ Greedy is ``argmax`` (the first index wins ties, as ``jnp.argmax``).  A
 sampled lane splits its key into (step, carry) and draws
 ``categorical`` over its filtered window with the step key, through the
 threefry port in ``engine/prng.py`` — the reference's draw, bit for bit in
-its integer path.  Penalties, logit_bias, min_tokens, logprobs and guides
-are later slices.
+its integer path.  ``SlotSampling`` is the per-slot state the legacy
+scheduler's K-step decode loop carries.  Penalties, logit_bias,
+min_tokens, logprobs and guides are later slices.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -64,3 +67,36 @@ def sample(logits: torch.Tensor,        # [B, V] f32
     if active is not None:
         carry = torch.where(active[:, None], carry, keys)
     return torch.where(temperature <= 0, greedy_ids, sampled), carry
+
+
+class SlotSampling(NamedTuple):
+    """Per-slot sampling rows (the reference's ``SamplingState`` less the
+    penalty, bias, suppression and guide columns), all indexed by slot.
+    Admission writes a slot's row with ``set_slots``; each decode step
+    splits every active slot's key and carries the second half."""
+
+    temperature: torch.Tensor  # [B] f32; <= 0 means greedy
+    top_p: torch.Tensor        # [B] f32
+    top_k: torch.Tensor        # [B] int32; 0 = whole window
+    key: torch.Tensor          # [B, 2] threefry keys (int64 words)
+
+
+def init_slot_sampling(batch: int, device=None) -> SlotSampling:
+    return SlotSampling(
+        temperature=torch.zeros((batch,), dtype=torch.float32, device=device),
+        top_p=torch.ones((batch,), dtype=torch.float32, device=device),
+        top_k=torch.zeros((batch,), dtype=torch.int32, device=device),
+        key=torch.zeros((batch, 2), dtype=torch.int64, device=device))
+
+
+def set_slots(state: SlotSampling, slots, temperature, top_p, top_k,
+              keys: torch.Tensor) -> SlotSampling:
+    """Write M slots' rows (the reference's batched ``set_slots``):
+    ``slots`` [M], the parameter columns [M] (tensors or numpy) and their
+    decode keys [M, 2]."""
+    dev = state.key.device
+    idx = torch.as_tensor(slots, dtype=torch.long, device=dev)
+    cols = (temperature, top_p, top_k, keys)
+    return SlotSampling(*(
+        old.index_copy(0, idx, torch.as_tensor(new, device=dev).to(old.dtype))
+        for old, new in zip(state, cols)))

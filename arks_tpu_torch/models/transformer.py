@@ -1,11 +1,14 @@
 """Decoder-only transformer (Qwen2 / Llama families) for serving — the port
-of the mixed-step half of ``arks_tpu/models/transformer.py``.
+of the single-device serving half of ``arks_tpu/models/transformer.py``:
+the mixed scheduler's ``mixed_step`` over the paged pool, and the legacy
+scheduler's one-shot ``prefill``, chunked prefill, prompt inserts and
+``decode_step`` over the slot-contiguous cache or the paged pool.
 
 Parameters keep the reference's layout: a dict of stacked ``[L, ...]``
 per-layer weights in ``x @ w`` orientation, so ``models/weights.py`` can
 bridge a JAX param tree leaf for leaf.  The forward is a Python loop over
-layers (the reference's ``lax.scan``); the paged KV pool is updated in
-place.
+layers (the reference's ``lax.scan``); caches and pools are updated in
+place (the reference returns new ones), and head_dim is stored unpadded.
 """
 
 from __future__ import annotations
@@ -17,8 +20,13 @@ import torch
 from arks_tpu_torch.device import resolve_device
 from arks_tpu_torch.models.config import ModelConfig
 from arks_tpu_torch.models.quant import embed_lookup, qeinsum, unembed_logits
-from arks_tpu_torch.ops.attention import (paged_mixed_update_and_attend,
-                                          prepare_mixed)
+from arks_tpu_torch.ops.attention import (chunk_attention_xla,
+                                          decode_update_and_attend,
+                                          paged_decode_update_and_attend,
+                                          paged_mixed_update_and_attend,
+                                          prefill_attention, prepare_mixed)
+from arks_tpu_torch.ops.paged_attention import (pack_int4, paged_gather_kv,
+                                                quantize_kv, unpack_int4)
 from arks_tpu_torch.ops.norms import rms_norm
 from arks_tpu_torch.ops.rope import rope_cos_sin, rotate
 
@@ -35,6 +43,34 @@ def torch_dtype(name: str | torch.dtype) -> torch.dtype:
         raise ValueError(f"unsupported dtype {name!r}; expected bfloat16 or "
                          "float32")
     return _DTYPES[name]
+
+
+class KVCache(NamedTuple):
+    """Slot-contiguous decode cache [num_layers, num_slots, Hkv, max_len,
+    head_dim]: each (slot, KV head)'s sequence is one contiguous [S, D]
+    stripe.  int8 caches carry per-token scales [L, B, Hkv, S] f32;
+    ``k_scale is None`` means full-width storage."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @property
+    def num_slots(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[3]
+
+    @property
+    def kv_bits(self) -> int:
+        return self.k.element_size() * 8
 
 
 class PagedKVCache(NamedTuple):
@@ -126,6 +162,25 @@ def init_params(cfg: ModelConfig, seed: int, dtype=None,
     if not cfg.tie_word_embeddings:
         params["lm_head"] = w((e, v), stacked=False)
     return params
+
+
+def init_cache(cfg: ModelConfig, num_slots: int, max_len: int, dtype=None,
+               device: torch.device | str | None = None, *,
+               quantized: bool = False) -> KVCache:
+    """A zeroed slot cache on ``device`` (CUDA unless the caller passes
+    "cpu"): of ``dtype``, or with ``quantized`` int8 with f32 scales."""
+    device = resolve_device(device)
+    shape = (cfg.num_layers, num_slots, cfg.num_kv_heads, max_len,
+             cfg.head_dim)
+    if quantized:
+        i8 = dict(dtype=torch.int8, device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        return KVCache(k=torch.zeros(shape, **i8), v=torch.zeros(shape, **i8),
+                       k_scale=torch.zeros(shape[:-1], **f32),
+                       v_scale=torch.zeros(shape[:-1], **f32))
+    dtype = torch_dtype(dtype or cfg.dtype)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page: int, dtype=None,
@@ -251,3 +306,270 @@ def mixed_step(
         h = _block_tail(h, attn.reshape(t_flat, cfg.q_dim), lp, cfg)
     h_sel = h[sample_src.long()]                            # [B, E]
     return _unembed(h_sel, params, cfg)
+
+
+# ---------------------------------------------------------------------------
+# The legacy scheduler: one-shot prefill, chunked prefill, inserts, decode
+# ---------------------------------------------------------------------------
+
+
+def _layer(params: Params, layer: int) -> Params:
+    return {name: w[layer] for name, w in params["layers"].items()}
+
+
+def prefill_layer(h: torch.Tensor, lp: Params, cfg: ModelConfig, rope):
+    """One transformer block over full sequences [B, T, E].  Returns
+    (h, k, v), k/v [B, T, Hkv, D] after RoPE."""
+    b, t = h.shape[:2]
+    q, k, v = _block_qkv(h, lp, cfg, rope)
+    attn = prefill_attention(q, k, v).reshape(b, t, cfg.q_dim)
+    return _block_tail(h, attn, lp, cfg), k, v
+
+
+def prefill(params: Params, cfg: ModelConfig,
+            tokens: torch.Tensor,    # [B, T] int32, padded to a bucket
+            lengths: torch.Tensor,   # [B] int32 true lengths (<= T)
+            ):
+    """Run full prompts.  Returns (last-token logits [B, V] float32,
+    k [L, B, T, Hkv, D], v [L, B, T, Hkv, D]) for the cache insert.
+    Padded positions sit at the end, so no valid query attends them."""
+    b, t = tokens.shape
+    positions = torch.arange(t, device=tokens.device).expand(b, t)
+    rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    h = embed_lookup(params["embed"], tokens, params["layers"]["attn_norm"].dtype)
+    ks, vs = [], []
+    for layer in range(cfg.num_layers):
+        h, k, v = prefill_layer(h, _layer(params, layer), cfg, rope)
+        ks.append(k)
+        vs.append(v)
+    last = (lengths.long() - 1).clamp(min=0)
+    h_last = h[torch.arange(b, device=h.device), last]
+    return _unembed(h_last, params, cfg), torch.stack(ks), torch.stack(vs)
+
+
+def _chunk_qkv(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+               start: int):
+    """Embedding and RoPE angles of one chunk at global positions
+    start + [0, C)."""
+    c = tokens.shape[0]
+    positions = start + torch.arange(c, device=tokens.device)
+    rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    h = embed_lookup(params["embed"], tokens, params["layers"]["attn_norm"].dtype)
+    return h, rope
+
+
+def _chunk_attend(q: torch.Tensor, cfg: ModelConfig, kc, vc, start, ks, vs):
+    """Chunk queries [C, H, D] over one slot's [Hkv, S, D] cache view ->
+    [C, q_dim]."""
+    c = q.shape[0]
+    g = cfg.num_heads // cfg.num_kv_heads
+    qg = q.reshape(c, cfg.num_kv_heads, g, cfg.head_dim).permute(1, 2, 0, 3)
+    attn = chunk_attention_xla(qg, kc, vc, start, ks, vs)
+    return attn.permute(2, 0, 1, 3).reshape(c, cfg.q_dim)
+
+
+def prefill_chunk(params: Params, cfg: ModelConfig, cache: KVCache,
+                  slot: int,              # cache slot being filled
+                  tokens: torch.Tensor,   # [C] int32 (padded on the last)
+                  start: int,             # global position of tokens[0]
+                  valid: int,             # true token count (<= C)
+                  ) -> torch.Tensor:
+    """One chunk of a chunked prefill for one slot of the slot cache:
+    writes the chunk's K/V rows (quantized for an int8 cache) at
+    [start, start + C) of every layer IN PLACE and attends each query over
+    the slot's cached prefix [0, start + i].  Returns logits [1, V] f32 of
+    the chunk's last valid token (meaningful on the final chunk).  Padding
+    rows write garbage past the prompt that every read masks by position
+    and decode overwrites.  The write starts at min(start, S - C), as the
+    reference's dynamic_update_slice clamps it."""
+    c = tokens.shape[0]
+    w0 = max(0, min(start, cache.max_len - c))
+    h, rope = _chunk_qkv(params, cfg, tokens, start)
+    for layer in range(cfg.num_layers):
+        lp = _layer(params, layer)
+        q, k, v = _block_qkv(h, lp, cfg, rope)            # [C, H(kv), D]
+        rows = slice(w0, w0 + c)
+        kt, vt = k.transpose(0, 1), v.transpose(0, 1)     # [Hkv, C, D]
+        if cache.quantized:
+            for pool, scales, x in ((cache.k, cache.k_scale, kt),
+                                    (cache.v, cache.v_scale, vt)):
+                vals, sc = quantize_kv(x)
+                pool[layer, slot, :, rows] = vals
+                scales[layer, slot, :, rows] = sc
+            ks, vs = cache.k_scale[layer, slot], cache.v_scale[layer, slot]
+        else:
+            cache.k[layer, slot, :, rows] = kt.to(cache.k.dtype)
+            cache.v[layer, slot, :, rows] = vt.to(cache.v.dtype)
+            ks = vs = None
+        attn = _chunk_attend(q, cfg, cache.k[layer, slot],
+                             cache.v[layer, slot], start, ks, vs)
+        h = _block_tail(h, attn, lp, cfg)
+    return _unembed(h[valid - 1: valid], params, cfg)
+
+
+def _time_major_rows(k_new: torch.Tensor, cache):
+    """[L, M, T, Hkv, D] prefill K or V -> the cache's head-major
+    [L, M, Hkv, T, D] storage: cast to the cache dtype, or quantized (int8
+    values, [L, M, Hkv, T] f32 scales; int4 values in [-7, 7])."""
+    x = k_new.transpose(2, 3)
+    if not cache.quantized:
+        return x.to(cache.k.dtype), None
+    return quantize_kv(x, qmax=7 if cache.kv_bits == 4 else 127)
+
+
+def insert(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+           slot: int) -> KVCache:
+    """Insert prefill K/V ([L, 1, T, Hkv, D]) into ``slot`` of the slot
+    cache at positions [0, T), IN PLACE (quantized for an int8 cache)."""
+    return insert_batch(cache, k_new, v_new, [slot])
+
+
+def insert_batch(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                 slots) -> KVCache:
+    """Insert M prompts' prefill K/V ([L, M, T, Hkv, D]) into M slots at
+    positions [0, T), IN PLACE; entries past a prompt's true length are
+    masked by its length at decode time and overwritten as it decodes."""
+    t = k_new.shape[2]
+    idx = torch.as_tensor(slots, dtype=torch.long, device=cache.k.device)
+    for pool, scales, new in ((cache.k, cache.k_scale, k_new),
+                              (cache.v, cache.v_scale, v_new)):
+        vals, sc = _time_major_rows(new, cache)
+        pool[:, idx, :, :t] = vals
+        if sc is not None:
+            scales[:, idx, :, :t] = sc
+    return cache
+
+
+def insert_pages(cache: PagedKVCache, k_new: torch.Tensor,
+                 v_new: torch.Tensor, pages, n_pages: int) -> PagedKVCache:
+    """Insert one prompt's prefill K/V ([L, 1, T, Hkv, D]) into its first
+    ``n_pages`` pool pages listed in ``pages``, IN PLACE: page j gets
+    positions [j*P, (j+1)*P).  T is padded up to a page multiple with zero
+    rows (garbage every read masks by length)."""
+    return insert_pages_batch(cache, k_new, v_new,
+                              torch.as_tensor(pages).reshape(1, -1),
+                              [n_pages])
+
+
+def insert_pages_batch(cache: PagedKVCache, k_new: torch.Tensor,
+                       v_new: torch.Tensor, pages, n_pages) -> PagedKVCache:
+    """Batched ``insert_pages``: M prompts ([L, M, T, Hkv, D]) into their
+    page lists ([M, >= ceil(T/P)] int32, the first n_pages[i] valid) —
+    int8 values and scales for an int8 pool, packed nibble pairs for
+    int4."""
+    page = cache.page
+    int4 = cache.kv_bits == 4
+    rows = page // 2 if int4 else page
+    pad = (-k_new.shape[2]) % page
+    if pad:
+        width = (0, 0, 0, 0, 0, pad)
+        k_new = torch.nn.functional.pad(k_new, width)
+        v_new = torch.nn.functional.pad(v_new, width)
+    pages = torch.as_tensor(pages, dtype=torch.long, device=cache.k.device)
+    for pool, scales, new in ((cache.k, cache.k_scale, k_new),
+                              (cache.v, cache.v_scale, v_new)):
+        vals, sc = _time_major_rows(new, cache)        # [L, M, Hkv, T, D]
+        if int4:
+            vals = pack_int4(vals, axis=3)
+        l, m, hkv, _, d = vals.shape
+        blocks = vals.reshape(l, m, hkv, -1, rows, d).transpose(2, 3)
+        if sc is not None:
+            sblocks = sc.reshape(l, m, hkv, -1, page).transpose(2, 3)
+        for i in range(m):
+            n = int(n_pages[i])
+            pool[:, pages[i, :n]] = blocks[:, i, :n]
+            if sc is not None:
+                scales[:, pages[i, :n]] = sblocks[:, i, :n]
+    return cache
+
+
+def gather_pages(cache: PagedKVCache, tables_row: torch.Tensor, layer: int):
+    """One slot's cache as contiguous views for ``layer``: (k [Hkv, S, D],
+    v, k_scale [Hkv, S] | None, v_scale | None), gathered through its table
+    row ([MaxP] int32); int4 pages unpacked after the gather."""
+    int4 = cache.kv_bits == 4
+
+    def per(pool, unpack=False):
+        g = paged_gather_kv(pool, tables_row[None], layer)[0]
+        return unpack_int4(g, axis=1) if unpack else g
+
+    k, v = per(cache.k, int4), per(cache.v, int4)
+    if cache.quantized:
+        return k, v, per(cache.k_scale), per(cache.v_scale)
+    return k, v, None, None
+
+
+def prefill_chunk_paged(params: Params, cfg: ModelConfig,
+                        cache: PagedKVCache,
+                        tables_row: torch.Tensor,  # [MaxP] int32
+                        tokens: torch.Tensor,      # [C] int32, C == page
+                        start: int,                # global position of tokens[0]
+                        valid: int,                # true token count (<= C)
+                        ) -> torch.Tensor:
+    """Chunked prefill against the paged pool: chunk == page, so each chunk
+    fills exactly page ``tables_row[start // P]`` of every layer (IN PLACE)
+    and attention reads the slot's pages.  Returns logits [1, V] f32 of the
+    chunk's last valid token."""
+    c = tokens.shape[0]
+    page = cache.page
+    if c != page:
+        raise ValueError(f"paged chunk size {c} must equal the page size "
+                         f"{page}")
+    pg = tables_row[start // page].long().reshape(1)
+    int4 = cache.kv_bits == 4
+    h, rope = _chunk_qkv(params, cfg, tokens, start)
+    for layer in range(cfg.num_layers):
+        lp = _layer(params, layer)
+        q, k, v = _block_qkv(h, lp, cfg, rope)
+        for pool, scales, x in ((cache.k, cache.k_scale, k),
+                                (cache.v, cache.v_scale, v)):
+            x = x.transpose(0, 1)[None]                    # [1, Hkv, C, D]
+            if cache.quantized:
+                x, sc = quantize_kv(x, qmax=7 if int4 else 127)
+                scales[layer].index_copy_(0, pg, sc)
+                if int4:
+                    x = pack_int4(x, axis=2)
+            pool[layer].index_copy_(0, pg, x.to(pool.dtype))
+        kc, vc, ks, vs = gather_pages(cache, tables_row, layer)
+        h = _block_tail(h, _chunk_attend(q, cfg, kc, vc, start, ks, vs), lp,
+                        cfg)
+    return _unembed(h[valid - 1: valid], params, cfg)
+
+
+def decode_step(params: Params, cfg: ModelConfig,
+                cache: KVCache | PagedKVCache,
+                tokens: torch.Tensor,    # [B] int32 — current token per slot
+                lengths: torch.Tensor,   # [B] int32 — tokens already cached
+                tables: torch.Tensor | None = None,  # [B, MaxP] (paged only)
+                *, impl: str | None = None) -> torch.Tensor:
+    """Advance every slot one token: its K/V row is written at position
+    ``lengths`` (IN PLACE) and it attends [0, lengths].  Returns logits
+    [B, V] float32.  A slot cache drops writes at lengths >= S; a paged
+    cache takes ``tables`` and treats lengths >= coverage as the inactive
+    sentinel (write dropped, nothing attended).  ``impl`` goes to the
+    attention op ("plain": the reference's XLA oracle)."""
+    paged = isinstance(cache, PagedKVCache)
+    if paged and tables is None:
+        raise ValueError("decode_step with a PagedKVCache requires tables")
+    b = tokens.shape[0]
+    write_idx = lengths.to(torch.int32)
+    # RoPE positions must be real for active slots; the sentinel only
+    # matters to the cache ops, which drop it.
+    rope_idx = write_idx
+    if paged:
+        rope_idx = torch.clamp(write_idx, max=tables.shape[1] * cache.page - 1)
+    rope = rope_cos_sin(rope_idx, cfg.head_dim, cfg.rope_theta)
+    h = embed_lookup(params["embed"], tokens, params["layers"]["attn_norm"].dtype)
+    for layer in range(cfg.num_layers):
+        lp = _layer(params, layer)
+        q, k, v = _block_qkv(h, lp, cfg, rope)            # [B, H(kv), D]
+        if paged:
+            attn = paged_decode_update_and_attend(
+                q, k, v, cache.k, cache.v, tables, write_idx, layer,
+                impl=impl, k_scale=cache.k_scale, v_scale=cache.v_scale)
+        else:
+            attn = decode_update_and_attend(
+                q, k, v, cache.k, cache.v, write_idx, layer, impl=impl,
+                k_scale=cache.k_scale, v_scale=cache.v_scale)
+        h = _block_tail(h, attn.reshape(b, cfg.q_dim), lp, cfg)
+    return _unembed(h, params, cfg)

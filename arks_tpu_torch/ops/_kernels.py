@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by nvcc, by hand, into a shared library
 with a plain C interface and loaded with ``ctypes`` — seconds per kernel, no
 PyTorch headers and no ninja.  Libraries land in ``build/arks_tpu_torch/``
 beside the package (listed in ``.gitignore``), named by a hash of the
-source and flags, so an edited source never loads a stale build.  Nothing
+source, the headers of ``csrc/`` and the flags, so an edited source or
+header never loads a stale build.  Nothing
 is built at import time: a kernel is built by its first launch or by
 ``build_all`` (which starts one nvcc per source, all at once).
 ``--split-compile=0`` lets nvcc optimise the template instances of one
@@ -60,6 +61,26 @@ _SIGNATURES: dict[str, tuple[str, list]] = {
         _I, _I, _I, _I,          # n_pages, max_pages, layer, block_q
         _F, _I, _I, _P]),        # scale, dtype code (0 f32, 1 bf16),
                                  # kv code (0 q's dtype, 1 int8, 2 int4), stream
+    "arks_kv_cache_update": ("kv_cache_update", [
+        _P, _P, _P, _P,          # k_cache, v_cache, k_new, v_new
+        _P,                      # write_idx [B]
+        _I, _I, _I, _I, _I, _P]),  # B, hkv, max_len, row_bytes, layer, stream
+    "arks_kv_cache_update_quant": ("kv_cache_update", [
+        _P, _P, _P, _P,          # k_cache, v_cache (int8), k_scale, v_scale
+        _P, _P, _P,              # k_new, v_new, write_idx [B]
+        _I, _I, _I, _I, _I,      # B, hkv, head_dim, max_len, layer
+        _I, _P]),                # dtype code, stream
+    "arks_ragged_decode_attention": ("decode_attention", [
+        _P, _P, _P, _P,          # q [B,Hkv,G,D], out, k_cache, v_cache
+        _P, _P, _P,              # k_scale, v_scale [L,B,Hkv,S] or NULL, lengths
+        _I, _I, _I, _I, _I, _I,  # B, n_heads, hkv, head_dim, max_len, layer
+        _F, _I, _I, _P]),        # scale, dtype code, int8 cache, stream
+    "arks_paged_decode_attention": ("decode_attention", [
+        _P, _P, _P, _P,          # q [B,Hkv,G,D], out, k_pool, v_pool
+        _P, _P, _P, _P,          # k_scale, v_scale or NULL, tables, lengths
+        _I, _I, _I, _I, _I,      # B, n_heads, hkv, head_dim, page
+        _I, _I, _I,              # n_pages, max_pages, layer
+        _F, _I, _I, _P]),        # scale, dtype code, int8 pool, stream
 }
 
 _lock = threading.Lock()
@@ -78,7 +99,10 @@ def nvcc_path() -> str:
 
 
 def _lib_path(stem: str) -> Path:
+    """The library's path, named by a hash of its source, every header in
+    ``csrc/`` (a source may include one) and the flags."""
     src = (CSRC / f"{stem}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{stem}-{tag}.so"
 

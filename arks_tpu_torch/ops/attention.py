@@ -1,7 +1,11 @@
-"""Attention ops on the served path (port of ``arks_tpu/ops/attention.py``).
+"""Attention ops on the served paths (port of the single-device branches of
+``arks_tpu/ops/attention.py``): one-shot and chunked prefill attention, the
+mixed scheduler's paged op, and the legacy scheduler's decode ops on the
+slot cache and on the paged pool.
 
 GQA everywhere: H = G * Hkv query heads, q reshaped to [.., Hkv, G, ..] so
-K/V are never repeated.  Scores and softmax in float32.
+K/V are never repeated.  Scores and softmax in float32.  Caches and pools
+are updated IN PLACE (the reference returns new arrays).
 """
 
 from __future__ import annotations
@@ -11,10 +15,14 @@ from typing import NamedTuple
 
 import torch
 
+from arks_tpu_torch.ops.pallas_attention import (
+    kv_cache_update, kv_cache_update_plain, kv_cache_update_quant,
+    kv_cache_update_quant_plain, ragged_decode_attention)
 from arks_tpu_torch.ops.paged_attention import (
     MixedWork, _default_qmax, _use_kernel, gather_pool, is_int4_pool,
-    mixed_work, paged_gather_kv, paged_kv_update, paged_kv_update_quant,
-    paged_mixed_attention, paged_update_xla, pool_page_tokens)
+    mixed_work, paged_decode_attention, paged_gather_kv, paged_kv_update,
+    paged_kv_update_quant, paged_mixed_attention, paged_update_xla,
+    pool_page_tokens)
 
 _NEG_INF = -1e30
 
@@ -23,6 +31,27 @@ def _softmax(scores: torch.Tensor, dim: int) -> torch.Tensor:
     scores = scores - scores.amax(dim=dim, keepdim=True)
     unnorm = torch.exp(scores)
     return unnorm / (unnorm.sum(dim=dim, keepdim=True) + 1e-9)
+
+
+def prefill_attention(
+    q: torch.Tensor,  # [B, T, H, D]
+    k: torch.Tensor,  # [B, T, Hkv, D]
+    v: torch.Tensor,  # [B, T, Hkv, D]
+) -> torch.Tensor:
+    """Causal self-attention over a full (padded) prompt.  Returns
+    [B, T, H, D].  Plain math, as in the reference (XLA there): f32
+    scores, softmax, probabilities cast to v's dtype, f32 accumulation.
+    Padded positions sit at the end: no valid query attends them."""
+    b, t, h, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, t, hkv, h // hkv, d).float()
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                          k.float()) * (1.0 / math.sqrt(d))
+    causal = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+    scores = scores.masked_fill(~causal, _NEG_INF)
+    probs = _softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.float(), v.float())
+    return out.reshape(b, t, h, d).to(q.dtype)
 
 
 def decode_attention_xla(
@@ -67,6 +96,155 @@ def _decode_attention_xla_quant(
     out = torch.einsum("bkgs,bksd->bkgd", probs.to(q.dtype).float(),
                        v_cache.to(q.dtype).float())
     return out.to(q.dtype)
+
+
+def chunk_attention_xla(
+    q: torch.Tensor,        # [Hkv, G, C, D] — a chunk of queries, ONE slot
+    k_cache: torch.Tensor,  # [Hkv, S, D] — that slot's cache (chunk written)
+    v_cache: torch.Tensor,
+    start: int,             # global position of the chunk's first query
+    k_scale: torch.Tensor | None = None,  # [Hkv, S] f32 — int8 caches
+    v_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Chunked-prefill attention: the query at chunk offset i (global
+    position start + i) attends cache entries [0, start + i].  Returns
+    [Hkv, G, C, D].  The reference's plain math: scales fold into the
+    scores (K) and into the normalised probabilities (V)."""
+    c, d = q.shape[2], q.shape[3]
+    s = k_cache.shape[1]
+    scores = torch.einsum("kgcd,ksd->kgcs", q.float(),
+                          k_cache.to(q.dtype).float()) * (1.0 / math.sqrt(d))
+    if k_scale is not None:
+        scores = scores * k_scale[:, None, None, :]
+    qpos = start + torch.arange(c, device=q.device)
+    valid = torch.arange(s, device=q.device)[None] <= qpos[:, None]  # [C, S]
+    scores = scores.masked_fill(~valid, _NEG_INF)
+    probs = _softmax(scores, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale[:, None, None, :]
+    out = torch.einsum("kgcs,ksd->kgcd", probs.to(q.dtype).float(),
+                       v_cache.to(q.dtype).float())
+    return out.to(q.dtype)
+
+
+def decode_update_and_attend(
+    q: torch.Tensor,        # [B, H, D] — this step's query per slot
+    k_new: torch.Tensor,    # [B, Hkv, D] — this step's KV per slot
+    v_new: torch.Tensor,
+    k_cache: torch.Tensor,  # [L, B, Hkv, S, D] — updated IN PLACE
+    v_cache: torch.Tensor,
+    write_idx: torch.Tensor,  # [B] int32 — tokens already in cache per slot
+    layer: int, *,
+    impl: str | None = None,
+    k_scale: torch.Tensor | None = None,  # [L, B, Hkv, S] f32 — int8 caches
+    v_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Write this step's K/V row at ``write_idx`` of ``layer`` (dropped at
+    or past S: a parked slot), then attend over the valid prefix, now
+    ``write_idx + 1`` entries.  Returns out [B, H, D].
+
+    ``impl`` picks the path (the single-device branch of the reference):
+    - None / "kernel": ``kv_cache_update`` (``kv_cache_update_quant`` for an
+      int8 cache) then ``ragged_decode_attention``; on CUDA tensors they
+      launch the CUDA kernels, on CPU tensors their plain versions run.
+    - "plain": the reference's XLA oracle — the scatter (the update
+      kernels' plain versions: rows past S drop, quantized for int8) and
+      ``decode_attention_xla`` (``_decode_attention_xla_quant``) over the
+      layer's cache."""
+    b, h, d = q.shape
+    hkv = k_cache.shape[2]
+    if k_cache.shape[-1] != d:
+        raise ValueError(f"cache head_dim {k_cache.shape[-1]} != q head_dim "
+                         f"{d} (the port stores head_dim unpadded)")
+    quantized = k_scale is not None
+    qg = q.reshape(b, hkv, h // hkv, d)
+    lengths = write_idx + 1
+    if impl == "plain":
+        if quantized:
+            kv_cache_update_quant_plain(k_cache, v_cache, k_scale, v_scale,
+                                        k_new, v_new, write_idx, layer)
+            out = _decode_attention_xla_quant(
+                qg, k_cache[layer], v_cache[layer], k_scale[layer],
+                v_scale[layer], lengths)
+        else:
+            kv_cache_update_plain(k_cache, v_cache, k_new, v_new, write_idx,
+                                  layer)
+            out = decode_attention_xla(qg, k_cache[layer], v_cache[layer],
+                                       lengths)
+        return out.reshape(b, h, d)
+    if quantized:
+        kv_cache_update_quant(k_cache, v_cache, k_scale, v_scale, k_new,
+                              v_new, write_idx, layer, impl=impl)
+    else:
+        kv_cache_update(k_cache, v_cache, k_new, v_new, write_idx, layer,
+                        impl=impl)
+    out = ragged_decode_attention(qg, k_cache, v_cache, lengths, layer,
+                                  k_scale, v_scale, impl=impl)
+    return out.reshape(b, h, d)
+
+
+def paged_decode_update_and_attend(
+    q: torch.Tensor,        # [B, H, D]
+    k_new: torch.Tensor,    # [B, Hkv, D]
+    v_new: torch.Tensor,
+    k_pool: torch.Tensor,   # [L, N, Hkv, P, D] — updated IN PLACE
+    v_pool: torch.Tensor,
+    tables: torch.Tensor,   # [B, MaxP] int32 block tables
+    write_idx: torch.Tensor,  # [B] int32 (>= MaxP*P = inactive: dropped)
+    layer: int, *,
+    impl: str | None = None,
+    k_scale: torch.Tensor | None = None,  # [L, N, Hkv, P] f32 — IN PLACE
+    v_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Paged counterpart of ``decode_update_and_attend``: the row lands in
+    the slot's table-mapped page and attention reads only table pages.  A
+    ``write_idx`` at or beyond the table's coverage marks an INACTIVE slot:
+    its write is dropped and it attends nothing (its stale table may point
+    at pages other slots now own).  Returns out [B, H, D].
+
+    ``impl`` None / "kernel": ``paged_kv_update`` (``paged_kv_update_quant``
+    for an int8 pool) then ``paged_decode_attention``; "plain": the
+    reference's XLA oracle (the scatter, a gather of the slots' pages and
+    ``decode_attention_xla`` / ``_decode_attention_xla_quant``).  An int4
+    pool has no decode kernel: the reference serves it through its oracle
+    alone, so only ``impl="plain"`` takes it here."""
+    b, h, d = q.shape
+    hkv = k_pool.shape[2]
+    if k_pool.shape[-1] != d:
+        raise ValueError(f"pool head_dim {k_pool.shape[-1]} != q head_dim "
+                         f"{d} (the port stores head_dim unpadded)")
+    quantized = k_scale is not None
+    int4 = is_int4_pool(k_pool, k_scale)
+    cover = tables.shape[1] * pool_page_tokens(k_pool, k_scale)
+    attend_lens = torch.where(write_idx >= cover, torch.zeros_like(write_idx),
+                              write_idx + 1)
+    qg = q.reshape(b, hkv, h // hkv, d)
+    if impl == "plain":
+        paged_update_xla(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
+                         write_idx, tables, layer)
+        kc = gather_pool(k_pool, tables, layer, int4)
+        vc = gather_pool(v_pool, tables, layer, int4)
+        if quantized:
+            out = _decode_attention_xla_quant(
+                qg, kc, vc, paged_gather_kv(k_scale, tables, layer),
+                paged_gather_kv(v_scale, tables, layer), attend_lens)
+        else:
+            out = decode_attention_xla(qg, kc, vc, attend_lens)
+        return out.reshape(b, h, d)
+    if int4:
+        raise NotImplementedError(
+            "an int4 pool has no decode kernel (the reference serves it "
+            "through its XLA oracle only): run int4 pools on the mixed "
+            "scheduler")
+    if quantized:
+        paged_kv_update_quant(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
+                              write_idx, tables, layer, impl=impl)
+    else:
+        paged_kv_update(k_pool, v_pool, k_new, v_new, write_idx, tables,
+                        layer, impl=impl)
+    out = paged_decode_attention(qg, k_pool, v_pool, tables, attend_lens,
+                                 layer, k_scale, v_scale, impl=impl)
+    return out.reshape(b, h, d)
 
 
 class MixedBatch(NamedTuple):

@@ -1,6 +1,6 @@
 """Paged KV cache ops: the pool formats, block-table work lists, the plain
-PyTorch oracles, and the wrappers of the three CUDA kernels on the served
-path (port of ``arks_tpu/ops/paged_attention.py``).
+PyTorch oracles, and the wrappers of the four CUDA kernels that replace
+its Pallas kernels (port of ``arks_tpu/ops/paged_attention.py``).
 
 - **Pool layout** ``[L, N_pages, Hkv, P, D]``; block tables ``[B, MaxP]``
   int32 map position p of lane b to pool page ``tables[b, p // P]``.  The
@@ -17,7 +17,7 @@ path (port of ``arks_tpu/ops/paged_attention.py``).
   ``paged_kv_update_quant`` write into the tensors they are given (and
   return them for symmetry).
 - **Kernels** (``csrc/paged_kv_update.cu``, ``csrc/paged_kv_update_quant.cu``,
-  ``csrc/paged_mixed_attention.cu``) launch for CUDA tensors and raise on
+  ``csrc/paged_mixed_attention.cu``, ``csrc/decode_attention.cu``) launch for CUDA tensors and raise on
   anything they do not take — a build or launch error, an unsupported
   dtype or shape; there is no fallback.  Tensors on the CPU take each
   kernel's plain version, which ``impl="plain"`` also selects on the card
@@ -575,3 +575,131 @@ def paged_mixed_attention(
 
 
 paged_mixed_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel #5: paged decode attention (one query per slot)
+# ---------------------------------------------------------------------------
+
+
+def decode_attention_plain(q, k_cache, v_cache, lengths, *, k_scale=None,
+                           v_scale=None):
+    """The decode attention kernels' arithmetic in one pass (the plain
+    version of ``paged_decode_attention`` and of the slot cache's
+    ``ragged_decode_attention``): q [B, Hkv, G, D] over the slot-contiguous
+    view [B, Hkv, C, D] (int8 with [B, Hkv, C] scales when ``k_scale`` is
+    given), positions [0, min(lengths[b], C)).  Scores = (q.k) / sqrt(D),
+    times the k scale of an int8 cache; p times the v scale, then rounded
+    to the V dtype (q's dtype for int8) before p.V; divide by l + 1e-9
+    after.  V rows past the length never reach p.V, and a slot of length 0
+    gets zeros, as in the kernels."""
+    d = q.shape[-1]
+    c = k_cache.shape[2]
+    lens = lengths.long().clamp(max=c)
+    valid = torch.arange(c, device=q.device)[None] < lens[:, None]   # [B, C]
+    scores = torch.einsum("bkgd,bkcd->bkgc", q.float(),
+                          k_cache.float()) * (1.0 / math.sqrt(d))
+    if k_scale is not None:
+        scores = scores * k_scale[:, :, None, :]
+    scores = scores.masked_fill(~valid[:, None, None], _NEG_INF)
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    p_dtype = v_cache.dtype
+    if v_scale is not None:
+        p = p * v_scale[:, :, None, :]
+        p_dtype = q.dtype
+    vf = torch.where(valid[:, None, :, None], v_cache.float(), 0.0)
+    pv = torch.einsum("bkgc,bkcd->bkgd", p.to(p_dtype).float(), vf)
+    out = torch.where(lens[:, None, None, None] > 0, pv / (l + 1e-9), 0.0)
+    return out.to(q.dtype)
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, tables, lengths, layer,
+                                 k_scale=None, v_scale=None):
+    """Plain version of the paged decode kernel: ``decode_attention_plain``
+    over each slot's gathered pages."""
+    ks = vs = None
+    if k_scale is not None:
+        ks = paged_gather_kv(k_scale, tables, layer)
+        vs = paged_gather_kv(v_scale, tables, layer)
+    return decode_attention_plain(q, paged_gather_kv(k_pool, tables, layer),
+                                  paged_gather_kv(v_pool, tables, layer),
+                                  lengths, k_scale=ks, v_scale=vs)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,          # [B, Hkv, G, D] — one query token per slot
+    k_pool: torch.Tensor,     # [L, N, Hkv, P, D] page pool
+    v_pool: torch.Tensor,
+    tables: torch.Tensor,     # [B, MaxP] int32 block tables
+    lengths: torch.Tensor,    # [B] int32 valid positions per slot
+    layer: int,
+    k_scale: torch.Tensor | None = None,  # [L, N, Hkv, P] f32 (int8 pools)
+    v_scale: torch.Tensor | None = None,
+    *, impl: str | None = None,
+) -> torch.Tensor:
+    """[B, Hkv, G, D] attention of each slot's query over positions
+    [0, lengths[b]) through its block-table pages; pages past the length
+    are never read and a slot of length 0 gets zeros.  bf16/f32 and int8
+    pools; an int4 pool raises, as in the reference (its decode traffic
+    rides the mixed kernel).  CUDA tensors launch
+    ``csrc/decode_attention.cu`` (replaces the Pallas
+    ``_paged_attn_kernel``); CPU tensors take
+    ``paged_decode_attention_plain``."""
+    if is_int4_pool(k_pool, k_scale):
+        raise ValueError(
+            "int4 pools route through the mixed kernel (fused nibble "
+            "dequant) or the XLA oracle; the standalone decode kernel is "
+            "bf16/int8 only")
+    if not _use_kernel(q, impl):
+        return paged_decode_attention_plain(q, k_pool, v_pool, tables,
+                                            lengths, layer, k_scale, v_scale)
+    b, hkv, g, d = q.shape
+    _, n, phkv, page, dk = k_pool.shape
+    quantized = k_scale is not None
+    pool_dtype = torch.int8 if quantized else q.dtype
+    if q.dtype not in _KERNEL_DTYPES or k_pool.dtype != pool_dtype or \
+            v_pool.dtype != pool_dtype or (v_scale is None) == quantized:
+        raise TypeError("paged_decode_attention kernel takes bf16/f32 q over "
+                        "pools of q's dtype, or int8 pools with both scales; "
+                        f"got {q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
+    if (phkv, dk) != (hkv, d) or v_pool.shape != k_pool.shape or \
+            d not in _KERNEL_HEAD_DIMS or g > MAX_GROUP or \
+            tuple(lengths.shape) != (b,) or tables.shape[0] != b:
+        raise ValueError(f"paged_decode_attention kernel: q {tuple(q.shape)} "
+                         f"pool {tuple(k_pool.shape)} tables "
+                         f"{tuple(tables.shape)} lengths "
+                         f"{tuple(lengths.shape)} (head_dim in "
+                         f"{_KERNEL_HEAD_DIMS}, G <= {MAX_GROUP})")
+    scales = ()
+    if quantized:
+        if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32 \
+                or k_scale.shape != k_pool.shape[:4] or \
+                v_scale.shape != k_scale.shape:
+            raise ValueError("paged_decode_attention: scales "
+                             f"{tuple(k_scale.shape)} {k_scale.dtype} do not "
+                             f"match the pool {tuple(k_pool.shape)}")
+        scales = (("k_scale", k_scale), ("v_scale", v_scale))
+    if not 0 <= layer < k_pool.shape[0]:
+        raise ValueError(f"layer {layer} out of range")
+    qc = q.contiguous()
+    tbl = tables.to(torch.int32).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    _check_operands("paged_decode_attention", q.device,
+                    (("q", qc), ("tables", tbl), ("lengths", lens)),
+                    aligned=False)
+    _check_operands("paged_decode_attention", q.device,
+                    (("k_pool", k_pool), ("v_pool", v_pool), *scales))
+    out = torch.empty_like(qc)
+    _kernels.launch("arks_paged_decode_attention", qc.data_ptr(),
+                    out.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                    k_scale.data_ptr() if quantized else None,
+                    v_scale.data_ptr() if quantized else None,
+                    tbl.data_ptr(), lens.data_ptr(), b, hkv * g, hkv, d, page,
+                    n, tbl.shape[1], int(layer), 1.0 / math.sqrt(d),
+                    _KERNEL_DTYPES[q.dtype], int(quantized), _stream())
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

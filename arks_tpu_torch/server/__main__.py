@@ -31,6 +31,11 @@ def main(argv: list[str] | None = None) -> None:
                    help="KV pool: auto (the model's preference, else the "
                         "engine dtype), bf16, int8 (per-token scales) or "
                         "int4 (token pairs packed per byte)")
+    p.add_argument("--kv-layout", default="auto",
+                   choices=("auto", "paged", "slot"),
+                   help="KV layout: auto/paged (page pool; the mixed "
+                        "scheduler unless ARKS_MIXED_STEP=0) or slot "
+                        "(slot-contiguous cache, legacy scheduler)")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -43,7 +48,8 @@ def main(argv: list[str] | None = None) -> None:
     cfg = get_config(args.model)
     ecfg = EngineConfig(model=args.model, num_slots=args.num_slots,
                         max_cache_len=args.max_model_len, dtype=args.dtype,
-                        kv_cache_dtype=args.kv_cache_dtype, seed=args.seed)
+                        kv_cache_dtype=args.kv_cache_dtype,
+                        kv_layout=args.kv_layout, seed=args.seed)
     engine = InferenceEngine(cfg, ecfg, load_tokenizer(args.tokenizer_path),
                              device=args.device)
     server = OpenAIServer(engine, args.served_model_name or args.model,

@@ -19,7 +19,15 @@ Phases (any failure raises and exits non-zero):
               scales); the attention within 5e-3 of the plain version in
               bf16 and 1e-5 in f32.  Rows no lane owns exactly zero.  Then
               the threefry bits, keys and uniforms of 64 seeds on the card
-              equal those on the CPU bit for bit.
+              equal those on the CPU bit for bit.  Then the legacy
+              scheduler's kernels: the slot cache [2, 8, 4, 4096, 128]
+              (bf16, and int8 with scales) and a paged pool of 8 x 16
+              pages of 256, slots at lengths across tile and page edges,
+              an empty slot and a parked one (write index S, length
+              S + 1).  kv_cache_update and kv_cache_update_quant leave
+              the cache bit-identical to their plain versions;
+              ragged_decode_attention and paged_decode_attention meet the
+              attention limits above; the empty slot's output is zero.
   4. serve    the port's engine at Qwen2.5-7B full width (random bf16
               weights from a seed, 8 slots, max_cache_len 4096) behind its
               OpenAI server, once with a bf16 KV pool and once, on the same
@@ -30,7 +38,14 @@ Phases (any failure raises and exits non-zero):
               and read just after: its update kernel (paged_kv_update, or
               paged_kv_update_quant for int8) and paged_mixed_attention
               must each count num_layers x that run's mixed dispatches, the
-              other update kernel none.
+              other kernels none.  Then the legacy scheduler on the same
+              weights, three more engines: the slot cache in bf16 and in
+              int8, and the paged int8 pool under ARKS_MIXED_STEP=0 — a
+              one-shot prompt twice, a seeded request twice, a 1100-token
+              prompt (chunked: past the largest bucket) over SSE, 8
+              concurrent greedy streams.  Each run's update and attention
+              kernels must count num_layers x its decode steps, every
+              other kernel none.
   5. parity   two mixed_steps through the kernels vs the same steps through
               impl="plain" at full width: logits within 10% of the largest
               |logit| in bf16 and within 5e-4 in f32, and the same argmax
@@ -45,9 +60,13 @@ Phases (any failure raises and exits non-zero):
               their bounds, the plain versions and one PyTorch library call
               computing the same function (none for the quantized update);
               int8/int4 attention beside SDPA over pre-gathered,
-              pre-dequantized KV; end-to-end decode tok/s and TTFT.
-The line before the last is the kernels JSON; the last line is the device
-JSON.  A kernel's "launches" counts its launches in the phase-4 runs.
+              pre-dequantized KV; the legacy kernels at phase 3's slot
+              cache and pool beside SDPA with a length mask (decode
+              attention) and index_put_ (the slot write); end-to-end
+              decode tok/s and TTFT.
+The line before the last is the kernels JSON (seven kernels); the last
+line is the device JSON.  A kernel's "launches" counts its launches in the
+phase-4 runs.
 """
 
 from __future__ import annotations
@@ -71,6 +90,9 @@ PAGE, MAX_PAGES = 256, 16        # engine page (= chunk) and table width
 UPDATE_SRC = "arks_tpu_torch/csrc/paged_kv_update.cu"
 QUANT_SRC = "arks_tpu_torch/csrc/paged_kv_update_quant.cu"
 ATTN_SRC = "arks_tpu_torch/csrc/paged_mixed_attention.cu"
+DECODE_SRC = "arks_tpu_torch/csrc/decode_attention.cu"
+SLOT_UPDATE_SRC = "arks_tpu_torch/csrc/kv_cache_update.cu"
+SLOT_LEN = 4096                  # slot cache length (= MAX_PAGES * PAGE)
 KV_BITS = {"int8": 8, "int4": 4}
 # Attention, phase 3: the bf16 kernel vs the bf16 plain version (one bf16
 # ulp at |x| < 1 is at most 3.9e-3) and vs the f32 plain version on the
@@ -110,7 +132,7 @@ def phase_build():
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] {stem}: {line.strip()}")
-    log(f"[build] {len(logs)} kernels built with nvcc in {secs:.1f} s")
+    log(f"[build] {len(logs)} sources built with nvcc in {secs:.1f} s")
     return secs
 
 
@@ -310,8 +332,198 @@ def phase_prng(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3 (legacy): the slot cache's and the paged decode kernels
+# ---------------------------------------------------------------------------
+
+
+def slot_batch(torch, dev, *, hkv=4, g=7, d=128, layers=2):
+    """Phase 3's legacy inputs (numpy seed 1): a bf16 slot cache
+    [layers, 8, hkv, 4096, d] and a paged pool of 8 x 16 pages of 256 (the
+    same kind of data), shuffled tables, q [8, hkv, g, d], new rows, the
+    write indices (slot 4 parked at S) and the attention lengths: across
+    64-token tiles and 256-token pages, slot 4 empty (0), slot 5 parked
+    (S + 1), slot 7 full."""
+    rng = np.random.default_rng(SEED + 1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    b = 8
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    lengths = [1, 255, 256, 257, 0, SLOT_LEN + 1, 2049, SLOT_LEN]
+    return dict(
+        q=randn(b, hkv, g, d), k_new=randn(b, hkv, d), v_new=randn(b, hkv, d),
+        k_cache=randn(layers, b, hkv, SLOT_LEN, d),
+        v_cache=randn(layers, b, hkv, SLOT_LEN, d),
+        k_pool=randn(layers, b * MAX_PAGES, hkv, PAGE, d),
+        v_pool=randn(layers, b * MAX_PAGES, hkv, PAGE, d),
+        tables=torch.as_tensor(rng.permutation(b * MAX_PAGES).reshape(
+            b, MAX_PAGES).astype(np.int32), device=dev),
+        write_idx=torch.tensor([0, 254, 255, 256, SLOT_LEN, 63, 2048,
+                                SLOT_LEN - 1], **i32),
+        lengths=torch.tensor(lengths, **i32),
+        # Paged: the parked slot attends nothing (its write index is past
+        # the table's coverage).
+        paged_lengths=torch.tensor([n if n <= SLOT_LEN else 0
+                                    for n in lengths], **i32),
+        layer=layers - 1)
+
+
+def _int8(pa, pools):
+    """bf16 pools quantized per token as the served path stores them:
+    (k values, v values, k scales, v scales)."""
+    (kq, ks), (vq, vs) = (pa.quantize_kv(x) for x in pools)
+    return kq, vq, ks, vs
+
+
+def _attn_check(torch, what, got, want_bf16, want_f32, got_f32, empty,
+                cross=True):
+    """The attention limits of phase 3 (``cross``: the bf16 kernel against
+    the f32 plain version too, as for bf16 caches); returns the bf16
+    error."""
+    err_bf16 = (got.float() - want_bf16.float()).abs().max().item()
+    err_f32 = (got.float() - want_f32).abs().max().item() if cross else 0.0
+    err_f32k = (got_f32 - want_f32).abs().max().item()
+    zero = max(got[empty].float().abs().max().item(),
+               got_f32[empty].abs().max().item())
+    finite = bool(torch.isfinite(got.float()).all().item()
+                  and torch.isfinite(got_f32).all().item())
+    cross_msg = (f", vs plain f32 {err_f32:.3e} (tol {ATTN_TOL_F32})"
+                 if cross else "")
+    log(f"[kernels] {what}: bf16 kernel max abs err vs plain bf16 "
+        f"{err_bf16:.3e} (tol {ATTN_TOL_BF16}){cross_msg}; f32 kernel vs "
+        f"plain f32 {err_f32k:.3e} (tol {ATTN_TOL_F32_KERNEL}); empty slot "
+        f"max |x| {zero}; finite {finite}")
+    if not (finite and err_bf16 <= ATTN_TOL_BF16 and err_f32 <= ATTN_TOL_F32
+            and err_f32k <= ATTN_TOL_F32_KERNEL and zero == 0.0):
+        raise AssertionError(f"{what} disagrees with its plain version")
+    return err_bf16
+
+
+def phase_legacy_kernels(torch, dev):
+    """The four legacy kernels against their plain versions on
+    ``slot_batch``.  Returns (batch, {name: max abs err})."""
+    from arks_tpu_torch.ops import paged_attention as pa
+    from arks_tpu_torch.ops import pallas_attention as pl
+    b = slot_batch(torch, dev)
+    layer, empty = b["layer"], 4
+    rows = (b["k_new"], b["v_new"], b["write_idx"], layer)
+    errs = {}
+
+    kern = [b["k_cache"].clone(), b["v_cache"].clone()]
+    plain = [b["k_cache"].clone(), b["v_cache"].clone()]
+    pl.kv_cache_update(*kern, *rows)
+    pl.kv_cache_update(*plain, *rows, impl="plain")
+    torch.cuda.synchronize()
+    same = all(torch.equal(x.view(torch.int16), y.view(torch.int16))
+               for x, y in zip(kern, plain))
+    kept = torch.equal(kern[0][:, 4], b["k_cache"][:, 4])
+    errs["kv_cache_update"] = max((x.float() - y.float()).abs().max().item()
+                                  for x, y in zip(kern, plain))
+    log(f"[kernels] kv_cache_update: cache bytes bit-identical to the plain "
+        f"version: {same}; parked slot untouched: {kept}")
+    if not (same and kept):
+        raise AssertionError("kv_cache_update differs from its plain version")
+    del kern, plain
+
+    q, qf = b["q"], b["q"].float()
+    args = (b["lengths"], layer)
+    kc, vc = b["k_cache"], b["v_cache"]
+    got = pl.ragged_decode_attention(q, kc, vc, *args)
+    want = pl.ragged_decode_attention(q, kc, vc, *args, impl="plain")
+    kf, vf = kc.float(), vc.float()
+    want_f = pl.ragged_decode_attention(qf, kf, vf, *args, impl="plain")
+    got_f = pl.ragged_decode_attention(qf, kf, vf, *args)
+    torch.cuda.synchronize()
+    del kf, vf
+    errs["ragged_decode_attention"] = _attn_check(
+        torch, "ragged_decode_attention (bf16 slot cache)", got, want,
+        want_f, got_f, empty)
+
+    quant = list(_int8(pa, (kc, vc)))
+    kern = [x.clone() for x in quant]
+    plain = [x.clone() for x in quant]
+    pl.kv_cache_update_quant(*kern, *rows)
+    pl.kv_cache_update_quant(*plain, *rows, impl="plain")
+    torch.cuda.synchronize()
+    same = all(torch.equal(x.view(torch.int8), y.view(torch.int8))
+               for x, y in zip(kern, plain))
+    written = not torch.equal(kern[0], quant[0])
+    errs["kv_cache_update_quant"] = max(
+        (x.float() - y.float()).abs().max().item()
+        for x, y in zip(kern, plain))
+    log(f"[kernels] kv_cache_update_quant: values and scales bit-identical "
+        f"to the plain version: {same}; rows written: {written}")
+    if not (same and written):
+        raise AssertionError("kv_cache_update_quant differs from its plain "
+                             "version")
+    sc = dict(k_scale=kern[2], v_scale=kern[3])
+    got = pl.ragged_decode_attention(q, kern[0], kern[1], *args, **sc)
+    want = pl.ragged_decode_attention(q, kern[0], kern[1], *args,
+                                      impl="plain", **sc)
+    got_f = pl.ragged_decode_attention(qf, kern[0], kern[1], *args, **sc)
+    want_f = pl.ragged_decode_attention(qf, kern[0], kern[1], *args,
+                                        impl="plain", **sc)
+    torch.cuda.synchronize()
+    _attn_check(torch, "ragged_decode_attention (int8 slot cache)", got,
+                want, want_f, got_f, empty, cross=False)
+    b["slot_int8"] = kern
+    del plain, quant
+
+    pargs = (b["tables"], b["paged_lengths"], layer)
+    kp, vp = b["k_pool"], b["v_pool"]
+    got = pa.paged_decode_attention(q, kp, vp, *pargs)
+    want = pa.paged_decode_attention(q, kp, vp, *pargs, impl="plain")
+    kf, vf = kp.float(), vp.float()
+    want_f = pa.paged_decode_attention(qf, kf, vf, *pargs, impl="plain")
+    got_f = pa.paged_decode_attention(qf, kf, vf, *pargs)
+    torch.cuda.synchronize()
+    del kf, vf
+    errs["paged_decode_attention"] = _attn_check(
+        torch, "paged_decode_attention (bf16 pool)", got, want, want_f,
+        got_f, empty)
+    pq = _int8(pa, (kp, vp))
+    sc = dict(k_scale=pq[2], v_scale=pq[3])
+    got = pa.paged_decode_attention(q, pq[0], pq[1], *pargs, **sc)
+    want = pa.paged_decode_attention(q, pq[0], pq[1], *pargs, impl="plain",
+                                     **sc)
+    got_f = pa.paged_decode_attention(qf, pq[0], pq[1], *pargs, **sc)
+    want_f = pa.paged_decode_attention(qf, pq[0], pq[1], *pargs,
+                                       impl="plain", **sc)
+    torch.cuda.synchronize()
+    _attn_check(torch, "paged_decode_attention (int8 pool)", got, want,
+                want_f, got_f, empty, cross=False)
+    b["paged_int8"] = pq
+    return b, errs
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: the served path
 # ---------------------------------------------------------------------------
+
+
+def _counted():
+    """Every kernel wrapper of the port, by name."""
+    from arks_tpu_torch.ops import paged_attention as pa
+    from arks_tpu_torch.ops import pallas_attention as pl
+    return {"paged_kv_update": pa.paged_kv_update,
+            "paged_kv_update_quant": pa.paged_kv_update_quant,
+            "paged_mixed_attention": pa.paged_mixed_attention,
+            "paged_decode_attention": pa.paged_decode_attention,
+            "kv_cache_update": pl.kv_cache_update,
+            "kv_cache_update_quant": pl.kv_cache_update_quant,
+            "ragged_decode_attention": pl.ragged_decode_attention}
+
+
+def _reset_counts():
+    for fn in _counted().values():
+        fn.launches = 0
+
+
+def _read_counts():
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def _request(port, path, body, stream=False):
@@ -371,7 +583,6 @@ def phase_serve(torch, dev, kv="bf16", params=None):
     from arks_tpu_torch.engine import EngineConfig, InferenceEngine
     from arks_tpu_torch.engine.tokenizer import ByteTokenizer
     from arks_tpu_torch.models import get_config
-    from arks_tpu_torch.ops import paged_attention as pa
     from arks_tpu_torch.server import OpenAIServer
 
     cfg = get_config(MODEL)
@@ -394,8 +605,6 @@ def phase_serve(torch, dev, kv="bf16", params=None):
     engine.start()
     port = server.port
     tok = engine.tokenizer
-    counted = ("paged_kv_update", "paged_kv_update_quant",
-               "paged_mixed_attention")
     try:
         # Warm-up request (first cuBLAS/kernel calls), outside the counts.
         st, data, _, _ = _request(port, "/v1/completions", {
@@ -403,8 +612,7 @@ def phase_serve(torch, dev, kv="bf16", params=None):
         if st != 200:
             raise AssertionError(f"warm-up failed: {st} {data}")
 
-        for name in counted:
-            getattr(pa, name).launches = 0
+        _reset_counts()
         d0, shared0 = engine.dispatches, engine.shared_dispatches
 
         prompt = "The port serves OpenAI completions on the card."
@@ -490,12 +698,12 @@ def phase_serve(torch, dev, kv="bf16", params=None):
             raise AssertionError("decode and prefill never shared a dispatch")
 
         dispatches = engine.dispatches - d0
-        launches = {name: getattr(pa, name).launches for name in counted}
+        launches = _read_counts()
         want = cfg.num_layers * dispatches
         update = "paged_kv_update_quant" if engine.kv_quantized \
             else "paged_kv_update"
         expected = {name: want if name in (update, "paged_mixed_attention")
-                    else 0 for name in counted}
+                    else 0 for name in launches}
         log(f"{tag} mixed dispatches {dispatches}, launches {launches}, "
             f"expected {expected} ({cfg.num_layers} layers)")
         if launches != expected or dispatches == 0:
@@ -530,6 +738,141 @@ def phase_serve(torch, dev, kv="bf16", params=None):
         server.stop()
         engine.stop()
     return engine, res
+
+
+def phase_serve_legacy(torch, dev, layout, kv, params):
+    """The legacy scheduler served on ``params``: the slot cache
+    (``layout`` "slot") or the paged pool under ARKS_MIXED_STEP=0, with a
+    ``kv`` cache ("bf16" or "int8").  Returns its results."""
+    import os
+
+    from arks_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arks_tpu_torch.engine.tokenizer import ByteTokenizer
+    from arks_tpu_torch.models import get_config
+    from arks_tpu_torch.server import OpenAIServer
+
+    cfg = get_config(MODEL)
+    tag = f"[serve {layout} {kv}]"
+    os.environ["ARKS_MIXED_STEP"] = "0"
+    try:
+        t0 = time.perf_counter()
+        engine = InferenceEngine(cfg, EngineConfig(
+            model=MODEL, num_slots=8, max_cache_len=SLOT_LEN,
+            prefill_chunk=PAGE, dtype="bfloat16", kv_cache_dtype=kv,
+            kv_layout=layout, seed=SEED), ByteTokenizer(), params=params,
+            device=dev)
+    finally:
+        del os.environ["ARKS_MIXED_STEP"]
+    if engine._mixed or engine._paged != (layout == "paged"):
+        raise AssertionError(f"{tag}: not the legacy scheduler")
+    torch.cuda.synchronize()
+    res = {"pool_bytes": _pool_bytes(engine.cache)}
+    log(f"{tag} legacy engine up in {time.perf_counter() - t0:.1f} s: cache "
+        f"{type(engine.cache).__name__} {tuple(engine.cache.k.shape)} "
+        f"{engine.cache.k.dtype}, K+V {res['pool_bytes']} B (scales "
+        f"included), {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+        "allocated")
+    server = OpenAIServer(engine, MODEL, host="127.0.0.1", port=0)
+    server.start(background=True)
+    engine.start()
+    port = server.port
+    tok = engine.tokenizer
+    out = {}
+
+    def run(key, body, stream=False):
+        out[key] = _request(port, "/v1/completions", body, stream)
+
+    try:
+        run("warm", {"prompt": "warm up", "max_tokens": 4, "temperature": 0})
+        if out["warm"][0] != 200:
+            raise AssertionError(f"{tag} warm-up failed: {out['warm']}")
+        _reset_counts()
+        s0, d0 = engine.decode_steps, engine.decode_dispatches
+
+        prompt = "The legacy scheduler serves the slot cache on the card."
+        body = {"prompt": prompt, "max_tokens": 24, "temperature": 0}
+        texts = []
+        for i in range(2):
+            run(f"greedy{i}", body)
+            st, data = out[f"greedy{i}"][:2]
+            if st != 200:
+                raise AssertionError(f"{tag} completion: HTTP {st} {data}")
+            texts.append(data["choices"][0]["text"])
+        _check_usage(f"{layout} {kv} one-shot completion", data["usage"],
+                     len(tok.encode(prompt)), 24,
+                     data["choices"][0]["finish_reason"])
+        if texts[0] != texts[1]:
+            raise AssertionError(f"{tag} a repeated greedy completion "
+                                 "differs")
+        seeded = {"prompt": prompt, "max_tokens": 12, "temperature": 0.9,
+                  "top_p": 0.95, "top_k": 50, "seed": 2**33 + 11,
+                  "ignore_eos": True}
+        texts = []
+        for i in range(2):
+            run(f"seeded{i}", seeded)
+            if out[f"seeded{i}"][0] != 200:
+                raise AssertionError(f"{tag} seeded: {out[f'seeded{i}']}")
+            texts.append(out[f"seeded{i}"][1]["choices"][0]["text"])
+        log(f"{tag} repeated greedy identical; seeded sampled completion "
+            f"identical twice: {texts[0] == texts[1]}")
+        if texts[0] != texts[1]:
+            raise AssertionError(f"{tag} a seeded request gave two streams")
+
+        long_ids = [int(x) for x in
+                    np.random.default_rng(SEED + 2).integers(2, 258, 1100)]
+        st, frames, ttft, _ = _request(port, "/v1/completions", {
+            "prompt": long_ids, "max_tokens": 16, "temperature": 0,
+            "ignore_eos": True, "stream": True,
+            "stream_options": {"include_usage": True}}, stream=True)
+        text, finish, usage = _stream_summary(frames)
+        if st != 200 or len(finish) != 1 or len(usage) != 1:
+            raise AssertionError(f"{tag} SSE completion: HTTP {st}, {finish}")
+        _check_usage(f"{layout} {kv} SSE completion (1100-token prompt, "
+                     "chunked)", usage[0], 1100, 16, finish[0])
+        res["ttft_1100_s"] = ttft
+
+        threads = [threading.Thread(target=run, args=(f"b{i}", {
+            "prompt": f"lane {i} of the legacy scheduler", "max_tokens": 32,
+            "temperature": 0, "ignore_eos": True})) for i in range(8)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(900)
+        wall = time.perf_counter() - t0
+        for i in range(8):
+            st, data = out[f"b{i}"][:2]
+            if st != 200:
+                raise AssertionError(f"{tag} concurrent {i}: HTTP {st}")
+            _check_usage(f"{layout} {kv} concurrent {i}", data["usage"],
+                         len(tok.encode(f"lane {i} of the legacy scheduler")),
+                         32, data["choices"][0]["finish_reason"])
+        res["decode_tok_s_b8"] = 8 * 32 / wall
+
+        steps = engine.decode_steps - s0
+        launches = _read_counts()
+        update = "kv_cache_update" if layout == "slot" else "paged_kv_update"
+        if kv == "int8":
+            update += "_quant"
+        attn = "ragged_decode_attention" if layout == "slot" \
+            else "paged_decode_attention"
+        expected = {name: cfg.num_layers * steps if name in (update, attn)
+                    else 0 for name in launches}
+        log(f"{tag} decode dispatches {engine.decode_dispatches - d0}, decode "
+            f"steps {steps}, launches {launches}, expected {expected}; 8 "
+            f"streams {res['decode_tok_s_b8']:.1f} tok/s aggregate ({wall:.2f}"
+            f" s incl. prefill); TTFT of the 1100-token prompt "
+            f"{ttft * 1e3:.1f} ms")
+        if launches != expected or steps == 0:
+            raise AssertionError(f"{tag} launch counts != layers x decode "
+                                 "steps")
+        res["launches"] = launches
+    finally:
+        server.stop()
+        engine.stop()
+    del engine
+    torch.cuda.empty_cache()
+    return res
 
 
 def _leaves(tree):
@@ -592,6 +935,12 @@ def phase_parity(torch, dev, engine):
             worst[f"{name} {kv} {cfg.num_layers} layers, read"] = \
                 _parity_steps(torch, dev, tf, cfg, params, dtype, 0.10, 0.0,
                               kv, limit=False)
+        for layout, kv, c, p in (("slot", None, cfg, params),
+                                 ("slot", "int8", one, first),
+                                 ("paged", None, cfg, params)):
+            worst[f"decode_step {layout} {name} {kv or 'unquantized'} "
+                  f"{c.num_layers} layer(s)"] = _decode_parity(
+                torch, dev, tf, c, p, dtype, rel, abs_tol, layout, kv)
         del params, first
         torch.cuda.empty_cache()
     return worst
@@ -650,6 +999,121 @@ def _parity_steps(torch, dev, tf, cfg, params, dtype, rel, abs_tol, kv,
                                  "with the plain path")
         worst = max(worst, err)
     return worst
+
+
+def _decode_parity(torch, dev, tf, cfg, params, dtype, rel, abs_tol, layout,
+                   kv):
+    """Three decode_steps through the kernels and through impl="plain"
+    after prefilled prompts of 300 and 40 tokens (slots 0 and 1; slot 2
+    parked), on the slot cache (1024 rows) or a paged pool (page 256):
+    logits of the live slots within the tolerance, the same argmax wherever
+    the top-2 margin exceeds it.  Returns the worst |logit diff|."""
+    rng = np.random.default_rng(SEED + 6)
+    tokens = np.zeros((2, 320), np.int32)
+    tokens[0, :300] = rng.integers(2, cfg.vocab_size, 300)
+    tokens[1, :40] = rng.integers(2, cfg.vocab_size, 40)
+    i32 = dict(dtype=torch.int32, device=dev)
+    logits0, ks, vs = tf.prefill(params, cfg, torch.as_tensor(tokens,
+                                                              device=dev),
+                                 torch.tensor([300, 40], **i32))
+    quant = kv is not None
+    caches, tables = {}, None
+    for impl in ("kernel", "plain"):
+        if layout == "slot":
+            c = tf.init_cache(cfg, 3, 1024, dtype, dev, quantized=quant)
+            tf.insert_batch(c, ks, vs, [0, 1])
+            sentinel = 1024
+        else:
+            c = tf.init_paged_cache(cfg, 12, PAGE, dtype, dev,
+                                    quantized=quant)
+            tables = torch.arange(12, **i32).reshape(3, 4)
+            tf.insert_pages_batch(c, ks, vs, tables[:2, :2], [2, 1])
+            sentinel = 4 * PAGE
+        caches[impl] = c
+    del ks, vs
+    toks = torch.cat([logits0.argmax(-1).to(torch.int32),
+                      torch.zeros(1, **i32)])
+    lengths = torch.tensor([300, 40, sentinel], **i32)
+    worst = 0.0
+    for i in range(3):
+        out = {impl: tf.decode_step(params, cfg, caches[impl], toks, lengths,
+                                    tables, impl=impl)
+               for impl in ("kernel", "plain")}
+        k, p = out["kernel"][:2], out["plain"][:2]
+        tol = rel * p.abs().max().item() + abs_tol
+        err = (k - p).abs().max().item()
+        top2 = p.topk(2, dim=-1).values
+        wide = (top2[:, 0] - top2[:, 1]) > tol
+        agree = bool((k.argmax(-1) == p.argmax(-1))[wide].all().item())
+        finite = bool(torch.isfinite(k).all().item())
+        log(f"[parity] decode_step {layout} {dtype} {kv or 'unquantized'}, "
+            f"{cfg.num_layers} layer(s), step {i}: max |logit diff| "
+            f"{err:.3e} (limit {tol:.3e}), argmax agrees on the "
+            f"{int(wide.sum())} of 2 live slots with margin > tol: {agree}; "
+            f"finite {finite}")
+        if not (err <= tol and agree and finite):
+            raise AssertionError("decode_step through the kernels disagrees "
+                                 "with the plain path")
+        worst = max(worst, err)
+        toks = out["plain"].argmax(-1).to(torch.int32)
+        lengths = lengths + torch.tensor([1, 1, 0], **i32)
+    return worst
+
+
+def phase_decode_profile(torch, dev, engine):
+    """Where a legacy decode dispatch's time goes: K = 4 decode_steps, each
+    sampling greedily, over 8 slots at context 512 of a bf16 slot cache,
+    on the engine's weights: host time per step (synchronised) and the
+    device's kernel time from torch.profiler, as phase_step_profile reads
+    the mixed step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from arks_tpu_torch.engine import sampler
+    from arks_tpu_torch.models import transformer as tf
+    cfg, lanes, ctx, k_steps = engine.cfg, 8, 512, 4
+    cache = tf.init_cache(cfg, lanes, 1024, torch.bfloat16, dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def dispatch():
+        toks = torch.full((lanes,), 5, **i32)
+        lengths = torch.full((lanes,), ctx, **i32)
+        out = []
+        for _ in range(k_steps):
+            logits = tf.decode_step(engine.params, cfg, cache, toks, lengths)
+            toks = sampler.sample(logits, None, None, None)[0]
+            out.append(toks)
+            lengths = lengths + 1
+        return torch.stack(out).cpu()
+
+    for _ in range(2):
+        dispatch()
+    torch.cuda.synchronize()
+    n = 4
+    t0 = time.perf_counter()
+    for _ in range(n):
+        dispatch()
+    wall_ms = (time.perf_counter() - t0) / (n * k_steps) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dispatch()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels) / k_steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    top += [e for e in kernels if e not in top and (
+        "kv_cache_update" in e.key or "decode_attention" in e.key)]
+    log(f"[profile] legacy decode dispatch, bf16 slot cache, {lanes} slots at "
+        f"context {ctx}, K={k_steps}: {wall_ms:.2f} ms host clock per step "
+        f"({lanes / wall_ms * 1e3:.1f} tok/s), device kernel time "
+        + (f"{dev_us / 1e3:.2f} ms/step, busy share "
+           f"{dev_us / 1e3 / wall_ms:.3f}" if dev_us else "not measured"))
+    for e in top:
+        log(f"[profile]   {e.key[:60]:60s} "
+            f"{e.self_device_time_total / k_steps:9.1f} us/step "
+            f"x{e.count // k_steps}")
+    del cache
+    torch.cuda.empty_cache()
+    return wall_ms, dev_us / 1e3 if dev_us else None
 
 
 def phase_step_profile(torch, dev, engine, kv=None):
@@ -795,22 +1259,26 @@ def _attn_flops(b):
     return 4 * h * d * pairs
 
 
-def _device_us(torch, fn, kernel, n=5):
+def _device_us(torch, fn, kernel, n=5, tries=3):
     """Mean device time of the CUDA kernels whose name holds ``kernel``
-    per call of fn(), from a torch.profiler trace of ``n`` calls (None if
-    the trace shows no device time)."""
+    per call of fn(), from a torch.profiler trace of ``n`` calls; a trace
+    that shows none of them is taken again, up to ``tries`` times (None if
+    every trace shows no device time)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.key)
-    return us / n if us else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in e.key)
+        if us:
+            return us / n
+    return None
 
 
 def phase_times(torch, b):
@@ -896,7 +1364,7 @@ def phase_times(torch, b):
         f"{attn_times['library_ms'] * 1e3:.1f} us; wrapper building its "
         f"work list per call {wrapper_ms * 1e3:.1f} us")
     log(f"[times] paged_mixed_attention decode-only (8 lanes, contexts "
-        f"{list(ps[:8] + 1)}): {dec_ms * 1e3:.1f} us (bound "
+        f"{(ps[:8] + 1).tolist()}): {dec_ms * 1e3:.1f} us (bound "
         f"{dec_bytes / HBM_BYTES_PER_S * 1e6:.2f} us by bytes)")
     return upd_times, attn_times
 
@@ -973,6 +1441,143 @@ def phase_quant_times(torch, b, qres):
     return upd_t, attn_t
 
 
+def _decode_bytes(lengths, cap, hkv, d, h, elem, scale_bytes=0,
+                  tables=False):
+    """Bytes a decode attention must move: per slot its K and V prefix
+    [0, min(len, cap)) once per KV head (``elem`` bytes a value plus
+    ``scale_bytes`` of scales per token), its table entries when paged,
+    its length, q read and out written once (bf16)."""
+    n = np.minimum(np.asarray(lengths, np.int64), cap)
+    pages = int((-(-n // PAGE)).sum()) if tables else 0
+    return int(n.sum() * hkv * (d * elem + scale_bytes) * 2 + pages * 4
+               + len(n) * 4 + 2 * len(n) * h * d * 2)
+
+
+def phase_legacy_times(torch, b):
+    """The four legacy kernels at phase 3's slot cache and pool: CUDA-event
+    times beside the bound, the plain version and a library call (SDPA
+    with a length mask over the contiguous or pre-gathered KV, bf16 and
+    head-expanded; two index_put_ for the slot write; none for the
+    quantized write), and profiler device µs."""
+    from arks_tpu_torch.ops import paged_attention as pa
+    from arks_tpu_torch.ops import pallas_attention as pl
+    q, layer = b["q"], b["layer"]
+    nb, hkv, g, d = q.shape
+    h = hkv * g
+    kc, vc = b["k_cache"], b["v_cache"]
+    widx = b["write_idx"]
+    rows = (b["k_new"], b["v_new"], widx, layer)
+    keep = (widx < SLOT_LEN).nonzero().squeeze(1)
+    n_valid = int(keep.numel())
+    idx = widx[keep].long()
+    hk = torch.arange(hkv, device=q.device)
+    kl, vl = kc[layer], vc[layer]
+    kn, vn = b["k_new"][keep], b["v_new"][keep]
+
+    def lib_upd():
+        kl.index_put_((keep[:, None], hk[None, :], idx[:, None]), kn)
+        vl.index_put_((keep[:, None], hk[None, :], idx[:, None]), vn)
+    out = {}
+    upd_bytes = nb * 4 + 2 * 2 * n_valid * hkv * d * 2
+    out["kv_cache_update"] = dict(
+        ms=_time_ms(torch, lambda: pl.kv_cache_update(kc, vc, *rows)),
+        plain_ms=_time_ms(torch, lambda: pl.kv_cache_update(
+            kc, vc, *rows, impl="plain")),
+        library_ms=_time_ms(torch, lib_upd), **_bound(upd_bytes, 0),
+        dev_us=_device_us(torch, lambda: pl.kv_cache_update(kc, vc, *rows),
+                          "kv_cache_update_kernel"),
+        nbytes=upd_bytes)
+    sq = b["slot_int8"]
+    q_bytes = nb * 4 + 2 * n_valid * hkv * d * 2 + 2 * n_valid * hkv * (d + 4)
+    out["kv_cache_update_quant"] = dict(
+        ms=_time_ms(torch, lambda: pl.kv_cache_update_quant(*sq, *rows)),
+        plain_ms=_time_ms(torch, lambda: pl.kv_cache_update_quant(
+            *sq, *rows, impl="plain")),
+        library_ms=None, **_bound(q_bytes, 0),
+        dev_us=_device_us(torch, lambda: pl.kv_cache_update_quant(*sq, *rows),
+                          "kv_cache_update_quant_kernel"),
+        nbytes=q_bytes)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs = q.reshape(nb, h, 1, d)
+    lens = b["lengths"].cpu().numpy()
+    plens = b["paged_lengths"].cpu().numpy()
+    flops = 4 * h * d * int(np.minimum(lens, SLOT_LEN).sum())
+    pflops = 4 * h * d * int(plens.sum())
+
+    def mask(n):
+        return (torch.arange(SLOT_LEN, device=q.device)[None, :]
+                < torch.as_tensor(np.minimum(n, SLOT_LEN),
+                                  device=q.device)[:, None])[:, None, None]
+    slot_mask, paged_mask = mask(lens), mask(plens)
+    kx = kl.repeat_interleave(g, dim=1)
+    vx = vl.repeat_interleave(g, dim=1)
+    args = (b["lengths"], layer)
+    for name, kv in (("ragged_decode_attention", "bf16"),
+                     ("ragged_decode_attention int8", "int8")):
+        if kv == "bf16":
+            caches, sc, el, sb = (kc, vc), {}, 2, 0
+            lk, lv = kx, vx
+        else:
+            caches = sq[:2]
+            sc, el, sb = dict(k_scale=sq[2], v_scale=sq[3]), 1, 4
+            lk, lv = ((x[layer].float() * s_[layer][..., None]).to(
+                torch.bfloat16).repeat_interleave(g, dim=1)
+                for x, s_ in ((sq[0], sq[2]), (sq[1], sq[3])))
+        nbytes = _decode_bytes(lens, SLOT_LEN, hkv, d, h, el, sb)
+        out[name] = dict(
+            ms=_time_ms(torch, lambda: pl.ragged_decode_attention(
+                q, *caches, *args, **sc)),
+            plain_ms=_time_ms(torch, lambda: pl.ragged_decode_attention(
+                q, *caches, *args, impl="plain", **sc), iters=5),
+            library_ms=_time_ms(torch, lambda: sdpa(qs, lk, lv,
+                                                    attn_mask=slot_mask)),
+            **_bound(nbytes, flops),
+            dev_us=_device_us(torch, lambda: pl.ragged_decode_attention(
+                q, *caches, *args, **sc), "decode_attention_kernel"),
+            nbytes=nbytes)
+        del lk, lv
+    del kx, vx
+    pargs = (b["tables"], b["paged_lengths"], layer)
+    pq = b["paged_int8"]
+    for name, kv in (("paged_decode_attention", "bf16"),
+                     ("paged_decode_attention int8", "int8")):
+        if kv == "bf16":
+            pools, sc, el, sb = (b["k_pool"], b["v_pool"]), {}, 2, 0
+            gk, gv = (pa.paged_gather_kv(x, b["tables"], layer)
+                      .repeat_interleave(g, dim=1) for x in pools)
+        else:
+            pools = pq[:2]
+            sc, el, sb = dict(k_scale=pq[2], v_scale=pq[3]), 1, 4
+            gk, gv = ((pa.paged_gather_kv(x, b["tables"], layer).float()
+                       * pa.paged_gather_kv(s_, b["tables"], layer)[..., None])
+                      .to(torch.bfloat16).repeat_interleave(g, dim=1)
+                      for x, s_ in ((pq[0], pq[2]), (pq[1], pq[3])))
+        nbytes = _decode_bytes(plens, SLOT_LEN, hkv, d, h, el, sb,
+                               tables=True)
+        out[name] = dict(
+            ms=_time_ms(torch, lambda: pa.paged_decode_attention(
+                q, *pools, *pargs, **sc)),
+            plain_ms=_time_ms(torch, lambda: pa.paged_decode_attention(
+                q, *pools, *pargs, impl="plain", **sc), iters=5),
+            library_ms=_time_ms(torch, lambda: sdpa(qs, gk, gv,
+                                                    attn_mask=paged_mask)),
+            **_bound(nbytes, pflops),
+            dev_us=_device_us(torch, lambda: pa.paged_decode_attention(
+                q, *pools, *pargs, **sc), "decode_attention_kernel"),
+            nbytes=nbytes)
+        del gk, gv
+    for name, t in out.items():
+        lib = (f"{t['library_ms'] * 1e3:.1f} us" if t["library_ms"]
+               is not None else "none")
+        log(f"[times] {name}: {t['ms'] * 1e3:.1f} us (profiler: "
+            f"{t['dev_us']} us on the device; bound {t['bound_ms'] * 1e3:.3f}"
+            f" us by {t['bound_by']}, {t['nbytes']} B), plain "
+            f"{t['plain_ms'] * 1e3:.1f} us, library {lib}; lengths "
+            f"{lens.tolist()}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -990,10 +1595,14 @@ def main() -> int:
     b, upd_err, attn_err = phase_kernels(torch, dev)
     qres = phase_quant_kernels(torch, dev, b)
     phase_prng(torch, dev)
+    lb, legacy_err = phase_legacy_kernels(torch, dev)
     engine, serve = phase_serve(torch, dev)
     params = engine.params
     del engine
     torch.cuda.empty_cache()
+    legacy = {(layout, kv): phase_serve_legacy(torch, dev, layout, kv, params)
+              for layout, kv in (("slot", "bf16"), ("slot", "int8"),
+                                 ("paged", "int8"))}
     engine, serve8 = phase_serve(torch, dev, "int8", params)
     log(f"[serve] bf16 vs int8 pool on the same weights: K+V pool bytes "
         f"{serve['pool_bytes']} vs {serve8['pool_bytes']}; decode tok/s "
@@ -1006,10 +1615,14 @@ def main() -> int:
     log(f"[parity] worst |logit diff| per dtype and pool {worst}")
     for kv in (None, "int8"):
         phase_step_profile(torch, dev, engine, kv)
+    phase_decode_profile(torch, dev, engine)
     del engine, params
     torch.cuda.empty_cache()
     upd_t, attn_t = phase_times(torch, b)
     qupd_t, qattn_t = phase_quant_times(torch, b, qres)
+    lt = phase_legacy_times(torch, lb)
+    slot16, slot8 = legacy[("slot", "bf16")], legacy[("slot", "int8")]
+    paged8 = legacy[("paged", "int8")]
     attn_launches = (serve["launches"]["paged_mixed_attention"]
                      + serve8["launches"]["paged_mixed_attention"])
     kernels = [
@@ -1022,8 +1635,31 @@ def main() -> int:
              launches=attn_launches, max_abs_err=attn_err, **attn_t),
         dict(name="paged_kv_update_quant", route="cuda", source=QUANT_SRC,
              replaces="arks_tpu/ops/paged_attention.py:1215",
-             launches=serve8["launches"]["paged_kv_update_quant"],
+             launches=(serve8["launches"]["paged_kv_update_quant"]
+                       + paged8["launches"]["paged_kv_update_quant"]),
              max_abs_err=qres["int8"][1], **qupd_t["int8"]),
+        dict(name="paged_decode_attention", route="cuda", source=DECODE_SRC,
+             replaces="arks_tpu/ops/paged_attention.py:388",
+             launches=paged8["launches"]["paged_decode_attention"],
+             max_abs_err=legacy_err["paged_decode_attention"],
+             **lt["paged_decode_attention"]),
+        dict(name="ragged_decode_attention", route="cuda", source=DECODE_SRC,
+             replaces="arks_tpu/ops/pallas_attention.py:58",
+             launches=(slot16["launches"]["ragged_decode_attention"]
+                       + slot8["launches"]["ragged_decode_attention"]),
+             max_abs_err=legacy_err["ragged_decode_attention"],
+             **lt["ragged_decode_attention"]),
+        dict(name="kv_cache_update", route="cuda", source=SLOT_UPDATE_SRC,
+             replaces="arks_tpu/ops/pallas_attention.py:241",
+             launches=slot16["launches"]["kv_cache_update"],
+             max_abs_err=legacy_err["kv_cache_update"],
+             **lt["kv_cache_update"]),
+        dict(name="kv_cache_update_quant", route="cuda",
+             source=SLOT_UPDATE_SRC,
+             replaces="arks_tpu/ops/pallas_attention.py:354",
+             launches=slot8["launches"]["kv_cache_update_quant"],
+             max_abs_err=legacy_err["kv_cache_update_quant"],
+             **lt["kv_cache_update_quant"]),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -117,7 +117,7 @@ def test_server_cli_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("weight_dtype", "int4"), ("context_parallel", 2),
-    ("weight_dtype", "int8"), ("kv_layout", "slot"),
+    ("weight_dtype", "int8"),
     ("draft_model", "tiny"), ("tensor_parallel", 2),
     ("data_parallel", 2), ("pipeline_parallel", 2),
 ])

@@ -219,3 +219,225 @@ def test_mixed_step_kernels_vs_plain(dev, kv):
             # their quantized bytes may differ by one step at most
             assert (caches["kernel"].k_scale - caches["plain"].k_scale
                     ).abs().max() <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# The legacy scheduler's kernels: slot-cache writes, decode attention over
+# the slot cache and over the paged pool
+# ---------------------------------------------------------------------------
+
+
+def _slot_cache(dev, dtype, *, b, hkv, d, s, layers=2, quant=None, seed=0):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    shape = (layers, b, hkv, s, d)
+    kv = [torch.randn(shape, generator=gen, device=dev).to(dtype)
+          for _ in range(2)]
+    if quant:
+        return _as_int8(kv)
+    return kv
+
+
+def _as_int8(pools):
+    """Pools quantized per token (values, then f32 scales)."""
+    vals, scales = zip(*(pa.quantize_kv(p) for p in pools))
+    return list(vals) + list(scales)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [8, 64, 128])
+def test_kv_cache_update_bit_exact(dev, dtype, d):
+    from arks_tpu_torch.ops import pallas_attention as pl
+    s = 48
+    k, v = _slot_cache(dev, dtype, b=6, hkv=4, d=d, s=s)
+    widx = torch.tensor([0, 15, 16, s - 1, s, 30], dtype=torch.int32,
+                        device=dev)
+    new = [torch.randn(6, 4, d, device=dev).to(dtype) for _ in range(2)]
+    kern = [k.clone(), v.clone()]
+    plain = [k.clone(), v.clone()]
+    before = pl.kv_cache_update.launches
+    pl.kv_cache_update(*kern, *new, widx, 1)
+    pl.kv_cache_update(*plain, *new, widx, 1, impl="plain")
+    torch.cuda.synchronize()
+    assert pl.kv_cache_update.launches == before + 1
+    for g, w in zip(kern, plain):
+        assert torch.equal(g, w)
+    assert not torch.equal(kern[0], k)
+    assert torch.equal(kern[0][:, 4], k[:, 4])      # the parked slot
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128])
+def test_kv_cache_update_quant_bit_exact(dev, dtype, d):
+    from arks_tpu_torch.ops import pallas_attention as pl
+    s = 128
+    caches = _slot_cache(dev, dtype, b=6, hkv=4, d=d, s=s, quant=True)
+    widx = torch.tensor([0, 127, 64, s, 5, 100], dtype=torch.int32,
+                        device=dev)
+    new = [torch.randn(6, 4, d, device=dev).to(dtype) * 3 for _ in range(2)]
+    new[0][4] = 0.0
+    kern = [x.clone() for x in caches]
+    plain = [x.clone() for x in caches]
+    before = pl.kv_cache_update_quant.launches
+    pl.kv_cache_update_quant(*kern, *new, widx, 1)
+    pl.kv_cache_update_quant(*plain, *new, widx, 1, impl="plain")
+    torch.cuda.synchronize()
+    assert pl.kv_cache_update_quant.launches == before + 1
+    for g, w in zip(kern, plain):
+        assert torch.equal(g.view(torch.int8), w.view(torch.int8))
+    assert not torch.equal(kern[0], caches[0])
+    assert torch.equal(kern[0][:, 3], caches[0][:, 3])   # the parked slot
+
+
+def _slot_lengths(s, dev):
+    # Across 64-token tiles, an empty slot, a parked slot (S + 1), full.
+    return torch.tensor([1, 63, 64, 65, 0, s + 1, s, 200], dtype=torch.int32,
+                        device=dev)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("hkv,g,d,s", [(4, 7, 128, 256), (2, 4, 64, 320),
+                                       (1, 8, 128, 512), (3, 1, 64, 256)])
+def test_ragged_decode_attention_vs_plain(dev, dtype, tol, hkv, g, d, s,
+                                          quant):
+    from arks_tpu_torch.ops import pallas_attention as pl
+    lengths = _slot_lengths(s, dev)
+    b = lengths.shape[0]
+    caches = _slot_cache(dev, dtype, b=b, hkv=hkv, d=d, s=s, quant=quant)
+    q = torch.randn(b, hkv, g, d, device=dev).to(dtype)
+    sc = dict(k_scale=caches[2], v_scale=caches[3]) if quant else {}
+    before = pl.ragged_decode_attention.launches
+    got = pl.ragged_decode_attention(q, caches[0], caches[1], lengths, 1,
+                                     **sc)
+    want = pl.ragged_decode_attention(q, caches[0], caches[1], lengths, 1,
+                                      impl="plain", **sc)
+    torch.cuda.synchronize()
+    assert pl.ragged_decode_attention.launches == before + 1
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert not got[4].any()                           # the empty slot
+
+
+def _paged_decode_case(dev, dtype, *, hkv, g, d, page, quant, seed=0):
+    lengths = [1, page - 1, page, page + 1, 0, 3 * page + 5, 4 * page, 2]
+    b, maxp = len(lengths), 5
+    rng = np.random.default_rng(seed)
+    n_pages = b * maxp + 3
+    tables = torch.as_tensor(rng.permutation(n_pages)[: b * maxp]
+                             .reshape(b, maxp).astype(np.int32), device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    pools = [torch.randn((2, n_pages, hkv, page, d), generator=gen,
+                         device=dev).to(dtype) for _ in range(2)]
+    if quant:
+        pools = _as_int8(pools)
+    q = torch.randn(b, hkv, g, d, device=dev).to(dtype)
+    return q, pools, tables, torch.tensor(lengths, dtype=torch.int32,
+                                          device=dev)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("hkv,g,d,page", [(4, 7, 128, 256), (2, 4, 64, 16),
+                                          (1, 8, 128, 32), (3, 1, 64, 64)])
+def test_paged_decode_attention_vs_plain(dev, dtype, tol, hkv, g, d, page,
+                                         quant):
+    q, pools, tables, lengths = _paged_decode_case(
+        dev, dtype, hkv=hkv, g=g, d=d, page=page, quant=quant)
+    sc = dict(k_scale=pools[2], v_scale=pools[3]) if quant else {}
+    before = pa.paged_decode_attention.launches
+    got = pa.paged_decode_attention(q, pools[0], pools[1], tables, lengths,
+                                    1, **sc)
+    want = pa.paged_decode_attention(q, pools[0], pools[1], tables, lengths,
+                                     1, impl="plain", **sc)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention.launches == before + 1
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert not got[4].any()
+
+
+def test_paged_decode_attention_skips_rows_past_the_length(dev):
+    """NaN in every pool row past a slot's length (pages past it and the
+    tail of its last page) leaves the output finite."""
+    q, pools, tables, lengths = _paged_decode_case(
+        dev, torch.bfloat16, hkv=2, g=4, d=64, page=16, quant=False)
+    v = pools[1].clone()
+    for b, n in enumerate(lengths.tolist()):
+        for pos in range(n, tables.shape[1] * 16):
+            v[1, tables[b, pos // 16], :, pos % 16] = float("nan")
+    got = pa.paged_decode_attention(q, pools[0], v, tables, lengths, 1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+
+
+def test_decode_kernels_raise_on_unsupported(dev):
+    from arks_tpu_torch.ops import pallas_attention as pl
+    q, pools, tables, lengths = _paged_decode_case(
+        dev, torch.float16, hkv=2, g=4, d=64, page=16, quant=False)
+    with pytest.raises(TypeError):
+        pa.paged_decode_attention(q, pools[0], pools[1], tables, lengths, 0)
+    q, pools, tables, lengths = _paged_decode_case(
+        dev, torch.bfloat16, hkv=2, g=4, d=64, page=16, quant=True)
+    i4 = pa.pack_int4(pools[0].clamp(-7, 7), 3)
+    with pytest.raises(ValueError, match="int4"):
+        pa.paged_decode_attention(q, i4, i4, tables, lengths, 0,
+                                  k_scale=pools[2], v_scale=pools[3])
+    k, v = _slot_cache(dev, torch.bfloat16, b=2, hkv=1, d=64, s=32)
+    with pytest.raises(ValueError):
+        pl.ragged_decode_attention(torch.zeros(2, 1, 9, 64, device=dev,
+                                               dtype=torch.bfloat16), k, v,
+                                   torch.ones(2, dtype=torch.int32,
+                                              device=dev), 0)
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+def test_decode_step_kernels_vs_plain(dev, layout, kv):
+    """Three decode steps through the kernels and through the reference's
+    oracle path (impl="plain") from a prompt inserted by ``prefill``, one
+    slot parked: logits within 1e-4 in f32 (the oracle folds the v scale
+    after normalising), caches within 1e-5 (int8 scales within 1e-6)."""
+    cfg = ModelConfig(name="test-d64", vocab_size=512, hidden_size=256,
+                      intermediate_size=512, num_layers=2, num_heads=8,
+                      num_kv_heads=2, head_dim=64, qkv_bias=True,
+                      dtype="float32")
+    params = tf.init_params(cfg, 0, torch.float32, dev)
+    tokens = torch.as_tensor(np.arange(2, 42, dtype=np.int32).reshape(2, 20),
+                             device=dev)
+    lens = torch.tensor([20, 13], dtype=torch.int32, device=dev)
+    _, ks, vs = tf.prefill(params, cfg, tokens, lens)
+    caches, tables = {}, None
+    for impl in ("kernel", "plain"):
+        if layout == "slot":
+            c = tf.init_cache(cfg, 3, 64, torch.float32, dev,
+                              quantized=kv is not None)
+            tf.insert_batch(c, ks, vs, [0, 1])
+        else:
+            c = tf.init_paged_cache(cfg, 12, 16, torch.float32, dev,
+                                    quantized=kv is not None)
+            tables = torch.tensor([[3, 7, 1, 0], [5, 2, 9, 0], [0, 0, 0, 0]],
+                                  dtype=torch.int32, device=dev)
+            tf.insert_pages_batch(c, ks, vs, tables[:2, :2], [2, 1])
+        caches[impl] = c
+    sentinel = 64
+    lengths = torch.tensor([20, 13, sentinel], dtype=torch.int32, device=dev)
+    toks = torch.tensor([5, 9, 0], dtype=torch.int32, device=dev)
+    for _ in range(3):
+        out = {impl: tf.decode_step(params, cfg, caches[impl], toks, lengths,
+                                    tables, impl=impl)
+               for impl in ("kernel", "plain")}
+        torch.testing.assert_close(out["kernel"][:2], out["plain"][:2],
+                                   atol=1e-4, rtol=0)
+        toks = out["plain"].argmax(-1).to(torch.int32)
+        lengths = lengths + torch.tensor([1, 1, 0], dtype=torch.int32,
+                                         device=dev)
+    if kv is None:
+        torch.testing.assert_close(caches["kernel"].k, caches["plain"].k,
+                                   atol=1e-5, rtol=0)
+    else:
+        assert (caches["kernel"].k_scale - caches["plain"].k_scale
+                ).abs().max() <= 1e-6
