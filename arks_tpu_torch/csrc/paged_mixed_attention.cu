@@ -15,6 +15,17 @@
 // reference does), and the output is acc / (l + 1e-9) cast to q's dtype.
 // Padding items (pages == 0) return at once.
 //
+// Two entries share the kernel.  `arks_paged_mixed_attention` walks the
+// ragged work list (replaces `_paged_mixed_ragged_kernel`);
+// `arks_paged_mixed_attention_dense` (ARKS_MIXED_GRID=dense) launches one
+// CTA per (sequence, KV head, q-block) of the whole (S, num_qb) grid and
+// replaces the dense-grid Pallas kernel `_paged_mixed_kernel`
+// (arks_tpu/ops/paged_attention.py:675).  A dense CTA computes its item's
+// causal page count as the work list does; a CTA whose q-block lies past
+// its lane's q_len (an idle lane, or a short chunk) returns at once, and
+// pages past the causal bound are never walked, as in the ragged walk — so
+// every valid row is bit-identical between the two launches.
+//
 // Quantized page streams: the tile copy into shared memory dequantizes
 // the values to q's dtype — exact, for |v| <= 127 — so the compute loops
 // are the bf16/f32 ones and convert each K/V element once per tile, not
@@ -174,8 +185,8 @@ __global__ void __launch_bounds__(kThreads) mixed_attention_kernel(
     const int* __restrict__ q_len, const int* __restrict__ wl_seq,
     const int* __restrict__ wl_head, const int* __restrict__ wl_qb,
     const int* __restrict__ wl_plo, const int* __restrict__ wl_pages,
-    int n_heads, int hkv, int page, int n_pages, int max_pages, int layer,
-    int block_q, float scale) {
+    int num_qb, int n_heads, int hkv, int page, int n_pages, int max_pages,
+    int layer, int block_q, float scale) {
   constexpr bool QUANT = sizeof(KV) == 1;
   constexpr int VEC = 16 / sizeof(T);
   constexpr int KSTRIDE = D + VEC;
@@ -183,12 +194,23 @@ __global__ void __launch_bounds__(kThreads) mixed_attention_kernel(
   constexpr int TPL = kKT / 32; // tile tokens per lane in the score pass
 
   const int item = blockIdx.x;
-  const int npages = wl_pages[item];
-  const int plo = wl_plo[item];
-  if (npages <= plo) return;    // padding item
-  const int s = wl_seq[item];
-  const int h = wl_head[item];
-  const int q_lo = wl_qb[item] * block_q;
+  int s, h, q_lo, npages, plo;
+  if (wl_seq != nullptr) {      // ragged: the work list's item
+    npages = wl_pages[item];
+    plo = wl_plo[item];
+    if (npages <= plo) return;  // padding item
+    s = wl_seq[item];
+    h = wl_head[item];
+    q_lo = wl_qb[item] * block_q;
+  } else {                      // dense: item = (s * hkv + h) * num_qb + qb
+    s = item / (hkv * num_qb);
+    h = (item / num_qb) % hkv;
+    q_lo = (item % num_qb) * block_q;
+    if (q_lo >= q_len[s]) return;  // idle lane or q-block past q_len
+    const int end = pos_start[s] + min(q_lo + block_q, q_len[s]);
+    npages = min((end + page - 1) / page, max_pages);
+    plo = 0;
+  }
   const int G = n_heads / hkv;
   const int rows = min(block_q, q_len[s] - q_lo);
   if (rows <= 0) return;
@@ -349,9 +371,9 @@ int launch(const void* q, void* out, const void* k_pool, const void* v_pool,
            const float* k_scale, const float* v_scale, const int* tables,
            const int* pos_start, const int* q_start, const int* q_len,
            const int* wl_seq, const int* wl_head, const int* wl_qb,
-           const int* wl_plo, const int* wl_pages, int n_items, int n_heads,
-           int hkv, int page, int n_pages, int max_pages, int layer,
-           int block_q, float scale, cudaStream_t stream) {
+           const int* wl_plo, const int* wl_pages, int n_items, int num_qb,
+           int n_heads, int hkv, int page, int n_pages, int max_pages,
+           int layer, int block_q, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
       mixed_attention_kernel<T, KV, INT4, D>,
@@ -360,7 +382,7 @@ int launch(const void* q, void* out, const void* k_pool, const void* v_pool,
   mixed_attention_kernel<T, KV, INT4, D><<<n_items, kThreads, smem, stream>>>(
       (const T*)q, (T*)out, (const KV*)k_pool, (const KV*)v_pool, k_scale,
       v_scale, tables, pos_start, q_start, q_len, wl_seq, wl_head, wl_qb,
-      wl_plo, wl_pages, n_heads, hkv, page, n_pages, max_pages, layer,
+      wl_plo, wl_pages, num_qb, n_heads, hkv, page, n_pages, max_pages, layer,
       block_q, scale);
   return (int)cudaGetLastError();
 }
@@ -385,16 +407,18 @@ const char* arks_cuda_error_string(int err) {
 // dtype: 0 = float32, 1 = bfloat16 (q and out share it).  kv_mode: 0 =
 // pools of q's dtype (scales NULL), 1 = int8 pools, 2 = int4 pools (both
 // with f32 scales [L, N, Hkv, page], page even).  head_dim 64 or 128,
-// G = n_heads / hkv <= 8, 1 <= block_q <= 8; the wrapper checks all of
-// these (and raises) before it gets here.
-int arks_paged_mixed_attention(
-    const void* q, void* out, const void* k_pool, const void* v_pool,
-    const void* k_scale, const void* v_scale, const void* tables,
-    const void* pos_start, const void* q_start, const void* q_len,
-    const void* wl_seq, const void* wl_head, const void* wl_qb,
-    const void* wl_plo, const void* wl_pages, int n_items, int n_heads,
-    int hkv, int head_dim, int page, int n_pages, int max_pages, int layer,
-    int block_q, float scale, int dtype, int kv_mode, void* stream) {
+// G = n_heads / hkv <= 8, 1 <= block_q <= 8; the wrappers check all of
+// these (and raise) before they get here.
+static int dispatch(const void* q, void* out, const void* k_pool,
+                    const void* v_pool, const void* k_scale,
+                    const void* v_scale, const void* tables,
+                    const void* pos_start, const void* q_start,
+                    const void* q_len, const void* wl_seq,
+                    const void* wl_head, const void* wl_qb,
+                    const void* wl_plo, const void* wl_pages, int n_items,
+                    int num_qb, int n_heads, int hkv, int head_dim, int page,
+                    int n_pages, int max_pages, int layer, int block_q,
+                    float scale, int dtype, int kv_mode, void* stream) {
   if (n_items <= 0) return 0;
   if (block_q < 1 || block_q > kBQ || hkv <= 0 || n_heads % hkv != 0 ||
       n_heads / hkv > kWarps || (kv_mode != 0 && (!k_scale || !v_scale)) ||
@@ -406,14 +430,48 @@ int arks_paged_mixed_attention(
       (const float*)v_scale, (const int*)tables, (const int*)pos_start,       \
       (const int*)q_start, (const int*)q_len, (const int*)wl_seq,             \
       (const int*)wl_head, (const int*)wl_qb, (const int*)wl_plo,             \
-      (const int*)wl_pages, n_items, n_heads, hkv, page, n_pages, max_pages,  \
-      layer, block_q, scale, st
+      (const int*)wl_pages, n_items, num_qb, n_heads, hkv, page, n_pages,     \
+      max_pages, layer, block_q, scale, st
   if (dtype == 1 && head_dim == 128) return launch_kv<__nv_bfloat16, 128>(ARKS_ARGS);
   if (dtype == 1 && head_dim == 64) return launch_kv<__nv_bfloat16, 64>(ARKS_ARGS);
   if (dtype == 0 && head_dim == 128) return launch_kv<float, 128>(ARKS_ARGS);
   if (dtype == 0 && head_dim == 64) return launch_kv<float, 64>(ARKS_ARGS);
 #undef ARKS_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// The ragged launch: one CTA per work-list item (n_items of them).
+int arks_paged_mixed_attention(
+    const void* q, void* out, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* tables,
+    const void* pos_start, const void* q_start, const void* q_len,
+    const void* wl_seq, const void* wl_head, const void* wl_qb,
+    const void* wl_plo, const void* wl_pages, int n_items, int n_heads,
+    int hkv, int head_dim, int page, int n_pages, int max_pages, int layer,
+    int block_q, float scale, int dtype, int kv_mode, void* stream) {
+  if (!wl_seq || !wl_head || !wl_qb || !wl_plo || !wl_pages)
+    return (int)cudaErrorInvalidValue;
+  return dispatch(q, out, k_pool, v_pool, k_scale, v_scale, tables,
+                  pos_start, q_start, q_len, wl_seq, wl_head, wl_qb, wl_plo,
+                  wl_pages, n_items, 0, n_heads, hkv, head_dim, page, n_pages,
+                  max_pages, layer, block_q, scale, dtype, kv_mode, stream);
+}
+
+// The dense launch: one CTA per (sequence, KV head, q-block) of the
+// (n_seqs, num_qb) grid; no work list.
+int arks_paged_mixed_attention_dense(
+    const void* q, void* out, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* tables,
+    const void* pos_start, const void* q_start, const void* q_len,
+    int n_seqs, int num_qb, int n_heads, int hkv, int head_dim, int page,
+    int n_pages, int max_pages, int layer, int block_q, float scale,
+    int dtype, int kv_mode, void* stream) {
+  if (num_qb <= 0) return n_seqs <= 0 ? 0 : (int)cudaErrorInvalidValue;
+  return dispatch(q, out, k_pool, v_pool, k_scale, v_scale, tables,
+                  pos_start, q_start, q_len, nullptr, nullptr, nullptr,
+                  nullptr, nullptr, n_seqs * hkv * num_qb, num_qb, n_heads,
+                  hkv, head_dim, page, n_pages, max_pages, layer, block_q,
+                  scale, dtype, kv_mode, stream);
 }
 
 }  // extern "C"

@@ -20,10 +20,11 @@ in the reference:
   off its own accelerator.
 
 The KV cache is bf16/f32 (the engine dtype) or int8; a paged pool may also
-be int4 on the mixed scheduler.  Seeded sampling draws the reference's
-threefry keys.  What the reference does and this port does not — device
-prefix sharing, host/disk prefix tiers, pipelined dispatch and the
-decode/admission overlap, quantized weights, speculative decoding, guided
+be int4 on the mixed scheduler.  Weights are the engine dtype or int8 /
+int4 (``weight_dtype``); dense and MoE models alike.  Seeded sampling
+draws the reference's threefry keys.  What the reference does and this
+port does not — device prefix sharing, host/disk prefix tiers, pipelined
+dispatch and the decode/admission overlap, speculative decoding, guided
 decoding, penalties and logprobs, fault recovery, parallelism — is
 rejected by ``EngineConfig.validate`` or ``add_request`` rather than
 silently ignored.
@@ -46,6 +47,8 @@ from arks_tpu_torch.engine import prng
 from arks_tpu_torch.engine import sampler as sampler_mod
 from arks_tpu_torch.engine.paged import PageAllocator, pages_needed
 from arks_tpu_torch.engine.types import Request, RequestOutput
+from arks_tpu_torch.models import moe
+from arks_tpu_torch.models import quant
 from arks_tpu_torch.models import transformer as tf
 from arks_tpu_torch.models.config import ModelConfig
 
@@ -81,7 +84,10 @@ class EngineConfig:
     # "auto" = the model config's preference, else the engine dtype;
     # "bf16", "int8" or "int4".
     kv_cache_dtype: str = "auto"
-    weight_dtype: str = "bf16"     # unquantized weights
+    # "bf16" (the engine dtype, unquantized), "int8" (per-channel scales)
+    # or "int4" (groupwise scales, packed); the embedding is int8 in both
+    # quantized modes.
+    weight_dtype: str = "bf16"
     # "auto" = "paged" (the pool; the mixed scheduler unless
     # ARKS_MIXED_STEP=0), "paged", or "slot" (the slot-contiguous cache
     # [L, B, Hkv, max_cache_len, D], always the legacy scheduler).
@@ -90,10 +96,7 @@ class EngineConfig:
 
     def validate(self) -> None:
         self.resolve_kv_cache_dtype()
-        if self.weight_dtype != "bf16":
-            raise NotImplementedError(
-                f"weight_dtype={self.weight_dtype}: quantized weights arrive "
-                "with the weight-quantization slice")
+        quant.weight_bits(self.weight_dtype)
         if self.kv_layout not in ("auto", "paged", "slot"):
             raise ValueError(f"kv_layout={self.kv_layout!r}")
         if self.kv_layout == "slot" and \
@@ -216,15 +219,21 @@ class InferenceEngine:
             log.info("kv_cache_dtype=%s from the model config",
                      cfg.kv_cache_dtype)
         engine_cfg.validate()
-        if cfg.num_experts:
-            raise NotImplementedError("MoE models arrive with the MoE slice")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = engine_cfg
         self.tokenizer = tokenizer
         dtype = tf.torch_dtype(engine_cfg.dtype or cfg.dtype)
-        self.params = params if params is not None else tf.init_params(
-            cfg, engine_cfg.seed, dtype, self.device)
+        wbits = quant.weight_bits(engine_cfg.weight_dtype)
+        if params is None:
+            # A quantized init quantizes slice by slice as it draws: a
+            # full-width init of a model that only fits quantized (Mixtral
+            # on one card) would not fit first.
+            params = tf.init_params(cfg, engine_cfg.seed, dtype, self.device,
+                                    bits=wbits)
+        elif wbits and not quant.is_quantized(params["layers"].get("wq")):
+            params = quant.quantize_params(params, bits=wbits)
+        self.params = params
 
         # Chunk (= page for a paged pool): the largest divisor of the cache
         # length not above the configured chunk, so every chunk's rows stay
@@ -267,12 +276,17 @@ class InferenceEngine:
                                        quantized=quantized)
             self._alloc = None
         self._mixed_budget = 0
+        self._moe_grouped = False
         if self._mixed:
             budget = int(os.environ.get("ARKS_MIXED_CHUNK_TOKENS") or c)
             if budget < 1:
                 raise ValueError(
                     f"ARKS_MIXED_CHUNK_TOKENS={budget}: must be >= 1")
             self._mixed_budget = min(budget, engine_cfg.max_cache_len)
+            # The reference runs every mixed step at its padded flat batch
+            # (num_slots + budget tokens), so its MoE dispatch is fixed per
+            # engine; the port trims the batch but keeps that decision.
+            self._moe_grouped = moe.use_grouped(n + self._mixed_budget)
         self._buckets = engine_cfg.resolve_buckets()
         self._admit_sizes = admit_batch_sizes()
 
@@ -874,7 +888,8 @@ class InferenceEngine:
             self.params, self.cfg, self.cache,
             torch.from_numpy(self._tables.copy()).to(dev), d["tokens"],
             d["token_slot"], d["token_pos"], d["sample_src"],
-            d["seq_q_start"], d["seq_q_len"], d["seq_pos_start"], qmax=qmax)
+            d["seq_q_start"], d["seq_q_len"], d["seq_pos_start"], qmax=qmax,
+            moe_grouped=self._moe_grouped)
         ids_dev, keys = sampler_mod.sample(
             logits, *self._lane_sampling(dec_slots, completing))
         if keys is not None:

@@ -1,5 +1,6 @@
-"""Decoder-only transformer (Qwen2 / Llama families) for serving — the port
-of the single-device serving half of ``arks_tpu/models/transformer.py``:
+"""Decoder-only transformer (Qwen2 / Llama / Mixtral / Qwen2-MoE families)
+for serving — the port of the single-device serving half of
+``arks_tpu/models/transformer.py``:
 the mixed scheduler's ``mixed_step`` over the paged pool, and the legacy
 scheduler's one-shot ``prefill``, chunked prefill, prompt inserts and
 ``decode_step`` over the slot-contiguous cache or the paged pool.
@@ -9,16 +10,22 @@ per-layer weights in ``x @ w`` orientation, so ``models/weights.py`` can
 bridge a JAX param tree leaf for leaf.  The forward is a Python loop over
 layers (the reference's ``lax.scan``); caches and pools are updated in
 place (the reference returns new ones), and head_dim is stored unpadded.
+Weights may be int8/int4 leaves (``models/quant.py``); an MoE model's
+FFN is ``models/moe.py``, grouped or dense as each entry point decides
+with the reference's rule (``moe.use_grouped``).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Any, NamedTuple
 
 import torch
 
 from arks_tpu_torch.device import resolve_device
 from arks_tpu_torch.models.config import ModelConfig
+from arks_tpu_torch.models import moe
+from arks_tpu_torch.models import quant
 from arks_tpu_torch.models.quant import embed_lookup, qeinsum, unembed_logits
 from arks_tpu_torch.ops.attention import (chunk_attention_xla,
                                           decode_update_and_attend,
@@ -113,17 +120,32 @@ class PagedKVCache(NamedTuple):
         return 4 if self.k.shape[3] != self.k_scale.shape[3] else 8
 
 
+def _slices(shape: tuple, stacked: bool):
+    """Index tuples of the slices ``init_params`` draws one at a time: a
+    stacked leaf per layer (and per expert: every dim but the last two),
+    an unstacked one whole."""
+    if not stacked:
+        return [()]
+    lead = shape[:max(len(shape) - 2, 1)]
+    return itertools.product(*(range(n) for n in lead))
+
+
 def init_params(cfg: ModelConfig, seed: int, dtype=None,
-                device: torch.device | str | None = None) -> Params:
+                device: torch.device | str | None = None, *,
+                bits: int = 0) -> Params:
     """Random weights from ``seed``, with the reference's distribution:
     normal x 0.02 for matrices, ones for norms, zeros for biases.  Drawn
-    layer by layer from a ``torch.Generator`` on ``device`` (CUDA unless
-    the caller passes "cpu"; a 7B init takes seconds on the card; the f32
-    draw never holds more than one layer's leaf).  Not the reference's
-    numbers: ``jax.random`` and torch generators differ — tests bridge JAX
-    params with ``params_from_numpy``."""
-    if cfg.num_experts:
-        raise NotImplementedError("MoE models arrive with the MoE slice")
+    slice by slice (per layer, and per expert) from a ``torch.Generator``
+    on ``device`` (CUDA unless the caller passes "cpu"; a 7B init takes
+    seconds on the card), so the f32 draw never holds more than one slice.
+    ``bits`` 8 or 4 quantizes each matmul slice as it is drawn (the
+    embedding to int8): the same values ``quant.quantize_params`` gives
+    for the unquantized init of the same seed, without a full-width tree
+    (``quant.init_params_quantized``).  Not the reference's numbers:
+    ``jax.random`` and torch generators differ — tests bridge JAX params
+    with ``params_from_numpy``."""
+    if bits not in (0, 4, 8):
+        raise ValueError(f"bits={bits}")
     dtype = torch_dtype(dtype or cfg.dtype)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
@@ -132,35 +154,66 @@ def init_params(cfg: ModelConfig, seed: int, dtype=None,
                   cfg.vocab_size)
     qd, kvd = cfg.q_dim, cfg.kv_dim
 
-    def w(shape, stacked=True):
-        out = torch.empty(shape, dtype=dtype, device=device)
-        for part in (out if stacked else (out,)):
-            part.copy_(torch.randn(part.shape, generator=gen, device=device,
-                                   dtype=torch.float32).mul_(0.02))
-        return out
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32).mul_(0.02)
+
+    def w(name, shape, stacked=True):
+        axis = -1 if name == "embed" else (
+            -2 if name in quant.MATMUL_KEYS else None)
+        if not bits or axis is None:
+            out = torch.empty(shape, dtype=dtype, device=device)
+            for idx in _slices(shape, stacked):
+                part = out[idx]
+                part.copy_(draw(part.shape))
+            return out
+        int4 = bits == 4 and axis == -2
+        k, n = shape[-2], shape[-1]
+        if int4:
+            q_shape = shape[:-2] + (k // 2, n)
+            s_shape = shape[:-2] + (k // quant.int4_group_for(k), n)
+        else:
+            q_shape = shape
+            s_shape = shape[:-1] + (1,) if axis == -1 else \
+                shape[:-2] + (1, n)
+        q = torch.empty(q_shape, dtype=torch.int8, device=device)
+        sc = torch.empty(s_shape, dtype=torch.float32, device=device)
+        for idx in _slices(shape, stacked):
+            x = draw(shape[len(idx):]).to(dtype)
+            leaf = quant.quantize_tensor_int4(x) if int4 else \
+                quant.quantize_tensor(x, axis=axis)
+            q[idx] = leaf["q"]
+            sc[idx] = leaf["gs" if int4 else "s"]
+            del x, leaf
+        return {"q": q, "gs" if int4 else "s": sc}
 
     def full(shape, value):
         return torch.full(shape, value, dtype=dtype, device=device)
 
     layers: Params = {
         "attn_norm": full((l, e), 1.0),
-        "wq": w((l, e, qd)),
-        "wk": w((l, e, kvd)),
-        "wv": w((l, e, kvd)),
-        "wo": w((l, qd, e)),
+        "wq": w("wq", (l, e, qd)),
+        "wk": w("wk", (l, e, kvd)),
+        "wv": w("wv", (l, e, kvd)),
+        "wo": w("wo", (l, qd, e)),
         "mlp_norm": full((l, e), 1.0),
-        "w_gate": w((l, e, f)),
-        "w_up": w((l, e, f)),
-        "w_down": w((l, f, e)),
     }
+    if cfg.num_experts:
+        layers.update(moe.init_moe_params(cfg, w))
+    else:
+        layers.update({
+            "w_gate": w("w_gate", (l, e, f)),
+            "w_up": w("w_up", (l, e, f)),
+            "w_down": w("w_down", (l, f, e)),
+        })
     if cfg.qkv_bias:
         layers["bq"] = full((l, qd), 0.0)
         layers["bk"] = full((l, kvd), 0.0)
         layers["bv"] = full((l, kvd), 0.0)
-    params: Params = {"embed": w((v, e), stacked=False), "layers": layers,
-                      "final_norm": full((e,), 1.0)}
+    params: Params = {"embed": w("embed", (v, e), stacked=False),
+                      "layers": layers, "final_norm": full((e,), 1.0)}
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = w((e, v), stacked=False)
+        params["lm_head"] = w("lm_head", (e, v), stacked=False)
     return params
 
 
@@ -235,9 +288,14 @@ def _block_qkv(h: torch.Tensor, lp: Params, cfg: ModelConfig, rope):
     return rotate(q, *rope), rotate(k, *rope), v
 
 
-def _mlp(h: torch.Tensor, lp: Params, cfg: ModelConfig) -> torch.Tensor:
-    """Dense SwiGLU; silu in f32 as the reference (``transformer.py:392``)."""
+def _mlp(h: torch.Tensor, lp: Params, cfg: ModelConfig, *,
+         grouped: bool = False, impl: str | None = None) -> torch.Tensor:
+    """Dense SwiGLU, silu in f32 as the reference (``transformer.py:392``);
+    an MoE model's FFN instead, grouped or dense as the caller decided
+    (``impl`` goes to its grouped matmul)."""
     x = rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps)
+    if cfg.num_experts:
+        return moe.moe_ffn(x, lp, cfg, grouped=grouped, impl=impl)
     gate = qeinsum("...e,ef->...f", x, lp["w_gate"])
     up = qeinsum("...e,ef->...f", x, lp["w_up"])
     act = torch.nn.functional.silu(gate.float()).to(gate.dtype) * up
@@ -245,10 +303,11 @@ def _mlp(h: torch.Tensor, lp: Params, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _block_tail(h: torch.Tensor, attn: torch.Tensor, lp: Params,
-                cfg: ModelConfig) -> torch.Tensor:
+                cfg: ModelConfig, *, grouped: bool = False,
+                impl: str | None = None) -> torch.Tensor:
     """Output projection residual + MLP residual."""
     h = h + qeinsum("...q,qe->...e", attn, lp["wo"])
-    return h + _mlp(h, lp, cfg)
+    return h + _mlp(h, lp, cfg, grouped=grouped, impl=impl)
 
 
 def _unembed(h_last: torch.Tensor, params: Params,
@@ -274,6 +333,7 @@ def mixed_step(
     *,
     impl: str | None = None,
     qmax: int | None = None,
+    moe_grouped: bool | None = None,
 ) -> torch.Tensor:
     """One mixed prefill+decode forward over a flat ``[T]`` token batch:
     every decoding slot's next token plus prefill-chunk tokens run the
@@ -281,10 +341,15 @@ def mixed_step(
     attend, causal within each chunk).  Returns logits [B, V] f32 at
     ``sample_src``.  Padding tokens (token_slot < 0) drop their writes;
     their activations are garbage no sample_src points at.  ``impl`` and
-    ``qmax`` go to ``paged_mixed_update_and_attend``.  What every layer
-    shares — the rope angles, the per-token write view and the attention
+    ``qmax`` go to ``paged_mixed_update_and_attend`` (``impl`` also to an
+    MoE model's grouped matmul).  ``moe_grouped``: an MoE model's dispatch,
+    by default the reference's rule on this batch's T (the engine passes
+    the rule on its padded batch size, the T the reference runs).  What
+    every layer shares — the rope angles, the per-token write view and the attention
     work list — is prepared once, before the layer loop."""
     t_flat = tokens.shape[0]
+    if moe_grouped is None:
+        moe_grouped = moe.use_grouped(t_flat)
     cover = tables.shape[1] * cache.page
     # RoPE positions must be real for valid tokens; padding rows only need
     # a value the cache ops drop (their write_idx is routed past coverage).
@@ -293,17 +358,18 @@ def mixed_step(
     batch = prepare_mixed(cache.k, tables, token_slot, token_pos, seq_q_start,
                           seq_q_len, seq_pos_start, impl=impl, qmax=qmax,
                           k_scale=cache.k_scale)
-    layers = params["layers"]
-    h = embed_lookup(params["embed"], tokens, layers["attn_norm"].dtype)
+    h = embed_lookup(params["embed"], tokens,
+                     params["layers"]["attn_norm"].dtype)
     for layer in range(cfg.num_layers):
-        lp = {name: w[layer] for name, w in layers.items()}
+        lp = _layer(params, layer)
         q, k, v = _block_qkv(h, lp, cfg, rope)            # [T, H(kv), D]
         attn = paged_mixed_update_and_attend(
             q, k, v, cache.k, cache.v, tables, token_slot, token_pos,
             seq_q_start, seq_q_len, seq_pos_start, layer, impl=impl,
             qmax=qmax, batch=batch, k_scale=cache.k_scale,
             v_scale=cache.v_scale)
-        h = _block_tail(h, attn.reshape(t_flat, cfg.q_dim), lp, cfg)
+        h = _block_tail(h, attn.reshape(t_flat, cfg.q_dim), lp, cfg,
+                        grouped=moe_grouped, impl=impl)
     h_sel = h[sample_src.long()]                            # [B, E]
     return _unembed(h_sel, params, cfg)
 
@@ -314,7 +380,10 @@ def mixed_step(
 
 
 def _layer(params: Params, layer: int) -> Params:
-    return {name: w[layer] for name, w in params["layers"].items()}
+    """Layer ``layer``'s weights (a quantized leaf's q and scales alike)."""
+    return {name: ({k: x[layer] for k, x in w.items()}
+                   if isinstance(w, dict) else w[layer])
+            for name, w in params["layers"].items()}
 
 
 def prefill_layer(h: torch.Tensor, lp: Params, cfg: ModelConfig, rope):
@@ -323,7 +392,8 @@ def prefill_layer(h: torch.Tensor, lp: Params, cfg: ModelConfig, rope):
     b, t = h.shape[:2]
     q, k, v = _block_qkv(h, lp, cfg, rope)
     attn = prefill_attention(q, k, v).reshape(b, t, cfg.q_dim)
-    return _block_tail(h, attn, lp, cfg), k, v
+    return _block_tail(h, attn, lp, cfg,
+                       grouped=moe.use_grouped(b * t)), k, v
 
 
 def prefill(params: Params, cfg: ModelConfig,
@@ -403,7 +473,7 @@ def prefill_chunk(params: Params, cfg: ModelConfig, cache: KVCache,
             ks = vs = None
         attn = _chunk_attend(q, cfg, cache.k[layer, slot],
                              cache.v[layer, slot], start, ks, vs)
-        h = _block_tail(h, attn, lp, cfg)
+        h = _block_tail(h, attn, lp, cfg, grouped=moe.use_grouped(c))
     return _unembed(h[valid - 1: valid], params, cfg)
 
 
@@ -532,7 +602,7 @@ def prefill_chunk_paged(params: Params, cfg: ModelConfig,
             pool[layer].index_copy_(0, pg, x.to(pool.dtype))
         kc, vc, ks, vs = gather_pages(cache, tables_row, layer)
         h = _block_tail(h, _chunk_attend(q, cfg, kc, vc, start, ks, vs), lp,
-                        cfg)
+                        cfg, grouped=moe.use_grouped(c))
     return _unembed(h[valid - 1: valid], params, cfg)
 
 
@@ -547,7 +617,8 @@ def decode_step(params: Params, cfg: ModelConfig,
     [B, V] float32.  A slot cache drops writes at lengths >= S; a paged
     cache takes ``tables`` and treats lengths >= coverage as the inactive
     sentinel (write dropped, nothing attended).  ``impl`` goes to the
-    attention op ("plain": the reference's XLA oracle)."""
+    attention op ("plain": the reference's XLA oracle).  An MoE model's
+    FFN is dense here whatever the batch, as in the reference."""
     paged = isinstance(cache, PagedKVCache)
     if paged and tables is None:
         raise ValueError("decode_step with a PagedKVCache requires tables")

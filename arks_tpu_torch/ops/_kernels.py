@@ -81,6 +81,18 @@ _SIGNATURES: dict[str, tuple[str, list]] = {
         _I, _I, _I, _I, _I,      # B, n_heads, hkv, head_dim, page
         _I, _I, _I,              # n_pages, max_pages, layer
         _F, _I, _I, _P]),        # scale, dtype code, int8 pool, stream
+    "arks_paged_mixed_attention_dense": ("paged_mixed_attention", [
+        _P, _P, _P, _P,          # q [T,H,D], out [T,H,D], k_pool, v_pool
+        _P, _P,                  # k_scale, v_scale [L,N,Hkv,P] f32 or NULL
+        _P, _P, _P, _P,          # tables [S,MaxP], pos_start, q_start, q_len
+        _I, _I, _I, _I, _I,      # S, num_qb, n_heads, hkv, head_dim
+        _I, _I, _I, _I, _I,      # page, n_pages, max_pages, layer, block_q
+        _F, _I, _I, _P]),        # scale, dtype code, kv code, stream
+    "arks_grouped_matmul": ("grouped_matmul", [
+        _P, _P, _P,              # xs [Tp,K], w, scale (NULL for raw w)
+        _P, _P, _P,              # block_expert, rows_used (or NULL), out
+        _I, _I, _I, _I, _I,      # Tp, K, N, X, int4 group
+        _I, _I, _P]),            # mode (0 raw, 1 int8, 2 int4), dtype, stream
 }
 
 _lock = threading.Lock()

@@ -17,7 +17,8 @@ its Pallas kernels (port of ``arks_tpu/ops/paged_attention.py``).
   ``paged_kv_update_quant`` write into the tensors they are given (and
   return them for symmetry).
 - **Kernels** (``csrc/paged_kv_update.cu``, ``csrc/paged_kv_update_quant.cu``,
-  ``csrc/paged_mixed_attention.cu``, ``csrc/decode_attention.cu``) launch for CUDA tensors and raise on
+  ``csrc/paged_mixed_attention.cu`` — a ragged and a dense launch, picked
+  by ``ARKS_MIXED_GRID`` — and ``csrc/decode_attention.cu``) launch for CUDA tensors and raise on
   anything they do not take — a build or launch error, an unsupported
   dtype or shape; there is no fallback.  Tensors on the CPU take each
   kernel's plain version, which ``impl="plain"`` also selects on the card
@@ -28,6 +29,7 @@ its Pallas kernels (port of ``arks_tpu/ops/paged_attention.py``).
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import torch
@@ -133,6 +135,16 @@ def quantize_kv(x: torch.Tensor, axis: int = -1,
 # ---------------------------------------------------------------------------
 # Mixed-grid planning and the ragged work list
 # ---------------------------------------------------------------------------
+
+
+def mixed_grid_mode() -> str:
+    """``ARKS_MIXED_GRID``: "ragged" (the work-list launch, the default) or
+    "dense" (one CTA per (sequence, KV head, q-block) of the whole grid,
+    the reference's byte-identity reference)."""
+    m = (os.environ.get("ARKS_MIXED_GRID") or "ragged").lower()
+    if m not in ("ragged", "dense"):
+        raise ValueError(f"ARKS_MIXED_GRID={m!r} (expected ragged|dense)")
+    return m
 
 
 def mixed_grid_plan(qmax: int) -> dict:
@@ -459,27 +471,37 @@ def paged_mixed_attention_plain(q, k_pool, v_pool, tables, seq_q_start,
 
 class MixedWork(NamedTuple):
     """Layer-invariant launch inputs of the attention kernel for one mixed
-    dispatch: the lane view as contiguous int32 tensors, the ragged work
-    list (seq, head, qb, plo, pages) and its block_q.  ``mixed_work`` builds
-    it once per step; every layer's launch reuses it."""
+    dispatch: the lane view as contiguous int32 tensors, the grid mode,
+    the ragged work list (seq, head, qb, plo, pages; None on the dense
+    grid), block_q and num_qb.  ``mixed_work`` builds it once per step;
+    every layer's launch reuses it."""
 
     tables: torch.Tensor
     seq_q_start: torch.Tensor
     q_len: torch.Tensor
     pos_start: torch.Tensor
-    items: tuple
+    items: tuple | None
     block_q: int
+    num_qb: int
+    grid: str
 
 
 def mixed_work(tables, seq_q_start, q_len, pos_start, *, page: int, hkv: int,
-               qmax: int) -> MixedWork:
+               qmax: int, grid: str | None = None) -> MixedWork:
+    """One step's ``MixedWork`` on ``grid`` (``mixed_grid_mode()`` when
+    None): the work list is built for the ragged grid only."""
+    grid = grid or mixed_grid_mode()
     plan = mixed_grid_plan(qmax)
     tbl, qs, ql, ps = (x.to(torch.int32).contiguous()
                        for x in (tables, seq_q_start, q_len, pos_start))
-    items = build_mixed_work_list(ps, ql, page=page, block_q=plan["block_q"],
-                                  num_qb=plan["num_qb"],
-                                  max_pages=tbl.shape[1], head_groups=hkv)
-    return MixedWork(tbl, qs, ql, ps, items, plan["block_q"])
+    items = None
+    if grid == "ragged":
+        items = build_mixed_work_list(ps, ql, page=page,
+                                      block_q=plan["block_q"],
+                                      num_qb=plan["num_qb"],
+                                      max_pages=tbl.shape[1], head_groups=hkv)
+    return MixedWork(tbl, qs, ql, ps, items, plan["block_q"],
+                     plan["num_qb"], grid)
 
 
 def paged_mixed_attention(
@@ -496,6 +518,7 @@ def paged_mixed_attention(
     qmax: int | None = None,
     impl: str | None = None,
     work: MixedWork | None = None,
+    grid: str | None = None,
 ) -> torch.Tensor:
     """Ragged mixed attention over the flat token batch: token
     seq_q_start[s] + i (query i of lane s, global position pos_start[s] + i)
@@ -508,10 +531,12 @@ def paged_mixed_attention(
     [S, Hkv, G, Q, D]; this wrapper takes the flat batch the kernel reads
     directly through ``seq_q_start``.  ``qmax`` (widest lane, default
     T - S + 1 as in the reference) sizes the work list; ``work`` passes one
-    ``mixed_work`` prepared for every layer of a step.  CUDA tensors launch
-    ``csrc/paged_mixed_attention.cu`` (replaces the Pallas
-    ``_paged_mixed_ragged_kernel``); CPU tensors take
-    ``paged_mixed_attention_plain``."""
+    ``mixed_work`` prepared for every layer of a step.  ``grid`` ("ragged"
+    or "dense"; default the work's, else ``ARKS_MIXED_GRID``) picks the
+    launch: CUDA tensors launch ``csrc/paged_mixed_attention.cu`` over the
+    work list (replaces the Pallas ``_paged_mixed_ragged_kernel``) or over
+    the dense grid (``paged_mixed_attention_dense``); CPU tensors take
+    ``paged_mixed_attention_plain``, the same function on either grid."""
     t, h, d = q.shape
     s = q_len.shape[0]
     qmax = qmax or _default_qmax(t, s)
@@ -520,6 +545,33 @@ def paged_mixed_attention(
                                            seq_q_start, q_len, pos_start,
                                            layer, k_scale=k_scale,
                                            v_scale=v_scale, qmax=qmax)
+    grid = grid or (work.grid if work is not None else mixed_grid_mode())
+    if work is None or work.grid != grid:
+        work = mixed_work(tables, seq_q_start, q_len, pos_start,
+                          page=pool_page_tokens(k_pool, k_scale),
+                          hkv=k_pool.shape[2], qmax=qmax, grid=grid)
+    if grid == "dense":
+        return paged_mixed_attention_dense(q, k_pool, v_pool, work, layer,
+                                           k_scale=k_scale, v_scale=v_scale)
+    _, out, ptrs, (h, hkv, d, page, n, dtype_code, kv_mode) = \
+        _mixed_launch_args("paged_mixed_attention", q, k_pool, v_pool,
+                           k_scale, v_scale, work, layer)
+    _kernels.launch("arks_paged_mixed_attention", *ptrs,
+                    *(x.data_ptr() for x in work.items),
+                    work.items[0].shape[0], h, hkv, d, page, n,
+                    work.tables.shape[1], int(layer), work.block_q,
+                    1.0 / math.sqrt(d), dtype_code, kv_mode, _stream())
+    paged_mixed_attention.launches += 1
+    return out
+
+
+def _mixed_launch_args(kernel: str, q, k_pool, v_pool, k_scale, v_scale,
+                       work: MixedWork, layer: int):
+    """Check the operands of a mixed-attention launch (raising on what the
+    kernel does not take) and return (q contiguous, the zeroed output,
+    the ten leading pointers, (H, Hkv, D, page, N, dtype code, kv code)).
+    The caller holds q contiguous until the launch is queued."""
+    t, h, d = q.shape
     _, n, hkv, rows, dk = k_pool.shape
     quantized = k_scale is not None
     page = pool_page_tokens(k_pool, k_scale)
@@ -527,7 +579,7 @@ def paged_mixed_attention(
     pool_dtype = torch.int8 if quantized else q.dtype
     if q.dtype not in _KERNEL_DTYPES or k_pool.dtype != pool_dtype or \
             v_pool.dtype != pool_dtype or (v_scale is None) == quantized:
-        raise TypeError("paged_mixed_attention kernel takes bf16/f32 q over "
+        raise TypeError(f"{kernel} kernel takes bf16/f32 q over "
                         "pools of q's dtype, or int8/int4 pools with both "
                         f"scales; got {q.dtype}/{k_pool.dtype}/"
                         f"{v_pool.dtype}")
@@ -536,42 +588,60 @@ def paged_mixed_attention(
                 or k_scale.shape != k_pool.shape[:3] + (page,) or \
                 v_scale.shape != k_scale.shape or \
                 v_pool.shape != k_pool.shape or page % 2:
-            raise ValueError("paged_mixed_attention: scales "
+            raise ValueError(f"{kernel}: scales "
                              f"{tuple(k_scale.shape)} {k_scale.dtype} do not "
                              f"match the pool {tuple(k_pool.shape)}")
     if dk != d or d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"paged_mixed_attention kernel takes head_dim in "
+        raise ValueError(f"{kernel} kernel takes head_dim in "
                          f"{_KERNEL_HEAD_DIMS} matching the pool, got q {d} "
                          f"pool {dk}")
     if h % hkv or h // hkv > MAX_GROUP:
-        raise ValueError(f"paged_mixed_attention kernel takes H/Hkv <= "
+        raise ValueError(f"{kernel} kernel takes H/Hkv <= "
                          f"{MAX_GROUP}, got {h}/{hkv}")
     if not 0 <= layer < k_pool.shape[0]:
         raise ValueError(f"layer {layer} out of range")
-    if work is None:
-        work = mixed_work(tables, seq_q_start, q_len, pos_start, page=page,
-                          hkv=hkv, qmax=qmax)
     qc = q.contiguous()
     scales = (("k_scale", k_scale), ("v_scale", v_scale)) if quantized \
         else ()
-    _check_operands("paged_mixed_attention", q.device,
-                    (("q", qc), ("work", work.tables)), aligned=False)
-    _check_operands("paged_mixed_attention", q.device,
+    _check_operands(kernel, q.device, (("q", qc), ("work", work.tables)),
+                    aligned=False)
+    _check_operands(kernel, q.device,
                     (("k_pool", k_pool), ("v_pool", v_pool), *scales))
     out = torch.zeros_like(qc)
-    _kernels.launch("arks_paged_mixed_attention", qc.data_ptr(),
-                    out.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                    k_scale.data_ptr() if quantized else None,
-                    v_scale.data_ptr() if quantized else None,
-                    work.tables.data_ptr(), work.pos_start.data_ptr(),
-                    work.seq_q_start.data_ptr(), work.q_len.data_ptr(),
-                    *(x.data_ptr() for x in work.items),
-                    work.items[0].shape[0], h, hkv, d, page, n,
+    ptrs = (qc.data_ptr(), out.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), k_scale.data_ptr() if quantized else None,
+            v_scale.data_ptr() if quantized else None,
+            work.tables.data_ptr(), work.pos_start.data_ptr(),
+            work.seq_q_start.data_ptr(), work.q_len.data_ptr())
+    return qc, out, ptrs, (h, hkv, d, page, n, _KERNEL_DTYPES[q.dtype],
+                           kv_mode)
+
+
+def paged_mixed_attention_dense(q, k_pool, v_pool, work: MixedWork,
+                                layer: int, *, k_scale=None, v_scale=None):
+    """The dense launch of the mixed-attention kernel (``ARKS_MIXED_GRID=
+    dense``; replaces the Pallas ``_paged_mixed_kernel``): one CTA per
+    (lane, KV head, q-block) of the whole (S, num_qb) grid, no work list.
+    Valid rows are bit-identical to the ragged launch's, and rows no lane
+    owns are zero.  CUDA tensors only (``paged_mixed_attention`` sends CPU
+    tensors to the plain version); counts its launches in
+    ``paged_mixed_attention_dense.launches``."""
+    if not q.is_cuda:
+        raise ValueError("paged_mixed_attention_dense launches the CUDA "
+                         "kernel; CPU tensors take "
+                         "paged_mixed_attention_plain")
+    _, out, ptrs, (h, hkv, d, page, n, dtype_code, kv_mode) = \
+        _mixed_launch_args("paged_mixed_attention_dense", q, k_pool, v_pool,
+                           k_scale, v_scale, work, layer)
+    _kernels.launch("arks_paged_mixed_attention_dense", *ptrs,
+                    work.q_len.shape[0], work.num_qb, h, hkv, d, page, n,
                     work.tables.shape[1], int(layer), work.block_q,
-                    1.0 / math.sqrt(d), _KERNEL_DTYPES[q.dtype], kv_mode,
-                    _stream())
-    paged_mixed_attention.launches += 1
+                    1.0 / math.sqrt(d), dtype_code, kv_mode, _stream())
+    paged_mixed_attention_dense.launches += 1
     return out
+
+
+paged_mixed_attention_dense.launches = 0
 
 
 paged_mixed_attention.launches = 0

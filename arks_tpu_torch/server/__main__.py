@@ -31,6 +31,12 @@ def main(argv: list[str] | None = None) -> None:
                    help="KV pool: auto (the model's preference, else the "
                         "engine dtype), bf16, int8 (per-token scales) or "
                         "int4 (token pairs packed per byte)")
+    p.add_argument("--weight-dtype", default="bf16",
+                   choices=("bf16", "int8", "int4"),
+                   help="weights: bf16 (the engine dtype), int8 (w8a16, "
+                        "per-channel scales) or int4 (w4a16, groupwise "
+                        "scales, packed two a byte); Mixtral-8x7B fits one "
+                        "80 GB card in int8 or int4")
     p.add_argument("--kv-layout", default="auto",
                    choices=("auto", "paged", "slot"),
                    help="KV layout: auto/paged (page pool; the mixed "
@@ -49,6 +55,7 @@ def main(argv: list[str] | None = None) -> None:
     ecfg = EngineConfig(model=args.model, num_slots=args.num_slots,
                         max_cache_len=args.max_model_len, dtype=args.dtype,
                         kv_cache_dtype=args.kv_cache_dtype,
+                        weight_dtype=args.weight_dtype,
                         kv_layout=args.kv_layout, seed=args.seed)
     engine = InferenceEngine(cfg, ecfg, load_tokenizer(args.tokenizer_path),
                              device=args.device)

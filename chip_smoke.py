@@ -17,7 +17,9 @@ Phases (any failure raises and exits non-zero):
               plain version in f32.  int8 and int4 pools: the quantized
               update bit-identical to its plain version (values and
               scales); the attention within 5e-3 of the plain version in
-              bf16 and 1e-5 in f32.  Rows no lane owns exactly zero.  Then
+              bf16 and 1e-5 in f32.  Rows no lane owns exactly zero.  The
+              dense launch of the attention (ARKS_MIXED_GRID=dense) gives
+              every row bit-identical to the ragged launch.  Then
               the threefry bits, keys and uniforms of 64 seeds on the card
               equal those on the CPU bit for bit.  Then the legacy
               scheduler's kernels: the slot cache [2, 8, 4, 4096, 128]
@@ -38,7 +40,11 @@ Phases (any failure raises and exits non-zero):
               and read just after: its update kernel (paged_kv_update, or
               paged_kv_update_quant for int8) and paged_mixed_attention
               must each count num_layers x that run's mixed dispatches, the
-              other kernels none.  Then the legacy scheduler on the same
+              other kernels none.  On the bf16 engine, one mixed_step
+              under ARKS_MIXED_GRID=dense equals the ragged one bit for
+              bit and a greedy request gives the same tokens under both
+              grids (the dense run counts the dense launch, num_layers x
+              its dispatches).  Then the legacy scheduler on the same
               weights, three more engines: the slot cache in bf16 and in
               int8, and the paged int8 pool under ARKS_MIXED_STEP=0 — a
               one-shot prompt twice, a seeded request twice, a 1100-token
@@ -64,9 +70,25 @@ Phases (any failure raises and exits non-zero):
               cache and pool beside SDPA with a length mask (decode
               attention) and index_put_ (the slot write); end-to-end
               decode tok/s and TTFT.
-The line before the last is the kernels JSON (seven kernels); the last
+  7. moe      with ARKS_MOE_KERNEL=pallas: grouped_matmul (bf16, int8,
+              int4 group 128) against its plain version at Mixtral-8x7B's
+              gate [8, 4096, 14336] and down [8, 14336, 4096] shapes over
+              528 routed rows (an empty expert, a 128-row group, a 1-row
+              group), within 1e-2 of the largest |out|, tiles past the
+              groups exactly zero, timed beside the bound, the plain
+              version and torch._grouped_mm over dequantized bf16 weights;
+              Mixtral-8x7B served at full width and all 32 layers with
+              random int8 weights (a bf16 pool of 8 slots x 4096, chunk
+              256) through phase 4's requests, grouped_matmul counting 3 x
+              num_layers x mixed dispatches, with peak device memory, and
+              one traced mixed step; a short batch with int4 weights; and
+              mixed_step through the kernels vs impl="plain" over 2 layers
+              (bf16 and int8 weights, 10% of the largest |logit|) and 1
+              layer in f32 (5e-4).
+The line before the last is the kernels JSON (nine counterparts); the last
 line is the device JSON.  A kernel's "launches" counts its launches in the
-phase-4 runs.
+runs of the served path: phase 4's (the dense launch: its greedy run) and
+phase 7's (grouped_matmul).
 """
 
 from __future__ import annotations
@@ -83,6 +105,7 @@ import time
 import numpy as np
 
 MODEL = "qwen2.5-7b"
+MOE_MODEL = "mixtral-8x7b"
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
@@ -92,6 +115,7 @@ QUANT_SRC = "arks_tpu_torch/csrc/paged_kv_update_quant.cu"
 ATTN_SRC = "arks_tpu_torch/csrc/paged_mixed_attention.cu"
 DECODE_SRC = "arks_tpu_torch/csrc/decode_attention.cu"
 SLOT_UPDATE_SRC = "arks_tpu_torch/csrc/kv_cache_update.cu"
+GROUPED_SRC = "arks_tpu_torch/csrc/grouped_matmul.cu"
 SLOT_LEN = 4096                  # slot cache length (= MAX_PAGES * PAGE)
 KV_BITS = {"int8": 8, "int4": 4}
 # Attention, phase 3: the bf16 kernel vs the bf16 plain version (one bf16
@@ -215,7 +239,6 @@ def phase_kernels(torch, dev):
     out_f = pa.paged_mixed_attention(qf, kf, vf, *lane, impl="plain")
     out_fk = pa.paged_mixed_attention(qf, kf, vf, *lane)
     torch.cuda.synchronize()
-    del kf, vf
     err_bf16 = (out_k.float() - out_p.float()).abs().max().item()
     err_f32 = (out_k.float() - out_f).abs().max().item()
     err_f32k = (out_fk - out_f).abs().max().item()
@@ -233,6 +256,18 @@ def phase_kernels(torch, dev):
             and err_f32k <= ATTN_TOL_F32_KERNEL and pad_max == 0.0):
         raise AssertionError("paged_mixed_attention disagrees with its plain "
                              "version")
+    # The dense launch: every row bit-identical to the ragged launch's.
+    dense = [pa.paged_mixed_attention(q, kp, vp, *lane, grid="dense")
+             for q, kp, vp in ((b["q"], k_kern, v_kern), (qf, kf, vf))]
+    torch.cuda.synchronize()
+    same = (torch.equal(dense[0].view(torch.int16), out_k.view(torch.int16))
+            and torch.equal(dense[1].view(torch.int32),
+                            out_fk.view(torch.int32)))
+    log(f"[kernels] paged_mixed_attention_dense (bf16 and f32): every row "
+        f"bit-identical to the ragged launch: {same}")
+    if not same:
+        raise AssertionError("the dense launch differs from the ragged one")
+    del kf, vf, dense
     b["pools_before"] = b["k_pool"], b["v_pool"]
     b["k_pool"], b["v_pool"] = k_kern, v_kern
     return b, upd_err, err_bf16
@@ -506,11 +541,14 @@ def phase_legacy_kernels(torch, dev):
 
 def _counted():
     """Every kernel wrapper of the port, by name."""
+    from arks_tpu_torch.ops import moe_kernel as mk
     from arks_tpu_torch.ops import paged_attention as pa
     from arks_tpu_torch.ops import pallas_attention as pl
     return {"paged_kv_update": pa.paged_kv_update,
             "paged_kv_update_quant": pa.paged_kv_update_quant,
             "paged_mixed_attention": pa.paged_mixed_attention,
+            "paged_mixed_attention_dense": pa.paged_mixed_attention_dense,
+            "grouped_matmul": mk.grouped_matmul,
             "paged_decode_attention": pa.paged_decode_attention,
             "kv_cache_update": pl.kv_cache_update,
             "kv_cache_update_quant": pl.kv_cache_update_quant,
@@ -577,30 +615,34 @@ def _pool_bytes(cache):
                if x is not None)
 
 
-def phase_serve(torch, dev, kv="bf16", params=None):
+def phase_serve(torch, dev, kv="bf16", params=None, engine=None):
     """The served path with a ``kv`` pool ("bf16" or "int8"), on ``params``
-    (random weights from SEED when None).  Returns (engine, results)."""
+    (random weights from SEED when None), or on a built ``engine`` (the
+    Mixtral engines of phase 7).  Returns (engine, results)."""
     from arks_tpu_torch.engine import EngineConfig, InferenceEngine
     from arks_tpu_torch.engine.tokenizer import ByteTokenizer
     from arks_tpu_torch.models import get_config
     from arks_tpu_torch.server import OpenAIServer
 
-    cfg = get_config(MODEL)
-    t0 = time.perf_counter()
-    engine = InferenceEngine(cfg, EngineConfig(
-        model=MODEL, num_slots=8, max_cache_len=MAX_PAGES * PAGE,
-        prefill_chunk=PAGE, dtype="bfloat16", kv_cache_dtype=kv, seed=SEED),
-        ByteTokenizer(), params=params, device=dev)
-    torch.cuda.synchronize()
-    tag = f"[serve {kv}]"
+    if engine is None:
+        t0 = time.perf_counter()
+        engine = InferenceEngine(get_config(MODEL), EngineConfig(
+            model=MODEL, num_slots=8, max_cache_len=MAX_PAGES * PAGE,
+            prefill_chunk=PAGE, dtype="bfloat16", kv_cache_dtype=kv,
+            seed=SEED), ByteTokenizer(), params=params, device=dev)
+        torch.cuda.synchronize()
+        log(f"[serve {kv}] {MODEL} engine up in "
+            f"{time.perf_counter() - t0:.1f} s: "
+            f"{sum(x.numel() for x in _leaves(engine.params)) / 1e9:.2f}B "
+            f"params bf16, {kv} pool {tuple(engine.cache.k.shape)} "
+            f"{engine.cache.k.dtype}, K+V pool {_pool_bytes(engine.cache)} B "
+            f"(scales included), {torch.cuda.memory_allocated() / 2**30:.1f} "
+            "GiB allocated")
+    cfg, model = engine.cfg, engine.ecfg.model
+    tag = f"[serve {kv}]" if model == MODEL else \
+        f"[serve {model} {engine.ecfg.weight_dtype}]"
     res = {"pool_bytes": _pool_bytes(engine.cache)}
-    log(f"{tag} {MODEL} engine up in {time.perf_counter() - t0:.1f} s: "
-        f"{sum(x.numel() for x in _leaves(engine.params)) / 1e9:.2f}B "
-        f"params bf16, {kv} pool {tuple(engine.cache.k.shape)} "
-        f"{engine.cache.k.dtype}, K+V pool {res['pool_bytes']} B (scales "
-        f"included), {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
-        "allocated")
-    server = OpenAIServer(engine, MODEL, host="127.0.0.1", port=0)
+    server = OpenAIServer(engine, model, host="127.0.0.1", port=0)
     server.start(background=True)
     engine.start()
     port = server.port
@@ -613,6 +655,7 @@ def phase_serve(torch, dev, kv="bf16", params=None):
             raise AssertionError(f"warm-up failed: {st} {data}")
 
         _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
         d0, shared0 = engine.dispatches, engine.shared_dispatches
 
         prompt = "The port serves OpenAI completions on the card."
@@ -704,6 +747,8 @@ def phase_serve(torch, dev, kv="bf16", params=None):
             else "paged_kv_update"
         expected = {name: want if name in (update, "paged_mixed_attention")
                     else 0 for name in launches}
+        if cfg.num_experts:      # three grouped products per layer
+            expected["grouped_matmul"] = 3 * want
         log(f"{tag} mixed dispatches {dispatches}, launches {launches}, "
             f"expected {expected} ({cfg.num_layers} layers)")
         if launches != expected or dispatches == 0:
@@ -729,11 +774,13 @@ def phase_serve(torch, dev, kv="bf16", params=None):
         total = sum(out[f"b{i}"][1]["usage"]["completion_tokens"]
                     for i in range(8))
         res["decode_tok_s_b8"] = total / wall
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
         log(f"{tag} decode {res['decode_tok_s_b1']:.1f} tok/s at batch 1, "
             f"{res['decode_tok_s_b8']:.1f} tok/s aggregate at batch 8 "
             f"({total} tokens in {wall:.2f} s incl. prefill); TTFT of the "
             f"300-token prompt {res['ttft_300_s'] * 1e3:.1f} ms (first SSE "
-            "frame)")
+            f"frame); peak device memory while serving {res['peak_bytes']} B "
+            "(torch.cuda.max_memory_allocated)")
     finally:
         server.stop()
         engine.stop()
@@ -947,7 +994,7 @@ def phase_parity(torch, dev, engine):
 
 
 def _parity_steps(torch, dev, tf, cfg, params, dtype, rel, abs_tol, kv,
-                  limit=True):
+                  limit=True, moe_grouped=None):
     maxp, n_pages = 3, 9
     tables = torch.arange(n_pages, dtype=torch.int32,
                           device=dev).reshape(3, maxp)
@@ -978,17 +1025,33 @@ def _parity_steps(torch, dev, tf, cfg, params, dtype, rel, abs_tol, kv,
         kv_bits=KV_BITS.get(kv, 8)) for impl in ("kernel", "plain")}
     worst = 0.0
     for i, args in enumerate(steps):
-        logits = {impl: tf.mixed_step(params, cfg, caches[impl], tables,
-                                      *args, impl=impl)
-                  for impl in ("kernel", "plain")}
+        routes = {}
+        logits = {}
+        for impl in ("kernel", "plain"):
+            with _recorded_routing(routes.setdefault(impl, [])):
+                logits[impl] = tf.mixed_step(params, cfg, caches[impl],
+                                             tables, *args, impl=impl,
+                                             moe_grouped=moe_grouped)
         k, p = logits["kernel"], logits["plain"]
         tol = rel * p.abs().max().item() + abs_tol
-        err = (k - p).abs().max().item()
+        clean = _same_routing(torch, routes, args[3])
+        err = (k - p)[clean].abs().max().item() if clean.any() else 0.0
         top2 = p.topk(2, dim=-1).values
-        wide = (top2[:, 0] - top2[:, 1]) > tol
+        wide = ((top2[:, 0] - top2[:, 1]) > tol) & clean
         agree = bool((k.argmax(-1) == p.argmax(-1))[wide].all().item())
         finite = bool(torch.isfinite(k).all().item())
-        log(f"[parity] {dtype} {kv or 'unquantized'} pool, "
+        if routes["kernel"]:
+            log(f"[parity] step {i} MoE routing: {_flips(torch, routes)} "
+                f"(token, layer) pairs routed to other experts on the two "
+                f"paths; "
+                f"lanes whose sampled token was routed alike in every layer "
+                f"(held below): {clean.nonzero().flatten().tolist()} of 3")
+            if not clean.any():
+                raise AssertionError("no lane was routed alike on both paths")
+        wq = params["layers"]["wq"]
+        weights = (", int4 weights" if "gs" in wq else ", int8 weights") \
+            if isinstance(wq, dict) else ""
+        log(f"[parity] {dtype} {kv or 'unquantized'} pool{weights}, "
             f"{cfg.num_layers} layer(s), step {i}: max |logit diff| "
             f"{err:.3e} ({'limit' if limit else 'argmax margin'} "
             f"{tol:.3e}; max |logit| {p.abs().max().item():.3f}), argmax "
@@ -999,6 +1062,48 @@ def _parity_steps(torch, dev, tf, cfg, params, dtype, rel, abs_tol, kv,
                                  "with the plain path")
         worst = max(worst, err)
     return worst
+
+
+class _recorded_routing:
+    """Within the block, every MoE routing decision (``router_topk``'s
+    expert ids, one [T, k] tensor per layer) is appended to ``into``."""
+
+    def __init__(self, into):
+        self.into = into
+
+    def __enter__(self):
+        from arks_tpu_torch.models import moe
+        self.real = moe.router_topk
+
+        def record(logits, cfg):
+            vals, idx = self.real(logits, cfg)
+            self.into.append(idx.sort(dim=-1).values)
+            return vals, idx
+        moe.router_topk = record
+
+    def __exit__(self, *exc):
+        from arks_tpu_torch.models import moe
+        moe.router_topk = self.real
+
+
+def _flips(torch, routes):
+    return sum(int((a != b).any(dim=-1).sum().item())
+               for a, b in zip(routes["kernel"], routes["plain"]))
+
+
+def _same_routing(torch, routes, sample_src):
+    """[lanes] bool: the lane's sampled token took the same top-k experts
+    on both paths in every layer.  Top-k routing is discontinuous: where
+    two experts' router probabilities nearly tie, the paths' last-bit
+    differences (bf16 rounding of the attention, the sums' order) can pick
+    another expert, which changes that token's output by a whole expert's
+    contribution — a property of the model, not an error of a kernel, so
+    the limit holds the lanes routed alike.  Dense models: every lane."""
+    clean = torch.ones(sample_src.shape[0], dtype=torch.bool,
+                       device=sample_src.device)
+    for a, b in zip(routes["kernel"], routes["plain"]):
+        clean &= (a == b).all(dim=-1)[sample_src.long()]
+    return clean
 
 
 def _decode_parity(torch, dev, tf, cfg, params, dtype, rel, abs_tol, layout,
@@ -1138,7 +1243,8 @@ def phase_step_profile(torch, dev, engine, kv=None):
             ar, ar, torch.ones(lanes, **i32), torch.full((lanes,), ctx, **i32))
 
     def step():
-        logits = tf.mixed_step(engine.params, cfg, cache, *args, qmax=1)
+        logits = tf.mixed_step(engine.params, cfg, cache, *args, qmax=1,
+                               moe_grouped=engine._moe_grouped)
         return sampler.sample(logits, None, None, None)[0].cpu()
 
     for _ in range(3):
@@ -1162,9 +1268,13 @@ def phase_step_profile(torch, dev, engine, kv=None):
     bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     top += [e for e in kernels if e not in top and (
-        "paged_kv_update" in e.key or "mixed_attention" in e.key)]
-    log(f"[profile] decode step, {kv or 'bf16'} pool, {lanes} lanes at "
-        f"context {ctx}: "
+        "paged_kv_update" in e.key or "mixed_attention" in e.key
+        or "grouped_matmul" in e.key)]
+    grouped_us = sum(e.self_device_time_total for e in kernels
+                     if "grouped_matmul" in e.key) / 3
+    log(f"[profile] {engine.ecfg.model} "
+        f"{engine.ecfg.weight_dtype} weights, decode step, {kv or 'bf16'} "
+        f"pool, {lanes} lanes at context {ctx}: "
         f"{wall_ms:.2f} ms host clock ({lanes / wall_ms * 1e3:.1f} tok/s), "
         f"device kernel time "
         + (f"{dev_us / 1e3:.2f} ms/step, busy share "
@@ -1173,6 +1283,9 @@ def phase_step_profile(torch, dev, engine, kv=None):
     for e in top:
         log(f"[profile]   {e.key[:60]:60s} {e.self_device_time_total / 3:9.1f}"
             f" us/step x{e.count // 3}")
+    if cfg.num_experts:
+        log(f"[profile]   grouped_matmul (all launches) {grouped_us:.1f} "
+            "us/step")
     return wall_ms, dev_us / 1e3 if dev_us else None
 
 
@@ -1342,6 +1455,11 @@ def phase_times(torch, b):
         library_ms=_time_ms(torch, lambda: sdpa(qg, kg, vg, attn_mask=mask)),
         **_bound(attn_bytes, attn_flops))
 
+    dense_work = pa.mixed_work(*lane[:4], page=PAGE, hkv=hkv, qmax=qmax,
+                               grid="dense")
+    dense_times = dict(attn_times, ms=_time_ms(
+        torch, lambda: pa.paged_mixed_attention(b["q"], k_pool, v_pool,
+                                                *lane, work=dense_work)))
     # A decode-only batch (the 8 decode lanes alone) for the record.
     dec = b["seq_q_len"].clone()
     dec[8:] = 0
@@ -1362,11 +1480,12 @@ def phase_times(torch, b):
         f"{attn_times['bound_by']}: {attn_bytes} B, {attn_flops:.3e} flop), "
         f"plain {attn_times['plain_ms'] * 1e3:.1f} us, SDPA on gathered KV "
         f"{attn_times['library_ms'] * 1e3:.1f} us; wrapper building its "
-        f"work list per call {wrapper_ms * 1e3:.1f} us")
+        f"work list per call {wrapper_ms * 1e3:.1f} us; the dense launch "
+        f"{dense_times['ms'] * 1e3:.1f} us")
     log(f"[times] paged_mixed_attention decode-only (8 lanes, contexts "
         f"{(ps[:8] + 1).tolist()}): {dec_ms * 1e3:.1f} us (bound "
         f"{dec_bytes / HBM_BYTES_PER_S * 1e6:.2f} us by bytes)")
-    return upd_times, attn_times
+    return upd_times, attn_times, dense_times
 
 
 def phase_quant_times(torch, b, qres):
@@ -1578,6 +1697,362 @@ def phase_legacy_times(torch, b):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the MoE path (Mixtral-8x7B, int8 / int4 weights)
+# ---------------------------------------------------------------------------
+
+
+# One Mixtral mixed step routes 264 tokens x top-2 = 528 rows over its 8
+# experts; this split holds an empty expert, a group of exactly 128 rows
+# and a 1-row group.
+MOE_GROUPS = [128, 0, 1, 97, 88, 70, 80, 64]
+# grouped_matmul in bf16 against its plain version: both accumulate in
+# f32 (in another order, over K up to 14336) and round the output to bf16
+# once, so they differ by about one bf16 step of the output: 1e-2 of the
+# largest |out| (0.39% is one step at the top of a binade).  f32 (parity
+# only): 1e-5.
+GM_TOL = {"bf16": 1e-2, "f32": 1e-5}
+WEIGHT_ELEM_BYTES = {"bf16": 2, "int8": 1, "int4": 0.5}
+
+
+def _moe_weight(torch, dev, mode, shape, gen):
+    """An expert weight [X, K, N] drawn from ``gen`` (normal x 0.02, bf16),
+    then int8 / packed int4 (group 128): (w, scale kwargs, the bf16
+    weight the library call multiplies by)."""
+    from arks_tpu_torch.models import quant
+    w = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    for e in range(shape[0]):
+        w[e] = torch.randn(shape[1:], generator=gen, device=dev) * 0.02
+    if mode == "bf16":
+        return w, {}, w
+    if mode == "int8":
+        qd = quant.quantize_tensor(w)
+        kw = {"w_scale": qd["s"][:, 0, :].contiguous()}
+    else:
+        qd = quant.quantize_tensor_int4(w, 128)
+        kw = {"w_group_scale": qd["gs"]}
+    del w
+    return qd["q"], kw, quant.dequantize(qd, torch.bfloat16)
+
+
+def _grouped_library(torch, xs, w, sizes):
+    """One PyTorch call computing the grouped product on the unpadded
+    sorted rows: ``torch._grouped_mm`` where this torch has it for the
+    card, else a per-expert ``torch.matmul`` loop.  Returns (fn, name)."""
+    offs = torch.as_tensor(np.cumsum(sizes), dtype=torch.int32,
+                           device=xs.device)
+    if hasattr(torch, "_grouped_mm"):
+        try:
+            torch._grouped_mm(xs, w, offs=offs)
+            torch.cuda.synchronize()
+            return (lambda: torch._grouped_mm(xs, w, offs=offs),
+                    "torch._grouped_mm")
+        except (RuntimeError, TypeError, NotImplementedError) as e:
+            log(f"[moe kernels] torch._grouped_mm refused: {e}")
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+
+    def loop():
+        return [xs[starts[i]:starts[i + 1]] @ w[i]
+                for i in range(len(sizes)) if sizes[i]]
+    return loop, "per-expert torch.matmul loop"
+
+
+def phase_moe_kernels(torch, dev):
+    """grouped_matmul (bf16, int8, int4 with group 128) against its plain
+    version at Mixtral-8x7B's gate/up shape [8, 4096, 14336] and down shape
+    [8, 14336, 4096], over MOE_GROUPS padded to 128-row tiles; tiles past
+    the groups must come out exactly zero.  Times by CUDA events (L2
+    flushed) beside the bound, the plain version and the library call."""
+    from arks_tpu_torch.models import get_config
+    from arks_tpu_torch.ops import moe_kernel as mk
+    cfg = get_config(MOE_MODEL)
+    e, fm, nx = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+    sizes = MOE_GROUPS
+    t = sum(sizes)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    gs = torch.as_tensor(sizes, device=dev)
+    se = torch.repeat_interleave(torch.arange(nx, device=dev), gs)
+    used = mk.rows_used(gs)
+    n_used = int(used.item())
+    nonempty = sum(1 for s in sizes if s)
+    out = {}
+    for shape, (k, n) in (("gate", (e, fm)), ("down", (fm, e))):
+        xs = torch.randn((t, k), generator=gen, device=dev).to(torch.bfloat16)
+        xs_p, _, bexp = mk.pad_groups(xs, se, gs)
+        tp = xs_p.shape[0]
+        for mode in ("bf16", "int8", "int4"):
+            w, kw, wd = _moe_weight(torch, dev, mode, (nx, k, n), gen)
+            got = mk.grouped_matmul(xs_p, w, bexp, rows_used=used, **kw)
+            want = mk.grouped_matmul(xs_p, w, bexp, impl="plain", **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            top = want.float().abs().max().item()
+            finite = bool(torch.isfinite(got.float()).all().item())
+            zeros = not bool(got[n_used:].any().item())
+            log(f"[moe kernels] grouped_matmul {mode} {shape} [{nx}, {k}, "
+                f"{n}], Tp {tp} ({n_used} rows in real tiles, {t} routed): "
+                f"max abs err vs plain {err:.3e} (tol {GM_TOL['bf16']} x "
+                f"max |out| {top:.3f}); tiles past the groups zero {zeros}; "
+                f"finite {finite}")
+            if not (finite and zeros and err <= GM_TOL["bf16"] * top):
+                raise AssertionError(f"grouped_matmul {mode} {shape} "
+                                     "disagrees with its plain version")
+            scale_bytes = {"bf16": 0, "int8": n * 4,
+                           "int4": (k // 128) * n * 4}[mode]
+            nbytes = int(n_used * k * 2 + nonempty * (
+                k * n * WEIGHT_ELEM_BYTES[mode] + scale_bytes)
+                + bexp.numel() * 4 + 4 + tp * n * 2)
+            lib, lib_name = _grouped_library(torch, xs, wd, sizes)
+            rec = dict(
+                ms=_time_ms(torch, lambda: mk.grouped_matmul(
+                    xs_p, w, bexp, rows_used=used, **kw)),
+                plain_ms=_time_ms(torch, lambda: mk.grouped_matmul(
+                    xs_p, w, bexp, impl="plain", **kw), iters=3, warmup=1),
+                library_ms=_time_ms(torch, lib), library=lib_name,
+                max_abs_err=err, nbytes=nbytes, **_bound(nbytes, 2 * t * k * n))
+            out[(shape, mode)] = rec
+            log(f"[times] grouped_matmul {mode} {shape}: "
+                f"{rec['ms'] * 1e3:.1f} us (bound {rec['bound_ms'] * 1e3:.1f}"
+                f" us by {rec['bound_by']}: {nbytes} B, "
+                f"{2 * t * k * n:.3e} flop), plain "
+                f"{rec['plain_ms'] * 1e3:.1f} us, {lib_name} on dequantized "
+                f"bf16 weights {rec['library_ms'] * 1e3:.1f} us")
+            del w, kw, wd, got, want
+            torch.cuda.empty_cache()
+        del xs, xs_p
+    return out
+
+
+def _moe_engine(torch, dev, weight_dtype, params=None):
+    from arks_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arks_tpu_torch.engine.tokenizer import ByteTokenizer
+    from arks_tpu_torch.models import get_config
+    cfg = get_config(MOE_MODEL)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, EngineConfig(
+        model=MOE_MODEL, num_slots=8, max_cache_len=MAX_PAGES * PAGE,
+        prefill_chunk=PAGE, dtype="bfloat16", kv_cache_dtype="bf16",
+        weight_dtype=weight_dtype, seed=SEED), ByteTokenizer(),
+        params=params, device=dev)
+    torch.cuda.synchronize()
+    wbytes = sum(x.numel() * x.element_size() for x in _leaves(engine.params))
+    log(f"[serve {MOE_MODEL} {weight_dtype}] engine up in "
+        f"{time.perf_counter() - t0:.1f} s: weights {wbytes} B "
+        f"({weight_dtype}; embedding int8, router and norms bf16), bf16 "
+        f"pool {tuple(engine.cache.k.shape)}, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated, "
+        f"MoE dispatch grouped {engine._moe_grouped} (num_slots + chunk = "
+        f"{8 + engine._mixed_budget} tokens)")
+    if not engine._moe_grouped:
+        raise AssertionError("the Mixtral engine's mixed steps do not group")
+    return engine, wbytes
+
+
+def phase_serve_moe_short(torch, dev, engine):
+    """A short batch on a Mixtral engine (the int4 one): one greedy
+    completion twice in a row (identical), then 8 concurrent greedy streams
+    of 16 tokens, with the kernel counts of that run.  (A prompt repeated
+    inside the concurrent batch need not repeat its tokens: cuBLAS picks
+    its GEMM by the batch's token count, so the same row rounds
+    differently in another batch, and random weights leave near-ties.)"""
+    from arks_tpu_torch.server import OpenAIServer
+    cfg = engine.cfg
+    tag = f"[serve {MOE_MODEL} {engine.ecfg.weight_dtype}]"
+    server = OpenAIServer(engine, MOE_MODEL, host="127.0.0.1", port=0)
+    server.start(background=True)
+    engine.start()
+    port = server.port
+    try:
+        st, data, _, _ = _request(port, "/v1/completions", {
+            "prompt": "warm up", "max_tokens": 4, "temperature": 0})
+        if st != 200:
+            raise AssertionError(f"warm-up failed: {st} {data}")
+        _reset_counts()
+        d0 = engine.dispatches
+        out = {}
+
+        def run(key, body):
+            out[key] = _request(port, "/v1/completions", body)
+        bodies = {f"b{i}": {"prompt": f"expert lane {i}" * (1 + i),
+                            "max_tokens": 16, "temperature": 0,
+                            "ignore_eos": True} for i in range(8)}
+        run("first", bodies["b3"])
+        run("again", bodies["b3"])
+        threads = [threading.Thread(target=run, args=item)
+                   for item in bodies.items()]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(900)
+        wall = time.perf_counter() - t0
+        for key, (st, data, _, _) in out.items():
+            if st != 200 or data["usage"]["completion_tokens"] != 16:
+                raise AssertionError(f"{tag} {key}: HTTP {st} {data}")
+        same = (out["again"][1]["choices"][0]["text"]
+                == out["first"][1]["choices"][0]["text"])
+        dispatches = engine.dispatches - d0
+        launches = _read_counts()
+        want = cfg.num_layers * dispatches
+        expected = {name: 0 for name in launches}
+        expected.update(paged_kv_update=want, paged_mixed_attention=want,
+                        grouped_matmul=3 * want)
+        log(f"{tag} a greedy completion twice in a row identical {same}; "
+            f"8 concurrent greedy streams of 16 tokens in {wall:.2f} s "
+            f"({8 * 16 / wall:.1f} tok/s incl. prefill); mixed dispatches "
+            f"{dispatches}, launches {launches}, expected {expected}")
+        if launches != expected or dispatches == 0 or not same:
+            raise AssertionError(f"{tag} launch counts or repeated stream")
+        return dict(launches=launches, tok_s=8 * 16 / wall)
+    finally:
+        server.stop()
+        engine.stop()
+
+
+def phase_moe_parity(torch, dev):
+    """mixed_step through the kernels (ARKS_MOE_KERNEL=pallas: the grouped
+    matmul and the attention kernels) against the same steps through
+    impl="plain" (their plain versions) at Mixtral width, over 2 layers
+    with bf16 and with int8 weights (limit 10% of the largest |logit|, as
+    phase 5), and over 1 layer in f32 (5e-4).  Both steps group, as every
+    step of the served engine does.  The limits hold every lane whose
+    sampled token took the same experts on both paths in every layer
+    (``_same_routing``); the (token, layer) pairs routed apart are
+    counted and logged."""
+    from arks_tpu_torch.models import get_config
+    from arks_tpu_torch.models import transformer as tf
+    cfg = get_config(MOE_MODEL)
+    worst = {}
+    for layers, dtype, bits, rel, abs_tol in (
+            (2, torch.bfloat16, 0, 0.10, 0.0), (2, torch.bfloat16, 8, 0.10, 0.0),
+            (1, torch.float32, 0, 0.0, 5e-4)):
+        c = dataclasses.replace(cfg, num_layers=layers)
+        params = tf.init_params(c, SEED + 7, dtype, dev, bits=bits)
+        name = f"{str(dtype).split('.')[1]} {'int8' if bits else 'unquantized'} weights"
+        worst[f"{name}, {layers} layer(s)"] = _parity_steps(
+            torch, dev, tf, c, params, dtype, rel, abs_tol, None,
+            moe_grouped=True)
+        del params
+        torch.cuda.empty_cache()
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# The dense launch of the mixed attention (ARKS_MIXED_GRID=dense)
+# ---------------------------------------------------------------------------
+
+
+def phase_moe(torch, dev):
+    """Phase 7, with ARKS_MOE_KERNEL=pallas: the grouped-matmul kernel at
+    Mixtral shapes; Mixtral-8x7B served at full width and depth with int8
+    weights (phase 4's requests and counts) and traced for one step; a
+    short batch with int4 weights; mixed_step parity over cut depth."""
+    import os
+    os.environ["ARKS_MOE_KERNEL"] = "pallas"
+    gm = phase_moe_kernels(torch, dev)
+    engine, wbytes = _moe_engine(torch, dev, "int8")
+    init_peak = torch.cuda.max_memory_allocated()
+    serve = phase_serve(torch, dev, "bf16", engine=engine)[1]
+    serve.update(weight_bytes=wbytes, init_peak_bytes=init_peak)
+    phase_step_profile(torch, dev, engine)
+    del engine
+    torch.cuda.empty_cache()
+    engine, wbytes4 = _moe_engine(torch, dev, "int4")
+    short = phase_serve_moe_short(torch, dev, engine)
+    short["weight_bytes"] = wbytes4
+    del engine
+    torch.cuda.empty_cache()
+    worst = phase_moe_parity(torch, dev)
+    log(f"[parity] {MOE_MODEL} worst |logit diff| {worst}")
+    log(f"[serve {MOE_MODEL}] int8 weights ({wbytes} B): decode "
+        f"{serve['decode_tok_s_b1']:.1f} tok/s at batch 1, "
+        f"{serve['decode_tok_s_b8']:.1f} at batch 8, TTFT 300 tokens "
+        f"{serve['ttft_300_s'] * 1e3:.1f} ms, peak device memory "
+        f"{serve['peak_bytes']} B serving, {init_peak} B at init; int4 "
+        f"weights ({wbytes4} B): {short['tok_s']:.1f} tok/s over the short "
+        "batch")
+    return gm, serve, short
+
+
+def _with_grid(grid, fn):
+    import os
+    old = os.environ.get("ARKS_MIXED_GRID")
+    os.environ["ARKS_MIXED_GRID"] = grid
+    try:
+        return fn()
+    finally:
+        if old is None:
+            os.environ.pop("ARKS_MIXED_GRID")
+        else:
+            os.environ["ARKS_MIXED_GRID"] = old
+
+
+def phase_dense_grid(torch, dev, engine):
+    """ARKS_MIXED_GRID=dense on the bf16 Qwen2.5-7B engine: one mixed_step
+    (a 300-token chunk crossing a page beside a 40-token one) under the
+    dense launch against the same step under the ragged one — logits equal
+    bit for bit; then one greedy request under each grid, driven on the
+    engine, with identical tokens; the dense run's counts are read (the
+    dense launch num_layers x its dispatches, the ragged launch none).
+    Returns the dense launch count."""
+    from arks_tpu_torch.engine import Request, SamplingParams
+    from arks_tpu_torch.models import transformer as tf
+    cfg = engine.cfg
+    rng = np.random.default_rng(SEED + 8)
+    p0 = [int(x) for x in rng.integers(2, cfg.vocab_size, 300)]
+    p1 = [int(x) for x in rng.integers(2, cfg.vocab_size, 40)]
+    i32 = dict(dtype=torch.int32, device=dev)
+    tables = torch.arange(6, **i32).reshape(2, 3)
+    args = [torch.as_tensor(np.asarray(a, np.int32), device=dev) for a in (
+        p0 + p1, [0] * 300 + [1] * 40, list(range(300)) + list(range(40)),
+        [299, 339], [0, 300], [300, 40], [0, 0])]
+
+    def step():
+        cache = tf.init_paged_cache(cfg, 6, PAGE, torch.bfloat16, dev)
+        return tf.mixed_step(engine.params, cfg, cache, tables, *args)
+    logits = {g: _with_grid(g, step) for g in ("ragged", "dense")}
+    torch.cuda.synchronize()
+    same = torch.equal(logits["ragged"], logits["dense"])
+    log(f"[dense grid] mixed_step logits under the dense launch equal the "
+        f"ragged launch's bit for bit: {same} (max |diff| "
+        f"{(logits['ragged'] - logits['dense']).abs().max().item()})")
+    if not same:
+        raise AssertionError("the dense launch changed mixed_step's logits")
+
+    def greedy():
+        req = Request("dense-grid", p0[:120], SamplingParams(
+            max_tokens=24, temperature=0.0, ignore_eos=True))
+        engine.add_request(req)
+        for _ in range(1000):
+            engine.step(block_s=0.01)
+            if engine.idle:
+                break
+        ids = []
+        while True:
+            out = req.outputs.get(timeout=60)
+            ids += out.token_ids
+            if out.finished:
+                return ids
+    ragged = _with_grid("ragged", greedy)
+    _reset_counts()
+    d0 = engine.dispatches
+    dense = _with_grid("dense", greedy)
+    launches = _read_counts()
+    dispatches = engine.dispatches - d0
+    want = cfg.num_layers * dispatches
+    expected = {name: 0 for name in launches}
+    expected.update(paged_kv_update=want, paged_mixed_attention_dense=want)
+    log(f"[dense grid] greedy request (120-token prompt, 24 tokens) under "
+        f"each grid: identical {dense == ragged} ({len(dense)} tokens); "
+        f"dense run: {dispatches} dispatches, launches {launches}")
+    if dense != ragged or len(dense) != 24 or launches != expected:
+        raise AssertionError("the dense launch changed the greedy stream or "
+                             "its launch counts")
+    return launches["paged_mixed_attention_dense"]
+
+
 def main() -> int:
     try:
         import torch
@@ -1597,6 +2072,7 @@ def main() -> int:
     phase_prng(torch, dev)
     lb, legacy_err = phase_legacy_kernels(torch, dev)
     engine, serve = phase_serve(torch, dev)
+    dense_launches = phase_dense_grid(torch, dev, engine)
     params = engine.params
     del engine
     torch.cuda.empty_cache()
@@ -1618,9 +2094,14 @@ def main() -> int:
     phase_decode_profile(torch, dev, engine)
     del engine, params
     torch.cuda.empty_cache()
-    upd_t, attn_t = phase_times(torch, b)
+    upd_t, attn_t, dense_t = phase_times(torch, b)
     qupd_t, qattn_t = phase_quant_times(torch, b, qres)
     lt = phase_legacy_times(torch, lb)
+    quant_err = qres["int8"][1]
+    del b, lb, qres
+    torch.cuda.empty_cache()
+    gm, moe_serve, moe_short = phase_moe(torch, dev)
+    gm_row = gm[("gate", "int8")]
     slot16, slot8 = legacy[("slot", "bf16")], legacy[("slot", "int8")]
     paged8 = legacy[("paged", "int8")]
     attn_launches = (serve["launches"]["paged_mixed_attention"]
@@ -1637,7 +2118,7 @@ def main() -> int:
              replaces="arks_tpu/ops/paged_attention.py:1215",
              launches=(serve8["launches"]["paged_kv_update_quant"]
                        + paged8["launches"]["paged_kv_update_quant"]),
-             max_abs_err=qres["int8"][1], **qupd_t["int8"]),
+             max_abs_err=quant_err, **qupd_t["int8"]),
         dict(name="paged_decode_attention", route="cuda", source=DECODE_SRC,
              replaces="arks_tpu/ops/paged_attention.py:388",
              launches=paged8["launches"]["paged_decode_attention"],
@@ -1660,6 +2141,15 @@ def main() -> int:
              launches=slot8["launches"]["kv_cache_update_quant"],
              max_abs_err=legacy_err["kv_cache_update_quant"],
              **lt["kv_cache_update_quant"]),
+        dict(name="paged_mixed_attention_dense", route="cuda",
+             source=ATTN_SRC,
+             replaces="arks_tpu/ops/paged_attention.py:675",
+             launches=dense_launches, max_abs_err=attn_err, **dense_t),
+        dict(name="grouped_matmul", route="cuda", source=GROUPED_SRC,
+             replaces="arks_tpu/ops/moe_kernel.py:81",
+             launches=(moe_serve["launches"]["grouped_matmul"]
+                       + moe_short["launches"]["grouped_matmul"]),
+             **gm_row),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -34,7 +34,7 @@ for name in names:
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "arks_tpu"
              or k.startswith("arks_tpu."))
-print(len(names), bad)
+print(len(names), bad, ",".join(names))
 """
 
 
@@ -42,9 +42,12 @@ def test_importing_every_module_loads_no_jax_and_no_arks_tpu():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=120,
-                         check=True).stdout.split(maxsplit=1)
+                         check=True).stdout.split()
     assert int(out[0]) >= 20          # every module was imported
-    assert out[1].strip() == "[]"
+    assert out[1] == "[]"
+    imported = set(out[2].split(","))
+    assert {"arks_tpu_torch.models.moe", "arks_tpu_torch.models.quant",
+            "arks_tpu_torch.ops.moe_kernel"} <= imported
 
 
 def _imported_modules(path: Path):
@@ -116,8 +119,7 @@ def test_server_cli_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("weight_dtype", "int4"), ("context_parallel", 2),
-    ("weight_dtype", "int8"),
+    ("context_parallel", 2),
     ("draft_model", "tiny"), ("tensor_parallel", 2),
     ("data_parallel", 2), ("pipeline_parallel", 2),
 ])
@@ -127,6 +129,24 @@ def test_engine_config_outside_the_slice_raises(field, value):
     with pytest.raises(NotImplementedError):
         InferenceEngine(get_config("tiny"), ecfg, ByteTokenizer(),
                         device="cpu")
+
+
+@pytest.mark.parametrize("weight_dtype", ["int8", "int4"])
+@pytest.mark.parametrize("name", ["tiny", "tiny-moe"])
+def test_engine_config_quantized_weights_build(name, weight_dtype):
+    """int8/int4 weights and MoE models are inside the slice: the engine
+    draws quantized weights (int4 packed two a byte along K; the embedding
+    int8 in both modes); an unknown weight dtype raises."""
+    ecfg = EngineConfig(model=name, max_cache_len=32, prefill_chunk=16,
+                        weight_dtype=weight_dtype)
+    eng = InferenceEngine(get_config(name), ecfg, ByteTokenizer(),
+                          device="cpu")
+    wq = eng.params["layers"]["wq"]
+    assert wq["q"].dtype == torch.int8
+    assert ("gs" in wq) == (weight_dtype == "int4")
+    assert "s" in eng.params["embed"]
+    with pytest.raises(ValueError):
+        EngineConfig(model=name, weight_dtype="fp8").validate()
 
 
 @pytest.mark.parametrize("kv,bits", [("int8", 8), ("int4", 4)])

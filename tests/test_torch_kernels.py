@@ -441,3 +441,114 @@ def test_decode_step_kernels_vs_plain(dev, layout, kv):
     else:
         assert (caches["kernel"].k_scale - caches["plain"].k_scale
                 ).abs().max() <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# The dense launch of the mixed-attention kernel
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kv", [None, "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_mixed_attention_dense_bit_identical_to_ragged(dev, dtype, kv):
+    """The dense launch writes every valid row bit for bit as the ragged
+    one does (same per-item page walk), and zeros elsewhere."""
+    page = 16
+    lanes = [(p * page // 16, n) for p, n in LANES] + [(page - 1, 2 * page)]
+    b = _batch(dev, dtype, hkv=2, g=4, d=64, page=page, lanes=lanes)
+    scales = {}
+    if kv is not None:
+        b = _quant_pools(b, kv)
+        scales = dict(k_scale=b["k_scale"], v_scale=b["v_scale"])
+    args = (b["tables"], b["seq_q_start"], b["seq_q_len"],
+            b["seq_pos_start"], b["layer"])
+    dense0 = pa.paged_mixed_attention_dense.launches
+    ragged0 = pa.paged_mixed_attention.launches
+    ragged = pa.paged_mixed_attention(b["q"], b["k_pool"], b["v_pool"], *args,
+                                      grid="ragged", **scales)
+    dense = pa.paged_mixed_attention(b["q"], b["k_pool"], b["v_pool"], *args,
+                                     grid="dense", **scales)
+    torch.cuda.synchronize()
+    assert pa.paged_mixed_attention_dense.launches == dense0 + 1
+    assert pa.paged_mixed_attention.launches == ragged0 + 1
+    assert torch.equal(dense.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32),
+                       ragged.view(torch.int16 if dtype == torch.bfloat16
+                                   else torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The grouped matmul (MoE experts)
+# ---------------------------------------------------------------------------
+
+
+def _grouped_case(dev, dtype, mode, *, sizes, k, n, group=32, seed=0):
+    """Expert-sorted rows of ``sizes`` padded by pad_groups (block_t 128),
+    and a weight in ``mode`` (raw of ``dtype``, int8, packed int4)."""
+    from arks_tpu_torch.models import quant
+    from arks_tpu_torch.ops import moe_kernel as mk
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    nx = len(sizes)
+    t = sum(sizes)
+    se = torch.repeat_interleave(torch.arange(nx, device=dev),
+                                 torch.as_tensor(sizes, device=dev))
+    xs = torch.randn((t, k), generator=gen, device=dev).to(dtype)
+    gs = torch.as_tensor(sizes, device=dev)
+    xs_p, dest, bexp = mk.pad_groups(xs, se, gs)
+    w = torch.randn((nx, k, n), generator=gen, device=dev) * 0.05
+    kw = {}
+    if mode == "raw":
+        w = w.to(dtype)
+    elif mode == "int8":
+        qd = quant.quantize_tensor(w)
+        w, kw = qd["q"], {"w_scale": qd["s"][:, 0, :].contiguous()}
+    else:
+        qd = quant.quantize_tensor_int4(w, group)
+        w, kw = qd["q"], {"w_group_scale": qd["gs"]}
+    return xs_p, w, bexp, kw, mk.rows_used(gs)
+
+
+# An empty expert, a group of exactly 128 rows, groups of 1 row, a long one.
+GROUP_SIZES = [5, 0, 128, 1, 300, 1]
+
+
+@pytest.mark.parametrize("mode", ["raw", "int8", "int4"])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("n", [256, 208])
+def test_grouped_matmul_vs_plain(dev, dtype, tol, mode, n):
+    """bf16 within 1e-2 of the largest |out| (one bf16 rounding of the
+    output and another summation order), f32 within 1e-5; zero rows give
+    exact zeros; N = 208 masks a partial column tile."""
+    from arks_tpu_torch.ops import moe_kernel as mk
+    xs_p, w, bexp, kw, used = _grouped_case(dev, dtype, mode,
+                                            sizes=GROUP_SIZES, k=256, n=n)
+    before = mk.grouped_matmul.launches
+    got = mk.grouped_matmul(xs_p, w, bexp, rows_used=used, **kw)
+    full = mk.grouped_matmul(xs_p, w, bexp, **kw)      # no tile skipping
+    want = mk.grouped_matmul(xs_p, w, bexp, impl="plain", **kw)
+    torch.cuda.synchronize()
+    assert mk.grouped_matmul.launches == before + 2
+    assert got.dtype == dtype and got.shape == (xs_p.shape[0], n)
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=tol * scale)
+    assert torch.equal(got, full)
+    zero_rows = (xs_p == 0).all(dim=1)
+    assert not got[zero_rows].any()
+
+
+def test_grouped_matmul_raises_on_unsupported(dev):
+    from arks_tpu_torch.ops import moe_kernel as mk
+    xs_p, w, bexp, kw, _ = _grouped_case(dev, torch.bfloat16, "int8",
+                                         sizes=[3, 4], k=64, n=64)
+    with pytest.raises(ValueError):          # N not a multiple of 16
+        mk.grouped_matmul(xs_p, w[..., :40], bexp,
+                          w_scale=kw["w_scale"][:, :40])
+    with pytest.raises(TypeError):           # f32 xs over an int8 weight
+        mk.grouped_matmul(xs_p.float(), w.float(), bexp, **kw)
+    xs4, w4, b4, kw4, _ = _grouped_case(dev, torch.bfloat16, "int4",
+                                        sizes=[3, 4], k=64, n=64, group=16)
+    with pytest.raises(ValueError):          # int4 group not a multiple of 32
+        mk.grouped_matmul(xs4, w4, b4, **kw4)

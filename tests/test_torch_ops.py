@@ -273,6 +273,86 @@ def test_paged_mixed_attention_plain_vs_pallas_per_lane():
     assert not want[c["seq_q_len"] == 0].any()
 
 
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+def test_paged_mixed_attention_plain_vs_pallas_dense_grid(kv):
+    """The reference's dense-grid kernel (``grid="dense"``, its
+    ``_paged_mixed_kernel``) in interpret mode against the port's plain
+    version, which both of the port's launches (ragged and dense) are held
+    to on the card."""
+    c = _attend_case(seed=14)
+    hkv, d = c["k_pool"].shape[2], c["q"].shape[-1]
+    g = c["q"].shape[1] // hkv
+    s = c["seq_q_len"].shape[0]
+    qmax = int(c["seq_q_len"].max())
+    span = c["seq_q_start"][:, None] + np.arange(qmax)
+    qs = c["q"][np.minimum(span, len(c["q"]) - 1)]
+    qs = qs.reshape(s, qmax, hkv, g, d).transpose(0, 2, 3, 1, 4)
+    pools = (c["k_pool"], c["v_pool"])
+    jsc, tsc = {}, {}
+    if kv == "int8":
+        qk, ks = tpa.quantize_kv(torch.from_numpy(c["k_pool"]))
+        qv, vs = tpa.quantize_kv(torch.from_numpy(c["v_pool"]))
+        pools = (qk.numpy(), qv.numpy())
+        jsc = dict(k_scale=jnp.asarray(ks.numpy()),
+                   v_scale=jnp.asarray(vs.numpy()))
+        tsc = dict(k_scale=ks, v_scale=vs)
+    want = np.asarray(jpa.paged_mixed_attention(
+        jnp.asarray(qs), jnp.asarray(pools[0]), jnp.asarray(pools[1]),
+        jnp.asarray(c["tables"]), jnp.asarray(c["seq_pos_start"]),
+        jnp.asarray(c["seq_q_len"]), c["layer"], interpret=True,
+        grid="dense", **jsc))
+    got = tpa.paged_mixed_attention(
+        torch.from_numpy(c["q"]), torch.from_numpy(pools[0]),
+        torch.from_numpy(pools[1]), torch.from_numpy(c["tables"]),
+        torch.from_numpy(c["seq_q_start"]), torch.from_numpy(c["seq_q_len"]),
+        torch.from_numpy(c["seq_pos_start"]), c["layer"], qmax=qmax,
+        grid="dense", **tsc).numpy()
+    for lane in range(s):
+        for i in range(int(c["seq_q_len"][lane])):
+            t = c["seq_q_start"][lane] + i
+            np.testing.assert_allclose(
+                got[t].reshape(hkv, g, d), want[lane, :, :, i], atol=1e-5,
+                rtol=0)
+    assert not want[c["seq_q_len"] == 0].any()
+    assert not got[c["token_slot"] < 0].any()
+
+
+def test_mixed_grid_mode_matches_reference(monkeypatch):
+    monkeypatch.delenv("ARKS_MIXED_GRID", raising=False)
+    assert tpa.mixed_grid_mode() == jpa.mixed_grid_mode() == "ragged"
+    for value in ("ragged", "dense", "DENSE"):
+        monkeypatch.setenv("ARKS_MIXED_GRID", value)
+        assert tpa.mixed_grid_mode() == jpa.mixed_grid_mode()
+    monkeypatch.setenv("ARKS_MIXED_GRID", "sparse")
+    with pytest.raises(ValueError):
+        tpa.mixed_grid_mode()
+    with pytest.raises(ValueError):
+        jpa.mixed_grid_mode()
+
+
+def test_mixed_work_per_grid(monkeypatch):
+    """The ragged grid's work builds its list; the dense grid's needs none
+    (its CTAs find their items).  The step's grid is resolved once, from
+    ``ARKS_MIXED_GRID``, when ``prepare_mixed`` builds the work."""
+    c = _attend_case()
+    lane = [torch.from_numpy(c[k]) for k in ("tables", "seq_q_start",
+                                             "seq_q_len", "seq_pos_start")]
+    ragged = tpa.mixed_work(*lane, page=c["k_pool"].shape[3], hkv=2,
+                            qmax=5, grid="ragged")
+    dense = tpa.mixed_work(*lane, page=c["k_pool"].shape[3], hkv=2, qmax=5,
+                           grid="dense")
+    assert ragged.grid == "ragged" and len(ragged.items) == 5
+    assert dense.grid == "dense" and dense.items is None
+    assert (dense.block_q, dense.num_qb) == (ragged.block_q, ragged.num_qb)
+    monkeypatch.setenv("ARKS_MIXED_GRID", "dense")
+    assert tpa.mixed_work(*lane, page=c["k_pool"].shape[3], hkv=2,
+                          qmax=5).grid == "dense"
+    with pytest.raises(ValueError):
+        tpa.paged_mixed_attention_dense(
+            torch.from_numpy(c["q"]), torch.from_numpy(c["k_pool"]),
+            torch.from_numpy(c["v_pool"]), dense, c["layer"])
+
+
 def test_kernel_wrappers_reject_bad_impl():
     c = _attend_case()
     with pytest.raises(ValueError):
