@@ -14,37 +14,52 @@
 //    dtype(q) * dtype(gs) rounded to that dtype (the reference's
 //    `w.astype(x.dtype) * gs.astype(x.dtype)`), then the product.
 // The output is cast to xs's dtype.  The CTA reads its tile's expert from
-// block_expert on the device (no Pallas grid carried over).  Tiles at or
-// past rows_used[0] (the padded groups' end) hold only zero rows: they
-// write zeros without a product — the same bytes the product gives.  N is
-// masked at the tile edge (N % 16 == 0); K runs in steps of 32 and an int4
-// group holds whole steps (G % 32 == 0).
+// block_expert on the device (no Pallas grid carried over).  A tile's real
+// rows are its first tile_rows[i] (a group fills its slot from the front;
+// the rest are zero rows); without tile_rows, tiles at or past
+// rows_used[0] hold only zero rows.  Rows known to be zero are written as
+// zeros without a product — the same values the product gives.  N is
+// masked at the tile edge (N % 16 == 0).
 //
 // Bound on the H100 at Mixtral-8x7B (one mixed step: 264 tokens x top-2 =
-// 528 routed rows over 8 experts): bytes.  Every expert is routed, so each
-// launch streams all 8 experts' weights once: 470 MB int8 per 4096 x 14336
-// matrix (140 us at 3.35 TB/s), about half that for int4, twice for bf16;
-// the products are 2 x 528 x 4096 x 14336 = 62 GFLOP (63 us at 989
-// TFLOP/s).  So the kernel must read each weight byte once and keep the
-// tensor cores fed, never run the FMA pipes over ~1,000 real rows.
+// 528 routed rows over 8 experts): bytes.  Each launch streams the routed
+// experts' weights once: 411 MB int8 for 7 routed experts of a 4096 x
+// 14336 matrix (123 us at 3.35 TB/s), about half that for int4, twice for
+// bf16; the products are 2 x 528 x 4096 x 14336 = 62 GFLOP (63 us at 989
+// TFLOP/s).  A decode step routes 16 rows, so every tile holds 1-4 real
+// rows and the launch is all weight bytes.
 //
-// Design (bf16 activations, the served path): one CTA per 128 x 128
-// output tile, 8 warps as 2 (rows) x 4 (columns), each warp 64 x 32 of
-// mma.sync m16n8k16 bf16 -> f32.  K steps of 32: the next step's xs and
-// weight bytes are loaded into registers while the tensor cores work on
-// the current step in shared memory (double-buffered), then converted to
-// bf16 on the store into shared memory — int8 exactly, int4 with its
-// group scale (one group per step) — so the inner loop is the plain bf16
-// one.  A tile's expert weights [K, 128 columns] are read once per row
-// tile; at Mixtral nearly every expert has a single row tile, so the
-// weights cross HBM about once.  Fragments come from shared memory by
-// ldmatrix (.trans for the k-major weight tile), rows padded by 16 bytes
-// so neither load has bank conflicts.  wgmma, TMA and a persistent
-// schedule are later work.
+// Design (bf16 activations, the served path;
+// grouped_matmul_wgmma_kernel): one CTA per 128 x 256 output tile, two
+// consumer warpgroups (64 rows each) and one producer warp.  The producer
+// keeps a ring of 3-5 stages of 64 K values in flight with TMA
+// (cp.async.bulk.tensor, mbarrier completion): the tile's real xs rows
+// (64-row boxes, then 8-row boxes up to the last real row; 128-byte
+// swizzle) and the raw weight bytes [64 k, 256 n] (int4: [32 packed rows,
+// 256 n] and the group's scale row).  The consumers turn a landed raw
+// stage into the bf16 B tile [256 n, 64 k] in shared memory — int8
+// exactly (byte -> 2^23 + b float -> bf16), int4 nibbles into bf16
+// 128 + u with bf16x2 subtract and multiply by the group scale (one
+// rounding), bf16 by a byte permute — written in wgmma's K-major
+// 128-byte-swizzled layout; that pass overlaps the tensor cores' work on
+// the previous stage.  Each warpgroup then runs wgmma.mma_async
+// m64n256k16 (bf16 -> f32 in registers) over its xs rows and the B tile.
+// Per weight byte the xs tile is read half as often as with 128 columns.
+// A tile with at most 64 real rows multiplies one 64-row block; the other
+// warpgroup writes zeros, as the epilogue does for rows past the real
+// ones (never loaded).  int8's per-channel scale multiplies the f32
+// accumulator in the epilogue.  Measured on the H100 (PERF.md): deeper
+// rings, separate xs and weight rings, and a producer warpgroup with
+// setmaxnreg were no faster; the int8/int4 weight stream (256-byte rows
+// per box) reaches 55-65% of the memory rate, bf16 (512-byte rows) 84%.
+// The TMA descriptors are encoded on the host per launch through
+// cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint (the
+// library is loaded by ctypes and not linked to libcuda).
 //
-// f32 activations (parity runs only): a CUDA-core kernel with the same
-// tile walk, 64 x 64 tiles, 4 x 4 outputs per thread, f32 FMAs.
+// f32 activations (parity runs only): a CUDA-core kernel, 64 x 64 tiles,
+// 4 x 4 outputs per thread, f32 FMAs, K in steps of 16.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,39 +71,150 @@ constexpr int kThreads = 256;
 enum { kRaw = 0, kInt8 = 1, kInt4 = 2 };
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: wgmma, TMA and an mbarrier ring
 // ---------------------------------------------------------------------------
 
-constexpr int kBN = 128;
-constexpr int kBK = 32;
-constexpr int kAS = kBK + 8;   // xs tile row stride (bf16): 80 B
-constexpr int kBS = kBN + 8;   // weight tile row stride (bf16): 272 B
+constexpr int kBN = 256;                 // columns per CTA
+constexpr int kBK = 64;                  // K per stage: one 128-byte row
+constexpr int kConsumers = 256;          // two warpgroups
+constexpr int kWThreads = kConsumers + 32;   // and the producer warp
+
+// Shared memory: two bf16 B tiles, then a ring of stages, each holding
+// 64 K of the tile's xs rows (room for two 64-row boxes, 1024-byte aligned
+// for the swizzle) and of the raw weight bytes, then the barriers.  Deeper
+// rings measured no faster on the H100.
+template <int MODE>
+struct GmCfg {
+  static constexpr int kStages = MODE == kRaw ? 3 : MODE == kInt8 ? 4 : 5;
+  static constexpr int kABlock = 64 * kBK * 2;             // one 64-row box
+  static constexpr int kABytes = 2 * kABlock;
+  static constexpr int kWRows = MODE == kInt4 ? kBK / 2 : kBK;
+  static constexpr int kWBytes = kWRows * kBN * (MODE == kRaw ? 2 : 1);
+  static constexpr int kSBytes = MODE == kInt4 ? kBN * 4 : 0;
+  static constexpr int kStageBytes = kABytes + kWBytes + kSBytes;
+  static constexpr int kBBytes = kBN * kBK * 2;            // bf16 B tile
+  // 1 KB of slack aligns the base to the 128-byte swizzle's 1024 bytes.
+  static constexpr int kSmem =
+      1024 + 2 * kBBytes + kStages * kStageBytes + 2 * kStages * 8;
+  static_assert(kStageBytes % 1024 == 0, "stages keep 1024-byte alignment");
+  static_assert(kSmem <= 232448, "shared memory of one block");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`.  A
+// wait that never completes traps: a launch fault, never a hung card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (spins == (1u << 26)) asm volatile("trap;\n");
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma's shared-memory descriptor of a K-major tile in the 128-byte
+// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// The byte offset of bf16 element (row, k) of such a tile (k < 64).
+__device__ __forceinline__ int swz(int row, int k) {
+  return row * 128 + ((((k >> 3) ^ row) & 7) << 4) + (k & 7) * 2;
+}
+
+__device__ __forceinline__ void fence_operand(float& x) {
+  asm volatile("" : "+f"(x) :: "memory");
+}
+
+__device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+      "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+      "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+      "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+      "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+      "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+      "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+      "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+      "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+      "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+      "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+      "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+      "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+      "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+      "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -96,121 +222,225 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// int4 dequant in bf16: bf16(q) * bf16(gs), rounded to bf16.  q is a small
-// integer (exact in bf16) and the product of two bf16 values is exact in
-// f32, so one rounding of the f32 product is the bf16 multiply.
-__device__ __forceinline__ float deq4_bf16(int q, float gs_bf16) {
-  return __bfloat162float(__float2bfloat16_rn((float)q * gs_bf16));
+__device__ __forceinline__ __nv_bfloat162 as_bf16x2(uint32_t u) {
+  return *reinterpret_cast<__nv_bfloat162*>(&u);
 }
 
-// Weight bytes of one K step held in registers between the global load and
-// the shared-memory store.
-struct WStage {
-  uint4 v[2];
-  float gs[8];
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// int8 byte `j` of w -> the float of its value, exactly: the byte biased to
+// unsigned in the mantissa of 2^23, then 2^23 + 128 taken off.
+__device__ __forceinline__ float i8_to_f32(uint32_t w, int j) {
+  const uint32_t f = __byte_perm(w, 0x4B000000u, 0x7650u | j) ^ 0x80u;
+  return __uint_as_float(f) - 8388736.0f;
+}
+
+// Consumer thread `ct` (0..255) turns the landed raw weight stage into the
+// bf16 B tile [256 n][64 k]: 4 columns (n = 4 (ct % 64) + j) x 16 k
+// (k = 16 (ct / 64) + ...), two 16-byte chunks per column.  The column
+// order is rotated by lane so the 8 lanes of a store phase hit 8 distinct
+// swizzled chunks.
+template <int MODE>
+__device__ __forceinline__ void dequant_stage(const unsigned char* raw,
+                                              const float* gscale,
+                                              unsigned char* bt, int ct) {
+  const int ng = ct & 63, kq = ct >> 6, rot = (ct & 31) >> 1;
+  if (MODE == kInt8) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      uint32_t w[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        w[k] = *reinterpret_cast<const uint32_t*>(
+            raw + (16 * kq + 8 * c + k) * kBN + 4 * ng);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int jj = (j + rot) & 3, n = 4 * ng + jj;
+        uint4 v;
+        uint32_t* vw = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          vw[u] = pack_bf16x2(i8_to_f32(w[2 * u], jj),
+                              i8_to_f32(w[2 * u + 1], jj));
+        *reinterpret_cast<uint4*>(bt + swz(n, 16 * kq + 8 * c)) = v;
+      }
+    }
+  } else if (MODE == kInt4) {
+    uint32_t w[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      w[r] = *reinterpret_cast<const uint32_t*>(raw + (8 * kq + r) * kBN +
+                                                4 * ng);
+    const float4 g4 = *reinterpret_cast<const float4*>(gscale + 4 * ng);
+    const __nv_bfloat162 bias = as_bf16x2(0x43084308u);   // 136, 136
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int jj = (j + rot) & 3, n = 4 * ng + jj;
+      const float g = jj == 0 ? g4.x : jj == 1 ? g4.y : jj == 2 ? g4.z : g4.w;
+      const __nv_bfloat162 gs = __bfloat162bfloat162(__float2bfloat16_rn(g));
+      const uint32_t sel = jj | ((jj + 4) << 4);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        // Byte jj of packed rows 4c..4c+3: k = 16 kq + 8c + 0..7.
+        const uint32_t t = __byte_perm(
+            __byte_perm(w[4 * c], w[4 * c + 1], sel),
+            __byte_perm(w[4 * c + 2], w[4 * c + 3], sel), 0x5410u);
+        const uint32_t lo = (t & 0x0F0F0F0Fu) ^ 0x08080808u;
+        const uint32_t hi = ((t >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+        uint4 v;
+        uint32_t* vw = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          // bf16 128 + (q + 8) in both halves: (k even, k odd) of pair u.
+          const uint32_t x =
+              (__byte_perm(lo, hi, u | ((u + 4) << 8)) & 0x00FF00FFu) |
+              0x43004300u;
+          vw[u] = as_u32(__hmul2(__hsub2(as_bf16x2(x), bias), gs));
+        }
+        *reinterpret_cast<uint4*>(bt + swz(n, 16 * kq + 8 * c)) = v;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      uint2 w[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        w[k] = *reinterpret_cast<const uint2*>(
+            raw + (16 * kq + 8 * c + k) * kBN * 2 + 8 * ng);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int jj = (j + rot) & 3, n = 4 * ng + jj;
+        const uint32_t sel = (jj & 1) ? 0x7632u : 0x5410u;
+        uint4 v;
+        uint32_t* vw = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const uint2 a = w[2 * u], b = w[2 * u + 1];
+          vw[u] = __byte_perm(jj < 2 ? a.x : a.y, jj < 2 ? b.x : b.y, sel);
+        }
+        *reinterpret_cast<uint4*>(bt + swz(n, 16 * kq + 8 * c)) = v;
+      }
+    }
+  }
+}
+
+// The consumer warpgroups' mainloop and epilogue.  ACTIVE (a warpgroup
+// with real rows) is a template argument, so the path that issues wgmma
+// holds each stage's issue, commit and wait in straight-line code: no
+// accumulator register is touched between them and none of them sits
+// under a data-dependent branch (either would make ptxas serialize wgmma).
+template <int MODE>
+struct Consumer {
+  using C = GmCfg<MODE>;
+  unsigned char* ring;
+  unsigned char* btile;
+  uint64_t* full;
+  uint64_t* empty;
+  int steps, tid, wg, rows;
+
+  // Wait for stage s, turn its weights into the bf16 B tile s % 2.
+  __device__ __forceinline__ void dequant(int s) const {
+    mbar_wait(&full[s % C::kStages], (s / C::kStages) & 1);
+    const unsigned char* w =
+        ring + (s % C::kStages) * C::kStageBytes + C::kABytes;
+    dequant_stage<MODE>(w, reinterpret_cast<const float*>(w + C::kWBytes),
+                        btile + (s & 1) * C::kBBytes, tid);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+
+  template <bool ACTIVE>
+  __device__ __forceinline__ void run(const float* scale, int e,
+                                      __nv_bfloat16* out, int m0, int n0,
+                                      int N) const {
+    float d[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0.f;
+    dequant(0);
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    for (int s = 0; s < steps; ++s) {
+      if (ACTIVE) {
+        const uint64_t da = smem_desc(ring + (s % C::kStages) *
+                                      C::kStageBytes + wg * C::kABlock);
+        const uint64_t db = smem_desc(btile + (s & 1) * C::kBBytes);
+#pragma unroll
+        for (int i = 0; i < 128; ++i) fence_operand(d[i]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int k = 0; k < kBK / 16; ++k)   // +32 bytes along K per step
+          wgmma_m64n256k16(d, da + 2 * k, db + 2 * k, s > 0 || k > 0);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      }
+      // Stage s+1's weights become bf16 while the tensor cores run stage
+      // s; tile (s+1) % 2 was last read by wgmma(s-1), done before the
+      // previous barrier.
+      if (s + 1 < steps) dequant(s + 1);
+      if (ACTIVE) {
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+        for (int i = 0; i < 128; ++i) fence_operand(d[i]);
+      }
+      if ((tid & 127) == 0) mbar_arrive(&empty[s % C::kStages]);
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    }
+
+    // Fragment i of warp w holds rows 16 (w % 4) + g (+ 8) and columns
+    // 8 (i / 4) + 2 t (+ 1) of the warpgroup's 64 x 256 block.  Rows at or
+    // past the tile's real rows were not loaded (their shared memory is
+    // stale) and come out as zeros.  Every lane reads its fragments; only
+    // the stores are predicated.
+    const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int r0 = 64 * wg + 16 * ((tid >> 5) & 3) + g;
+    const bool live0 = r0 < rows, live1 = r0 + 8 < rows;
+    const int64_t row = m0 + r0;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = n0 + 8 * i + 2 * t;
+      const bool in = col < N;
+      float s0 = 1.f, s1 = 1.f;
+      if (MODE == kInt8 && in) {
+        const float2 sc =
+            *reinterpret_cast<const float2*>(scale + (int64_t)e * N + col);
+        s0 = sc.x;
+        s1 = sc.y;
+      }
+      const uint32_t lo = pack_bf16x2(live0 ? d[4 * i] * s0 : 0.f,
+                                      live0 ? d[4 * i + 1] * s1 : 0.f);
+      const uint32_t hi = pack_bf16x2(live1 ? d[4 * i + 2] * s0 : 0.f,
+                                      live1 ? d[4 * i + 3] * s1 : 0.f);
+      if (in) {
+        *reinterpret_cast<uint32_t*>(out + row * N + col) = lo;
+        *reinterpret_cast<uint32_t*>(out + (row + 8) * N + col) = hi;
+      }
+    }
+  }
 };
 
 template <int MODE>
-__device__ __forceinline__ void load_w_bf16(WStage& st, const void* w,
-                                            const float* scale, int e, int k0,
-                                            int n0, int K, int N, int group,
-                                            int tid) {
-  if (MODE == kRaw) {            // 32 rows x 16 chunks of 8 bf16
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int q = tid + i * kThreads;
-      const int r = q >> 4, c = (q & 15) * 8;
-      st.v[i] = make_uint4(0, 0, 0, 0);
-      if (n0 + c < N)
-        st.v[i] = *reinterpret_cast<const uint4*>(
-            reinterpret_cast<const __nv_bfloat16*>(w) +
-            ((int64_t)e * K + k0 + r) * N + n0 + c);
-    }
-  } else if (MODE == kInt8) {    // 32 rows x 8 chunks of 16 bytes
-    const int r = tid >> 3, c = (tid & 7) * 16;
-    st.v[0] = make_uint4(0, 0, 0, 0);
-    if (n0 + c < N)
-      st.v[0] = *reinterpret_cast<const uint4*>(
-          reinterpret_cast<const int8_t*>(w) +
-          ((int64_t)e * K + k0 + r) * N + n0 + c);
-  } else {                       // 16 packed rows x 16 chunks of 8 bytes
-    const int r = tid >> 4, c = (tid & 15) * 8;
-    st.v[0] = make_uint4(0, 0, 0, 0);
-    if (n0 + c < N) {
-      const uint2 b = *reinterpret_cast<const uint2*>(
-          reinterpret_cast<const int8_t*>(w) +
-          ((int64_t)e * (K / 2) + k0 / 2 + r) * N + n0 + c);
-      st.v[0].x = b.x;
-      st.v[0].y = b.y;
-      const float* g =
-          scale + ((int64_t)e * (K / group) + k0 / group) * N + n0 + c;
-      const float4 g0 = *reinterpret_cast<const float4*>(g);
-      const float4 g1 = *reinterpret_cast<const float4*>(g + 4);
-      st.gs[0] = g0.x; st.gs[1] = g0.y; st.gs[2] = g0.z; st.gs[3] = g0.w;
-      st.gs[4] = g1.x; st.gs[5] = g1.y; st.gs[6] = g1.z; st.gs[7] = g1.w;
-    }
-  }
-}
-
-template <int MODE>
-__device__ __forceinline__ void store_w_bf16(const WStage& st,
-                                             __nv_bfloat16* bs, int tid) {
-  if (MODE == kRaw) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int q = tid + i * kThreads;
-      const int r = q >> 4, c = (q & 15) * 8;
-      *reinterpret_cast<uint4*>(bs + r * kBS + c) = st.v[i];
-    }
-  } else if (MODE == kInt8) {
-    const int r = tid >> 3, c = (tid & 7) * 16;
-    const int8_t* b = reinterpret_cast<const int8_t*>(&st.v[0]);
-    uint4 o[2];
-    uint32_t* ow = reinterpret_cast<uint32_t*>(o);
-#pragma unroll
-    for (int u = 0; u < 8; ++u)
-      ow[u] = pack_bf16x2((float)b[2 * u], (float)b[2 * u + 1]);
-    *reinterpret_cast<uint4*>(bs + r * kBS + c) = o[0];
-    *reinterpret_cast<uint4*>(bs + r * kBS + c + 8) = o[1];
-  } else {
-    const int r = tid >> 4, c = (tid & 15) * 8;
-    const int8_t* b = reinterpret_cast<const int8_t*>(&st.v[0]);
-    uint4 even, odd;
-    uint32_t* ew = reinterpret_cast<uint32_t*>(&even);
-    uint32_t* ow = reinterpret_cast<uint32_t*>(&odd);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      float lo[2], hi[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int byte = b[2 * u + j];
-        const float g = __bfloat162float(__float2bfloat16_rn(st.gs[2 * u + j]));
-        lo[j] = deq4_bf16((int)((unsigned)byte << 28) >> 28, g);
-        hi[j] = deq4_bf16(byte >> 4, g);
-      }
-      ew[u] = pack_bf16x2(lo[0], lo[1]);
-      ow[u] = pack_bf16x2(hi[0], hi[1]);
-    }
-    *reinterpret_cast<uint4*>(bs + (2 * r) * kBS + c) = even;
-    *reinterpret_cast<uint4*>(bs + (2 * r + 1) * kBS + c) = odd;
-  }
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(kThreads) grouped_matmul_bf16_kernel(
-    const __nv_bfloat16* __restrict__ xs, const void* __restrict__ w,
+__global__ void __launch_bounds__(kWThreads, 1) grouped_matmul_wgmma_kernel(
+    const __grid_constant__ CUtensorMap xs_map,
+    const __grid_constant__ CUtensorMap xs8_map,
+    const __grid_constant__ CUtensorMap w_map,
+    const __grid_constant__ CUtensorMap s_map,
     const float* __restrict__ scale, const int* __restrict__ block_expert,
-    const int* __restrict__ rows_used, __nv_bfloat16* __restrict__ out,
-    int K, int N, int group) {
-  __shared__ __align__(16) __nv_bfloat16 As[2][kTile * kAS];
-  __shared__ __align__(16) __nv_bfloat16 Bs[2][kBK * kBS];
-
+    const int* __restrict__ rows_used, const int* __restrict__ tile_rows,
+    __nv_bfloat16* __restrict__ out, int K, int N, int group) {
+  using C = GmCfg<MODE>;
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kTile;
-  if (rows_used != nullptr && m0 >= rows_used[0]) {
+  const int tile = blockIdx.y, m0 = tile * kTile;
+  // Broadcast within the warp: the compiler then knows every branch on
+  // these values is warp-uniform, and keeps wgmma unserialized.
+  const int rows = __shfl_sync(
+      0xffffffffu,
+      tile_rows ? min(max(tile_rows[tile], 0), kTile)
+                : (rows_used && m0 >= rows_used[0]) ? 0 : kTile, 0);
+  const int mblocks = rows <= 0 ? 0 : rows <= 64 ? 1 : 2;
+  if (mblocks == 0) {
     // Only zero rows here: write the zeros the product would give.
-    for (int q = tid; q < kTile * (kBN / 8); q += kThreads) {
+    for (int q = tid; q < kTile * (kBN / 8); q += kWThreads) {
       const int r = q / (kBN / 8), c = (q % (kBN / 8)) * 8;
       if (n0 + c < N)
         *reinterpret_cast<uint4*>(out + (int64_t)(m0 + r) * N + n0 + c) =
@@ -218,96 +448,136 @@ __global__ void __launch_bounds__(kThreads) grouped_matmul_bf16_kernel(
     }
     return;
   }
-  const int e = block_expert[blockIdx.y];
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm0 = (warp >> 2) * 64;   // warp's rows in the tile
-  const int wn0 = (warp & 3) * 32;    // warp's columns in the tile
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[mi][ni][u] = 0.f;
-
-  uint4 a_st[2];
-  WStage w_st;
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {   // 128 rows x 4 chunks of 8 bf16
-      const int q = tid + i * kThreads;
-      const int r = q >> 2, c = (q & 3) * 8;
-      a_st[i] = *reinterpret_cast<const uint4*>(
-          xs + (int64_t)(m0 + r) * K + k0 + c);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* btile = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* ring = btile + 2 * C::kBBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::kStages *
+                                               C::kStageBytes);
+  uint64_t* empty = full + C::kStages;
+  if (tid == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);   // one arrival per consumer warpgroup
     }
-    load_w_bf16<MODE>(w_st, w, scale, e, k0, n0, K, N, group, tid);
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int q = tid + i * kThreads;
-      const int r = q >> 2, c = (q & 3) * 8;
-      *reinterpret_cast<uint4*>(&As[buf][r * kAS + c]) = a_st[i];
-    }
-    store_w_bf16<MODE>(w_st, Bs[buf], tid);
-  };
-
-  const int steps = K / kBK;
-  load(0);
-  store(0);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  for (int s = 0; s < steps; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < steps) load((s + 1) * kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldsm_x4(a[mi], &As[buf][(wm0 + mi * 16 + (lane & 15)) * kAS + kk +
-                                (lane >> 4) * 8]);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, &Bs[buf][(kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                      kBS + wn0 + nj * 16 + (lane >> 4) * 8]);
-        b[2 * nj][0] = r[0];
-        b[2 * nj][1] = r[1];
-        b[2 * nj + 1][0] = r[2];
-        b[2 * nj + 1][1] = r[3];
+
+  const int e = block_expert[tile];
+  const int steps = K / kBK;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+
+  if (warp == kConsumers / 32) {
+    // Producer: one thread keeps the ring full.  Only the tile's real xs
+    // rows are loaded: whole 64-row boxes, then 8-row boxes up to the
+    // last real row.
+    if ((tid & 31) == 0) {
+      const int w_row0 = e * (MODE == kInt4 ? K / 2 : K);
+      const int full64 = rows / 64, small = (rows % 64 + 7) / 8;
+      const int tx = (64 * full64 + 8 * small) * kBK * 2 + C::kWBytes +
+                     C::kSBytes;
+      for (int s = 0; s < steps; ++s) {
+        const int slot = s % C::kStages;
+        if (s >= C::kStages) mbar_wait(&empty[slot], (s / C::kStages - 1) & 1);
+        unsigned char* st = ring + slot * C::kStageBytes;
+        mbar_expect_tx(&full[slot], tx);
+        for (int mb = 0; mb < full64; ++mb)
+          tma_load_2d(st + mb * C::kABlock, &xs_map, &full[slot], s * kBK,
+                      m0 + 64 * mb);
+        for (int j = 0; j < small; ++j)
+          tma_load_2d(st + (64 * full64 + 8 * j) * kBK * 2, &xs8_map,
+                      &full[slot], s * kBK, m0 + 64 * full64 + 8 * j);
+        tma_load_2d(st + C::kABytes, &w_map, &full[slot], n0,
+                    w_row0 + s * C::kWRows);
+        if (MODE == kInt4)
+          tma_load_2d(st + C::kABytes + C::kWBytes, &s_map, &full[slot], n0,
+                      e * (K / group) + s * kBK / group);
       }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
     }
-    if (s + 1 < steps) store(buf ^ 1);
-    __syncthreads();
+    return;
   }
 
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int col = n0 + wn0 + ni * 8 + 2 * t;
-    if (col >= N) continue;
-    float s0 = 1.f, s1 = 1.f;
-    if (MODE == kInt8) {
-      s0 = scale[(int64_t)e * N + col];
-      s1 = scale[(int64_t)e * N + col + 1];
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      const int row = m0 + wm0 + mi * 16 + g;
-      const float* c = acc[mi][ni];
-      __nv_bfloat162 lo = __floats2bfloat162_rn(c[0] * s0, c[1] * s1);
-      __nv_bfloat162 hi = __floats2bfloat162_rn(c[2] * s0, c[3] * s1);
-      *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)row * N + col) = lo;
-      *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)(row + 8) * N + col) =
-          hi;
-    }
+  // Consumers: warpgroup wg multiplies rows [64 wg, 64 wg + 64) when they
+  // hold real rows; an idle warpgroup dequantizes and writes zeros.
+  const int wg = warp >> 2;
+  const Consumer<MODE> c{ring, btile, full, empty, steps, tid, wg, rows};
+  if (wg < mblocks)
+    c.template run<true>(scale, e, out, m0, n0, N);
+  else
+    c.template run<false>(scale, e, out, m0, n0, N);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
+}
+
+// A 2-D row-major map of `rows` x `cols` elements, boxes of box_rows x
+// box_cols.
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+              const void* ptr, uint64_t rows, uint64_t cols, int box_rows,
+              int box_cols, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int MODE>
+int launch_wgmma(const void* xs, const void* w, const float* scale,
+                 const int* block_expert, const int* rows_used,
+                 const int* tile_rows, void* out, int tp, int K, int N,
+                 int nx, int group, cudaStream_t stream) {
+  using C = GmCfg<MODE>;
+  CUtensorMap xs_map, xs8_map, w_map, s_map;
+  const int w_rows = MODE == kInt4 ? K / 2 : K;
+  bool ok = make_map(&xs_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, xs, tp, K,
+                     64, kBK, CU_TENSOR_MAP_SWIZZLE_128B) &&
+            make_map(&xs8_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, xs, tp, K,
+                     8, kBK, CU_TENSOR_MAP_SWIZZLE_128B) &&
+            make_map(&w_map, MODE == kRaw ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                          : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                     MODE == kRaw ? 2 : 1, w, (uint64_t)nx * w_rows, N,
+                     C::kWRows, kBN, CU_TENSOR_MAP_SWIZZLE_NONE);
+  s_map = w_map;
+  if (ok && MODE == kInt4)
+    ok = make_map(&s_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scale,
+                  (uint64_t)nx * (K / group), N, 1, kBN,
+                  CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      grouped_matmul_wgmma_kernel<MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + kBN - 1) / kBN, tp / kTile);
+  grouped_matmul_wgmma_kernel<MODE><<<grid, kWThreads, C::kSmem, stream>>>(
+      xs_map, xs8_map, w_map, s_map, scale, block_expert, rows_used,
+      tile_rows,
+      (__nv_bfloat16*)out, K, N, group);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -418,19 +688,16 @@ __global__ void __launch_bounds__(kThreads) grouped_matmul_f32_kernel(
 
 template <int MODE>
 int launch(const void* xs, const void* w, const float* scale,
-           const int* block_expert, const int* rows_used, void* out, int tp,
-           int K, int N, int group, int dtype, cudaStream_t stream) {
-  if (dtype == 1) {
-    const dim3 grid((N + kBN - 1) / kBN, tp / kTile);
-    grouped_matmul_bf16_kernel<MODE><<<grid, kThreads, 0, stream>>>(
-        (const __nv_bfloat16*)xs, w, scale, block_expert, rows_used,
-        (__nv_bfloat16*)out, K, N, group);
-  } else {
-    const dim3 grid((N + kFB - 1) / kFB, tp / kFB);
-    grouped_matmul_f32_kernel<MODE><<<grid, kThreads, 0, stream>>>(
-        (const float*)xs, w, scale, block_expert, rows_used, (float*)out, K,
-        N, group);
-  }
+           const int* block_expert, const int* rows_used,
+           const int* tile_rows, void* out, int tp, int K, int N, int nx,
+           int group, int dtype, cudaStream_t stream) {
+  if (dtype == 1)
+    return launch_wgmma<MODE>(xs, w, scale, block_expert, rows_used,
+                              tile_rows, out, tp, K, N, nx, group, stream);
+  const dim3 grid((N + kFB - 1) / kFB, tp / kFB);
+  grouped_matmul_f32_kernel<MODE><<<grid, kThreads, 0, stream>>>(
+      (const float*)xs, w, scale, block_expert, rows_used, (float*)out, K, N,
+      group);
   return (int)cudaGetLastError();
 }
 
@@ -445,28 +712,36 @@ const char* arks_cuda_error_string(int err) {
 // xs [tp, k] (dtype 0 = float32, 1 = bfloat16; out [tp, n] the same), w by
 // mode: 0 = [nx, k, n] of xs's dtype (scale NULL), 1 = int8 [nx, k, n] with
 // scale [nx, n] f32, 2 = packed int4 [nx, k/2, n] with scale [nx, k/group,
-// n] f32.  block_expert [tp / 128] int32; rows_used NULL or [1] int32.
-// tp % 128 == 0, k % 32 == 0, n % 16 == 0, and for int4 group % 32 == 0
-// dividing k; the wrapper checks all of these (and raises) first.
+// n] f32.  block_expert [tp / 128] int32; rows_used NULL or [1] int32;
+// tile_rows NULL or [tp / 128] int32 (bf16 only; the f32 kernel reads
+// rows_used).  tp % 128 == 0, n % 16 == 0, k % 64 == 0 for bf16 (32 for
+// f32), and for int4 a group of that multiple dividing k; the wrapper
+// checks all of these (and raises) first.
 int arks_grouped_matmul(const void* xs, const void* w, const void* scale,
                         const void* block_expert, const void* rows_used,
-                        void* out, int tp, int k, int n, int nx, int group,
-                        int mode, int dtype, void* stream) {
+                        const void* tile_rows, void* out, int tp, int k,
+                        int n, int nx, int group, int mode, int dtype,
+                        void* stream) {
   if (tp <= 0 || n <= 0) return 0;
-  if (tp % kTile || k <= 0 || k % kBK || n % 16 || nx <= 0 ||
+  const int step = dtype == 1 ? kBK : kFK * 2;
+  if (tp % kTile || k <= 0 || k % step || n % 16 || nx <= 0 ||
       (dtype != 0 && dtype != 1) || (mode != kRaw && scale == nullptr) ||
-      (mode == kInt4 && (group <= 0 || group % kBK || k % group)))
+      (mode == kInt4 && (group <= 0 || group % step || k % group)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const float* sc = (const float*)scale;
   const int* be = (const int*)block_expert;
   const int* ru = (const int*)rows_used;
+  const int* tr = (const int*)tile_rows;
   if (mode == kRaw)
-    return launch<kRaw>(xs, w, sc, be, ru, out, tp, k, n, group, dtype, st);
+    return launch<kRaw>(xs, w, sc, be, ru, tr, out, tp, k, n, nx, group,
+                        dtype, st);
   if (mode == kInt8)
-    return launch<kInt8>(xs, w, sc, be, ru, out, tp, k, n, group, dtype, st);
+    return launch<kInt8>(xs, w, sc, be, ru, tr, out, tp, k, n, nx, group,
+                         dtype, st);
   if (mode == kInt4)
-    return launch<kInt4>(xs, w, sc, be, ru, out, tp, k, n, group, dtype, st);
+    return launch<kInt4>(xs, w, sc, be, ru, tr, out, tp, k, n, nx, group,
+                         dtype, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -20,8 +20,9 @@ in the reference:
   off its own accelerator.
 
 The KV cache is bf16/f32 (the engine dtype) or int8; a paged pool may also
-be int4 on the mixed scheduler.  Weights are the engine dtype or int8 /
-int4 (``weight_dtype``); dense and MoE models alike.  Seeded sampling
+be int4, on either scheduler (the legacy one sends its int4 decode through
+the mixed attention kernel, one query per slot).  Weights are the engine
+dtype or int8 / int4 (``weight_dtype``); dense and MoE models alike.  Seeded sampling
 draws the reference's threefry keys.  What the reference does and this
 port does not — device prefix sharing, host/disk prefix tiers, pipelined
 dispatch and the decode/admission overlap, speculative decoding, guided
@@ -254,12 +255,6 @@ class InferenceEngine:
         if knob == "1" and not self._paged:
             log.warning("ARKS_MIXED_STEP=1 requested but the slot layout "
                         "has no mixed scheduler; staying on the legacy one")
-        if kv == "int4" and not self._mixed:
-            raise NotImplementedError(
-                "kv_cache_dtype=int4 with ARKS_MIXED_STEP=0: the legacy "
-                "scheduler's paged decode has no int4 kernel (the reference "
-                "serves it through its XLA oracle only); int4 pools run on "
-                "the mixed scheduler")
         quantized = kv in ("int8", "int4")
         n = engine_cfg.num_slots
         if self._paged:

@@ -28,6 +28,7 @@ from arks_tpu_torch.models import moe
 from arks_tpu_torch.models import quant
 from arks_tpu_torch.models.quant import embed_lookup, qeinsum, unembed_logits
 from arks_tpu_torch.ops.attention import (chunk_attention_xla,
+                                          decode_mixed_work,
                                           decode_update_and_attend,
                                           paged_decode_update_and_attend,
                                           paged_mixed_update_and_attend,
@@ -631,13 +632,18 @@ def decode_step(params: Params, cfg: ModelConfig,
         rope_idx = torch.clamp(write_idx, max=tables.shape[1] * cache.page - 1)
     rope = rope_cos_sin(rope_idx, cfg.head_dim, cfg.rope_theta)
     h = embed_lookup(params["embed"], tokens, params["layers"]["attn_norm"].dtype)
+    work = None   # an int4 pool's decode view, one per step
+    if paged and cache.kv_bits == 4 and impl != "plain":
+        work = decode_mixed_work(tables, write_idx, page=cache.page,
+                                 hkv=cfg.num_kv_heads)
     for layer in range(cfg.num_layers):
         lp = _layer(params, layer)
         q, k, v = _block_qkv(h, lp, cfg, rope)            # [B, H(kv), D]
         if paged:
             attn = paged_decode_update_and_attend(
                 q, k, v, cache.k, cache.v, tables, write_idx, layer,
-                impl=impl, k_scale=cache.k_scale, v_scale=cache.v_scale)
+                impl=impl, k_scale=cache.k_scale, v_scale=cache.v_scale,
+                work=work)
         else:
             attn = decode_update_and_attend(
                 q, k, v, cache.k, cache.v, write_idx, layer, impl=impl,

@@ -73,11 +73,13 @@ _SIGNATURES: dict[str, tuple[str, list]] = {
     "arks_ragged_decode_attention": ("decode_attention", [
         _P, _P, _P, _P,          # q [B,Hkv,G,D], out, k_cache, v_cache
         _P, _P, _P,              # k_scale, v_scale [L,B,Hkv,S] or NULL, lengths
+        _P,                      # split-KV partials [B,Hkv,splits,G,D+2] f32
         _I, _I, _I, _I, _I, _I,  # B, n_heads, hkv, head_dim, max_len, layer
         _F, _I, _I, _P]),        # scale, dtype code, int8 cache, stream
     "arks_paged_decode_attention": ("decode_attention", [
         _P, _P, _P, _P,          # q [B,Hkv,G,D], out, k_pool, v_pool
         _P, _P, _P, _P,          # k_scale, v_scale or NULL, tables, lengths
+        _P,                      # split-KV partials [B,Hkv,splits,G,D+2] f32
         _I, _I, _I, _I, _I,      # B, n_heads, hkv, head_dim, page
         _I, _I, _I,              # n_pages, max_pages, layer
         _F, _I, _I, _P]),        # scale, dtype code, int8 pool, stream
@@ -90,7 +92,8 @@ _SIGNATURES: dict[str, tuple[str, list]] = {
         _F, _I, _I, _P]),        # scale, dtype code, kv code, stream
     "arks_grouped_matmul": ("grouped_matmul", [
         _P, _P, _P,              # xs [Tp,K], w, scale (NULL for raw w)
-        _P, _P, _P,              # block_expert, rows_used (or NULL), out
+        _P, _P, _P, _P,          # block_expert, rows_used, tile_rows (each
+                                 # [..] int32 or NULL), out
         _I, _I, _I, _I, _I,      # Tp, K, N, X, int4 group
         _I, _I, _P]),            # mode (0 raw, 1 int8, 2 int4), dtype, stream
 }

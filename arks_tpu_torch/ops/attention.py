@@ -195,6 +195,7 @@ def paged_decode_update_and_attend(
     impl: str | None = None,
     k_scale: torch.Tensor | None = None,  # [L, N, Hkv, P] f32 — IN PLACE
     v_scale: torch.Tensor | None = None,
+    work: MixedWork | None = None,  # int4: ``decode_mixed_work`` of the step
 ) -> torch.Tensor:
     """Paged counterpart of ``decode_update_and_attend``: the row lands in
     the slot's table-mapped page and attention reads only table pages.  A
@@ -203,11 +204,14 @@ def paged_decode_update_and_attend(
     at pages other slots now own).  Returns out [B, H, D].
 
     ``impl`` None / "kernel": ``paged_kv_update`` (``paged_kv_update_quant``
-    for an int8 pool) then ``paged_decode_attention``; "plain": the
+    for a quantized pool) then ``paged_decode_attention``; "plain": the
     reference's XLA oracle (the scatter, a gather of the slots' pages and
     ``decode_attention_xla`` / ``_decode_attention_xla_quant``).  An int4
-    pool has no decode kernel: the reference serves it through its oracle
-    alone, so only ``impl="plain"`` takes it here."""
+    pool has no decode kernel (the reference's comment names the mixed
+    kernel's fused nibble dequant as its decode path): its attention is
+    ``paged_mixed_attention`` over one query per slot, on the
+    ``decode_mixed_work`` view (``work``: built once per step by the
+    caller, or here when None)."""
     b, h, d = q.shape
     hkv = k_pool.shape[2]
     if k_pool.shape[-1] != d:
@@ -231,20 +235,39 @@ def paged_decode_update_and_attend(
         else:
             out = decode_attention_xla(qg, kc, vc, attend_lens)
         return out.reshape(b, h, d)
-    if int4:
-        raise NotImplementedError(
-            "an int4 pool has no decode kernel (the reference serves it "
-            "through its XLA oracle only): run int4 pools on the mixed "
-            "scheduler")
     if quantized:
         paged_kv_update_quant(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
                               write_idx, tables, layer, impl=impl)
     else:
         paged_kv_update(k_pool, v_pool, k_new, v_new, write_idx, tables,
                         layer, impl=impl)
+    if int4:
+        if work is None:
+            work = decode_mixed_work(tables, write_idx,
+                                     page=pool_page_tokens(k_pool, k_scale),
+                                     hkv=hkv)
+        return paged_mixed_attention(
+            q, k_pool, v_pool, work.tables, work.seq_q_start, work.q_len,
+            work.pos_start, layer, k_scale=k_scale, v_scale=v_scale, qmax=1,
+            impl=impl, work=work)
     out = paged_decode_attention(qg, k_pool, v_pool, tables, attend_lens,
                                  layer, k_scale, v_scale, impl=impl)
     return out.reshape(b, h, d)
+
+
+def decode_mixed_work(tables: torch.Tensor, write_idx: torch.Tensor, *,
+                      page: int, hkv: int) -> MixedWork:
+    """The mixed attention kernel's view of one decode step over a paged
+    pool: slot b is lane b with one query (flat token b) at position
+    ``write_idx[b]``; an inactive slot (write index at or past the table's
+    coverage) gets q_len 0 and a zero output.  Built on the device, once
+    per step; every layer's launch reuses it."""
+    b = write_idx.shape[0]
+    widx = write_idx.to(torch.int32)
+    active = (widx < tables.shape[1] * page).to(torch.int32)
+    lanes = torch.arange(b, dtype=torch.int32, device=widx.device)
+    return mixed_work(tables, lanes, active, widx, page=page, hkv=hkv,
+                      qmax=1)
 
 
 class MixedBatch(NamedTuple):

@@ -9,7 +9,8 @@ to a ``block_t`` multiple, so every [block_t, K] tile belongs to ONE expert
 worst case Tp = (ceil(T / block_t) + X) * block_t.  Zero rows give zero
 outputs whatever the expert and scales, so tiles past the last group may
 name any expert — the kernel writes zeros there without a product when it
-is told where the groups end (``rows_used``).
+is told where the groups end (``rows_used``), and multiplies only the
+first 64 rows of a tile with no more real rows (``tile_rows``).
 
 The weights are raw (bf16/f32), int8 with per-channel scales folded into
 the f32 accumulator, or packed int4 (``models/quant.py``'s layout) whose
@@ -33,9 +34,10 @@ from arks_tpu_torch.ops.paged_attention import (_check_operands, _stream,
 
 BLOCK_T = 128
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Kernel tiling constraints (csrc/grouped_matmul.cu): K in steps of 32 (one
-# int4 group must hold whole steps), N in 16-byte vectors.
-_KERNEL_K_STEP = 32
+# Kernel tiling constraints (csrc/grouped_matmul.cu): K in stages of 64 on
+# the bf16 (wgmma) kernel and 32 on the f32 one (an int4 group must hold
+# whole stages), N in 16-byte vectors.
+_KERNEL_K_STEP = {torch.bfloat16: 64, torch.float32: 32}
 _KERNEL_N_STEP = 16
 
 
@@ -83,6 +85,23 @@ def rows_used(group_sizes: torch.Tensor, block_t: int = BLOCK_T
         torch.int32)
 
 
+def tile_rows(group_sizes: torch.Tensor, num_tiles: int,
+              block_t: int = BLOCK_T) -> torch.Tensor:
+    """[num_tiles] int32 on the device: the real (routed) rows of each
+    ``block_t``-row tile of ``pad_groups``' layout.  A group's rows fill its
+    slot from the front, so tile i's real rows are its first tile_rows[i];
+    tiles past the groups hold 0.  No host sync."""
+    sizes = group_sizes.long()
+    padded = (sizes + block_t - 1) // block_t * block_t
+    ends = torch.cumsum(padded, 0)
+    starts = torch.arange(num_tiles, device=sizes.device) * block_t
+    e = torch.searchsorted(ends, starts, right=True)
+    inside = e < sizes.shape[0]
+    e = e.clamp(max=sizes.shape[0] - 1)
+    real = (sizes[e] - (starts - (ends[e] - padded[e]))).clamp(0, block_t)
+    return torch.where(inside, real, 0).to(torch.int32)
+
+
 def _weight_mode(w: torch.Tensor, w_scale, w_group_scale):
     """(mode, K) of a weight operand: 0 raw (xs's dtype), 1 int8, 2 int4
     packed along K."""
@@ -128,14 +147,18 @@ def grouped_matmul(
     *,
     block_t: int = BLOCK_T,
     rows_used: torch.Tensor | None = None,      # [1] int32 (see module doc)
+    tile_rows: torch.Tensor | None = None,      # [Tp / block_t] int32
     impl: str | None = None,
 ) -> torch.Tensor:
     """[Tp, N] = per tile xs @ w[block_expert[tile]], scales fused, in xs's
     dtype.  CUDA tensors launch ``csrc/grouped_matmul.cu`` (replaces the
     Pallas ``_gm_kernel``); CPU tensors take ``grouped_matmul_plain``.
-    The kernel takes block_t 128, K a multiple of 32 (and of the int4
-    group, itself a multiple of 32) and N a multiple of 16; it raises on
-    anything else."""
+    ``tile_rows`` (``tile_rows()``: each tile's real rows) lets the bf16
+    kernel multiply only a tile's first 64 rows when no more are real; the
+    rows it skips are zero rows, so the output is the same.  The kernel
+    takes block_t 128, K a multiple of 64 for bf16 xs (32 for f32) and of
+    the int4 group, itself such a multiple, and N a multiple of 16; it
+    raises on anything else."""
     tp, k_x = xs.shape
     mode, k = _weight_mode(w, w_scale, w_group_scale)
     nx, n = w.shape[0], w.shape[-1]
@@ -166,33 +189,40 @@ def grouped_matmul(
         group = k // ng
         if w_group_scale.dtype != torch.float32 or \
                 tuple(w_group_scale.shape) != (nx, ng, n) or \
-                group * ng != k or group % _KERNEL_K_STEP:
+                group * ng != k or group % _KERNEL_K_STEP[xs.dtype]:
             raise ValueError(f"grouped_matmul kernel: w_group_scale "
                              f"{tuple(w_group_scale.shape)} "
                              f"{w_group_scale.dtype} for K {k}: f32 "
                              f"[X, K/G, N] with G a multiple of "
-                             f"{_KERNEL_K_STEP}")
-    if block_t != BLOCK_T or k % _KERNEL_K_STEP or n % _KERNEL_N_STEP:
+                             f"{_KERNEL_K_STEP[xs.dtype]}")
+    step = _KERNEL_K_STEP[xs.dtype]
+    if block_t != BLOCK_T or k % step or n % _KERNEL_N_STEP:
         raise ValueError(f"grouped_matmul kernel takes block_t {BLOCK_T}, "
-                         f"K % {_KERNEL_K_STEP} == 0 and N % "
-                         f"{_KERNEL_N_STEP} == 0; got {block_t}, {k}, {n}")
+                         f"K % {step} == 0 and N % {_KERNEL_N_STEP} == 0; "
+                         f"got {block_t}, {k}, {n}")
+    if tile_rows is not None and tuple(tile_rows.shape) != (tp // block_t,):
+        raise ValueError(f"grouped_matmul: tile_rows "
+                         f"{tuple(tile_rows.shape)} for {tp // block_t} "
+                         "tiles")
     xc = xs.contiguous()
     bexp = block_expert.to(torch.int32).contiguous()
-    used = rows_used.to(torch.int32).contiguous() if rows_used is not None \
-        else None
+    small = [("block_expert", bexp)]
+    ptrs = []
+    for name, x in (("rows_used", rows_used), ("tile_rows", tile_rows)):
+        x = x.to(torch.int32).contiguous() if x is not None else None
+        if x is not None:
+            small.append((name, x))
+        ptrs.append(x)
     operands = [("xs", xc), ("w", w)]
     if scale is not None:
         operands.append(("scale", scale))
     _check_operands("grouped_matmul", xs.device, operands)
-    small = [("block_expert", bexp)]
-    if used is not None:
-        small.append(("rows_used", used))
     _check_operands("grouped_matmul", xs.device, small, aligned=False)
     out = torch.empty((tp, n), dtype=xs.dtype, device=xs.device)
     _kernels.launch("arks_grouped_matmul", xc.data_ptr(), w.data_ptr(),
                     scale.data_ptr() if scale is not None else None,
                     bexp.data_ptr(),
-                    used.data_ptr() if used is not None else None,
+                    *(x.data_ptr() if x is not None else None for x in ptrs),
                     out.data_ptr(), tp, k, n, nx, group, mode,
                     _KERNEL_DTYPES[xs.dtype], _stream())
     grouped_matmul.launches += 1
@@ -226,8 +256,9 @@ def grouped_ffn(xs: torch.Tensor, sorted_expert: torch.Tensor,
     wu, su = _weight_operand(w_up)
     wd, sd = _weight_operand(w_down)
     xs_p, dest, bexp = pad_groups(xs, sorted_expert, group_sizes, block_t)
-    used = rows_used(group_sizes, block_t)
-    kw = dict(block_t=block_t, rows_used=used, impl=impl)
+    kw = dict(block_t=block_t, rows_used=rows_used(group_sizes, block_t),
+              tile_rows=tile_rows(group_sizes, bexp.shape[0], block_t),
+              impl=impl)
     gate = grouped_matmul(xs_p, wg, bexp, **sg, **kw)
     up = grouped_matmul(xs_p, wu, bexp, **su, **kw)
     act = (torch.nn.functional.silu(gate.float()).to(act_dtype)

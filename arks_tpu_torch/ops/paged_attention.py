@@ -43,6 +43,9 @@ _NEG_INF = -1e30
 MAX_BLOCK_Q = 8
 # Most query heads per KV head the CUDA kernel takes (one warp each).
 MAX_GROUP = 8
+# Positions per split-KV piece of the decode kernels (csrc kSplit): one
+# 256-token page of the served pool, 256 rows of a slot stripe.
+DECODE_SPLIT = 256
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -684,6 +687,65 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *, k_scale=None,
     return out.to(q.dtype)
 
 
+def decode_attention_split_plain(q, k_cache, v_cache, lengths, *,
+                                 k_scale=None, v_scale=None,
+                                 split: int = DECODE_SPLIT):
+    """The split-KV form of ``decode_attention_plain``, as the CUDA kernel
+    computes it: the context is cut into ``split``-token pieces; each
+    piece whose start lies below the slot's length gives a partial
+    (m = its largest score, l = the sum of exp(s - m), acc = the sum of
+    p.V with p scaled and rounded as in ``decode_attention_plain``), and
+    the combine rescales the pieces by exp(m_i - M) before
+    acc / (l + 1e-9).  Pieces past the length are never formed and a slot
+    of length 0 gets zeros.  The same function as ``decode_attention_plain``
+    up to the rounding of p against m_i instead of M."""
+    d = q.shape[-1]
+    c = k_cache.shape[2]
+    lens = lengths.long().clamp(max=c)
+    ar = torch.arange(c, device=q.device)
+    valid = ar[None] < lens[:, None]                                 # [B, C]
+    scores = torch.einsum("bkgd,bkcd->bkgc", q.float(),
+                          k_cache.float()) * (1.0 / math.sqrt(d))
+    if k_scale is not None:
+        scores = scores * k_scale[:, :, None, :]
+    vf = torch.where(valid[:, None, :, None], v_cache.float(), 0.0)
+    p_dtype = q.dtype if v_scale is not None else v_cache.dtype
+    ms, ls, accs = [], [], []
+    for s0 in range(0, c, split):
+        piece = slice(s0, min(s0 + split, c))
+        ok = valid[:, None, None, piece]
+        sc = scores[..., piece].masked_fill(~ok, _NEG_INF)
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.where(ok, torch.exp(sc - m), 0.0)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        if v_scale is not None:
+            p = p * v_scale[:, :, None, piece]
+        accs.append(torch.einsum("bkgc,bkcd->bkgd", p.to(p_dtype).float(),
+                                 vf[:, :, piece]))
+        # A piece past the length takes no part in the combine.
+        ms.append(torch.where((lens > s0)[:, None, None, None], m, -math.inf))
+    m = torch.stack(ms)                                   # [n, B, Hkv, G, 1]
+    w = torch.exp(m - m.amax(dim=0))
+    l = (torch.stack(ls) * w).sum(dim=0)
+    acc = (torch.stack(accs) * w).sum(dim=0)
+    out = torch.where(lens[:, None, None, None] > 0, acc / (l + 1e-9), 0.0)
+    return out.to(q.dtype)
+
+
+def decode_splits(cover: int) -> int:
+    """Split-KV pieces of a decode launch over ``cover`` positions: the
+    grid's static extent, from shapes alone (no host sync on lengths)."""
+    return -(-cover // DECODE_SPLIT)
+
+
+def decode_workspace(q: torch.Tensor, cover: int) -> torch.Tensor:
+    """The decode kernel's f32 partials, one (m, l, acc[D]) per (slot, KV
+    head, piece, query head): [B, Hkv, pieces, G, D + 2]."""
+    b, hkv, g, d = q.shape
+    return torch.empty((b, hkv, decode_splits(cover), g, d + 2),
+                       dtype=torch.float32, device=q.device)
+
+
 def paged_decode_attention_plain(q, k_pool, v_pool, tables, lengths, layer,
                                  k_scale=None, v_scale=None):
     """Plain version of the paged decode kernel: ``decode_attention_plain``
@@ -761,13 +823,15 @@ def paged_decode_attention(
     _check_operands("paged_decode_attention", q.device,
                     (("k_pool", k_pool), ("v_pool", v_pool), *scales))
     out = torch.empty_like(qc)
+    ws = decode_workspace(qc, tbl.shape[1] * page)
     _kernels.launch("arks_paged_decode_attention", qc.data_ptr(),
                     out.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                     k_scale.data_ptr() if quantized else None,
                     v_scale.data_ptr() if quantized else None,
-                    tbl.data_ptr(), lens.data_ptr(), b, hkv * g, hkv, d, page,
-                    n, tbl.shape[1], int(layer), 1.0 / math.sqrt(d),
-                    _KERNEL_DTYPES[q.dtype], int(quantized), _stream())
+                    tbl.data_ptr(), lens.data_ptr(), ws.data_ptr(), b,
+                    hkv * g, hkv, d, page, n, tbl.shape[1], int(layer),
+                    1.0 / math.sqrt(d), _KERNEL_DTYPES[q.dtype],
+                    int(quantized), _stream())
     paged_decode_attention.launches += 1
     return out
 

@@ -26,7 +26,7 @@ import torch
 from arks_tpu_torch.ops import _kernels
 from arks_tpu_torch.ops.paged_attention import (
     _KERNEL_DTYPES, _KERNEL_HEAD_DIMS, MAX_GROUP, _check_operands, _stream,
-    _use_kernel, decode_attention_plain, quantize_kv)
+    _use_kernel, decode_attention_plain, decode_workspace, quantize_kv)
 
 __all__ = ["quantize_kv", "ragged_decode_attention",
            "ragged_decode_attention_plain", "kv_cache_update",
@@ -107,11 +107,13 @@ def ragged_decode_attention(
     _check_operands("ragged_decode_attention", q.device,
                     (("k_cache", k_cache), ("v_cache", v_cache), *scales))
     out = torch.empty_like(qc)
+    ws = decode_workspace(qc, s)
     _kernels.launch("arks_ragged_decode_attention", qc.data_ptr(),
                     out.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                     k_scale.data_ptr() if quantized else None,
                     v_scale.data_ptr() if quantized else None,
-                    lens.data_ptr(), b, hkv * g, hkv, d, s, int(layer),
+                    lens.data_ptr(), ws.data_ptr(), b, hkv * g, hkv, d, s,
+                    int(layer),
                     1.0 / math.sqrt(d), _KERNEL_DTYPES[q.dtype],
                     int(quantized), _stream())
     ragged_decode_attention.launches += 1

@@ -28,8 +28,11 @@ Phases (any failure raises and exits non-zero):
               an empty slot and a parked one (write index S, length
               S + 1).  kv_cache_update and kv_cache_update_quant leave
               the cache bit-identical to their plain versions;
-              ragged_decode_attention and paged_decode_attention meet the
-              attention limits above; the empty slot's output is zero.
+              ragged_decode_attention and paged_decode_attention (split-KV:
+              pieces of 256 positions and a combine launch) meet the
+              attention limits above, their f32 kernels within 1e-5 of the
+              plain split-and-combine (decode_attention_split_plain); the
+              empty slot's output is zero.
   4. serve    the port's engine at Qwen2.5-7B full width (random bf16
               weights from a seed, 8 slots, max_cache_len 4096) behind its
               OpenAI server, once with a bf16 KV pool and once, on the same
@@ -49,9 +52,11 @@ Phases (any failure raises and exits non-zero):
               int8, and the paged int8 pool under ARKS_MIXED_STEP=0 — a
               one-shot prompt twice, a seeded request twice, a 1100-token
               prompt (chunked: past the largest bucket) over SSE, 8
-              concurrent greedy streams.  Each run's update and attention
-              kernels must count num_layers x its decode steps, every
-              other kernel none.
+              concurrent greedy streams.  Then a legacy paged int4 pool
+              (its decode attention rides paged_mixed_attention, one query
+              per slot): the one-shot prompt twice and the 8 streams.
+              Each run's update and attention kernels must count
+              num_layers x its decode steps, every other kernel none.
   5. parity   two mixed_steps through the kernels vs the same steps through
               impl="plain" at full width: logits within 10% of the largest
               |logit| in bf16 and within 5e-4 in f32, and the same argmax
@@ -68,15 +73,18 @@ Phases (any failure raises and exits non-zero):
               int8/int4 attention beside SDPA over pre-gathered,
               pre-dequantized KV; the legacy kernels at phase 3's slot
               cache and pool beside SDPA with a length mask (decode
-              attention) and index_put_ (the slot write); end-to-end
-              decode tok/s and TTFT.
+              attention: the profiler's device time counts the split and
+              the combine launch) and index_put_ (the slot write);
+              end-to-end decode tok/s and TTFT.
   7. moe      with ARKS_MOE_KERNEL=pallas: grouped_matmul (bf16, int8,
               int4 group 128) against its plain version at Mixtral-8x7B's
               gate [8, 4096, 14336] and down [8, 14336, 4096] shapes over
               528 routed rows (an empty expert, a 128-row group, a 1-row
-              group), within 1e-2 of the largest |out|, tiles past the
-              groups exactly zero, timed beside the bound, the plain
-              version and torch._grouped_mm over dequantized bf16 weights;
+              group), a decode step's 16 rows over 7 experts and a batch
+              with a 65-row group, within 1e-2 of the largest |out|, tiles
+              past the groups exactly zero, timed beside the bound, the
+              plain version and torch._grouped_mm over dequantized bf16
+              weights;
               Mixtral-8x7B served at full width and all 32 layers with
               random int8 weights (a bf16 pool of 8 slots x 4096, chunk
               256) through phase 4's requests, grouped_matmul counting 3 x
@@ -437,6 +445,21 @@ def _attn_check(torch, what, got, want_bf16, want_f32, got_f32, empty,
     return err_bf16
 
 
+def _split_check(torch, what, got_f, split_f, lengths, cover, hkv):
+    """The f32 kernel against ``decode_attention_split_plain`` (its
+    256-position pieces and their combine) within ATTN_TOL_F32_KERNEL; logs
+    the CTAs that work (pieces below each slot's length) of the grid."""
+    from arks_tpu_torch.ops import paged_attention as pa
+    err = (got_f - split_f).abs().max().item()
+    n = np.minimum(lengths.cpu().numpy().astype(np.int64), cover)
+    working = int((-(-n // pa.DECODE_SPLIT)).sum()) * hkv
+    log(f"[kernels] {what} split-KV: f32 kernel vs the plain split-and-"
+        f"combine {err:.3e} (tol {ATTN_TOL_F32_KERNEL}); {working} working "
+        f"CTAs of a grid of {len(n) * hkv * pa.decode_splits(cover)}")
+    if not err <= ATTN_TOL_F32_KERNEL:
+        raise AssertionError(f"{what} disagrees with its split plain version")
+
+
 def phase_legacy_kernels(torch, dev):
     """The four legacy kernels against their plain versions on
     ``slot_batch``.  Returns (batch, {name: max abs err})."""
@@ -471,11 +494,15 @@ def phase_legacy_kernels(torch, dev):
     kf, vf = kc.float(), vc.float()
     want_f = pl.ragged_decode_attention(qf, kf, vf, *args, impl="plain")
     got_f = pl.ragged_decode_attention(qf, kf, vf, *args)
+    split_f = pa.decode_attention_split_plain(qf, kf[layer], vf[layer],
+                                              b["lengths"])
     torch.cuda.synchronize()
     del kf, vf
     errs["ragged_decode_attention"] = _attn_check(
         torch, "ragged_decode_attention (bf16 slot cache)", got, want,
         want_f, got_f, empty)
+    _split_check(torch, "ragged_decode_attention", got_f, split_f,
+                 b["lengths"], SLOT_LEN, q.shape[1])
 
     quant = list(_int8(pa, (kc, vc)))
     kern = [x.clone() for x in quant]
@@ -514,11 +541,16 @@ def phase_legacy_kernels(torch, dev):
     kf, vf = kp.float(), vp.float()
     want_f = pa.paged_decode_attention(qf, kf, vf, *pargs, impl="plain")
     got_f = pa.paged_decode_attention(qf, kf, vf, *pargs)
+    split_f = pa.decode_attention_split_plain(
+        qf, *(pa.paged_gather_kv(x, b["tables"], layer) for x in (kf, vf)),
+        b["paged_lengths"])
     torch.cuda.synchronize()
     del kf, vf
     errs["paged_decode_attention"] = _attn_check(
         torch, "paged_decode_attention (bf16 pool)", got, want, want_f,
         got_f, empty)
+    _split_check(torch, "paged_decode_attention", got_f, split_f,
+                 b["paged_lengths"], SLOT_LEN, q.shape[1])
     pq = _int8(pa, (kp, vp))
     sc = dict(k_scale=pq[2], v_scale=pq[3])
     got = pa.paged_decode_attention(q, pq[0], pq[1], *pargs, **sc)
@@ -787,10 +819,48 @@ def phase_serve(torch, dev, kv="bf16", params=None, engine=None):
     return engine, res
 
 
+def _legacy_seeded_and_long(tag, port, prompt, layout, kv, res):
+    """Phase 4's legacy runs, continued: a seeded sampled request twice and
+    a 1100-token prompt (chunked: past the largest bucket) over SSE."""
+    out = {}
+
+    def run(key, body, stream=False):
+        out[key] = _request(port, "/v1/completions", body, stream)
+
+    seeded = {"prompt": prompt, "max_tokens": 12, "temperature": 0.9,
+              "top_p": 0.95, "top_k": 50, "seed": 2**33 + 11,
+              "ignore_eos": True}
+    texts = []
+    for i in range(2):
+        run(f"seeded{i}", seeded)
+        if out[f"seeded{i}"][0] != 200:
+            raise AssertionError(f"{tag} seeded: {out[f'seeded{i}']}")
+        texts.append(out[f"seeded{i}"][1]["choices"][0]["text"])
+    log(f"{tag} repeated greedy identical; seeded sampled completion "
+        f"identical twice: {texts[0] == texts[1]}")
+    if texts[0] != texts[1]:
+        raise AssertionError(f"{tag} a seeded request gave two streams")
+
+    long_ids = [int(x) for x in
+                np.random.default_rng(SEED + 2).integers(2, 258, 1100)]
+    st, frames, ttft, _ = _request(port, "/v1/completions", {
+        "prompt": long_ids, "max_tokens": 16, "temperature": 0,
+        "ignore_eos": True, "stream": True,
+        "stream_options": {"include_usage": True}}, stream=True)
+    text, finish, usage = _stream_summary(frames)
+    if st != 200 or len(finish) != 1 or len(usage) != 1:
+        raise AssertionError(f"{tag} SSE completion: HTTP {st}, {finish}")
+    _check_usage(f"{layout} {kv} SSE completion (1100-token prompt, "
+                 "chunked)", usage[0], 1100, 16, finish[0])
+    res["ttft_1100_s"] = ttft
+
+
 def phase_serve_legacy(torch, dev, layout, kv, params):
     """The legacy scheduler served on ``params``: the slot cache
     (``layout`` "slot") or the paged pool under ARKS_MIXED_STEP=0, with a
-    ``kv`` cache ("bf16" or "int8").  Returns its results."""
+    ``kv`` cache ("bf16" or "int8"; "int4" on the paged pool, whose decode
+    rides paged_mixed_attention: there a one-shot prompt twice and the 8
+    concurrent streams only).  Returns its results."""
     import os
 
     from arks_tpu_torch.engine import EngineConfig, InferenceEngine
@@ -851,32 +921,11 @@ def phase_serve_legacy(torch, dev, layout, kv, params):
         if texts[0] != texts[1]:
             raise AssertionError(f"{tag} a repeated greedy completion "
                                  "differs")
-        seeded = {"prompt": prompt, "max_tokens": 12, "temperature": 0.9,
-                  "top_p": 0.95, "top_k": 50, "seed": 2**33 + 11,
-                  "ignore_eos": True}
-        texts = []
-        for i in range(2):
-            run(f"seeded{i}", seeded)
-            if out[f"seeded{i}"][0] != 200:
-                raise AssertionError(f"{tag} seeded: {out[f'seeded{i}']}")
-            texts.append(out[f"seeded{i}"][1]["choices"][0]["text"])
-        log(f"{tag} repeated greedy identical; seeded sampled completion "
-            f"identical twice: {texts[0] == texts[1]}")
-        if texts[0] != texts[1]:
-            raise AssertionError(f"{tag} a seeded request gave two streams")
-
-        long_ids = [int(x) for x in
-                    np.random.default_rng(SEED + 2).integers(2, 258, 1100)]
-        st, frames, ttft, _ = _request(port, "/v1/completions", {
-            "prompt": long_ids, "max_tokens": 16, "temperature": 0,
-            "ignore_eos": True, "stream": True,
-            "stream_options": {"include_usage": True}}, stream=True)
-        text, finish, usage = _stream_summary(frames)
-        if st != 200 or len(finish) != 1 or len(usage) != 1:
-            raise AssertionError(f"{tag} SSE completion: HTTP {st}, {finish}")
-        _check_usage(f"{layout} {kv} SSE completion (1100-token prompt, "
-                     "chunked)", usage[0], 1100, 16, finish[0])
-        res["ttft_1100_s"] = ttft
+        if kv == "int4":
+            log(f"{tag} repeated greedy identical")
+            res["ttft_1100_s"] = None
+        else:
+            _legacy_seeded_and_long(tag, port, prompt, layout, kv, res)
 
         threads = [threading.Thread(target=run, args=(f"b{i}", {
             "prompt": f"lane {i} of the legacy scheduler", "max_tokens": 32,
@@ -899,17 +948,18 @@ def phase_serve_legacy(torch, dev, layout, kv, params):
         steps = engine.decode_steps - s0
         launches = _read_counts()
         update = "kv_cache_update" if layout == "slot" else "paged_kv_update"
-        if kv == "int8":
+        if kv != "bf16":
             update += "_quant"
         attn = "ragged_decode_attention" if layout == "slot" \
-            else "paged_decode_attention"
+            else "paged_decode_attention" if kv != "int4" \
+            else "paged_mixed_attention"
         expected = {name: cfg.num_layers * steps if name in (update, attn)
                     else 0 for name in launches}
         log(f"{tag} decode dispatches {engine.decode_dispatches - d0}, decode "
             f"steps {steps}, launches {launches}, expected {expected}; 8 "
             f"streams {res['decode_tok_s_b8']:.1f} tok/s aggregate ({wall:.2f}"
             f" s incl. prefill); TTFT of the 1100-token prompt "
-            f"{ttft * 1e3:.1f} ms")
+            f"{res['ttft_1100_s']} s")
         if launches != expected or steps == 0:
             raise AssertionError(f"{tag} launch counts != layers x decode "
                                  "steps")
@@ -1653,7 +1703,7 @@ def phase_legacy_times(torch, b):
                                                     attn_mask=slot_mask)),
             **_bound(nbytes, flops),
             dev_us=_device_us(torch, lambda: pl.ragged_decode_attention(
-                q, *caches, *args, **sc), "decode_attention_kernel"),
+                q, *caches, *args, **sc), "decode_attention_"),
             nbytes=nbytes)
         del lk, lv
     del kx, vx
@@ -1683,7 +1733,7 @@ def phase_legacy_times(torch, b):
                                                     attn_mask=paged_mask)),
             **_bound(nbytes, pflops),
             dev_us=_device_us(torch, lambda: pa.paged_decode_attention(
-                q, *pools, *pargs, **sc), "decode_attention_kernel"),
+                q, *pools, *pargs, **sc), "decode_attention_"),
             nbytes=nbytes)
         del gk, gv
     for name, t in out.items():
@@ -1706,6 +1756,13 @@ def phase_legacy_times(torch, b):
 # experts; this split holds an empty expert, a group of exactly 128 rows
 # and a 1-row group.
 MOE_GROUPS = [128, 0, 1, 97, 88, 70, 80, 64]
+# A decode step of 8 lanes routes 16 rows over 7 experts (Tp 1152): every
+# tile holds 1-4 real rows.  MOE_CROSS_GROUPS holds a 65-row group, one row
+# past the kernel's 64-row block.
+MOE_DECODE_GROUPS = [3, 1, 2, 4, 0, 2, 2, 2]
+MOE_CROSS_GROUPS = [65, 0, 3, 64, 0, 0, 1, 0]
+MOE_BATCHES = {"528-row": MOE_GROUPS, "decode": MOE_DECODE_GROUPS,
+               "65-row": MOE_CROSS_GROUPS}
 # grouped_matmul in bf16 against its plain version: both accumulate in
 # f32 (in another order, over K up to 14336) and round the output to bf16
 # once, so they differ by about one bf16 step of the output: 1e-2 of the
@@ -1760,68 +1817,90 @@ def _grouped_library(torch, xs, w, sizes):
 def phase_moe_kernels(torch, dev):
     """grouped_matmul (bf16, int8, int4 with group 128) against its plain
     version at Mixtral-8x7B's gate/up shape [8, 4096, 14336] and down shape
-    [8, 14336, 4096], over MOE_GROUPS padded to 128-row tiles; tiles past
-    the groups must come out exactly zero.  Times by CUDA events (L2
-    flushed) beside the bound, the plain version and the library call."""
+    [8, 14336, 4096] over three batches padded to 128-row tiles: a mixed
+    step's MOE_GROUPS, a decode step's MOE_DECODE_GROUPS and
+    MOE_CROSS_GROUPS (65 rows: past one 64-row block).  Each launch passes
+    rows_used and tile_rows, as grouped_ffn does; tiles past the groups
+    must come out exactly zero.  Times by CUDA events (L2 flushed) beside
+    the bound, the plain version and the library call.  Returns
+    {(batch, shape, mode): record}."""
     from arks_tpu_torch.models import get_config
     from arks_tpu_torch.ops import moe_kernel as mk
     cfg = get_config(MOE_MODEL)
     e, fm, nx = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
-    sizes = MOE_GROUPS
-    t = sum(sizes)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    gs = torch.as_tensor(sizes, device=dev)
-    se = torch.repeat_interleave(torch.arange(nx, device=dev), gs)
-    used = mk.rows_used(gs)
-    n_used = int(used.item())
-    nonempty = sum(1 for s in sizes if s)
     out = {}
     for shape, (k, n) in (("gate", (e, fm)), ("down", (fm, e))):
-        xs = torch.randn((t, k), generator=gen, device=dev).to(torch.bfloat16)
-        xs_p, _, bexp = mk.pad_groups(xs, se, gs)
-        tp = xs_p.shape[0]
+        batches = []
+        for batch, sizes in MOE_BATCHES.items():
+            t = sum(sizes)
+            gs = torch.as_tensor(sizes, device=dev)
+            se = torch.repeat_interleave(torch.arange(nx, device=dev), gs)
+            xs = torch.randn((t, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            xs_p, _, bexp = mk.pad_groups(xs, se, gs)
+            used = mk.rows_used(gs)
+            rows = mk.tile_rows(gs, bexp.shape[0])
+            batches.append((batch, sizes, xs, xs_p, bexp, used, rows))
         for mode in ("bf16", "int8", "int4"):
             w, kw, wd = _moe_weight(torch, dev, mode, (nx, k, n), gen)
-            got = mk.grouped_matmul(xs_p, w, bexp, rows_used=used, **kw)
-            want = mk.grouped_matmul(xs_p, w, bexp, impl="plain", **kw)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            top = want.float().abs().max().item()
-            finite = bool(torch.isfinite(got.float()).all().item())
-            zeros = not bool(got[n_used:].any().item())
-            log(f"[moe kernels] grouped_matmul {mode} {shape} [{nx}, {k}, "
-                f"{n}], Tp {tp} ({n_used} rows in real tiles, {t} routed): "
-                f"max abs err vs plain {err:.3e} (tol {GM_TOL['bf16']} x "
-                f"max |out| {top:.3f}); tiles past the groups zero {zeros}; "
-                f"finite {finite}")
-            if not (finite and zeros and err <= GM_TOL["bf16"] * top):
-                raise AssertionError(f"grouped_matmul {mode} {shape} "
-                                     "disagrees with its plain version")
-            scale_bytes = {"bf16": 0, "int8": n * 4,
-                           "int4": (k // 128) * n * 4}[mode]
-            nbytes = int(n_used * k * 2 + nonempty * (
-                k * n * WEIGHT_ELEM_BYTES[mode] + scale_bytes)
-                + bexp.numel() * 4 + 4 + tp * n * 2)
-            lib, lib_name = _grouped_library(torch, xs, wd, sizes)
-            rec = dict(
-                ms=_time_ms(torch, lambda: mk.grouped_matmul(
-                    xs_p, w, bexp, rows_used=used, **kw)),
-                plain_ms=_time_ms(torch, lambda: mk.grouped_matmul(
-                    xs_p, w, bexp, impl="plain", **kw), iters=3, warmup=1),
-                library_ms=_time_ms(torch, lib), library=lib_name,
-                max_abs_err=err, nbytes=nbytes, **_bound(nbytes, 2 * t * k * n))
-            out[(shape, mode)] = rec
-            log(f"[times] grouped_matmul {mode} {shape}: "
-                f"{rec['ms'] * 1e3:.1f} us (bound {rec['bound_ms'] * 1e3:.1f}"
-                f" us by {rec['bound_by']}: {nbytes} B, "
-                f"{2 * t * k * n:.3e} flop), plain "
-                f"{rec['plain_ms'] * 1e3:.1f} us, {lib_name} on dequantized "
-                f"bf16 weights {rec['library_ms'] * 1e3:.1f} us")
-            del w, kw, wd, got, want
+            for batch, sizes, xs, xs_p, bexp, used, rows in batches:
+                out[(batch, shape, mode)] = _moe_kernel_case(
+                    torch, mk, batch, shape, mode, sizes, xs, xs_p, bexp,
+                    used, rows, w, kw, wd)
+            del w, kw, wd
             torch.cuda.empty_cache()
-        del xs, xs_p
+        del batches
     return out
+
+
+def _moe_kernel_case(torch, mk, batch, shape, mode, sizes, xs, xs_p, bexp,
+                     used, rows, w, kw, wd):
+    """One grouped_matmul batch of phase_moe_kernels: the check against the
+    plain version, then the times."""
+    t, tp = sum(sizes), xs_p.shape[0]
+    nx, n = w.shape[0], w.shape[-1]
+    k = xs.shape[1]
+    n_used = int(used.item())
+    routed = sum(1 for x in sizes if x)
+
+    def kern():
+        return mk.grouped_matmul(xs_p, w, bexp, rows_used=used, tile_rows=rows,
+                                 **kw)
+    got = kern()
+    want = mk.grouped_matmul(xs_p, w, bexp, impl="plain", **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    finite = bool(torch.isfinite(got.float()).all().item())
+    zeros = not bool(got[n_used:].any().item())
+    tag = f"grouped_matmul {mode} {shape} {batch}"
+    log(f"[moe kernels] {tag} [{nx}, {k}, {n}], Tp {tp} ({t} routed rows "
+        f"{sizes}, tile rows {rows.tolist()}): max abs err vs plain "
+        f"{err:.3e} (tol {GM_TOL['bf16']} x max |out| {top:.3f}); tiles "
+        f"past the groups zero {zeros}; finite {finite}")
+    if not (finite and zeros and err <= GM_TOL["bf16"] * top):
+        raise AssertionError(f"{tag} disagrees with its plain version")
+    scale_bytes = {"bf16": 0, "int8": n * 4, "int4": (k // 128) * n * 4}[mode]
+    # The routed rows of xs, the routed experts' weights and scales, the
+    # tile maps, and the whole [Tp, N] output.
+    nbytes = int(t * k * 2 + routed * (k * n * WEIGHT_ELEM_BYTES[mode]
+                                       + scale_bytes)
+                 + 2 * bexp.numel() * 4 + 4 + tp * n * 2)
+    lib, lib_name = _grouped_library(torch, xs, wd, sizes)
+    rec = dict(
+        ms=_time_ms(torch, kern),
+        plain_ms=_time_ms(torch, lambda: mk.grouped_matmul(
+            xs_p, w, bexp, impl="plain", **kw), iters=3, warmup=1),
+        library_ms=_time_ms(torch, lib), library=lib_name,
+        max_abs_err=err, nbytes=nbytes, **_bound(nbytes, 2 * t * k * n))
+    log(f"[times] {tag}: {rec['ms'] * 1e3:.1f} us (bound "
+        f"{rec['bound_ms'] * 1e3:.1f} us by {rec['bound_by']}: {nbytes} B, "
+        f"{2 * t * k * n:.3e} flop; {rec['bound_ms'] / rec['ms']:.2f} of "
+        f"it), plain {rec['plain_ms'] * 1e3:.1f} us, {lib_name} on "
+        f"dequantized bf16 weights {rec['library_ms'] * 1e3:.1f} us")
+    return rec
 
 
 def _moe_engine(torch, dev, weight_dtype, params=None):
@@ -2078,7 +2157,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     legacy = {(layout, kv): phase_serve_legacy(torch, dev, layout, kv, params)
               for layout, kv in (("slot", "bf16"), ("slot", "int8"),
-                                 ("paged", "int8"))}
+                                 ("paged", "int8"), ("paged", "int4"))}
     engine, serve8 = phase_serve(torch, dev, "int8", params)
     log(f"[serve] bf16 vs int8 pool on the same weights: K+V pool bytes "
         f"{serve['pool_bytes']} vs {serve8['pool_bytes']}; decode tok/s "
@@ -2101,11 +2180,12 @@ def main() -> int:
     del b, lb, qres
     torch.cuda.empty_cache()
     gm, moe_serve, moe_short = phase_moe(torch, dev)
-    gm_row = gm[("gate", "int8")]
+    gm_row = gm[("528-row", "gate", "int8")]
     slot16, slot8 = legacy[("slot", "bf16")], legacy[("slot", "int8")]
-    paged8 = legacy[("paged", "int8")]
+    paged8, paged4 = legacy[("paged", "int8")], legacy[("paged", "int4")]
     attn_launches = (serve["launches"]["paged_mixed_attention"]
-                     + serve8["launches"]["paged_mixed_attention"])
+                     + serve8["launches"]["paged_mixed_attention"]
+                     + paged4["launches"]["paged_mixed_attention"])
     kernels = [
         dict(name="paged_kv_update", route="cuda", source=UPDATE_SRC,
              replaces="arks_tpu/ops/paged_attention.py:1127",
@@ -2117,7 +2197,8 @@ def main() -> int:
         dict(name="paged_kv_update_quant", route="cuda", source=QUANT_SRC,
              replaces="arks_tpu/ops/paged_attention.py:1215",
              launches=(serve8["launches"]["paged_kv_update_quant"]
-                       + paged8["launches"]["paged_kv_update_quant"]),
+                       + paged8["launches"]["paged_kv_update_quant"]
+                       + paged4["launches"]["paged_kv_update_quant"]),
              max_abs_err=quant_err, **qupd_t["int8"]),
         dict(name="paged_decode_attention", route="cuda", source=DECODE_SRC,
              replaces="arks_tpu/ops/paged_attention.py:388",

@@ -7,7 +7,9 @@ Pallas kernels in interpret mode (f32, atol 1e-5) on the slots of length
 >= 1 — lengths across block and page edges, a parked slot (write index S,
 so length S + 1), an empty slot and shuffled page tables; and
 ``decode_update_and_attend`` / ``paged_decode_update_and_attend`` on both
-of their paths against the reference's.
+of their paths against the reference's, an int4 pool included (its decode
+rides the mixed attention); and ``decode_attention_split_plain``, the
+kernels' split-KV form, against the Pallas kernels.
 
 A slot of length 0 is garbage in the reference (every score masked, so
 p = 1 everywhere) and exactly zero in the port, which these tests pin."""
@@ -324,14 +326,110 @@ def test_paged_decode_update_and_attend_vs_jax(impl, quant, monkeypatch):
 
 
 def test_paged_decode_op_int4_kernel_path_raises():
+    """Once a refusal, now the int4 repair: on an int4 pool the kernel path
+    of ``paged_decode_update_and_attend`` quantizes and writes with
+    ``paged_kv_update_quant`` and attends through ``paged_mixed_attention``
+    over one query per slot (plain versions on the CPU).  Against the
+    reference's op (which sends int4 to its XLA oracle): packed pools and
+    scales bit for bit, outputs of the active slots within 1e-5 in f32,
+    the inactive slot exactly zero."""
     c = _paged_case(9, quant=True)
-    kp = tpa.pack_int4(torch.from_numpy(c["k"]).clamp(-7, 7), 3)
+    for k in ("k", "v"):
+        c[k] = tpa.pack_int4(torch.from_numpy(c[k]).clamp(-7, 7),
+                             3).numpy()
+    widx = np.where(c["lengths"] > 0, c["lengths"] - 1,
+                    MAXP * c["page"]).astype(np.int32)
     b, hkv, g, d = c["q"].shape
-    with pytest.raises(NotImplementedError, match="int4"):
-        tattn.paged_decode_update_and_attend(
-            torch.from_numpy(c["q"]).reshape(b, hkv * g, d),
-            torch.from_numpy(c["k_new"]), torch.from_numpy(c["v_new"]),
-            kp, kp.clone(), torch.from_numpy(c["tables"]),
-            torch.from_numpy(c["lengths"]), 0,
-            k_scale=torch.from_numpy(c["ks"]),
-            v_scale=torch.from_numpy(c["vs"]))
+    q = c["q"].reshape(b, hkv * g, d)
+    names = ("k", "v", "ks", "vs")
+    fn = jax.jit(jattn.paged_decode_update_and_attend,
+                 static_argnames=("layer",))
+    want, *wpools = fn(jnp.asarray(q), jnp.asarray(c["k_new"]),
+                       jnp.asarray(c["v_new"]), jnp.asarray(c["k"]),
+                       jnp.asarray(c["v"]), jnp.asarray(c["tables"]),
+                       jnp.asarray(widx), layer=c["layer"],
+                       k_scale=jnp.asarray(c["ks"]),
+                       v_scale=jnp.asarray(c["vs"]))
+    pools = [torch.from_numpy(c[k].copy()) for k in names]
+    before = (tpa.paged_kv_update_quant.launches,
+              tpa.paged_mixed_attention.launches)
+    got = tattn.paged_decode_update_and_attend(
+        torch.from_numpy(q), torch.from_numpy(c["k_new"]),
+        torch.from_numpy(c["v_new"]), pools[0], pools[1],
+        torch.from_numpy(c["tables"]), torch.from_numpy(widx), c["layer"],
+        k_scale=pools[2], v_scale=pools[3]).numpy()
+    assert (tpa.paged_kv_update_quant.launches,
+            tpa.paged_mixed_attention.launches) == before   # CPU: plain
+    for gp, wp in zip(pools, wpools[:4], strict=True):
+        np.testing.assert_array_equal(_bits(gp.numpy()), _bits(wp))
+    assert not np.array_equal(pools[0].numpy(), c["k"])
+    ok = _valid(PAGED_LENS)
+    np.testing.assert_allclose(got[ok], np.asarray(want)[ok], atol=1e-5,
+                               rtol=0)
+    assert not got[PAGED_LENS.index(0)].any()
+
+
+# Split-KV: the kernels' form of the decode attention, pieces of 256
+# positions over a context of 512 (two pieces, and past them).
+SPLIT_S = 512
+SPLIT_LENS = [0, 1, 255, 256, 257, SPLIT_S, SPLIT_S + 1, 300]
+
+
+def _split_case(seed, *, quant, paged, hkv=2, g=3, d=16):
+    rng = np.random.default_rng(seed)
+    b = len(SPLIT_LENS)
+    page = 128 if paged else SPLIT_S
+    n = b * SPLIT_S // page
+    shape = (2, n, hkv, page, d)
+    if quant:
+        pools = [rng.integers(-127, 128, shape).astype(np.int8)
+                 for _ in range(2)]
+        scales = [rng.uniform(0.002, 0.03, shape[:-1]).astype(np.float32)
+                  for _ in range(2)]
+    else:
+        pools = [rng.standard_normal(shape).astype(np.float32) * 2
+                 for _ in range(2)]
+        scales = [None, None]
+    lens = np.array(SPLIT_LENS, np.int32)
+    if paged:                      # the table's coverage bounds a length
+        lens = np.minimum(lens, SPLIT_S)
+    return dict(q=rng.standard_normal((b, hkv, g, d)).astype(np.float32),
+                k=pools[0], v=pools[1], ks=scales[0], vs=scales[1],
+                tables=rng.permutation(n).reshape(b, -1).astype(np.int32),
+                lengths=lens, layer=1)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_attention_split_plain_vs_pallas(paged, quant):
+    """``decode_attention_split_plain`` (pieces of 256 positions, partials
+    combined by exp(m_i - M)) against the reference's Pallas kernel in
+    interpret mode — ``paged_decode_attention`` through shuffled tables,
+    or ``ragged_decode_attention`` over the slot cache — in f32 within
+    1e-5 on every slot of length >= 1, at lengths 0, 1, 255, 256, 257,
+    S and S + 1 (clamped to S); the empty slot exactly zero."""
+    c = _split_case(10, quant=quant, paged=paged)
+    layer = c["layer"]
+    jsc = dict(k_scale=jnp.asarray(c["ks"]), v_scale=jnp.asarray(c["vs"])) \
+        if quant else {}
+    args = [jnp.asarray(c[k]) for k in ("q", "k", "v")]
+    if paged:
+        want = jpa.paged_decode_attention(
+            *args, jnp.asarray(c["tables"]), jnp.asarray(c["lengths"]),
+            layer, block_b=1, interpret=True, **jsc)
+        view = lambda x: tpa.paged_gather_kv(   # noqa
+            torch.from_numpy(x), torch.from_numpy(c["tables"]), layer)
+    else:
+        want = jpl.ragged_decode_attention(
+            *args, jnp.asarray(c["lengths"]), layer, block_s=128, block_b=2,
+            interpret=True, **jsc)
+        view = lambda x: torch.from_numpy(x)[layer]   # noqa
+    tsc = dict(k_scale=view(c["ks"]), v_scale=view(c["vs"])) if quant else {}
+    got = tpa.decode_attention_split_plain(
+        torch.from_numpy(c["q"]), view(c["k"]), view(c["v"]),
+        torch.from_numpy(c["lengths"]), **tsc).numpy()
+    ok = _valid(SPLIT_LENS)
+    np.testing.assert_allclose(got[ok], np.asarray(want)[ok], atol=1e-5,
+                               rtol=0)
+    assert not got[SPLIT_LENS.index(0)].any()
+    assert tpa.decode_splits(SPLIT_S) == 2

@@ -320,6 +320,30 @@ def test_ragged_decode_attention_vs_plain(dev, dtype, tol, hkv, g, d, s,
     assert not got[4].any()                           # the empty slot
 
 
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+def test_decode_attention_split_vs_split_plain(dev, dtype, tol, quant):
+    """The split-KV pieces (256 positions) and their combine against
+    ``decode_attention_split_plain`` on the same cache: lengths on and
+    across piece edges, a parked slot (S + 1) and an empty one."""
+    from arks_tpu_torch.ops import pallas_attention as pl
+    s = 1024
+    lengths = torch.tensor([1, 255, 256, 257, 0, s + 1, 700, s],
+                           dtype=torch.int32, device=dev)
+    caches = _slot_cache(dev, dtype, b=8, hkv=2, d=128, s=s, quant=quant)
+    q = torch.randn(8, 2, 7, 128, device=dev).to(dtype)
+    sc = dict(k_scale=caches[2], v_scale=caches[3]) if quant else {}
+    got = pl.ragged_decode_attention(q, caches[0], caches[1], lengths, 1,
+                                     **sc)
+    sc1 = {k: v[1] for k, v in sc.items()}
+    want = pa.decode_attention_split_plain(q, caches[0][1], caches[1][1],
+                                           lengths, **sc1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert not got[4].any()
+
+
 def _paged_decode_case(dev, dtype, *, hkv, g, d, page, quant, seed=0):
     lengths = [1, page - 1, page, page + 1, 0, 3 * page + 5, 4 * page, 2]
     b, maxp = len(lengths), 5
@@ -394,13 +418,15 @@ def test_decode_kernels_raise_on_unsupported(dev):
                                               device=dev), 0)
 
 
-@pytest.mark.parametrize("kv", [None, "int8"])
-@pytest.mark.parametrize("layout", ["slot", "paged"])
+@pytest.mark.parametrize("layout,kv", [("slot", None), ("slot", "int8"),
+                                       ("paged", None), ("paged", "int8"),
+                                       ("paged", "int4")])
 def test_decode_step_kernels_vs_plain(dev, layout, kv):
     """Three decode steps through the kernels and through the reference's
     oracle path (impl="plain") from a prompt inserted by ``prefill``, one
     slot parked: logits within 1e-4 in f32 (the oracle folds the v scale
-    after normalising), caches within 1e-5 (int8 scales within 1e-6)."""
+    after normalising), caches within 1e-5 (int8 scales within 1e-6).  An
+    int4 pool's decode rides the mixed kernel, one query per slot."""
     cfg = ModelConfig(name="test-d64", vocab_size=512, hidden_size=256,
                       intermediate_size=512, num_layers=2, num_heads=8,
                       num_kv_heads=2, head_dim=64, qkv_bias=True,
@@ -418,7 +444,8 @@ def test_decode_step_kernels_vs_plain(dev, layout, kv):
             tf.insert_batch(c, ks, vs, [0, 1])
         else:
             c = tf.init_paged_cache(cfg, 12, 16, torch.float32, dev,
-                                    quantized=kv is not None)
+                                    quantized=kv is not None,
+                                    kv_bits=4 if kv == "int4" else 8)
             tables = torch.tensor([[3, 7, 1, 0], [5, 2, 9, 0], [0, 0, 0, 0]],
                                   dtype=torch.int32, device=dev)
             tf.insert_pages_batch(c, ks, vs, tables[:2, :2], [2, 1])
@@ -482,7 +509,7 @@ def test_paged_mixed_attention_dense_bit_identical_to_ragged(dev, dtype, kv):
 # ---------------------------------------------------------------------------
 
 
-def _grouped_case(dev, dtype, mode, *, sizes, k, n, group=32, seed=0):
+def _grouped_case(dev, dtype, mode, *, sizes, k, n, group=64, seed=0):
     """Expert-sorted rows of ``sizes`` padded by pad_groups (block_t 128),
     and a weight in ``mode`` (raw of ``dtype``, int8, packed int4)."""
     from arks_tpu_torch.models import quant
@@ -506,49 +533,57 @@ def _grouped_case(dev, dtype, mode, *, sizes, k, n, group=32, seed=0):
     else:
         qd = quant.quantize_tensor_int4(w, group)
         w, kw = qd["q"], {"w_group_scale": qd["gs"]}
-    return xs_p, w, bexp, kw, mk.rows_used(gs)
+    return xs_p, w, bexp, kw, mk.rows_used(gs), mk.tile_rows(
+        gs, xs_p.shape[0] // mk.BLOCK_T)
 
 
-# An empty expert, a group of exactly 128 rows, groups of 1 row, a long one.
-GROUP_SIZES = [5, 0, 128, 1, 300, 1]
+# An empty expert, a group of exactly 128 rows, groups of 1 row, a long
+# one, 64- and 65-row groups (one M block of the bf16 kernel, and across).
+GROUP_SIZES = [5, 0, 128, 1, 300, 1, 64, 65]
 
 
 @pytest.mark.parametrize("mode", ["raw", "int8", "int4"])
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
                                        (torch.float32, 1e-5)])
-@pytest.mark.parametrize("n", [256, 208])
+@pytest.mark.parametrize("n", [256, 208, 784])
 def test_grouped_matmul_vs_plain(dev, dtype, tol, mode, n):
     """bf16 within 1e-2 of the largest |out| (one bf16 rounding of the
     output and another summation order), f32 within 1e-5; zero rows give
-    exact zeros; N = 208 masks a partial column tile."""
+    exact zeros; N = 208 and 784 mask a partial column tile.  Skipping
+    tiles past the groups (rows_used) and multiplying only a tile's real
+    64-row block (tile_rows) give the same bytes as the full product."""
     from arks_tpu_torch.ops import moe_kernel as mk
-    xs_p, w, bexp, kw, used = _grouped_case(dev, dtype, mode,
-                                            sizes=GROUP_SIZES, k=256, n=n)
+    xs_p, w, bexp, kw, used, rows = _grouped_case(
+        dev, dtype, mode, sizes=GROUP_SIZES, k=256, n=n)
     before = mk.grouped_matmul.launches
     got = mk.grouped_matmul(xs_p, w, bexp, rows_used=used, **kw)
     full = mk.grouped_matmul(xs_p, w, bexp, **kw)      # no tile skipping
+    real = mk.grouped_matmul(xs_p, w, bexp, rows_used=used, tile_rows=rows,
+                             **kw)
     want = mk.grouped_matmul(xs_p, w, bexp, impl="plain", **kw)
     torch.cuda.synchronize()
-    assert mk.grouped_matmul.launches == before + 2
+    assert mk.grouped_matmul.launches == before + 3
     assert got.dtype == dtype and got.shape == (xs_p.shape[0], n)
     scale = want.float().abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=tol * scale)
-    assert torch.equal(got, full)
+    assert torch.equal(got, full) and torch.equal(real, full)
     zero_rows = (xs_p == 0).all(dim=1)
-    assert not got[zero_rows].any()
+    assert not got[zero_rows].any() and not real[zero_rows].any()
 
 
 def test_grouped_matmul_raises_on_unsupported(dev):
     from arks_tpu_torch.ops import moe_kernel as mk
-    xs_p, w, bexp, kw, _ = _grouped_case(dev, torch.bfloat16, "int8",
-                                         sizes=[3, 4], k=64, n=64)
+    xs_p, w, bexp, kw, _, _ = _grouped_case(dev, torch.bfloat16, "int8",
+                                            sizes=[3, 4], k=64, n=64)
     with pytest.raises(ValueError):          # N not a multiple of 16
         mk.grouped_matmul(xs_p, w[..., :40], bexp,
                           w_scale=kw["w_scale"][:, :40])
     with pytest.raises(TypeError):           # f32 xs over an int8 weight
         mk.grouped_matmul(xs_p.float(), w.float(), bexp, **kw)
-    xs4, w4, b4, kw4, _ = _grouped_case(dev, torch.bfloat16, "int4",
-                                        sizes=[3, 4], k=64, n=64, group=16)
-    with pytest.raises(ValueError):          # int4 group not a multiple of 32
+    xs4, w4, b4, kw4, _, _ = _grouped_case(dev, torch.bfloat16, "int4",
+                                           sizes=[3, 4], k=64, n=64, group=32)
+    with pytest.raises(ValueError):          # bf16: int4 group not k64-whole
         mk.grouped_matmul(xs4, w4, b4, **kw4)
+    with pytest.raises(ValueError):          # bf16: K not a multiple of 64
+        mk.grouped_matmul(xs_p[:, :32], w[:, :32], bexp, **kw)

@@ -1,6 +1,7 @@
 """The port's legacy scheduler against the JAX engine on the same weights:
 ``kv_layout="slot"``, and ``kv_layout="paged"`` under ``ARKS_MIXED_STEP=0``,
-with f32 and int8 caches on ``tiny`` and ``tiny-gqa``.  Greedy and seeded
+with f32 and int8 caches on ``tiny`` and ``tiny-gqa`` (and an int4 paged
+pool).  Greedy and seeded
 token streams must be identical, with more requests than slots and
 prompts on both admission paths: buckets (8, 16, 32), so prompts of 3, 10
 and 20 tokens are admitted one-shot and prompts of 33 and 48 chunk by
@@ -126,7 +127,7 @@ def _check_engine(eng, kv, layout):
         4 * eng.decode_dispatches > 0
     assert isinstance(eng.cache, ttf.PagedKVCache if layout == "paged"
                       else ttf.KVCache)
-    assert eng.cache.quantized == (kv == "int8")
+    assert eng.cache.quantized == (kv in ("int8", "int4"))
     if layout == "paged":
         assert eng._alloc.free_pages == eng._alloc.num_pages
 
@@ -232,11 +233,21 @@ def test_slot_cache_rejects_int4():
 
 
 def test_legacy_paged_int4_raises(monkeypatch):
+    """Once a refusal, now the int4 repair: a paged int4 pool under
+    ARKS_MIXED_STEP=0 serves (its decode attention rides the mixed kernel,
+    one query per slot) and its greedy streams equal the JAX engine's,
+    which sends int4 decode to its XLA oracle, on f32 ``tiny`` and
+    ``tiny-gqa``."""
     monkeypatch.setenv("ARKS_MIXED_STEP", "0")
-    with pytest.raises(NotImplementedError, match="int4"):
-        InferenceEngine(get_config("tiny"), EngineConfig(
-            model="tiny", kv_layout="paged", kv_cache_dtype="int4",
-            **ENGINE_KW), ByteTokenizer(), device="cpu")
+    for name in ("tiny", "tiny-gqa"):
+        jparams, tparams = _params(name, 3)
+        prompts = _prompts(jax_get_config(name).vocab_size)
+        want = _jax_streams(name, jparams, prompts, 9, "paged", "int4", None)
+        got, eng = _torch_streams(name, tparams, prompts, 9, "paged", "int4",
+                                  None)
+        _same_streams(want, got)
+        _check_engine(eng, "int4", "paged")
+        assert eng.cache.kv_bits == 4
 
 
 @pytest.mark.parametrize("knob,layout,mixed", [

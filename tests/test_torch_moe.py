@@ -1,6 +1,7 @@
 """The port's MoE block (``models/moe.py``, ``ops/moe_kernel.py``) against
 the reference's on the same numpy inputs: the model configs field for
-field; ``router_topk`` / ``router_weights``; ``pad_groups`` bit for bit;
+field; ``router_topk`` / ``router_weights``; ``pad_groups`` bit for bit
+and ``tile_rows`` exact against its layout;
 the grouped matmul's plain version against the Pallas ``_gm_kernel`` run
 in interpret mode (f32, int8, int4; 1e-5 relative); ``moe_ffn`` dense and
 grouped on both ``ARKS_MOE_KERNEL`` routes (f32, 1e-5 relative); and the
@@ -86,6 +87,32 @@ def test_pad_groups_bit_exact(sizes):
     used = int(tmk.rows_used(torch.from_numpy(gs), 8))
     assert used == sum(-(-n // 8) * 8 for n in sizes)
     assert not got[0][used:].any()            # tiles past the groups: zeros
+
+
+# Group sizes at block_t 128: empty, 1-row, 64-row (one M block of the
+# kernel), 65-row (crosses it), 128-row and 129-row groups.
+TILE_GROUPS = [[0, 1, 64, 65, 128, 0, 129], [3, 1, 2, 4, 0, 2, 2, 2],
+               [128, 0, 1, 97, 88, 70, 80, 64], [0, 0, 0], [65]]
+
+
+@pytest.mark.parametrize("sizes", TILE_GROUPS)
+def test_tile_rows_matches_reference_pad_groups(sizes):
+    """Each tile's real rows, exact, against the rows the reference's
+    ``pad_groups`` places in it (its ``dest`` map), tiles past the groups
+    0; a tile's real rows are its first ones (the rest are zero)."""
+    bt = 128
+    xs, se, gs = _groups(sizes, k=4)
+    xs += 1.0                                   # no routed row is all zero
+    xs_p, dest, _ = jmk.pad_groups(jnp.asarray(xs), jnp.asarray(se),
+                                   jnp.asarray(gs), bt)
+    n_tiles = xs_p.shape[0] // bt
+    want = np.bincount(np.asarray(dest) // bt, minlength=n_tiles)
+    got = tmk.tile_rows(torch.from_numpy(gs), n_tiles, bt)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    nonzero = np.asarray(xs_p).any(axis=1).reshape(n_tiles, bt)
+    for i, n in enumerate(want):
+        assert nonzero[i, :n].all() and not nonzero[i, n:].any()
 
 
 def _weights(mode, nx, k, n, seed=3):

@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Time the port's redesigned kernels of one source tree on the GPU, at
+``chip_smoke.py``'s shapes, so two trees can be compared inside one call
+to the card: ``grouped_matmul`` (bf16 / int8 / int4 weights at
+Mixtral-8x7B's gate and down shapes, over the 528-row mixed batch and the
+16-row decode batch) and the two decode attentions (bf16 and int8, phase
+3's slot cache and paged pool).  Each time is chip_smoke's ``_time_ms``:
+the CUDA-event mean over 20 launches, L2 flushed before each.
+
+    python3 tools/torch_kernel_compare.py --root DIR [--out FILE]
+
+``DIR`` is the root of the tree whose ``arks_tpu_torch`` is timed (its
+kernels build into DIR/build/); this script and the helpers it borrows
+from ``chip_smoke.py`` come from the tree that holds it.  Prints one JSON
+object {"root", "device", "times": {name: ms}}.  Run two trees in turns
+(A, B, B, A) and compare within the call."""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import inspect
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_kernel_compare: no CUDA device", file=sys.stderr)
+        return 2
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from arks_tpu_torch.models import get_config
+    from arks_tpu_torch.ops import moe_kernel as mk
+    from arks_tpu_torch.ops import paged_attention as pa
+    from arks_tpu_torch.ops import pallas_attention as pl
+    assert Path(mk.__file__).resolve().is_relative_to(root), mk.__file__
+    dev = torch.device("cuda", 0)
+    times = {}
+
+    b = cs.slot_batch(torch, dev)
+    q, layer = b["q"], b["layer"]
+    args_slot = (b["lengths"], layer)
+    args_paged = (b["tables"], b["paged_lengths"], layer)
+    sq = cs._int8(pa, (b["k_cache"], b["v_cache"]))
+    pq = cs._int8(pa, (b["k_pool"], b["v_pool"]))
+    cases = {
+        "ragged_decode_attention bf16": lambda: pl.ragged_decode_attention(
+            q, b["k_cache"], b["v_cache"], *args_slot),
+        "ragged_decode_attention int8": lambda: pl.ragged_decode_attention(
+            q, sq[0], sq[1], *args_slot, k_scale=sq[2], v_scale=sq[3]),
+        "paged_decode_attention bf16": lambda: pa.paged_decode_attention(
+            q, b["k_pool"], b["v_pool"], *args_paged),
+        "paged_decode_attention int8": lambda: pa.paged_decode_attention(
+            q, pq[0], pq[1], *args_paged, k_scale=pq[2], v_scale=pq[3]),
+    }
+    for name, fn in cases.items():
+        times[name] = cs._time_ms(torch, fn)
+    del b, sq, pq, cases
+    torch.cuda.empty_cache()
+
+    cfg = get_config(cs.MOE_MODEL)
+    e, fm, nx = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+    takes_rows = "tile_rows" in inspect.signature(mk.grouped_matmul).parameters
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED)
+    for shape, (k, n) in (("gate", (e, fm)), ("down", (fm, e))):
+        batches = {}
+        for batch in ("528-row", "decode"):
+            sizes = cs.MOE_BATCHES[batch]
+            gs = torch.as_tensor(sizes, device=dev)
+            se = torch.repeat_interleave(torch.arange(nx, device=dev), gs)
+            xs = torch.randn((sum(sizes), k), generator=gen,
+                             device=dev).to(torch.bfloat16)
+            xs_p, _, bexp = mk.pad_groups(xs, se, gs)
+            kw = dict(rows_used=mk.rows_used(gs))
+            if takes_rows:
+                kw["tile_rows"] = mk.tile_rows(gs, bexp.shape[0])
+            batches[batch] = (xs_p, bexp, kw)
+        for mode in ("bf16", "int8", "int4"):
+            w, wkw, _ = cs._moe_weight(torch, dev, mode, (nx, k, n), gen)
+            for batch, (xs_p, bexp, kw) in batches.items():
+                times[f"grouped_matmul {mode} {shape} {batch}"] = cs._time_ms(
+                    torch, lambda: mk.grouped_matmul(xs_p, w, bexp, **kw,
+                                                     **wkw))
+            del w, wkw
+            torch.cuda.empty_cache()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    res = {"root": str(root), "device": card.strip(), "times": times}
+    line = json.dumps(res)
+    print(line, flush=True)
+    if args.out:
+        Path(args.out).write_text(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
