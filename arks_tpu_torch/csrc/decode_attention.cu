@@ -57,8 +57,11 @@
 // of the piece.  An int8 tile lands as bytes and is converted to bf16 in
 // shared memory (exact for |v| <= 127), its scales beside it.
 //
-// f32 (parity runs only, decode_attention_f32_kernel): the same pieces on
-// CUDA cores, one warp per query head (G <= 8), tiles of 64 positions.
+// f32 (parity runs, and an f32 engine over a bf16 cache;
+// decode_attention_f32_kernel): the same pieces on CUDA cores, one warp per
+// query head (G <= 8), tiles of 64 positions.  A bf16 cache under f32 q is
+// widened to f32 on the copy into shared memory, as the reference casts
+// its tiles to q's dtype, and p stays f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,6 +89,22 @@ __device__ __forceinline__ void load16(const float* p, float* out) {
   out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
 }
 
+// 16 cache bytes -> f32 at dst: 4 floats copied, or 8 bf16 widened.
+__device__ __forceinline__ void widen16(const float* src, float* dst) {
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ void widen16(const __nv_bfloat16* src,
+                                        float* dst) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const float2 f = __bfloat1622float2(h[u]);
+    dst[2 * u] = f.x;
+    dst[2 * u + 1] = f.y;
+  }
+}
+
 // 16 int8 cache bytes -> 16 T at dst (16-byte aligned), exactly.
 __device__ __forceinline__ void dequant16(const int8_t* src, float* dst) {
   const uint4 raw = *reinterpret_cast<const uint4*>(src);
@@ -107,6 +126,12 @@ __device__ __forceinline__ void dequant16(const int8_t* src,
     h[u] = __floats2bfloat162_rn((float)b[2 * u], (float)b[2 * u + 1]);
   *reinterpret_cast<uint4*>(dst) = out[0];
   *reinterpret_cast<uint4*>(dst + 8) = out[1];
+}
+
+// An int8 cache's 16 bytes -> 16 floats (the int8 path converts them
+// this way; the overload keeps the f32 kernel's copy generic).
+__device__ __forceinline__ void widen16(const int8_t* src, float* dst) {
+  dequant16(src, dst);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -468,8 +493,8 @@ constexpr size_t f32_smem_bytes() {
          + sizeof(float) * 2 * kKT;                // k and v scale tiles
 }
 
-// KV is the cache's element type: float itself, or int8_t for an int8
-// cache; the shared-memory tiles hold f32 in both cases.  One CTA per
+// KV is the cache's element type: float itself, bf16 (widened), or int8_t
+// for an int8 cache; the shared-memory tiles hold f32 in every case.  One CTA per
 // (slot, KV head, piece), as the bf16 kernel, writing the same partials.
 template <typename KV, int D>
 __global__ void __launch_bounds__(kThreads) decode_attention_f32_kernel(
@@ -540,16 +565,13 @@ __global__ void __launch_bounds__(kThreads) decode_attention_f32_kernel(
         vss[j] = in ? v_scale[row0 + j] : 0.f;
       }
     } else {
-      for (int e = tid; e < nt * (D / VEC); e += kThreads) {
-        const int j = e / (D / VEC);
-        const int c = (e % (D / VEC)) * VEC;
+      constexpr int CV = 16 / sizeof(KV);     // cache elements per 16 bytes
+      for (int e = tid; e < nt * (D / CV); e += kThreads) {
+        const int j = e / (D / CV);
+        const int c = (e % (D / CV)) * CV;
         const int64_t src = base + (int64_t)j * D + c;
-        *reinterpret_cast<float4*>(ks + j * KSTRIDE + c) =
-            *reinterpret_cast<const float4*>(
-                reinterpret_cast<const float*>(k_pool) + src);
-        *reinterpret_cast<float4*>(vs + j * D + c) =
-            *reinterpret_cast<const float4*>(
-                reinterpret_cast<const float*>(v_pool) + src);
+        widen16(k_pool + src, ks + j * KSTRIDE + c);
+        widen16(v_pool + src, vs + j * D + c);
       }
     }
     __syncthreads();
@@ -663,7 +685,8 @@ int launch_combine(const float* ws, const int* lengths, void* out, int nbh,
   return (int)cudaGetLastError();
 }
 
-template <bool QUANT, int D>
+// kv: 0 = a cache of q's dtype, 1 = int8, 2 = bf16 under f32 q.
+template <int KVM, int D>
 int launch_split(const void* q, const void* k_pool, const void* v_pool,
                  const float* k_scale, const float* v_scale, const int* tables,
                  const int* lengths, float* ws, dim3 grid, int hkv, int group,
@@ -671,8 +694,9 @@ int launch_split(const void* q, const void* k_pool, const void* v_pool,
                  int dtype, cudaStream_t stream) {
   if (dtype == 1) {
     using bf16 = __nv_bfloat16;
-    using K = typename std::conditional<QUANT, int8_t, bf16>::type;
+    using K = typename std::conditional<KVM == 1, int8_t, bf16>::type;
     constexpr size_t smem = SplitSmem<K, D>::kBytes;
+    if (KVM == 2) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         decode_attention_split_kernel<K, D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -682,7 +706,9 @@ int launch_split(const void* q, const void* k_pool, const void* v_pool,
         tables, lengths, ws, hkv, group, page, n_pages, max_pages, layer,
         scale, (int)grid.y);
   } else {
-    using K = typename std::conditional<QUANT, int8_t, float>::type;
+    using K = typename std::conditional<
+        KVM == 1, int8_t,
+        typename std::conditional<KVM == 2, __nv_bfloat16, float>::type>::type;
     constexpr size_t smem = f32_smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
         decode_attention_f32_kernel<K, D>,
@@ -704,7 +730,8 @@ int dispatch(const void* q, void* out, const void* k_pool, const void* v_pool,
   if (n_slots <= 0) return 0;
   if (hkv <= 0 || n_heads % hkv != 0 || n_heads / hkv > kWarps ||
       page <= 0 || max_pages <= 0 || ws == nullptr ||
-      (dtype != 0 && dtype != 1) || (quant && (!k_scale || !v_scale)))
+      (dtype != 0 && dtype != 1) || quant < 0 || quant > 2 ||
+      (quant == 1 && (!k_scale || !v_scale)) || (quant == 2 && dtype != 0))
     return (int)cudaErrorInvalidValue;
   const int group = n_heads / hkv;
   const int cover = max_pages * page;
@@ -720,11 +747,13 @@ int dispatch(const void* q, void* out, const void* k_pool, const void* v_pool,
   q, k_pool, v_pool, ks, vs, tb, ln, w, grid, hkv, group, page, n_pages,      \
       max_pages, layer, scale, dtype, st
   if (head_dim == 128)
-    err = quant ? launch_split<true, 128>(ARKS_ARGS)
-                : launch_split<false, 128>(ARKS_ARGS);
+    err = quant == 1 ? launch_split<1, 128>(ARKS_ARGS)
+          : quant == 2 ? launch_split<2, 128>(ARKS_ARGS)
+                       : launch_split<0, 128>(ARKS_ARGS);
   else if (head_dim == 64)
-    err = quant ? launch_split<true, 64>(ARKS_ARGS)
-                : launch_split<false, 64>(ARKS_ARGS);
+    err = quant == 1 ? launch_split<1, 64>(ARKS_ARGS)
+          : quant == 2 ? launch_split<2, 64>(ARKS_ARGS)
+                       : launch_split<0, 64>(ARKS_ARGS);
   else
     return (int)cudaErrorInvalidValue;
 #undef ARKS_ARGS
@@ -746,8 +775,8 @@ const char* arks_cuda_error_string(int err) {
 }
 
 // q / out [B, Hkv, G, D] of dtype (0 = float32, 1 = bfloat16); caches
-// [L, B, Hkv, S, D] of q's dtype (quant 0, scales NULL) or int8 (quant 1)
-// with f32 scales [L, B, Hkv, S]; lengths [B] int32; ws the f32 partials
+// [L, B, Hkv, S, D] of q's dtype (quant 0, scales NULL), int8 (quant 1)
+// with f32 scales [L, B, Hkv, S], or bf16 under f32 q (quant 2); lengths [B] int32; ws the f32 partials
 // [B, Hkv, ceil(S / 256), G, D + 2].  head_dim 64 or 128, G = n_heads /
 // hkv <= 8; the wrapper checks all of these and raises.
 int arks_ragged_decode_attention(const void* q, void* out, const void* k_cache,

@@ -36,7 +36,7 @@
 // (cp.async.bulk.tensor, mbarrier completion): the tile's real xs rows
 // (64-row boxes, then 8-row boxes up to the last real row; 128-byte
 // swizzle) and the raw weight bytes [64 k, 256 n] (int4: [32 packed rows,
-// 256 n] and the group's scale row).  The consumers turn a landed raw
+// 256 n] and its groups' scale rows).  The consumers turn a landed raw
 // stage into the bf16 B tile [256 n, 64 k] in shared memory — int8
 // exactly (byte -> 2^23 + b float -> bf16), int4 nibbles into bf16
 // 128 + u with bf16x2 subtract and multiply by the group scale (one
@@ -54,10 +54,16 @@
 // per box) reaches 55-65% of the memory rate, bf16 (512-byte rows) 84%.
 // The TMA descriptors are encoded on the host per launch through
 // cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint (the
-// library is loaded by ctypes and not linked to libcuda).
+// library is loaded by ctypes and not linked to libcuda).  Any K (a
+// multiple of 8, the 16-byte row alignment TMA needs): the last stage's
+// xs columns past K arrive as TMA's zero fill and its weight rows past K
+// are zeroed by the dequant pass.  An int4 group below 64 (32, say) puts
+// two groups in one stage: a kernel instance of its own (kInt4s) carries
+// two scale rows a stage and each 8-k chunk takes its own; groups of 64
+// and more keep the one-row instance.
 //
 // f32 activations (parity runs only): a CUDA-core kernel, 64 x 64 tiles,
-// 4 x 4 outputs per thread, f32 FMAs, K in steps of 16.
+// 4 x 4 outputs per thread, f32 FMAs, K in steps of 16 (zero past K).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -69,6 +75,10 @@ namespace {
 constexpr int kTile = 128;     // rows per expert tile (block_t)
 constexpr int kThreads = 256;
 enum { kRaw = 0, kInt8 = 1, kInt4 = 2 };
+// The bf16 kernel's instance for int4 groups below 64 (two groups, and two
+// scale rows, per stage); groups of 64 and more keep kInt4's one row.
+constexpr int kInt4s = 3;
+__host__ __device__ constexpr bool is_int4(int mode) { return mode == kInt4 || mode == kInt4s; }
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma, TMA and an mbarrier ring
@@ -88,9 +98,10 @@ struct GmCfg {
   static constexpr int kStages = MODE == kRaw ? 3 : MODE == kInt8 ? 4 : 5;
   static constexpr int kABlock = 64 * kBK * 2;             // one 64-row box
   static constexpr int kABytes = 2 * kABlock;
-  static constexpr int kWRows = MODE == kInt4 ? kBK / 2 : kBK;
+  static constexpr int kWRows = is_int4(MODE) ? kBK / 2 : kBK;
   static constexpr int kWBytes = kWRows * kBN * (MODE == kRaw ? 2 : 1);
-  static constexpr int kSBytes = MODE == kInt4 ? kBN * 4 : 0;
+  static constexpr int kSRows = MODE == kInt4s ? 2 : MODE == kInt4 ? 1 : 0;
+  static constexpr int kSBytes = kSRows * kBN * 4;
   static constexpr int kStageBytes = kABytes + kWBytes + kSBytes;
   static constexpr int kBBytes = kBN * kBK * 2;            // bf16 B tile
   // 1 KB of slack aligns the base to the 128-byte swizzle's 1024 bytes.
@@ -242,10 +253,19 @@ __device__ __forceinline__ float i8_to_f32(uint32_t w, int j) {
 // (k = 16 (ct / 64) + ...), two 16-byte chunks per column.  The column
 // order is rotated by lane so the 8 lanes of a store phase hit 8 distinct
 // swizzled chunks.
-template <int MODE>
+//
+// TAIL (the stage holding K's end): raw rows at or past `valid` (the
+// stage's weight rows inside K) read as zero, so a K tail multiplies zeros
+// whatever lies past the expert's rows; every other stage runs without
+// the check.
+// An int4 stage carries the scale row of its first group and, for a group
+// below 64, the next one's, which starts at stage-relative k `split` (64
+// when none does); each 8-k chunk takes its own.
+template <int MODE, bool TAIL>
 __device__ __forceinline__ void dequant_stage(const unsigned char* raw,
                                               const float* gscale,
-                                              unsigned char* bt, int ct) {
+                                              unsigned char* bt, int ct,
+                                              int valid, int split) {
   const int ng = ct & 63, kq = ct >> 6, rot = (ct & 31) >> 1;
   if (MODE == kInt8) {
 #pragma unroll
@@ -255,6 +275,11 @@ __device__ __forceinline__ void dequant_stage(const unsigned char* raw,
       for (int k = 0; k < 8; ++k)
         w[k] = *reinterpret_cast<const uint32_t*>(
             raw + (16 * kq + 8 * c + k) * kBN + 4 * ng);
+      if (TAIL) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (16 * kq + 8 * c + k >= valid) w[k] = 0u;
+      }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int jj = (j + rot) & 3, n = 4 * ng + jj;
@@ -267,22 +292,41 @@ __device__ __forceinline__ void dequant_stage(const unsigned char* raw,
         *reinterpret_cast<uint4*>(bt + swz(n, 16 * kq + 8 * c)) = v;
       }
     }
-  } else if (MODE == kInt4) {
+  } else if (is_int4(MODE)) {
     uint32_t w[8];
 #pragma unroll
     for (int r = 0; r < 8; ++r)
       w[r] = *reinterpret_cast<const uint32_t*>(raw + (8 * kq + r) * kBN +
                                                 4 * ng);
-    const float4 g4 = *reinterpret_cast<const float4*>(gscale + 4 * ng);
+    if (TAIL) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        if (8 * kq + r >= valid) w[r] = 0u;
+    }
+    // The group of each 8-k chunk: the stage's first, or (kInt4s, a group
+    // below 64) the next; kq is warp-uniform, so is the branch.
+    const bool next[2] = {MODE == kInt4s && 16 * kq >= split,
+                          MODE == kInt4s && 16 * kq + 8 >= split};
+    const float4 ga = *reinterpret_cast<const float4*>(gscale + 4 * ng);
+    float4 gb = ga;
+    if (next[1])
+      gb = *reinterpret_cast<const float4*>(gscale + kBN + 4 * ng);
     const __nv_bfloat162 bias = as_bf16x2(0x43084308u);   // 136, 136
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int jj = (j + rot) & 3, n = 4 * ng + jj;
-      const float g = jj == 0 ? g4.x : jj == 1 ? g4.y : jj == 2 ? g4.z : g4.w;
-      const __nv_bfloat162 gs = __bfloat162bfloat162(__float2bfloat16_rn(g));
+      const float fa = jj == 0 ? ga.x : jj == 1 ? ga.y : jj == 2 ? ga.z : ga.w;
+      const __nv_bfloat162 gsa = __bfloat162bfloat162(__float2bfloat16_rn(fa));
+      __nv_bfloat162 gsb = gsa;
+      if (next[1]) {
+        const float fb =
+            jj == 0 ? gb.x : jj == 1 ? gb.y : jj == 2 ? gb.z : gb.w;
+        gsb = __bfloat162bfloat162(__float2bfloat16_rn(fb));
+      }
       const uint32_t sel = jj | ((jj + 4) << 4);
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
+        const __nv_bfloat162 gs = next[c] ? gsb : gsa;
         // Byte jj of packed rows 4c..4c+3: k = 16 kq + 8c + 0..7.
         const uint32_t t = __byte_perm(
             __byte_perm(w[4 * c], w[4 * c + 1], sel),
@@ -310,6 +354,11 @@ __device__ __forceinline__ void dequant_stage(const unsigned char* raw,
       for (int k = 0; k < 8; ++k)
         w[k] = *reinterpret_cast<const uint2*>(
             raw + (16 * kq + 8 * c + k) * kBN * 2 + 8 * ng);
+      if (TAIL) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (16 * kq + 8 * c + k >= valid) w[k] = make_uint2(0u, 0u);
+      }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int jj = (j + rot) & 3, n = 4 * ng + jj;
@@ -339,15 +388,25 @@ struct Consumer {
   unsigned char* btile;
   uint64_t* full;
   uint64_t* empty;
-  int steps, tid, wg, rows;
+  int steps, tid, wg, rows, w_rows, group;
 
   // Wait for stage s, turn its weights into the bf16 B tile s % 2.
   __device__ __forceinline__ void dequant(int s) const {
     mbar_wait(&full[s % C::kStages], (s / C::kStages) & 1);
     const unsigned char* w =
         ring + (s % C::kStages) * C::kStageBytes + C::kABytes;
-    dequant_stage<MODE>(w, reinterpret_cast<const float*>(w + C::kWBytes),
-                        btile + (s & 1) * C::kBBytes, tid);
+    int split = kBK;
+    if (MODE == kInt4s) {
+      const int r = s * kBK % group;   // the stage's offset in its group
+      split = group - r < kBK ? group - r : kBK;
+    }
+    const float* gs = reinterpret_cast<const float*>(w + C::kWBytes);
+    unsigned char* bt = btile + (s & 1) * C::kBBytes;
+    const int valid = w_rows - s * C::kWRows;
+    if (valid < C::kWRows)   // the stage holding K's end
+      dequant_stage<MODE, true>(w, gs, bt, tid, valid, split);
+    else
+      dequant_stage<MODE, false>(w, gs, bt, tid, valid, split);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
 
@@ -466,7 +525,10 @@ __global__ void __launch_bounds__(kWThreads, 1) grouped_matmul_wgmma_kernel(
   __syncthreads();
 
   const int e = block_expert[tile];
-  const int steps = K / kBK;
+  // K past the last full stage: TMA fills xs columns past K with zeros and
+  // the dequant zeroes weight rows past it.
+  const int steps = (K + kBK - 1) / kBK;
+  const int w_rows = is_int4(MODE) ? K / 2 : K;
   const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
 
   if (warp == kConsumers / 32) {
@@ -474,7 +536,7 @@ __global__ void __launch_bounds__(kWThreads, 1) grouped_matmul_wgmma_kernel(
     // rows are loaded: whole 64-row boxes, then 8-row boxes up to the
     // last real row.
     if ((tid & 31) == 0) {
-      const int w_row0 = e * (MODE == kInt4 ? K / 2 : K);
+      const int w_row0 = e * (is_int4(MODE) ? K / 2 : K);
       const int full64 = rows / 64, small = (rows % 64 + 7) / 8;
       const int tx = (64 * full64 + 8 * small) * kBK * 2 + C::kWBytes +
                      C::kSBytes;
@@ -491,7 +553,7 @@ __global__ void __launch_bounds__(kWThreads, 1) grouped_matmul_wgmma_kernel(
                       &full[slot], s * kBK, m0 + 64 * full64 + 8 * j);
         tma_load_2d(st + C::kABytes, &w_map, &full[slot], n0,
                     w_row0 + s * C::kWRows);
-        if (MODE == kInt4)
+        if (is_int4(MODE))   // kSRows rows from the stage's first group
           tma_load_2d(st + C::kABytes + C::kWBytes, &s_map, &full[slot], n0,
                       e * (K / group) + s * kBK / group);
       }
@@ -502,7 +564,8 @@ __global__ void __launch_bounds__(kWThreads, 1) grouped_matmul_wgmma_kernel(
   // Consumers: warpgroup wg multiplies rows [64 wg, 64 wg + 64) when they
   // hold real rows; an idle warpgroup dequantizes and writes zeros.
   const int wg = warp >> 2;
-  const Consumer<MODE> c{ring, btile, full, empty, steps, tid, wg, rows};
+  const Consumer<MODE> c{ring, btile, full, empty, steps, tid, wg, rows,
+                         w_rows, group > 0 ? group : 1};
   if (wg < mblocks)
     c.template run<true>(scale, e, out, m0, n0, N);
   else
@@ -553,7 +616,7 @@ int launch_wgmma(const void* xs, const void* w, const float* scale,
                  int nx, int group, cudaStream_t stream) {
   using C = GmCfg<MODE>;
   CUtensorMap xs_map, xs8_map, w_map, s_map;
-  const int w_rows = MODE == kInt4 ? K / 2 : K;
+  const int w_rows = is_int4(MODE) ? K / 2 : K;
   bool ok = make_map(&xs_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, xs, tp, K,
                      64, kBK, CU_TENSOR_MAP_SWIZZLE_128B) &&
             make_map(&xs8_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, xs, tp, K,
@@ -563,9 +626,9 @@ int launch_wgmma(const void* xs, const void* w, const float* scale,
                      MODE == kRaw ? 2 : 1, w, (uint64_t)nx * w_rows, N,
                      C::kWRows, kBN, CU_TENSOR_MAP_SWIZZLE_NONE);
   s_map = w_map;
-  if (ok && MODE == kInt4)
+  if (ok && is_int4(MODE))
     ok = make_map(&s_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scale,
-                  (uint64_t)nx * (K / group), N, 1, kBN,
+                  (uint64_t)nx * (K / group), N, C::kSRows, kBN,
                   CU_TENSOR_MAP_SWIZZLE_NONE);
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -617,20 +680,28 @@ __global__ void __launch_bounds__(kThreads) grouped_matmul_f32_kernel(
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < K; k0 += kFK) {
-    {  // xs: 64 rows x 16 k, one float4 per thread
+    {  // xs: 64 rows x 16 k, four per thread, zero past K
       const int r = tid >> 2, c = (tid & 3) * 4;
-      const float4 a =
-          *reinterpret_cast<const float4*>(xs + (int64_t)(m0 + r) * K + k0 + c);
-      As[c][r] = a.x; As[c + 1][r] = a.y; As[c + 2][r] = a.z; As[c + 3][r] = a.w;
+      const float* src = xs + (int64_t)(m0 + r) * K + k0 + c;
+      float a[4];
+      if ((K & 3) == 0 && k0 + c < K) {
+        const float4 v = *reinterpret_cast<const float4*>(src);
+        a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) a[u] = k0 + c + u < K ? src[u] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) As[c + u][r] = a[u];
     }
     if (MODE == kInt4) {   // 8 packed rows x 32 pairs of columns
       const int r = tid >> 5, c = (tid & 31) * 2;
       float lo[2] = {0.f, 0.f}, hi[2] = {0.f, 0.f};
-      if (n0 + c < N) {
+      if (n0 + c < N && k0 / 2 + r < K / 2) {
         const int8_t* b = reinterpret_cast<const int8_t*>(w) +
                           ((int64_t)e * (K / 2) + k0 / 2 + r) * N + n0 + c;
-        const float* g =
-            scale + ((int64_t)e * (K / group) + k0 / group) * N + n0 + c;
+        const float* g = scale +
+            ((int64_t)e * (K / group) + (k0 + 2 * r) / group) * N + n0 + c;
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int byte = b[j];
@@ -643,7 +714,7 @@ __global__ void __launch_bounds__(kThreads) grouped_matmul_f32_kernel(
     } else {               // 16 rows x 16 chunks of 4 columns
       const int r = tid >> 4, c = (tid & 15) * 4;
       float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (n0 + c < N) {
+      if (n0 + c < N && k0 + r < K) {
         const int64_t off = ((int64_t)e * K + k0 + r) * N + n0 + c;
         if (MODE == kRaw) {
           const float4 f = *reinterpret_cast<const float4*>(
@@ -691,6 +762,9 @@ int launch(const void* xs, const void* w, const float* scale,
            const int* block_expert, const int* rows_used,
            const int* tile_rows, void* out, int tp, int K, int N, int nx,
            int group, int dtype, cudaStream_t stream) {
+  if (dtype == 1 && MODE == kInt4 && group % kBK)   // two groups a stage
+    return launch_wgmma<kInt4s>(xs, w, scale, block_expert, rows_used,
+                                tile_rows, out, tp, K, N, nx, group, stream);
   if (dtype == 1)
     return launch_wgmma<MODE>(xs, w, scale, block_expert, rows_used,
                               tile_rows, out, tp, K, N, nx, group, stream);
@@ -699,6 +773,15 @@ int launch(const void* xs, const void* w, const float* scale,
       (const float*)xs, w, scale, block_expert, rows_used, (float*)out, K, N,
       group);
   return (int)cudaGetLastError();
+}
+
+// Whether every 64-wide K stage of an int4 weight spans two groups at most
+// (the scale rows one stage of the bf16 kernel carries).
+bool stages_fit(int k, int group) {
+  for (int k0 = 0; k0 < k; k0 += kBK)
+    if (((k0 + kBK < k ? k0 + kBK : k) - 1) / group - k0 / group > 1)
+      return false;
+  return true;
 }
 
 }  // namespace
@@ -714,19 +797,21 @@ const char* arks_cuda_error_string(int err) {
 // scale [nx, n] f32, 2 = packed int4 [nx, k/2, n] with scale [nx, k/group,
 // n] f32.  block_expert [tp / 128] int32; rows_used NULL or [1] int32;
 // tile_rows NULL or [tp / 128] int32 (bf16 only; the f32 kernel reads
-// rows_used).  tp % 128 == 0, n % 16 == 0, k % 64 == 0 for bf16 (32 for
-// f32), and for int4 a group of that multiple dividing k; the wrapper
-// checks all of these (and raises) first.
+// rows_used).  tp % 128 == 0, n % 16 == 0, any k (a multiple of 8 for bf16:
+// the rows of a TMA tensor are 16-byte aligned); an int4 group divides k,
+// is even (f32) or a multiple of 8 whose 64-wide stages span two groups at
+// most (bf16).  The wrapper checks all of these (and raises) first.
 int arks_grouped_matmul(const void* xs, const void* w, const void* scale,
                         const void* block_expert, const void* rows_used,
                         const void* tile_rows, void* out, int tp, int k,
                         int n, int nx, int group, int mode, int dtype,
                         void* stream) {
   if (tp <= 0 || n <= 0) return 0;
-  const int step = dtype == 1 ? kBK : kFK * 2;
-  if (tp % kTile || k <= 0 || k % step || n % 16 || nx <= 0 ||
+  if (tp % kTile || k <= 0 || (dtype == 1 && k % 8) || n % 16 || nx <= 0 ||
       (dtype != 0 && dtype != 1) || (mode != kRaw && scale == nullptr) ||
-      (mode == kInt4 && (group <= 0 || group % step || k % group)))
+      (mode == kInt4 &&
+       (group <= 0 || k % group || k % 2 || group % (dtype == 1 ? 8 : 2) ||
+        (dtype == 1 && !stages_fit(k, group)))))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const float* sc = (const float*)scale;

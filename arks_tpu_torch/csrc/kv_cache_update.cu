@@ -4,7 +4,8 @@
 //
 // Replaces two Pallas kernels of arks_tpu/ops/pallas_attention.py:
 //  - `_update_kernel` (launched by `kv_cache_update`): slot b writes
-//    k_new[b] / v_new[b] ([Hkv, D], already in the cache dtype) at
+//    k_new[b] / v_new[b] ([Hkv, D], in the cache dtype, or f32 rows into
+//    a bf16 cache rounded to nearest even on the way, as astype does) at
 //    (layer, b, head, write_idx[b]);
 //  - `_update_quant_kernel` (launched by `kv_cache_update_quant`), fused
 //    with the `quantize_kv` (qmax 127) its wrapper runs first:
@@ -37,6 +38,23 @@ namespace {
 
 constexpr int kWarps = 4;  // (slot, head) rows per block, quantized write
 
+// Vector i of a new row: 16 bytes as they are, or (NARROW) 8 f32 values
+// rounded to 8 bf16.
+template <bool NARROW>
+__device__ __forceinline__ uint4 row_vec(const uint4* row, int i) {
+  if (!NARROW) return row[i];
+  const float4 a = reinterpret_cast<const float4*>(row)[2 * i];
+  const float4 b = reinterpret_cast<const float4*>(row)[2 * i + 1];
+  uint4 out;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&out);
+  h[0] = __floats2bfloat162_rn(a.x, a.y);
+  h[1] = __floats2bfloat162_rn(a.z, a.w);
+  h[2] = __floats2bfloat162_rn(b.x, b.y);
+  h[3] = __floats2bfloat162_rn(b.z, b.w);
+  return out;
+}
+
+template <bool NARROW>
 __global__ void kv_cache_update_kernel(uint4* __restrict__ k_cache,
                                        uint4* __restrict__ v_cache,
                                        const uint4* __restrict__ k_new,
@@ -50,13 +68,13 @@ __global__ void kv_cache_update_kernel(uint4* __restrict__ k_cache,
   if (idx < 0 || idx >= max_len) return;                  // dropped row
   const int64_t row =
       (((int64_t)layer * n_slots + b) * hkv + h) * max_len + idx;
-  const int64_t src = (int64_t)b * hkv + h;
+  const int64_t src = ((int64_t)b * hkv + h) * vecs_per_row * (NARROW ? 2 : 1);
   for (int i = threadIdx.x; i < 2 * vecs_per_row; i += blockDim.x) {
     if (i < vecs_per_row) {
-      k_cache[row * vecs_per_row + i] = k_new[src * vecs_per_row + i];
+      k_cache[row * vecs_per_row + i] = row_vec<NARROW>(k_new + src, i);
     } else {
       const int j = i - vecs_per_row;
-      v_cache[row * vecs_per_row + j] = v_new[src * vecs_per_row + j];
+      v_cache[row * vecs_per_row + j] = row_vec<NARROW>(v_new + src, j);
     }
   }
 }
@@ -138,21 +156,29 @@ const char* arks_cuda_error_string(int err) {
 }
 
 // row_bytes = D * sizeof(cache dtype); must be a multiple of 16 and every
-// pointer 16-byte aligned (the wrapper checks both).
+// pointer 16-byte aligned (the wrapper checks both).  narrow = 1: the new
+// rows are f32 and the caches bf16.
 int arks_kv_cache_update(void* k_cache, void* v_cache, const void* k_new,
                          const void* v_new, const void* write_idx,
                          int n_slots, int hkv, int max_len, int row_bytes,
-                         int layer, void* stream) {
+                         int layer, int narrow, void* stream) {
   if (n_slots <= 0 || hkv <= 0) return 0;
   if (row_bytes <= 0 || row_bytes % 16 != 0) return (int)cudaErrorInvalidValue;
   const int vecs = row_bytes / 16;
   int threads = 2 * vecs;
   threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
   dim3 grid(n_slots, hkv);
-  kv_cache_update_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (uint4*)k_cache, (uint4*)v_cache, (const uint4*)k_new,
-      (const uint4*)v_new, (const int*)write_idx, n_slots, hkv, max_len, vecs,
-      layer);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (narrow)
+    kv_cache_update_kernel<true><<<grid, threads, 0, st>>>(
+        (uint4*)k_cache, (uint4*)v_cache, (const uint4*)k_new,
+        (const uint4*)v_new, (const int*)write_idx, n_slots, hkv, max_len,
+        vecs, layer);
+  else
+    kv_cache_update_kernel<false><<<grid, threads, 0, st>>>(
+        (uint4*)k_cache, (uint4*)v_cache, (const uint4*)k_new,
+        (const uint4*)v_new, (const int*)write_idx, n_slots, hkv, max_len,
+        vecs, layer);
   return (int)cudaGetLastError();
 }
 

@@ -19,8 +19,8 @@ in the reference:
   fans its tokens out — the reference's sequential order, the one it runs
   off its own accelerator.
 
-The KV cache is bf16/f32 (the engine dtype) or int8; a paged pool may also
-be int4, on either scheduler (the legacy one sends its int4 decode through
+The KV cache is the engine dtype, bf16 (also under an f32 engine, whose
+attention reads it widened) or int8; a paged pool may also be int4, on either scheduler (the legacy one sends its int4 decode through
 the mixed attention kernel, one query per slot).  Weights are the engine
 dtype or int8 / int4 (``weight_dtype``); dense and MoE models alike.  Seeded sampling
 draws the reference's threefry keys.  What the reference does and this
@@ -245,10 +245,10 @@ class InferenceEngine:
             c -= 1
         self._page = c
         kv = engine_cfg.resolve_kv_cache_dtype()
-        if kv == "bf16" and dtype != torch.bfloat16:
-            raise NotImplementedError(
-                "a bf16 cache under a float32 engine: the attention kernels "
-                "read q and an unquantized cache in one dtype")
+        # An unquantized cache is bf16 when asked for, whatever the engine
+        # dtype (the reference's _cache_dtype); the attention kernels read
+        # it widened to an f32 engine's dtype.
+        cache_dtype = torch.bfloat16 if kv == "bf16" else dtype
         self._paged = engine_cfg.kv_layout != "slot"
         knob = mixed_step_knob()
         self._mixed = self._paged and knob != "0"
@@ -261,13 +261,14 @@ class InferenceEngine:
             self._max_pages = engine_cfg.max_cache_len // c
             num_pages = n * self._max_pages
             self.cache = tf.init_paged_cache(
-                cfg, num_pages, c, dtype, self.device, quantized=quantized,
+                cfg, num_pages, c, cache_dtype, self.device,
+                quantized=quantized,
                 kv_bits=4 if kv == "int4" else 8)
             self._alloc = PageAllocator(num_pages, c)
         else:
             self._max_pages = 0
             self.cache = tf.init_cache(cfg, n, engine_cfg.max_cache_len,
-                                       dtype, self.device,
+                                       cache_dtype, self.device,
                                        quantized=quantized)
             self._alloc = None
         self._mixed_budget = 0

@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 _F = ctypes.c_float
 
 # C entry points: name -> (source stem, argtypes).  Every entry returns the
@@ -46,7 +47,7 @@ _SIGNATURES: dict[str, tuple[str, list]] = {
         _P, _P, _P, _P,          # k_pool, v_pool, k_new, v_new
         _P, _P,                  # write_idx [T], tables [T, MaxP]
         _I, _I, _I, _I, _I, _I,  # T, hkv, max_pages, n_pages, page, row_bytes
-        _I, _P]),                # layer, stream
+        _I, _I, _P]),            # layer, narrow (f32 rows -> bf16), stream
     "arks_paged_kv_update_quant": ("paged_kv_update_quant", [
         _P, _P, _P, _P,          # k_pool, v_pool (int8), k_scale, v_scale
         _P, _P, _P, _P,          # k_new, v_new, write_idx [T], tables
@@ -57,14 +58,20 @@ _SIGNATURES: dict[str, tuple[str, list]] = {
         _P, _P,                  # k_scale, v_scale [L,N,Hkv,P] f32 or NULL
         _P, _P, _P, _P,          # tables [S,MaxP], pos_start, q_start, q_len
         _P, _P, _P, _P, _P,      # work list: seq, head, qb, plo, pages
+        _P, _P, _P,              # pieces: pcum, pbase, pitem
+        _P, _L,                  # partials [rows, D+4] f32, their rows
+        _P, _P, _P,              # carry m [T,H], l [T,H], acc [T,H,D] or NULL
+        _P, _P, _P,              # emit m, l, acc or NULL
         _I, _I, _I, _I, _I,      # n_items, n_heads, hkv, head_dim, page
         _I, _I, _I, _I,          # n_pages, max_pages, layer, block_q
-        _F, _I, _I, _P]),        # scale, dtype code (0 f32, 1 bf16),
-                                 # kv code (0 q's dtype, 1 int8, 2 int4), stream
+        _F, _I, _I, _I, _P]),    # scale, dtype code (0 f32, 1 bf16), kv code
+                                 # (0 q's dtype, 1 int8, 2 int4, 3 bf16
+                                 # under f32 q), state mode, stream
     "arks_kv_cache_update": ("kv_cache_update", [
         _P, _P, _P, _P,          # k_cache, v_cache, k_new, v_new
         _P,                      # write_idx [B]
-        _I, _I, _I, _I, _I, _P]),  # B, hkv, max_len, row_bytes, layer, stream
+        _I, _I, _I, _I, _I,      # B, hkv, max_len, row_bytes, layer
+        _I, _P]),                # narrow (f32 rows -> bf16), stream
     "arks_kv_cache_update_quant": ("kv_cache_update", [
         _P, _P, _P, _P,          # k_cache, v_cache (int8), k_scale, v_scale
         _P, _P, _P,              # k_new, v_new, write_idx [B]
@@ -87,6 +94,8 @@ _SIGNATURES: dict[str, tuple[str, list]] = {
         _P, _P, _P, _P,          # q [T,H,D], out [T,H,D], k_pool, v_pool
         _P, _P,                  # k_scale, v_scale [L,N,Hkv,P] f32 or NULL
         _P, _P, _P, _P,          # tables [S,MaxP], pos_start, q_start, q_len
+        _P, _P, _P,              # pieces: pcum, pbase, pitem
+        _P, _L,                  # partials [rows, D+4] f32, their rows
         _I, _I, _I, _I, _I,      # S, num_qb, n_heads, hkv, head_dim
         _I, _I, _I, _I, _I,      # page, n_pages, max_pages, layer, block_q
         _F, _I, _I, _P]),        # scale, dtype code, kv code, stream

@@ -34,11 +34,21 @@ from arks_tpu_torch.ops.paged_attention import (_check_operands, _stream,
 
 BLOCK_T = 128
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Kernel tiling constraints (csrc/grouped_matmul.cu): K in stages of 64 on
-# the bf16 (wgmma) kernel and 32 on the f32 one (an int4 group must hold
-# whole stages), N in 16-byte vectors.
-_KERNEL_K_STEP = {torch.bfloat16: 64, torch.float32: 32}
+# Kernel constraints (csrc/grouped_matmul.cu): any K, a multiple of 8 for
+# bf16 xs (TMA rows are 16-byte aligned); N in 16-byte vectors; an int4
+# group dividing K, a multiple of 8 (bf16, even for f32) whose 64-wide K
+# stages of the bf16 kernel span two groups at most.
+_KERNEL_K_ALIGN = {torch.bfloat16: 8, torch.float32: 1}
+_KERNEL_GROUP_ALIGN = {torch.bfloat16: 8, torch.float32: 2}
 _KERNEL_N_STEP = 16
+_KERNEL_STAGE = 64
+
+
+def _stages_fit(k: int, group: int) -> bool:
+    """Every 64-wide K stage of the bf16 kernel spans two int4 groups at
+    most (the scale rows one stage carries)."""
+    return all((min(k0 + _KERNEL_STAGE, k) - 1) // group - k0 // group <= 1
+               for k0 in range(0, k, _KERNEL_STAGE))
 
 
 def moe_impl() -> str:
@@ -156,9 +166,9 @@ def grouped_matmul(
     ``tile_rows`` (``tile_rows()``: each tile's real rows) lets the bf16
     kernel multiply only a tile's first 64 rows when no more are real; the
     rows it skips are zero rows, so the output is the same.  The kernel
-    takes block_t 128, K a multiple of 64 for bf16 xs (32 for f32) and of
-    the int4 group, itself such a multiple, and N a multiple of 16; it
-    raises on anything else."""
+    takes block_t 128, any K (a multiple of 8 for bf16 xs), an int4 group
+    dividing K (a multiple of 8 for bf16 — 32, or a multiple of 64, say —
+    even for f32) and N a multiple of 16; it raises on anything else."""
     tp, k_x = xs.shape
     mode, k = _weight_mode(w, w_scale, w_group_scale)
     nx, n = w.shape[0], w.shape[-1]
@@ -187,15 +197,19 @@ def grouped_matmul(
         scale = w_group_scale
         ng = w_group_scale.shape[1]
         group = k // ng
+        align = _KERNEL_GROUP_ALIGN[xs.dtype]
         if w_group_scale.dtype != torch.float32 or \
                 tuple(w_group_scale.shape) != (nx, ng, n) or \
-                group * ng != k or group % _KERNEL_K_STEP[xs.dtype]:
+                group * ng != k or group % align or \
+                (xs.dtype == torch.bfloat16 and not _stages_fit(k, group)):
             raise ValueError(f"grouped_matmul kernel: w_group_scale "
                              f"{tuple(w_group_scale.shape)} "
                              f"{w_group_scale.dtype} for K {k}: f32 "
-                             f"[X, K/G, N] with G a multiple of "
-                             f"{_KERNEL_K_STEP[xs.dtype]}")
-    step = _KERNEL_K_STEP[xs.dtype]
+                             f"[X, K/G, N] with G a multiple of {align}"
+                             + (" whose 64-wide K stages span two groups "
+                                "at most" if xs.dtype == torch.bfloat16
+                                else ""))
+    step = _KERNEL_K_ALIGN[xs.dtype]
     if block_t != BLOCK_T or k % step or n % _KERNEL_N_STEP:
         raise ValueError(f"grouped_matmul kernel takes block_t {BLOCK_T}, "
                          f"K % {step} == 0 and N % {_KERNEL_N_STEP} == 0; "

@@ -38,16 +38,22 @@ from arks_tpu_torch.ops import _kernels
 
 _NEG_INF = -1e30
 
-# Most query rows one attention work item holds (csrc kBQ): the CUDA
-# kernel keeps each row's online-softmax state in registers.
-MAX_BLOCK_Q = 8
-# Most query heads per KV head the CUDA kernel takes (one warp each).
+# Most query rows one attention work item holds (csrc kBQ): the reference's
+# default block_q, min(qmax, 32).
+MAX_BLOCK_Q = 32
+# Most query heads per KV head the CUDA kernels take.
 MAX_GROUP = 8
+# Most positions per split-KV piece of the mixed-attention kernel (csrc
+# kPiece): one page of the served pool; a larger page (a multiple of it)
+# is cut into pieces of this size.
+MIXED_PIECE = 256
 # Positions per split-KV piece of the decode kernels (csrc kSplit): one
 # 256-token page of the served pool, 256 rows of a slot stripe.
 DECODE_SPLIT = 256
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The mixed-attention kernel's pool streams (csrc kSame .. kBf16Pool).
+_KV_SAME, _KV_INT8, _KV_INT4, _KV_BF16 = 0, 1, 2, 3
 
 
 def _use_kernel(x: torch.Tensor, impl: str | None) -> bool:
@@ -165,7 +171,9 @@ def mixed_grid_plan(qmax: int) -> dict:
 
 def build_mixed_work_list(pos_start: torch.Tensor, q_len: torch.Tensor, *,
                           page: int, block_q: int, num_qb: int,
-                          max_pages: int, head_groups: int = 1):
+                          max_pages: int, head_groups: int = 1,
+                          page_lo: torch.Tensor | None = None,
+                          page_hi: torch.Tensor | None = None):
     """The ragged grid's work list, built on the tensors' device with torch
     ops (no host round trip).  One item per REAL (sequence, head_group,
     q_block), compacted to the front of a fixed-length
@@ -173,9 +181,10 @@ def build_mixed_work_list(pos_start: torch.Tensor, q_len: torch.Tensor, *,
     (seq, hg, qb, plo, pages), each int32:
 
     - real items: pages = ceil(causal kv end / page) clamped to the table
-      width; plo = 0 (span bounds are a later slice);
+      width and to ``page_hi[seq]``; plo = min(``page_lo[seq]``, pages)
+      (0 without ``page_lo``) — the item streams pages [plo, pages);
     - padding items (q_len = 0 lanes, q-blocks past a lane's q_len):
-      pages = 0 and (seq, hg, qb) aliased to the LAST real item.
+      pages = 0, plo = 0 and (seq, hg, qb) aliased to the LAST real item.
 
     Bit-for-bit the reference's list (``paged_attention.py:172``)."""
     dev = q_len.device
@@ -194,7 +203,13 @@ def build_mixed_work_list(pos_start: torch.Tensor, q_len: torch.Tensor, *,
         + torch.minimum(q_lo + block_q, qlen_i), torch.zeros_like(q_lo))
     pages = torch.clamp(torch.div(kv_end + (page - 1), page,
                                   rounding_mode="floor"), max=max_pages)
-    plo = torch.zeros_like(pages)
+    if page_hi is not None:
+        pages = torch.minimum(pages, page_hi.to(torch.int32)[seq_l])
+    if page_lo is not None:
+        plo = torch.where(active, torch.minimum(
+            page_lo.to(torch.int32)[seq_l], pages), torch.zeros_like(pages))
+    else:
+        plo = torch.zeros_like(pages)
     order = torch.argsort(torch.logical_not(active).to(torch.int32),
                           stable=True)
     seq, hg, qb, plo, pages = (seq[order], hg[order], qb[order], plo[order],
@@ -205,8 +220,63 @@ def build_mixed_work_list(pos_start: torch.Tensor, q_len: torch.Tensor, *,
     seq = torch.where(pad, seq[last], seq)
     hg = torch.where(pad, hg[last], hg)
     qb = torch.where(pad, qb[last], qb)
+    plo = torch.where(pad, torch.zeros_like(plo), plo)
     pages = torch.where(pad, torch.zeros_like(pages), pages)
     return seq, hg, qb, plo, pages
+
+
+def pieces_per_page(page: int) -> int:
+    """Split-KV pieces of one pool page: 1 up to MIXED_PIECE positions,
+    page / MIXED_PIECE above (the kernel takes multiples of it there)."""
+    return max(1, page // MIXED_PIECE)
+
+
+def mixed_pieces(q_len: torch.Tensor, seq: torch.Tensor, qb: torch.Tensor,
+                 plo: torch.Tensor, pages: torch.Tensor, *, page: int,
+                 block_q: int, max_pages: int):
+    """The split-KV layout of a list of items (the work list, or the dense
+    rectangle in its order), on the device with no host sync: item i
+    streams pages [plo[i], pages[i]) as (pages - plo) * pieces_per_page
+    pieces of at most MIXED_PIECE positions (none for padding items, whose
+    pages are 0).  Returns (pcum, pbase, pitem), int32: the inclusive
+    prefix sum of the piece counts [n_items]; the first partial row of each
+    item [n_items] in units of its query rows (the kernel scales it by G),
+    the sum of count x rows over the items before it; and the item of each
+    piece [n_items * max_pages * pieces_per_page] (the grid's static
+    bound; entries past the last piece are unused)."""
+    rows = torch.clamp(torch.minimum(
+        q_len.to(torch.int32)[seq.long()] - qb * block_q,
+        torch.full_like(qb, block_q)), min=0)
+    count = torch.clamp(pages - plo, min=0) * pieces_per_page(page)
+    count = torch.where(rows > 0, count, torch.zeros_like(count))
+    used = count * rows
+    pcum = torch.cumsum(count, 0).to(torch.int32)
+    pbase = (torch.cumsum(used, 0) - used).to(torch.int32)
+    bound = pcum.shape[0] * max_pages * pieces_per_page(page)
+    pitem = torch.clamp(torch.searchsorted(
+        pcum, torch.arange(bound, dtype=torch.int32, device=pcum.device),
+        right=True), max=pcum.shape[0] - 1).to(torch.int32)
+    return pcum, pbase, pitem
+
+
+def dense_items(pos_start: torch.Tensor, q_len: torch.Tensor, *, page: int,
+                block_q: int, num_qb: int, hkv: int, max_pages: int):
+    """The dense rectangle's items in its order, item (s * hkv + h) *
+    num_qb + qb: (seq, qb, plo, pages) as the dense kernel derives them —
+    an idle q-block has no pages."""
+    s = q_len.shape[0]
+    i32 = dict(dtype=torch.int32, device=q_len.device)
+    seq = torch.arange(s, **i32).repeat_interleave(hkv * num_qb)
+    qb = torch.arange(num_qb, **i32).repeat(s * hkv)
+    qlen_i = q_len.to(torch.int32)[seq.long()]
+    q_lo = qb * block_q
+    active = q_lo < qlen_i
+    end = pos_start.to(torch.int32)[seq.long()] + torch.minimum(
+        q_lo + block_q, qlen_i)
+    pages = torch.where(active, torch.clamp(torch.div(
+        end + (page - 1), page, rounding_mode="floor"), max=max_pages),
+        torch.zeros_like(end))
+    return seq, qb, torch.zeros_like(pages), pages
 
 
 # ---------------------------------------------------------------------------
@@ -280,6 +350,17 @@ def paged_kv_update_plain(k_pool, v_pool, k_new, v_new, write_idx, tables,
     return k_pool, v_pool
 
 
+def _rows_for(pool: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor):
+    """The new rows as an update kernel takes them: (k, v, narrow).  f32
+    rows into a bf16 pool stay f32 and the kernel rounds them (narrow 1);
+    other rows are cast to the pool dtype here."""
+    if pool.dtype == torch.bfloat16 and k_new.dtype == torch.float32 and \
+            v_new.dtype == torch.float32:
+        return k_new.contiguous(), v_new.contiguous(), 1
+    return (k_new.to(pool.dtype).contiguous(),
+            v_new.to(pool.dtype).contiguous(), 0)
+
+
 def paged_kv_update(k_pool: torch.Tensor,    # [L, N, Hkv, P, D]
                     v_pool: torch.Tensor,
                     k_new: torch.Tensor,     # [T, Hkv, D]
@@ -288,7 +369,8 @@ def paged_kv_update(k_pool: torch.Tensor,    # [L, N, Hkv, P, D]
                     tables: torch.Tensor,     # [T, MaxP] int32
                     layer: int, *, impl: str | None = None):
     """Write one KV row per token at its table-mapped page, IN PLACE; rows
-    with write_idx >= MaxP * P are dropped.  CUDA tensors launch
+    with write_idx >= MaxP * P are dropped.  f32 rows into a bf16 pool are
+    rounded to nearest even, as the reference's astype.  CUDA tensors launch
     ``csrc/paged_kv_update.cu`` (replaces the Pallas ``_paged_update_kernel``);
     CPU tensors take ``paged_kv_update_plain``."""
     if not _use_kernel(k_pool, impl):
@@ -299,8 +381,7 @@ def paged_kv_update(k_pool: torch.Tensor,    # [L, N, Hkv, P, D]
     if k_pool.dtype not in _KERNEL_DTYPES or v_pool.dtype != k_pool.dtype:
         raise TypeError(f"paged_kv_update kernel takes bf16/f32 pools, got "
                         f"{k_pool.dtype}/{v_pool.dtype}")
-    kn = k_new.to(k_pool.dtype).contiguous()
-    vn = v_new.to(v_pool.dtype).contiguous()
+    kn, vn, narrow = _rows_for(k_pool, k_new, v_new)
     widx = write_idx.to(torch.int32).contiguous()
     tbl = tables.to(torch.int32).contiguous()
     row_bytes = d * k_pool.element_size()
@@ -320,7 +401,7 @@ def paged_kv_update(k_pool: torch.Tensor,    # [L, N, Hkv, P, D]
     _kernels.launch("arks_paged_kv_update", k_pool.data_ptr(),
                     v_pool.data_ptr(), kn.data_ptr(), vn.data_ptr(),
                     widx.data_ptr(), tbl.data_ptr(), t, hkv, tbl.shape[1], n,
-                    page, row_bytes, int(layer), _stream())
+                    page, row_bytes, int(layer), narrow, _stream())
     paged_kv_update.launches += 1
     return k_pool, v_pool
 
@@ -426,58 +507,157 @@ def gather_pool(pool, tables, layer, int4: bool) -> torch.Tensor:
     return paged_gather_kv(pool, tables, layer)
 
 
-def paged_mixed_attention_plain(q, k_pool, v_pool, tables, seq_q_start,
-                                q_len, pos_start, layer, *, k_scale=None,
-                                v_scale=None, qmax=None):
-    """Plain version of the attention kernel: gather each lane's queries
-    into [S, Hkv, G, Qmax, D] and its pages into [S, Hkv, MaxP*P, D], do the
-    masked softmax in f32 in one pass, and scatter the valid rows back to
-    [T, H, D].  The kernel's folding: scores = (q.k) / sqrt(D), times the
-    per-token k scale of a quantized pool; p times the per-token v scale,
-    then rounded to the V dtype (q's dtype for a quantized pool) before
-    p.V; divide by l + 1e-9 after.  Rows no lane owns are zero."""
+def _mixed_lanes(q, k_pool, v_pool, tables, seq_q_start, q_len, pos_start,
+                 layer, k_scale, v_scale, qmax, page_lo, page_hi):
+    """The plain versions' per-lane view: scores [S, Hkv, G, Q, C] (f32,
+    scaled, k scale folded), the visible mask [S, 1, 1, Q, C] (causal, and
+    inside the span [page_lo * P, page_hi * P)), V [S, Hkv, C, D] in q's
+    dtype, the v scales [S, Hkv, 1, 1, C] or None, and the lane rows'
+    flat token indices [S, Q] with their validity."""
     t, h, d = q.shape
     s = q_len.shape[0]
     hkv = k_pool.shape[2]
     g = h // hkv
     int4 = is_int4_pool(k_pool, k_scale)
-    cover = tables.shape[1] * pool_page_tokens(k_pool, k_scale)
-    qmax = qmax or _default_qmax(t, s)
+    page = pool_page_tokens(k_pool, k_scale)
+    cover = tables.shape[1] * page
     dev = q.device
     ar = torch.arange(qmax, device=dev)
     span = seq_q_start.long()[:, None] + ar                      # [S, Qmax]
     valid = ar[None, :] < q_len.long()[:, None]
     qs = q[span.clamp(max=t - 1)].reshape(s, qmax, hkv, g, d).float()
     kc = gather_pool(k_pool, tables, layer, int4).float()       # [S,Hkv,C,D]
-    vc = gather_pool(v_pool, tables, layer, int4)
+    vc = gather_pool(v_pool, tables, layer, int4).to(q.dtype)
     scores = torch.einsum("sqkgd,skcd->skgqc", qs, kc) * (1.0 / math.sqrt(d))
     if k_scale is not None:
         scores = scores * paged_gather_kv(k_scale, tables,
                                           layer)[:, :, None, None, :]
     qpos = pos_start.long()[:, None] + ar                        # [S, Qmax]
-    seen = torch.arange(cover, device=dev)[None, None, :] <= qpos[:, :, None]
-    scores = scores.masked_fill(~seen[:, None, None], _NEG_INF)
-    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
-    l = p.sum(dim=-1, keepdim=True)
-    p_dtype = vc.dtype
+    pos = torch.arange(cover, device=dev)
+    seen = pos[None, None, :] <= qpos[:, :, None]                # [S, Q, C]
+    if page_lo is not None:
+        seen = seen & (pos >= page_lo.long()[:, None, None] * page)
+    if page_hi is not None:
+        seen = seen & (pos < page_hi.long()[:, None, None] * page)
+    vsc = None
     if v_scale is not None:
-        p = p * paged_gather_kv(v_scale, tables, layer)[:, :, None, None, :]
-        p_dtype = q.dtype
-    pv = torch.einsum("skgqc,skcd->skgqd", p.to(p_dtype).float(), vc.float())
-    o = (pv / (l + 1e-9)).to(q.dtype)                            # [S,Hkv,G,Q,D]
-    rows = o.permute(0, 3, 1, 2, 4).reshape(s * qmax, h, d)
-    out = torch.zeros((t + 1, h, d), dtype=q.dtype, device=dev)
+        vsc = paged_gather_kv(v_scale, tables, layer)[:, :, None, None, :]
+    return scores, seen[:, None, None], vc, vsc, span, valid
+
+
+def _flat_to_lanes(x, span, hkv):
+    """Flat rows [T, H(, D)] -> [S, Hkv, G, Q(, D)] of the lanes' rows."""
+    t, h = x.shape[:2]
+    y = x[span.clamp(max=t - 1)]                         # [S, Q, H(, D)]
+    y = y.reshape(*span.shape, hkv, h // hkv, *x.shape[2:])
+    return y.movedim(1, 3)
+
+
+def _lanes_to_flat(x, span, valid, t):
+    """[S, Hkv, G, Q(, D)] -> flat rows [T, H(, D)]; rows no lane owns are
+    zero."""
+    y = x.movedim(3, 1)                                  # [S, Q, Hkv, G(, D)]
+    rows = y.reshape(span.numel(), y.shape[2] * y.shape[3], *y.shape[4:])
+    out = torch.zeros((t + 1, *rows.shape[1:]), dtype=x.dtype,
+                      device=x.device)
     dst = torch.where(valid, span, torch.full_like(span, t)).reshape(-1)
-    out.index_copy_(0, dst, rows)     # rows no lane owns land in row T
+    out.index_copy_(0, dst, rows)       # rows no lane owns land in row T
     return out[:t]
+
+
+def _fold(state, piece):
+    """The left fold of two online-softmax states (m, l, acc)."""
+    m, l, acc = state
+    mp, lp, accp = piece
+    mx = torch.maximum(m, mp)
+    a, b = torch.exp(m - mx), torch.exp(mp - mx)
+    return mx, l * a + lp * b, acc * a[..., None] + accp * b[..., None]
+
+
+def _mixed_piece(scores, seen, vc, vsc, p_dtype):
+    """(m, l, acc) of the visible positions alone, from (-1e30, 0, 0):
+    p = exp(s - m) there and 0 elsewhere, times the v scale, rounded to
+    p_dtype before p.V."""
+    m = torch.where(seen, scores, _NEG_INF).amax(dim=-1)
+    p = torch.where(seen, torch.exp(scores - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    if vsc is not None:
+        p = p * vsc
+    acc = torch.einsum("skgqc,skcd->skgqd", p.to(p_dtype).float(), vc.float())
+    return m, l, acc
+
+
+def paged_mixed_attention_plain(q, k_pool, v_pool, tables, seq_q_start,
+                                q_len, pos_start, layer, *, k_scale=None,
+                                v_scale=None, qmax=None, page_lo=None,
+                                page_hi=None, carry_state=None,
+                                emit_state=False, split=False):
+    """Plain version of the attention kernel: gather each lane's queries
+    into [S, Hkv, G, Qmax, D] and its pages into [S, Hkv, MaxP*P, D], do the
+    masked softmax in f32, and scatter the valid rows back to [T, H, D].
+    The kernel's folding: scores = (q.k) / sqrt(D), times the per-token k
+    scale of a quantized pool; p = exp(s - m) on the visible positions
+    (causal, inside [page_lo * P, page_hi * P)) and 0 elsewhere, times the
+    per-token v scale, then rounded to q's dtype before p.V (the pool is
+    read in q's dtype, a bf16 pool under f32 q widened); divide by
+    l + 1e-9 after.  Rows no lane owns are zero.
+
+    ``carry_state`` (m [T, H], l [T, H], acc [T, H, D], f32) starts the
+    softmax from that state instead of (-1e30, 0, 0); ``emit_state``
+    returns the raw f32 (m, l, acc) in that layout instead of the output.
+    The state is one pass over the span — m its largest score, l and acc
+    rescaled to it — or, with ``split``, the kernel's split-KV form: one
+    state per piece of at most MIXED_PIECE positions, folded left in page
+    order (the same function up to the rounding of p against each piece's
+    m instead of the span's)."""
+    t, h, d = q.shape
+    hkv = k_pool.shape[2]
+    qmax = qmax or _default_qmax(t, q_len.shape[0])
+    scores, seen, vc, vsc, span, valid = _mixed_lanes(
+        q, k_pool, v_pool, tables, seq_q_start, q_len, pos_start, layer,
+        k_scale, v_scale, qmax, page_lo, page_hi)
+    if carry_state is None:
+        zeros = torch.zeros(scores.shape[:4], dtype=torch.float32,
+                            device=q.device)
+        state = (zeros + _NEG_INF, zeros, zeros[..., None].expand(
+            *zeros.shape, d))
+    else:
+        state = tuple(_flat_to_lanes(x.float(), span, hkv)
+                      for x in carry_state)
+    if split:
+        plen = min(pool_page_tokens(k_pool, k_scale), MIXED_PIECE)
+        pos = torch.arange(scores.shape[-1], device=q.device)
+        for p0 in range(0, scores.shape[-1], plen):
+            piece = seen & (pos >= p0) & (pos < p0 + plen)
+            state = _fold(state, _mixed_piece(scores, piece, vc, vsc,
+                                              q.dtype))
+    else:
+        m_c, l_c, acc_c = state
+        m = torch.maximum(m_c, torch.where(seen, scores, _NEG_INF)
+                          .amax(dim=-1))
+        p = torch.where(seen, torch.exp(scores - m[..., None]), 0.0)
+        a = torch.exp(m_c - m)
+        l = l_c * a + p.sum(dim=-1)
+        if vsc is not None:
+            p = p * vsc
+        acc = acc_c * a[..., None] + torch.einsum(
+            "skgqc,skcd->skgqd", p.to(q.dtype).float(), vc.float())
+        state = (m, l, acc)
+    m, l, acc = state
+    if emit_state:
+        return tuple(_lanes_to_flat(x, span, valid, t) for x in state)
+    o = (acc / (l + 1e-9)[..., None]).to(q.dtype)                # [S,Hkv,G,Q,D]
+    return _lanes_to_flat(o, span, valid, t)
 
 
 class MixedWork(NamedTuple):
     """Layer-invariant launch inputs of the attention kernel for one mixed
     dispatch: the lane view as contiguous int32 tensors, the grid mode,
     the ragged work list (seq, head, qb, plo, pages; None on the dense
-    grid), block_q and num_qb.  ``mixed_work`` builds it once per step;
-    every layer's launch reuses it."""
+    grid), block_q and num_qb, the split-KV layout of the grid's items
+    (``mixed_pieces``: pcum, pbase, pitem) and the pool's page.
+    ``mixed_work`` builds it once per step; every layer's launch reuses
+    it."""
 
     tables: torch.Tensor
     seq_q_start: torch.Tensor
@@ -487,24 +667,41 @@ class MixedWork(NamedTuple):
     block_q: int
     num_qb: int
     grid: str
+    pieces: tuple
+    page: int
 
 
 def mixed_work(tables, seq_q_start, q_len, pos_start, *, page: int, hkv: int,
-               qmax: int, grid: str | None = None) -> MixedWork:
+               qmax: int, grid: str | None = None,
+               page_lo: torch.Tensor | None = None,
+               page_hi: torch.Tensor | None = None) -> MixedWork:
     """One step's ``MixedWork`` on ``grid`` (``mixed_grid_mode()`` when
-    None): the work list is built for the ragged grid only."""
+    None): the work list (cut to the spans ``page_lo``/``page_hi`` when
+    given) on the ragged grid, the rectangle's items on the dense one, and
+    their pieces.  The dense grid takes no spans."""
     grid = grid or mixed_grid_mode()
+    if grid == "dense" and (page_lo is not None or page_hi is not None):
+        raise ValueError("page spans need the ragged work-list grid "
+                         "(ARKS_MIXED_GRID=ragged); the dense grid is the "
+                         "byte-identity reference only")
     plan = mixed_grid_plan(qmax)
+    bq, nqb = plan["block_q"], plan["num_qb"]
     tbl, qs, ql, ps = (x.to(torch.int32).contiguous()
                        for x in (tables, seq_q_start, q_len, pos_start))
     items = None
     if grid == "ragged":
-        items = build_mixed_work_list(ps, ql, page=page,
-                                      block_q=plan["block_q"],
-                                      num_qb=plan["num_qb"],
-                                      max_pages=tbl.shape[1], head_groups=hkv)
-    return MixedWork(tbl, qs, ql, ps, items, plan["block_q"],
-                     plan["num_qb"], grid)
+        items = build_mixed_work_list(ps, ql, page=page, block_q=bq,
+                                      num_qb=nqb, max_pages=tbl.shape[1],
+                                      head_groups=hkv, page_lo=page_lo,
+                                      page_hi=page_hi)
+        seq, _, qb, plo, pages = items
+    else:
+        seq, qb, plo, pages = dense_items(ps, ql, page=page, block_q=bq,
+                                          num_qb=nqb, hkv=hkv,
+                                          max_pages=tbl.shape[1])
+    pieces = mixed_pieces(ql, seq, qb, plo, pages, page=page, block_q=bq,
+                          max_pages=tbl.shape[1])
+    return MixedWork(tbl, qs, ql, ps, items, bq, nqb, grid, pieces, page)
 
 
 def paged_mixed_attention(
@@ -522,13 +719,18 @@ def paged_mixed_attention(
     impl: str | None = None,
     work: MixedWork | None = None,
     grid: str | None = None,
-) -> torch.Tensor:
+    page_lo: torch.Tensor | None = None,  # [S] int32 span start (pages)
+    page_hi: torch.Tensor | None = None,  # [S] int32 span end bound (pages)
+    carry_state: tuple | None = None,     # (m, l, acc) from emit_state
+    emit_state: bool = False,
+):
     """Ragged mixed attention over the flat token batch: token
     seq_q_start[s] + i (query i of lane s, global position pos_start[s] + i)
     attends lane s's table pages over positions [0, pos_start[s] + i].
     Returns [T, H, D]; rows no lane owns (padding tokens) are zero.  With
     ``k_scale``/``v_scale`` the pools are int8, or int4 when the pool has
-    half the scale page's rows.
+    half the scale page's rows; an unquantized pool of another dtype than
+    q (bf16 under f32 q) is read widened to q's dtype.
 
     The reference's ``paged_mixed_attention`` takes per-lane queries
     [S, Hkv, G, Q, D]; this wrapper takes the flat batch the kernel reads
@@ -539,33 +741,97 @@ def paged_mixed_attention(
     launch: CUDA tensors launch ``csrc/paged_mixed_attention.cu`` over the
     work list (replaces the Pallas ``_paged_mixed_ragged_kernel``) or over
     the dense grid (``paged_mixed_attention_dense``); CPU tensors take
-    ``paged_mixed_attention_plain``, the same function on either grid."""
+    ``paged_mixed_attention_plain``, the same function on either grid.
+
+    The reference's span and state arguments: ``page_lo``/``page_hi`` bound
+    lane s's pages to [page_lo[s], page_hi[s]) (pass them here, or to the
+    ``mixed_work`` given as ``work``); ``carry_state`` (m [T, H], l [T, H],
+    acc [T, H, D], f32 — the port's flat layout of the reference's
+    [S, Hkv, G, qpad, 128] state) starts the softmax from that state;
+    ``emit_state`` returns the raw f32 (m, l, acc) instead of the output,
+    zero on rows no lane owns.  Chaining [0, k) with emit_state and
+    [k, end) with its state as carry_state gives the single call's output
+    bit for bit on the card.  The dense grid takes none of these, as in the
+    reference."""
     t, h, d = q.shape
     s = q_len.shape[0]
     qmax = qmax or _default_qmax(t, s)
+    spans = page_lo is not None or page_hi is not None
+    stateful = carry_state is not None or emit_state
     if not _use_kernel(q, impl):
-        return paged_mixed_attention_plain(q, k_pool, v_pool, tables,
-                                           seq_q_start, q_len, pos_start,
-                                           layer, k_scale=k_scale,
-                                           v_scale=v_scale, qmax=qmax)
+        return paged_mixed_attention_plain(
+            q, k_pool, v_pool, tables, seq_q_start, q_len, pos_start, layer,
+            k_scale=k_scale, v_scale=v_scale, qmax=qmax, page_lo=page_lo,
+            page_hi=page_hi, carry_state=carry_state, emit_state=emit_state)
     grid = grid or (work.grid if work is not None else mixed_grid_mode())
+    if grid == "dense" and (spans or stateful):
+        raise ValueError("page spans and carried/emitted state need the "
+                         "ragged work-list grid (ARKS_MIXED_GRID=ragged); "
+                         "the dense grid is the byte-identity reference "
+                         "only")
+    if work is not None and spans:
+        raise ValueError("pass page_lo/page_hi to mixed_work when giving a "
+                         "prepared work")
     if work is None or work.grid != grid:
         work = mixed_work(tables, seq_q_start, q_len, pos_start,
                           page=pool_page_tokens(k_pool, k_scale),
-                          hkv=k_pool.shape[2], qmax=qmax, grid=grid)
+                          hkv=k_pool.shape[2], qmax=qmax, grid=grid,
+                          page_lo=page_lo, page_hi=page_hi)
     if grid == "dense":
         return paged_mixed_attention_dense(q, k_pool, v_pool, work, layer,
                                            k_scale=k_scale, v_scale=v_scale)
-    _, out, ptrs, (h, hkv, d, page, n, dtype_code, kv_mode) = \
-        _mixed_launch_args("paged_mixed_attention", q, k_pool, v_pool,
-                           k_scale, v_scale, work, layer)
+    qc, out, ptrs, dims = _mixed_launch_args(
+        "paged_mixed_attention", q, k_pool, v_pool, k_scale, v_scale, work,
+        layer)
+    h, hkv, d, page, n, dtype_code, kv_mode = dims
+    state_ptrs, state_mode, state = _mixed_state(
+        "paged_mixed_attention", qc, carry_state, emit_state)
+    ws = _mixed_workspace(qc, work)
     _kernels.launch("arks_paged_mixed_attention", *ptrs,
                     *(x.data_ptr() for x in work.items),
-                    work.items[0].shape[0], h, hkv, d, page, n,
-                    work.tables.shape[1], int(layer), work.block_q,
-                    1.0 / math.sqrt(d), dtype_code, kv_mode, _stream())
+                    *(x.data_ptr() for x in work.pieces), ws.data_ptr(),
+                    ws.shape[0], *state_ptrs, work.items[0].shape[0], h,
+                    hkv, d, page, n, work.tables.shape[1], int(layer),
+                    work.block_q, 1.0 / math.sqrt(d), dtype_code, kv_mode,
+                    state_mode, _stream())
     paged_mixed_attention.launches += 1
-    return out
+    return state if emit_state else out
+
+
+def _mixed_workspace(q: torch.Tensor, work: MixedWork) -> torch.Tensor:
+    """The split-KV partials of a launch, one row (acc[D], m, l, 2 pad) of
+    f32 per (piece, query row): [H * MaxP * pieces_per_page * T, D + 4].
+    Static, from shapes: every token row of every KV head's items may
+    have a piece on every page of its table."""
+    t, h, d = q.shape
+    rows = h * work.tables.shape[1] * pieces_per_page(work.page) * t
+    return torch.empty((rows, d + 4), dtype=torch.float32, device=q.device)
+
+
+def _mixed_state(kernel: str, q: torch.Tensor, carry_state, emit_state):
+    """The six state pointers (carry m, l, acc; emit m, l, acc), the state
+    mode (bit 0 carry, bit 1 emit) and the emitted (m, l, acc) tensors,
+    zeroed (rows no lane owns stay zero), or None."""
+    t, h, d = q.shape
+    shapes = ((t, h), (t, h), (t, h, d))
+    ptrs, mode = [None] * 6, 0
+    if carry_state is not None:
+        carry = tuple(x.to(torch.float32).contiguous() for x in carry_state)
+        for name, x, shape in zip(("m", "l", "acc"), carry, shapes):
+            if tuple(x.shape) != shape:
+                raise ValueError(f"{kernel}: carry_state {name} "
+                                 f"{tuple(x.shape)}, expected {shape}")
+        _check_operands(kernel, q.device,
+                        zip(("carry m", "carry l", "carry acc"), carry))
+        ptrs[:3] = [x.data_ptr() for x in carry]
+        mode |= 1
+    state = None
+    if emit_state:
+        state = tuple(torch.zeros(shape, dtype=torch.float32,
+                                  device=q.device) for shape in shapes)
+        ptrs[3:] = [x.data_ptr() for x in state]
+        mode |= 2
+    return ptrs, mode, state
 
 
 def _mixed_launch_args(kernel: str, q, k_pool, v_pool, k_scale, v_scale,
@@ -578,14 +844,19 @@ def _mixed_launch_args(kernel: str, q, k_pool, v_pool, k_scale, v_scale,
     _, n, hkv, rows, dk = k_pool.shape
     quantized = k_scale is not None
     page = pool_page_tokens(k_pool, k_scale)
-    kv_mode = (2 if rows != page else 1) if quantized else 0
-    pool_dtype = torch.int8 if quantized else q.dtype
-    if q.dtype not in _KERNEL_DTYPES or k_pool.dtype != pool_dtype or \
-            v_pool.dtype != pool_dtype or (v_scale is None) == quantized:
+    if quantized:
+        kv_mode, pool_dtypes = (_KV_INT4 if rows != page else _KV_INT8), \
+            (torch.int8,)
+    elif q.dtype == torch.float32 and k_pool.dtype == torch.bfloat16:
+        kv_mode, pool_dtypes = _KV_BF16, (torch.bfloat16,)
+    else:
+        kv_mode, pool_dtypes = _KV_SAME, (q.dtype,)
+    if q.dtype not in _KERNEL_DTYPES or k_pool.dtype not in pool_dtypes or \
+            v_pool.dtype != k_pool.dtype or (v_scale is None) == quantized:
         raise TypeError(f"{kernel} kernel takes bf16/f32 q over "
-                        "pools of q's dtype, or int8/int4 pools with both "
-                        f"scales; got {q.dtype}/{k_pool.dtype}/"
-                        f"{v_pool.dtype}")
+                        "pools of q's dtype (or bf16 under f32 q), or "
+                        "int8/int4 pools with both scales; got "
+                        f"{q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
     if quantized:
         if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32 \
                 or k_scale.shape != k_pool.shape[:3] + (page,) or \
@@ -601,6 +872,13 @@ def _mixed_launch_args(kernel: str, q, k_pool, v_pool, k_scale, v_scale,
     if h % hkv or h // hkv > MAX_GROUP:
         raise ValueError(f"{kernel} kernel takes H/Hkv <= "
                          f"{MAX_GROUP}, got {h}/{hkv}")
+    if page > MIXED_PIECE and page % MIXED_PIECE:
+        raise ValueError(f"{kernel} kernel takes pages of at most "
+                         f"{MIXED_PIECE} positions or multiples of it, got "
+                         f"{page}")
+    if work.block_q > MAX_BLOCK_Q:
+        raise ValueError(f"{kernel} kernel takes block_q <= {MAX_BLOCK_Q}, "
+                         f"got {work.block_q}")
     if not 0 <= layer < k_pool.shape[0]:
         raise ValueError(f"layer {layer} out of range")
     qc = q.contiguous()
@@ -623,23 +901,31 @@ def _mixed_launch_args(kernel: str, q, k_pool, v_pool, k_scale, v_scale,
 def paged_mixed_attention_dense(q, k_pool, v_pool, work: MixedWork,
                                 layer: int, *, k_scale=None, v_scale=None):
     """The dense launch of the mixed-attention kernel (``ARKS_MIXED_GRID=
-    dense``; replaces the Pallas ``_paged_mixed_kernel``): one CTA per
-    (lane, KV head, q-block) of the whole (S, num_qb) grid, no work list.
-    Valid rows are bit-identical to the ragged launch's, and rows no lane
-    owns are zero.  CUDA tensors only (``paged_mixed_attention`` sends CPU
-    tensors to the plain version); counts its launches in
+    dense``; replaces the Pallas ``_paged_mixed_kernel``): the whole
+    (S, Hkv, num_qb) rectangle cut into the same split-KV pieces and folded
+    the same way as the ragged launch, no work list.  Valid rows are
+    bit-identical to the ragged launch's, and rows no lane owns are zero.
+    CUDA tensors only (``paged_mixed_attention`` sends CPU tensors to the
+    plain version); counts its launches in
     ``paged_mixed_attention_dense.launches``."""
     if not q.is_cuda:
         raise ValueError("paged_mixed_attention_dense launches the CUDA "
                          "kernel; CPU tensors take "
                          "paged_mixed_attention_plain")
-    _, out, ptrs, (h, hkv, d, page, n, dtype_code, kv_mode) = \
-        _mixed_launch_args("paged_mixed_attention_dense", q, k_pool, v_pool,
-                           k_scale, v_scale, work, layer)
+    if work.grid != "dense":
+        raise ValueError("paged_mixed_attention_dense needs the dense "
+                         "grid's work (mixed_work(grid='dense'))")
+    qc, out, ptrs, dims = _mixed_launch_args(
+        "paged_mixed_attention_dense", q, k_pool, v_pool, k_scale, v_scale,
+        work, layer)
+    h, hkv, d, page, n, dtype_code, kv_mode = dims
+    ws = _mixed_workspace(qc, work)
     _kernels.launch("arks_paged_mixed_attention_dense", *ptrs,
-                    work.q_len.shape[0], work.num_qb, h, hkv, d, page, n,
-                    work.tables.shape[1], int(layer), work.block_q,
-                    1.0 / math.sqrt(d), dtype_code, kv_mode, _stream())
+                    *(x.data_ptr() for x in work.pieces), ws.data_ptr(),
+                    ws.shape[0], work.q_len.shape[0], work.num_qb, h, hkv,
+                    d, page, n, work.tables.shape[1], int(layer),
+                    work.block_q, 1.0 / math.sqrt(d), dtype_code, kv_mode,
+                    _stream())
     paged_mixed_attention_dense.launches += 1
     return out
 
@@ -663,8 +949,8 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *, k_scale=None,
     view [B, Hkv, C, D] (int8 with [B, Hkv, C] scales when ``k_scale`` is
     given), positions [0, min(lengths[b], C)).  Scores = (q.k) / sqrt(D),
     times the k scale of an int8 cache; p times the v scale, then rounded
-    to the V dtype (q's dtype for int8) before p.V; divide by l + 1e-9
-    after.  V rows past the length never reach p.V, and a slot of length 0
+    to q's dtype before p.V (the cache is read in q's dtype, a bf16 cache
+    under f32 q widened); divide by l + 1e-9 after.  V rows past the length never reach p.V, and a slot of length 0
     gets zeros, as in the kernels."""
     d = q.shape[-1]
     c = k_cache.shape[2]
@@ -677,12 +963,10 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *, k_scale=None,
     scores = scores.masked_fill(~valid[:, None, None], _NEG_INF)
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
-    p_dtype = v_cache.dtype
     if v_scale is not None:
         p = p * v_scale[:, :, None, :]
-        p_dtype = q.dtype
     vf = torch.where(valid[:, None, :, None], v_cache.float(), 0.0)
-    pv = torch.einsum("bkgc,bkcd->bkgd", p.to(p_dtype).float(), vf)
+    pv = torch.einsum("bkgc,bkcd->bkgd", p.to(q.dtype).float(), vf)
     out = torch.where(lens[:, None, None, None] > 0, pv / (l + 1e-9), 0.0)
     return out.to(q.dtype)
 
@@ -709,7 +993,7 @@ def decode_attention_split_plain(q, k_cache, v_cache, lengths, *,
     if k_scale is not None:
         scores = scores * k_scale[:, :, None, :]
     vf = torch.where(valid[:, None, :, None], v_cache.float(), 0.0)
-    p_dtype = q.dtype if v_scale is not None else v_cache.dtype
+    p_dtype = q.dtype
     ms, ls, accs = [], [], []
     for s0 in range(0, c, split):
         piece = slice(s0, min(s0 + split, c))
@@ -744,6 +1028,25 @@ def decode_workspace(q: torch.Tensor, cover: int) -> torch.Tensor:
     b, hkv, g, d = q.shape
     return torch.empty((b, hkv, decode_splits(cover), g, d + 2),
                        dtype=torch.float32, device=q.device)
+
+
+def _decode_kv_code(kernel: str, q, k_cache, v_cache, quantized: bool,
+                    v_scale) -> int:
+    """The decode kernels' cache code — 0 a cache of q's dtype, 1 int8
+    (both scales given), 2 bf16 under f32 q (widened) — or raise."""
+    if quantized:
+        code, want = 1, torch.int8
+    elif q.dtype == torch.float32 and k_cache.dtype == torch.bfloat16:
+        code, want = 2, torch.bfloat16
+    else:
+        code, want = 0, q.dtype
+    if q.dtype not in _KERNEL_DTYPES or k_cache.dtype != want or \
+            v_cache.dtype != want or (v_scale is None) == quantized:
+        raise TypeError(f"{kernel} kernel takes bf16/f32 q over a cache of "
+                        "q's dtype (or bf16 under f32 q), or an int8 cache "
+                        f"with both scales; got {q.dtype}/{k_cache.dtype}/"
+                        f"{v_cache.dtype}")
+    return code
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, tables, lengths, layer,
@@ -789,12 +1092,8 @@ def paged_decode_attention(
     b, hkv, g, d = q.shape
     _, n, phkv, page, dk = k_pool.shape
     quantized = k_scale is not None
-    pool_dtype = torch.int8 if quantized else q.dtype
-    if q.dtype not in _KERNEL_DTYPES or k_pool.dtype != pool_dtype or \
-            v_pool.dtype != pool_dtype or (v_scale is None) == quantized:
-        raise TypeError("paged_decode_attention kernel takes bf16/f32 q over "
-                        "pools of q's dtype, or int8 pools with both scales; "
-                        f"got {q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
+    kv_code = _decode_kv_code("paged_decode_attention", q, k_pool, v_pool,
+                              quantized, v_scale)
     if (phkv, dk) != (hkv, d) or v_pool.shape != k_pool.shape or \
             d not in _KERNEL_HEAD_DIMS or g > MAX_GROUP or \
             tuple(lengths.shape) != (b,) or tables.shape[0] != b:
@@ -831,7 +1130,7 @@ def paged_decode_attention(
                     tbl.data_ptr(), lens.data_ptr(), ws.data_ptr(), b,
                     hkv * g, hkv, d, page, n, tbl.shape[1], int(layer),
                     1.0 / math.sqrt(d), _KERNEL_DTYPES[q.dtype],
-                    int(quantized), _stream())
+                    kv_code, _stream())
     paged_decode_attention.launches += 1
     return out
 

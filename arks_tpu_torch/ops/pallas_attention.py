@@ -25,8 +25,9 @@ import torch
 
 from arks_tpu_torch.ops import _kernels
 from arks_tpu_torch.ops.paged_attention import (
-    _KERNEL_DTYPES, _KERNEL_HEAD_DIMS, MAX_GROUP, _check_operands, _stream,
-    _use_kernel, decode_attention_plain, decode_workspace, quantize_kv)
+    _KERNEL_DTYPES, _KERNEL_HEAD_DIMS, MAX_GROUP, _check_operands,
+    _decode_kv_code, _rows_for, _stream, _use_kernel,
+    decode_attention_plain, decode_workspace, quantize_kv)
 
 __all__ = ["quantize_kv", "ragged_decode_attention",
            "ragged_decode_attention_plain", "kv_cache_update",
@@ -76,13 +77,8 @@ def ragged_decode_attention(
     b, hkv, g, d = q.shape
     _, nb, ckv, s, dk = k_cache.shape
     quantized = k_scale is not None
-    cache_dtype = torch.int8 if quantized else q.dtype
-    if q.dtype not in _KERNEL_DTYPES or k_cache.dtype != cache_dtype or \
-            v_cache.dtype != cache_dtype or (v_scale is None) == quantized:
-        raise TypeError("ragged_decode_attention kernel takes bf16/f32 q over "
-                        "a cache of q's dtype, or an int8 cache with both "
-                        f"scales; got {q.dtype}/{k_cache.dtype}/"
-                        f"{v_cache.dtype}")
+    kv_code = _decode_kv_code("ragged_decode_attention", q, k_cache, v_cache,
+                              quantized, v_scale)
     if (nb, ckv, dk) != (b, hkv, d) or v_cache.shape != k_cache.shape or \
             d not in _KERNEL_HEAD_DIMS or g > MAX_GROUP or \
             tuple(lengths.shape) != (b,):
@@ -115,7 +111,7 @@ def ragged_decode_attention(
                     lens.data_ptr(), ws.data_ptr(), b, hkv * g, hkv, d, s,
                     int(layer),
                     1.0 / math.sqrt(d), _KERNEL_DTYPES[q.dtype],
-                    int(quantized), _stream())
+                    kv_code, _stream())
     ragged_decode_attention.launches += 1
     return out
 
@@ -161,7 +157,8 @@ def kv_cache_update(k_cache: torch.Tensor,   # [L, B, Hkv, S, D]
                     layer: int, *, impl: str | None = None):
     """Write one K and one V row per slot at ``write_idx`` of layer
     ``layer``, IN PLACE; a slot whose index is >= S (the parked-slot
-    sentinel) writes nothing.  CUDA tensors launch
+    sentinel) writes nothing.  f32 rows into a bf16 cache are rounded to
+    nearest even, as the reference's astype.  CUDA tensors launch
     ``csrc/kv_cache_update.cu`` (replaces the Pallas ``_update_kernel``);
     CPU tensors take ``kv_cache_update_plain``."""
     if not _use_kernel(k_cache, impl):
@@ -176,8 +173,7 @@ def kv_cache_update(k_cache: torch.Tensor,   # [L, B, Hkv, S, D]
     if row_bytes % 16:
         raise ValueError(f"kv_cache_update kernel needs D * itemsize % 16 == "
                          f"0, got {row_bytes}")
-    kn = k_new.to(k_cache.dtype).contiguous()
-    vn = v_new.to(v_cache.dtype).contiguous()
+    kn, vn, narrow = _rows_for(k_cache, k_new, v_new)
     widx = write_idx.to(torch.int32).contiguous()
     _check_rows("kv_cache_update", k_cache, kn, vn, widx)
     _check_layer(layer, k_cache)
@@ -187,7 +183,7 @@ def kv_cache_update(k_cache: torch.Tensor,   # [L, B, Hkv, S, D]
     _kernels.launch("arks_kv_cache_update", k_cache.data_ptr(),
                     v_cache.data_ptr(), kn.data_ptr(), vn.data_ptr(),
                     widx.data_ptr(), b, hkv, s, row_bytes, int(layer),
-                    _stream())
+                    narrow, _stream())
     kv_cache_update.launches += 1
     return k_cache, v_cache
 

@@ -19,7 +19,11 @@ Phases (any failure raises and exits non-zero):
               scales); the attention within 5e-3 of the plain version in
               bf16 and 1e-5 in f32.  Rows no lane owns exactly zero.  The
               dense launch of the attention (ARKS_MIXED_GRID=dense) gives
-              every row bit-identical to the ragged launch.  Then
+              every row bit-identical to the ragged launch.  The
+              reference's span and state arguments: each lane's pages cut
+              at half, [0, k) with emit_state then [k, end) carrying it
+              equal the single call bit for bit (bf16, int8 and int4
+              pools, f32 q over bf16).  Then
               the threefry bits, keys and uniforms of 64 seeds on the card
               equal those on the CPU bit for bit.  Then the legacy
               scheduler's kernels: the slot cache [2, 8, 4, 4096, 128]
@@ -32,7 +36,12 @@ Phases (any failure raises and exits non-zero):
               pieces of 256 positions and a combine launch) meet the
               attention limits above, their f32 kernels within 1e-5 of the
               plain split-and-combine (decode_attention_split_plain); the
-              empty slot's output is zero.
+              empty slot's output is zero.  Then the repaired faults: f32
+              rows into bf16 (paged_kv_update, kv_cache_update) bit-exact,
+              f32 q over the bf16 pool and cache (the mixed, paged and
+              slot decode attentions) within 1e-5, and grouped_matmul at
+              K = 96 (bf16, int8, int4 group 32) and at Mixtral's gate
+              with int4 group 32 within 1e-2 of the largest |out|.
   4. serve    the port's engine at Qwen2.5-7B full width (random bf16
               weights from a seed, 8 slots, max_cache_len 4096) behind its
               OpenAI server, once with a bf16 KV pool and once, on the same
@@ -57,6 +66,11 @@ Phases (any failure raises and exits non-zero):
               per slot): the one-shot prompt twice and the 8 streams.
               Each run's update and attention kernels must count
               num_layers x its decode steps, every other kernel none.
+              Then an f32 engine at Qwen2.5-7B width cut to 2 layers over
+              a bf16 cache: one greedy request on the mixed scheduler and
+              on the legacy one (slot cache, and paged pool), each run's
+              update and attention kernels counting num_layers x its
+              dispatches or decode steps.
   5. parity   two mixed_steps through the kernels vs the same steps through
               impl="plain" at full width: logits within 10% of the largest
               |logit| in bf16 and within 5e-4 in f32, and the same argmax
@@ -70,6 +84,9 @@ Phases (any failure raises and exits non-zero):
   6. times    CUDA-event kernel times (L2 flushed before each launch) beside
               their bounds, the plain versions and one PyTorch library call
               computing the same function (none for the quantized update);
+              the mixed attention also on the batch's 8 decode lanes
+              alone, and split by the profiler into its piece kernel and
+              its combine;
               int8/int4 attention beside SDPA over pre-gathered,
               pre-dequantized KV; the legacy kernels at phase 3's slot
               cache and pool beside SDPA with a length mask (decode
@@ -125,6 +142,7 @@ DECODE_SRC = "arks_tpu_torch/csrc/decode_attention.cu"
 SLOT_UPDATE_SRC = "arks_tpu_torch/csrc/kv_cache_update.cu"
 GROUPED_SRC = "arks_tpu_torch/csrc/grouped_matmul.cu"
 SLOT_LEN = 4096                  # slot cache length (= MAX_PAGES * PAGE)
+F32_LAYERS = 2                   # depth of phase 4's f32 engine (full width)
 KV_BITS = {"int8": 8, "int4": 4}
 # Attention, phase 3: the bf16 kernel vs the bf16 plain version (one bf16
 # ulp at |x| < 1 is at most 3.9e-3) and vs the f32 plain version on the
@@ -351,6 +369,135 @@ def phase_quant_kernels(torch, dev, b):
                                  "disagrees with its plain version")
         res[kv] = (dict(zip(names, kern)), upd_err, err_bf16)
     return res
+
+
+def phase_span_chain(torch, b, qres):
+    """The reference's span and state arguments on phase 3's batch: each
+    lane's pages are cut at k = half of them (at least 1); [0, k) with
+    emit_state, then [k, end) carrying that state, must give the single
+    call's output bit for bit (the pieces are pages, the fold a left fold)
+    over the bf16 pool, the int8 and int4 pools, and with f32 q over the
+    bf16 pool.  The emitted state's rows no lane owns are zero."""
+    from arks_tpu_torch.ops import paged_attention as pa
+    lane = (b["tables"], b["seq_q_start"], b["seq_q_len"],
+            b["seq_pos_start"], b["layer"])
+    pages = (b["seq_pos_start"] + b["seq_q_len"] + PAGE - 1) // PAGE
+    split = torch.clamp(pages // 2, min=1).to(torch.int32)
+    pad = b["token_slot"] < 0
+    cases = {"bf16": (b["q"], b["k_pool"], b["v_pool"], {}),
+             "f32 q over bf16": (b["q"].float(), b["k_pool"], b["v_pool"],
+                                 {})}
+    for kv, (pools, _, _) in qres.items():
+        cases[kv] = (b["q"], pools["k_pool"], pools["v_pool"],
+                     dict(k_scale=pools["k_scale"], v_scale=pools["v_scale"]))
+    for name, (q, kp, vp, sc) in cases.items():
+        whole = pa.paged_mixed_attention(q, kp, vp, *lane, **sc)
+        state = pa.paged_mixed_attention(q, kp, vp, *lane, page_hi=split,
+                                         emit_state=True, **sc)
+        chained = pa.paged_mixed_attention(q, kp, vp, *lane, page_lo=split,
+                                           carry_state=state, **sc)
+        torch.cuda.synchronize()
+        bits = torch.int16 if q.dtype == torch.bfloat16 else torch.int32
+        same = torch.equal(chained.view(bits), whole.view(bits))
+        pad_zero = not any(x[pad].any().item() for x in state)
+        log(f"[kernels] paged_mixed_attention spans, {name}: [0, k) emitting "
+            f"state then [k, end) carrying it equals the single call bit for "
+            f"bit: {same}; state rows no lane owns zero: {pad_zero}")
+        if not (same and pad_zero):
+            raise AssertionError(f"span-chained attention ({name}) differs "
+                                 "from the single call")
+
+
+def phase_fault_kernels(torch, dev, b, lb):
+    """The two faults the slice repairs, on the card.  An f32 engine over a
+    bf16 cache: paged_kv_update and kv_cache_update round f32 rows to bf16
+    bit for bit as their plain versions; paged_mixed_attention,
+    paged_decode_attention and ragged_decode_attention with f32 q over the
+    bf16 pool and cache within 1e-5 of their plain versions.  Then
+    grouped_matmul at K = 96 (bf16, int8, int4 group 32) and at Mixtral's
+    gate with int4 group 32, within GM_TOL of its plain version."""
+    from arks_tpu_torch.models import quant
+    from arks_tpu_torch.ops import moe_kernel as mk
+    from arks_tpu_torch.ops import paged_attention as pa
+    from arks_tpu_torch.ops import pallas_attention as pl
+    upd = (b["k_new"].float() * 1.001, b["v_new"].float() / 3,
+           b["write_idx"], b["tables_tok"], b["layer"])
+    kern = [x.clone() for x in b["pools_before"]]
+    plain = [x.clone() for x in b["pools_before"]]
+    pa.paged_kv_update(*kern, *upd)
+    pa.paged_kv_update(*plain, *upd, impl="plain")
+    widx = lb["lengths"] - 1
+    slot_k = [x.clone() for x in (lb["k_cache"], lb["v_cache"])]
+    slot_p = [x.clone() for x in (lb["k_cache"], lb["v_cache"])]
+    rows = [torch.randn(lb["q"].shape[0], lb["k_cache"].shape[2],
+                        lb["k_cache"].shape[-1], device=dev) / 3
+            for _ in range(2)]
+    pl.kv_cache_update(*slot_k, *rows, widx, lb["layer"])
+    pl.kv_cache_update(*slot_p, *rows, widx, lb["layer"], impl="plain")
+    torch.cuda.synchronize()
+    same = all(torch.equal(g.view(torch.int16), w.view(torch.int16))
+               for g, w in zip(kern + slot_k, plain + slot_p))
+    log(f"[kernels] f32 rows into bf16: paged_kv_update and kv_cache_update "
+        f"bit-identical to their plain versions: {same}")
+    if not same:
+        raise AssertionError("an update kernel's f32 -> bf16 rows differ")
+    lane = (b["tables"], b["seq_q_start"], b["seq_q_len"], b["seq_pos_start"],
+            b["layer"])
+    qf, qd = b["q"].float(), lb["q"].float()
+    checks = {
+        "paged_mixed_attention": lambda impl: pa.paged_mixed_attention(
+            qf, b["k_pool"], b["v_pool"], *lane, impl=impl),
+        "paged_decode_attention": lambda impl: pa.paged_decode_attention(
+            qd, lb["k_pool"], lb["v_pool"], lb["tables"],
+            lb["paged_lengths"], lb["layer"], impl=impl),
+        "ragged_decode_attention": lambda impl: pl.ragged_decode_attention(
+            qd, lb["k_cache"], lb["v_cache"], lb["lengths"], lb["layer"],
+            impl=impl)}
+    for name, fn in checks.items():
+        got, want = fn(None), fn("plain")
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        log(f"[kernels] {name}, f32 q over bf16: max abs err vs plain "
+            f"{err:.3e} (tol {ATTN_TOL_F32_KERNEL})")
+        if not (got.dtype == torch.float32 and err <= ATTN_TOL_F32_KERNEL):
+            raise AssertionError(f"{name} (f32 over bf16) disagrees with its "
+                                 "plain version")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    sizes = MOE_GROUPS
+    gs = torch.as_tensor(sizes, device=dev)
+    se = torch.repeat_interleave(torch.arange(len(sizes), device=dev), gs)
+    for k, n, mode, group in ((96, 208, "bf16", 0), (96, 208, "int8", 0),
+                              (96, 208, "int4", 32),
+                              (4096, 14336, "int4", 32)):
+        xs = torch.randn((sum(sizes), k), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        xs_p, _, bexp = mk.pad_groups(xs, se, gs)
+        w = torch.randn((len(sizes), k, n), generator=gen, device=dev) * 0.02
+        kw = {}
+        if mode == "bf16":
+            w = w.to(torch.bfloat16)
+        elif mode == "int8":
+            qd = quant.quantize_tensor(w)
+            w, kw = qd["q"], {"w_scale": qd["s"][:, 0, :].contiguous()}
+        else:
+            qd = quant.quantize_tensor_int4(w, group)
+            w, kw = qd["q"], {"w_group_scale": qd["gs"]}
+        got = mk.grouped_matmul(xs_p, w, bexp, rows_used=mk.rows_used(gs),
+                                tile_rows=mk.tile_rows(gs, bexp.shape[0]),
+                                **kw)
+        want = mk.grouped_matmul(xs_p, w, bexp, impl="plain", **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        top = want.float().abs().max().item()
+        log(f"[kernels] grouped_matmul K={k} N={n} {mode}"
+            f"{f' group {group}' if group else ''}: max abs err {err:.3e} "
+            f"of max |out| {top:.3e} (tol {GM_TOL['bf16']} of it)")
+        if not err <= GM_TOL["bf16"] * top:
+            raise AssertionError(f"grouped_matmul K={k} {mode} disagrees "
+                                 "with its plain version")
+        del xs, xs_p, w, got, want
+    torch.cuda.empty_cache()
 
 
 def phase_prng(torch, dev):
@@ -972,6 +1119,88 @@ def phase_serve_legacy(torch, dev, layout, kv, params):
     return res
 
 
+def phase_serve_f32(torch, dev):
+    """An f32 engine at Qwen2.5-7B width, cut to F32_LAYERS layers (random
+    f32 weights from SEED), over a bf16 cache — the reference stores bf16
+    whatever the engine dtype.  One greedy request through the server on
+    each scheduler: the mixed one (paged pool), the legacy one on the slot
+    cache and on the paged pool (ARKS_MIXED_STEP=0).  Each run's counters
+    are set to 0 before its request: its update and attention kernels must
+    count num_layers x its mixed dispatches or decode steps, the others
+    none.  Returns the launch counts of the three runs, summed."""
+    import os
+
+    from arks_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arks_tpu_torch.engine.tokenizer import ByteTokenizer
+    from arks_tpu_torch.models import get_config
+    from arks_tpu_torch.models import transformer as tf
+    from arks_tpu_torch.server import OpenAIServer
+
+    cfg = dataclasses.replace(get_config(MODEL), num_layers=F32_LAYERS)
+    params = tf.init_params(cfg, SEED, torch.float32, dev)
+    total = {}
+    for sched, layout in (("mixed", "paged"), ("legacy", "slot"),
+                          ("legacy", "paged")):
+        tag = f"[serve f32 {sched} {layout}]"
+        if sched == "legacy":
+            os.environ["ARKS_MIXED_STEP"] = "0"
+        try:
+            engine = InferenceEngine(cfg, EngineConfig(
+                model=MODEL, num_slots=8, max_cache_len=SLOT_LEN,
+                prefill_chunk=PAGE, dtype="float32", kv_cache_dtype="bf16",
+                kv_layout=layout, seed=SEED), ByteTokenizer(), params=params,
+                device=dev)
+        finally:
+            os.environ.pop("ARKS_MIXED_STEP", None)
+        if engine._mixed != (sched == "mixed") or \
+                engine.cache.k.dtype != torch.bfloat16:
+            raise AssertionError(f"{tag}: not an f32 engine over a bf16 "
+                                 "cache on that scheduler")
+        server = OpenAIServer(engine, MODEL, host="127.0.0.1", port=0)
+        server.start(background=True)
+        engine.start()
+        try:
+            _reset_counts()
+            d0, s0 = engine.dispatches, engine.decode_steps
+            prompt = "An f32 engine reads its bf16 cache widened."
+            st, data, _, secs = _request(server.port, "/v1/completions", {
+                "prompt": prompt, "max_tokens": 16, "temperature": 0})
+            if st != 200:
+                raise AssertionError(f"{tag} completion: HTTP {st} {data}")
+            _check_usage(f"f32 {sched} {layout} greedy completion",
+                         data["usage"], len(engine.tokenizer.encode(prompt)),
+                         16, data["choices"][0]["finish_reason"])
+            launches = _read_counts()
+            if sched == "mixed":
+                n = engine.dispatches - d0
+                names = ("paged_kv_update", "paged_mixed_attention")
+            else:
+                n = engine.decode_steps - s0
+                names = ("kv_cache_update", "ragged_decode_attention") \
+                    if layout == "slot" else ("paged_kv_update",
+                                              "paged_decode_attention")
+            expected = {k: cfg.num_layers * n if k in names else 0
+                        for k in launches}
+            log(f"{tag} {cfg.num_layers} layers, cache "
+                f"{tuple(engine.cache.k.shape)} {engine.cache.k.dtype}: "
+                f"{len(data['choices'][0]['text'])} chars in {secs:.2f} s; "
+                f"{n} {'dispatches' if sched == 'mixed' else 'decode steps'}"
+                f", launches {launches}, expected {expected}")
+            if launches != expected or n == 0:
+                raise AssertionError(f"{tag} launch counts != layers x "
+                                     "steps")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+        finally:
+            server.stop()
+            engine.stop()
+        del engine
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return total
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1520,6 +1749,15 @@ def phase_times(torch, b):
         b["seq_pos_start"], layer, work=dec_work))
     dec_bytes = _attn_bytes(b, np.where(np.arange(len(ql)) < 8, ql, 0), el)
     ps = b["seq_pos_start"].cpu().numpy()
+    # The profiler's split of a call: the piece kernel and the combine.
+    split = {}
+    for name, fn in (("mixed batch", lambda: pa.paged_mixed_attention(
+            b["q"], k_pool, v_pool, *lane, work=work)),
+            ("decode-only", lambda: pa.paged_mixed_attention(
+                b["q"], k_pool, v_pool, b["tables"], b["seq_q_start"], dec,
+                b["seq_pos_start"], layer, work=dec_work))):
+        split[name] = tuple(_device_us(torch, fn, k) for k in (
+            "mixed_attention_tc_kernel", "mixed_attention_combine_kernel"))
     log(f"[times] paged_kv_update {upd_times['ms'] * 1e3:.1f} us (profiler: "
         f"{upd_dev_us} us on the device; bound "
         f"{upd_times['bound_ms'] * 1e3:.3f} us, {upd_bytes} B), plain "
@@ -1535,6 +1773,9 @@ def phase_times(torch, b):
     log(f"[times] paged_mixed_attention decode-only (8 lanes, contexts "
         f"{(ps[:8] + 1).tolist()}): {dec_ms * 1e3:.1f} us (bound "
         f"{dec_bytes / HBM_BYTES_PER_S * 1e6:.2f} us by bytes)")
+    for name, (piece, comb) in split.items():
+        log(f"[times] paged_mixed_attention {name}, profiler (L2 warm): "
+            f"pieces {piece} us, combine {comb} us on the device")
     return upd_times, attn_times, dense_times
 
 
@@ -2148,8 +2389,10 @@ def main() -> int:
     phase_build()
     b, upd_err, attn_err = phase_kernels(torch, dev)
     qres = phase_quant_kernels(torch, dev, b)
+    phase_span_chain(torch, b, qres)
     phase_prng(torch, dev)
     lb, legacy_err = phase_legacy_kernels(torch, dev)
+    phase_fault_kernels(torch, dev, b, lb)
     engine, serve = phase_serve(torch, dev)
     dense_launches = phase_dense_grid(torch, dev, engine)
     params = engine.params
@@ -2159,6 +2402,7 @@ def main() -> int:
               for layout, kv in (("slot", "bf16"), ("slot", "int8"),
                                  ("paged", "int8"), ("paged", "int4"))}
     engine, serve8 = phase_serve(torch, dev, "int8", params)
+    f32 = phase_serve_f32(torch, dev)
     log(f"[serve] bf16 vs int8 pool on the same weights: K+V pool bytes "
         f"{serve['pool_bytes']} vs {serve8['pool_bytes']}; decode tok/s "
         f"batch 1 {serve['decode_tok_s_b1']:.1f} vs "
@@ -2185,11 +2429,13 @@ def main() -> int:
     paged8, paged4 = legacy[("paged", "int8")], legacy[("paged", "int4")]
     attn_launches = (serve["launches"]["paged_mixed_attention"]
                      + serve8["launches"]["paged_mixed_attention"]
-                     + paged4["launches"]["paged_mixed_attention"])
+                     + paged4["launches"]["paged_mixed_attention"]
+                     + f32["paged_mixed_attention"])
     kernels = [
         dict(name="paged_kv_update", route="cuda", source=UPDATE_SRC,
              replaces="arks_tpu/ops/paged_attention.py:1127",
-             launches=serve["launches"]["paged_kv_update"],
+             launches=(serve["launches"]["paged_kv_update"]
+                       + f32["paged_kv_update"]),
              max_abs_err=upd_err, **upd_t),
         dict(name="paged_mixed_attention", route="cuda", source=ATTN_SRC,
              replaces="arks_tpu/ops/paged_attention.py:761",
@@ -2202,18 +2448,21 @@ def main() -> int:
              max_abs_err=quant_err, **qupd_t["int8"]),
         dict(name="paged_decode_attention", route="cuda", source=DECODE_SRC,
              replaces="arks_tpu/ops/paged_attention.py:388",
-             launches=paged8["launches"]["paged_decode_attention"],
+             launches=(paged8["launches"]["paged_decode_attention"]
+                       + f32["paged_decode_attention"]),
              max_abs_err=legacy_err["paged_decode_attention"],
              **lt["paged_decode_attention"]),
         dict(name="ragged_decode_attention", route="cuda", source=DECODE_SRC,
              replaces="arks_tpu/ops/pallas_attention.py:58",
              launches=(slot16["launches"]["ragged_decode_attention"]
-                       + slot8["launches"]["ragged_decode_attention"]),
+                       + slot8["launches"]["ragged_decode_attention"]
+                       + f32["ragged_decode_attention"]),
              max_abs_err=legacy_err["ragged_decode_attention"],
              **lt["ragged_decode_attention"]),
         dict(name="kv_cache_update", route="cuda", source=SLOT_UPDATE_SRC,
              replaces="arks_tpu/ops/pallas_attention.py:241",
-             launches=slot16["launches"]["kv_cache_update"],
+             launches=(slot16["launches"]["kv_cache_update"]
+                       + f32["kv_cache_update"]),
              max_abs_err=legacy_err["kv_cache_update"],
              **lt["kv_cache_update"]),
         dict(name="kv_cache_update_quant", route="cuda",

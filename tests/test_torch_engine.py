@@ -1,7 +1,8 @@
 """The port's engine against the JAX engine on the same weights: identical
-greedy token streams on the f32 ``tiny`` and ``tiny-gqa`` configs (bf16,
-int8 and int4 KV pools), and identical seeded sampled streams, with more
-requests than slots and prompts spanning several chunks."""
+greedy token streams on the f32 ``tiny`` and ``tiny-gqa`` configs (pools
+of the engine dtype, bf16 under the f32 engine, int8 and int4), and
+identical seeded sampled streams, with more requests than slots and
+prompts spanning several chunks."""
 
 import jax
 import jax.numpy as jnp
@@ -120,6 +121,39 @@ def test_quantized_pool_greedy_streams_match_jax_engine(name, kv,
     assert eng.kv_quantized and eng.kv_bits == (8 if kv == "int8" else 4)
     assert eng.cache.k.dtype == torch.int8 and eng.cache.k_scale is not None
     _same_streams(want, got)
+
+
+@pytest.mark.parametrize("name", ["tiny", "tiny-gqa"])
+def test_f32_engine_bf16_cache_greedy_streams_match_jax_engine(
+        name, monkeypatch):
+    """An f32 engine over a bf16 pool (the reference's _cache_dtype stores
+    bf16 whatever the engine dtype): the port stores bf16 rows (rounded
+    to nearest even) and reads them widened to f32, as the reference's
+    Pallas kernels do (``astype(q.dtype)``), so the JAX engine runs those
+    kernels here (``ARKS_ATTN_IMPL=pallas``, interpreted).  Its XLA
+    oracle instead rounds the normalized probabilities to the cache's
+    bf16, and on ``tiny``'s second prompt a near-tie of two logits falls
+    the other way between the reference's own two paths.  The greedy
+    streams are the JAX engine's."""
+    monkeypatch.setenv("ARKS_ATTN_IMPL", "pallas")
+    jparams, tparams = _params(name, 3)
+    prompts = _prompts(jax_get_config(name).vocab_size)
+    want = _jax_streams(name, jparams, prompts, 7, monkeypatch, kv="bf16")
+    got, eng = _torch_streams(name, tparams, prompts, 7, kv="bf16")
+    assert eng.cache.k.dtype == torch.bfloat16 and not eng.kv_quantized
+    assert eng.params["layers"]["attn_norm"].dtype == torch.float32
+    _same_streams(want, got)
+    assert eng._alloc.free_pages == eng._alloc.num_pages
+
+
+def test_f32_engine_bf16_cache_known_stream(monkeypatch):
+    """The reference's PRNGKey(3) weights of ``tiny``, prompt [5..10]: both
+    engines give [422, 505, 428, 390, 413] over a bf16 pool."""
+    jparams, tparams = _params("tiny", 3)
+    prompt = [list(range(5, 11))]
+    want = _jax_streams("tiny", jparams, prompt, 5, monkeypatch, kv="bf16")
+    got, _ = _torch_streams("tiny", tparams, prompt, 5, kv="bf16")
+    assert want[0][0] == got[0][0] == [422, 505, 428, 390, 413]
 
 
 @pytest.mark.parametrize("seed", [5, 2**33 + 7])

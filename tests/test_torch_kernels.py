@@ -582,8 +582,215 @@ def test_grouped_matmul_raises_on_unsupported(dev):
     with pytest.raises(TypeError):           # f32 xs over an int8 weight
         mk.grouped_matmul(xs_p.float(), w.float(), bexp, **kw)
     xs4, w4, b4, kw4, _, _ = _grouped_case(dev, torch.bfloat16, "int4",
-                                           sizes=[3, 4], k=64, n=64, group=32)
-    with pytest.raises(ValueError):          # bf16: int4 group not k64-whole
+                                           sizes=[3, 4], k=160, n=64, group=40)
+    with pytest.raises(ValueError):          # bf16: a K stage spans 3 groups
         mk.grouped_matmul(xs4, w4, b4, **kw4)
-    with pytest.raises(ValueError):          # bf16: K not a multiple of 64
-        mk.grouped_matmul(xs_p[:, :32], w[:, :32], bexp, **kw)
+    with pytest.raises(ValueError):          # bf16: K not a multiple of 8
+        mk.grouped_matmul(xs_p[:, :36], w[:, :36], bexp, **kw)
+
+
+# K past the last 64-wide stage (96 = Mixtral-shaped test models' down
+# projection), K below one stage, and int4 groups of 32 (two per stage).
+@pytest.mark.parametrize("mode,k,group", [("raw", 96, 64), ("int8", 96, 64),
+                                          ("int4", 96, 32), ("int4", 32, 32),
+                                          ("int4", 256, 32),
+                                          ("int4", 192, 96), ("raw", 40, 64)])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float32, 1e-5)])
+def test_grouped_matmul_k_tail_and_small_groups(dev, dtype, tol, mode, k,
+                                                group):
+    """Any K and int4 groups below 64 against the plain version, within
+    GM_TOL of the largest |out| (chip_smoke's limits); zero rows exact."""
+    from arks_tpu_torch.ops import moe_kernel as mk
+    xs_p, w, bexp, kw, used, rows = _grouped_case(
+        dev, dtype, mode, sizes=GROUP_SIZES, k=k, n=208, group=group)
+    before = mk.grouped_matmul.launches
+    got = mk.grouped_matmul(xs_p, w, bexp, rows_used=used, tile_rows=rows,
+                            **kw)
+    want = mk.grouped_matmul(xs_p, w, bexp, impl="plain", **kw)
+    torch.cuda.synchronize()
+    assert mk.grouped_matmul.launches == before + 1
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=tol * scale)
+    assert not got[(xs_p == 0).all(dim=1)].any()
+
+
+# ---------------------------------------------------------------------------
+# The split-KV mixed attention: block_q 1, 8 and 32, every pool stream,
+# page spans with carried and emitted state
+# ---------------------------------------------------------------------------
+
+
+# Lanes per block_q (the widest lane sets it): decode lanes only, chunks of
+# at most 8 tokens, chunks up to 40 (block_q 32, two q-blocks).  Positions
+# cross pages of 16; inactive lanes in each.
+BLOCK_Q_LANES = {
+    1: [(0, 1), (15, 1), (16, 1), (40, 1), (0, 0), (77, 1), (30, 0),
+        (120, 1)],
+    8: [(0, 1), (15, 8), (16, 3), (40, 1), (0, 0), (60, 8), (9, 7)],
+    32: [(0, 1), (15, 1), (8, 20), (3, 9), (0, 0), (30, 40), (100, 32)],
+}
+POOL_STREAMS = [(torch.bfloat16, None), (torch.float32, None),
+                (torch.bfloat16, "int8"), (torch.bfloat16, "int4"),
+                (torch.float32, "bf16")]
+
+
+def _stream_batch(dev, dtype, kv, lanes, *, hkv=2, g=7, d=128, page=16):
+    """A batch whose pools are ``kv`` (None: q's dtype; "bf16": bf16 under
+    f32 q; "int8"/"int4": quantized) and the scale kwargs."""
+    b = _batch(dev, torch.bfloat16 if kv == "bf16" else dtype, hkv=hkv, g=g,
+               d=d, page=page, lanes=lanes)
+    scales = {}
+    if kv in ("int8", "int4"):
+        b = _quant_pools(b, kv)
+        scales = dict(k_scale=b["k_scale"], v_scale=b["v_scale"])
+    if kv == "bf16":
+        b["q"] = b["q"].float()
+    return b, scales
+
+
+@pytest.mark.parametrize("dtype,kv", POOL_STREAMS)
+@pytest.mark.parametrize("block_q", [1, 8, 32])
+def test_paged_mixed_attention_split_kv_vs_plain(dev, dtype, kv, block_q):
+    """The split-KV kernel at each block_q (from the widest lane) against
+    the plain version: bf16 q within 2e-2, f32 q within 1e-5 (an f32
+    engine's bf16 pool widened exactly); the plan's block_q is the
+    reference's min(qmax, 32); rows no lane owns are zero."""
+    lanes = BLOCK_Q_LANES[block_q]
+    b, scales = _stream_batch(dev, dtype, kv, lanes)
+    qmax = max(n for _, n in lanes)
+    assert pa.mixed_grid_plan(qmax)["block_q"] == block_q
+    args = (b["tables"], b["seq_q_start"], b["seq_q_len"],
+            b["seq_pos_start"], b["layer"])
+    before = pa.paged_mixed_attention.launches
+    got = pa.paged_mixed_attention(b["q"], b["k_pool"], b["v_pool"], *args,
+                                   qmax=qmax, **scales)
+    want = pa.paged_mixed_attention(b["q"], b["k_pool"], b["v_pool"], *args,
+                                    qmax=qmax, impl="plain", **scales)
+    split = pa.paged_mixed_attention_plain(
+        b["q"], b["k_pool"], b["v_pool"], *args, qmax=qmax, split=True,
+        **scales)
+    torch.cuda.synchronize()
+    assert pa.paged_mixed_attention.launches == before + 1
+    tol = 1e-5 if b["q"].dtype == torch.float32 else 2e-2
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(got.float(), split.float(), atol=tol, rtol=0)
+    assert not got[b["token_slot"] < 0].any()
+
+
+def _bits(x):
+    return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("dtype,kv", POOL_STREAMS)
+def test_paged_mixed_attention_span_chain_bit_exact(dev, dtype, kv):
+    """[0, k) emitting state, then [k, end) carrying it, gives the single
+    call's output bit for bit (the pieces are pages and the fold is a left
+    fold in page order); the emitted state agrees with the plain version's
+    within 2e-5 (m, l) and 2e-5 of the largest |acc|; rows no lane owns are
+    zero in the state too.  The dense grid refuses spans and state."""
+    lanes = [(3 * 16 + 5, 1), (2 * 16, 1), (16 + 1, 4), (3, 1), (0, 0),
+             (40, 20)]
+    b, scales = _stream_batch(dev, dtype, kv, lanes)
+    args = (b["tables"], b["seq_q_start"], b["seq_q_len"],
+            b["seq_pos_start"], b["layer"])
+    q, kp, vp = b["q"], b["k_pool"], b["v_pool"]
+    whole = pa.paged_mixed_attention(q, kp, vp, *args, **scales)
+    for k in (1, 2):
+        split = torch.full_like(b["seq_q_len"], k)
+        state = pa.paged_mixed_attention(q, kp, vp, *args, page_hi=split,
+                                         emit_state=True, **scales)
+        chained = pa.paged_mixed_attention(q, kp, vp, *args, page_lo=split,
+                                           carry_state=state, **scales)
+        torch.cuda.synchronize()
+        assert all(x.dtype == torch.float32 for x in state)
+        assert torch.equal(_bits(chained), _bits(whole))
+        want = pa.paged_mixed_attention(q, kp, vp, *args, page_hi=split,
+                                        emit_state=True, impl="plain",
+                                        **scales)
+        pad = b["token_slot"] < 0
+        for got_x, want_x in zip(state, want):
+            assert not got_x[pad].any()
+            atol = 2e-5 * max(1.0, want_x.abs().max().item())
+            if q.dtype == torch.bfloat16:
+                atol *= 500          # p rounded to bf16 before p.V
+            torch.testing.assert_close(got_x, want_x, atol=atol, rtol=0)
+    with pytest.raises(ValueError):
+        pa.paged_mixed_attention(q, kp, vp, *args, grid="dense",
+                                 page_hi=torch.ones_like(b["seq_q_len"]),
+                                 **scales)
+    with pytest.raises(ValueError):
+        pa.paged_mixed_attention(q, kp, vp, *args, grid="dense",
+                                 emit_state=True, **scales)
+
+
+# ---------------------------------------------------------------------------
+# An f32 engine over a bf16 cache: the write kernels round f32 rows to
+# bf16, the attention kernels read bf16 widened to f32
+# ---------------------------------------------------------------------------
+
+
+def test_paged_kv_update_f32_rows_into_bf16_pool_bit_exact(dev):
+    b = _batch(dev, torch.bfloat16, hkv=4, g=1, d=128, page=16, lanes=LANES)
+    args = (b["k_new"].float() * 1.001, b["v_new"].float() / 3,
+            b["write_idx"], b["tables_tok"], b["layer"])
+    kk, vk = b["k_pool"].clone(), b["v_pool"].clone()
+    kp, vp = b["k_pool"].clone(), b["v_pool"].clone()
+    before = pa.paged_kv_update.launches
+    pa.paged_kv_update(kk, vk, *args)
+    pa.paged_kv_update(kp, vp, *args, impl="plain")
+    torch.cuda.synchronize()
+    assert pa.paged_kv_update.launches == before + 1
+    assert torch.equal(_bits(kk), _bits(kp)) and torch.equal(_bits(vk),
+                                                             _bits(vp))
+    assert not torch.equal(kk, b["k_pool"])
+
+
+def test_kv_cache_update_f32_rows_into_bf16_cache_bit_exact(dev):
+    from arks_tpu_torch.ops import pallas_attention as pl
+    s = 48
+    k, v = _slot_cache(dev, torch.bfloat16, b=6, hkv=4, d=128, s=s)
+    widx = torch.tensor([0, 15, 16, s - 1, s, 30], dtype=torch.int32,
+                        device=dev)
+    new = [torch.randn(6, 4, 128, device=dev) / 3 for _ in range(2)]
+    kern, plain = [k.clone(), v.clone()], [k.clone(), v.clone()]
+    before = pl.kv_cache_update.launches
+    pl.kv_cache_update(*kern, *new, widx, 1)
+    pl.kv_cache_update(*plain, *new, widx, 1, impl="plain")
+    torch.cuda.synchronize()
+    assert pl.kv_cache_update.launches == before + 1
+    for g_, w_ in zip(kern, plain):
+        assert torch.equal(_bits(g_), _bits(w_))
+    assert torch.equal(kern[0][:, 4], k[:, 4])      # the parked slot
+
+
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+def test_decode_attention_f32_over_bf16_cache_vs_plain(dev, layout):
+    """f32 q over a bf16 cache (widened on the copy, p kept f32) within
+    1e-5 of the plain version; the empty slot is zero."""
+    from arks_tpu_torch.ops import pallas_attention as pl
+    if layout == "slot":
+        s = 320
+        lengths = _slot_lengths(s, dev)
+        k, v = _slot_cache(dev, torch.bfloat16, b=8, hkv=2, d=128, s=s)
+        q = torch.randn(8, 2, 4, 128, device=dev)
+        before = pl.ragged_decode_attention.launches
+        got = pl.ragged_decode_attention(q, k, v, lengths, 1)
+        want = pl.ragged_decode_attention(q, k, v, lengths, 1, impl="plain")
+        assert pl.ragged_decode_attention.launches == before + 1
+    else:
+        q, pools, tables, lengths = _paged_decode_case(
+            dev, torch.bfloat16, hkv=2, g=4, d=128, page=16, quant=False)
+        q = q.float()
+        before = pa.paged_decode_attention.launches
+        got = pa.paged_decode_attention(q, pools[0], pools[1], tables,
+                                        lengths, 1)
+        want = pa.paged_decode_attention(q, pools[0], pools[1], tables,
+                                         lengths, 1, impl="plain")
+        assert pa.paged_decode_attention.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert not got[4].any()

@@ -146,6 +146,29 @@ def test_legacy_greedy_streams_match_jax_engine(name, layout, kv,
     _check_engine(eng, kv, layout)
 
 
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+@pytest.mark.parametrize("name", ["tiny", "tiny-gqa"])
+def test_legacy_f32_engine_bf16_cache_greedy_streams_match_jax_engine(
+        name, layout, monkeypatch):
+    """An f32 engine over a bf16 cache on the legacy scheduler (slot cache,
+    and paged under ARKS_MIXED_STEP=0): the greedy streams are the JAX
+    engine's, and the known stream of ``tiny``'s PRNGKey(3) weights for
+    the prompt [5..10] comes out on both."""
+    monkeypatch.setenv("ARKS_MIXED_STEP", "0")
+    jparams, tparams = _params(name, 3)
+    prompts = _prompts(jax_get_config(name).vocab_size)
+    if name == "tiny":
+        prompts = [list(range(5, 11))] + prompts
+    want = _jax_streams(name, jparams, prompts, 9, layout, "bf16", None)
+    got, eng = _torch_streams(name, tparams, prompts, 9, layout, "bf16",
+                              None)
+    assert eng.cache.k.dtype == torch.bfloat16
+    _same_streams(want, got)
+    _check_engine(eng, "bf16", layout)
+    if name == "tiny":
+        assert got[0][0][:5] == [422, 505, 428, 390, 413]
+
+
 @pytest.mark.parametrize("seed", [5, 2**33 + 7])
 @pytest.mark.parametrize("layout", ["slot", "paged"])
 def test_legacy_seeded_streams_match_jax_engine(layout, seed, monkeypatch):

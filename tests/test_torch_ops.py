@@ -96,6 +96,77 @@ def test_build_mixed_work_list_bit_exact(seed, s, block_q, num_qb,
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("seed,s,block_q,num_qb,head_groups,page,max_pages", [
+    (0, 4, 8, 3, 1, 16, 4),
+    (1, 8, 32, 9, 4, 256, 16),     # qwen2.5-7b engine shape at block_q 32
+    (2, 5, 4, 5, 2, 8, 3),
+    (4, 6, 8, 2, 4, 16, 4),
+])
+def test_build_mixed_work_list_spans_bit_exact(seed, s, block_q, num_qb,
+                                               head_groups, page, max_pages):
+    """Page spans [page_lo, page_hi) per lane, the windowed-residency hook:
+    the port's list is the reference's bit for bit (a span below, across
+    and past each lane's pages, and lo above hi)."""
+    rng = np.random.default_rng(seed)
+    q_len = rng.integers(0, block_q * num_qb + 1, s).astype(np.int32)
+    q_len[rng.random(s) < 0.3] = 0
+    pos = rng.integers(0, page * max_pages, s).astype(np.int32)
+    lo = rng.integers(0, max_pages + 1, s).astype(np.int32)
+    hi = rng.integers(0, max_pages + 2, s).astype(np.int32)
+    kw = dict(page=page, block_q=block_q, num_qb=num_qb,
+              max_pages=max_pages, head_groups=head_groups)
+    for spans in (dict(page_lo=lo), dict(page_hi=hi),
+                  dict(page_lo=lo, page_hi=hi)):
+        want = jpa.build_mixed_work_list(
+            jnp.asarray(pos), jnp.asarray(q_len), **kw,
+            **{k: jnp.asarray(v) for k, v in spans.items()})
+        got = tpa.build_mixed_work_list(
+            torch.from_numpy(pos), torch.from_numpy(q_len), **kw,
+            **{k: torch.from_numpy(v) for k, v in spans.items()})
+        for w, g in zip(want, got):
+            assert g.dtype == torch.int32
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("grid", ["ragged", "dense"])
+@pytest.mark.parametrize("page", [16, 512])
+def test_mixed_pieces_layout(grid, page):
+    """The split-KV layout of a step's items: each real item has
+    (pages - plo) x pieces_per_page pieces (a page past 256 positions is cut
+    into pieces of 256), padding and idle items none; pcum is their running
+    sum, pbase the running sum of count x rows before each item, and pitem
+    names each piece's item over the grid's static bound."""
+    rng = np.random.default_rng(3)
+    s, hkv, maxp = 6, 2, 4
+    q_len = torch.tensor([1, 0, 9, 17, 3, 0], dtype=torch.int32)
+    pos = torch.from_numpy(rng.integers(0, page * 2, s).astype(np.int32))
+    tables = torch.zeros((s, maxp), dtype=torch.int32)
+    q_start = torch.cumsum(q_len, 0).to(torch.int32) - q_len
+    work = tpa.mixed_work(tables, q_start, q_len, pos, page=page, hkv=hkv,
+                          qmax=17, grid=grid)
+    pcum, pbase, pitem = (x.tolist() for x in work.pieces)
+    if grid == "ragged":
+        seq, _, qb, plo, pages = (x.tolist() for x in work.items)
+    else:
+        seq, qb, plo, pages = (x.tolist() for x in tpa.dense_items(
+            pos, q_len, page=page, block_q=work.block_q,
+            num_qb=work.num_qb, hkv=hkv, max_pages=maxp))
+        assert len(seq) == s * hkv * work.num_qb
+    ppp = max(1, page // 256)
+    total = used = 0
+    for i in range(len(seq)):
+        rows = max(0, min(work.block_q, int(q_len[seq[i]]) - qb[i]
+                          * work.block_q))
+        count = max(0, pages[i] - plo[i]) * ppp if rows else 0
+        assert pbase[i] == used
+        total += count
+        used += count * rows
+        assert pcum[i] == total
+        assert pitem[total - count:total] == [i] * count
+    assert total > 0
+    assert len(pitem) == len(seq) * maxp * ppp
+
+
 def _pool(rng, shape, jdt=jnp.float32, tdt=torch.float32):
     x = rng.standard_normal(shape).astype(np.float32)
     return jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
@@ -357,3 +428,118 @@ def test_kernel_wrappers_reject_bad_impl():
     c = _attend_case()
     with pytest.raises(ValueError):
         _torch_attend(c, "fast")
+
+
+# ---------------------------------------------------------------------------
+# The reference kernel's span and state arguments
+# ---------------------------------------------------------------------------
+
+
+def _span_case(kv, seed=15):
+    """_attend_case's batch with f32, int8 or int4 (packed) pools: the
+    port's flat inputs and the reference's per-lane queries."""
+    c = _attend_case(seed)
+    hkv, d = c["k_pool"].shape[2], c["q"].shape[-1]
+    g = c["q"].shape[1] // hkv
+    s = c["seq_q_len"].shape[0]
+    qmax = int(c["seq_q_len"].max())
+    span = c["seq_q_start"][:, None] + np.arange(qmax)
+    qs = c["q"][np.minimum(span, len(c["q"]) - 1)]
+    qs = qs.reshape(s, qmax, hkv, g, d).transpose(0, 2, 3, 1, 4)
+    pools = [torch.from_numpy(c["k_pool"]), torch.from_numpy(c["v_pool"])]
+    tsc = {}
+    if kv != "f32":
+        qmax_v = 7 if kv == "int4" else 127
+        vals = [tpa.quantize_kv(p, qmax=qmax_v) for p in pools]
+        pools = [tpa.pack_int4(v, 3) if kv == "int4" else v for v, _ in vals]
+        tsc = dict(k_scale=vals[0][1], v_scale=vals[1][1])
+    jsc = {k: jnp.asarray(v.numpy()) for k, v in tsc.items()}
+    return c, qs, qmax, pools, tsc, jsc
+
+
+def _ref_state_flat(state, c, qmax):
+    """The reference's state (m, l [S, Hkv, G, qpad, 128]; acc [S, Hkv, G,
+    qpad, D]) in the port's flat layout: m, l [T, H], acc [T, H, D]."""
+    m, l, acc = (np.asarray(x) for x in state)
+    s, hkv, g = m.shape[:3]
+    t = c["q"].shape[0]
+    out = [np.zeros((t, hkv * g), np.float32),
+           np.zeros((t, hkv * g), np.float32),
+           np.zeros((t, hkv * g, acc.shape[-1]), np.float32)]
+    for lane in range(s):
+        for i in range(int(c["seq_q_len"][lane])):
+            tok = c["seq_q_start"][lane] + i
+            out[0][tok] = m[lane, :, :, i, 0].reshape(-1)
+            out[1][tok] = l[lane, :, :, i, 0].reshape(-1)
+            out[2][tok] = acc[lane, :, :, i].reshape(hkv * g, -1)
+    return out
+
+
+@pytest.mark.parametrize("kv", ["f32", "int8", "int4"])
+def test_paged_mixed_attention_plain_span_state_vs_pallas(kv):
+    """The plain version with page_lo/page_hi/carry_state/emit_state
+    against the reference's ragged Pallas kernel in interpret mode: the
+    emitted state of [0, 1) within 2e-5 after the layout conversion (rows
+    no lane owns zero in both), the chained output [1, end) within 1e-5 of
+    the reference's chained output, and the plain chained output equal to
+    the plain single call (the split-and-fold form bit for bit, the
+    one-pass form within 1e-6)."""
+    c, qs, qmax, pools, tsc, jsc = _span_case(kv)
+    split = np.ones_like(c["seq_q_len"])
+    plan = tpa.mixed_grid_plan(qmax)
+    jkw = dict(block_q=plan["block_q"], head_group=1, interpret=True,
+               grid="ragged", **jsc)
+    jargs = (jnp.asarray(qs), jnp.asarray(pools[0].numpy()),
+             jnp.asarray(pools[1].numpy()), jnp.asarray(c["tables"]),
+             jnp.asarray(c["seq_pos_start"]), jnp.asarray(c["seq_q_len"]),
+             c["layer"])
+    jstate = jpa.paged_mixed_attention(*jargs, page_hi=jnp.asarray(split),
+                                       emit_state=True, **jkw)
+    jout = np.asarray(jpa.paged_mixed_attention(
+        *jargs, page_lo=jnp.asarray(split), carry_state=jstate, **jkw))
+    targs = (torch.from_numpy(c["q"]), *pools, torch.from_numpy(c["tables"]),
+             torch.from_numpy(c["seq_q_start"]),
+             torch.from_numpy(c["seq_q_len"]),
+             torch.from_numpy(c["seq_pos_start"]), c["layer"])
+    tsplit = torch.from_numpy(split)
+    for form in (False, True):
+        kw = dict(qmax=qmax, split=form, **tsc)
+        state = tpa.paged_mixed_attention_plain(*targs, page_hi=tsplit,
+                                                emit_state=True, **kw)
+        for got, want in zip(state, _ref_state_flat(jstate, c, qmax)):
+            np.testing.assert_allclose(got.numpy(), want, atol=2e-5,
+                                       rtol=2e-5)
+        chained = tpa.paged_mixed_attention_plain(
+            *targs, page_lo=tsplit, carry_state=state, **kw)
+        single = tpa.paged_mixed_attention_plain(*targs, **kw)
+        if form:
+            assert torch.equal(chained, single)
+        else:
+            torch.testing.assert_close(chained, single, atol=1e-6, rtol=0)
+        for lane in range(c["seq_q_len"].shape[0]):
+            for i in range(int(c["seq_q_len"][lane])):
+                t = c["seq_q_start"][lane] + i
+                np.testing.assert_allclose(
+                    chained[t].reshape(jout.shape[1:3] + (-1,)).numpy(),
+                    jout[lane, :, :, i], atol=1e-5, rtol=0)
+        assert not chained[~_valid_rows(c)].any()
+        assert not state[2][~_valid_rows(c)].any()
+
+
+@pytest.mark.parametrize("kv", ["f32", "int8", "int4"])
+def test_paged_mixed_attention_split_plain_vs_unsplit(kv):
+    """The kernel's split-KV form (pieces of one page, each from
+    (-1e30, 0, 0), folded left in page order) against the one-pass plain
+    version within 1e-5 in f32, and the CPU wrapper is the one-pass
+    form."""
+    c, _, qmax, pools, tsc, _ = _span_case(kv, seed=16)
+    targs = (torch.from_numpy(c["q"]), *pools, torch.from_numpy(c["tables"]),
+             torch.from_numpy(c["seq_q_start"]),
+             torch.from_numpy(c["seq_q_len"]),
+             torch.from_numpy(c["seq_pos_start"]), c["layer"])
+    one = tpa.paged_mixed_attention_plain(*targs, qmax=qmax, **tsc)
+    split = tpa.paged_mixed_attention_plain(*targs, qmax=qmax, split=True,
+                                            **tsc)
+    torch.testing.assert_close(split, one, atol=1e-5, rtol=0)
+    assert torch.equal(tpa.paged_mixed_attention(*targs, qmax=qmax, **tsc),
+                       one)

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Time the port's redesigned kernels of one source tree on the GPU, at
 ``chip_smoke.py``'s shapes, so two trees can be compared inside one call
-to the card: ``grouped_matmul`` (bf16 / int8 / int4 weights at
-Mixtral-8x7B's gate and down shapes, over the 528-row mixed batch and the
-16-row decode batch) and the two decode attentions (bf16 and int8, phase
-3's slot cache and paged pool).  Each time is chip_smoke's ``_time_ms``:
-the CUDA-event mean over 20 launches, L2 flushed before each.
+to the card: the mixed attention (phase 3's mixed batch over bf16, int8
+and int4 pools, its dense launch, and the batch's 8 decode lanes alone),
+``grouped_matmul`` (bf16 / int8 / int4 weights at Mixtral-8x7B's gate and
+down shapes, over the 528-row mixed batch and the 16-row decode batch)
+and the two decode attentions (bf16 and int8, phase 3's slot cache and
+paged pool).  Each time is chip_smoke's ``_time_ms``: the CUDA-event mean
+over 20 launches, L2 flushed before each.
 
     python3 tools/torch_kernel_compare.py --root DIR [--out FILE]
+        [--mixed-only]
 
 ``DIR`` is the root of the tree whose ``arks_tpu_torch`` is timed (its
 kernels build into DIR/build/); this script and the helpers it borrows
@@ -32,6 +35,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", required=True)
     ap.add_argument("--out")
+    ap.add_argument("--mixed-only", action="store_true",
+                    help="time the mixed attention alone")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -50,6 +55,43 @@ def main() -> int:
     assert Path(mk.__file__).resolve().is_relative_to(root), mk.__file__
     dev = torch.device("cuda", 0)
     times = {}
+
+    b = cs.kernel_batch(torch, dev)
+    lane = (b["tables"], b["seq_q_start"], b["seq_q_len"],
+            b["seq_pos_start"])
+    hkv, layer = b["k_pool"].shape[2], b["layer"]
+    qmax = int(b["seq_q_len"].max().item())
+    b["pools_before"] = b["k_pool"], b["v_pool"]
+    pools = {"bf16": dict(k_pool=b["k_pool"], v_pool=b["v_pool"])}
+    for kv in ("int8", "int4"):
+        qp = cs.quant_pools(b, kv)
+        pools[kv] = dict(k_pool=qp["k_pool"], v_pool=qp["v_pool"],
+                         k_scale=qp["k_scale"], v_scale=qp["v_scale"])
+    dec = b["seq_q_len"].clone()
+    dec[8:] = 0
+
+    def mixed(kv, grid="ragged", q_len=None):
+        p = pools[kv]
+        ql = b["seq_q_len"] if q_len is None else q_len
+        work = pa.mixed_work(lane[0], lane[1], ql, lane[3], page=cs.PAGE,
+                             hkv=hkv, qmax=qmax if q_len is None else 1,
+                             grid=grid)
+        return lambda: pa.paged_mixed_attention(
+            b["q"], p["k_pool"], p["v_pool"], lane[0], lane[1], ql,
+            lane[3], layer, k_scale=p.get("k_scale"),
+            v_scale=p.get("v_scale"), work=work)
+
+    cases = {f"paged_mixed_attention {kv}": mixed(kv)
+             for kv in ("bf16", "int8", "int4")}
+    cases["paged_mixed_attention_dense bf16"] = mixed("bf16", "dense")
+    cases["paged_mixed_attention decode-only bf16"] = mixed("bf16",
+                                                            q_len=dec)
+    for name, fn in cases.items():
+        times[name] = cs._time_ms(torch, fn)
+    del b, pools, cases
+    torch.cuda.empty_cache()
+    if args.mixed_only:
+        return _report(root, times, args.out)
 
     b = cs.slot_batch(torch, dev)
     q, layer = b["q"], b["layer"]
@@ -98,14 +140,19 @@ def main() -> int:
                                                      **wkw))
             del w, wkw
             torch.cuda.empty_cache()
+    return _report(root, times, args.out)
+
+
+def _report(root: Path, times: dict, out: str | None) -> int:
+    """Print (and with ``out`` write) the JSON line of one tree's times."""
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
-    res = {"root": str(root), "device": card.strip(), "times": times}
-    line = json.dumps(res)
+    line = json.dumps({"root": str(root), "device": card.strip(),
+                       "times": times})
     print(line, flush=True)
-    if args.out:
-        Path(args.out).write_text(line + "\n")
+    if out:
+        Path(out).write_text(line + "\n")
     return 0
 
 
