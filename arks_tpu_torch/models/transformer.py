@@ -34,7 +34,8 @@ from arks_tpu_torch.ops.attention import (chunk_attention_xla,
                                           paged_mixed_update_and_attend,
                                           prefill_attention, prepare_mixed)
 from arks_tpu_torch.ops.paged_attention import (pack_int4, paged_gather_kv,
-                                                quantize_kv, unpack_int4)
+                                                paged_write_rows, quantize_kv,
+                                                unpack_int4)
 from arks_tpu_torch.ops.norms import rms_norm
 from arks_tpu_torch.ops.rope import rope_cos_sin, rotate
 
@@ -632,10 +633,15 @@ def decode_step(params: Params, cfg: ModelConfig,
         rope_idx = torch.clamp(write_idx, max=tables.shape[1] * cache.page - 1)
     rope = rope_cos_sin(rope_idx, cfg.head_dim, cfg.rope_theta)
     h = embed_lookup(params["embed"], tokens, params["layers"]["attn_norm"].dtype)
-    work = None   # an int4 pool's decode view, one per step
-    if paged and cache.kv_bits == 4 and impl != "plain":
-        work = decode_mixed_work(tables, write_idx, page=cache.page,
-                                 hkv=cfg.num_kv_heads)
+    # Per step, not per layer: an int4 pool's decode view, and each slot's
+    # destination pool row (what every layer's update kernel reads).
+    work = dst = None
+    if paged and impl != "plain":
+        dst = paged_write_rows(write_idx, tables, cache.page,
+                               cache.num_pages)
+        if cache.kv_bits == 4:
+            work = decode_mixed_work(tables, write_idx, page=cache.page,
+                                     hkv=cfg.num_kv_heads)
     for layer in range(cfg.num_layers):
         lp = _layer(params, layer)
         q, k, v = _block_qkv(h, lp, cfg, rope)            # [B, H(kv), D]
@@ -643,7 +649,7 @@ def decode_step(params: Params, cfg: ModelConfig,
             attn = paged_decode_update_and_attend(
                 q, k, v, cache.k, cache.v, tables, write_idx, layer,
                 impl=impl, k_scale=cache.k_scale, v_scale=cache.v_scale,
-                work=work)
+                work=work, dst=dst)
         else:
             attn = decode_update_and_attend(
                 q, k, v, cache.k, cache.v, write_idx, layer, impl=impl,

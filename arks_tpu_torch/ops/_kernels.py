@@ -45,12 +45,14 @@ _F = ctypes.c_float
 _SIGNATURES: dict[str, tuple[str, list]] = {
     "arks_paged_kv_update": ("paged_kv_update", [
         _P, _P, _P, _P,          # k_pool, v_pool, k_new, v_new
-        _P, _P,                  # write_idx [T], tables [T, MaxP]
+        _P, _P, _P,              # dst [T] or NULL; write_idx [T], tables
+                                 # [T, MaxP] (read when dst is NULL)
         _I, _I, _I, _I, _I, _I,  # T, hkv, max_pages, n_pages, page, row_bytes
         _I, _I, _P]),            # layer, narrow (f32 rows -> bf16), stream
     "arks_paged_kv_update_quant": ("paged_kv_update_quant", [
         _P, _P, _P, _P,          # k_pool, v_pool (int8), k_scale, v_scale
-        _P, _P, _P, _P,          # k_new, v_new, write_idx [T], tables
+        _P, _P,                  # k_new, v_new
+        _P, _P, _P,              # dst [T] or NULL; write_idx [T], tables
         _I, _I, _I, _I, _I, _I,  # T, hkv, head_dim, max_pages, n_pages, page
         _I, _I, _I, _P]),        # int4, layer, dtype code, stream
     "arks_paged_mixed_attention": ("paged_mixed_attention", [
@@ -109,6 +111,9 @@ _SIGNATURES: dict[str, tuple[str, list]] = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# Bound C entry points by name, filled on first use; later calls read the
+# dict without the lock.
+_entries: dict[str, ctypes._CFuncPtr] = {}
 
 
 def nvcc_path() -> str:
@@ -182,14 +187,27 @@ def _load(stem: str) -> ctypes.CDLL:
         return lib
 
 
+def entry(fn: str) -> ctypes._CFuncPtr:
+    """C entry point ``fn``, bound once (its library built and loaded on
+    first use)."""
+    f = _entries.get(fn)
+    if f is None:
+        f = _entries[fn] = getattr(_load(_SIGNATURES[fn][0]), fn)
+    return f
+
+
 def launch(fn: str, *args) -> None:
     """Call C entry point ``fn`` (building its library on first use) and
     raise if the launch reported a CUDA error."""
-    lib = _load(_SIGNATURES[fn][0])
-    err = getattr(lib, fn)(*args)
+    err = entry(fn)(*args)
     if err != 0:
-        raise RuntimeError(f"{fn}: CUDA error {err} "
-                           f"({cuda_error_name(lib, err)})")
+        raise_launch_error(fn, err)
+
+
+def raise_launch_error(fn: str, err: int) -> None:
+    lib = _load(_SIGNATURES[fn][0])
+    raise RuntimeError(f"{fn}: CUDA error {err} "
+                       f"({cuda_error_name(lib, err)})")
 
 
 def cuda_error_name(lib: ctypes.CDLL, err: int) -> str:

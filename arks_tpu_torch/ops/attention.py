@@ -22,7 +22,7 @@ from arks_tpu_torch.ops.paged_attention import (
     MixedWork, _default_qmax, _use_kernel, gather_pool, is_int4_pool,
     mixed_work, paged_decode_attention, paged_gather_kv, paged_kv_update,
     paged_kv_update_quant, paged_mixed_attention, paged_update_xla,
-    pool_page_tokens)
+    paged_write_rows, pool_page_tokens)
 
 _NEG_INF = -1e30
 
@@ -196,6 +196,7 @@ def paged_decode_update_and_attend(
     k_scale: torch.Tensor | None = None,  # [L, N, Hkv, P] f32 — IN PLACE
     v_scale: torch.Tensor | None = None,
     work: MixedWork | None = None,  # int4: ``decode_mixed_work`` of the step
+    dst: torch.Tensor | None = None,  # [B] ``paged_write_rows`` of the step
 ) -> torch.Tensor:
     """Paged counterpart of ``decode_update_and_attend``: the row lands in
     the slot's table-mapped page and attention reads only table pages.  A
@@ -211,7 +212,9 @@ def paged_decode_update_and_attend(
     kernel's fused nibble dequant as its decode path): its attention is
     ``paged_mixed_attention`` over one query per slot, on the
     ``decode_mixed_work`` view (``work``: built once per step by the
-    caller, or here when None)."""
+    caller, or here when None).  ``dst``: each slot's destination pool row,
+    resolved once per step by the caller; the update kernel reads it
+    instead of ``write_idx`` and ``tables``."""
     b, h, d = q.shape
     hkv = k_pool.shape[2]
     if k_pool.shape[-1] != d:
@@ -237,10 +240,10 @@ def paged_decode_update_and_attend(
         return out.reshape(b, h, d)
     if quantized:
         paged_kv_update_quant(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
-                              write_idx, tables, layer, impl=impl)
+                              write_idx, tables, layer, impl=impl, dst=dst)
     else:
         paged_kv_update(k_pool, v_pool, k_new, v_new, write_idx, tables,
-                        layer, impl=impl)
+                        layer, impl=impl, dst=dst)
     if int4:
         if work is None:
             work = decode_mixed_work(tables, write_idx,
@@ -274,12 +277,14 @@ class MixedBatch(NamedTuple):
     """Layer-invariant inputs of one mixed dispatch, prepared once per step
     by ``prepare_mixed`` and reused by every layer: the per-token write view
     (each token's block-table row and write position, padding routed past
-    the table's coverage) and, on the kernel path, the attention kernel's
-    work list."""
+    the table's coverage), each token's destination pool row resolved from
+    it (``paged_write_rows``: what every layer's update kernel reads) and,
+    on the kernel path, the attention kernel's work list."""
 
     tables_tok: torch.Tensor   # [T, MaxP] int32
     write_idx: torch.Tensor    # [T] int32
     work: MixedWork | None
+    dst: torch.Tensor | None   # [T] int32 page * P + offset, -1 dropped
 
 
 def prepare_mixed(k_pool: torch.Tensor, tables: torch.Tensor,
@@ -293,13 +298,14 @@ def prepare_mixed(k_pool: torch.Tensor, tables: torch.Tensor,
     tables_tok = tables[token_slot.clamp(min=0).long()]
     write_idx = torch.where(token_slot < 0,
                             torch.full_like(token_pos, cover), token_pos)
+    dst = paged_write_rows(write_idx, tables_tok, page, k_pool.shape[1])
     work = None
     if _use_kernel(k_pool, impl):
         qmax = qmax or _default_qmax(token_slot.shape[0],
                                      seq_q_len.shape[0])
         work = mixed_work(tables, seq_q_start, seq_q_len, seq_pos_start,
                           page=page, hkv=k_pool.shape[2], qmax=qmax)
-    return MixedBatch(tables_tok, write_idx, work)
+    return MixedBatch(tables_tok, write_idx, work, dst)
 
 
 def paged_mixed_update_and_attend(
@@ -370,10 +376,10 @@ def paged_mixed_update_and_attend(
     if quantized:
         paged_kv_update_quant(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
                               batch.write_idx, batch.tables_tok, layer,
-                              impl=impl)
+                              impl=impl, dst=batch.dst)
     else:
         paged_kv_update(k_pool, v_pool, k_new, v_new, batch.write_idx,
-                        batch.tables_tok, layer, impl=impl)
+                        batch.tables_tok, layer, impl=impl, dst=batch.dst)
     return paged_mixed_attention(q, k_pool, v_pool, tables, seq_q_start,
                                  seq_q_len, seq_pos_start, layer,
                                  k_scale=k_scale, v_scale=v_scale, qmax=qmax,

@@ -16,6 +16,10 @@ its Pallas kernels (port of ``arks_tpu/ops/paged_attention.py``).
   here ``paged_update_xla``, ``paged_kv_update`` and
   ``paged_kv_update_quant`` write into the tensors they are given (and
   return them for symmetry).
+- **Write destinations once per step.**  A token's pool row is the same
+  in every layer of a step: ``paged_write_rows`` resolves it once (the
+  reference reads its indices from scalar-prefetched SMEM), and both
+  update kernels take it as ``dst``.
 - **Kernels** (``csrc/paged_kv_update.cu``, ``csrc/paged_kv_update_quant.cu``,
   ``csrc/paged_mixed_attention.cu`` — a ragged and a dense launch, picked
   by ``ARKS_MIXED_GRID`` — and ``csrc/decode_attention.cu``) launch for CUDA tensors and raise on
@@ -64,20 +68,30 @@ def _use_kernel(x: torch.Tensor, impl: str | None) -> bool:
     return impl != "plain" and x.is_cuda
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(index: int | None = None) -> int:
+    """The current CUDA stream of device ``index`` (the current device when
+    None) as the raw handle the C entry points take.  Read at every call,
+    so a caller's ``torch.cuda.stream(...)`` context holds, without
+    building a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def _check_operands(kernel: str, device: torch.device, operands, *,
-                    aligned: bool = True) -> None:
+                    aligned: bool = True) -> list[int]:
     """Raise unless every (name, tensor) lies on ``device`` and, with
-    ``aligned``, is contiguous and 16-byte aligned."""
+    ``aligned``, is contiguous and 16-byte aligned; returns their data
+    pointers."""
+    ptrs = []
     for name, x in operands:
-        if not x.is_cuda or x.device != device:
+        if x.get_device() != device.index:          # -1 off the card
             raise ValueError(f"{kernel}: {name} is not on {device}")
-        if aligned and (not x.is_contiguous() or x.data_ptr() % 16):
+        ptr = x.data_ptr()
+        if aligned and (ptr % 16 or not x.is_contiguous()):
             raise ValueError(f"{kernel}: {name} must be contiguous and "
                              "16-byte aligned")
+        ptrs.append(ptr)
+    return ptrs
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +308,38 @@ def paged_gather_kv(pool: torch.Tensor, tables: torch.Tensor,
     return g.transpose(1, 2).reshape(b, hkv, mp * p, *g.shape[4:])
 
 
+def paged_write_rows(write_idx: torch.Tensor, tables: torch.Tensor,
+                     page: int, n_pages: int) -> torch.Tensor:
+    """Each token's destination row in a pool of ``n_pages`` pages of
+    ``page`` tokens: ``tables[t, idx // page] * page + idx % page`` for
+    idx = write_idx[t], or -1 where the write is dropped — idx < 0 or
+    idx >= MaxP * page (the padding / inactive-lane sentinel), or a table
+    entry outside [0, n_pages): the drop rules of ``paged_update_xla``.
+    int32 [T], built with tensor ops on the tensors' device (no host sync).
+    The destination is the same in every layer of a step, so a step
+    resolves it once and every layer's write takes it as ``dst`` (the
+    reference's kernels read these indices from scalar-prefetched SMEM)."""
+    if n_pages * page >= 2 ** 31:
+        raise ValueError(f"{n_pages} pages of {page} tokens do not fit "
+                         "int32 pool rows")
+    widx = write_idx.to(torch.int32)
+    keep = (widx >= 0) & (widx < tables.shape[1] * page)
+    safe = torch.where(keep, widx, torch.zeros_like(widx))
+    pg = tables.to(torch.int32).gather(
+        1, torch.div(safe, page, rounding_mode="floor").long()[:, None])[:, 0]
+    keep = keep & (pg >= 0) & (pg < n_pages)
+    return torch.where(keep, pg * page + safe % page,
+                       torch.full_like(widx, -1))
+
+
+def _dst_rows(dst: torch.Tensor, page: int, n_pages: int):
+    """(tokens kept, their pages, their offsets) from ``paged_write_rows``
+    rows; -1, or a row past the pool, is dropped (as the kernels do)."""
+    sel = torch.nonzero((dst >= 0) & (dst < n_pages * page)).squeeze(1)
+    rows = dst[sel].long()
+    return sel, rows // page, rows % page
+
+
 def paged_update_xla(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
                      write_idx, tables, layer):
     """Scatter one KV row per token through its block-table row, IN PLACE
@@ -304,19 +350,27 @@ def paged_update_xla(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
     merge one nibble of the target byte, in two parity passes so that
     pair-mates 2t and 2t+1 of one dispatch keep each other's nibble.
     Returns (k_pool, v_pool, k_scale, v_scale)."""
-    int4 = is_int4_pool(k_pool, k_scale)
     p = pool_page_tokens(k_pool, k_scale)
     keep = (write_idx < tables.shape[1] * p) & (write_idx >= 0)
     sel = torch.nonzero(keep).squeeze(1)
     idx = write_idx[sel].long()
     page = tables[sel].long().gather(1, (idx // p)[:, None])[:, 0]
     inside = (page >= 0) & (page < k_pool.shape[1])
-    sel, idx, page = sel[inside], idx[inside], page[inside]
-    off = idx % p
+    return _scatter_rows(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
+                         sel[inside], page[inside], idx[inside] % p, layer)
+
+
+def _scatter_rows(k_pool, v_pool, k_scale, v_scale, k_new, v_new, sel, page,
+                  off, layer):
+    """Write token sel[i]'s K/V rows at (layer, page[i], :, off[i]), IN
+    PLACE: cast to the pool dtype, or for a quantized pool its
+    ``quantize_kv`` values (int4: one nibble merged, in two parity passes)
+    and scales.  Returns (k_pool, v_pool, k_scale, v_scale)."""
     if k_scale is None:
         k_pool[layer][page, :, off] = k_new[sel].to(k_pool.dtype)
         v_pool[layer][page, :, off] = v_new[sel].to(v_pool.dtype)
         return k_pool, v_pool, k_scale, v_scale
+    int4 = is_int4_pool(k_pool, k_scale)
     qmax = 7 if int4 else 127
     for pool, scales, new in ((k_pool, k_scale, k_new),
                               (v_pool, v_scale, v_new)):
@@ -337,16 +391,53 @@ def paged_update_xla(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
     return k_pool, v_pool, k_scale, v_scale
 
 
+def _dense(x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``x`` in ``dtype`` (its own when None) and contiguous, with no op
+    where it already is."""
+    if dtype is not None and x.dtype != dtype:
+        x = x.to(dtype)
+    return x if x.is_contiguous() else x.contiguous()
+
+
+def _write_index(kernel: str, device: torch.device, t: int, dst,
+                 write_idx, tables):
+    """The index operands of an update kernel: the pointers (dst,
+    write_idx, tables), None where the kernel reads none, and the table
+    width.  With ``dst`` the kernel reads only it."""
+    if dst is not None:
+        if dst.dtype != torch.int32 or dst.shape != (t,):
+            raise ValueError(f"{kernel}: dst must be int32 [{t}], got "
+                             f"{dst.dtype} {tuple(dst.shape)}")
+        (ptr,) = _check_operands(kernel, device, (("dst", dst),))
+        return (ptr, None, None), 0
+    if write_idx is None or tables is None:
+        raise ValueError(f"{kernel}: needs dst, or write_idx and tables")
+    widx, tbl = _dense(write_idx, torch.int32), _dense(tables, torch.int32)
+    if widx.shape != (t,) or tbl.dim() != 2 or tbl.shape[0] != t:
+        raise ValueError(f"{kernel}: shape mismatch write_idx "
+                         f"{tuple(widx.shape)} tables {tuple(tbl.shape)} "
+                         f"for {t} tokens")
+    ptrs = _check_operands(kernel, device, (("write_idx", widx),
+                                            ("tables", tbl)))
+    return (None, *ptrs), tbl.shape[1]
+
+
 # ---------------------------------------------------------------------------
 # Kernel #2: in-place paged KV row update
 # ---------------------------------------------------------------------------
 
 
 def paged_kv_update_plain(k_pool, v_pool, k_new, v_new, write_idx, tables,
-                          layer):
-    """Plain version of the update kernel: the oracle scatter, in place."""
-    paged_update_xla(k_pool, v_pool, None, None, k_new, v_new, write_idx,
-                     tables, layer)
+                          layer, dst=None):
+    """Plain version of the update kernel: the oracle scatter, in place;
+    with ``dst``, the rows ``paged_write_rows`` resolved."""
+    if dst is None:
+        paged_update_xla(k_pool, v_pool, None, None, k_new, v_new,
+                         write_idx, tables, layer)
+    else:
+        _scatter_rows(k_pool, v_pool, None, None, k_new, v_new,
+                      *_dst_rows(dst, k_pool.shape[3], k_pool.shape[1]),
+                      layer)
     return k_pool, v_pool
 
 
@@ -356,52 +447,57 @@ def _rows_for(pool: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor):
     other rows are cast to the pool dtype here."""
     if pool.dtype == torch.bfloat16 and k_new.dtype == torch.float32 and \
             v_new.dtype == torch.float32:
-        return k_new.contiguous(), v_new.contiguous(), 1
-    return (k_new.to(pool.dtype).contiguous(),
-            v_new.to(pool.dtype).contiguous(), 0)
+        return _dense(k_new), _dense(v_new), 1
+    return _dense(k_new, pool.dtype), _dense(v_new, pool.dtype), 0
 
 
 def paged_kv_update(k_pool: torch.Tensor,    # [L, N, Hkv, P, D]
                     v_pool: torch.Tensor,
                     k_new: torch.Tensor,     # [T, Hkv, D]
                     v_new: torch.Tensor,
-                    write_idx: torch.Tensor,  # [T] int32 position per token
-                    tables: torch.Tensor,     # [T, MaxP] int32
-                    layer: int, *, impl: str | None = None):
+                    write_idx: torch.Tensor | None,  # [T] int32 position
+                    tables: torch.Tensor | None,     # [T, MaxP] int32
+                    layer: int, *, impl: str | None = None,
+                    dst: torch.Tensor | None = None):
     """Write one KV row per token at its table-mapped page, IN PLACE; rows
     with write_idx >= MaxP * P are dropped.  f32 rows into a bf16 pool are
-    rounded to nearest even, as the reference's astype.  CUDA tensors launch
-    ``csrc/paged_kv_update.cu`` (replaces the Pallas ``_paged_update_kernel``);
-    CPU tensors take ``paged_kv_update_plain``."""
+    rounded to nearest even, as the reference's astype.  ``dst`` (int32
+    [T], this step's ``paged_write_rows``) gives each token's pool row
+    resolved once per step; then write_idx and tables are not read and may
+    be None.  CUDA tensors launch ``csrc/paged_kv_update.cu`` (replaces the
+    Pallas ``_paged_update_kernel``); CPU tensors take
+    ``paged_kv_update_plain``."""
     if not _use_kernel(k_pool, impl):
         return paged_kv_update_plain(k_pool, v_pool, k_new, v_new, write_idx,
-                                     tables, layer)
+                                     tables, layer, dst)
+    kernel = "paged_kv_update"
     _, n, hkv, page, d = k_pool.shape
     t = k_new.shape[0]
     if k_pool.dtype not in _KERNEL_DTYPES or v_pool.dtype != k_pool.dtype:
         raise TypeError(f"paged_kv_update kernel takes bf16/f32 pools, got "
                         f"{k_pool.dtype}/{v_pool.dtype}")
     kn, vn, narrow = _rows_for(k_pool, k_new, v_new)
-    widx = write_idx.to(torch.int32).contiguous()
-    tbl = tables.to(torch.int32).contiguous()
     row_bytes = d * k_pool.element_size()
     if row_bytes % 16:
         raise ValueError(f"paged_kv_update kernel needs D * itemsize % 16 == "
                          f"0, got {row_bytes}")
-    _check_operands("paged_kv_update", k_pool.device, (
-        ("k_pool", k_pool), ("v_pool", v_pool), ("k_new", kn),
-        ("v_new", vn), ("write_idx", widx), ("tables", tbl)))
     if kn.shape != (t, hkv, d) or vn.shape != (t, hkv, d) or \
-            widx.shape != (t,) or tbl.shape[0] != t:
-        raise ValueError("paged_kv_update: shape mismatch "
-                         f"k_new {tuple(kn.shape)} write_idx "
-                         f"{tuple(widx.shape)} tables {tuple(tbl.shape)}")
+            v_pool.shape != k_pool.shape:
+        raise ValueError("paged_kv_update: shape mismatch k_new "
+                         f"{tuple(kn.shape)} v_new {tuple(vn.shape)} pools "
+                         f"{tuple(k_pool.shape)} {tuple(v_pool.shape)}")
     if not 0 <= layer < k_pool.shape[0]:
         raise ValueError(f"layer {layer} out of range")
-    _kernels.launch("arks_paged_kv_update", k_pool.data_ptr(),
-                    v_pool.data_ptr(), kn.data_ptr(), vn.data_ptr(),
-                    widx.data_ptr(), tbl.data_ptr(), t, hkv, tbl.shape[1], n,
-                    page, row_bytes, int(layer), narrow, _stream())
+    dev = k_pool.device
+    ptrs = _check_operands(kernel, dev, (
+        ("k_pool", k_pool), ("v_pool", v_pool), ("k_new", kn),
+        ("v_new", vn)))
+    index, max_pages = _write_index(kernel, dev, t, dst, write_idx, tables)
+    err = _kernels.entry("arks_paged_kv_update")(
+        *ptrs, *index, t, hkv, max_pages, n, page, row_bytes, int(layer),
+        narrow, _stream(dev.index))
+    if err:
+        _kernels.raise_launch_error("arks_paged_kv_update", err)
     paged_kv_update.launches += 1
     return k_pool, v_pool
 
@@ -413,13 +509,22 @@ paged_kv_update.launches = 0
 # Kernel #3: in-place quantize-and-write into an int8/int4 pool
 # ---------------------------------------------------------------------------
 
+# Widest head the quantized update kernel holds in registers (csrc
+# kWordsPerLane: 4 words of 4 elements a lane).
+QUANT_UPDATE_MAX_HEAD_DIM = 512
+
 
 def paged_kv_update_quant_plain(k_pool, v_pool, k_scale, v_scale, k_new,
-                                v_new, write_idx, tables, layer):
+                                v_new, write_idx, tables, layer, dst=None):
     """Plain version of the quantized update kernel: ``quantize_kv`` plus
-    the oracle scatter (with its two-parity nibble merge), in place."""
-    return paged_update_xla(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
-                            write_idx, tables, layer)
+    the oracle scatter (with its two-parity nibble merge), in place; with
+    ``dst``, at the rows ``paged_write_rows`` resolved."""
+    if dst is None:
+        return paged_update_xla(k_pool, v_pool, k_scale, v_scale, k_new,
+                                v_new, write_idx, tables, layer)
+    rows = _dst_rows(dst, pool_page_tokens(k_pool, k_scale), k_pool.shape[1])
+    return _scatter_rows(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
+                         *rows, layer)
 
 
 def paged_kv_update_quant(k_pool: torch.Tensor,   # [L, N, Hkv, P(/2), D] i8
@@ -428,20 +533,24 @@ def paged_kv_update_quant(k_pool: torch.Tensor,   # [L, N, Hkv, P(/2), D] i8
                           v_scale: torch.Tensor,
                           k_new: torch.Tensor,    # [T, Hkv, D] bf16/f32
                           v_new: torch.Tensor,
-                          write_idx: torch.Tensor,  # [T] int32
-                          tables: torch.Tensor,     # [T, MaxP] int32
-                          layer: int, *, impl: str | None = None):
+                          write_idx: torch.Tensor | None,  # [T] int32
+                          tables: torch.Tensor | None,     # [T, MaxP] int32
+                          layer: int, *, impl: str | None = None,
+                          dst: torch.Tensor | None = None):
     """Quantize each token's K and V rows per token over D (qmax 127 for an
     int8 pool, 7 for int4) and write values and f32 scales at the
     table-mapped page, IN PLACE; rows with write_idx >= MaxP * P and table
-    entries outside the pool are dropped.  CUDA tensors launch
-    ``csrc/paged_kv_update_quant.cu`` (replaces the Pallas
-    ``_paged_update_quant_kernel``); CPU tensors take
+    entries outside the pool are dropped.  ``dst`` (int32 [T], this step's
+    ``paged_write_rows`` in token units) gives each token's pool row
+    resolved once per step; then write_idx and tables are not read and may
+    be None.  CUDA tensors launch ``csrc/paged_kv_update_quant.cu``
+    (replaces the Pallas ``_paged_update_quant_kernel``); CPU tensors take
     ``paged_kv_update_quant_plain``."""
     if not _use_kernel(k_pool, impl):
         return paged_kv_update_quant_plain(k_pool, v_pool, k_scale, v_scale,
                                            k_new, v_new, write_idx, tables,
-                                           layer)
+                                           layer, dst)
+    kernel = "paged_kv_update_quant"
     _, n, hkv, rows, d = k_pool.shape
     page = k_scale.shape[3]
     int4 = rows != page
@@ -456,31 +565,30 @@ def paged_kv_update_quant(k_pool: torch.Tensor,   # [L, N, Hkv, P(/2), D] i8
                         f"got {k_new.dtype}/{v_new.dtype}")
     if v_pool.shape != k_pool.shape or k_scale.shape != v_scale.shape or \
             k_scale.shape != k_pool.shape[:3] + (page,) or \
-            rows != (page // 2 if int4 else page) or d % 4:
+            rows != (page // 2 if int4 else page) or d % 4 or \
+            d > QUANT_UPDATE_MAX_HEAD_DIM:
         raise ValueError("paged_kv_update_quant: pools "
                          f"{tuple(k_pool.shape)} and scales "
                          f"{tuple(k_scale.shape)} are not an int8 or int4 "
-                         "pool pair with D % 4 == 0")
-    kn, vn = k_new.contiguous(), v_new.contiguous()
-    widx = write_idx.to(torch.int32).contiguous()
-    tbl = tables.to(torch.int32).contiguous()
-    _check_operands("paged_kv_update_quant", k_pool.device, (
-        ("k_pool", k_pool), ("v_pool", v_pool), ("k_scale", k_scale),
-        ("v_scale", v_scale), ("k_new", kn), ("v_new", vn),
-        ("write_idx", widx), ("tables", tbl)))
-    if kn.shape != (t, hkv, d) or vn.shape != (t, hkv, d) or \
-            widx.shape != (t,) or tbl.shape[0] != t:
-        raise ValueError("paged_kv_update_quant: shape mismatch "
-                         f"k_new {tuple(kn.shape)} write_idx "
-                         f"{tuple(widx.shape)} tables {tuple(tbl.shape)}")
+                         "pool pair with D % 4 == 0 and D <= "
+                         f"{QUANT_UPDATE_MAX_HEAD_DIM}")
+    kn, vn = _dense(k_new), _dense(v_new)
+    if kn.shape != (t, hkv, d) or vn.shape != (t, hkv, d):
+        raise ValueError("paged_kv_update_quant: shape mismatch k_new "
+                         f"{tuple(kn.shape)} v_new {tuple(vn.shape)} for a "
+                         f"pool of {hkv} heads of {d}")
     if not 0 <= layer < k_pool.shape[0]:
         raise ValueError(f"layer {layer} out of range")
-    _kernels.launch("arks_paged_kv_update_quant", k_pool.data_ptr(),
-                    v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-                    kn.data_ptr(), vn.data_ptr(), widx.data_ptr(),
-                    tbl.data_ptr(), t, hkv, d, tbl.shape[1], n, page,
-                    int(int4), int(layer), _KERNEL_DTYPES[kn.dtype],
-                    _stream())
+    dev = k_pool.device
+    ptrs = _check_operands(kernel, dev, (
+        ("k_pool", k_pool), ("v_pool", v_pool), ("k_scale", k_scale),
+        ("v_scale", v_scale), ("k_new", kn), ("v_new", vn)))
+    index, max_pages = _write_index(kernel, dev, t, dst, write_idx, tables)
+    err = _kernels.entry("arks_paged_kv_update_quant")(
+        *ptrs, *index, t, hkv, d, max_pages, n, page, int(int4), int(layer),
+        _KERNEL_DTYPES[kn.dtype], _stream(dev.index))
+    if err:
+        _kernels.raise_launch_error("arks_paged_kv_update_quant", err)
     paged_kv_update_quant.launches += 1
     return k_pool, v_pool, k_scale, v_scale
 

@@ -10,17 +10,20 @@ Phases (any failure raises and exits non-zero):
               shapes (Hkv=4, G=7, D=128, page 256) on a mixed batch: 8
               decode lanes across page boundaries, prefill chunks of 256
               and 37 tokens (one starting mid-page), padding tokens and
-              inactive lanes.  bf16 pool: the update must leave the pool
-              bit-identical to the plain scatter; the bf16 attention within
-              5e-3 of the plain version in bf16 and 1e-2 of it in f32 on
-              the same bf16 inputs; the f32 attention within 1e-5 of the
-              plain version in f32.  int8 and int4 pools: the quantized
-              update bit-identical to its plain version (values and
-              scales); the attention within 5e-3 of the plain version in
-              bf16 and 1e-5 in f32.  Rows no lane owns exactly zero.  The
-              dense launch of the attention (ARKS_MIXED_GRID=dense) gives
-              every row bit-identical to the ragged launch.  The
-              reference's span and state arguments: each lane's pages cut
+              inactive lanes.  bf16 pool: the update, through both its
+              entry points (the step's destinations from paged_write_rows,
+              and write_idx / tables resolved in the kernel), must leave
+              the pool bit-identical to the plain scatter; the bf16
+              attention within 5e-3 of the plain version in bf16 and 1e-2
+              of it in f32 on the same bf16 inputs; the f32 attention
+              within 1e-5 of the plain version in f32.  int8 and int4
+              pools: the quantized update, through both entry points,
+              bit-identical to its plain version (values and scales; int4
+              pair-mates in one dispatch and lone mates); the attention
+              within 5e-3 of the plain version in bf16 and 1e-5 in f32.
+              Rows no lane owns exactly zero.  The dense launch of the
+              attention (ARKS_MIXED_GRID=dense) gives every row
+              bit-identical to the ragged launch.  The reference's span and state arguments: each lane's pages cut
               at half, [0, k) with emit_state then [k, end) carrying it
               equal the single call bit for bit (bf16, int8 and int4
               pools, f32 q over bf16).  Then
@@ -37,7 +40,8 @@ Phases (any failure raises and exits non-zero):
               attention limits above, their f32 kernels within 1e-5 of the
               plain split-and-combine (decode_attention_split_plain); the
               empty slot's output is zero.  Then the repaired faults: f32
-              rows into bf16 (paged_kv_update, kv_cache_update) bit-exact,
+              rows into bf16 (paged_kv_update through both entry points,
+              kv_cache_update) bit-exact,
               f32 q over the bf16 pool and cache (the mixed, paged and
               slot decode attentions) within 1e-5, and grouped_matmul at
               K = 96 (bf16, int8, int4 group 32) and at Mixtral's gate
@@ -92,6 +96,12 @@ Phases (any failure raises and exits non-zero):
               cache and pool beside SDPA with a length mask (decode
               attention: the profiler's device time counts the split and
               the combine launch) and index_put_ (the slot write);
+              the four row writes (paged_kv_update, paged_kv_update_quant
+              int8/int4, kv_cache_update, kv_cache_update_quant): cold
+              time, the profiler's device time with L2 warm, the launch
+              floor (an empty kernel timed both ways) and the wrapper's
+              host µs per call (median and least of 5 runs of 1000
+              calls), the paged ones through both entry points;
               end-to-end decode tok/s and TTFT.
   7. moe      with ARKS_MOE_KERNEL=pallas: grouped_matmul (bf16, int8,
               int4 group 128) against its plain version at Mixtral-8x7B's
@@ -236,25 +246,45 @@ def kernel_batch(torch, dev, *, hkv=4, g=7, d=128, layers=2):
     return b
 
 
+def _same_bytes(torch, got, want) -> bool:
+    return all(torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+               for g, w in zip(got, want, strict=True))
+
+
+def _update_entries(pa, b):
+    """The two entry points of an update kernel on phase 3's batch: the
+    step's destinations (``dst``, what the served path launches) and
+    write_idx / tables resolved in the kernel.  {name: (args, kwargs)}
+    after the pools."""
+    rows = (b["k_new"], b["v_new"])
+    return {"dst": ((*rows, None, None, b["layer"]), dict(dst=b["dst"])),
+            "write_idx/tables": ((*rows, b["write_idx"], b["tables_tok"],
+                                  b["layer"]), {})}
+
+
 def phase_kernels(torch, dev):
     from arks_tpu_torch.ops import paged_attention as pa
     b = kernel_batch(torch, dev)
+    b["dst"] = pa.paged_write_rows(b["write_idx"], b["tables_tok"], PAGE,
+                                   b["k_pool"].shape[1])
     upd_args = (b["k_new"], b["v_new"], b["write_idx"], b["tables_tok"],
                 b["layer"])
-    k_kern, v_kern = b["k_pool"].clone(), b["v_pool"].clone()
     k_plain, v_plain = b["k_pool"].clone(), b["v_pool"].clone()
-    pa.paged_kv_update(k_kern, v_kern, *upd_args)
     pa.paged_kv_update(k_plain, v_plain, *upd_args, impl="plain")
-    torch.cuda.synchronize()
-    same = (torch.equal(k_kern.view(torch.int16), k_plain.view(torch.int16))
-            and torch.equal(v_kern.view(torch.int16),
-                            v_plain.view(torch.int16)))
-    upd_err = max((k_kern.float() - k_plain.float()).abs().max().item(),
+    upd_err = 0.0
+    for entry, (args, kw) in _update_entries(pa, b).items():
+        k_kern, v_kern = b["k_pool"].clone(), b["v_pool"].clone()
+        pa.paged_kv_update(k_kern, v_kern, *args, **kw)
+        torch.cuda.synchronize()
+        same = _same_bytes(torch, (k_kern, v_kern), (k_plain, v_plain))
+        err = max((k_kern.float() - k_plain.float()).abs().max().item(),
                   (v_kern.float() - v_plain.float()).abs().max().item())
-    log(f"[kernels] paged_kv_update: pool bytes bit-identical to the plain "
-        f"scatter: {same} (max abs err {upd_err})")
-    if not same:
-        raise AssertionError("paged_kv_update differs from the plain scatter")
+        upd_err = max(upd_err, err)
+        log(f"[kernels] paged_kv_update through {entry}: pool bytes "
+            f"bit-identical to the plain scatter: {same} (max abs err {err})")
+        if not same:
+            raise AssertionError(f"paged_kv_update ({entry}) differs from "
+                                 "the plain scatter")
 
     lane = (b["tables"], b["seq_q_start"], b["seq_q_len"], b["seq_pos_start"],
             b["layer"])
@@ -293,7 +323,7 @@ def phase_kernels(torch, dev):
         f"bit-identical to the ragged launch: {same}")
     if not same:
         raise AssertionError("the dense launch differs from the ragged one")
-    del kf, vf, dense
+    del kf, vf, dense, k_plain, v_plain
     b["pools_before"] = b["k_pool"], b["v_pool"]
     b["k_pool"], b["v_pool"] = k_kern, v_kern
     return b, upd_err, err_bf16
@@ -327,22 +357,23 @@ def phase_quant_kernels(torch, dev, b):
     res = {}
     for kv in KV_BITS:
         pools = quant_pools(b, kv)
-        kern = [pools[k].clone() for k in names]
         plain = [pools[k].clone() for k in names]
-        pa.paged_kv_update_quant(*kern, *upd)
         pa.paged_kv_update_quant(*plain, *upd, impl="plain")
-        torch.cuda.synchronize()
-        same = all(torch.equal(g.view(torch.int8), w.view(torch.int8))
-                   for g, w in zip(kern, plain))
-        upd_err = max((g.float() - w.float()).abs().max().item()
-                      for g, w in zip(kern, plain))
-        written = not torch.equal(kern[0], pools["k_pool"])
-        log(f"[kernels] paged_kv_update_quant {kv}: values and scales "
-            f"bit-identical to the plain version: {same} (max abs err "
-            f"{upd_err}); rows written: {written}")
-        if not (same and written):
-            raise AssertionError(f"paged_kv_update_quant ({kv}) differs from "
-                                 "its plain version")
+        upd_err = 0.0
+        for entry, (args, kw) in _update_entries(pa, b).items():
+            kern = [pools[k].clone() for k in names]
+            pa.paged_kv_update_quant(*kern, *args, **kw)
+            torch.cuda.synchronize()
+            same = _same_bytes(torch, kern, plain)
+            upd_err = max([upd_err] + [(g.float() - w.float()).abs().max()
+                                       .item() for g, w in zip(kern, plain)])
+            written = not torch.equal(kern[0], pools["k_pool"])
+            log(f"[kernels] paged_kv_update_quant {kv} through {entry}: "
+                f"values and scales bit-identical to the plain version: "
+                f"{same} (max abs err {upd_err}); rows written: {written}")
+            if not (same and written):
+                raise AssertionError(f"paged_kv_update_quant ({kv}, {entry}) "
+                                     "differs from its plain version")
         kp, vp, ks, vs = kern
         sc = dict(k_scale=ks, v_scale=vs)
         out_k = pa.paged_mixed_attention(b["q"], kp, vp, *lane, **sc)
@@ -420,11 +451,14 @@ def phase_fault_kernels(torch, dev, b, lb):
     from arks_tpu_torch.ops import moe_kernel as mk
     from arks_tpu_torch.ops import paged_attention as pa
     from arks_tpu_torch.ops import pallas_attention as pl
-    upd = (b["k_new"].float() * 1.001, b["v_new"].float() / 3,
-           b["write_idx"], b["tables_tok"], b["layer"])
+    rows = (b["k_new"].float() * 1.001, b["v_new"].float() / 3)
+    upd = (*rows, b["write_idx"], b["tables_tok"], b["layer"])
     kern = [x.clone() for x in b["pools_before"]]
+    kern_dst = [x.clone() for x in b["pools_before"]]
     plain = [x.clone() for x in b["pools_before"]]
     pa.paged_kv_update(*kern, *upd)
+    pa.paged_kv_update(*kern_dst, *rows, None, None, b["layer"],
+                       dst=b["dst"])
     pa.paged_kv_update(*plain, *upd, impl="plain")
     widx = lb["lengths"] - 1
     slot_k = [x.clone() for x in (lb["k_cache"], lb["v_cache"])]
@@ -435,10 +469,11 @@ def phase_fault_kernels(torch, dev, b, lb):
     pl.kv_cache_update(*slot_k, *rows, widx, lb["layer"])
     pl.kv_cache_update(*slot_p, *rows, widx, lb["layer"], impl="plain")
     torch.cuda.synchronize()
-    same = all(torch.equal(g.view(torch.int16), w.view(torch.int16))
-               for g, w in zip(kern + slot_k, plain + slot_p))
-    log(f"[kernels] f32 rows into bf16: paged_kv_update and kv_cache_update "
-        f"bit-identical to their plain versions: {same}")
+    same = _same_bytes(torch, kern + kern_dst + slot_k,
+                       plain + plain + slot_p)
+    log(f"[kernels] f32 rows into bf16: paged_kv_update (through dst and "
+        f"through write_idx/tables) and kv_cache_update bit-identical to "
+        f"their plain versions: {same}")
     if not same:
         raise AssertionError("an update kernel's f32 -> bf16 rows differ")
     lane = (b["tables"], b["seq_q_start"], b["seq_q_len"], b["seq_pos_start"],
@@ -1673,6 +1708,49 @@ def _device_us(torch, fn, kernel, n=5, tries=3):
     return None
 
 
+UPDATE_HOST_CALLS = 1000
+
+
+def _host_us(torch, fn, n=UPDATE_HOST_CALLS, rounds=5):
+    """Host µs per call of fn(): time.perf_counter over ``n`` calls with no
+    synchronisation inside — the wrapper's checks, its arguments and the
+    launch's enqueue, while the card runs behind — over ``rounds`` such
+    runs: (median, least).  The host is shared, so other work only adds
+    to a run; the least is the wrapper's own cost."""
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        per_call.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    per_call.sort()
+    return per_call[rounds // 2], per_call[0]
+
+
+def _update_times(torch, entries, kernel):
+    """An update kernel's numbers per entry point ({name: fn}): the cold
+    time (``_time_ms``, L2 flushed), the profiler's device µs (L2 warm)
+    and the host µs per call."""
+    return {e: dict(ms=_time_ms(torch, fn), dev_us=_device_us(torch, fn,
+                                                               kernel),
+                    host_us=_host_us(torch, fn))
+            for e, fn in entries.items()}
+
+
+def _host_fmt(host):
+    return f"host {host[0]:.2f} us per call (median; least {host[1]:.2f})"
+
+
+def _fmt_entries(per):
+    return "; ".join(
+        f"through {e}: {t['ms'] * 1e3:.2f} us cold, {t['dev_us']} us on the "
+        f"device (profiler, L2 warm), {_host_fmt(t['host_us'])}"
+        for e, t in per.items())
+
+
 def phase_times(torch, b):
     from arks_tpu_torch.ops import paged_attention as pa
     t, h, d = b["q"].shape
@@ -1700,10 +1778,17 @@ def phase_times(torch, b):
     def lib_upd():
         k_rows.index_put_((page_i, off_i), kv_sel)
         v_rows.index_put_((page_i, off_i), vv_sel)
-    upd_dev_us = _device_us(torch, lambda: pa.paged_kv_update(
-        k_pool, v_pool, *upd), "paged_kv_update_kernel")
+    # The launch floor: an empty kernel timed the same ways.
+    floor_ms = _time_ms(torch, lambda: torch.cuda._sleep(0))
+    floor_dev_us = _device_us(torch, lambda: torch.cuda._sleep(0),
+                              "spin_kernel")
+    per = _update_times(torch, {
+        e: (lambda a=a, k=k: pa.paged_kv_update(k_pool, v_pool, *a, **k))
+        for e, (a, k) in _update_entries(pa, b).items()},
+        "paged_kv_update_kernel")
     upd_times = dict(
-        ms=_time_ms(torch, lambda: pa.paged_kv_update(k_pool, v_pool, *upd)),
+        ms=per["dst"]["ms"], entries=per, floor_ms=floor_ms,
+        floor_dev_us=floor_dev_us,
         plain_ms=_time_ms(torch, lambda: pa.paged_kv_update(
             k_pool, v_pool, *upd, impl="plain")),
         library_ms=_time_ms(torch, lib_upd), **_bound(upd_bytes, 0))
@@ -1758,9 +1843,10 @@ def phase_times(torch, b):
                 b["seq_pos_start"], layer, work=dec_work))):
         split[name] = tuple(_device_us(torch, fn, k) for k in (
             "mixed_attention_tc_kernel", "mixed_attention_combine_kernel"))
-    log(f"[times] paged_kv_update {upd_times['ms'] * 1e3:.1f} us (profiler: "
-        f"{upd_dev_us} us on the device; bound "
-        f"{upd_times['bound_ms'] * 1e3:.3f} us, {upd_bytes} B), plain "
+    log(f"[times] paged_kv_update {_fmt_entries(per)}; launch floor "
+        f"(empty kernel) {floor_ms * 1e3:.2f} us cold, {floor_dev_us} us on "
+        f"the device; bound "
+        f"{upd_times['bound_ms'] * 1e3:.3f} us, {upd_bytes} B; plain "
         f"{upd_times['plain_ms'] * 1e3:.1f} us, index_put_ x2 "
         f"{upd_times['library_ms'] * 1e3:.1f} us; T={t} tokens")
     log(f"[times] paged_mixed_attention {attn_times['ms'] * 1e3:.1f} us "
@@ -1815,14 +1901,16 @@ def phase_quant_times(torch, b, qres):
             rows = torch.unique(pages * PAGE + idx % PAGE // 2).numel()
             out_bytes = 2 * (2 * rows * hkv * d // 2) + 2 * n_valid * hkv * 4
         nbytes = t * 4 + n_valid * 4 + 2 * n_valid * hkv * d * 2 + out_bytes
+        per = _update_times(torch, {
+            e: (lambda a=a, k=k: pa.paged_kv_update_quant(kp, vp, ks, vs, *a,
+                                                          **k))
+            for e, (a, k) in _update_entries(pa, b).items()},
+            "paged_kv_update_quant_kernel")
         upd_t[kv] = dict(
-            ms=_time_ms(torch, lambda: pa.paged_kv_update_quant(
-                kp, vp, ks, vs, *upd)),
+            ms=per["dst"]["ms"], entries=per,
             plain_ms=_time_ms(torch, lambda: pa.paged_kv_update_quant(
                 kp, vp, ks, vs, *upd, impl="plain")),
             library_ms=None, **_bound(nbytes, 0))
-        dev_us = _device_us(torch, lambda: pa.paged_kv_update_quant(
-            kp, vp, ks, vs, *upd), "paged_kv_update_quant_kernel")
         int4 = kv == "int4"
         deq = [(pa.gather_pool(pool, tab, layer, int4).float()
                 * pa.paged_gather_kv(sc, tab, layer)[..., None])
@@ -1838,10 +1926,9 @@ def phase_quant_times(torch, b, qres):
             library_ms=_time_ms(torch, lambda: sdpa(qg, *deq,
                                                     attn_mask=mask)),
             **_bound(a_bytes, _attn_flops(b)))
-        log(f"[times] paged_kv_update_quant {kv}: {upd_t[kv]['ms'] * 1e3:.1f}"
-            f" us (profiler: {dev_us} us on the device; bound "
-            f"{upd_t[kv]['bound_ms'] * 1e3:.3f} us by bytes, "
-            f"{nbytes} B), plain {upd_t[kv]['plain_ms'] * 1e3:.1f} us; T={t}")
+        log(f"[times] paged_kv_update_quant {kv}: {_fmt_entries(per)}; "
+            f"bound {upd_t[kv]['bound_ms'] * 1e3:.3f} us by bytes, "
+            f"{nbytes} B; plain {upd_t[kv]['plain_ms'] * 1e3:.1f} us; T={t}")
         log(f"[times] paged_mixed_attention {kv} pool: "
             f"{attn_t[kv]['ms'] * 1e3:.1f} us (bound "
             f"{attn_t[kv]['bound_ms'] * 1e3:.2f} us by "
@@ -1896,6 +1983,7 @@ def phase_legacy_times(torch, b):
         library_ms=_time_ms(torch, lib_upd), **_bound(upd_bytes, 0),
         dev_us=_device_us(torch, lambda: pl.kv_cache_update(kc, vc, *rows),
                           "kv_cache_update_kernel"),
+        host_us=_host_us(torch, lambda: pl.kv_cache_update(kc, vc, *rows)),
         nbytes=upd_bytes)
     sq = b["slot_int8"]
     q_bytes = nb * 4 + 2 * n_valid * hkv * d * 2 + 2 * n_valid * hkv * (d + 4)
@@ -1906,6 +1994,8 @@ def phase_legacy_times(torch, b):
         library_ms=None, **_bound(q_bytes, 0),
         dev_us=_device_us(torch, lambda: pl.kv_cache_update_quant(*sq, *rows),
                           "kv_cache_update_quant_kernel"),
+        host_us=_host_us(torch, lambda: pl.kv_cache_update_quant(*sq,
+                                                                 *rows)),
         nbytes=q_bytes)
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1986,6 +2076,23 @@ def phase_legacy_times(torch, b):
             f"{t['plain_ms'] * 1e3:.1f} us, library {lib}; lengths "
             f"{lens.tolist()}")
     return out
+
+
+def log_row_writes(upd_t, qupd_t, lt):
+    """One line per row-write kernel (#2, #3 int8 and int4, #7, #8) on the
+    served path's entry point: the cold time (L2 flushed), the profiler's
+    device time (L2 warm), the launch floor (an empty kernel timed both
+    ways) and the wrapper's host µs per call."""
+    rows = {"paged_kv_update": upd_t["entries"]["dst"],
+            **{f"paged_kv_update_quant {kv}": t["entries"]["dst"]
+               for kv, t in qupd_t.items()},
+            "kv_cache_update": lt["kv_cache_update"],
+            "kv_cache_update_quant": lt["kv_cache_update_quant"]}
+    for name, t in rows.items():
+        log(f"[times] row write {name}: cold {t['ms'] * 1e3:.2f} us, warm "
+            f"{t['dev_us']} us (profiler), launch floor "
+            f"{upd_t['floor_ms'] * 1e3:.2f} us cold / "
+            f"{upd_t['floor_dev_us']} us warm, {_host_fmt(t['host_us'])}")
 
 
 # ---------------------------------------------------------------------------
@@ -2420,6 +2527,7 @@ def main() -> int:
     upd_t, attn_t, dense_t = phase_times(torch, b)
     qupd_t, qattn_t = phase_quant_times(torch, b, qres)
     lt = phase_legacy_times(torch, lb)
+    log_row_writes(upd_t, qupd_t, lt)
     quant_err = qres["int8"][1]
     del b, lb, qres
     torch.cuda.empty_cache()

@@ -794,3 +794,125 @@ def test_decode_attention_f32_over_bf16_cache_vs_plain(dev, layout):
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     assert not got[4].any()
+
+
+# ---------------------------------------------------------------------------
+# The paged row writes with the step's destinations (paged_write_rows)
+# ---------------------------------------------------------------------------
+
+
+def _with_dst(b):
+    """The batch's destinations, resolved once as a step resolves them."""
+    page = b["k_scale"].shape[3] if "k_scale" in b else b["k_pool"].shape[3]
+    b["dst"] = pa.paged_write_rows(b["write_idx"], b["tables_tok"], page,
+                                   b["k_pool"].shape[1])
+    return b
+
+
+def test_paged_write_rows_on_the_card_equals_the_cpu(dev):
+    b = _with_dst(_batch(dev, torch.bfloat16, hkv=2, g=1, d=64, page=16,
+                         lanes=LANES))
+    want = pa.paged_write_rows(b["write_idx"].cpu(), b["tables_tok"].cpu(),
+                               16, b["k_pool"].shape[1])
+    assert b["dst"].is_cuda and torch.equal(b["dst"].cpu(), want)
+    assert (want == -1).sum() == 3                  # the padding tokens
+
+
+@pytest.mark.parametrize("dtype,d,hkv", [
+    (torch.bfloat16, 8, 4), (torch.bfloat16, 64, 4), (torch.bfloat16, 128, 4),
+    (torch.float32, 8, 4), (torch.float32, 128, 4),
+    (torch.float32, 128, 20)])     # 20 x 2 x 32 vectors: past 1024 threads
+def test_paged_kv_update_dst_bit_exact(dev, dtype, d, hkv):
+    """Through dst and through write_idx / tables: both pools bit-identical
+    to the plain scatter."""
+    b = _with_dst(_batch(dev, dtype, hkv=hkv, g=1, d=d, page=16,
+                         lanes=LANES))
+    rows = (b["k_new"], b["v_new"])
+    plain = [b["k_pool"].clone(), b["v_pool"].clone()]
+    pa.paged_kv_update(*plain, *rows, b["write_idx"], b["tables_tok"],
+                       b["layer"], impl="plain")
+    before = pa.paged_kv_update.launches
+    for args, kw in (((None, None), dict(dst=b["dst"])),
+                     ((b["write_idx"], b["tables_tok"]), {})):
+        kern = [b["k_pool"].clone(), b["v_pool"].clone()]
+        pa.paged_kv_update(*kern, *rows, *args, b["layer"], **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(kern[0]), _bits(plain[0]))
+        assert torch.equal(_bits(kern[1]), _bits(plain[1]))
+    assert pa.paged_kv_update.launches == before + 2
+    assert not torch.equal(plain[0], b["k_pool"])
+
+
+def test_paged_kv_update_dst_f32_rows_into_bf16_pool_bit_exact(dev):
+    b = _with_dst(_batch(dev, torch.bfloat16, hkv=4, g=1, d=128, page=16,
+                         lanes=LANES))
+    rows = (b["k_new"].float() * 1.001, b["v_new"].float() / 3)
+    kern = [b["k_pool"].clone(), b["v_pool"].clone()]
+    plain = [b["k_pool"].clone(), b["v_pool"].clone()]
+    pa.paged_kv_update(*kern, *rows, None, None, b["layer"], dst=b["dst"])
+    pa.paged_kv_update(*plain, *rows, b["write_idx"], b["tables_tok"],
+                       b["layer"], impl="plain")
+    torch.cuda.synchronize()
+    for g_, w_ in zip(kern, plain):
+        assert torch.equal(_bits(g_), _bits(w_))
+    assert not torch.equal(kern[0], b["k_pool"])
+
+
+@pytest.mark.parametrize("kv", ["int8", "int4"])
+@pytest.mark.parametrize("dtype,d,hkv", [
+    (torch.bfloat16, 64, 4), (torch.bfloat16, 128, 4),
+    (torch.float32, 128, 4), (torch.bfloat16, 512, 2),   # 4 words a lane
+    (torch.bfloat16, 128, 20)])    # 40 rows: past 32 warps
+def test_paged_kv_update_quant_dst_bit_exact(dev, dtype, d, hkv, kv):
+    """Through dst and through write_idx / tables: values and scales
+    bit-identical to the plain version, int4 pair-mates of one dispatch
+    and lone mates included."""
+    b = _with_dst(_quant_pools(_batch(dev, dtype, hkv=hkv, g=1, d=d,
+                                      page=16, lanes=QUANT_LANES), kv))
+    rows = (b["k_new"] * 3, b["v_new"])
+    names = ("k_pool", "v_pool", "k_scale", "v_scale")
+    plain = [b[k].clone() for k in names]
+    pa.paged_kv_update_quant(*plain, *rows, b["write_idx"], b["tables_tok"],
+                             b["layer"], impl="plain")
+    before = pa.paged_kv_update_quant.launches
+    for args, kw in (((None, None), dict(dst=b["dst"])),
+                     ((b["write_idx"], b["tables_tok"]), {})):
+        kern = [b[k].clone() for k in names]
+        pa.paged_kv_update_quant(*kern, *rows, *args, b["layer"], **kw)
+        torch.cuda.synchronize()
+        for g_, w_ in zip(kern, plain):
+            assert torch.equal(g_.view(torch.int8), w_.view(torch.int8))
+    assert pa.paged_kv_update_quant.launches == before + 2
+    assert not torch.equal(plain[0], b["k_pool"])
+
+
+def test_update_kernels_raise_on_a_bad_dst(dev):
+    b = _with_dst(_batch(dev, torch.bfloat16, hkv=2, g=1, d=64, page=16,
+                         lanes=LANES))
+    pools = (b["k_pool"], b["v_pool"])
+    rows = (b["k_new"], b["v_new"])
+    for bad in (b["dst"].long(), b["dst"][:-1], b["dst"].cpu()):
+        with pytest.raises(ValueError):
+            pa.paged_kv_update(*pools, *rows, None, None, 0, dst=bad)
+    with pytest.raises(ValueError):                  # no index at all
+        pa.paged_kv_update(*pools, *rows, None, None, 0)
+    q = _quant_pools(_batch(dev, torch.bfloat16, hkv=2, g=1, d=64, page=16,
+                            lanes=LANES), "int8")
+    qp = [q[k] for k in ("k_pool", "v_pool", "k_scale", "v_scale")]
+    with pytest.raises(ValueError):
+        pa.paged_kv_update_quant(*qp, q["k_new"], q["v_new"], None, None, 0,
+                                 dst=b["dst"].long())
+    wide = _quant_pools(_batch(dev, torch.bfloat16, hkv=1, g=1, d=640,
+                               page=16, lanes=LANES), "int8")
+    wp = [wide[k] for k in ("k_pool", "v_pool", "k_scale", "v_scale")]
+    with pytest.raises(ValueError):                  # D > 512
+        pa.paged_kv_update_quant(*wp, wide["k_new"], wide["v_new"],
+                                 wide["write_idx"], wide["tables_tok"], 0)
+
+
+def test_kernel_launches_read_the_current_stream(dev):
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert pa._stream(dev.index) == side.cuda_stream
+        assert pa._stream() == side.cuda_stream
+    assert pa._stream(dev.index) == torch.cuda.current_stream().cuda_stream

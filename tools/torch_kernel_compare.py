@@ -9,8 +9,19 @@ and the two decode attentions (bf16 and int8, phase 3's slot cache and
 paged pool).  Each time is chip_smoke's ``_time_ms``: the CUDA-event mean
 over 20 launches, L2 flushed before each.
 
+The four row writes (``paged_kv_update``, ``paged_kv_update_quant`` into
+int8 and int4 pools at phase 3's batch, ``kv_cache_update`` and
+``kv_cache_update_quant`` at its slot cache) get the cold time above
+("cold"), the profiler's device µs with L2 warm ("warm_us") and the
+wrapper's host µs per call with no sync over 5 runs of 1000 calls (their
+median "host_us" and least "host_min_us"); the paged ones also the warm
+device µs at a served decode step's 8 tokens ("step ... warm_us").  The
+paged writes are timed through write_idx / tables and, where the tree has
+``paged_write_rows``, through the step's destinations (``dst``).  "launch floor" is an empty kernel
+(``torch.cuda._sleep(0)``) timed cold, and its "warm_us" by the profiler.
+
     python3 tools/torch_kernel_compare.py --root DIR [--out FILE]
-        [--mixed-only]
+        [--mixed-only | --updates-only]
 
 ``DIR`` is the root of the tree whose ``arks_tpu_torch`` is timed (its
 kernels build into DIR/build/); this script and the helpers it borrows
@@ -37,6 +48,8 @@ def main() -> int:
     ap.add_argument("--out")
     ap.add_argument("--mixed-only", action="store_true",
                     help="time the mixed attention alone")
+    ap.add_argument("--updates-only", action="store_true",
+                    help="time the row writes alone")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -69,6 +82,10 @@ def main() -> int:
                          k_scale=qp["k_scale"], v_scale=qp["v_scale"])
     dec = b["seq_q_len"].clone()
     dec[8:] = 0
+    if not args.mixed_only:
+        times.update(_row_writes(cs, torch, dev, pa, pl, b, pools))
+    if args.updates_only:
+        return _report(root, times, args.out)
 
     def mixed(kv, grid="ragged", q_len=None):
         p = pools[kv]
@@ -141,6 +158,64 @@ def main() -> int:
             del w, wkw
             torch.cuda.empty_cache()
     return _report(root, times, args.out)
+
+
+def _row_writes(cs, torch, dev, pa, pl, b, pools) -> dict:
+    """The row writes' numbers (see the module's docstring)."""
+    layer = b["layer"]
+    has_dst = hasattr(pa, "paged_write_rows")
+
+    def entries(batch):
+        """{entry point: (args after the pools, kwargs)} of one batch."""
+        rows = (batch["k_new"], batch["v_new"])
+        out = {"write_idx/tables": ((*rows, batch["write_idx"],
+                                     batch["tables_tok"], layer), {})}
+        if has_dst:
+            dst = pa.paged_write_rows(batch["write_idx"],
+                                      batch["tables_tok"], cs.PAGE,
+                                      b["k_pool"].shape[1])
+            out["dst"] = ((*rows, None, None, layer), dict(dst=dst))
+        return out
+
+    # A served decode step: 8 tokens at context 512, one per lane.
+    step = dict(k_new=b["k_new"][:8], v_new=b["v_new"][:8],
+                write_idx=torch.full((8,), 512, dtype=torch.int32,
+                                     device=dev),
+                tables_tok=b["tables"][:8])
+    fns = {}
+    for batch, tag in ((b, ""), (step, "step ")):
+        for e, (a, kw) in entries(batch).items():
+            fns[f"{tag}paged_kv_update [{e}]"] = (
+                lambda a=a, kw=kw: pa.paged_kv_update(
+                    b["k_pool"], b["v_pool"], *a, **kw),
+                "paged_kv_update_kernel")
+            for kv in ("int8", "int4"):
+                p = pools[kv]
+                fns[f"{tag}paged_kv_update_quant {kv} [{e}]"] = (
+                    lambda a=a, kw=kw, p=p: pa.paged_kv_update_quant(
+                        p["k_pool"], p["v_pool"], p["k_scale"],
+                        p["v_scale"], *a, **kw),
+                    "paged_kv_update_quant_kernel")
+    slot = cs.slot_batch(torch, dev)
+    rows = (slot["k_new"], slot["v_new"], slot["write_idx"], slot["layer"])
+    sq = cs._int8(pa, (slot["k_cache"], slot["v_cache"]))
+    fns["kv_cache_update"] = (lambda: pl.kv_cache_update(
+        slot["k_cache"], slot["v_cache"], *rows), "kv_cache_update_kernel")
+    fns["kv_cache_update_quant"] = (lambda: pl.kv_cache_update_quant(
+        *sq, *rows), "kv_cache_update_quant_kernel")
+    empty = lambda: torch.cuda._sleep(0)  # noqa: E731
+    times = {"launch floor": cs._time_ms(torch, empty),
+             "launch floor warm_us": cs._device_us(torch, empty,
+                                                   "spin_kernel")}
+    for name, (fn, kernel) in fns.items():
+        if name.startswith("step "):
+            times[f"{name} warm_us"] = cs._device_us(torch, fn, kernel)
+            continue
+        times[f"{name} cold"] = cs._time_ms(torch, fn)
+        times[f"{name} warm_us"] = cs._device_us(torch, fn, kernel)
+        times[f"{name} host_us"], times[f"{name} host_min_us"] = \
+            cs._host_us(torch, fn)
+    return times
 
 
 def _report(root: Path, times: dict, out: str | None) -> int:
