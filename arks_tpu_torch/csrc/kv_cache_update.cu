@@ -18,17 +18,40 @@
 // A slot whose write index is >= S (the parked-slot sentinel) or negative
 // writes nothing, as the Pallas kernels' pl.when(idx < S) guard.
 //
-// Design.  One block per (slot, KV head) for the plain write, copying the
-// K and V rows with 16-byte vector loads and stores; one warp per (slot,
-// KV head) for the quantized write, reducing amax with shuffles and storing
-// 4 int8 columns per lane as one 32-bit word.  The TPU kernels'
-// read-modify-write of an aligned chunk of 16 (bf16) or 32 (int8) rows and
-// 128 scales (a sublane / lane tiling workaround) is gone: the GPU store
-// is byte-addressable.
+// Bound on the H100: bytes, but far from them.  A decode step writes
+// B * Hkv rows of D elements for K and for V (Qwen2.5-7B, 8 slots, bf16:
+// 8 x 4 x 128 x 2 B x 2 = 16 KB) — hundredths of a microsecond of HBM
+// time at 3.35 TB/s.  What costs is the chain of dependent work before
+// the first store, and the launch.  Design: one block per slot covers all
+// its Hkv x {K, V} rows, as a 2-D block of (row part, row): K rows first,
+// then V rows.  Past 1024 threads (32 warps for the quantized write) the
+// rows spill into more blocks of the slot along grid y, never into a loop.
+//  - Plain write: a thread per 16-byte cache vector (Qwen2.5-7B bf16:
+//    16 x 8 = 128 threads; Mixtral-8x7B, Hkv 8: 256).  Each thread starts
+//    its row load (the address depends only on the slot, row and vector)
+//    right beside the write-index load and holds the vector in registers,
+//    so the only dependent trip is write index -> store (`ld_now`).
+//  - Quantized write: a warp per (head, K or V) row — 2 x Hkv warps (8
+//    for Qwen, 16 for Mixtral), K and V in parallel.  Each warp loads its
+//    row into registers once (at most kWordsPerLane words of 4 elements a
+//    lane: D <= 512) beside the index load, takes the amax with one
+//    shuffle reduce and quantizes from the registers while the index is in
+//    flight, then stores one 32-bit word of 4 int8 columns a lane and the
+//    scale from lane 0.
+// Everything but the index — the row's stripe in the cache, with the
+// layer offset in int64 — is computed before the index is read, so the
+// index's arrival leaves one multiply-add and the stores; a row whose
+// index drops skips its stores.  On the H100 this loop-free 2-D form
+// measured faster than a 1-D block that loops over its vectors or warps
+// and works out its row after the index (PERF.md).  The TPU
+// kernels' read-modify-write of an aligned chunk of 16 (bf16) or 32
+// (int8) rows and 128 scales (a sublane / lane tiling workaround) is gone:
+// the GPU store is byte-addressable.
 //
-// Bound on the H100: bytes.  A decode step writes B * Hkv rows of D
-// elements for K and for V (8 x 4 x 128 x 2 B x 2 = 16 KB in bf16) — far
-// under a microsecond of HBM time at 3.35 TB/s, so the launch dominates.
+// Launch arguments come packed, as one block of int64 that the wrapper
+// builds with struct.pack (SlotWriteArgs, SlotQuantWriteArgs): one ctypes
+// argument instead of a dozen converted one by one.  These writes run
+// once per layer of every decode step, so their host cost counts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,24 +59,40 @@
 
 namespace {
 
-constexpr int kWarps = 4;  // (slot, head) rows per block, quantized write
+constexpr int kMaxThreads = 1024;
+constexpr int kWordsPerLane = 4;   // 4 elements a word: D <= 4 * 32 * 4
+constexpr int kMaxWarps = 32;
 
-// Vector i of a new row: 16 bytes as they are, or (NARROW) 8 f32 values
-// rounded to 8 bf16.
+// A 16-byte load that stays where it is written.  A plain __ldg whose value feeds
+// only a store behind the write-index check is sunk below that check by
+// ptxas (the SASS then waits for the index before it asks for the row); a
+// volatile load may not be made conditional, so it stays ahead of the
+// branch and the row and the index are in flight together.
+__device__ __forceinline__ uint4 ld_now(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.volatile.global.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+  return v;
+}
+
+// Vector i of a slot's new rows: 16 bytes as they are, or (NARROW) 8 f32
+// values rounded to 8 bf16.
 template <bool NARROW>
-__device__ __forceinline__ uint4 row_vec(const uint4* row, int i) {
-  if (!NARROW) return row[i];
-  const float4 a = reinterpret_cast<const float4*>(row)[2 * i];
-  const float4 b = reinterpret_cast<const float4*>(row)[2 * i + 1];
+__device__ __forceinline__ uint4 row_vec(const uint4* rows, int i) {
+  if (!NARROW) return ld_now(rows + i);
+  const uint4 a = ld_now(rows + 2 * i);
+  const uint4 b = ld_now(rows + 2 * i + 1);
   uint4 out;
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&out);
-  h[0] = __floats2bfloat162_rn(a.x, a.y);
-  h[1] = __floats2bfloat162_rn(a.z, a.w);
-  h[2] = __floats2bfloat162_rn(b.x, b.y);
-  h[3] = __floats2bfloat162_rn(b.z, b.w);
+  h[0] = __floats2bfloat162_rn(__uint_as_float(a.x), __uint_as_float(a.y));
+  h[1] = __floats2bfloat162_rn(__uint_as_float(a.z), __uint_as_float(a.w));
+  h[2] = __floats2bfloat162_rn(__uint_as_float(b.x), __uint_as_float(b.y));
+  h[3] = __floats2bfloat162_rn(__uint_as_float(b.z), __uint_as_float(b.w));
   return out;
 }
 
+// Thread (j, y) of block (b, z) copies vector j of row r = z * blockDim.y
+// + y of slot b: K of head r for r < hkv, else V of head r - hkv.
 template <bool NARROW>
 __global__ void kv_cache_update_kernel(uint4* __restrict__ k_cache,
                                        uint4* __restrict__ v_cache,
@@ -61,31 +100,31 @@ __global__ void kv_cache_update_kernel(uint4* __restrict__ k_cache,
                                        const uint4* __restrict__ v_new,
                                        const int* __restrict__ write_idx,
                                        int n_slots, int hkv, int max_len,
-                                       int vecs_per_row, int layer) {
+                                       int layer) {
   const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int idx = write_idx[b];
-  if (idx < 0 || idx >= max_len) return;                  // dropped row
-  const int64_t row =
-      (((int64_t)layer * n_slots + b) * hkv + h) * max_len + idx;
-  const int64_t src = ((int64_t)b * hkv + h) * vecs_per_row * (NARROW ? 2 : 1);
-  for (int i = threadIdx.x; i < 2 * vecs_per_row; i += blockDim.x) {
-    if (i < vecs_per_row) {
-      k_cache[row * vecs_per_row + i] = row_vec<NARROW>(k_new + src, i);
-    } else {
-      const int j = i - vecs_per_row;
-      v_cache[row * vecs_per_row + j] = row_vec<NARROW>(v_new + src, j);
-    }
-  }
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+  if (r >= 2 * hkv) return;
+  const int idx = __ldg(write_idx + b);
+  const int vecs = blockDim.x;
+  const int j = threadIdx.x;
+  const bool is_v = r >= hkv;
+  const int h = is_v ? r - hkv : r;
+  const int64_t src = ((int64_t)b * hkv + h) * vecs * (NARROW ? 2 : 1);
+  const uint4 v = row_vec<NARROW>((is_v ? v_new : k_new) + src, j);
+  // (layer, slot, head) stripe of `max_len` rows of `vecs` vectors.
+  uint4* stripe = (is_v ? v_cache : k_cache)
+                  + (((int64_t)layer * n_slots + b) * hkv + h) * max_len * vecs;
+  if ((unsigned)idx < (unsigned)max_len)                 // else dropped
+    stripe[(int64_t)idx * vecs + j] = v;
 }
 
 // 4 consecutive elements -> 4 floats (exact for bf16).
 __device__ __forceinline__ void load4(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
   out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
 }
 __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
   const float2 a = __bfloat1622float2(h[0]);
   const float2 b = __bfloat1622float2(h[1]);
@@ -98,58 +137,83 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Warp y of block (b, z) quantizes and writes row r = z * blockDim.y + y
+// of slot b: K of head r for r < hkv, else V of head r - hkv.
 template <typename T>
-__global__ void __launch_bounds__(kWarps * 32) kv_cache_update_quant_kernel(
+__global__ void __launch_bounds__(kMaxWarps * 32) kv_cache_update_quant_kernel(
     int8_t* __restrict__ k_cache, int8_t* __restrict__ v_cache,
     float* __restrict__ k_scale, float* __restrict__ v_scale,
     const T* __restrict__ k_new, const T* __restrict__ v_new,
     const int* __restrict__ write_idx, int n_slots, int hkv, int head_dim,
     int max_len, int layer) {
-  const int row_id = blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row_id >= n_slots * hkv) return;
-  const int b = row_id / hkv;
-  const int h = row_id % hkv;
-  const int idx = write_idx[b];
-  if (idx < 0 || idx >= max_len) return;                  // dropped row
-  // (layer, slot, head) stripe: `max_len` scales, `max_len` rows of D.
-  const int64_t stripe = ((int64_t)layer * n_slots + b) * hkv + h;
-  const int64_t dst = (stripe * max_len + idx) * head_dim;
-  const int64_t src = (int64_t)row_id * head_dim;
-  const float qmax = 127.f;
-  const float inv_qmax = __fdiv_rn(1.f, qmax);
+  constexpr float kQmax = 127.f;
+  constexpr float kInvQmax = 1.f / kQmax;  // f32, rounded to nearest
+  const int b = blockIdx.x;
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+  if (r >= 2 * hkv) return;
+  const int idx = __ldg(write_idx + b);
+  const int lane = threadIdx.x;
   const int words = head_dim / 4;
-
-  for (int kv = 0; kv < 2; ++kv) {
-    const T* x = (kv ? v_new : k_new) + src;
-    int8_t* cache = kv ? v_cache : k_cache;
-    float amax = 0.f;
-    for (int w = lane; w < words; w += 32) {
-      float f[4];
-      load4(x + 4 * w, f);
+  const bool is_v = r >= hkv;
+  const int h = is_v ? r - hkv : r;
+  const T* x = (is_v ? v_new : k_new) + ((int64_t)b * hkv + h) * head_dim;
+  float f[kWordsPerLane][4];
+  float amax = 0.f;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) amax = fmaxf(amax, fabsf(f[u]));
+  for (int k = 0; k < kWordsPerLane; ++k) {
+    const int w = lane + 32 * k;
+    if (w < words) {
+      load4(x + 4 * w, f[k]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) amax = fmaxf(amax, fabsf(f[k][u]));
     }
-    amax = warp_max(amax);
-    const float scale = fmaxf(__fmul_rn(amax, inv_qmax), 1e-8f);
-    for (int w = lane; w < words; w += 32) {
-      float f[4];
-      load4(x + 4 * w, f);
-      uint32_t bytes = 0;
+  }
+  amax = warp_max(amax);
+  const float scale = fmaxf(__fmul_rn(amax, kInvQmax), 1e-8f);
+  uint32_t q[kWordsPerLane];
+#pragma unroll
+  for (int k = 0; k < kWordsPerLane; ++k) {
+    q[k] = 0;
+    if (lane + 32 * k < words) {
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float r = fminf(fmaxf(rintf(__fdiv_rn(f[u], scale)), -qmax), qmax);
-        bytes |= ((uint32_t)(int)r & 0xFFu) << (8 * u);
+        const float v = fminf(fmaxf(rintf(__fdiv_rn(f[k][u], scale)), -kQmax),
+                              kQmax);
+        q[k] |= ((uint32_t)(int)v & 0xFFu) << (8 * u);
       }
-      *reinterpret_cast<uint32_t*>(cache + dst + 4 * w) = bytes;
     }
-    if (lane == 0) (kv ? v_scale : k_scale)[stripe * max_len + idx] = scale;
   }
+  // (layer, slot, head) stripe: `max_len` scales, `max_len` rows of D.
+  const int64_t stripe = ((int64_t)layer * n_slots + b) * hkv + h;
+  uint32_t* out = reinterpret_cast<uint32_t*>(is_v ? v_cache : k_cache)
+                  + stripe * max_len * words;
+  float* scales = (is_v ? v_scale : k_scale) + stripe * max_len;
+  if ((unsigned)idx >= (unsigned)max_len) return;        // dropped row
+  out += (int64_t)idx * words;
+#pragma unroll
+  for (int k = 0; k < kWordsPerLane; ++k) {
+    const int w = lane + 32 * k;
+    if (w < words) out[w] = q[k];
+  }
+  if (lane == 0) scales[idx] = scale;
 }
 
 }  // namespace
 
 extern "C" {
+
+// The launch arguments, as the wrapper packs them: every field an int64
+// (struct.Struct("12q") and ("14q")), so the layout has no padding.
+// Pointers are device addresses; the stream is a cudaStream_t.
+struct SlotWriteArgs {
+  int64_t k_cache, v_cache, k_new, v_new, write_idx;
+  int64_t n_slots, hkv, max_len, row_bytes, layer, narrow, stream;
+};
+
+struct SlotQuantWriteArgs {
+  int64_t k_cache, v_cache, k_scale, v_scale, k_new, v_new, write_idx;
+  int64_t n_slots, hkv, head_dim, max_len, layer, dtype, stream;
+};
 
 const char* arks_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -158,53 +222,56 @@ const char* arks_cuda_error_string(int err) {
 // row_bytes = D * sizeof(cache dtype); must be a multiple of 16 and every
 // pointer 16-byte aligned (the wrapper checks both).  narrow = 1: the new
 // rows are f32 and the caches bf16.
-int arks_kv_cache_update(void* k_cache, void* v_cache, const void* k_new,
-                         const void* v_new, const void* write_idx,
-                         int n_slots, int hkv, int max_len, int row_bytes,
-                         int layer, int narrow, void* stream) {
-  if (n_slots <= 0 || hkv <= 0) return 0;
-  if (row_bytes <= 0 || row_bytes % 16 != 0) return (int)cudaErrorInvalidValue;
-  const int vecs = row_bytes / 16;
-  int threads = 2 * vecs;
-  threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
-  dim3 grid(n_slots, hkv);
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (narrow)
-    kv_cache_update_kernel<true><<<grid, threads, 0, st>>>(
-        (uint4*)k_cache, (uint4*)v_cache, (const uint4*)k_new,
-        (const uint4*)v_new, (const int*)write_idx, n_slots, hkv, max_len,
-        vecs, layer);
+int arks_kv_cache_update(const SlotWriteArgs* a) {
+  if (a->n_slots <= 0 || a->hkv <= 0) return 0;
+  if (a->row_bytes <= 0 || a->row_bytes % 16 != 0 ||
+      a->row_bytes / 16 > kMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  const int vecs = (int)(a->row_bytes / 16);
+  const int rows = (int)(2 * a->hkv);
+  const int per_block = rows < kMaxThreads / vecs ? rows : kMaxThreads / vecs;
+  const dim3 grid((unsigned)a->n_slots, (rows + per_block - 1) / per_block);
+  const dim3 block(vecs, per_block);
+  const cudaStream_t st = (cudaStream_t)a->stream;
+  const int n = (int)a->n_slots, hkv = (int)a->hkv, s = (int)a->max_len;
+  const int layer = (int)a->layer;
+  if (a->narrow)
+    kv_cache_update_kernel<true><<<grid, block, 0, st>>>(
+        (uint4*)a->k_cache, (uint4*)a->v_cache, (const uint4*)a->k_new,
+        (const uint4*)a->v_new, (const int*)a->write_idx, n, hkv, s, layer);
   else
-    kv_cache_update_kernel<false><<<grid, threads, 0, st>>>(
-        (uint4*)k_cache, (uint4*)v_cache, (const uint4*)k_new,
-        (const uint4*)v_new, (const int*)write_idx, n_slots, hkv, max_len,
-        vecs, layer);
+    kv_cache_update_kernel<false><<<grid, block, 0, st>>>(
+        (uint4*)a->k_cache, (uint4*)a->v_cache, (const uint4*)a->k_new,
+        (const uint4*)a->v_new, (const int*)a->write_idx, n, hkv, s, layer);
   return (int)cudaGetLastError();
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (k_new / v_new).  Caches int8, scales
-// f32, head_dim % 4 == 0, every pointer 16-byte aligned (the wrapper
-// checks all of these and raises).
-int arks_kv_cache_update_quant(void* k_cache, void* v_cache, void* k_scale,
-                               void* v_scale, const void* k_new,
-                               const void* v_new, const void* write_idx,
-                               int n_slots, int hkv, int head_dim,
-                               int max_len, int layer, int dtype,
-                               void* stream) {
-  if (n_slots <= 0 || hkv <= 0) return 0;
-  if (head_dim <= 0 || head_dim % 4 != 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (n_slots * hkv + kWarps - 1) / kWarps;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1) {
-    kv_cache_update_quant_kernel<__nv_bfloat16><<<blocks, kWarps * 32, 0, st>>>(
-        (int8_t*)k_cache, (int8_t*)v_cache, (float*)k_scale, (float*)v_scale,
-        (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new,
-        (const int*)write_idx, n_slots, hkv, head_dim, max_len, layer);
-  } else if (dtype == 0) {
-    kv_cache_update_quant_kernel<float><<<blocks, kWarps * 32, 0, st>>>(
-        (int8_t*)k_cache, (int8_t*)v_cache, (float*)k_scale, (float*)v_scale,
-        (const float*)k_new, (const float*)v_new, (const int*)write_idx,
-        n_slots, hkv, head_dim, max_len, layer);
+// f32, head_dim % 4 == 0 and <= 512, every pointer 16-byte aligned (the
+// wrapper checks all of these and raises).
+int arks_kv_cache_update_quant(const SlotQuantWriteArgs* a) {
+  if (a->n_slots <= 0 || a->hkv <= 0) return 0;
+  if (a->head_dim <= 0 || a->head_dim % 4 != 0 ||
+      a->head_dim > 4 * 32 * kWordsPerLane)
+    return (int)cudaErrorInvalidValue;
+  const int rows = (int)(2 * a->hkv);
+  const int warps = rows < kMaxWarps ? rows : kMaxWarps;
+  const dim3 grid((unsigned)a->n_slots, (rows + warps - 1) / warps);
+  const dim3 block(32, warps);
+  const cudaStream_t st = (cudaStream_t)a->stream;
+  const int n = (int)a->n_slots, hkv = (int)a->hkv, d = (int)a->head_dim;
+  const int s = (int)a->max_len, layer = (int)a->layer;
+  if (a->dtype == 1) {
+    kv_cache_update_quant_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
+        (int8_t*)a->k_cache, (int8_t*)a->v_cache, (float*)a->k_scale,
+        (float*)a->v_scale, (const __nv_bfloat16*)a->k_new,
+        (const __nv_bfloat16*)a->v_new, (const int*)a->write_idx, n, hkv, d,
+        s, layer);
+  } else if (a->dtype == 0) {
+    kv_cache_update_quant_kernel<float><<<grid, block, 0, st>>>(
+        (int8_t*)a->k_cache, (int8_t*)a->v_cache, (float*)a->k_scale,
+        (float*)a->v_scale, (const float*)a->k_new, (const float*)a->v_new,
+        (const int*)a->write_idx, n, hkv, d, s, layer);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -633,10 +633,13 @@ def decode_step(params: Params, cfg: ModelConfig,
         rope_idx = torch.clamp(write_idx, max=tables.shape[1] * cache.page - 1)
     rope = rope_cos_sin(rope_idx, cfg.head_dim, cfg.rope_theta)
     h = embed_lookup(params["embed"], tokens, params["layers"]["attn_norm"].dtype)
-    # Per step, not per layer: an int4 pool's decode view, and each slot's
-    # destination pool row (what every layer's update kernel reads).
-    work = dst = None
-    if paged and impl != "plain":
+    # Per step, not per layer: the slot cache's attend lengths, an int4
+    # pool's decode view, and each slot's destination pool row (what every
+    # layer's update kernel reads).
+    work = dst = attend = None
+    if not paged:
+        attend = write_idx + 1
+    elif impl != "plain":
         dst = paged_write_rows(write_idx, tables, cache.page,
                                cache.num_pages)
         if cache.kv_bits == 4:
@@ -653,6 +656,7 @@ def decode_step(params: Params, cfg: ModelConfig,
         else:
             attn = decode_update_and_attend(
                 q, k, v, cache.k, cache.v, write_idx, layer, impl=impl,
-                k_scale=cache.k_scale, v_scale=cache.v_scale)
+                k_scale=cache.k_scale, v_scale=cache.v_scale,
+                lengths=attend)
         h = _block_tail(h, attn.reshape(b, cfg.q_dim), lp, cfg)
     return _unembed(h, params, cfg)

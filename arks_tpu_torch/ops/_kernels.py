@@ -69,16 +69,14 @@ _SIGNATURES: dict[str, tuple[str, list]] = {
         _F, _I, _I, _I, _P]),    # scale, dtype code (0 f32, 1 bf16), kv code
                                  # (0 q's dtype, 1 int8, 2 int4, 3 bf16
                                  # under f32 q), state mode, stream
-    "arks_kv_cache_update": ("kv_cache_update", [
-        _P, _P, _P, _P,          # k_cache, v_cache, k_new, v_new
-        _P,                      # write_idx [B]
-        _I, _I, _I, _I, _I,      # B, hkv, max_len, row_bytes, layer
-        _I, _P]),                # narrow (f32 rows -> bf16), stream
-    "arks_kv_cache_update_quant": ("kv_cache_update", [
-        _P, _P, _P, _P,          # k_cache, v_cache (int8), k_scale, v_scale
-        _P, _P, _P,              # k_new, v_new, write_idx [B]
-        _I, _I, _I, _I, _I,      # B, hkv, head_dim, max_len, layer
-        _I, _P]),                # dtype code, stream
+    # The slot writes take their arguments packed, one int64 each (the
+    # wrapper's struct.pack; csrc SlotWriteArgs / SlotQuantWriteArgs):
+    # k_cache, v_cache, k_new, v_new, write_idx [B], B, hkv, max_len,
+    # row_bytes, layer, narrow (f32 rows -> bf16), stream; and k_cache,
+    # v_cache (int8), k_scale, v_scale, k_new, v_new, write_idx, B, hkv,
+    # head_dim, max_len, layer, dtype code, stream.
+    "arks_kv_cache_update": ("kv_cache_update", [ctypes.c_char_p]),
+    "arks_kv_cache_update_quant": ("kv_cache_update", [ctypes.c_char_p]),
     "arks_ragged_decode_attention": ("decode_attention", [
         _P, _P, _P, _P,          # q [B,Hkv,G,D], out, k_cache, v_cache
         _P, _P, _P,              # k_scale, v_scale [L,B,Hkv,S] or NULL, lengths

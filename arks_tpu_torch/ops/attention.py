@@ -138,10 +138,13 @@ def decode_update_and_attend(
     impl: str | None = None,
     k_scale: torch.Tensor | None = None,  # [L, B, Hkv, S] f32 — int8 caches
     v_scale: torch.Tensor | None = None,
+    lengths: torch.Tensor | None = None,  # [B] int32: write_idx + 1
 ) -> torch.Tensor:
     """Write this step's K/V row at ``write_idx`` of ``layer`` (dropped at
     or past S: a parked slot), then attend over the valid prefix, now
-    ``write_idx + 1`` entries.  Returns out [B, H, D].
+    ``write_idx + 1`` entries.  Returns out [B, H, D].  ``lengths`` is
+    that ``write_idx + 1``, the same in every layer of a step: the caller
+    makes it once per step, or it is made here.
 
     ``impl`` picks the path (the single-device branch of the reference):
     - None / "kernel": ``kv_cache_update`` (``kv_cache_update_quant`` for an
@@ -158,7 +161,8 @@ def decode_update_and_attend(
                          f"{d} (the port stores head_dim unpadded)")
     quantized = k_scale is not None
     qg = q.reshape(b, hkv, h // hkv, d)
-    lengths = write_idx + 1
+    if lengths is None:
+        lengths = write_idx + 1
     if impl == "plain":
         if quantized:
             kv_cache_update_quant_plain(k_cache, v_cache, k_scale, v_scale,

@@ -20,14 +20,15 @@ Pallas kernels.
 from __future__ import annotations
 
 import math
+import struct
 
 import torch
 
 from arks_tpu_torch.ops import _kernels
 from arks_tpu_torch.ops.paged_attention import (
-    _KERNEL_DTYPES, _KERNEL_HEAD_DIMS, MAX_GROUP, _check_operands,
-    _decode_kv_code, _rows_for, _stream, _use_kernel,
-    decode_attention_plain, decode_workspace, quantize_kv)
+    _KERNEL_DTYPES, _KERNEL_HEAD_DIMS, MAX_GROUP, QUANT_UPDATE_MAX_HEAD_DIM,
+    _check_operands, _decode_kv_code, _dense, _rows_for, _stream,
+    _use_kernel, decode_attention_plain, decode_workspace, quantize_kv)
 
 __all__ = ["quantize_kv", "ragged_decode_attention",
            "ragged_decode_attention_plain", "kv_cache_update",
@@ -97,7 +98,7 @@ def ragged_decode_attention(
         scales = (("k_scale", k_scale), ("v_scale", v_scale))
     _check_layer(layer, k_cache)
     qc = q.contiguous()
-    lens = lengths.to(torch.int32).contiguous()
+    lens = _dense(lengths, torch.int32)
     _check_operands("ragged_decode_attention", q.device,
                     (("q", qc), ("lengths", lens)), aligned=False)
     _check_operands("ragged_decode_attention", q.device,
@@ -149,6 +150,14 @@ def _check_rows(kernel, cache, k_new, v_new, write_idx) -> None:
                          f"{tuple(cache.shape)}")
 
 
+# The slot writes' launch arguments, packed as their C entry points read
+# them (csrc/kv_cache_update.cu SlotWriteArgs, SlotQuantWriteArgs: every
+# field an int64): one ctypes argument per launch instead of a dozen
+# converted one by one.
+_PACK_UPDATE = struct.Struct("12q").pack
+_PACK_UPDATE_QUANT = struct.Struct("14q").pack
+
+
 def kv_cache_update(k_cache: torch.Tensor,   # [L, B, Hkv, S, D]
                     v_cache: torch.Tensor,
                     k_new: torch.Tensor,     # [B, Hkv, D]
@@ -157,13 +166,14 @@ def kv_cache_update(k_cache: torch.Tensor,   # [L, B, Hkv, S, D]
                     layer: int, *, impl: str | None = None):
     """Write one K and one V row per slot at ``write_idx`` of layer
     ``layer``, IN PLACE; a slot whose index is >= S (the parked-slot
-    sentinel) writes nothing.  f32 rows into a bf16 cache are rounded to
-    nearest even, as the reference's astype.  CUDA tensors launch
-    ``csrc/kv_cache_update.cu`` (replaces the Pallas ``_update_kernel``);
-    CPU tensors take ``kv_cache_update_plain``."""
+    sentinel) or negative writes nothing.  f32 rows into a bf16 cache are
+    rounded to nearest even, as the reference's astype.  CUDA tensors
+    launch ``csrc/kv_cache_update.cu`` (replaces the Pallas
+    ``_update_kernel``); CPU tensors take ``kv_cache_update_plain``."""
     if not _use_kernel(k_cache, impl):
         return kv_cache_update_plain(k_cache, v_cache, k_new, v_new,
                                      write_idx, layer)
+    kernel = "kv_cache_update"
     _, b, hkv, s, d = k_cache.shape
     if k_cache.dtype not in _KERNEL_DTYPES or v_cache.dtype != k_cache.dtype \
             or v_cache.shape != k_cache.shape:
@@ -174,16 +184,17 @@ def kv_cache_update(k_cache: torch.Tensor,   # [L, B, Hkv, S, D]
         raise ValueError(f"kv_cache_update kernel needs D * itemsize % 16 == "
                          f"0, got {row_bytes}")
     kn, vn, narrow = _rows_for(k_cache, k_new, v_new)
-    widx = write_idx.to(torch.int32).contiguous()
-    _check_rows("kv_cache_update", k_cache, kn, vn, widx)
+    widx = _dense(write_idx, torch.int32)
+    _check_rows(kernel, k_cache, kn, vn, widx)
     _check_layer(layer, k_cache)
-    _check_operands("kv_cache_update", k_cache.device, (
+    dev = k_cache.device
+    ptrs = _check_operands(kernel, dev, (
         ("k_cache", k_cache), ("v_cache", v_cache), ("k_new", kn),
         ("v_new", vn), ("write_idx", widx)))
-    _kernels.launch("arks_kv_cache_update", k_cache.data_ptr(),
-                    v_cache.data_ptr(), kn.data_ptr(), vn.data_ptr(),
-                    widx.data_ptr(), b, hkv, s, row_bytes, int(layer),
-                    narrow, _stream())
+    err = _kernels.entry("arks_kv_cache_update")(_PACK_UPDATE(
+        *ptrs, b, hkv, s, row_bytes, layer, narrow, _stream(dev.index)))
+    if err:
+        _kernels.raise_launch_error("arks_kv_cache_update", err)
     kv_cache_update.launches += 1
     return k_cache, v_cache
 
@@ -214,14 +225,16 @@ def kv_cache_update_quant(k_cache: torch.Tensor,   # [L, B, Hkv, S, D] int8
                           layer: int, *, impl: str | None = None):
     """Quantize each slot's K and V rows per token over D (qmax 127) and
     write values and f32 scales at ``write_idx`` of layer ``layer``, IN
-    PLACE; indices >= S write nothing.  CUDA tensors launch
+    PLACE; indices >= S or negative write nothing.  CUDA tensors launch
     ``csrc/kv_cache_update.cu`` (replaces the Pallas
-    ``_update_quant_kernel`` and the ``quantize_kv`` before it); CPU
-    tensors take ``kv_cache_update_quant_plain``."""
+    ``_update_quant_kernel`` and the ``quantize_kv`` before it; D at most
+    ``QUANT_UPDATE_MAX_HEAD_DIM``); CPU tensors take
+    ``kv_cache_update_quant_plain``."""
     if not _use_kernel(k_cache, impl):
         return kv_cache_update_quant_plain(k_cache, v_cache, k_scale,
                                            v_scale, k_new, v_new, write_idx,
                                            layer)
+    kernel = "kv_cache_update_quant"
     _, b, hkv, s, d = k_cache.shape
     if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8 or \
             k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
@@ -232,23 +245,27 @@ def kv_cache_update_quant(k_cache: torch.Tensor,   # [L, B, Hkv, S, D] int8
         raise TypeError("kv_cache_update_quant kernel takes bf16/f32 rows, "
                         f"got {k_new.dtype}/{v_new.dtype}")
     if v_cache.shape != k_cache.shape or k_scale.shape != k_cache.shape[:4] \
-            or v_scale.shape != k_scale.shape or d % 4:
+            or v_scale.shape != k_scale.shape or d % 4 or \
+            d > QUANT_UPDATE_MAX_HEAD_DIM:
         raise ValueError("kv_cache_update_quant: caches "
                          f"{tuple(k_cache.shape)} and scales "
                          f"{tuple(k_scale.shape)} are not an int8 cache pair "
-                         "with D % 4 == 0")
-    kn, vn = k_new.contiguous(), v_new.contiguous()
-    widx = write_idx.to(torch.int32).contiguous()
-    _check_rows("kv_cache_update_quant", k_cache, kn, vn, widx)
+                         "with D % 4 == 0 and D <= "
+                         f"{QUANT_UPDATE_MAX_HEAD_DIM}")
+    kn, vn = _dense(k_new), _dense(v_new)
+    widx = _dense(write_idx, torch.int32)
+    _check_rows(kernel, k_cache, kn, vn, widx)
     _check_layer(layer, k_cache)
-    _check_operands("kv_cache_update_quant", k_cache.device, (
+    dev = k_cache.device
+    ptrs = _check_operands(kernel, dev, (
         ("k_cache", k_cache), ("v_cache", v_cache), ("k_scale", k_scale),
         ("v_scale", v_scale), ("k_new", kn), ("v_new", vn),
         ("write_idx", widx)))
-    _kernels.launch("arks_kv_cache_update_quant", k_cache.data_ptr(),
-                    v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-                    kn.data_ptr(), vn.data_ptr(), widx.data_ptr(), b, hkv, d,
-                    s, int(layer), _KERNEL_DTYPES[kn.dtype], _stream())
+    err = _kernels.entry("arks_kv_cache_update_quant")(_PACK_UPDATE_QUANT(
+        *ptrs, b, hkv, d, s, layer, _KERNEL_DTYPES[kn.dtype],
+        _stream(dev.index)))
+    if err:
+        _kernels.raise_launch_error("arks_kv_cache_update_quant", err)
     kv_cache_update_quant.launches += 1
     return k_cache, v_cache, k_scale, v_scale
 

@@ -34,7 +34,10 @@ Phases (any failure raises and exits non-zero):
               pages of 256, slots at lengths across tile and page edges,
               an empty slot and a parked one (write index S, length
               S + 1).  kv_cache_update and kv_cache_update_quant leave
-              the cache bit-identical to their plain versions;
+              the cache bit-identical to their plain versions, there and
+              at Mixtral-8x7B's widths (Hkv 8, D 128: bf16 rows, f32 rows
+              into the bf16 and the int8 cache, and a batch whose every
+              write drops, which must change nothing);
               ragged_decode_attention and paged_decode_attention (split-KV:
               pieces of 256 positions and a combine launch) meet the
               attention limits above, their f32 kernels within 1e-5 of the
@@ -99,7 +102,8 @@ Phases (any failure raises and exits non-zero):
               the four row writes (paged_kv_update, paged_kv_update_quant
               int8/int4, kv_cache_update, kv_cache_update_quant): cold
               time, the profiler's device time with L2 warm, the launch
-              floor (an empty kernel timed both ways) and the wrapper's
+              floor (an empty kernel timed both ways, beside the paged
+              writes and again beside the slot writes) and the wrapper's
               host µs per call (median and least of 5 runs of 1000
               calls), the paged ones through both entry points;
               end-to-end decode tok/s and TTFT.
@@ -642,9 +646,57 @@ def _split_check(torch, what, got_f, split_f, lengths, cover, hkv):
         raise AssertionError(f"{what} disagrees with its split plain version")
 
 
+def _slot_writes_wide(torch, dev, pl):
+    """kv_cache_update and kv_cache_update_quant against their plain
+    versions at Mixtral-8x7B's KV widths (Hkv 8, D 128) on a slot cache of
+    8 slots x 4096: bf16 rows into the bf16 cache, f32 rows into it and
+    into the int8 cache, each at slot_batch's write indices and at indices
+    that all drop (past S or negative).  Every byte and scale must equal
+    the plain version's; the all-dropped batch must change nothing."""
+    from arks_tpu_torch.ops import paged_attention as pa
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    hkv, d, nb = 8, 128, 8
+    cache = [torch.randn((2, nb, hkv, SLOT_LEN, d), generator=gen,
+                         device=dev).to(torch.bfloat16) for _ in range(2)]
+    quant = _int8(pa, cache)
+    rows = [torch.randn((nb, hkv, d), generator=gen, device=dev) * 3
+            for _ in range(2)]
+    i32 = dict(dtype=torch.int32, device=dev)
+    batches = {"edges and a parked slot": torch.tensor(
+                   [0, 254, 255, 256, SLOT_LEN, 63, 2048, SLOT_LEN - 1], **i32),
+               "every write dropped": torch.tensor(
+                   [SLOT_LEN, SLOT_LEN + 1, -1, SLOT_LEN, 2 ** 31 - 1, -5,
+                    SLOT_LEN, SLOT_LEN + 7], **i32)}
+    cases = [("kv_cache_update", "bf16 rows", pl.kv_cache_update, cache,
+              [x.to(torch.bfloat16) for x in rows]),
+             ("kv_cache_update", "f32 rows into bf16", pl.kv_cache_update,
+              cache, rows),
+             ("kv_cache_update_quant", "f32 rows into int8",
+              pl.kv_cache_update_quant, quant, rows)]
+    for name, what, fn, base, new in cases:
+        for tag, widx in batches.items():
+            kern = [x.clone() for x in base]
+            plain = [x.clone() for x in base]
+            fn(*kern, *new, widx, 1)
+            fn(*plain, *new, widx, 1, impl="plain")
+            torch.cuda.synchronize()
+            same = _same_bytes(torch, kern, plain)
+            changed = not _same_bytes(torch, kern[:1], base[:1])
+            dropped = tag == "every write dropped"
+            log(f"[kernels] {name} at Hkv {hkv}, D {d} ({what}, {tag}): "
+                f"bytes bit-identical to the plain version: {same}; cache "
+                f"changed: {changed}")
+            if not same or changed == dropped:
+                raise AssertionError(f"{name} ({what}, {tag}) differs from "
+                                     "its plain version")
+            del kern, plain
+
+
 def phase_legacy_kernels(torch, dev):
     """The four legacy kernels against their plain versions on
-    ``slot_batch``.  Returns (batch, {name: max abs err})."""
+    ``slot_batch``, and the two slot writes at Mixtral's widths
+    (``_slot_writes_wide``).  Returns (batch, {name: max abs err})."""
     from arks_tpu_torch.ops import paged_attention as pa
     from arks_tpu_torch.ops import pallas_attention as pl
     b = slot_batch(torch, dev)
@@ -715,6 +767,7 @@ def phase_legacy_kernels(torch, dev):
                 want, want_f, got_f, empty, cross=False)
     b["slot_int8"] = kern
     del plain, quant
+    _slot_writes_wide(torch, dev, pl)
 
     pargs = (b["tables"], b["paged_lengths"], layer)
     kp, vp = b["k_pool"], b["v_pool"]
@@ -1479,18 +1532,22 @@ def _decode_parity(torch, dev, tf, cfg, params, dtype, rel, abs_tol, layout,
     return worst
 
 
-def phase_decode_profile(torch, dev, engine):
+def phase_decode_profile(torch, dev, engine, kv="bf16"):
     """Where a legacy decode dispatch's time goes: K = 4 decode_steps, each
-    sampling greedily, over 8 slots at context 512 of a bf16 slot cache,
-    on the engine's weights: host time per step (synchronised) and the
-    device's kernel time from torch.profiler, as phase_step_profile reads
-    the mixed step."""
+    sampling greedily, over 8 slots at context 512 of a bf16 (or, with
+    ``kv="int8"``, int8) slot cache, on the engine's weights: host time
+    per step (synchronised) and the device's kernel time from
+    torch.profiler, as phase_step_profile reads the mixed step.  Returns
+    (host ms per step, device ms per step or None, {kernel: us per step}
+    for the slot write and the decode attention, kernel launches per
+    step)."""
     from torch.profiler import ProfilerActivity, profile
 
     from arks_tpu_torch.engine import sampler
     from arks_tpu_torch.models import transformer as tf
     cfg, lanes, ctx, k_steps = engine.cfg, 8, 512, 4
-    cache = tf.init_cache(cfg, lanes, 1024, torch.bfloat16, dev)
+    cache = tf.init_cache(cfg, lanes, 1024, torch.bfloat16, dev,
+                          quantized=kv == "int8")
     i32 = dict(dtype=torch.int32, device=dev)
 
     def dispatch():
@@ -1518,21 +1575,26 @@ def phase_decode_profile(torch, dev, engine):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels) / k_steps
+    launches = sum(e.count for e in kernels) / k_steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    top += [e for e in kernels if e not in top and (
-        "kv_cache_update" in e.key or "decode_attention" in e.key)]
-    log(f"[profile] legacy decode dispatch, bf16 slot cache, {lanes} slots at "
+    legacy = [e for e in kernels if "kv_cache_update" in e.key
+              or "decode_attention" in e.key]
+    top += [e for e in legacy if e not in top]
+    log(f"[profile] legacy decode dispatch, {kv} slot cache, {lanes} slots at "
         f"context {ctx}, K={k_steps}: {wall_ms:.2f} ms host clock per step "
         f"({lanes / wall_ms * 1e3:.1f} tok/s), device kernel time "
         + (f"{dev_us / 1e3:.2f} ms/step, busy share "
-           f"{dev_us / 1e3 / wall_ms:.3f}" if dev_us else "not measured"))
+           f"{dev_us / 1e3 / wall_ms:.3f}, {launches:.0f} kernel launches "
+           "per step" if dev_us else "not measured"))
     for e in top:
         log(f"[profile]   {e.key[:60]:60s} "
             f"{e.self_device_time_total / k_steps:9.1f} us/step "
             f"x{e.count // k_steps}")
     del cache
     torch.cuda.empty_cache()
-    return wall_ms, dev_us / 1e3 if dev_us else None
+    return (wall_ms, dev_us / 1e3 if dev_us else None,
+            {e.key: e.self_device_time_total / k_steps for e in legacy},
+            launches)
 
 
 def phase_step_profile(torch, dev, engine, kv=None):
@@ -1975,6 +2037,10 @@ def phase_legacy_times(torch, b):
         kl.index_put_((keep[:, None], hk[None, :], idx[:, None]), kn)
         vl.index_put_((keep[:, None], hk[None, :], idx[:, None]), vn)
     out = {}
+    # The launch floor, measured beside the two writes: an empty kernel
+    # timed cold and by the profiler.
+    empty = lambda: torch.cuda._sleep(0)  # noqa: E731
+    floor = (_time_ms(torch, empty), _device_us(torch, empty, "spin_kernel"))
     upd_bytes = nb * 4 + 2 * 2 * n_valid * hkv * d * 2
     out["kv_cache_update"] = dict(
         ms=_time_ms(torch, lambda: pl.kv_cache_update(kc, vc, *rows)),
@@ -2070,11 +2136,13 @@ def phase_legacy_times(torch, b):
     for name, t in out.items():
         lib = (f"{t['library_ms'] * 1e3:.1f} us" if t["library_ms"]
                is not None else "none")
-        log(f"[times] {name}: {t['ms'] * 1e3:.1f} us (profiler: "
+        extra = (f"; launch floor {floor[0] * 1e3:.2f} us cold / {floor[1]} "
+                 f"us warm, {_host_fmt(t['host_us'])}" if "host_us" in t
+                 else f"; lengths {lens.tolist()}")
+        log(f"[times] {name}: {t['ms'] * 1e3:.2f} us (profiler: "
             f"{t['dev_us']} us on the device; bound {t['bound_ms'] * 1e3:.3f}"
             f" us by {t['bound_by']}, {t['nbytes']} B), plain "
-            f"{t['plain_ms'] * 1e3:.1f} us, library {lib}; lengths "
-            f"{lens.tolist()}")
+            f"{t['plain_ms'] * 1e3:.1f} us, library {lib}{extra}")
     return out
 
 
@@ -2521,7 +2589,8 @@ def main() -> int:
     log(f"[parity] worst |logit diff| per dtype and pool {worst}")
     for kv in (None, "int8"):
         phase_step_profile(torch, dev, engine, kv)
-    phase_decode_profile(torch, dev, engine)
+    for kv in ("bf16", "int8"):
+        phase_decode_profile(torch, dev, engine, kv)
     del engine, params
     torch.cuda.empty_cache()
     upd_t, attn_t, dense_t = phase_times(torch, b)

@@ -916,3 +916,95 @@ def test_kernel_launches_read_the_current_stream(dev):
         assert pa._stream(dev.index) == side.cuda_stream
         assert pa._stream() == side.cuda_stream
     assert pa._stream(dev.index) == torch.cuda.current_stream().cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# The slot-cache writes: a block per slot over every head's K and V rows
+# ---------------------------------------------------------------------------
+
+# Cache kind -> (cache dtype, or None for int8; new-row dtype).
+SLOT_WRITE_KINDS = {"bf16": (torch.bfloat16, torch.bfloat16),
+                    "f32": (torch.float32, torch.float32),
+                    "f32 rows into bf16": (torch.bfloat16, torch.float32),
+                    "int8, bf16 rows": (None, torch.bfloat16),
+                    "int8, f32 rows": (None, torch.float32)}
+
+
+def _slot_write_case(dev, kind, hkv, d, batch, seed=0):
+    """(caches, new rows, write index) of one slot-write batch: slots at a
+    stripe's first and last rows and across a 16-row edge, one parked at
+    S and one negative; every index at or past S or negative; or 300
+    slots at random indices in [-2, S + 2) (an int64 index, cast by the
+    wrapper).  The first row of slot 4 is all zero."""
+    cache_dt, row_dt = SLOT_WRITE_KINDS[kind]
+    quant = cache_dt is None
+    s = 128 if quant else 48
+    if batch == "many slots":
+        rng = np.random.default_rng(seed)
+        widx = torch.as_tensor(rng.integers(-2, s + 2, 300), device=dev)
+    else:
+        idx = ([s, s + 3, -1, -7, s, 2 ** 31 - 1]
+               if batch == "every write drops" else [0, s - 1, s, -1, 16, 15])
+        widx = torch.tensor(idx, dtype=torch.int32, device=dev)
+    b = widx.shape[0]
+    caches = _slot_cache(dev, cache_dt or torch.bfloat16, b=b, hkv=hkv, d=d,
+                         s=s, quant=quant, seed=seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    new = [torch.randn(b, hkv, d, generator=gen, device=dev).to(row_dt) * 3
+           for _ in range(2)]
+    new[0][4] = 0.0
+    return caches, new, widx
+
+
+def _same(x, y):
+    if x.dtype in (torch.bfloat16, torch.float32):
+        return torch.equal(_bits(x), _bits(y))
+    return torch.equal(x, y)
+
+
+@pytest.mark.parametrize("batch", ["parked, negative and edges",
+                                   "every write drops", "many slots"])
+@pytest.mark.parametrize("hkv,d", [(2, 64), (2, 128), (8, 64), (8, 128),
+                                   (20, 128)])  # 20: past 1024 threads
+@pytest.mark.parametrize("kind", list(SLOT_WRITE_KINDS))   # and 32 warps
+def test_slot_writes_bit_exact(dev, kind, hkv, d, batch):
+    """kv_cache_update (kv_cache_update_quant for an int8 cache) leaves
+    every cache byte and scale equal to its plain version's, launching
+    once; a batch whose every write drops changes nothing."""
+    from arks_tpu_torch.ops import pallas_attention as pl
+    caches, new, widx = _slot_write_case(dev, kind, hkv, d, batch)
+    fn = pl.kv_cache_update if len(caches) == 2 else pl.kv_cache_update_quant
+    kern = [x.clone() for x in caches]
+    plain = [x.clone() for x in caches]
+    before = fn.launches
+    fn(*kern, *new, widx, 1)
+    fn(*plain, *new, widx, 1, impl="plain")
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    for g_, w_ in zip(kern, plain):
+        assert _same(g_, w_)
+    assert _same(kern[0], caches[0]) == (batch == "every write drops")
+    if len(caches) == 4 and batch == "parked, negative and edges":
+        assert kern[2][1, 4, :, 16].eq(1e-8).all()   # the all-zero row
+
+
+def test_slot_writes_raise_on_unsupported(dev):
+    from arks_tpu_torch.ops import pallas_attention as pl
+    caches, new, widx = _slot_write_case(dev, "bf16", 2, 64, "many slots")
+    for bad in (widx.cpu(), widx[:-1]):
+        with pytest.raises(ValueError):
+            pl.kv_cache_update(*caches, *new, bad, 1)
+    with pytest.raises(ValueError):                  # layer out of range
+        pl.kv_cache_update(*caches, *new, widx, 2)
+    with pytest.raises(TypeError):
+        pl.kv_cache_update(*(x.half() for x in caches), *new, widx, 1)
+    wide = _slot_write_case(dev, "int8, bf16 rows", 1, 640, "many slots")
+    with pytest.raises(ValueError):                  # D > 512
+        pl.kv_cache_update_quant(*wide[0], *wide[1], wide[2], 1)
+    q, qnew, qidx = _slot_write_case(dev, "int8, f32 rows", 2, 64,
+                                     "many slots")
+    with pytest.raises(ValueError):                  # rows on the CPU
+        pl.kv_cache_update_quant(*q, *(x.cpu() for x in qnew), qidx, 1)
+    with pytest.raises(TypeError):
+        pl.kv_cache_update_quant(*q, *(x.half() for x in qnew), qidx, 1)

@@ -20,8 +20,15 @@ paged writes are timed through write_idx / tables and, where the tree has
 ``paged_write_rows``, through the step's destinations (``dst``).  "launch floor" is an empty kernel
 (``torch.cuda._sleep(0)``) timed cold, and its "warm_us" by the profiler.
 
+``--legacy-step`` instead profiles the served legacy decode step alone
+(``chip_smoke.phase_decode_profile``: K = 4 steps over 8 slots at context
+512, Qwen2.5-7B at full width on random bf16 weights, a bf16 and an int8
+slot cache): host and device ms per step, kernel launches per step, and
+the device µs per step of the slot write and of the decode attention's
+kernels.
+
     python3 tools/torch_kernel_compare.py --root DIR [--out FILE]
-        [--mixed-only | --updates-only]
+        [--mixed-only | --updates-only | --legacy-step]
 
 ``DIR`` is the root of the tree whose ``arks_tpu_torch`` is timed (its
 kernels build into DIR/build/); this script and the helpers it borrows
@@ -35,9 +42,11 @@ import argparse
 import importlib.util
 import inspect
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 HERE = Path(__file__).resolve().parent.parent
 
@@ -50,6 +59,8 @@ def main() -> int:
                     help="time the mixed attention alone")
     ap.add_argument("--updates-only", action="store_true",
                     help="time the row writes alone")
+    ap.add_argument("--legacy-step", action="store_true",
+                    help="profile the served legacy decode step alone")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -67,6 +78,8 @@ def main() -> int:
     from arks_tpu_torch.ops import pallas_attention as pl
     assert Path(mk.__file__).resolve().is_relative_to(root), mk.__file__
     dev = torch.device("cuda", 0)
+    if args.legacy_step:
+        return _report(root, _legacy_step(cs, torch, dev), args.out)
     times = {}
 
     b = cs.kernel_batch(torch, dev)
@@ -215,6 +228,27 @@ def _row_writes(cs, torch, dev, pa, pl, b, pools) -> dict:
         times[f"{name} warm_us"] = cs._device_us(torch, fn, kernel)
         times[f"{name} host_us"], times[f"{name} host_min_us"] = \
             cs._host_us(torch, fn)
+    return times
+
+
+def _legacy_step(cs, torch, dev) -> dict:
+    """The served legacy decode step's numbers (see the module's
+    docstring); kernels by their function name."""
+    from arks_tpu_torch.models import get_config
+    from arks_tpu_torch.models import transformer as tf
+    cfg = get_config(cs.MODEL)
+    engine = SimpleNamespace(cfg=cfg, params=tf.init_params(
+        cfg, cs.SEED, torch.bfloat16, dev))
+    times = {}
+    for kv in ("bf16", "int8"):
+        host_ms, device_ms, per, launches = cs.phase_decode_profile(
+            torch, dev, engine, kv)
+        times[f"legacy step {kv} host_ms"] = host_ms
+        times[f"legacy step {kv} device_ms"] = device_ms
+        times[f"legacy step {kv} launches"] = launches
+        for key, us in per.items():
+            name = re.search(r"\w*kernel\w*", key)
+            times[f"legacy step {kv} {name[0] if name else key} us"] = us
     return times
 
 
