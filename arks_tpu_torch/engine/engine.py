@@ -23,12 +23,21 @@ The KV cache is the engine dtype, bf16 (also under an f32 engine, whose
 attention reads it widened) or int8; a paged pool may also be int4, on either scheduler (the legacy one sends its int4 decode through
 the mixed attention kernel, one query per slot).  Weights are the engine
 dtype or int8 / int4 (``weight_dtype``); dense and MoE models alike.  Seeded sampling
-draws the reference's threefry keys.  What the reference does and this
-port does not — device prefix sharing, host/disk prefix tiers, pipelined
-dispatch and the decode/admission overlap, speculative decoding, guided
-decoding, penalties and logprobs, fault recovery, parallelism — is
-rejected by ``EngineConfig.validate`` or ``add_request`` rather than
-silently ignored.
+draws the reference's threefry keys.
+
+Every sampling field of a request is served on both schedulers:
+presence/frequency penalties, ``logit_bias``, ``min_tokens``, logprobs
+(chosen and top-N over the raw distribution) and guided decoding (regex,
+JSON mode, JSON schema, choice; compiled off the engine thread by
+``guides.GuideCompiler`` — a request whose guide is still compiling is
+parked, never waited for).  The passes run only for batches in which a
+request asks for them, decided on the host (``sampler.Gates``), and a
+step's logprob data crosses to the host in the same copy as its ids.
+
+What the reference does and this port does not — device prefix sharing,
+host/disk prefix tiers, pipelined dispatch and the decode/admission
+overlap, speculative decoding, fault recovery, parallelism — is rejected
+by ``EngineConfig.validate`` rather than silently ignored.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ import torch
 from arks_tpu_torch.device import resolve_device
 from arks_tpu_torch.engine import prng
 from arks_tpu_torch.engine import sampler as sampler_mod
+from arks_tpu_torch.engine.guides import Guide, GuideCompiler, GuideError
 from arks_tpu_torch.engine.paged import PageAllocator, pages_needed
 from arks_tpu_torch.engine.types import Request, RequestOutput
 from arks_tpu_torch.models import moe
@@ -63,8 +73,9 @@ class ContextLengthExceededError(ValueError):
 
 @dataclasses.dataclass
 class EngineConfig:
-    """The reference's engine fields that this slice serves or rejects.
-    Values outside the slice raise in ``validate``."""
+    """The reference's engine fields that the port serves or rejects
+    (speculative decoding, parallelism).  Values outside them raise in
+    ``validate``."""
 
     model: str = "tiny"
     num_slots: int = 8
@@ -178,6 +189,9 @@ class _Slot:
     request: Request
     num_prompt: int
     generated: list[int] = dataclasses.field(default_factory=list)
+    # One (chosen, [(id, logprob), ...]) entry per generated token when the
+    # request asked for logprobs.
+    logprobs: list = dataclasses.field(default_factory=list)
     num_emitted: int = 0
 
 
@@ -191,20 +205,41 @@ class _ChunkState:
     key: np.ndarray   # np_prng_key(seed): the first token's key
 
 
-_UNSERVED = (("presence_penalty", 0.0, "penalties"),
-             ("frequency_penalty", 0.0, "penalties"),
-             ("logit_bias", (), "logit_bias"),
-             ("logprobs", None, "logprobs"),
-             ("min_tokens", 0, "min_tokens"),
-             ("guide", None, "guided decoding"))
+def _penalized(p) -> bool:
+    return bool(p.presence_penalty or p.frequency_penalty)
 
 
-def unserved_params(p) -> str | None:
-    """Name of the first sampling feature this slice does not serve."""
-    for field, default, what in _UNSERVED:
-        if getattr(p, field) != default:
-            return what
-    return None
+def _shapes(p) -> bool:
+    """Whether a request writes any shaping column of its slot's row."""
+    return bool(_penalized(p) or p.logit_bias or p.min_tokens
+                or p.guide is not None)
+
+
+def _lane_gates(params, decoding=()) -> sampler_mod.Gates:
+    """The passes a batch runs: ``params`` of every lane that samples,
+    ``decoding`` those of its decode lanes (penalties read the counts of
+    generated tokens; a first token has none)."""
+    return sampler_mod.Gates(
+        sampled=any(p.temperature > 0 for p in params),
+        penalties=any(_penalized(p) for p in decoding),
+        bias=any(p.logit_bias for p in params),
+        min_tokens=any(p.min_tokens > 0 for p in params),
+        guide=any(p.guide is not None for p in params))
+
+
+def _to_host(ids: torch.Tensor, lp=None):
+    """The sampled ids [..., B] on the host and, with ``lp`` (chosen [..., B],
+    top values and ids [..., B, L] from ``top_logprobs``), their logprob
+    data — in ONE device-to-host copy: (ids, None | (chosen, vals, lids))."""
+    if lp is None:
+        return ids.cpu().numpy(), None
+    clp, vals, lids = lp
+    n = vals.shape[-1]
+    packed = torch.cat([ids[..., None], clp[..., None].view(torch.int32),
+                        vals.view(torch.int32), lids], dim=-1).cpu().numpy()
+    return packed[..., 0], (packed[..., 1].view(np.float32),
+                            packed[..., 2: 2 + n].view(np.float32),
+                            packed[..., 2 + n:])
 
 
 class InferenceEngine:
@@ -299,9 +334,24 @@ class InferenceEngine:
         self._free: list[int] = list(range(n))
         self._request_seed = 0
         # Each slot's sampling row and decode key (registered slots' rows
-        # are read), with a host copy of the temperatures.
-        self._sampling = sampler_mod.init_slot_sampling(n, self.device)
-        self._slot_temp = np.zeros((n,), np.float32)
+        # are read).
+        self._sampling = sampler_mod.init_sampling_state(
+            n, engine_cfg.seed, cfg.vocab_size, self.device)
+        # Guided decoding: the compiler owns the host tables; the device
+        # copies have fixed budget shapes and take new CONTENTS (engine
+        # thread, between dispatches) when its version bumps.
+        eos_all = tuple(dict.fromkeys(list(cfg.eos_token_ids)
+                                      + list(tokenizer.eos_token_ids)))
+        self.guides = GuideCompiler(tokenizer, cfg.vocab_size, eos_all)
+        self._guide_dev = (
+            torch.from_numpy(self.guides.class_ids).to(self.device),
+            torch.from_numpy(self.guides.trans).to(self.device))
+        self._guide_ver = self.guides.version
+        # Requests parked on an in-flight guide compile, with its ticket
+        # (engine thread only), and request id -> guide key of the pins
+        # held from admission to the request's end.
+        self._awaiting_guide: list = []
+        self._guide_pins: dict[str, tuple[str, str]] = {}
 
         # Shared with caller threads.
         self._queue: queue.PriorityQueue = queue.PriorityQueue()
@@ -336,14 +386,33 @@ class InferenceEngine:
         """Largest admissible prompt (the decode reserve kept)."""
         return self.ecfg.max_cache_len - self.ecfg.steps_per_dispatch - 1
 
+    def min_tokens_suppress_ids(self, p) -> list[int]:
+        """Deduped token ids suppressed while a request is below
+        min_tokens (eos unless ignore_eos, plus stop_token_ids): the one
+        definition admission, ``_shaping_cols`` and the HTTP check share."""
+        if p.min_tokens <= 0:
+            return []
+        stop: list[int] = []
+        if not p.ignore_eos:
+            stop += list(self.cfg.eos_token_ids)
+            stop += list(self.tokenizer.eos_token_ids)
+        stop += list(p.stop_token_ids)
+        return list(dict.fromkeys(stop))
+
     def add_request(self, request: Request) -> None:
-        """Queue a request (any thread).  Sampling features this slice
-        does not serve raise ValueError here, on the caller's thread."""
-        what = unserved_params(request.params)
-        if what is not None:
-            raise ValueError(f"{what} is not served by this engine yet")
-        if request.params.max_tokens < 1:
+        """Queue a request (any thread).  A bad request raises ValueError
+        here, on the caller's thread: an oversized min_tokens suppress
+        set, a malformed guide pattern (GuideError), max_tokens < 1.  A
+        guide's compile starts on the compiler's workers; the scheduler
+        parks the request until it publishes."""
+        p = request.params
+        sampler_mod.np_suppress_col(self.min_tokens_suppress_ids(p))
+        if p.max_tokens < 1:
             raise ValueError("max_tokens must be >= 1")
+        if p.guide is not None:
+            if self.guides.lookup(*p.guide) is None:
+                self.guides.validate(*p.guide)
+            self.guides.ensure(*p.guide)
         with self._abort_lock:
             self._queue_seq += 1
             seq = self._queue_seq
@@ -374,15 +443,19 @@ class InferenceEngine:
     @property
     def idle(self) -> bool:
         return (not self._slots and not self._prefilling
-                and self._queue.empty())
+                and not self._awaiting_guide and self._queue.empty())
 
     def _run(self) -> None:
-        while self._running:
-            try:
-                self.step()
-            except Exception as e:  # the loop must outlive one bad step
-                log.exception("engine step failed")
-                self._fail_all(f"engine_fault: {type(e).__name__}: {e}")
+        try:
+            while self._running:
+                try:
+                    self.step()
+                except Exception as e:  # the loop must outlive one bad step
+                    log.exception("engine step failed")
+                    self._fail_all(f"engine_fault: {type(e).__name__}: {e}")
+        finally:
+            # No scheduler remains to unpark them.
+            self._abort_awaiting_guide()
 
     def _fail_all(self, error: str) -> None:
         """After a failed step: end every in-flight request with an error
@@ -390,14 +463,14 @@ class InferenceEngine:
         a later slice)."""
         for slot in list(self._slots):
             st = self._slots.pop(slot)
-            self._release_slot(slot)
+            self._release_slot(slot, st.request)
             st.request.outputs.put(RequestOutput(
                 request_id=st.request.request_id, token_ids=[],
                 finished=True, finish_reason="error", error=error,
                 num_prompt_tokens=st.num_prompt))
         for slot in list(self._prefilling):
             cs = self._prefilling.pop(slot)
-            self._release_slot(slot)
+            self._release_slot(slot, cs.request)
             cs.request.outputs.put(RequestOutput(
                 request_id=cs.request.request_id, token_ids=[],
                 finished=True, finish_reason="error", error=error,
@@ -413,17 +486,23 @@ class InferenceEngine:
         Mixed: issue ONE mixed dispatch, admit waiting requests while it
         runs, then fan its tokens out.  Legacy, in the reference's
         sequential order: admit (one-shot batches run at once), advance
-        one prefill chunk, then one K-step decode dispatch."""
+        one prefill chunk, then one K-step decode dispatch.  First, on
+        either: new guide tables go to the device, and requests parked on a
+        guide compile move on (re-queued once it published, failed if it
+        failed)."""
+        self._ensure_guides_uploaded()
+        worked = bool(self._awaiting_guide) and \
+            self._service_awaiting_guides()
         if self._mixed:
             rec = None
             if self._slots or self._prefilling:
                 rec = self._issue_mixed()
-            worked = self._admit()
+            worked = self._admit() or worked
             if rec is not None:
                 self._resolve_mixed(rec)
                 worked = True
         else:
-            worked = self._admit()
+            worked = self._admit() or worked
             if self._prefilling:
                 self._process_chunk()
                 worked = True
@@ -489,12 +568,14 @@ class InferenceEngine:
         with self._abort_lock:
             if req.request_id in self._aborted:
                 self._aborted.discard(req.request_id)
+                self._unpin_guide(req)
                 req.outputs.put(RequestOutput(
                     request_id=req.request_id, token_ids=[], finished=True,
                     finish_reason="abort"))
                 return None
         ids = list(req.prompt_ids)
         if not ids or len(ids) > self.max_prompt_len:
+            self._unpin_guide(req)
             req.outputs.put(RequestOutput(
                 request_id=req.request_id, token_ids=[], finished=True,
                 finish_reason="error", error="context_length_exceeded",
@@ -502,6 +583,22 @@ class InferenceEngine:
             log.info("rejected %s: prompt of %d tokens (limit %d)",
                      req.request_id, len(ids), self.max_prompt_len)
             return None
+        if req.params.guide is not None:
+            # Park while the guide compiles; fail on a compile error; PIN
+            # the published guide for the request's life, so eviction
+            # cannot repack the rows its slot decodes against.
+            gate = self._gate_guide(req)
+            if gate == "park":
+                return None
+            if gate is not None:
+                req.outputs.put(RequestOutput(
+                    request_id=req.request_id, token_ids=[], finished=True,
+                    finish_reason="error",
+                    error=f"guide_compile_failed: {gate}",
+                    num_prompt_tokens=len(ids)))
+                log.info("rejected %s: guide compile failed: %s",
+                         req.request_id, gate)
+                return None
         if self._mixed or len(ids) > self._one_shot_limit():
             self._start_chunked(req, ids)
             return None
@@ -546,6 +643,7 @@ class InferenceEngine:
     def _purge_stale_aborts(self, consumed=()) -> None:
         live = {st.request.request_id for st in self._slots.values()}
         live |= {cs.request.request_id for cs in self._prefilling.values()}
+        live |= {req.request_id for req, _ in self._awaiting_guide}
         with self._abort_lock:
             self._aborted -= set(consumed)
             if not live and self._queue.empty():
@@ -553,7 +651,7 @@ class InferenceEngine:
 
     def _abort_prefill(self, slot: int) -> None:
         st = self._prefilling.pop(slot)
-        self._release_slot(slot)
+        self._release_slot(slot, st.request)
         st.request.outputs.put(RequestOutput(
             request_id=st.request.request_id, token_ids=[], finished=True,
             finish_reason="abort", num_prompt_tokens=len(st.ids)))
@@ -590,16 +688,209 @@ class InferenceEngine:
                 self._tables[slot, len(row): len(row) + len(new)] = new
                 row.extend(new)
 
-    def _set_slots(self, slots: list[int], params: list,
-                   keys: torch.Tensor) -> None:
-        """Write the slots' sampling rows: their request parameters and
-        their decode keys ``keys`` [M, 2]."""
+    def _set_slots(self, slots: list[int], params: list, keys: torch.Tensor,
+                   num_prompts: list[int], guide_rows: list[int]) -> None:
+        """Write the slots' sampling rows: their request parameters, their
+        decode keys ``keys`` [M, 2], and for requests that shape their
+        logits the penalty, bias, min_tokens and guide columns (the guide
+        row already advanced by the first token)."""
         temp = np.array([p.temperature for p in params], np.float32)
         top_p = np.array([p.top_p for p in params], np.float32)
         top_k = np.array([p.top_k for p in params], np.int32)
-        self._sampling = sampler_mod.set_slots(self._sampling, slots, temp,
-                                               top_p, top_k, keys)
-        self._slot_temp[slots] = temp
+        if not any(_shapes(p) for p in params):
+            self._sampling = sampler_mod.set_slots(
+                self._sampling, slots, temp, top_p, top_k, keys,
+                shaping=False)
+            return
+        c = self._shaping_cols(params, num_prompts)
+        self._sampling = sampler_mod.set_slots(
+            self._sampling, slots, temp, top_p, top_k, keys,
+            np.array([p.presence_penalty for p in params], np.float32),
+            np.array([p.frequency_penalty for p in params], np.float32),
+            c["bias_ids"], c["bias_vals"], c["suppress_ids"], c["min_until"],
+            c["guide"], np.asarray(guide_rows, np.int32))
+
+    # ------------------------------------------------------------------
+    # Request-level shaping: columns, logprobs, guides
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _lp_entry(clp, vals, lids, n: int):
+        """(chosen_logprob, [(token_id, logprob) x min(n, MAX)]) from one
+        lane's host copy of ``top_logprobs``."""
+        n = min(n, sampler_mod.TOP_LOGPROBS_MAX)
+        return (float(clp),
+                [(int(lids[i]), float(vals[i])) for i in range(n)])
+
+    def _shaping_cols(self, params: list, num_prompts=None) -> dict:
+        """Host-side shaping columns of M requests (a None entry gets the
+        identity row): bias_ids/bias_vals [M, NB], suppress_ids [M, NS],
+        min_first [M] (the first-token flag: min_tokens >= 1), min_until
+        [M] (the sequence length below which the decode loops suppress:
+        the token sampled at length L is generated token
+        L - num_prompt + 2; needs ``num_prompts``), guide and guide_row
+        [M] (the guide's id and start row)."""
+        m = len(params)
+        c = dict(
+            bias_ids=np.full((m, sampler_mod.LOGIT_BIAS_MAX), -1, np.int32),
+            bias_vals=np.zeros((m, sampler_mod.LOGIT_BIAS_MAX), np.float32),
+            suppress_ids=np.full((m, sampler_mod.SUPPRESS_MAX), -1, np.int32),
+            min_first=np.zeros((m,), np.int32),
+            min_until=np.zeros((m,), np.int32),
+            guide=np.full((m,), -1, np.int32),
+            guide_row=np.zeros((m,), np.int32))
+        for i, p in enumerate(params):
+            if p is None:
+                continue
+            if p.logit_bias or p.min_tokens:
+                c["bias_ids"][i], c["bias_vals"][i] = \
+                    sampler_mod.np_bias_cols(p, self.cfg.vocab_size)
+                c["suppress_ids"][i] = sampler_mod.np_suppress_col(
+                    self.min_tokens_suppress_ids(p))
+            if p.min_tokens > 0:
+                c["min_first"][i] = 1
+                if num_prompts is not None:
+                    c["min_until"][i] = num_prompts[i] + p.min_tokens - 1
+            c["guide"][i], c["guide_row"][i] = self._guide_cols(p)
+        return c
+
+    def _first_state(self, params: list, keys: torch.Tensor,
+                     gates: sampler_mod.Gates) -> sampler_mod.SamplingState:
+        """The transient state that samples M first tokens (rows of
+        ``params``, keys [M, 2]).  Columns no pass of ``gates`` reads are
+        left out (None)."""
+        dev = self.device
+        temp = torch.tensor([p.temperature for p in params],
+                            dtype=torch.float32, device=dev)
+        top_p = torch.tensor([p.top_p for p in params], dtype=torch.float32,
+                             device=dev)
+        top_k = torch.tensor([p.top_k for p in params], dtype=torch.int32,
+                             device=dev)
+        if not (gates.bias or gates.min_tokens or gates.guide):
+            return sampler_mod.SamplingState(temp, top_p, top_k, keys,
+                                             *([None] * 9))
+        c = self._shaping_cols(params)
+        return sampler_mod.transient_state_batch(
+            temp, top_p, top_k, keys, self.cfg.vocab_size, **{
+                k: torch.from_numpy(c[k]).to(dev) for k in (
+                    "bias_ids", "bias_vals", "suppress_ids", "min_first",
+                    "guide", "guide_row")})
+
+    def _ensure_guides_uploaded(self) -> None:
+        """Copy the compiler's tables to the device when its version bumped
+        (guides compile on other threads; only this copy runs here)."""
+        if self._guide_ver == self.guides.version:
+            return
+        cls_host, trans_host, ver = self.guides.snapshot()
+        self._guide_dev[0].copy_(torch.from_numpy(cls_host))
+        self._guide_dev[1].copy_(torch.from_numpy(trans_host))
+        self._guide_ver = ver
+
+    def _gate_guide(self, req: Request) -> str | None:
+        """Resolve a guided request's guide at admission: None = published
+        and PINNED (proceed), "park" = parked on the in-flight compile,
+        any other string = the compile's error.  Never blocks."""
+        if req.request_id in self._guide_pins:
+            return None
+        for _ in range(3):
+            got = self.guides.ensure(*req.params.guide)
+            if isinstance(got, Guide):
+                try:
+                    self._pin_guide(req)
+                    return None
+                except GuideError:
+                    # Evicted between publish and pin: re-kick and retry.
+                    continue
+            if got.event.is_set() and got.error is not None:
+                return got.error
+            self._awaiting_guide.append((req, got))
+            return "park"
+        return "guide evicted repeatedly during admission"
+
+    def _service_awaiting_guides(self) -> bool:
+        """Move the parked requests on: aborted ones end, failed compiles
+        end with an error, published guides send their requests back to
+        the admission queue.  Returns True when any moved."""
+        did = False
+        still: list = []
+        for req, ticket in self._awaiting_guide:
+            with self._abort_lock:
+                was_aborted = req.request_id in self._aborted
+                self._aborted.discard(req.request_id)
+            if was_aborted:
+                req.outputs.put(RequestOutput(
+                    request_id=req.request_id, token_ids=[], finished=True,
+                    finish_reason="abort",
+                    num_prompt_tokens=len(req.prompt_ids)))
+                did = True
+                continue
+            if not ticket.event.is_set():
+                still.append((req, ticket))
+                continue
+            did = True
+            if ticket.error is not None:
+                req.outputs.put(RequestOutput(
+                    request_id=req.request_id, token_ids=[], finished=True,
+                    finish_reason="error",
+                    error=f"guide_compile_failed: {ticket.error}",
+                    num_prompt_tokens=len(req.prompt_ids)))
+                log.info("rejected %s: guide compile failed: %s",
+                         req.request_id, ticket.error)
+                continue
+            self._requeue(req)
+        self._awaiting_guide = still
+        return did
+
+    def _requeue(self, req: Request) -> None:
+        with self._abort_lock:
+            self._queue_seq += 1
+            seq = self._queue_seq
+        self._queue.put((req.params.priority, seq, req))
+
+    def _requeue_awaiting_guide(self) -> None:
+        """Send every guide-parked request back to the admission queue,
+        where it re-ensures its guide: for a rebuild of the compiler (a
+        context switch or resize) that drops the tickets they wait on."""
+        for req, _ticket in self._awaiting_guide:
+            self._requeue(req)
+        self._awaiting_guide = []
+
+    def _abort_awaiting_guide(self) -> None:
+        """End every request parked on a guide compile (engine exit)."""
+        for req, _ in self._awaiting_guide:
+            req.outputs.put(RequestOutput(
+                request_id=req.request_id, token_ids=[], finished=True,
+                finish_reason="abort",
+                num_prompt_tokens=len(req.prompt_ids)))
+        self._awaiting_guide = []
+
+    def _pin_guide(self, req: Request) -> None:
+        """Refcount the request's guide (once per request): a pinned guide
+        is never evicted, so its absolute rows stay valid until the
+        request ends."""
+        if req.params.guide is None or req.request_id in self._guide_pins:
+            return
+        self.guides.acquire(*req.params.guide)
+        self._guide_pins[req.request_id] = req.params.guide
+
+    def _unpin_guide(self, req: Request) -> None:
+        """Release the request's pin (no-op when it holds none): on every
+        path that ends a request."""
+        key = self._guide_pins.pop(req.request_id, None)
+        if key is not None:
+            self.guides.release(*key)
+
+    def _guide_cols(self, p) -> tuple[int, int]:
+        """(guide_id, start_row) of a request's guide, (-1, 0) unguided.
+        Admission reaches here only after ``_gate_guide`` pinned the
+        guide, so a miss means the pin discipline broke."""
+        if p.guide is None:
+            return -1, 0
+        g = self.guides.lookup(*p.guide)
+        if g is None:
+            raise GuideError(f"guide {p.guide[0]}:{p.guide[1]!r} is not "
+                             "registered (evicted without a pin?)")
+        return g.guide_id, g.start_row
 
     # ------------------------------------------------------------------
     # Legacy scheduler: one-shot admission, chunks, K-step decode
@@ -631,41 +922,55 @@ class InferenceEngine:
         params = [req.params for req, _, _ in items]
         logits, ks, vs = tf.prefill(self.params, self.cfg, tokens, lengths)
         key_t = prng.key_tensor(keys, dev)
-        firsts = self._sample_first(logits, params, key_t)
+        firsts, first_lps, rows = self._sample_first(logits, params, key_t)
         if self._paged:
             tf.insert_pages_batch(self.cache, ks, vs, pages, n_pages)
         else:
             tf.insert_batch(self.cache, ks, vs, slots)
         del ks, vs
-        self._set_slots(slots, params, prng.fold_in(key_t, 1))
-        for (req, ids, _), slot, first in zip(items, slots, firsts):
+        self._set_slots(slots, params, prng.fold_in(key_t, 1),
+                        [len(ids) for _, ids, _ in items], rows)
+        for (req, ids, _), slot, first, first_lp in zip(items, slots, firsts,
+                                                        first_lps):
             with self._abort_lock:
                 aborted = req.request_id in self._aborted
                 self._aborted.discard(req.request_id)
             if aborted:
-                self._release_slot(slot)
+                self._release_slot(slot, req)
                 req.outputs.put(RequestOutput(
                     request_id=req.request_id, token_ids=[], finished=True,
                     finish_reason="abort", num_prompt_tokens=len(ids)))
                 continue
-            self._register_slot(req, slot, first, len(ids))
+            self._register_slot(req, slot, first, len(ids), first_lp)
 
     def _sample_first(self, logits: torch.Tensor, params: list,
-                      keys: torch.Tensor) -> list[int]:
+                      keys: torch.Tensor):
         """First tokens of prompts whose last logits are ``logits``
         [M, V], each drawn with its request's key (the reference's
-        transient sampling state); the keys are not carried."""
-        dev = self.device
-        temp = torch.tensor([p.temperature for p in params],
-                            dtype=torch.float32, device=dev)
-        top_p = torch.tensor([p.top_p for p in params], dtype=torch.float32,
-                             device=dev)
-        top_k = torch.tensor([p.top_k for p in params], dtype=torch.int32,
-                             device=dev)
-        sampled = any(p.temperature > 0 for p in params)
-        ids, _ = sampler_mod.sample(logits, temp, top_p, top_k,
-                                    keys if sampled else None)
-        return ids.cpu().tolist()
+        transient sampling state; the keys are not carried) and shaped by
+        its bias, min_tokens and guide.  Returns (ids, logprob entries —
+        None where not asked for —, the guide rows the tokens advance
+        to)."""
+        gates = _lane_gates(params)
+        if gates.guide:
+            self._ensure_guides_uploaded()
+        state = self._first_state(params, keys, gates)
+        ids, _ = sampler_mod.sample(
+            logits, state, guide_tables=self._guide_dev if gates.guide
+            else None, gates=gates)
+        want_lp = any(p.logprobs is not None for p in params)
+        lp = sampler_mod.top_logprobs(logits, ids) if want_lp else None
+        ids_h, lp_h = _to_host(ids, lp)
+        firsts = ids_h.tolist()
+        entries = [None if p.logprobs is None else
+                   self._lp_entry(lp_h[0][i], lp_h[1][i], lp_h[2][i],
+                                  p.logprobs)
+                   for i, p in enumerate(params)]
+        rows = []
+        for p, first in zip(params, firsts):
+            gid, row = self._guide_cols(p)
+            rows.append(self.guides.next_row(row, first) if gid >= 0 else 0)
+        return firsts, entries, rows
 
     def _process_chunk(self) -> None:
         """Advance the oldest prefilling prompt by one chunk; on its last
@@ -695,10 +1000,13 @@ class InferenceEngine:
         if st.pos < len(st.ids):
             return
         key = prng.key_tensor(st.key[None], dev)
-        first = self._sample_first(logits, [st.request.params], key)[0]
+        firsts, first_lps, rows = self._sample_first(
+            logits, [st.request.params], key)
         del self._prefilling[slot]
-        self._set_slots([slot], [st.request.params], prng.fold_in(key, 1))
-        self._register_slot(st.request, slot, first, len(st.ids))
+        self._set_slots([slot], [st.request.params], prng.fold_in(key, 1),
+                        [len(st.ids)], rows)
+        self._register_slot(st.request, slot, firsts[0], len(st.ids),
+                            first_lps[0])
 
     def _decode_dispatch(self) -> None:
         """ONE fused K-step decode dispatch over every slot, then the host
@@ -715,37 +1023,66 @@ class InferenceEngine:
         lengths = torch.from_numpy(self._lengths.copy()).to(dev)
         tables = torch.from_numpy(self._tables.copy()).to(dev) \
             if self._paged else None
-        sentinel = self._park_sentinel()
-        # Keys are read (and advance for active slots) only when a
-        # registered slot samples; a greedy slot's key is never used.
-        sampled = bool((self._slot_temp[snapshot] > 0).any())
-        st = self._sampling
-        toks = []
-        for _ in range(k_steps):
-            logits = tf.decode_step(self.params, self.cfg, self.cache, tokens,
-                                    lengths, tables)
-            tokens, keys = sampler_mod.sample(
-                logits, st.temperature, st.top_p, st.top_k,
-                st.key if sampled else None, lengths < sentinel)
-            if keys is not None:
-                st = st._replace(key=keys)
-            toks.append(tokens)
-            lengths = lengths + 1
-        self._sampling = st
+        params = [self._slots[s].request.params for s in snapshot]
+        ids, lp = self._decode_loop(tokens, lengths, tables, params)
         self.decode_dispatches += 1
         self.decode_steps += k_steps
-        cols = torch.stack(toks).T.cpu().tolist()      # the host sync point
+        ids_h, lp_h = _to_host(ids, lp)                # the host sync point
+        cols = ids_h.T.tolist()
         for slot in snapshot:
-            self._fanout_decode_tokens(slot, cols[slot])
+            rows = None
+            if lp_h is not None and \
+                    self._slots[slot].request.params.logprobs is not None:
+                rows = tuple(x[:, slot] for x in lp_h)
+            self._fanout_decode_tokens(slot, cols[slot], rows)
 
-    def _fanout_decode_tokens(self, slot: int, col: list[int]) -> None:
+    def _decode_loop(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                     tables: torch.Tensor | None, params: list):
+        """The device side of one legacy dispatch: K ``decode_step``s, each
+        sampling every slot, for registered requests ``params``.  Keys
+        advance (active slots only) when one of them samples; the counts,
+        shaping passes and logprobs run only when one asks for them.
+        Returns (ids [K, B], None | (chosen [K, B], top values and ids
+        [K, B, L]))."""
+        sentinel = self._park_sentinel()
+        gates = _lane_gates(params, params)
+        gtables = self._guide_dev if gates.guide else None
+        want_lp = any(p.logprobs is not None for p in params)
+        masked = gates.sampled or gates.penalties or gates.guide
+        st = self._sampling
+        toks, lps = [], []
+        for _ in range(self.ecfg.steps_per_dispatch):
+            active = lengths < sentinel if masked else None
+            if gates.penalties:
+                # Feed-time counting: every generated token is fed once.
+                st = sampler_mod.count_tokens(st, tokens, active)
+            logits = tf.decode_step(self.params, self.cfg, self.cache, tokens,
+                                    lengths, tables)
+            tokens, st = sampler_mod.sample(logits, st, active, lengths,
+                                            gtables, gates)
+            toks.append(tokens)
+            if want_lp:
+                lps.append(sampler_mod.top_logprobs(logits, tokens))
+            lengths = lengths + 1
+        self._sampling = st
+        lp = tuple(torch.stack(x) for x in zip(*lps)) if want_lp else None
+        return torch.stack(toks), lp
+
+    def _fanout_decode_tokens(self, slot: int, col: list[int],
+                              lp_rows=None) -> None:
         """Append a dispatch's K tokens (stopping at a stop token or the
-        max_tokens cutoff — the rest is overshoot no client sees), advance
-        the host mirrors, and finish or stream the delta."""
+        max_tokens cutoff — the rest is overshoot no client sees) with
+        their logprob entries (``lp_rows``: chosen [K], top values and ids
+        [K, L]), advance the host mirrors, and finish or stream the
+        delta."""
         st = self._slots[slot]
         finished = False
-        for tok in col:
+        for k, tok in enumerate(col):
             st.generated.append(tok)
+            if lp_rows is not None:
+                st.logprobs.append(self._lp_entry(
+                    lp_rows[0][k], lp_rows[1][k], lp_rows[2][k],
+                    st.request.params.logprobs))
             if (self._is_stop(st, tok)
                     or len(st.generated) >= st.request.params.max_tokens):
                 finished = True
@@ -759,10 +1096,12 @@ class InferenceEngine:
 
     def _emit_delta(self, st: _Slot) -> None:
         delta = st.generated[st.num_emitted:]
+        lp_delta = (st.logprobs[st.num_emitted:]
+                    if st.request.params.logprobs is not None else None)
         st.num_emitted = len(st.generated)
         st.request.outputs.put(RequestOutput(
             request_id=st.request.request_id, token_ids=delta,
-            num_prompt_tokens=st.num_prompt))
+            num_prompt_tokens=st.num_prompt, logprobs=lp_delta))
 
     # ------------------------------------------------------------------
     # Mixed scheduler
@@ -812,36 +1151,69 @@ class InferenceEngine:
         return completing, chunk_take, t
 
     def _lane_sampling(self, dec_slots: list[int], completing: list[int]):
-        """Per-lane sampling columns for the lanes that sample this step;
-        other lanes are greedy and unread.  Decoding lanes draw with their
-        slot key and carry it on; a completing lane draws its first token
-        with its chunk key (the reference's override columns).  Returns
-        (temperature, top_p, top_k, keys, active), with keys and active
-        None when no lane samples: no key is read then, so none advances."""
+        """The sampling state of the lanes that sample this step, with the
+        passes they need; other lanes are greedy and unread.  Decoding
+        lanes sample with their slot's row and carry its key on; a
+        completing lane draws its first token with its chunk key and the
+        reference's override columns: no penalties (its output is empty),
+        its bias, min_tokens and guide, and ``min_until`` shifted so that
+        ``lengths < min_until`` reads as its first-token flag.  Returns
+        (state, gates, active): ``active`` (the decode lanes) is None
+        unless keys, guide rows or counts advance."""
         n = self.ecfg.num_slots
         temp = np.zeros((n,), np.float32)
         top_p = np.ones((n,), np.float32)
         top_k = np.zeros((n,), np.int32)
-        lanes = [(s, self._slots[s].request.params) for s in dec_slots]
-        lanes += [(s, self._prefilling[s].request.params) for s in completing]
-        for slot, p in lanes:
+        dec = [self._slots[s].request.params for s in dec_slots]
+        comp = [self._prefilling[s].request.params for s in completing]
+        for slot, p in zip(dec_slots + completing, dec + comp):
             temp[slot] = p.temperature
             top_p[slot] = p.top_p
             top_k[slot] = p.top_k
         dev = self.device
-        cols = tuple(torch.from_numpy(x).to(dev) for x in (temp, top_p, top_k))
-        if not (temp > 0).any():
-            return (*cols, None, None)
-        override = np.zeros((n,), bool)
-        ov_keys = np.zeros((n, 2), np.uint32)
-        for slot in completing:
-            override[slot] = True
-            ov_keys[slot] = self._prefilling[slot].key
-        active = np.zeros((n,), bool)
-        active[dec_slots] = True
-        keys = torch.where(torch.from_numpy(override).to(dev)[:, None],
-                           prng.key_tensor(ov_keys, dev), self._sampling.key)
-        return (*cols, keys, torch.from_numpy(active).to(dev))
+        gates = _lane_gates(dec + comp, dec)
+        st = self._sampling._replace(**{
+            k: torch.from_numpy(x).to(dev)
+            for k, x in (("temperature", temp), ("top_p", top_p),
+                         ("top_k", top_k))})
+        active = None
+        if gates.sampled or gates.guide or gates.penalties:
+            act = np.zeros((n,), bool)
+            act[dec_slots] = True
+            active = torch.from_numpy(act).to(dev)
+        if not completing or gates == sampler_mod.OFF:
+            return st, gates, active
+        ov = np.zeros((n,), bool)
+        ov[completing] = True
+        ov_dev = torch.from_numpy(ov).to(dev)
+        if gates.sampled:
+            ov_keys = np.zeros((n, 2), np.uint32)
+            for slot in completing:
+                ov_keys[slot] = self._prefilling[slot].key
+            st = st._replace(key=torch.where(
+                ov_dev[:, None], prng.key_tensor(ov_keys, dev), st.key))
+        if gates.penalties:
+            st = st._replace(
+                presence=torch.where(ov_dev, 0.0, st.presence),
+                frequency=torch.where(ov_dev, 0.0, st.frequency))
+        if not (gates.bias or gates.min_tokens or gates.guide):
+            return st, gates, active
+        lane_params = [None] * n
+        for slot, p in zip(completing, comp):
+            lane_params[slot] = p
+        cols = self._shaping_cols(lane_params)
+        # lengths[slot] holds len(ids) while prefilling: len(ids) + 1 makes
+        # ``lengths < min_until`` read as the first-token flag.
+        cols["min_until"] = cols["min_first"] * (self._lengths + 1)
+        keep = [("bias_ids", gates.bias), ("bias_vals", gates.bias),
+                ("suppress_ids", gates.min_tokens),
+                ("min_until", gates.min_tokens), ("guide", gates.guide),
+                ("guide_row", gates.guide)]
+        st = st._replace(**{
+            k: torch.where(ov_dev[:, None] if cols[k].ndim == 2 else ov_dev,
+                           torch.from_numpy(cols[k]).to(dev), getattr(st, k))
+            for k, on in keep if on})
+        return st, gates, active
 
     def _issue_mixed(self):
         """Build and run ONE mixed dispatch: every decoding slot's next
@@ -850,6 +1222,7 @@ class InferenceEngine:
         self._abort_and_retire(2)
         if not self._slots and not self._prefilling:
             return None
+        self._ensure_guides_uploaded()
         self._grow_slot_pages(1)
         n = self.ecfg.num_slots
         t_budget = n + self._mixed_budget
@@ -886,35 +1259,78 @@ class InferenceEngine:
             d["token_slot"], d["token_pos"], d["sample_src"],
             d["seq_q_start"], d["seq_q_len"], d["seq_pos_start"], qmax=qmax,
             moe_grouped=self._moe_grouped)
-        ids_dev, keys = sampler_mod.sample(
-            logits, *self._lane_sampling(dec_slots, completing))
-        if keys is not None:
-            self._sampling = self._sampling._replace(key=keys)
+        ids_dev, lp = self._sample_mixed(logits, dec_slots, completing)
         self.dispatches += 1
         self.shared_dispatches += bool(dec_slots and chunk_take)
-        return dec_slots, completing, chunk_take, ids_dev
+        return dec_slots, completing, chunk_take, ids_dev, lp
+
+    def _sample_mixed(self, logits: torch.Tensor, dec_slots: list[int],
+                      completing: list[int]):
+        """Sample a mixed dispatch's lanes from its ``logits`` [B, V]: the
+        decode lanes' counts first (their fed tokens), then one ``sample``
+        over every lane, the logprobs when a lane asks.  Returns (ids [B],
+        None | (chosen [B], top values and ids [B, L]))."""
+        st, gates, active = self._lane_sampling(dec_slots, completing)
+        dev = self.device
+        lengths = None
+        if gates.penalties:
+            # In place: ``st`` shares the counts.
+            fed = torch.from_numpy(self._last_token.copy()).to(dev)
+            sampler_mod.count_tokens(self._sampling, fed, active)
+        if gates.min_tokens:
+            lengths = torch.from_numpy(self._lengths.copy()).to(dev)
+        ids, st = sampler_mod.sample(
+            logits, st, active, lengths,
+            self._guide_dev if gates.guide else None, gates)
+        # Only decode lanes' keys and guide rows move (``active``); a
+        # completing lane's row is written at its registration.
+        self._sampling = self._sampling._replace(key=st.key,
+                                                 guide_row=st.guide_row)
+        lanes = [self._slots[s].request.params for s in dec_slots] + \
+            [self._prefilling[s].request.params for s in completing]
+        lp = sampler_mod.top_logprobs(logits, ids) \
+            if any(p.logprobs is not None for p in lanes) else None
+        return ids, lp
 
     def _resolve_mixed(self, rec) -> None:
         """Host tail of a mixed dispatch: fan the decode tokens out,
         advance every prefilling sequence, promote completed prompts."""
-        dec_slots, completing, chunk_take, ids_dev = rec
-        ids = ids_dev.cpu().numpy()    # the host sync point
+        dec_slots, completing, chunk_take, ids_dev, lp = rec
+        ids, lp_h = _to_host(ids_dev, lp)    # the host sync point
+
+        def lp_of(slot, p):
+            if lp_h is None or p.logprobs is None:
+                return None
+            return self._lp_entry(lp_h[0][slot], lp_h[1][slot],
+                                  lp_h[2][slot], p.logprobs)
+
         for slot in dec_slots:
-            self._fanout_decode_tokens(slot, [int(ids[slot])])
+            rows = None
+            if lp_h is not None and \
+                    self._slots[slot].request.params.logprobs is not None:
+                rows = tuple(x[slot: slot + 1] for x in lp_h)
+            self._fanout_decode_tokens(slot, [int(ids[slot])], rows)
         for slot, take in chunk_take:
             self._prefilling[slot].pos += take
         for slot in completing:
             cs = self._prefilling.pop(slot)
+            p = cs.request.params
+            first = int(ids[slot])
+            gid, row = self._guide_cols(p)
             # The decode key stream is the chunk key folded with 1.
             key = prng.key_tensor(cs.key[None], self.device)
-            self._set_slots([slot], [cs.request.params], prng.fold_in(key, 1))
-            self._register_slot(cs.request, slot, int(ids[slot]),
-                                len(cs.ids))
+            self._set_slots([slot], [p], prng.fold_in(key, 1), [len(cs.ids)],
+                            [self.guides.next_row(row, first)
+                             if gid >= 0 else 0])
+            self._register_slot(cs.request, slot, first, len(cs.ids),
+                                lp_of(slot, p))
 
     def _register_slot(self, req: Request, slot: int, first: int,
-                       num_prompt: int) -> None:
+                       num_prompt: int, first_lp=None) -> None:
         st = _Slot(request=req, num_prompt=num_prompt)
         st.generated.append(first)
+        if first_lp is not None:
+            st.logprobs.append(first_lp)
         self._slots[slot] = st
         self._lengths[slot] = num_prompt
         self._last_token[slot] = first
@@ -924,7 +1340,8 @@ class InferenceEngine:
         st.num_emitted = 1
         req.outputs.put(RequestOutput(
             request_id=req.request_id, token_ids=[first],
-            num_prompt_tokens=num_prompt, ttft_s=ttft))
+            num_prompt_tokens=num_prompt, ttft_s=ttft,
+            logprobs=list(st.logprobs) if st.logprobs else None))
 
     # ------------------------------------------------------------------
     # Stop handling
@@ -952,11 +1369,19 @@ class InferenceEngine:
             return True
         return False
 
-    def _release_slot(self, slot: int) -> None:
-        """Free the slot.  A paged slot returns its pages and parks at the
-        write-drop sentinel (its dispatch rows must never land in pages
-        another slot may now own); a slot-cache slot keeps its length, as
-        in the reference — its rows land in its own stripe."""
+    def _release_slot(self, slot: int, req: Request) -> None:
+        """Free the slot of ``req``.  A paged slot returns its pages and
+        parks at the write-drop sentinel (its dispatch rows must never land
+        in pages another slot may now own); a slot-cache slot keeps its
+        length, as in the reference — its rows land in its own stripe.
+        The request's guide pin is released, and a request that shaped its
+        logits returns the slot's shaping columns to their identity
+        values, so that later batches without such requests skip the
+        passes."""
+        self._unpin_guide(req)
+        if _shapes(req.params):
+            self._sampling = sampler_mod.clear_slot_penalties(self._sampling,
+                                                              slot)
         if self._paged:
             pages = self._slot_pages.pop(slot, [])
             if pages:
@@ -966,15 +1391,18 @@ class InferenceEngine:
 
     def _finish(self, slot: int, reason: str) -> None:
         st = self._slots.pop(slot)
-        self._release_slot(slot)
+        self._release_slot(slot, st.request)
         gen = st.generated
         # The stop token itself is not part of the output.
         if reason == "stop" and gen and self._is_stop(st, gen[-1]):
             final_ids = gen[:-1]
         else:
             final_ids = gen[: st.request.params.max_tokens]
+        lp_delta = None
+        if st.request.params.logprobs is not None and st.logprobs:
+            lp_delta = st.logprobs[st.num_emitted: len(final_ids)]
         st.request.outputs.put(RequestOutput(
             request_id=st.request.request_id,
             token_ids=final_ids[st.num_emitted:], finished=True,
             finish_reason=reason, num_prompt_tokens=st.num_prompt,
-            num_generated_tokens=len(final_ids)))
+            num_generated_tokens=len(final_ids), logprobs=lp_delta))

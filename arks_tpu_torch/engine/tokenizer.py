@@ -3,8 +3,9 @@
 
 Real deployments load the HuggingFace tokenizer shipped with the model;
 tests and random-weight runs use ByteTokenizer, which needs no assets.
-Tool declarations in chat templates (``tools=``) arrive with the
-tool-calling slice and raise here.
+Tool declarations (``tools=``) render as the template's own tools section,
+or as a system turn of ``server/tools.tools_system_text`` where the
+template has none (always on ByteTokenizer).
 
 Each tokenizer provides ``make_stream_decoder()`` returning an object with
 ``push(ids) -> str`` / ``flush() -> str`` that emits text incrementally in
@@ -38,13 +39,6 @@ class Tokenizer(Protocol):
     def eos_token_ids(self) -> tuple[int, ...]: ...
 
 
-def _reject_tools(tools) -> None:
-    if tools:
-        raise NotImplementedError(
-            "tool declarations in chat templates arrive with the "
-            "tool-calling slice")
-
-
 # ---------------------------------------------------------------------------
 # Byte-level tokenizer (tests / no-asset rigs)
 # ---------------------------------------------------------------------------
@@ -73,8 +67,10 @@ class ByteTokenizer:
 
     def apply_chat_template(self, messages: list[dict],
                             tools: list | None = None) -> list[int]:
-        _reject_tools(tools)
         parts = []
+        if tools:
+            from arks_tpu_torch.server.tools import tools_system_text
+            parts.append(f"<system>{tools_system_text(tools)}</system>")
         for m in messages:
             body = m.get("content") or ""
             for tc in m.get("tool_calls") or ():
@@ -133,7 +129,22 @@ class HFTokenizer:
 
     def apply_chat_template(self, messages: list[dict],
                             tools: list | None = None) -> list[int]:
-        _reject_tools(tools)
+        if tools:
+            try:
+                # Modern templates (Qwen2.5, Llama-3.1, Hermes) render
+                # tools natively.
+                return self._tok.apply_chat_template(
+                    messages, tools=tools, add_generation_prompt=True)
+            except Exception as e:
+                # Template without tools support: declare them in a system
+                # message using the hermes convention the parser expects.
+                logging.getLogger("arks_tpu_torch.tokenizer").debug(
+                    "chat template has no tools section (%s); declaring "
+                    "them in a system turn", e)
+                from arks_tpu_torch.server.tools import tools_system_text
+                messages = ([{"role": "system",
+                              "content": tools_system_text(tools)}]
+                            + list(messages))
         return self._tok.apply_chat_template(messages, add_generation_prompt=True)
 
     def make_stream_decoder(self) -> StreamDecoder:

@@ -1,8 +1,7 @@
 """Request/response dataclasses for the serving engine (copy of
 ``arks_tpu/engine/types.py``).  ``SamplingParams`` keeps every field of the
-reference so one request means the same thing to both engines; the port's
-engine rejects the fields this slice does not serve (penalties, logit_bias,
-logprobs, min_tokens, guides).  ``Request`` drops the fields of features
+reference, and the port's engine serves each of them, so one request means
+the same thing to both engines.  ``Request`` drops the fields of features
 that are later slices (disaggregated prefill, model pool, tenancy, tracing,
 peer fetch)."""
 
@@ -67,3 +66,6 @@ class RequestOutput:
     # Machine-readable rejection code when finish_reason == "error"
     # (e.g. "context_length_exceeded" -> HTTP 400 at the server).
     error: str | None = None
+    # Per-token logprob entries for token_ids (when params.logprobs is
+    # not None): (chosen_logprob, [(token_id, logprob), ...]).
+    logprobs: list | None = None

@@ -1,20 +1,29 @@
-"""OpenAI-compatible HTTP surface for the port's engine (port of the main
-path of ``arks_tpu/server/openai_server.py``).
+"""OpenAI-compatible HTTP surface for the port's engine (port of the request
+surface of ``arks_tpu/server/openai_server.py``).
 
 - POST /v1/completions and /v1/chat/completions, streaming (SSE frames
   ``data: {...}`` ending with ``data: [DONE]``; with
   ``stream_options.include_usage`` the last data frame carries the usage
   and an empty choices list) and not, with usage and ``finish_reason``.
+- Every OpenAI sampling field: stop strings and ids, presence/frequency
+  penalties, ``logit_bias`` (clamped to ±100, at most 300 entries, ids in
+  the vocab), ``min_tokens``, ``logprobs`` (completions: an int; chat:
+  ``logprobs: true`` with ``top_logprobs``), ``seed``; guided decoding
+  (``response_format`` json_object / json_schema / regex, and the
+  ``guided_regex`` / ``guided_json`` / ``guided_choice`` extras); chat
+  ``tools`` with ``tool_choice`` (a forced call becomes a guide; calls in
+  the output come back as ``tool_calls``); ``n`` from 1 to 16 (seeded
+  children take ``seed + j``); batched prompts; completions ``echo``.
+  ``best_of`` is ignored.
 - GET /v1/models, /health.
 
 Stdlib ``ThreadingHTTPServer``, as in the reference: request threads hand
-work to the engine thread and read its output queue.  Request fields of
-later slices (penalties, logit_bias, logprobs, min_tokens, guides, tools,
-n > 1, batched prompts, echo) are answered with HTTP 400.
+work to the engine thread and read its output queue.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import threading
@@ -22,43 +31,43 @@ import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from arks_tpu_torch.engine.engine import InferenceEngine, unserved_params
+from arks_tpu_torch.engine import sampler as sampler_mod
+from arks_tpu_torch.engine.engine import InferenceEngine
 from arks_tpu_torch.engine.tokenizer import IncrementalDetokenizer
 from arks_tpu_torch.engine.types import Request, SamplingParams
+from arks_tpu_torch.server import tools as tools_mod
 
 log = logging.getLogger("arks_tpu_torch.server")
 
-# Body fields of features this slice does not serve -> their name.
-_UNSERVED_FIELDS = {"logprobs": "logprobs", "top_logprobs": "logprobs",
-                    "response_format": "guided decoding",
-                    "guided_regex": "guided decoding",
-                    "guided_json": "guided decoding",
-                    "guided_choice": "guided decoding", "tools": "tools",
-                    "echo": "echo", "best_of": "best_of"}
+
+def _find_stop(text: str, stop_strings: list[str], min_end: int = 0
+               ) -> int | None:
+    """Earliest index at which any stop string begins, else None.  A match
+    whose END falls at or before ``min_end`` is ignored: text before that
+    boundary was generated under min_tokens and is exempt from stopping,
+    but a stop straddling the boundary still counts."""
+    best = None
+    for s in stop_strings:
+        start = 0
+        while True:
+            i = text.find(s, start)
+            if i < 0:
+                break
+            if i + len(s) > min_end:
+                if best is None or i < best:
+                    best = i
+                break
+            start = i + 1
+    return best
 
 
-def _find_stop(text: str, stop_strings: list[str]) -> int | None:
-    """Earliest index at which any stop string begins, else None."""
-    hits = [i for i in (text.find(s) for s in stop_strings) if i >= 0]
-    return min(hits) if hits else None
-
-
-def sampling_from_body(body: dict, tokenizer) -> tuple[SamplingParams,
-                                                       list[str]]:
+def sampling_from_body(body: dict, tokenizer, engine=None
+                       ) -> tuple[SamplingParams, list[str]]:
     """Engine sampling params + the multi-token stop strings the server
-    matches on text.  Raises ValueError (HTTP 400) on bad or unserved
-    fields."""
-    for field, what in _UNSERVED_FIELDS.items():
-        val = body.get(field)
-        if val is None or val is False or (field == "tools" and val == []) \
-                or (field == "best_of" and val == 1):
-            continue
-        if (field == "response_format" and isinstance(val, dict)
-                and val.get("type", "text") == "text"):
-            continue
-        raise ValueError(f"{what} is not served by this server yet")
-    if int(body.get("n") or 1) != 1:
-        raise ValueError("n > 1 is not served by this server yet")
+    matches on text.  Raises ValueError (HTTP 400) on bad fields.  With
+    ``engine``, logit_bias ids are checked against the vocab, the
+    min_tokens suppress set against its column budget, and a guide's
+    pattern parsed (its DFA build runs later, off this thread)."""
     stop = body.get("stop") or []
     if isinstance(stop, str):
         stop = [stop]
@@ -68,8 +77,68 @@ def sampling_from_body(body: dict, tokenizer) -> tuple[SamplingParams,
         ids = tokenizer.encode(s)
         if len(ids) == 1:
             stop_ids.append(ids[0])
-        elif s:
+        else:
             stop_strings.append(s)
+    # logprobs: completions take an int (top-N alternatives per token,
+    # 0 = chosen only); chat takes logprobs=true + top_logprobs=N.  The
+    # engine param is None (off) / 0 (chosen only) / N (plus top-N).
+    lp = body.get("logprobs")
+    if lp is True:
+        n_lp = int(body.get("top_logprobs") or 0)
+    elif lp is None or lp is False:
+        n_lp = None
+    else:
+        n_lp = int(lp)
+    raw_bias = body.get("logit_bias") or {}
+    if not isinstance(raw_bias, dict):
+        raise ValueError("logit_bias must be an object of token_id -> bias")
+    if len(raw_bias) > sampler_mod.LOGIT_BIAS_MAX:
+        raise ValueError(f"logit_bias supports at most "
+                         f"{sampler_mod.LOGIT_BIAS_MAX} entries")
+    logit_bias = tuple((int(t), max(-100.0, min(100.0, float(b))))
+                       for t, b in raw_bias.items())
+    if engine is not None and logit_bias:
+        vocab = engine.cfg.vocab_size
+        bad = [t for t, _ in logit_bias if not 0 <= t < vocab]
+        if bad:
+            raise ValueError(
+                f"logit_bias token ids out of range [0, {vocab}): {bad[:5]}")
+    min_tokens = max(int(body.get("min_tokens", 0)), 0)
+    guide = None
+    rf = body.get("response_format")
+    if isinstance(rf, dict) and rf.get("type"):
+        rft = rf["type"]
+        if rft == "json_object":
+            guide = ("json", "")
+        elif rft == "regex" and rf.get("regex"):
+            guide = ("regex", str(rf["regex"]))
+        elif rft == "json_schema":
+            # {"type": "json_schema", "json_schema": {"name": ...,
+            # "schema": {...}}}, or a bare "schema" key.  The key keeps the
+            # body's own property order (declaration order is the
+            # contract).
+            wrapper = rf.get("json_schema")
+            schema = (wrapper.get("schema") if isinstance(wrapper, dict)
+                      else rf.get("schema"))
+            if not isinstance(schema, dict):
+                raise ValueError("response_format json_schema needs "
+                                 "json_schema.schema")
+            guide = ("json_schema", json.dumps(schema))
+        elif rft != "text":
+            raise ValueError(f"unknown response_format type {rft!r}")
+    if body.get("guided_regex"):
+        guide = ("regex", str(body["guided_regex"]))
+    if isinstance(body.get("guided_json"), dict):
+        guide = ("json_schema", json.dumps(body["guided_json"]))
+    if body.get("guided_choice") is not None:
+        choices = body["guided_choice"]
+        if (not isinstance(choices, list) or not choices
+                or any(not isinstance(c, str) for c in choices)):
+            raise ValueError(
+                "guided_choice must be a non-empty array of strings")
+        guide = ("choice", json.dumps(choices))
+    if guide is not None and engine is not None:
+        engine.guides.validate(*guide)
     params = SamplingParams(
         max_tokens=int(body.get("max_tokens")
                        or body.get("max_completion_tokens") or 256),
@@ -79,17 +148,20 @@ def sampling_from_body(body: dict, tokenizer) -> tuple[SamplingParams,
         seed=body.get("seed"),
         ignore_eos=bool(body.get("ignore_eos", False)),
         stop_token_ids=tuple(stop_ids),
-        presence_penalty=float(body.get("presence_penalty") or 0.0),
-        frequency_penalty=float(body.get("frequency_penalty") or 0.0),
-        logit_bias=tuple((int(t), float(b)) for t, b in
-                         (body.get("logit_bias") or {}).items()),
-        min_tokens=int(body.get("min_tokens") or 0),
-        priority=int(body.get("priority") or 0))
-    what = unserved_params(params)
-    if what is not None:
-        raise ValueError(f"{what} is not served by this server yet")
-    if params.max_tokens < 1:
-        raise ValueError("max_tokens must be >= 1")
+        presence_penalty=float(body.get("presence_penalty", 0.0)),
+        frequency_penalty=float(body.get("frequency_penalty", 0.0)),
+        logprobs=None if n_lp is None else min(
+            max(n_lp, 0), sampler_mod.TOP_LOGPROBS_MAX),
+        logit_bias=logit_bias,
+        min_tokens=min_tokens,
+        priority=int(body.get("priority") or 0),
+        guide=guide)
+    if engine is not None and min_tokens and len(
+            engine.min_tokens_suppress_ids(params)) > sampler_mod.SUPPRESS_MAX:
+        raise ValueError(
+            f"min_tokens supports at most {sampler_mod.SUPPRESS_MAX} "
+            "eos/stop token ids to suppress (silently dropping one could "
+            "end the stream before the minimum)")
     return params, stop_strings
 
 
@@ -123,12 +195,9 @@ class OpenAIServer:
                 self.end_headers()
                 self.wfile.write(data)
 
-            def _error(self, code: int, message: str,
-                       code_name: str | None = None) -> None:
-                self._json(code, {"error": {
-                    "message": message, "code": code_name,
-                    "type": ("invalid_request_error" if code < 500
-                             else "server_error")}})
+            def _error(self, code: int, message: str) -> None:
+                self._json(code, {"error": {"message": message,
+                                            "code": code}})
 
             def do_GET(self):
                 if self.path == "/v1/models":
@@ -151,8 +220,18 @@ class OpenAIServer:
                         raise ValueError("request body must be an object")
                 except ValueError as e:
                     return self._error(400, f"bad request body: {e}")
-                server.handle_completion(
-                    self, body, chat=self.path == "/v1/chat/completions")
+                try:
+                    server.handle_completion(
+                        self, body, chat=self.path == "/v1/chat/completions")
+                except BrokenPipeError:
+                    pass
+                except Exception as e:  # engine/request failure -> 500
+                    log.exception("request handler failure on %s",
+                                  self.path)
+                    try:
+                        self._error(500, f"internal error: {e}")
+                    except OSError:
+                        pass  # the client hung up first
 
         self._httpd = ThreadingHTTPServer((self.host, self.port), Handler)
         self._httpd.daemon_threads = True
@@ -173,108 +252,359 @@ class OpenAIServer:
 
     # ------------------------------------------------------------------
 
-    def _prompt_ids(self, body: dict, chat: bool) -> list[int]:
+    def _prompt_ids_batch(self, body: dict, chat: bool,
+                          tools: list | None = None) -> list[list[int]]:
+        """One id-list per prompt.  Chat is always one prompt; completions
+        take a string, a token-id list, or a list of strings (the batch
+        form: one choice per prompt)."""
         tok = self.engine.tokenizer
         if chat:
-            messages = body.get("messages")
+            messages = body.get("messages") or []
             if not isinstance(messages, list) or not messages:
                 raise ValueError("messages must be a non-empty list")
-            return tok.apply_chat_template(messages)
+            return [tok.apply_chat_template(messages, tools=tools)]
         prompt = body.get("prompt", "")
-        if isinstance(prompt, list) and prompt and all(
-                isinstance(p, int) for p in prompt):
-            ids = [int(t) for t in prompt]
-        elif isinstance(prompt, list):
-            if len(prompt) != 1 or not isinstance(prompt[0], str):
-                raise ValueError("batched prompts are not served by this "
-                                 "server yet")
-            ids = tok.encode(prompt[0])
+        if isinstance(prompt, list):
+            if all(isinstance(p, int) for p in prompt) and prompt:
+                batch = [[int(t) for t in prompt]]
+            elif all(isinstance(p, str) for p in prompt) and prompt:
+                batch = [tok.encode(p) for p in prompt]
+            else:
+                raise ValueError(
+                    "prompt list must be all strings or all token ids")
         else:
-            ids = tok.encode(str(prompt))
-        if not ids:
-            raise ValueError("prompt must not be empty")
-        return ids
+            batch = [tok.encode(str(prompt))]
+        for ids in batch:
+            if not ids:
+                raise ValueError("prompt must not be empty")
+        return batch
 
     def handle_completion(self, h, body: dict, chat: bool) -> None:
         model = body.get("model") or self.served_model_name
         if model != self.served_model_name:
             return h._error(404, f"model {model!r} not found")
         try:
-            ids = self._prompt_ids(body, chat)
-            params, stop_strings = sampling_from_body(body,
-                                                      self.engine.tokenizer)
-        except (ValueError, NotImplementedError) as e:
+            tools, tool_choice = (tools_mod.validate_tools(body) if chat
+                                  else (None, "none"))
+            tools_on = bool(tools) and tool_choice != "none"
+            batch = self._prompt_ids_batch(body, chat,
+                                           tools=tools if tools_on else None)
+            params, stop_strings = sampling_from_body(
+                body, self.engine.tokenizer, self.engine)
+            tools_ctx = None
+            if tools_on:
+                tools_ctx = tools_mod.tool_parser()
+                forced = tools_mod.forced_call_guide(tools, tool_choice)
+                if forced is not None:
+                    if params.guide is not None:
+                        raise ValueError(
+                            "tool_choice required/named cannot combine "
+                            "with response_format/guided_regex")
+                    self.engine.guides.validate(*forced)
+                    params = dataclasses.replace(params, guide=forced)
+            # OpenAI n: independent samples per prompt (choices are
+            # prompt-major); seeded requests take child seeds seed + j.
+            n = body.get("n", 1)
+            if n is None:
+                n = 1
+            if isinstance(n, bool) or not isinstance(n, int):
+                raise ValueError("n must be an integer")
+            if not 1 <= n <= 16:
+                raise ValueError("n must be between 1 and 16")
+        except ValueError as e:
             return h._error(400, str(e))
-        limit = self.engine.max_prompt_len
-        if len(ids) > limit:
+        stream = bool(body.get("stream", False))
+        if stream and (len(batch) > 1 or n > 1):
             return h._error(
-                400, f"This model's maximum context length is {limit} "
-                f"tokens, but your prompt has {len(ids)} tokens.",
-                "context_length_exceeded")
-        req = Request(request_id=f"req-{uuid.uuid4().hex[:16]}",
-                      prompt_ids=ids, params=params)
-        self.engine.add_request(req)
-        if body.get("stream"):
+                400, "streaming is not supported for batched prompts or n > 1")
+        echo = bool(body.get("echo", False))
+        if echo and chat:
+            return h._error(400, "echo is a completions-only parameter")
+        if echo and stream:
+            return h._error(400, "echo is not supported with streaming")
+        # Oversized prompts are refused before queueing (never truncated).
+        limit = self.engine.max_prompt_len
+        for prompt_ids in batch:
+            if len(prompt_ids) > limit:
+                return self._context_length_error(h, len(prompt_ids), limit)
+        reqs = []
+        for prompt_ids in batch:
+            for j in range(n):
+                p = params
+                if n > 1 and params.seed is not None:
+                    p = dataclasses.replace(params, seed=params.seed + j)
+                req = Request(request_id=f"req-{uuid.uuid4().hex[:16]}",
+                              prompt_ids=list(prompt_ids), params=p)
+                self.engine.add_request(req)
+                reqs.append(req)
+        if len(reqs) > 1:
+            self._batch_response(h, reqs, model, stop_strings, chat=chat,
+                                 echo=echo, tools_ctx=tools_ctx)
+        else:
+            self._respond(h, reqs[0], chat, model, body, stop_strings,
+                          echo=echo, tools_ctx=tools_ctx)
+
+    def _context_length_error(self, h, got: int, limit: int) -> None:
+        h._json(400, {"error": {
+            "message": (f"This model's maximum context length is {limit} "
+                        f"tokens, but your prompt has {got} tokens."),
+            "type": "invalid_request_error",
+            "code": "context_length_exceeded"}})
+
+    def _request_error(self, h, fin) -> None:
+        """Map a finish_reason="error" output to HTTP: client-caused
+        rejections (context length, a guide that failed to compile) are
+        400s, an engine fault a 500."""
+        if fin.error == "context_length_exceeded":
+            return self._context_length_error(
+                h, fin.num_prompt_tokens, self.engine.max_prompt_len)
+        if fin.error and fin.error.startswith("engine_fault"):
+            return h._json(500, {"error": {
+                "message": ("The server had an error while processing "
+                            f"your request ({fin.error})."),
+                "type": "server_error", "code": "engine_fault"}})
+        return h._error(400, fin.error or "request rejected")
+
+    def _respond(self, h, req: Request, chat: bool, model: str, body: dict,
+                 stop_strings: list[str], echo: bool = False,
+                 tools_ctx: str | None = None) -> None:
+        if bool(body.get("stream", False)):
+            # Peek the first output before committing to SSE: an admission
+            # rejection maps to a clean HTTP error, not an event stream.
+            first = req.outputs.get()
+            if first.finished and first.finish_reason == "error":
+                return self._request_error(h, first)
             include_usage = bool(
                 (body.get("stream_options") or {}).get("include_usage"))
+            if tools_ctx is not None and chat:
+                return self._stream_tools_response(
+                    h, req, model, include_usage, stop_strings, tools_ctx,
+                    first_out=first)
             self._stream_response(h, req, chat, model, include_usage,
-                                  stop_strings)
+                                  stop_strings, first_out=first)
         else:
-            self._full_response(h, req, chat, model, stop_strings)
+            self._full_response(h, req, chat, model, stop_strings, echo=echo,
+                                tools_ctx=tools_ctx)
 
-    @staticmethod
-    def _engine_error(h, out) -> None:
-        if out.error == "context_length_exceeded":
-            return h._error(400, "prompt exceeds the context length",
-                            out.error)
-        return h._error(500, out.error or "engine error", "engine_fault")
+    # ------------------------------------------------------------------
 
-    def _full_response(self, h, req: Request, chat: bool, model: str,
-                       stop_strings: list[str]) -> None:
+    def _collect_text(self, req: Request, stop_strings: list[str]):
+        """Drain a request, cutting at stop strings (min_tokens exempts the
+        text generated below the minimum).  Returns (text, finish_reason,
+        final output, token_ids, logprob entries, per-token text
+        pieces)."""
         detok = IncrementalDetokenizer(self.engine.tokenizer)
+        # Per-token pieces from the SAME incremental stream keep stop cuts
+        # and text_offset aligned; only paid when logprobs are on.
+        track = req.params.logprobs is not None
         text = ""
+        tokens: list[int] = []
+        lps: list = []
+        pieces: list[str] = []
+        min_tok = int(req.params.min_tokens or 0)
+        exempt = 0
         while True:
             out = req.outputs.get()
-            text += detok.push(out.token_ids)
+            start_len = len(tokens)
+            if track:
+                for j, t in enumerate(out.token_ids):
+                    piece = detok.push([t])
+                    text += piece
+                    pieces.append(piece)
+                    if stop_strings and start_len + j + 1 < min_tok:
+                        exempt = len(text)
+            elif stop_strings and start_len < min_tok:
+                for j, t in enumerate(out.token_ids):
+                    text += detok.push([t])
+                    if start_len + j + 1 < min_tok:
+                        exempt = len(text)
+            else:
+                text += detok.push(out.token_ids)
+            tokens.extend(out.token_ids)
+            if out.logprobs:
+                lps.extend(out.logprobs)
             if out.finished:
-                text += detok.flush()
-            cut = _find_stop(text, stop_strings) if stop_strings else None
-            if cut is not None:
-                text = text[:cut]
-                if not out.finished:
-                    self.engine.abort(req.request_id)
-                    while not out.finished:
-                        out = req.outputs.get()
-                reason = "stop"
-                break
+                tail = detok.flush()
+                text += tail
+                if track and pieces and tail:
+                    pieces[-1] += tail
+            if stop_strings and len(tokens) >= min_tok:
+                cut = _find_stop(text, stop_strings, min_end=exempt)
+                if cut is not None:
+                    text = text[:cut]
+                    if not out.finished:
+                        self.engine.abort(req.request_id)
+                        while not out.finished:
+                            out = req.outputs.get()
+                    tokens, lps, pieces = self._trim_to_text(
+                        tokens, lps, pieces, cut)
+                    return text, "stop", out, tokens, lps, pieces
             if out.finished:
-                reason = out.finish_reason
+                return text, out.finish_reason, out, tokens, lps, pieces
+
+    def _trim_to_text(self, tokens: list[int], lps: list, pieces: list[str],
+                      cut: int):
+        """Keep the longest token prefix whose streamed text fits in
+        ``cut`` characters (a token straddling the cut is dropped)."""
+        if not pieces and tokens:
+            tok = self.engine.tokenizer
+            pieces = (tok.decode([t]) for t in tokens)
+        keep, acc, kept = 0, 0, []
+        for piece in pieces:
+            if acc + len(piece) > cut:
                 break
-        if reason == "error":
-            return self._engine_error(h, out)
-        usage = {"prompt_tokens": out.num_prompt_tokens,
-                 "completion_tokens": out.num_generated_tokens,
-                 "total_tokens": out.num_prompt_tokens
-                 + out.num_generated_tokens}
+            acc += len(piece)
+            keep += 1
+            kept.append(piece)
+        return tokens[:keep], lps[:keep], kept
+
+    def _lp_completions_obj(self, token_ids: list[int], lps: list,
+                            top_n: int, pieces: list[str] | None = None,
+                            offset_base: int = 0) -> dict:
+        """Completions logprobs object (tokens / token_logprobs /
+        top_logprobs / text_offset); alternatives decode in isolation,
+        ``offset_base`` shifts text_offset past echoed prompt text."""
+        tok = self.engine.tokenizer
+        tokens, token_lps, tops, offsets = [], [], [], []
+        off = offset_base
+        for i, (tid, (clp, top)) in enumerate(zip(token_ids, lps)):
+            s = pieces[i] if pieces is not None and i < len(pieces) \
+                else tok.decode([tid])
+            tokens.append(s)
+            token_lps.append(clp)
+            tops.append({tok.decode([j]): v for j, v in top[:top_n]})
+            offsets.append(off)
+            off += len(s)
+        return {"tokens": tokens, "token_logprobs": token_lps,
+                "top_logprobs": tops, "text_offset": offsets}
+
+    def _lp_chat_content(self, token_ids: list[int], lps: list, top_n: int,
+                         pieces: list[str] | None = None) -> list[dict]:
+        """Chat logprobs.content entries ({token, logprob, bytes,
+        top_logprobs})."""
+        tok = self.engine.tokenizer
+
+        def entry(text: str, lp_val: float) -> dict:
+            return {"token": text, "logprob": lp_val,
+                    "bytes": list(text.encode("utf-8", "surrogatepass"))}
+
+        out = []
+        for i, (tid, (clp, top)) in enumerate(zip(token_ids, lps)):
+            s = pieces[i] if pieces is not None and i < len(pieces) \
+                else tok.decode([tid])
+            e = entry(s, clp)
+            e["top_logprobs"] = [entry(tok.decode([j]), v)
+                                 for j, v in top[:top_n]]
+            out.append(e)
+        return out
+
+    def _batch_response(self, h, reqs: list[Request], model: str,
+                        stop_strings: list[str], chat: bool = False,
+                        echo: bool = False,
+                        tools_ctx: str | None = None) -> None:
+        """Multi-choice responses: batched prompts and/or n > 1 (one
+        engine request per choice, prompt-major indexes)."""
+        choices, usage = [], {"prompt_tokens": 0, "completion_tokens": 0,
+                              "total_tokens": 0}
+        echo_cache: dict = {}
+        for i, req in enumerate(reqs):
+            text, finish_reason, fin, toks, lps, pieces = self._collect_text(
+                req, stop_strings)
+            if finish_reason == "error":
+                # One rejected choice fails the whole batch; release the
+                # siblings' slots.
+                for r in reqs:
+                    self.engine.abort(r.request_id)
+                return self._request_error(h, fin)
+            if chat:
+                message, finish_reason = self._chat_message(
+                    text, finish_reason, tools_ctx)
+                choice = {"index": i, "message": message,
+                          "finish_reason": finish_reason}
+                if req.params.logprobs is not None and lps:
+                    choice["logprobs"] = {"content": self._lp_chat_content(
+                        toks, lps, req.params.logprobs, pieces)}
+            else:
+                prefix = ""
+                if echo:
+                    key = tuple(req.prompt_ids)
+                    if key not in echo_cache:  # n children share a prompt
+                        echo_cache[key] = self.engine.tokenizer.decode(
+                            req.prompt_ids)
+                    prefix = echo_cache[key]
+                    text = prefix + text
+                choice = {"index": i, "text": text,
+                          "finish_reason": finish_reason}
+                if req.params.logprobs is not None and lps:
+                    choice["logprobs"] = self._lp_completions_obj(
+                        toks, lps, req.params.logprobs, pieces,
+                        offset_base=len(prefix))
+            choices.append(choice)
+            usage["prompt_tokens"] += fin.num_prompt_tokens
+            usage["completion_tokens"] += fin.num_generated_tokens
+        usage["total_tokens"] = (usage["prompt_tokens"]
+                                 + usage["completion_tokens"])
+        h._json(200, {
+            "id": reqs[0].request_id,
+            "object": "chat.completion" if chat else "text_completion",
+            "created": int(time.time()), "model": model,
+            "choices": choices, "usage": usage})
+
+    def _chat_message(self, text: str, finish_reason: str,
+                      tools_ctx: str | None) -> tuple[dict, str]:
+        """Assistant message (+ effective finish_reason): with active
+        tools the text is parsed for calls; a call turns "stop" into
+        "tool_calls" (never a truncation: clients must see length
+        limits)."""
+        if tools_ctx is not None:
+            content, calls = tools_mod.parse_tool_calls(text, tools_ctx)
+            if calls:
+                msg = {"role": "assistant", "content": content,
+                       "tool_calls": calls}
+                fr = ("tool_calls" if finish_reason == "stop"
+                      else finish_reason)
+                return msg, fr
+        return {"role": "assistant", "content": text}, finish_reason
+
+    def _full_response(self, h, req: Request, chat: bool, model: str,
+                       stop_strings: list[str], echo: bool = False,
+                       tools_ctx: str | None = None) -> None:
+        text, finish_reason, fin, toks, lps, pieces = self._collect_text(
+            req, stop_strings)
+        echo_prefix = ""
+        if echo and not chat:
+            echo_prefix = self.engine.tokenizer.decode(req.prompt_ids)
+            text = echo_prefix + text
+        if finish_reason == "error":
+            return self._request_error(h, fin)
+        usage = {
+            "prompt_tokens": fin.num_prompt_tokens,
+            "completion_tokens": fin.num_generated_tokens,
+            "total_tokens": fin.num_prompt_tokens + fin.num_generated_tokens}
+        n_lp = req.params.logprobs
         if chat:
-            choice = {"index": 0, "finish_reason": reason,
-                      "message": {"role": "assistant", "content": text}}
+            message, finish_reason = self._chat_message(text, finish_reason,
+                                                        tools_ctx)
+            choice = {"index": 0, "message": message,
+                      "finish_reason": finish_reason}
+            if n_lp is not None and lps:
+                choice["logprobs"] = {
+                    "content": self._lp_chat_content(toks, lps, n_lp, pieces)}
         else:
-            choice = {"index": 0, "text": text, "finish_reason": reason}
+            choice = {"index": 0, "text": text,
+                      "finish_reason": finish_reason}
+            if n_lp is not None and lps:
+                choice["logprobs"] = self._lp_completions_obj(
+                    toks, lps, n_lp, pieces, offset_base=len(echo_prefix))
         h._json(200, {
             "id": req.request_id,
             "object": "chat.completion" if chat else "text_completion",
             "created": int(time.time()), "model": model,
             "choices": [choice], "usage": usage})
 
-    def _stream_response(self, h, req: Request, chat: bool, model: str,
-                         include_usage: bool,
-                         stop_strings: list[str]) -> None:
-        # Peek the first output before committing to SSE: an admission
-        # rejection maps to a clean HTTP error, not an event stream.
-        first = req.outputs.get()
-        if first.finished and first.finish_reason == "error":
-            return self._engine_error(h, first)
+    @staticmethod
+    def _sse_start(h):
+        """Send the SSE headers; returns the frame writer."""
         h.send_response(200)
         h.send_header("Content-Type", "text/event-stream")
         h.send_header("Cache-Control", "no-cache")
@@ -282,72 +612,284 @@ class OpenAIServer:
         h.send_header("Connection", "close")
         h.end_headers()
         h.close_connection = True
-        rid, created = req.request_id, int(time.time())
-        obj = "chat.completion.chunk" if chat else "text_completion"
 
-        def send(payload) -> None:
-            data = b"data: " + (payload if isinstance(payload, bytes)
-                                else json.dumps(payload).encode()) + b"\n\n"
+        def send_frame(obj) -> None:
+            data = b"data: " + (obj if isinstance(obj, bytes)
+                                else json.dumps(obj).encode()) + b"\n\n"
             h.wfile.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")
             h.wfile.flush()
 
-        def frame(text: str | None, finish: str | None = None,
-                  role: str | None = None) -> dict:
-            if chat:
-                delta = {}
-                if role:
-                    delta["role"] = role
-                if text:
-                    delta["content"] = text
-                choice = {"index": 0, "delta": delta, "finish_reason": finish}
-            else:
-                choice = {"index": 0, "text": text or "",
-                          "finish_reason": finish}
-            return {"id": rid, "object": obj, "created": created,
-                    "model": model, "choices": [choice]}
+        return send_frame
+
+    @staticmethod
+    def _sse_end(h, send_frame) -> None:
+        send_frame(b"[DONE]")
+        h.wfile.write(b"0\r\n\r\n")
+        h.wfile.flush()
+
+    def _stream_tools_response(self, h, req: Request, model: str,
+                               include_usage: bool, stop_strings: list[str],
+                               parser: str, first_out=None) -> None:
+        """Chat streaming with active tools: content streams until a
+        tool-call marker appears; from there the text buffers and leaves
+        as ``delta.tool_calls`` when the stream ends (each call's
+        arguments in one delta).  Stop strings apply over the full text,
+        as on the non-stream path (the stream buffers fully when any are
+        set), min_tokens exemption included."""
+        send_frame = self._sse_start(h)
+        rid = req.request_id
+        created = int(time.time())
+
+        def chunk(delta: dict | None, finish: str | None = None,
+                  usage: dict | None = None,
+                  empty_choices: bool = False) -> dict:
+            choices = [] if empty_choices else [
+                {"index": 0, "delta": delta or {}, "finish_reason": finish}]
+            payload = {"id": rid, "object": "chat.completion.chunk",
+                       "created": created, "model": model,
+                       "choices": choices}
+            if usage is not None:
+                payload["usage"] = usage
+            return payload
 
         detok = IncrementalDetokenizer(self.engine.tokenizer)
-        # Hold back enough tail to catch a stop string across two deltas.
-        hold = max((len(s) for s in stop_strings), default=1) - 1
+        text = ""
+        emitted = 0
+        buffering = bool(stop_strings)
+        hold = len(tools_mod.TOOL_OPEN) - 1
+        fin = None
+        min_tok = int(req.params.min_tokens or 0)
+        ntok = 0
+        exempt = 0
+        try:
+            send_frame(chunk({"role": "assistant"}))
+            while True:
+                out = first_out if first_out is not None \
+                    else req.outputs.get()
+                first_out = None
+                prev_ntok = ntok
+                ntok += len(out.token_ids)
+                if stop_strings and prev_ntok < min_tok:
+                    for j, t in enumerate(out.token_ids):
+                        text += detok.push([t])
+                        if prev_ntok + j + 1 < min_tok:
+                            exempt = len(text)
+                else:
+                    text += detok.push(out.token_ids)
+                if out.finished:
+                    text += detok.flush()
+                    fin = out
+                if not buffering:
+                    m = text.find(tools_mod.TOOL_OPEN)
+                    if m >= 0:
+                        if m > emitted:
+                            send_frame(chunk({"content": text[emitted:m]}))
+                            emitted = m
+                        buffering = True
+                    elif (parser in ("auto", "llama3")
+                          and text.lstrip()[:1] == "{"):
+                        buffering = True  # llama3: the message is a call
+                    elif not out.finished:
+                        # Hold back a window so a straddling marker is not
+                        # half-emitted as content.
+                        safe = len(text) - hold
+                        if safe > emitted:
+                            send_frame(chunk({"content": text[emitted:safe]}))
+                            emitted = safe
+                if out.finished:
+                    break
+            finish = fin.finish_reason
+            if stop_strings and ntok >= min_tok:
+                cut = _find_stop(text, stop_strings, min_end=exempt)
+                if cut is not None:
+                    text = text[:cut]
+                    finish = "stop"
+            content, calls = tools_mod.parse_tool_calls(text, parser)
+            if calls:
+                # Leftover content in RAW coordinates: outside the call
+                # spans and past what was already streamed.
+                pos = emitted
+                rest_parts = []
+                for s, e in tools_mod.call_spans(text, parser):
+                    if s > pos:
+                        rest_parts.append(text[pos:s])
+                    pos = max(pos, e)
+                if pos < len(text):
+                    rest_parts.append(text[pos:])
+                rest = "".join(rest_parts)
+                if rest:
+                    send_frame(chunk({"content": rest}))
+                for idx, call in enumerate(calls):
+                    send_frame(chunk({"tool_calls": [{
+                        "index": idx, "id": call["id"], "type": "function",
+                        "function": dict(call["function"])}]}))
+                if finish == "stop":
+                    finish = "tool_calls"
+            elif len(text) > emitted:
+                send_frame(chunk({"content": text[emitted:]}))
+            send_frame(chunk(None, finish=finish))
+            if include_usage:
+                send_frame(chunk(None, usage={
+                    "prompt_tokens": fin.num_prompt_tokens,
+                    "completion_tokens": fin.num_generated_tokens,
+                    "total_tokens": (fin.num_prompt_tokens
+                                     + fin.num_generated_tokens)},
+                    empty_choices=True))
+            self._sse_end(h, send_frame)
+        except (BrokenPipeError, ConnectionResetError):
+            self.engine.abort(req.request_id)
+
+    def _stream_response(self, h, req: Request, chat: bool, model: str,
+                         include_usage: bool, stop_strings: list[str],
+                         first_out=None) -> None:
+        send_frame = self._sse_start(h)
+        rid = req.request_id
+        created = int(time.time())
+        obj = "chat.completion.chunk" if chat else "text_completion"
+        n_lp = req.params.logprobs
+        # Logprob entries flush with the frames that carry their text,
+        # never ahead of it: entries in the stop-string hold-back tail
+        # wait (a later cut may drop them), so the streamed entries equal
+        # the non-stream response's.
+        pend_lp_toks: list[int] = []
+        pend_lps: list = []
+        pend_pieces: list[str] = []
+        lp_flush_n: list[int | None] = [None]
+
+        def lp_within(pending_text: str, boundary: int) -> int:
+            """How many pending entries' text ends within the first
+            ``boundary`` chars of ``pending_text``."""
+            acc = len(pending_text) - sum(len(p) for p in pend_pieces)
+            keep = 0
+            for p in pend_pieces:
+                if acc + len(p) > boundary:
+                    break
+                acc += len(p)
+                keep += 1
+            return keep
+
+        def take_lp():
+            if n_lp is None or not pend_lps:
+                return None
+            n = lp_flush_n[0]
+            n = len(pend_lps) if n is None else min(n, len(pend_lps))
+            if n <= 0:
+                return None
+            toks_, lps_, pieces_ = (pend_lp_toks[:n], pend_lps[:n],
+                                    pend_pieces[:n])
+            del pend_lp_toks[:n]
+            del pend_lps[:n]
+            del pend_pieces[:n]
+            if chat:
+                return {"content": self._lp_chat_content(
+                    toks_, lps_, n_lp, pieces_)}
+            return self._lp_completions_obj(toks_, lps_, n_lp, pieces_)
+
+        def chunk(delta_text: str | None, finish: str | None = None,
+                  role: str | None = None, usage: dict | None = None,
+                  empty_choices: bool = False) -> dict:
+            if empty_choices:
+                choices = []
+            elif chat:
+                delta: dict = {}
+                if role:
+                    delta["role"] = role
+                if delta_text:
+                    delta["content"] = delta_text
+                choices = [{"index": 0, "delta": delta,
+                            "finish_reason": finish}]
+            else:
+                choices = [{"index": 0, "text": delta_text or "",
+                            "finish_reason": finish}]
+            if choices and (delta_text or finish):
+                lp_obj = take_lp()
+                if lp_obj is not None:
+                    choices[0]["logprobs"] = lp_obj
+            payload = {"id": rid, "object": obj, "created": created,
+                       "model": model, "choices": choices}
+            if usage is not None:
+                payload["usage"] = usage
+            return payload
+
+        detok = IncrementalDetokenizer(self.engine.tokenizer)
+        fin = None
+        # Text not yet emitted; held back enough to catch a stop string
+        # across two deltas.
         pending = ""
-        out = first
+        hold = max((len(s) for s in stop_strings), default=1) - 1
+        min_tok = int(req.params.min_tokens or 0)
+        ntok = 0
+        exempt = 0
         try:
             if chat:
-                send(frame(None, role="assistant"))
+                send_frame(chunk(None, role="assistant"))
             while True:
-                pending += detok.push(out.token_ids)
+                out = first_out if first_out is not None \
+                    else req.outputs.get()
+                first_out = None
+                prev_ntok = ntok
+                ntok += len(out.token_ids)
+                if n_lp is not None:
+                    for j, t in enumerate(out.token_ids):
+                        piece = detok.push([t])
+                        pending += piece
+                        if out.logprobs:
+                            pend_pieces.append(piece)
+                        if stop_strings and prev_ntok + j + 1 < min_tok:
+                            exempt = len(pending)
+                    if out.logprobs:
+                        pend_lp_toks.extend(out.token_ids)
+                        pend_lps.extend(out.logprobs)
+                elif stop_strings and prev_ntok < min_tok:
+                    for j, t in enumerate(out.token_ids):
+                        pending += detok.push([t])
+                        if prev_ntok + j + 1 < min_tok:
+                            exempt = len(pending)
+                else:
+                    pending += detok.push(out.token_ids)
                 if out.finished:
-                    pending += detok.flush()
-                cut = (_find_stop(pending, stop_strings)
-                       if stop_strings else None)
-                if cut is not None:
-                    if pending[:cut]:
-                        send(frame(pending[:cut]))
-                    self.engine.abort(req.request_id)
-                    while not out.finished:
-                        out = req.outputs.get()
-                    send(frame(None, finish="stop"))
-                    break
+                    # The window residue can complete a stop string: flush
+                    # it before the check, as the non-stream path does.
+                    tail = detok.flush()
+                    pending += tail
+                    if pend_pieces and tail:
+                        pend_pieces[-1] += tail
+                if stop_strings and ntok >= min_tok:
+                    cut = _find_stop(pending, stop_strings, min_end=exempt)
+                    if cut is not None:
+                        keep = lp_within(pending, cut)
+                        del pend_lp_toks[keep:]
+                        del pend_lps[keep:]
+                        del pend_pieces[keep:]
+                        if pending[:cut]:
+                            send_frame(chunk(pending[:cut]))
+                        self.engine.abort(req.request_id)
+                        while not out.finished:
+                            out = req.outputs.get()
+                        fin = out
+                        send_frame(chunk(None, finish="stop"))
+                        break
                 if out.finished:
                     if pending:
-                        send(frame(pending))
-                    send(frame(None, finish=out.finish_reason))
+                        send_frame(chunk(pending))
+                    send_frame(chunk(None, finish=out.finish_reason))
+                    fin = out
                     break
                 safe = len(pending) - hold
                 if safe > 0:
-                    send(frame(pending[:safe]))
+                    lp_flush_n[0] = lp_within(pending, safe)
+                    send_frame(chunk(pending[:safe]))
+                    lp_flush_n[0] = None
                     pending = pending[safe:]
-                out = req.outputs.get()
-            if include_usage:
-                send({"id": rid, "object": obj, "created": created,
-                      "model": model, "choices": [], "usage": {
-                          "prompt_tokens": out.num_prompt_tokens,
-                          "completion_tokens": out.num_generated_tokens,
-                          "total_tokens": out.num_prompt_tokens
-                          + out.num_generated_tokens}})
-            send(b"[DONE]")
-            h.wfile.write(b"0\r\n\r\n")
-            h.wfile.flush()
+                    exempt = max(0, exempt - safe)
+            if include_usage and fin is not None:
+                send_frame(chunk(None, usage={
+                    "prompt_tokens": fin.num_prompt_tokens,
+                    "completion_tokens": fin.num_generated_tokens,
+                    "total_tokens": (fin.num_prompt_tokens
+                                     + fin.num_generated_tokens)},
+                    empty_choices=True))
+            self._sse_end(h, send_frame)
         except (BrokenPipeError, ConnectionResetError):
             # Client went away: free the slot instead of decoding for nobody.
             self.engine.abort(req.request_id)

@@ -78,6 +78,26 @@ Phases (any failure raises and exits non-zero):
               on the legacy one (slot cache, and paged pool), each run's
               update and attention kernels counting num_layers x its
               dispatches or decode steps.
+              The request surface (phase_surface), on the mixed bf16
+              engine and on the legacy bf16 slot-cache engine, each run
+              counted as above: logit_bias +100 pins its token, -100 moves
+              the first token off the plain stream's, penalties 2.0 repeat
+              no token more than the plain stream and change it (both
+              under a +10 bias on one token, so the plain one repeats),
+              min_tokens 16 holds a stop id back, logprobs (completions and
+              chat) are the top-1, non-positive, descending and within 2e-3
+              of log_softmax in f32 of their step's logits, guided_choice
+              answers one of its strings, a JSON-mode guide and a forced
+              tool call walk their DFAs (the call, under a +8 bias on
+              "}", finishes and parses as the named function, also as the
+              server's tool_calls), n 2 with a seed takes child seeds seed
+              and seed + 1, echo leads with the prompt.  Then one decode step
+              of 8 lanes at context 512 through the engine's own sampling
+              code (phase_surface_step), every feature off and every
+              feature on for every lane, beside the profile phases' step
+              (argmax only): device µs and kernel launches per step; on
+              the legacy engine the all-off step must issue the argmax
+              step's aten ops, read in the same call.
   5. parity   two mixed_steps through the kernels vs the same steps through
               impl="plain" at full width: logits within 10% of the largest
               |logit| in bf16 and within 5e-4 in f32, and the same argmax
@@ -126,12 +146,13 @@ Phases (any failure raises and exits non-zero):
               layer in f32 (5e-4).
 The line before the last is the kernels JSON (nine counterparts); the last
 line is the device JSON.  A kernel's "launches" counts its launches in the
-runs of the served path: phase 4's (the dense launch: its greedy run) and
-phase 7's (grouped_matmul).
+runs of the served path: phase 4's, the request surface's included (the
+dense launch: its greedy run) and phase 7's (grouped_matmul).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import http.client
 import json
@@ -1090,12 +1111,14 @@ def _legacy_seeded_and_long(tag, port, prompt, layout, kv, res):
     res["ttft_1100_s"] = ttft
 
 
-def phase_serve_legacy(torch, dev, layout, kv, params):
+def phase_serve_legacy(torch, dev, layout, kv, params, surface=False):
     """The legacy scheduler served on ``params``: the slot cache
     (``layout`` "slot") or the paged pool under ARKS_MIXED_STEP=0, with a
     ``kv`` cache ("bf16" or "int8"; "int4" on the paged pool, whose decode
     rides paged_mixed_attention: there a one-shot prompt twice and the 8
-    concurrent streams only).  Returns its results."""
+    concurrent streams only).  With ``surface``, then phase_surface on the
+    same engine and server, and (engine stopped) phase_surface_step beside
+    phase_decode_profile's step on its weights.  Returns its results."""
     import os
 
     from arks_tpu_torch.engine import EngineConfig, InferenceEngine
@@ -1199,9 +1222,25 @@ def phase_serve_legacy(torch, dev, layout, kv, params):
             raise AssertionError(f"{tag} launch counts != layers x decode "
                                  "steps")
         res["launches"] = launches
+        if surface:
+            res["surface"] = phase_surface(torch, dev, engine,
+                                           f"legacy {layout} {kv}", port)[0]
     finally:
         server.stop()
         engine.stop()
+    if surface:
+        res["step"] = step = phase_surface_step(torch, dev, engine)
+        diff = (step["off"][3] - step["argmax"][3]) + \
+            (step["argmax"][3] - step["off"][3])
+        log(f"{tag} decode step launches: every feature off "
+            f"{step['off'][2]:.2f}, the argmax step "
+            f"{step['argmax'][2]:.2f}; every feature on {step['on'][2]:.2f}; "
+            f"aten ops per dispatch, off {sum(step['off'][3].values())} vs "
+            f"the argmax step's {sum(step['argmax'][3].values())}, differing in "
+            f"{dict(diff) or 'none'}")
+        if diff:
+            raise AssertionError(f"{tag} the all-off decode step issues "
+                                 "other ops than the argmax step")
     del engine
     torch.cuda.empty_cache()
     return res
@@ -1287,6 +1326,448 @@ def phase_serve_f32(torch, dev):
     del params
     torch.cuda.empty_cache()
     return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 4, continued: the request surface (penalties, bias, min_tokens,
+# logprobs, guides, tools, n, echo)
+# ---------------------------------------------------------------------------
+
+SURFACE_TOOLS = [{"type": "function", "function": {
+    "name": "get_weather", "description": "Weather of a city",
+    "parameters": {"type": "object", "properties": {
+        "city": {"type": "string"}}, "required": ["city"]}}},
+                 {"type": "function", "function": {"name": "add"}}]
+LP_TOL = 2e-3      # a served logprob vs log_softmax of its step's logits
+
+
+def _engine_run(engine, ids, **kw):
+    """One request straight to the running engine: (token ids, the final
+    output, logprob entries)."""
+    from arks_tpu_torch.engine import Request, SamplingParams
+    req = Request(f"surface-{time.perf_counter_ns()}", list(ids),
+                  SamplingParams(**kw))
+    engine.add_request(req)
+    toks, lps = [], []
+    while True:
+        out = req.outputs.get(timeout=900)
+        toks += out.token_ids
+        lps += out.logprobs or []
+        if out.finished:
+            return toks, out, lps
+
+
+def _walks(guides, guide, toks) -> bool:
+    """Whether every prefix of ``toks`` walks ``guide``'s DFA without a
+    dead transition (eos into the terminal row included)."""
+    g = guides.lookup(*guide)
+    row = g.start_row
+    for t in toks:
+        if guides.trans[row, guides.class_ids[g.guide_id, t]] < 0:
+            return False
+        row = guides.next_row(row, t)
+    return True
+
+
+class _LogprobSpy:
+    """Records, for the one request in flight, log_softmax in f32 of each
+    step's logits at the chosen token (the engine thread calls
+    ``sampler.top_logprobs`` on every step that serves logprobs)."""
+
+    def __init__(self, torch, engine):
+        from arks_tpu_torch.engine import sampler
+        self.torch, self.engine, self.sampler = torch, engine, sampler
+        self.orig = sampler.top_logprobs
+        self.values: list[float] = []
+
+    def __enter__(self):
+        def spy(logits, chosen):
+            out = self.orig(logits, chosen)
+            if logits.shape[0] == 1:
+                lane = 0
+            else:
+                (lane,) = set(self.engine._slots) | set(
+                    self.engine._prefilling)
+            lp = self.torch.log_softmax(logits[lane].float(), dim=-1)
+            self.values.append(lp[int(chosen[lane])].item())
+            return out
+        self.sampler.top_logprobs = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.sampler.top_logprobs = self.orig
+
+
+def phase_surface(torch, dev, engine, tag, port=None):
+    """Every request-level feature once on ``engine`` (phase 4's mixed
+    bf16 engine, or its legacy bf16 slot-cache engine with its server on
+    ``port``), each checked:
+      a) logit_bias {T: 100}, greedy: every token is T;
+      b) logit_bias {T0: -100} on the plain greedy stream's first token
+         T0: the first token is no longer T0;
+      c) presence and frequency penalties 2.0, greedy, 32 tokens: no token
+         repeats more often than in the plain greedy stream, which it no
+         longer equals (both streams carry a +10 bias on one token, so
+         that the plain stream repeats: a random-weight model does not);
+      d) min_tokens 16 with stop_token_ids [T0]: no stop (and no T0)
+         before token 16;
+      e) logprobs 5 (completions) and logprobs true, top_logprobs 5 (chat),
+         greedy: the chosen logprob is the top-1 (chat: equal to the first
+         of its 5; completions, whose top dict merges tokens of one text:
+         at least every value), values <= 0 and descending, each chosen
+         within LP_TOL of log_softmax in f32 of its step's logits;
+      f) guided_choice ["alpha", "beta"]: one of the two, finish "stop";
+      g) a JSON-mode guide, 48 tokens: every prefix walks the port's DFA;
+      h) a named tool_choice (with a +8 bias on "}", so that a
+         random-weight model closes its arguments): the output walks the
+         forced guide's DFA, finishes, and parses as that function
+         (engine and HTTP: finish "tool_calls");
+      i) n 2 with a seed: two choices, usage of both, child seeds seed and
+         seed + 1;
+      j) echo: the text starts with the prompt.
+    The counts are set to 0 before and read after: the update and
+    attention kernels of the engine's scheduler count num_layers x its
+    dispatches (or decode steps), the others none.  Returns (its launch
+    counts, the guide compile seconds)."""
+    from arks_tpu_torch.server import OpenAIServer
+    from arks_tpu_torch.server import tools
+
+    tok, cfg = engine.tokenizer, engine.cfg
+    server = None
+    if port is None:
+        server = OpenAIServer(engine, MODEL, host="127.0.0.1", port=0)
+        server.start(background=True)
+        engine.start()
+        port = server.port
+    checks = {}
+
+    def check(name, ok, detail):
+        log(f"[surface {tag}] {name}: {'ok' if ok else 'FAILED'} ({detail})")
+        checks[name] = ok
+
+    try:
+        _reset_counts()
+        d0, s0 = engine.dispatches, engine.decode_steps
+        prompt = "The request surface of the port, on the card."
+        ids = tok.encode(prompt)
+        # a) a +100 bias pins its token.
+        t_a = tok.encode("a")[0]
+        got, fin, _ = _engine_run(engine, ids, max_tokens=8, temperature=0,
+                                  logit_bias=((t_a, 100.0),))
+        check("a logit_bias +100", got == [t_a] * 8 and t_a not in
+              cfg.eos_token_ids, f"{got}, finish {fin.finish_reason}")
+        # c) penalties.  A random-weight model repeats no token in 32
+        # greedy steps, so both streams carry the same +10 bias on one
+        # token: the plain stream repeats it, the penalties must not.
+        p_ids = tok.encode(f"{prompt} Again and again.")
+        bias = ((tok.encode("r")[0], 10.0),)
+        plain, _, _ = _engine_run(engine, p_ids, max_tokens=32,
+                                  temperature=0, ignore_eos=True,
+                                  logit_bias=bias)
+        pen, _, _ = _engine_run(engine, p_ids, max_tokens=32, temperature=0,
+                                ignore_eos=True, logit_bias=bias,
+                                presence_penalty=2.0, frequency_penalty=2.0)
+        rep_plain = max(plain.count(t) for t in plain)
+        rep_pen = max(pen.count(t) for t in pen)
+        check("c penalties 2.0", rep_pen <= rep_plain and pen != plain,
+              f"most repeats {rep_pen} vs plain {rep_plain} (a +10 bias on "
+              f"token {bias[0][0]} in both); "
+              f"{sum(a != b for a, b in zip(pen, plain))} of 32 tokens "
+              "differ")
+        # b) a -100 bias on the plain (unbiased) stream's first token.
+        t0 = _engine_run(engine, p_ids, max_tokens=4, temperature=0,
+                         ignore_eos=True)[0][0]
+        got, _, _ = _engine_run(engine, p_ids, max_tokens=4, temperature=0,
+                                ignore_eos=True, logit_bias=((t0, -100.0),))
+        check("b logit_bias -100", got[0] != t0,
+              f"first token {got[0]}, plain {t0}")
+        # d) min_tokens holds the stop id back.
+        got, fin, _ = _engine_run(engine, p_ids, max_tokens=24,
+                                  temperature=0, min_tokens=16,
+                                  stop_token_ids=(t0,))
+        check("d min_tokens 16", len(got) >= 16 and t0 not in got[:16],
+              f"{len(got)} tokens, finish {fin.finish_reason}, stop id "
+              f"{t0} first at {got.index(t0) if t0 in got else None}")
+        # e) logprobs, completions and chat.
+        for kind, path, body in (
+                ("completions", "/v1/completions", {
+                    "prompt": prompt, "max_tokens": 8, "temperature": 0,
+                    "logprobs": 5}),
+                ("chat", "/v1/chat/completions", {
+                    "messages": [{"role": "user", "content": prompt}],
+                    "max_tokens": 8, "temperature": 0, "logprobs": True,
+                    "top_logprobs": 5})):
+            with _LogprobSpy(torch, engine) as spy:
+                st, data, _, _ = _request(port, path, body)
+            lp = data["choices"][0].get("logprobs") if st == 200 else None
+            if kind == "chat":
+                # Exact: top-5 lists in order, the chosen equal to the first.
+                chosen = [e["logprob"] for e in lp["content"]]
+                tops = [[t["logprob"] for t in e["top_logprobs"]]
+                        for e in lp["content"]]
+                top1 = all(c == t[0] and len(t) == 5
+                           for c, t in zip(chosen, tops))
+            else:
+                # A dict by token text: byte-level ids past the byte range
+                # decode to shared texts, so entries may merge; the chosen
+                # one is at least every listed value.
+                chosen = lp["token_logprobs"]
+                tops = [sorted(t.values(), reverse=True)
+                        for t in lp["top_logprobs"]]
+                top1 = all(c >= t[0] for c, t in zip(chosen, tops))
+            err = max(abs(a - b) for a, b in zip(chosen, spy.values))
+            ok = (len(chosen) == 8 and len(spy.values) >= 8 and top1
+                  and all(v <= 0 for t in tops for v in t)
+                  and all(c <= 0 for c in chosen)
+                  and all(t == sorted(t, reverse=True) for t in tops)
+                  and all(len(t) >= 1 for t in tops) and err <= LP_TOL)
+            check(f"e logprobs {kind}", ok, f"chosen {chosen[:3]}..., "
+                  f"max |served - log_softmax f32| {err:.2e} (limit "
+                  f"{LP_TOL}), top-5 of token 0 {tops[0]}")
+        # f) guided_choice through the server.
+        t_c = time.perf_counter()
+        st, data, _, _ = _request(port, "/v1/completions", {
+            "prompt": prompt, "max_tokens": 16, "temperature": 0,
+            "guided_choice": ["alpha", "beta"]})
+        secs = {"choice": time.perf_counter() - t_c}
+        ch = data["choices"][0] if st == 200 else {}
+        check("f guided_choice", ch.get("text") in ("alpha", "beta")
+              and ch.get("finish_reason") == "stop",
+              f"HTTP {st}, {ch.get('text')!r}, finish "
+              f"{ch.get('finish_reason')}")
+        # g) JSON mode, every prefix on the DFA.
+        t_c = time.perf_counter()
+        got, fin, _ = _engine_run(engine, ids, max_tokens=48,
+                                  temperature=0, guide=("json", ""))
+        secs["json"] = time.perf_counter() - t_c
+        check("g json_object", _walks(engine.guides, ("json", ""), got),
+              f"{len(got)} tokens, finish {fin.finish_reason}: "
+              f"{tok.decode(got)[:60]!r}")
+        # h) a forced (named) tool call.  A random-weight model wanders
+        # inside a string argument for ever: a +8 bias on "}" closes the
+        # arguments (the guide, applied last, still rules every token).
+        msgs = [{"role": "user", "content": "Weather in Paris?"}]
+        choice = {"type": "function", "function": {"name": "get_weather"}}
+        guide = tools.forced_call_guide(SURFACE_TOOLS, choice)
+        close = tok.encode("}")[0]
+        t_c = time.perf_counter()
+        got, fin, _ = _engine_run(
+            engine, tok.apply_chat_template(msgs, tools=SURFACE_TOOLS),
+            max_tokens=96, temperature=0, guide=guide,
+            logit_bias=((close, 8.0),))
+        secs["tool"] = time.perf_counter() - t_c
+        calls = tools.parse_tool_calls(tok.decode(got))[1] \
+            if fin.finish_reason == "stop" else None
+        st, data, _, _ = _request(port, "/v1/chat/completions", {
+            "messages": msgs, "tools": SURFACE_TOOLS, "tool_choice": choice,
+            "max_tokens": 96, "temperature": 0,
+            "logit_bias": {str(close): 8}})
+        ch = data["choices"][0] if st == 200 else {}
+        served = [c["function"]["name"] for c in
+                  ch.get("message", {}).get("tool_calls") or []]
+        check("h named tool_choice", _walks(engine.guides, guide, got)
+              and calls is not None
+              and [c["function"]["name"] for c in calls] == ["get_weather"]
+              and st == 200 and ch["finish_reason"] == "tool_calls"
+              and served == ["get_weather"],
+              f"{len(got)} tokens, finish {fin.finish_reason}, parsed "
+              f"{calls and calls[0]['function']}; HTTP {st} finish "
+              f"{ch.get('finish_reason')} calls {served}")
+        # i) n 2 with a seed: the server's child seeds.
+        seeds = []
+        add = engine.add_request
+
+        def spy_add(req):
+            seeds.append(req.params.seed)
+            return add(req)
+
+        engine.add_request = spy_add
+        try:
+            st, data, _, _ = _request(port, "/v1/completions", {
+                "prompt": prompt, "n": 2, "seed": 7, "temperature": 0.9,
+                "max_tokens": 12, "ignore_eos": True})
+        finally:
+            del engine.add_request
+        usage = data.get("usage", {})
+        check("i n 2 seeded", st == 200 and len(data["choices"]) == 2
+              and seeds == [7, 8] and usage.get("completion_tokens") == 24
+              and usage.get("prompt_tokens") == 2 * len(ids),
+              f"HTTP {st}, child seeds {seeds}, usage {usage}")
+        # j) echo.
+        st, data, _, _ = _request(port, "/v1/completions", {
+            "prompt": prompt, "echo": True, "max_tokens": 6,
+            "temperature": 0})
+        text = data["choices"][0]["text"] if st == 200 else ""
+        check("j echo", text.startswith(prompt) and len(text) > len(prompt),
+              f"HTTP {st}, {len(text)} chars")
+
+        launches = _read_counts()
+        if engine._mixed:
+            n = engine.dispatches - d0
+            names = ("paged_kv_update", "paged_mixed_attention")
+        else:
+            n = engine.decode_steps - s0
+            names = ("kv_cache_update", "ragged_decode_attention")
+        expected = {k: cfg.num_layers * n if k in names else 0
+                    for k in launches}
+        log(f"[surface {tag}] {n} {'dispatches' if engine._mixed else 'decode steps'}"
+            f", launches {launches}, expected {expected}; guide compile + "
+            f"request s: {', '.join(f'{k} {v:.1f}' for k, v in secs.items())}")
+        if launches != expected or n == 0:
+            raise AssertionError(f"[surface {tag}] launch counts != layers x "
+                                 "steps")
+    finally:
+        if server is not None:
+            server.stop()
+            engine.stop()
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"[surface {tag}] failed: {failed}")
+    return launches, secs
+
+
+def _profile_step(torch, fn, steps_per_call):
+    """(host ms, device µs, kernel launches, aten ops) per step of ``fn``
+    (one call = ``steps_per_call`` steps, synchronised): host clock over
+    4 calls after 2 warm-ups; device time and launches from profiler
+    windows of one call, each opened with a synchronise and a 0.2 s
+    pause, the one that saw the most device events of three (the
+    profiler's device trace misses events now and then: on the H100 the
+    first kernels of a window, a few of 7,300, or ~40% of a 22,000-kernel
+    window); the aten ops the host issued (a Counter by name, per call),
+    which the host records in full."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / (4 * steps_per_call) * 1e3
+    best, ops = (0.0, 0), None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(0.2)
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = (sum(e.self_device_time_total for e in kernels),
+                sum(e.count for e in kernels))
+        if seen[1] > best[1]:
+            best = seen
+        ops = ops or collections.Counter({
+            e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.key.startswith("aten::")})
+    return (wall_ms, best[0] / steps_per_call, best[1] / steps_per_call,
+            ops)
+
+
+def phase_surface_step(torch, dev, engine, lanes=8, ctx=512):
+    """One decode step of ``lanes`` lanes at context ``ctx`` through the
+    engine's own sampling code, every feature off (plain greedy requests)
+    and every feature on for every lane (seeded sampling, presence and
+    frequency penalties, a logit_bias, a holding min_tokens, a JSON-mode
+    guide, logprobs 5): the legacy engine's ``_decode_loop`` (K decode_steps
+    on its slot cache, then the one host copy) or, on the mixed engine,
+    phase_step_profile's mixed_step then ``_sample_mixed`` and the host
+    copy.  Beside them "argmax": the same step sampled as the profile
+    phases sample it (phase_decode_profile's, phase_step_profile's:
+    argmax alone), measured the same way.  The engine is stopped; its
+    sampling rows are set as admission sets them.  Returns
+    {"argmax"|"off"|"on": (host ms, device µs, launches, aten ops) per
+    step}."""
+    from arks_tpu_torch.engine import Request, SamplingParams, prng
+    from arks_tpu_torch.engine import engine as engine_mod
+    from arks_tpu_torch.engine import sampler
+    from arks_tpu_torch.models import transformer as tf
+    cfg = engine.cfg
+    guide = ("json", "")
+    engine.guides.compile(*guide)
+    engine._ensure_guides_uploaded()
+    start = engine.guides.lookup(*guide).start_row
+    kinds = {
+        "off": SamplingParams(max_tokens=64, temperature=0.0),
+        "on": SamplingParams(
+            max_tokens=64, temperature=0.8, top_p=0.9, top_k=40, seed=3,
+            presence_penalty=0.5, frequency_penalty=0.5,
+            logit_bias=((99, 1.5), (100, -2.0)), min_tokens=32, logprobs=5,
+            guide=guide)}
+    i32 = dict(dtype=torch.int32, device=dev)
+    slots = list(range(lanes))
+    kinds = {"argmax": kinds["off"], **kinds}
+    out = {}
+    for kind, p in kinds.items():
+        keys = prng.fold_in(prng.key_tensor(np.stack(
+            [prng.np_prng_key(i) for i in slots]), dev), 1)
+        engine._set_slots(slots, [p] * lanes, keys, [ctx] * lanes,
+                          [start if p.guide else 0] * lanes)
+        engine._slots = {i: engine_mod._Slot(
+            request=Request(f"step-{i}", [1], p), num_prompt=ctx)
+            for i in slots}
+        engine._lengths[:] = ctx
+        engine._last_token[:] = 5
+        if engine._mixed:
+            maxp = ctx // PAGE + 1
+            cache = tf.init_paged_cache(cfg, lanes * maxp, PAGE,
+                                        torch.bfloat16, dev)
+            ar = torch.arange(lanes, **i32)
+            args = (torch.arange(lanes * maxp, **i32).reshape(lanes, maxp),
+                    torch.full((lanes,), 5, **i32), ar,
+                    torch.full((lanes,), ctx, **i32), ar, ar,
+                    torch.ones(lanes, **i32), torch.full((lanes,), ctx, **i32))
+
+            def fn(kind=kind):
+                logits = tf.mixed_step(engine.params, cfg, cache, *args,
+                                       qmax=1,
+                                       moe_grouped=engine._moe_grouped)
+                if kind == "argmax":
+                    return _greedy(sampler, logits).cpu().numpy()
+                return engine_mod._to_host(*engine._sample_mixed(
+                    logits, slots, []))
+            steps = 1
+        elif kind == "argmax":
+            def fn():
+                toks = torch.full((lanes,), 5, **i32)
+                lengths = torch.full((lanes,), ctx, **i32)
+                out = []
+                for _ in range(engine.ecfg.steps_per_dispatch):
+                    logits = tf.decode_step(engine.params, cfg, engine.cache,
+                                            toks, lengths)
+                    toks = _greedy(sampler, logits)
+                    out.append(toks)
+                    lengths = lengths + 1
+                return torch.stack(out).cpu().numpy()
+            steps = engine.ecfg.steps_per_dispatch
+        else:
+            def fn():
+                ids, lp = engine._decode_loop(
+                    torch.full((lanes,), 5, **i32),
+                    torch.full((lanes,), ctx, **i32), None, [p] * lanes)
+                return engine_mod._to_host(ids, lp)
+            steps = engine.ecfg.steps_per_dispatch
+        try:
+            out[kind] = _profile_step(torch, fn, steps)
+        finally:
+            engine._slots = {}
+            engine._sampling = sampler.clear_slot_penalties(engine._sampling,
+                                                            slots)
+        if engine._mixed:
+            del cache
+    sched = "mixed" if engine._mixed else "legacy slot"
+    for kind, (wall, dev_us, launches, _) in out.items():
+        what = ("the profile phases' step (argmax only)" if kind == "argmax"
+                else f"every feature {kind}")
+        log(f"[surface step] {sched}, {lanes} lanes at context {ctx}, {what}"
+            f": {wall:.2f} ms host clock per step, device "
+            + (f"{dev_us:.1f} us, {launches:.2f} kernel launches per step"
+               if dev_us else "time not measured"))
+    torch.cuda.empty_cache()
+    return out
 
 
 def _leaves(tree):
@@ -1532,6 +2013,15 @@ def _decode_parity(torch, dev, tf, cfg, params, dtype, rel, abs_tol, layout,
     return worst
 
 
+def _greedy(sampler, logits):
+    """Greedy ids through a tree's sampler: its all-off gate (state unread),
+    or, in trees older than the request surface, its
+    (logits, temperature, top_p, top_k) form."""
+    if hasattr(sampler, "OFF"):
+        return sampler.sample(logits, None, gates=sampler.OFF)[0]
+    return sampler.sample(logits, None, None, None)[0]
+
+
 def phase_decode_profile(torch, dev, engine, kv="bf16"):
     """Where a legacy decode dispatch's time goes: K = 4 decode_steps, each
     sampling greedily, over 8 slots at context 512 of a bf16 (or, with
@@ -1556,7 +2046,7 @@ def phase_decode_profile(torch, dev, engine, kv="bf16"):
         out = []
         for _ in range(k_steps):
             logits = tf.decode_step(engine.params, cfg, cache, toks, lengths)
-            toks = sampler.sample(logits, None, None, None)[0]
+            toks = _greedy(sampler, logits)
             out.append(toks)
             lengths = lengths + 1
         return torch.stack(out).cpu()
@@ -1621,7 +2111,7 @@ def phase_step_profile(torch, dev, engine, kv=None):
     def step():
         logits = tf.mixed_step(engine.params, cfg, cache, *args, qmax=1,
                                moe_grouped=engine._moe_grouped)
-        return sampler.sample(logits, None, None, None)[0].cpu()
+        return _greedy(sampler, logits).cpu()
 
     for _ in range(3):
         step()
@@ -1639,6 +2129,7 @@ def phase_step_profile(torch, dev, engine, kv=None):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels) / 3
+    launches = sum(e.count for e in kernels) / 3
     weight_bytes = sum(x.numel() * x.element_size()
                        for x in _leaves(engine.params))
     bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
@@ -1654,7 +2145,8 @@ def phase_step_profile(torch, dev, engine, kv=None):
         f"{wall_ms:.2f} ms host clock ({lanes / wall_ms * 1e3:.1f} tok/s), "
         f"device kernel time "
         + (f"{dev_us / 1e3:.2f} ms/step, busy share "
-           f"{dev_us / 1e3 / wall_ms:.3f}" if dev_us else "not measured")
+           f"{dev_us / 1e3 / wall_ms:.3f}, {launches:.0f} kernel launches "
+           "per step" if dev_us else "not measured")
         + f"; weight-read bound {bound_ms:.2f} ms ({weight_bytes} B)")
     for e in top:
         log(f"[profile]   {e.key[:60]:60s} {e.self_device_time_total / 3:9.1f}"
@@ -2570,12 +3062,16 @@ def main() -> int:
     phase_fault_kernels(torch, dev, b, lb)
     engine, serve = phase_serve(torch, dev)
     dense_launches = phase_dense_grid(torch, dev, engine)
+    surface, _ = phase_surface(torch, dev, engine, "mixed bf16")
+    surface_step = phase_surface_step(torch, dev, engine)
     params = engine.params
     del engine
     torch.cuda.empty_cache()
-    legacy = {(layout, kv): phase_serve_legacy(torch, dev, layout, kv, params)
-              for layout, kv in (("slot", "bf16"), ("slot", "int8"),
-                                 ("paged", "int8"), ("paged", "int4"))}
+    legacy = {(layout, kv): phase_serve_legacy(
+        torch, dev, layout, kv, params, surface=(layout, kv) == ("slot",
+                                                                 "bf16"))
+        for layout, kv in (("slot", "bf16"), ("slot", "int8"),
+                           ("paged", "int8"), ("paged", "int4"))}
     engine, serve8 = phase_serve(torch, dev, "int8", params)
     f32 = phase_serve_f32(torch, dev)
     log(f"[serve] bf16 vs int8 pool on the same weights: K+V pool bytes "
@@ -2607,12 +3103,21 @@ def main() -> int:
     attn_launches = (serve["launches"]["paged_mixed_attention"]
                      + serve8["launches"]["paged_mixed_attention"]
                      + paged4["launches"]["paged_mixed_attention"]
-                     + f32["paged_mixed_attention"])
+                     + f32["paged_mixed_attention"]
+                     + surface["paged_mixed_attention"])
+    log(f"[surface step] every feature off / on, per decode step: mixed "
+        f"{surface_step['off'][1]:.1f} / {surface_step['on'][1]:.1f} us "
+        f"device, {surface_step['off'][2]:.2f} / {surface_step['on'][2]:.2f}"
+        f" launches; legacy slot {slot16['step']['off'][1]:.1f} / "
+        f"{slot16['step']['on'][1]:.1f} us, {slot16['step']['off'][2]:.2f} "
+        f"/ {slot16['step']['on'][2]:.2f} launches (the argmax step "
+        f"{slot16['step']['argmax'][2]:.2f})")
     kernels = [
         dict(name="paged_kv_update", route="cuda", source=UPDATE_SRC,
              replaces="arks_tpu/ops/paged_attention.py:1127",
              launches=(serve["launches"]["paged_kv_update"]
-                       + f32["paged_kv_update"]),
+                       + f32["paged_kv_update"]
+                       + surface["paged_kv_update"]),
              max_abs_err=upd_err, **upd_t),
         dict(name="paged_mixed_attention", route="cuda", source=ATTN_SRC,
              replaces="arks_tpu/ops/paged_attention.py:761",
@@ -2633,13 +3138,15 @@ def main() -> int:
              replaces="arks_tpu/ops/pallas_attention.py:58",
              launches=(slot16["launches"]["ragged_decode_attention"]
                        + slot8["launches"]["ragged_decode_attention"]
-                       + f32["ragged_decode_attention"]),
+                       + f32["ragged_decode_attention"]
+                       + slot16["surface"]["ragged_decode_attention"]),
              max_abs_err=legacy_err["ragged_decode_attention"],
              **lt["ragged_decode_attention"]),
         dict(name="kv_cache_update", route="cuda", source=SLOT_UPDATE_SRC,
              replaces="arks_tpu/ops/pallas_attention.py:241",
              launches=(slot16["launches"]["kv_cache_update"]
-                       + f32["kv_cache_update"]),
+                       + f32["kv_cache_update"]
+                       + slot16["surface"]["kv_cache_update"]),
              max_abs_err=legacy_err["kv_cache_update"],
              **lt["kv_cache_update"]),
         dict(name="kv_cache_update_quant", route="cuda",

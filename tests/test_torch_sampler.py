@@ -35,8 +35,10 @@ def test_greedy_first_index_wins_ties():
     logits[0, [7, 3, 40]] = 2.0
     logits[1, [49, 0]] = 1.0
     want = np.asarray(jnp.argmax(jnp.asarray(logits), axis=-1))
-    got, keys = tsampler.sample(torch.from_numpy(logits), None, None, None)
-    assert got.dtype == torch.int32 and keys is None
+    state = tsampler.init_sampling_state(3, vocab_size=50)
+    got, after = tsampler.sample(torch.from_numpy(logits), state,
+                                 gates=tsampler.OFF)
+    assert got.dtype == torch.int32 and after.key is state.key
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -48,8 +50,9 @@ def test_filtered_window_matches_jax(seed):
                             top_k=jnp.asarray(top_k))
     w_scaled, w_idx = jsampler._filtered_scaled(jnp.asarray(logits), state)
     g_scaled, g_idx = tsampler._filtered_scaled(
-        torch.from_numpy(logits), torch.from_numpy(temp),
-        torch.from_numpy(top_p), torch.from_numpy(top_k))
+        torch.from_numpy(logits), SimpleNamespace(
+            temperature=torch.from_numpy(temp), top_p=torch.from_numpy(top_p),
+            top_k=torch.from_numpy(top_k)))
     np.testing.assert_array_equal(g_idx.numpy(), np.asarray(w_idx))
     w_scaled = np.asarray(w_scaled)
     np.testing.assert_array_equal(np.isinf(g_scaled.numpy()),
@@ -78,10 +81,13 @@ def test_gumbel_max_draw_with_given_noise(seed):
         top_k=jnp.asarray(top_k), key=jnp.asarray(keys))
     want, wstate = jsampler.sample(jnp.asarray(logits), state,
                                    jnp.asarray(active))
-    got, carry = tsampler.sample(
-        torch.from_numpy(logits), torch.from_numpy(temp),
-        torch.from_numpy(top_p), torch.from_numpy(top_k),
-        prng.key_tensor(keys), torch.from_numpy(active))
+    tstate = tsampler.init_sampling_state(
+        len(temp), vocab_size=logits.shape[1])._replace(
+        temperature=torch.from_numpy(temp), top_p=torch.from_numpy(top_p),
+        top_k=torch.from_numpy(top_k), key=prng.key_tensor(keys))
+    got, after = tsampler.sample(torch.from_numpy(logits), tstate,
+                                 torch.from_numpy(active))
+    carry = after.key
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(carry.numpy(),
                                   np.asarray(wstate.key).astype(np.int64))

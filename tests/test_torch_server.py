@@ -1,7 +1,9 @@
 """The port's OpenAI server on ``tiny`` (device="cpu"): an HTTP completion,
 an SSE stream and a chat completion return the text of the JAX engine's
-greedy stream on the same weights; stop strings cut the text; fields of
-later slices are answered with HTTP 400."""
+greedy stream on the same weights; stop strings cut the text; the sampling
+fields the port once refused (logprobs, penalties, logit_bias, n, min_tokens,
+guides, echo, batched prompts) are answered as the reference server answers
+them on the same weights, and bad bodies get the reference's 400s."""
 
 import http.client
 import json
@@ -19,6 +21,7 @@ from arks_tpu.engine import SamplingParams as JaxSamplingParams
 from arks_tpu.engine.tokenizer import ByteTokenizer as JaxByteTokenizer
 from arks_tpu.models import get_config as jax_get_config
 from arks_tpu.models import transformer as jtf
+from arks_tpu.server import OpenAIServer as JaxOpenAIServer
 from arks_tpu_torch.engine import EngineConfig, InferenceEngine
 from arks_tpu_torch.engine.tokenizer import ByteTokenizer
 from arks_tpu_torch.models import get_config
@@ -188,16 +191,93 @@ def test_stop_string_cuts_the_text(server, reference, stream):
     assert (text, finish) == (want, "stop")
 
 
+@pytest.fixture(scope="module")
+def ref_server(jparams):
+    """The reference's server on the JAX engine, same weights and
+    scheduler."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("ARKS_MIXED_STEP", "1")
+    eng = JaxEngine(jax_get_config(NAME), JaxEngineConfig(
+        model=NAME, prefill_buckets=(8, 16, 32), kv_layout="paged",
+        **ENGINE_KW), JaxByteTokenizer(), params=jparams)
+    srv = JaxOpenAIServer(eng, NAME, host="127.0.0.1", port=0)
+    srv.start(background=True)
+    eng.start()
+    yield srv
+    srv.stop()
+    eng.stop()
+    mp.undo()
+
+
+def _norm(x):
+    """A payload less its ids and timestamps."""
+    if isinstance(x, dict):
+        return {k: _norm(v) for k, v in x.items()
+                if k not in ("id", "created")}
+    if isinstance(x, list):
+        return [_norm(v) for v in x]
+    return x
+
+
+def _close(got, want):
+    """Equal, with logprob values (the payloads' only floats) within
+    1e-5."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and got.keys() == want.keys()
+        for k in want:
+            _close(got[k], want[k])
+    elif isinstance(want, list):
+        assert isinstance(got, list) and len(got) == len(want)
+        for g, w in zip(got, want):
+            _close(g, w)
+    elif isinstance(want, float):
+        assert abs(got - want) <= 1e-5, (got, want)
+    else:
+        assert got == want
+
+
 @pytest.mark.parametrize("extra", [
     {"logprobs": 2}, {"logprobs": 0}, {"presence_penalty": 0.5},
     {"logit_bias": {"5": 10}}, {"n": 2}, {"min_tokens": 3},
     {"response_format": {"type": "json_object"}}, {"echo": True},
-    {"prompt": ["a", "b"]}, {"prompt": "x" * 80},
+    {"prompt": ["a", "b"]},
 ])
-def test_unserved_or_bad_fields_are_400(server, extra):
-    body = {"prompt": PROMPT, "max_tokens": 4, **extra}
+def test_served_like_the_reference(server, ref_server, extra):
+    """Fields the port answered with 400 before it served them: the same
+    status and payload as the reference server's (seeded sampling)."""
+    body = {"prompt": PROMPT, "max_tokens": 4, "temperature": 0.8,
+            "seed": 5, **extra}
     st, data = _post(server, "/v1/completions", body)
-    assert st == 400 and data["error"]["message"]
+    want_st, want = _post(ref_server, "/v1/completions", body)
+    assert st == want_st == 200
+    _close(_norm(data), _norm(want))
+
+
+@pytest.mark.parametrize("path,extra", [
+    ("/v1/completions", {"prompt": "x" * 80}),
+    ("/v1/completions", {"echo": True, "stream": True}),
+    ("/v1/chat/completions", {"echo": True}),
+    ("/v1/completions", {"logit_bias": {str(i): 1 for i in range(301)}}),
+    ("/v1/completions", {"logit_bias": {"512": 1}}),
+    ("/v1/completions", {"guided_choice": []}),
+    ("/v1/completions", {"response_format": {"type": "yaml"}}),
+    ("/v1/chat/completions", {
+        "tools": [{"type": "function", "function": {"name": "f"}}],
+        "tool_choice": "required",
+        "response_format": {"type": "json_object"}}),
+    ("/v1/completions", {"n": 17}),
+])
+def test_unserved_or_bad_fields_are_400(server, ref_server, path, extra):
+    """Bad bodies: the reference server's 400 and payload."""
+    body = {"max_tokens": 4, **extra}
+    if path == "/v1/completions":
+        body.setdefault("prompt", PROMPT)
+    else:
+        body["messages"] = [{"role": "user", "content": "hi"}]
+    st, data = _post(server, path, body)
+    want_st, want = _post(ref_server, path, body)
+    assert st == want_st == 400 and data["error"]["message"]
+    assert data == want
 
 
 def test_models_and_health(server):
