@@ -16,8 +16,18 @@ in the reference:
   (``prefill`` + insert + first-token sample), advances at most one chunk
   of one longer prompt, then runs ONE fused K-step decode dispatch
   (``steps_per_dispatch`` ``decode_step``s, each sampling every slot) and
-  fans its tokens out — the reference's sequential order, the one it runs
-  off its own accelerator.
+  fans its tokens out.  On a CUDA device (``ARKS_OVERLAP_DECODE``, default
+  ``auto``) the decode dispatch is issued first and admission and the
+  chunk run while the card computes it; admission batches resolve their
+  first tokens only once their copies have landed (deferred admissions).
+
+Steady-state decoding (every live slot decoding, no admission possible, no
+abort pending) leaves the host behind on both schedulers: the pipelined
+path (``ARKS_PIPELINE_DEPTH``, default 2) keeps that many dispatches in
+flight, each taking only the device-resident tokens, lengths and liveness
+its predecessor returned plus the block tables, and resolves the oldest on
+a lagged host view.  At depth 0 a mixed engine runs the same device
+program and resolves it at once (``ARKS_SAMPLER_FUSE``, default on).
 
 The KV cache is the engine dtype, bf16 (also under an f32 engine, whose
 attention reads it widened) or int8; a paged pool may also be int4, on either scheduler (the legacy one sends its int4 decode through
@@ -35,13 +45,13 @@ request asks for them, decided on the host (``sampler.Gates``), and a
 step's logprob data crosses to the host in the same copy as its ids.
 
 What the reference does and this port does not — device prefix sharing,
-host/disk prefix tiers, pipelined dispatch and the decode/admission
-overlap, speculative decoding, fault recovery, parallelism — is rejected
-by ``EngineConfig.validate`` rather than silently ignored.
+host/disk prefix tiers, speculative decoding, fault recovery, parallelism
+— is rejected by ``EngineConfig.validate`` rather than silently ignored.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import os
@@ -176,12 +186,48 @@ def admit_batch_sizes() -> tuple[int, ...]:
     return tuple(sorted(sizes | {1}, reverse=True))
 
 
+def _enum_knob(name: str, default: str, values: tuple[str, ...]) -> str:
+    raw = os.environ.get(name) or default
+    if raw not in values:
+        raise ValueError(f"{name}={raw!r}: expected one of "
+                         f"{', '.join(values)}")
+    return raw
+
+
 def mixed_step_knob() -> str:
     """``ARKS_MIXED_STEP``: "auto" (the default), "0" or "1"."""
-    raw = os.environ.get("ARKS_MIXED_STEP") or "auto"
-    if raw not in ("auto", "0", "1"):
-        raise ValueError(f"ARKS_MIXED_STEP={raw!r}: expected auto, 0 or 1")
-    return raw
+    return _enum_knob("ARKS_MIXED_STEP", "auto", ("auto", "0", "1"))
+
+
+def pipeline_depth_knob() -> int:
+    """``ARKS_PIPELINE_DEPTH``: dispatches kept in flight by steady-state
+    decoding (default 2); 0 is the unpipelined step."""
+    raw = os.environ.get("ARKS_PIPELINE_DEPTH") or "2"
+    try:
+        depth = int(raw)
+    except ValueError as e:
+        raise ValueError(f"ARKS_PIPELINE_DEPTH={raw!r}: expected an "
+                         "integer") from e
+    if depth < 0:
+        raise ValueError(f"ARKS_PIPELINE_DEPTH={depth}: must be >= 0")
+    return depth
+
+
+def sampler_fuse_knob() -> bool:
+    """``ARKS_SAMPLER_FUSE``: "1" (the default) runs steady-state depth-0
+    mixed decoding through the pipe program resolved at once; "0" keeps
+    the host-built mixed batch."""
+    return _enum_knob("ARKS_SAMPLER_FUSE", "1", ("0", "1")) != "0"
+
+
+def overlap_decode_knob(device: torch.device) -> bool:
+    """``ARKS_OVERLAP_DECODE`` ("auto", "0", "1"): the legacy scheduler
+    issues its decode dispatch before admission and resolves it after.
+    "auto" is the reference's "on where the platform supports it", read
+    here as on for a CUDA device, whose kernels run while the host admits,
+    and off on the CPU, where the "device" is the host's own cores."""
+    raw = _enum_knob("ARKS_OVERLAP_DECODE", "auto", ("auto", "0", "1"))
+    return raw == "1" or (raw == "auto" and device.type == "cuda")
 
 
 @dataclasses.dataclass
@@ -193,6 +239,12 @@ class _Slot:
     # request asked for logprobs.
     logprobs: list = dataclasses.field(default_factory=list)
     num_emitted: int = 0
+    # Device liveness data, frozen at registration: the stop set as a
+    # [STOP_IDS_MAX] column (None when it does not fit: the slot keeps the
+    # engine off the pipelined path) and the length at which the host
+    # retires the slot (max_tokens, or the cache cap).
+    stop_col: np.ndarray | None = None
+    dead_len: int = 0
 
 
 @dataclasses.dataclass
@@ -227,19 +279,144 @@ def _lane_gates(params, decoding=()) -> sampler_mod.Gates:
         guide=any(p.guide is not None for p in params))
 
 
-def _to_host(ids: torch.Tensor, lp=None):
-    """The sampled ids [..., B] on the host and, with ``lp`` (chosen [..., B],
-    top values and ids [..., B, L] from ``top_logprobs``), their logprob
-    data — in ONE device-to-host copy: (ids, None | (chosen, vals, lids))."""
+def _pack(ids: torch.Tensor, lp=None) -> torch.Tensor:
+    """The sampled ids [..., B] and, with ``lp`` (chosen [..., B], top
+    values and ids [..., B, L] from ``top_logprobs``), their logprob data
+    as ONE int32 tensor (floats as their bits), so one copy takes both."""
     if lp is None:
-        return ids.cpu().numpy(), None
+        return ids
     clp, vals, lids = lp
-    n = vals.shape[-1]
-    packed = torch.cat([ids[..., None], clp[..., None].view(torch.int32),
-                        vals.view(torch.int32), lids], dim=-1).cpu().numpy()
+    return torch.cat([ids[..., None], clp[..., None].view(torch.int32),
+                      vals.view(torch.int32), lids], dim=-1)
+
+
+def _unpack(packed: np.ndarray, with_lp: bool):
+    """``_pack``'s result on the host: (ids, None | (chosen, vals, lids))."""
+    if not with_lp:
+        return packed, None
+    n = (packed.shape[-1] - 2) // 2
     return packed[..., 0], (packed[..., 1].view(np.float32),
                             packed[..., 2: 2 + n].view(np.float32),
                             packed[..., 2 + n:])
+
+
+def _to_host(ids: torch.Tensor, lp=None):
+    """The sampled ids on the host, with their logprob data: one blocking
+    device-to-host copy (the host sync point of the sequential paths)."""
+    return _unpack(_pack(ids, lp).cpu().numpy(), lp is not None)
+
+
+class _HostCopy:
+    """A dispatch's sampled ids (and logprob data) on their way to the
+    host: on a CUDA device a non-blocking copy into a pinned buffer taken
+    from ``pool``, with an event recorded after it on the current stream
+    (the copy runs when the dispatch's kernels are done, and the host
+    reads it only once the event has passed); on the CPU the values
+    themselves, always ready.  ``pool`` maps a shape to the free pinned
+    buffers of that shape: a buffer goes back only when its copy has been
+    read, so none is reused while a copy into it may still run."""
+
+    def __init__(self, ids: torch.Tensor, lp, pool: dict) -> None:
+        packed = _pack(ids, lp)
+        self.with_lp = lp is not None
+        self.pool = pool
+        self.event = None
+        if packed.device.type != "cuda":
+            self.buf = packed.clone()
+            return
+        free = pool.setdefault(tuple(packed.shape), [])
+        self.buf = free.pop() if free else torch.empty(
+            packed.shape, dtype=torch.int32, pin_memory=True)
+        self.buf.copy_(packed, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+
+    def ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def result(self):
+        """(ids, None | (chosen, vals, lids)) as numpy; waits for the copy
+        when it has not landed yet."""
+        if self.event is not None:
+            self.event.synchronize()
+        out = self.buf.numpy().copy()
+        if self.event is not None:
+            self.pool[tuple(self.buf.shape)].append(self.buf)
+        return _unpack(out, self.with_lp)
+
+
+def mixed_pipe(params: tf.Params, cfg: ModelConfig, cache: tf.PagedKVCache,
+               tokens: torch.Tensor, lengths: torch.Tensor,
+               alive: torch.Tensor, stop_ids: torch.Tensor,
+               dead_len: torch.Tensor, sstate: sampler_mod.SamplingState,
+               tables: torch.Tensor, gtables, gates: sampler_mod.Gates,
+               want_lp: bool, sentinel: int):
+    """One steady-state mixed decode dispatch on device-resident state
+    (the reference's ``mixed_pipe``): a flat batch of B lanes, lane t =
+    slot t, the dead ones at the sentinel position with no query (writes
+    dropped, nothing attended), through the same ``mixed_step`` and
+    kernels as the host-built batch; then one ``sample`` over every lane
+    and the end-of-dispatch liveness.  ``tokens``/``lengths``/``alive``
+    [B] are the previous dispatch's outputs (or the host mirrors on a
+    fresh issue), ``stop_ids`` [B, STOP_IDS_MAX] and ``dead_len`` [B] the
+    slots' frozen liveness data.  An MoE model takes the dispatch its rule
+    gives B tokens.  Returns (toks [1, B], None | logprob data [1, B(, L)],
+    next tokens, next lengths, next alive, the sampling state)."""
+    b = tokens.shape[0]
+    lane = torch.arange(b, dtype=torch.int32, device=tokens.device)
+    eff = torch.where(alive, lengths, sentinel)
+    if gates.penalties:
+        sstate = sampler_mod.count_tokens(sstate, tokens, alive)
+    logits = tf.mixed_step(params, cfg, cache, tables, tokens,
+                           torch.where(alive, lane, -1), eff, lane, lane,
+                           alive.to(torch.int32), eff, qmax=1)
+    nxt, sstate = sampler_mod.sample(logits, sstate, alive, eff, gtables,
+                                     gates)
+    nxt = torch.where(alive, nxt, 0)
+    lengths = lengths + 1
+    alive = sampler_mod.advance_liveness(nxt[None], alive, lengths, stop_ids,
+                                         dead_len)
+    lp = None
+    if want_lp:
+        lp = tuple(x[None] for x in sampler_mod.top_logprobs(logits, nxt))
+    return (nxt[None], lp, torch.where(alive, nxt, 0), lengths, alive,
+            sstate)
+
+
+def decode_pipe(params: tf.Params, cfg: ModelConfig, cache,
+                tokens: torch.Tensor, lengths: torch.Tensor,
+                alive: torch.Tensor, stop_ids: torch.Tensor,
+                dead_len: torch.Tensor, sstate: sampler_mod.SamplingState,
+                tables: torch.Tensor | None, gtables,
+                gates: sampler_mod.Gates, want_lp: bool, sentinel: int,
+                k_steps: int):
+    """One steady-state legacy dispatch on device-resident state (the
+    reference's ``decode_pipe``): ``k_steps`` ``decode_state_step``s, each
+    counting its fed tokens first (when a lane has penalties) and sampling
+    every live slot, then the end-of-dispatch liveness.  Arguments as
+    ``mixed_pipe``'s (``tables`` None on the slot cache).  Returns (toks
+    [K, B], None | logprob data [K, B(, L)], next tokens, next lengths,
+    next alive, the sampling state)."""
+    toks, lps = [], []
+    for _ in range(k_steps):
+        eff = torch.where(alive, lengths, sentinel)
+        active = eff < sentinel
+        if gates.penalties:
+            sstate = sampler_mod.count_tokens(sstate, tokens, active)
+        logits = tf.decode_state_step(params, cfg, cache, tokens, lengths,
+                                      alive, sentinel, tables)
+        nxt, sstate = sampler_mod.sample(logits, sstate, active, eff,
+                                         gtables, gates)
+        tokens = torch.where(alive, nxt, 0)
+        toks.append(tokens)
+        if want_lp:
+            lps.append(sampler_mod.top_logprobs(logits, tokens))
+        lengths = lengths + 1
+    toks = torch.stack(toks)
+    alive = sampler_mod.advance_liveness(toks, alive, lengths, stop_ids,
+                                         dead_len)
+    lp = tuple(torch.stack(x) for x in zip(*lps)) if want_lp else None
+    return toks, lp, torch.where(alive, tokens, 0), lengths, alive, sstate
 
 
 class InferenceEngine:
@@ -320,6 +497,12 @@ class InferenceEngine:
             self._moe_grouped = moe.use_grouped(n + self._mixed_budget)
         self._buckets = engine_cfg.resolve_buckets()
         self._admit_sizes = admit_batch_sizes()
+        self._pipe_depth = pipeline_depth_knob()
+        self._sampler_fuse = sampler_fuse_knob()
+        self._overlap = overlap_decode_knob(self.device)
+        # Rows a pipelined dispatch writes per slot (mixed: its one-token
+        # step; legacy: the K-step loop), also dead_len's cache margin.
+        self._pipe_rows = 1 if self._mixed else engine_cfg.steps_per_dispatch
 
         # Host-authoritative scheduler state (engine thread only).  Slots
         # start parked in a paged pool (their rows' writes drop); in the
@@ -333,6 +516,21 @@ class InferenceEngine:
         self._slot_pages: dict[int, list[int]] = {}
         self._free: list[int] = list(range(n))
         self._request_seed = 0
+        # Bumped at every registration: a pipelined resolve drops the
+        # tokens of a slot retired (or re-registered) since its issue.
+        self._slot_gen = np.zeros((n,), np.int64)
+        # In-flight pipelined dispatches (FIFO), the device state threaded
+        # from one to the next (tokens, lengths, alive) and the run's
+        # liveness columns (stop ids, dead_len).
+        self._pipe_inflight: collections.deque = collections.deque()
+        self._pipe_state = None
+        self._pipe_cols = None
+        # Deferred admissions: issued one-shot batches whose first tokens
+        # have not been read yet (FIFO), and their request count.
+        self._pending_admits: collections.deque = collections.deque()
+        self._pending_n = 0
+        # Free pinned buffers of the async result copies, by shape.
+        self._host_bufs: dict = {}
         # Each slot's sampling row and decode key (registered slots' rows
         # are read).
         self._sampling = sampler_mod.init_sampling_state(
@@ -368,6 +566,15 @@ class InferenceEngine:
         self.shared_dispatches = 0
         self.decode_dispatches = 0
         self.decode_steps = 0
+        # Of those, the pipelined ones (fused depth-0 ones included), the
+        # in-flight count each issue left (occupancy -> dispatches) and its
+        # largest value, the fused ones, and the seconds the host waited
+        # for decode results at resolve.
+        self.pipe_dispatches = 0
+        self.pipe_occupancy: dict[int, int] = {}
+        self.pipe_occupancy_max = 0
+        self.sampler_fused_dispatches = 0
+        self.decode_resolve_wait_s = 0.0
 
     # ------------------------------------------------------------------
     # Request API
@@ -438,11 +645,14 @@ class InferenceEngine:
 
     @property
     def num_running(self) -> int:
-        return len(self._slots) + len(self._prefilling)
+        """Registered, prefilling and deferred-admission requests."""
+        return len(self._slots) + len(self._prefilling) + self._pending_n
 
     @property
     def idle(self) -> bool:
         return (not self._slots and not self._prefilling
+                and not self._pending_admits and not self._pipe_inflight
+                and self._pipe_state is None
                 and not self._awaiting_guide and self._queue.empty())
 
     def _run(self) -> None:
@@ -454,13 +664,16 @@ class InferenceEngine:
                     log.exception("engine step failed")
                     self._fail_all(f"engine_fault: {type(e).__name__}: {e}")
         finally:
-            # No scheduler remains to unpark them.
+            # No scheduler remains to unpark or register them.
             self._abort_awaiting_guide()
+            self._abort_pending_admits()
 
     def _fail_all(self, error: str) -> None:
-        """After a failed step: end every in-flight request with an error
-        and return its slot (the reference's fault recovery and replay are
-        a later slice)."""
+        """After a failed step: drop the in-flight pipelined dispatches,
+        end every in-flight request with an error and return its slot (the
+        reference's fault recovery and replay are a later slice)."""
+        self._pipe_reset()
+        self._abort_pending_admits()
         for slot in list(self._slots):
             st = self._slots.pop(slot)
             self._release_slot(slot, st.request)
@@ -483,16 +696,35 @@ class InferenceEngine:
     def step(self, block_s: float = 0.05) -> bool:
         """One scheduler iteration; returns True if any work was done.
 
-        Mixed: issue ONE mixed dispatch, admit waiting requests while it
-        runs, then fan its tokens out.  Legacy, in the reference's
-        sequential order: admit (one-shot batches run at once), advance
-        one prefill chunk, then one K-step decode dispatch.  First, on
-        either: new guide tables go to the device, and requests parked on a
-        guide compile move on (re-queued once it published, failed if it
-        failed)."""
+        First, on either scheduler: new guide tables go to the device, and
+        requests parked on a guide compile move on (re-queued once it
+        published, failed if it failed).  Then, in the reference's order:
+        - steady state with ``ARKS_PIPELINE_DEPTH`` > 0: ONE pipelined
+          dispatch, resolving the oldest in flight once the pipeline is
+          full (``_step_pipelined``);
+        - otherwise, with dispatches in flight: resolve them all first, so
+          the host mirrors are exact before anything changes them;
+        - steady state at depth 0 on a mixed engine with
+          ``ARKS_SAMPLER_FUSE``: the pipe program resolved at once;
+        - mixed: issue ONE mixed dispatch, admit waiting requests while it
+          runs, then fan its tokens out;
+        - legacy: with the overlap on, issue the K-step decode dispatch,
+          admit and advance one prefill chunk while it runs, then resolve
+          it; with it off admit, chunk, then decode;
+        - then read the deferred admissions whose first tokens landed (the
+          oldest even if it has not, when nothing else moved)."""
         self._ensure_guides_uploaded()
         worked = bool(self._awaiting_guide) and \
             self._service_awaiting_guides()
+        if self._pipe_ready():
+            self._step_pipelined()
+            return True
+        if self._pipe_inflight or self._pipe_state is not None:
+            self._pipe_drain()
+            worked = True
+        if self._fuse_ready():
+            self._step_fused()
+            return True
         if self._mixed:
             rec = None
             if self._slots or self._prefilling:
@@ -502,13 +734,23 @@ class InferenceEngine:
                 self._resolve_mixed(rec)
                 worked = True
         else:
-            worked = self._admit() or worked
+            pending = None
+            issued = False
+            if self._slots and self._overlap:
+                # May retire or abort every slot and issue nothing.
+                pending = self._issue_decode()
+                issued = True
+            worked = self._admit() or worked or issued
             if self._prefilling:
                 self._process_chunk()
                 worked = True
-            if self._slots:
+            if pending is not None:
+                self._resolve_decode(pending)
+            elif self._slots and not self._overlap:
                 self._decode_dispatch()
                 worked = True
+        if self._pending_admits:
+            worked = self._drain_ready_admits(force_one=not worked) or worked
         if worked:
             return True
         self._purge_stale_aborts()
@@ -518,7 +760,7 @@ class InferenceEngine:
             return False
         pre = self._preadmit(req)
         if pre is not None:
-            self._admit_batch([pre])
+            self._resolve_admit_batch(self._issue_admit_batch([pre]))
         return True
 
     def _park_sentinel(self) -> int:
@@ -541,7 +783,10 @@ class InferenceEngine:
     def _admit(self) -> bool:
         """Admit waiting requests while slots are free.  Chunked prompts
         take their slot at once; one-shot prompts (legacy) are grouped by
-        bucket and admitted in batches of ``admit_batch_sizes``."""
+        bucket and issued in batches of ``admit_batch_sizes``, whose first
+        tokens are read later (deferred: ``_drain_ready_admits``), so the
+        engine thread never waits on an admission's copy while it could
+        be issuing decode work."""
         admitted = False
         groups: dict[int, list] = {}
         while self._free:
@@ -558,9 +803,42 @@ class InferenceEngine:
         for items in groups.values():
             while items:
                 m = next(x for x in self._admit_sizes if x <= len(items))
-                self._admit_batch(items[:m])
+                rec = self._issue_admit_batch(items[:m])
                 del items[:m]
+                self._pending_admits.append(rec)
+                self._pending_n += len(rec[0])
+        if self._pending_admits:
+            self._drain_ready_admits()
         return admitted
+
+    def _drain_ready_admits(self, force_one: bool = False) -> bool:
+        """Resolve the deferred admission batches whose first tokens have
+        landed, oldest first (emission order = issue order); with
+        ``force_one`` the oldest even if it has not (the idle path: a
+        pending admission must never starve behind an empty queue).
+        Returns True if any resolved."""
+        did = False
+        while self._pending_admits:
+            rec = self._pending_admits[0]
+            if not (force_one and not did) and not rec[2].ready():
+                break
+            self._pending_admits.popleft()
+            self._pending_n -= len(rec[0])
+            self._resolve_admit_batch(rec)
+            did = True
+        return did
+
+    def _abort_pending_admits(self) -> None:
+        """End every deferred admission (engine exit, a failed step): its
+        requests hold slots and pages but are registered nowhere else."""
+        while self._pending_admits:
+            items, slots, _ = self._pending_admits.popleft()
+            self._pending_n -= len(items)
+            for (req, ids, _), slot in zip(items, slots):
+                self._release_slot(slot, req)
+                req.outputs.put(RequestOutput(
+                    request_id=req.request_id, token_ids=[], finished=True,
+                    finish_reason="abort", num_prompt_tokens=len(ids)))
 
     def _preadmit(self, req: Request):
         """Aborts and rejects; chunked prompts start here.  Returns
@@ -644,6 +922,8 @@ class InferenceEngine:
         live = {st.request.request_id for st in self._slots.values()}
         live |= {cs.request.request_id for cs in self._prefilling.values()}
         live |= {req.request_id for req, _ in self._awaiting_guide}
+        live |= {req.request_id for rec in self._pending_admits
+                 for req, _, _ in rec[0]}
         with self._abort_lock:
             self._aborted -= set(consumed)
             if not live and self._queue.empty():
@@ -678,7 +958,12 @@ class InferenceEngine:
             if int(self._lengths[slot]) + headroom > self.ecfg.max_cache_len:
                 self._finish(slot, "length")
 
-    def _grow_slot_pages(self, rows: int) -> None:
+    def _grow_slot_pages(self, rows: int, ahead: int = 0) -> None:
+        """Extend every decoding slot's table to cover the ``rows`` rows
+        its next dispatch writes, and those of the ``ahead`` dispatches
+        already in flight (the host's lengths lag them).  The pool holds
+        every slot's full table, so the allocation cannot fail."""
+        rows *= ahead + 1
         for slot in self._slots:
             need = pages_needed(int(self._lengths[slot]), rows, self._page,
                                 self._max_pages)
@@ -689,11 +974,11 @@ class InferenceEngine:
                 row.extend(new)
 
     def _set_slots(self, slots: list[int], params: list, keys: torch.Tensor,
-                   num_prompts: list[int], guide_rows: list[int]) -> None:
+                   num_prompts: list[int], guide_rows) -> None:
         """Write the slots' sampling rows: their request parameters, their
         decode keys ``keys`` [M, 2], and for requests that shape their
         logits the penalty, bias, min_tokens and guide columns (the guide
-        row already advanced by the first token)."""
+        rows [M], host or device, already advanced by the first token)."""
         temp = np.array([p.temperature for p in params], np.float32)
         top_p = np.array([p.top_p for p in params], np.float32)
         top_k = np.array([p.top_k for p in params], np.int32)
@@ -708,7 +993,7 @@ class InferenceEngine:
             np.array([p.presence_penalty for p in params], np.float32),
             np.array([p.frequency_penalty for p in params], np.float32),
             c["bias_ids"], c["bias_vals"], c["suppress_ids"], c["min_until"],
-            c["guide"], np.asarray(guide_rows, np.int32))
+            c["guide"], guide_rows)
 
     # ------------------------------------------------------------------
     # Request-level shaping: columns, logprobs, guides
@@ -896,11 +1181,15 @@ class InferenceEngine:
     # Legacy scheduler: one-shot admission, chunks, K-step decode
     # ------------------------------------------------------------------
 
-    def _admit_batch(self, items: list) -> None:
-        """Admit one-shot prompts of one bucket in one go (the reference's
-        fused ``admit_batch``): prefill, first-token sample with each
-        request's key, the cache insert and the slots' sampling rows with
-        the decode keys fold_in(key, 1); then register the slots."""
+    def _issue_admit_batch(self, items: list):
+        """Issue the admission of one-shot prompts of one bucket in one go
+        (the reference's fused ``admit_batch``): prefill, first-token
+        sample with each request's key, the cache insert and the slots'
+        sampling rows with the decode keys fold_in(key, 1) and the guide
+        rows their first tokens advance to, all on the device; the first
+        tokens start their copy to the host.  The slots stay parked (their
+        rows in any decode dispatch before ``_resolve_admit_batch`` are
+        dropped).  Returns the record for ``_resolve_admit_batch``."""
         m = len(items)
         dev = self.device
         slots: list[int] = []
@@ -922,7 +1211,7 @@ class InferenceEngine:
         params = [req.params for req, _, _ in items]
         logits, ks, vs = tf.prefill(self.params, self.cfg, tokens, lengths)
         key_t = prng.key_tensor(keys, dev)
-        firsts, first_lps, rows = self._sample_first(logits, params, key_t)
+        firsts, lp, rows = self._sample_first(logits, params, key_t)
         if self._paged:
             tf.insert_pages_batch(self.cache, ks, vs, pages, n_pages)
         else:
@@ -930,8 +1219,14 @@ class InferenceEngine:
         del ks, vs
         self._set_slots(slots, params, prng.fold_in(key_t, 1),
                         [len(ids) for _, ids, _ in items], rows)
-        for (req, ids, _), slot, first, first_lp in zip(items, slots, firsts,
-                                                        first_lps):
+        return items, slots, _HostCopy(firsts, lp, self._host_bufs)
+
+    def _resolve_admit_batch(self, rec) -> None:
+        """Read an admission batch's first tokens and register its slots;
+        a request aborted since the issue frees its slot instead."""
+        items, slots, copy = rec
+        firsts, lp_h = copy.result()
+        for i, ((req, ids, _), slot) in enumerate(zip(items, slots)):
             with self._abort_lock:
                 aborted = req.request_id in self._aborted
                 self._aborted.discard(req.request_id)
@@ -941,36 +1236,36 @@ class InferenceEngine:
                     request_id=req.request_id, token_ids=[], finished=True,
                     finish_reason="abort", num_prompt_tokens=len(ids)))
                 continue
-            self._register_slot(req, slot, first, len(ids), first_lp)
+            self._register_slot(req, slot, int(firsts[i]), len(ids),
+                                self._first_lp(req.params, lp_h, i))
 
     def _sample_first(self, logits: torch.Tensor, params: list,
                       keys: torch.Tensor):
         """First tokens of prompts whose last logits are ``logits``
         [M, V], each drawn with its request's key (the reference's
         transient sampling state; the keys are not carried) and shaped by
-        its bias, min_tokens and guide.  Returns (ids, logprob entries —
-        None where not asked for —, the guide rows the tokens advance
-        to)."""
+        its bias, min_tokens and guide, on the device.  Returns (ids [M],
+        None | their logprob data, the guide rows the tokens advance to
+        [M])."""
         gates = _lane_gates(params)
         if gates.guide:
             self._ensure_guides_uploaded()
         state = self._first_state(params, keys, gates)
-        ids, _ = sampler_mod.sample(
+        ids, state = sampler_mod.sample(
             logits, state, guide_tables=self._guide_dev if gates.guide
             else None, gates=gates)
-        want_lp = any(p.logprobs is not None for p in params)
-        lp = sampler_mod.top_logprobs(logits, ids) if want_lp else None
-        ids_h, lp_h = _to_host(ids, lp)
-        firsts = ids_h.tolist()
-        entries = [None if p.logprobs is None else
-                   self._lp_entry(lp_h[0][i], lp_h[1][i], lp_h[2][i],
-                                  p.logprobs)
-                   for i, p in enumerate(params)]
-        rows = []
-        for p, first in zip(params, firsts):
-            gid, row = self._guide_cols(p)
-            rows.append(self.guides.next_row(row, first) if gid >= 0 else 0)
-        return firsts, entries, rows
+        lp = sampler_mod.top_logprobs(logits, ids) \
+            if any(p.logprobs is not None for p in params) else None
+        rows = state.guide_row if gates.guide else np.zeros(
+            (len(params),), np.int32)
+        return ids, lp, rows
+
+    def _first_lp(self, p, lp_h, i: int):
+        """Lane ``i``'s logprob entry from a host copy of a step's logprob
+        data; None unless its request (params ``p``) asked for them."""
+        if lp_h is None or p.logprobs is None:
+            return None
+        return self._lp_entry(lp_h[0][i], lp_h[1][i], lp_h[2][i], p.logprobs)
 
     def _process_chunk(self) -> None:
         """Advance the oldest prefilling prompt by one chunk; on its last
@@ -1000,34 +1295,61 @@ class InferenceEngine:
         if st.pos < len(st.ids):
             return
         key = prng.key_tensor(st.key[None], dev)
-        firsts, first_lps, rows = self._sample_first(
-            logits, [st.request.params], key)
+        p = st.request.params
+        first, lp, rows = self._sample_first(logits, [p], key)
+        first_h, lp_h = _to_host(first, lp)
         del self._prefilling[slot]
-        self._set_slots([slot], [st.request.params], prng.fold_in(key, 1),
-                        [len(st.ids)], rows)
-        self._register_slot(st.request, slot, firsts[0], len(st.ids),
-                            first_lps[0])
+        self._set_slots([slot], [p], prng.fold_in(key, 1), [len(st.ids)],
+                        rows)
+        self._register_slot(st.request, slot, int(first_h[0]), len(st.ids),
+                            self._first_lp(p, lp_h, 0))
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the device, taken by value now.  On a CUDA
+        device a non-blocking copy from pinned memory: a pageable copy
+        would wait for every kernel queued before it (a host sync)."""
+        t = torch.from_numpy(np.array(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _decode_dispatch(self) -> None:
-        """ONE fused K-step decode dispatch over every slot, then the host
-        fan-out of its tokens to the slots registered at issue."""
+        """ONE fused K-step decode dispatch and its resolve (the
+        sequential order)."""
+        rec = self._issue_decode()
+        if rec is not None:
+            self._resolve_decode(rec)
+
+    def _issue_decode(self):
+        """Issue ONE fused K-step decode dispatch over every slot: aborted
+        slots and slots whose next K rows would overflow the cache are
+        freed first (pages handed to admissions during the flight are then
+        never written by it), and the dispatch's slot set is taken now.
+        Returns the record for ``_resolve_decode``, or None when no slot
+        is left."""
         k_steps = self.ecfg.steps_per_dispatch
         self._abort_and_retire(1 + k_steps)
         if not self._slots:
-            return
+            return None
         if self._paged:
             self._grow_slot_pages(k_steps)
         snapshot = list(self._slots)
-        dev = self.device
-        tokens = torch.from_numpy(self._last_token.copy()).to(dev)
-        lengths = torch.from_numpy(self._lengths.copy()).to(dev)
-        tables = torch.from_numpy(self._tables.copy()).to(dev) \
-            if self._paged else None
+        tokens = self._upload(self._last_token)
+        lengths = self._upload(self._lengths)
+        tables = self._upload(self._tables) if self._paged else None
         params = [self._slots[s].request.params for s in snapshot]
         ids, lp = self._decode_loop(tokens, lengths, tables, params)
         self.decode_dispatches += 1
         self.decode_steps += k_steps
-        ids_h, lp_h = _to_host(ids, lp)                # the host sync point
+        return snapshot, _HostCopy(ids, lp, self._host_bufs)
+
+    def _resolve_decode(self, rec) -> None:
+        """Read a decode dispatch's tokens (the host sync point) and fan
+        them out to the slots of its snapshot."""
+        snapshot, copy = rec
+        t0 = time.monotonic()
+        ids_h, lp_h = copy.result()
+        self.decode_resolve_wait_s += time.monotonic() - t0
         cols = ids_h.T.tolist()
         for slot in snapshot:
             rows = None
@@ -1297,13 +1619,6 @@ class InferenceEngine:
         advance every prefilling sequence, promote completed prompts."""
         dec_slots, completing, chunk_take, ids_dev, lp = rec
         ids, lp_h = _to_host(ids_dev, lp)    # the host sync point
-
-        def lp_of(slot, p):
-            if lp_h is None or p.logprobs is None:
-                return None
-            return self._lp_entry(lp_h[0][slot], lp_h[1][slot],
-                                  lp_h[2][slot], p.logprobs)
-
         for slot in dec_slots:
             rows = None
             if lp_h is not None and \
@@ -1323,14 +1638,19 @@ class InferenceEngine:
                             [self.guides.next_row(row, first)
                              if gid >= 0 else 0])
             self._register_slot(cs.request, slot, first, len(cs.ids),
-                                lp_of(slot, p))
+                                self._first_lp(p, lp_h, slot))
 
     def _register_slot(self, req: Request, slot: int, first: int,
                        num_prompt: int, first_lp=None) -> None:
-        st = _Slot(request=req, num_prompt=num_prompt)
+        p = req.params
+        st = _Slot(request=req, num_prompt=num_prompt,
+                   stop_col=sampler_mod.np_stop_col(self._stop_ids_for(p)),
+                   dead_len=min(num_prompt + p.max_tokens - 1,
+                                self.ecfg.max_cache_len - self._pipe_rows))
         st.generated.append(first)
         if first_lp is not None:
             st.logprobs.append(first_lp)
+        self._slot_gen[slot] += 1
         self._slots[slot] = st
         self._lengths[slot] = num_prompt
         self._last_token[slot] = first
@@ -1342,6 +1662,187 @@ class InferenceEngine:
             request_id=req.request_id, token_ids=[first],
             num_prompt_tokens=num_prompt, ttft_s=ttft,
             logprobs=list(st.logprobs) if st.logprobs else None))
+
+    # ------------------------------------------------------------------
+    # Pipelined decode (ARKS_PIPELINE_DEPTH) and depth-0 sampler fusion
+    # ------------------------------------------------------------------
+
+    def _stop_ids_for(self, p) -> list[int]:
+        """The token ids that end a stream for these params: the set
+        ``_is_stop`` checks, mirrored onto the device as a stop column."""
+        if p.ignore_eos:
+            return list(p.stop_token_ids)
+        return (list(self.cfg.eos_token_ids)
+                + list(self.tokenizer.eos_token_ids)
+                + list(p.stop_token_ids))
+
+    def _pipe_ready(self) -> bool:
+        """True when this iteration can stay on the pipelined path (depth
+        > 0 and ``_steady_ready``).  Requests parked on a guide compile do
+        not drain it: the park is host bookkeeping, and the request comes
+        back through the admission queue, which ``_steady_ready`` sees."""
+        return bool(self._pipe_depth) and self._steady_ready()
+
+    def _fuse_ready(self) -> bool:
+        """Depth-0 sampler fusion (``ARKS_SAMPLER_FUSE``) on a mixed
+        engine: a steady-state iteration runs the pipe program, fresh from
+        the host mirrors, and resolves it at once, in place of the
+        host-built mixed batch.  The gates are the pipelined path's."""
+        if self._pipe_depth or not self._sampler_fuse or not self._mixed:
+            return False
+        return self._steady_ready()
+
+    def _steady_ready(self) -> bool:
+        """The steady-state gate shared by the pipelined and fused paths:
+        live decoding slots, no prefill chunk and no deferred admission
+        pending, no admission possible (a free slot and a waiting
+        request), every slot's stop set on the device, and no abort aimed
+        at a live slot.  The reference's other gates guard subsystems the
+        port does not have (windowed residency, host-tier restores, disk
+        or peer fetches, swaps and preemption) and are left out; so is
+        its wait for the pipe programs' ahead-of-time compile: eager
+        PyTorch has nothing to compile, and the kernels build at their
+        first launch."""
+        if not self._slots or self._prefilling or self._pending_admits:
+            return False
+        if self._free and not self._queue.empty():
+            return False
+        if any(st.stop_col is None for st in self._slots.values()):
+            return False
+        with self._abort_lock:
+            if self._aborted and self._aborted & {
+                    st.request.request_id for st in self._slots.values()}:
+                return False
+        return True
+
+    def _step_pipelined(self) -> None:
+        """One steady-state iteration: issue ONE dispatch when the pipeline
+        has room, then resolve the oldest, waiting for it only when the
+        pipeline is full, else resolving whatever has already landed."""
+        if len(self._pipe_inflight) < self._pipe_depth:
+            self._pipe_issue()
+        if len(self._pipe_inflight) >= self._pipe_depth:
+            self._pipe_resolve_one()
+        else:
+            while self._pipe_inflight and self._pipe_rec_ready(
+                    self._pipe_inflight[0]):
+                self._pipe_resolve_one()
+
+    def _step_fused(self) -> None:
+        """One depth-0 fused iteration: the pipe program issued fresh from
+        the host mirrors and resolved at once; the threaded state is
+        dropped, so the host stays authoritative."""
+        self._pipe_issue()
+        if self._pipe_inflight:
+            self.sampler_fused_dispatches += 1
+            self._pipe_resolve_one()
+        self._pipe_state = None
+        self._pipe_cols = None
+
+    @staticmethod
+    def _pipe_rec_ready(rec) -> bool:
+        return rec[2].ready()
+
+    def _pipe_issue(self) -> None:
+        """Issue one pipelined dispatch.  Fresh (nothing threaded): the
+        device state comes from the host mirrors, the run's one upload of
+        it, after retiring slots whose next dispatch would pass the cache
+        cap (the margin ``dead_len`` keeps on the device for the rest of
+        the run).  Threaded: the previous dispatch's outputs feed this one
+        untouched; only the block tables travel.  The results start their
+        copy to the host at once.  No host sync: uploads go through pinned
+        memory, the sampler's passes are gated by the live slots' requests
+        (host booleans), and the results are read at resolve."""
+        k = self._pipe_rows
+        fresh = self._pipe_state is None
+        if fresh:
+            for slot in list(self._slots):
+                if int(self._lengths[slot]) >= self.ecfg.max_cache_len - k:
+                    self._finish(slot, "length")
+            if not self._slots:
+                return
+        if self._paged:
+            self._grow_slot_pages(k, ahead=len(self._pipe_inflight))
+        self._ensure_guides_uploaded()
+        if fresh:
+            n = self.ecfg.num_slots
+            alive = np.zeros((n,), bool)
+            stop_ids = np.full((n, sampler_mod.STOP_IDS_MAX), -1, np.int32)
+            dead_len = np.zeros((n,), np.int32)
+            for slot, st in self._slots.items():
+                alive[slot] = True
+                stop_ids[slot] = st.stop_col
+                dead_len[slot] = st.dead_len
+            state = (self._upload(self._last_token),
+                     self._upload(self._lengths), self._upload(alive))
+            self._pipe_cols = (self._upload(stop_ids),
+                               self._upload(dead_len))
+        else:
+            state = self._pipe_state
+        params = [st.request.params for st in self._slots.values()]
+        gates = _lane_gates(params, params)
+        want_lp = any(p.logprobs is not None for p in params)
+        tables = self._upload(self._tables) if self._paged else None
+        args = (self.params, self.cfg, self.cache, *state, *self._pipe_cols,
+                self._sampling, tables,
+                self._guide_dev if gates.guide else None, gates, want_lp,
+                self._park_sentinel())
+        if self._mixed:
+            toks, lp, *nxt, self._sampling = mixed_pipe(*args)
+            self.dispatches += 1
+        else:
+            toks, lp, *nxt, self._sampling = decode_pipe(*args, k)
+            self.decode_dispatches += 1
+            self.decode_steps += k
+        self._pipe_state = tuple(nxt)
+        copy = _HostCopy(toks, lp, self._host_bufs)
+        snapshot = [(s, int(self._slot_gen[s])) for s in self._slots]
+        self._pipe_inflight.append((snapshot, want_lp, copy))
+        occ = len(self._pipe_inflight)
+        self.pipe_dispatches += 1
+        self.pipe_occupancy[occ] = self.pipe_occupancy.get(occ, 0) + 1
+        self.pipe_occupancy_max = max(self.pipe_occupancy_max, occ)
+
+    def _pipe_resolve_one(self) -> None:
+        """Resolve the OLDEST in-flight dispatch on the lagged host view:
+        fan its tokens out (stop tokens, max_tokens truncation, logprob
+        entries) and retire finished slots, whose overshoot tokens in
+        newer dispatches the (slot, generation) snapshot drops.  A slot
+        the device retired by the cache cap (``dead_len``) is retired here
+        too, as the sequential path retires it at its next issue."""
+        snapshot, want_lp, copy = self._pipe_inflight.popleft()
+        t0 = time.monotonic()
+        toks, lp_h = copy.result()
+        self.decode_resolve_wait_s += time.monotonic() - t0
+        cols = toks.T.tolist()
+        cap = self.ecfg.max_cache_len - self._pipe_rows
+        for slot, gen in snapshot:
+            st = self._slots.get(slot)
+            if st is None or int(self._slot_gen[slot]) != gen:
+                continue
+            rows = None
+            if want_lp and st.request.params.logprobs is not None:
+                rows = tuple(x[:, slot] for x in lp_h)
+            self._fanout_decode_tokens(slot, cols[slot], rows)
+            if slot in self._slots and int(self._lengths[slot]) >= cap:
+                self._finish(slot, "length")
+
+    def _pipe_drain(self) -> None:
+        """Resolve every in-flight dispatch and hand authority back to the
+        host mirrors (exact after the last resolve)."""
+        try:
+            while self._pipe_inflight:
+                self._pipe_resolve_one()
+        finally:
+            self._pipe_state = None
+            self._pipe_cols = None
+
+    def _pipe_reset(self) -> None:
+        """Fault path: drop the in-flight records without resolving them
+        (the failed step ends their requests)."""
+        self._pipe_inflight.clear()
+        self._pipe_state = None
+        self._pipe_cols = None
 
     # ------------------------------------------------------------------
     # Stop handling

@@ -82,8 +82,9 @@ def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 def fold_in(keys: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in`` of each key with a 32-bit ``data``."""
-    lo = torch.tensor([int(data) & _MASK], dtype=torch.int64,
-                      device=keys.device)
+    # A fill, not an upload: no host copy (and no stream sync) per call.
+    lo = torch.full((1,), int(data) & _MASK, dtype=torch.int64,
+                    device=keys.device)
     return torch.stack(_hash_counts(keys, lo), dim=-1)[..., 0, :]
 
 
@@ -101,8 +102,8 @@ def uniform(keys: torch.Tensor, n: int, minval: float = 0.0,
     [minval, maxval)."""
     bits = (random_bits(keys, n) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=keys.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=keys.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=keys.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=keys.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

@@ -3,7 +3,8 @@ for serving — the port of the single-device serving half of
 ``arks_tpu/models/transformer.py``:
 the mixed scheduler's ``mixed_step`` over the paged pool, and the legacy
 scheduler's one-shot ``prefill``, chunked prefill, prompt inserts and
-``decode_step`` over the slot-contiguous cache or the paged pool.
+``decode_step`` over the slot-contiguous cache or the paged pool, with its
+liveness-masked form ``decode_state_step`` for pipelined dispatch.
 
 Parameters keep the reference's layout: a dict of stacked ``[L, ...]``
 per-layer weights in ``x @ w`` orientation, so ``models/weights.py`` can
@@ -660,3 +661,19 @@ def decode_step(params: Params, cfg: ModelConfig,
                 lengths=attend)
         h = _block_tail(h, attn.reshape(b, cfg.q_dim), lp, cfg)
     return _unembed(h, params, cfg)
+
+
+def decode_state_step(params: Params, cfg: ModelConfig,
+                      cache: KVCache | PagedKVCache,
+                      tokens: torch.Tensor,   # [B] int32
+                      lengths: torch.Tensor,  # [B] int32 — alive slots' lengths
+                      alive: torch.Tensor,    # [B] bool
+                      sentinel: int,          # the engine's write-drop length
+                      tables: torch.Tensor | None = None,
+                      *, impl: str | None = None) -> torch.Tensor:
+    """Liveness-masked ``decode_step`` for device-state decoding: dead
+    slots write at the engine's park sentinel (dropped) and attend nothing
+    in a paged pool, the same arithmetic as a host that had already parked
+    the slot, so live slots' logits equal the sequential path's."""
+    eff = torch.where(alive, lengths, sentinel).to(torch.int32)
+    return decode_step(params, cfg, cache, tokens, eff, tables, impl=impl)

@@ -229,7 +229,9 @@ def build_mixed_work_list(pos_start: torch.Tensor, q_len: torch.Tensor, *,
     seq, hg, qb, plo, pages = (seq[order], hg[order], qb[order], plo[order],
                                pages[order])
     n_real = active.to(torch.int32).sum()
-    last = torch.clamp(n_real - 1, min=0)
+    # A [1] index, not a 0-d one: indexing with a 0-d tensor reads its
+    # value on the host (a sync).
+    last = torch.clamp(n_real - 1, min=0).reshape(1).long()
     pad = torch.arange(n, **i32) >= n_real
     seq = torch.where(pad, seq[last], seq)
     hg = torch.where(pad, hg[last], hg)

@@ -98,6 +98,21 @@ Phases (any failure raises and exits non-zero):
               (argmax only): device µs and kernel launches per step; on
               the legacy engine the all-off step must issue the argmax
               step's aten ops, read in the same call.
+              Every engine runs the reference's default shape
+              (ARKS_PIPELINE_DEPTH 2, ARKS_SAMPLER_FUSE 1, the legacy
+              decode/admission overlap on): each served run above must
+              also have issued pipelined dispatches.  Then the engine
+              shape itself (phase_pipeline): Qwen2.5-7B on the mixed bf16
+              pool and the legacy bf16 slot cache at depth 0 (fusion off),
+              depth 0 (fusion on, mixed only), depth 1 and depth 2 — one
+              greedy stream, 8 greedy streams admitted together (every
+              slot live in steady state) and 8 more traced over 16 steady
+              steps: all streams equal across the configurations, the
+              kernels counting num_layers x dispatches (decode steps),
+              every pipelined issue under
+              torch.cuda.set_sync_debug_mode("error") (no hidden host
+              sync); decode tok/s at 1 and 8 streams, host ms per token,
+              busy share and launches per step.
   5. parity   two mixed_steps through the kernels vs the same steps through
               impl="plain" at full width: logits within 10% of the largest
               |logit| in bf16 and within 5e-4 in f32, and the same argmax
@@ -140,7 +155,12 @@ Phases (any failure raises and exits non-zero):
               random int8 weights (a bf16 pool of 8 slots x 4096, chunk
               256) through phase 4's requests, grouped_matmul counting 3 x
               num_layers x mixed dispatches, with peak device memory, and
-              one traced mixed step; a short batch with int4 weights; and
+              one traced mixed step (these served engines pinned to
+              depth 0, fusion off: see _moe_engine); then 8 greedy streams
+              at depth 2 on the same weights, every pipelined issue
+              sync-checked, and the pipe step (8 tokens: the dense MoE
+              route, as the reference's rule gives) beside the sequential
+              one on the same lanes; a short batch with int4 weights; and
               mixed_step through the kernels vs impl="plain" over 2 layers
               (bf16 and int8 weights, 10% of the largest |logit|) and 1
               layer in f32 (5e-4).
@@ -945,6 +965,7 @@ def phase_serve(torch, dev, kv="bf16", params=None, engine=None):
         _reset_counts()
         torch.cuda.reset_peak_memory_stats()
         d0, shared0 = engine.dispatches, engine.shared_dispatches
+        p0 = engine.pipe_dispatches
 
         prompt = "The port serves OpenAI completions on the card."
         body = {"prompt": prompt, "max_tokens": 24, "temperature": 0}
@@ -1029,6 +1050,7 @@ def phase_serve(torch, dev, kv="bf16", params=None, engine=None):
             raise AssertionError("decode and prefill never shared a dispatch")
 
         dispatches = engine.dispatches - d0
+        pipe = engine.pipe_dispatches - p0
         launches = _read_counts()
         want = cfg.num_layers * dispatches
         update = "paged_kv_update_quant" if engine.kv_quantized \
@@ -1037,6 +1059,12 @@ def phase_serve(torch, dev, kv="bf16", params=None, engine=None):
                     else 0 for name in launches}
         if cfg.num_experts:      # three grouped products per layer
             expected["grouped_matmul"] = 3 * want
+        log(f"{tag} of those, pipelined dispatches {pipe} (depth "
+            f"{engine._pipe_depth}, fused {engine.sampler_fused_dispatches}"
+            f", occupancy {dict(sorted(engine.pipe_occupancy.items()))})")
+        if engine._pipe_depth and not pipe:
+            raise AssertionError(f"{tag} no pipelined dispatch at depth "
+                                 f"{engine._pipe_depth}")
         log(f"{tag} mixed dispatches {dispatches}, launches {launches}, "
             f"expected {expected} ({cfg.num_layers} layers)")
         if launches != expected or dispatches == 0:
@@ -1163,6 +1191,7 @@ def phase_serve_legacy(torch, dev, layout, kv, params, surface=False):
             raise AssertionError(f"{tag} warm-up failed: {out['warm']}")
         _reset_counts()
         s0, d0 = engine.decode_steps, engine.decode_dispatches
+        p0 = engine.pipe_dispatches
 
         prompt = "The legacy scheduler serves the slot cache on the card."
         body = {"prompt": prompt, "max_tokens": 24, "temperature": 0}
@@ -1218,9 +1247,16 @@ def phase_serve_legacy(torch, dev, layout, kv, params, surface=False):
             f"streams {res['decode_tok_s_b8']:.1f} tok/s aggregate ({wall:.2f}"
             f" s incl. prefill); TTFT of the 1100-token prompt "
             f"{res['ttft_1100_s']} s")
+        pipe = engine.pipe_dispatches - p0
+        log(f"{tag} of those, pipelined dispatches {pipe} (depth "
+            f"{engine._pipe_depth}, occupancy "
+            f"{dict(sorted(engine.pipe_occupancy.items()))})")
         if launches != expected or steps == 0:
             raise AssertionError(f"{tag} launch counts != layers x decode "
                                  "steps")
+        if engine._pipe_depth and not pipe:
+            raise AssertionError(f"{tag} no pipelined dispatch at depth "
+                                 f"{engine._pipe_depth}")
         res["launches"] = launches
         if surface:
             res["surface"] = phase_surface(torch, dev, engine,
@@ -1768,6 +1804,342 @@ def phase_surface_step(torch, dev, engine, lanes=8, ctx=512):
                if dev_us else "time not measured"))
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# The steady-state engine shape: pipelined dispatch, sampler fusion
+# ---------------------------------------------------------------------------
+
+
+PIPE_TOKENS = 64           # greedy tokens per stream, 8-stream runs
+PIPE_TOKENS_B1 = 32        # greedy tokens of the one-stream run
+PIPE_WINDOW = 16           # decode steps per timed / traced window
+# (tag, ARKS_PIPELINE_DEPTH, ARKS_SAMPLER_FUSE); fusion applies to mixed
+# engines only, so the legacy engine runs the first, third and fourth.
+PIPE_CONFIGS = (("depth 0, fusion off", "0", "0"),
+                ("depth 0, fusion on", "0", "1"),
+                ("depth 1", "1", "1"), ("depth 2", "2", "1"))
+
+
+def _pipe_engine(torch, dev, params, sched, depth, fuse):
+    """A Qwen2.5-7B engine on ``params`` (bf16, 8 slots x 4096, chunk 256):
+    the mixed scheduler on a bf16 pool or the legacy one on the bf16 slot
+    cache, at pipeline depth ``depth`` with fusion ``fuse``."""
+    import os
+
+    from arks_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arks_tpu_torch.engine.tokenizer import ByteTokenizer
+    from arks_tpu_torch.models import get_config
+    old = {k: os.environ.get(k) for k in ("ARKS_PIPELINE_DEPTH",
+                                          "ARKS_SAMPLER_FUSE")}
+    os.environ.update(ARKS_PIPELINE_DEPTH=depth, ARKS_SAMPLER_FUSE=fuse)
+    try:
+        engine = InferenceEngine(get_config(MODEL), EngineConfig(
+            model=MODEL, num_slots=8, max_cache_len=MAX_PAGES * PAGE,
+            prefill_chunk=PAGE, dtype="bfloat16", kv_cache_dtype="bf16",
+            kv_layout="paged" if sched == "mixed" else "slot", seed=SEED),
+            ByteTokenizer(), params=params, device=dev)
+    finally:
+        _restore_env(os, old)
+    if engine._mixed != (sched == "mixed"):
+        raise AssertionError(f"[pipeline {sched}] wrong scheduler")
+    return engine
+
+
+def _restore_env(os, old: dict) -> None:
+    for k, v in old.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+class _NoSync:
+    """Wraps ``engine._pipe_issue`` in torch.cuda.set_sync_debug_mode
+    ("error"): any host sync while a pipelined dispatch is issued raises
+    (and fails the phase); counts the issues it watched."""
+
+    def __init__(self, torch, engine):
+        self.torch, self.engine, self.orig = torch, engine, engine._pipe_issue
+        self.issues = 0
+
+    def __enter__(self):
+        def checked():
+            self.torch.cuda.set_sync_debug_mode("error")
+            try:
+                self.orig()
+            finally:
+                self.torch.cuda.set_sync_debug_mode("default")
+            self.issues += 1
+        self.engine._pipe_issue = checked
+        return self
+
+    def __exit__(self, *exc):
+        # Drop the instance attribute (the class's method shows again):
+        # assigning the bound method back would make a reference cycle
+        # that keeps the engine, and its cache, alive until a GC pass.
+        del self.engine._pipe_issue
+
+
+def _pipe_batch(torch, engine, prompts, max_tokens, window=False):
+    """One greedy request per prompt, added together and driven by
+    ``engine.step()`` from this thread until the engine is idle.  Returns
+    (streams, decode seconds: from the step at which the last stream got
+    its first token to the end, and with ``window``, once every stream
+    has decoded 4 scheduler steps: (host ms per scheduler step over
+    synchronised steps covering PIPE_WINDOW decode steps, then device µs
+    and kernel launches per scheduler step from torch.profiler over the
+    next as many))."""
+    import queue
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from arks_tpu_torch.engine import Request, SamplingParams
+    tok = engine.tokenizer
+    reqs = [Request(f"pipe-{i}-{time.perf_counter_ns()}", tok.encode(p),
+                    SamplingParams(max_tokens=max_tokens, temperature=0,
+                                   ignore_eos=True))
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.add_request(r)
+    streams = {r.request_id: [] for r in reqs}
+    fins, t_first, since, win = {}, None, 0, None
+
+    def drain():
+        for r in reqs:
+            while True:
+                try:
+                    o = r.outputs.get_nowait()
+                except queue.Empty:
+                    break
+                streams[r.request_id] += o.token_ids
+                if o.finished:
+                    fins[r.request_id] = o.finish_reason
+
+    for _ in range(100_000):
+        engine.step(block_s=0.001)
+        drain()
+        if t_first is None and all(streams.values()):
+            t_first = time.perf_counter()
+        if t_first is not None:
+            since += 1
+        if window and win is None and since == 4:
+            steps = PIPE_WINDOW // engine._pipe_rows
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                engine.step(block_s=0.001)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) / steps * 1e3
+            # Device activity only: the host's ~17,000 aten ops a step
+            # would take the profiler longer to record than the window.
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    engine.step(block_s=0.001)
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            win = (host_ms, sum(e.self_device_time_total for e in kernels)
+                   / steps, sum(e.count for e in kernels) / steps)
+            drain()
+        if engine.idle and len(fins) == len(reqs):
+            break
+    secs = time.perf_counter() - t_first
+    bad = {k: (len(v), fins.get(k)) for k, v in streams.items()
+           if len(v) != max_tokens or fins.get(k) != "length"}
+    if bad:
+        raise AssertionError(f"[pipeline] streams cut short: {bad}")
+    return [streams[r.request_id] for r in reqs], secs, win
+
+
+def phase_pipeline(torch, dev, params):
+    """The reference's default engine shape on Qwen2.5-7B at full width
+    (``params``: phase 4's bf16 weights), on the mixed scheduler (bf16
+    pool) and the legacy one (bf16 slot cache), at each of PIPE_CONFIGS:
+    a warm-up request, then one greedy stream of PIPE_TOKENS_B1 tokens
+    and 8 greedy streams of PIPE_TOKENS admitted together (prompts of 22
+    bytes, so all 8 complete their prefill in one step and every slot is
+    live in steady state), then the same 8 again, traced in steady
+    state.
+    Checks: every run's streams equal the first configuration's; the
+    8-stream run's update and attention kernels count num_layers x its
+    dispatches (decode steps on the legacy engine), the others none; the
+    pipelined runs issued pipe dispatches (the fused run only fused ones)
+    with occupancy at most the depth, each issue under
+    torch.cuda.set_sync_debug_mode("error") (no hidden host sync).
+    Reports decode tok/s at 1 and 8 streams, host ms per token, the
+    device busy share and kernel launches per scheduler step over
+    PIPE_WINDOW steady decode steps, and the phase's seconds.  Returns
+    {"launches": summed counts, "rows": {(sched, tag): numbers}}."""
+    t_phase = time.perf_counter()
+    prompts = [f"lane {i} of the pipeline" for i in range(8)]
+    total = collections.Counter()
+    rows = {}
+    for sched in ("mixed", "legacy"):
+        base = None
+        for tag, depth, fuse in PIPE_CONFIGS:
+            if sched == "legacy" and tag == "depth 0, fusion on":
+                continue
+            name = f"[pipeline {sched} {tag}]"
+            engine = _pipe_engine(torch, dev, params, sched, depth, fuse)
+            cfg = engine.cfg
+            _pipe_batch(torch, engine, ["warm up"], 8)
+            one, secs1, _ = _pipe_batch(torch, engine, prompts[:1],
+                                        PIPE_TOKENS_B1)
+            _reset_counts()
+            d0, s0, p0, f0 = (engine.dispatches, engine.decode_steps,
+                              engine.pipe_dispatches,
+                              engine.sampler_fused_dispatches)
+            with _NoSync(torch, engine) as nosync:
+                eight, secs8, _ = _pipe_batch(torch, engine, prompts,
+                                              PIPE_TOKENS)
+            launches = _read_counts()
+            n = (engine.dispatches - d0 if sched == "mixed"
+                 else engine.decode_steps - s0)
+            pipe = engine.pipe_dispatches - p0
+            fused = engine.sampler_fused_dispatches - f0
+            update, attn = (("paged_kv_update", "paged_mixed_attention")
+                            if sched == "mixed" else
+                            ("kv_cache_update", "ragged_decode_attention"))
+            expected = {k: cfg.num_layers * n if k in (update, attn) else 0
+                        for k in launches}
+            traced, _, win = _pipe_batch(torch, engine, prompts,
+                                         PIPE_TOKENS, window=True)
+            streams = one + eight
+            base = base or streams
+            per_tok, per_tok1 = PIPE_TOKENS - 1, PIPE_TOKENS_B1 - 1
+            host_ms, dev_us, kern = win
+            row = dict(tok_s_b1=per_tok1 / secs1,
+                       tok_s_b8=8 * per_tok / secs8,
+                       ms_per_tok_b1=secs1 / per_tok1 * 1e3,
+                       ms_per_tok_b8=secs8 / per_tok * 1e3,
+                       step_host_ms=host_ms, step_device_ms=dev_us / 1e3,
+                       busy=dev_us / 1e3 / host_ms if dev_us else None,
+                       launches_per_step=kern, pipe=pipe, fused=fused,
+                       occupancy=dict(sorted(engine.pipe_occupancy.items())),
+                       resolve_wait_s=engine.decode_resolve_wait_s)
+            rows[(sched, tag)] = row
+            log(f"{name} decode {row['tok_s_b1']:.1f} tok/s at 1 stream "
+                f"({row['ms_per_tok_b1']:.2f} ms/token), "
+                f"{row['tok_s_b8']:.1f} tok/s aggregate at 8 "
+                f"({row['ms_per_tok_b8']:.2f} ms/token per stream); steady "
+                f"step (8 live slots, {engine._pipe_rows} token(s) each): "
+                f"host {host_ms:.2f} ms, device "
+                + (f"{dev_us / 1e3:.2f} ms, busy share {row['busy']:.3f}, "
+                   f"{kern:.1f} launches" if dev_us else "not measured")
+                + f"; pipe dispatches {pipe} (fused {fused}), occupancy "
+                f"{row['occupancy']}, sync-checked issues {nosync.issues}, "
+                f"resolve wait {row['resolve_wait_s']:.3f} s; launches "
+                f"{launches}, expected {expected}")
+            same = traced == eight
+            ok = (streams == base and same
+                  and launches == expected and n > 0
+                  and nosync.issues >= pipe
+                  and (pipe > 0) == (depth != "0" or (
+                      fuse == "1" and sched == "mixed"))
+                  and fused == (pipe if depth == "0" else 0)
+                  and max(engine.pipe_occupancy, default=0) <= max(
+                      int(depth), 1))
+            if not ok:
+                raise AssertionError(
+                    f"{name} streams equal {streams == base}, traced "
+                    f"{same}, launches {launches == expected}")
+            total.update(launches)
+            del engine
+            torch.cuda.empty_cache()
+        log(f"[pipeline {sched}] streams equal across "
+            f"{len(PIPE_CONFIGS) - (sched == 'legacy')} configurations")
+    log(f"[pipeline] phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=dict(total), rows=rows)
+
+
+def phase_pipe_step_profile(torch, dev, engine):
+    """The pipe step (``mixed_pipe``: B = 8 lanes, an MoE model's dispatch
+    by its rule on 8 tokens) beside the sequential mixed step (the
+    engine's fixed dispatch) on the same 8 lanes at context 512, greedy,
+    in one call: (host ms, device ms, launches) per step of each, from
+    ``_profile_step``."""
+    from arks_tpu_torch.engine import engine as engine_mod
+    from arks_tpu_torch.engine import sampler
+    from arks_tpu_torch.models import moe
+    from arks_tpu_torch.models import transformer as tf
+    cfg, lanes, ctx = engine.cfg, 8, 512
+    maxp = ctx // PAGE + 1
+    cache = tf.init_paged_cache(cfg, lanes * maxp, PAGE, torch.bfloat16, dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    ar = torch.arange(lanes, **i32)
+    tables = torch.arange(lanes * maxp, **i32).reshape(lanes, maxp)
+    tokens = torch.full((lanes,), 5, **i32)
+    lengths = torch.full((lanes,), ctx, **i32)
+    alive = torch.ones(lanes, dtype=torch.bool, device=dev)
+    stop = torch.full((lanes, sampler.STOP_IDS_MAX), -1, **i32)
+    dead = torch.full((lanes,), 4096, **i32)
+    state = sampler.init_sampling_state(lanes, SEED, cfg.vocab_size, dev)
+
+    def seq():
+        logits = tf.mixed_step(engine.params, cfg, cache, tables, tokens, ar,
+                               lengths, ar, ar, torch.ones(lanes, **i32),
+                               lengths, qmax=1,
+                               moe_grouped=engine._moe_grouped)
+        return _greedy(sampler, logits).cpu()
+
+    def pipe():
+        out = engine_mod.mixed_pipe(
+            engine.params, cfg, cache, tokens, lengths, alive, stop, dead,
+            state, tables, None, sampler.OFF, False, 4096)
+        return out[0].cpu()
+
+    res = {}
+    for name, fn in (("sequential", seq), ("pipe", pipe)):
+        wall, dev_us, kern, _ = _profile_step(torch, fn, 1)
+        res[name] = (wall, dev_us / 1e3, kern)
+    log(f"[pipe step] {engine.ecfg.model} {engine.ecfg.weight_dtype} "
+        f"weights, 8 lanes at context {ctx}: sequential mixed step (MoE "
+        f"grouped {engine._moe_grouped}) host {res['sequential'][0]:.2f} ms,"
+        f" device {res['sequential'][1]:.2f} ms, "
+        f"{res['sequential'][2]:.0f} launches; pipe step (MoE grouped "
+        f"{moe.use_grouped(lanes)}) host {res['pipe'][0]:.2f} ms, device "
+        f"{res['pipe'][1]:.2f} ms, {res['pipe'][2]:.0f} launches")
+    del cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_pipeline_moe(torch, dev, params):
+    """One short batch on Mixtral-8x7B (``params``: phase 7's int8
+    weights) at pipeline depth 2: 8 greedy streams of 16 tokens admitted
+    together, every pipelined issue under
+    torch.cuda.set_sync_debug_mode("error"); its steady steps run the pipe
+    step, whose MoE FFN takes the dense route (8 tokens, the reference's
+    rule).  Then that pipe step beside the sequential mixed step on the
+    same lanes (``phase_pipe_step_profile``).  Returns the numbers."""
+    engine, _ = _moe_engine(torch, dev, "int8", params=params, depth="2")
+    tag = f"[pipeline {MOE_MODEL} int8]"
+    prompts = [f"expert lane {i} of 8" for i in range(8)]
+    _pipe_batch(torch, engine, prompts[:1], 4)
+    _reset_counts()
+    p0, d0 = engine.pipe_dispatches, engine.dispatches
+    with _NoSync(torch, engine) as nosync:
+        _, secs, _ = _pipe_batch(torch, engine, prompts, 16)
+    pipe, n = engine.pipe_dispatches - p0, engine.dispatches - d0
+    launches = _read_counts()
+    # The pipe steps take the dense route: no grouped launch of theirs.
+    want = {"paged_kv_update": engine.cfg.num_layers * n,
+            "paged_mixed_attention": engine.cfg.num_layers * n,
+            "grouped_matmul": 3 * engine.cfg.num_layers * (n - pipe)}
+    got = {k: launches[k] for k in want}
+    res = dict(tok_s_b8=8 * 15 / secs, pipe=pipe, dispatches=n,
+               occupancy=dict(sorted(engine.pipe_occupancy.items())))
+    log(f"{tag} 8 greedy streams of 16 tokens at depth 2: {res['tok_s_b8']:.1f}"
+        f" tok/s decode; {n} mixed dispatches, {pipe} pipelined (occupancy "
+        f"{res['occupancy']}), sync-checked issues {nosync.issues}; "
+        f"launches {got}, expected {want}")
+    if not pipe or got != want or nosync.issues < pipe:
+        raise AssertionError(f"{tag} pipelined dispatches or launch counts")
+    res["step"] = phase_pipe_step_profile(torch, dev, engine)
+    del engine
+    torch.cuda.empty_cache()
+    return res
 
 
 def _leaves(tree):
@@ -2811,18 +3183,34 @@ def _moe_kernel_case(torch, mk, batch, shape, mode, sizes, xs, xs_p, bexp,
     return rec
 
 
-def _moe_engine(torch, dev, weight_dtype, params=None):
+def _moe_engine(torch, dev, weight_dtype, params=None, depth="0"):
+    """A Mixtral-8x7B engine (8 slots x 4096, chunk 256, bf16 pool) with
+    ``weight_dtype`` weights (drawn from SEED, or ``params``), at pipeline
+    depth ``depth``.  Phase 7's served runs pin depth 0 with fusion off:
+    their steady steps would otherwise take the 8-token pipe step, whose
+    dense MoE route (every expert's weights converted per call) costs ~7x
+    the grouped step and would double the phase's time; phase 7 runs one
+    short batch at depth 2 on its own (``phase_pipeline_moe``)."""
+    import os
+
     from arks_tpu_torch.engine import EngineConfig, InferenceEngine
     from arks_tpu_torch.engine.tokenizer import ByteTokenizer
     from arks_tpu_torch.models import get_config
     cfg = get_config(MOE_MODEL)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine = InferenceEngine(cfg, EngineConfig(
-        model=MOE_MODEL, num_slots=8, max_cache_len=MAX_PAGES * PAGE,
-        prefill_chunk=PAGE, dtype="bfloat16", kv_cache_dtype="bf16",
-        weight_dtype=weight_dtype, seed=SEED), ByteTokenizer(),
-        params=params, device=dev)
+    old = {k: os.environ.get(k) for k in ("ARKS_PIPELINE_DEPTH",
+                                          "ARKS_SAMPLER_FUSE")}
+    os.environ.update(ARKS_PIPELINE_DEPTH=depth,
+                      ARKS_SAMPLER_FUSE="1" if depth != "0" else "0")
+    try:
+        engine = InferenceEngine(cfg, EngineConfig(
+            model=MOE_MODEL, num_slots=8, max_cache_len=MAX_PAGES * PAGE,
+            prefill_chunk=PAGE, dtype="bfloat16", kv_cache_dtype="bf16",
+            weight_dtype=weight_dtype, seed=SEED), ByteTokenizer(),
+            params=params, device=dev)
+    finally:
+        _restore_env(os, old)
     torch.cuda.synchronize()
     wbytes = sum(x.numel() * x.element_size() for x in _leaves(engine.params))
     log(f"[serve {MOE_MODEL} {weight_dtype}] engine up in "
@@ -2944,7 +3332,11 @@ def phase_moe(torch, dev):
     serve = phase_serve(torch, dev, "bf16", engine=engine)[1]
     serve.update(weight_bytes=wbytes, init_peak_bytes=init_peak)
     phase_step_profile(torch, dev, engine)
+    params = engine.params
     del engine
+    torch.cuda.empty_cache()
+    serve["pipeline"] = phase_pipeline_moe(torch, dev, params)
+    del params
     torch.cuda.empty_cache()
     engine, wbytes4 = _moe_engine(torch, dev, "int4")
     short = phase_serve_moe_short(torch, dev, engine)
@@ -3067,6 +3459,7 @@ def main() -> int:
     params = engine.params
     del engine
     torch.cuda.empty_cache()
+    pipeline = phase_pipeline(torch, dev, params)
     legacy = {(layout, kv): phase_serve_legacy(
         torch, dev, layout, kv, params, surface=(layout, kv) == ("slot",
                                                                  "bf16"))
@@ -3087,6 +3480,7 @@ def main() -> int:
         phase_step_profile(torch, dev, engine, kv)
     for kv in ("bf16", "int8"):
         phase_decode_profile(torch, dev, engine, kv)
+    phase_pipe_step_profile(torch, dev, engine)
     del engine, params
     torch.cuda.empty_cache()
     upd_t, attn_t, dense_t = phase_times(torch, b)
@@ -3100,11 +3494,17 @@ def main() -> int:
     gm_row = gm[("528-row", "gate", "int8")]
     slot16, slot8 = legacy[("slot", "bf16")], legacy[("slot", "int8")]
     paged8, paged4 = legacy[("paged", "int8")], legacy[("paged", "int4")]
+    pipe_n = pipeline["launches"]
     attn_launches = (serve["launches"]["paged_mixed_attention"]
                      + serve8["launches"]["paged_mixed_attention"]
                      + paged4["launches"]["paged_mixed_attention"]
                      + f32["paged_mixed_attention"]
-                     + surface["paged_mixed_attention"])
+                     + surface["paged_mixed_attention"]
+                     + pipe_n["paged_mixed_attention"])
+    for (sched, tag), row in pipeline["rows"].items():
+        log(f"[pipeline table] {sched} {tag}: " + ", ".join(
+            f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items()))
     log(f"[surface step] every feature off / on, per decode step: mixed "
         f"{surface_step['off'][1]:.1f} / {surface_step['on'][1]:.1f} us "
         f"device, {surface_step['off'][2]:.2f} / {surface_step['on'][2]:.2f}"
@@ -3117,7 +3517,8 @@ def main() -> int:
              replaces="arks_tpu/ops/paged_attention.py:1127",
              launches=(serve["launches"]["paged_kv_update"]
                        + f32["paged_kv_update"]
-                       + surface["paged_kv_update"]),
+                       + surface["paged_kv_update"]
+                       + pipe_n["paged_kv_update"]),
              max_abs_err=upd_err, **upd_t),
         dict(name="paged_mixed_attention", route="cuda", source=ATTN_SRC,
              replaces="arks_tpu/ops/paged_attention.py:761",
@@ -3139,14 +3540,16 @@ def main() -> int:
              launches=(slot16["launches"]["ragged_decode_attention"]
                        + slot8["launches"]["ragged_decode_attention"]
                        + f32["ragged_decode_attention"]
-                       + slot16["surface"]["ragged_decode_attention"]),
+                       + slot16["surface"]["ragged_decode_attention"]
+                       + pipe_n["ragged_decode_attention"]),
              max_abs_err=legacy_err["ragged_decode_attention"],
              **lt["ragged_decode_attention"]),
         dict(name="kv_cache_update", route="cuda", source=SLOT_UPDATE_SRC,
              replaces="arks_tpu/ops/pallas_attention.py:241",
              launches=(slot16["launches"]["kv_cache_update"]
                        + f32["kv_cache_update"]
-                       + slot16["surface"]["kv_cache_update"]),
+                       + slot16["surface"]["kv_cache_update"]
+                       + pipe_n["kv_cache_update"]),
              max_abs_err=legacy_err["kv_cache_update"],
              **lt["kv_cache_update"]),
         dict(name="kv_cache_update_quant", route="cuda",

@@ -226,13 +226,13 @@ def test_admission_groups_one_shot_prompts_by_bucket(monkeypatch):
     ARKS_ADMIT_BATCH_SIZES); a long prompt takes the chunked path."""
     monkeypatch.setenv("ARKS_ADMIT_BATCH_SIZES", "2")
     calls = []
-    admit = InferenceEngine._admit_batch
+    admit = InferenceEngine._issue_admit_batch
 
     def spy(self, items):
         calls.append(sorted(len(ids) for _, ids, _ in items))
         return admit(self, items)
 
-    monkeypatch.setattr(InferenceEngine, "_admit_batch", spy)
+    monkeypatch.setattr(InferenceEngine, "_issue_admit_batch", spy)
     eng = InferenceEngine(get_config("tiny"), EngineConfig(
         model="tiny", kv_layout="slot", **dict(ENGINE_KW, num_slots=4)),
         ByteTokenizer(), device="cpu")
