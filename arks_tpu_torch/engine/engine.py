@@ -44,9 +44,24 @@ parked, never waited for).  The passes run only for batches in which a
 request asks for them, decided on the host (``sampler.Gates``), and a
 step's logprob data crosses to the host in the same copy as its ids.
 
-What the reference does and this port does not — device prefix sharing,
-host/disk prefix tiers, speculative decoding, fault recovery, parallelism
-— is rejected by ``EngineConfig.validate`` rather than silently ignored.
+Prompts that repeat a prefix reuse its KV, as the reference's do.  A paged
+pool (either scheduler) registers every full prompt page in the page
+allocator's digest index once written (tier 0); a later prompt whose
+chained page digests match points its block table at those pages and
+chunk-prefills only its tail (at least one token, whose logits sample the
+first token).  The pool holds ``prefix_cache_mb`` of retention pages beyond
+every slot's full table.  Pages the index evicts under pressure are copied
+to host RAM (tier 1, ``HostPrefixTier``, ``ARKS_PREFIX_HOST_MB``, default
+256): a later hit there allocates fresh pages, scatters the blocks back and
+parks the request until the copy has landed.  The slot cache keeps a host
+prefix cache instead (``PrefixKVCache``, ``prefix_cache_mb``), harvested at
+admission and inserted in front of the tail.
+
+What the reference does and this port does not — the disk prefix tier,
+peer prefix fetch, the cache sketch, preemptive swap, speculative decoding,
+fault recovery, parallelism — is rejected (``EngineConfig.validate``, and
+``check_unserved_knobs`` for the environment) rather than silently
+ignored.
 """
 
 from __future__ import annotations
@@ -66,7 +81,9 @@ from arks_tpu_torch.device import resolve_device
 from arks_tpu_torch.engine import prng
 from arks_tpu_torch.engine import sampler as sampler_mod
 from arks_tpu_torch.engine.guides import Guide, GuideCompiler, GuideError
-from arks_tpu_torch.engine.paged import PageAllocator, pages_needed
+from arks_tpu_torch.engine.paged import (PageAllocator, chain_digests,
+                                         pages_needed)
+from arks_tpu_torch.engine.prefix_cache import HostPrefixTier, PrefixKVCache
 from arks_tpu_torch.engine.types import Request, RequestOutput
 from arks_tpu_torch.models import moe
 from arks_tpu_torch.models import quant
@@ -114,6 +131,10 @@ class EngineConfig:
     # ARKS_MIXED_STEP=0), "paged", or "slot" (the slot-contiguous cache
     # [L, B, Hkv, max_cache_len, D], always the legacy scheduler).
     kv_layout: str = "auto"
+    # Prefix reuse: a paged pool's retention pages beyond every slot's full
+    # table (MB of pool, at most 4x the slots' pages), or the slot cache's
+    # host prefix cache (MB of host RAM); 0 = none.
+    prefix_cache_mb: int = 256
     seed: int = 0
 
     def validate(self) -> None:
@@ -141,6 +162,9 @@ class EngineConfig:
                              "long prompts")
         if self.num_slots < 1 or self.max_cache_len < 2:
             raise ValueError("num_slots >= 1 and max_cache_len >= 2")
+        if self.prefix_cache_mb < 0:
+            raise ValueError(f"prefix_cache_mb={self.prefix_cache_mb}: must "
+                             "be >= 0")
 
     def resolve_kv_cache_dtype(self) -> str:
         """'int8' | 'int4' | 'bf16' | 'engine' (= the engine dtype).
@@ -220,6 +244,41 @@ def sampler_fuse_knob() -> bool:
     return _enum_knob("ARKS_SAMPLER_FUSE", "1", ("0", "1")) != "0"
 
 
+def prefix_host_mb_knob() -> int:
+    """``ARKS_PREFIX_HOST_MB``: the host prefix tier's budget behind a
+    paged pool's device index (default 256; 0 turns the tier off)."""
+    raw = os.environ.get("ARKS_PREFIX_HOST_MB") or "256"
+    try:
+        mb = int(raw)
+    except ValueError as e:
+        raise ValueError(f"ARKS_PREFIX_HOST_MB={raw!r}: expected an "
+                         "integer") from e
+    if mb < 0:
+        raise ValueError(f"ARKS_PREFIX_HOST_MB={mb}: must be >= 0")
+    return mb
+
+
+def check_unserved_knobs() -> None:
+    """Raise on a knob that asks for a reference subsystem the port does
+    not have yet: the disk prefix tier (``ARKS_PREFIX_DISK_MB`` > 0), peer
+    prefix fetch (``ARKS_PEER_FETCH``, ``ARKS_PEER_ADDRS``) and preemptive
+    swap (``ARKS_PREEMPT``)."""
+    on = ("1", "true", "yes", "on")
+    disk = (os.environ.get("ARKS_PREFIX_DISK_MB") or "0").strip()
+    asked = []
+    if disk not in ("0", ""):
+        asked.append(f"ARKS_PREFIX_DISK_MB={disk} (the disk prefix tier)")
+    if (os.environ.get("ARKS_PEER_FETCH") or "0").strip().lower() in on:
+        asked.append("ARKS_PEER_FETCH (peer prefix fetch)")
+    if (os.environ.get("ARKS_PEER_ADDRS") or "").strip():
+        asked.append("ARKS_PEER_ADDRS (peer prefix fetch)")
+    if (os.environ.get("ARKS_PREEMPT") or "0").strip().lower() in on:
+        asked.append("ARKS_PREEMPT (preemptive swap)")
+    if asked:
+        raise NotImplementedError(
+            f"{', '.join(asked)}: not served by this port yet")
+
+
 def overlap_decode_knob(device: torch.device) -> bool:
     """``ARKS_OVERLAP_DECODE`` ("auto", "0", "1"): the legacy scheduler
     issues its decode dispatch before admission and resolves it after.
@@ -255,6 +314,24 @@ class _ChunkState:
     ids: list[int]
     pos: int      # tokens already prefilled
     key: np.ndarray   # np_prng_key(seed): the first token's key
+    # Paged pool: the prompt's chained page digests when its admission
+    # computed them (a prefix hit), registered at promote.
+    digests: list | None = None
+
+
+@dataclasses.dataclass
+class _RestoreState:
+    """A host-tier prefix restore in flight: the request parks here while
+    its scatter rides the stream; once ``done`` has passed it continues
+    through the chunked path with ``shared + pages`` heading its table."""
+
+    request: Request
+    ids: list[int]
+    digests: list        # the prompt's digest chain (computed at match)
+    shared: list[int]    # device-index pages (caller references held)
+    pages: list[int]     # fresh pages the scatter writes
+    done: object         # a CUDA event after the last scatter, or None
+    t0: float
 
 
 def _penalized(p) -> bool:
@@ -306,42 +383,64 @@ def _to_host(ids: torch.Tensor, lp=None):
     return _unpack(_pack(ids, lp).cpu().numpy(), lp is not None)
 
 
-class _HostCopy:
-    """A dispatch's sampled ids (and logprob data) on their way to the
-    host: on a CUDA device a non-blocking copy into a pinned buffer taken
-    from ``pool``, with an event recorded after it on the current stream
-    (the copy runs when the dispatch's kernels are done, and the host
-    reads it only once the event has passed); on the CPU the values
-    themselves, always ready.  ``pool`` maps a shape to the free pinned
-    buffers of that shape: a buffer goes back only when its copy has been
-    read, so none is reused while a copy into it may still run."""
+class _PinnedCopy:
+    """Device tensors on their way to the host: on a CUDA device
+    non-blocking copies into pinned buffers taken from ``pool``, with one
+    event recorded after them on the current stream (the copies run when
+    the kernels queued before them are done, and the host reads them only
+    once the event has passed); on the CPU the values themselves, always
+    ready.  ``pool`` maps (shape, dtype) to the free pinned buffers of that
+    shape: a buffer goes back only when its copy has been read, so none is
+    reused while a copy into it may still run."""
 
-    def __init__(self, ids: torch.Tensor, lp, pool: dict) -> None:
-        packed = _pack(ids, lp)
-        self.with_lp = lp is not None
+    def __init__(self, tensors, pool: dict) -> None:
         self.pool = pool
         self.event = None
-        if packed.device.type != "cuda":
-            self.buf = packed.clone()
+        if tensors[0].device.type != "cuda":
+            self.bufs = [t.clone() for t in tensors]
             return
-        free = pool.setdefault(tuple(packed.shape), [])
-        self.buf = free.pop() if free else torch.empty(
-            packed.shape, dtype=torch.int32, pin_memory=True)
-        self.buf.copy_(packed, non_blocking=True)
+        self.bufs = []
+        for t in tensors:
+            free = pool.setdefault((tuple(t.shape), t.dtype), [])
+            buf = free.pop() if free else torch.empty(
+                t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t, non_blocking=True)
+            self.bufs.append(buf)
         self.event = torch.cuda.Event()
         self.event.record()
 
     def ready(self) -> bool:
         return self.event is None or self.event.query()
 
+    def tensors(self) -> list[torch.Tensor]:
+        """The host copies (waits for them when they have not landed): on
+        the card the pinned buffers themselves, to be read before
+        ``release``."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.bufs
+
+    def release(self) -> None:
+        """Give the pinned buffers back to the pool (read them first)."""
+        if self.event is not None:
+            for b in self.bufs:
+                self.pool[(tuple(b.shape), b.dtype)].append(b)
+            self.bufs = []
+
+
+class _HostCopy(_PinnedCopy):
+    """A dispatch's sampled ids (and logprob data) on their way to the
+    host, packed into one int32 tensor (``_pack``)."""
+
+    def __init__(self, ids: torch.Tensor, lp, pool: dict) -> None:
+        super().__init__([_pack(ids, lp)], pool)
+        self.with_lp = lp is not None
+
     def result(self):
         """(ids, None | (chosen, vals, lids)) as numpy; waits for the copy
         when it has not landed yet."""
-        if self.event is not None:
-            self.event.synchronize()
-        out = self.buf.numpy().copy()
-        if self.event is not None:
-            self.pool[tuple(self.buf.shape)].append(self.buf)
+        out = self.tensors()[0].numpy().copy()
+        self.release()
         return _unpack(out, self.with_lp)
 
 
@@ -432,6 +531,7 @@ class InferenceEngine:
             log.info("kv_cache_dtype=%s from the model config",
                      cfg.kv_cache_dtype)
         engine_cfg.validate()
+        check_unserved_knobs()
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = engine_cfg
@@ -471,7 +571,19 @@ class InferenceEngine:
         n = engine_cfg.num_slots
         if self._paged:
             self._max_pages = engine_cfg.max_cache_len // c
-            num_pages = n * self._max_pages
+            # Every slot's full table always fits; prefix_cache_mb adds
+            # retention pages for the device index (capped in proportion,
+            # so a tiny model's pool stays small), as the reference sizes
+            # its pool.
+            bits = (4 if kv == "int4" else 8) if quantized else \
+                torch.finfo(cache_dtype).bits
+            page_bytes = (cfg.num_layers * cfg.num_kv_heads * c
+                          * cfg.head_dim * bits // 8 * 2)
+            if quantized:
+                page_bytes += cfg.num_layers * cfg.num_kv_heads * c * 8
+            extra = min(engine_cfg.prefix_cache_mb * 2**20 // page_bytes,
+                        n * self._max_pages * 4)
+            num_pages = n * self._max_pages + extra
             self.cache = tf.init_paged_cache(
                 cfg, num_pages, c, cache_dtype, self.device,
                 quantized=quantized,
@@ -483,6 +595,31 @@ class InferenceEngine:
                                        cache_dtype, self.device,
                                        quantized=quantized)
             self._alloc = None
+        # Prefix reuse beyond the device index: the host tier behind a
+        # paged pool (spilled pages, restored at admission), or the slot
+        # cache's host prefix cache.  Spills and restores move whole pages
+        # in groups of a fixed size, as the reference's.
+        host_mb = prefix_host_mb_knob()
+        self._host = None
+        # (digest, page) evicted from the device index since the last
+        # spill flush.
+        self._spill_victims: list = []
+        if self._paged and host_mb:
+            self._host = HostPrefixTier(c, host_mb * 2**20)
+            # The allocator's on_evict (the reference's ``_note_evicted``):
+            # queue the page, as it runs mid-allocation; ``_spill_flush``
+            # copies it before any dispatch can write it.  A closure over
+            # the list, not a bound method: engine -> allocator -> engine
+            # would be a cycle that keeps the pool alive past ``del``.
+            victims = self._spill_victims
+            self._alloc.on_evict = lambda digest, page: victims.append(
+                (digest, page))
+        self._prefix = None
+        if not self._paged and engine_cfg.prefix_cache_mb:
+            self._prefix = PrefixKVCache(c, engine_cfg.prefix_cache_mb * 2**20)
+        self._spill_group = min(8, max(self._max_pages, 1))
+        self._spills: collections.deque = collections.deque()
+        self._awaiting_restore: list[_RestoreState] = []
         self._mixed_budget = 0
         self._moe_grouped = False
         if self._mixed:
@@ -575,6 +712,18 @@ class InferenceEngine:
         self.pipe_occupancy_max = 0
         self.sampler_fused_dispatches = 0
         self.decode_resolve_wait_s = 0.0
+        # Prefix reuse, under the reference's metric names: prompt tokens
+        # looked up, tokens served by tier ("device": the pool's index;
+        # "host": the host tier, or the slot cache's prefix cache), pages
+        # spilled to and restored from the host tier, and each restore's
+        # seconds from issue to unpark.  Prompt tokens the model computed
+        # (chunks and one-shot prefills) beside them.
+        self.prefix_cache_query_tokens_total = 0
+        self.prefix_cache_hit_tokens_total = {"device": 0, "host": 0}
+        self.prefix_spill_blocks_total = 0
+        self.prefix_restore_blocks_total = 0
+        self.prefix_restore_seconds: list[float] = []
+        self.prefill_tokens_total = 0
 
     # ------------------------------------------------------------------
     # Request API
@@ -653,7 +802,8 @@ class InferenceEngine:
         return (not self._slots and not self._prefilling
                 and not self._pending_admits and not self._pipe_inflight
                 and self._pipe_state is None
-                and not self._awaiting_guide and self._queue.empty())
+                and not self._awaiting_guide and not self._awaiting_restore
+                and self._queue.empty())
 
     def _run(self) -> None:
         try:
@@ -667,6 +817,7 @@ class InferenceEngine:
             # No scheduler remains to unpark or register them.
             self._abort_awaiting_guide()
             self._abort_pending_admits()
+            self._abort_awaiting_restores()
 
     def _fail_all(self, error: str) -> None:
         """After a failed step: drop the in-flight pipelined dispatches,
@@ -674,6 +825,7 @@ class InferenceEngine:
         reference's fault recovery and replay are a later slice)."""
         self._pipe_reset()
         self._abort_pending_admits()
+        self._abort_awaiting_restores(error)
         for slot in list(self._slots):
             st = self._slots.pop(slot)
             self._release_slot(slot, st.request)
@@ -712,7 +864,10 @@ class InferenceEngine:
           admit and advance one prefill chunk while it runs, then resolve
           it; with it off admit, chunk, then decode;
         - then read the deferred admissions whose first tokens landed (the
-          oldest even if it has not, when nothing else moved)."""
+          oldest even if it has not, when nothing else moved).
+        Before the mixed or legacy step, host-tier restores that landed
+        continue into the chunked path and landed spills enter the host
+        tier."""
         self._ensure_guides_uploaded()
         worked = bool(self._awaiting_guide) and \
             self._service_awaiting_guides()
@@ -725,6 +880,12 @@ class InferenceEngine:
         if self._fuse_ready():
             self._step_fused()
             return True
+        if self._awaiting_restore:
+            # Restores whose scatter landed continue into the chunked path
+            # (on exact host mirrors: the pipeline drained above).
+            worked = self._resolve_restores() or worked
+        if self._spills:
+            worked = self._resolve_spills() or worked
         if self._mixed:
             rec = None
             if self._slots or self._prefilling:
@@ -752,6 +913,10 @@ class InferenceEngine:
         if self._pending_admits:
             worked = self._drain_ready_admits(force_one=not worked) or worked
         if worked:
+            return True
+        if self._awaiting_restore or self._spills:
+            # They land on device time, not on queue arrivals: poll again.
+            time.sleep(0.001)
             return True
         self._purge_stale_aborts()
         try:
@@ -790,7 +955,10 @@ class InferenceEngine:
         admitted = False
         groups: dict[int, list] = {}
         while self._free:
-            if sum(len(v) for v in groups.values()) >= len(self._free):
+            # Requests parked on a restore hold pages for a slot they have
+            # yet to take: they count against the free slots.
+            if sum(len(v) for v in groups.values()) + \
+                    len(self._awaiting_restore) >= len(self._free):
                 break
             try:
                 _, _, req = self._queue.get_nowait()
@@ -832,7 +1000,7 @@ class InferenceEngine:
         """End every deferred admission (engine exit, a failed step): its
         requests hold slots and pages but are registered nowhere else."""
         while self._pending_admits:
-            items, slots, _ = self._pending_admits.popleft()
+            items, slots, *_ = self._pending_admits.popleft()
             self._pending_n -= len(items)
             for (req, ids, _), slot in zip(items, slots):
                 self._release_slot(slot, req)
@@ -841,8 +1009,9 @@ class InferenceEngine:
                     finish_reason="abort", num_prompt_tokens=len(ids)))
 
     def _preadmit(self, req: Request):
-        """Aborts and rejects; chunked prompts start here.  Returns
-        (req, ids, padded [1, bucket]) for a one-shot prompt, else None."""
+        """Aborts and rejects; prefix hits, host-tier restores and chunked
+        prompts start here.  Returns (req, ids, padded [1, bucket]) for a
+        one-shot prompt, else None."""
         with self._abort_lock:
             if req.request_id in self._aborted:
                 self._aborted.discard(req.request_id)
@@ -877,10 +1046,54 @@ class InferenceEngine:
                 log.info("rejected %s: guide compile failed: %s",
                          req.request_id, gate)
                 return None
+        if self._prefix_hit(req, ids):
+            return None
         if self._mixed or len(ids) > self._one_shot_limit():
             self._start_chunked(req, ids)
             return None
         return req, ids, self._pad_to_bucket(ids)
+
+    def _prefix_hit(self, req: Request, ids: list[int]) -> bool:
+        """Prefix reuse at admission (the reference's ``_preadmit``).  A
+        paged pool matches the prompt's chained page digests against the
+        device index, then the consecutive blocks after them against the
+        host tier: a host hit parks the request on a restore, a device hit
+        starts it chunked after its shared pages.  The slot cache matches
+        its host prefix cache.  At least one tail token is always left to
+        compute (its logits sample the first token).  Returns True when
+        the request was started or parked here."""
+        page = self._page
+        if self._paged:
+            nfull = (len(ids) - 1) // page
+            digests = chain_digests(ids, page, nfull) if nfull else []
+            shared = self._alloc.match(digests)
+            blocks = []
+            if self._host is not None and len(shared) < nfull:
+                blocks = self._host.match_blocks(digests, len(shared))
+            plen, hlen = len(shared) * page, len(blocks) * page
+            self._alloc.record_query(len(ids), plen + hlen)
+            self._count_prefix(len(ids), plen, hlen)
+            if blocks:
+                self._issue_restore(req, ids, digests, shared, blocks)
+                return True
+            if plen:
+                self._start_chunked(req, ids, prefix_len=plen,
+                                    prefix_pages=shared, digests=digests)
+                return True
+            return False
+        if self._prefix is None:
+            return False
+        plen = min(self._prefix.match(ids), (len(ids) - 1) // page * page)
+        self._prefix.record_query(len(ids), plen)
+        self._count_prefix(len(ids), 0, plen)
+        if plen:
+            self._start_chunked(req, ids, prefix_len=plen)
+        return bool(plen)
+
+    def _count_prefix(self, n: int, device: int, host: int) -> None:
+        self.prefix_cache_query_tokens_total += n
+        self.prefix_cache_hit_tokens_total["device"] += device
+        self.prefix_cache_hit_tokens_total["host"] += host
 
     def _one_shot_limit(self) -> int:
         return min(self._buckets[-1], self.max_prompt_len)
@@ -892,27 +1105,46 @@ class InferenceEngine:
         padded[0, : len(ids)] = ids
         return padded
 
-    def _assign_pages(self, slot: int, total: int) -> np.ndarray:
-        """Allocate a slot's first ``total`` pages and write its
-        zero-padded table row (returned)."""
-        pages = self._alloc.alloc(total)
+    def _assign_slot_pages(self, slot: int, total: int,
+                           head_pages=()) -> np.ndarray:
+        """Give a slot its first ``total`` pages, headed by ``head_pages``
+        (shared prefix pages whose references the caller holds), and write
+        its zero-padded table row (returned): the one place of the
+        row/ownership invariant.  Pages the allocation evicted from the
+        device index spill before any later dispatch can write them."""
+        pages = list(head_pages) + self._alloc.alloc(total - len(head_pages))
         self._slot_pages[slot] = pages
         self._tables[slot] = 0
         self._tables[slot, :total] = pages
+        self._spill_flush()
         return self._tables[slot]
 
-    def _start_chunked(self, req: Request, ids: list[int]) -> None:
+    def _start_chunked(self, req: Request, ids: list[int],
+                       prefix_len: int = 0, prefix_pages=None,
+                       digests=None) -> None:
+        """Reserve a slot and start the prompt's chunked prefill at
+        ``prefix_len``: after the shared ``prefix_pages`` heading its table
+        (a paged pool), or after the host prefix cache's blocks inserted
+        into the slot (the slot cache)."""
         seed = self._resolve_seed(req)
         slot = self._free.pop()
         if self._paged:
             # Pages cover [0, len + K - 1] from the start: the legacy decode
             # loop writes this slot's garbage rows at len..len+K-1 while it
             # chunk-prefills, and they must land in pages it owns.
-            self._assign_pages(slot, pages_needed(
+            self._assign_slot_pages(slot, pages_needed(
                 len(ids), self.ecfg.steps_per_dispatch, self._page,
-                self._max_pages))
-        self._prefilling[slot] = _ChunkState(request=req, ids=ids, pos=0,
-                                             key=prng.np_prng_key(seed))
+                self._max_pages), head_pages=prefix_pages or ())
+        elif prefix_len:
+            # Exactly the prefix's rows: eager PyTorch has no compiled
+            # insert shapes to bound (the reference pads to a bucket).
+            k, v = self._prefix.get(ids, prefix_len)
+            tf.insert(self.cache, self._upload_tensor(k),
+                      self._upload_tensor(v), slot)
+        self._prefilling[slot] = _ChunkState(request=req, ids=ids,
+                                             pos=prefix_len,
+                                             key=prng.np_prng_key(seed),
+                                             digests=digests)
         # Length parked at the prompt's end: interleaved decode writes land
         # past every masked read until real decode overwrites them.
         self._lengths[slot] = len(ids)
@@ -924,6 +1156,7 @@ class InferenceEngine:
         live |= {req.request_id for req, _ in self._awaiting_guide}
         live |= {req.request_id for rec in self._pending_admits
                  for req, _, _ in rec[0]}
+        live |= {rec.request.request_id for rec in self._awaiting_restore}
         with self._abort_lock:
             self._aborted -= set(consumed)
             if not live and self._queue.empty():
@@ -972,6 +1205,7 @@ class InferenceEngine:
                 new = self._alloc.alloc(need - len(row))
                 self._tables[slot, len(row): len(row) + len(new)] = new
                 row.extend(new)
+        self._spill_flush()
 
     def _set_slots(self, slots: list[int], params: list, keys: torch.Tensor,
                    num_prompts: list[int], guide_rows) -> None:
@@ -1203,7 +1437,7 @@ class InferenceEngine:
             self._lengths[slot] = self._park_sentinel()
             if self._paged:
                 n_pages[i] = -(-len(ids) // self._page)
-                pages[i] = self._assign_pages(slot, int(n_pages[i]))
+                pages[i] = self._assign_slot_pages(slot, int(n_pages[i]))
         tokens = torch.from_numpy(np.concatenate([p for _, _, p in items])
                                   ).to(dev)
         lengths = torch.tensor([len(ids) for _, ids, _ in items],
@@ -1216,15 +1450,22 @@ class InferenceEngine:
             tf.insert_pages_batch(self.cache, ks, vs, pages, n_pages)
         else:
             tf.insert_batch(self.cache, ks, vs, slots)
-        del ks, vs
         self._set_slots(slots, params, prng.fold_in(key_t, 1),
                         [len(ids) for _, ids, _ in items], rows)
-        return items, slots, _HostCopy(firsts, lp, self._host_bufs)
+        self.prefill_tokens_total += sum(len(ids) for _, ids, _ in items)
+        # Only the slot cache's single-prompt harvest reads the prompt's
+        # K/V at resolve; anything else would hold them for nothing.
+        kv = (ks, vs) if self._prefix is not None and m == 1 else None
+        return items, slots, _HostCopy(firsts, lp, self._host_bufs), kv
 
     def _resolve_admit_batch(self, rec) -> None:
         """Read an admission batch's first tokens and register its slots;
-        a request aborted since the issue frees its slot instead."""
-        items, slots, copy = rec
+        a request aborted since the issue frees its slot instead.  Each
+        registered prompt's full pages enter the device index (a paged
+        pool), or a lone prompt's full blocks the host prefix cache (the
+        slot cache), unless requests are waiting: the copy to the host
+        would hold them up."""
+        items, slots, copy, kv = rec
         firsts, lp_h = copy.result()
         for i, ((req, ids, _), slot) in enumerate(zip(items, slots)):
             with self._abort_lock:
@@ -1238,6 +1479,11 @@ class InferenceEngine:
                 continue
             self._register_slot(req, slot, int(firsts[i]), len(ids),
                                 self._first_lp(req.params, lp_h, i))
+            if self._paged:
+                self._register_prompt_pages(ids,
+                                            self._slot_pages.get(slot, []))
+            elif kv is not None and self._queue.empty():
+                self._harvest(ids, lambda: kv)
 
     def _sample_first(self, logits: torch.Tensor, params: list,
                       keys: torch.Tensor):
@@ -1280,6 +1526,7 @@ class InferenceEngine:
         c = self._page
         chunk = st.ids[st.pos: st.pos + c]
         valid = len(chunk)
+        self.prefill_tokens_total += valid
         padded = np.zeros((c,), np.int32)
         padded[:valid] = chunk
         dev = self.device
@@ -1303,15 +1550,39 @@ class InferenceEngine:
                         rows)
         self._register_slot(st.request, slot, int(first_h[0]), len(st.ids),
                             self._first_lp(p, lp_h, 0))
+        if self._paged:
+            self._register_prompt_pages(st.ids, self._slot_pages.get(slot, []),
+                                        st.digests)
+        elif self._prefix is not None and self._queue.empty():
+            # The chunked prompt's K/V exist only in its slot: read its full
+            # blocks back before decode grows past them.
+            self._harvest(st.ids, lambda: tf.extract(
+                self.cache, slot, self.params["layers"]["attn_norm"].dtype))
+
+    def _harvest(self, ids: list[int], kv) -> None:
+        """Put a prompt's full blocks into the slot cache's host prefix
+        cache when any is missing: ``kv()`` gives its time-major K/V [L, 1,
+        >= len, Hkv, D] on the device, of which one blocking copy takes
+        just those rows."""
+        nfull = len(ids) // self._page * self._page
+        if nfull and self._prefix.missing_blocks(ids, nfull):
+            k, v = kv()
+            self._prefix.put(ids, k[:, :, :nfull].cpu(),
+                             v[:, :, :nfull].cpu(), nfull)
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the device, taken by value now.  On a CUDA
         device a non-blocking copy from pinned memory: a pageable copy
         would wait for every kernel queued before it (a host sync)."""
-        t = torch.from_numpy(np.array(a))
+        return self._upload_tensor(torch.from_numpy(np.array(a)))
+
+    def _upload_tensor(self, t: torch.Tensor) -> torch.Tensor:
+        """``_upload`` of a CPU tensor (pinned first unless it is)."""
         if self.device.type != "cuda":
             return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        if not t.is_pinned():
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
 
     def _decode_dispatch(self) -> None:
         """ONE fused K-step decode dispatch and its resolve (the
@@ -1627,6 +1898,7 @@ class InferenceEngine:
             self._fanout_decode_tokens(slot, [int(ids[slot])], rows)
         for slot, take in chunk_take:
             self._prefilling[slot].pos += take
+            self.prefill_tokens_total += take
         for slot in completing:
             cs = self._prefilling.pop(slot)
             p = cs.request.params
@@ -1639,6 +1911,8 @@ class InferenceEngine:
                              if gid >= 0 else 0])
             self._register_slot(cs.request, slot, first, len(cs.ids),
                                 self._first_lp(p, lp_h, slot))
+            self._register_prompt_pages(cs.ids, self._slot_pages.get(slot, []),
+                                        cs.digests)
 
     def _register_slot(self, req: Request, slot: int, first: int,
                        num_prompt: int, first_lp=None) -> None:
@@ -1662,6 +1936,160 @@ class InferenceEngine:
             request_id=req.request_id, token_ids=[first],
             num_prompt_tokens=num_prompt, ttft_s=ttft,
             logprobs=list(st.logprobs) if st.logprobs else None))
+
+    # ------------------------------------------------------------------
+    # Prefix reuse: the device index (tier 0) and the host tier (tier 1)
+    # ------------------------------------------------------------------
+
+    def _register_prompt_pages(self, ids: list[int], pages: list[int],
+                               digests=None) -> None:
+        """Enter a prompt's full pages into the device index once they are
+        written (decode writes start at position len(ids), past them)."""
+        nreg = min(len(ids) // self._page, len(pages))
+        if nreg:
+            if digests is None or len(digests) < nreg:
+                digests = chain_digests(ids, self._page, nreg)
+            self._alloc.register(digests[:nreg], pages[:nreg])
+
+    def _spill_flush(self) -> None:
+        """Spill every page evicted since the last flush: gather the pages
+        into a staging block on the device and start its copy to pinned
+        host memory (``_PinnedCopy``, with an event); ``_resolve_spills``
+        stores the blocks once it has landed.  Runs right after the
+        evicting allocation, so on the stream the gather precedes every
+        dispatch that may write the recycled pages.  No host sync."""
+        if not self._spill_victims:
+            return
+        victims = [(d, p) for d, p in self._spill_victims
+                   if not self._host.has(d)]
+        self._spill_victims.clear()
+        g = self._spill_group
+        for i in range(0, len(victims), g):
+            grp = victims[i: i + g]
+            # A short group repeats a real page (one staging shape, so one
+            # set of pinned buffers); the host drops the padded entries.
+            pages = [p for _, p in grp] + [grp[0][1]] * (g - len(grp))
+            out = tf.gather_pool_pages(
+                self.cache, self._upload(np.asarray(pages, np.int64)))
+            self._spills.append((
+                [d for d, _ in grp],
+                _PinnedCopy([x for x in out if x is not None],
+                            self._host_bufs)))
+
+    def _resolve_spills(self) -> bool:
+        """Store the landed spills in the host tier (oldest first; never
+        waits).  Returns True if any landed."""
+        did = False
+        while self._spills and self._spills[0][1].ready():
+            digests, copy = self._spills.popleft()
+            did = True
+            arrays = copy.tensors()
+            names = ("k", "v", "k_scale", "v_scale")[:len(arrays)]
+            for j, d in enumerate(digests):
+                # Copies: the staging buffers go back to the pool.
+                blk = {n: a[:, j].clone() for n, a in zip(names, arrays)}
+                self.prefix_spill_blocks_total += self._host.put(d, blk)
+            copy.release()
+        return did
+
+    def _issue_restore(self, req: Request, ids: list[int], digests: list,
+                       shared: list[int], blocks: list) -> None:
+        """A host-tier hit at admission: allocate fresh pages for the
+        blocks, scatter them in (groups of ``_spill_group``, staged in
+        pinned memory and uploaded without a host sync) and park the
+        request until the last scatter's event has passed
+        (``_resolve_restores``).  Decoding goes on meanwhile."""
+        pages = self._alloc.alloc(len(blocks))
+        # Pages the allocation evicted spill before the scatter, which may
+        # write those very pages.
+        self._spill_flush()
+        g = self._spill_group
+        for i in range(0, len(blocks), g):
+            grp, pg = blocks[i: i + g], pages[i: i + g]
+            staged = {name: self._stage(grp, name, g) for name in grp[0]}
+            pad = np.asarray(pg + [pg[0]] * (g - len(pg)), np.int64)
+            tf.scatter_pool_pages(
+                self.cache, staged["k"], staged["v"], self._upload(pad),
+                len(grp), staged.get("k_scale"), staged.get("v_scale"))
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        self._awaiting_restore.append(_RestoreState(
+            request=req, ids=ids, digests=digests, shared=shared,
+            pages=pages, done=done, t0=time.monotonic()))
+
+    def _stage(self, blocks: list, name: str, g: int) -> torch.Tensor:
+        """Field ``name`` of up to ``g`` host blocks stacked on axis 1 and
+        uploaded: [L, g, ...] on the device (entries past the blocks are
+        never scattered)."""
+        first = blocks[0][name]
+        out = torch.empty((first.shape[0], g) + tuple(first.shape[1:]),
+                          dtype=first.dtype,
+                          pin_memory=self.device.type == "cuda")
+        for j, b in enumerate(blocks):
+            out[:, j] = b[name]
+        return self._upload_tensor(out)
+
+    def _resolve_restores(self) -> bool:
+        """Unpark the restores whose scatter landed, while a slot is free:
+        the restored pages enter the device index (a host hit refills tier
+        0) and the request continues chunked after shared + restored pages.
+        An abort while parked releases its pages.  Returns True if any
+        moved."""
+        did = False
+        still: list[_RestoreState] = []
+        for rec in self._awaiting_restore:
+            rid = rec.request.request_id
+            with self._abort_lock:
+                aborted = rid in self._aborted
+                self._aborted.discard(rid)
+            if aborted:
+                did = True
+                # A scatter still in flight to these pages is harmless: any
+                # later write to them queues behind it on the stream.
+                self._end_restore(rec, "abort")
+                continue
+            if not self._free or (rec.done is not None
+                                  and not rec.done.query()):
+                still.append(rec)
+                continue
+            did = True
+            start = len(rec.shared)
+            self._alloc.register(rec.digests[start: start + len(rec.pages)],
+                                 rec.pages)
+            self._host.restored_blocks += len(rec.pages)
+            self.prefix_restore_blocks_total += len(rec.pages)
+            self.prefix_restore_seconds.append(time.monotonic() - rec.t0)
+            # The request's references on shared + restored pages pass to
+            # its slot (the index holds its own on the restored ones).
+            self._start_chunked(
+                rec.request, rec.ids,
+                prefix_len=(start + len(rec.pages)) * self._page,
+                prefix_pages=rec.shared + rec.pages, digests=rec.digests)
+        self._awaiting_restore = still
+        return did
+
+    def _end_restore(self, rec: _RestoreState, reason: str,
+                     error: str | None = None) -> None:
+        self._alloc.decref(rec.shared)
+        self._alloc.decref(rec.pages)
+        self._unpin_guide(rec.request)
+        rec.request.outputs.put(RequestOutput(
+            request_id=rec.request.request_id, token_ids=[], finished=True,
+            finish_reason=reason, error=error,
+            num_prompt_tokens=len(rec.ids)))
+
+    def _abort_awaiting_restores(self, error: str | None = None) -> None:
+        """End every request parked on a restore (engine exit: "abort"; a
+        failed step: "error")."""
+        for rec in self._awaiting_restore:
+            self._end_restore(rec, "error" if error else "abort", error)
+        self._awaiting_restore = []
+
+    def _restore_ready_any(self) -> bool:
+        return any(rec.done is None or rec.done.query()
+                   for rec in self._awaiting_restore)
 
     # ------------------------------------------------------------------
     # Pipelined decode (ARKS_PIPELINE_DEPTH) and depth-0 sampler fusion
@@ -1696,14 +2124,20 @@ class InferenceEngine:
         """The steady-state gate shared by the pipelined and fused paths:
         live decoding slots, no prefill chunk and no deferred admission
         pending, no admission possible (a free slot and a waiting
-        request), every slot's stop set on the device, and no abort aimed
-        at a live slot.  The reference's other gates guard subsystems the
-        port does not have (windowed residency, host-tier restores, disk
-        or peer fetches, swaps and preemption) and are left out; so is
+        request), no landed host-tier restore with a free slot to take,
+        every slot's stop set on the device, and no abort aimed at a live
+        slot.  The reference's other gates guard subsystems the port does
+        not have (windowed residency, disk or peer fetches, swaps and
+        preemption) and are left out; so is
         its wait for the pipe programs' ahead-of-time compile: eager
         PyTorch has nothing to compile, and the kernels build at their
         first launch."""
         if not self._slots or self._prefilling or self._pending_admits:
+            return False
+        if self._awaiting_restore and self._free and \
+                self._restore_ready_any():
+            # A restore landed: drain so it can take a slot on exact host
+            # mirrors (restores in flight keep the pipeline going).
             return False
         if self._free and not self._queue.empty():
             return False
@@ -1727,6 +2161,8 @@ class InferenceEngine:
             while self._pipe_inflight and self._pipe_rec_ready(
                     self._pipe_inflight[0]):
                 self._pipe_resolve_one()
+        if self._spills:
+            self._resolve_spills()
 
     def _step_fused(self) -> None:
         """One depth-0 fused iteration: the pipe program issued fresh from
@@ -1738,6 +2174,8 @@ class InferenceEngine:
             self._pipe_resolve_one()
         self._pipe_state = None
         self._pipe_cols = None
+        if self._spills:
+            self._resolve_spills()
 
     @staticmethod
     def _pipe_rec_ready(rec) -> bool:

@@ -2,21 +2,22 @@
 allocator half of ``arks_tpu/engine/paged.py``).
 
 The device side is arks_tpu_torch.ops.paged_attention (pool + block
-tables); this is the authority over which pool page holds what.  The port's
-engine keeps device prefix sharing off for now (it allocates and frees
-only); the allocator keeps the reference's prefix index so that turning it
-on changes the engine alone:
+tables); this is the authority over which pool page holds what:
 
 - **Free list + refcounts**: a page is free (refcount 0), private (held by
   one slot), or shared (held by several slots and/or the prefix index).
-- **Prefix index**: chained content digests (``prefix_sketch``) -> page
-  id, LRU-ordered.
+- **Prefix index** (tier 0 of the prefix cache): chained content digests
+  (``prefix_sketch``) -> page id, LRU-ordered.  A prompt's full pages are
+  registered once written; a later prompt with the same prefix points its
+  block table at them and prefills only its tail.
 - **Eviction**: allocation prefers the free list; under pressure it evicts
-  LRU index-retained pages (refcount held only by the index).
+  LRU index-retained pages (refcount held only by the index), calling
+  ``on_evict`` first so the engine can spill the page to the host tier.
+- **Stats**: query and hit tokens (``record_query``, ``hit_rate``).
 
-The reference's spill hook (host prefix tier), routing-sketch mirror and
-hit-rate stats serve features the port does not have yet and are not
-copied.  Thread-safety: engine thread only.
+The reference's membership mirror for the routing sketch serves the cache
+sketch endpoint, which the port's server does not have, and is not copied.
+Thread-safety: engine thread only.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ def pages_needed(length: int, rows: int, page: int, max_pages: int) -> int:
 
 
 class PageAllocator:
-    def __init__(self, num_pages: int, page: int) -> None:
+    def __init__(self, num_pages: int, page: int, on_evict=None) -> None:
         self.page = page
         self.num_pages = num_pages
         self._free = list(range(num_pages - 1, -1, -1))
@@ -51,6 +52,14 @@ class PageAllocator:
         # reference on each registered page.
         self._index: "OrderedDict[bytes, int]" = OrderedDict()
         self._page_digest: dict[int, bytes] = {}
+        # Spill hook: on_evict(digest, page) the moment an index-retained
+        # page is evicted, BEFORE it can reach the free list, so the engine
+        # can queue its spill while the content is still on the device.
+        # Must not raise and must not call back into the allocator (it
+        # runs mid-alloc).
+        self.on_evict = on_evict
+        self.hit_tokens = 0
+        self.query_tokens = 0
 
     # -- allocation ----------------------------------------------------
 
@@ -78,8 +87,10 @@ class PageAllocator:
         return out
 
     def _evict_lru(self) -> None:
-        _, pg = self._index.popitem(last=False)
+        digest, pg = self._index.popitem(last=False)
         del self._page_digest[pg]
+        if self.on_evict is not None:
+            self.on_evict(digest, pg)
         self._ref[pg] -= 1
         if self._ref[pg] == 0:
             self._free.append(pg)
@@ -130,3 +141,13 @@ class PageAllocator:
             self._index[d] = pg
             self._page_digest[pg] = d
             self._ref[pg] += 1
+
+    # -- stats ---------------------------------------------------------
+
+    def record_query(self, num_tokens: int, hit: int) -> None:
+        self.query_tokens += num_tokens
+        self.hit_tokens += hit
+
+    @property
+    def hit_rate(self) -> float:
+        return self.hit_tokens / self.query_tokens if self.query_tokens else 0.0

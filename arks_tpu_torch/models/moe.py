@@ -5,7 +5,10 @@ Two dispatches, as in the reference:
 - **Dense** (``moe_ffn``): every expert's FFN runs over every token as one
   batched einsum over the expert dim; the router weights zero the
   unselected experts.  Decode reads every expert's weights once per step
-  anyway, so at serving batch sizes this costs no extra bytes.
+  anyway, so at serving batch sizes this costs no extra bytes.  With
+  quantized weights on the card its products are the grouped matmul
+  kernel with every expert over the same rows (``quant.qeinsum``), which
+  reads the int8/int4 bytes raw.
 - **Grouped** (``moe_ffn_grouped``): the (token, slot) pairs are sorted by
   routed expert and each expert runs over its own rows only.  Route
   ``ARKS_MOE_KERNEL`` (``ops/moe_kernel.moe_impl``): ``xla`` (and ``auto``)
@@ -113,12 +116,13 @@ def ragged_dot(xs: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def _shared_expert(x: torch.Tensor, mp: Params) -> torch.Tensor:
+def _shared_expert(x: torch.Tensor, mp: Params,
+                   impl: str | None = None) -> torch.Tensor:
     """The shared expert's SwiGLU output times its sigmoid gate."""
-    sg = qeinsum("...e,ef->...f", x, mp["shared_gate_proj"])
-    su = qeinsum("...e,ef->...f", x, mp["shared_up"])
+    sg = qeinsum("...e,ef->...f", x, mp["shared_gate_proj"], impl)
+    su = qeinsum("...e,ef->...f", x, mp["shared_up"], impl)
     sact = torch.nn.functional.silu(sg.float()).to(sg.dtype) * su
-    shared = qeinsum("...f,fe->...e", sact, mp["shared_down"])
+    shared = qeinsum("...f,fe->...e", sact, mp["shared_down"], impl)
     gatev = torch.sigmoid((x @ mp["shared_gate"]).float())
     return shared * gatev[..., None].to(shared.dtype)
 
@@ -164,22 +168,23 @@ def moe_ffn_grouped(x: torch.Tensor, mp: Params, cfg, *,
     for j in range(k):
         out = out + contrib[pos[:, j]]
     if cfg.shared_expert_intermediate_size:
-        out = out + _shared_expert(x2, mp)
+        out = out + _shared_expert(x2, mp, impl)
     return out.reshape(*lead, e)
 
 
 def moe_ffn(x: torch.Tensor, mp: Params, cfg, *, grouped: bool,
             impl: str | None = None) -> torch.Tensor:
     """MoE feed-forward on [..., E] activations, grouped or dense as the
-    caller decides (``use_grouped``)."""
+    caller decides (``use_grouped``).  ``impl`` goes to the grouped matmul
+    and to ``qeinsum`` ("plain": their plain versions)."""
     if grouped:
         return moe_ffn_grouped(x, mp, cfg, impl=impl)
     weights = router_weights(x @ mp["router"], cfg).to(x.dtype)   # [.., X]
-    gate = qeinsum("...e,xef->...xf", x, mp["w_gate"])
-    up = qeinsum("...e,xef->...xf", x, mp["w_up"])
+    gate = qeinsum("...e,xef->...xf", x, mp["w_gate"], impl)
+    up = qeinsum("...e,xef->...xf", x, mp["w_up"], impl)
     act = torch.nn.functional.silu(gate.float()).to(gate.dtype) * up
-    down = qeinsum("...xf,xfe->...xe", act, mp["w_down"])      # per expert
+    down = qeinsum("...xf,xfe->...xe", act, mp["w_down"], impl)  # per expert
     out = torch.einsum("...xe,...x->...e", down, weights)
     if cfg.shared_expert_intermediate_size:
-        out = out + _shared_expert(x, mp)
+        out = out + _shared_expert(x, mp, impl)
     return out

@@ -25,11 +25,19 @@ bridged weights) runs.  Under ``jit`` (its ``init_params_quantized``) XLA
 multiplies by the reciprocal instead; the port's random init draws from
 torch generators, so no bit comparison applies there.
 
-``qeinsum`` of a quantized leaf converts the weight to the activation dtype
-and calls ``torch.einsum``/``matmul`` — the reference leaves these plain
-products to XLA, which fuses the convert into the operand read; here the
-converted weight is materialized (a debt noted in ``PERF.md``).  The MoE
-experts' grouped path reads the raw bytes in ``csrc/grouped_matmul.cu``.
+``qeinsum`` of a quantized leaf: the reference leaves these products to
+XLA, which fuses the int8/int4 convert into the dot's operand read.  On a
+CUDA tensor the port sends them through the grouped matmul kernel
+(``csrc/grouped_matmul.cu``), which reads the raw int8 bytes or int4
+nibbles and folds the scales into its f32 accumulator: a projection
+(``"...a,ab->...b"``) is one group over the T rows, the dense MoE route's
+products (``"...e,xef->...xf"``, ``"...xf,xfe->...xe"``) X groups of the
+same T rows.  Any other quantized form raises there.  A CPU tensor takes
+``qeinsum_plain``: the weight converted to the activation dtype, the
+product, then int8's per-channel scale in that dtype (the grouped kernel
+applies the same scale to its f32 accumulator before its one rounding,
+so the two differ by a rounding of the product: within a bf16 step of
+the output).
 """
 
 from __future__ import annotations
@@ -161,9 +169,21 @@ def _plain_einsum(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, x, w)
 
 
-def qeinsum(eq: str, x: torch.Tensor, w) -> torch.Tensor:
-    """``einsum`` where ``w`` may be a quantized leaf.  int8: the product
-    with the int8 values converted to x's dtype, then the per-channel scale
+def qeinsum(eq: str, x: torch.Tensor, w, impl: str | None = None
+            ) -> torch.Tensor:
+    """``einsum`` where ``w`` may be a quantized leaf: through the grouped
+    matmul kernel on a CUDA tensor (``qeinsum_grouped``), else, or with
+    ``impl="plain"``, ``qeinsum_plain``."""
+    if not is_quantized(w):
+        return _plain_einsum(eq, x, w)
+    if x.is_cuda and impl != "plain":
+        return qeinsum_grouped(eq, x, w)
+    return qeinsum_plain(eq, x, w)
+
+
+def qeinsum_plain(eq: str, x: torch.Tensor, w) -> torch.Tensor:
+    """The plain form of a quantized ``qeinsum``.  int8: the product with
+    the int8 values converted to x's dtype, then the per-channel scale
     (cast to the product's dtype) on the output.  int4: the product with
     the weight dequantized in x's dtype."""
     if not is_quantized(w):
@@ -172,6 +192,91 @@ def qeinsum(eq: str, x: torch.Tensor, w) -> torch.Tensor:
         return _plain_einsum(eq, x, _dequant_int4(w, x.dtype))
     y = _plain_einsum(eq, x, w["q"].to(x.dtype))
     return y * w["s"].squeeze(-2).to(y.dtype)
+
+
+def grouped_form(eq: str) -> str | None:
+    """Which grouped-matmul layout a quantized product takes: "proj" for
+    ``"...a,ab->...b"`` (one group), "experts" for ``"...e,xef->...xf"``
+    (every expert over the same rows), "experts_out" for
+    ``"...xf,xfe->...xe"`` (expert x over its own rows), else None."""
+    lhs, rest = eq.split(",")
+    rhs, out = rest.split("->")
+    if not (lhs.startswith("...") and out.startswith("...")):
+        return None
+    a, o = lhs[3:], out[3:]
+    if len(rhs) == 2 and len(a) == 1 and rhs == a + o:
+        return "proj"
+    if len(rhs) == 3 and len(a) == 1 and rhs[1] == a and o == rhs[0] + rhs[2]:
+        return "experts"
+    if len(rhs) == 3 and a == rhs[:2] and o == rhs[0] + rhs[2]:
+        return "experts_out"
+    return None
+
+
+# Tile maps of the grouped layouts, per (device, T, X): built on the device
+# once (no host sync), shared by every product of that shape.
+_TILE_MAPS: dict = {}
+
+
+def grouped_tiles(t: int, x: int, device: torch.device):
+    """(block_expert, tile_rows) for X groups of the same ``t`` rows, each
+    padded to a 128-row tile multiple: tile i of group e names expert e and
+    holds min(128, t - i' * 128) real rows (i' its index in the group)."""
+    from arks_tpu_torch.ops.moe_kernel import BLOCK_T
+    key = (device, t, x)
+    maps = _TILE_MAPS.get(key)
+    if maps is None:
+        n = -(-t // BLOCK_T)
+        starts = torch.arange(n, device=device, dtype=torch.int32) * BLOCK_T
+        rows = torch.clamp(t - starts, 0, BLOCK_T).repeat(x)
+        bexp = torch.arange(x, device=device, dtype=torch.int32
+                            ).repeat_interleave(n)
+        maps = _TILE_MAPS[key] = (bexp, rows)
+    return maps
+
+
+def qeinsum_grouped(eq: str, x: torch.Tensor, w: dict) -> torch.Tensor:
+    """A quantized ``qeinsum`` through ``moe_kernel.grouped_matmul``: the
+    rows padded to 128-row tiles in one copy (X copies for the dense MoE
+    route's first products), one launch that reads the raw weight, the
+    output sliced back.  Raises on a form it does not take, and wherever
+    the kernel refuses the shape (there is no convert fallback)."""
+    from arks_tpu_torch.ops.moe_kernel import BLOCK_T, grouped_matmul
+    form = grouped_form(eq)
+    if form is None:
+        raise ValueError(f"qeinsum {eq!r}: no grouped-matmul layout for "
+                         "this quantized product")
+    q = w["q"]
+    if form == "proj":
+        q = q[None]
+    if "gs" in w:
+        gs = w["gs"][None] if form == "proj" else w["gs"]
+        kw = {"w_group_scale": gs}
+    else:
+        s = w["s"] if form == "proj" else w["s"][:, 0]     # [X, N]
+        # The reference scales the product in its dtype (``y *
+        # s.astype(y.dtype)``): the kernel takes the scale rounded to it,
+        # so the two differ by one rounding of the product, not by a
+        # per-channel bias.
+        kw = {"w_scale": s.to(x.dtype).float()}
+    nx, n = q.shape[0], q.shape[-1]
+    if form == "experts_out":
+        lead = x.shape[:-2]
+        xs = x.reshape(-1, nx, x.shape[-1]).transpose(0, 1)   # [X, T, F]
+    else:
+        lead = x.shape[:-1]
+        xs = x.reshape(-1, x.shape[-1])[None]                   # [1, T, K]
+        if form == "experts":
+            xs = xs.expand(nx, -1, -1)
+    t = xs.shape[1]
+    tp = -(-t // BLOCK_T) * BLOCK_T
+    xs = torch.nn.functional.pad(xs, (0, 0, 0, tp - t)) if tp != t else         xs.contiguous()
+    bexp, rows = grouped_tiles(t, nx, x.device)
+    out = grouped_matmul(xs.reshape(nx * tp, -1), q, bexp, tile_rows=rows,
+                         **kw).view(nx, tp, n)[:, :t]
+    if form == "proj":
+        return out[0].reshape(*lead, n)
+    return out.transpose(0, 1).reshape(*lead, nx, n)
 
 
 def embed_lookup(embed, tokens: torch.Tensor,

@@ -11,9 +11,12 @@ per-layer weights in ``x @ w`` orientation, so ``models/weights.py`` can
 bridge a JAX param tree leaf for leaf.  The forward is a Python loop over
 layers (the reference's ``lax.scan``); caches and pools are updated in
 place (the reference returns new ones), and head_dim is stored unpadded.
-Weights may be int8/int4 leaves (``models/quant.py``); an MoE model's
-FFN is ``models/moe.py``, grouped or dense as each entry point decides
-with the reference's rule (``moe.use_grouped``).
+Weights may be int8/int4 leaves (``models/quant.py``: on the card their
+products run through the grouped matmul kernel); an MoE model's FFN is
+``models/moe.py``, grouped or dense as each entry point decides with the
+reference's rule (``moe.use_grouped``).  ``gather_pool_pages`` /
+``scatter_pool_pages`` move whole pool pages for the host prefix tier, and
+``extract`` reads a slot back out for the slot cache's prefix cache.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ from arks_tpu_torch.ops.attention import (chunk_attention_xla,
                                           paged_mixed_update_and_attend,
                                           prefill_attention, prepare_mixed)
 from arks_tpu_torch.ops.paged_attention import (pack_int4, paged_gather_kv,
+                                                paged_pool_gather,
+                                                paged_pool_scatter,
                                                 paged_write_rows, quantize_kv,
                                                 unpack_int4)
 from arks_tpu_torch.ops.norms import rms_norm
@@ -267,10 +272,10 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page: int, dtype=None,
                         v=torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _qkv(h: torch.Tensor, lp: Params, cfg: ModelConfig):
-    q = qeinsum("...e,eq->...q", h, lp["wq"])
-    k = qeinsum("...e,ek->...k", h, lp["wk"])
-    v = qeinsum("...e,ek->...k", h, lp["wv"])
+def _qkv(h: torch.Tensor, lp: Params, cfg: ModelConfig, impl=None):
+    q = qeinsum("...e,eq->...q", h, lp["wq"], impl)
+    k = qeinsum("...e,ek->...k", h, lp["wk"], impl)
+    v = qeinsum("...e,ek->...k", h, lp["wv"], impl)
     if cfg.qkv_bias:
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -278,13 +283,15 @@ def _qkv(h: torch.Tensor, lp: Params, cfg: ModelConfig):
     return q, k, v
 
 
-def _block_qkv(h: torch.Tensor, lp: Params, cfg: ModelConfig, rope):
+def _block_qkv(h: torch.Tensor, lp: Params, cfg: ModelConfig, rope,
+               impl: str | None = None):
     """Pre-norm + qkv projection + head split + rope for [..., T, E].
     ``rope`` is the step's (cos, sin) from ``rope_cos_sin`` (the reference
-    takes the positions; the angles are the same for every layer)."""
+    takes the positions; the angles are the same for every layer);
+    ``impl`` goes to a quantized projection's ``qeinsum``."""
     lead = h.shape[:-1]
     x = rms_norm(h, lp["attn_norm"], cfg.rms_norm_eps)
-    q, k, v = _qkv(x, lp, cfg)
+    q, k, v = _qkv(x, lp, cfg, impl)
     q = q.reshape(*lead, cfg.num_heads, cfg.head_dim)
     k = k.reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
@@ -295,21 +302,21 @@ def _mlp(h: torch.Tensor, lp: Params, cfg: ModelConfig, *,
          grouped: bool = False, impl: str | None = None) -> torch.Tensor:
     """Dense SwiGLU, silu in f32 as the reference (``transformer.py:392``);
     an MoE model's FFN instead, grouped or dense as the caller decided
-    (``impl`` goes to its grouped matmul)."""
+    (``impl`` goes to its grouped matmul and to ``qeinsum``)."""
     x = rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps)
     if cfg.num_experts:
         return moe.moe_ffn(x, lp, cfg, grouped=grouped, impl=impl)
-    gate = qeinsum("...e,ef->...f", x, lp["w_gate"])
-    up = qeinsum("...e,ef->...f", x, lp["w_up"])
+    gate = qeinsum("...e,ef->...f", x, lp["w_gate"], impl)
+    up = qeinsum("...e,ef->...f", x, lp["w_up"], impl)
     act = torch.nn.functional.silu(gate.float()).to(gate.dtype) * up
-    return qeinsum("...f,fe->...e", act, lp["w_down"])
+    return qeinsum("...f,fe->...e", act, lp["w_down"], impl)
 
 
 def _block_tail(h: torch.Tensor, attn: torch.Tensor, lp: Params,
                 cfg: ModelConfig, *, grouped: bool = False,
                 impl: str | None = None) -> torch.Tensor:
     """Output projection residual + MLP residual."""
-    h = h + qeinsum("...q,qe->...e", attn, lp["wo"])
+    h = h + qeinsum("...q,qe->...e", attn, lp["wo"], impl)
     return h + _mlp(h, lp, cfg, grouped=grouped, impl=impl)
 
 
@@ -345,7 +352,7 @@ def mixed_step(
     ``sample_src``.  Padding tokens (token_slot < 0) drop their writes;
     their activations are garbage no sample_src points at.  ``impl`` and
     ``qmax`` go to ``paged_mixed_update_and_attend`` (``impl`` also to an
-    MoE model's grouped matmul).  ``moe_grouped``: an MoE model's dispatch,
+    MoE model's grouped matmul and to quantized weights' ``qeinsum``).  ``moe_grouped``: an MoE model's dispatch,
     by default the reference's rule on this batch's T (the engine passes
     the rule on its padded batch size, the T the reference runs).  What
     every layer shares — the rope angles, the per-token write view and the attention
@@ -365,7 +372,7 @@ def mixed_step(
                      params["layers"]["attn_norm"].dtype)
     for layer in range(cfg.num_layers):
         lp = _layer(params, layer)
-        q, k, v = _block_qkv(h, lp, cfg, rope)            # [T, H(kv), D]
+        q, k, v = _block_qkv(h, lp, cfg, rope, impl)      # [T, H(kv), D]
         attn = paged_mixed_update_and_attend(
             q, k, v, cache.k, cache.v, tables, token_slot, token_pos,
             seq_q_start, seq_q_len, seq_pos_start, layer, impl=impl,
@@ -556,6 +563,49 @@ def insert_pages_batch(cache: PagedKVCache, k_new: torch.Tensor,
     return cache
 
 
+def gather_pool_pages(cache: PagedKVCache, pages: torch.Tensor):
+    """Whole pool pages as contiguous pool-native staging blocks for the
+    host prefix tier's spill: (k, v, k_scale, v_scale), each [L, G, Hkv,
+    P(/2), D] (scales [L, G, Hkv, P]; None for an unquantized pool).  Raw
+    pool bytes, so ``scatter_pool_pages`` restores them bit for bit."""
+    k = paged_pool_gather(cache.k, pages)
+    v = paged_pool_gather(cache.v, pages)
+    if cache.quantized:
+        return (k, v, paged_pool_gather(cache.k_scale, pages),
+                paged_pool_gather(cache.v_scale, pages))
+    return k, v, None, None
+
+
+def scatter_pool_pages(cache: PagedKVCache, k_blocks: torch.Tensor,
+                       v_blocks: torch.Tensor, pages: torch.Tensor,
+                       n_valid: int, k_scale=None,
+                       v_scale=None) -> PagedKVCache:
+    """Restore pool-native page blocks (``gather_pool_pages``' output)
+    into the first ``n_valid`` pages listed in ``pages``, IN PLACE: the
+    host prefix tier's restore."""
+    paged_pool_scatter(cache.k, k_blocks, pages, n_valid)
+    paged_pool_scatter(cache.v, v_blocks, pages, n_valid)
+    if cache.quantized:
+        paged_pool_scatter(cache.k_scale, k_scale, pages, n_valid)
+        paged_pool_scatter(cache.v_scale, v_scale, pages, n_valid)
+    return cache
+
+
+def extract(cache: KVCache, slot: int, dtype: torch.dtype | None = None):
+    """One slot's KV read back out time-major ``[L, 1, S, Hkv, D]``, the
+    inverse of ``insert`` (dequantized to ``dtype``, by default bf16, for an
+    int8 cache): the prefix cache's harvest of a chunk-prefilled slot."""
+    k = cache.k[:, slot: slot + 1]
+    v = cache.v[:, slot: slot + 1]
+    if cache.quantized:
+        out = dtype or torch.bfloat16
+        k = (k.float() * cache.k_scale[:, slot: slot + 1, ..., None]).to(out)
+        v = (v.float() * cache.v_scale[:, slot: slot + 1, ..., None]).to(out)
+    elif dtype is not None:
+        k, v = k.to(dtype), v.to(dtype)
+    return k.transpose(2, 3), v.transpose(2, 3)
+
+
 def gather_pages(cache: PagedKVCache, tables_row: torch.Tensor, layer: int):
     """One slot's cache as contiguous views for ``layer``: (k [Hkv, S, D],
     v, k_scale [Hkv, S] | None, v_scale | None), gathered through its table
@@ -620,7 +670,8 @@ def decode_step(params: Params, cfg: ModelConfig,
     [B, V] float32.  A slot cache drops writes at lengths >= S; a paged
     cache takes ``tables`` and treats lengths >= coverage as the inactive
     sentinel (write dropped, nothing attended).  ``impl`` goes to the
-    attention op ("plain": the reference's XLA oracle).  An MoE model's
+    attention op ("plain": the reference's XLA oracle) and to quantized
+    weights' ``qeinsum``.  An MoE model's
     FFN is dense here whatever the batch, as in the reference."""
     paged = isinstance(cache, PagedKVCache)
     if paged and tables is None:
@@ -648,7 +699,7 @@ def decode_step(params: Params, cfg: ModelConfig,
                                      hkv=cfg.num_kv_heads)
     for layer in range(cfg.num_layers):
         lp = _layer(params, layer)
-        q, k, v = _block_qkv(h, lp, cfg, rope)            # [B, H(kv), D]
+        q, k, v = _block_qkv(h, lp, cfg, rope, impl)      # [B, H(kv), D]
         if paged:
             attn = paged_decode_update_and_attend(
                 q, k, v, cache.k, cache.v, tables, write_idx, layer,
@@ -659,7 +710,7 @@ def decode_step(params: Params, cfg: ModelConfig,
                 q, k, v, cache.k, cache.v, write_idx, layer, impl=impl,
                 k_scale=cache.k_scale, v_scale=cache.v_scale,
                 lengths=attend)
-        h = _block_tail(h, attn.reshape(b, cfg.q_dim), lp, cfg)
+        h = _block_tail(h, attn.reshape(b, cfg.q_dim), lp, cfg, impl=impl)
     return _unembed(h, params, cfg)
 
 

@@ -1246,3 +1246,34 @@ def paged_decode_attention(
 
 
 paged_decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Whole-page copies for the host prefix tier
+# ---------------------------------------------------------------------------
+# A spill gathers evicted pages into a contiguous staging block that is
+# copied to the host; a restore scatters host blocks back into freshly
+# allocated pool pages.  A page is already one dense (layer-major) stripe,
+# so each is a plain page-axis copy: the reference leaves them to XLA
+# (``paged_pool_gather``/``paged_pool_scatter``, "a Pallas formulation would
+# buy nothing"), and here they are ``index_select``/``index_copy_``.  Both
+# carry raw pool bytes (int8 and packed int4 pages, f32 scales), so a
+# spill then a restore is bit-exact by construction.
+
+
+def paged_pool_gather(pool: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
+    """Whole pool pages as a contiguous staging block: ``[L, N, Hkv, P, ...]
+    x [G] -> [L, G, Hkv, P, ...]``.  Duplicate page ids (the padding of a
+    short spill group) are benign: the host drops the padded entries."""
+    return pool.index_select(1, pages.long())
+
+
+def paged_pool_scatter(pool: torch.Tensor, blocks: torch.Tensor,
+                       pages: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """Write the first ``n_valid`` staged page blocks (``[L, G, Hkv, P,
+    ...]``) into the pool pages listed in ``pages`` ([G], entries past
+    n_valid ignored), IN PLACE; the inverse of ``paged_pool_gather``."""
+    if n_valid:
+        pool.index_copy_(1, pages[:n_valid].long(),
+                         blocks[:, :n_valid].to(pool.dtype))
+    return pool

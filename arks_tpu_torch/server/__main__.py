@@ -42,6 +42,10 @@ def main(argv: list[str] | None = None) -> None:
                    help="KV layout: auto/paged (page pool; the mixed "
                         "scheduler unless ARKS_MIXED_STEP=0) or slot "
                         "(slot-contiguous cache, legacy scheduler)")
+    p.add_argument("--prefix-cache-mb", type=int, default=256,
+                   help="prefix reuse: a paged pool's retention pages, or "
+                        "the slot cache's host prefix cache, in MB (0: "
+                        "none)")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -56,7 +60,8 @@ def main(argv: list[str] | None = None) -> None:
                         max_cache_len=args.max_model_len, dtype=args.dtype,
                         kv_cache_dtype=args.kv_cache_dtype,
                         weight_dtype=args.weight_dtype,
-                        kv_layout=args.kv_layout, seed=args.seed)
+                        kv_layout=args.kv_layout,
+                        prefix_cache_mb=args.prefix_cache_mb, seed=args.seed)
     engine = InferenceEngine(cfg, ecfg, load_tokenizer(args.tokenizer_path),
                              device=args.device)
     server = OpenAIServer(engine, args.served_model_name or args.model,

@@ -113,6 +113,22 @@ Phases (any failure raises and exits non-zero):
               torch.cuda.set_sync_debug_mode("error") (no hidden host
               sync); decode tok/s at 1 and 8 streams, host ms per token,
               busy share and launches per step.
+              Then prefix reuse (phase_prefix) on the same weights at
+              depth 2, every call of the tiers' issue paths
+              (_pipe_issue, _issue_restore, _spill_flush) under
+              set_sync_debug_mode("error"): on the mixed bf16 pool a
+              2,048-token prefix with 8 distinct 64-token tails, one at a
+              time — the cold request's TTFT, then each warm one's, which
+              prefills exactly its tail, every stream equal to a
+              prefix-off engine's; then distinct 15-page prompts until the
+              prefix leaves the device index, and the warm prompt again,
+              restored from the host tier (2,048 host-hit tokens, the
+              restored pages' bytes equal to the spilled ones, the same
+              stream).  The same on mixed int8 and int4 pools and the
+              legacy paged int8 pool (the prefix evicted by pool
+              pressure), and the legacy slot bf16 cache's prefix cache
+              (harvest, then a warm insert).  Each engine's kernels count
+              num_layers x its dispatches (decode steps).
   5. parity   two mixed_steps through the kernels vs the same steps through
               impl="plain" at full width: logits within 10% of the largest
               |logit| in bf16 and within 5e-4 in f32, and the same argmax
@@ -150,24 +166,32 @@ Phases (any failure raises and exits non-zero):
               with a 65-row group, within 1e-2 of the largest |out|, tiles
               past the groups exactly zero, timed beside the bound, the
               plain version and torch._grouped_mm over dequantized bf16
-              weights;
+              weights; then quantized qeinsum's routes through it
+              (phase_moe_routes, int8 and int4): the dense MoE route at
+              T = 8 over the 8 experts (gate and down) and the
+              projections wq [4096, 4096] and wk [4096, 1024] over 8 and
+              264 rows, each one launch within 1e-2 of the largest |out|
+              of qeinsum_plain, timed beside that convert path and the
+              byte bound, with the kernels each launches;
               Mixtral-8x7B served at full width and all 32 layers with
               random int8 weights (a bf16 pool of 8 slots x 4096, chunk
-              256) through phase 4's requests, grouped_matmul counting 3 x
-              num_layers x mixed dispatches, with peak device memory, and
-              one traced mixed step (these served engines pinned to
-              depth 0, fusion off: see _moe_engine); then 8 greedy streams
-              at depth 2 on the same weights, every pipelined issue
-              sync-checked, and the pipe step (8 tokens: the dense MoE
-              route, as the reference's rule gives) beside the sequential
-              one on the same lanes; a short batch with int4 weights; and
+              256) at the default engine shape (depth 2, fusion on)
+              through phase 4's requests, grouped_matmul counting 7 x
+              num_layers x mixed dispatches (q, k, v, o and the FFN's
+              three, grouped or dense), with peak device memory, and one
+              traced mixed step; then 8 greedy streams at depth 2 on the
+              same weights, every pipelined issue sync-checked, and the
+              pipe step (8 tokens: the dense MoE route, as the
+              reference's rule gives) beside the sequential one on the
+              same lanes; a short batch with int4 weights; and
               mixed_step through the kernels vs impl="plain" over 2 layers
               (bf16 and int8 weights, 10% of the largest |logit|) and 1
               layer in f32 (5e-4).
 The line before the last is the kernels JSON (nine counterparts); the last
 line is the device JSON.  A kernel's "launches" counts its launches in the
-runs of the served path: phase 4's, the request surface's included (the
-dense launch: its greedy run) and phase 7's (grouped_matmul).
+runs of the served path: phase 4's, the request surface's, the pipeline's
+and prefix reuse's included (the dense launch: its greedy run) and phase
+7's (grouped_matmul, every quantized product).
 """
 
 from __future__ import annotations
@@ -1057,8 +1081,8 @@ def phase_serve(torch, dev, kv="bf16", params=None, engine=None):
             else "paged_kv_update"
         expected = {name: want if name in (update, "paged_mixed_attention")
                     else 0 for name in launches}
-        if cfg.num_experts:      # three grouped products per layer
-            expected["grouped_matmul"] = 3 * want
+        expected["grouped_matmul"] = _gm_per_layer(
+            engine, engine._moe_grouped) * want
         log(f"{tag} of those, pipelined dispatches {pipe} (depth "
             f"{engine._pipe_depth}, fused {engine.sampler_fused_dispatches}"
             f", occupancy {dict(sorted(engine.pipe_occupancy.items()))})")
@@ -1855,30 +1879,42 @@ def _restore_env(os, old: dict) -> None:
 
 
 class _NoSync:
-    """Wraps ``engine._pipe_issue`` in torch.cuda.set_sync_debug_mode
-    ("error"): any host sync while a pipelined dispatch is issued raises
-    (and fails the phase); counts the issues it watched."""
+    """Wraps the engine's issue paths ``names`` (by default
+    ``_pipe_issue``) in torch.cuda.set_sync_debug_mode("error"): any host
+    sync while one runs raises (and fails the phase); counts the calls it
+    watched, in all (``issues``) and by name (``calls``)."""
 
-    def __init__(self, torch, engine):
-        self.torch, self.engine, self.orig = torch, engine, engine._pipe_issue
+    def __init__(self, torch, engine, names=("_pipe_issue",)):
+        self.torch, self.engine, self.names = torch, engine, names
         self.issues = 0
+        self.calls = collections.Counter()
+
+    def _wrap(self, name):
+        orig = getattr(self.engine, name)
+
+        def checked(*args, **kw):
+            cuda = self.torch.cuda
+            prev = cuda.get_sync_debug_mode()
+            cuda.set_sync_debug_mode("error")
+            try:
+                return orig(*args, **kw)
+            finally:
+                cuda.set_sync_debug_mode(prev)
+                self.issues += 1
+                self.calls[name] += 1
+        return checked
 
     def __enter__(self):
-        def checked():
-            self.torch.cuda.set_sync_debug_mode("error")
-            try:
-                self.orig()
-            finally:
-                self.torch.cuda.set_sync_debug_mode("default")
-            self.issues += 1
-        self.engine._pipe_issue = checked
+        for name in self.names:
+            setattr(self.engine, name, self._wrap(name))
         return self
 
     def __exit__(self, *exc):
-        # Drop the instance attribute (the class's method shows again):
-        # assigning the bound method back would make a reference cycle
+        # Drop the instance attributes (the class's methods show again):
+        # assigning the bound methods back would make a reference cycle
         # that keeps the engine, and its cache, alive until a GC pass.
-        del self.engine._pipe_issue
+        for name in self.names:
+            delattr(self.engine, name)
 
 
 def _pipe_batch(torch, engine, prompts, max_tokens, window=False):
@@ -2111,9 +2147,10 @@ def phase_pipeline_moe(torch, dev, params):
     together, every pipelined issue under
     torch.cuda.set_sync_debug_mode("error"); its steady steps run the pipe
     step, whose MoE FFN takes the dense route (8 tokens, the reference's
-    rule).  Then that pipe step beside the sequential mixed step on the
-    same lanes (``phase_pipe_step_profile``).  Returns the numbers."""
-    engine, _ = _moe_engine(torch, dev, "int8", params=params, depth="2")
+    rule) through the grouped matmul.  Then that pipe step beside the
+    sequential mixed step on the same lanes (``phase_pipe_step_profile``).
+    Returns the numbers."""
+    engine, _ = _moe_engine(torch, dev, "int8", params=params)
     tag = f"[pipeline {MOE_MODEL} int8]"
     prompts = [f"expert lane {i} of 8" for i in range(8)]
     _pipe_batch(torch, engine, prompts[:1], 4)
@@ -2123,10 +2160,11 @@ def phase_pipeline_moe(torch, dev, params):
         _, secs, _ = _pipe_batch(torch, engine, prompts, 16)
     pipe, n = engine.pipe_dispatches - p0, engine.dispatches - d0
     launches = _read_counts()
-    # The pipe steps take the dense route: no grouped launch of theirs.
+    # The pipe steps' dense route launches as many as the grouped steps.
     want = {"paged_kv_update": engine.cfg.num_layers * n,
             "paged_mixed_attention": engine.cfg.num_layers * n,
-            "grouped_matmul": 3 * engine.cfg.num_layers * (n - pipe)}
+            "grouped_matmul": _gm_per_layer(engine, True)
+            * engine.cfg.num_layers * n}
     got = {k: launches[k] for k in want}
     res = dict(tok_s_b8=8 * 15 / secs, pipe=pipe, dispatches=n,
                occupancy=dict(sorted(engine.pipe_occupancy.items())))
@@ -2140,6 +2178,20 @@ def phase_pipeline_moe(torch, dev, params):
     del engine
     torch.cuda.empty_cache()
     return res
+
+
+def _gm_per_layer(engine, grouped):
+    """grouped_matmul launches per layer of one forward: every quantized
+    product (q, k, v, o, the FFN's three, a shared expert's three) takes
+    qeinsum's grouped route, whichever MoE dispatch runs; with unquantized
+    weights only an MoE FFN's grouped dispatch launches it.  Every
+    dispatch of a served engine is counted the same (``_moe_grouped``
+    decides the sequential mixed step; the pipe step's dense route
+    launches as many)."""
+    cfg = engine.cfg
+    if engine.ecfg.weight_dtype == "bf16":
+        return 3 if cfg.num_experts and grouped else 0
+    return 7 + (3 if cfg.shared_expert_intermediate_size else 0)
 
 
 def _leaves(tree):
@@ -3028,6 +3080,318 @@ def log_row_writes(upd_t, qupd_t, lt):
 
 
 # ---------------------------------------------------------------------------
+# Prefix reuse: the device index, the host tier, the slot cache's prefix
+# cache (Qwen2.5-7B at full width)
+# ---------------------------------------------------------------------------
+
+
+PREFIX_LEN, PREFIX_TAIL, PREFIX_TOKENS = 2048, 64, 16
+# Every path that issues work for the tiers, held sync-free.
+PREFIX_ISSUES = ("_pipe_issue", "_issue_restore", "_spill_flush")
+
+
+def _prefix_engine(torch, dev, params, kv="bf16", layout="paged",
+                   mixed=True, off=False):
+    """A Qwen2.5-7B engine on ``params`` (8 slots x 4096, chunk = page =
+    256, the default depth 2): the mixed scheduler on a ``kv`` pool, or
+    the legacy one on a paged pool (``mixed`` False) or the slot cache.
+    Prefix reuse at its defaults (256 MB of retention pages, a 256 MB host
+    tier, or the slot cache's 256 MB prefix cache); ``off``: none at all
+    (no retention, no host tier, the device index never matching)."""
+    import os
+
+    from arks_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arks_tpu_torch.engine.tokenizer import ByteTokenizer
+    from arks_tpu_torch.models import get_config
+    old = {k: os.environ.get(k) for k in ("ARKS_MIXED_STEP",
+                                          "ARKS_PREFIX_HOST_MB")}
+    os.environ["ARKS_MIXED_STEP"] = "1" if mixed else "0"
+    if off:
+        os.environ["ARKS_PREFIX_HOST_MB"] = "0"
+    try:
+        engine = InferenceEngine(get_config(MODEL), EngineConfig(
+            model=MODEL, num_slots=8, max_cache_len=MAX_PAGES * PAGE,
+            prefill_chunk=PAGE, dtype="bfloat16", kv_cache_dtype=kv,
+            kv_layout=layout, seed=SEED,
+            **({"prefix_cache_mb": 0} if off else {})),
+            ByteTokenizer(), params=params, device=dev)
+    finally:
+        _restore_env(os, old)
+    if off:
+        engine._alloc.match = lambda digests: []
+    return engine
+
+
+def _prefix_run(torch, engine, ids, max_tokens=PREFIX_TOKENS):
+    """One greedy request alone, driven by ``engine.step()`` from this
+    thread: (tokens, TTFT seconds on the host clock, prompt tokens the
+    model computed for it)."""
+    import queue
+
+    from arks_tpu_torch.engine import Request, SamplingParams
+    req = Request(f"prefix-{time.perf_counter_ns()}", list(ids),
+                  SamplingParams(max_tokens=max_tokens, temperature=0,
+                                 ignore_eos=True))
+    p0 = engine.prefill_tokens_total
+    t0 = time.perf_counter()
+    engine.add_request(req)
+    toks, ttft, done = [], None, False
+    for _ in range(100_000):
+        engine.step(block_s=0.001)
+        while True:
+            try:
+                out = req.outputs.get_nowait()
+            except queue.Empty:
+                break
+            if ttft is None and out.token_ids:
+                ttft = time.perf_counter() - t0
+            toks += out.token_ids
+            done = done or out.finished
+        if done and engine.idle:
+            break
+    if not done or len(toks) != max_tokens:
+        raise AssertionError(f"[prefix] a request ended short: {len(toks)}")
+    return toks, ttft, engine.prefill_tokens_total - p0
+
+
+def _settle_spills(engine):
+    """Step the idle engine until every spill copy has landed in the host
+    tier (a spill lands on device time)."""
+    for _ in range(10_000):
+        if not engine._spills:
+            return
+        engine.step(block_s=0.001)
+    raise AssertionError("[prefix] spills never landed")
+
+
+def _evict_prefix(engine, digests):
+    """Pool pressure without churn: allocate every free page and as many
+    more as the index retains, which evicts (and spills) the LRU pages --
+    the prefix's -- then give the allocation back."""
+    alloc = engine._alloc
+    grab = alloc.alloc(alloc.free_pages + alloc.retained_pages)
+    engine._spill_flush()
+    alloc.decref(grab)
+    if any(d in alloc._index for d in digests):
+        raise AssertionError("[prefix] the prefix survived the eviction")
+
+
+def _spilled(engine, digests, tag):
+    """Copies of the host tier's blocks of ``digests`` (all must be
+    there)."""
+    host = [engine._host.peek(d) for d in digests]
+    if any(b is None for b in host):
+        raise AssertionError(f"{tag} a page was not spilled to the host tier")
+    return [{k: v.clone() for k, v in b.items()} for b in host]
+
+
+def _same_pages(torch, engine, digests, host, tag):
+    """The device index's pages of ``digests`` (restored) against the
+    spilled blocks ``host``, bit for bit; returns the pages compared."""
+    pages = engine._alloc.match(digests)
+    try:
+        if len(pages) != len(digests):
+            raise AssertionError(f"{tag} restored pages not in the index")
+        names = ("k", "v", "k_scale", "v_scale")
+        for pg, blk in zip(pages, host):
+            for name, arr in zip(names, engine.cache):
+                if name in blk and not torch.equal(arr[:, pg].cpu(),
+                                                   blk[name]):
+                    raise AssertionError(f"{tag} restored {name} bytes differ")
+    finally:
+        engine._alloc.decref(pages)
+    return len(pages)
+
+
+def _prefix_counts(engine, launches, d0, s0):
+    """The served kernels' expected counts on ``engine`` since dispatch
+    and decode-step marks ``d0``/``s0`` (every other kernel none)."""
+    layers = engine.cfg.num_layers
+    quant = engine.kv_quantized
+    if engine._mixed:
+        n = layers * (engine.dispatches - d0)
+        want = {"paged_kv_update_quant" if quant else "paged_kv_update": n,
+                "paged_mixed_attention": n}
+    else:
+        n = layers * (engine.decode_steps - s0)
+        slot = not engine._paged
+        want = {("kv_cache_update" if slot else "paged_kv_update")
+                + ("_quant" if quant else ""): n,
+                "ragged_decode_attention" if slot
+                else "paged_decode_attention": n}
+    return {k: want.get(k, 0) for k in launches}
+
+
+def phase_prefix(torch, dev, params):
+    """Prefix reuse on Qwen2.5-7B at full width (``params``: phase 4's bf16
+    weights), at the default depth 2, every call of the tiers' issue paths
+    (PREFIX_ISSUES) under torch.cuda.set_sync_debug_mode("error"):
+    - the mixed bf16 engine: a 2,048-token prefix (8 pages) with 8
+      distinct 64-token tails, one request at a time: the cold request's
+      TTFT, then each warm one's, which must prefill exactly its tail;
+      every stream equal to a prefix-off engine's (no retention, no host
+      tier, the device index never matching).  Then distinct prompts of
+      15 full pages until the prefix leaves the device index (spilled to
+      the host tier), and the first warm prompt again: restored from the
+      host tier (2,048 host-hit tokens, the tail prefilled, the same
+      stream), the restored pages' bytes equal to the spilled ones;
+    - mixed int8 and int4 pools, and the legacy scheduler on a paged int8
+      pool (ARKS_MIXED_STEP=0): cold, warm (a device hit), then the prefix
+      evicted by pool pressure (``_evict_prefix``) and restored, bytes and
+      streams checked as above;
+    - the legacy slot bf16 cache: the cold prompt harvested into its
+      prefix cache, the warm one inserted from it, the tail prefilled.
+    Each engine's kernels count num_layers x its dispatches (decode
+    steps).  Returns {"launches": summed counts, "rows": numbers}."""
+    from arks_tpu_torch.engine.paged import chain_digests
+    from arks_tpu_torch.models import get_config
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 11)
+    vocab = get_config(MODEL).vocab_size
+    prefix = [int(x) for x in rng.integers(2, vocab, PREFIX_LEN)]
+    tails = [[int(x) for x in rng.integers(2, vocab, PREFIX_TAIL)]
+             for _ in range(8)]
+    prompts = [prefix + t for t in tails]
+    digests = chain_digests(prefix, PAGE, PREFIX_LEN // PAGE)
+    total = collections.Counter()
+    rows = {}
+
+    # The prefix-off oracle first (same weights, same one-at-a-time order).
+    off = _prefix_engine(torch, dev, params, off=True)
+    _prefix_run(torch, off, [5] * 40, 2)
+    oracle = []
+    for p in prompts:
+        toks, _, n = _prefix_run(torch, off, p)
+        if n != len(p):
+            raise AssertionError("[prefix off] a prompt was not prefilled "
+                                 "whole")
+        oracle.append(toks)
+    del off
+    torch.cuda.empty_cache()
+
+    tag = "[prefix mixed bf16]"
+    engine = _prefix_engine(torch, dev, params)
+    _prefix_run(torch, engine, [5] * 40, 2)       # warm-up
+    _reset_counts()
+    d0, s0 = engine.dispatches, engine.decode_steps
+    with _NoSync(torch, engine, PREFIX_ISSUES) as nosync:
+        toks, ttft_cold, n_cold = _prefix_run(torch, engine, prompts[0])
+        streams, ttfts, tails_done = [toks], [], [n_cold]
+        for p in prompts[1:]:
+            toks, ttft, n = _prefix_run(torch, engine, p)
+            streams.append(toks)
+            ttfts.append(ttft)
+            tails_done.append(n)
+        dev_hits = engine.prefix_cache_hit_tokens_total["device"]
+        churn = 0
+        while any(d in engine._alloc._index for d in digests):
+            churn += 1
+            if churn > 16:
+                raise AssertionError(f"{tag} churn never evicted the prefix")
+            ids = [int(x) for x in rng.integers(2, vocab, 15 * PAGE + 1)]
+            _prefix_run(torch, engine, ids, 2)
+        _settle_spills(engine)
+        host = _spilled(engine, digests, tag)
+        h0 = engine.prefix_cache_hit_tokens_total["host"]
+        r0 = engine.prefix_restore_blocks_total
+        toks, ttft_restored, n_restored = _prefix_run(torch, engine,
+                                                      prompts[0])
+        host_hits = engine.prefix_cache_hit_tokens_total["host"] - h0
+        same_pages = _same_pages(torch, engine, digests, host, tag)
+    launches = _read_counts()
+    want = _prefix_counts(engine, launches, d0, s0)
+    # What the bus gives a restore: the spilled blocks' bytes uploaded
+    # from pinned memory, by CUDA events.
+    nbytes = sum(v.nbytes for blk in host for v in blk.values())
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    h2d_ms = _time_ms(torch, lambda: pinned.to(dev, non_blocking=True),
+                      iters=5, warmup=1)
+    del pinned
+    row = dict(ttft_cold_ms=ttft_cold * 1e3,
+               ttft_warm_ms=[t * 1e3 for t in ttfts],
+               ttft_restored_ms=ttft_restored * 1e3,
+               prefilled=tails_done, prefilled_restored=n_restored,
+               device_hit_tokens=dev_hits, host_hit_tokens=host_hits,
+               churn_requests=churn,
+               spilled=engine.prefix_spill_blocks_total,
+               restored=engine.prefix_restore_blocks_total - r0,
+               restore_ms=[s * 1e3 for s in engine.prefix_restore_seconds],
+               restore_bytes=nbytes, h2d_ms=h2d_ms,
+               pool_pages=engine._alloc.num_pages,
+               checked_issues=dict(nosync.calls))
+    rows["mixed bf16"] = row
+    log(f"{tag} TTFT cold {row['ttft_cold_ms']:.1f} ms ({len(prompts[0])} "
+        f"tokens, prefilled {n_cold}); warm "
+        + ", ".join(f"{t:.1f}" for t in row["ttft_warm_ms"])
+        + f" ms (prefilled {tails_done[1:]}); device-hit tokens {dev_hits}; "
+        f"churn {churn} prompts of {15 * PAGE + 1} tokens, {row['spilled']} pages "
+        f"spilled; restored from the host tier: TTFT "
+        f"{row['ttft_restored_ms']:.1f} ms, host-hit tokens {host_hits}, "
+        f"prefilled {n_restored}, {row['restored']} pages in "
+        f"{row['restore_ms']} ms ({nbytes} B; a pinned upload of as many "
+        f"bytes {h2d_ms:.2f} ms), bytes equal {same_pages} pages; streams "
+        f"equal the prefix-off engine's "
+        f"{streams == oracle and toks == oracle[0]}; pool "
+        f"{row['pool_pages']} pages; sync-checked calls {row['checked_issues']}"
+        f"; launches {launches}, expected {want}")
+    ok = (streams == oracle and toks == oracle[0]
+          and tails_done == [len(prompts[0])] + [PREFIX_TAIL] * 7
+          and dev_hits == 7 * PREFIX_LEN and host_hits == PREFIX_LEN
+          and n_restored == PREFIX_TAIL and row["restored"] == 8
+          and same_pages == 8 and launches == want
+          and nosync.calls["_issue_restore"] >= 1
+          and nosync.calls["_spill_flush"] >= 1)
+    if not ok:
+        raise AssertionError(f"{tag} prefix reuse failed its checks")
+    total.update(launches)
+    del engine
+    torch.cuda.empty_cache()
+
+    for kv, layout, mixed in (("int8", "paged", True), ("int4", "paged", True),
+                              ("int8", "paged", False),
+                              ("bf16", "slot", False)):
+        sched = "mixed" if mixed else "legacy"
+        tag = f"[prefix {sched} {layout} {kv}]"
+        engine = _prefix_engine(torch, dev, params, kv, layout, mixed)
+        _prefix_run(torch, engine, [5] * 40, 2)       # warm-up
+        _reset_counts()
+        d0, s0 = engine.dispatches, engine.decode_steps
+        with _NoSync(torch, engine, PREFIX_ISSUES) as nosync:
+            cold, ttft_cold, n_cold = _prefix_run(torch, engine, prompts[0])
+            warm, ttft_warm, n_warm = _prefix_run(torch, engine, prompts[1])
+            ok = n_cold == len(prompts[0]) and n_warm == PREFIX_TAIL
+            res = dict(ttft_cold_ms=ttft_cold * 1e3,
+                       ttft_warm_ms=ttft_warm * 1e3, prefilled_warm=n_warm)
+            if layout == "paged":
+                _evict_prefix(engine, digests)
+                _settle_spills(engine)
+                host = _spilled(engine, digests, tag)
+                again, _, n_again = _prefix_run(torch, engine, prompts[0])
+                res.update(prefilled_restored=n_again,
+                           same_pages=_same_pages(torch, engine, digests,
+                                                  host, tag))
+                ok = ok and again == cold and n_again == PREFIX_TAIL and \
+                    res["same_pages"] == 8 and \
+                    nosync.calls["_issue_restore"] >= 1
+        launches = _read_counts()
+        want = _prefix_counts(engine, launches, d0, s0)
+        ok = ok and launches == want
+        res.update(checked_issues=dict(nosync.calls),
+                   hits=dict(engine.prefix_cache_hit_tokens_total))
+        rows[f"{sched} {layout} {kv}"] = res
+        log(f"{tag} TTFT cold {res['ttft_cold_ms']:.1f} ms, warm "
+            f"{res['ttft_warm_ms']:.1f} ms; {res}; launches {launches}, "
+            f"expected {want}")
+        if not ok:
+            raise AssertionError(f"{tag} prefix reuse failed its checks")
+        total.update(launches)
+        del engine
+        torch.cuda.empty_cache()
+    log(f"[prefix] phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=dict(total), rows=rows)
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: the MoE path (Mixtral-8x7B, int8 / int4 weights)
 # ---------------------------------------------------------------------------
 
@@ -3183,34 +3547,127 @@ def _moe_kernel_case(torch, mk, batch, shape, mode, sizes, xs, xs_p, bexp,
     return rec
 
 
-def _moe_engine(torch, dev, weight_dtype, params=None, depth="0"):
-    """A Mixtral-8x7B engine (8 slots x 4096, chunk 256, bf16 pool) with
-    ``weight_dtype`` weights (drawn from SEED, or ``params``), at pipeline
-    depth ``depth``.  Phase 7's served runs pin depth 0 with fusion off:
-    their steady steps would otherwise take the 8-token pipe step, whose
-    dense MoE route (every expert's weights converted per call) costs ~7x
-    the grouped step and would double the phase's time; phase 7 runs one
-    short batch at depth 2 on its own (``phase_pipeline_moe``)."""
-    import os
+def _kernels_per_call(torch, fn, calls=10, tries=4):
+    """Kernels one call of ``fn`` launches, from the profiler's device
+    trace: windows of ``calls`` calls, the one that saw the most events
+    (the trace drops the first events of a window now and then, which
+    would empty a window of a single short call), rounded up per call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    best = 0
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        best = max(best, sum(
+            e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA))
+    return -(-best // calls)
 
+
+def phase_moe_routes(torch, dev):
+    """qeinsum's grouped routes (kernel #9, no new kernel) at Mixtral-8x7B
+    shapes with int8 and int4 (group 128) weights: the dense MoE route's
+    two products at T = 8 over the 8 experts (every expert over the same
+    rows: gate/up [8, 4096, 14336], down [8, 14336, 4096]), and the
+    projections wq [4096, 4096] and wk [4096, 1024] over 8 and 264 rows
+    (one group).  Each within GM_TOL of the largest |out| of
+    ``qeinsum_plain`` (the convert, matmul and scale it replaces), one
+    grouped_matmul launch a call; timed by CUDA events beside the convert
+    path and the byte bound, with the kernels each form launches (from
+    the profiler: the route may take at most two more than the convert
+    path).  Returns {(route, mode): record}."""
+    from arks_tpu_torch.models import get_config
+    from arks_tpu_torch.models import quant
+    from arks_tpu_torch.ops import moe_kernel as mk
+    cfg = get_config(MOE_MODEL)
+    e, fm, nx = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    routes = [("dense gate T=8", "...e,xef->...xf", (8, e), (nx, e, fm)),
+              ("dense down T=8", "...xf,xfe->...xe", (8, nx, fm),
+               (nx, fm, e)),
+              ("wq T=8", "...e,eq->...q", (8, e), (e, cfg.q_dim)),
+              ("wq T=264", "...e,eq->...q", (264, e), (e, cfg.q_dim)),
+              ("wk T=8", "...e,ek->...k", (8, e), (e, kvd)),
+              ("wk T=264", "...e,ek->...k", (264, e), (e, kvd))]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    out = {}
+    for name, eq, xshape, wshape in routes:
+        x = torch.randn(xshape, generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.empty(wshape, dtype=torch.bfloat16, device=dev)
+        for i in range(w.shape[0] if len(wshape) == 3 else 1):
+            part = w[i] if len(wshape) == 3 else w
+            part.copy_(torch.randn(part.shape, generator=gen, device=dev)
+                       * 0.02)
+        for mode in ("int8", "int4"):
+            leaf = quant.quantize_tensor(w) if mode == "int8" else \
+                quant.quantize_tensor_int4(w, 128)
+            before = mk.grouped_matmul.launches
+            got = quant.qeinsum(eq, x, leaf)
+            calls = mk.grouped_matmul.launches - before
+            want = quant.qeinsum(eq, x, leaf, impl="plain")
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            top = want.float().abs().max().item()
+            finite = bool(torch.isfinite(got.float()).all().item())
+            k, n = wshape[-2], wshape[-1]
+            groups = wshape[0] if len(wshape) == 3 else 1
+            t = xshape[0]
+            scale = n * 4 if mode == "int8" else (k // 128) * n * 4
+            nbytes = int(groups * (k * n * WEIGHT_ELEM_BYTES[mode] + scale)
+                         + t * (groups if eq.startswith("...xf") else 1)
+                         * k * 2 + t * groups * n * 2)
+            flops = 2 * t * k * n * groups
+            launches = {
+                tag: _kernels_per_call(torch, fn) for tag, fn in (
+                    ("route", lambda: quant.qeinsum(eq, x, leaf)),
+                    ("convert", lambda: quant.qeinsum(eq, x, leaf,
+                                                      impl="plain")))}
+            rec = dict(ms=_time_ms(torch, lambda: quant.qeinsum(eq, x, leaf)),
+                       plain_ms=_time_ms(torch, lambda: quant.qeinsum(
+                           eq, x, leaf, impl="plain")),
+                       max_abs_err=err, launches=launches, nbytes=nbytes,
+                       **_bound(nbytes, flops))
+            out[(name, mode)] = rec
+            log(f"[moe routes] {name} {mode} {eq} x {tuple(xshape)} w "
+                f"{tuple(wshape)}: max abs err vs qeinsum_plain {err:.3e} "
+                f"(tol {GM_TOL['bf16']} x max |out| {top:.3f}); finite "
+                f"{finite}; grouped_matmul calls {calls}; "
+                f"{rec['ms'] * 1e3:.1f} us (bound {rec['bound_ms'] * 1e3:.1f}"
+                f" us by {rec['bound_by']}: {nbytes} B; "
+                f"{rec['bound_ms'] / rec['ms']:.2f} of it), the convert path "
+                f"{rec['plain_ms'] * 1e3:.1f} us; kernels per call "
+                f"{launches['route']:.0f} vs {launches['convert']:.0f}")
+            if not (finite and calls == 1 and err <= GM_TOL["bf16"] * top
+                    and 0 < launches["route"] <= launches["convert"] + 2):
+                raise AssertionError(f"[moe routes] {name} {mode} failed "
+                                     "its checks")
+            del leaf
+        del x, w
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moe_engine(torch, dev, weight_dtype, params=None):
+    """A Mixtral-8x7B engine (8 slots x 4096, chunk 256, bf16 pool) with
+    ``weight_dtype`` weights (drawn from SEED, or ``params``), at the
+    default engine shape (depth 2, fusion on): its steady steps take the
+    8-token pipe step, whose MoE FFN is the dense route (the reference's
+    rule), through the grouped matmul like every quantized product."""
     from arks_tpu_torch.engine import EngineConfig, InferenceEngine
     from arks_tpu_torch.engine.tokenizer import ByteTokenizer
     from arks_tpu_torch.models import get_config
     cfg = get_config(MOE_MODEL)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    old = {k: os.environ.get(k) for k in ("ARKS_PIPELINE_DEPTH",
-                                          "ARKS_SAMPLER_FUSE")}
-    os.environ.update(ARKS_PIPELINE_DEPTH=depth,
-                      ARKS_SAMPLER_FUSE="1" if depth != "0" else "0")
-    try:
-        engine = InferenceEngine(cfg, EngineConfig(
-            model=MOE_MODEL, num_slots=8, max_cache_len=MAX_PAGES * PAGE,
-            prefill_chunk=PAGE, dtype="bfloat16", kv_cache_dtype="bf16",
-            weight_dtype=weight_dtype, seed=SEED), ByteTokenizer(),
-            params=params, device=dev)
-    finally:
-        _restore_env(os, old)
+    engine = InferenceEngine(cfg, EngineConfig(
+        model=MOE_MODEL, num_slots=8, max_cache_len=MAX_PAGES * PAGE,
+        prefill_chunk=PAGE, dtype="bfloat16", kv_cache_dtype="bf16",
+        weight_dtype=weight_dtype, seed=SEED), ByteTokenizer(),
+        params=params, device=dev)
     torch.cuda.synchronize()
     wbytes = sum(x.numel() * x.element_size() for x in _leaves(engine.params))
     log(f"[serve {MOE_MODEL} {weight_dtype}] engine up in "
@@ -3273,7 +3730,7 @@ def phase_serve_moe_short(torch, dev, engine):
         want = cfg.num_layers * dispatches
         expected = {name: 0 for name in launches}
         expected.update(paged_kv_update=want, paged_mixed_attention=want,
-                        grouped_matmul=3 * want)
+                        grouped_matmul=_gm_per_layer(engine, True) * want)
         log(f"{tag} a greedy completion twice in a row identical {same}; "
             f"8 concurrent greedy streams of 16 tokens in {wall:.2f} s "
             f"({8 * 16 / wall:.1f} tok/s incl. prefill); mixed dispatches "
@@ -3327,6 +3784,7 @@ def phase_moe(torch, dev):
     import os
     os.environ["ARKS_MOE_KERNEL"] = "pallas"
     gm = phase_moe_kernels(torch, dev)
+    routes = phase_moe_routes(torch, dev)
     engine, wbytes = _moe_engine(torch, dev, "int8")
     init_peak = torch.cuda.max_memory_allocated()
     serve = phase_serve(torch, dev, "bf16", engine=engine)[1]
@@ -3352,7 +3810,7 @@ def phase_moe(torch, dev):
         f"{serve['peak_bytes']} B serving, {init_peak} B at init; int4 "
         f"weights ({wbytes4} B): {short['tok_s']:.1f} tok/s over the short "
         "batch")
-    return gm, serve, short
+    return gm, routes, serve, short
 
 
 def _with_grid(grid, fn):
@@ -3460,6 +3918,7 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
     pipeline = phase_pipeline(torch, dev, params)
+    prefix = phase_prefix(torch, dev, params)
     legacy = {(layout, kv): phase_serve_legacy(
         torch, dev, layout, kv, params, surface=(layout, kv) == ("slot",
                                                                  "bf16"))
@@ -3490,11 +3949,12 @@ def main() -> int:
     quant_err = qres["int8"][1]
     del b, lb, qres
     torch.cuda.empty_cache()
-    gm, moe_serve, moe_short = phase_moe(torch, dev)
+    gm, routes, moe_serve, moe_short = phase_moe(torch, dev)
     gm_row = gm[("528-row", "gate", "int8")]
     slot16, slot8 = legacy[("slot", "bf16")], legacy[("slot", "int8")]
     paged8, paged4 = legacy[("paged", "int8")], legacy[("paged", "int4")]
-    pipe_n = pipeline["launches"]
+    pipe_n = collections.Counter(pipeline["launches"])
+    pipe_n.update(prefix["launches"])     # both served at the defaults
     attn_launches = (serve["launches"]["paged_mixed_attention"]
                      + serve8["launches"]["paged_mixed_attention"]
                      + paged4["launches"]["paged_mixed_attention"]
@@ -3505,6 +3965,15 @@ def main() -> int:
         log(f"[pipeline table] {sched} {tag}: " + ", ".join(
             f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
             for k, v in row.items()))
+    for tag, row in prefix["rows"].items():
+        log(f"[prefix table] {tag}: {json.dumps(row)}")
+    for (route, mode), rec in routes.items():
+        log(f"[routes table] {route} {mode}: kernel {rec['ms'] * 1e3:.1f} us"
+            f", convert path {rec['plain_ms'] * 1e3:.1f} us, bound "
+            f"{rec['bound_ms'] * 1e3:.1f} us ({rec['bound_by']}), kernels "
+            f"per call {rec['launches']['route']:.0f} vs "
+            f"{rec['launches']['convert']:.0f}, max abs err "
+            f"{rec['max_abs_err']:.3e}")
     log(f"[surface step] every feature off / on, per decode step: mixed "
         f"{surface_step['off'][1]:.1f} / {surface_step['on'][1]:.1f} us "
         f"device, {surface_step['off'][2]:.2f} / {surface_step['on'][2]:.2f}"
@@ -3527,12 +3996,14 @@ def main() -> int:
              replaces="arks_tpu/ops/paged_attention.py:1215",
              launches=(serve8["launches"]["paged_kv_update_quant"]
                        + paged8["launches"]["paged_kv_update_quant"]
-                       + paged4["launches"]["paged_kv_update_quant"]),
+                       + paged4["launches"]["paged_kv_update_quant"]
+                       + pipe_n["paged_kv_update_quant"]),
              max_abs_err=quant_err, **qupd_t["int8"]),
         dict(name="paged_decode_attention", route="cuda", source=DECODE_SRC,
              replaces="arks_tpu/ops/paged_attention.py:388",
              launches=(paged8["launches"]["paged_decode_attention"]
-                       + f32["paged_decode_attention"]),
+                       + f32["paged_decode_attention"]
+                       + pipe_n["paged_decode_attention"]),
              max_abs_err=legacy_err["paged_decode_attention"],
              **lt["paged_decode_attention"]),
         dict(name="ragged_decode_attention", route="cuda", source=DECODE_SRC,
@@ -3555,7 +4026,8 @@ def main() -> int:
         dict(name="kv_cache_update_quant", route="cuda",
              source=SLOT_UPDATE_SRC,
              replaces="arks_tpu/ops/pallas_attention.py:354",
-             launches=slot8["launches"]["kv_cache_update_quant"],
+             launches=(slot8["launches"]["kv_cache_update_quant"]
+                       + pipe_n["kv_cache_update_quant"]),
              max_abs_err=legacy_err["kv_cache_update_quant"],
              **lt["kv_cache_update_quant"]),
         dict(name="paged_mixed_attention_dense", route="cuda",

@@ -105,7 +105,8 @@ def test_greedy_streams_match_jax_engine(name, monkeypatch):
     want = _jax_streams(name, jparams, prompts, 7, monkeypatch)
     got, eng = _torch_streams(name, tparams, prompts, 7)
     _same_streams(want, got)
-    assert eng._alloc.free_pages == eng._alloc.num_pages   # all pages back
+    assert eng._alloc.free_pages == \
+        eng._alloc.num_pages - eng._alloc.retained_pages   # all pages back
 
 
 @pytest.mark.parametrize("kv", ["int8", "int4"])
@@ -143,7 +144,8 @@ def test_f32_engine_bf16_cache_greedy_streams_match_jax_engine(
     assert eng.cache.k.dtype == torch.bfloat16 and not eng.kv_quantized
     assert eng.params["layers"]["attn_norm"].dtype == torch.float32
     _same_streams(want, got)
-    assert eng._alloc.free_pages == eng._alloc.num_pages
+    assert eng._alloc.free_pages == \
+        eng._alloc.num_pages - eng._alloc.retained_pages
 
 
 def test_f32_engine_bf16_cache_known_stream(monkeypatch):

@@ -47,7 +47,8 @@ def test_importing_every_module_loads_no_jax_and_no_arks_tpu():
     assert out[1] == "[]"
     imported = set(out[2].split(","))
     assert {"arks_tpu_torch.models.moe", "arks_tpu_torch.models.quant",
-            "arks_tpu_torch.ops.moe_kernel"} <= imported
+            "arks_tpu_torch.ops.moe_kernel",
+            "arks_tpu_torch.engine.prefix_cache"} <= imported
 
 
 def _imported_modules(path: Path):

@@ -1008,3 +1008,58 @@ def test_slot_writes_raise_on_unsupported(dev):
         pl.kv_cache_update_quant(*q, *(x.cpu() for x in qnew), qidx, 1)
     with pytest.raises(TypeError):
         pl.kv_cache_update_quant(*q, *(x.half() for x in qnew), qidx, 1)
+
+
+# ---------------------------------------------------------------------------
+# qeinsum's grouped routes: projections (one group) and the dense MoE route
+# (every expert over the same rows) through grouped_matmul
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("eq,xshape,wshape", [
+    ("...e,ef->...f", (8, 256), (256, 208)),
+    ("...e,ef->...f", (2, 131, 256), (256, 1024)),
+    ("...e,xef->...xf", (8, 256), (4, 256, 208)),
+    ("...e,xef->...xf", (70, 256), (4, 256, 208)),
+    ("...xf,xfe->...xe", (8, 4, 192), (4, 192, 256)),
+])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float32, 1e-5)])
+def test_qeinsum_grouped_route_vs_plain(dev, dtype, tol, bits, eq, xshape,
+                                        wshape):
+    """A quantized ``qeinsum`` on the card is one grouped_matmul launch that
+    reads the raw int8/int4 weight, within GM_TOL of the largest |out| of
+    ``qeinsum_plain`` (the convert, matmul and scale form)."""
+    from arks_tpu_torch.models import quant
+    from arks_tpu_torch.ops import moe_kernel as mk
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(len(xshape) + bits)
+    x = torch.randn(xshape, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(wshape, generator=gen, device=dev) * 0.02).to(dtype)
+    leaf = quant.quantize_tensor_int4(w, 64) if bits == 4 else \
+        quant.quantize_tensor(w)
+    before = mk.grouped_matmul.launches
+    got = quant.qeinsum(eq, x, leaf)
+    assert mk.grouped_matmul.launches == before + 1
+    want = quant.qeinsum(eq, x, leaf, impl="plain")
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=tol * scale)
+
+
+def test_qeinsum_grouped_route_raises_on_unsupported(dev):
+    """Shapes the kernel refuses raise on the card; nothing falls back to
+    the convert form."""
+    from arks_tpu_torch.models import quant
+    x = torch.randn(8, 64, device=dev, dtype=torch.bfloat16)
+    w = torch.randn(64, 40, device=dev, dtype=torch.bfloat16) * 0.02
+    with pytest.raises(ValueError):          # N not a multiple of 16
+        quant.qeinsum("...e,ef->...f", x, quant.quantize_tensor(w))
+    with pytest.raises(ValueError):          # bf16: K not a multiple of 8
+        quant.qeinsum("...e,ef->...f", x[:, :36],
+                      quant.quantize_tensor(w[:36].repeat(1, 4)[:, :64]))
+    with pytest.raises(ValueError):          # no grouped layout
+        quant.qeinsum("be,ev->bv", x, quant.quantize_tensor(w[:, :32]))

@@ -129,7 +129,8 @@ def _check_engine(eng, kv, layout):
                       else ttf.KVCache)
     assert eng.cache.quantized == (kv in ("int8", "int4"))
     if layout == "paged":
-        assert eng._alloc.free_pages == eng._alloc.num_pages
+        assert eng._alloc.free_pages == \
+            eng._alloc.num_pages - eng._alloc.retained_pages
 
 
 @pytest.mark.parametrize("kv", ["auto", "int8"])

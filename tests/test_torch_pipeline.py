@@ -194,7 +194,8 @@ def test_streams_at_every_depth_match_jax_engine(reference, weights,
             assert eng.pipe_dispatches == 0
         assert not eng._pipe_inflight and eng._pipe_state is None
         if sched == "mixed":
-            assert eng._alloc.free_pages == eng._alloc.num_pages
+            assert eng._alloc.free_pages == \
+                eng._alloc.num_pages - eng._alloc.retained_pages
 
 
 def test_fused_and_classic_identical_with_a_guided_request(weights,
@@ -281,7 +282,8 @@ def test_midstream_abort_drains_and_frees_the_slot(weights, monkeypatch):
     _, _, fin = _collect(victim.outputs)
     assert fin == "abort"
     assert not eng._pipe_inflight and eng._pipe_state is None
-    assert eng._alloc.free_pages == eng._alloc.num_pages
+    assert eng._alloc.free_pages == \
+        eng._alloc.num_pages - eng._alloc.retained_pages
     nxt = Request("n", [9, 9], SamplingParams(max_tokens=4, temperature=0.0,
                                                ignore_eos=True))
     eng.add_request(nxt)
@@ -329,7 +331,8 @@ def test_slot_reuse_right_after_overshoot(weights, monkeypatch):
                       num_slots=1)
         got_a, got_b = _run(eng, [a, b])
         assert got_a[2] == "stop" and got_b == fresh, depth
-        assert eng._alloc.free_pages == eng._alloc.num_pages
+        assert eng._alloc.free_pages == \
+            eng._alloc.num_pages - eng._alloc.retained_pages
 
 
 # ---------------------------------------------------------------------------
@@ -450,7 +453,8 @@ def test_legacy_overlap_streams_match_sequential(layout, weights,
         pairs = set(zip(order, order[1:]))
         assert (("_issue_decode", "_admit") in pairs) == (overlap == "1")
         if layout == "paged":
-            assert eng._alloc.free_pages == eng._alloc.num_pages
+            assert eng._alloc.free_pages == \
+                eng._alloc.num_pages - eng._alloc.retained_pages
     _same(got["1"], got["0"])
 
 
@@ -474,7 +478,8 @@ def test_deferred_admission_abort_frees_slot_and_pages(weights,
     assert fin == "abort" and ids == []
     assert not eng._pending_admits and eng.num_running == 0
     assert sorted(eng._free) == list(range(eng.ecfg.num_slots))
-    assert eng._alloc.free_pages == eng._alloc.num_pages
+    assert eng._alloc.free_pages == \
+        eng._alloc.num_pages - eng._alloc.retained_pages
     q = Request("e", [5, 6, 7], SamplingParams(max_tokens=8,
                                                temperature=0.0))
     eng.add_request(q)
@@ -482,7 +487,8 @@ def test_deferred_admission_abort_frees_slot_and_pages(weights,
     assert eng._pending_n == 1
     eng._abort_pending_admits()
     assert _collect(q.outputs)[2] == "abort"
-    assert eng._alloc.free_pages == eng._alloc.num_pages
+    assert eng._alloc.free_pages == \
+        eng._alloc.num_pages - eng._alloc.retained_pages
 
 
 # ---------------------------------------------------------------------------

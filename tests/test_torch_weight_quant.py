@@ -152,6 +152,77 @@ def test_qeinsum_matches_jax(bits, eq, xshape, wshape):
            jquant.dequantize(jq, jnp.float32))
 
 
+# qeinsum's route on the card, the grouped matmul kernel, driven here
+# through its plain version (grouped_matmul_plain): one group over the T
+# rows (projections), every expert over the same rows and expert x over
+# its own (the dense MoE route); T across a 128-row tile, lead dims.
+GROUPED_FORMS = [
+    ("...e,ef->...f", (5, 64), (64, 96)),
+    ("...e,ef->...f", (2, 70, 64), (64, 96)),
+    ("...e,xef->...xf", (7, 64), (4, 64, 96)),
+    ("...e,xef->...xf", (130, 64), (4, 64, 96)),
+    ("...xf,xfe->...xe", (7, 4, 96), (4, 96, 64)),
+    ("...xf,xfe->...xe", (2, 65, 4, 96), (4, 96, 64)),
+]
+# chip_smoke's GM_TOL: the kernel scales int8 in f32 before its one
+# rounding, the plain form scales the rounded product.
+GM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("eq,xshape,wshape", GROUPED_FORMS)
+def test_qeinsum_grouped_layout_matches_plain_and_jax(bits, dtype, eq,
+                                                       xshape, wshape):
+    rng = np.random.default_rng(len(xshape) + bits + xshape[0])
+    x = rng.standard_normal(xshape).astype(np.float32)
+    w = (rng.standard_normal(wshape) * 0.02).astype(np.float32)
+    jq, tq = _quantize_both(w, bits, group=32)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    if dtype == "bfloat16":
+        tq = tquant.quantize_tensor_int4(torch.from_numpy(w).bfloat16(), 32) \
+            if bits == 4 else tquant.quantize_tensor(
+                torch.from_numpy(w).bfloat16())
+    got = tquant.qeinsum_grouped(eq, tx, tq)
+    plain = tquant.qeinsum_plain(eq, tx, tq)
+    assert got.shape == plain.shape and got.dtype == plain.dtype
+    top = plain.float().abs().max().item()
+    torch.testing.assert_close(got.float(), plain.float(), rtol=0,
+                               atol=GM_TOL[dtype] * top)
+    if dtype == "float32":
+        _close(got, jquant.qeinsum(eq, jnp.asarray(x), jq))
+
+
+def test_qeinsum_on_the_cpu_is_its_plain_form():
+    """A CPU tensor keeps the plain form, bit for bit, on every form."""
+    rng = np.random.default_rng(1)
+    for eq, xshape, wshape in GROUPED_FORMS:
+        x = torch.from_numpy(rng.standard_normal(xshape).astype(np.float32))
+        w = (rng.standard_normal(wshape) * 0.02).astype(np.float32)
+        for bits in (8, 4):
+            tq = _quantize_both(w, bits, group=32)[1]
+            assert torch.equal(tquant.qeinsum(eq, x, tq),
+                               tquant.qeinsum_plain(eq, x, tq))
+
+
+def test_grouped_forms_and_tile_maps():
+    """Every quantized product of the models maps to a grouped layout (any
+    other raises); the tile maps name each group's expert and its real
+    rows."""
+    for eq in ("...e,eq->...q", "...q,qe->...e", "...f,fe->...e"):
+        assert tquant.grouped_form(eq) == "proj"
+    assert tquant.grouped_form("...e,xef->...xf") == "experts"
+    assert tquant.grouped_form("...xf,xfe->...xe") == "experts_out"
+    assert tquant.grouped_form("be,ev->bv") is None
+    tq = _quantize_both(np.ones((8, 16), np.float32), 8)[1]
+    with pytest.raises(ValueError, match="no grouped-matmul layout"):
+        tquant.qeinsum_grouped("be,ev->bv", torch.ones(2, 8), tq)
+    bexp, rows = tquant.grouped_tiles(300, 3, torch.device("cpu"))
+    assert bexp.tolist() == [0, 0, 0, 1, 1, 1, 2, 2, 2]
+    assert rows.tolist() == [128, 128, 44] * 3
+    assert tquant.grouped_tiles(300, 3, torch.device("cpu"))[0] is bexp
+
+
 def test_embed_lookup_matches_jax():
     rng = np.random.default_rng(2)
     table = (rng.standard_normal((300, 64)) * 0.02).astype(np.float32)
