@@ -57,6 +57,15 @@ parks the request until the copy has landed.  The slot cache keeps a host
 prefix cache instead (``PrefixKVCache``, ``prefix_cache_mb``), harvested at
 admission and inserted in front of the tail.
 
+Admission is the reference's tenant-fair, bounded queue
+(``engine/fairqueue.py``: weighted deficit round-robin across tenants
+within each SLO tier, ``ARKS_FAIR``; ``ARKS_QUEUE_MAX`` /
+``ARKS_QUEUE_TENANT_MAX`` bound the caller's puts, ``ARKS_QUEUE_AGING_S``
+ages starved entries, ``ARKS_SHED_DEADLINE`` sheds a request whose wait
+already spent its tier's TTFT budget).  ``metrics`` holds the reference's
+metric families (``engine/metrics.py``), updated from host-side values
+only.
+
 What the reference does and this port does not — the disk prefix tier,
 peer prefix fetch, the cache sketch, preemptive swap, speculative decoding,
 fault recovery, parallelism — is rejected (``EngineConfig.validate``, and
@@ -69,19 +78,23 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
-import os
 import queue
 import threading
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from arks_tpu_torch import knobs, tenancy
+from arks_tpu_torch import slo as slo_mod
 from arks_tpu_torch.device import resolve_device
-from arks_tpu_torch.engine import prng
+from arks_tpu_torch.engine import fairqueue, prng
 from arks_tpu_torch.engine import sampler as sampler_mod
 from arks_tpu_torch.engine.guides import Guide, GuideCompiler, GuideError
+from arks_tpu_torch.engine.metrics import EngineMetrics
 from arks_tpu_torch.engine.paged import (PageAllocator, chain_digests,
+                                         mixed_grid_steps, mixed_kv_bytes,
                                          pages_needed)
 from arks_tpu_torch.engine.prefix_cache import HostPrefixTier, PrefixKVCache
 from arks_tpu_torch.engine.types import Request, RequestOutput
@@ -89,6 +102,7 @@ from arks_tpu_torch.models import moe
 from arks_tpu_torch.models import quant
 from arks_tpu_torch.models import transformer as tf
 from arks_tpu_torch.models.config import ModelConfig
+from arks_tpu_torch.ops.paged_attention import mixed_grid_mode, mixed_grid_plan
 
 log = logging.getLogger("arks_tpu_torch.engine")
 
@@ -197,7 +211,7 @@ def admit_batch_sizes() -> tuple[int, ...]:
     """One-shot admission batch sizes, largest first (greedy fill):
     ``ARKS_ADMIT_BATCH_SIZES`` (comma-separated, default "8,4,2,1"); 1 is
     always present."""
-    raw = os.environ.get("ARKS_ADMIT_BATCH_SIZES") or "8,4,2,1"
+    raw = knobs.get_str("ARKS_ADMIT_BATCH_SIZES")
     try:
         sizes = {int(x) for x in raw.split(",") if x.strip()}
     except ValueError as e:
@@ -210,52 +224,28 @@ def admit_batch_sizes() -> tuple[int, ...]:
     return tuple(sorted(sizes | {1}, reverse=True))
 
 
-def _enum_knob(name: str, default: str, values: tuple[str, ...]) -> str:
-    raw = os.environ.get(name) or default
-    if raw not in values:
-        raise ValueError(f"{name}={raw!r}: expected one of "
-                         f"{', '.join(values)}")
-    return raw
-
-
 def mixed_step_knob() -> str:
     """``ARKS_MIXED_STEP``: "auto" (the default), "0" or "1"."""
-    return _enum_knob("ARKS_MIXED_STEP", "auto", ("auto", "0", "1"))
+    return knobs.get_enum("ARKS_MIXED_STEP", ("auto", "0", "1"))
 
 
 def pipeline_depth_knob() -> int:
     """``ARKS_PIPELINE_DEPTH``: dispatches kept in flight by steady-state
     decoding (default 2); 0 is the unpipelined step."""
-    raw = os.environ.get("ARKS_PIPELINE_DEPTH") or "2"
-    try:
-        depth = int(raw)
-    except ValueError as e:
-        raise ValueError(f"ARKS_PIPELINE_DEPTH={raw!r}: expected an "
-                         "integer") from e
-    if depth < 0:
-        raise ValueError(f"ARKS_PIPELINE_DEPTH={depth}: must be >= 0")
-    return depth
+    return knobs.get_int("ARKS_PIPELINE_DEPTH", minimum=0)
 
 
 def sampler_fuse_knob() -> bool:
     """``ARKS_SAMPLER_FUSE``: "1" (the default) runs steady-state depth-0
     mixed decoding through the pipe program resolved at once; "0" keeps
     the host-built mixed batch."""
-    return _enum_knob("ARKS_SAMPLER_FUSE", "1", ("0", "1")) != "0"
+    return knobs.get_enum("ARKS_SAMPLER_FUSE", ("0", "1")) != "0"
 
 
 def prefix_host_mb_knob() -> int:
     """``ARKS_PREFIX_HOST_MB``: the host prefix tier's budget behind a
     paged pool's device index (default 256; 0 turns the tier off)."""
-    raw = os.environ.get("ARKS_PREFIX_HOST_MB") or "256"
-    try:
-        mb = int(raw)
-    except ValueError as e:
-        raise ValueError(f"ARKS_PREFIX_HOST_MB={raw!r}: expected an "
-                         "integer") from e
-    if mb < 0:
-        raise ValueError(f"ARKS_PREFIX_HOST_MB={mb}: must be >= 0")
-    return mb
+    return knobs.get_int("ARKS_PREFIX_HOST_MB", minimum=0)
 
 
 def check_unserved_knobs() -> None:
@@ -264,15 +254,15 @@ def check_unserved_knobs() -> None:
     prefix fetch (``ARKS_PEER_FETCH``, ``ARKS_PEER_ADDRS``) and preemptive
     swap (``ARKS_PREEMPT``)."""
     on = ("1", "true", "yes", "on")
-    disk = (os.environ.get("ARKS_PREFIX_DISK_MB") or "0").strip()
+    disk = knobs.get_str("ARKS_PREFIX_DISK_MB").strip()
     asked = []
     if disk not in ("0", ""):
         asked.append(f"ARKS_PREFIX_DISK_MB={disk} (the disk prefix tier)")
-    if (os.environ.get("ARKS_PEER_FETCH") or "0").strip().lower() in on:
+    if knobs.get_str("ARKS_PEER_FETCH").strip().lower() in on:
         asked.append("ARKS_PEER_FETCH (peer prefix fetch)")
-    if (os.environ.get("ARKS_PEER_ADDRS") or "").strip():
+    if knobs.get_str("ARKS_PEER_ADDRS", "").strip():
         asked.append("ARKS_PEER_ADDRS (peer prefix fetch)")
-    if (os.environ.get("ARKS_PREEMPT") or "0").strip().lower() in on:
+    if knobs.get_str("ARKS_PREEMPT").strip().lower() in on:
         asked.append("ARKS_PREEMPT (preemptive swap)")
     if asked:
         raise NotImplementedError(
@@ -285,7 +275,7 @@ def overlap_decode_knob(device: torch.device) -> bool:
     "auto" is the reference's "on where the platform supports it", read
     here as on for a CUDA device, whose kernels run while the host admits,
     and off on the CPU, where the "device" is the host's own cores."""
-    raw = _enum_knob("ARKS_OVERLAP_DECODE", "auto", ("auto", "0", "1"))
+    raw = knobs.get_enum("ARKS_OVERLAP_DECODE", ("auto", "0", "1"))
     return raw == "1" or (raw == "auto" and device.type == "cuda")
 
 
@@ -581,6 +571,7 @@ class InferenceEngine:
                           * cfg.head_dim * bits // 8 * 2)
             if quantized:
                 page_bytes += cfg.num_layers * cfg.num_kv_heads * c * 8
+            self._page_bytes = page_bytes
             extra = min(engine_cfg.prefix_cache_mb * 2**20 // page_bytes,
                         n * self._max_pages * 4)
             num_pages = n * self._max_pages + extra
@@ -591,6 +582,7 @@ class InferenceEngine:
             self._alloc = PageAllocator(num_pages, c)
         else:
             self._max_pages = 0
+            self._page_bytes = 0
             self.cache = tf.init_cache(cfg, n, engine_cfg.max_cache_len,
                                        cache_dtype, self.device,
                                        quantized=quantized)
@@ -623,10 +615,8 @@ class InferenceEngine:
         self._mixed_budget = 0
         self._moe_grouped = False
         if self._mixed:
-            budget = int(os.environ.get("ARKS_MIXED_CHUNK_TOKENS") or c)
-            if budget < 1:
-                raise ValueError(
-                    f"ARKS_MIXED_CHUNK_TOKENS={budget}: must be >= 1")
+            budget = knobs.get_int("ARKS_MIXED_CHUNK_TOKENS", fallback=c,
+                                   minimum=1)
             self._mixed_budget = min(budget, engine_cfg.max_cache_len)
             # The reference runs every mixed step at its padded flat batch
             # (num_slots + budget tokens), so its MoE dispatch is fixed per
@@ -677,7 +667,17 @@ class InferenceEngine:
         # thread, between dispatches) when its version bumps.
         eos_all = tuple(dict.fromkeys(list(cfg.eos_token_ids)
                                       + list(tokenizer.eos_token_ids)))
-        self.guides = GuideCompiler(tokenizer, cfg.vocab_size, eos_all)
+        self.metrics = EngineMetrics()
+        m = self.metrics
+        self.guides = GuideCompiler(
+            tokenizer, cfg.vocab_size, eos_all,
+            metrics=SimpleNamespace(
+                compile_seconds=m.guide_compile_seconds,
+                hits=m.guide_cache_hits_total,
+                misses=m.guide_cache_misses_total,
+                evictions=m.guide_cache_evictions_total,
+                guides_in_use=m.guide_registry_guides_in_use,
+                rows_in_use=m.guide_registry_rows_in_use))
         self._guide_dev = (
             torch.from_numpy(self.guides.class_ids).to(self.device),
             torch.from_numpy(self.guides.trans).to(self.device))
@@ -688,9 +688,24 @@ class InferenceEngine:
         self._awaiting_guide: list = []
         self._guide_pins: dict[str, tuple[str, str]] = {}
 
-        # Shared with caller threads.
-        self._queue: queue.PriorityQueue = queue.PriorityQueue()
+        # Shared with caller threads.  The admission queue is tenant-fair
+        # and bounded for the callers' puts (``fairqueue.FairQueue``).
+        self._queue = fairqueue.FairQueue()
         self._queue_seq = 0
+        self._shed_deadline_factor = knobs.get_float("ARKS_SHED_DEADLINE",
+                                                     minimum=0)
+        self._tenant_labels = tenancy.TenantLabels()
+        self._slo = slo_mod.from_env()
+        self._slo_burn_window_s = knobs.get_float("ARKS_SLO_BURN_WINDOW_S")
+        self._slo_error_budget = max(
+            knobs.get_float("ARKS_SLO_ERROR_BUDGET"), 1e-6)
+        self._slo_events: dict[str, list] = {}
+        self._queue_aging_s = knobs.get_float("ARKS_QUEUE_AGING_S", minimum=0)
+        self._queue_age_last = 0.0
+        # The last pipelined resolve's time (TPOT by resolve interarrival).
+        self._pipe_last_resolve: float | None = None
+        # The loop's first finished step (readiness).
+        self.warm = False
         self._abort_lock = threading.Lock()
         self._aborted: set[str] = set()
         self._running = False
@@ -705,25 +720,39 @@ class InferenceEngine:
         self.decode_steps = 0
         # Of those, the pipelined ones (fused depth-0 ones included), the
         # in-flight count each issue left (occupancy -> dispatches) and its
-        # largest value, the fused ones, and the seconds the host waited
-        # for decode results at resolve.
+        # largest value.  (The fused ones, the resolve waits and the prefix
+        # counters are metric families; properties below read them.)
         self.pipe_dispatches = 0
         self.pipe_occupancy: dict[int, int] = {}
         self.pipe_occupancy_max = 0
-        self.sampler_fused_dispatches = 0
-        self.decode_resolve_wait_s = 0.0
-        # Prefix reuse, under the reference's metric names: prompt tokens
-        # looked up, tokens served by tier ("device": the pool's index;
-        # "host": the host tier, or the slot cache's prefix cache), pages
-        # spilled to and restored from the host tier, and each restore's
-        # seconds from issue to unpark.  Prompt tokens the model computed
-        # (chunks and one-shot prefills) beside them.
-        self.prefix_cache_query_tokens_total = 0
-        self.prefix_cache_hit_tokens_total = {"device": 0, "host": 0}
-        self.prefix_spill_blocks_total = 0
-        self.prefix_restore_blocks_total = 0
+        # Each host-tier restore's seconds from issue to unpark, and the
+        # prompt tokens the model computed (chunks and one-shot prefills).
         self.prefix_restore_seconds: list[float] = []
         self.prefill_tokens_total = 0
+        # The configuration this engine runs, under the reference's label
+        # names (``engine_config_info``).
+        self.resolved_config = {
+            "kv_layout": "paged" if self._paged else "slot",
+            "decode_impl": "kernel" if self.device.type == "cuda"
+            else "plain",
+            "admit_batch_sizes": ",".join(map(str, self._admit_sizes)),
+            "pad_head": "false",
+            "overlap": str(bool(self._overlap)).lower(),
+            "kv_cache_dtype": kv,
+            "kv_dtype": kv,
+            "kernel_tune": "none",
+            "mixed_grid": mixed_grid_mode(),
+            "weight_dtype": engine_cfg.weight_dtype or "native",
+            "model": engine_cfg.model,
+            "mixed_step": str(bool(self._mixed)).lower(),
+            "pipeline_depth": str(self._pipe_depth),
+            "prefix_host_mb": str(host_mb),
+            "spec_mixed": "false",
+            "preempt": "off",
+            "tensor_parallel": "1",
+            "data_parallel": "1",
+        }
+        self.metrics.engine_config_info.set(1, **self.resolved_config)
 
     # ------------------------------------------------------------------
     # Request API
@@ -732,6 +761,36 @@ class InferenceEngine:
     @property
     def kv_quantized(self) -> bool:
         return self.cache.quantized
+
+    # Engine counters read from the metric families: prompt tokens looked
+    # up in the prefix cache, tokens served by tier ("device": the pool's
+    # index; "host": the host tier, or the slot cache's prefix cache),
+    # pages spilled to and restored from the host tier, fused depth-0
+    # dispatches, and the seconds the host waited for decode results.
+    @property
+    def prefix_cache_query_tokens_total(self) -> int:
+        return int(self.metrics.prefix_cache_query_tokens_total.total())
+
+    @property
+    def prefix_cache_hit_tokens_total(self) -> dict[str, int]:
+        hits = self.metrics.prefix_cache_hit_tokens_total
+        return {tier: int(hits.get(tier=tier)) for tier in ("device", "host")}
+
+    @property
+    def prefix_spill_blocks_total(self) -> int:
+        return int(self.metrics.prefix_spill_blocks_total.total())
+
+    @property
+    def prefix_restore_blocks_total(self) -> int:
+        return int(self.metrics.prefix_restore_blocks_total.total())
+
+    @property
+    def sampler_fused_dispatches(self) -> int:
+        return int(self.metrics.sampler_fused_dispatch_total.total())
+
+    @property
+    def decode_resolve_wait_s(self) -> float:
+        return self.metrics.decode_resolve_wait_seconds_total.total()
 
     @property
     def kv_bits(self) -> int:
@@ -758,21 +817,106 @@ class InferenceEngine:
     def add_request(self, request: Request) -> None:
         """Queue a request (any thread).  A bad request raises ValueError
         here, on the caller's thread: an oversized min_tokens suppress
-        set, a malformed guide pattern (GuideError), max_tokens < 1.  A
-        guide's compile starts on the compiler's workers; the scheduler
-        parks the request until it publishes."""
+        set, a malformed guide pattern (GuideError), max_tokens < 1, a
+        negative priority (the fair queue's urgent lane, which skips its
+        bounds, is the engine's own).  A guide's compile starts on the
+        compiler's workers; the scheduler parks the request until it
+        publishes."""
         p = request.params
         sampler_mod.np_suppress_col(self.min_tokens_suppress_ids(p))
         if p.max_tokens < 1:
             raise ValueError("max_tokens must be >= 1")
+        if p.priority < 0:
+            raise ValueError("priority must be >= 0")
         if p.guide is not None:
             if self.guides.lookup(*p.guide) is None:
                 self.guides.validate(*p.guide)
             self.guides.ensure(*p.guide)
+            self.metrics.guided_requests_total.inc(1, kind=p.guide[0])
         with self._abort_lock:
             self._queue_seq += 1
             seq = self._queue_seq
-        self._queue.put((request.params.priority, seq, request))
+        try:
+            # Bounded: a full queue (or tenant lane) refuses here, on the
+            # caller's thread, with a drain-rate Retry-After.
+            self._queue.put((p.priority, seq, request), bounded=True)
+        except fairqueue.QueueFullError as e:
+            self.metrics.requests_shed_total.inc(
+                1, reason="queue_full" if e.scope == "queue" else
+                "tenant_cap", tier=self._slo.tier_of(p.priority),
+                tenant=self._tenant_labels.label(request.tenant))
+            raise
+        self._update_waiting()
+
+    def saturation(self) -> dict:
+        """The admission queue's overload signal (depth, caps, waiting
+        tenants, drain rate, 0-1 saturation): ``/readiness`` and the shed
+        responses' ``x-arks-saturation`` header."""
+        return self._queue.saturation()
+
+    def queue_retry_after(self) -> int:
+        """Drain-rate-derived backoff (seconds) for shed responses."""
+        return self._queue.retry_after()
+
+    def slo_burn(self) -> dict:
+        """Per-tier SLO burn over ``ARKS_SLO_BURN_WINDOW_S``: the share of
+        first tokens that missed the tier's ttft_ms target, divided by
+        ``ARKS_SLO_ERROR_BUDGET`` (1.0 = burning at budget).  Any thread."""
+        cutoff = time.monotonic() - self._slo_burn_window_s
+        out: dict[str, float] = {}
+        for name, ev in list(self._slo_events.items()):
+            recent = [v for (t, v) in ev[-1024:] if t >= cutoff]
+            if recent:
+                out[name] = round(sum(recent) / len(recent)
+                                  / self._slo_error_budget, 4)
+        return out
+
+    def _slo_burn_record(self, priority: int, ttft_s: float) -> None:
+        """One first-token sample for the burn tracker (engine thread;
+        tiers without a ttft_ms target record nothing)."""
+        if not self._slo:
+            return
+        name = self._slo.tier_of(priority)
+        tier = self._slo.get(name)
+        if tier is None or not tier.ttft_ms:
+            return
+        ev = self._slo_events.setdefault(name, [])
+        ev.append((time.monotonic(), ttft_s * 1000.0 > tier.ttft_ms))
+        if len(ev) > 1024:
+            del ev[:len(ev) - 512]
+
+    def _shed_due(self, req: Request) -> bool:
+        """Deadline shedding (``ARKS_SHED_DEADLINE``): the popped request
+        waited longer than the factor times its tier's ttft_ms budget."""
+        if not self._shed_deadline_factor or not self._slo:
+            return False
+        tier = self._slo.get(self._slo.tier_of(req.params.priority))
+        if tier is None or not tier.ttft_ms:
+            return False
+        budget_s = tier.ttft_ms / 1000.0 * self._shed_deadline_factor
+        return (time.monotonic() - req.arrival_time) > budget_s
+
+    def _queue_age_tick(self) -> None:
+        """Queue aging (``ARKS_QUEUE_AGING_S``): queued entries climb one
+        tier per window (inside the fair queue, per tenant), throttled to
+        a fraction of the window."""
+        if not self._queue_aging_s:
+            return
+        now = time.monotonic()
+        if now - self._queue_age_last < min(1.0, self._queue_aging_s / 4):
+            return
+        self._queue_age_last = now
+        self._queue.age_tick(now, self._queue_aging_s)
+
+    def _update_waiting(self) -> None:
+        """The queue gauges, set from the queue and the park lists (one
+        setter instead of increments on every path; any thread)."""
+        m = self.metrics
+        m.admission_queue_depth.set(self._queue.qsize())
+        guide, restore = len(self._awaiting_guide), len(self._awaiting_restore)
+        m.num_requests_waiting.set(self._queue.qsize() + guide + restore)
+        m.requests_parked.set(guide, reason="guide")
+        m.requests_parked.set(restore, reason="restore")
 
     def abort(self, request_id: str) -> None:
         """Free the request's slot at the next scheduler boundary."""
@@ -805,11 +949,18 @@ class InferenceEngine:
                 and not self._awaiting_guide and not self._awaiting_restore
                 and self._queue.empty())
 
+    @property
+    def serving(self) -> bool:
+        """The step loop runs (started, not stopped, its thread alive)."""
+        return (self._running and self._thread is not None
+                and self._thread.is_alive())
+
     def _run(self) -> None:
         try:
             while self._running:
                 try:
                     self.step()
+                    self.warm = True
                 except Exception as e:  # the loop must outlive one bad step
                     log.exception("engine step failed")
                     self._fail_all(f"engine_fault: {type(e).__name__}: {e}")
@@ -833,6 +984,7 @@ class InferenceEngine:
                 request_id=st.request.request_id, token_ids=[],
                 finished=True, finish_reason="error", error=error,
                 num_prompt_tokens=st.num_prompt))
+            self.metrics.request_success_total.inc(reason="error")
         for slot in list(self._prefilling):
             cs = self._prefilling.pop(slot)
             self._release_slot(slot, cs.request)
@@ -840,6 +992,8 @@ class InferenceEngine:
                 request_id=cs.request.request_id, token_ids=[],
                 finished=True, finish_reason="error", error=error,
                 num_prompt_tokens=len(cs.ids)))
+            self.metrics.request_success_total.inc(reason="error")
+        self.metrics.num_requests_running.set(len(self._slots))
 
     # ------------------------------------------------------------------
     # Scheduler
@@ -867,32 +1021,55 @@ class InferenceEngine:
           oldest even if it has not, when nothing else moved).
         Before the mixed or legacy step, host-tier restores that landed
         continue into the chunked path and landed spills enter the host
-        tier."""
+        tier.  Each phase's wall seconds go to ``scheduler_seconds_total``
+        under the reference's phase names."""
+        sec = self.metrics.scheduler_seconds_total
+        t0 = time.monotonic()
         self._ensure_guides_uploaded()
-        worked = bool(self._awaiting_guide) and \
-            self._service_awaiting_guides()
+        worked = False
+        if self._awaiting_guide:
+            worked = self._service_awaiting_guides()
+            tg = time.monotonic()
+            sec.inc(tg - t0, phase="guide_wait")
+            t0 = tg
         if self._pipe_ready():
             self._step_pipelined()
+            sec.inc(time.monotonic() - t0, phase="decode")
             return True
         if self._pipe_inflight or self._pipe_state is not None:
             self._pipe_drain()
             worked = True
+            td = time.monotonic()
+            sec.inc(td - t0, phase="decode")
+            t0 = td
         if self._fuse_ready():
             self._step_fused()
+            sec.inc(time.monotonic() - t0, phase="mixed")
             return True
         if self._awaiting_restore:
             # Restores whose scatter landed continue into the chunked path
             # (on exact host mirrors: the pipeline drained above).
             worked = self._resolve_restores() or worked
+            tr = time.monotonic()
+            sec.inc(tr - t0, phase="restore")
+            t0 = tr
         if self._spills:
             worked = self._resolve_spills() or worked
+        self._queue_age_tick()
         if self._mixed:
             rec = None
             if self._slots or self._prefilling:
                 rec = self._issue_mixed()
-            worked = self._admit() or worked
+            t1 = time.monotonic()
             if rec is not None:
-                self._resolve_mixed(rec)
+                sec.inc(t1 - t0, phase="mixed")
+            worked = self._admit() or worked
+            t2 = time.monotonic()
+            if t2 - t1 > 1e-4:
+                sec.inc(t2 - t1, phase="admit")
+            if rec is not None:
+                self._resolve_mixed(rec, exclude_s=t2 - t1)
+                sec.inc(time.monotonic() - t2, phase="mixed")
                 worked = True
         else:
             pending = None
@@ -901,17 +1078,31 @@ class InferenceEngine:
                 # May retire or abort every slot and issue nothing.
                 pending = self._issue_decode()
                 issued = True
+            t1 = time.monotonic()
+            if issued:
+                sec.inc(t1 - t0, phase="decode")
             worked = self._admit() or worked or issued
+            t2 = time.monotonic()
+            if t2 - t1 > 1e-4:
+                sec.inc(t2 - t1, phase="admit")
             if self._prefilling:
                 self._process_chunk()
+                t3 = time.monotonic()
+                sec.inc(t3 - t2, phase="chunk")
+                t2 = t3
                 worked = True
             if pending is not None:
-                self._resolve_decode(pending)
+                self._resolve_decode(pending, exclude_s=t2 - t1)
+                sec.inc(time.monotonic() - t2, phase="decode")
             elif self._slots and not self._overlap:
                 self._decode_dispatch()
+                sec.inc(time.monotonic() - t2, phase="decode")
                 worked = True
         if self._pending_admits:
+            t4 = time.monotonic()
             worked = self._drain_ready_admits(force_one=not worked) or worked
+            sec.inc(time.monotonic() - t4, phase="admit")
+        self._update_waiting()
         if worked:
             return True
         if self._awaiting_restore or self._spills:
@@ -926,6 +1117,7 @@ class InferenceEngine:
         pre = self._preadmit(req)
         if pre is not None:
             self._resolve_admit_batch(self._issue_admit_batch([pre]))
+        self._update_waiting()
         return True
 
     def _park_sentinel(self) -> int:
@@ -1020,6 +1212,23 @@ class InferenceEngine:
                     request_id=req.request_id, token_ids=[], finished=True,
                     finish_reason="abort"))
                 return None
+        if self._shed_due(req):
+            # The queue wait already spent the tier's TTFT budget (times
+            # ARKS_SHED_DEADLINE): prefill would serve a stream its client
+            # has written off.  The server answers 503 + Retry-After.
+            waited = time.monotonic() - req.arrival_time
+            tier = self._slo.tier_of(req.params.priority)
+            self._unpin_guide(req)
+            self.metrics.requests_shed_total.inc(
+                1, reason="deadline", tier=tier,
+                tenant=self._tenant_labels.label(req.tenant))
+            req.outputs.put(RequestOutput(
+                request_id=req.request_id, token_ids=[], finished=True,
+                finish_reason="error",
+                error=(f"shed_deadline: queued {waited:.2f}s, tier {tier} "
+                       "ttft budget already unmeetable"),
+                num_prompt_tokens=len(req.prompt_ids)))
+            return None
         ids = list(req.prompt_ids)
         if not ids or len(ids) > self.max_prompt_len:
             self._unpin_guide(req)
@@ -1072,7 +1281,7 @@ class InferenceEngine:
                 blocks = self._host.match_blocks(digests, len(shared))
             plen, hlen = len(shared) * page, len(blocks) * page
             self._alloc.record_query(len(ids), plen + hlen)
-            self._count_prefix(len(ids), plen, hlen)
+            self._count_prefix(len(ids), plen, hlen, self._alloc.hit_rate)
             if blocks:
                 self._issue_restore(req, ids, digests, shared, blocks)
                 return True
@@ -1085,15 +1294,22 @@ class InferenceEngine:
             return False
         plen = min(self._prefix.match(ids), (len(ids) - 1) // page * page)
         self._prefix.record_query(len(ids), plen)
-        self._count_prefix(len(ids), 0, plen)
+        self._count_prefix(len(ids), 0, plen, self._prefix.hit_rate)
         if plen:
             self._start_chunked(req, ids, prefix_len=plen)
         return bool(plen)
 
-    def _count_prefix(self, n: int, device: int, host: int) -> None:
-        self.prefix_cache_query_tokens_total += n
-        self.prefix_cache_hit_tokens_total["device"] += device
-        self.prefix_cache_hit_tokens_total["host"] += host
+    def _count_prefix(self, n: int, device: int, host: int,
+                      hit_rate: float) -> None:
+        m = self.metrics
+        m.prefix_cache_query_tokens_total.inc(n)
+        if device:
+            m.prefix_cache_hit_tokens_total.inc(device, tier="device")
+        if host or not self._paged:
+            # The slot cache's prefix cache counts as the host tier, zero
+            # hits included (the reference's accounting).
+            m.prefix_cache_hit_tokens_total.inc(host, tier="host")
+        m.prefix_cache_hit_rate.set(hit_rate)
 
     def _one_shot_limit(self) -> int:
         return min(self._buckets[-1], self.max_prompt_len)
@@ -1569,6 +1785,8 @@ class InferenceEngine:
             k, v = kv()
             self._prefix.put(ids, k[:, :, :nfull].cpu(),
                              v[:, :, :nfull].cpu(), nfull)
+            self.metrics.prefix_cache_usage_bytes.set(
+                self._prefix.bytes_used, tier="host")
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the device, taken by value now.  On a CUDA
@@ -1605,6 +1823,7 @@ class InferenceEngine:
         if self._paged:
             self._grow_slot_pages(k_steps)
         snapshot = list(self._slots)
+        t0 = time.monotonic()
         tokens = self._upload(self._last_token)
         lengths = self._upload(self._lengths)
         tables = self._upload(self._tables) if self._paged else None
@@ -1612,22 +1831,25 @@ class InferenceEngine:
         ids, lp = self._decode_loop(tokens, lengths, tables, params)
         self.decode_dispatches += 1
         self.decode_steps += k_steps
-        return snapshot, _HostCopy(ids, lp, self._host_bufs)
+        return snapshot, _HostCopy(ids, lp, self._host_bufs), t0
 
-    def _resolve_decode(self, rec) -> None:
+    def _resolve_decode(self, rec, exclude_s: float = 0.0) -> None:
         """Read a decode dispatch's tokens (the host sync point) and fan
-        them out to the slots of its snapshot."""
-        snapshot, copy = rec
+        them out to the slots of its snapshot.  ``exclude_s``, the
+        overlapped admission's wall time, is not decode time (TPOT)."""
+        snapshot, copy, t_issue = rec
         t0 = time.monotonic()
         ids_h, lp_h = copy.result()
-        self.decode_resolve_wait_s += time.monotonic() - t0
+        self.metrics.decode_resolve_wait_seconds_total.inc(
+            time.monotonic() - t0, mode="sequential")
+        dt = max(time.monotonic() - t_issue - exclude_s, 1e-6)
         cols = ids_h.T.tolist()
         for slot in snapshot:
             rows = None
             if lp_h is not None and \
                     self._slots[slot].request.params.logprobs is not None:
                 rows = tuple(x[:, slot] for x in lp_h)
-            self._fanout_decode_tokens(slot, cols[slot], rows)
+            self._fanout_decode_tokens(slot, cols[slot], rows, dt)
 
     def _decode_loop(self, tokens: torch.Tensor, lengths: torch.Tensor,
                      tables: torch.Tensor | None, params: list):
@@ -1662,16 +1884,18 @@ class InferenceEngine:
         return torch.stack(toks), lp
 
     def _fanout_decode_tokens(self, slot: int, col: list[int],
-                              lp_rows=None) -> None:
+                              lp_rows=None, dt: float = 1e-6) -> None:
         """Append a dispatch's K tokens (stopping at a stop token or the
         max_tokens cutoff — the rest is overshoot no client sees) with
         their logprob entries (``lp_rows``: chosen [K], top values and ids
         [K, L]), advance the host mirrors, and finish or stream the
-        delta."""
+        delta.  ``dt``: the dispatch's seconds (TPOT = dt / K)."""
         st = self._slots[slot]
         finished = False
+        new_tokens = 0
         for k, tok in enumerate(col):
             st.generated.append(tok)
+            new_tokens += 1
             if lp_rows is not None:
                 st.logprobs.append(self._lp_entry(
                     lp_rows[0][k], lp_rows[1][k], lp_rows[2][k],
@@ -1682,6 +1906,11 @@ class InferenceEngine:
                 break
         self._lengths[slot] += len(col)   # all K rows were written
         self._last_token[slot] = col[-1]
+        m = self.metrics
+        m.generation_tokens_total.inc(new_tokens)
+        m.time_per_output_token_seconds.observe(dt / len(col))
+        m.tpot_seconds.observe(dt / len(col), tier=self._slo.tier_of(
+            st.request.params.priority))
         if finished:
             self._finish(slot, self._finish_reason(st))
         else:
@@ -1763,28 +1992,28 @@ class InferenceEngine:
             temp[slot] = p.temperature
             top_p[slot] = p.top_p
             top_k[slot] = p.top_k
-        dev = self.device
         gates = _lane_gates(dec + comp, dec)
         st = self._sampling._replace(**{
-            k: torch.from_numpy(x).to(dev)
+            k: self._upload(x)
             for k, x in (("temperature", temp), ("top_p", top_p),
                          ("top_k", top_k))})
         active = None
         if gates.sampled or gates.guide or gates.penalties:
             act = np.zeros((n,), bool)
             act[dec_slots] = True
-            active = torch.from_numpy(act).to(dev)
+            active = self._upload(act)
         if not completing or gates == sampler_mod.OFF:
             return st, gates, active
         ov = np.zeros((n,), bool)
         ov[completing] = True
-        ov_dev = torch.from_numpy(ov).to(dev)
+        ov_dev = self._upload(ov)
         if gates.sampled:
             ov_keys = np.zeros((n, 2), np.uint32)
             for slot in completing:
                 ov_keys[slot] = self._prefilling[slot].key
             st = st._replace(key=torch.where(
-                ov_dev[:, None], prng.key_tensor(ov_keys, dev), st.key))
+                ov_dev[:, None], self._upload_tensor(prng.key_tensor(
+                    ov_keys)), st.key))
         if gates.penalties:
             st = st._replace(
                 presence=torch.where(ov_dev, 0.0, st.presence),
@@ -1804,7 +2033,7 @@ class InferenceEngine:
                 ("guide_row", gates.guide)]
         st = st._replace(**{
             k: torch.where(ov_dev[:, None] if cols[k].ndim == 2 else ov_dev,
-                           torch.from_numpy(cols[k]).to(dev), getattr(st, k))
+                           self._upload(cols[k]), getattr(st, k))
             for k, on in keep if on})
         return st, gates, active
 
@@ -1844,18 +2073,45 @@ class InferenceEngine:
         for key in ("tokens", "token_slot", "token_pos"):
             a[key] = a[key][:max(t, 1)]
         qmax = max(int(a["seq_q_len"].max()), 1)
-        dev = self.device
-        d = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
+        n_chunk = sum(take for _, take in chunk_take)
+        self.metrics.mixed_batch_tokens.observe(t)
+        if n_chunk:
+            self.metrics.mixed_chunk_tokens_total.inc(n_chunk)
+        self._mixed_grid_counters(a["seq_pos_start"], a["seq_q_len"], qmax)
+        t0 = time.monotonic()
+        d = {k: self._upload(v) for k, v in a.items()}
         logits = tf.mixed_step(
             self.params, self.cfg, self.cache,
-            torch.from_numpy(self._tables.copy()).to(dev), d["tokens"],
+            self._upload(self._tables), d["tokens"],
             d["token_slot"], d["token_pos"], d["sample_src"],
             d["seq_q_start"], d["seq_q_len"], d["seq_pos_start"], qmax=qmax,
             moe_grouped=self._moe_grouped)
         ids_dev, lp = self._sample_mixed(logits, dec_slots, completing)
         self.dispatches += 1
         self.shared_dispatches += bool(dec_slots and chunk_take)
-        return dec_slots, completing, chunk_take, ids_dev, lp
+        return dec_slots, completing, chunk_take, ids_dev, lp, t0
+
+    def _mixed_grid_counters(self, pos_start: np.ndarray, q_len: np.ndarray,
+                             qmax: int) -> None:
+        """The page-step and KV-byte counter pairs of one mixed dispatch,
+        from its host-side batch arrays and the launch's plan (no device
+        read).  KV bytes count the port's unpadded head_dim."""
+        plan = mixed_grid_plan(qmax)
+        kw = dict(page=self._page, block_q=plan["block_q"],
+                  num_qb=plan["num_qb"], max_pages=self._max_pages)
+        ideal, dense = mixed_grid_steps(pos_start, q_len, **kw)
+        m = self.metrics
+        m.mixed_grid_steps_total.inc(
+            ideal if self.resolved_config["mixed_grid"] == "ragged" else dense)
+        m.mixed_grid_steps_ideal_total.inc(ideal)
+        k = self.cache.k
+        per = 2 * k.shape[3] * k.shape[4] * k.element_size()
+        if self.cache.k_scale is not None:
+            per += 2 * self.cache.k_scale.shape[3] * 4
+        actual, best = mixed_kv_bytes(pos_start, q_len, hkv=k.shape[2],
+                                      page_head_bytes=per, **kw)
+        m.mixed_kv_bytes_total.inc(actual)
+        m.mixed_kv_bytes_ideal_total.inc(best)
 
     def _sample_mixed(self, logits: torch.Tensor, dec_slots: list[int],
                       completing: list[int]):
@@ -1864,14 +2120,13 @@ class InferenceEngine:
         over every lane, the logprobs when a lane asks.  Returns (ids [B],
         None | (chosen [B], top values and ids [B, L]))."""
         st, gates, active = self._lane_sampling(dec_slots, completing)
-        dev = self.device
         lengths = None
         if gates.penalties:
             # In place: ``st`` shares the counts.
-            fed = torch.from_numpy(self._last_token.copy()).to(dev)
+            fed = self._upload(self._last_token)
             sampler_mod.count_tokens(self._sampling, fed, active)
         if gates.min_tokens:
-            lengths = torch.from_numpy(self._lengths.copy()).to(dev)
+            lengths = self._upload(self._lengths)
         ids, st = sampler_mod.sample(
             logits, st, active, lengths,
             self._guide_dev if gates.guide else None, gates)
@@ -1885,17 +2140,21 @@ class InferenceEngine:
             if any(p.logprobs is not None for p in lanes) else None
         return ids, lp
 
-    def _resolve_mixed(self, rec) -> None:
+    def _resolve_mixed(self, rec, exclude_s: float = 0.0) -> None:
         """Host tail of a mixed dispatch: fan the decode tokens out,
         advance every prefilling sequence, promote completed prompts."""
-        dec_slots, completing, chunk_take, ids_dev, lp = rec
+        dec_slots, completing, chunk_take, ids_dev, lp, t_issue = rec
+        t0 = time.monotonic()
         ids, lp_h = _to_host(ids_dev, lp)    # the host sync point
+        self.metrics.decode_resolve_wait_seconds_total.inc(
+            time.monotonic() - t0, mode="sequential")
+        dt = max(time.monotonic() - t_issue - exclude_s, 1e-6)
         for slot in dec_slots:
             rows = None
             if lp_h is not None and \
                     self._slots[slot].request.params.logprobs is not None:
                 rows = tuple(x[slot: slot + 1] for x in lp_h)
-            self._fanout_decode_tokens(slot, [int(ids[slot])], rows)
+            self._fanout_decode_tokens(slot, [int(ids[slot])], rows, dt)
         for slot, take in chunk_take:
             self._prefilling[slot].pos += take
             self.prefill_tokens_total += take
@@ -1929,6 +2188,12 @@ class InferenceEngine:
         self._lengths[slot] = num_prompt
         self._last_token[slot] = first
         ttft = time.monotonic() - req.arrival_time
+        m = self.metrics
+        m.prompt_tokens_total.inc(num_prompt)
+        m.num_requests_running.set(len(self._slots))
+        m.time_to_first_token_seconds.observe(ttft)
+        m.ttft_seconds.observe(ttft, tier=self._slo.tier_of(p.priority))
+        self._slo_burn_record(p.priority, ttft)
         if self._check_finished(slot):
             return
         st.num_emitted = 1
@@ -1950,6 +2215,8 @@ class InferenceEngine:
             if digests is None or len(digests) < nreg:
                 digests = chain_digests(ids, self._page, nreg)
             self._alloc.register(digests[:nreg], pages[:nreg])
+            self.metrics.prefix_cache_usage_bytes.set(
+                self._alloc.retained_pages * self._page_bytes, tier="device")
 
     def _spill_flush(self) -> None:
         """Spill every page evicted since the last flush: gather the pages
@@ -1985,11 +2252,16 @@ class InferenceEngine:
             did = True
             arrays = copy.tensors()
             names = ("k", "v", "k_scale", "v_scale")[:len(arrays)]
+            stored = 0
             for j, d in enumerate(digests):
                 # Copies: the staging buffers go back to the pool.
                 blk = {n: a[:, j].clone() for n, a in zip(names, arrays)}
-                self.prefix_spill_blocks_total += self._host.put(d, blk)
+                stored += self._host.put(d, blk)
             copy.release()
+            if stored:
+                self.metrics.prefix_spill_blocks_total.inc(stored)
+            self.metrics.prefix_cache_usage_bytes.set(
+                self._host.bytes_used, tier="host")
         return did
 
     def _issue_restore(self, req: Request, ids: list[int], digests: list,
@@ -2059,8 +2331,13 @@ class InferenceEngine:
             self._alloc.register(rec.digests[start: start + len(rec.pages)],
                                  rec.pages)
             self._host.restored_blocks += len(rec.pages)
-            self.prefix_restore_blocks_total += len(rec.pages)
-            self.prefix_restore_seconds.append(time.monotonic() - rec.t0)
+            waited = time.monotonic() - rec.t0
+            self.prefix_restore_seconds.append(waited)
+            m = self.metrics
+            m.prefix_restore_blocks_total.inc(len(rec.pages))
+            m.prefix_restore_seconds.observe(waited)
+            m.prefix_cache_usage_bytes.set(
+                self._alloc.retained_pages * self._page_bytes, tier="device")
             # The request's references on shared + restored pages pass to
             # its slot (the index holds its own on the restored ones).
             self._start_chunked(
@@ -2170,7 +2447,7 @@ class InferenceEngine:
         dropped, so the host stays authoritative."""
         self._pipe_issue()
         if self._pipe_inflight:
-            self.sampler_fused_dispatches += 1
+            self.metrics.sampler_fused_dispatch_total.inc()
             self._pipe_resolve_one()
         self._pipe_state = None
         self._pipe_cols = None
@@ -2221,6 +2498,7 @@ class InferenceEngine:
         gates = _lane_gates(params, params)
         want_lp = any(p.logprobs is not None for p in params)
         tables = self._upload(self._tables) if self._paged else None
+        t0 = time.monotonic()
         args = (self.params, self.cfg, self.cache, *state, *self._pipe_cols,
                 self._sampling, tables,
                 self._guide_dev if gates.guide else None, gates, want_lp,
@@ -2235,8 +2513,9 @@ class InferenceEngine:
         self._pipe_state = tuple(nxt)
         copy = _HostCopy(toks, lp, self._host_bufs)
         snapshot = [(s, int(self._slot_gen[s])) for s in self._slots]
-        self._pipe_inflight.append((snapshot, want_lp, copy))
+        self._pipe_inflight.append((snapshot, want_lp, copy, t0))
         occ = len(self._pipe_inflight)
+        self.metrics.pipeline_depth_occupancy.observe(occ)
         self.pipe_dispatches += 1
         self.pipe_occupancy[occ] = self.pipe_occupancy.get(occ, 0) + 1
         self.pipe_occupancy_max = max(self.pipe_occupancy_max, occ)
@@ -2248,10 +2527,17 @@ class InferenceEngine:
         newer dispatches the (slot, generation) snapshot drops.  A slot
         the device retired by the cache cap (``dead_len``) is retired here
         too, as the sequential path retires it at its next issue."""
-        snapshot, want_lp, copy = self._pipe_inflight.popleft()
+        snapshot, want_lp, copy, t_issue = self._pipe_inflight.popleft()
         t0 = time.monotonic()
         toks, lp_h = copy.result()
-        self.decode_resolve_wait_s += time.monotonic() - t0
+        now = time.monotonic()
+        self.metrics.decode_resolve_wait_seconds_total.inc(
+            now - t0, mode="pipelined")
+        # TPOT by resolve interarrival: in steady state one resolve lands
+        # per dispatch, and the issue-to-resolve span covers the depth.
+        last = self._pipe_last_resolve
+        self._pipe_last_resolve = now
+        dt = max(now - (t_issue if last is None else last), 1e-6)
         cols = toks.T.tolist()
         cap = self.ecfg.max_cache_len - self._pipe_rows
         for slot, gen in snapshot:
@@ -2261,7 +2547,7 @@ class InferenceEngine:
             rows = None
             if want_lp and st.request.params.logprobs is not None:
                 rows = tuple(x[:, slot] for x in lp_h)
-            self._fanout_decode_tokens(slot, cols[slot], rows)
+            self._fanout_decode_tokens(slot, cols[slot], rows, dt)
             if slot in self._slots and int(self._lengths[slot]) >= cap:
                 self._finish(slot, "length")
 
@@ -2274,6 +2560,7 @@ class InferenceEngine:
         finally:
             self._pipe_state = None
             self._pipe_cols = None
+            self._pipe_last_resolve = None
 
     def _pipe_reset(self) -> None:
         """Fault path: drop the in-flight records without resolving them
@@ -2281,6 +2568,7 @@ class InferenceEngine:
         self._pipe_inflight.clear()
         self._pipe_state = None
         self._pipe_cols = None
+        self._pipe_last_resolve = None
 
     # ------------------------------------------------------------------
     # Stop handling
@@ -2345,3 +2633,8 @@ class InferenceEngine:
             token_ids=final_ids[st.num_emitted:], finished=True,
             finish_reason=reason, num_prompt_tokens=st.num_prompt,
             num_generated_tokens=len(final_ids), logprobs=lp_delta))
+        m = self.metrics
+        m.e2e_request_latency_seconds.observe(
+            time.monotonic() - st.request.arrival_time)
+        m.request_success_total.inc(reason=reason)
+        m.num_requests_running.set(len(self._slots))

@@ -1,0 +1,423 @@
+"""Tenant-fair, bounded admission queue (weighted deficit round-robin).
+
+Drop-in replacement for the scheduler's old ``queue.PriorityQueue`` of
+``(priority, seq, Request)`` tuples, keeping the surface the engine uses
+(``put`` / ``get`` / ``get_nowait`` / ``empty`` / ``qsize`` raising the
+stdlib ``queue.Empty``) while fixing its two overload failures:
+
+- **tenant blindness** — one key's burst used to starve every other key
+  in the same SLO tier.  Now each (tier, tenant) pair holds its own FIFO
+  and, within a tier, tenants are served by deficit round-robin: each
+  visit credits ``weight x ARKS_FAIR_QUANTUM_TOKENS`` and a request is
+  released only when the tenant's deficit covers its token cost
+  (prompt + max_tokens) — so admission bandwidth, measured in TOKENS,
+  converges to the configured weights no matter how requests are sized
+  or how hard one tenant floods.  Strict tier ordering is preserved:
+  tier N admits nothing while tier N-1 has entries, exactly as before.
+- **unboundedness** — sustained overload used to grow the queue without
+  limit.  ``ARKS_QUEUE_MAX`` / ``ARKS_QUEUE_TENANT_MAX`` cap the queue
+  (whole and per tenant); a bounded ``put`` past a cap raises
+  ``QueueFullError`` carrying a drain-rate-derived Retry-After, on the
+  CALLER's (server) thread — the scheduler never sees the reject.
+
+Invariance contracts (the hard gates for any scheduler change):
+
+- with a single tenant, the pick order is byte-for-byte the old
+  tier-then-FIFO order — untenanted deployments see NO schedule change;
+- replay/swap-resume entries (priority < 0) ride a separate urgent heap
+  served before everything, exempt from bounds, fairness, and aging —
+  they were already decoding before their fault/preemption;
+- ``ARKS_FAIR=0`` degrades to the old flat priority heap (the bench
+  control arm), bounds still enforceable;
+- engine-internal re-queues (fault survivors, preempt replay, guide /
+  model unparks) use unbounded ``put`` — a request the engine already
+  accepted is never shed by the ladder.
+
+Aging (``ARKS_QUEUE_AGING_S``) generalizes the single-queue aging
+per-tenant: an entry's effective tier is ``base - elapsed/aging_s``
+(floored at 0); promotions move it to the better tier's (tenant) FIFO in
+arrival order, so a starved batch request still climbs one rung per
+window under sustained latency-tier load.
+
+A copy of ``arks_tpu/engine/fairqueue.py`` (stdlib only, like
+``arks_tpu_torch.slo``): the HTTP layer imports the error type without the
+engine.  The pick path holds only its own mutex and never blocks.
+"""
+
+from __future__ import annotations
+
+import heapq
+import queue as _stdq
+import threading
+import time
+from collections import deque
+
+from arks_tpu_torch import knobs, tenancy
+
+# Retry-After bounds: never tell a client "0" (thundering re-herd) and
+# never more than 2 minutes (past that, capacity — not backoff — is the
+# problem and the operator alert rows in docs/monitoring.md own it).
+RETRY_AFTER_MIN_S = 1
+RETRY_AFTER_MAX_S = 120
+RETRY_AFTER_DEFAULT_S = 5
+# Drain-rate sample window: timestamps of the most recent pops.
+_DRAIN_SAMPLES = 64
+
+
+class QueueFullError(Exception):
+    """A bounded put hit a cap.  ``scope`` is ``"queue"`` (total cap —
+    the whole backend is saturated, HTTP 503) or ``"tenant"`` (one
+    tenant's cap — the others are fine, HTTP 429)."""
+
+    def __init__(self, scope: str, tenant: str, depth: int, limit: int,
+                 retry_after: int) -> None:
+        super().__init__(
+            f"admission queue full ({scope}): depth {depth} >= {limit}")
+        self.scope = scope
+        self.tenant = tenant
+        self.depth = depth
+        self.limit = limit
+        self.retry_after = retry_after
+
+
+def request_cost(req) -> int:
+    """Admission token cost: prefill (prompt) plus the decode budget the
+    request ASKS for.  Charging max_tokens up front is deliberately
+    pessimistic — a tenant cannot buy extra admission bandwidth by
+    requesting huge decode budgets it never uses only at the price of
+    its own future turns."""
+    return max(1, len(req.prompt_ids) + int(req.params.max_tokens))
+
+
+class FairQueue:
+    """Per-(tier, tenant) WDRR admission queue; see the module doc.
+
+    Thread model: server threads ``put``; the engine thread pops and
+    ages; ``qsize``/``empty``/``saturation`` read cross-thread.  One
+    mutex guards everything — every critical section is a few dict/deque
+    operations, no blocking calls inside."""
+
+    def __init__(self, fair: bool | None = None,
+                 quantum: int | None = None,
+                 weights: dict[str, float] | None = None,
+                 max_total: int | None = None,
+                 max_tenant: int | None = None) -> None:
+        self.fair = knobs.get_bool("ARKS_FAIR") if fair is None else fair
+        q = (knobs.get_int("ARKS_FAIR_QUANTUM_TOKENS") if quantum is None
+             else quantum)
+        if q < 1:
+            raise ValueError(
+                f"ARKS_FAIR_QUANTUM_TOKENS={q}: must be >= 1")
+        self.quantum = q
+        self.weights = (tenancy.weights_from_env() if weights is None
+                        else dict(weights))
+        mt = knobs.get_int("ARKS_QUEUE_MAX") if max_total is None \
+            else max_total
+        mp = knobs.get_int("ARKS_QUEUE_TENANT_MAX") if max_tenant is None \
+            else max_tenant
+        if mt < 0 or mp < 0:
+            raise ValueError(
+                f"ARKS_QUEUE_MAX={mt} / ARKS_QUEUE_TENANT_MAX={mp}: "
+                "must be >= 0 (0 = unbounded)")
+        self.max_total = mt
+        self.max_tenant = mp
+        self._mutex = threading.Lock()
+        self._not_empty = threading.Condition(self._mutex)
+        self._count = 0
+        # Urgent lane: priority < 0 (fault replayers at prio - 2**20).
+        self._urgent: list = []
+        # Fair mode: tier -> tenant -> deque[(seq, req, cost, base_prio)],
+        # plus the per-tier round-robin ring and per-(tier, tenant) token
+        # deficit.  _fresh marks "the ring head has not yet received its
+        # quantum this visit" (DRR serves a tenant until its deficit runs
+        # dry, then rotates).
+        self._buckets: dict[int, dict[str, deque]] = {}
+        self._ring: dict[int, deque] = {}
+        self._deficit: dict[tuple[int, str], float] = {}
+        self._fresh: dict[int, bool] = {}
+        # Plain mode (ARKS_FAIR=0): the old flat heap.
+        self._heap: list = []
+        # Per-tenant depth (both modes — the ARKS_QUEUE_TENANT_MAX
+        # denominator and the saturation report).
+        self._tenant_depth: dict[str, int] = {}
+        # Drain-rate estimate: monotonic timestamps of recent pops.
+        self._pops: deque = deque(maxlen=_DRAIN_SAMPLES)
+
+    # ---------------------------------------------------------- helpers
+
+    @staticmethod
+    def _tenant(req) -> str:
+        return getattr(req, "tenant", None) or tenancy.DEFAULT_TENANT
+
+    def _weight(self, tenant: str) -> float:
+        return tenancy.weight_of(self.weights, tenant)
+
+    # -------------------------------------------------------------- put
+
+    def put(self, item, bounded: bool = False) -> None:
+        """Enqueue ``(priority, seq, request)``.  ``bounded=True`` (the
+        external-admission path) enforces the caps and raises
+        ``QueueFullError``; internal re-queues leave it False."""
+        prio, seq, req = item
+        tenant = self._tenant(req)
+        with self._not_empty:
+            if bounded and prio >= 0:
+                if self.max_total and self._count >= self.max_total:
+                    raise QueueFullError(
+                        "queue", tenant, self._count, self.max_total,
+                        self._retry_after_locked())
+                td = self._tenant_depth.get(tenant, 0)
+                if self.max_tenant and td >= self.max_tenant:
+                    raise QueueFullError(
+                        "tenant", tenant, td, self.max_tenant,
+                        self._retry_after_locked())
+            if prio < 0:
+                heapq.heappush(self._urgent, (prio, seq, req))
+            elif not self.fair:
+                heapq.heappush(self._heap, (prio, seq, req))
+                self._tenant_depth[tenant] = \
+                    self._tenant_depth.get(tenant, 0) + 1
+            else:
+                tier = int(prio)
+                bucket = self._buckets.setdefault(tier, {})
+                if tenant not in bucket:
+                    bucket[tenant] = deque()
+                    self._ring.setdefault(tier, deque()).append(tenant)
+                bucket[tenant].append((seq, req, request_cost(req), prio))
+                self._tenant_depth[tenant] = \
+                    self._tenant_depth.get(tenant, 0) + 1
+            self._count += 1
+            self._not_empty.notify()
+
+    # -------------------------------------------------------------- get
+
+    def get(self, timeout: float | None = None):
+        """Blocking pop (the engine's idle path).  Raises queue.Empty on
+        timeout, matching the stdlib contract the scheduler handles."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._not_empty:
+            while self._count == 0:
+                if deadline is None:
+                    self._not_empty.wait()
+                else:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0 or not self._not_empty.wait(remaining):
+                        if self._count == 0:
+                            raise _stdq.Empty
+            return self._pop_locked()
+
+    def get_nowait(self):
+        with self._mutex:
+            if self._count == 0:
+                raise _stdq.Empty
+            return self._pop_locked()
+
+    def _pop_locked(self):
+        if self._urgent:
+            item = heapq.heappop(self._urgent)
+        elif not self.fair:
+            prio, seq, req = heapq.heappop(self._heap)
+            self._note_served(self._tenant(req))
+            item = (prio, seq, req)
+        else:
+            tier = min(t for t, b in self._buckets.items() if b)
+            item = self._pop_tier(tier)
+        self._count -= 1
+        self._pops.append(time.monotonic())
+        return item
+
+    def _note_served(self, tenant: str) -> None:
+        left = self._tenant_depth.get(tenant, 1) - 1
+        if left > 0:
+            self._tenant_depth[tenant] = left
+        else:
+            self._tenant_depth.pop(tenant, None)
+
+    def _pop_tier(self, tier: int):
+        """One WDRR pick from a non-empty tier.  Each ring visit credits
+        one quantum x weight; when a full pass over the ring serves
+        nothing (every head costs more than its tenant's deficit), the
+        minimum number of whole rounds needed is credited to every
+        tenant at once — same schedule as spinning the ring that many
+        times, without the spinning."""
+        ring = self._ring[tier]
+        bucket = self._buckets[tier]
+        scanned = 0
+        while True:
+            tenant = ring[0]
+            dq = bucket.get(tenant)
+            if not dq:
+                ring.popleft()
+                bucket.pop(tenant, None)
+                self._deficit.pop((tier, tenant), None)
+                self._fresh[tier] = True
+                continue
+            key = (tier, tenant)
+            if self._fresh.get(tier, True):
+                self._deficit[key] = (self._deficit.get(key, 0.0)
+                                      + self.quantum * self._weight(tenant))
+                self._fresh[tier] = False
+            seq, req, cost, base = dq[0]
+            if self._deficit[key] >= cost:
+                dq.popleft()
+                self._deficit[key] -= cost
+                self._note_served(tenant)
+                if not dq:
+                    bucket.pop(tenant, None)
+                    ring.popleft()
+                    self._deficit.pop(key, None)
+                    self._fresh[tier] = True
+                    if not bucket:
+                        self._buckets.pop(tier, None)
+                        self._ring.pop(tier, None)
+                        self._fresh.pop(tier, None)
+                return (tier, seq, req)
+            ring.rotate(-1)
+            self._fresh[tier] = True
+            scanned += 1
+            if scanned >= len(ring):
+                # Full fruitless pass: fast-forward the rounds.
+                rounds = min(
+                    -(-(bucket[t][0][2] - self._deficit.get((tier, t), 0.0))
+                      // (self.quantum * self._weight(t)))
+                    for t in ring if bucket.get(t))
+                rounds = max(1.0, rounds)
+                for t in ring:
+                    if bucket.get(t):
+                        k = (tier, t)
+                        self._deficit[k] = (self._deficit.get(k, 0.0)
+                                            + rounds * self.quantum
+                                            * self._weight(t))
+                self._fresh[tier] = False
+                scanned = 0
+
+    # ----------------------------------------------------- introspection
+
+    def empty(self) -> bool:
+        return self._count == 0
+
+    def qsize(self) -> int:
+        return self._count
+
+    def head_prio(self):
+        """Effective priority of the pick head (None when empty) — the
+        preemption comparator (_preempt_victims)."""
+        with self._mutex:
+            if self._urgent:
+                return self._urgent[0][0]
+            if not self.fair:
+                return self._heap[0][0] if self._heap else None
+            tiers = [t for t, b in self._buckets.items() if b]
+            return min(tiers) if tiers else None
+
+    def tenant_depth(self, tenant: str) -> int:
+        with self._mutex:
+            return self._tenant_depth.get(tenant, 0)
+
+    # ------------------------------------------------------------- aging
+
+    def age_tick(self, now: float, aging_s: float) -> None:
+        """Re-derive effective tiers (base - elapsed/aging_s, floored at
+        0) and move promoted entries to the better tier's tenant FIFO in
+        arrival (seq) order.  The caller throttles (engine._queue_age_tick
+        keeps the old cadence); urgent entries never age."""
+        if not aging_s:
+            return
+        with self._mutex:
+            if not self.fair:
+                changed = False
+                for i, (prio, seq, req) in enumerate(self._heap):
+                    if prio < 0:
+                        continue
+                    base = req.params.priority
+                    eff = max(0, base - int((now - req.arrival_time)
+                                            / aging_s))
+                    if eff != prio:
+                        self._heap[i] = (eff, seq, req)
+                        changed = True
+                if changed:
+                    heapq.heapify(self._heap)
+                return
+            moves = []
+            for tier, bucket in self._buckets.items():
+                if tier <= 0:
+                    continue
+                for tenant, dq in bucket.items():
+                    for entry in dq:
+                        seq, req, cost, base = entry
+                        eff = max(0, base - int((now - req.arrival_time)
+                                                / aging_s))
+                        if eff < tier:
+                            moves.append((tier, tenant, entry, eff))
+            for tier, tenant, entry, eff in moves:
+                bucket = self._buckets.get(tier, {})
+                dq = bucket.get(tenant)
+                if dq is None:
+                    continue
+                try:
+                    dq.remove(entry)
+                except ValueError:
+                    continue
+                if not dq:
+                    bucket.pop(tenant, None)
+                    try:
+                        self._ring[tier].remove(tenant)
+                    except (KeyError, ValueError):
+                        pass
+                    self._deficit.pop((tier, tenant), None)
+                    if not bucket:
+                        self._buckets.pop(tier, None)
+                        self._ring.pop(tier, None)
+                        self._fresh.pop(tier, None)
+                target = self._buckets.setdefault(eff, {})
+                if tenant not in target:
+                    target[tenant] = deque()
+                    self._ring.setdefault(eff, deque()).append(tenant)
+                tdq = target[tenant]
+                seq = entry[0]
+                idx = len(tdq)
+                for i, e in enumerate(tdq):
+                    if e[0] > seq:
+                        idx = i
+                        break
+                tdq.insert(idx, entry)
+
+    # -------------------------------------------------------- saturation
+
+    def _drain_rate_locked(self) -> float:
+        """Recent pops per second (0.0 = no evidence yet)."""
+        if len(self._pops) < 2:
+            return 0.0
+        span = self._pops[-1] - self._pops[0]
+        if span <= 0:
+            return 0.0
+        return (len(self._pops) - 1) / span
+
+    def _retry_after_locked(self, depth: int | None = None) -> int:
+        d = self._count if depth is None else depth
+        rate = self._drain_rate_locked()
+        if rate <= 0:
+            return RETRY_AFTER_DEFAULT_S
+        return int(min(RETRY_AFTER_MAX_S,
+                       max(RETRY_AFTER_MIN_S, -(-d // rate))))
+
+    def retry_after(self) -> int:
+        """Seconds a rejected client should back off: current depth over
+        the observed drain rate, clamped to [1, 120]."""
+        with self._mutex:
+            return self._retry_after_locked()
+
+    def saturation(self) -> dict:
+        """The overload signal /readiness and shed-response headers
+        export: depth, caps, distinct waiting tenants, drain rate, and
+        the 0-1 fraction of ARKS_QUEUE_MAX in use (0.0 unbounded)."""
+        with self._mutex:
+            frac = (self._count / self.max_total) if self.max_total else 0.0
+            return {
+                "queue_depth": self._count,
+                "queue_max": self.max_total,
+                "tenants_waiting": len(self._tenant_depth),
+                "drain_per_s": round(self._drain_rate_locked(), 3),
+                "saturation": round(min(1.0, frac), 4),
+                "fair": bool(self.fair),
+            }

@@ -52,28 +52,16 @@ from __future__ import annotations
 
 import bisect
 import json
-import os
 import threading
 import time
 
 import numpy as np
 
-
-_KNOB_DEFAULTS = {"ARKS_GUIDE_MAX": 8, "ARKS_GUIDE_ROWS": 4096,
-                  "ARKS_GUIDE_CLASSES": 2048,
-                  "ARKS_GUIDE_COMPILE_WORKERS": 2, "ARKS_JSON_DEPTH": 3}
+from arks_tpu_torch import knobs
 
 
-def knob(name: str) -> int:
-    """Integer setting ``name`` from the environment, else its default
-    (an empty value counts as unset)."""
-    raw = os.environ.get(name)
-    if raw is None or raw == "":
-        return _KNOB_DEFAULTS[name]
-    try:
-        return int(raw)
-    except ValueError:
-        raise ValueError(f"{name}={raw!r}: expected an integer") from None
+# Integer settings (ARKS_GUIDE_*, ARKS_JSON_DEPTH) through the port's reader.
+knob = knobs.get_int
 
 
 __all__ = ["GuideError", "GuideCompiler", "compile_regex_dfa",

@@ -14,6 +14,9 @@ tables); this is the authority over which pool page holds what:
   LRU index-retained pages (refcount held only by the index), calling
   ``on_evict`` first so the engine can spill the page to the host tier.
 - **Stats**: query and hit tokens (``record_query``, ``hit_rate``).
+- **Grid counters**: ``mixed_grid_steps`` / ``mixed_kv_bytes``, the host
+  mirrors of one mixed dispatch's page steps and KV bytes that feed the
+  engine's ``mixed_grid_steps*`` / ``mixed_kv_bytes*`` counters.
 
 The reference's membership mirror for the routing sketch serves the cache
 sketch endpoint, which the port's server does not have, and is not copied.
@@ -24,10 +27,13 @@ from __future__ import annotations
 
 from collections import OrderedDict
 
+import numpy as np
+
 from arks_tpu_torch.prefix_sketch import chain_digests, iter_chain_digests
 
 __all__ = ["OutOfPagesError", "iter_chain_digests", "chain_digests",
-           "pages_needed", "PageAllocator"]
+           "pages_needed", "mixed_grid_steps", "mixed_kv_bytes",
+           "PageAllocator"]
 
 
 class OutOfPagesError(RuntimeError):
@@ -40,6 +46,70 @@ def pages_needed(length: int, rows: int, page: int, max_pages: int) -> int:
     table beyond its row width would corrupt the neighbouring slot's
     row)."""
     return min((length + rows - 1) // page + 1, max_pages)
+
+
+def mixed_grid_steps(pos_start, q_len, *, page: int, block_q: int,
+                     num_qb: int, max_pages: int) -> tuple[int, int]:
+    """(ideal, dense) page-compute step counts for one mixed dispatch —
+    the host-side numpy mirror of ops.paged_attention.build_mixed_work_list.
+
+    ``ideal`` is what the ragged work-list grid executes: each active
+    (seq, q_block) item visits exactly its own causal page count, q_len=0
+    lanes and padding items visit zero.  ``dense`` is the legacy grid's
+    S * num_qb * max_pages (every lane pays the worst case).  The counter
+    pair metrics these feed (mixed_grid_steps_total vs _ideal_total)
+    describes the grid PLAN, so it is meaningful under either
+    ARKS_MIXED_GRID mode and either attention impl.
+
+    Inputs must already be host numpy arrays (the engine's issue path
+    holds them that way) — no device fetches happen here."""
+    pos = pos_start.astype(np.int64, copy=False)
+    ql = q_len.astype(np.int64, copy=False)
+    q_lo = (np.arange(num_qb, dtype=np.int64) * block_q)[None, :]
+    active = q_lo < ql[:, None]
+    kv_end = np.where(active, pos[:, None] + np.minimum(q_lo + block_q,
+                                                        ql[:, None]), 0)
+    pages = np.minimum(-(-kv_end // page), max_pages)
+    ideal = int(pages.sum())
+    dense = int(pos.shape[0]) * num_qb * max_pages
+    return ideal, dense
+
+
+def mixed_kv_bytes(pos_start, q_len, *, page: int, block_q: int,
+                   num_qb: int, max_pages: int, hkv: int,
+                   page_head_bytes: int) -> tuple[int, int]:
+    """(actual, ideal) KV bytes one mixed dispatch streams from HBM — the
+    host-side mirror of the ragged kernel's DMA schedule, feeding the
+    mixed_kv_bytes_total / _ideal_total counter pair.
+
+    ``actual``: every active (seq, q_block) item re-streams its own
+    causal page prefix, and the head-group split is a pure partition of
+    the head axis (n_groups x head_group == hkv), so the grouped and
+    ungrouped schedules move the same bytes AT EQUAL block_q — the
+    grouped win arrives entirely through the larger tuned block_q
+    (fewer q-blocks, fewer prefix re-streams), which is why this mirror
+    takes the PLAN's block_q/num_qb rather than a head-group count.
+
+    ``ideal``: each distinct causal page crosses the wire exactly once
+    per dispatch (what a perfect cross-q-block-sharing schedule would
+    move).  actual/ideal is the waste ratio docs/monitoring.md alerts
+    on.
+
+    ``page_head_bytes``: bytes one (page, head) KV block moves — K + V
+    (+ scale rows when quantized); the engine derives it from the pool
+    dtypes so int4 packing halves it automatically."""
+    pos = pos_start.astype(np.int64, copy=False)
+    ql = q_len.astype(np.int64, copy=False)
+    q_lo = (np.arange(num_qb, dtype=np.int64) * block_q)[None, :]
+    active = q_lo < ql[:, None]
+    kv_end = np.where(active, pos[:, None] + np.minimum(q_lo + block_q,
+                                                        ql[:, None]), 0)
+    pages = np.minimum(-(-kv_end // page), max_pages)
+    actual = int(pages.sum()) * hkv * page_head_bytes
+    seq_end = np.where(ql > 0, pos + ql, 0)
+    seq_pages = np.minimum(-(-seq_end // page), max_pages)
+    ideal = int(seq_pages.sum()) * hkv * page_head_bytes
+    return actual, ideal
 
 
 class PageAllocator:

@@ -2,8 +2,8 @@
 ``arks_tpu/engine/types.py``).  ``SamplingParams`` keeps every field of the
 reference, and the port's engine serves each of them, so one request means
 the same thing to both engines.  ``Request`` drops the fields of features
-that are later slices (disaggregated prefill, model pool, tenancy, tracing,
-peer fetch)."""
+that are later slices (disaggregated prefill, model pool, tracing, peer
+fetch)."""
 
 from __future__ import annotations
 
@@ -52,6 +52,9 @@ class Request:
     # Engine-assigned sampling seed (set once at admission when
     # params.seed is None).
     assigned_seed: int | None = None
+    # Tenant identity (``x-arks-tenant``; arks_tpu_torch.tenancy): the fair
+    # queue's lane.  None = the default tenant.
+    tenant: str | None = None
 
 
 @dataclasses.dataclass

@@ -21,9 +21,12 @@ Activations stay in the engine dtype in both modes.
 Rounding: ``quantize_tensor`` divides by 127 (and the int4 path by 7) as
 an IEEE division — bit for bit the reference's ``quantize_tensor`` run
 eagerly, which is what its ``quantize_params`` (the engine's path for
-bridged weights) runs.  Under ``jit`` (its ``init_params_quantized``) XLA
-multiplies by the reciprocal instead; the port's random init draws from
-torch generators, so no bit comparison applies there.
+bridged weights) runs.  Under ``jit`` (its ``init_params_quantized`` and
+its checkpoint load's quantize-on-load) XLA multiplies by the f32
+reciprocal instead: ``recip=True`` computes that scale (the values then
+divide by it, as there), which ``models/weights.py`` uses.  The port's
+random init draws from torch generators, so no bit comparison applies
+there.
 
 ``qeinsum`` of a quantized leaf: the reference leaves these products to
 XLA, which fuses the int8/int4 convert into the dot's operand read.  On a
@@ -42,10 +45,10 @@ the output).
 
 from __future__ import annotations
 
-import os
 
 import torch
 
+from arks_tpu_torch import knobs
 from arks_tpu_torch.ops.paged_attention import pack_int4, unpack_int4
 
 INT4_GROUP = 128
@@ -67,15 +70,7 @@ def _int4_group(group: int | None) -> int:
     """The int4 group size: explicit arg > ``ARKS_INT4_GROUP`` > 128."""
     if group is not None:
         return group
-    raw = os.environ.get("ARKS_INT4_GROUP") or str(INT4_GROUP)
-    try:
-        value = int(raw)
-    except ValueError:
-        raise ValueError(f"ARKS_INT4_GROUP={raw!r}: expected an integer") \
-            from None
-    if value < 1:
-        raise ValueError(f"ARKS_INT4_GROUP={raw!r}: must be >= 1")
-    return value
+    return knobs.get_int("ARKS_INT4_GROUP", minimum=1)
 
 
 def weight_bits(weight_dtype: str) -> int:
@@ -96,12 +91,22 @@ def _div(x: torch.Tensor, qmax: float) -> torch.Tensor:
     return x / torch.full((), qmax, dtype=x.dtype, device=x.device)
 
 
-def quantize_tensor(w: torch.Tensor, axis: int = -2) -> dict:
+def _scale(amax: torch.Tensor, qmax: float, recip: bool) -> torch.Tensor:
+    """max(amax, 1e-8) / qmax: an IEEE division, or with ``recip`` a
+    multiply by the f32 reciprocal of qmax (the reference under jit)."""
+    a = torch.clamp(amax, min=1e-8)
+    if recip:
+        return a * torch.full((), 1.0 / qmax, dtype=a.dtype, device=a.device)
+    return _div(a, qmax)
+
+
+def quantize_tensor(w: torch.Tensor, axis: int = -2,
+                    recip: bool = False) -> dict:
     """Symmetric int8 with one scale shared along ``axis`` (kept as a size-1
     dim): s = max(amax, 1e-8) / 127, q = clip(round_half_even(w / s))."""
     w32 = w.float()
     amax = w32.abs().amax(dim=axis, keepdim=True)
-    s = _div(torch.clamp(amax, min=1e-8), 127.0)
+    s = _scale(amax, 127.0, recip)
     q = torch.clamp(torch.round(w32 / s), -127, 127).to(torch.int8)
     return {"q": q, "s": s}
 
@@ -115,7 +120,8 @@ def int4_group_for(k: int, group: int | None = None) -> int:
     return g
 
 
-def quantize_tensor_int4(w: torch.Tensor, group: int | None = None) -> dict:
+def quantize_tensor_int4(w: torch.Tensor, group: int | None = None,
+                         recip: bool = False) -> dict:
     """Symmetric int4 of a matmul weight [.., K, N] (K even) with one scale
     per (G contraction rows x output channel): s = max(amax, 1e-8) / 7 per
     group, values clip(round_half_even(w / s)) packed two to a byte along
@@ -128,7 +134,7 @@ def quantize_tensor_int4(w: torch.Tensor, group: int | None = None) -> dict:
     g = int4_group_for(k, group)
     grp = w32.reshape(*w32.shape[:-2], k // g, g, n)
     amax = grp.abs().amax(dim=-2, keepdim=True)             # [.., K/G, 1, N]
-    s = _div(torch.clamp(amax, min=1e-8), 7.0)
+    s = _scale(amax, 7.0, recip)
     q = torch.clamp(torch.round(grp / s), -7, 7).to(torch.int8)
     return {"q": pack_int4(q.reshape(w32.shape), axis=-2),
             "gs": s.squeeze(-2)}
@@ -305,21 +311,22 @@ def unembed_logits(h: torch.Tensor, table, tied: bool) -> torch.Tensor:
 
 
 def quantize_params(params: dict, bits: int = 8,
-                    group: int | None = None) -> dict:
+                    group: int | None = None, recip: bool = False) -> dict:
     """Quantize a materialized params tree (the bridged-weights path; the
     full-width tree stays alive meanwhile).  ``bits=4`` stores matmul
-    weights int4 groupwise; the embedding is int8 either way."""
+    weights int4 groupwise; the embedding is int8 either way.  ``recip``:
+    the scales of the reference's jitted quantize (its checkpoint load)."""
     if bits not in (4, 8):
         raise ValueError(f"bits={bits}")
     out: dict = {}
     for name, leaf in params.items():
         if isinstance(leaf, dict):
-            out[name] = quantize_params(leaf, bits, group)
+            out[name] = quantize_params(leaf, bits, group, recip)
         elif name == "embed":
-            out[name] = quantize_tensor(leaf, axis=-1)
+            out[name] = quantize_tensor(leaf, axis=-1, recip=recip)
         elif name in MATMUL_KEYS:
-            out[name] = (quantize_tensor_int4(leaf, group) if bits == 4
-                         else quantize_tensor(leaf, axis=-2))
+            out[name] = (quantize_tensor_int4(leaf, group, recip) if bits == 4
+                         else quantize_tensor(leaf, axis=-2, recip=recip))
         else:
             if name not in SKIP_KEYS:
                 raise KeyError(

@@ -23,10 +23,10 @@ the reference's ``ragged_dot`` path), ``pallas`` to ``grouped_ffn``.
 
 from __future__ import annotations
 
-import os
 
 import torch
 
+from arks_tpu_torch import knobs
 from arks_tpu_torch.models.quant import dequantize, is_quantized
 from arks_tpu_torch.ops import _kernels
 from arks_tpu_torch.ops.paged_attention import (_check_operands, _stream,
@@ -53,10 +53,7 @@ def _stages_fit(k: int, group: int) -> bool:
 
 def moe_impl() -> str:
     """``ARKS_MOE_KERNEL``: auto (-> xla), pallas or xla."""
-    raw = os.environ.get("ARKS_MOE_KERNEL") or "auto"
-    if raw not in ("auto", "pallas", "xla"):
-        raise ValueError(f"ARKS_MOE_KERNEL={raw!r}: expected auto, pallas "
-                         "or xla")
+    raw = knobs.get_enum("ARKS_MOE_KERNEL", ("auto", "pallas", "xla"))
     return "xla" if raw == "auto" else raw
 
 

@@ -33,11 +33,11 @@ its Pallas kernels (port of ``arks_tpu/ops/paged_attention.py``).
 from __future__ import annotations
 
 import math
-import os
 from typing import NamedTuple
 
 import torch
 
+from arks_tpu_torch import knobs
 from arks_tpu_torch.ops import _kernels
 
 _NEG_INF = -1e30
@@ -164,7 +164,7 @@ def mixed_grid_mode() -> str:
     """``ARKS_MIXED_GRID``: "ragged" (the work-list launch, the default) or
     "dense" (one CTA per (sequence, KV head, q-block) of the whole grid,
     the reference's byte-identity reference)."""
-    m = (os.environ.get("ARKS_MIXED_GRID") or "ragged").lower()
+    m = knobs.get_str("ARKS_MIXED_GRID").lower()
     if m not in ("ragged", "dense"):
         raise ValueError(f"ARKS_MIXED_GRID={m!r} (expected ragged|dense)")
     return m

@@ -15,7 +15,20 @@ surface of ``arks_tpu/server/openai_server.py``).
   the output come back as ``tool_calls``); ``n`` from 1 to 16 (seeded
   children take ``seed + j``); batched prompts; completions ``echo``.
   ``best_of`` is ignored.
-- GET /v1/models, /health.
+- GET /v1/models, /health; GET /metrics (the engine's metric families,
+  Prometheus text ``version=0.0.4``); GET /readiness: 200 ``{"status":
+  "ready", "admission": ..., "slo_burn": ...}`` once the server listens
+  and the engine's loop has finished a step, 503 while draining, before
+  that, or once the loop has stopped.  The reference's worker-gang,
+  scaled-to-zero, wedge and cache-sketch branches belong to subsystems the
+  port does not have.
+- Admission: ``x-arks-tenant`` names the request's fair-queue tenant;
+  ``x-arks-tier`` maps onto its priority through ``ARKS_SLO_TIERS`` (an
+  unknown tier is a 400).  A full queue answers 429 (the tenant's bound)
+  or 503 (the global bound) with ``Retry-After``; a deadline shed 503.
+- ``drain(timeout_s)`` (SIGTERM): readiness turns 503, new completions get
+  503 "server is draining", in-flight requests finish, then the server
+  stops.
 
 Stdlib ``ThreadingHTTPServer``, as in the reference: request threads hand
 work to the engine thread and read its output queue.
@@ -31,6 +44,9 @@ import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from arks_tpu_torch import slo as slo_mod
+from arks_tpu_torch import tenancy
+from arks_tpu_torch.engine import fairqueue
 from arks_tpu_torch.engine import sampler as sampler_mod
 from arks_tpu_torch.engine.engine import InferenceEngine
 from arks_tpu_torch.engine.tokenizer import IncrementalDetokenizer
@@ -38,6 +54,9 @@ from arks_tpu_torch.engine.types import Request, SamplingParams
 from arks_tpu_torch.server import tools as tools_mod
 
 log = logging.getLogger("arks_tpu_torch.server")
+
+# The SLO tier header (the gateway and router forward it).
+HDR_TIER = "x-arks-tier"
 
 
 def _find_stop(text: str, stop_strings: list[str], min_end: int = 0
@@ -139,6 +158,10 @@ def sampling_from_body(body: dict, tokenizer, engine=None
         guide = ("choice", json.dumps(choices))
     if guide is not None and engine is not None:
         engine.guides.validate(*guide)
+    # Below 0 is the fair queue's urgent lane, which no client may reach.
+    priority = int(body.get("priority") or 0)
+    if priority < 0:
+        raise ValueError("priority must be >= 0 (lower is served sooner)")
     params = SamplingParams(
         max_tokens=int(body.get("max_tokens")
                        or body.get("max_completion_tokens") or 256),
@@ -154,7 +177,7 @@ def sampling_from_body(body: dict, tokenizer, engine=None
             max(n_lp, 0), sampler_mod.TOP_LOGPROBS_MAX),
         logit_bias=logit_bias,
         min_tokens=min_tokens,
-        priority=int(body.get("priority") or 0),
+        priority=priority,
         guide=guide)
     if engine is not None and min_tokens and len(
             engine.min_tokens_suppress_ids(params)) > sampler_mod.SUPPRESS_MAX:
@@ -175,8 +198,18 @@ class OpenAIServer:
         self.served_model_name = served_model_name
         self.host = host
         self.port = port
+        self.slo = slo_mod.from_env()
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
+        self._ready = threading.Event()
+        # Graceful drain: ``_active`` counts completion handlers between
+        # their admission check and their last byte; the check and the
+        # increment are one step under ``_active_lock``, so a drain that
+        # reads 0 has no handler slipping in after it.
+        self.draining = False
+        self._active = 0
+        self._active_lock = threading.Lock()
+        self._stopped = False
 
     def start(self, background: bool = True) -> None:
         server = self
@@ -187,11 +220,14 @@ class OpenAIServer:
             def log_message(self, fmt, *args):  # quiet
                 pass
 
-            def _json(self, code: int, payload: dict) -> None:
+            def _json(self, code: int, payload: dict,
+                      headers: dict | None = None) -> None:
                 data = json.dumps(payload).encode()
                 self.send_response(code)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(data)))
+                for k, v in (headers or {}).items():
+                    self.send_header(k, str(v))
                 self.end_headers()
                 self.wfile.write(data)
 
@@ -206,6 +242,20 @@ class OpenAIServer:
                         "created": 0, "owned_by": "arks"}]})
                 elif self.path in ("/health", "/healthz"):
                     self._json(200, {"status": "ok"})
+                elif self.path == "/metrics":
+                    text = server.engine.metrics.registry.render().encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type",
+                                     "text/plain; version=0.0.4")
+                    self.send_header("Content-Length", str(len(text)))
+                    self.end_headers()
+                    self.wfile.write(text)
+                elif self.path == "/readiness":
+                    code, payload = server.readiness()
+                    if code == 200:
+                        self._json(200, payload)
+                    else:
+                        self._error(code, payload)
                 else:
                     self._error(404, f"no route {self.path}")
 
@@ -220,6 +270,10 @@ class OpenAIServer:
                         raise ValueError("request body must be an object")
                 except ValueError as e:
                     return self._error(400, f"bad request body: {e}")
+                with server._active_lock:
+                    if server.draining:
+                        return self._error(503, "server is draining")
+                    server._active += 1
                 try:
                     server.handle_completion(
                         self, body, chat=self.path == "/v1/chat/completions")
@@ -232,23 +286,73 @@ class OpenAIServer:
                         self._error(500, f"internal error: {e}")
                     except OSError:
                         pass  # the client hung up first
+                finally:
+                    with server._active_lock:
+                        server._active -= 1
 
-        self._httpd = ThreadingHTTPServer((self.host, self.port), Handler)
-        self._httpd.daemon_threads = True
-        self.port = self._httpd.server_address[1]
+        class Server(ThreadingHTTPServer):
+            # A burst of concurrent connects overflows the default backlog
+            # of 5 (the kernel resets the overflow).
+            request_queue_size = 512
+            daemon_threads = True
+
+        httpd = Server((self.host, self.port), Handler)
+        with self._active_lock:
+            self._httpd = httpd
+            stopped = self._stopped
+        if stopped:
+            # stop() or drain() ran before the socket was bound.
+            httpd.server_close()
+            return
+        self.port = httpd.server_address[1]
+        self._ready.set()
         if background:
             self._thread = threading.Thread(
-                target=self._httpd.serve_forever, name="http", daemon=True)
+                target=httpd.serve_forever, name="http", daemon=True)
             self._thread.start()
         else:
-            self._httpd.serve_forever()
+            httpd.serve_forever()
 
     def stop(self) -> None:
-        if self._httpd is not None:
-            self._httpd.shutdown()
-            self._httpd.server_close()
+        with self._active_lock:
+            if self._stopped:
+                return
+            self._stopped = True
+            httpd = self._httpd
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout=10.0)
+
+    def readiness(self) -> tuple[int, dict | str]:
+        """(200, the ready payload) or (503, the reason)."""
+        if self.draining:
+            return 503, "draining"
+        if not self._ready.is_set() or not self.engine.warm:
+            return 503, "not ready"
+        if not self.engine.serving:
+            return 503, "engine loop stopped"
+        return 200, {"status": "ready",
+                     "admission": self.engine.saturation(),
+                     "slo_burn": self.engine.slo_burn()}
+
+    def drain(self, timeout_s: float = 20.0) -> None:
+        """Graceful shutdown: readiness turns 503 (routes pull this
+        backend), new completions get 503, in-flight requests finish
+        (bounded by ``timeout_s``), then the HTTP server stops."""
+        self.draining = True
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            # No live completion handler AND an idle engine: the handler
+            # count covers what the engine cannot see (tokenizing before
+            # add_request, the tail frames of a stream).
+            with self._active_lock:
+                active = self._active
+            if active == 0 and self.engine.idle:
+                break
+            time.sleep(0.1)
+        self.stop()
 
     # ------------------------------------------------------------------
 
@@ -291,6 +395,15 @@ class OpenAIServer:
                                            tools=tools if tools_on else None)
             params, stop_strings = sampling_from_body(
                 body, self.engine.tokenizer, self.engine)
+            # The tier header wins over a body "priority".
+            tier = (h.headers.get(HDR_TIER) or "").strip() or None
+            if tier is not None:
+                pri = self.slo.priority_of(tier) if self.slo else None
+                if pri is None:
+                    raise ValueError(
+                        f"unknown SLO tier {tier!r} (configured: "
+                        f"{', '.join(self.slo.names) or 'none'})")
+                params = dataclasses.replace(params, priority=pri)
             tools_ctx = None
             if tools_on:
                 tools_ctx = tools_mod.tool_parser()
@@ -327,6 +440,8 @@ class OpenAIServer:
         for prompt_ids in batch:
             if len(prompt_ids) > limit:
                 return self._context_length_error(h, len(prompt_ids), limit)
+        # Untenanted clients share the fair queue's default lane.
+        tenant = (h.headers.get(tenancy.HDR_TENANT) or "").strip() or None
         reqs = []
         for prompt_ids in batch:
             for j in range(n):
@@ -334,8 +449,15 @@ class OpenAIServer:
                 if n > 1 and params.seed is not None:
                     p = dataclasses.replace(params, seed=params.seed + j)
                 req = Request(request_id=f"req-{uuid.uuid4().hex[:16]}",
-                              prompt_ids=list(prompt_ids), params=p)
-                self.engine.add_request(req)
+                              prompt_ids=list(prompt_ids), params=p,
+                              tenant=tenant)
+                try:
+                    self.engine.add_request(req)
+                except fairqueue.QueueFullError as e:
+                    # A batch admits whole or not at all.
+                    for prev in reqs:
+                        self.engine.abort(prev.request_id)
+                    return self._queue_full_error(h, e)
                 reqs.append(req)
         if len(reqs) > 1:
             self._batch_response(h, reqs, model, stop_strings, chat=chat,
@@ -343,6 +465,29 @@ class OpenAIServer:
         else:
             self._respond(h, reqs[0], chat, model, body, stop_strings,
                           echo=echo, tools_ctx=tools_ctx)
+
+    def _queue_full_error(self, h, e: fairqueue.QueueFullError) -> None:
+        """A bounded-queue refusal: 429 for the tenant's bound (the
+        caller's own backlog), 503 for the global one (this backend is
+        saturated), with the drain-rate ``Retry-After`` and the
+        saturation signal."""
+        sat = self.engine.saturation()
+        headers = {"Retry-After": str(e.retry_after),
+                   tenancy.HDR_SATURATION: f"{sat['saturation']:.2f}"}
+        if e.tenant:
+            headers[tenancy.HDR_TENANT] = e.tenant
+        if e.scope == "tenant":
+            h._json(429, {"error": {
+                "message": (f"tenant queue is full ({e.depth}/{e.limit} "
+                            "queued requests for this tenant)"),
+                "type": "rate_limit_error",
+                "code": "tenant_queue_full"}}, headers=headers)
+        else:
+            h._json(503, {"error": {
+                "message": (f"admission queue is full ({e.depth}/{e.limit} "
+                            "queued requests)"),
+                "type": "server_error", "code": "queue_full"}},
+                headers=headers)
 
     def _context_length_error(self, h, got: int, limit: int) -> None:
         h._json(400, {"error": {
@@ -363,6 +508,15 @@ class OpenAIServer:
                 "message": ("The server had an error while processing "
                             f"your request ({fin.error})."),
                 "type": "server_error", "code": "engine_fault"}})
+        if fin.error and fin.error.startswith("shed_deadline"):
+            # The queue wait spent the tier's TTFT budget: capacity, not
+            # the client's fault.
+            sat = self.engine.saturation()
+            return h._json(503, {"error": {
+                "message": f"request shed before prefill ({fin.error})",
+                "type": "server_error", "code": "shed_deadline"}},
+                headers={"Retry-After": str(self.engine.queue_retry_after()),
+                         tenancy.HDR_SATURATION: f"{sat['saturation']:.2f}"})
         return h._error(400, fin.error or "request rejected")
 
     def _respond(self, h, req: Request, chat: bool, model: str, body: dict,

@@ -22,9 +22,10 @@ EMIT a syntactically valid call; no retry loops.
 from __future__ import annotations
 
 import json
-import os
 import re
 import uuid
+
+from arks_tpu_torch import knobs
 
 TOOL_OPEN = "<tool_call>"
 TOOL_CLOSE = "</tool_call>"
@@ -43,11 +44,7 @@ TOOL_PARSERS = ("auto", "hermes", "llama3", "mistral", "qwen")
 def tool_parser() -> str:
     """``ARKS_TOOL_PARSER``, the parser dialect for generated tool calls
     (default "auto")."""
-    raw = os.environ.get("ARKS_TOOL_PARSER", "auto")
-    if raw not in TOOL_PARSERS:
-        raise ValueError(f"ARKS_TOOL_PARSER={raw!r}: expected one of "
-                         f"{'|'.join(TOOL_PARSERS)}")
-    return raw
+    return knobs.get_enum("ARKS_TOOL_PARSER", TOOL_PARSERS)
 
 
 def validate_tools(body: dict) -> tuple[list | None, object]:

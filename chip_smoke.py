@@ -187,11 +187,35 @@ Phases (any failure raises and exits non-zero):
               mixed_step through the kernels vs impl="plain" over 2 layers
               (bf16 and int8 weights, 10% of the largest |logit|) and 1
               layer in f32 (5e-4).
+  8. checkpoint and operability.  phase_checkpoint: this script writes a
+              synthetic HF checkpoint in two safetensors shards (its own
+              writer) to a temp directory it deletes: Qwen2.5-7B at full
+              width, 2 layers, bf16; params_from_hf loads it in bf16 and
+              with int8 quantize-on-load, each tree bit-exact against
+              params_from_numpy (and quantize_params with the reference's
+              jitted scales) of the same arrays; greedy completions
+              served from the loaded engine equal an engine's on the
+              bridged tree; then Mixtral-8x7B at full width, 1 layer,
+              int8 on load (grouped_matmul runs).  Load seconds, GB/s,
+              peak device memory (bound: the tree plus one full-width
+              stacked leaf) and peak host RSS.  phase_operability, on
+              Qwen2.5-7B bf16 at depth 2 with ARKS_QUEUE_MAX=4 and
+              ARKS_QUEUE_TENANT_MAX=3: launches per steady step with the
+              metrics within half a launch of those with inert metrics
+              over 128-step windows (no added launch; the profiler may
+              drop a window's first events); behind the server,
+              every issue and admission under set_sync_debug_mode
+              ("error"): /metrics counts N successes and the generated
+              tokens, /readiness 200, a two-tenant flood gives 429 and
+              503 with Retry-After and the survivors 200, drain() with
+              two streams in flight turns readiness 503, refuses a new
+              POST with 503 and lets both streams finish whole.
 The line before the last is the kernels JSON (nine counterparts); the last
 line is the device JSON.  A kernel's "launches" counts its launches in the
-runs of the served path: phase 4's, the request surface's, the pipeline's
-and prefix reuse's included (the dense launch: its greedy run) and phase
-7's (grouped_matmul, every quantized product).
+runs of the served path: phase 4's, the request surface's, the pipeline's,
+prefix reuse's, operability's and the checkpoint-loaded engines' included
+(the dense launch: its greedy run) and phase 7's (grouped_matmul, every
+quantized product).
 """
 
 from __future__ import annotations
@@ -229,8 +253,12 @@ KV_BITS = {"int8": 8, "int4": 4}
 ATTN_TOL_BF16, ATTN_TOL_F32, ATTN_TOL_F32_KERNEL = 5e-3, 1e-2, 1e-5
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the log, after the seconds since the script started."""
+    print(f"{time.perf_counter() - T_START:7.1f}s {msg}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1917,15 +1945,17 @@ class _NoSync:
             delattr(self.engine, name)
 
 
-def _pipe_batch(torch, engine, prompts, max_tokens, window=False):
+def _pipe_batch(torch, engine, prompts, max_tokens, window=False,
+                window_steps=None):
     """One greedy request per prompt, added together and driven by
     ``engine.step()`` from this thread until the engine is idle.  Returns
     (streams, decode seconds: from the step at which the last stream got
     its first token to the end, and with ``window``, once every stream
     has decoded 4 scheduler steps: (host ms per scheduler step over
-    synchronised steps covering PIPE_WINDOW decode steps, then device µs
-    and kernel launches per scheduler step from torch.profiler over the
-    next as many))."""
+    synchronised steps covering PIPE_WINDOW decode steps, or
+    ``window_steps`` scheduler steps, then device µs and kernel launches
+    per scheduler step from torch.profiler over the next as many, and
+    those launches by kernel name))."""
     import queue
 
     from torch.profiler import ProfilerActivity, profile
@@ -1960,7 +1990,7 @@ def _pipe_batch(torch, engine, prompts, max_tokens, window=False):
         if t_first is not None:
             since += 1
         if window and win is None and since == 4:
-            steps = PIPE_WINDOW // engine._pipe_rows
+            steps = window_steps or PIPE_WINDOW // engine._pipe_rows
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(steps):
@@ -1976,7 +2006,8 @@ def _pipe_batch(torch, engine, prompts, max_tokens, window=False):
             kernels = [e for e in prof.key_averages()
                        if e.device_type == torch.autograd.DeviceType.CUDA]
             win = (host_ms, sum(e.self_device_time_total for e in kernels)
-                   / steps, sum(e.count for e in kernels) / steps)
+                   / steps, sum(e.count for e in kernels) / steps,
+                   collections.Counter({e.key: e.count for e in kernels}))
             drain()
         if engine.idle and len(fins) == len(reqs):
             break
@@ -2044,7 +2075,7 @@ def phase_pipeline(torch, dev, params):
             streams = one + eight
             base = base or streams
             per_tok, per_tok1 = PIPE_TOKENS - 1, PIPE_TOKENS_B1 - 1
-            host_ms, dev_us, kern = win
+            host_ms, dev_us, kern, _ = win
             row = dict(tok_s_b1=per_tok1 / secs1,
                        tok_s_b8=8 * per_tok / secs8,
                        ms_per_tok_b1=secs1 / per_tok1 * 1e3,
@@ -2578,7 +2609,7 @@ def phase_step_profile(torch, dev, engine, kv=None):
     if cfg.num_experts:
         log(f"[profile]   grouped_matmul (all launches) {grouped_us:.1f} "
             "us/step")
-    return wall_ms, dev_us / 1e3 if dev_us else None
+    return wall_ms, dev_us / 1e3 if dev_us else None, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3890,6 +3921,573 @@ def phase_dense_grid(torch, dev, engine):
     return launches["paged_mixed_attention_dense"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: weights from a checkpoint; the operator's surface
+# ---------------------------------------------------------------------------
+
+
+CKPT_LAYERS = {MODEL: 2, MOE_MODEL: 1}   # depth cut for the smoke's disk
+CKPT_TOKENS = 16                          # greedy tokens per served request
+OPS_TOKENS = 16                           # tokens per counted request
+OPS_QUEUE_MAX, OPS_TENANT_MAX = 4, 3      # the flood's bounds
+OPS_HOLD_TOKENS = 128                     # the slot-holding streams
+OPS_DRAIN_TOKENS = 48                     # streams in flight at the drain
+OPS_WINDOW = 128                          # steps a launch-count window
+ST_DTYPES = {"bfloat16": "BF16", "float32": "F32"}
+
+
+def _write_safetensors(torch, path, tensors: dict) -> int:
+    """``tensors`` (CPU) as one safetensors file, written here so the script
+    needs no safetensors package: an 8-byte little-endian header length,
+    the JSON header, the raw bytes.  Returns the bytes written."""
+    import struct
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_DTYPES[str(t.dtype).split(".")[1]],
+                        "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(memoryview(t.contiguous().view(torch.uint8).numpy()))
+    return 8 + len(blob) + off
+
+
+def _hf_checkpoint(torch, dev, cfg):
+    """Random HF-named tensors for ``cfg`` ([out, in] matrices, bf16, drawn
+    on the card from SEED, kept on the CPU)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 17)
+    e, v, qd, kvd = cfg.hidden_size, cfg.vocab_size, cfg.q_dim, cfg.kv_dim
+
+    def r(*shape, base=0.0):
+        x = torch.randn(shape, generator=gen, device=dev).mul_(0.02)
+        return x.add_(base).to(torch.bfloat16).cpu()
+
+    t = {"model.embed_tokens.weight": r(v, e),
+         "model.norm.weight": r(e, base=1.0)}
+    if not cfg.tie_word_embeddings:
+        t["lm_head.weight"] = r(v, e)
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        t[p + "input_layernorm.weight"] = r(e, base=1.0)
+        t[p + "post_attention_layernorm.weight"] = r(e, base=1.0)
+        for proj, n in (("q", qd), ("k", kvd), ("v", kvd)):
+            t[p + f"self_attn.{proj}_proj.weight"] = r(n, e)
+            if cfg.qkv_bias:
+                t[p + f"self_attn.{proj}_proj.bias"] = r(n)
+        t[p + "self_attn.o_proj.weight"] = r(e, qd)
+        if cfg.num_experts:
+            fm, b = cfg.moe_intermediate_size, p + "block_sparse_moe."
+            t[b + "gate.weight"] = r(cfg.num_experts, e)
+            for x in range(cfg.num_experts):
+                t[b + f"experts.{x}.w1.weight"] = r(fm, e)
+                t[b + f"experts.{x}.w3.weight"] = r(fm, e)
+                t[b + f"experts.{x}.w2.weight"] = r(e, fm)
+        else:
+            f = cfg.intermediate_size
+            t[p + "mlp.gate_proj.weight"] = r(f, e)
+            t[p + "mlp.up_proj.weight"] = r(f, e)
+            t[p + "mlp.down_proj.weight"] = r(e, f)
+    return t
+
+
+def _reference_tree(cfg, t) -> dict:
+    """The reference's layout of the same tensors (projections [in, out],
+    layers stacked), as f32 numpy arrays holding the bf16 values exactly."""
+    def a(name, tr=False):
+        x = t[name].float()
+        return (x.T if tr else x).contiguous().numpy()
+
+    def stack(fmt, tr=False):
+        return np.stack([a(fmt.format(i), tr) for i in range(cfg.num_layers)])
+
+    p = "model.layers.{}."
+    layers = {"attn_norm": stack(p + "input_layernorm.weight"),
+              "mlp_norm": stack(p + "post_attention_layernorm.weight")}
+    for leaf, proj in (("wq", "q"), ("wk", "k"), ("wv", "v"), ("wo", "o")):
+        layers[leaf] = stack(p + f"self_attn.{proj}_proj.weight", True)
+    if cfg.qkv_bias:
+        for leaf, proj in (("bq", "q"), ("bk", "k"), ("bv", "v")):
+            layers[leaf] = stack(p + f"self_attn.{proj}_proj.bias")
+    if cfg.num_experts:
+        b = p + "block_sparse_moe."
+        layers["router"] = stack(b + "gate.weight", True)
+        for leaf, w in (("w_gate", "w1"), ("w_up", "w3"), ("w_down", "w2")):
+            layers[leaf] = np.stack([np.stack([
+                a(f"model.layers.{i}.block_sparse_moe.experts.{x}.{w}.weight",
+                  True) for x in range(cfg.num_experts)])
+                for i in range(cfg.num_layers)])
+    else:
+        for leaf, proj in (("w_gate", "gate"), ("w_up", "up"),
+                           ("w_down", "down")):
+            layers[leaf] = stack(p + f"mlp.{proj}_proj.weight", True)
+    tree = {"embed": a("model.embed_tokens.weight"), "layers": layers,
+            "final_norm": a("model.norm.weight")}
+    if not cfg.tie_word_embeddings:
+        tree["lm_head"] = a("lm_head.weight", True)
+    return tree
+
+
+def _rss_bytes() -> int:
+    import os
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _timed_load(torch, dev, cfg, path, weight_dtype, disk_bytes):
+    """``params_from_hf`` timed (synchronised), with its peak device memory
+    above what was allocated before it and its peak host RSS above the
+    RSS before it (sampled every 2 ms)."""
+    from arks_tpu_torch.models.weights import params_from_hf
+    torch.cuda.synchronize()
+    base_dev = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    base_rss = _rss_bytes()
+    peak_rss, stop = [base_rss], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            peak_rss[0] = max(peak_rss[0], _rss_bytes())
+            time.sleep(0.002)
+
+    th = threading.Thread(target=sample, daemon=True)
+    th.start()
+    t0 = time.perf_counter()
+    params = params_from_hf(cfg, path, "bfloat16", weight_dtype, dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    stop.set()
+    th.join()
+    tree = sum(x.numel() * x.element_size() for x in _leaves(params))
+    return params, dict(seconds=secs, gb_s=disk_bytes / secs / 1e9,
+                        tree_bytes=tree,
+                        peak_dev=torch.cuda.max_memory_allocated() - base_dev,
+                        peak_rss=peak_rss[0] - base_rss)
+
+
+def _same_tree(torch, got, want, what) -> None:
+    g, w = list(_leaves(got)), list(_leaves(want))
+    if len(g) != len(w) or not all(
+            a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+                a.view(torch.uint8), b.view(torch.uint8))
+            for a, b in zip(g, w)):
+        raise AssertionError(f"[checkpoint] {what}: the loaded tree is not "
+                             "the numpy bridge's bit for bit")
+
+
+def _served_streams(torch, dev, cfg, params, weight_dtype, prompts, tag):
+    """Greedy completions, one at a time, through an OpenAIServer on an
+    engine built on ``params``.  Returns (texts with usage, counts)."""
+    from arks_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arks_tpu_torch.engine.tokenizer import ByteTokenizer
+    from arks_tpu_torch.server import OpenAIServer
+    engine = InferenceEngine(cfg, EngineConfig(
+        model=cfg.name, num_slots=8, max_cache_len=MAX_PAGES * PAGE,
+        prefill_chunk=PAGE, dtype="bfloat16", kv_cache_dtype="bf16",
+        weight_dtype=weight_dtype, seed=SEED), ByteTokenizer(),
+        params=params, device=dev)
+    server = OpenAIServer(engine, cfg.name, host="127.0.0.1", port=0)
+    server.start(background=True)
+    engine.start()
+    try:
+        _reset_counts()
+        out = []
+        for p in prompts:
+            st, data, _, _ = _request(server.port, "/v1/completions", {
+                "prompt": p, "max_tokens": CKPT_TOKENS, "temperature": 0,
+                "ignore_eos": True})
+            if st != 200:
+                raise AssertionError(f"[checkpoint] {tag}: HTTP {st} {data}")
+            out.append((data["choices"][0]["text"],
+                        data["usage"]["completion_tokens"]))
+        counts = _read_counts()
+    finally:
+        server.stop()
+        engine.stop()
+    del engine
+    return out, counts
+
+
+def phase_checkpoint(torch, dev):
+    """Weights from a local HF checkpoint (``models/weights.py``):
+    Qwen2.5-7B at full width, 2 layers, bf16 (two shards), loaded in bf16
+    and with int8 quantize-on-load, and Mixtral-8x7B at full width, 1
+    layer, int8 on load.  Each loaded tree equals ``params_from_numpy`` (and
+    ``quantize_params``, the reference's jitted scales) of the same arrays
+    bit for bit; greedy streams served from the loaded engine equal those
+    of an engine on the bridged tree.  Load seconds, GB/s from the files
+    (written just before, so read from the page cache), peak device
+    memory above the tree plus one full-width stacked leaf bound, and peak
+    host RSS."""
+    import dataclasses as dc
+    import shutil
+    import tempfile
+
+    from arks_tpu_torch.models import get_config
+    from arks_tpu_torch.models import quant
+    from arks_tpu_torch.models.weights import params_from_numpy
+    prompts = ["Weights come from a checkpoint on disk.",
+               "A second request on the loaded engine."]
+    res, launches = {}, collections.Counter()
+    t_phase = time.perf_counter()
+    for model, modes in ((MODEL, ("bf16", "int8")), (MOE_MODEL, ("int8",))):
+        cfg = dc.replace(get_config(model), num_layers=CKPT_LAYERS[model])
+        d = tempfile.mkdtemp(prefix="arks-ckpt-")
+        try:
+            t0 = time.perf_counter()
+            hf = _hf_checkpoint(torch, dev, cfg)
+            names = sorted(hf)
+            disk = sum(_write_safetensors(
+                torch, f"{d}/model-{i + 1:05d}-of-00002.safetensors",
+                {n: hf[n] for n in names[i::2]}) for i in range(2))
+            log(f"[checkpoint] {model} at full width, {cfg.num_layers} "
+                f"layer(s): {len(hf)} tensors, {disk} B in 2 shards, "
+                f"written in {time.perf_counter() - t0:.1f} s")
+            want = params_from_numpy(_reference_tree(cfg, hf), cfg, dev,
+                                     "bfloat16")
+            stacked = max(x.numel() for x in _leaves(want)) * 2
+            del hf
+            for mode in modes:
+                want_m = want if mode == "bf16" else \
+                    quant.quantize_params(want, bits=8, recip=True)
+                if mode != "bf16":
+                    torch.cuda.synchronize()
+                got, r = _timed_load(torch, dev, cfg, d, mode, disk)
+                _same_tree(torch, got, want_m, f"{model} {mode}")
+                bound = r["tree_bytes"] + stacked
+                log(f"[checkpoint] {model} {mode}: loaded in "
+                    f"{r['seconds']:.2f} s ({r['gb_s']:.2f} GB/s from the "
+                    f"files), tree {r['tree_bytes']} B, peak device "
+                    f"{r['peak_dev']} B against the bound {bound} B (tree + "
+                    f"one full-width stacked leaf of {stacked} B), peak host "
+                    f"RSS +{r['peak_rss']} B; bit-exact against the bridge")
+                if r["peak_dev"] > bound:
+                    raise AssertionError(
+                        f"[checkpoint] {model} {mode}: peak device memory "
+                        f"{r['peak_dev']} B over the bound {bound} B")
+                res[(model, mode)] = r
+                serve = (model, mode) in ((MODEL, "bf16"), (MOE_MODEL,
+                                                             "int8"))
+                if serve:
+                    a, ca = _served_streams(torch, dev, cfg, got, mode,
+                                            prompts, f"{model} loaded")
+                    b, _ = _served_streams(torch, dev, cfg, want_m, mode,
+                                           prompts, f"{model} bridged")
+                    if a != b or any(n != CKPT_TOKENS for _, n in a):
+                        raise AssertionError(
+                            f"[checkpoint] {model} {mode}: served streams "
+                            f"differ: {a} vs {b}")
+                    need = ("grouped_matmul",) if cfg.num_experts else \
+                        ("paged_kv_update", "paged_mixed_attention")
+                    if any(not ca[k] for k in need):
+                        raise AssertionError(
+                            f"[checkpoint] {model}: kernels not launched "
+                            f"serving the loaded engine: {ca}")
+                    launches.update(ca)
+                    log(f"[checkpoint] {model} {mode}: {len(prompts)} "
+                        f"greedy completions of {CKPT_TOKENS} tokens from "
+                        f"the loaded engine equal the bridged engine's; "
+                        f"launches {dict(ca)}")
+                del got, want_m
+                torch.cuda.empty_cache()
+            del want
+            torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    log(f"[checkpoint] phase took {time.perf_counter() - t_phase:.1f} s")
+    return res, launches
+
+
+class _InertMetrics:
+    """Stands in for ``EngineMetrics``: every family takes every update
+    and does nothing (the launch-count control)."""
+
+    def __getattr__(self, name):
+        return self
+
+    def __call__(self, *args, **kw):
+        return self
+
+
+def _metric_value(text: str, key: str) -> float:
+    for line in text.splitlines():
+        if line.startswith(key + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def _get(port, path):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    raw = resp.read()
+    conn.close()
+    try:
+        return resp.status, json.loads(raw), dict(resp.getheaders())
+    except ValueError:
+        return resp.status, raw.decode(), dict(resp.getheaders())
+
+
+def _post_h(port, body, headers):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    conn.request("POST", "/v1/completions", json.dumps(body),
+                 dict({"Content-Type": "application/json"}, **headers))
+    resp = conn.getresponse()
+    data = json.loads(resp.read())
+    conn.close()
+    return resp.status, data, dict(resp.getheaders())
+
+
+def _steady_launches(torch, engine):
+    """(host ms per steady scheduler step over OPS_WINDOW synchronised
+    steps, kernel launches per step over a profiler window of as many, and
+    those launches by kernel name), 8 streams at depth 2.  The window is
+    long, so the events a profiler drops at a window's start move the mean
+    by a fraction of a launch."""
+    _, _, win = _pipe_batch(torch, engine, [
+        f"steady window stream {j}" for j in range(8)],
+        2 * OPS_WINDOW + 32, window=True, window_steps=OPS_WINDOW)
+    return win[0], win[2], win[3]
+
+
+def phase_operability(torch, dev, params, step_launches):
+    """The operator's surface on Qwen2.5-7B bf16 at the default engine
+    shape (depth 2), ``ARKS_QUEUE_MAX`` / ``ARKS_QUEUE_TENANT_MAX`` set.
+    First, driven from this thread: host ms and launches per steady step
+    with the metrics and the fair queue, then with inert metrics, each
+    over a 128-step window — under half a launch a step apart and no
+    kernel name launched only with the metrics, so they add no kernel;
+    the host ms of both are reported.  Then behind the server, with every issue and admission
+    under set_sync_debug_mode("error"): N requests give
+    request_success_total N and generation_tokens_total the streamed
+    tokens less the N first ones (the reference's rule); /readiness 200
+    with its admission block; a two-tenant flood over the bounds gives 429
+    (tenant) and 503 (global) with Retry-After, the survivors 200; drain()
+    with streams in flight: readiness 503, a new POST 503, every stream
+    whole, then the server stops (the drain time)."""
+    import os
+
+    from arks_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arks_tpu_torch.engine.tokenizer import ByteTokenizer
+    from arks_tpu_torch.models import get_config
+    from arks_tpu_torch.server import OpenAIServer
+    t_phase = time.perf_counter()
+    old = {k: os.environ.get(k) for k in ("ARKS_QUEUE_MAX",
+                                          "ARKS_QUEUE_TENANT_MAX")}
+    os.environ["ARKS_QUEUE_MAX"] = str(OPS_QUEUE_MAX)
+    os.environ["ARKS_QUEUE_TENANT_MAX"] = str(OPS_TENANT_MAX)
+    try:
+        engine = InferenceEngine(get_config(MODEL), EngineConfig(
+            model=MODEL, num_slots=8, max_cache_len=MAX_PAGES * PAGE,
+            prefill_chunk=PAGE, dtype="bfloat16", kv_cache_dtype="bf16",
+            seed=SEED), ByteTokenizer(), params=params, device=dev)
+    finally:
+        _restore_env(os, old)
+    if engine._pipe_depth != 2 or engine._queue.max_total != OPS_QUEUE_MAX:
+        raise AssertionError("[operability] not the default engine shape "
+                             "with the flood's bounds")
+    res = {}
+    # The 8-stream windows put 8 requests at once: unbounded meanwhile.
+    q = engine._queue
+    q.max_total = q.max_tenant = 0
+    _pipe_batch(torch, engine, ["warm"] * 8, 8)
+    host_real, with_metrics, names_real = _steady_launches(torch, engine)
+    real = engine.metrics
+    engine.metrics = _InertMetrics()
+    try:
+        host_inert, inert, names_inert = _steady_launches(torch, engine)
+    finally:
+        engine.metrics = real
+        q.max_total, q.max_tenant = OPS_QUEUE_MAX, OPS_TENANT_MAX
+    log(f"[operability] launches per steady step (8 streams, depth 2): "
+        f"{with_metrics:.2f} with the metrics and the fair queue, "
+        f"{inert:.2f} with inert metrics; the model step of "
+        f"phase_step_profile {step_launches:.0f}")
+    log(f"[operability] host ms per steady step: {host_real:.3f} with the "
+        f"metrics and the fair queue, {host_inert:.3f} with inert metrics "
+        f"({host_real - host_inert:+.3f} ms, "
+        f"{(host_real / host_inert - 1) * 100:+.1f}%)")
+    moved = {k: names_real[k] - names_inert[k]
+             for k in names_real | names_inert
+             if names_real[k] != names_inert[k]}
+    if moved:
+        log(f"[operability] launches by kernel name, metrics less inert, "
+            f"over the window: {moved}")
+    # The profiler drops a window's first events now and then (fewer,
+    # never more: ~24 in a window in the runs so far, 0.2 a step here); one
+    # added kernel a step would add a whole launch to the mean, and a
+    # rarer one a name that only the window with the metrics shows.
+    only_real = sorted(set(names_real) - set(names_inert))
+    if abs(with_metrics - inert) >= 0.5 or only_real:
+        raise AssertionError(f"[operability] the metrics change the kernel "
+                             f"launches per step (only with them: "
+                             f"{only_real})")
+    res["launches_per_step"] = (with_metrics, inert)
+    res["host_ms_per_step"] = (host_real, host_inert)
+
+    server = OpenAIServer(engine, MODEL, host="127.0.0.1", port=0)
+    server.start(background=True)
+    engine.start()
+    port = server.port
+    guard = _NoSync(torch, engine, ("_pipe_issue", "_issue_mixed",
+                                    "_admit"))
+    try:
+        with guard:
+            deadline = time.monotonic() + 60
+            while _get(port, "/readiness")[0] != 200:
+                if time.monotonic() > deadline:
+                    raise AssertionError("[operability] never ready")
+                time.sleep(0.05)
+            st, ready, _ = _get(port, "/readiness")
+            if set(ready) != {"status", "admission", "slo_burn"} or \
+                    ready["admission"]["queue_max"] != OPS_QUEUE_MAX:
+                raise AssertionError(f"[operability] readiness {ready}")
+            _reset_counts()
+            text0 = _get(port, "/metrics")[1]
+            n, got = 6, []
+            for wave in range(2):       # 3 at once: inside the bounds
+                threads = []
+                for i in range(3 * wave, 3 * wave + 3):
+                    body = {"prompt": f"operability request {i}",
+                            "max_tokens": OPS_TOKENS + i, "temperature": 0,
+                            "ignore_eos": True}
+                    th = threading.Thread(target=lambda b=body: got.append(
+                        _post_h(port, b, {})))
+                    th.start()
+                    threads.append(th)
+                for th in threads:
+                    th.join(600)
+            if sorted(g[0] for g in got) != [200] * n:
+                raise AssertionError(f"[operability] requests: {got}")
+            streamed = sum(g[1]["usage"]["completion_tokens"] for g in got)
+            text1 = _get(port, "/metrics")[1]
+            key_ok = 'request_success_total{reason="length"}'
+            succ = _metric_value(text1, key_ok) - _metric_value(text0, key_ok)
+            gen = (_metric_value(text1, "generation_tokens_total")
+                   - _metric_value(text0, "generation_tokens_total"))
+            log(f"[operability] /metrics after {n} requests: "
+                f"request_success_total +{succ:.0f}, "
+                f"generation_tokens_total +{gen:.0f} ({streamed} streamed, "
+                f"{n} of them first tokens)")
+            if succ != n or gen != streamed - n:
+                raise AssertionError("[operability] /metrics disagrees with "
+                                     "the served requests")
+            res["counts"] = _read_counts()
+
+            # The flood: 8 long streams hold every slot, then two tenants.
+            holds, held = [], []
+            for i in range(8):           # one at a time: inside the bounds
+                th = threading.Thread(target=lambda i=i: held.append(_post_h(
+                    port, {"prompt": f"hold slot {i}",
+                           "max_tokens": OPS_HOLD_TOKENS, "temperature": 0,
+                           "ignore_eos": True}, {})))
+                th.start()
+                holds.append(th)
+                deadline = time.monotonic() + 120
+                while engine.num_running < i + 1 or \
+                        not engine._queue.empty():
+                    if time.monotonic() > deadline:
+                        raise AssertionError("[operability] slots never "
+                                             "filled")
+                    time.sleep(0.005)
+            flood, queued = [], []
+
+            def queue_one(tenant):
+                th = threading.Thread(target=lambda: flood.append(_post_h(
+                    port, {"prompt": f"flood {tenant}", "max_tokens": 8,
+                           "temperature": 0, "ignore_eos": True},
+                    {"x-arks-tenant": tenant})))
+                th.start()
+                queued.append(th)
+                until = time.monotonic() + 30
+                while engine._queue.qsize() < len(queued):
+                    if time.monotonic() > until:
+                        raise AssertionError("[operability] not queued")
+                    time.sleep(0.005)
+
+            for _ in range(OPS_TENANT_MAX):
+                queue_one("tenant-a")
+            st_t, err_t, h_t = _post_h(port, {"prompt": "one more",
+                                              "max_tokens": 8},
+                                       {"x-arks-tenant": "tenant-a"})
+            for _ in range(OPS_QUEUE_MAX - OPS_TENANT_MAX):
+                queue_one("tenant-b")
+            st_g, err_g, h_g = _post_h(port, {"prompt": "one more",
+                                              "max_tokens": 8},
+                                       {"x-arks-tenant": "tenant-b"})
+            log(f"[operability] flood: tenant bound -> {st_t} "
+                f"{err_t['error']['code']} Retry-After "
+                f"{h_t.get('Retry-After')}; global bound -> {st_g} "
+                f"{err_g['error']['code']} Retry-After "
+                f"{h_g.get('Retry-After')}")
+            if not (st_t == 429 and err_t["error"]["code"] ==
+                    "tenant_queue_full" and int(h_t["Retry-After"]) >= 1
+                    and h_t.get("x-arks-tenant") == "tenant-a"
+                    and st_g == 503 and err_g["error"]["code"] ==
+                    "queue_full" and int(h_g["Retry-After"]) >= 1):
+                raise AssertionError("[operability] the flood's refusals")
+            for th in holds + queued:
+                th.join(900)
+            if sorted(f[0] for f in flood + held) != \
+                    [200] * (OPS_QUEUE_MAX + 8):
+                raise AssertionError(f"[operability] survivors: {flood}")
+
+            # Drain with streams in flight.
+            frames = [[] for _ in range(2)]
+
+            def stream(i):
+                frames[i] = _request(port, "/v1/completions", {
+                    "prompt": f"drain stream {i}",
+                    "max_tokens": OPS_DRAIN_TOKENS, "temperature": 0,
+                    "ignore_eos": True, "stream": True,
+                    "stream_options": {"include_usage": True}},
+                    stream=True)
+
+            streams = [threading.Thread(target=stream, args=(i,))
+                       for i in range(2)]
+            for th in streams:
+                th.start()
+            deadline = time.monotonic() + 120
+            while engine.num_running < 2:
+                if time.monotonic() > deadline:
+                    raise AssertionError("[operability] streams never ran")
+                time.sleep(0.005)
+            t_drain = time.perf_counter()
+            drainer = threading.Thread(target=server.drain, args=(120.0,))
+            drainer.start()
+            while not server.draining:
+                time.sleep(0.001)
+            st_r = _get(port, "/readiness")[0]
+            st_p, err_p, _ = _post_h(port, {"prompt": "late"}, {})
+            for th in streams:
+                th.join(300)
+            drainer.join(300)
+            drain_s = time.perf_counter() - t_drain
+            whole = [fr[0] == 200 and _stream_summary(fr[1])[1] == ["length"]
+                     and _stream_summary(fr[1])[2][0]["completion_tokens"]
+                     == OPS_DRAIN_TOKENS for fr in frames]
+            log(f"[operability] drain with 2 streams in flight: readiness "
+                f"{st_r}, new POST {st_p} ({err_p['error']['message']}), "
+                f"streams whole {whole}, server stopped after "
+                f"{drain_s:.2f} s")
+            if st_r != 503 or st_p != 503 or not all(whole):
+                raise AssertionError("[operability] the drain")
+            res["drain_s"] = drain_s
+    finally:
+        server.stop()
+        engine.stop()
+    log(f"[operability] every issue and admission ({guard.issues}: "
+        f"{dict(guard.calls)}) passed set_sync_debug_mode('error'); phase "
+        f"took {time.perf_counter() - t_phase:.1f} s")
+    del engine
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -3935,12 +4533,15 @@ def main() -> int:
         f"{serve8['ttft_300_s'] * 1e3:.1f} ms")
     worst = phase_parity(torch, dev, engine)
     log(f"[parity] worst |logit diff| per dtype and pool {worst}")
-    for kv in (None, "int8"):
-        phase_step_profile(torch, dev, engine, kv)
+    step_launches = [phase_step_profile(torch, dev, engine, kv)[2]
+                     for kv in (None, "int8")][0]
     for kv in ("bf16", "int8"):
         phase_decode_profile(torch, dev, engine, kv)
     phase_pipe_step_profile(torch, dev, engine)
-    del engine, params
+    del engine
+    torch.cuda.empty_cache()
+    ops = phase_operability(torch, dev, params, step_launches)
+    del params
     torch.cuda.empty_cache()
     upd_t, attn_t, dense_t = phase_times(torch, b)
     qupd_t, qattn_t = phase_quant_times(torch, b, qres)
@@ -3949,12 +4550,15 @@ def main() -> int:
     quant_err = qres["int8"][1]
     del b, lb, qres
     torch.cuda.empty_cache()
+    ckpt, ckpt_n = phase_checkpoint(torch, dev)
     gm, routes, moe_serve, moe_short = phase_moe(torch, dev)
     gm_row = gm[("528-row", "gate", "int8")]
     slot16, slot8 = legacy[("slot", "bf16")], legacy[("slot", "int8")]
     paged8, paged4 = legacy[("paged", "int8")], legacy[("paged", "int4")]
     pipe_n = collections.Counter(pipeline["launches"])
-    pipe_n.update(prefix["launches"])     # both served at the defaults
+    pipe_n.update(prefix["launches"])     # served at the defaults, as are
+    pipe_n.update(ops["counts"])          # the operability engine and the
+    pipe_n.update(ckpt_n)                 # checkpoint-loaded ones
     attn_launches = (serve["launches"]["paged_mixed_attention"]
                      + serve8["launches"]["paged_mixed_attention"]
                      + paged4["launches"]["paged_mixed_attention"]
@@ -4037,11 +4641,22 @@ def main() -> int:
         dict(name="grouped_matmul", route="cuda", source=GROUPED_SRC,
              replaces="arks_tpu/ops/moe_kernel.py:81",
              launches=(moe_serve["launches"]["grouped_matmul"]
-                       + moe_short["launches"]["grouped_matmul"]),
+                       + moe_short["launches"]["grouped_matmul"]
+                       + ckpt_n["grouped_matmul"]),
              **gm_row),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for (model, mode), r in ckpt.items():
+        log(f"[checkpoint table] {model} {mode}: load {r['seconds']:.2f} s, "
+            f"{r['gb_s']:.2f} GB/s, tree {r['tree_bytes']} B, peak device "
+            f"+{r['peak_dev']} B, peak host RSS +{r['peak_rss']} B")
+    log(f"[operability table] launches per steady step "
+        f"{ops['launches_per_step'][0]:.2f} with metrics, "
+        f"{ops['launches_per_step'][1]:.2f} inert; host ms per steady step "
+        f"{ops['host_ms_per_step'][0]:.3f} with metrics, "
+        f"{ops['host_ms_per_step'][1]:.3f} inert; drain "
+        f"{ops['drain_s']:.2f} s")
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}))

@@ -1,7 +1,9 @@
 """The port stands alone: importing every ``arks_tpu_torch`` module pulls in
-neither ``jax`` nor anything of ``arks_tpu``; no source file of the port (or
-``chip_smoke.py``) imports them; and entry points refuse to carry on on the
-CPU when no GPU is present and the caller did not ask for the CPU."""
+neither ``jax`` nor anything of ``arks_tpu``, nor ``safetensors`` (the
+port reads checkpoints with its own reader and needs no such package);
+no source file of the port (or ``chip_smoke.py``) imports them; and entry
+points refuse to carry on on the CPU when no GPU is present and the caller
+did not ask for the CPU."""
 
 import ast
 import dataclasses
@@ -32,8 +34,7 @@ names = [m.name for m in pkgutil.walk_packages(arks_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules
-             if k == "jax" or k.startswith("jax.") or k == "arks_tpu"
-             or k.startswith("arks_tpu."))
+             if k.split(".")[0] in ("jax", "arks_tpu", "safetensors"))
 print(len(names), bad, ",".join(names))
 """
 
@@ -48,7 +49,12 @@ def test_importing_every_module_loads_no_jax_and_no_arks_tpu():
     imported = set(out[2].split(","))
     assert {"arks_tpu_torch.models.moe", "arks_tpu_torch.models.quant",
             "arks_tpu_torch.ops.moe_kernel",
-            "arks_tpu_torch.engine.prefix_cache"} <= imported
+            "arks_tpu_torch.engine.prefix_cache",
+            "arks_tpu_torch.models.weights", "arks_tpu_torch.knobs",
+            "arks_tpu_torch.slo", "arks_tpu_torch.tenancy",
+            "arks_tpu_torch.engine.fairqueue",
+            "arks_tpu_torch.engine.metrics",
+            "arks_tpu_torch.utils.metrics"} <= imported
 
 
 def _imported_modules(path: Path):
@@ -66,7 +72,8 @@ def _imported_modules(path: Path):
 def test_no_source_imports_jax_or_the_jax_package(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "arks_tpu"), (path, mod)
+        assert top not in ("jax", "jaxlib", "arks_tpu", "safetensors"), \
+            (path, mod)
 
 
 def test_engine_without_cuda_raises_unless_cpu_requested(monkeypatch):
