@@ -66,9 +66,32 @@ already spent its tier's TTFT budget).  ``metrics`` holds the reference's
 metric families (``engine/metrics.py``), updated from host-side values
 only.
 
+A step that raises does not fail everyone in flight: the reference's fault
+isolation (``engine/faults.py``, ``_recover_from_fault``).  Every scheduler
+phase runs inside a phase scope (``_scoped``) that tags a fault with its
+phase and the requests it was doing work for (the culprits).  Recovery
+charges the culprits' retry budgets (``ARKS_FAULT_RETRIES``, default 1),
+quarantines those over budget (they alone end with an ``engine_fault``
+error), zeroes the pool and resets the host mirrors in place, and re-queues
+everyone else: a request that had emitted tokens replays from its prompt
+with its pinned seed behind a ``_ReplayGate`` that drops what the client
+already has and checks every regenerated token (a mismatch fails the
+request with ``replay_diverged``, never splices a divergent tail).  Replays
+take the shapes the original prefill had (``_ReplayShape``): a classic
+mixed step runs its flat batch at ``num_slots`` + the chunk budget tokens
+when it carries prefill chunks (the reference's fixed shape) and at
+``num_slots`` when it decodes only (the pipe step's), a replayed prompt is
+cut into the original's chunks, and a replayed one-shot admission is
+padded to its original batch size.  A CUDA error that poisons the context (``faults.is_sticky``)
+cannot be recovered in-process: the engine fails every request, flips to
+``wedged`` and exits 70, as the dispatch watchdog does
+(``ARKS_DISPATCH_DEADLINE_S``).  The tracer (``obs/trace.py``,
+``ARKS_TRACE``, default on) records the reference's lifecycle events into
+per-thread rings; ``profiler`` opens ``torch.profiler`` windows.
+
 What the reference does and this port does not — the disk prefix tier,
 peer prefix fetch, the cache sketch, preemptive swap, speculative decoding,
-fault recovery, parallelism — is rejected (``EngineConfig.validate``, and
+parallelism — is rejected (``EngineConfig.validate``, and
 ``check_unserved_knobs`` for the environment) rather than silently
 ignored.
 """
@@ -77,7 +100,9 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import logging
+import os
 import queue
 import threading
 import time
@@ -90,7 +115,9 @@ from arks_tpu_torch import knobs, tenancy
 from arks_tpu_torch import slo as slo_mod
 from arks_tpu_torch.device import resolve_device
 from arks_tpu_torch.engine import fairqueue, prng
+from arks_tpu_torch.engine import faults as faults_mod
 from arks_tpu_torch.engine import sampler as sampler_mod
+from arks_tpu_torch.engine.faults import StepFault
 from arks_tpu_torch.engine.guides import Guide, GuideCompiler, GuideError
 from arks_tpu_torch.engine.metrics import EngineMetrics
 from arks_tpu_torch.engine.paged import (PageAllocator, chain_digests,
@@ -102,9 +129,13 @@ from arks_tpu_torch.models import moe
 from arks_tpu_torch.models import quant
 from arks_tpu_torch.models import transformer as tf
 from arks_tpu_torch.models.config import ModelConfig
+from arks_tpu_torch.obs import logctx
+from arks_tpu_torch.obs.profiler import ProfilerWindows
+from arks_tpu_torch.obs.trace import Tracer
 from arks_tpu_torch.ops.paged_attention import mixed_grid_mode, mixed_grid_plan
 
 log = logging.getLogger("arks_tpu_torch.engine")
+logctx.install(log)
 
 
 class ContextLengthExceededError(ValueError):
@@ -294,6 +325,8 @@ class _Slot:
     # retires the slot (max_tokens, or the cache cap).
     stop_col: np.ndarray | None = None
     dead_len: int = 0
+    # How its prompt was prefilled, for a replay to repeat (_ReplayShape).
+    shape: "_ReplayShape | None" = None
 
 
 @dataclasses.dataclass
@@ -307,6 +340,12 @@ class _ChunkState:
     # Paged pool: the prompt's chained page digests when its admission
     # computed them (a prefix hit), registered at promote.
     digests: list | None = None
+    # The position the chunked prefill started at (a prefix's length), the
+    # chunk sizes taken so far, and a replay's planned sizes still to take
+    # (its original prefill's, ``_ReplayShape``).
+    start: int = 0
+    takes: list = dataclasses.field(default_factory=list)
+    plan: list = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -322,6 +361,156 @@ class _RestoreState:
     pages: list[int]     # fresh pages the scatter writes
     done: object         # a CUDA event after the last scatter, or None
     t0: float
+
+
+@dataclasses.dataclass(frozen=True)
+class _ReplayShape:
+    """How a request's prompt was prefilled: the one-shot admission
+    batch's size (``admit_m``; 0 = the chunked path), or the position its
+    chunked prefill started at and the chunk sizes it took.  A replay
+    repeats it — its one-shot batch padded back to ``admit_m`` rows, its
+    chunks cut where the original's were — because on the card a row's
+    bits depend on the batch's size and on where its prompt was cut into
+    chunks (the attention's output at a position differs with the step
+    its prefix was written in), though not on what else the step carries
+    or on where the row sits."""
+
+    admit_m: int = 0
+    chunk_start: int = 0
+    takes: tuple = ()
+
+
+@dataclasses.dataclass
+class _Survivor:
+    """An in-flight request's replayable state, snapshotted at a step
+    fault (``_recover_from_fault``).  ``generated`` empty = the request had
+    emitted nothing (queued, prefilling or a deferred admission) and simply
+    re-queues; non-empty = token-replay resume (deterministic re-execution
+    behind a ``_ReplayGate``)."""
+
+    request: Request
+    seed: int
+    num_prompt: int
+    generated: list = dataclasses.field(default_factory=list)
+    num_emitted: int = 0
+    # How the original prefill ran (a replay repeats it), if known.
+    shape: _ReplayShape | None = None
+
+
+class _ReplayGate:
+    """Token-replay resume by DETERMINISTIC RE-EXECUTION (fault recovery).
+
+    A surviving stream is re-admitted through its original path with its
+    pinned seed, its prefill in the original's shapes, so every
+    regenerated token is expected to equal the recorded stream.  (The
+    alternative, re-prefilling the generated tokens and restoring sampler
+    state, recomputes KV rows with different shapes than the original
+    decode wrote them — the last-bit drift can flip a sampled token
+    several steps after resume, which is exactly the silent corruption
+    replay must never produce.)
+
+    The gate wraps the request's output queue for the re-run:
+
+    - **suppression**: regenerated tokens the client already received
+      (the first ``client_total``) are dropped, so the resumed stream has
+      no duplicates;
+    - **verification**: every regenerated token that was generated before
+      the fault (``expect``, the tokens the client holds or was about to
+      get) is checked against the recorded stream; a mismatch fails THIS
+      request with an engine_fault error instead of splicing a divergent
+      tail onto the client's stream.  Byte identity is enforced for that
+      prefix only: a token after it is new and nothing checks it.  It
+      equals the fault-free run's token when the replay's steps have the
+      original steps' shapes (``_ReplayShape``); on the card a decode
+      token from the pipe step (B rows) and one from the classic mixed
+      step (num_slots + chunk budget rows) differ in their last bits, so
+      a replay that decodes in other step forms than its original may
+      drift after the checked prefix;
+    - **re-entrancy**: a second fault during the re-run just restarts the
+      cursor (``restart``); ``client_total`` survives, so suppression
+      stays exact across nested recoveries.
+
+    put() runs on the engine thread; get() is the server side's
+    pass-through to the original queue.
+    """
+
+    def __init__(self, inner, engine, request_id: str, expect: list,
+                 client_total: int):
+        self._inner = inner
+        self._engine = engine
+        self._rid = request_id
+        self.expect = [int(t) for t in expect]
+        self.pos = 0              # regenerated tokens seen this run
+        self.client_total = client_total  # tokens the client has received
+        self.failed = False
+
+    def restart(self, expect: list | None = None) -> None:
+        self.pos = 0
+        if expect and len(expect) > len(self.expect):
+            self.expect = [int(t) for t in expect]
+
+    def get(self, *args, **kwargs):
+        return self._inner.get(*args, **kwargs)
+
+    def get_nowait(self):
+        return self._inner.get_nowait()
+
+    def put(self, out: RequestOutput) -> None:
+        if self.failed:
+            # The client already saw the divergence error; drop the rest
+            # of the doomed re-run (its abort tail included).
+            return
+        toks = list(out.token_ids)
+        start = self.pos
+        n_check = min(len(toks), len(self.expect) - start)
+        if toks[:n_check] != self.expect[start:start + n_check]:
+            self.failed = True
+            self._engine.abort(self._rid)
+            self._inner.put(RequestOutput(
+                request_id=self._rid, token_ids=[], finished=True,
+                finish_reason="error",
+                error="engine_fault: replay_diverged",
+                num_prompt_tokens=out.num_prompt_tokens))
+            log.error("replay of %s diverged from the recorded stream at "
+                      "token %d; failing the request", self._rid,
+                      start + 1)
+            return
+        self.pos += len(toks)
+        skip = max(0, min(self.client_total - start, len(toks)))
+        fwd = toks[skip:]
+        lps = out.logprobs[skip:] if out.logprobs else None
+        if not fwd and not out.finished:
+            return  # entirely inside the already-delivered prefix
+        self.client_total = max(self.client_total, self.pos)
+        self._inner.put(dataclasses.replace(
+            out, token_ids=fwd, logprobs=lps, ttft_s=None))
+
+
+def _scoped(phase: str):
+    """Fault-context decorator for scheduler phases: any exception leaving
+    the wrapped method is re-raised as a StepFault tagged with the phase
+    and the culprit request ids (blast-radius attribution — the recovery
+    loop's quarantine input).  Inner StepFaults (narrower attribution from
+    a per-request handler) pass through untouched.  It also moves the
+    watchdog's heartbeat to the phase and records the phase's span."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, *args, **kwargs):
+            hb = self._step_hb
+            if hb is not None:
+                self._step_hb = (phase, hb[1])
+            self.trace.evt("", "phase." + phase, "B")
+            try:
+                return fn(self, *args, **kwargs)
+            except StepFault:
+                raise
+            except Exception as e:
+                raise StepFault(phase, faults_mod.classify(e),
+                                culprits=self._phase_culprits(phase)) from e
+            finally:
+                self.trace.evt("", "phase." + phase, "E")
+        return wrapper
+    return deco
 
 
 def _penalized(p) -> bool:
@@ -416,6 +605,14 @@ class _PinnedCopy:
             for b in self.bufs:
                 self.pool[(tuple(b.shape), b.dtype)].append(b)
             self.bufs = []
+
+    def drop(self) -> None:
+        """Fault path: wait for the copies that may still be running into
+        the pinned buffers, then give them back unread (a buffer must not
+        be reused while a device copy may still write it)."""
+        if self.event is not None:
+            self.event.synchronize()
+        self.release()
 
 
 class _HostCopy(_PinnedCopy):
@@ -579,14 +776,12 @@ class InferenceEngine:
                 cfg, num_pages, c, cache_dtype, self.device,
                 quantized=quantized,
                 kv_bits=4 if kv == "int4" else 8)
-            self._alloc = PageAllocator(num_pages, c)
         else:
             self._max_pages = 0
             self._page_bytes = 0
             self.cache = tf.init_cache(cfg, n, engine_cfg.max_cache_len,
                                        cache_dtype, self.device,
                                        quantized=quantized)
-            self._alloc = None
         # Prefix reuse beyond the device index: the host tier behind a
         # paged pool (spilled pages, restored at admission), or the slot
         # cache's host prefix cache.  Spills and restores move whole pages
@@ -598,14 +793,7 @@ class InferenceEngine:
         self._spill_victims: list = []
         if self._paged and host_mb:
             self._host = HostPrefixTier(c, host_mb * 2**20)
-            # The allocator's on_evict (the reference's ``_note_evicted``):
-            # queue the page, as it runs mid-allocation; ``_spill_flush``
-            # copies it before any dispatch can write it.  A closure over
-            # the list, not a bound method: engine -> allocator -> engine
-            # would be a cycle that keeps the pool alive past ``del``.
-            victims = self._spill_victims
-            self._alloc.on_evict = lambda digest, page: victims.append(
-                (digest, page))
+        self._alloc = self._new_allocator(num_pages) if self._paged else None
         self._prefix = None
         if not self._paged and engine_cfg.prefix_cache_mb:
             self._prefix = PrefixKVCache(c, engine_cfg.prefix_cache_mb * 2**20)
@@ -620,7 +808,8 @@ class InferenceEngine:
             self._mixed_budget = min(budget, engine_cfg.max_cache_len)
             # The reference runs every mixed step at its padded flat batch
             # (num_slots + budget tokens), so its MoE dispatch is fixed per
-            # engine; the port trims the batch but keeps that decision.
+            # engine; the port's classic step runs that batch when it
+            # carries chunks, and its pipe step keeps the decision.
             self._moe_grouped = moe.use_grouped(n + self._mixed_budget)
         self._buckets = engine_cfg.resolve_buckets()
         self._admit_sizes = admit_batch_sizes()
@@ -669,6 +858,31 @@ class InferenceEngine:
                                       + list(tokenizer.eos_token_ids)))
         self.metrics = EngineMetrics()
         m = self.metrics
+        # Fault isolation and token replay (engine/faults.py): the chaos
+        # hook, the per-request retry budget and fault counts, the
+        # replaying requests (re-queued, not yet decoding again), how each
+        # replayer's original prefill ran, the pinned copies a recovery
+        # drops, and the state /readiness reads.  The step
+        # heartbeat (phase, t0) feeds the watchdog; ``_exit_fn`` is the
+        # escalation's exit (injectable for tests).
+        self._faults = faults_mod.FaultInjector()
+        self._fault_retries = knobs.get_int("ARKS_FAULT_RETRIES", minimum=0)
+        self._fault_counts: dict[str, int] = {}
+        self._consec_faults = 0
+        self._replaying: set[str] = set()
+        self._replay_shape: dict[str, _ReplayShape] = {}
+        self._dropped_copies: list[_PinnedCopy] = []
+        self._recover_t0 = 0.0
+        self._state = "serving"
+        m.engine_state.set(faults_mod.STATE_SERVING)
+        self._step_hb: tuple[str, float] | None = None
+        self._watchdog: faults_mod.Watchdog | None = None
+        self._exit_fn = os._exit
+        # Request tracing (its collector thread starts in ``start``) and
+        # the profiler windows.
+        self.trace = Tracer()
+        self.profiler = ProfilerWindows()
+        self._pipe_seq = 0
         self.guides = GuideCompiler(
             tokenizer, cfg.vocab_size, eos_all,
             metrics=SimpleNamespace(
@@ -708,6 +922,9 @@ class InferenceEngine:
         self.warm = False
         self._abort_lock = threading.Lock()
         self._aborted: set[str] = set()
+        # Request ids waiting in the admission queue (under _abort_lock):
+        # with the in-flight structures, the replay-liveness universe.
+        self._queued_rids: set[str] = set()
         self._running = False
         self._thread: threading.Thread | None = None
         # Mixed dispatches issued (each runs every layer's two kernels once),
@@ -753,6 +970,20 @@ class InferenceEngine:
             "data_parallel": "1",
         }
         self.metrics.engine_config_info.set(1, **self.resolved_config)
+
+    def _new_allocator(self, num_pages: int) -> PageAllocator:
+        """An empty page allocator over the pool.  With the host tier, its
+        on_evict (the reference's ``_note_evicted``) queues the evicted
+        page, as it runs mid-allocation; ``_spill_flush`` copies it before
+        any dispatch can write it.  A closure over the list, not a bound
+        method: engine -> allocator -> engine would be a cycle that keeps
+        the pool alive past ``del``."""
+        alloc = PageAllocator(num_pages, self._page)
+        if self._host is not None:
+            victims = self._spill_victims
+            alloc.on_evict = lambda digest, page: victims.append(
+                (digest, page))
+        return alloc
 
     # ------------------------------------------------------------------
     # Request API
@@ -833,7 +1064,20 @@ class InferenceEngine:
                 self.guides.validate(*p.guide)
             self.guides.ensure(*p.guide)
             self.metrics.guided_requests_total.inc(1, kind=p.guide[0])
+        if self.trace.enabled:
+            # Register the trace context (caller's thread: locking is fine
+            # here) and open the queue span.
+            self.trace.register(
+                request.request_id, ctx=request.trace,
+                tier=self._slo.tier_of(p.priority) if self._slo else None)
+            self.trace.evt(request.request_id, "queue", "B")
+            with logctx.bound(request.request_id,
+                              request.trace.trace_id
+                              if request.trace is not None else None):
+                log.debug("request queued: %d prompt tokens, priority %d",
+                          len(request.prompt_ids), p.priority)
         with self._abort_lock:
+            self._queued_rids.add(request.request_id)
             self._queue_seq += 1
             seq = self._queue_seq
         try:
@@ -841,6 +1085,8 @@ class InferenceEngine:
             # caller's thread, with a drain-rate Retry-After.
             self._queue.put((p.priority, seq, request), bounded=True)
         except fairqueue.QueueFullError as e:
+            with self._abort_lock:
+                self._queued_rids.discard(request.request_id)
             self.metrics.requests_shed_total.inc(
                 1, reason="queue_full" if e.scope == "queue" else
                 "tenant_cap", tier=self._slo.tier_of(p.priority),
@@ -890,6 +1136,10 @@ class InferenceEngine:
         waited longer than the factor times its tier's ttft_ms budget."""
         if not self._shed_deadline_factor or not self._slo:
             return False
+        if isinstance(req.outputs, _ReplayGate):
+            # A replayer was decoding before its fault: shedding it would
+            # break the stream its client already holds.
+            return False
         tier = self._slo.get(self._slo.tier_of(req.params.priority))
         if tier is None or not tier.ttft_ms:
             return False
@@ -925,16 +1175,62 @@ class InferenceEngine:
 
     def start(self) -> None:
         self._running = True
+        self.trace.start()
+        deadline = knobs.get_float("ARKS_DISPATCH_DEADLINE_S", minimum=0)
+        if deadline > 0:
+            # Wedged-dispatch escalation: a device call that never returns
+            # cannot be cancelled from Python — flip the state (readiness
+            # answers 503), dump diagnostics, exit 70 so the supervisor
+            # restarts the process.  The deadline must exceed the slowest
+            # step, the kernels' first-launch builds included.
+            self._watchdog = faults_mod.Watchdog(
+                deadline, lambda: self._step_hb, self._on_wedged,
+                exit_fn=lambda code: self._exit_fn(code))
+            self._watchdog.start()
         self._thread = threading.Thread(target=self._run, name="engine",
                                          daemon=True)
         self._thread.start()
 
     def stop(self) -> None:
         self._running = False
+        self.trace.stop()
+        if self._watchdog is not None:
+            self._watchdog.stop()
         if self._thread is not None:
             self._thread.join(timeout=120.0)
             if self._thread.is_alive():
                 log.warning("engine thread did not exit within 120s")
+
+    def _on_wedged(self, phase: str, age_s: float) -> None:
+        """Watchdog callback: record the wedged state (readiness reads it)
+        and log the in-flight picture an operator needs post-mortem."""
+        self._set_state("wedged")
+        log.critical(
+            "wedged dispatch diagnostics: phase=%s age=%.1fs slots=%s "
+            "prefilling=%s pending_admits=%d pipe_inflight=%d queue=%d",
+            phase, age_s,
+            {s: st.request.request_id for s, st in self._slots.items()},
+            {s: cs.request.request_id for s, cs in self._prefilling.items()},
+            self._pending_n, len(self._pipe_inflight), self._queue.qsize())
+        self._log_flight_tail(log.critical, self.trace.tail())
+
+    @staticmethod
+    def _log_flight_tail(emit, tail: list) -> None:
+        """The flight recorder's last events on one log line: the dump
+        ships its own timeline."""
+        if tail:
+            emit("flight recorder (last %d events): %s", len(tail),
+                 "; ".join(f"{e['t']:.3f} {e['rid'] or '<engine>'} "
+                           f"{e['name']}/{e['ph']}" for e in tail))
+
+    def _set_state(self, state: str) -> None:
+        self._state = state
+        self.metrics.engine_state.set(faults_mod.STATE_CODES[state])
+
+    @property
+    def state(self) -> str:
+        """"serving" | "recovering" | "wedged" — the /readiness gate."""
+        return self._state
 
     @property
     def num_running(self) -> int:
@@ -957,43 +1253,403 @@ class InferenceEngine:
 
     def _run(self) -> None:
         try:
-            while self._running:
-                try:
-                    self.step()
-                    self.warm = True
-                except Exception as e:  # the loop must outlive one bad step
-                    log.exception("engine step failed")
-                    self._fail_all(f"engine_fault: {type(e).__name__}: {e}")
+            self._run_loop()
         finally:
             # No scheduler remains to unpark or register them.
             self._abort_awaiting_guide()
             self._abort_pending_admits()
             self._abort_awaiting_restores()
 
-    def _fail_all(self, error: str) -> None:
-        """After a failed step: drop the in-flight pipelined dispatches,
-        end every in-flight request with an error and return its slot (the
-        reference's fault recovery and replay are a later slice)."""
-        self._pipe_reset()
-        self._abort_pending_admits()
-        self._abort_awaiting_restores(error)
+    def _run_loop(self) -> None:
+        prof = self.profiler
+        # Profiler windows open and close on this thread (obs/profiler.py).
+        prof.bind(threading.current_thread())
+        try:
+            self._loop_steps(prof)
+        finally:
+            if prof.active:
+                prof.stop()
+            prof.bind(None)
+
+    def _loop_steps(self, prof: ProfilerWindows) -> None:
+        while self._running:
+            prof.pump()
+            t0 = time.monotonic()
+            self._step_hb = ("step", t0)
+            try:
+                if prof.active:
+                    # Stamp the live span ids into the profile's timeline,
+                    # so it correlates back to the trace store.
+                    with prof.annotate("arks_step", self.trace.live_ids()):
+                        self.step()
+                else:
+                    self.step()
+                self.warm = True
+                self._consec_faults = 0
+            except Exception as e:
+                # Fault-isolated recovery: quarantine the culprit
+                # request(s), rebuild the device state in place, and
+                # token-replay every other in-flight request so that its
+                # stream resumes byte-identically.
+                self._recover_from_fault(e)
+            finally:
+                self._step_hb = None
+            # Auto-arm hook: a step whose wall time jumps past
+            # ARKS_PROF_AUTO_ARM x the trailing median opens a profiler
+            # window by itself (closed after ARKS_PROF_WINDOW_S).
+            prof.on_step(time.monotonic() - t0)
+
+    # ------------------------------------------------------------------
+    # Fault-isolated recovery
+    # ------------------------------------------------------------------
+
+    def _recover_from_fault(self, exc: Exception) -> bool:
+        """Top-level fault handler: attempt quarantine + token-replay
+        recovery, escalating to the blanket abort-everything path only
+        when recovery itself keeps faulting (crash-loop guard).  A CUDA
+        error that poisons the context goes to ``_wedge``."""
+        if faults_mod.is_sticky(exc):
+            self._wedge(exc)
+            return True
+        self._set_state("recovering")
+        self._recover_t0 = time.monotonic()
+        attempts = max(self._fault_retries + 2, 3)
+        for _ in range(attempts):
+            try:
+                self._do_recovery(exc)
+                return True
+            except Exception as e:  # routed back into _do_recovery
+                if faults_mod.is_sticky(e):
+                    self._wedge(e)
+                    return True
+                exc = e
+        log.error("recovery kept faulting after %d attempts; falling back "
+                  "to abort-everything", attempts)
+        self._blanket_abort(exc)
+        return True
+
+    def _wedge(self, exc: BaseException) -> None:
+        """A sticky CUDA error (an illegal address, a device-side assert,
+        an unspecified launch failure): every later CUDA call fails too, so
+        the device state cannot be rebuilt in this process and recovery
+        would fault forever.  Fail every request in flight or queued with
+        an error, flip to "wedged" (readiness answers 503), log the flight
+        recorder, and exit 70 so the supervisor restarts the process — the
+        escalation of the dispatch watchdog."""
+        self._set_state("wedged")
+        log.critical("sticky device error: the CUDA context is unusable; "
+                     "failing every request and exiting 70", exc_info=exc)
+        self._log_flight_tail(log.critical, self.trace.tail())
+        err = "engine_fault: device/wedged"
+        failed = [(st.request, st.num_prompt, len(st.generated))
+                  for st in self._slots.values()]
+        failed += [(cs.request, len(cs.ids), 0)
+                   for cs in self._prefilling.values()]
+        failed += [(req, len(ids), 0) for rec in self._pending_admits
+                   for req, ids, _ in rec[0]]
+        failed += [(rec.request, len(rec.ids), 0)
+                   for rec in self._awaiting_restore]
+        failed += [(req, len(req.prompt_ids), 0)
+                   for req, _ in self._awaiting_guide]
+        while True:
+            try:
+                _, _, req = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            failed.append((req, len(req.prompt_ids), 0))
+        self._slots.clear()
+        self._prefilling.clear()
+        self._pending_admits.clear()
+        self._pending_n = 0
+        self._awaiting_restore = []
+        self._awaiting_guide = []
+        for req, n_prompt, n_gen in failed:
+            req.outputs.put(RequestOutput(
+                request_id=req.request_id, token_ids=[], finished=True,
+                finish_reason="error", error=err,
+                num_prompt_tokens=n_prompt, num_generated_tokens=n_gen))
+            self.metrics.request_success_total.inc(reason="error")
+        self._update_waiting()
+        self._running = False
+        # A moment for the server's threads to answer the failed requests.
+        time.sleep(0.5)
+        self._exit_fn(70)
+
+    def _do_recovery(self, exc: Exception) -> None:
+        """One recovery round: attribute, quarantine culprits over budget,
+        snapshot every other in-flight request, re-queue the survivors
+        (token replay for streams that already emitted, plain re-queue for
+        the rest), and rebuild the device state in place."""
+        if isinstance(exc, StepFault):
+            phase, kind = exc.phase, exc.kind
+            culprits = set(exc.culprits)
+            survivors: list[_Survivor] = list(exc.survivors)
+            cause = exc.__cause__ or exc
+        else:
+            phase, kind = "step", faults_mod.classify(exc)
+            culprits, survivors = set(), []
+            cause = exc
+        self._consec_faults += 1
+        self.metrics.engine_faults_total.inc(1, phase=phase, kind=kind)
+        log.error("engine fault in phase %r (kind=%s, culprits=%s, "
+                  "consecutive=%d); recovering",
+                  phase, kind, sorted(culprits) or "-", self._consec_faults,
+                  exc_info=cause)
+        # Flight recorder: snapshot the ring tail ONCE and pin it onto
+        # every culprit's eventual trace (recovery is a slow path).
+        self.trace.evt("", "recover", "B", f"{phase}/{kind}")
+        flight_tail = self.trace.tail()
+        self._log_flight_tail(log.error, flight_tail)
+        for rid in culprits:
+            self._fault_counts[rid] = self._fault_counts.get(rid, 0) + 1
+            self.trace.evt(rid, "fault", "I", f"{phase}/{kind}")
+            self.trace.attach_tail(rid, flight_tail)
+        if self._consec_faults > max(self._fault_retries + 1, 2):
+            # Unattributed (or mis-attributed) fault storm: per-request
+            # budgets cannot bound it — stop the crash loop.  The survivors
+            # this round could not take in ride the fault on, to the
+            # blanket abort that ends them.
+            raise StepFault(
+                "step", "runtime", survivors=survivors,
+                message=f"{self._consec_faults} consecutive step faults"
+            ) from cause
+
+        # ---- snapshot every in-flight request --------------------------
+        for st in self._slots.values():
+            survivors.append(_Survivor(
+                request=st.request, seed=self._resolve_seed(st.request),
+                num_prompt=st.num_prompt, generated=list(st.generated),
+                num_emitted=st.num_emitted, shape=st.shape))
+        for cs in self._prefilling.values():
+            # Mid-prefill sequences re-run from the top (nothing emitted);
+            # a replaying one keeps its gate, restarted at re-admission.
+            survivors.append(self._survivor_of(cs.request, len(cs.ids)))
+        for rec in self._pending_admits:
+            for req, ids, _ in rec[0]:
+                survivors.append(self._survivor_of(req, len(ids)))
+            self._dropped_copies.append(rec[2])
+        for rst in self._awaiting_restore:
+            # Restore-parked requests emitted nothing: plain re-queue.  The
+            # host tier survives the reset, so the re-run's admission hits
+            # it again instead of re-prefilling.
+            survivors.append(_Survivor(
+                request=rst.request, seed=self._resolve_seed(rst.request),
+                num_prompt=len(rst.ids)))
+        self._awaiting_restore = []
+        self._slots.clear()
+        self._prefilling.clear()
+        self._pending_admits.clear()
+        self._pending_n = 0
+        self.metrics.num_requests_running.set(0)
+
+        # ---- quarantine / abort / keep ---------------------------------
+        with self._abort_lock:
+            aborted = set(self._aborted)
+        keep: list[_Survivor] = []
+        seen: set[str] = set()
+        err = f"engine_fault: {phase}/{kind}"
+        for sv in survivors:
+            rid = sv.request.request_id
+            if rid in seen:
+                continue
+            seen.add(rid)
+            if rid in aborted:
+                # Abort raced the fault: honor it instead of replaying.
+                with self._abort_lock:
+                    self._aborted.discard(rid)
+                self._fail_survivor(sv, "abort", None)
+                continue
+            if self._fault_counts.get(rid, 0) > self._fault_retries:
+                # The culprit fails ALONE: finish_reason="error" maps to
+                # an OpenAI-style 500 at the HTTP layer.
+                self.metrics.requests_quarantined_total.inc(1)
+                with logctx.bound(rid):
+                    log.warning("quarantining %s after %d faults (%s)", rid,
+                                self._fault_counts[rid], err)
+                self.trace.attach_tail(rid, flight_tail)
+                self.trace.evt(rid, "quarantined", "I", err)
+                self._fail_survivor(sv, "error", err)
+                continue
+            keep.append(sv)
+
+        # ---- re-admit survivors ----------------------------------------
+        # BEFORE the device reset: if the rebuild itself faults, the
+        # survivors ride the queue into the next recovery round instead of
+        # vanishing with this frame's locals.  Nothing admits until
+        # recovery returns, so ordering is otherwise free.
+        replay_n = 0
+        for sv in keep:
+            req = sv.request
+            rid = req.request_id
+            gate = (req.outputs
+                    if isinstance(req.outputs, _ReplayGate) else None)
+            if sv.generated or gate is not None:
+                # Token-replay resume by deterministic re-execution: wrap
+                # (or restart) the emission gate, then re-run the request
+                # from its prompt with its pinned seed; the gate drops the
+                # already-delivered prefix and checks every regenerated
+                # token.  Replayers jump the admission queue (the fair
+                # queue's urgent lane): they were decoding before the
+                # fault.
+                if gate is None:
+                    req.outputs = _ReplayGate(req.outputs, self, rid,
+                                              sv.generated, sv.num_emitted)
+                else:
+                    gate.restart(sv.generated)
+                self._replaying.add(rid)
+                if sv.shape is not None:
+                    self._replay_shape[rid] = sv.shape
+                self.trace.evt(rid, "replay", "I", len(sv.generated))
+                prio = req.params.priority - (1 << 20)
+                replay_n += 1
+            else:
+                # Nothing emitted yet: plain re-queue (the pinned seed
+                # makes the re-run byte-identical to a fault-free
+                # admission).
+                prio = req.params.priority
+                self.metrics.requests_recovered_total.inc(1)
+            with self._abort_lock:
+                self._queued_rids.add(rid)
+                self._queue_seq += 1
+                seq = self._queue_seq
+            self._queue.put((prio, seq, req))
+        self._update_waiting()
+
+        # ---- rebuild the device state in place -------------------------
+        self._reset_device_state()
+        self.trace.evt("", "recover", "E")
+        # Assemble NOW so quarantined timelines are retained even if the
+        # process dies before the collector's next pass.
+        self.trace.flush()
+        if not replay_n:
+            self._finish_recovery()
+
+    def _phase_culprits(self, phase: str):
+        """Blast-radius attribution for a phase-scoped fault: the requests
+        the failing operation was doing work for.  Guide-table uploads
+        serve no specific request — nobody's retry budget burns for one."""
+        if phase == "guide":
+            return ()
+        rids = [st.request.request_id for st in self._slots.values()]
+        if phase == "mixed":
+            rids += [cs.request.request_id
+                     for cs in self._prefilling.values()]
+        return rids
+
+    def _live_rids(self) -> set:
+        """Request ids somewhere in the engine's in-flight structures
+        (everything except the admission queue) — the abort-purge and
+        replay-liveness universe."""
+        live = {st.request.request_id for st in self._slots.values()}
+        live |= {cs.request.request_id for cs in self._prefilling.values()}
+        live |= {req.request_id for rec in self._pending_admits
+                 for req, _, _ in rec[0]}
+        live |= {req.request_id for req, _ in self._awaiting_guide}
+        live |= {rec.request.request_id for rec in self._awaiting_restore}
+        return live
+
+    def _fail_survivor(self, sv: _Survivor, reason: str,
+                       error: str | None) -> None:
+        rid = sv.request.request_id
+        self._unpin_guide(sv.request)
+        self._fault_counts.pop(rid, None)
+        self._replaying.discard(rid)
+        self._replay_shape.pop(rid, None)
+        sv.request.outputs.put(RequestOutput(
+            request_id=rid, token_ids=[], finished=True,
+            finish_reason=reason, error=error,
+            num_prompt_tokens=sv.num_prompt,
+            num_generated_tokens=len(sv.generated)))
+        if reason == "error":
+            self.metrics.request_success_total.inc(reason="error")
+
+    def _finish_recovery(self) -> None:
+        dt = time.monotonic() - self._recover_t0
+        self.metrics.engine_recovery_seconds.observe(dt)
+        self._set_state("serving")
+        log.info("recovery complete in %.3fs", dt)
+
+    def _maybe_finish_recovery(self) -> None:
+        """Close the recovery window once the last replaying request has
+        re-registered into a decoding slot (or died on the way):
+        engine_recovery_seconds measures fault -> every surviving stream
+        decoding again."""
+        if self._state != "recovering":
+            return
+        if self._replaying:
+            # Drop replayers that went terminal without re-registering
+            # (an abort or per-request rejection raced the re-run).
+            live = self._live_rids()
+            with self._abort_lock:
+                live |= self._queued_rids
+            self._replaying &= live
+            for rid in set(self._replay_shape) - self._replaying:
+                del self._replay_shape[rid]
+            if self._replaying:
+                return
+        self._finish_recovery()
+
+    def _blanket_abort(self, exc: Exception) -> None:
+        """Last-resort path (recovery crash loop): fail EVERY in-flight
+        request and rebuild — the behavior before recovery existed, kept
+        as the backstop so an unattributable fault storm cannot spin
+        forever."""
+        log.error("engine step failed; aborting in-flight requests",
+                  exc_info=exc)
+        seen = set()
+        for sv in getattr(exc, "survivors", ()):
+            # Requests that lived only in the failing frames' locals.
+            if sv.request.request_id not in seen:
+                seen.add(sv.request.request_id)
+                self._fail_survivor(sv, "abort", None)
         for slot in list(self._slots):
-            st = self._slots.pop(slot)
-            self._release_slot(slot, st.request)
-            st.request.outputs.put(RequestOutput(
-                request_id=st.request.request_id, token_ids=[],
-                finished=True, finish_reason="error", error=error,
-                num_prompt_tokens=st.num_prompt))
-            self.metrics.request_success_total.inc(reason="error")
+            self._finish(slot, "abort")
         for slot in list(self._prefilling):
-            cs = self._prefilling.pop(slot)
-            self._release_slot(slot, cs.request)
-            cs.request.outputs.put(RequestOutput(
-                request_id=cs.request.request_id, token_ids=[],
-                finished=True, finish_reason="error", error=error,
-                num_prompt_tokens=len(cs.ids)))
-            self.metrics.request_success_total.inc(reason="error")
-        self.metrics.num_requests_running.set(len(self._slots))
+            self._abort_prefill(slot)
+        self._abort_pending_admits()
+        self._abort_awaiting_restores()
+        # Deep clean: cached prefix KV may itself be the poison.
+        if self._prefix is not None:
+            self._prefix.clear()
+            self.metrics.prefix_cache_usage_bytes.set(0, tier="host")
+        if self._host is not None:
+            self._host.clear()
+            self.metrics.prefix_cache_usage_bytes.set(0, tier="host")
+        self._fault_counts.clear()
+        self._consec_faults = 0
+        self._reset_device_state()
+        self._finish_recovery()
+
+    def _reset_device_state(self) -> None:
+        """Rebuild the device state IN PLACE after a fault (the reference
+        builds a fresh cache because JAX donated the old one; on the card
+        the pool is most of memory, so no second one is allocated).  The
+        in-flight dispatches, spills and deferred admissions are dropped
+        after their copies into pinned buffers have finished; the pool and
+        its scales are zeroed (the bytes of a fresh pool), the allocator
+        and the device index rebuilt empty, the sampling rows reset, the
+        host mirrors parked.  The host prefix tier survives."""
+        self._pipe_reset()
+        self._spill_victims.clear()
+        while self._spills:
+            self._dropped_copies.append(self._spills.popleft()[1])
+        dropped, self._dropped_copies = self._dropped_copies, []
+        for copy in dropped:
+            copy.drop()
+        for t in self.cache:
+            if t is not None:
+                t.zero_()
+        n = self.ecfg.num_slots
+        if self._paged:
+            self._alloc = self._new_allocator(self._alloc.num_pages)
+            self._tables[:] = 0
+            self._slot_pages.clear()
+        sampler_mod.reset_sampling_state_(self._sampling, self.ecfg.seed)
+        self._lengths[:] = self._park_sentinel() if self._paged else 0
+        self._last_token[:] = 0
+        # A fault between ``_free.pop()`` and registration would otherwise
+        # leak the slot index.
+        self._free = [s for s in range(n) if s not in self._slots]
 
     # ------------------------------------------------------------------
     # Scheduler
@@ -1025,6 +1681,7 @@ class InferenceEngine:
         under the reference's phase names."""
         sec = self.metrics.scheduler_seconds_total
         t0 = time.monotonic()
+        self._maybe_finish_recovery()
         self._ensure_guides_uploaded()
         worked = False
         if self._awaiting_guide:
@@ -1145,31 +1802,78 @@ class InferenceEngine:
         engine thread never waits on an admission's copy while it could
         be issuing decode work."""
         admitted = False
-        groups: dict[int, list] = {}
-        while self._free:
-            # Requests parked on a restore hold pages for a slot they have
-            # yet to take: they count against the free slots.
-            if sum(len(v) for v in groups.values()) + \
-                    len(self._awaiting_restore) >= len(self._free):
-                break
-            try:
-                _, _, req = self._queue.get_nowait()
-            except queue.Empty:
-                break
-            admitted = True
-            pre = self._preadmit(req)
-            if pre is not None:
-                groups.setdefault(pre[2].shape[1], []).append(pre)
-        for items in groups.values():
-            while items:
-                m = next(x for x in self._admit_sizes if x <= len(items))
-                rec = self._issue_admit_batch(items[:m])
-                del items[:m]
-                self._pending_admits.append(rec)
-                self._pending_n += len(rec[0])
-        if self._pending_admits:
-            self._drain_ready_admits()
+        # (bucket, replay shape) -> one-shot items; a replayer's batch is
+        # padded back to its original admission's size.
+        groups: dict[tuple[int, int], list] = {}
+        try:
+            while self._free:
+                # Requests parked on a restore hold pages for a slot they
+                # have yet to take: they count against the free slots.
+                if sum(len(v) for v in groups.values()) + \
+                        len(self._awaiting_restore) >= len(self._free):
+                    break
+                try:
+                    _, _, req = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                try:
+                    # Chaos hook at the fair queue's pick point: the popped
+                    # request is the sole culprit AND a survivor (nothing
+                    # was emitted: recovery re-queues it).
+                    self._faults.fire("admit_fair")
+                except Exception as e:
+                    with self._abort_lock:
+                        self._queued_rids.discard(req.request_id)
+                    raise StepFault(
+                        "admit_fair", faults_mod.classify(e),
+                        culprits=[req.request_id],
+                        survivors=[self._survivor_of(req)]) from e
+                admitted = True
+                pre = self._preadmit(req)
+                if pre is not None:
+                    key = (pre[2].shape[1], self._replay_admit_m(req))
+                    groups.setdefault(key, []).append(pre)
+            for (_, shape), items in groups.items():
+                while items:
+                    m = shape or next(x for x in self._admit_sizes
+                                      if x <= len(items))
+                    # Detach BEFORE issuing: a failing issue carries its
+                    # own items as survivors.
+                    batch = items[:m]
+                    del items[:m]
+                    rec = self._issue_admit_batch(batch)
+                    self._pending_admits.append(rec)
+                    self._pending_n += len(rec[0])
+            if self._pending_admits:
+                self._drain_ready_admits()
+        except Exception as e:
+            # Items not issued yet hold no slot and are registered nowhere
+            # (invisible to the recovery snapshot): carry them on the
+            # StepFault so recovery re-queues them.  (Issued batches are
+            # deferred admissions, which the snapshot sees.)
+            survivors = [self._survivor_of(req) for items in groups.values()
+                         for req, _, _ in items]
+            if isinstance(e, StepFault):
+                e.survivors.extend(survivors)
+                raise
+            raise StepFault("admit", faults_mod.classify(e),
+                            survivors=survivors) from e
         return admitted
+
+    def _survivor_of(self, req: Request, num_prompt: int | None = None
+                     ) -> _Survivor:
+        """A request that emitted nothing yet, as a recovery survivor (a
+        replayer keeps its original prefill's shape)."""
+        return _Survivor(request=req, seed=self._resolve_seed(req),
+                         num_prompt=len(req.prompt_ids) if num_prompt is None
+                         else num_prompt,
+                         shape=self._replay_shape.get(req.request_id))
+
+    def _replay_admit_m(self, req: Request) -> int:
+        """The one-shot batch size a replayer's admission pads to (0: not a
+        replayer of a one-shot admission)."""
+        shape = self._replay_shape.get(req.request_id)
+        return shape.admit_m if shape is not None else 0
 
     def _drain_ready_admits(self, force_one: bool = False) -> bool:
         """Resolve the deferred admission batches whose first tokens have
@@ -1192,7 +1896,8 @@ class InferenceEngine:
         """End every deferred admission (engine exit, a failed step): its
         requests hold slots and pages but are registered nowhere else."""
         while self._pending_admits:
-            items, slots, *_ = self._pending_admits.popleft()
+            items, slots, copy, *_ = self._pending_admits.popleft()
+            self._dropped_copies.append(copy)
             self._pending_n -= len(items)
             for (req, ids, _), slot in zip(items, slots):
                 self._release_slot(slot, req)
@@ -1205,6 +1910,7 @@ class InferenceEngine:
         prompts start here.  Returns (req, ids, padded [1, bucket]) for a
         one-shot prompt, else None."""
         with self._abort_lock:
+            self._queued_rids.discard(req.request_id)
             if req.request_id in self._aborted:
                 self._aborted.discard(req.request_id)
                 self._unpin_guide(req)
@@ -1222,6 +1928,7 @@ class InferenceEngine:
             self.metrics.requests_shed_total.inc(
                 1, reason="deadline", tier=tier,
                 tenant=self._tenant_labels.label(req.tenant))
+            self.trace.evt(req.request_id, "shed", "I", round(waited, 3))
             req.outputs.put(RequestOutput(
                 request_id=req.request_id, token_ids=[], finished=True,
                 finish_reason="error",
@@ -1229,6 +1936,23 @@ class InferenceEngine:
                        "ttft budget already unmeetable"),
                 num_prompt_tokens=len(req.prompt_ids)))
             return None
+        if isinstance(req.outputs, _ReplayGate):
+            # Fault-recovery re-admission: a per-request injectable point
+            # ("replay"), attributed to THIS request alone, carrying its
+            # replay state.
+            try:
+                self._faults.fire("replay")
+            except Exception as e:
+                raise StepFault(
+                    "replay", faults_mod.classify(e),
+                    culprits=[req.request_id],
+                    survivors=[_Survivor(
+                        request=req, seed=self._resolve_seed(req),
+                        num_prompt=len(req.prompt_ids),
+                        generated=list(req.outputs.expect),
+                        num_emitted=req.outputs.client_total,
+                        shape=self._replay_shape.get(req.request_id))]
+                ) from e
         ids = list(req.prompt_ids)
         if not ids or len(ids) > self.max_prompt_len:
             self._unpin_guide(req)
@@ -1348,31 +2072,49 @@ class InferenceEngine:
             # Pages cover [0, len + K - 1] from the start: the legacy decode
             # loop writes this slot's garbage rows at len..len+K-1 while it
             # chunk-prefills, and they must land in pages it owns.
-            self._assign_slot_pages(slot, pages_needed(
-                len(ids), self.ecfg.steps_per_dispatch, self._page,
-                self._max_pages), head_pages=prefix_pages or ())
+            shared = list(prefix_pages or ())
+            try:
+                self._faults.fire("pages")
+                self._assign_slot_pages(slot, pages_needed(
+                    len(ids), self.ecfg.steps_per_dispatch, self._page,
+                    self._max_pages), head_pages=shared)
+            except Exception as e:
+                self._alloc.decref(shared)
+                self._free.append(slot)
+                raise StepFault(
+                    "pages", faults_mod.classify(e),
+                    culprits=[req.request_id],
+                    survivors=[self._survivor_of(req)]) from e
         elif prefix_len:
             # Exactly the prefix's rows: eager PyTorch has no compiled
             # insert shapes to bound (the reference pads to a bucket).
-            k, v = self._prefix.get(ids, prefix_len)
-            tf.insert(self.cache, self._upload_tensor(k),
-                      self._upload_tensor(v), slot)
+            try:
+                k, v = self._prefix.get(ids, prefix_len)
+                tf.insert(self.cache, self._upload_tensor(k),
+                          self._upload_tensor(v), slot)
+            except Exception as e:
+                self._free.append(slot)
+                raise StepFault(
+                    "chunk", faults_mod.classify(e),
+                    culprits=[req.request_id],
+                    survivors=[self._survivor_of(req)]) from e
+        shape = self._replay_shape.get(req.request_id)
+        plan = (list(shape.takes) if shape is not None
+                and shape.chunk_start == prefix_len else [])
         self._prefilling[slot] = _ChunkState(request=req, ids=ids,
                                              pos=prefix_len,
                                              key=prng.np_prng_key(seed),
-                                             digests=digests)
+                                             digests=digests,
+                                             start=prefix_len, plan=plan)
+        self.trace.evt(req.request_id, "queue", "E")
+        self.trace.evt(req.request_id, "prefill", "B", len(ids))
         # Length parked at the prompt's end: interleaved decode writes land
         # past every masked read until real decode overwrites them.
         self._lengths[slot] = len(ids)
         self._last_token[slot] = 0
 
     def _purge_stale_aborts(self, consumed=()) -> None:
-        live = {st.request.request_id for st in self._slots.values()}
-        live |= {cs.request.request_id for cs in self._prefilling.values()}
-        live |= {req.request_id for req, _ in self._awaiting_guide}
-        live |= {req.request_id for rec in self._pending_admits
-                 for req, _, _ in rec[0]}
-        live |= {rec.request.request_id for rec in self._awaiting_restore}
+        live = self._live_rids()
         with self._abort_lock:
             self._aborted -= set(consumed)
             if not live and self._queue.empty():
@@ -1412,6 +2154,7 @@ class InferenceEngine:
         its next dispatch writes, and those of the ``ahead`` dispatches
         already in flight (the host's lengths lag them).  The pool holds
         every slot's full table, so the allocation cannot fail."""
+        self._faults.fire("pages")
         rows *= ahead + 1
         for slot in self._slots:
             need = pages_needed(int(self._lengths[slot]), rows, self._page,
@@ -1511,11 +2254,13 @@ class InferenceEngine:
                     "bias_ids", "bias_vals", "suppress_ids", "min_first",
                     "guide", "guide_row")})
 
+    @_scoped("guide")
     def _ensure_guides_uploaded(self) -> None:
         """Copy the compiler's tables to the device when its version bumped
         (guides compile on other threads; only this copy runs here)."""
         if self._guide_ver == self.guides.version:
             return
+        self._faults.fire("guide")
         cls_host, trans_host, ver = self.guides.snapshot()
         self._guide_dev[0].copy_(torch.from_numpy(cls_host))
         self._guide_dev[1].copy_(torch.from_numpy(trans_host))
@@ -1539,6 +2284,7 @@ class InferenceEngine:
             if got.event.is_set() and got.error is not None:
                 return got.error
             self._awaiting_guide.append((req, got))
+            self.trace.evt(req.request_id, "park.guide", "B")
             return "park"
         return "guide evicted repeatedly during admission"
 
@@ -1563,6 +2309,7 @@ class InferenceEngine:
                 still.append((req, ticket))
                 continue
             did = True
+            self.trace.evt(req.request_id, "park.guide", "E")
             if ticket.error is not None:
                 req.outputs.put(RequestOutput(
                     request_id=req.request_id, token_ids=[], finished=True,
@@ -1578,6 +2325,7 @@ class InferenceEngine:
 
     def _requeue(self, req: Request) -> None:
         with self._abort_lock:
+            self._queued_rids.add(req.request_id)
             self._queue_seq += 1
             seq = self._queue_seq
         self._queue.put((req.params.priority, seq, req))
@@ -1588,6 +2336,7 @@ class InferenceEngine:
         context switch or resize) that drops the tickets they wait on."""
         for req, _ticket in self._awaiting_guide:
             self._requeue(req)
+            self.trace.evt(req.request_id, "park.guide", "E")
         self._awaiting_guide = []
 
     def _abort_awaiting_guide(self) -> None:
@@ -1639,40 +2388,67 @@ class InferenceEngine:
         rows their first tokens advance to, all on the device; the first
         tokens start their copy to the host.  The slots stay parked (their
         rows in any decode dispatch before ``_resolve_admit_batch`` are
-        dropped).  Returns the record for ``_resolve_admit_batch``."""
+        dropped).  A batch of replayers is padded with empty rows to their
+        original admission's size, so that every product runs at the
+        original batch's shape.  Returns the record for
+        ``_resolve_admit_batch``."""
         m = len(items)
+        mp = max([m] + [self._replay_admit_m(req) for req, _, _ in items])
         dev = self.device
         slots: list[int] = []
-        keys = np.zeros((m, 2), np.uint32)
-        n_pages = np.zeros((m,), np.int32)
-        pages = np.zeros((m, max(self._max_pages, 1)), np.int32)
-        for i, (req, ids, _) in enumerate(items):
-            keys[i] = prng.np_prng_key(self._resolve_seed(req))
-            slot = self._free.pop()
-            slots.append(slot)
-            self._lengths[slot] = self._park_sentinel()
+        try:
+            self._faults.fire("admit")
+            keys = np.zeros((m, 2), np.uint32)
+            n_pages = np.zeros((m,), np.int32)
+            pages = np.zeros((m, max(self._max_pages, 1)), np.int32)
+            for i, (req, ids, _) in enumerate(items):
+                keys[i] = prng.np_prng_key(self._resolve_seed(req))
+                slot = self._free.pop()
+                slots.append(slot)
+                self._lengths[slot] = self._park_sentinel()
+                if self._paged:
+                    n_pages[i] = -(-len(ids) // self._page)
+                    pages[i] = self._assign_slot_pages(slot, int(n_pages[i]))
+            padded = [p for _, _, p in items]
+            padded += [np.zeros_like(padded[0])] * (mp - m)
+            tokens = torch.from_numpy(np.concatenate(padded)).to(dev)
+            lengths = torch.tensor([len(ids) for _, ids, _ in items]
+                                   + [1] * (mp - m),
+                                   dtype=torch.int32, device=dev)
+            params = [req.params for req, _, _ in items]
+            logits, ks, vs = tf.prefill(self.params, self.cfg, tokens,
+                                        lengths)
+            if mp > m:
+                logits, ks, vs = logits[:m], ks[:, :m], vs[:, :m]
+            key_t = prng.key_tensor(keys, dev)
+            firsts, lp, rows = self._sample_first(logits, params, key_t)
             if self._paged:
-                n_pages[i] = -(-len(ids) // self._page)
-                pages[i] = self._assign_slot_pages(slot, int(n_pages[i]))
-        tokens = torch.from_numpy(np.concatenate([p for _, _, p in items])
-                                  ).to(dev)
-        lengths = torch.tensor([len(ids) for _, ids, _ in items],
-                               dtype=torch.int32, device=dev)
-        params = [req.params for req, _, _ in items]
-        logits, ks, vs = tf.prefill(self.params, self.cfg, tokens, lengths)
-        key_t = prng.key_tensor(keys, dev)
-        firsts, lp, rows = self._sample_first(logits, params, key_t)
-        if self._paged:
-            tf.insert_pages_batch(self.cache, ks, vs, pages, n_pages)
-        else:
-            tf.insert_batch(self.cache, ks, vs, slots)
-        self._set_slots(slots, params, prng.fold_in(key_t, 1),
-                        [len(ids) for _, ids, _ in items], rows)
+                tf.insert_pages_batch(self.cache, ks, vs, pages, n_pages)
+            else:
+                tf.insert_batch(self.cache, ks, vs, slots)
+            self._set_slots(slots, params, prng.fold_in(key_t, 1),
+                            [len(ids) for _, ids, _ in items], rows)
+        except Exception as e:
+            # None of the requests holds a registered slot, so the recovery
+            # snapshot cannot see them: carry them as survivors (they
+            # re-queue with their pinned seeds; the slot and page
+            # bookkeeping is rebuilt by the recovery reset).
+            survivors = [self._survivor_of(req) for req, _, _ in items]
+            if isinstance(e, StepFault):
+                e.survivors.extend(survivors)
+                raise
+            raise StepFault(
+                "admit", faults_mod.classify(e),
+                culprits=[req.request_id for req, _, _ in items],
+                survivors=survivors) from e
         self.prefill_tokens_total += sum(len(ids) for _, ids, _ in items)
+        for req, ids, _ in items:
+            self.trace.evt(req.request_id, "queue", "E")
+            self.trace.evt(req.request_id, "prefill", "B", len(ids))
         # Only the slot cache's single-prompt harvest reads the prompt's
         # K/V at resolve; anything else would hold them for nothing.
         kv = (ks, vs) if self._prefix is not None and m == 1 else None
-        return items, slots, _HostCopy(firsts, lp, self._host_bufs), kv
+        return items, slots, _HostCopy(firsts, lp, self._host_bufs), kv, mp
 
     def _resolve_admit_batch(self, rec) -> None:
         """Read an admission batch's first tokens and register its slots;
@@ -1681,8 +2457,20 @@ class InferenceEngine:
         pool), or a lone prompt's full blocks the host prefix cache (the
         slot cache), unless requests are waiting: the copy to the host
         would hold them up."""
-        items, slots, copy, kv = rec
-        firsts, lp_h = copy.result()
+        items, slots, copy, kv, mp = rec
+        try:
+            self._faults.fire("admit_resolve")
+            firsts, lp_h = copy.result()
+        except Exception as e:
+            # The dispatch failed asynchronously: the requests hold slots
+            # the recovery snapshot will not see (not registered); carry
+            # them as survivors so they re-queue with their pinned seeds.
+            self._dropped_copies.append(copy)
+            raise StepFault(
+                "admit_resolve", faults_mod.classify(e),
+                culprits=[req.request_id for req, _, _ in items],
+                survivors=[self._survivor_of(req)
+                           for req, _, _ in items]) from e
         for i, ((req, ids, _), slot) in enumerate(zip(items, slots)):
             with self._abort_lock:
                 aborted = req.request_id in self._aborted
@@ -1694,7 +2482,8 @@ class InferenceEngine:
                     finish_reason="abort", num_prompt_tokens=len(ids)))
                 continue
             self._register_slot(req, slot, int(firsts[i]), len(ids),
-                                self._first_lp(req.params, lp_h, i))
+                                self._first_lp(req.params, lp_h, i),
+                                shape=_ReplayShape(admit_m=mp))
             if self._paged:
                 self._register_prompt_pages(ids,
                                             self._slot_pages.get(slot, []))
@@ -1742,19 +2531,32 @@ class InferenceEngine:
         c = self._page
         chunk = st.ids[st.pos: st.pos + c]
         valid = len(chunk)
-        self.prefill_tokens_total += valid
+        rid = st.request.request_id
+        self.trace.evt(rid, "chunk", "I", st.pos)
         padded = np.zeros((c,), np.int32)
         padded[:valid] = chunk
         dev = self.device
-        tokens = torch.from_numpy(padded).to(dev)
-        if self._paged:
-            row = torch.from_numpy(self._tables[slot].copy()).to(dev)
-            logits = tf.prefill_chunk_paged(self.params, self.cfg, self.cache,
-                                            row, tokens, st.pos, valid)
-        else:
-            logits = tf.prefill_chunk(self.params, self.cfg, self.cache,
-                                      slot, tokens, st.pos, valid)
+        try:
+            self._faults.fire("chunk")
+            tokens = torch.from_numpy(padded).to(dev)
+            if self._paged:
+                row = torch.from_numpy(self._tables[slot].copy()).to(dev)
+                logits = tf.prefill_chunk_paged(self.params, self.cfg,
+                                                self.cache, row, tokens,
+                                                st.pos, valid)
+            else:
+                logits = tf.prefill_chunk(self.params, self.cfg, self.cache,
+                                          slot, tokens, st.pos, valid)
+        except Exception as e:
+            # The chunk dispatch does work for exactly one sequence: the
+            # fault is THIS request's, and it carries its replayable state.
+            del self._prefilling[slot]
+            raise StepFault(
+                "chunk", faults_mod.classify(e), culprits=[rid],
+                survivors=[self._survivor_of(st.request)]) from e
+        self.prefill_tokens_total += valid
         st.pos += valid
+        st.takes.append(valid)
         if st.pos < len(st.ids):
             return
         key = prng.key_tensor(st.key[None], dev)
@@ -1765,7 +2567,8 @@ class InferenceEngine:
         self._set_slots([slot], [p], prng.fold_in(key, 1), [len(st.ids)],
                         rows)
         self._register_slot(st.request, slot, int(first_h[0]), len(st.ids),
-                            self._first_lp(p, lp_h, 0))
+                            self._first_lp(p, lp_h, 0), shape=_ReplayShape(
+                                chunk_start=st.start, takes=tuple(st.takes)))
         if self._paged:
             self._register_prompt_pages(st.ids, self._slot_pages.get(slot, []),
                                         st.digests)
@@ -1809,6 +2612,7 @@ class InferenceEngine:
         if rec is not None:
             self._resolve_decode(rec)
 
+    @_scoped("decode")
     def _issue_decode(self):
         """Issue ONE fused K-step decode dispatch over every slot: aborted
         slots and slots whose next K rows would overflow the cache are
@@ -1822,6 +2626,7 @@ class InferenceEngine:
             return None
         if self._paged:
             self._grow_slot_pages(k_steps)
+        self._faults.fire("decode")
         snapshot = list(self._slots)
         t0 = time.monotonic()
         tokens = self._upload(self._last_token)
@@ -1833,11 +2638,13 @@ class InferenceEngine:
         self.decode_steps += k_steps
         return snapshot, _HostCopy(ids, lp, self._host_bufs), t0
 
+    @_scoped("decode")
     def _resolve_decode(self, rec, exclude_s: float = 0.0) -> None:
         """Read a decode dispatch's tokens (the host sync point) and fan
         them out to the slots of its snapshot.  ``exclude_s``, the
         overlapped admission's wall time, is not decode time (TPOT)."""
         snapshot, copy, t_issue = rec
+        self._faults.fire("resolve")
         t0 = time.monotonic()
         ids_h, lp_h = copy.result()
         self.metrics.decode_resolve_wait_seconds_total.inc(
@@ -1939,16 +2746,25 @@ class InferenceEngine:
         if not pre:
             return completing, chunk_take, t
         budget = self._mixed_budget
-        quota = max(budget // len(pre), 1)
         takes: dict[int, int] = {}
+        # A replaying sequence cuts its prompt where its original prefill
+        # did (_ReplayShape); the others share the rest of the budget.
         for slot, st in pre:
+            if st.plan and budget > 0:
+                take = min(st.plan[0], len(st.ids) - st.pos, budget)
+                if take > 0:
+                    takes[slot] = take
+                    budget -= take
+        free = [(slot, st) for slot, st in pre if not st.plan]
+        quota = max(budget // max(len(free), 1), 1)
+        for slot, st in free:
             if budget <= 0:
                 break
             take = min(len(st.ids) - st.pos, quota, budget)
             if take > 0:
                 takes[slot] = take
                 budget -= take
-        for slot, st in pre:
+        for slot, st in free:
             if budget <= 0:
                 break
             extra = min(len(st.ids) - st.pos - takes.get(slot, 0), budget)
@@ -2037,15 +2853,24 @@ class InferenceEngine:
             for k, on in keep if on})
         return st, gates, active
 
+    @_scoped("mixed")
     def _issue_mixed(self):
         """Build and run ONE mixed dispatch: every decoding slot's next
-        token plus the round-robin chunk fill.  Returns the record for
-        ``_resolve_mixed`` or None when nothing needs the model."""
+        token plus the round-robin chunk fill.  The flat batch has fixed
+        rows, so that every product runs at one M and a row's bits do not
+        depend on what else the step carries (what token replay needs; on
+        the card a GEMM's bits change with M): ``num_slots`` + the chunk
+        budget when it carries prefill chunks (the reference's shape), and
+        ``num_slots`` when it decodes only (the pipe step's, whose tokens
+        it then equals).  The padding rows write nothing and attend
+        nothing.  Returns the record for ``_resolve_mixed`` or None when
+        nothing needs the model."""
         self._abort_and_retire(2)
         if not self._slots and not self._prefilling:
             return None
         self._ensure_guides_uploaded()
         self._grow_slot_pages(1)
+        self._faults.fire("decode")
         n = self.ecfg.num_slots
         t_budget = n + self._mixed_budget
         sentinel = self._park_sentinel()
@@ -2068,10 +2893,10 @@ class InferenceEngine:
             a["seq_pos_start"][slot] = self._lengths[slot]
             t += 1
         completing, chunk_take, t = self._fill_chunk_lanes(a, t)
-        # Eager PyTorch has no static-shape constraint: the batch is the
-        # tokens actually used, and the work list spans the widest lane.
-        for key in ("tokens", "token_slot", "token_pos"):
-            a[key] = a[key][:max(t, 1)]
+        if not chunk_take:
+            # Decode only: the pipe step's num_slots rows.
+            for key in ("tokens", "token_slot", "token_pos"):
+                a[key] = a[key][:n]
         qmax = max(int(a["seq_q_len"].max()), 1)
         n_chunk = sum(take for _, take in chunk_take)
         self.metrics.mixed_batch_tokens.observe(t)
@@ -2140,10 +2965,12 @@ class InferenceEngine:
             if any(p.logprobs is not None for p in lanes) else None
         return ids, lp
 
+    @_scoped("mixed")
     def _resolve_mixed(self, rec, exclude_s: float = 0.0) -> None:
         """Host tail of a mixed dispatch: fan the decode tokens out,
         advance every prefilling sequence, promote completed prompts."""
         dec_slots, completing, chunk_take, ids_dev, lp, t_issue = rec
+        self._faults.fire("resolve")
         t0 = time.monotonic()
         ids, lp_h = _to_host(ids_dev, lp)    # the host sync point
         self.metrics.decode_resolve_wait_seconds_total.inc(
@@ -2156,7 +2983,11 @@ class InferenceEngine:
                 rows = tuple(x[slot: slot + 1] for x in lp_h)
             self._fanout_decode_tokens(slot, [int(ids[slot])], rows, dt)
         for slot, take in chunk_take:
-            self._prefilling[slot].pos += take
+            cs = self._prefilling[slot]
+            cs.pos += take
+            cs.takes.append(take)
+            if cs.plan:
+                cs.plan.pop(0)
             self.prefill_tokens_total += take
         for slot in completing:
             cs = self._prefilling.pop(slot)
@@ -2169,17 +3000,31 @@ class InferenceEngine:
                             [self.guides.next_row(row, first)
                              if gid >= 0 else 0])
             self._register_slot(cs.request, slot, first, len(cs.ids),
-                                self._first_lp(p, lp_h, slot))
+                                self._first_lp(p, lp_h, slot),
+                                shape=_ReplayShape(chunk_start=cs.start,
+                                                   takes=tuple(cs.takes)))
             self._register_prompt_pages(cs.ids, self._slot_pages.get(slot, []),
                                         cs.digests)
 
     def _register_slot(self, req: Request, slot: int, first: int,
-                       num_prompt: int, first_lp=None) -> None:
+                       num_prompt: int, first_lp=None,
+                       shape: _ReplayShape | None = None) -> None:
         p = req.params
+        rid = req.request_id
         st = _Slot(request=req, num_prompt=num_prompt,
                    stop_col=sampler_mod.np_stop_col(self._stop_ids_for(p)),
                    dead_len=min(num_prompt + p.max_tokens - 1,
-                                self.ecfg.max_cache_len - self._pipe_rows))
+                                self.ecfg.max_cache_len - self._pipe_rows),
+                   shape=shape)
+        self._fault_counts.pop(rid, None)
+        replaying = rid in self._replaying
+        if replaying:
+            # Token replay reached a decoding slot again: the stream is
+            # live (the gate streams the continuation once the re-run
+            # passes the delivered prefix).
+            self._replaying.discard(rid)
+            self._replay_shape.pop(rid, None)
+            self.metrics.requests_recovered_total.inc(1)
         st.generated.append(first)
         if first_lp is not None:
             st.logprobs.append(first_lp)
@@ -2191,9 +3036,22 @@ class InferenceEngine:
         m = self.metrics
         m.prompt_tokens_total.inc(num_prompt)
         m.num_requests_running.set(len(self._slots))
-        m.time_to_first_token_seconds.observe(ttft)
-        m.ttft_seconds.observe(ttft, tier=self._slo.tier_of(p.priority))
-        self._slo_burn_record(p.priority, ttft)
+        if not replaying:
+            # A replay's registration is not a first token: the client got
+            # its first long ago.
+            m.time_to_first_token_seconds.observe(ttft)
+            m.ttft_seconds.observe(ttft, tier=self._slo.tier_of(p.priority))
+            self._slo_burn_record(p.priority, ttft)
+        if self.trace.enabled:
+            self.trace.evt(rid, "prefill", "E")
+            if not replaying:
+                self.trace.evt(rid, "first_token", "I", ttft)
+                tier = (self._slo.get(self._slo.tier_of(p.priority))
+                        if self._slo else None)
+                if (tier is not None and tier.ttft_ms is not None
+                        and ttft * 1000.0 > tier.ttft_ms):
+                    self.trace.evt(rid, "slo_violation", "I",
+                                   (ttft * 1000.0, tier.ttft_ms))
         if self._check_finished(slot):
             return
         st.num_emitted = 1
@@ -2230,9 +3088,11 @@ class InferenceEngine:
         victims = [(d, p) for d, p in self._spill_victims
                    if not self._host.has(d)]
         self._spill_victims.clear()
+        self.trace.evt("", "spill", "I", len(victims))
         g = self._spill_group
         for i in range(0, len(victims), g):
             grp = victims[i: i + g]
+            self._faults.fire("spill")
             # A short group repeats a real page (one staging shape, so one
             # set of pinned buffers); the host drops the padded entries.
             pages = [p for _, p in grp] + [grp[0][1]] * (g - len(grp))
@@ -2271,18 +3131,30 @@ class InferenceEngine:
         pinned memory and uploaded without a host sync) and park the
         request until the last scatter's event has passed
         (``_resolve_restores``).  Decoding goes on meanwhile."""
-        pages = self._alloc.alloc(len(blocks))
-        # Pages the allocation evicted spill before the scatter, which may
-        # write those very pages.
-        self._spill_flush()
-        g = self._spill_group
-        for i in range(0, len(blocks), g):
-            grp, pg = blocks[i: i + g], pages[i: i + g]
-            staged = {name: self._stage(grp, name, g) for name in grp[0]}
-            pad = np.asarray(pg + [pg[0]] * (g - len(pg)), np.int64)
-            tf.scatter_pool_pages(
-                self.cache, staged["k"], staged["v"], self._upload(pad),
-                len(grp), staged.get("k_scale"), staged.get("v_scale"))
+        try:
+            self._faults.fire("restore")
+            pages = self._alloc.alloc(len(blocks))
+            # Pages the allocation evicted from the device index spill
+            # before the scatter, which may write those very pages.
+            self._spill_flush()
+            g = self._spill_group
+            for i in range(0, len(blocks), g):
+                grp, pg = blocks[i: i + g], pages[i: i + g]
+                staged = {name: self._stage(grp, name, g) for name in grp[0]}
+                pad = np.asarray(pg + [pg[0]] * (g - len(pg)), np.int64)
+                tf.scatter_pool_pages(
+                    self.cache, staged["k"], staged["v"], self._upload(pad),
+                    len(grp), staged.get("k_scale"), staged.get("v_scale"))
+        except Exception as e:
+            # The page bookkeeping is rebuilt by the recovery reset; the
+            # survivor re-queues with its pinned seed and its retry hits
+            # the host tier again (the tier survives the reset).
+            if isinstance(e, StepFault):
+                raise
+            raise StepFault(
+                "restore", faults_mod.classify(e),
+                culprits=[req.request_id],
+                survivors=[self._survivor_of(req)]) from e
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()
@@ -2290,6 +3162,7 @@ class InferenceEngine:
         self._awaiting_restore.append(_RestoreState(
             request=req, ids=ids, digests=digests, shared=shared,
             pages=pages, done=done, t0=time.monotonic()))
+        self.trace.evt(req.request_id, "park.restore", "B", len(blocks))
 
     def _stage(self, blocks: list, name: str, g: int) -> torch.Tensor:
         """Field ``name`` of up to ``g`` host blocks stacked on axis 1 and
@@ -2327,6 +3200,16 @@ class InferenceEngine:
                 still.append(rec)
                 continue
             did = True
+            try:
+                self._faults.fire("restore")
+            except Exception as e:
+                # The unpark serves this request alone.  (Recovery's
+                # snapshot of the parked list holds it too; survivors are
+                # deduplicated by request id.)
+                raise StepFault(
+                    "restore", faults_mod.classify(e), culprits=[rid],
+                    survivors=[self._survivor_of(rec.request)]) from e
+            self.trace.evt(rid, "park.restore", "E")
             start = len(rec.shared)
             self._alloc.register(rec.digests[start: start + len(rec.pages)],
                                  rec.pages)
@@ -2357,11 +3240,11 @@ class InferenceEngine:
             finish_reason=reason, error=error,
             num_prompt_tokens=len(rec.ids)))
 
-    def _abort_awaiting_restores(self, error: str | None = None) -> None:
-        """End every request parked on a restore (engine exit: "abort"; a
-        failed step: "error")."""
+    def _abort_awaiting_restores(self) -> None:
+        """End every request parked on a restore (engine exit, the blanket
+        abort)."""
         for rec in self._awaiting_restore:
-            self._end_restore(rec, "error" if error else "abort", error)
+            self._end_restore(rec, "abort")
         self._awaiting_restore = []
 
     def _restore_ready_any(self) -> bool:
@@ -2426,6 +3309,7 @@ class InferenceEngine:
                 return False
         return True
 
+    @_scoped("decode")
     def _step_pipelined(self) -> None:
         """One steady-state iteration: issue ONE dispatch when the pipeline
         has room, then resolve the oldest, waiting for it only when the
@@ -2441,6 +3325,7 @@ class InferenceEngine:
         if self._spills:
             self._resolve_spills()
 
+    @_scoped("mixed")
     def _step_fused(self) -> None:
         """One depth-0 fused iteration: the pipe program issued fresh from
         the host mirrors and resolved at once; the threaded state is
@@ -2479,6 +3364,7 @@ class InferenceEngine:
         if self._paged:
             self._grow_slot_pages(k, ahead=len(self._pipe_inflight))
         self._ensure_guides_uploaded()
+        self._faults.fire("decode")
         if fresh:
             n = self.ecfg.num_slots
             alive = np.zeros((n,), bool)
@@ -2499,6 +3385,8 @@ class InferenceEngine:
         want_lp = any(p.logprobs is not None for p in params)
         tables = self._upload(self._tables) if self._paged else None
         t0 = time.monotonic()
+        self._pipe_seq += 1
+        self.trace.evt("", "pipe", "B", self._pipe_seq)
         args = (self.params, self.cfg, self.cache, *state, *self._pipe_cols,
                 self._sampling, tables,
                 self._guide_dev if gates.guide else None, gates, want_lp,
@@ -2528,11 +3416,17 @@ class InferenceEngine:
         the device retired by the cache cap (``dead_len``) is retired here
         too, as the sequential path retires it at its next issue."""
         snapshot, want_lp, copy, t_issue = self._pipe_inflight.popleft()
+        try:
+            self._faults.fire("resolve")
+        except Exception:
+            self._dropped_copies.append(copy)
+            raise
         t0 = time.monotonic()
         toks, lp_h = copy.result()
         now = time.monotonic()
         self.metrics.decode_resolve_wait_seconds_total.inc(
             now - t0, mode="pipelined")
+        self.trace.evt("", "pipe", "E", len(snapshot))
         # TPOT by resolve interarrival: in steady state one resolve lands
         # per dispatch, and the issue-to-resolve span covers the depth.
         last = self._pipe_last_resolve
@@ -2551,6 +3445,7 @@ class InferenceEngine:
             if slot in self._slots and int(self._lengths[slot]) >= cap:
                 self._finish(slot, "length")
 
+    @_scoped("decode")
     def _pipe_drain(self) -> None:
         """Resolve every in-flight dispatch and hand authority back to the
         host mirrors (exact after the last resolve)."""
@@ -2564,8 +3459,10 @@ class InferenceEngine:
 
     def _pipe_reset(self) -> None:
         """Fault path: drop the in-flight records without resolving them
-        (the failed step ends their requests)."""
-        self._pipe_inflight.clear()
+        (their requests replay); their result copies go back to the pinned
+        pool once they have finished."""
+        while self._pipe_inflight:
+            self._dropped_copies.append(self._pipe_inflight.popleft()[2])
         self._pipe_state = None
         self._pipe_cols = None
         self._pipe_last_resolve = None
@@ -2638,3 +3535,4 @@ class InferenceEngine:
             time.monotonic() - st.request.arrival_time)
         m.request_success_total.inc(reason=reason)
         m.num_requests_running.set(len(self._slots))
+        self.trace.evt(st.request.request_id, "finish", "I", reason)

@@ -6,10 +6,7 @@ both servers.
 Only the families whose mechanism the port has are registered.  Left out,
 with their subsystems: speculative decoding (``spec_decode_*``), windowed
 residency (``residency_*``), the multi-model pool (``model_pool_*``,
-``model_switch_seconds``, ``model_cold_starts_total``), fault recovery
-(``engine_faults_total``, ``requests_recovered_total``,
-``requests_quarantined_total``, ``engine_recovery_seconds``,
-``engine_state``), elastic resize (``engine_resizes_total``,
+``model_switch_seconds``, ``model_cold_starts_total``), elastic resize (``engine_resizes_total``,
 ``resize_seconds``, ``scale_from_zero_seconds``), preemption
 (``requests_preempted_total``, ``preempt_swap_seconds``), and the disk
 tier and peer fetch (``prefix_disk_*``, ``prefix_peer_fetch_*``).
@@ -164,6 +161,29 @@ class EngineMetrics:
             "pipeline_depth_occupancy",
             "In-flight decode dispatches after each pipelined issue",
             buckets=[1, 2, 3, 4, 6, 8])
+        # Fault isolation and recovery (engine/faults.py and the engine's
+        # ``_recover_from_fault``): who faulted (phase, kind), who
+        # survived, who was quarantined, and how long the replay took.
+        self.engine_faults_total = r.counter(
+            "engine_faults_total",
+            "Scheduler-step faults by phase and kind")
+        self.requests_recovered_total = r.counter(
+            "requests_recovered_total",
+            "In-flight requests restored to serving after an engine fault "
+            "(token-replay resume or re-queued admission)")
+        self.requests_quarantined_total = r.counter(
+            "requests_quarantined_total",
+            "Culprit requests failed alone after exhausting "
+            "ARKS_FAULT_RETRIES")
+        self.engine_recovery_seconds = r.histogram(
+            "engine_recovery_seconds",
+            "Fault-to-resumed-decoding recovery latency",
+            buckets=[0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30, 60, 120])
+        # 0=serving 1=recovering 2=wedged (faults.STATE_CODES); /readiness
+        # answers 503 "recovering"/"wedged" while nonzero.
+        self.engine_state = r.gauge(
+            "engine_state",
+            "Engine serving state (0=serving, 1=recovering, 2=wedged)")
         # Resolved-config info gauge (value always 1, config as labels —
         # the kube-state-metrics "_info" idiom): which KV layout / decode
         # impl / overlap mode a replica ACTUALLY runs, so an operator can

@@ -164,6 +164,21 @@ def init_sampling_state(batch: int, seed: int = 0, vocab_size: int = 1,
         guide_row=torch.zeros((batch,), **i32))
 
 
+def reset_sampling_state_(state: SamplingState, seed: int = 0) -> None:
+    """Give ``state`` the values of ``init_sampling_state(B, seed, V)`` in
+    place (fault recovery: no second [B, V] counts table is allocated)."""
+    b = state.temperature.shape[0]
+    state.key.copy_(prng.split(prng.key_tensor(prng.np_prng_key(seed),
+                                               state.key.device), b))
+    for t in (state.temperature, state.top_k, state.presence,
+              state.frequency, state.counts, state.bias_vals,
+              state.min_until, state.guide_row):
+        t.zero_()
+    state.top_p.fill_(1.0)
+    for t in (state.bias_ids, state.suppress_ids, state.guide):
+        t.fill_(-1)
+
+
 def np_bias_cols(params, vocab_size: int):
     """Host-side [NB] bias columns (ids, vals) for one request's
     ``logit_bias``; ids < 0 pad empty entries."""

@@ -138,9 +138,8 @@ class HFTokenizer:
             except Exception as e:
                 # Template without tools support: declare them in a system
                 # message using the hermes convention the parser expects.
-                logging.getLogger("arks_tpu_torch.tokenizer").debug(
-                    "chat template has no tools section (%s); declaring "
-                    "them in a system turn", e)
+                from arks_tpu_torch.engine.faults import swallowed
+                swallowed("chat_template_tools", e)
                 from arks_tpu_torch.server.tools import tools_system_text
                 messages = ([{"role": "system",
                               "content": tools_system_text(tools)}]

@@ -2,8 +2,7 @@
 ``arks_tpu/engine/types.py``).  ``SamplingParams`` keeps every field of the
 reference, and the port's engine serves each of them, so one request means
 the same thing to both engines.  ``Request`` drops the fields of features
-that are later slices (disaggregated prefill, model pool, tracing, peer
-fetch)."""
+that are later slices (disaggregated prefill, model pool, peer fetch)."""
 
 from __future__ import annotations
 
@@ -55,6 +54,11 @@ class Request:
     # Tenant identity (``x-arks-tenant``; arks_tpu_torch.tenancy): the fair
     # queue's lane.  None = the default tenant.
     tenant: str | None = None
+    # End-to-end tracing: the W3C trace context for this request
+    # (arks_tpu_torch.obs.trace.TraceCtx), carrying the gateway-minted trace
+    # id and any upstream (gateway/router) spans.  None = untraced or an
+    # engine-local request; the engine mints a local trace id on demand.
+    trace: object | None = None
 
 
 @dataclasses.dataclass

@@ -47,6 +47,22 @@ DEFAULTS: dict[str, str | None] = {
     "ARKS_SLO_TIERS": None,
     "ARKS_SLO_BURN_WINDOW_S": "60",
     "ARKS_SLO_ERROR_BUDGET": "0.1",
+    # Fault isolation, token replay and the dispatch watchdog
+    # (engine/faults.py).
+    "ARKS_FAULT_RETRIES": "1",
+    "ARKS_FAULT_INJECT": None,
+    "ARKS_FAULT_HANG_S": "3600",
+    "ARKS_DISPATCH_DEADLINE_S": "0",
+    # Request tracing and profiler windows (obs/).
+    "ARKS_TRACE": "1",
+    "ARKS_TRACE_RING": "8192",
+    "ARKS_TRACE_SAMPLE": "1.0",
+    "ARKS_TRACE_TAIL": "256",
+    "ARKS_TRACE_FLUSH_S": "0.2",
+    "ARKS_TRACE_MAX": "256",
+    "ARKS_PROF_AUTO_ARM": "0",
+    "ARKS_PROF_WINDOW_S": "5",
+    "ARKS_PROF_DIR": "/tmp/arks-prof",
 }
 
 

@@ -19,9 +19,18 @@ surface of ``arks_tpu/server/openai_server.py``).
   Prometheus text ``version=0.0.4``); GET /readiness: 200 ``{"status":
   "ready", "admission": ..., "slo_burn": ...}`` once the server listens
   and the engine's loop has finished a step, 503 while draining, before
-  that, or once the loop has stopped.  The reference's worker-gang,
-  scaled-to-zero, wedge and cache-sketch branches belong to subsystems the
-  port does not have.
+  that, while the engine recovers from a fault ("recovering") or is wedged
+  ("wedged"), or once the loop has stopped.  The reference's worker-gang,
+  scaled-to-zero and cache-sketch branches belong to subsystems the port
+  does not have.
+- Tracing: a single-choice request carries a W3C ``traceparent`` context
+  (continued from the header, folding in ``x-arks-trace-spans``, or
+  minted).  GET /v1/traces (the retained traces' index),
+  /v1/traces/{trace or request id} (404 when unknown), /v1/traces/export
+  (Chrome trace events, loadable in Perfetto).  POST /v1/profiler/start
+  and /v1/profiler/stop open and close a ``torch.profiler`` window
+  (operator tooling: served while draining, as the reference serves them
+  ahead of its drain gate).
 - Admission: ``x-arks-tenant`` names the request's fair-queue tenant;
   ``x-arks-tier`` maps onto its priority through ``ARKS_SLO_TIERS`` (an
   unknown tier is a 400).  A full queue answers 429 (the tenant's bound)
@@ -42,6 +51,7 @@ import logging
 import threading
 import time
 import uuid
+import weakref
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from arks_tpu_torch import slo as slo_mod
@@ -51,9 +61,13 @@ from arks_tpu_torch.engine import sampler as sampler_mod
 from arks_tpu_torch.engine.engine import InferenceEngine
 from arks_tpu_torch.engine.tokenizer import IncrementalDetokenizer
 from arks_tpu_torch.engine.types import Request, SamplingParams
+from arks_tpu_torch.obs import logctx
+from arks_tpu_torch.obs import perfetto as perfetto_mod
+from arks_tpu_torch.obs import trace as trace_mod
 from arks_tpu_torch.server import tools as tools_mod
 
 log = logging.getLogger("arks_tpu_torch.server")
+logctx.install(log)
 
 # The SLO tier header (the gateway and router forward it).
 HDR_TIER = "x-arks-tier"
@@ -212,7 +226,11 @@ class OpenAIServer:
         self._stopped = False
 
     def start(self, background: bool = True) -> None:
-        server = self
+        # The handler class reaches this server through a weak proxy: a
+        # class is always in a reference cycle (its MRO holds it), so a
+        # strong closure would keep the server, its engine and the weights
+        # alive past ``del`` until a GC pass.
+        server = weakref.proxy(self)
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
@@ -256,12 +274,40 @@ class OpenAIServer:
                         self._json(200, payload)
                     else:
                         self._error(code, payload)
+                elif self.path == "/v1/traces/export":
+                    # Chrome trace-event JSON of every retained trace —
+                    # open at ui.perfetto.dev / chrome://tracing.
+                    tracer = server.engine.trace
+                    tracer.flush()
+                    self._json(200, perfetto_mod.chrome_trace(
+                        tracer.store.all(), tracer.phase_spans()))
+                elif self.path == "/v1/traces":
+                    tracer = server.engine.trace
+                    tracer.flush()
+                    self._json(200, {"traces": [
+                        {"trace_id": t["trace_id"],
+                         "request_id": t["request_id"],
+                         "flags": t["flags"], "tier": t.get("tier"),
+                         "spans": len(t["spans"])}
+                        for t in tracer.store.all()]})
+                elif self.path.startswith("/v1/traces/"):
+                    # By trace id OR request id.
+                    tracer = server.engine.trace
+                    tracer.flush()
+                    tr = tracer.store.get(self.path[len("/v1/traces/"):])
+                    if tr is None:
+                        self._error(404, "trace not found (expired, "
+                                    "sampled out, or still in flight)")
+                    else:
+                        self._json(200, tr)
                 else:
                     self._error(404, f"no route {self.path}")
 
             def do_POST(self):
                 if self.path not in ("/v1/completions",
-                                     "/v1/chat/completions"):
+                                     "/v1/chat/completions",
+                                     "/v1/profiler/start",
+                                     "/v1/profiler/stop"):
                     return self._error(404, f"no route {self.path}")
                 try:
                     n = int(self.headers.get("Content-Length") or 0)
@@ -270,6 +316,13 @@ class OpenAIServer:
                         raise ValueError("request body must be an object")
                 except ValueError as e:
                     return self._error(400, f"bad request body: {e}")
+                if self.path == "/v1/profiler/start":
+                    # A torch.profiler window (operator tooling, ahead of
+                    # the drain gate like the GET diagnostics).
+                    return self._json(200, server.engine.profiler.start(
+                        body.get("logdir") or None))
+                if self.path == "/v1/profiler/stop":
+                    return self._json(200, server.engine.profiler.stop())
                 with server._active_lock:
                     if server.draining:
                         return self._error(503, "server is draining")
@@ -329,7 +382,14 @@ class OpenAIServer:
         """(200, the ready payload) or (503, the reason)."""
         if self.draining:
             return 503, "draining"
-        if not self._ready.is_set() or not self.engine.warm:
+        if not self._ready.is_set():
+            return 503, "not ready"
+        if self.engine.state != "serving":
+            # Fault recovery in progress ("recovering") or a wedged device
+            # awaiting its exit ("wedged"): routes pull this backend;
+            # in-flight streams keep draining.
+            return 503, self.engine.state
+        if not self.engine.warm:
             return 503, "not ready"
         if not self.engine.serving:
             return 503, "engine loop stopped"
@@ -440,6 +500,14 @@ class OpenAIServer:
         for prompt_ids in batch:
             if len(prompt_ids) > limit:
                 return self._context_length_error(h, len(prompt_ids), limit)
+        # W3C trace context: continue the gateway/router-propagated trace
+        # (folding in their completed spans from the x-arks-trace-spans
+        # header) or mint a fresh root.  Only a single-choice request
+        # carries it: sibling choices would collide in the trace store
+        # under one trace id, so they mint engine-local ids.
+        ctx = (trace_mod.TraceCtx.from_headers(h.headers)
+               if self.engine.trace.enabled else None)
+        single = len(batch) == 1 and n == 1
         # Untenanted clients share the fair queue's default lane.
         tenant = (h.headers.get(tenancy.HDR_TENANT) or "").strip() or None
         reqs = []
@@ -450,9 +518,12 @@ class OpenAIServer:
                     p = dataclasses.replace(params, seed=params.seed + j)
                 req = Request(request_id=f"req-{uuid.uuid4().hex[:16]}",
                               prompt_ids=list(prompt_ids), params=p,
-                              tenant=tenant)
+                              tenant=tenant, trace=ctx if single else None)
                 try:
-                    self.engine.add_request(req)
+                    with logctx.bound(req.request_id,
+                                      ctx.trace_id if ctx is not None
+                                      else None):
+                        self.engine.add_request(req)
                 except fairqueue.QueueFullError as e:
                     # A batch admits whole or not at all.
                     for prev in reqs:

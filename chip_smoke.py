@@ -202,18 +202,46 @@ Phases (any failure raises and exits non-zero):
               Qwen2.5-7B bf16 at depth 2 with ARKS_QUEUE_MAX=4 and
               ARKS_QUEUE_TENANT_MAX=3: launches per steady step with the
               metrics within half a launch of those with inert metrics
-              over 128-step windows (no added launch; the profiler may
-              drop a window's first events); behind the server,
+              and of those with request tracing off over 128-step windows
+              (no added launch; the profiler may drop a window's first
+              events); behind the server,
               every issue and admission under set_sync_debug_mode
               ("error"): /metrics counts N successes and the generated
               tokens, /readiness 200, a two-tenant flood gives 429 and
               503 with Retry-After and the survivors 200, drain() with
               two streams in flight turns readiness 503, refuses a new
-              POST with 503 and lets both streams finish whole.
+              POST with 503 and lets both streams finish whole; the
+              engine is then freed by del, with no GC pass.
+  9. recovery fault isolation and token replay on Qwen2.5-7B bf16 at full
+              width (phase_recovery), 8 streams of 64 tokens, greedy and
+              seeded sampling, every dispatch issue sync-checked: on the
+              mixed bf16 paged engine at depths 0 and 2 and the legacy
+              bf16 slot engine at depth 0, decode:5:runtime gives every
+              stream of the fault-free run (a divergence must come as a
+              replay_diverged error) and decode:5:runtime,
+              replay:1:runtime quarantines exactly one; recovery seconds
+              and the peak device memory across a recovery against a
+              fault-free run's; admit_resolve:1:oom re-queues (legacy); a
+              restore fault on a host-tier hit is blamed on the restoring
+              request alone and fails no stream (mixed, depth 2; the
+              replayed bystander's later tokens may differ: logged); every
+              engine is freed by del, with no GC pass (what holds one
+              that is not is logged, and the phase fails); the tracer's
+              events per steady step
+              and ns per evt (phase_operability holds the launches per
+              steady step with tracing off to those with it on, by kernel
+              name); a profiler window holds the port's kernels and the
+              arks_step annotations; in subprocesses (2 layers), a hang
+              past a 2 s ARKS_DISPATCH_DEADLINE_S (the exit timed from the
+              hang's start) and a device-side assert
+              inside a step each end in exit 70 with readiness 503
+              "wedged", the assert's requests in flight answered 500
+              engine_fault.
 The line before the last is the kernels JSON (nine counterparts); the last
 line is the device JSON.  A kernel's "launches" counts its launches in the
 runs of the served path: phase 4's, the request surface's, the pipeline's,
-prefix reuse's, operability's and the checkpoint-loaded engines' included
+prefix reuse's, operability's, the recovery phase's (its replays
+included) and the checkpoint-loaded engines' included
 (the dense launch: its greedy run) and phase 7's (grouped_matmul, every
 quantized product).
 """
@@ -224,11 +252,13 @@ import collections
 import dataclasses
 import http.client
 import json
+import logging
 import math
 import subprocess
 import sys
 import threading
 import time
+import weakref
 
 import numpy as np
 
@@ -4262,7 +4292,9 @@ def phase_operability(torch, dev, params, step_launches):
     with the metrics and the fair queue, then with inert metrics, each
     over a 128-step window — under half a launch a step apart and no
     kernel name launched only with the metrics, so they add no kernel;
-    the host ms of both are reported.  Then behind the server, with every issue and admission
+    the host ms of both are reported; a third window with request
+    tracing off, held to the first by the same rules (tracing adds no
+    kernel).  Then behind the server, with every issue and admission
     under set_sync_debug_mode("error"): N requests give
     request_success_total N and generation_tokens_total the streamed
     tokens less the N first ones (the reference's rule); /readiness 200
@@ -4301,8 +4333,14 @@ def phase_operability(torch, dev, params, step_launches):
     engine.metrics = _InertMetrics()
     try:
         host_inert, inert, names_inert = _steady_launches(torch, engine)
+        # The same window with request tracing off (ARKS_TRACE=0's tracer).
+        engine.metrics = real
+        engine.trace.enabled = False
+        host_untraced, untraced, names_untraced = _steady_launches(torch,
+                                                                   engine)
     finally:
         engine.metrics = real
+        engine.trace.enabled = True
         q.max_total, q.max_tenant = OPS_QUEUE_MAX, OPS_TENANT_MAX
     log(f"[operability] launches per steady step (8 streams, depth 2): "
         f"{with_metrics:.2f} with the metrics and the fair queue, "
@@ -4329,6 +4367,20 @@ def phase_operability(torch, dev, params, step_launches):
                              f"{only_real})")
     res["launches_per_step"] = (with_metrics, inert)
     res["host_ms_per_step"] = (host_real, host_inert)
+    traced_moved = {k: names_real[k] - names_untraced[k]
+                    for k in names_real | names_untraced
+                    if names_real[k] != names_untraced[k]}
+    only_traced = sorted(set(names_real) - set(names_untraced))
+    log(f"[operability] tracing on / off: launches per steady step "
+        f"{with_metrics:.2f} / {untraced:.2f}, host ms per steady step "
+        f"{host_real:.3f} / {host_untraced:.3f}; by kernel name, traced "
+        f"less untraced, over the window: {traced_moved}; names only when "
+        f"traced {only_traced}")
+    if abs(with_metrics - untraced) >= 0.5 or only_traced:
+        raise AssertionError("[operability] tracing changes the kernel "
+                             "launches per step")
+    res["trace_launches_per_step"] = (with_metrics, untraced)
+    res["trace_host_ms_per_step"] = (host_real, host_untraced)
 
     server = OpenAIServer(engine, MODEL, host="127.0.0.1", port=0)
     server.start(background=True)
@@ -4484,7 +4536,697 @@ def phase_operability(torch, dev, params, step_launches):
     log(f"[operability] every issue and admission ({guard.issues}: "
         f"{dict(guard.calls)}) passed set_sync_debug_mode('error'); phase "
         f"took {time.perf_counter() - t_phase:.1f} s")
-    del engine
+    ref = weakref.ref(engine)
+    del engine, guard, server
+    res["freed_by_del"] = _freed_by_del(ref, "operability")
+    return res
+
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: fault isolation, token replay, the watchdog, tracing
+# ---------------------------------------------------------------------------
+
+
+REC_STREAMS, REC_TOKENS = 8, 64           # streams and tokens of a run
+REC_ISSUES = ("_pipe_issue", "_issue_mixed", "_issue_decode")
+REC_PROF_TOKENS = 12                       # tokens a stream in the window
+REC_WINDOW = 32                            # steps a launch-count window
+REC_CHILD_LAYERS = 2                       # depth cut of the subprocesses
+REC_CHILD_TIMEOUT = 240
+REC_DEADLINE_S = 2.0                       # the hang child's watchdog
+
+
+class _SyncGuard(_NoSync):
+    """``_NoSync`` that also records each host sync it caught: the
+    recovery drive routes every exception into the engine's recovery, so a
+    sync error must not pass for an injected fault."""
+
+    def __init__(self, torch, engine, names):
+        super().__init__(torch, engine, names)
+        self.violations = []
+
+    def _wrap(self, name):
+        checked = super()._wrap(name)
+
+        def recorded(*args, **kw):
+            try:
+                return checked(*args, **kw)
+            except RuntimeError as e:
+                if "synchronizing" in str(e):
+                    self.violations.append(f"{name}: {e}")
+                raise
+        return recorded
+
+
+def _rec_requests(engine, tag, tokens=REC_TOKENS):
+    """REC_STREAMS requests of ``tokens`` tokens: even ones greedy, odd
+    ones seeded sampling."""
+    from arks_tpu_torch.engine import Request, SamplingParams
+    tok = engine.tokenizer
+    return [Request(f"{tag}-{i}", tok.encode(f"recovery stream {i}: the "
+                                             f"quick brown fox {i * 7}"),
+                    SamplingParams(max_tokens=tokens,
+                                   temperature=0.0 if i % 2 == 0 else 0.8,
+                                   top_k=50, seed=100 + i, ignore_eos=True))
+            for i in range(REC_STREAMS)]
+
+
+def _rec_drive(engine, reqs, late=(), hook=None, max_steps=20_000):
+    """Add ``reqs`` (and ``late`` once a stream decodes) and drive the
+    engine from this thread through its own step/recover contract until
+    every request ended and the engine is idle and serving; ``hook`` runs
+    after every step until it returns True.  Returns {rid: (tokens,
+    finish reason, error)}."""
+    import queue
+    for r in reqs:
+        engine.add_request(r)
+    late = list(late)
+    reqs = list(reqs) + late
+    out = {r.request_id: [[], None, None] for r in reqs}
+
+    def drain():
+        for r in reqs:
+            while True:
+                try:
+                    o = r.outputs.get_nowait()
+                except queue.Empty:
+                    break
+                rec = out[r.request_id]
+                rec[0] += o.token_ids
+                if o.finished:
+                    rec[1], rec[2] = o.finish_reason, o.error
+
+    for _ in range(max_steps):
+        try:
+            engine.step(block_s=0.001)
+            engine._consec_faults = 0
+        except Exception as e:  # routed as the engine's run loop routes it
+            engine._recover_from_fault(e)
+        drain()
+        if late and engine._slots:
+            for r in late:
+                engine.add_request(r)
+            late = []
+        if hook is not None and hook(engine):
+            hook = None
+        if (not late and all(v[1] for v in out.values()) and engine.idle
+                and engine.state == "serving"):
+            return {k: tuple(v) for k, v in out.items()}
+    raise AssertionError(f"[recovery] requests never ended: "
+                         f"{ {k: (len(v[0]), v[1]) for k, v in out.items()} }")
+
+
+def _rec_metrics(engine):
+    m = engine.metrics
+    rs = m.engine_recovery_seconds._data.values()
+    return dict(faults=m.engine_faults_total.total(),
+                recovered=m.requests_recovered_total.total(),
+                quarantined=m.requests_quarantined_total.total(),
+                recoveries=sum(n for _, _, n in rs),
+                recovery_s=sum(s for _, s, _ in rs))
+
+
+def _rec_run(torch, engine, tag, inject=""):
+    """One 8-stream run with ``inject`` armed: (streams by index, metric
+    deltas, memory allocated before, peak during)."""
+    from arks_tpu_torch.engine import faults
+    engine._faults = faults.FaultInjector(inject)
+    before = _rec_metrics(engine)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reqs = _rec_requests(engine, tag)
+    got = _rec_drive(engine, reqs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    after = _rec_metrics(engine)
+    delta = {k: after[k] - before[k] for k in after}
+    return ([got[r.request_id] for r in reqs], delta, mem0, peak)
+
+
+def _rec_engine(torch, dev, params, sched, depth):
+    eng = _pipe_engine(torch, dev, params, sched, depth, "1")
+    if eng.state != "serving" or not eng.trace.enabled \
+            or eng._fault_retries != 1:
+        raise AssertionError("[recovery] not the reference's defaults")
+    return eng
+
+
+def _rec_engine_checks(torch, engine, tag, res):
+    """The fault-free run, ``decode:5:runtime`` (every stream equals it)
+    and ``decode:5:runtime,replay:1:runtime`` (exactly one quarantined,
+    the rest equal it)."""
+    base, d0, mem0, peak0 = _rec_run(torch, engine, f"{tag}-base")
+    if any(f != "length" or len(t) != REC_TOKENS for t, f, _ in base):
+        raise AssertionError(f"[recovery {tag}] fault-free run cut short")
+    if d0["faults"]:
+        raise AssertionError(f"[recovery {tag}] a fault without injection")
+    got, d1, mem1, peak1 = _rec_run(torch, engine, f"{tag}-dec",
+                                    "decode:5:runtime")
+    diverged = sum(e == "engine_fault: replay_diverged" for *_, e in got)
+    same = sum(g == b for g, b in zip(got, base))
+    log(f"[recovery {tag}] decode:5:runtime: {same}/{REC_STREAMS} streams "
+        f"equal the fault-free run, replay_diverged {diverged}; faults "
+        f"{d1['faults']:.0f}, recovered {d1['recovered']:.0f}, quarantined "
+        f"{d1['quarantined']:.0f}; recovery {d1['recovery_s']:.4f} s; "
+        f"device memory before {mem0} B, peak fault-free {peak0} B, before "
+        f"{mem1} B, peak across the recovery {peak1} B "
+        f"({(peak1 - peak0) / 2**20:+.2f} MiB)")
+    res["diverged"] += diverged
+    if d1["faults"] != 1 or d1["recoveries"] != 1 or d1["quarantined"]:
+        raise AssertionError(f"[recovery {tag}] decode:5 counts {d1}")
+    bad = [i for i, (g, b) in enumerate(zip(got, base))
+           if g != b and g[2] != "engine_fault: replay_diverged"]
+    if bad:
+        raise AssertionError(f"[recovery {tag}] streams {bad} differ from "
+                             "the fault-free run without a replay_diverged")
+    res["recovery_s"].append((tag, d1["recovery_s"]))
+    res["peak"].append((tag, mem1, peak0, peak1))
+    got, d2, _, _ = _rec_run(torch, engine, f"{tag}-quar",
+                             "decode:5:runtime,replay:1:runtime")
+    quar = [i for i, (_, f, e) in enumerate(got)
+            if f == "error" and e != "engine_fault: replay_diverged"]
+    diverged = sum(e == "engine_fault: replay_diverged" for *_, e in got)
+    res["diverged"] += diverged
+    same = sum(g == b for g, b in zip(got, base))
+    log(f"[recovery {tag}] decode:5:runtime,replay:1:runtime: quarantined "
+        f"{quar} ({got[quar[0]][2] if quar else '-'}), {same} streams equal "
+        f"the fault-free run, replay_diverged {diverged}; counts {d2}")
+    if len(quar) != 1 or d2["quarantined"] != 1 or d2["faults"] != 2:
+        raise AssertionError(f"[recovery {tag}] quarantine: {quar} {d2}")
+    bad = [i for i, (g, b) in enumerate(zip(got, base)) if i not in quar
+           and g != b and g[2] != "engine_fault: replay_diverged"]
+    if bad or not got[quar[0]][2].startswith("engine_fault: replay/"):
+        raise AssertionError(f"[recovery {tag}] survivors {bad} differ")
+    if engine.state != "serving":
+        raise AssertionError(f"[recovery {tag}] state {engine.state}")
+
+
+def _rec_admit_oom(torch, engine, res):
+    """``admit_resolve:1:oom`` on the legacy engine: the admission batch's
+    requests re-queue (recovered, none quarantined) and every stream
+    equals the fault-free run."""
+    base, _, _, _ = _rec_run(torch, engine, "oom-base")
+    got, d, _, _ = _rec_run(torch, engine, "oom", "admit_resolve:1:oom")
+    kinds = dict(engine.metrics.engine_faults_total._values)
+    log(f"[recovery legacy] admit_resolve:1:oom: counts {d}; faults by "
+        f"label {kinds}; streams equal {got == base}")
+    if (d["faults"] != 1 or d["quarantined"] or d["recovered"] < 1
+            or got != base
+            or engine.metrics.engine_faults_total.get(
+                phase="admit_resolve", kind="oom") != 1):
+        raise AssertionError(f"[recovery legacy] admit_resolve oom: {d}")
+    res["diverged"] += sum(e == "engine_fault: replay_diverged"
+                           for *_, e in got)
+
+
+def _rec_restore(torch, engine, res):
+    """A host-tier restore fault on the mixed engine: a two-page prefix is
+    served, evicted to the host tier, then requested again beside a
+    decoding stream, once without a fault and once with
+    ``restore:1:runtime``.  The fault is blamed on the restoring request
+    alone (phase "restore", no quarantine, no replay_diverged), and no
+    stream fails: the restoring request's stream equals the fault-free
+    round's, and the bystander's replay passes its gate (the tokens it had
+    before the fault) and finishes whole.  The fault still changes the
+    bystander's later tokens: they need not equal the fault-free round's,
+    which is logged, not required.  Its replay decodes in pipe steps (B
+    rows) where the original round decoded in classic mixed steps
+    (num_slots + budget rows) beside the restoring request's tail, and
+    the GEMMs' bits change with M (``_rec_step_forms``; ROADMAP queue
+    3)."""
+    from arks_tpu_torch.engine import Request, SamplingParams
+    from arks_tpu_torch.engine import faults
+    from arks_tpu_torch.engine.paged import chain_digests
+    rng = np.random.default_rng(SEED + 13)
+    prefix = [int(x) for x in rng.integers(32, 120, 2 * PAGE)]
+    digests = chain_digests(prefix, PAGE, 2)
+    greedy = dict(max_tokens=16, temperature=0.0, ignore_eos=True)
+    warm = Request("restore-warm", prefix + [65, 66, 67],
+                   SamplingParams(**greedy))
+    _rec_drive(engine, [warm])
+    rounds = []
+    for rnd, inject in enumerate(("", "restore:1:runtime")):
+        _settle_spills(engine)
+        _evict_prefix(engine, digests)
+        _settle_spills(engine)
+        if any(engine._host.peek(d) is None for d in digests):
+            raise AssertionError("[recovery restore] prefix not spilled")
+        engine._faults = faults.FaultInjector(inject)
+        before = _rec_metrics(engine)
+        by = Request(f"restore-by-{rnd}", engine.tokenizer.encode(
+            "a bystander decodes while the prefix comes back"),
+            SamplingParams(max_tokens=48, temperature=0.8, top_k=50,
+                           seed=77, ignore_eos=True))
+        victim = Request(f"restore-victim-{rnd}", prefix + [70, 71, 72, 73],
+                         SamplingParams(**greedy))
+        restored0 = engine.prefix_restore_blocks_total
+        got = _rec_drive(engine, [by], late=[victim])
+        after = _rec_metrics(engine)
+        rounds.append((got[by.request_id], got[victim.request_id][:2],
+                       {k: after[k] - before[k] for k in after},
+                       engine.prefix_restore_blocks_total - restored0))
+    (by0, v0, d0, r0), (by1, v1, d1, r1) = rounds
+    label = engine.metrics.engine_faults_total.get(phase="restore",
+                                                   kind="injected")
+    same = next((j for j, (a, b) in enumerate(zip(by1[0], by0[0]))
+                 if a != b), None)
+    log(f"[recovery restore] host-tier hit beside a decoding stream: "
+        f"restored blocks {r0} / {r1}; with restore:1:runtime faults "
+        f"{d1['faults']:.0f} (phase restore: {label:.0f}), quarantined "
+        f"{d1['quarantined']:.0f}; victim equal {v1 == v0}; bystander "
+        f"replayed, finished {by1[1]} {by1[2]}, its checked prefix equal, "
+        f"the whole stream equal to the fault-free round's {by1 == by0} "
+        f"(first differing token index {same}: the pipe step's B rows "
+        f"against the classic step's {engine.ecfg.num_slots} + "
+        f"{engine._mixed_budget})")
+    if (r0 < 2 or r1 < 2 or d0["faults"] or d1["faults"] != 1 or label != 1
+            or d1["quarantined"] or v0[1] != "length" or v1 != v0
+            or by1[1:] != ("length", None)
+            or len(by1[0]) != len(by0[0])):
+        raise AssertionError(f"[recovery restore] {rounds}")
+    res["restore_bystander_equal"] = by1 == by0
+
+
+def _rec_step_forms(torch, engine, res):
+    """Which products change a row's bits with the batch's shape on the
+    card, on the engine's weights at full depth: (1) the bf16 GEMMs of a
+    layer's shapes (q, o, gate/up, down, the unembed) at M rows against
+    the same rows inside M = num_slots + budget; (2) a decode lane's
+    logits from the pipe step's form (B rows) against the classic mixed
+    step's (num_slots + budget rows), and against the classic step with a
+    prefill chunk beside it.  Measured and logged (the byte identity of a
+    replay that decodes in other step forms than its original rests on
+    them)."""
+    from arks_tpu_torch.models import transformer as tf
+    cfg, params, dev = engine.cfg, engine.params, engine.device
+    n, t_flat = engine.ecfg.num_slots, engine.ecfg.num_slots + \
+        engine._mixed_budget
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sweep = {}
+    for name, (k, m) in dict(q=(cfg.hidden_size, cfg.q_dim),
+                             o=(cfg.q_dim, cfg.hidden_size),
+                             up=(cfg.hidden_size, cfg.intermediate_size),
+                             down=(cfg.intermediate_size, cfg.hidden_size),
+                             unembed=(cfg.hidden_size, cfg.vocab_size)
+                             ).items():
+        x = torch.randn(t_flat, k, device=dev, dtype=torch.bfloat16,
+                        generator=gen)
+        w = torch.randn(k, m, device=dev, dtype=torch.bfloat16,
+                        generator=gen) * 0.02
+        ref = torch.einsum("...e,ef->...f", x, w)[:8]
+        sweep[name] = [rows for rows in (8, 16, 32, 48, 64, 96, 128)
+                       if not torch.equal(torch.einsum(
+                           "...e,ef->...f", x[:rows].contiguous(), w)[:8],
+                           ref)]
+        del x, w, ref
+    page = engine._page
+    length, chunk_len = min(41, page // 2), min(32, page // 4)
+    cache = tf.init_paged_cache(cfg, n, page, torch.bfloat16, dev)
+    tables = torch.arange(n, dtype=torch.int32, device=dev).reshape(n, 1)
+    rng = np.random.default_rng(SEED + 5)
+    prompts = rng.integers(32, 120, (n, length))
+
+    def step(lanes, rows, qmax, chunk=None):
+        a = dict(tokens=np.zeros(rows, np.int32),
+                 token_slot=np.full(rows, -1, np.int32),
+                 token_pos=np.full(rows, page, np.int32),
+                 sample_src=np.zeros(n, np.int32),
+                 seq_q_start=np.zeros(n, np.int32),
+                 seq_q_len=np.zeros(n, np.int32),
+                 seq_pos_start=np.zeros(n, np.int32))
+        seqs = [(s, [7 + s], length) for s in lanes]
+        if chunk is not None:
+            seqs.append(chunk)
+        t = 0
+        for s, toks, pos in seqs:
+            q = len(toks)
+            a["tokens"][t:t + q] = toks
+            a["token_slot"][t:t + q] = s
+            a["token_pos"][t:t + q] = np.arange(pos, pos + q)
+            a["seq_q_start"][s], a["seq_q_len"][s] = t, q
+            a["seq_pos_start"][s], a["sample_src"][s] = pos, t + q - 1
+            t += q
+        b = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
+        return tf.mixed_step(params, cfg, cache, tables, b["tokens"],
+                             b["token_slot"], b["token_pos"],
+                             b["sample_src"], b["seq_q_start"],
+                             b["seq_q_len"], b["seq_pos_start"], qmax=qmax)
+
+    for s in range(n):
+        step([], t_flat, length, chunk=(s, prompts[s], 0))
+    pipe = step(range(n), n, 1)
+    classic = step(range(n), t_flat, 1)
+    pipe7 = step(range(n - 1), n, 1)
+    beside = step(range(n - 1), t_flat, chunk_len,
+                  chunk=(n - 1, prompts[n - 1][:chunk_len], length + 1))
+    # One prompt prefilled in two chunks, cut at two places (slots 0 and
+    # 1 of a second pool, the same tokens): the first chunk one full
+    # q-block (32 rows) of it, or a full block and a part of the next.
+    cut_cache = tf.init_paged_cache(cfg, n, page, torch.bfloat16, dev)
+    cache, keep = cut_cache, cache
+    cuts = (32, 36) if length > 36 else (length // 2, length // 2 + 2)
+    for s, c in enumerate(cuts):
+        step([], t_flat, c, chunk=(s, prompts[0][:c], 0))
+    tail = step([], t_flat, length, chunk=(0, prompts[0][cuts[0]:], cuts[0]))
+    tail1 = step([], t_flat, length, chunk=(1, prompts[0][cuts[1]:], cuts[1]))
+    cache = keep
+    forms = dict(
+        prompt_cut_at_two_places=not torch.equal(tail[0], tail1[1]),
+        pipe_vs_classic=[s for s in range(n)
+                         if not torch.equal(pipe[s], classic[s])],
+        pipe_vs_classic_beside_a_chunk=[
+            s for s in range(n - 1) if not torch.equal(pipe7[s], beside[s])],
+        classic_vs_classic_beside_a_chunk=[
+            s for s in range(n - 1)
+            if not torch.equal(classic[s], beside[s])])
+    log(f"[recovery step forms] rows (of the first 8) whose bits differ "
+        f"from the same rows in a {t_flat}-row GEMM, by M: {sweep}; decode "
+        f"lanes whose logits differ: {forms}")
+    res["step_forms"] = dict(gemm_m=sweep, lanes=forms)
+    del cache, cut_cache
+
+
+def _rec_profiler(torch, engine, tmpdir, res):
+    """A profiler window of about REC_PROF_TOKENS steps opened and closed
+    through the engine loop's thread: its trace holds the port's kernels
+    and the arks_step annotations."""
+    import os
+    engine.start()
+    try:
+        r = engine.profiler.start(os.path.join(tmpdir, "window"))
+        if not r.get("ok"):
+            raise AssertionError(f"[recovery profiler] start: {r}")
+        reqs = _rec_requests(engine, "prof", REC_PROF_TOKENS)
+        for q in reqs:
+            engine.add_request(q)
+        for q in reqs:
+            while not q.outputs.get(timeout=300).finished:
+                pass
+        stop = engine.profiler.stop()
+    finally:
+        engine.stop()
+    if not stop.get("ok"):
+        raise AssertionError(f"[recovery profiler] stop: {stop}")
+    from arks_tpu_torch.obs.profiler import TRACE_FILE
+    with open(os.path.join(stop["dir"], TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    names = collections.Counter(str(e.get("name", "")) for e in events)
+    steps = sum(n for k, n in names.items() if k.startswith("arks_step"))
+    ours = {k: n for k, n in names.items() if any(
+        s in k for s in ("mixed_attention", "paged_kv_update",
+                         "decode_attention", "kv_cache_update"))}
+    log(f"[recovery profiler] window over {REC_PROF_TOKENS}-token streams: "
+        f"{len(events)} events, {steps} arks_step annotations, the port's "
+        f"kernels {ours}")
+    if steps < REC_PROF_TOKENS // 2 or not ours:
+        raise AssertionError("[recovery profiler] the window's trace lacks "
+                             "the annotations or the port's kernels")
+    res["profiler"] = (steps, sum(ours.values()))
+
+
+def _rec_tracer_cost(torch, engine, res):
+    """Events per steady step (the rings' indexes over a window) and ns
+    per ``evt`` (a loop on a fresh tracer).  (Launches and host ms per
+    steady step with tracing on and off: ``phase_operability``'s
+    128-step windows.)"""
+    from arks_tpu_torch.obs.trace import Tracer
+    tr = engine.trace
+    marks = []
+
+    def window(e):
+        # Steady once every slot decodes; 4 steps in, count a window.
+        if len(e._slots) == REC_STREAMS or marks:
+            marks.append(sum(r.idx for r in tr._rings))
+        return len(marks) > 4 + REC_WINDOW
+
+    _rec_drive(engine, _rec_requests(engine, "tracer", 2 * REC_WINDOW + 16),
+               hook=window)
+    if len(marks) <= 4 + REC_WINDOW:
+        raise AssertionError("[recovery tracer] no steady window")
+    per_step = (marks[4 + REC_WINDOW] - marks[4]) / REC_WINDOW
+    probe = Tracer(enabled=True)
+    n = 200_000
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        probe.evt("", "phase.decode", "B")
+    ns = (time.perf_counter_ns() - t0) / n
+    log(f"[recovery tracer] {per_step:.2f} events per steady step (depth "
+        f"2, 8 streams), {ns:.1f} ns per evt: {per_step * ns / 1e3:.2f} us "
+        f"a step")
+    res["tracer"] = dict(events_per_step=per_step, ns_per_evt=ns)
+
+
+def _rec_child_run(mode):
+    """A subprocess of this script: ``hang`` (a decode dispatch hangs past
+    a 2 s watchdog deadline) or ``sticky`` (a device-side assert inside a
+    step).  Returns (exit code, the child's report, its seconds)."""
+    import os
+    env = dict(os.environ)
+    if mode == "hang":
+        env.update(ARKS_FAULT_INJECT="decode:3:hang", ARKS_FAULT_HANG_S="60",
+                   ARKS_DISPATCH_DEADLINE_S=str(REC_DEADLINE_S))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, __file__, "--recovery-child", mode],
+                       capture_output=True, text=True, env=env,
+                       timeout=REC_CHILD_TIMEOUT)
+    secs = time.perf_counter() - t0
+    report = None
+    for line in p.stdout.splitlines():
+        if line.startswith("{\"child\""):
+            report = json.loads(line)
+    if report is None:
+        log(f"[recovery child {mode}] stdout tail: {p.stdout[-2000:]}")
+        log(f"[recovery child {mode}] stderr tail: {p.stderr[-3000:]}")
+    return p.returncode, report, secs
+
+
+def recovery_child(mode: str, device: str = "cuda") -> int:
+    """The subprocess side of ``_rec_child_run``: Qwen2.5-7B at full width
+    cut to REC_CHILD_LAYERS layers behind the port's server; two requests
+    in flight when the fault lands.  At the escalation's exit it reports
+    readiness and the requests' HTTP outcomes on one JSON line."""
+    import os
+
+    import torch
+
+    from arks_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arks_tpu_torch.engine.tokenizer import ByteTokenizer
+    from arks_tpu_torch.models import get_config
+    from arks_tpu_torch.server import OpenAIServer
+    dev = torch.device("cuda", 0) if device == "cuda" else \
+        torch.device(device)
+    cfg = dataclasses.replace(get_config(MODEL), num_layers=REC_CHILD_LAYERS)
+    engine = InferenceEngine(cfg, EngineConfig(
+        model=MODEL, num_slots=8, max_cache_len=MAX_PAGES * PAGE,
+        prefill_chunk=PAGE, dtype="bfloat16", kv_cache_dtype="bf16",
+        seed=SEED), ByteTokenizer(), device=dev)
+    server = OpenAIServer(engine, MODEL, host="127.0.0.1", port=0)
+    server.start(background=True)
+    outcomes, clients, hang_t0 = [], [], []
+
+    class HangStart(logging.Handler):
+        """The monotonic time the injected hang begins (the injector logs
+        it just before it sleeps)."""
+
+        def emit(self, record):
+            if "kind=hang" in record.getMessage() and not hang_t0:
+                hang_t0.append(time.monotonic())
+
+    logging.getLogger("arks_tpu_torch.faults").addHandler(HangStart())
+
+    def on_exit(code):
+        t_exit = time.monotonic()
+        st = _get(server.port, "/readiness")
+        if mode == "sticky":
+            # Their errors are on the way (a hung step answers nothing).
+            for th in clients:
+                th.join(30)
+        print(json.dumps({"child": mode, "code": code,
+                          "readiness": [st[0], st[1]],
+                          "state": engine.state,
+                          "outcomes": outcomes,
+                          "hang_to_exit_s": t_exit - hang_t0[0]
+                          if hang_t0 else None}), flush=True)
+        os._exit(code)
+
+    engine._exit_fn = on_exit
+    if mode == "sticky":
+        real = engine._pipe_issue
+        calls = []
+
+        def poisoned(*a, **k):
+            calls.append(1)
+            if len(calls) == 4:
+                # An out-of-bounds gather: the kernel's device-side
+                # assert poisons the context; the error surfaces at the
+                # next read of a result.
+                x = torch.zeros(4, device=dev)
+                x[torch.full((1,), 1 << 20, device=dev)] += 1
+            return real(*a, **k)
+
+        engine._pipe_issue = poisoned
+    engine.start()
+    for i in range(2):
+        def post(i=i):
+            st, body, _ = _post_h(server.port, {
+                "prompt": f"in flight {i}", "max_tokens": 200,
+                "temperature": 0, "ignore_eos": True}, {})
+            outcomes.append([st, body.get("error", {}).get("code")
+                             if isinstance(body, dict) else None])
+        th = threading.Thread(target=post)
+        th.start()
+        clients.append(th)
+    time.sleep(REC_CHILD_TIMEOUT)
+    return 1
+
+
+def _holders(ref, limit=400) -> str:
+    """What keeps the object behind ``ref`` alive: the frames (innermost
+    last), tracebacks and functions among its referrers, followed
+    transitively up to ``limit`` objects, and a count of the other
+    referrers by type."""
+    import gc
+    import types
+    skip = set()
+    target = ref()
+    seen, frontier, found = {id(target)}, [target], []
+    kinds = collections.Counter()
+    skip.update((id(seen), id(frontier), id(found), id(kinds),
+                 id(sys._getframe())))
+    while frontier and len(seen) < limit:
+        nxt = []
+        skip.add(id(nxt))
+        for obj in frontier:
+            refs = gc.get_referrers(obj)
+            skip.add(id(refs))
+            for r in refs:
+                if id(r) in seen or id(r) in skip:
+                    continue
+                seen.add(id(r))
+                nxt.append(r)
+                if isinstance(r, types.FrameType):
+                    c = r.f_code
+                    found.append(f"frame {c.co_name} "
+                                 f"{c.co_filename.rsplit('/', 2)[-2:]}:"
+                                 f"{r.f_lineno}")
+                elif isinstance(r, (types.TracebackType, types.FunctionType)):
+                    found.append(f"{type(r).__name__} "
+                                 f"{getattr(r, '__qualname__', '')}")
+                else:
+                    kinds[type(r).__name__] += 1
+            del refs
+        frontier = nxt
+    del target, frontier
+    return f"{found[:40]}; other referrers {dict(kinds)}"
+
+
+def _freed_by_del(ref, tag, wait_s=5.0) -> bool:
+    """Check that the engine behind ``ref`` was freed when its last name
+    was deleted, with no GC pass: an engine kept by a reference cycle
+    holds its pool, and the weights, until a pass runs, and the phases
+    after it measure memory.  A server's request threads may still be
+    ending (their frames hold it), so it waits up to ``wait_s`` with the
+    collector off.  If not freed, log what holds it, collect, and fail
+    the phase."""
+    import gc
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        deadline = time.monotonic() + wait_s
+        while ref() is not None and time.monotonic() < deadline:
+            time.sleep(0.05)
+    finally:
+        if was_on:
+            gc.enable()
+    if ref() is None:
+        log(f"[{tag}] the engine was freed by del, with no GC pass")
+        return True
+    log(f"[{tag}] the engine outlived del; held by {_holders(ref)}")
+    gc.collect()
+    raise AssertionError(f"[{tag}] the engine outlived del (freed by a GC "
+                         f"pass: {ref() is None})")
+
+
+def phase_recovery(torch, dev, params):
+    """Fault isolation, token replay and the watchdog on Qwen2.5-7B bf16
+    at full width (``params``), 8 streams of 64 tokens (greedy and seeded
+    sampling), every dispatch issue (and the mixed engines' admissions)
+    under set_sync_debug_mode("error"):
+    - the mixed bf16 paged engine at depths 0 and 2 and the legacy bf16
+      slot engine at depth 0: ``decode:5:runtime`` gives every stream of
+      the fault-free run (or reports a replay_diverged error), and
+      ``decode:5:runtime,replay:1:runtime`` quarantines exactly one;
+      recovery seconds and the peak device memory across a recovery
+      against a fault-free run's (no second pool);
+    - the legacy engine: ``admit_resolve:1:oom`` re-queues its batch;
+    - the mixed engine at depth 2: a ``restore`` fault on a host-tier hit
+      is blamed on the restoring request alone (no quarantine), its
+      stream equals the fault-free round's and the replayed bystander's
+      is whole (its tokens after the checked prefix may differ: ROADMAP
+      queue 3);
+    - the tracer: events per steady step and ns per evt (launches per
+      step traced and not: phase_operability);
+    - a profiler window of ~12 steps holds the port's kernels and the
+      arks_step annotations;
+    - subprocesses: a hang past a 2 s ARKS_DISPATCH_DEADLINE_S exits 70
+      within [deadline - 0.5, deadline + 1] s of the hang's start, and a
+      device-side assert inside a step fails the requests in flight
+      with an engine_fault error (HTTP 500), readiness 503 "wedged",
+      exit 70."""
+    import tempfile
+    t_phase = time.perf_counter()
+    res = dict(diverged=0, recovery_s=[], peak=[], syncs=0, freed_by_del=[])
+    for sched, depth in (("mixed", "0"), ("mixed", "2"), ("legacy", "0")):
+        tag = f"{sched} depth {depth}"
+        engine = _rec_engine(torch, dev, params, sched, depth)
+        names = REC_ISSUES + (("_admit",) if sched == "mixed" else ())
+        with _SyncGuard(torch, engine, names) as guard:
+            _rec_engine_checks(torch, engine, tag, res)
+            if sched == "legacy":
+                _rec_admit_oom(torch, engine, res)
+            if sched == "mixed" and depth == "2":
+                _rec_restore(torch, engine, res)
+                _rec_tracer_cost(torch, engine, res)
+                _rec_step_forms(torch, engine, res)
+        log(f"[recovery {tag}] {guard.issues} issues passed "
+            f"set_sync_debug_mode('error') ({dict(guard.calls)})")
+        if guard.violations:
+            raise AssertionError(f"[recovery {tag}] host syncs: "
+                                 f"{guard.violations[:3]}")
+        res["syncs"] += guard.issues
+        if sched == "mixed" and depth == "2":
+            with tempfile.TemporaryDirectory() as d:
+                _rec_profiler(torch, engine, d, res)
+        ref = weakref.ref(engine)
+        del engine, guard
+        res["freed_by_del"].append((tag, _freed_by_del(
+            ref, f"recovery {tag}")))
+        torch.cuda.empty_cache()
+    for mode in ("hang", "sticky"):
+        code, rep, secs = _rec_child_run(mode)
+        log(f"[recovery child {mode}] exit {code} after {secs:.1f} s: {rep}")
+        if code != 70 or rep is None or rep["state"] != "wedged" or \
+                rep["readiness"] != [503, {"error": {
+                    "message": "wedged", "code": 503}}]:
+            raise AssertionError(f"[recovery child {mode}] {code} {rep}")
+        if mode == "sticky" and sorted(map(tuple, rep["outcomes"])) != \
+                [(500, "engine_fault")] * 2:
+            raise AssertionError(f"[recovery child sticky] {rep}")
+        if mode == "hang" and not (
+                REC_DEADLINE_S - 0.5 <= (rep["hang_to_exit_s"] or 0)
+                <= REC_DEADLINE_S + 1.0):
+            # The watchdog polls every min(deadline / 4, 1) s from the
+            # step's heartbeat, which precedes the hang by the step's
+            # host work.
+            raise AssertionError(f"[recovery child hang] exit "
+                                 f"{rep['hang_to_exit_s']} s after the hang "
+                                 f"began (deadline {REC_DEADLINE_S} s)")
+        res[f"child_{mode}_s"] = secs
+    log(f"[recovery] replay_diverged {res['diverged']}; recovery seconds "
+        f"{res['recovery_s']}; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
     return res
 
 
@@ -4541,6 +5283,9 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
     ops = phase_operability(torch, dev, params, step_launches)
+    _reset_counts()
+    recov = phase_recovery(torch, dev, params)
+    recov["launches"] = _read_counts()
     del params
     torch.cuda.empty_cache()
     upd_t, attn_t, dense_t = phase_times(torch, b)
@@ -4558,7 +5303,8 @@ def main() -> int:
     pipe_n = collections.Counter(pipeline["launches"])
     pipe_n.update(prefix["launches"])     # served at the defaults, as are
     pipe_n.update(ops["counts"])          # the operability engine and the
-    pipe_n.update(ckpt_n)                 # checkpoint-loaded ones
+    pipe_n.update(ckpt_n)                 # checkpoint-loaded ones, and
+    pipe_n.update(recov["launches"])      # the recovery phase's engines
     attn_launches = (serve["launches"]["paged_mixed_attention"]
                      + serve8["launches"]["paged_mixed_attention"]
                      + paged4["launches"]["paged_mixed_attention"]
@@ -4657,6 +5403,20 @@ def main() -> int:
         f"{ops['host_ms_per_step'][0]:.3f} with metrics, "
         f"{ops['host_ms_per_step'][1]:.3f} inert; drain "
         f"{ops['drain_s']:.2f} s")
+    log(f"[recovery table] tracing on / off: launches per steady step "
+        f"{ops['trace_launches_per_step'][0]:.2f} / "
+        f"{ops['trace_launches_per_step'][1]:.2f}, host ms "
+        f"{ops['trace_host_ms_per_step'][0]:.3f} / "
+        f"{ops['trace_host_ms_per_step'][1]:.3f}")
+    log(f"[recovery table] replay_diverged {recov['diverged']}; recovery "
+        f"seconds {recov['recovery_s']}; device memory (engine, before, "
+        f"fault-free peak, peak across the recovery) {recov['peak']}; tracer "
+        f"{recov['tracer']}; profiler window (arks_step annotations, the "
+        f"port's kernel events) {recov['profiler']}; restore bystander equal "
+        f"{recov['restore_bystander_equal']}; step forms "
+        f"{recov['step_forms']}; issues sync-checked "
+        f"{recov['syncs']}; subprocesses hang {recov['child_hang_s']:.1f} s, "
+        f"sticky {recov['child_sticky_s']:.1f} s; launches {recov['launches']}")
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}))
@@ -4667,4 +5427,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--recovery-child"]:
+        sys.exit(recovery_child(sys.argv[2]))
     sys.exit(main())

@@ -138,7 +138,10 @@ def test_metrics_and_readiness(monkeypatch):
         assert _metric(text, 'ttft_seconds_count{tier="default"}') == n
         assert 'engine_config_info{' in text and \
             'decode_impl="plain"' in text
-        assert "spec_decode" not in text and "engine_faults" not in text
+        # Speculative decoding is not served; fault recovery is (its
+        # families render, the engine serving).
+        assert "spec_decode" not in text and "engine_faults_total" in text
+        assert _metric(text, "engine_state") == 0
     finally:
         srv.stop()
         eng.stop()
@@ -181,6 +184,29 @@ def test_drain_finishes_streams_and_refuses_new_work(monkeypatch):
     finally:
         srv.stop()
         eng.stop()
+
+
+def test_server_and_engine_are_freed_without_a_gc_pass(monkeypatch):
+    """A server that answered a request and stopped, dropped by ``del``
+    with its engine, frees the engine at once: the request handler class
+    (always in a reference cycle) holds the server only weakly, so no
+    cycle keeps the engine, and the weights, alive until a GC pass."""
+    import gc
+    import weakref
+    gc.collect()
+    gc.disable()
+    try:
+        eng, srv = _server(monkeypatch)
+        _wait_ready(srv.port)
+        st, body, _ = _request(srv.port, "POST", "/v1/completions", BODY)
+        assert st == 200 and body["choices"][0]["finish_reason"] == "length"
+        srv.stop()
+        eng.stop()
+        refs = (weakref.ref(eng), weakref.ref(srv))
+        del eng, srv
+        assert [r() for r in refs] == [None, None]
+    finally:
+        gc.enable()
 
 
 def test_queue_bounds_tenant_and_tier_headers(monkeypatch):
