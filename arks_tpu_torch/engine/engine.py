@@ -77,23 +77,30 @@ everyone else: a request that had emitted tokens replays from its prompt
 with its pinned seed behind a ``_ReplayGate`` that drops what the client
 already has and checks every regenerated token (a mismatch fails the
 request with ``replay_diverged``, never splices a divergent tail).  Replays
-take the shapes the original prefill had (``_ReplayShape``): a classic
-mixed step runs its flat batch at ``num_slots`` + the chunk budget tokens
-when it carries prefill chunks (the reference's fixed shape) and at
-``num_slots`` when it decodes only (the pipe step's), a replayed prompt is
-cut into the original's chunks, and a replayed one-shot admission is
-padded to its original batch size.  A CUDA error that poisons the context (``faults.is_sticky``)
+take the shapes the original prefill had (``_ReplayShape``): a replayed
+prompt is cut into the original's chunks, and a replayed one-shot
+admission is padded to its original batch size.  A decode lane's bits do
+not depend on the step form: a classic mixed step runs its decode lanes as
+a block of ``num_slots`` rows, the pipe step's, apart from the chunk
+budget's block when it carries prefill chunks (``mixed_step``'s
+``split``).  A CUDA error that poisons the context (``faults.is_sticky``)
 cannot be recovered in-process: the engine fails every request, flips to
 ``wedged`` and exits 70, as the dispatch watchdog does
 (``ARKS_DISPATCH_DEADLINE_S``).  The tracer (``obs/trace.py``,
 ``ARKS_TRACE``, default on) records the reference's lifecycle events into
 per-thread rings; ``profiler`` opens ``torch.profiler`` windows.
 
+SLO tiers preempt (``ARKS_PREEMPT``): a queued request of a higher tier
+that finds no free slot takes the slot of a running lower-tier request.
+On a paged pool with the host tier the victim's valid pages and sampler
+row go to host RAM (``SwapStore``, inside ``ARKS_PREFIX_HOST_MB``) and it
+resumes later where it stopped; otherwise (the slot cache, the host tier
+off, or a full budget) it re-queues behind a ``_ReplayGate`` and re-runs.
+
 What the reference does and this port does not — the disk prefix tier,
-peer prefix fetch, the cache sketch, preemptive swap, speculative decoding,
-parallelism — is rejected (``EngineConfig.validate``, and
-``check_unserved_knobs`` for the environment) rather than silently
-ignored.
+peer prefix fetch, the cache sketch, speculative decoding, parallelism —
+is rejected (``EngineConfig.validate``, and ``check_unserved_knobs`` for
+the environment) rather than silently ignored.
 """
 
 from __future__ import annotations
@@ -123,9 +130,9 @@ from arks_tpu_torch.engine.metrics import EngineMetrics
 from arks_tpu_torch.engine.paged import (PageAllocator, chain_digests,
                                          mixed_grid_steps, mixed_kv_bytes,
                                          pages_needed)
-from arks_tpu_torch.engine.prefix_cache import HostPrefixTier, PrefixKVCache
+from arks_tpu_torch.engine.prefix_cache import (HostPrefixTier, PrefixKVCache,
+                                                SwapStore)
 from arks_tpu_torch.engine.types import Request, RequestOutput
-from arks_tpu_torch.models import moe
 from arks_tpu_torch.models import quant
 from arks_tpu_torch.models import transformer as tf
 from arks_tpu_torch.models.config import ModelConfig
@@ -281,9 +288,8 @@ def prefix_host_mb_knob() -> int:
 
 def check_unserved_knobs() -> None:
     """Raise on a knob that asks for a reference subsystem the port does
-    not have yet: the disk prefix tier (``ARKS_PREFIX_DISK_MB`` > 0), peer
-    prefix fetch (``ARKS_PEER_FETCH``, ``ARKS_PEER_ADDRS``) and preemptive
-    swap (``ARKS_PREEMPT``)."""
+    not have yet: the disk prefix tier (``ARKS_PREFIX_DISK_MB`` > 0) and
+    peer prefix fetch (``ARKS_PEER_FETCH``, ``ARKS_PEER_ADDRS``)."""
     on = ("1", "true", "yes", "on")
     disk = knobs.get_str("ARKS_PREFIX_DISK_MB").strip()
     asked = []
@@ -293,8 +299,6 @@ def check_unserved_knobs() -> None:
         asked.append("ARKS_PEER_FETCH (peer prefix fetch)")
     if knobs.get_str("ARKS_PEER_ADDRS", "").strip():
         asked.append("ARKS_PEER_ADDRS (peer prefix fetch)")
-    if knobs.get_str("ARKS_PREEMPT").strip().lower() in on:
-        asked.append("ARKS_PREEMPT (preemptive swap)")
     if asked:
         raise NotImplementedError(
             f"{', '.join(asked)}: not served by this port yet")
@@ -363,6 +367,71 @@ class _RestoreState:
     t0: float
 
 
+@dataclasses.dataclass
+class _SwapRecord:
+    """A preempted request's host-side slot snapshot (``ARKS_PREEMPT``):
+    what ``_finish_resume`` rebuilds its ``_Slot`` and host mirrors from
+    once its pages are back.  The device halves (page blocks, sampler
+    row) sit in the ``SwapStore`` entry under the same request id."""
+
+    request: Request
+    num_prompt: int
+    generated: list
+    num_emitted: int
+    logprobs: list
+    seed: int
+    length: int       # host lengths mirror at preempt (valid KV rows)
+    last_token: int   # host last-token mirror at preempt
+    stop_col: object
+    dead_len: int
+    n_pages: int      # pool pages covering rows [0, length)
+    priority: int
+    t0: float         # preempt issue time (preempt_swap_seconds)
+    shape: "_ReplayShape | None" = None
+
+
+@dataclasses.dataclass
+class _SwapState:
+    """An in-flight preempt spill: the victim's slot is already free
+    (stream order keeps the gathers ahead of any later write) and these
+    device-to-host copies are draining: ``staged`` [(valid pages,
+    _PinnedCopy of the gathered k, v[, scales])] and ``row`` (a
+    _PinnedCopy of key, counts, guide_row)."""
+
+    rec: _SwapRecord
+    staged: list
+    row: "_PinnedCopy"
+
+    def ready(self) -> bool:
+        return self.row.ready() and all(c.ready() for _, c in self.staged)
+
+    def copies(self) -> list:
+        return [c for _, c in self.staged] + [self.row]
+
+
+@dataclasses.dataclass
+class _ResumeState:
+    """A preempt-swap resume in flight: the request holds ``slot`` while
+    its page blocks scatter back, parked in ``_awaiting_restore`` beside
+    the prefix restores; ``_finish_resume`` registers the slot once
+    ``done`` has passed.  No prefill, no first token: the stream goes
+    on."""
+
+    rec: _SwapRecord
+    slot: int
+    pages: list[int]
+    done: object         # a CUDA event after the last scatter, or None
+    t0: float
+
+    @property
+    def request(self) -> Request:
+        return self.rec.request
+
+    @property
+    def ids(self) -> list[int]:
+        return self.rec.request.prompt_ids
+
+
 @dataclasses.dataclass(frozen=True)
 class _ReplayShape:
     """How a request's prompt was prefilled: the one-shot admission
@@ -418,14 +487,12 @@ class _ReplayGate:
       the fault (``expect``, the tokens the client holds or was about to
       get) is checked against the recorded stream; a mismatch fails THIS
       request with an engine_fault error instead of splicing a divergent
-      tail onto the client's stream.  Byte identity is enforced for that
-      prefix only: a token after it is new and nothing checks it.  It
-      equals the fault-free run's token when the replay's steps have the
-      original steps' shapes (``_ReplayShape``); on the card a decode
-      token from the pipe step (B rows) and one from the classic mixed
-      step (num_slots + chunk budget rows) differ in their last bits, so
-      a replay that decodes in other step forms than its original may
-      drift after the checked prefix;
+      tail onto the client's stream.  The gate checks that prefix only: a
+      token after it is new.  It equals the fault-free run's token too,
+      since the replay's prefill repeats the original's shapes
+      (``_ReplayShape``) and a decode lane computes the same bits in
+      every step form (the pipe step's B rows, and the decode block of a
+      classic mixed step, with or without prefill chunks beside it);
     - **re-entrancy**: a second fault during the re-run just restarts the
       cursor (``restart``); ``client_total`` survives, so suppression
       stays exact across nested recoveries.
@@ -793,24 +860,36 @@ class InferenceEngine:
         self._spill_victims: list = []
         if self._paged and host_mb:
             self._host = HostPrefixTier(c, host_mb * 2**20)
+        # Preemptive KV swap (ARKS_PREEMPT): victims' decode state parks in
+        # the SwapStore, inside the host tier's budget, so swap mode needs
+        # the host tier; without it victims preempt in replay mode.
+        # Victims whose spill copies are in flight, those parked in host
+        # RAM, the replay-mode ones on their way back to a slot, and each
+        # victim's last preempt (the anti-thrash cooldown).
+        self._preempt_on = knobs.get_bool("ARKS_PREEMPT")
+        self._preempt_max = knobs.get_int("ARKS_PREEMPT_MAX_INFLIGHT",
+                                          minimum=1)
+        self._preempt_cooldown_s = knobs.get_float("ARKS_PREEMPT_COOLDOWN_S",
+                                                   minimum=0)
+        self._swap = SwapStore(self._host) if self._host is not None \
+            else None
+        self._swap_pending: list[_SwapState] = []
+        self._swapped: dict[str, _SwapRecord] = {}
+        self._resuming: set[str] = set()
+        self._preempt_last: dict[str, float] = {}
         self._alloc = self._new_allocator(num_pages) if self._paged else None
         self._prefix = None
         if not self._paged and engine_cfg.prefix_cache_mb:
             self._prefix = PrefixKVCache(c, engine_cfg.prefix_cache_mb * 2**20)
         self._spill_group = min(8, max(self._max_pages, 1))
         self._spills: collections.deque = collections.deque()
-        self._awaiting_restore: list[_RestoreState] = []
+        # Host-tier restores and preempt-swap resumes in flight.
+        self._awaiting_restore: list = []
         self._mixed_budget = 0
-        self._moe_grouped = False
         if self._mixed:
             budget = knobs.get_int("ARKS_MIXED_CHUNK_TOKENS", fallback=c,
                                    minimum=1)
             self._mixed_budget = min(budget, engine_cfg.max_cache_len)
-            # The reference runs every mixed step at its padded flat batch
-            # (num_slots + budget tokens), so its MoE dispatch is fixed per
-            # engine; the port's classic step runs that batch when it
-            # carries chunks, and its pipe step keeps the decision.
-            self._moe_grouped = moe.use_grouped(n + self._mixed_budget)
         self._buckets = engine_cfg.resolve_buckets()
         self._admit_sizes = admit_batch_sizes()
         self._pipe_depth = pipeline_depth_knob()
@@ -928,10 +1007,12 @@ class InferenceEngine:
         self._running = False
         self._thread: threading.Thread | None = None
         # Mixed dispatches issued (each runs every layer's two kernels once),
-        # and those that carried decode and prefill-chunk tokens together;
+        # those that carried prefill chunks (run as two row blocks) and
+        # those that carried decode and prefill-chunk tokens together;
         # legacy decode dispatches and their decode steps (each step runs
         # every layer's update and attention kernels once).
         self.dispatches = 0
+        self.chunk_dispatches = 0
         self.shared_dispatches = 0
         self.decode_dispatches = 0
         self.decode_steps = 0
@@ -965,7 +1046,12 @@ class InferenceEngine:
             "pipeline_depth": str(self._pipe_depth),
             "prefix_host_mb": str(host_mb),
             "spec_mixed": "false",
-            "preempt": "off",
+            # "swap": victims' decode state goes to host RAM; "replay":
+            # victims re-queue and re-run; "off": priority only orders the
+            # queue.
+            "preempt": ("off" if not self._preempt_on else
+                        "swap" if self._preempt_swap_capable() else
+                        "replay"),
             "tensor_parallel": "1",
             "data_parallel": "1",
         }
@@ -1136,9 +1222,10 @@ class InferenceEngine:
         waited longer than the factor times its tier's ttft_ms budget."""
         if not self._shed_deadline_factor or not self._slo:
             return False
-        if isinstance(req.outputs, _ReplayGate):
-            # A replayer was decoding before its fault: shedding it would
-            # break the stream its client already holds.
+        if isinstance(req.outputs, _ReplayGate) or \
+                req.request_id in self._resuming:
+            # A replayer was decoding before its fault or its preemption:
+            # shedding it would break the stream its client already holds.
             return False
         tier = self._slo.get(self._slo.tier_of(req.params.priority))
         if tier is None or not tier.ttft_ms:
@@ -1163,10 +1250,18 @@ class InferenceEngine:
         setter instead of increments on every path; any thread)."""
         m = self.metrics
         m.admission_queue_depth.set(self._queue.qsize())
-        guide, restore = len(self._awaiting_guide), len(self._awaiting_restore)
-        m.num_requests_waiting.set(self._queue.qsize() + guide + restore)
+        guide = len(self._awaiting_guide)
+        resume = sum(isinstance(r, _ResumeState)
+                     for r in self._awaiting_restore)
+        restore = len(self._awaiting_restore) - resume
+        # Preempted victims: spill in flight, in host RAM, or scattering
+        # back into a slot.
+        preempt = len(self._swap_pending) + len(self._swapped) + resume
+        m.num_requests_waiting.set(self._queue.qsize() + guide + restore
+                                   + preempt)
         m.requests_parked.set(guide, reason="guide")
         m.requests_parked.set(restore, reason="restore")
+        m.requests_parked.set(preempt, reason="preempt")
 
     def abort(self, request_id: str) -> None:
         """Free the request's slot at the next scheduler boundary."""
@@ -1243,6 +1338,7 @@ class InferenceEngine:
                 and not self._pending_admits and not self._pipe_inflight
                 and self._pipe_state is None
                 and not self._awaiting_guide and not self._awaiting_restore
+                and not self._swap_pending and not self._swapped
                 and self._queue.empty())
 
     @property
@@ -1259,6 +1355,7 @@ class InferenceEngine:
             self._abort_awaiting_guide()
             self._abort_pending_admits()
             self._abort_awaiting_restores()
+            self._abort_swapped()
 
     def _run_loop(self) -> None:
         prof = self.profiler
@@ -1351,6 +1448,9 @@ class InferenceEngine:
                    for rec in self._awaiting_restore]
         failed += [(req, len(req.prompt_ids), 0)
                    for req, _ in self._awaiting_guide]
+        failed += [(rec.request, rec.num_prompt, len(rec.generated))
+                   for rec in [sw.rec for sw in self._swap_pending]
+                   + list(self._swapped.values())]
         while True:
             try:
                 _, _, req = self._queue.get_nowait()
@@ -1363,6 +1463,8 @@ class InferenceEngine:
         self._pending_n = 0
         self._awaiting_restore = []
         self._awaiting_guide = []
+        self._swap_pending = []
+        self._swapped.clear()
         for req, n_prompt, n_gen in failed:
             req.outputs.put(RequestOutput(
                 request_id=req.request_id, token_ids=[], finished=True,
@@ -1429,6 +1531,11 @@ class InferenceEngine:
                 survivors.append(self._survivor_of(req, len(ids)))
             self._dropped_copies.append(rec[2])
         for rst in self._awaiting_restore:
+            if isinstance(rst, _ResumeState):
+                # A preempt resume mid-scatter replays like any decoding
+                # survivor (the swap path itself may be what faulted).
+                survivors.append(self._swap_survivor(rst.rec))
+                continue
             # Restore-parked requests emitted nothing: plain re-queue.  The
             # host tier survives the reset, so the re-run's admission hits
             # it again instead of re-prefilling.
@@ -1436,6 +1543,20 @@ class InferenceEngine:
                 request=rst.request, seed=self._resolve_seed(rst.request),
                 num_prompt=len(rst.ids)))
         self._awaiting_restore = []
+        # Preempted victims (spill in flight, or parked in host RAM) replay
+        # rather than trust a snapshot that may share the fault's stream;
+        # their SwapStore bytes come back.
+        for sw in self._swap_pending:
+            survivors.append(self._swap_survivor(sw.rec))
+            self._dropped_copies.extend(sw.copies())
+        self._swap_pending = []
+        for rid_sw, rec_sw in self._swapped.items():
+            self._swap.discard(rid_sw)
+            survivors.append(self._swap_survivor(rec_sw))
+        self._swapped.clear()
+        if self._swap is not None:
+            self.metrics.prefix_cache_usage_bytes.set(self._swap.bytes_used,
+                                                      tier="swap")
         self._slots.clear()
         self._prefilling.clear()
         self._pending_admits.clear()
@@ -1530,6 +1651,14 @@ class InferenceEngine:
         serve no specific request — nobody's retry budget burns for one."""
         if phase == "guide":
             return ()
+        if phase == "preempt":
+            # Every preempt site names its victim; an unattributed preempt
+            # fault is host-side scheduling code: blame the swap traffic,
+            # not the decoding slots.
+            return ([sw.rec.request.request_id for sw in self._swap_pending]
+                    + list(self._swapped)
+                    + [r.request.request_id for r in self._awaiting_restore
+                       if isinstance(r, _ResumeState)])
         rids = [st.request.request_id for st in self._slots.values()]
         if phase == "mixed":
             rids += [cs.request.request_id
@@ -1546,6 +1675,8 @@ class InferenceEngine:
                  for req, _, _ in rec[0]}
         live |= {req.request_id for req, _ in self._awaiting_guide}
         live |= {rec.request.request_id for rec in self._awaiting_restore}
+        live |= {sw.rec.request.request_id for sw in self._swap_pending}
+        live |= set(self._swapped)
         return live
 
     def _fail_survivor(self, sv: _Survivor, reason: str,
@@ -1583,7 +1714,8 @@ class InferenceEngine:
             with self._abort_lock:
                 live |= self._queued_rids
             self._replaying &= live
-            for rid in set(self._replay_shape) - self._replaying:
+            for rid in set(self._replay_shape) - self._replaying - \
+                    self._resuming:
                 del self._replay_shape[rid]
             if self._replaying:
                 return
@@ -1608,6 +1740,9 @@ class InferenceEngine:
             self._abort_prefill(slot)
         self._abort_pending_admits()
         self._abort_awaiting_restores()
+        # Preempted victims fail too, and their SwapStore entries go with
+        # them: swapped-out KV may carry the poison back on resume.
+        self._abort_swapped()
         # Deep clean: cached prefix KV may itself be the poison.
         if self._prefix is not None:
             self._prefix.clear()
@@ -1633,6 +1768,9 @@ class InferenceEngine:
         self._spill_victims.clear()
         while self._spills:
             self._dropped_copies.append(self._spills.popleft()[1])
+        for sw in self._swap_pending:
+            self._dropped_copies.extend(sw.copies())
+        self._swap_pending = []
         dropped, self._dropped_copies = self._dropped_copies, []
         for copy in dropped:
             copy.drop()
@@ -1713,6 +1851,20 @@ class InferenceEngine:
         if self._spills:
             worked = self._resolve_spills() or worked
         self._queue_age_tick()
+        if self._swap_pending or self._swapped or self._preempt_on:
+            # Preemptive KV swap: harvest landed victim spills into the
+            # SwapStore, serve aborts and resumes of swapped-out victims,
+            # then seize slots for outranking queued requests — all before
+            # the issue block, so a freed slot admits in this same step.
+            tp = time.monotonic()
+            if self._swap_pending:
+                worked = self._resolve_preempt_swaps() or worked
+            if self._swapped:
+                worked = self._service_swapped() or worked
+            worked = self._maybe_preempt() or worked
+            t0 = time.monotonic()
+            if t0 - tp > 1e-4:
+                sec.inc(t0 - tp, phase="preempt")
         if self._mixed:
             rec = None
             if self._slots or self._prefilling:
@@ -1762,7 +1914,8 @@ class InferenceEngine:
         self._update_waiting()
         if worked:
             return True
-        if self._awaiting_restore or self._spills:
+        if self._awaiting_restore or self._spills or self._swap_pending \
+                or self._swapped:
             # They land on device time, not on queue arrivals: poll again.
             time.sleep(0.001)
             return True
@@ -1807,10 +1960,12 @@ class InferenceEngine:
         groups: dict[tuple[int, int], list] = {}
         try:
             while self._free:
-                # Requests parked on a restore hold pages for a slot they
-                # have yet to take: they count against the free slots.
-                if sum(len(v) for v in groups.values()) + \
-                        len(self._awaiting_restore) >= len(self._free):
+                # Requests parked on a prefix restore hold pages for a slot
+                # they have yet to take: they count against the free slots
+                # (a preempt resume holds its slot already).
+                if sum(len(v) for v in groups.values()) + sum(
+                        isinstance(r, _RestoreState)
+                        for r in self._awaiting_restore) >= len(self._free):
                     break
                 try:
                     _, _, req = self._queue.get_nowait()
@@ -1994,15 +2149,23 @@ class InferenceEngine:
         starts it chunked after its shared pages.  The slot cache matches
         its host prefix cache.  At least one tail token is always left to
         compute (its logits sample the first token).  Returns True when
-        the request was started or parked here."""
+        the request was started or parked here.  A replayer reuses no more
+        than its original prefill did (``_ReplayShape``: none after a
+        one-shot admission, ``chunk_start`` tokens after a chunked one),
+        so that its prefill repeats the original's shapes: its own prompt
+        pages, registered by the original, would start it later."""
         page = self._page
+        shape = self._replay_shape.get(req.request_id)
+        limit = None if shape is None else \
+            0 if shape.admit_m else shape.chunk_start
         if self._paged:
             nfull = (len(ids) - 1) // page
             digests = chain_digests(ids, page, nfull) if nfull else []
-            shared = self._alloc.match(digests)
+            usable = digests if limit is None else digests[:limit // page]
+            shared = self._alloc.match(usable)
             blocks = []
-            if self._host is not None and len(shared) < nfull:
-                blocks = self._host.match_blocks(digests, len(shared))
+            if self._host is not None and len(shared) < len(usable):
+                blocks = self._host.match_blocks(usable, len(shared))
             plen, hlen = len(shared) * page, len(blocks) * page
             self._alloc.record_query(len(ids), plen + hlen)
             self._count_prefix(len(ids), plen, hlen, self._alloc.hit_rate)
@@ -2017,6 +2180,8 @@ class InferenceEngine:
         if self._prefix is None:
             return False
         plen = min(self._prefix.match(ids), (len(ids) - 1) // page * page)
+        if limit is not None:
+            plen = min(plen, limit)
         self._prefix.record_query(len(ids), plen)
         self._count_prefix(len(ids), 0, plen, self._prefix.hit_rate)
         if plen:
@@ -2171,22 +2336,28 @@ class InferenceEngine:
         """Write the slots' sampling rows: their request parameters, their
         decode keys ``keys`` [M, 2], and for requests that shape their
         logits the penalty, bias, min_tokens and guide columns (the guide
-        rows [M], host or device, already advanced by the first token)."""
-        temp = np.array([p.temperature for p in params], np.float32)
-        top_p = np.array([p.top_p for p in params], np.float32)
-        top_k = np.array([p.top_k for p in params], np.int32)
+        rows [M], host or device, already advanced by the first token).
+        Host columns go up through ``_upload`` (no host sync)."""
+        def up(x):
+            return x if isinstance(x, torch.Tensor) else \
+                self._upload(np.asarray(x))
+
+        idx = up(np.asarray(slots, np.int64))
+        temp = up(np.array([p.temperature for p in params], np.float32))
+        top_p = up(np.array([p.top_p for p in params], np.float32))
+        top_k = up(np.array([p.top_k for p in params], np.int32))
         if not any(_shapes(p) for p in params):
             self._sampling = sampler_mod.set_slots(
-                self._sampling, slots, temp, top_p, top_k, keys,
+                self._sampling, idx, temp, top_p, top_k, keys,
                 shaping=False)
             return
         c = self._shaping_cols(params, num_prompts)
         self._sampling = sampler_mod.set_slots(
-            self._sampling, slots, temp, top_p, top_k, keys,
-            np.array([p.presence_penalty for p in params], np.float32),
-            np.array([p.frequency_penalty for p in params], np.float32),
-            c["bias_ids"], c["bias_vals"], c["suppress_ids"], c["min_until"],
-            c["guide"], guide_rows)
+            self._sampling, idx, temp, top_p, top_k, keys,
+            up(np.array([p.presence_penalty for p in params], np.float32)),
+            up(np.array([p.frequency_penalty for p in params], np.float32)),
+            *(up(c[k]) for k in ("bias_ids", "bias_vals", "suppress_ids",
+                                 "min_until", "guide")), up(guide_rows))
 
     # ------------------------------------------------------------------
     # Request-level shaping: columns, logprobs, guides
@@ -2856,15 +3027,19 @@ class InferenceEngine:
     @_scoped("mixed")
     def _issue_mixed(self):
         """Build and run ONE mixed dispatch: every decoding slot's next
-        token plus the round-robin chunk fill.  The flat batch has fixed
-        rows, so that every product runs at one M and a row's bits do not
-        depend on what else the step carries (what token replay needs; on
-        the card a GEMM's bits change with M): ``num_slots`` + the chunk
-        budget when it carries prefill chunks (the reference's shape), and
-        ``num_slots`` when it decodes only (the pipe step's, whose tokens
-        it then equals).  The padding rows write nothing and attend
-        nothing.  Returns the record for ``_resolve_mixed`` or None when
-        nothing needs the model."""
+        token plus the round-robin chunk fill.  A decode lane computes
+        exactly what the pipe step computes for it, whatever else the step
+        carries (what token replay needs: on the card a GEMM's bits change
+        with M): slot s decodes in row s of a ``num_slots``-row block, the
+        other rows parked as the pipe step parks its dead lanes.  A step
+        that carries prefill chunks appends them as a second block of the
+        chunk budget's rows (the reference's ``num_slots`` + budget flat
+        batch), and ``mixed_step`` runs every row-wise product on each
+        block apart (``split``), with or without a decode lane in the
+        first block; a decode-only step is the first block alone.  The
+        padding rows write nothing and attend nothing.  Returns the
+        record for ``_resolve_mixed`` or None when nothing needs the
+        model."""
         self._abort_and_retire(2)
         if not self._slots and not self._prefilling:
             return None
@@ -2882,24 +3057,23 @@ class InferenceEngine:
                  seq_q_len=np.zeros((n,), np.int32),
                  seq_pos_start=np.zeros((n,), np.int32))
         dec_slots = list(self._slots)
-        t = 0
         for slot in dec_slots:
-            a["tokens"][t] = self._last_token[slot]
-            a["token_slot"][t] = slot
-            a["token_pos"][t] = self._lengths[slot]
-            a["sample_src"][slot] = t
-            a["seq_q_start"][slot] = t
+            a["tokens"][slot] = self._last_token[slot]
+            a["token_slot"][slot] = slot
+            a["token_pos"][slot] = self._lengths[slot]
+            a["sample_src"][slot] = slot
+            a["seq_q_start"][slot] = slot
             a["seq_q_len"][slot] = 1
             a["seq_pos_start"][slot] = self._lengths[slot]
-            t += 1
-        completing, chunk_take, t = self._fill_chunk_lanes(a, t)
-        if not chunk_take:
+        completing, chunk_take, _ = self._fill_chunk_lanes(a, n)
+        split = n if chunk_take else None
+        if split is None:
             # Decode only: the pipe step's num_slots rows.
             for key in ("tokens", "token_slot", "token_pos"):
                 a[key] = a[key][:n]
         qmax = max(int(a["seq_q_len"].max()), 1)
         n_chunk = sum(take for _, take in chunk_take)
-        self.metrics.mixed_batch_tokens.observe(t)
+        self.metrics.mixed_batch_tokens.observe(len(dec_slots) + n_chunk)
         if n_chunk:
             self.metrics.mixed_chunk_tokens_total.inc(n_chunk)
         self._mixed_grid_counters(a["seq_pos_start"], a["seq_q_len"], qmax)
@@ -2910,9 +3084,10 @@ class InferenceEngine:
             self._upload(self._tables), d["tokens"],
             d["token_slot"], d["token_pos"], d["sample_src"],
             d["seq_q_start"], d["seq_q_len"], d["seq_pos_start"], qmax=qmax,
-            moe_grouped=self._moe_grouped)
+            split=split)
         ids_dev, lp = self._sample_mixed(logits, dec_slots, completing)
         self.dispatches += 1
+        self.chunk_dispatches += bool(chunk_take)
         self.shared_dispatches += bool(dec_slots and chunk_take)
         return dec_slots, completing, chunk_take, ids_dev, lp, t0
 
@@ -3025,6 +3200,14 @@ class InferenceEngine:
             self._replaying.discard(rid)
             self._replay_shape.pop(rid, None)
             self.metrics.requests_recovered_total.inc(1)
+        if rid in self._resuming:
+            # A replay-mode preempt victim is back in a slot: the gate
+            # drops the delivered prefix as for a fault replay, but it is
+            # no recovery.
+            self._resuming.discard(rid)
+            self._replay_shape.pop(rid, None)
+            self.trace.evt(rid, "park.preempt", "E")
+            replaying = True
         st.generated.append(first)
         if first_lp is not None:
             st.logprobs.append(first_lp)
@@ -3124,27 +3307,38 @@ class InferenceEngine:
                 self._host.bytes_used, tier="host")
         return did
 
+    def _scatter_blocks(self, blocks: list) -> tuple[list[int], object]:
+        """Allocate fresh pages for host page ``blocks`` and scatter them
+        in (groups of ``_spill_group``, staged in pinned memory and
+        uploaded without a host sync).  Returns (the pages, a CUDA event
+        after the last scatter or None)."""
+        pages = self._alloc.alloc(len(blocks))
+        # Pages the allocation evicted from the device index spill before
+        # the scatter, which may write those very pages.
+        self._spill_flush()
+        g = self._spill_group
+        for i in range(0, len(blocks), g):
+            grp, pg = blocks[i: i + g], pages[i: i + g]
+            staged = {name: self._stage(grp, name, g) for name in grp[0]}
+            pad = np.asarray(pg + [pg[0]] * (g - len(pg)), np.int64)
+            tf.scatter_pool_pages(
+                self.cache, staged["k"], staged["v"], self._upload(pad),
+                len(grp), staged.get("k_scale"), staged.get("v_scale"))
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        return pages, done
+
     def _issue_restore(self, req: Request, ids: list[int], digests: list,
                        shared: list[int], blocks: list) -> None:
-        """A host-tier hit at admission: allocate fresh pages for the
-        blocks, scatter them in (groups of ``_spill_group``, staged in
-        pinned memory and uploaded without a host sync) and park the
-        request until the last scatter's event has passed
-        (``_resolve_restores``).  Decoding goes on meanwhile."""
+        """A host-tier hit at admission: scatter the blocks into fresh
+        pages (``_scatter_blocks``) and park the request until the last
+        scatter's event has passed (``_resolve_restores``).  Decoding goes
+        on meanwhile."""
         try:
             self._faults.fire("restore")
-            pages = self._alloc.alloc(len(blocks))
-            # Pages the allocation evicted from the device index spill
-            # before the scatter, which may write those very pages.
-            self._spill_flush()
-            g = self._spill_group
-            for i in range(0, len(blocks), g):
-                grp, pg = blocks[i: i + g], pages[i: i + g]
-                staged = {name: self._stage(grp, name, g) for name in grp[0]}
-                pad = np.asarray(pg + [pg[0]] * (g - len(pg)), np.int64)
-                tf.scatter_pool_pages(
-                    self.cache, staged["k"], staged["v"], self._upload(pad),
-                    len(grp), staged.get("k_scale"), staged.get("v_scale"))
+            pages, done = self._scatter_blocks(blocks)
         except Exception as e:
             # The page bookkeeping is rebuilt by the recovery reset; the
             # survivor re-queues with its pinned seed and its retry hits
@@ -3155,10 +3349,6 @@ class InferenceEngine:
                 "restore", faults_mod.classify(e),
                 culprits=[req.request_id],
                 survivors=[self._survivor_of(req)]) from e
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
         self._awaiting_restore.append(_RestoreState(
             request=req, ids=ids, digests=digests, shared=shared,
             pages=pages, done=done, t0=time.monotonic()))
@@ -3180,15 +3370,34 @@ class InferenceEngine:
         """Unpark the restores whose scatter landed, while a slot is free:
         the restored pages enter the device index (a host hit refills tier
         0) and the request continues chunked after shared + restored pages.
-        An abort while parked releases its pages.  Returns True if any
-        moved."""
+        An abort while parked releases its pages.  A preempt resume needs
+        no free slot (it holds one): once its scatter landed it registers
+        (``_finish_resume``).  Returns True if any moved."""
         did = False
-        still: list[_RestoreState] = []
+        still: list = []
         for rec in self._awaiting_restore:
             rid = rec.request.request_id
             with self._abort_lock:
                 aborted = rid in self._aborted
                 self._aborted.discard(rid)
+            if isinstance(rec, _ResumeState):
+                if aborted:
+                    did = True
+                    self._end_resume(rec)
+                    continue
+                if rec.done is not None and not rec.done.query():
+                    still.append(rec)
+                    continue
+                did = True
+                try:
+                    self._faults.fire("preempt")
+                except Exception as e:
+                    # The resume serves this request alone; it replays.
+                    raise StepFault(
+                        "preempt", faults_mod.classify(e), culprits=[rid],
+                        survivors=[self._swap_survivor(rec.rec)]) from e
+                self._finish_resume(rec)
+                continue
             if aborted:
                 did = True
                 # A scatter still in flight to these pages is harmless: any
@@ -3241,15 +3450,33 @@ class InferenceEngine:
             num_prompt_tokens=len(rec.ids)))
 
     def _abort_awaiting_restores(self) -> None:
-        """End every request parked on a restore (engine exit, the blanket
-        abort)."""
+        """End every request parked on a restore or a preempt resume
+        (engine exit, the blanket abort)."""
         for rec in self._awaiting_restore:
-            self._end_restore(rec, "abort")
+            if isinstance(rec, _ResumeState):
+                self._end_resume(rec)
+            else:
+                self._end_restore(rec, "abort")
         self._awaiting_restore = []
 
     def _restore_ready_any(self) -> bool:
+        """A prefix restore's scatter landed (it then needs a free
+        slot)."""
         return any(rec.done is None or rec.done.query()
-                   for rec in self._awaiting_restore)
+                   for rec in self._awaiting_restore
+                   if isinstance(rec, _RestoreState))
+
+    def _resume_ready_any(self) -> bool:
+        """A preempt resume's scatter landed: it holds its slot already,
+        so the pipelined path drains for it even with no slot free."""
+        return any(rec.done is None or rec.done.query()
+                   for rec in self._awaiting_restore
+                   if isinstance(rec, _ResumeState))
+
+    def _swap_ready_any(self) -> bool:
+        """The oldest preempt spill's copies landed (harvests go in
+        order)."""
+        return bool(self._swap_pending) and self._swap_pending[0].ready()
 
     # ------------------------------------------------------------------
     # Pipelined decode (ARKS_PIPELINE_DEPTH) and depth-0 sampler fusion
@@ -3286,9 +3513,12 @@ class InferenceEngine:
         pending, no admission possible (a free slot and a waiting
         request), no landed host-tier restore with a free slot to take,
         every slot's stop set on the device, and no abort aimed at a live
-        slot.  The reference's other gates guard subsystems the port does
-        not have (windowed residency, disk or peer fetches, swaps and
-        preemption) and are left out; so is
+        slot, no landed preempt spill or resume, no swapped-out victim
+        with a free slot to resume into, and no preemption wanted (a
+        port gate the reference lacks: a victim resumes as soon as a slot
+        is free).  The reference's other gates guard subsystems the port
+        does not have (windowed residency, disk or peer fetches) and are
+        left out; so is
         its wait for the pipe programs' ahead-of-time compile: eager
         PyTorch has nothing to compile, and the kernels build at their
         first launch."""
@@ -3300,6 +3530,20 @@ class InferenceEngine:
             # mirrors (restores in flight keep the pipeline going).
             return False
         if self._free and not self._queue.empty():
+            return False
+        if self._swap_ready_any() or self._resume_ready_any():
+            # A preempt spill's copies landed (its staging buffers hold
+            # the victim's only KV copy), or a resume's scatter landed (its
+            # slot registers): host mutations.  In-flight ones keep the
+            # pipeline going.
+            return False
+        if self._swapped and self._free:
+            # A swapped-out victim can resume into a free slot now.
+            return False
+        if self._preempt_wanted():
+            # A queued request outranks a running one: drain so the
+            # preemption runs on exact host mirrors, its gathers after the
+            # last dispatch that writes the victim's rows.
             return False
         if any(st.stop_col is None for st in self._slots.values()):
             return False
@@ -3468,6 +3712,395 @@ class InferenceEngine:
         self._pipe_last_resolve = None
 
     # ------------------------------------------------------------------
+    # SLO-tiered preemptive KV swap (ARKS_PREEMPT)
+    # ------------------------------------------------------------------
+    # When a queued request's (aged) priority strictly outranks a running
+    # request's and no slot is free, the scheduler seizes a victim slot.
+    # Swap mode (a paged pool with the host tier): the victim's valid
+    # pages, through the prefix spill's gather, and its sampler row (key,
+    # penalty counts, DFA row) go to host RAM; a resume scatters them back
+    # into a fresh slot and the stream continues bit for bit.  Replay mode
+    # (the slot cache, the host tier off, a full budget): the victim
+    # re-queues behind a _ReplayGate and re-runs from its prompt.
+    #
+    # The victim's slot is freed in the same step as its gathers: every
+    # device op runs in order on one stream, so the gathers read the pages
+    # before any later dispatch writes them, as ``_spill_flush``'s do.
+
+    def _preempt_swap_capable(self) -> bool:
+        """Swap mode: a paged pool with the host tier, whose budget the
+        SwapStore shares."""
+        return self._swap is not None
+
+    @staticmethod
+    def _swap_survivor(rec: _SwapRecord) -> _Survivor:
+        """A preempted victim's replayable snapshot: a fault on the swap
+        path turns it into an ordinary token replay."""
+        return _Survivor(request=rec.request, seed=rec.seed,
+                         num_prompt=rec.num_prompt,
+                         generated=list(rec.generated),
+                         num_emitted=rec.num_emitted, shape=rec.shape)
+
+    def _swap_record(self, slot: int, n_pages: int) -> _SwapRecord:
+        st = self._slots[slot]
+        return _SwapRecord(
+            request=st.request, num_prompt=st.num_prompt,
+            generated=list(st.generated), num_emitted=st.num_emitted,
+            logprobs=list(st.logprobs), seed=self._resolve_seed(st.request),
+            length=int(self._lengths[slot]),
+            last_token=int(self._last_token[slot]), stop_col=st.stop_col,
+            dead_len=st.dead_len, n_pages=n_pages,
+            priority=st.request.params.priority, t0=time.monotonic(),
+            shape=st.shape)
+
+    def _preempt_inflight(self) -> int:
+        """Victims preempted and not yet back in a slot, in both modes (the
+        ``ARKS_PREEMPT_MAX_INFLIGHT`` budget's count)."""
+        if self._resuming:
+            # Replay-mode victims leave at re-registration; those that
+            # ended in the queue (an abort, a quarantine) must not hold
+            # the budget.
+            live = self._live_rids()
+            with self._abort_lock:
+                live |= self._queued_rids
+            self._resuming &= live
+        return (len(self._swap_pending) + len(self._swapped)
+                + sum(isinstance(r, _ResumeState)
+                      for r in self._awaiting_restore)
+                + len(self._resuming))
+
+    def _preempt_victims(self) -> list[int]:
+        """Victim slots, best first: a strictly lower tier than the queue's
+        (aged) head, the lowest tier first, then the least progress (the
+        cheapest swap), then the most recent arrival.  Never a replaying
+        or resuming slot (its stream is being verified), never one inside
+        the cooldown."""
+        head = self._queue.head_prio()
+        if head is None:
+            return []
+        now = time.monotonic()
+        cands = []
+        for slot, st in self._slots.items():
+            prio = st.request.params.priority
+            rid = st.request.request_id
+            if prio <= head or rid in self._replaying or \
+                    rid in self._resuming:
+                continue
+            if now - self._preempt_last.get(rid, -1e9) < \
+                    self._preempt_cooldown_s:
+                continue
+            cands.append((-prio, len(st.generated),
+                          -st.request.arrival_time, slot))
+        cands.sort()
+        return [c[-1] for c in cands]
+
+    def _preempt_wanted(self) -> bool:
+        """A host-only check, cheap enough for the pipelined path: a queued
+        request outranks a running one, no slot is free, the budget has
+        room."""
+        if self._queue.empty() or self._free or not self._slots:
+            return False
+        if not self._preempt_on or self._state != "serving":
+            return False
+        if self._preempt_inflight() >= self._preempt_max:
+            return False
+        return bool(self._preempt_victims())
+
+    def _maybe_preempt(self) -> bool:
+        """Seize slots for outranking queued requests: one victim per
+        queued request, within the in-flight budget."""
+        if not self._preempt_wanted():
+            return False
+        budget = self._preempt_max - self._preempt_inflight()
+        n = min(budget, self._queue.qsize())
+        for slot in self._preempt_victims()[:n]:
+            if self._preempt_swap_capable() and self._slot_pages.get(slot):
+                self._issue_preempt_swap(slot)
+            else:
+                self._preempt_replay(slot)
+        self._update_waiting()
+        return True
+
+    def _preempted(self, slot: int, rec: _SwapRecord, what) -> None:
+        """The bookkeeping of a seized slot (the slot itself is freed by
+        the caller)."""
+        rid = rec.request.request_id
+        tier = self._slo.tier_of(rec.priority)
+        now = time.monotonic()
+        # Entries past the cooldown no longer matter: drop them, so the map
+        # holds only recent victims.
+        self._preempt_last = {
+            r: t for r, t in self._preempt_last.items()
+            if now - t < self._preempt_cooldown_s}
+        self._preempt_last[rid] = now
+        self.trace.evt(rid, "park.preempt", "B", what)
+        self.metrics.requests_preempted_total.inc(1, tier=tier)
+        self.metrics.num_requests_running.set(len(self._slots))
+        log.info("preempted %s (tier=%s, %s) for a higher tier", rid, tier,
+                 f"{what} pages" if isinstance(what, int) else what)
+
+    def _issue_preempt_swap(self, slot: int) -> None:
+        """Swap mode, issue side: gather the victim's valid pages and its
+        sampler row on the device and start their copies to pinned host
+        memory (an event after them; no host wait), then free the slot.
+        ``_resolve_preempt_swaps`` stores them once they have landed."""
+        st = self._slots[slot]
+        rid = st.request.request_id
+        pages = self._slot_pages.get(slot, [])
+        n_pages = min(-(-int(self._lengths[slot]) // self._page), len(pages))
+        rec = self._swap_record(slot, n_pages)
+        copies: list = []
+        try:
+            self._faults.fire("preempt")
+            staged = []
+            g = self._spill_group
+            for i in range(0, n_pages, g):
+                grp = pages[i: min(i + g, n_pages)]
+                # A short group repeats a real page (one staging shape).
+                pg = grp + [grp[0]] * (g - len(grp))
+                out = tf.gather_pool_pages(
+                    self.cache, self._upload(np.asarray(pg, np.int64)))
+                copy = _PinnedCopy([x for x in out if x is not None],
+                                   self._host_bufs)
+                copies.append(copy)
+                staged.append((len(grp), copy))
+            row = _PinnedCopy(list(sampler_mod.slot_row(self._sampling,
+                                                        slot)),
+                              self._host_bufs)
+        except Exception as e:
+            # The victim is still registered: recovery snapshots it from
+            # its slot and replays it.
+            self._dropped_copies.extend(copies)
+            if isinstance(e, StepFault):
+                raise
+            raise StepFault("preempt", faults_mod.classify(e),
+                            culprits=[rid]) from e
+        # The gathers are on the stream: the slot may be reused now.  The
+        # guide pin stays: the snapshotted DFA row must stay valid.  The
+        # victim is in the pending list before its slot goes, so a fault
+        # in between leaves it where recovery finds it.
+        self._swap_pending.append(_SwapState(rec=rec, staged=staged,
+                                             row=row))
+        self._slots.pop(slot)
+        self._release_slot(slot, st.request, keep_guide=True)
+        self._preempted(slot, rec, n_pages)
+
+    def _preempt_replay(self, slot: int) -> None:
+        """Replay mode: free the victim's slot and re-queue it behind a
+        ``_ReplayGate``; it re-runs from its prompt (its prefill in the
+        original's shapes) and the gate drops what its client holds."""
+        st = self._slots[slot]
+        rid = st.request.request_id
+        try:
+            self._faults.fire("preempt")
+        except Exception as e:
+            # Victim untouched: recovery snapshots it from its slot.
+            raise StepFault("preempt", faults_mod.classify(e),
+                            culprits=[rid]) from e
+        rec = self._swap_record(slot, 0)
+        # Queued before its slot goes: a fault in between leaves it where
+        # it re-runs from.
+        self._slots.pop(slot)
+        self._preempt_requeue_replay(rec)
+        self._release_slot(slot, st.request)
+        self._preempted(slot, rec, "replay")
+
+    def _preempt_requeue_replay(self, rec: _SwapRecord) -> None:
+        """Re-queue a victim for re-execution at its OWN priority (unlike a
+        fault's replayers it is not urgent: it was just outranked)."""
+        req = rec.request
+        rid = req.request_id
+        gate = req.outputs if isinstance(req.outputs, _ReplayGate) else None
+        if gate is None:
+            req.outputs = _ReplayGate(req.outputs, self, rid, rec.generated,
+                                      rec.num_emitted)
+        else:
+            gate.restart(rec.generated)
+        self._resuming.add(rid)
+        if rec.shape is not None:
+            self._replay_shape[rid] = rec.shape
+        self._requeue(req)
+
+    def _resolve_preempt_swaps(self) -> bool:
+        """Store the landed preempt spills in the SwapStore, oldest first,
+        never waiting.  A harvest fault fails the victim alone into a
+        token replay (these copies are its only KV); a refusal (the budget
+        cannot hold it) sends it to replay mode without a fault."""
+        did = False
+        while self._swap_pending and self._swap_pending[0].ready():
+            sw = self._swap_pending.pop(0)
+            did = True
+            rec = sw.rec
+            rid = rec.request.request_id
+            with self._abort_lock:
+                aborted = rid in self._aborted
+                self._aborted.discard(rid)
+            if aborted:
+                for copy in sw.copies():
+                    copy.release()
+                self._finish_swapped_abort(rec)
+                continue
+            try:
+                self._faults.fire("preempt")
+                blocks = []
+                for n, copy in sw.staged:
+                    arrays = copy.tensors()
+                    names = ("k", "v", "k_scale", "v_scale")[:len(arrays)]
+                    # Copies: the staging buffers go back to the pool.
+                    blocks += [{nm: a[:, j].clone()
+                                for nm, a in zip(names, arrays)}
+                               for j in range(n)]
+                key, counts, guide_row = sw.row.tensors()
+                entry = {"blocks": blocks,
+                         "key": key.numpy().astype(np.uint32),
+                         "counts": counts.clone(),
+                         "guide_row": int(guide_row)}
+            except Exception as e:
+                self._dropped_copies.extend(sw.copies())
+                if isinstance(e, StepFault):
+                    raise
+                raise StepFault("preempt", faults_mod.classify(e),
+                                culprits=[rid],
+                                survivors=[self._swap_survivor(rec)]) from e
+            for copy in sw.copies():
+                copy.release()
+            if self._swap.put(rid, entry):
+                self._swapped[rid] = rec
+                self.metrics.preempt_swap_seconds.observe(
+                    time.monotonic() - rec.t0)
+                self.metrics.prefix_cache_usage_bytes.set(
+                    self._swap.bytes_used, tier="swap")
+            else:
+                log.warning("swap store refused %s (%d blocks); preempting "
+                            "it in replay mode", rid, len(blocks))
+                self._unpin_guide(rec.request)
+                self._preempt_requeue_replay(rec)
+        if did:
+            self._update_waiting()
+        return did
+
+    def _service_swapped(self) -> bool:
+        """Swapped-out victims: serve their aborts (the host bytes come
+        back) and resume them, the best first (highest tier, earliest
+        preempt), while the queue head does not strictly outrank them and
+        the pool can give their pages."""
+        did = False
+        with self._abort_lock:
+            hit = [rid for rid in self._swapped if rid in self._aborted]
+            self._aborted -= set(hit)
+        for rid in hit:
+            rec = self._swapped.pop(rid)
+            self._swap.discard(rid)
+            self.metrics.prefix_cache_usage_bytes.set(self._swap.bytes_used,
+                                                      tier="swap")
+            self._finish_swapped_abort(rec)
+            did = True
+        while self._swapped and self._free:
+            rid, rec = min(self._swapped.items(),
+                           key=lambda kv: (kv[1].priority, kv[1].t0))
+            head = self._queue.head_prio()
+            if head is not None and head < rec.priority:
+                break
+            if self._alloc.free_pages + self._alloc.retained_pages < \
+                    rec.n_pages:
+                break  # pool pressure: wait for pages
+            self._resume_swapped(rid)
+            did = True
+        if did:
+            self._update_waiting()
+        return did
+
+    def _resume_swapped(self, rid: str) -> None:
+        """Swap mode, resume side: take a free slot, scatter the victim's
+        blocks into fresh pages (the host-tier restore's scatter), write
+        its sampler row (key and DFA row through ``_set_slots``, then the
+        counts, which ``_set_slots`` zeroes) and park it until the scatter
+        has landed (``_finish_resume``)."""
+        rec = self._swapped.pop(rid)
+        entry = self._swap.pop(rid)
+        self.metrics.prefix_cache_usage_bytes.set(self._swap.bytes_used,
+                                                  tier="swap")
+        slot = self._free.pop()
+        p = rec.request.params
+        try:
+            self._faults.fire("preempt")
+            pages, done = self._scatter_blocks(entry["blocks"])
+            self._set_slots([slot], [p], self._upload(
+                entry["key"].astype(np.int64)[None]), [rec.num_prompt],
+                [entry["guide_row"]])
+            self._sampling = sampler_mod.restore_counts(
+                self._sampling, slot, self._upload_tensor(entry["counts"]))
+        except Exception as e:
+            self._free.append(slot)
+            self._unpin_guide(rec.request)
+            if isinstance(e, StepFault):
+                raise
+            raise StepFault("preempt", faults_mod.classify(e),
+                            culprits=[rid],
+                            survivors=[self._swap_survivor(rec)]) from e
+        self._awaiting_restore.append(_ResumeState(
+            rec=rec, slot=slot, pages=pages, done=done, t0=time.monotonic()))
+
+    def _finish_resume(self, res: _ResumeState) -> None:
+        """Swap mode, landing side: rebuild the victim's slot and host
+        mirrors as the preemption recorded them.  No first token and no
+        TTFT: the stream goes on at the next dispatch."""
+        rec, slot = res.rec, res.slot
+        self._assign_slot_pages(slot, len(res.pages), head_pages=res.pages)
+        self._slot_gen[slot] += 1
+        self._slots[slot] = _Slot(
+            request=rec.request, num_prompt=rec.num_prompt,
+            generated=list(rec.generated), logprobs=list(rec.logprobs),
+            num_emitted=rec.num_emitted, stop_col=rec.stop_col,
+            dead_len=rec.dead_len, shape=rec.shape)
+        self._lengths[slot] = rec.length
+        self._last_token[slot] = rec.last_token
+        self.metrics.num_requests_running.set(len(self._slots))
+        self.metrics.preempt_swap_seconds.observe(time.monotonic() - res.t0)
+        self.trace.evt(rec.request.request_id, "park.preempt", "E")
+        log.info("resumed %s after a preempt swap (slot %d, %d pages)",
+                 rec.request.request_id, slot, len(res.pages))
+
+    def _end_resume(self, res: _ResumeState) -> None:
+        """Abort a victim whose resume never registered (its scatter was
+        in flight): its pages go back, and so does its slot, with the
+        shaping columns ``_resume_swapped`` wrote returned to their
+        identity values, as ``_release_slot`` returns them: a later
+        request that writes no shaping column must not inherit the
+        victim's penalties, bias, min_tokens or guide (its restored counts
+        then weigh nothing, and a shaping request's admission zeroes
+        them)."""
+        self._alloc.decref(res.pages)
+        if _shapes(res.rec.request.params):
+            self._sampling = sampler_mod.clear_slot_penalties(self._sampling,
+                                                              res.slot)
+        self._free.append(res.slot)
+        self._finish_swapped_abort(res.rec)
+
+    def _finish_swapped_abort(self, rec: _SwapRecord) -> None:
+        """A preempted victim's client went away while its state was off
+        the device."""
+        self._unpin_guide(rec.request)
+        rec.request.outputs.put(RequestOutput(
+            request_id=rec.request.request_id, token_ids=[], finished=True,
+            finish_reason="abort", num_prompt_tokens=rec.num_prompt,
+            num_generated_tokens=len(rec.generated)))
+
+    def _abort_swapped(self) -> None:
+        """End every preempted victim not back in a slot (engine exit, the
+        blanket abort) and release their host bytes."""
+        for sw in self._swap_pending:
+            self._dropped_copies.extend(sw.copies())
+            self._finish_swapped_abort(sw.rec)
+        self._swap_pending = []
+        for rec in self._swapped.values():
+            self._finish_swapped_abort(rec)
+        self._swapped.clear()
+        if self._swap is not None:
+            self._swap.clear()
+            self.metrics.prefix_cache_usage_bytes.set(0, tier="swap")
+
+    # ------------------------------------------------------------------
     # Stop handling
     # ------------------------------------------------------------------
 
@@ -3493,7 +4126,8 @@ class InferenceEngine:
             return True
         return False
 
-    def _release_slot(self, slot: int, req: Request) -> None:
+    def _release_slot(self, slot: int, req: Request,
+                      keep_guide: bool = False) -> None:
         """Free the slot of ``req``.  A paged slot returns its pages and
         parks at the write-drop sentinel (its dispatch rows must never land
         in pages another slot may now own); a slot-cache slot keeps its
@@ -3501,8 +4135,10 @@ class InferenceEngine:
         The request's guide pin is released, and a request that shaped its
         logits returns the slot's shaping columns to their identity
         values, so that later batches without such requests skip the
-        passes."""
-        self._unpin_guide(req)
+        passes.  A swapped-out victim ``keep_guide``s its pin: its
+        snapshotted DFA row must stay valid until it resumes."""
+        if not keep_guide:
+            self._unpin_guide(req)
         if _shapes(req.params):
             self._sampling = sampler_mod.clear_slot_penalties(self._sampling,
                                                               slot)

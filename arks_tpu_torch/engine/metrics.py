@@ -7,9 +7,8 @@ Only the families whose mechanism the port has are registered.  Left out,
 with their subsystems: speculative decoding (``spec_decode_*``), windowed
 residency (``residency_*``), the multi-model pool (``model_pool_*``,
 ``model_switch_seconds``, ``model_cold_starts_total``), elastic resize (``engine_resizes_total``,
-``resize_seconds``, ``scale_from_zero_seconds``), preemption
-(``requests_preempted_total``, ``preempt_swap_seconds``), and the disk
-tier and peer fetch (``prefix_disk_*``, ``prefix_peer_fetch_*``).
+``resize_seconds``, ``scale_from_zero_seconds``), and the disk tier and
+peer fetch (``prefix_disk_*``, ``prefix_peer_fetch_*``).
 
 Every update reads host-side values (the engine's host mirrors and batch
 arrays), never a device tensor.
@@ -195,7 +194,8 @@ class EngineMetrics:
             "requests_parked",
             "Requests parked by reason: guide compile, host-tier KV "
             "restore, a pending model switch, or a preemptive KV swap")
-        # ---- SLO tiers (arks_tpu_torch.slo)
+        # ---- SLO tiers + preemptive KV swap (arks_tpu_torch.slo,
+        # ARKS_PREEMPT)
         # Per-tier latency families carry the tier NAME as a label so one
         # dashboard row per rung of the ladder can alert on its own
         # target (docs/monitoring.md); without ARKS_SLO_TIERS everything
@@ -207,6 +207,15 @@ class EngineMetrics:
         self.tpot_seconds = r.histogram(
             "tpot_seconds", "TPOT by SLO tier",
             buckets=[0.002, 0.005, 0.01, 0.02, 0.04, 0.08, 0.16, 0.32, 0.64])
+        self.requests_preempted_total = r.counter(
+            "requests_preempted_total",
+            "Running requests preempted for a higher tier, by victim tier")
+        self.preempt_swap_seconds = r.histogram(
+            "preempt_swap_seconds",
+            "Preemptive-swap leg latency (issue -> host copy landed, and "
+            "resume issue -> slot live again)",
+            buckets=[0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                     0.5, 1, 2.5])
         # ---- Tenant-fair admission + overload ladder (engine.fairqueue)
         # The tenant label rides through TenantLabels (first-K tenants
         # keep their id, the rest share "other") so hostile key churn

@@ -17,12 +17,15 @@ reference keeps numpy arrays; numpy has no bfloat16).
   the index evicts them and scattered back at a later admission, so a
   restore reproduces the pool's bytes exactly.
 
-Not copied yet: the disk tier behind the host tier (``DiskPrefixTier``),
-the swap store (``SwapStore``) and the host tier's eviction hook, reserved
-bytes and membership snapshot, which serve them and the routing sketch.
-Thread-safety: engine thread only (the reference's locks guard its
-disaggregated-prefill and peer-serving threads, which the port does not
-have).
+- ``SwapStore`` holds preempted requests' decode state (``ARKS_PREEMPT``):
+  their raw pool pages and sampler row, keyed by request id, never
+  evicted, its bytes reserved out of the host tier's budget.
+
+Not copied yet: the disk tier behind the host tier (``DiskPrefixTier``)
+and the host tier's eviction hook and membership snapshot, which serve it
+and the routing sketch.  Thread-safety: engine thread only (the
+reference's locks guard its disaggregated-prefill and peer-serving
+threads, which the port does not have).
 """
 
 from __future__ import annotations
@@ -120,7 +123,9 @@ class PrefixKVCache:
 class HostPrefixTier:
     """Tier 1 of a paged engine's prefix cache: spilled pool pages keyed by
     the digest that keyed them in the device index, LRU by bytes
-    (``ARKS_PREFIX_HOST_MB``)."""
+    (``ARKS_PREFIX_HOST_MB``).  ``reserved`` bytes of the budget belong to
+    the ``SwapStore``: prefix blocks evict down to ``capacity -
+    reserved``."""
 
     def __init__(self, page_tokens: int, capacity_bytes: int) -> None:
         if page_tokens <= 0:
@@ -130,6 +135,7 @@ class HostPrefixTier:
         # digest -> block {"k", "v"[, "k_scale", "v_scale"]}, LRU order.
         self._blocks: "OrderedDict[bytes, dict]" = OrderedDict()
         self._bytes = 0
+        self.reserved = 0
         self.spilled_blocks = 0
         self.restored_blocks = 0
 
@@ -146,10 +152,15 @@ class HostPrefixTier:
         self._blocks[digest] = block
         self._bytes += _nbytes(block.values())
         self.spilled_blocks += 1
-        while self._bytes > self.capacity and self._blocks:
+        self._evict_to_budget()
+        return digest in self._blocks
+
+    def _evict_to_budget(self) -> None:
+        """LRU-evict prefix blocks past ``capacity - reserved``."""
+        budget = max(self.capacity - self.reserved, 0)
+        while self._bytes > budget and self._blocks:
             _, old = self._blocks.popitem(last=False)
             self._bytes -= _nbytes(old.values())
-        return digest in self._blocks
 
     def match_blocks(self, digests: list[bytes], start: int) -> list[dict]:
         """The longest run of consecutively stored blocks for
@@ -178,3 +189,77 @@ class HostPrefixTier:
     @property
     def num_blocks(self) -> int:
         return len(self._blocks)
+
+
+class SwapStore:
+    """Host-RAM store of PREEMPTED requests' decode state
+    (``ARKS_PREEMPT``), keyed by request id: the victim's raw pool page
+    blocks and its sampler row.  Entries are never evicted (a swapped-out
+    request stays resumable until it resumes or aborts); instead their
+    bytes are reserved out of the host tier's budget (``tier.reserved``),
+    prefix blocks evict around them, and ``put`` refuses an entry that the
+    whole budget cannot hold on top of the reservations (the engine then
+    preempts in replay mode).
+
+    Entry layout (written and read back by the engine)::
+
+        {"blocks": [page block dicts], "key": np.uint32[2],
+         "counts": int32[V], "guide_row": int}
+    """
+
+    def __init__(self, tier: HostPrefixTier) -> None:
+        self._tier = tier
+        # rid -> (entry, reserved bytes)
+        self._entries: dict[str, tuple[dict, int]] = {}
+
+    @staticmethod
+    def _entry_bytes(entry: dict) -> int:
+        n = sum(_nbytes(blk.values()) for blk in entry.get("blocks", ()))
+        for key in ("key", "counts"):
+            a = entry.get(key)
+            if a is not None and hasattr(a, "nbytes"):
+                n += a.nbytes
+        return n
+
+    def put(self, rid: str, entry: dict) -> bool:
+        """Reserve the entry's bytes and store it.  Returns False (storing
+        nothing) when the reservations and this entry exceed the tier's
+        whole capacity."""
+        need = self._entry_bytes(entry)
+        t = self._tier
+        if rid in self._entries:
+            return True
+        if t.reserved + need > t.capacity:
+            return False
+        t.reserved += need
+        t._evict_to_budget()
+        self._entries[rid] = (entry, need)
+        return True
+
+    def pop(self, rid: str) -> dict | None:
+        """Remove and return an entry, releasing its reserved bytes."""
+        rec = self._entries.pop(rid, None)
+        if rec is None:
+            return None
+        entry, need = rec
+        self._tier.reserved = max(self._tier.reserved - need, 0)
+        return entry
+
+    def discard(self, rid: str) -> bool:
+        """Drop an entry if present (an abort while swapped out: the host
+        bytes come back).  Returns True when something was freed."""
+        return self.pop(rid) is not None
+
+    def clear(self) -> None:
+        for rid in list(self._entries):
+            self.pop(rid)
+
+    @property
+    def bytes_used(self) -> int:
+        return sum(need for _, need in self._entries.values())
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __contains__(self, rid: str) -> bool:
+        return rid in self._entries

@@ -261,16 +261,31 @@ def set_slots(state: SamplingState, slots, temperature, top_p, top_k, keys,
     return state
 
 
-def clear_slot_penalties(state: SamplingState, slot) -> SamplingState:
+def clear_slot_penalties(state: SamplingState, slot: int) -> SamplingState:
     """Return a freed slot's penalties, bias, suppression and guide to
-    their identity values, in place."""
-    idx = torch.as_tensor(slot, dtype=torch.long,
-                          device=state.key.device).reshape(-1)
+    their identity values, in place (fills of its rows: neither the index
+    nor the value is copied to the device, so no host sync)."""
     for col, val in ((state.presence, 0.0), (state.frequency, 0.0),
                      (state.bias_ids, -1), (state.bias_vals, 0.0),
                      (state.suppress_ids, -1), (state.min_until, 0),
                      (state.guide, -1), (state.guide_row, 0)):
-        col.index_fill_(0, idx, val)
+        col[slot].fill_(val)
+    return state
+
+
+def slot_row(state: SamplingState, slot: int):
+    """One slot's row of what ``sample`` advances per slot: (key [2],
+    counts [V], guide_row []), as copies — a preempted slot's snapshot,
+    taken in stream order before any later dispatch moves the row."""
+    return (state.key[slot].clone(), state.counts[slot].clone(),
+            state.guide_row[slot].clone())
+
+
+def restore_counts(state: SamplingState, slot: int,
+                   counts: torch.Tensor) -> SamplingState:
+    """Put a slot's counts row back, in place (``set_slots`` zeroes it, so
+    a resumed slot's row is written in two steps)."""
+    state.counts[slot].copy_(counts)
     return state
 
 

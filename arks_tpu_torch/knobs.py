@@ -18,12 +18,15 @@ DEFAULTS: dict[str, str | None] = {
     "ARKS_PIPELINE_DEPTH": "2",
     "ARKS_SAMPLER_FUSE": "1",
     "ARKS_OVERLAP_DECODE": "auto",
-    # Prefix tiers; the disk tier, peer fetch and preemption are refused.
+    # Prefix tiers; the disk tier and peer fetch are refused.
     "ARKS_PREFIX_HOST_MB": "256",
     "ARKS_PREFIX_DISK_MB": "0",
     "ARKS_PEER_FETCH": "0",
     "ARKS_PEER_ADDRS": None,
+    # Preemptive KV swap for SLO tiers.
     "ARKS_PREEMPT": "0",
+    "ARKS_PREEMPT_MAX_INFLIGHT": "1",
+    "ARKS_PREEMPT_COOLDOWN_S": "2",
     # Kernels and quantization.
     "ARKS_MIXED_GRID": "ragged",
     "ARKS_MOE_KERNEL": "auto",

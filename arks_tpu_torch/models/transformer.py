@@ -283,15 +283,29 @@ def _qkv(h: torch.Tensor, lp: Params, cfg: ModelConfig, impl=None):
     return q, k, v
 
 
+def _row_blocks(fn, x: torch.Tensor, split: int | None):
+    """``fn`` over ``x`` [T, ...]: at once when ``split`` is None, else over
+    rows [0, split) and [split, T) apart, each at its own M, and the
+    results (tensors, or tuples of them) concatenated along the rows."""
+    if split is None:
+        return fn(x)
+    a, b = fn(x[:split]), fn(x[split:])
+    if isinstance(a, tuple):
+        return tuple(torch.cat(p) for p in zip(a, b))
+    return torch.cat([a, b])
+
+
 def _block_qkv(h: torch.Tensor, lp: Params, cfg: ModelConfig, rope,
-               impl: str | None = None):
+               impl: str | None = None, split: int | None = None):
     """Pre-norm + qkv projection + head split + rope for [..., T, E].
     ``rope`` is the step's (cos, sin) from ``rope_cos_sin`` (the reference
     takes the positions; the angles are the same for every layer);
-    ``impl`` goes to a quantized projection's ``qeinsum``."""
+    ``impl`` goes to a quantized projection's ``qeinsum``.  ``split``
+    (``mixed_step``'s): the norm and the products run on each row block
+    apart."""
     lead = h.shape[:-1]
-    x = rms_norm(h, lp["attn_norm"], cfg.rms_norm_eps)
-    q, k, v = _qkv(x, lp, cfg, impl)
+    q, k, v = _row_blocks(lambda rows: _qkv(rms_norm(
+        rows, lp["attn_norm"], cfg.rms_norm_eps), lp, cfg, impl), h, split)
     q = q.reshape(*lead, cfg.num_heads, cfg.head_dim)
     k = k.reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
@@ -314,10 +328,19 @@ def _mlp(h: torch.Tensor, lp: Params, cfg: ModelConfig, *,
 
 def _block_tail(h: torch.Tensor, attn: torch.Tensor, lp: Params,
                 cfg: ModelConfig, *, grouped: bool = False,
-                impl: str | None = None) -> torch.Tensor:
-    """Output projection residual + MLP residual."""
-    h = h + qeinsum("...q,qe->...e", attn, lp["wo"], impl)
-    return h + _mlp(h, lp, cfg, grouped=grouped, impl=impl)
+                impl: str | None = None, split: int | None = None,
+                grouped_rest: bool = False) -> torch.Tensor:
+    """Output projection residual + MLP residual.  With ``split``
+    (``mixed_step``'s) the projection, the norm and the MLP run on each
+    row block apart: rows [0, split) with an MoE dispatch ``grouped``, the
+    rest with ``grouped_rest``; the residual adds stay whole."""
+    h = h + _row_blocks(lambda rows: qeinsum("...q,qe->...e", rows,
+                                             lp["wo"], impl), attn, split)
+    if split is None:
+        return h + _mlp(h, lp, cfg, grouped=grouped, impl=impl)
+    return h + torch.cat([
+        _mlp(h[:split], lp, cfg, grouped=grouped, impl=impl),
+        _mlp(h[split:], lp, cfg, grouped=grouped_rest, impl=impl)])
 
 
 def _unembed(h_last: torch.Tensor, params: Params,
@@ -343,7 +366,7 @@ def mixed_step(
     *,
     impl: str | None = None,
     qmax: int | None = None,
-    moe_grouped: bool | None = None,
+    split: int | None = None,
 ) -> torch.Tensor:
     """One mixed prefill+decode forward over a flat ``[T]`` token batch:
     every decoding slot's next token plus prefill-chunk tokens run the
@@ -352,14 +375,28 @@ def mixed_step(
     ``sample_src``.  Padding tokens (token_slot < 0) drop their writes;
     their activations are garbage no sample_src points at.  ``impl`` and
     ``qmax`` go to ``paged_mixed_update_and_attend`` (``impl`` also to an
-    MoE model's grouped matmul and to quantized weights' ``qeinsum``).  ``moe_grouped``: an MoE model's dispatch,
-    by default the reference's rule on this batch's T (the engine passes
-    the rule on its padded batch size, the T the reference runs).  What
-    every layer shares — the rope angles, the per-token write view and the attention
-    work list — is prepared once, before the layer loop."""
+    MoE model's grouped matmul and to quantized weights' ``qeinsum``).  An
+    MoE model's dispatch is the reference's rule (``moe.use_grouped``) on
+    the rows of each block: the whole batch's T without ``split``.
+
+    ``split``: the number of leading rows that form a block of their own
+    (the engine's decode lanes, ``num_slots`` rows, ahead of its prefill
+    chunks).  Every row-wise product and reduction — the norms, q/k/v,
+    the output projection, the MLP or MoE FFN (router and shared expert
+    included) — then runs once on rows [0, split) and once on the rest,
+    each block at its own M and with the MoE dispatch the rule gives its
+    row count, so a decode lane's bits are those of the same lane in a
+    ``split``-row batch (the pipe step's) whatever the chunk block holds:
+    on the card a GEMM's, and a reduction's, bits change with M.  The
+    embedding, RoPE, the residual adds and the attention (per lane) run
+    over the whole batch.  What every layer shares — the rope angles, the
+    per-token write view and the attention work list — is prepared once,
+    before the layer loop."""
     t_flat = tokens.shape[0]
-    if moe_grouped is None:
-        moe_grouped = moe.use_grouped(t_flat)
+    if split is not None:
+        grouped = (moe.use_grouped(split), moe.use_grouped(t_flat - split))
+    else:
+        grouped = (moe.use_grouped(t_flat), False)
     cover = tables.shape[1] * cache.page
     # RoPE positions must be real for valid tokens; padding rows only need
     # a value the cache ops drop (their write_idx is routed past coverage).
@@ -372,14 +409,15 @@ def mixed_step(
                      params["layers"]["attn_norm"].dtype)
     for layer in range(cfg.num_layers):
         lp = _layer(params, layer)
-        q, k, v = _block_qkv(h, lp, cfg, rope, impl)      # [T, H(kv), D]
+        q, k, v = _block_qkv(h, lp, cfg, rope, impl, split)  # [T, H(kv), D]
         attn = paged_mixed_update_and_attend(
             q, k, v, cache.k, cache.v, tables, token_slot, token_pos,
             seq_q_start, seq_q_len, seq_pos_start, layer, impl=impl,
             qmax=qmax, batch=batch, k_scale=cache.k_scale,
             v_scale=cache.v_scale)
         h = _block_tail(h, attn.reshape(t_flat, cfg.q_dim), lp, cfg,
-                        grouped=moe_grouped, impl=impl)
+                        grouped=grouped[0], impl=impl, split=split,
+                        grouped_rest=grouped[1])
     h_sel = h[sample_src.long()]                            # [B, E]
     return _unembed(h_sel, params, cfg)
 

@@ -723,6 +723,13 @@ def paged_mixed_attention_plain(q, k_pool, v_pool, tables, seq_q_start,
     t, h, d = q.shape
     hkv = k_pool.shape[2]
     qmax = qmax or _default_qmax(t, q_len.shape[0])
+    if qmax * (h // hkv) < 2:
+        # At least two query rows per (lane, KV head): a CPU product of one
+        # row takes the matrix-vector path, whose bits differ from the
+        # matrix path a step with longer spans takes, and a decode lane's
+        # output must not depend on what else its step carries.  The
+        # extra row is past every lane's span: masked, never written back.
+        qmax = 2
     scores, seen, vc, vsc, span, valid = _mixed_lanes(
         q, k_pool, v_pool, tables, seq_q_start, q_len, pos_start, layer,
         k_scale, v_scale, qmax, page_lo, page_hi)

@@ -177,8 +177,10 @@ Phases (any failure raises and exits non-zero):
               random int8 weights (a bf16 pool of 8 slots x 4096, chunk
               256) at the default engine shape (depth 2, fusion on)
               through phase 4's requests, grouped_matmul counting 7 x
-              num_layers x mixed dispatches (q, k, v, o and the FFN's
-              three, grouped or dense), with peak device memory, and one
+              num_layers x (mixed dispatches + those that carried prefill
+              chunks, which run a decode block and a chunk block) (q, k,
+              v, o and the FFN's three, grouped or dense), with peak
+              device memory, and one
               traced mixed step; then 8 greedy streams at depth 2 on the
               same weights, every pipelined issue sync-checked, and the
               pipe step (8 tokens: the dense MoE route, as the
@@ -223,8 +225,11 @@ Phases (any failure raises and exits non-zero):
               and the peak device memory across a recovery against a
               fault-free run's; admit_resolve:1:oom re-queues (legacy); a
               restore fault on a host-tier hit is blamed on the restoring
-              request alone and fails no stream (mixed, depth 2; the
-              replayed bystander's later tokens may differ: logged); every
+              request alone and fails no stream, the replayed bystander's
+              whole stream equal to the fault-free round's (mixed, depth
+              2); a decode lane's logits are bit-equal in the pipe step
+              and in the classic mixed step with a prefill chunk beside it
+              (its decode block split from the chunk block); every
               engine is freed by del, with no GC pass (what holds one
               that is not is logged, and the phase fails); the tracer's
               events per steady step
@@ -237,11 +242,29 @@ Phases (any failure raises and exits non-zero):
               inside a step each end in exit 70 with readiness 503
               "wedged", the assert's requests in flight answered 500
               engine_fault.
+ 10. preemption (phase_preempt) on Qwen2.5-7B bf16 at full width, the SLO
+              ladder latency:ttft_ms=300,batch:, ARKS_PREFIX_HOST_MB=1024,
+              ARKS_PREEMPT_MAX_INFLIGHT=2: 8 batch-tier streams of
+              512-token prompts and 96 tokens (greedy, seeded, one with
+              penalties, one guided), then 2 latency-tier arrivals
+              (64-token prompts, 32 tokens) after 16 decode dispatches,
+              which seize running slots.  ARKS_PREEMPT=0 is the baseline;
+              swap mode at depths 0 and 2, an int8 pool (its own
+              baseline), replay mode on the legacy bf16 slot cache (its
+              own baseline), preempt:1:runtime and an abort of a swapped
+              victim each give every stream of their baseline (the
+              aborted one a prefix), no replay_diverged, 2 preemptions a
+              round, the fault blamed on the victim alone, no host bytes
+              left, no host sync on any issue; logs preempt_swap_seconds
+              by leg, bytes per victim, the arrivals' median TTFT on and
+              off, the peak device memory, and launches per steady step
+              with ARKS_PREEMPT 0 and 1 by kernel name.
 The line before the last is the kernels JSON (nine counterparts); the last
 line is the device JSON.  A kernel's "launches" counts its launches in the
 runs of the served path: phase 4's, the request surface's, the pipeline's,
 prefix reuse's, operability's, the recovery phase's (its replays
-included) and the checkpoint-loaded engines' included
+included), the preemption phase's and the checkpoint-loaded engines'
+included
 (the dense launch: its greedy run) and phase 7's (grouped_matmul, every
 quantized product).
 """
@@ -249,6 +272,7 @@ quantized product).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import http.client
 import json
@@ -1047,7 +1071,7 @@ def phase_serve(torch, dev, kv="bf16", params=None, engine=None):
         _reset_counts()
         torch.cuda.reset_peak_memory_stats()
         d0, shared0 = engine.dispatches, engine.shared_dispatches
-        p0 = engine.pipe_dispatches
+        p0, marks0 = engine.pipe_dispatches, _marks(engine)
 
         prompt = "The port serves OpenAI completions on the card."
         body = {"prompt": prompt, "max_tokens": 24, "temperature": 0}
@@ -1139,8 +1163,7 @@ def phase_serve(torch, dev, kv="bf16", params=None, engine=None):
             else "paged_kv_update"
         expected = {name: want if name in (update, "paged_mixed_attention")
                     else 0 for name in launches}
-        expected["grouped_matmul"] = _gm_per_layer(
-            engine, engine._moe_grouped) * want
+        expected["grouped_matmul"] = _gm_launches(engine, marks0)
         log(f"{tag} of those, pipelined dispatches {pipe} (depth "
             f"{engine._pipe_depth}, fused {engine.sampler_fused_dispatches}"
             f", occupancy {dict(sorted(engine.pipe_occupancy.items()))})")
@@ -1841,8 +1864,7 @@ def phase_surface_step(torch, dev, engine, lanes=8, ctx=512):
 
             def fn(kind=kind):
                 logits = tf.mixed_step(engine.params, cfg, cache, *args,
-                                       qmax=1,
-                                       moe_grouped=engine._moe_grouped)
+                                       qmax=1)
                 if kind == "argmax":
                     return _greedy(sampler, logits).cpu().numpy()
                 return engine_mod._to_host(*engine._sample_mixed(
@@ -2152,10 +2174,10 @@ def phase_pipeline(torch, dev, params):
 
 def phase_pipe_step_profile(torch, dev, engine):
     """The pipe step (``mixed_pipe``: B = 8 lanes, an MoE model's dispatch
-    by its rule on 8 tokens) beside the sequential mixed step (the
-    engine's fixed dispatch) on the same 8 lanes at context 512, greedy,
-    in one call: (host ms, device ms, launches) per step of each, from
-    ``_profile_step``."""
+    by its rule on 8 tokens) beside the sequential decode-only mixed step
+    (the same rows and dispatch) on the same 8 lanes at context 512,
+    greedy, in one call: (host ms, device ms, launches) per step of each,
+    from ``_profile_step``."""
     from arks_tpu_torch.engine import engine as engine_mod
     from arks_tpu_torch.engine import sampler
     from arks_tpu_torch.models import moe
@@ -2176,8 +2198,7 @@ def phase_pipe_step_profile(torch, dev, engine):
     def seq():
         logits = tf.mixed_step(engine.params, cfg, cache, tables, tokens, ar,
                                lengths, ar, ar, torch.ones(lanes, **i32),
-                               lengths, qmax=1,
-                               moe_grouped=engine._moe_grouped)
+                               lengths, qmax=1)
         return _greedy(sampler, logits).cpu()
 
     def pipe():
@@ -2192,7 +2213,8 @@ def phase_pipe_step_profile(torch, dev, engine):
         res[name] = (wall, dev_us / 1e3, kern)
     log(f"[pipe step] {engine.ecfg.model} {engine.ecfg.weight_dtype} "
         f"weights, 8 lanes at context {ctx}: sequential mixed step (MoE "
-        f"grouped {engine._moe_grouped}) host {res['sequential'][0]:.2f} ms,"
+        f"grouped {moe.use_grouped(lanes)}) host "
+        f"{res['sequential'][0]:.2f} ms,"
         f" device {res['sequential'][1]:.2f} ms, "
         f"{res['sequential'][2]:.0f} launches; pipe step (MoE grouped "
         f"{moe.use_grouped(lanes)}) host {res['pipe'][0]:.2f} ms, device "
@@ -2217,15 +2239,14 @@ def phase_pipeline_moe(torch, dev, params):
     _pipe_batch(torch, engine, prompts[:1], 4)
     _reset_counts()
     p0, d0 = engine.pipe_dispatches, engine.dispatches
+    marks0 = _marks(engine)
     with _NoSync(torch, engine) as nosync:
         _, secs, _ = _pipe_batch(torch, engine, prompts, 16)
     pipe, n = engine.pipe_dispatches - p0, engine.dispatches - d0
     launches = _read_counts()
-    # The pipe steps' dense route launches as many as the grouped steps.
     want = {"paged_kv_update": engine.cfg.num_layers * n,
             "paged_mixed_attention": engine.cfg.num_layers * n,
-            "grouped_matmul": _gm_per_layer(engine, True)
-            * engine.cfg.num_layers * n}
+            "grouped_matmul": _gm_launches(engine, marks0)}
     got = {k: launches[k] for k in want}
     res = dict(tok_s_b8=8 * 15 / secs, pipe=pipe, dispatches=n,
                occupancy=dict(sorted(engine.pipe_occupancy.items())))
@@ -2242,17 +2263,33 @@ def phase_pipeline_moe(torch, dev, params):
 
 
 def _gm_per_layer(engine, grouped):
-    """grouped_matmul launches per layer of one forward: every quantized
-    product (q, k, v, o, the FFN's three, a shared expert's three) takes
-    qeinsum's grouped route, whichever MoE dispatch runs; with unquantized
-    weights only an MoE FFN's grouped dispatch launches it.  Every
-    dispatch of a served engine is counted the same (``_moe_grouped``
-    decides the sequential mixed step; the pipe step's dense route
-    launches as many)."""
+    """grouped_matmul launches per layer of one forward over one row
+    block: every quantized product (q, k, v, o, the FFN's three, a shared
+    expert's three) takes qeinsum's grouped route, whichever MoE dispatch
+    runs; with unquantized weights only an MoE FFN's grouped dispatch
+    launches it."""
     cfg = engine.cfg
     if engine.ecfg.weight_dtype == "bf16":
         return 3 if cfg.num_experts and grouped else 0
     return 7 + (3 if cfg.shared_expert_intermediate_size else 0)
+
+
+def _marks(engine):
+    """The engine's mixed-dispatch counters: (all, with prefill chunks)."""
+    return engine.dispatches, engine.chunk_dispatches
+
+
+def _gm_launches(engine, marks0):
+    """grouped_matmul launches of the mixed dispatches since ``marks0``
+    (``_marks``): the decode block (num_slots rows, the pipe step's MoE
+    dispatch) runs in every dispatch, the chunk block (the budget's rows,
+    the rule on them) in every one that carries chunks."""
+    from arks_tpu_torch.models import moe
+    n, chunk = (a - b for a, b in zip(_marks(engine), marks0))
+    return engine.cfg.num_layers * (
+        n * _gm_per_layer(engine, moe.use_grouped(engine.ecfg.num_slots))
+        + chunk * _gm_per_layer(engine,
+                                moe.use_grouped(engine._mixed_budget)))
 
 
 def _leaves(tree):
@@ -2327,7 +2364,7 @@ def phase_parity(torch, dev, engine):
 
 
 def _parity_steps(torch, dev, tf, cfg, params, dtype, rel, abs_tol, kv,
-                  limit=True, moe_grouped=None):
+                  limit=True):
     maxp, n_pages = 3, 9
     tables = torch.arange(n_pages, dtype=torch.int32,
                           device=dev).reshape(3, maxp)
@@ -2363,8 +2400,7 @@ def _parity_steps(torch, dev, tf, cfg, params, dtype, rel, abs_tol, kv,
         for impl in ("kernel", "plain"):
             with _recorded_routing(routes.setdefault(impl, [])):
                 logits[impl] = tf.mixed_step(params, cfg, caches[impl],
-                                             tables, *args, impl=impl,
-                                             moe_grouped=moe_grouped)
+                                             tables, *args, impl=impl)
         k, p = logits["kernel"], logits["plain"]
         tol = rel * p.abs().max().item() + abs_tol
         clean = _same_routing(torch, routes, args[3])
@@ -2594,8 +2630,7 @@ def phase_step_profile(torch, dev, engine, kv=None):
             ar, ar, torch.ones(lanes, **i32), torch.full((lanes,), ctx, **i32))
 
     def step():
-        logits = tf.mixed_step(engine.params, cfg, cache, *args, qmax=1,
-                               moe_grouped=engine._moe_grouped)
+        logits = tf.mixed_step(engine.params, cfg, cache, *args, qmax=1)
         return _greedy(sampler, logits).cpu()
 
     for _ in range(3):
@@ -3720,7 +3755,7 @@ def _moe_engine(torch, dev, weight_dtype, params=None):
     rule), through the grouped matmul like every quantized product."""
     from arks_tpu_torch.engine import EngineConfig, InferenceEngine
     from arks_tpu_torch.engine.tokenizer import ByteTokenizer
-    from arks_tpu_torch.models import get_config
+    from arks_tpu_torch.models import get_config, moe
     cfg = get_config(MOE_MODEL)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3731,15 +3766,17 @@ def _moe_engine(torch, dev, weight_dtype, params=None):
         params=params, device=dev)
     torch.cuda.synchronize()
     wbytes = sum(x.numel() * x.element_size() for x in _leaves(engine.params))
+    grouped = moe.use_grouped(engine._mixed_budget)
     log(f"[serve {MOE_MODEL} {weight_dtype}] engine up in "
         f"{time.perf_counter() - t0:.1f} s: weights {wbytes} B "
         f"({weight_dtype}; embedding int8, router and norms bf16), bf16 "
         f"pool {tuple(engine.cache.k.shape)}, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated, "
-        f"MoE dispatch grouped {engine._moe_grouped} (num_slots + chunk = "
-        f"{8 + engine._mixed_budget} tokens)")
-    if not engine._moe_grouped:
-        raise AssertionError("the Mixtral engine's mixed steps do not group")
+        f"MoE dispatch of a chunk block grouped {grouped} "
+        f"({engine._mixed_budget} rows; the decode block's 8 rows dense)")
+    if not grouped:
+        raise AssertionError("the Mixtral engine's chunk blocks do not "
+                             "group")
     return engine, wbytes
 
 
@@ -3750,6 +3787,7 @@ def phase_serve_moe_short(torch, dev, engine):
     inside the concurrent batch need not repeat its tokens: cuBLAS picks
     its GEMM by the batch's token count, so the same row rounds
     differently in another batch, and random weights leave near-ties.)"""
+    from arks_tpu_torch.models import moe
     from arks_tpu_torch.server import OpenAIServer
     cfg = engine.cfg
     tag = f"[serve {MOE_MODEL} {engine.ecfg.weight_dtype}]"
@@ -3763,7 +3801,7 @@ def phase_serve_moe_short(torch, dev, engine):
         if st != 200:
             raise AssertionError(f"warm-up failed: {st} {data}")
         _reset_counts()
-        d0 = engine.dispatches
+        d0, marks0 = engine.dispatches, _marks(engine)
         out = {}
 
         def run(key, body):
@@ -3771,16 +3809,27 @@ def phase_serve_moe_short(torch, dev, engine):
         bodies = {f"b{i}": {"prompt": f"expert lane {i}" * (1 + i),
                             "max_tokens": 16, "temperature": 0,
                             "ignore_eos": True} for i in range(8)}
-        run("first", bodies["b3"])
-        run("again", bodies["b3"])
-        threads = [threading.Thread(target=run, args=item)
-                   for item in bodies.items()]
-        t0 = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(900)
-        wall = time.perf_counter() - t0
+        with _moe_dispatches() as routes:
+            run("first", bodies["b3"])
+            run("again", bodies["b3"])
+            threads = [threading.Thread(target=run, args=item)
+                       for item in bodies.items()]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(900)
+            wall = time.perf_counter() - t0
+        # Each row block takes the reference's rule on its own rows: the
+        # decode block (num_slots rows) as the pipe step, the chunk block
+        # (the budget's rows) grouped.
+        n, budget = engine.ecfg.num_slots, engine._mixed_budget
+        want_routes = {(n, moe.use_grouped(n)),
+                       (budget, moe.use_grouped(budget))}
+        log(f"{tag} MoE FFN calls by (rows, grouped): {sorted(routes)}, "
+            f"expected {sorted(want_routes)}")
+        if routes != want_routes:
+            raise AssertionError(f"{tag} MoE dispatch of a row block")
         for key, (st, data, _, _) in out.items():
             if st != 200 or data["usage"]["completion_tokens"] != 16:
                 raise AssertionError(f"{tag} {key}: HTTP {st} {data}")
@@ -3791,7 +3840,7 @@ def phase_serve_moe_short(torch, dev, engine):
         want = cfg.num_layers * dispatches
         expected = {name: 0 for name in launches}
         expected.update(paged_kv_update=want, paged_mixed_attention=want,
-                        grouped_matmul=_gm_per_layer(engine, True) * want)
+                        grouped_matmul=_gm_launches(engine, marks0))
         log(f"{tag} a greedy completion twice in a row identical {same}; "
             f"8 concurrent greedy streams of 16 tokens in {wall:.2f} s "
             f"({8 * 16 / wall:.1f} tok/s incl. prefill); mixed dispatches "
@@ -3804,13 +3853,46 @@ def phase_serve_moe_short(torch, dev, engine):
         engine.stop()
 
 
+@contextlib.contextmanager
+def _moe_dispatches():
+    """The set of (rows, grouped) of every MoE FFN call made inside, from
+    any thread (the served engine's too)."""
+    from arks_tpu_torch.models import moe
+    seen = set()
+    real = moe.moe_ffn
+
+    def spy(x, *args, grouped, **kw):
+        seen.add((x.numel() // x.shape[-1], grouped))
+        return real(x, *args, grouped=grouped, **kw)
+
+    moe.moe_ffn = spy
+    try:
+        yield seen
+    finally:
+        moe.moe_ffn = real
+
+
+@contextlib.contextmanager
+def _grouped_always():
+    """Every MoE FFN call inside takes the grouped dispatch, whatever its
+    rows (the rule's threshold set to one row)."""
+    from arks_tpu_torch.models import moe
+    old, moe.GROUPED_MIN_TOKENS = moe.GROUPED_MIN_TOKENS, 1
+    try:
+        yield
+    finally:
+        moe.GROUPED_MIN_TOKENS = old
+
+
 def phase_moe_parity(torch, dev):
     """mixed_step through the kernels (ARKS_MOE_KERNEL=pallas: the grouped
     matmul and the attention kernels) against the same steps through
     impl="plain" (their plain versions) at Mixtral width, over 2 layers
     with bf16 and with int8 weights (limit 10% of the largest |logit|, as
-    phase 5), and over 1 layer in f32 (5e-4).  Both steps group, as every
-    step of the served engine does.  The limits hold every lane whose
+    phase 5), and over 1 layer in f32 (5e-4).  Both steps take the
+    grouped dispatch (``_grouped_always``; by the rule the 26-row step
+    would not), the one the served engine's chunk blocks take.  The
+    limits hold every lane whose
     sampled token took the same experts on both paths in every layer
     (``_same_routing``); the (token, layer) pairs routed apart are
     counted and logged."""
@@ -3824,9 +3906,9 @@ def phase_moe_parity(torch, dev):
         c = dataclasses.replace(cfg, num_layers=layers)
         params = tf.init_params(c, SEED + 7, dtype, dev, bits=bits)
         name = f"{str(dtype).split('.')[1]} {'int8' if bits else 'unquantized'} weights"
-        worst[f"{name}, {layers} layer(s)"] = _parity_steps(
-            torch, dev, tf, c, params, dtype, rel, abs_tol, None,
-            moe_grouped=True)
+        with _grouped_always():
+            worst[f"{name}, {layers} layer(s)"] = _parity_steps(
+                torch, dev, tf, c, params, dtype, rel, abs_tol, None)
         del params
         torch.cuda.empty_cache()
     return worst
@@ -4367,6 +4449,7 @@ def phase_operability(torch, dev, params, step_launches):
                              f"{only_real})")
     res["launches_per_step"] = (with_metrics, inert)
     res["host_ms_per_step"] = (host_real, host_inert)
+    res["steady_names"] = names_real
     traced_moved = {k: names_real[k] - names_untraced[k]
                     for k in names_real | names_untraced
                     if names_real[k] != names_untraced[k]}
@@ -4749,13 +4832,10 @@ def _rec_restore(torch, engine, res):
     alone (phase "restore", no quarantine, no replay_diverged), and no
     stream fails: the restoring request's stream equals the fault-free
     round's, and the bystander's replay passes its gate (the tokens it had
-    before the fault) and finishes whole.  The fault still changes the
-    bystander's later tokens: they need not equal the fault-free round's,
-    which is logged, not required.  Its replay decodes in pipe steps (B
-    rows) where the original round decoded in classic mixed steps
-    (num_slots + budget rows) beside the restoring request's tail, and
-    the GEMMs' bits change with M (``_rec_step_forms``; ROADMAP queue
-    3)."""
+    before the fault) and its whole stream equals the fault-free round's:
+    its replay decodes in pipe steps where the original round decoded in
+    classic mixed steps beside the restoring request's chunks, and a
+    decode lane's bits are the same in both (``_rec_step_forms``)."""
     from arks_tpu_torch.engine import Request, SamplingParams
     from arks_tpu_torch.engine import faults
     from arks_tpu_torch.engine.paged import chain_digests
@@ -4796,29 +4876,31 @@ def _rec_restore(torch, engine, res):
         f"restored blocks {r0} / {r1}; with restore:1:runtime faults "
         f"{d1['faults']:.0f} (phase restore: {label:.0f}), quarantined "
         f"{d1['quarantined']:.0f}; victim equal {v1 == v0}; bystander "
-        f"replayed, finished {by1[1]} {by1[2]}, its checked prefix equal, "
-        f"the whole stream equal to the fault-free round's {by1 == by0} "
-        f"(first differing token index {same}: the pipe step's B rows "
-        f"against the classic step's {engine.ecfg.num_slots} + "
-        f"{engine._mixed_budget})")
+        f"replayed, finished {by1[1]} {by1[2]}, the whole stream equal to "
+        f"the fault-free round's {by1 == by0} (first differing token index "
+        f"{same})")
     if (r0 < 2 or r1 < 2 or d0["faults"] or d1["faults"] != 1 or label != 1
             or d1["quarantined"] or v0[1] != "length" or v1 != v0
-            or by1[1:] != ("length", None)
-            or len(by1[0]) != len(by0[0])):
+            or by1[1:] != ("length", None) or by1 != by0):
         raise AssertionError(f"[recovery restore] {rounds}")
     res["restore_bystander_equal"] = by1 == by0
 
 
 def _rec_step_forms(torch, engine, res):
-    """Which products change a row's bits with the batch's shape on the
-    card, on the engine's weights at full depth: (1) the bf16 GEMMs of a
-    layer's shapes (q, o, gate/up, down, the unembed) at M rows against
-    the same rows inside M = num_slots + budget; (2) a decode lane's
-    logits from the pipe step's form (B rows) against the classic mixed
-    step's (num_slots + budget rows), and against the classic step with a
-    prefill chunk beside it.  Measured and logged (the byte identity of a
-    replay that decodes in other step forms than its original rests on
-    them)."""
+    """A decode lane's bits in every step form, on the engine's weights
+    at full depth: (1) logged: the bf16 GEMMs of a layer's shapes (q, o,
+    gate/up, down, the unembed) at M rows against the same rows inside
+    M = num_slots + budget, and where a prompt was cut into chunks; (2)
+    asserted: a decode lane's logits from the pipe step's form (B rows,
+    lane s in row s) equal, bit for bit, its logits from the classic mixed
+    step with a prefill chunk beside it (the decode block of B rows, then
+    the chunk block at row B: ``mixed_step``'s ``split``), as the engine
+    lays them out; logged: the same step run as one block of num_slots +
+    budget rows, which differs; (3) asserted: the chunk lane's logits
+    from that step equal its logits from the same split step with no
+    decode lane (an idle engine's chunk step).  The byte identity of a
+    replay that decodes, or prefills, in other step forms than its
+    original rests on (2) and (3)."""
     from arks_tpu_torch.models import transformer as tf
     cfg, params, dev = engine.cfg, engine.params, engine.device
     n, t_flat = engine.ecfg.num_slots, engine.ecfg.num_slots + \
@@ -4848,7 +4930,7 @@ def _rec_step_forms(torch, engine, res):
     rng = np.random.default_rng(SEED + 5)
     prompts = rng.integers(32, 120, (n, length))
 
-    def step(lanes, rows, qmax, chunk=None):
+    def step(lanes, rows, qmax, chunk=None, split=None):
         a = dict(tokens=np.zeros(rows, np.int32),
                  token_slot=np.full(rows, -1, np.int32),
                  token_pos=np.full(rows, page, np.int32),
@@ -4862,6 +4944,8 @@ def _rec_step_forms(torch, engine, res):
         t = 0
         for s, toks, pos in seqs:
             q = len(toks)
+            if q > 1 and split is not None:
+                t = split       # the chunk block starts after the lanes
             a["tokens"][t:t + q] = toks
             a["token_slot"][t:t + q] = s
             a["token_pos"][t:t + q] = np.arange(pos, pos + q)
@@ -4872,15 +4956,17 @@ def _rec_step_forms(torch, engine, res):
         return tf.mixed_step(params, cfg, cache, tables, b["tokens"],
                              b["token_slot"], b["token_pos"],
                              b["sample_src"], b["seq_q_start"],
-                             b["seq_q_len"], b["seq_pos_start"], qmax=qmax)
+                             b["seq_q_len"], b["seq_pos_start"], qmax=qmax,
+                             split=split)
 
     for s in range(n):
         step([], t_flat, length, chunk=(s, prompts[s], 0))
-    pipe = step(range(n), n, 1)
-    classic = step(range(n), t_flat, 1)
+    chunk = (n - 1, prompts[n - 1][:chunk_len], length + 1)
     pipe7 = step(range(n - 1), n, 1)
-    beside = step(range(n - 1), t_flat, chunk_len,
-                  chunk=(n - 1, prompts[n - 1][:chunk_len], length + 1))
+    beside = step(range(n - 1), t_flat, chunk_len, chunk=chunk, split=n)
+    unsplit = step(range(n - 1), t_flat, chunk_len, chunk=chunk)
+    pipe7_again = step(range(n - 1), n, 1)
+    no_lanes = step([], t_flat, chunk_len, chunk=chunk, split=n)
     # One prompt prefilled in two chunks, cut at two places (slots 0 and
     # 1 of a second pool, the same tokens): the first chunk one full
     # q-block (32 rows) of it, or a full block and a part of the next.
@@ -4894,18 +4980,26 @@ def _rec_step_forms(torch, engine, res):
     cache = keep
     forms = dict(
         prompt_cut_at_two_places=not torch.equal(tail[0], tail1[1]),
-        pipe_vs_classic=[s for s in range(n)
-                         if not torch.equal(pipe[s], classic[s])],
-        pipe_vs_classic_beside_a_chunk=[
+        pipe_vs_split_beside_a_chunk=[
             s for s in range(n - 1) if not torch.equal(pipe7[s], beside[s])],
-        classic_vs_classic_beside_a_chunk=[
+        pipe_vs_pipe_again=[s for s in range(n - 1)
+                            if not torch.equal(pipe7[s], pipe7_again[s])],
+        pipe_vs_one_block_beside_a_chunk=[
             s for s in range(n - 1)
-            if not torch.equal(classic[s], beside[s])])
+            if not torch.equal(pipe7[s], unsplit[s])],
+        chunk_without_lanes_vs_beside_lanes=not torch.equal(
+            no_lanes[n - 1], beside[n - 1]))
     log(f"[recovery step forms] rows (of the first 8) whose bits differ "
-        f"from the same rows in a {t_flat}-row GEMM, by M: {sweep}; decode "
-        f"lanes whose logits differ: {forms}")
+        f"from the same rows in a {t_flat}-row GEMM, by M: {sweep}; lanes "
+        f"whose logits differ: {forms}")
     res["step_forms"] = dict(gemm_m=sweep, lanes=forms)
     del cache, cut_cache
+    if (forms["pipe_vs_split_beside_a_chunk"] or forms["pipe_vs_pipe_again"]
+            or forms["chunk_without_lanes_vs_beside_lanes"]):
+        raise AssertionError(
+            "[recovery step forms] a decode lane's logits differ between "
+            "the pipe step and the split step beside a chunk, or a chunk's "
+            f"between that step and one with no decode lane: {forms}")
 
 
 def _rec_profiler(torch, engine, tmpdir, res):
@@ -5046,12 +5140,26 @@ def recovery_child(mode: str, device: str = "cuda") -> int:
         print(json.dumps({"child": mode, "code": code,
                           "readiness": [st[0], st[1]],
                           "state": engine.state,
-                          "outcomes": outcomes,
+                          "outcomes": outcomes, "warm_s": warm_s,
                           "hang_to_exit_s": t_exit - hang_t0[0]
                           if hang_t0 else None}), flush=True)
         os._exit(code)
 
     engine._exit_fn = on_exit
+    warm_s = None
+    if mode == "hang":
+        # A fresh process loads each GEMM's kernels at its first launch,
+        # which can hold a step past the 2 s deadline: run one request
+        # through the chunk step and the pipe step before the watchdog is
+        # armed, with the injector set aside.
+        from arks_tpu_torch.engine import Request, SamplingParams, faults
+        inj, engine._faults = engine._faults, faults.FaultInjector("")
+        t_warm = time.monotonic()
+        _rec_drive(engine, [Request("warm", engine.tokenizer.encode(
+            "warm up"), SamplingParams(max_tokens=8, temperature=0,
+                                       ignore_eos=True))])
+        warm_s = time.monotonic() - t_warm
+        engine._faults = inj
     if mode == "sticky":
         real = engine._pipe_issue
         calls = []
@@ -5230,6 +5338,334 @@ def phase_recovery(torch, dev, params):
     return res
 
 
+PRE_STREAMS, PRE_PROMPT, PRE_TOKENS = 8, 512, 96   # the batch-tier streams
+PRE_ARRIVALS, PRE_ARR_PROMPT, PRE_ARR_TOKENS = 2, 64, 32   # latency tier
+PRE_AFTER = 16                 # decode dispatches before the arrivals
+PRE_TIERS = "latency:ttft_ms=300,batch:"
+PRE_ISSUES = ("_pipe_issue", "_issue_mixed", "_issue_decode",
+              "_maybe_preempt", "_service_swapped")
+
+
+def _pre_engine(torch, dev, params, preempt, depth="2", kv="bf16",
+                layout="paged"):
+    """A Qwen2.5-7B engine on ``params`` (8 slots x 4096, chunk 256) with
+    the SLO ladder, ``ARKS_PREFIX_HOST_MB=1024`` and two preemptions in
+    flight at most: the mixed scheduler on a ``kv`` pool, or the legacy
+    one on the bf16 slot cache."""
+    import os
+
+    from arks_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arks_tpu_torch.engine.tokenizer import ByteTokenizer
+    from arks_tpu_torch.models import get_config
+    env = dict(ARKS_PIPELINE_DEPTH=depth, ARKS_PREEMPT=str(int(preempt)),
+               ARKS_PREFIX_HOST_MB="1024", ARKS_SLO_TIERS=PRE_TIERS,
+               ARKS_PREEMPT_MAX_INFLIGHT="2")
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return InferenceEngine(get_config(MODEL), EngineConfig(
+            model=MODEL, num_slots=8, max_cache_len=MAX_PAGES * PAGE,
+            prefill_chunk=PAGE, dtype="bfloat16", kv_cache_dtype=kv,
+            kv_layout=layout, seed=SEED), ByteTokenizer(), params=params,
+            device=dev)
+    finally:
+        _restore_env(os, old)
+
+
+def _pre_requests(tag):
+    """PRE_STREAMS batch-tier streams (priority 1) of PRE_PROMPT tokens:
+    greedy and seeded sampling by turns, the seventh with presence and
+    frequency penalties, the last guided; and the PRE_ARRIVALS latency
+    arrivals (priority 0), greedy."""
+    from arks_tpu_torch.engine import Request, SamplingParams
+    rng = np.random.default_rng(SEED + 21)
+    reqs = []
+    for i in range(PRE_STREAMS):
+        kw = dict(max_tokens=PRE_TOKENS, ignore_eos=True, priority=1)
+        if i == PRE_STREAMS - 2:
+            kw.update(temperature=0.0, presence_penalty=0.5,
+                      frequency_penalty=0.3)
+        elif i == PRE_STREAMS - 1:
+            kw.update(temperature=0.8, top_k=50, seed=300 + i,
+                      guide=("regex", "[a-f]+"))
+        elif i % 2:
+            kw.update(temperature=0.8, top_k=50, seed=300 + i)
+        else:
+            kw.update(temperature=0.0)
+        reqs.append(Request(f"{tag}-b{i}", [int(x) for x in rng.integers(
+            32, 120, PRE_PROMPT)], SamplingParams(**kw)))
+    late = [Request(f"{tag}-l{i}", [int(x) for x in rng.integers(
+        32, 120, PRE_ARR_PROMPT)], SamplingParams(
+            max_tokens=PRE_ARR_TOKENS, temperature=0.0, ignore_eos=True,
+            priority=0)) for i in range(PRE_ARRIVALS)]
+    return reqs, late
+
+
+def _pre_round(torch, engine, tag, inject="", hook=None):
+    """One round: the batch streams, then the arrivals once every stream
+    has decoded PRE_AFTER dispatches, driven from this thread (step and
+    recover, as the run loop) with every issue under
+    set_sync_debug_mode("error").  Returns (streams by name: (tokens,
+    finish reason, error, ttft_s), metric deltas, peak device memory, the
+    SwapStore bytes of each entry it held, the preempt_swap_seconds legs,
+    host syncs caught)."""
+    import queue
+
+    from arks_tpu_torch.engine import faults
+    engine._faults = faults.FaultInjector(inject)
+    reqs, late = _pre_requests(tag)
+    m = engine.metrics
+    hist = m.preempt_swap_seconds
+    legs, leg, entry_bytes, culprits = [], ["out"], {}, []
+    real_obs, real_fin = hist.observe, engine._finish_resume
+    real_rec = engine._do_recovery
+
+    def observe(v, **kw):
+        legs.append((leg[0], v))
+        real_obs(v, **kw)
+
+    def finish(res):
+        leg[0] = "resume"
+        try:
+            return real_fin(res)
+        finally:
+            leg[0] = "out"
+
+    def recover(exc):
+        culprits.append(sorted(getattr(exc, "culprits", ())))
+        return real_rec(exc)
+
+    hist.observe, engine._finish_resume = observe, finish
+    engine._do_recovery = recover
+    names = PRE_ISSUES + (("_admit",) if engine._mixed else ())
+    before = (m.requests_preempted_total.total(),
+              m.engine_faults_total.total(),
+              m.requests_quarantined_total.total())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {r.request_id.split("-", 1)[1]: [[], None, None, None]
+           for r in reqs + late}
+    all_reqs = reqs + late
+    d_start = None
+    try:
+        with _SyncGuard(torch, engine, names) as guard:
+            for r in reqs:
+                engine.add_request(r)
+            for _ in range(100_000):
+                try:
+                    engine.step(block_s=0.001)
+                    engine._consec_faults = 0
+                except Exception as e:  # routed as the run loop routes it
+                    engine._recover_from_fault(e)
+                for r in all_reqs:
+                    rec = out[r.request_id.split("-", 1)[1]]
+                    while True:
+                        try:
+                            o = r.outputs.get_nowait()
+                        except queue.Empty:
+                            break
+                        rec[0] += o.token_ids
+                        if rec[3] is None and o.ttft_s is not None:
+                            rec[3] = o.ttft_s
+                        if o.finished:
+                            rec[1], rec[2] = o.finish_reason, o.error
+                if engine._swap is not None:
+                    for rid, (_, need) in engine._swap._entries.items():
+                        entry_bytes[rid] = need
+                n_disp = engine.dispatches + engine.decode_dispatches
+                if late and d_start is None and len(engine._slots) == \
+                        PRE_STREAMS:
+                    d_start = n_disp
+                if late and d_start is not None and \
+                        n_disp - d_start >= PRE_AFTER:
+                    for r in late:
+                        r.arrival_time = time.monotonic()
+                        engine.add_request(r)
+                    late = []
+                if hook is not None and hook(engine, reqs):
+                    hook = None
+                if (not late and all(v[1] for v in out.values())
+                        and engine.idle and engine.state == "serving"):
+                    break
+            else:
+                raise AssertionError(f"[preempt {tag}] never drained: "
+                                     f"{ {k: v[1] for k, v in out.items()} }")
+    finally:
+        del hist.observe, engine._finish_resume, engine._do_recovery
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    after = (m.requests_preempted_total.total(),
+             m.engine_faults_total.total(),
+             m.requests_quarantined_total.total())
+    delta = [a - b for a, b in zip(after, before)]
+    return ({k: tuple(v) for k, v in out.items()}, delta, peak, entry_bytes,
+            legs, (guard.issues, guard.violations), culprits)
+
+
+def _pre_same(tag, got, base, allow=()):
+    """Every stream of ``got`` equals ``base``'s (ids and finish reason);
+    those in ``allow`` may end early with a prefix of theirs."""
+    bad = []
+    for k, (ids, fin, err, _) in got.items():
+        bids, bfin = base[k][:2]
+        if k in allow:
+            if ids != bids[:len(ids)]:
+                bad.append(k)
+        elif (ids, fin, err) != (bids, bfin, None):
+            bad.append(k)
+    diverged = sum(v[2] == "engine_fault: replay_diverged"
+                   for v in got.values())
+    if bad or diverged:
+        first = {k: next((i for i, (a, b) in enumerate(zip(
+            got[k][0], base[k][0])) if a != b), None) for k in bad}
+        raise AssertionError(f"[preempt {tag}] streams {bad} differ from "
+                             f"the baseline (first differing token index "
+                             f"{first}); replay_diverged {diverged}")
+
+
+def _median_ttft(got):
+    return float(np.median([got[f"l{i}"][3] for i in range(PRE_ARRIVALS)]))
+
+
+def phase_preempt(torch, dev, params, ops):
+    """Preemptive KV swap for SLO tiers on Qwen2.5-7B bf16 at full width
+    (``params``): 8 batch-tier streams of 512-token prompts and 96 tokens
+    (greedy, seeded sampling, one with presence and frequency penalties,
+    one guided), then 2 latency-tier requests (64-token prompts, 32
+    tokens) once every stream has decoded 16 dispatches; 8 slots, so
+    each arrival seizes a running slot.  Rounds: ``ARKS_PREEMPT=0`` (the
+    baseline), ``ARKS_PREEMPT=1`` at depths 0 and 2 (swap mode), an int8
+    pool at depth 2 (against its own baseline), the legacy scheduler on
+    the bf16 slot cache (replay mode, against its own baseline),
+    ``preempt:1:runtime``, and an abort of a swapped-out victim.  Every
+    stream equals its baseline's with no replay_diverged, 2 preemptions a
+    round, the fault blamed on the victim alone, the SwapStore's bytes
+    back to zero after the abort, and no host sync on any issue.  Logs
+    preempt_swap_seconds by leg, bytes per victim, the arrivals' median
+    TTFT with preemption on and off, and the peak device memory.  With
+    ``ARKS_PREEMPT=1`` and nothing to preempt, a steady step launches what
+    ``phase_operability``'s default engine launches (``ops``: its 128-step
+    window with ``ARKS_PREEMPT`` unset), within half a launch and with no
+    kernel name of its own."""
+    t_phase = time.perf_counter()
+    res = dict(syncs=0, rounds={})
+    bases = {}
+
+    def run(tag, preempt, depth="2", kv="bf16", layout="paged", inject="",
+            hook=None, base=None, allow=()):
+        engine = _pre_engine(torch, dev, params, preempt, depth, kv, layout)
+        want = ("swap" if layout == "paged" else "replay") if preempt \
+            else "off"
+        if engine.resolved_config["preempt"] != want:
+            raise AssertionError(f"[preempt {tag}] mode "
+                                 f"{engine.resolved_config['preempt']}")
+        got, delta, peak, entry, legs, (issues, syncs), culprits = \
+            _pre_round(torch, engine, tag, inject, hook)
+        res["syncs"] += issues
+        if syncs:
+            raise AssertionError(f"[preempt {tag}] host syncs: {syncs[:3]}")
+        row = dict(preempted=delta[0], faults=delta[1],
+                   quarantined=delta[2], peak=peak, ttft=_median_ttft(got),
+                   bytes=sorted(entry.values()),
+                   swap_out_s=[v for k, v in legs if k == "out"],
+                   resume_s=[v for k, v in legs if k == "resume"],
+                   culprits=culprits, issues=issues,
+                   swap_left=(engine._swap.bytes_used
+                              if engine._swap is not None else 0),
+                   reserved=(engine._host.reserved
+                             if engine._host is not None else 0))
+        log(f"[preempt {tag}] {json.dumps(row)}")
+        if base is None:
+            if delta[0] or any(v[1] != "length" for v in got.values()):
+                raise AssertionError(f"[preempt {tag}] baseline {row}")
+        else:
+            _pre_same(tag, got, bases[base], allow)
+        if row["swap_left"] or row["reserved"]:
+            raise AssertionError(f"[preempt {tag}] host bytes left {row}")
+        res["rounds"][tag] = row
+        ref = weakref.ref(engine)
+        del engine
+        _freed_by_del(ref, f"preempt {tag}")
+        torch.cuda.empty_cache()
+        return got, row
+
+    bases["bf16"], _ = run("base", False)
+    for depth in ("0", "2"):
+        _, row = run(f"swap depth {depth}", True, depth, base="bf16")
+        if row["preempted"] != PRE_ARRIVALS or row["faults"] or \
+                len(row["swap_out_s"]) != PRE_ARRIVALS or \
+                len(row["resume_s"]) != PRE_ARRIVALS:
+            raise AssertionError(f"[preempt swap depth {depth}] {row}")
+    bases["int8"], _ = run("base int8", False, kv="int8")
+    _, row = run("swap int8", True, kv="int8", base="int8")
+    if row["preempted"] != PRE_ARRIVALS:
+        raise AssertionError(f"[preempt swap int8] {row}")
+    bases["slot"], _ = run("base legacy slot", False, layout="slot")
+    _, row = run("replay legacy slot", True, layout="slot", base="slot")
+    if row["preempted"] != PRE_ARRIVALS or row["swap_out_s"]:
+        raise AssertionError(f"[preempt replay legacy slot] {row}")
+    _, row = run("fault", True, inject="preempt:1:runtime", base="bf16")
+    victims = [c for c in row["culprits"]]
+    if row["faults"] != 1 or row["quarantined"] or len(victims) != 1 or \
+            len(victims[0]) != 1 or "-b" not in victims[0][0]:
+        raise AssertionError(f"[preempt fault] blamed {victims}: {row}")
+    aborted, allow = [], set()
+
+    def abort_hook(engine, reqs):
+        if engine._swapped:
+            rid = next(iter(engine._swapped))
+            aborted.append((rid, engine._swap.bytes_used))
+            allow.add(rid.split("-", 1)[1])
+            engine.abort(rid)
+            return True
+        return False
+
+    got, row = run("abort", True, hook=abort_hook, base="bf16", allow=allow)
+    if len(aborted) != 1 or got[aborted[0][0].split("-", 1)[1]][1] != \
+            "abort" or sum(v[1] == "abort" for v in got.values()) != 1:
+        raise AssertionError(f"[preempt abort] {aborted} {row}")
+    engine = _pre_engine(torch, dev, params, True)
+    host_ms, per_step, names = _steady_launches(torch, engine)
+    ref = weakref.ref(engine)
+    del engine
+    _freed_by_del(ref, "preempt steady")
+    torch.cuda.empty_cache()
+    off_names = ops["steady_names"]
+    steady = {False: (ops["host_ms_per_step"][0],
+                      ops["launches_per_step"][0], off_names),
+              True: (host_ms, per_step, names)}
+    diff = {k: names[k] - off_names[k] for k in set(names) | set(off_names)
+            if names[k] != off_names[k]}
+    only_on = sorted(set(names) - set(off_names))
+    r = res["rounds"]
+    res.update(
+        ttft_off=r["base"]["ttft"], ttft_on=r["swap depth 2"]["ttft"],
+        swap_out_s=r["swap depth 2"]["swap_out_s"],
+        resume_s=r["swap depth 2"]["resume_s"],
+        bytes=r["swap depth 2"]["bytes"],
+        peak=(r["base"]["peak"], r["swap depth 2"]["peak"]),
+        steady=(steady[False][1], steady[True][1]),
+        steady_host_ms=(steady[False][0], steady[True][0]),
+        abort_bytes=aborted[0][1])
+    log(f"[preempt table] arrivals' median TTFT off {res['ttft_off']:.4f} s"
+        f", on {res['ttft_on']:.4f} s; preempt_swap_seconds swap-out "
+        f"{res['swap_out_s']}, resume {res['resume_s']}; bytes per victim "
+        f"{res['bytes']}; peak device memory baseline {res['peak'][0]} B, "
+        f"preempt round {res['peak'][1]} B "
+        f"({(res['peak'][1] - res['peak'][0]) / 2**20:+.2f} MiB); launches "
+        f"per steady step ARKS_PREEMPT unset (phase_operability's window) "
+        f"{res['steady'][0]:.2f}, =1 {res['steady'][1]:.2f}, over the "
+        f"window by kernel name differing "
+        f"{ {k[:80]: v for k, v in diff.items()} }; host ms "
+        f"{res['steady_host_ms']}; issues sync-checked {res['syncs']}; "
+        f"phase took {time.perf_counter() - t_phase:.1f} s")
+    if abs(res["steady"][1] - res["steady"][0]) >= 0.5 or only_on:
+        raise AssertionError(f"[preempt] ARKS_PREEMPT=1 changes the kernel "
+                             f"launches per steady step (only with it: "
+                             f"{only_on})")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -5286,6 +5722,9 @@ def main() -> int:
     _reset_counts()
     recov = phase_recovery(torch, dev, params)
     recov["launches"] = _read_counts()
+    _reset_counts()
+    pre = phase_preempt(torch, dev, params, ops)
+    pre["launches"] = _read_counts()
     del params
     torch.cuda.empty_cache()
     upd_t, attn_t, dense_t = phase_times(torch, b)
@@ -5304,7 +5743,8 @@ def main() -> int:
     pipe_n.update(prefix["launches"])     # served at the defaults, as are
     pipe_n.update(ops["counts"])          # the operability engine and the
     pipe_n.update(ckpt_n)                 # checkpoint-loaded ones, and
-    pipe_n.update(recov["launches"])      # the recovery phase's engines
+    pipe_n.update(recov["launches"])      # the recovery phase's engines,
+    pipe_n.update(pre["launches"])        # the preemption phase's
     attn_launches = (serve["launches"]["paged_mixed_attention"]
                      + serve8["launches"]["paged_mixed_attention"]
                      + paged4["launches"]["paged_mixed_attention"]
@@ -5417,6 +5857,12 @@ def main() -> int:
         f"{recov['step_forms']}; issues sync-checked "
         f"{recov['syncs']}; subprocesses hang {recov['child_hang_s']:.1f} s, "
         f"sticky {recov['child_sticky_s']:.1f} s; launches {recov['launches']}")
+    log(f"[preempt table] TTFT of the latency arrivals (median) off "
+        f"{pre['ttft_off']:.4f} s, on {pre['ttft_on']:.4f} s; "
+        f"preempt_swap_seconds swap-out {pre['swap_out_s']}, resume "
+        f"{pre['resume_s']}; bytes per victim {pre['bytes']}; peak device "
+        f"memory {pre['peak']}; launches per steady step {pre['steady']}; "
+        f"issues sync-checked {pre['syncs']}; launches {pre['launches']}")
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}))

@@ -37,6 +37,7 @@ from arks_tpu_torch.engine import engine as engine_mod
 from arks_tpu_torch.engine import faults
 from arks_tpu_torch.engine.tokenizer import ByteTokenizer
 from arks_tpu_torch.models import get_config
+from arks_tpu_torch.models import moe as tmoe
 from arks_tpu_torch.models.weights import params_from_numpy
 
 torch.set_num_threads(2)
@@ -607,3 +608,207 @@ def test_replay_gate_suppresses_and_verifies():
     last = list(inner.queue)[-1]
     assert last.error == "engine_fault: replay_diverged"
     assert eng.aborted == ["h"] and len(inner.queue) == 3
+
+
+# ---------------------------------------------------------------------------
+# A decode row's bits do not depend on the step form
+# ---------------------------------------------------------------------------
+
+
+def _step_logits(monkeypatch, name):
+    """Record every logits tensor ``name`` (a transformer entry point the
+    engine calls) returns, with the call's ``split``."""
+    seen = []
+    real = getattr(engine_mod.tf, name)
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        seen.append((kw.get("split"), out.clone()))
+        return out
+
+    monkeypatch.setattr(engine_mod.tf, name, spy)
+    return seen
+
+
+def _moe_routes(monkeypatch):
+    """Record (rows, grouped) of every MoE FFN call."""
+    seen = []
+    real = tmoe.moe_ffn
+
+    def spy(x, *args, grouped, **kw):
+        seen.append((x.numel() // x.shape[-1], grouped))
+        return real(x, *args, grouped=grouped, **kw)
+
+    monkeypatch.setattr(tmoe, "moe_ffn", spy)
+    return seen
+
+
+def _decoding_engine(name, dtype, layout, **kw):
+    """An engine of ``layout`` at depth 0 with three greedy streams
+    decoding (its own seeded weights)."""
+    with _env(**_case_env(layout, 0)):
+        eng = InferenceEngine(get_config(name), EngineConfig(
+            model=name, kv_layout=LAYOUTS[layout][0], **dict(
+                KW, num_slots=4, dtype=dtype, **kw)),
+            ByteTokenizer(), device="cpu")
+    for i in range(3):
+        eng.add_request(Request(f"d{i}", [5 + i, 6, 7, 8 + i], SamplingParams(
+            max_tokens=40, temperature=0.0, ignore_eos=True)))
+    for _ in range(50):
+        eng.step(block_s=0.001)
+        if len(eng._slots) == 3:
+            break
+    eng.step(block_s=0.001)
+    assert len(eng._slots) == 3
+    return eng
+
+
+@pytest.mark.parametrize("name,dtype,chunk", [
+    ("tiny", "float32", 16), ("tiny", "bfloat16", 16),
+    ("tiny-moe", "float32", 64)])
+def test_decode_lane_bits_equal_in_pipe_and_chunk_steps(monkeypatch, name,
+                                                        dtype, chunk):
+    """A decode lane's logits from the pipe step (``mixed_pipe``, B rows)
+    equal, bit for bit, its logits from the classic mixed step that
+    carries a prefill chunk beside it (the decode block of B rows, then
+    the chunk block): what lets a replay decode in other step forms than
+    its original.  ``tiny-moe`` with a 64-token budget runs its chunk
+    block grouped and its decode block dense, as the pipe step does
+    (each MoE FFN call's rows and route recorded).  A chunk's rows, too,
+    get the same bits beside decode lanes and in an idle engine's step
+    (the same split, no decode lane): its completing lane's logits are
+    equal."""
+    eng = _decoding_engine(name, dtype, "paged-mixed",
+                           max_cache_len=chunk * 4, prefill_chunk=chunk)
+    eng.add_request(Request("long", [9] * (chunk * 2 + 3), SamplingParams(
+        max_tokens=4, temperature=0.0, ignore_eos=True)))
+    eng._admit()
+    assert eng._prefilling
+    pool = [t for t in eng.cache if t is not None]
+    before = [t.clone() for t in pool]
+    seen = _step_logits(monkeypatch, "mixed_step")
+    routes = _moe_routes(monkeypatch)
+    eng._issue_mixed()
+    classic_routes = list(routes)
+    routes.clear()
+    for t, b in zip(pool, before):
+        t.copy_(b)
+    eng._pipe_issue()
+    (split, classic), (none, pipe) = seen
+    n, layers = eng.ecfg.num_slots, eng.cfg.num_layers
+    assert split == n and none is None
+    dec = [(n, False)] if name == "tiny-moe" else []
+    assert routes == dec * layers
+    assert classic_routes == (dec + [(chunk, True)] * len(dec)) * layers
+    for slot in eng._slots:
+        assert torch.equal(classic[slot], pipe[slot]), slot
+
+    short = [11, 12, 13] * (chunk // 4)
+    first = {}
+    for idle in (False, True):
+        if idle:
+            with _env(**_case_env("paged-mixed", 0)):
+                eng = InferenceEngine(get_config(name), EngineConfig(
+                    model=name, kv_layout="paged", **dict(
+                        KW, num_slots=4, dtype=dtype,
+                        max_cache_len=chunk * 4, prefill_chunk=chunk)),
+                    ByteTokenizer(), device="cpu")
+            eng._free = [1, 2, 3, 0]    # the slot the busy engine gives
+        else:
+            eng = _decoding_engine(name, dtype, "paged-mixed",
+                                   max_cache_len=chunk * 4,
+                                   prefill_chunk=chunk)
+        eng.add_request(Request(f"short-{idle}", short, SamplingParams(
+            max_tokens=4, temperature=0.0, ignore_eos=True)))
+        eng._admit()
+        (slot,) = eng._prefilling
+        seen.clear()
+        eng._issue_mixed()
+        ((split, logits),) = seen
+        assert split == n
+        first[idle] = (slot, logits[slot])
+    assert first[True][0] == first[False][0] == 0
+    assert torch.equal(first[True][1], first[False][1])
+
+
+def test_legacy_decode_lane_bits_equal_in_both_step_forms(monkeypatch):
+    """A legacy lane's logits from ``_issue_decode``'s steps
+    (``decode_step``) equal those from ``decode_pipe``'s
+    (``decode_state_step``), step for step: both run all B lanes."""
+    eng = _decoding_engine("tiny", "float32", "slot")
+    pool = [t for t in eng.cache if t is not None]
+    before = [t.clone() for t in pool]
+    seen = _step_logits(monkeypatch, "decode_step")
+    eng._issue_decode()
+    for t, b in zip(pool, before):
+        t.copy_(b)
+    seen_pipe = _step_logits(monkeypatch, "decode_state_step")
+    eng._pipe_issue()
+    k = eng.ecfg.steps_per_dispatch
+    assert len(seen_pipe) == k
+    for (_, a), (_, b) in zip(seen[:k], seen_pipe):
+        for slot in eng._slots:
+            assert torch.equal(a[slot], b[slot]), slot
+
+
+def _drive_late(eng, reqs, late):
+    """Add ``reqs``, then ``late`` once a stream decodes; drive until all
+    ended.  Returns {rid: (ids, finish reason, error)}."""
+    for r in reqs:
+        eng.add_request(r)
+    for _ in range(3000):
+        try:
+            eng.step(block_s=0.001)
+        except Exception as e:  # noqa: BLE001 — routed like the run loop
+            eng._recover_from_fault(e)
+        if late and eng._slots:
+            for r in late:
+                eng.add_request(r)
+            late = []
+        if not late and not _busy(eng):
+            return {r.request_id: _collect(r) for r in reqs}
+    raise AssertionError("engine did not drain")
+
+
+def test_restore_fault_replay_streams_whole_equal(weights):
+    """The restore round on the mixed engine at depth 2: a two-page prefix
+    is spilled to the host tier, then requested again beside a decoding
+    seeded bystander, once fault-free and once with ``restore:1:runtime``.
+    The fault replays the bystander, whose replay decodes in pipe steps
+    where its original decoded beside the restoring request's chunks; its
+    whole stream, past the gate's checked prefix too, equals the
+    fault-free round's."""
+    eng = port_engine(weights, "paged-mixed", 2)
+    page = eng._page
+    prefix = [int(x) for x in np.random.default_rng(13).integers(
+        32, 120, 2 * page)]
+    digests = engine_mod.chain_digests(prefix, page, 2)
+    _drive_late(eng, [Request("warm", prefix + [65, 66, 67], SamplingParams(
+        max_tokens=8, temperature=0.0, ignore_eos=True))], [])
+    rounds = []
+    for rnd, inject in enumerate(("", "restore:1:runtime")):
+        alloc = eng._alloc
+        alloc.decref(alloc.alloc(alloc.free_pages + alloc.retained_pages))
+        eng._spill_flush()
+        for _ in range(100):
+            if not eng._spills:
+                break
+            eng.step(block_s=0.001)
+        assert all(eng._host.peek(d) is not None for d in digests)
+        eng._faults = faults.FaultInjector(inject)
+        faults0 = eng.metrics.engine_faults_total.total()
+        by = Request(f"by-{rnd}", [11, 12, 13, 14, 15], SamplingParams(
+            max_tokens=40, temperature=0.8, top_k=50, seed=77,
+            ignore_eos=True))
+        victim = Request(f"victim-{rnd}", prefix + [70, 71, 72, 73],
+                         SamplingParams(max_tokens=8, temperature=0.0,
+                                        ignore_eos=True))
+        got = _drive_late(eng, [by, victim], [])
+        rounds.append((got[by.request_id], got[victim.request_id],
+                       eng.metrics.engine_faults_total.total() - faults0))
+    (by0, v0, f0), (by1, v1, f1) = rounds
+    assert (f0, f1) == (0, 1)
+    assert eng.metrics.engine_faults_total.get(phase="restore",
+                                               kind="injected") == 1
+    assert by0[1:] == by1[1:] == ("length", None) and len(by0[0]) == 40
+    assert by1 == by0 and v1 == v0

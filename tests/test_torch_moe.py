@@ -328,14 +328,50 @@ def test_prefill_and_chunk_dispatch_choice_matches_reference(b, t,
     assert not _port_choice(monkeypatch, tdecode)
 
 
-def test_engine_decides_on_its_padded_batch():
+def test_engine_decides_on_its_padded_batch(monkeypatch):
     """The reference's engine runs every mixed step at num_slots + budget
-    tokens; the port's engine, which trims the batch, keeps that choice."""
-    from arks_tpu_torch.engine import EngineConfig, InferenceEngine
+    tokens; the port's engine runs each row block at rows of its own and
+    takes each block's MoE dispatch by the reference's rule on them,
+    recorded at every MoE FFN call of ``_issue_mixed``'s steps: a step
+    that carries chunks runs the decode block (num_slots rows, the pipe
+    step's) then the chunk block (the budget's rows) in every layer, with
+    or without a decode lane; a decode-only step the decode block alone.
+    Each block on both sides of the 64-row threshold."""
+    from arks_tpu_torch.engine import (EngineConfig, InferenceEngine,
+                                       Request, SamplingParams)
     from arks_tpu_torch.engine.tokenizer import ByteTokenizer
-    for chunk, grouped in ((62, True), (61, False)):
-        eng = InferenceEngine(get_config("tiny-mixtral"), EngineConfig(
-            model="tiny-mixtral", num_slots=2, max_cache_len=chunk * 2,
-            prefill_chunk=chunk, dtype="float32"), ByteTokenizer(),
-            device="cpu")
-        assert eng._moe_grouped is grouped
+    monkeypatch.setenv("ARKS_PIPELINE_DEPTH", "0")
+    seen = []
+    real = tmoe.moe_ffn
+
+    def spy(x, *args, grouped, **kw):
+        seen.append((x.numel() // x.shape[-1], grouped))
+        return real(x, *args, grouped=grouped, **kw)
+
+    monkeypatch.setattr(tmoe, "moe_ffn", spy)
+    cfg = get_config("tiny-mixtral")
+
+    def step(eng):
+        seen.clear()
+        eng._resolve_mixed(eng._issue_mixed())
+        return list(seen)
+
+    def greedy(rid, ids):
+        return Request(rid, ids, SamplingParams(
+            max_tokens=8, temperature=0.0, ignore_eos=True))
+
+    for slots, chunk in ((2, 64), (2, 63), (64, 16)):
+        eng = InferenceEngine(cfg, EngineConfig(
+            model="tiny-mixtral", num_slots=slots, max_cache_len=chunk * 4,
+            prefill_chunk=chunk, kv_layout="paged", dtype="float32"),
+            ByteTokenizer(), device="cpu")
+        assert eng._mixed_budget == chunk
+        dec = (slots, slots >= 64)
+        blk = (chunk, chunk >= 64)
+        eng.add_request(greedy("a", [5, 6, 7]))
+        eng._admit()
+        assert step(eng) == [dec, blk] * cfg.num_layers, (slots, chunk)
+        assert step(eng) == [dec] * cfg.num_layers, (slots, chunk)
+        eng.add_request(greedy("b", [9] * (chunk * 2 + 1)))
+        eng._admit()
+        assert step(eng) == [dec, blk] * cfg.num_layers, (slots, chunk)

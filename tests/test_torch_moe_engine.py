@@ -235,9 +235,18 @@ def test_greedy_streams_match_jax_engine(name, route, weight_dtype,
     prompts = _prompts(jax_get_config(name).vocab_size)
     want = _jax_streams(name, jparams, prompts, 6, monkeypatch,
                         weight_dtype=weight_dtype)
+    routes = set()
+    real = tmoe.moe_ffn
+
+    def spy(x, *args, grouped, **kw):
+        routes.add((x.numel() // x.shape[-1], grouped))
+        return real(x, *args, grouped=grouped, **kw)
+
+    monkeypatch.setattr(tmoe, "moe_ffn", spy)
     got, eng = _torch_streams(name, tparams, prompts, 6,
                               weight_dtype=weight_dtype)
-    assert eng._moe_grouped
+    # The chunk blocks (the budget's 64 rows) took the grouped dispatch.
+    assert (eng._mixed_budget, True) in routes
     assert (weight_dtype == "int8") == isinstance(
         eng.params["layers"]["w_gate"], dict)
     assert got == want

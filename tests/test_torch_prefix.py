@@ -545,16 +545,19 @@ def test_slot_cache_prefix_reuse_equals_the_jax_engine(params, monkeypatch):
 
 
 def test_unserved_prefix_knobs_raise(monkeypatch):
-    """The disk tier, peer fetch and preemptive swap are refused, not
-    ignored; a negative budget raises."""
+    """The disk tier and peer fetch are refused, not ignored; preemptive
+    swap is served (``test_torch_preempt.py``); a negative budget
+    raises."""
     for name, value in (("ARKS_PREFIX_DISK_MB", "64"),
                         ("ARKS_PEER_FETCH", "1"),
-                        ("ARKS_PEER_ADDRS", "http://localhost:1"),
-                        ("ARKS_PREEMPT", "1")):
+                        ("ARKS_PEER_ADDRS", "http://localhost:1")):
         with monkeypatch.context() as m:
             m.setenv(name, value)
             with pytest.raises(NotImplementedError, match=name):
                 _torch_engine(None)
+    with monkeypatch.context() as m:
+        m.setenv("ARKS_PREEMPT", "1")
+        assert _torch_engine(None).resolved_config["preempt"] != "off"
     monkeypatch.setenv("ARKS_PREFIX_HOST_MB", "-1")
     with pytest.raises(ValueError):
         _torch_engine(None)

@@ -4,15 +4,20 @@ trees can be compared inside one call to the card: Qwen2.5-7B bf16 (or,
 with ``--model mixtral``, Mixtral-8x7B with int8 weights) at full width on
 random weights, ``chip_smoke.py``'s engine shape (8 slots x 4096, chunk
 256, bf16 paged pool, pipeline depth 2).  One stream decodes while a
-20-token prompt (``max_tokens`` 1) arrives, 12 times; the engine is driven
-step by step from this thread.
+20-token prompt (``max_tokens`` 1) arrives, 12 times; then, with that
+stream aborted, the same prompts arrive 12 times at the idle engine.  The
+engine is driven step by step from this thread.
 
-It prints the flat batch's rows of the step that carried the prompt's
-chunk (the tokens in use, or the fixed ``num_slots`` + chunk budget),
-that ``mixed_step`` call's device µs and kernel launches (chip_smoke's
-``_profile_step``: the profiler window that saw the most device events of
-three) and host ms with a synchronise, and the time to first token on
-the host clock (its median and least, the first two trials dropped).
+It prints, for the step that carried the prompt's chunk beside the
+decoding stream, the flat batch's rows (the tokens in use, or the fixed
+``num_slots`` + chunk budget), that ``mixed_step`` call's device µs and
+kernel launches (chip_smoke's ``_profile_step``: the profiler window that
+saw the most device events of three) and host ms with a synchronise, its
+decode-row block (``split``, None where the tree runs one block), and the
+time to first token on the host clock (its median and least, the first
+two trials dropped); the same under ``idle_`` for the chunk-only step of
+the idle engine; and the 8-lane pipe step's and decode-only mixed step's
+device ms and launches (``phase_pipe_step_profile``).
 
     python3 tools/torch_rows_compare.py --root DIR [--model qwen|mixtral]
 
@@ -81,43 +86,59 @@ def main() -> int:
                 return
         raise AssertionError("the engine made no progress")
 
+    def trials(tag):
+        """TRIALS short prompts, one at a time: the chunk step's numbers
+        (its call replayed under the profiler) and the TTFTs."""
+        ttft = []
+        for trial in range(TRIALS):
+            r = Request(f"{tag}short-{trial}",
+                        [70 + (trial + j) % 23 for j in range(PROMPT_LEN)],
+                        SamplingParams(max_tokens=1, temperature=0.0,
+                                       ignore_eos=True))
+            got = []
+
+            def answered():
+                while not r.outputs.empty():
+                    got.append(r.outputs.get_nowait())
+                return bool(got)
+
+            t0 = time.perf_counter()
+            engine.add_request(r)
+            drive_until(answered)
+            ttft.append(time.perf_counter() - t0)
+            drive_until(lambda: answered() and got[-1].finished)
+            for _ in range(4):
+                engine.step(block_s=0.001)
+        a, k = captured[0]
+        host_ms, dev_us, launches, _ = cs._profile_step(
+            torch, lambda: real(*a, **k), 1)
+        ttft = ttft[WARM_TRIALS:]
+        return {f"{tag}flat_rows": int(a[4].shape[0]),
+                f"{tag}qmax": k.get("qmax"), f"{tag}split": k.get("split"),
+                f"{tag}step_device_us": dev_us,
+                f"{tag}step_launches": launches,
+                f"{tag}step_host_ms": host_ms,
+                f"{tag}ttft_ms_median": statistics.median(ttft) * 1e3,
+                f"{tag}ttft_ms_min": min(ttft) * 1e3,
+                f"{tag}ttft_ms": [round(t * 1e3, 3) for t in ttft]}
+
     engine.add_request(Request(
         "background", [66 + i % 20 for i in range(40)],
         SamplingParams(max_tokens=3000, temperature=0.0, ignore_eos=True)))
     drive_until(lambda: bool(engine._slots))
     for _ in range(8):
         engine.step(block_s=0.001)
-    ttft = []
-    for trial in range(TRIALS):
-        r = Request(f"short-{trial}",
-                    [70 + (trial + j) % 23 for j in range(PROMPT_LEN)],
-                    SamplingParams(max_tokens=1, temperature=0.0,
-                                   ignore_eos=True))
-        got = []
-
-        def answered():
-            while not r.outputs.empty():
-                got.append(r.outputs.get_nowait())
-            return bool(got)
-
-        t0 = time.perf_counter()
-        engine.add_request(r)
-        drive_until(answered)
-        ttft.append(time.perf_counter() - t0)
-        drive_until(lambda: answered() and got[-1].finished)
-        for _ in range(4):
-            engine.step(block_s=0.001)
+    out = dict(root=str(root), model=args.model, **trials(""))
+    engine.abort("background")
+    drive_until(lambda: engine.idle)
+    out.update(trials("idle_"))
     tf.mixed_step = real
-    a, k = captured[0]
-    host_ms, dev_us, launches, _ = cs._profile_step(
-        torch, lambda: real(*a, **k), 1)
-    ttft = ttft[WARM_TRIALS:]
-    print(json.dumps(dict(
-        root=str(root), model=args.model, flat_rows=int(a[4].shape[0]),
-        qmax=k.get("qmax"), step_device_us=dev_us, step_launches=launches,
-        step_host_ms=host_ms, ttft_ms_median=statistics.median(ttft) * 1e3,
-        ttft_ms_min=min(ttft) * 1e3,
-        ttft_ms=[round(t * 1e3, 3) for t in ttft])), flush=True)
+    steps = cs.phase_pipe_step_profile(torch, dev, engine)
+    out.update(pipe_step_device_ms=steps["pipe"][1],
+               pipe_step_launches=steps["pipe"][2],
+               decode_step_device_ms=steps["sequential"][1],
+               decode_step_launches=steps["sequential"][2])
+    print(json.dumps(out), flush=True)
     return 0
 
 
