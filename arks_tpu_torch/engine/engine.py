@@ -97,10 +97,27 @@ row go to host RAM (``SwapStore``, inside ``ARKS_PREFIX_HOST_MB``) and it
 resumes later where it stopped; otherwise (the slot cache, the host tier
 off, or a full budget) it re-queues behind a ``_ReplayGate`` and re-runs.
 
+Speculative decoding (``draft_model``, ``draft_len``) rides the mixed
+scheduler, as in the reference: a draft model on its own slot-contiguous
+cache proposes ``draft_len - 1`` tokens per decoding lane (``draft_len``
+``decode_step``s over every slot), and the target verifies each lane's
+block as a ragged ``q_len = draft_len`` lane of the same ``mixed_step``
+that carries the prefill chunks; ``sampler.speculative_accept`` keeps the
+longest greedy-matching prefix plus one token, or accepts by rejection
+sampling, so greedy lanes emit the target-only tokens and sampled lanes
+keep the target's distribution.  The verify block of every lane is a
+``num_slots * draft_len``-row block in every step form (the chunk
+budget's rows a second block of ``split``), and the pipelined path runs
+the same program on device state (``spec_pipe``).  A lane speculates when
+its request allows it (``spec_ok``: no penalties, logprobs, bias or
+min_tokens, a prompt the draft prefilled); the others advance one token a
+step through the same dispatch.  A speculative engine preempts in replay
+mode (the draft cache has no swap snapshot).
+
 What the reference does and this port does not — the disk prefix tier,
-peer prefix fetch, the cache sketch, speculative decoding, parallelism —
-is rejected (``EngineConfig.validate``, and ``check_unserved_knobs`` for
-the environment) rather than silently ignored.
+peer prefix fetch, the cache sketch, windowed residency, parallelism — is
+rejected (``EngineConfig.validate``, and ``check_unserved_knobs`` for the
+environment) rather than silently ignored.
 """
 
 from __future__ import annotations
@@ -135,7 +152,7 @@ from arks_tpu_torch.engine.prefix_cache import (HostPrefixTier, PrefixKVCache,
 from arks_tpu_torch.engine.types import Request, RequestOutput
 from arks_tpu_torch.models import quant
 from arks_tpu_torch.models import transformer as tf
-from arks_tpu_torch.models.config import ModelConfig
+from arks_tpu_torch.models.config import ModelConfig, get_config
 from arks_tpu_torch.obs import logctx
 from arks_tpu_torch.obs.profiler import ProfilerWindows
 from arks_tpu_torch.obs.trace import Tracer
@@ -153,8 +170,7 @@ class ContextLengthExceededError(ValueError):
 @dataclasses.dataclass
 class EngineConfig:
     """The reference's engine fields that the port serves or rejects
-    (speculative decoding, parallelism).  Values outside them raise in
-    ``validate``."""
+    (parallelism).  Values outside them raise in ``validate``."""
 
     model: str = "tiny"
     num_slots: int = 8
@@ -170,7 +186,11 @@ class EngineConfig:
     data_parallel: int = 1
     context_parallel: int = 1
     pipeline_parallel: int = 1
+    # Speculative decoding: a draft model (a config name; its weights come
+    # with the engine's draft_params) proposes draft_len - 1 tokens a
+    # step, verified as q_len = draft_len lanes of the mixed step.
     draft_model: str | None = None
+    draft_len: int = 4
     dtype: str | None = None   # default: model config dtype
     # "auto" = the model config's preference, else the engine dtype;
     # "bf16", "int8" or "int4".
@@ -201,8 +221,15 @@ class EngineConfig:
                 "pages + fused dequant live in the paged mixed kernel; "
                 "there is no int4 slot cache)")
         if self.draft_model:
-            raise NotImplementedError(
-                "speculative decoding arrives with its own slice")
+            # The reference's checks (its engine raises them at init).
+            if (self.pipeline_parallel or 1) > 1:
+                raise ValueError("speculative decoding is incompatible with "
+                                 "pipeline_parallel")
+            if (self.data_parallel or 1) > 1:
+                raise ValueError("speculative decoding requires "
+                                 "data_parallel == 1 (and no slice axis)")
+            if self.draft_len < 2:
+                raise ValueError("draft_len must be >= 2")
         for name in ("tensor_parallel", "data_parallel", "context_parallel",
                      "pipeline_parallel"):
             if (getattr(self, name) or 1) > 1:
@@ -288,13 +315,18 @@ def prefix_host_mb_knob() -> int:
 
 def check_unserved_knobs() -> None:
     """Raise on a knob that asks for a reference subsystem the port does
-    not have yet: the disk prefix tier (``ARKS_PREFIX_DISK_MB`` > 0) and
-    peer prefix fetch (``ARKS_PEER_FETCH``, ``ARKS_PEER_ADDRS``)."""
+    not have yet: the disk prefix tier (``ARKS_PREFIX_DISK_MB`` > 0), peer
+    prefix fetch (``ARKS_PEER_FETCH``, ``ARKS_PEER_ADDRS``) and windowed
+    residency (``ARKS_RESIDENCY_WINDOW_PAGES`` > 0)."""
     on = ("1", "true", "yes", "on")
     disk = knobs.get_str("ARKS_PREFIX_DISK_MB").strip()
     asked = []
     if disk not in ("0", ""):
         asked.append(f"ARKS_PREFIX_DISK_MB={disk} (the disk prefix tier)")
+    window = knobs.get_str("ARKS_RESIDENCY_WINDOW_PAGES").strip()
+    if window not in ("0", ""):
+        asked.append(f"ARKS_RESIDENCY_WINDOW_PAGES={window} (windowed "
+                     "residency)")
     if knobs.get_str("ARKS_PEER_FETCH").strip().lower() in on:
         asked.append("ARKS_PEER_FETCH (peer prefix fetch)")
     if knobs.get_str("ARKS_PEER_ADDRS", "").strip():
@@ -331,6 +363,11 @@ class _Slot:
     dead_len: int = 0
     # How its prompt was prefilled, for a replay to repeat (_ReplayShape).
     shape: "_ReplayShape | None" = None
+    # Speculative decoding: the lane speculates (frozen at registration, a
+    # function of the request alone, so that a replay advances its key by
+    # the same structure): the draft prefilled its prompt, and it asks for
+    # no penalties, logprobs, logit_bias or min_tokens.
+    spec_ok: bool = False
 
 
 @dataclasses.dataclass
@@ -529,7 +566,9 @@ class _ReplayGate:
             return
         toks = list(out.token_ids)
         start = self.pos
-        n_check = min(len(toks), len(self.expect) - start)
+        # Past the recorded prefix nothing is checked: a put that starts
+        # there (a speculative block of any length) checks no token.
+        n_check = max(0, min(len(toks), len(self.expect) - start))
         if toks[:n_check] != self.expect[start:start + n_check]:
             self.failed = True
             self._engine.abort(self._rid)
@@ -772,10 +811,151 @@ def decode_pipe(params: tf.Params, cfg: ModelConfig, cache,
     return toks, lp, torch.where(alive, tokens, 0), lengths, alive, sstate
 
 
+def draft_propose(dparams: tf.Params, dcfg: ModelConfig, dcache: tf.KVCache,
+                  tokens: torch.Tensor, lengths: torch.Tensor,
+                  sstate: sampler_mod.SamplingState, steps: int,
+                  sampled: bool):
+    """The draft's proposals for one speculative dispatch (the reference's
+    ``draft_propose``): ``steps`` (= draft_len) ``decode_step``s over every
+    slot of the draft's slot cache from ``tokens`` at ``lengths``, each
+    proposal drawn by ``draft_sample``.  The last step only writes the last
+    proposal's K/V row (its logits are not computed; its key split is):
+    after a fully accepted block the next dispatch's draft then attends a
+    whole prefix.  Parked lanes (lengths at or past the cache) drop their
+    writes.  Returns (drafts [B, steps - 1], q [B, steps - 1], q window
+    probs and ids [B, steps - 1, W] (None when no lane samples), the keys
+    after the steps' splits)."""
+    toks, qs, qps, qis = [], [], [], []
+    keys = sstate.key
+    tok, ln = tokens, lengths
+    for i in range(steps):
+        last = i == steps - 1
+        logits = tf.decode_step(dparams, dcfg, dcache, tok, ln,
+                                unembed=not last)
+        if last:
+            if sampled:
+                keys = prng.split(keys, 2)[:, 1]
+            break
+        tok, q, qp, qi, keys = sampler_mod.draft_sample(logits, sstate, keys,
+                                                        sampled)
+        toks.append(tok)
+        qs.append(q)
+        qps.append(qp)
+        qis.append(qi)
+        ln = ln + 1
+    drafts = torch.stack(toks, dim=1)
+    if not sampled:
+        return drafts, None, None, None, keys
+    return (drafts, torch.stack(qs, dim=1), torch.stack(qps, dim=1),
+            torch.stack(qis, dim=1), keys)
+
+
+def spec_carry(sstate: sampler_mod.SamplingState, active: torch.Tensor,
+               keys: torch.Tensor, guide_row: torch.Tensor,
+               gates: sampler_mod.Gates) -> sampler_mod.SamplingState:
+    """The sampling state after a speculative dispatch: the ``active``
+    lanes take the carried keys and the guide rows ``speculative_accept``
+    returned (nothing moves where no lane samples or is guided)."""
+    if gates.sampled:
+        sstate = sstate._replace(key=torch.where(active[:, None], keys,
+                                                 sstate.key))
+    if gates.guide:
+        sstate = sstate._replace(guide_row=torch.where(active, guide_row,
+                                                       sstate.guide_row))
+    return sstate
+
+
+def spec_verify(params: tf.Params, cfg: ModelConfig, dparams: tf.Params,
+                dcfg: ModelConfig, cache: tf.PagedKVCache, dcache: tf.KVCache,
+                feed: torch.Tensor, lengths: torch.Tensor,
+                sstate: sampler_mod.SamplingState, enable: torch.Tensor,
+                active: torch.Tensor, gtables, gates: sampler_mod.Gates,
+                dk: int, rows: dict, chunk_tokens: torch.Tensor | None = None):
+    """What both speculative step forms share: the draft's proposals
+    (``draft_propose``) from ``feed`` [B] at ``lengths``, every lane's
+    verify block (its fed token, then the proposals; lane b in rows
+    [b * dk, (b + 1) * dk), put into the token rows on the device, with
+    ``chunk_tokens`` after them) through ``mixed_step`` on the row layout
+    ``rows`` (its keyword arguments, ``tables`` on), then
+    ``speculative_accept`` over the verify logits (``enable`` lanes
+    speculate, the others take one token) and ``spec_carry`` on the
+    ``active`` lanes.  Returns (the step's logits, the verify logits [B,
+    dk, V], the block's tokens [B, dk], the accepted counts [B], at least
+    1, the sampling state)."""
+    b = feed.shape[0]
+    drafts, q_sel, q_probs, q_idx, dkeys = draft_propose(
+        dparams, dcfg, dcache, feed, lengths, sstate, dk, gates.sampled)
+    tokens = torch.cat([feed[:, None], drafts], dim=1).reshape(-1)
+    if chunk_tokens is not None:
+        tokens = torch.cat([tokens, chunk_tokens])
+    logits = tf.mixed_step(params, cfg, cache, tokens=tokens, **rows)
+    vlogits = logits[: b * dk].reshape(b, dk, -1)
+    out, counts, carry, grow = sampler_mod.speculative_accept(
+        drafts, q_sel, q_probs, q_idx, vlogits, sstate, dkeys, enable=enable,
+        lengths=lengths, guide_tables=gtables, gates=gates)
+    sstate = spec_carry(sstate, active, carry, grow, gates)
+    return logits, vlogits, out, torch.clamp(counts, min=1), sstate
+
+
+def spec_pipe(params: tf.Params, cfg: ModelConfig, dparams: tf.Params,
+              dcfg: ModelConfig, cache: tf.PagedKVCache, dcache: tf.KVCache,
+              tokens: torch.Tensor, lengths: torch.Tensor,
+              alive: torch.Tensor, stop_ids: torch.Tensor,
+              dead_len: torch.Tensor, spec_col: torch.Tensor,
+              sstate: sampler_mod.SamplingState, tables: torch.Tensor,
+              gtables, gates: sampler_mod.Gates, want_lp: bool,
+              sentinel: int, dk: int):
+    """One steady-state speculative dispatch on device-resident state (the
+    reference's ``spec_pipe``): ``spec_verify`` with every lane's verify
+    block at positions lengths .. lengths + dk - 1, in a flat batch of
+    B * dk rows, the dead lanes without a query (``spec_col`` & alive
+    lanes speculate, the others take one token), then the liveness over
+    the accepted prefix only.  Arguments as ``mixed_pipe``'s, plus the draft
+    and ``spec_col`` [B].  Returns (toks [dk + 1, B]: the block's tokens
+    and, last, each lane's accepted count; None | logprob data of position
+    0, repeated to [dk + 1, B(, L)]; next tokens, lengths, alive; the
+    sampling state)."""
+    b = tokens.shape[0]
+    dev = tokens.device
+    lane = torch.arange(b, dtype=torch.int32, device=dev)
+    blk = torch.arange(dk, dtype=torch.int32, device=dev)
+    eff = torch.where(alive, lengths, sentinel)
+    if gates.penalties:
+        sstate = sampler_mod.count_tokens(sstate, tokens, alive)
+    _, vlogits, out, counts, sstate = spec_verify(
+        params, cfg, dparams, dcfg, cache, dcache, tokens, eff, sstate,
+        spec_col & alive, alive, gtables, gates, dk, dict(
+            tables=tables,
+            token_slot=torch.where(alive, lane, -1).repeat_interleave(dk),
+            token_pos=(eff[:, None] + blk[None, :]).reshape(-1),
+            sample_src=torch.cat([
+                torch.arange(b * dk, dtype=torch.int32, device=dev),
+                lane * dk]),
+            seq_q_start=lane * dk, seq_q_len=alive.to(torch.int32) * dk,
+            seq_pos_start=eff, qmax=dk))
+    # Liveness over the accepted prefix only: tokens past the count are
+    # rejected proposals no one sees.
+    masked = torch.where((blk[None, :] < counts[:, None]) & alive[:, None],
+                         out, -1)
+    lengths = lengths + torch.where(alive, counts, 1)
+    alive = sampler_mod.advance_liveness(masked.T, alive, lengths, stop_ids,
+                                         dead_len)
+    last = out.gather(1, (counts - 1).long()[:, None])[:, 0]
+    toks = torch.cat([out.T, counts[None].to(out.dtype)])
+    lp = None
+    if want_lp:
+        # A logprob lane never speculates: its one token is position 0's.
+        lp = tuple(x[None].expand(dk + 1, *x.shape) for x in
+                   sampler_mod.top_logprobs(vlogits[:, 0], out[:, 0]))
+    return toks, lp, torch.where(alive, last, 0), lengths, alive, sstate
+
+
 class InferenceEngine:
     def __init__(self, cfg: ModelConfig, engine_cfg: EngineConfig,
                  tokenizer, params: tf.Params | None = None,
-                 device: str | torch.device | None = None) -> None:
+                 device: str | torch.device | None = None,
+                 draft_params: tf.Params | None = None,
+                 draft_cfg: ModelConfig | None = None) -> None:
         # A model config's KV dtype preference applies when the engine's
         # setting is "auto" (an explicit engine setting wins).
         if engine_cfg.kv_cache_dtype == "auto" and \
@@ -821,6 +1001,12 @@ class InferenceEngine:
         if knob == "1" and not self._paged:
             log.warning("ARKS_MIXED_STEP=1 requested but the slot layout "
                         "has no mixed scheduler; staying on the legacy one")
+        if engine_cfg.draft_model and not self._mixed:
+            raise ValueError(
+                "speculative decoding rides the mixed scheduler and "
+                "requires the paged KV layout with chunked prefill "
+                f"(resolved kv_layout={'paged' if self._paged else 'slot'}, "
+                f"ARKS_MIXED_STEP={knob})")
         quantized = kv in ("int8", "int4")
         n = engine_cfg.num_slots
         if self._paged:
@@ -849,6 +1035,27 @@ class InferenceEngine:
             self.cache = tf.init_cache(cfg, n, engine_cfg.max_cache_len,
                                        cache_dtype, self.device,
                                        quantized=quantized)
+        # Speculative decoding: the draft's params (the caller's, or drawn
+        # from seed + 1 in the engine dtype, as the reference draws them)
+        # and its slot-contiguous cache, stored as the pool is (int8 when
+        # the pool is quantized).
+        self._draft_cfg = None
+        self._draft_params = None
+        self._draft_cache = None
+        if engine_cfg.draft_model:
+            dcfg = draft_cfg or get_config(engine_cfg.draft_model)
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {dcfg.vocab_size} != target "
+                    f"{cfg.vocab_size} — the draft must share the target's "
+                    "tokenizer")
+            self._draft_cfg = dcfg
+            self._draft_params = draft_params if draft_params is not None \
+                else tf.init_params(dcfg, engine_cfg.seed + 1, dtype,
+                                    self.device)
+            self._draft_cache = tf.init_cache(
+                dcfg, n, engine_cfg.max_cache_len, cache_dtype, self.device,
+                quantized=quantized)
         # Prefix reuse beyond the device index: the host tier behind a
         # paged pool (spilled pages, restored at admission), or the slot
         # cache's host prefix cache.  Spills and restores move whole pages
@@ -895,9 +1102,12 @@ class InferenceEngine:
         self._pipe_depth = pipeline_depth_knob()
         self._sampler_fuse = sampler_fuse_knob()
         self._overlap = overlap_decode_knob(self.device)
-        # Rows a pipelined dispatch writes per slot (mixed: its one-token
-        # step; legacy: the K-step loop), also dead_len's cache margin.
-        self._pipe_rows = 1 if self._mixed else engine_cfg.steps_per_dispatch
+        # Rows a pipelined dispatch writes per slot (speculative: its verify
+        # block; mixed: its one-token step; legacy: the K-step loop), also
+        # dead_len's cache margin.
+        self._pipe_rows = (engine_cfg.draft_len if self._draft_cfg is not None
+                           else 1 if self._mixed
+                           else engine_cfg.steps_per_dispatch)
 
         # Host-authoritative scheduler state (engine thread only).  Slots
         # start parked in a paged pool (their rows' writes drop); in the
@@ -1045,7 +1255,8 @@ class InferenceEngine:
             "mixed_step": str(bool(self._mixed)).lower(),
             "pipeline_depth": str(self._pipe_depth),
             "prefix_host_mb": str(host_mb),
-            "spec_mixed": "false",
+            # Speculative engines verify inside the mixed dispatch.
+            "spec_mixed": str(self._draft_cfg is not None).lower(),
             # "swap": victims' decode state goes to host RAM; "replay":
             # victims re-queue and re-run; "off": priority only orders the
             # queue.
@@ -1660,7 +1871,7 @@ class InferenceEngine:
                     + [r.request.request_id for r in self._awaiting_restore
                        if isinstance(r, _ResumeState)])
         rids = [st.request.request_id for st in self._slots.values()]
-        if phase == "mixed":
+        if phase in ("mixed", "spec"):
             rids += [cs.request.request_id
                      for cs in self._prefilling.values()]
         return rids
@@ -1777,6 +1988,12 @@ class InferenceEngine:
         for t in self.cache:
             if t is not None:
                 t.zero_()
+        if self._draft_cache is not None:
+            # The draft's slot cache too (its rows are rewritten by every
+            # registration's draft prefill; zeroed as a fresh cache is).
+            for t in self._draft_cache:
+                if t is not None:
+                    t.zero_()
         n = self.ecfg.num_slots
         if self._paged:
             self._alloc = self._new_allocator(self._alloc.num_pages)
@@ -1866,19 +2083,27 @@ class InferenceEngine:
             if t0 - tp > 1e-4:
                 sec.inc(t0 - tp, phase="preempt")
         if self._mixed:
+            # A speculative engine's dispatch is the speculative mixed step
+            # (draft proposals, verify blocks and chunks in one batch).
+            spec = self._draft_cfg is not None
+            phase = "spec" if spec else "mixed"
             rec = None
             if self._slots or self._prefilling:
-                rec = self._issue_mixed()
+                rec = (self._issue_spec_mixed() if spec
+                       else self._issue_mixed())
             t1 = time.monotonic()
             if rec is not None:
-                sec.inc(t1 - t0, phase="mixed")
+                sec.inc(t1 - t0, phase=phase)
             worked = self._admit() or worked
             t2 = time.monotonic()
             if t2 - t1 > 1e-4:
                 sec.inc(t2 - t1, phase="admit")
             if rec is not None:
-                self._resolve_mixed(rec, exclude_s=t2 - t1)
-                sec.inc(time.monotonic() - t2, phase="mixed")
+                if spec:
+                    self._resolve_spec_mixed(rec, exclude_s=t2 - t1)
+                else:
+                    self._resolve_mixed(rec, exclude_s=t2 - t1)
+                sec.inc(time.monotonic() - t2, phase=phase)
                 worked = True
         else:
             pending = None
@@ -3047,15 +3272,7 @@ class InferenceEngine:
         self._grow_slot_pages(1)
         self._faults.fire("decode")
         n = self.ecfg.num_slots
-        t_budget = n + self._mixed_budget
-        sentinel = self._park_sentinel()
-        a = dict(tokens=np.zeros((t_budget,), np.int32),
-                 token_slot=np.full((t_budget,), -1, np.int32),
-                 token_pos=np.full((t_budget,), sentinel, np.int32),
-                 sample_src=np.zeros((n,), np.int32),
-                 seq_q_start=np.zeros((n,), np.int32),
-                 seq_q_len=np.zeros((n,), np.int32),
-                 seq_pos_start=np.zeros((n,), np.int32))
+        a = self._mixed_arrays(n)
         dec_slots = list(self._slots)
         for slot in dec_slots:
             a["tokens"][slot] = self._last_token[slot]
@@ -3065,18 +3282,8 @@ class InferenceEngine:
             a["seq_q_start"][slot] = slot
             a["seq_q_len"][slot] = 1
             a["seq_pos_start"][slot] = self._lengths[slot]
-        completing, chunk_take, _ = self._fill_chunk_lanes(a, n)
-        split = n if chunk_take else None
-        if split is None:
-            # Decode only: the pipe step's num_slots rows.
-            for key in ("tokens", "token_slot", "token_pos"):
-                a[key] = a[key][:n]
-        qmax = max(int(a["seq_q_len"].max()), 1)
-        n_chunk = sum(take for _, take in chunk_take)
-        self.metrics.mixed_batch_tokens.observe(len(dec_slots) + n_chunk)
-        if n_chunk:
-            self.metrics.mixed_chunk_tokens_total.inc(n_chunk)
-        self._mixed_grid_counters(a["seq_pos_start"], a["seq_q_len"], qmax)
+        completing, chunk_take, split, qmax = self._fill_mixed(
+            a, n, len(dec_slots))
         t0 = time.monotonic()
         d = {k: self._upload(v) for k, v in a.items()}
         logits = tf.mixed_step(
@@ -3090,6 +3297,40 @@ class InferenceEngine:
         self.chunk_dispatches += bool(chunk_take)
         self.shared_dispatches += bool(dec_slots and chunk_take)
         return dec_slots, completing, chunk_take, ids_dev, lp, t0
+
+    def _mixed_arrays(self, rows: int) -> dict:
+        """The host arrays of a mixed dispatch whose first block holds
+        ``rows`` rows (the decode lanes, or the verify blocks), with the
+        chunk budget's rows after it; every row starts as padding (its
+        write dropped, nothing attended)."""
+        n, t = self.ecfg.num_slots, rows + self._mixed_budget
+        return dict(tokens=np.zeros((t,), np.int32),
+                    token_slot=np.full((t,), -1, np.int32),
+                    token_pos=np.full((t,), self._park_sentinel(), np.int32),
+                    sample_src=np.zeros((n,), np.int32),
+                    seq_q_start=np.zeros((n,), np.int32),
+                    seq_q_len=np.zeros((n,), np.int32),
+                    seq_pos_start=np.zeros((n,), np.int32))
+
+    def _fill_mixed(self, a: dict, rows: int, dec_tokens: int):
+        """Fill the chunk block after the first ``rows`` rows
+        (``_fill_chunk_lanes``) and count the batch (``dec_tokens`` decode
+        or verify tokens).  A step without chunks is cut to its first
+        block, the pipe step's rows.  Returns (completing slots,
+        [(slot, take)], the split: ``rows``, or None without chunks,
+        qmax)."""
+        completing, chunk_take, _ = self._fill_chunk_lanes(a, rows)
+        split = rows if chunk_take else None
+        if split is None:
+            for key in ("tokens", "token_slot", "token_pos"):
+                a[key] = a[key][:rows]
+        qmax = max(int(a["seq_q_len"].max()), 1)
+        n_chunk = sum(take for _, take in chunk_take)
+        self.metrics.mixed_batch_tokens.observe(dec_tokens + n_chunk)
+        if n_chunk:
+            self.metrics.mixed_chunk_tokens_total.inc(n_chunk)
+        self._mixed_grid_counters(a["seq_pos_start"], a["seq_q_len"], qmax)
+        return completing, chunk_take, split, qmax
 
     def _mixed_grid_counters(self, pos_start: np.ndarray, q_len: np.ndarray,
                              qmax: int) -> None:
@@ -3157,6 +3398,14 @@ class InferenceEngine:
                     self._slots[slot].request.params.logprobs is not None:
                 rows = tuple(x[slot: slot + 1] for x in lp_h)
             self._fanout_decode_tokens(slot, [int(ids[slot])], rows, dt)
+        self._advance_chunks(chunk_take, completing, ids, lp_h)
+
+    def _advance_chunks(self, chunk_take: list, completing: list[int], ids,
+                        lp_h) -> None:
+        """The prefill tail of a mixed (or speculative mixed) dispatch:
+        advance every sequence that took a chunk, then promote those whose
+        prompt completed, with first token ``ids[slot]`` (and its logprob
+        data, ``lp_h``)."""
         for slot, take in chunk_take:
             cs = self._prefilling[slot]
             cs.pos += take
@@ -3181,16 +3430,214 @@ class InferenceEngine:
             self._register_prompt_pages(cs.ids, self._slot_pages.get(slot, []),
                                         cs.digests)
 
+    # ------------------------------------------------------------------
+    # Speculative decoding: draft proposals verified as ragged lanes of the
+    # mixed step
+    # ------------------------------------------------------------------
+
+    @_scoped("spec")
+    def _issue_spec_mixed(self):
+        """Build and run ONE speculative mixed dispatch (the reference's
+        ``_issue_spec_mixed``), through ``spec_verify``: the draft's
+        proposals for every slot, then one ``mixed_step`` in which every
+        decoding slot owns a verify block of ``draft_len`` rows (its last
+        token, then the proposals, put into the rows on the device), lane
+        s in rows [s * draft_len, (s + 1) * draft_len) of a ``num_slots *
+        draft_len`` block, and the round-robin chunk fill follows as a
+        second block of
+        the chunk budget's rows (``split``, as ``_issue_mixed`` splits):
+        the verify block's bits are the pipe step's.  Speculating lanes
+        advance 1..draft_len tokens (``speculative_accept``), the others
+        one; a completing prompt samples its first token as in the mixed
+        step.  Returns the record for ``_resolve_spec_mixed`` or None."""
+        dk = self.ecfg.draft_len
+        self._abort_and_retire(1 + dk)
+        if not self._slots and not self._prefilling:
+            return None
+        self._ensure_guides_uploaded()
+        self._grow_slot_pages(dk)
+        self._faults.fire("spec")
+        n = self.ecfg.num_slots
+        spec_t = n * dk
+        a = self._mixed_arrays(spec_t)
+        feed = np.zeros((n,), np.int32)
+        active = np.zeros((n,), bool)
+        enable = np.zeros((n,), bool)
+        dec_slots = list(self._slots)
+        for slot in dec_slots:
+            r0, ln = slot * dk, int(self._lengths[slot])
+            a["token_slot"][r0: r0 + dk] = slot
+            a["token_pos"][r0: r0 + dk] = np.arange(ln, ln + dk)
+            a["seq_q_start"][slot] = r0
+            a["seq_q_len"][slot] = dk
+            a["seq_pos_start"][slot] = ln
+            feed[slot] = self._last_token[slot]
+            active[slot] = True
+            enable[slot] = self._slots[slot].spec_ok
+        completing, chunk_take, split, qmax = self._fill_mixed(
+            a, spec_t, len(dec_slots) * dk)
+        t0 = time.monotonic()
+        d = {k: self._upload(v) for k, v in a.items()}
+        feed_d, active_d = self._upload(feed), self._upload(active)
+        lengths_d = self._upload(self._lengths)
+        dec = [self._slots[s].request.params for s in dec_slots]
+        gates = _lane_gates(dec, dec)
+        sstate = self._sampling
+        if gates.penalties:
+            # Feed-time counting, in place: a disabled lane with penalties
+            # advances one token a step.
+            sampler_mod.count_tokens(sstate, feed_d, active_d)
+        logits, vlogits, out, counts, self._sampling = spec_verify(
+            self.params, self.cfg, self._draft_params, self._draft_cfg,
+            self.cache, self._draft_cache, feed_d, lengths_d, sstate,
+            self._upload(enable), active_d,
+            self._guide_dev if gates.guide else None, gates, dk, dict(
+                tables=self._upload(self._tables),
+                token_slot=d["token_slot"], token_pos=d["token_pos"],
+                sample_src=torch.cat([
+                    torch.arange(spec_t, dtype=torch.int32,
+                                 device=self.device), d["sample_src"]]),
+                seq_q_start=d["seq_q_start"], seq_q_len=d["seq_q_len"],
+                seq_pos_start=d["seq_pos_start"], qmax=qmax, split=split),
+            chunk_tokens=None if split is None else d["tokens"][spec_t:])
+        comp_ids = torch.zeros_like(counts)
+        comp = [self._prefilling[s].request.params for s in completing]
+        if completing:
+            comp_ids = self._sample_completing(logits[spec_t:], completing)
+        ids = torch.cat([out.T, counts[None], comp_ids[None].to(out.dtype)])
+        lp = None
+        if any(p.logprobs is not None for p in dec + comp):
+            # Position 0 of a (never speculating) logprob lane, or a
+            # completing lane's first token.
+            ov = np.zeros((n,), bool)
+            ov[completing] = True
+            ov_d = self._upload(ov)
+            lp = tuple(x[None].expand(dk + 2, *x.shape)
+                       for x in sampler_mod.top_logprobs(
+                           torch.where(ov_d[:, None], logits[spec_t:],
+                                       vlogits[:, 0]),
+                           torch.where(ov_d, comp_ids, out[:, 0])))
+        self.dispatches += 1
+        self.chunk_dispatches += bool(chunk_take)
+        self.shared_dispatches += bool(dec_slots and chunk_take)
+        return dec_slots, completing, chunk_take, ids, lp, t0
+
+    def _sample_completing(self, logits: torch.Tensor,
+                           completing: list[int]) -> torch.Tensor:
+        """First tokens of the prompts completing in a speculative mixed
+        dispatch, from their sample rows' ``logits`` [B, V], with the mixed
+        step's override columns (``_lane_sampling`` of no decode lane);
+        the state it draws with is not kept."""
+        st, gates, _ = self._lane_sampling([], completing)
+        lengths = self._upload(self._lengths) if gates.min_tokens else None
+        ids, _ = sampler_mod.sample(
+            logits, st, None, lengths,
+            self._guide_dev if gates.guide else None, gates)
+        return ids
+
+    @_scoped("spec")
+    def _resolve_spec_mixed(self, rec, exclude_s: float = 0.0) -> None:
+        """Host tail of a speculative mixed dispatch: fan each decoding
+        slot's accepted tokens out (1..draft_len), count the acceptance,
+        advance the prefilling sequences and promote completed prompts."""
+        dec_slots, completing, chunk_take, ids_dev, lp, t_issue = rec
+        self._faults.fire("resolve")
+        t0 = time.monotonic()
+        ids, lp_h = _to_host(ids_dev, lp)    # the host sync point
+        self.metrics.decode_resolve_wait_seconds_total.inc(
+            time.monotonic() - t0, mode="sequential")
+        dt = max(time.monotonic() - t_issue - exclude_s, 1e-6)
+        dk = self.ecfg.draft_len
+        tally = [0, 0]
+        for slot in dec_slots:
+            rows = None
+            if lp_h is not None and \
+                    self._slots[slot].request.params.logprobs is not None:
+                rows = tuple(x[:1, slot] for x in lp_h)
+            self._fanout_spec(slot, ids[:, slot], rows, dt, tally)
+        self._count_spec(*tally)
+        self._advance_chunks(chunk_take, completing, ids[dk + 1],
+                             None if lp_h is None
+                             else tuple(x[0] for x in lp_h))
+
+    def _fanout_spec(self, slot: int, col, lp_rows, dt: float,
+                     tally: list) -> None:
+        """Fan one lane's speculative result out: ``col`` holds its block's
+        draft_len tokens and then its accepted count (at least 1), of which
+        that many tokens are real.  ``tally`` [speculating lanes, accepted
+        proposals] collects the step's acceptance."""
+        dk = self.ecfg.draft_len
+        c = max(1, min(int(col[dk]), dk))
+        if self._slots[slot].spec_ok:
+            tally[0] += 1
+            tally[1] += c - 1
+            self.metrics.spec_decode_accepted_length.observe(c)
+        self._fanout_decode_tokens(slot, [int(x) for x in col[:c]], lp_rows,
+                                   dt)
+
+    def _count_spec(self, n_spec: int, accepted: int) -> None:
+        """The acceptance metrics of one speculative dispatch."""
+        if not n_spec:
+            return
+        proposed = (self.ecfg.draft_len - 1) * n_spec
+        m = self.metrics
+        m.spec_decode_proposed_tokens_total.inc(proposed)
+        m.spec_decode_accepted_tokens_total.inc(accepted)
+        m.spec_decode_acceptance_rate.set(
+            self._spec_accepted / max(self._spec_proposed, 1))
+
+    # The reference's engine fields of the same names, read from the
+    # counters: tests and chip_smoke.py compare them with the reference's
+    # and take per-round differences.
+    @property
+    def _spec_proposed(self) -> int:
+        """Draft tokens proposed to the verifier (speculating lanes)."""
+        return int(self.metrics.spec_decode_proposed_tokens_total.total())
+
+    @property
+    def _spec_accepted(self) -> int:
+        """Draft tokens the verifier accepted."""
+        return int(self.metrics.spec_decode_accepted_tokens_total.total())
+
+    def _draft_prefill(self, req: Request, slot: int) -> bool:
+        """Speculative decoding: prefill the prompt into the draft's slot
+        cache (one-shot, padded to its bucket, as the reference's
+        ``draft_prefill_insert``).  Skipped for a prompt past the largest
+        bucket (a one-shot draft prefill would stall the step chunking
+        exists to bound): that lane then never speculates.  Returns whether
+        the draft holds the prompt.  Nothing has been emitted yet, so a
+        failure re-queues the request."""
+        ids = list(req.prompt_ids)
+        if not ids or len(ids) > self._buckets[-1]:
+            return False
+        try:
+            padded = self._pad_to_bucket(ids)
+            _, ks, vs = tf.prefill(
+                self._draft_params, self._draft_cfg, self._upload(padded),
+                self._upload(np.array([len(ids)], np.int32)))
+            tf.insert_batch(self._draft_cache, ks, vs,
+                            self._upload(np.array([slot], np.int64)))
+        except Exception as e:
+            raise StepFault(
+                "admit", faults_mod.classify(e), culprits=[req.request_id],
+                survivors=[self._survivor_of(req, len(ids))]) from e
+        return True
+
     def _register_slot(self, req: Request, slot: int, first: int,
                        num_prompt: int, first_lp=None,
                        shape: _ReplayShape | None = None) -> None:
         p = req.params
         rid = req.request_id
+        spec_ok = False
+        if self._draft_cfg is not None and \
+                self._draft_prefill(req, slot):
+            spec_ok = not (_penalized(p) or p.logprobs is not None
+                           or p.logit_bias or p.min_tokens)
         st = _Slot(request=req, num_prompt=num_prompt,
                    stop_col=sampler_mod.np_stop_col(self._stop_ids_for(p)),
                    dead_len=min(num_prompt + p.max_tokens - 1,
                                 self.ecfg.max_cache_len - self._pipe_rows),
-                   shape=shape)
+                   shape=shape, spec_ok=spec_ok)
         self._fault_counts.pop(rid, None)
         replaying = rid in self._replaying
         if replaying:
@@ -3502,8 +3949,11 @@ class InferenceEngine:
         """Depth-0 sampler fusion (``ARKS_SAMPLER_FUSE``) on a mixed
         engine: a steady-state iteration runs the pipe program, fresh from
         the host mirrors, and resolves it at once, in place of the
-        host-built mixed batch.  The gates are the pipelined path's."""
-        if self._pipe_depth or not self._sampler_fuse or not self._mixed:
+        host-built mixed batch.  The gates are the pipelined path's.  Off
+        for a speculative engine, as in the reference: at depth 0 it runs
+        the host-built speculative step."""
+        if self._pipe_depth or not self._sampler_fuse or not self._mixed \
+                or self._draft_cfg is not None:
             return False
         return self._steady_ready()
 
@@ -3598,6 +4048,7 @@ class InferenceEngine:
         memory, the sampler's passes are gated by the live slots' requests
         (host booleans), and the results are read at resolve."""
         k = self._pipe_rows
+        spec = self._draft_cfg is not None
         fresh = self._pipe_state is None
         if fresh:
             for slot in list(self._slots):
@@ -3608,20 +4059,24 @@ class InferenceEngine:
         if self._paged:
             self._grow_slot_pages(k, ahead=len(self._pipe_inflight))
         self._ensure_guides_uploaded()
-        self._faults.fire("decode")
+        self._faults.fire("spec" if spec else "decode")
         if fresh:
             n = self.ecfg.num_slots
             alive = np.zeros((n,), bool)
             stop_ids = np.full((n, sampler_mod.STOP_IDS_MAX), -1, np.int32)
             dead_len = np.zeros((n,), np.int32)
+            spec_col = np.zeros((n,), bool)
             for slot, st in self._slots.items():
                 alive[slot] = True
                 stop_ids[slot] = st.stop_col
                 dead_len[slot] = st.dead_len
+                spec_col[slot] = st.spec_ok
             state = (self._upload(self._last_token),
                      self._upload(self._lengths), self._upload(alive))
+            # A speculative run also carries which lanes speculate.
             self._pipe_cols = (self._upload(stop_ids),
-                               self._upload(dead_len))
+                               self._upload(dead_len)) + (
+                (self._upload(spec_col),) if spec else ())
         else:
             state = self._pipe_state
         params = [st.request.params for st in self._slots.values()]
@@ -3631,15 +4086,24 @@ class InferenceEngine:
         t0 = time.monotonic()
         self._pipe_seq += 1
         self.trace.evt("", "pipe", "B", self._pipe_seq)
-        args = (self.params, self.cfg, self.cache, *state, *self._pipe_cols,
-                self._sampling, tables,
-                self._guide_dev if gates.guide else None, gates, want_lp,
+        gtables = self._guide_dev if gates.guide else None
+        tail = (self._sampling, tables, gtables, gates, want_lp,
                 self._park_sentinel())
-        if self._mixed:
-            toks, lp, *nxt, self._sampling = mixed_pipe(*args)
+        if spec:
+            toks, lp, *nxt, self._sampling = spec_pipe(
+                self.params, self.cfg, self._draft_params, self._draft_cfg,
+                self.cache, self._draft_cache, *state, *self._pipe_cols,
+                *tail, k)
+            self.dispatches += 1
+        elif self._mixed:
+            toks, lp, *nxt, self._sampling = mixed_pipe(
+                self.params, self.cfg, self.cache, *state, *self._pipe_cols,
+                *tail)
             self.dispatches += 1
         else:
-            toks, lp, *nxt, self._sampling = decode_pipe(*args, k)
+            toks, lp, *nxt, self._sampling = decode_pipe(
+                self.params, self.cfg, self.cache, *state, *self._pipe_cols,
+                *tail, k)
             self.decode_dispatches += 1
             self.decode_steps += k
         self._pipe_state = tuple(nxt)
@@ -3678,6 +4142,8 @@ class InferenceEngine:
         dt = max(now - (t_issue if last is None else last), 1e-6)
         cols = toks.T.tolist()
         cap = self.ecfg.max_cache_len - self._pipe_rows
+        spec = self._draft_cfg is not None
+        tally = [0, 0]
         for slot, gen in snapshot:
             st = self._slots.get(slot)
             if st is None or int(self._slot_gen[slot]) != gen:
@@ -3685,9 +4151,15 @@ class InferenceEngine:
             rows = None
             if want_lp and st.request.params.logprobs is not None:
                 rows = tuple(x[:, slot] for x in lp_h)
-            self._fanout_decode_tokens(slot, cols[slot], rows, dt)
+            if spec:
+                # The block's accepted prefix only (its count is the
+                # column's last entry).
+                self._fanout_spec(slot, cols[slot], rows, dt, tally)
+            else:
+                self._fanout_decode_tokens(slot, cols[slot], rows, dt)
             if slot in self._slots and int(self._lengths[slot]) >= cap:
                 self._finish(slot, "length")
+        self._count_spec(*tally)
 
     @_scoped("decode")
     def _pipe_drain(self) -> None:
@@ -3729,8 +4201,9 @@ class InferenceEngine:
 
     def _preempt_swap_capable(self) -> bool:
         """Swap mode: a paged pool with the host tier, whose budget the
-        SwapStore shares."""
-        return self._swap is not None
+        SwapStore shares, and no draft model (the draft's cache has no
+        swap snapshot: a speculative engine preempts in replay mode)."""
+        return self._swap is not None and self._draft_cfg is None
 
     @staticmethod
     def _swap_survivor(rec: _SwapRecord) -> _Survivor:

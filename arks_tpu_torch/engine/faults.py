@@ -17,10 +17,12 @@ port of ``arks_tpu/engine/faults.py``).
   queue's pick point), ``chunk`` (a legacy chunked-prefill dispatch),
   ``replay`` (recovery re-admission), ``pages`` (page-table growth and
   allocation), ``guide`` (guide-table upload), ``spill`` (a host-tier
-  spill issue) and ``restore`` (a host-tier restore issue or unpark).  The
-  parser does not check phase names: the reference's other phases
-  (``spec``, ``preempt``, ``disk_spill``, ``peer_fetch``, ``residency``,
-  ``resize``, ``model_switch``) parse and never fire here.  Kinds:
+  spill issue), ``restore`` (a host-tier restore issue or unpark),
+  ``preempt`` (a preemption's spill, harvest or resume) and ``spec`` (a
+  speculative dispatch issue, pipelined or not).  The parser does not
+  check phase names: the reference's other phases (``disk_spill``,
+  ``peer_fetch``, ``residency``, ``resize``, ``model_switch``) parse and
+  never fire here.  Kinds:
   ``runtime``, ``value``, ``oom`` (a RESOURCE_EXHAUSTED-shaped error),
   ``hang`` (sleeps ``ARKS_FAULT_HANG_S``, default 3600 — the
   watchdog-escalation fixture).

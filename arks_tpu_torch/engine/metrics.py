@@ -4,8 +4,7 @@ buckets, in its registration order, so ``GET /metrics`` reads the same on
 both servers.
 
 Only the families whose mechanism the port has are registered.  Left out,
-with their subsystems: speculative decoding (``spec_decode_*``), windowed
-residency (``residency_*``), the multi-model pool (``model_pool_*``,
+with their subsystems: windowed residency (``residency_*``), the multi-model pool (``model_pool_*``,
 ``model_switch_seconds``, ``model_cold_starts_total``), elastic resize (``engine_resizes_total``,
 ``resize_seconds``, ``scale_from_zero_seconds``), and the disk tier and
 peer fetch (``prefix_disk_*``, ``prefix_peer_fetch_*``).
@@ -99,6 +98,22 @@ class EngineMetrics:
         self.guide_registry_rows_in_use = r.gauge(
             "guide_registry_rows_in_use",
             "DFA rows currently packed in the transition table")
+        # Speculative decoding: proposals, acceptances, the lifetime rate,
+        # and the tokens each speculating lane lands a dispatch (1: none
+        # accepted; draft_len: the whole block and the bonus).
+        self.spec_decode_proposed_tokens_total = r.counter(
+            "spec_decode_proposed_tokens_total",
+            "Draft tokens proposed to the verifier")
+        self.spec_decode_accepted_tokens_total = r.counter(
+            "spec_decode_accepted_tokens_total",
+            "Draft tokens accepted by the verifier")
+        self.spec_decode_acceptance_rate = r.gauge(
+            "spec_decode_acceptance_rate",
+            "Lifetime draft-token acceptance rate")
+        self.spec_decode_accepted_length = r.histogram(
+            "spec_decode_accepted_length",
+            "Tokens landed per speculating request per spec dispatch",
+            buckets=[1, 2, 3, 4, 6, 8, 12, 16])
         # Mixed-step scheduling (ARKS_MIXED_STEP): one token-budget dispatch
         # per iteration carrying decode tokens + prefill-chunk tokens.
         self.mixed_batch_tokens = r.histogram(

@@ -2,7 +2,9 @@
 greedy, temperature + top-k + top-p over the ``TOP_K_MAX`` highest logits,
 and the request-level shaping in front of it — presence/frequency
 penalties, OpenAI ``logit_bias``, the ``min_tokens`` suppression of stop
-ids, and the guided-decoding mask — plus the raw-distribution logprobs.
+ids, and the guided-decoding mask — plus the raw-distribution logprobs,
+and speculative decoding's draft proposals and rejection-sampled
+acceptance (``draft_sample``, ``speculative_accept``).
 
 Greedy is ``argmax`` (the first index wins ties, as ``jnp.argmax``).  A
 sampled lane splits its key into (step, carry) and draws ``categorical``
@@ -480,3 +482,150 @@ def sample(logits: torch.Tensor, state: SamplingState,
     if guide_tables is not None and gates.guide:
         state = guide_advance(state, ids, guide_tables, active)
     return ids, state
+
+
+def draft_sample(logits: torch.Tensor, state: SamplingState,
+                 keys: torch.Tensor, sampled: bool = True):
+    """One draft proposal per lane for speculative decoding (the
+    reference's ``draft_sample``): greedy lanes propose the argmax with
+    q = 1, sampled lanes draw from their filtered window with the step half
+    of a 2-way split of ``keys``.  Returns (token [B] int32, q(token) [B],
+    window probs [B, W], window ids [B, W], the carried keys [B, 2]).
+    ``sampled`` (host gate) False: every lane is greedy, so no key moves
+    and the window is not built (q, probs and ids are None)."""
+    greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    if not sampled:
+        return greedy_tok, None, None, None, keys
+    probs, idx, scaled = filtered_probs(logits, state)
+    new_keys = prng.split(keys, 2)
+    step_keys, carry = new_keys[:, 0], new_keys[:, 1]
+    choice = prng.categorical(step_keys, scaled)[:, None]
+    samp_tok = idx.gather(1, choice)[:, 0].to(torch.int32)
+    samp_q = probs.gather(1, choice)[:, 0]
+    greedy = state.temperature <= 0
+    tok = torch.where(greedy, greedy_tok, samp_tok)
+    q = torch.where(greedy, torch.ones_like(samp_q), samp_q)
+    return tok, q, probs, idx, carry
+
+
+def _window_probs(logits: torch.Tensor, state: SamplingState):
+    """``filtered_probs`` of [B, K, V] logits, each lane's K positions with
+    its own row of the state: (probs [B, K, W], ids [B, K, W])."""
+    b, k, v = logits.shape
+
+    def rows(x):
+        return x.repeat_interleave(k, dim=0)
+
+    flat = state._replace(temperature=rows(state.temperature),
+                          top_p=rows(state.top_p), top_k=rows(state.top_k))
+    probs, idx, _ = filtered_probs(logits.reshape(b * k, v), flat)
+    return probs.reshape(b, k, -1), idx.reshape(b, k, -1)
+
+
+def speculative_accept(drafts: torch.Tensor, q_sel, q_probs, q_idx,
+                       target_logits: torch.Tensor, state: SamplingState,
+                       keys: torch.Tensor, enable=None, lengths=None,
+                       guide_tables=None, gates: Gates | None = None):
+    """Rejection-sampled acceptance of a draft block (the reference's
+    ``speculative_accept``, Leviathan et al.): draft i is accepted with
+    probability min(1, p_i(d_i) / q_i(d_i)); at the first rejection the
+    token is drawn from the residual norm(max(p - q, 0)), after a fully
+    accepted block the bonus token from p_{K-1}.  Greedy lanes accept the
+    longest prefix matching the target's argmax plus the argmax bonus.
+    ``drafts`` [B, K-1] with q_sel [B, K-1], q_probs / q_idx [B, K-1, W]
+    from ``draft_sample``; ``target_logits`` [B, K, V]; ``keys`` [B, 2] are
+    split three ways (uniforms, residual draw, carry).
+
+    Guided lanes (``guide_tables``) thread the DFA through the draft
+    prefix: position i's target logits are masked with the row the
+    current one reaches over drafts[:i], and the returned row is the
+    accepted prefix's, advanced by the bonus or residual token.
+    ``enable`` [B] (False: no speculation) gives a disabled lane exactly
+    one token from the position-0 target logits through ``sample``
+    (penalties, bias, min_tokens at ``lengths``, guide).
+
+    ``gates``: the host gates of the lanes (None: read from the state on
+    the device, as ``sample`` reads them).  With
+    ``gates.sampled`` off every lane is greedy: no key moves and the
+    window distributions are not built; with ``gates.guide`` off no lane
+    is guided.  Returns (tokens [B, K], of which counts[b] are valid;
+    counts [B] in 1..K; the carried keys; the guide rows [B])."""
+    if gates is None:
+        gates = gates_of(state, guide_tables)
+    b, km1 = drafts.shape
+    dev = drafts.device
+    lane = torch.arange(b, device=dev)
+    greedy = state.temperature <= 0
+    guided = guide_tables is not None and gates.guide
+    rows_arr = None
+    target_eff = target_logits
+    if guided:
+        class_ids, trans = guide_tables
+        on = state.guide >= 0
+        gsel = torch.clamp(state.guide, min=0).long()
+
+        def row_next(row, toks):
+            cls = class_ids[gsel, toks.long()]
+            nxt = trans[torch.clamp(row, min=0).long(), cls.long()]
+            return torch.where(on & (nxt >= 0), nxt, row)
+
+        rows = [state.guide_row]
+        for i in range(km1):
+            rows.append(row_next(rows[-1], drafts[:, i]))
+        rows_arr = torch.stack(rows, dim=1)                       # [B, K]
+        cls_all = class_ids[gsel].long()                          # [B, V]
+        masked = []
+        for i in range(km1 + 1):
+            r = trans[torch.clamp(rows_arr[:, i], min=0).long()]  # [B, C]
+            bad = (torch.gather(r, 1, cls_all) < 0) & on[:, None]
+            masked.append(torch.where(bad, _NEG, target_logits[:, i]))
+        target_eff = torch.stack(masked, dim=1)
+    g_t = torch.argmax(target_eff, dim=-1).to(torch.int32)       # [B, K]
+    accept = g_t[:, :km1] == drafts
+    carry = keys
+    if gates.sampled:
+        new_keys = prng.split(keys, 3)
+        u_keys, r_keys, carry = new_keys[:, 0], new_keys[:, 1], new_keys[:, 2]
+        u = prng.uniform(u_keys, km1)
+        p_probs, p_idx = _window_probs(target_eff, state)
+        # p_i(d_i): the draft's probability under the target's window (0
+        # outside the target's filtered support).
+        p_at_d = (p_probs[:, :km1]
+                  * (p_idx[:, :km1] == drafts[..., None])).sum(dim=-1)
+        accept_samp = u < p_at_d / torch.clamp(q_sel, min=1e-20)
+        accept = torch.where(greedy[:, None], accept, accept_samp)
+    j = torch.cumprod(accept.to(torch.int32), dim=1).sum(dim=1)  # [B]
+    counts = (1 + j).to(torch.int32)
+    y = g_t[lane, j]
+    if gates.sampled:
+        pj, pidxj = p_probs[lane, j], p_idx[lane, j]              # [B, W]
+        jq = torch.clamp(j, max=km1 - 1)
+        qj, qidxj = q_probs[lane, jq], q_idx[lane, jq]
+        # q mapped onto the target window's ids.
+        q_on_p = (qj[:, None, :] * (qidxj[:, None, :] == pidxj[:, :, None])
+                  ).sum(dim=-1)                                   # [B, W]
+        rejected = (j < km1)[:, None]
+        res = torch.clamp(pj - torch.where(rejected, q_on_p, 0.0), min=0.0)
+        norm = res.sum(dim=-1, keepdim=True)
+        res = torch.where(norm > 1e-20, res / torch.clamp(norm, min=1e-20),
+                          pj)
+        rchoice = prng.categorical(r_keys, torch.log(res + 1e-30))
+        y_samp = pidxj.gather(1, rchoice[:, None])[:, 0].to(torch.int32)
+        y = torch.where(greedy, y, y_samp)
+    out = torch.cat([drafts, torch.zeros((b, 1), dtype=drafts.dtype,
+                                         device=dev)], dim=1)
+    out[lane, j] = y.to(out.dtype)
+    guide_row = state.guide_row
+    if rows_arr is not None:
+        guide_row = row_next(rows_arr[lane, j], y)
+    if enable is not None:
+        plain, pstate = sample(
+            target_logits[:, 0],
+            state._replace(key=r_keys) if gates.sampled else state,
+            lengths=lengths, guide_tables=guide_tables, gates=gates)
+        out = torch.where(enable[:, None], out,
+                          torch.cat([plain[:, None].to(out.dtype),
+                                     out[:, 1:]], dim=1))
+        counts = torch.where(enable, counts, torch.ones_like(counts))
+        guide_row = torch.where(enable, guide_row, pstate.guide_row)
+    return out, counts, carry, guide_row

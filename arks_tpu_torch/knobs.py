@@ -23,6 +23,8 @@ DEFAULTS: dict[str, str | None] = {
     "ARKS_PREFIX_DISK_MB": "0",
     "ARKS_PEER_FETCH": "0",
     "ARKS_PEER_ADDRS": None,
+    # Windowed residency is refused (not ported).
+    "ARKS_RESIDENCY_WINDOW_PAGES": "0",
     # Preemptive KV swap for SLO tiers.
     "ARKS_PREEMPT": "0",
     "ARKS_PREEMPT_MAX_INFLIGHT": "1",

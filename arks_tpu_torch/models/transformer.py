@@ -4,7 +4,9 @@ for serving — the port of the single-device serving half of
 the mixed scheduler's ``mixed_step`` over the paged pool, and the legacy
 scheduler's one-shot ``prefill``, chunked prefill, prompt inserts and
 ``decode_step`` over the slot-contiguous cache or the paged pool, with its
-liveness-masked form ``decode_state_step`` for pipelined dispatch.
+liveness-masked form ``decode_state_step`` for pipelined dispatch, and
+``verify_step``, the oracle of a speculative verify block on either
+layout.
 
 Parameters keep the reference's layout: a dict of stacked ``[L, ...]``
 per-layer weights in ``x @ w`` orientation, so ``models/weights.py`` can
@@ -36,7 +38,9 @@ from arks_tpu_torch.ops.attention import (chunk_attention_xla,
                                           decode_update_and_attend,
                                           paged_decode_update_and_attend,
                                           paged_mixed_update_and_attend,
-                                          prefill_attention, prepare_mixed)
+                                          paged_verify_update_and_attend,
+                                          prefill_attention, prepare_mixed,
+                                          verify_update_and_attend)
 from arks_tpu_torch.ops.paged_attention import (pack_int4, paged_gather_kv,
                                                 paged_pool_gather,
                                                 paged_pool_scatter,
@@ -702,10 +706,12 @@ def decode_step(params: Params, cfg: ModelConfig,
                 tokens: torch.Tensor,    # [B] int32 — current token per slot
                 lengths: torch.Tensor,   # [B] int32 — tokens already cached
                 tables: torch.Tensor | None = None,  # [B, MaxP] (paged only)
-                *, impl: str | None = None) -> torch.Tensor:
+                *, impl: str | None = None,
+                unembed: bool = True) -> torch.Tensor | None:
     """Advance every slot one token: its K/V row is written at position
     ``lengths`` (IN PLACE) and it attends [0, lengths].  Returns logits
-    [B, V] float32.  A slot cache drops writes at lengths >= S; a paged
+    [B, V] float32, or None with ``unembed`` False (a step run only for
+    its K/V writes: a speculative draft's last step).  A slot cache drops writes at lengths >= S; a paged
     cache takes ``tables`` and treats lengths >= coverage as the inactive
     sentinel (write dropped, nothing attended).  ``impl`` goes to the
     attention op ("plain": the reference's XLA oracle) and to quantized
@@ -749,7 +755,7 @@ def decode_step(params: Params, cfg: ModelConfig,
                 k_scale=cache.k_scale, v_scale=cache.v_scale,
                 lengths=attend)
         h = _block_tail(h, attn.reshape(b, cfg.q_dim), lp, cfg, impl=impl)
-    return _unembed(h, params, cfg)
+    return _unembed(h, params, cfg) if unembed else None
 
 
 def decode_state_step(params: Params, cfg: ModelConfig,
@@ -766,3 +772,48 @@ def decode_state_step(params: Params, cfg: ModelConfig,
     the slot, so live slots' logits equal the sequential path's."""
     eff = torch.where(alive, lengths, sentinel).to(torch.int32)
     return decode_step(params, cfg, cache, tokens, eff, tables, impl=impl)
+
+
+def verify_step(params: Params, cfg: ModelConfig,
+                cache: KVCache | PagedKVCache,
+                tokens: torch.Tensor,    # [B, K] int32 — t0 + drafts
+                lengths: torch.Tensor,   # [B] int32 — tokens already cached
+                tables: torch.Tensor | None = None,  # [B, MaxP] (paged only)
+                *, impl: str | None = None) -> torch.Tensor:
+    """Multi-token decode: advance every slot K tokens in one pass (the
+    reference's ``verify_step``, its oracle of a speculative verify block;
+    the serving path runs verify blocks as q_len = K lanes of
+    ``mixed_step``).  Token k of slot b sits at position lengths[b] + k,
+    its K/V row is written there IN PLACE and it attends the cache prefix
+    and the earlier tokens of its block.  Returns logits [B, K, V] f32.
+    Rows of rejected drafts are garbage past the accepted length that
+    every read masks by position and the next dispatch overwrites.  A
+    paged cache takes ``tables``; lengths at or past its coverage are the
+    inactive sentinel (writes dropped, nothing attended).  ``impl`` goes
+    to quantized weights' ``qeinsum``."""
+    paged = isinstance(cache, PagedKVCache)
+    if paged and tables is None:
+        raise ValueError("verify_step with a PagedKVCache requires tables")
+    b, kk = tokens.shape
+    positions = (lengths.to(torch.int32)[:, None]
+                 + torch.arange(kk, dtype=torch.int32, device=tokens.device))
+    rope_pos = positions
+    if paged:
+        rope_pos = torch.clamp(positions, max=tables.shape[1] * cache.page - 1)
+    rope = rope_cos_sin(rope_pos, cfg.head_dim, cfg.rope_theta)
+    h = embed_lookup(params["embed"], tokens,
+                     params["layers"]["attn_norm"].dtype)     # [B, K, E]
+    for layer in range(cfg.num_layers):
+        lp = _layer(params, layer)
+        q, k, v = _block_qkv(h, lp, cfg, rope, impl)      # [B, K, H(kv), D]
+        if paged:
+            attn = paged_verify_update_and_attend(
+                q, k, v, cache.k, cache.v, tables, positions, layer,
+                k_scale=cache.k_scale, v_scale=cache.v_scale)
+        else:
+            attn = verify_update_and_attend(
+                q, k, v, cache.k, cache.v, positions, layer,
+                k_scale=cache.k_scale, v_scale=cache.v_scale)
+        h = _block_tail(h, attn.reshape(b, kk, cfg.q_dim), lp, cfg,
+                        grouped=moe.use_grouped(b * kk), impl=impl)
+    return _unembed(h.reshape(b * kk, -1), params, cfg).reshape(b, kk, -1)

@@ -1,7 +1,9 @@
 """Attention ops on the served paths (port of the single-device branches of
 ``arks_tpu/ops/attention.py``): one-shot and chunked prefill attention, the
-mixed scheduler's paged op, and the legacy scheduler's decode ops on the
-slot cache and on the paged pool.
+mixed scheduler's paged op, the legacy scheduler's decode ops on the
+slot cache and on the paged pool, and the speculative-verify oracles of
+both layouts (``verify_update_and_attend``,
+``paged_verify_update_and_attend``).
 
 GQA everywhere: H = G * Hkv query heads, q reshaped to [.., Hkv, G, ..] so
 K/V are never repeated.  Scores and softmax in float32.  Caches and pools
@@ -21,8 +23,8 @@ from arks_tpu_torch.ops.pallas_attention import (
 from arks_tpu_torch.ops.paged_attention import (
     MixedWork, _default_qmax, _use_kernel, gather_pool, is_int4_pool,
     mixed_work, paged_decode_attention, paged_gather_kv, paged_kv_update,
-    paged_kv_update_quant, paged_mixed_attention, paged_update_xla,
-    paged_write_rows, pool_page_tokens)
+    paged_kv_update_quant, paged_mixed_attention, paged_update_block_xla,
+    paged_update_xla, paged_write_rows, pool_page_tokens, quantize_kv)
 
 _NEG_INF = -1e30
 
@@ -388,3 +390,106 @@ def paged_mixed_update_and_attend(
                                  seq_q_len, seq_pos_start, layer,
                                  k_scale=k_scale, v_scale=v_scale, qmax=qmax,
                                  impl=impl, work=batch.work)
+
+
+def _verify_attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                   valid: torch.Tensor, ks=None, vs=None) -> torch.Tensor:
+    """The verify oracles' attention: queries q [B, K, H, D] over a
+    slot-contiguous view kc/vc [B, Hkv, S, D] (scales ks/vs [B, Hkv, S] for
+    a quantized one), entry s of query k valid where ``valid`` [B, K, S].
+    The reference's plain math: f32 scores, scales folded into the scores
+    (K) and the normalised probabilities (V).  Returns [B, K, H, D]."""
+    b, kk, h, d = q.shape
+    hkv = kc.shape[1]
+    qg = q.reshape(b, kk, hkv, h // hkv, d).permute(0, 2, 3, 1, 4)
+    scores = torch.einsum("bkgqd,bksd->bkgqs", qg.float(),
+                          kc.to(q.dtype).float()) * (1.0 / math.sqrt(d))
+    if ks is not None:
+        scores = scores * ks[:, :, None, None, :]
+    scores = scores.masked_fill(~valid[:, None, None], _NEG_INF)
+    probs = _softmax(scores, dim=-1)
+    if vs is not None:
+        probs = probs * vs[:, :, None, None, :]
+    out = torch.einsum("bkgqs,bksd->bkgqd", probs.to(q.dtype).float(),
+                       vc.to(q.dtype).float())
+    return out.permute(0, 3, 1, 2, 4).reshape(b, kk, h, d).to(q.dtype)
+
+
+def verify_update_and_attend(
+    q: torch.Tensor,        # [B, K, H, D] — K tokens per slot
+    k_new: torch.Tensor,    # [B, K, Hkv, D]
+    v_new: torch.Tensor,
+    k_cache: torch.Tensor,  # [L, B, Hkv, S, D] — updated IN PLACE
+    v_cache: torch.Tensor,
+    positions: torch.Tensor,  # [B, K] int32 — write positions per token
+    layer: int, *,
+    k_scale: torch.Tensor | None = None,  # [L, B, Hkv, S] f32 — int8 caches
+    v_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Speculative-verify attention on the slot cache (the reference's
+    ``verify_update_and_attend``, an XLA-only oracle there, so a plain
+    form here): write the K rows of each slot at ``positions`` (rows at or
+    past S are dropped; quantized for an int8 cache), then attend each
+    query over the cache prefix and the causal part of its own block (s
+    valid iff s <= positions[b, k]).  Returns [B, K, H, D]."""
+    b, kk = positions.shape
+    hkv, s = k_cache.shape[2], k_cache.shape[3]
+    pos = positions.long()
+    keep = (pos >= 0) & (pos < s)                              # [B, K]
+    bi, ki = torch.nonzero(keep, as_tuple=True)
+    idx = (bi[:, None], torch.arange(hkv, device=q.device)[None],
+           pos[bi, ki][:, None])
+    for cache, scales, new in ((k_cache, k_scale, k_new),
+                               (v_cache, v_scale, v_new)):
+        x = new[bi, ki]                                        # [n, Hkv, D]
+        if scales is None:
+            cache[layer][idx] = x.to(cache.dtype)
+            continue
+        vals, sc = quantize_kv(x)
+        cache[layer][idx] = vals
+        scales[layer][idx] = sc
+    valid = torch.arange(s, device=q.device)[None, None] <= \
+        positions[:, :, None]
+    ks = vs = None
+    if k_scale is not None:
+        ks, vs = k_scale[layer], v_scale[layer]
+    return _verify_attend(q, k_cache[layer], v_cache[layer], valid, ks, vs)
+
+
+def paged_verify_update_and_attend(
+    q: torch.Tensor,        # [B, K, H, D] — K tokens per slot
+    k_new: torch.Tensor,    # [B, K, Hkv, D]
+    v_new: torch.Tensor,
+    k_pool: torch.Tensor,   # [L, N, Hkv, P(/2), D] — updated IN PLACE
+    v_pool: torch.Tensor,
+    tables: torch.Tensor,   # [B, MaxP] int32 block tables
+    positions: torch.Tensor,  # [B, K] int32 — write positions per token
+    layer: int, *,
+    k_scale: torch.Tensor | None = None,  # [L, N, Hkv, P] f32 — IN PLACE
+    v_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Paged speculative verify (the reference's
+    ``paged_verify_update_and_attend``): write the K-row block of each slot
+    through its block table (``paged_update_block_xla``: a block may cross
+    a page boundary), then attend each query over its table pages, s valid
+    iff s <= positions[b, k].  Positions at or past the table's coverage
+    are the inactive-slot sentinel: writes dropped, nothing attended.
+    Returns [B, K, H, D].  Like the reference's, the whole function is an
+    XLA-style oracle: the write scatters, the attention gathers the slots'
+    pages (int4 pages unpacked)."""
+    quantized = k_scale is not None
+    int4 = is_int4_pool(k_pool, k_scale)
+    page = pool_page_tokens(k_pool, k_scale)
+    cover = tables.shape[1] * page
+    paged_update_block_xla(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
+                           positions, tables, layer)
+    kc = gather_pool(k_pool, tables, layer, int4)         # [B, Hkv, C, D]
+    vc = gather_pool(v_pool, tables, layer, int4)
+    ks = vs = None
+    if quantized:
+        ks = paged_gather_kv(k_scale, tables, layer)
+        vs = paged_gather_kv(v_scale, tables, layer)
+    pos = positions[:, :, None]
+    valid = (torch.arange(cover, device=q.device)[None, None] <= pos) & \
+        (pos < cover)
+    return _verify_attend(q, kc, vc, valid, ks, vs)

@@ -362,6 +362,22 @@ def paged_update_xla(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
                          sel[inside], page[inside], idx[inside] % p, layer)
 
 
+def paged_update_block_xla(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
+                           positions, tables, layer):
+    """Scatter a K-row KV block per slot (the speculative-verify write)
+    through the block table, IN PLACE: ``k_new``/``v_new`` [B, K, Hkv, D],
+    row k of slot b at position ``positions[b, k]`` (a block may cross a
+    page boundary).  Positions at or past the table's coverage are dropped,
+    the inactive-slot sentinel.  The same row writes as
+    ``paged_update_xla`` over the flattened block, each row through its
+    slot's table row.  Returns (k_pool, v_pool, k_scale, v_scale)."""
+    b, kk = positions.shape
+    return paged_update_xla(
+        k_pool, v_pool, k_scale, v_scale, k_new.reshape(b * kk, *k_new.shape[2:]),
+        v_new.reshape(b * kk, *v_new.shape[2:]), positions.reshape(-1),
+        tables.repeat_interleave(kk, dim=0), layer)
+
+
 def _scatter_rows(k_pool, v_pool, k_scale, v_scale, k_new, v_new, sel, page,
                   off, layer):
     """Write token sel[i]'s K/V rows at (layer, page[i], :, off[i]), IN

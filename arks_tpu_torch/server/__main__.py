@@ -9,6 +9,12 @@ model directory's (required when it holds real weights), else the
 byte-level one; ``--tokenizer-path`` overrides both.  Runs on the CUDA
 device unless ``--device cpu``.
 
+``--draft-model`` (a registry name or a model directory, which then loads
+its own weights) turns on speculative decoding with ``--draft-len``
+tokens verified a step; its weights come from ``--draft-model-path``
+through the same loader (quantized on load with ``--weight-dtype``), else
+random from ``--seed`` + 1.  The draft shares the target's tokenizer.
+
 SIGTERM drains (readiness 503, new completions 503, in-flight requests
 finish for up to ``--drain-timeout`` seconds) and then exits; SIGINT
 stops at once.
@@ -23,7 +29,7 @@ import signal
 import threading
 
 
-def main(argv: list[str] | None = None) -> None:
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p = argparse.ArgumentParser("arks_tpu_torch.server")
     p.add_argument("--model", required=True,
                    help="model config name (arks_tpu_torch.models) or a "
@@ -60,19 +66,33 @@ def main(argv: list[str] | None = None) -> None:
                    help="prefix reuse: a paged pool's retention pages, or "
                         "the slot cache's host prefix cache, in MB (0: "
                         "none)")
+    p.add_argument("--draft-model", default=None,
+                   help="speculative decoding: draft model config name or "
+                        "directory (must share the target's tokenizer); "
+                        "greedy requests emit the target's tokens, several "
+                        "a step")
+    p.add_argument("--draft-model-path", default=None,
+                   help="draft weights directory (random init from --seed "
+                        "+ 1 without it)")
+    p.add_argument("--draft-len", type=int, default=4,
+                   help="tokens a speculative step verifies (the draft "
+                        "proposes draft-len - 1)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--drain-timeout", type=float, default=20.0,
                    help="SIGTERM grace: finish in-flight requests up to "
                         "this many seconds before exiting")
-    args = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
+    return p.parse_args(argv)
 
+
+def build_engine(args: argparse.Namespace):
+    """The model config and the engine ``args`` ask for: weights from the
+    checkpoint or the seed, the tokenizer, and the draft model when
+    speculative decoding is on.  Returns (config, engine)."""
     from arks_tpu_torch.device import resolve_device
     from arks_tpu_torch.engine.engine import EngineConfig, InferenceEngine
     from arks_tpu_torch.engine.tokenizer import load_tokenizer
     from arks_tpu_torch.models.config import ModelConfig, get_config
     from arks_tpu_torch.models.weights import has_real_weights, load_params
-    from arks_tpu_torch.server.openai_server import OpenAIServer
 
     if os.path.isdir(args.model):
         cfg = ModelConfig.from_hf_config(
@@ -94,14 +114,39 @@ def main(argv: list[str] | None = None) -> None:
         tokenizer = load_tokenizer(
             model_path if model_path and os.path.isdir(model_path) else None,
             strict=has_real_weights(model_path))
+    draft_cfg = draft_params = None
+    if args.draft_model:
+        if os.path.isdir(args.draft_model):
+            draft_cfg = ModelConfig.from_hf_config(
+                args.draft_model,
+                name=os.path.basename(os.path.normpath(args.draft_model)))
+            # A directory loads its own weights, as --model's does.
+            draft_path = args.draft_model_path or args.draft_model
+        else:
+            draft_cfg = get_config(args.draft_model)
+            draft_path = args.draft_model_path
+        if draft_path:
+            draft_params = load_params(draft_cfg, draft_path, dtype=args.dtype,
+                                       weight_dtype=args.weight_dtype,
+                                       device=device, seed=args.seed + 1)
     ecfg = EngineConfig(model=cfg.name, num_slots=args.num_slots,
                         max_cache_len=args.max_model_len, dtype=args.dtype,
                         kv_cache_dtype=args.kv_cache_dtype,
                         weight_dtype=args.weight_dtype,
                         kv_layout=args.kv_layout,
-                        prefix_cache_mb=args.prefix_cache_mb, seed=args.seed)
-    engine = InferenceEngine(cfg, ecfg, tokenizer, params=params,
-                             device=device)
+                        prefix_cache_mb=args.prefix_cache_mb, seed=args.seed,
+                        draft_model=draft_cfg.name if draft_cfg else None,
+                        draft_len=args.draft_len)
+    return cfg, InferenceEngine(cfg, ecfg, tokenizer, params=params,
+                                device=device, draft_params=draft_params,
+                                draft_cfg=draft_cfg)
+
+
+def main(argv: list[str] | None = None) -> None:
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    cfg, engine = build_engine(args)
+    from arks_tpu_torch.server.openai_server import OpenAIServer
     server = OpenAIServer(engine, args.served_model_name or cfg.name,
                           host=args.host, port=args.port)
     log = logging.getLogger("arks_tpu_torch.server")

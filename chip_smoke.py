@@ -259,11 +259,29 @@ Phases (any failure raises and exits non-zero):
               by leg, bytes per victim, the arrivals' median TTFT on and
               off, the peak device memory, and launches per steady step
               with ARKS_PREEMPT 0 and 1 by kernel name.
+ 11. speculative decoding (phase_spec) on Qwen2.5-7B bf16 at full width
+              with a self-draft on the same weights (draft_len 4): 8
+              batch-tier streams (greedy and seeded) and 2 latency-tier
+              arrivals; the target alone, the spec engine at depths 2 and
+              0, with spec:5:runtime and with ARKS_PREEMPT=1 (replay
+              mode) each give the depth-2 baseline's streams whole, an
+              int8 pool round; greedy spec streams equal the target's or
+              leave it first at a top-2 gap below SPEC_GAP_BOUND; every
+              issue sync-checked; each round's kernels count num_layers x
+              dispatches (the verify block) and num_layers x draft_len x
+              dispatches (the draft's slot writes and decode attention).
+              An f32 self-draft (2 layers) equals the target-only engine
+              with acceptance >= 0.95.  Qwen2.5-1.5B with a Qwen2.5-0.5B
+              draft served through the server's build_engine (head_dim
+              64, G 7 on the slot kernels; G 6 on the mixed attention).
+              Logs acceptance, accepted length, a spec step beside a pipe
+              step, tok/s on and off, draft cache bytes, peak memory.
 The line before the last is the kernels JSON (nine counterparts); the last
 line is the device JSON.  A kernel's "launches" counts its launches in the
 runs of the served path: phase 4's, the request surface's, the pipeline's,
 prefix reuse's, operability's, the recovery phase's (its replays
-included), the preemption phase's and the checkpoint-loaded engines'
+included), the preemption phase's, the speculative phase's (the draft's
+slot-cache kernels) and the checkpoint-loaded engines'
 included
 (the dense launch: its greedy run) and phase 7's (grouped_matmul, every
 quantized product).
@@ -1767,6 +1785,30 @@ def phase_surface(torch, dev, engine, tag, port=None):
     return launches, secs
 
 
+# Names the profiler's own summaries leave out (torch.autograd.profiler's
+# _filter_name).
+_UNLISTED_OPS = frozenset(("aten::is_leaf", "aten::output_nr",
+                           "aten::_version"))
+
+
+def _trace_counts(torch, prof):
+    """A finished profiler window read from its raw trace results: (device
+    events by name, their device µs, the host's aten ops by name) — what
+    ``key_averages`` sums, without the per-event records it builds first
+    (tens of seconds for a window of 10^5 kernels)."""
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    kern, ops, us = collections.Counter(), collections.Counter(), 0.0
+    for ev in prof.profiler.kineto_results.events():
+        dt, name = ev.device_type(), ev.name()
+        if dt == cuda:
+            kern[name] += 1
+            us += (ev.end_ns() - ev.start_ns()) / 1e3
+        elif dt == cpu and name.startswith("aten::") and \
+                name not in _UNLISTED_OPS:
+            ops[name] += 1
+    return kern, us, ops
+
+
 def _profile_step(torch, fn, steps_per_call):
     """(host ms, device µs, kernel launches, aten ops) per step of ``fn``
     (one call = ``steps_per_call`` steps, synchronised): host clock over
@@ -1794,16 +1836,11 @@ def _profile_step(torch, fn, steps_per_call):
             time.sleep(0.2)
             fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        seen = (sum(e.self_device_time_total for e in kernels),
-                sum(e.count for e in kernels))
+        kern, us, aten = _trace_counts(torch, prof)
+        seen = (us, sum(kern.values()))
         if seen[1] > best[1]:
             best = seen
-        ops = ops or collections.Counter({
-            e.key: e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CPU
-            and e.key.startswith("aten::")})
+        ops = ops or aten
     return (wall_ms, best[0] / steps_per_call, best[1] / steps_per_call,
             ops)
 
@@ -2055,11 +2092,8 @@ def _pipe_batch(torch, engine, prompts, max_tokens, window=False,
                 for _ in range(steps):
                     engine.step(block_s=0.001)
                 torch.cuda.synchronize()
-            kernels = [e for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA]
-            win = (host_ms, sum(e.self_device_time_total for e in kernels)
-                   / steps, sum(e.count for e in kernels) / steps,
-                   collections.Counter({e.key: e.count for e in kernels}))
+            kern, us, _ = _trace_counts(torch, prof)
+            win = (host_ms, us / steps, sum(kern.values()) / steps, kern)
             drain()
         if engine.idle and len(fins) == len(reqs):
             break
@@ -5408,17 +5442,28 @@ def _pre_round(torch, engine, tag, inject="", hook=None):
     set_sync_debug_mode("error").  Returns (streams by name: (tokens,
     finish reason, error, ttft_s), metric deltas, peak device memory, the
     SwapStore bytes of each entry it held, the preempt_swap_seconds legs,
-    host syncs caught)."""
+    host syncs caught).  Each stream's entry ends with the shape of its
+    first prefill (``_ReplayShape``: where its prompt was cut into
+    chunks).  The round's guides are compiled before its requests come
+    in: a guided request admitted before its compile published parks and
+    joins the chunk steps later, which moves every other prompt's chunk
+    cuts (the even quota) and so their bits on the card, by how long the
+    compile thread took."""
     import queue
 
     from arks_tpu_torch.engine import faults
     engine._faults = faults.FaultInjector(inject)
     reqs, late = _pre_requests(tag)
+    for guide in {r.params.guide for r in reqs + late
+                  if r.params.guide is not None}:
+        engine.guides.compile(*guide)
     m = engine.metrics
     hist = m.preempt_swap_seconds
     legs, leg, entry_bytes, culprits = [], ["out"], {}, []
+    shapes = {}
     real_obs, real_fin = hist.observe, engine._finish_resume
     real_rec = engine._do_recovery
+    real_reg = engine._register_slot
 
     def observe(v, **kw):
         legs.append((leg[0], v))
@@ -5435,8 +5480,12 @@ def _pre_round(torch, engine, tag, inject="", hook=None):
         culprits.append(sorted(getattr(exc, "culprits", ())))
         return real_rec(exc)
 
+    def register(req, slot, first, num_prompt, first_lp=None, shape=None):
+        shapes.setdefault(req.request_id.split("-", 1)[1], shape)
+        return real_reg(req, slot, first, num_prompt, first_lp, shape)
+
     hist.observe, engine._finish_resume = observe, finish
-    engine._do_recovery = recover
+    engine._do_recovery, engine._register_slot = recover, register
     names = PRE_ISSUES + (("_admit",) if engine._mixed else ())
     before = (m.requests_preempted_total.total(),
               m.engine_faults_total.total(),
@@ -5492,21 +5541,33 @@ def _pre_round(torch, engine, tag, inject="", hook=None):
                                      f"{ {k: v[1] for k, v in out.items()} }")
     finally:
         del hist.observe, engine._finish_resume, engine._do_recovery
+        del engine._register_slot
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     after = (m.requests_preempted_total.total(),
              m.engine_faults_total.total(),
              m.requests_quarantined_total.total())
     delta = [a - b for a, b in zip(after, before)]
-    return ({k: tuple(v) for k, v in out.items()}, delta, peak, entry_bytes,
-            legs, (guard.issues, guard.violations), culprits)
+    return ({k: tuple(v) + (shapes.get(k),) for k, v in out.items()}, delta,
+            peak, entry_bytes, legs, (guard.issues, guard.violations),
+            culprits)
 
 
 def _pre_same(tag, got, base, allow=()):
-    """Every stream of ``got`` equals ``base``'s (ids and finish reason);
-    those in ``allow`` may end early with a prefix of theirs."""
+    """Every batch stream of ``got`` was prefilled as ``base``'s was (the
+    same chunk cuts: before anything is preempted or faults, the round ran
+    the baseline's schedule), and every stream equals ``base``'s (ids and
+    finish reason); those in ``allow`` may end early with a prefix of
+    theirs."""
+    cut = {k: (got[k][4], base[k][4]) for k in got
+           if k.startswith("b") and got[k][4] != base[k][4]}
+    if cut:
+        raise AssertionError(f"[preempt {tag}] streams {sorted(cut)} were "
+                             f"prefilled otherwise than in the baseline "
+                             f"(shapes, this round's then the baseline's: "
+                             f"{cut})")
     bad = []
-    for k, (ids, fin, err, _) in got.items():
+    for k, (ids, fin, err, *_) in got.items():
         bids, bfin = base[k][:2]
         if k in allow:
             if ids != bids[:len(ids)]:
@@ -5666,6 +5727,557 @@ def phase_preempt(torch, dev, params, ops):
     return res
 
 
+
+SPEC_STREAMS, SPEC_PROMPT, SPEC_TOKENS = 8, 128, 64   # the batch streams
+SPEC_ARRIVALS, SPEC_ARR_TOKENS = 2, 16                # latency arrivals
+SPEC_AFTER = 6                 # speculative dispatches before the arrivals
+SPEC_DK = 4                    # --draft-len
+SPEC_FAULT = "spec:5:runtime"
+# A greedy spec stream may leave the target-only stream only where the
+# target-only run's top-2 logprob gap is below this many nats: four bf16
+# ulps of these logits (|logit| in [4, 8)), about twice the largest gap
+# at which a sound run has left it, half the typical gap.
+SPEC_GAP_BOUND = 0.125
+SPEC_F32_TOKENS = 32
+SPEC_B_TARGET, SPEC_B_DRAFT = "qwen2.5-1.5b", "qwen2.5-0.5b"
+SPEC_ISSUES = ("_pipe_issue", "_issue_spec_mixed", "_issue_mixed",
+               "_maybe_preempt", "_admit")
+
+
+def _spec_engine(torch, dev, params, cfg, depth="2", draft=True, kv="bf16",
+                 preempt=False, dtype="bfloat16"):
+    """An engine on ``params`` (8 slots x 4096, chunk 256, the SLO ladder,
+    ``ARKS_PREEMPT`` as asked): with ``draft`` a self-draft on the same
+    params (speculative, ``SPEC_DK``), else the target alone."""
+    import os
+
+    from arks_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arks_tpu_torch.engine.tokenizer import ByteTokenizer
+    env = dict(ARKS_PIPELINE_DEPTH=depth, ARKS_PREEMPT=str(int(preempt)),
+               ARKS_SLO_TIERS=PRE_TIERS, ARKS_PREEMPT_MAX_INFLIGHT="2")
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return InferenceEngine(cfg, EngineConfig(
+            model=MODEL, num_slots=SPEC_STREAMS,
+            max_cache_len=MAX_PAGES * PAGE, prefill_chunk=PAGE, dtype=dtype,
+            kv_cache_dtype=kv, kv_layout="paged", seed=SEED,
+            draft_model=MODEL if draft else None, draft_len=SPEC_DK),
+            ByteTokenizer(), params=params, device=dev,
+            draft_params=params if draft else None,
+            draft_cfg=cfg if draft else None)
+    finally:
+        _restore_env(os, old)
+
+
+def _spec_requests(tag, lp=False, seeded=True, tokens=SPEC_TOKENS):
+    """SPEC_STREAMS batch-tier streams (priority 1) of SPEC_PROMPT tokens,
+    greedy and (``seeded``) seeded sampling by turns, and SPEC_ARRIVALS
+    greedy latency-tier arrivals (priority 0); ``lp``: the greedy ones ask
+    for top-2 logprobs (a target-only run, for ``_spec_near_ties``)."""
+    from arks_tpu_torch.engine import Request, SamplingParams
+    rng = np.random.default_rng(SEED + 31)
+    reqs = []
+    for i in range(SPEC_STREAMS):
+        kw = dict(max_tokens=tokens, ignore_eos=True, priority=1)
+        if seeded and i % 2:
+            kw.update(temperature=0.8, top_k=50, seed=400 + i)
+        else:
+            kw.update(temperature=0.0, logprobs=2 if lp else None)
+        reqs.append(Request(f"{tag}-b{i}", [int(x) for x in rng.integers(
+            32, 120, SPEC_PROMPT)], SamplingParams(**kw)))
+    late = [Request(f"{tag}-l{i}", [int(x) for x in rng.integers(
+        32, 120, 64)], SamplingParams(
+            max_tokens=SPEC_ARR_TOKENS, temperature=0.0, ignore_eos=True,
+            priority=0, logprobs=2 if lp else None))
+        for i in range(SPEC_ARRIVALS)]
+    return reqs, late
+
+
+def _spec_round(torch, engine, tag, lp, seeded, tokens, inject=""):
+    """One round: the batch streams, then the arrivals once every stream
+    has decoded SPEC_AFTER dispatches, driven from this thread (step and
+    recover, as the run loop) with every issue under
+    set_sync_debug_mode("error"); the kernel counts set to 0 before it.
+    The requests (``_spec_requests``) die with the round: a replayer's
+    gate holds the engine.  Returns (streams by name: (tokens, finish,
+    error, logprobs), a dict of the round's figures)."""
+    import queue
+
+    from arks_tpu_torch.engine import faults
+    reqs, late = _spec_requests(tag, lp, seeded, tokens)
+    engine._faults = faults.FaultInjector(inject)
+    m = engine.metrics
+    before = (m.engine_faults_total.total(),
+              m.requests_quarantined_total.total(),
+              m.requests_preempted_total.total(), engine._spec_proposed,
+              engine._spec_accepted, engine.dispatches)
+    s0, n0 = m.spec_decode_accepted_length._data.get((), (0, 0.0, 0))[1:]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    out = {r.request_id.split("-", 1)[1]: [[], None, None, []]
+           for r in reqs + late}
+    all_reqs, late = reqs + late, list(late)
+    d_start = t_first = t_done = None
+    with _SyncGuard(torch, engine, SPEC_ISSUES) as guard:
+        for r in reqs:
+            engine.add_request(r)
+        for _ in range(100_000):
+            try:
+                engine.step(block_s=0.001)
+                engine._consec_faults = 0
+            except Exception as e:  # routed as the run loop routes it
+                engine._recover_from_fault(e)
+            for r in all_reqs:
+                rec = out[r.request_id.split("-", 1)[1]]
+                while True:
+                    try:
+                        o = r.outputs.get_nowait()
+                    except queue.Empty:
+                        break
+                    rec[0] += o.token_ids
+                    rec[3] += o.logprobs or []
+                    if o.finished:
+                        rec[1], rec[2] = o.finish_reason, o.error
+            batch = [out[f"b{i}"] for i in range(SPEC_STREAMS)]
+            if t_first is None and all(v[0] for v in batch):
+                t_first = time.perf_counter()
+            if t_done is None and all(v[1] for v in batch):
+                t_done = time.perf_counter()
+            if late and d_start is None and \
+                    len(engine._slots) == SPEC_STREAMS:
+                d_start = engine.dispatches
+            if late and d_start is not None and \
+                    engine.dispatches - d_start >= SPEC_AFTER:
+                for r in late:
+                    r.arrival_time = time.monotonic()
+                    engine.add_request(r)
+                late = []
+            if (not late and all(v[1] for v in out.values())
+                    and engine.idle and engine.state == "serving"):
+                break
+        else:
+            raise AssertionError(f"[spec {tag}] never drained")
+    torch.cuda.synchronize()
+    after = (m.engine_faults_total.total(),
+             m.requests_quarantined_total.total(),
+             m.requests_preempted_total.total(), engine._spec_proposed,
+             engine._spec_accepted, engine.dispatches)
+    d = [a - b for a, b in zip(after, before)]
+    s1, n1 = m.spec_decode_accepted_length._data.get((), (0, 0.0, 0))[1:]
+    toks = sum(len(out[f"b{i}"][0]) for i in range(SPEC_STREAMS))
+    row = dict(faults=d[0], quarantined=d[1], preempted=d[2],
+               proposed=d[3], accepted=d[4], dispatches=d[5],
+               acceptance=d[4] / max(d[3], 1),
+               accepted_len=(s1 - s0) / max(n1 - n0, 1),
+               tok_s=toks / max(t_done - t_first, 1e-9),
+               peak=torch.cuda.max_memory_allocated(),
+               issues=guard.issues, syncs=guard.violations[:3],
+               launches=_read_counts())
+    return {k: tuple(v) for k, v in out.items()}, row
+
+
+def _spec_whole(tag, got, want):
+    """Every stream of ``got`` equals ``want``'s (ids, finish, no error)."""
+    bad = [k for k, v in got.items() if v[:3] != want[k][:2] + (None,)]
+    if bad:
+        first = {k: next((i for i, (a, b) in enumerate(zip(
+            got[k][0], want[k][0])) if a != b), None) for k in bad}
+        raise AssertionError(f"[spec {tag}] streams {bad} differ (first "
+                             f"differing token {first}; errors "
+                             f"{ {k: got[k][2] for k in bad} })")
+
+
+def _spec_near_ties(got, base):
+    """Each greedy stream of the spec run ``got`` against the
+    target-only run ``base`` (top-2 logprobs on its greedy streams): equal,
+    or first differing where base's top-2 gap is below SPEC_GAP_BOUND.
+    Returns [(stream, first differing index, gap)] of those that differ."""
+    diff = []
+    for k, (ids, fin, err, _) in got.items():
+        bids, _, _, blps = base[k]
+        if not blps:
+            continue          # a seeded stream: no target-only counterpart
+        i = next((j for j, (a, b) in enumerate(zip(ids, bids)) if a != b),
+                 None)
+        if i is None:
+            if ids != bids:
+                raise AssertionError(f"[spec ties] {k}: {len(ids)} tokens "
+                                     f"against {len(bids)}")
+            continue
+        top = blps[i][1]
+        gap = top[0][1] - top[1][1]
+        diff.append((k, i, gap))
+        if gap >= SPEC_GAP_BOUND:
+            raise AssertionError(f"[spec ties] {k} leaves the target-only "
+                                 f"stream at token {i}, top-2 gap {gap:.4f} "
+                                 f">= {SPEC_GAP_BOUND}")
+    return diff
+
+
+def _spec_gaps(base):
+    """The top-2 logprob gaps of every token of the target-only run's
+    greedy streams: (median, mean, share below SPEC_GAP_BOUND) in nats,
+    what SPEC_GAP_BOUND is read against."""
+    gaps = sorted(top[0][1] - top[1][1] for _, _, _, lps in base.values()
+                  for _, top in lps)
+    if not gaps:
+        raise AssertionError("[spec ties] no top-2 logprobs on the "
+                             "target-only run")
+    return (gaps[len(gaps) // 2], sum(gaps) / len(gaps),
+            sum(g < SPEC_GAP_BOUND for g in gaps) / len(gaps))
+
+
+def _spec_launch_check(tag, cfg, row, dk=SPEC_DK, kv="bf16", draft=True):
+    """The round's kernels count num_layers x its dispatches (the verify
+    block's row write and attention) and, for the draft, num_layers x
+    draft_len x its dispatches (the slot writes and decode attention)."""
+    n = row["dispatches"]
+    quant = kv != "bf16"
+    upd = "paged_kv_update_quant" if quant else "paged_kv_update"
+    slot = "kv_cache_update_quant" if quant else "kv_cache_update"
+    want = {k: 0 for k in row["launches"]}
+    want[upd] = want["paged_mixed_attention"] = cfg.num_layers * n
+    if draft:
+        want[slot] = want["ragged_decode_attention"] = \
+            cfg.num_layers * dk * n
+    if row["launches"] != want or not n:
+        raise AssertionError(f"[spec {tag}] launches {row['launches']}, "
+                             f"expected {want}")
+
+
+def _spec_kernels(torch, dev):
+    """The path's kernels against their plain versions at the shapes
+    speculative decoding adds: the slot writes and decode attention (#7,
+    #8, #6) at the Qwen2.5-0.5B draft's head_dim 64 and group of 7
+    (``slot_batch``: bf16 and int8 caches, a parked slot); the paged row
+    write (#2, through the step's destinations) and the ragged mixed
+    attention (#1) over verify blocks: 8 lanes of SPEC_DK rows at
+    positions on and across page boundaries, at Qwen2.5-1.5B's group of 6
+    and at Qwen2.5-7B's of 7.
+    Writes bit-identical, attention within phase 3's limits.  Returns
+    {kernel: max abs err}."""
+    from arks_tpu_torch.ops import paged_attention as pa
+    from arks_tpu_torch.ops import pallas_attention as pl
+    errs = {}
+    b = slot_batch(torch, dev, hkv=2, g=7, d=64)
+    layer, rows = b["layer"], (b["k_new"], b["v_new"], b["write_idx"],
+                               b["layer"])
+    q, qf, args = b["q"], b["q"].float(), (b["lengths"], b["layer"])
+    caches = {"bf16": [b["k_cache"], b["v_cache"]],
+              "int8": list(_int8(pa, (b["k_cache"], b["v_cache"])))}
+    for kv, base in caches.items():
+        fn = pl.kv_cache_update if kv == "bf16" else pl.kv_cache_update_quant
+        kern = [x.clone() for x in base]
+        plain = [x.clone() for x in base]
+        fn(*kern, *rows)
+        fn(*plain, *rows, impl="plain")
+        torch.cuda.synchronize()
+        if not _same_bytes(torch, kern, plain):
+            raise AssertionError(f"{fn.__name__} at head_dim 64 differs "
+                                 "from its plain version")
+        sc = {} if kv == "bf16" else dict(k_scale=kern[2], v_scale=kern[3])
+        kf, vf = (kern[0].float(), kern[1].float()) if kv == "bf16" else \
+            (kern[0], kern[1])
+        got = pl.ragged_decode_attention(q, kern[0], kern[1], *args, **sc)
+        want = pl.ragged_decode_attention(q, kern[0], kern[1], *args,
+                                          impl="plain", **sc)
+        got_f = pl.ragged_decode_attention(qf, kf, vf, *args, **sc)
+        want_f = pl.ragged_decode_attention(qf, kf, vf, *args,
+                                            impl="plain", **sc)
+        torch.cuda.synchronize()
+        errs[f"ragged_decode_attention {kv}"] = _attn_check(
+            torch, f"ragged_decode_attention at head_dim 64, G 7 ({kv} "
+            "slot cache)", got, want, want_f, got_f, 4, cross=kv == "bf16")
+        errs[fn.__name__] = 0.0
+        del kern, plain, kf, vf
+    del b, caches
+    starts = [254, 256, 509, 700, 1021, 1500, 2046, 3000]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    i32 = dict(dtype=torch.int32, device=dev)
+    for hkv, g in ((2, 6), (4, 7)):
+        lanes, d = len(starts), 128
+        t = lanes * SPEC_DK
+        n_pages = lanes * MAX_PAGES
+        rng = np.random.default_rng(SEED + 2)
+        tables = torch.as_tensor(rng.permutation(n_pages).reshape(
+            lanes, MAX_PAGES).astype(np.int32), device=dev)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+
+        q = randn(t, hkv * g, d)
+        k_new, v_new = randn(t, hkv, d), randn(t, hkv, d)
+        pools = [randn(2, n_pages, hkv, PAGE, d) for _ in range(2)]
+        lane = torch.arange(lanes, **i32)
+        pos0 = torch.tensor(starts, **i32)
+        pos = (pos0[:, None] + torch.arange(SPEC_DK, **i32)).reshape(-1)
+        tab_tok = tables.repeat_interleave(SPEC_DK, dim=0)
+        dst = pa.paged_write_rows(pos, tab_tok, PAGE, n_pages)
+        kern = [x.clone() for x in pools]
+        plain = [x.clone() for x in pools]
+        pa.paged_kv_update(*kern, k_new, v_new, None, None, 1, dst=dst)
+        pa.paged_kv_update(*plain, k_new, v_new, pos, tab_tok, 1,
+                           impl="plain")
+        torch.cuda.synchronize()
+        if not _same_bytes(torch, kern, plain):
+            raise AssertionError("paged_kv_update over verify blocks "
+                                 "differs from the plain scatter")
+        span = (tables, lane * SPEC_DK,
+                torch.full((lanes,), SPEC_DK, **i32), pos0, 1)
+        got = pa.paged_mixed_attention(q, *kern, *span, qmax=SPEC_DK)
+        want = pa.paged_mixed_attention(q, *kern, *span, impl="plain")
+        qf, kf, vf = q.float(), kern[0].float(), kern[1].float()
+        want_f = pa.paged_mixed_attention(qf, kf, vf, *span, impl="plain")
+        got_f = pa.paged_mixed_attention(qf, kf, vf, *span, qmax=SPEC_DK)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        err_x = (got.float() - want_f).abs().max().item()
+        err_f = (got_f - want_f).abs().max().item()
+        log(f"[spec kernels] verify blocks ({lanes} lanes x {SPEC_DK} rows) "
+            f"at Hkv {hkv}, G {g}: paged_kv_update bit-identical; "
+            f"paged_mixed_attention bf16 vs plain bf16 {err:.3e}, vs plain "
+            f"f32 {err_x:.3e}, f32 kernel vs plain f32 {err_f:.3e}")
+        if not (err <= ATTN_TOL_BF16 and err_x <= ATTN_TOL_F32
+                and err_f <= ATTN_TOL_F32_KERNEL):
+            raise AssertionError("paged_mixed_attention over verify blocks "
+                                 "disagrees with its plain version")
+        errs[f"paged_mixed_attention G {g}"] = err
+        del kern, plain, pools, kf, vf
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _spec_step_profile(torch, dev, params, cfg):
+    """One speculative pipe step (``spec_pipe``: the self-draft's
+    SPEC_DK decode steps over 8 slots of its slot cache, then the 32-row
+    verify block) beside a target-only pipe step (``mixed_pipe``, 8 rows)
+    on the same 8 lanes at context 512, greedy: (host ms, device ms,
+    launches) per step of each, from ``_profile_step``."""
+    from arks_tpu_torch.engine import engine as engine_mod
+    from arks_tpu_torch.engine import sampler
+    from arks_tpu_torch.models import transformer as tf
+    lanes, ctx = SPEC_STREAMS, 512
+    maxp = ctx // PAGE + 1
+    cache = tf.init_paged_cache(cfg, lanes * maxp, PAGE, torch.bfloat16, dev)
+    dcache = tf.init_cache(cfg, lanes, 2 * ctx, torch.bfloat16, dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    tables = torch.arange(lanes * maxp, **i32).reshape(lanes, maxp)
+    tokens = torch.full((lanes,), 5, **i32)
+    lengths = torch.full((lanes,), ctx, **i32)
+    alive = torch.ones(lanes, dtype=torch.bool, device=dev)
+    stop = torch.full((lanes, sampler.STOP_IDS_MAX), -1, **i32)
+    dead = torch.full((lanes,), 4096, **i32)
+    state = sampler.init_sampling_state(lanes, SEED, cfg.vocab_size, dev)
+
+    def spec():
+        out = engine_mod.spec_pipe(
+            params, cfg, params, cfg, cache, dcache, tokens, lengths, alive,
+            stop, dead, alive, state, tables, None, sampler.OFF, False, 4096,
+            SPEC_DK)
+        return out[0].cpu()
+
+    def pipe():
+        out = engine_mod.mixed_pipe(
+            params, cfg, cache, tokens, lengths, alive, stop, dead, state,
+            tables, None, sampler.OFF, False, 4096)
+        return out[0].cpu()
+
+    res = {}
+    for name, fn in (("spec", spec), ("pipe", pipe)):
+        wall, dev_us, kern, _ = _profile_step(torch, fn, 1)
+        res[name] = (wall, dev_us / 1e3, kern)
+    del cache, dcache
+    torch.cuda.empty_cache()
+    return res
+
+
+def _spec_config_b(torch, dev):
+    """Config B through the server's own entry (``build_engine`` of
+    ``--model qwen2.5-1.5b --draft-model qwen2.5-0.5b --draft-len 4``,
+    random weights from SEED and SEED + 1) behind the OpenAI server at
+    depth 2: two greedy and two seeded requests at once, each whole.
+    Returns (per-request (status, finish, tokens), launches, acceptance,
+    draft cache bytes, peak device memory above what was allocated before
+    its engine: the config A weights the phase holds)."""
+    from arks_tpu_torch.server import OpenAIServer
+    from arks_tpu_torch.server import __main__ as server_main
+    args = server_main.parse_args([
+        "--model", SPEC_B_TARGET, "--draft-model", SPEC_B_DRAFT,
+        "--draft-len", str(SPEC_DK), "--dtype", "bfloat16",
+        "--kv-cache-dtype", "bf16", "--num-slots", str(SPEC_STREAMS),
+        "--max-model-len", str(MAX_PAGES * PAGE), "--seed", str(SEED),
+        "--device", dev.type])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _, engine = server_main.build_engine(args)
+    dbytes = sum(t.nbytes for t in engine._draft_cache if t is not None)
+    server = OpenAIServer(engine, SPEC_B_TARGET, host="127.0.0.1", port=0)
+    server.start(background=True)
+    engine.start()
+    results = [None] * 4
+    try:
+        _reset_counts()
+
+        def one(i):
+            body = {"prompt": f"config B request {i}: speculate " * 4,
+                    "max_tokens": 32, "ignore_eos": True,
+                    "temperature": 0.0 if i % 2 == 0 else 0.8}
+            if i % 2:
+                body["seed"] = 500 + i
+            st, data, _, _ = _request(server.port, "/v1/completions", body)
+            results[i] = (st, data["choices"][0]["finish_reason"]
+                          if st == 200 else data,
+                          data["usage"]["completion_tokens"]
+                          if st == 200 else 0)
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        launches = _read_counts()
+    finally:
+        server.stop()
+        engine.stop()
+    acc = engine._spec_accepted / max(engine._spec_proposed, 1)
+    peak = torch.cuda.max_memory_allocated() - held
+    ref = weakref.ref(engine)
+    del engine, server
+    _freed_by_del(ref, "spec config B")
+    torch.cuda.empty_cache()
+    return results, launches, acc, dbytes, peak
+
+
+def phase_spec(torch, dev, params):
+    """Speculative decoding on Qwen2.5-7B bf16 at full width and depth
+    (``params``) with a self-draft on the same params (draft_len 4): 8
+    batch-tier streams of 128-token prompts and 64 tokens (greedy and
+    seeded by turns) and 2 greedy latency-tier arrivals after 6
+    dispatches, every issue under set_sync_debug_mode("error").
+    Rounds: the target alone (top-2 logprobs on its greedy streams), the
+    spec engine at depth 2 (the baseline), at depth 0, with
+    ``spec:5:runtime`` and with ``ARKS_PREEMPT=1`` (replay mode: the
+    arrivals preempt), each equal to the baseline whole, and an int8
+    pool at depth 2, whole.  Each greedy spec stream equals the target's
+    or leaves it first where the target's top-2 gap is below
+    SPEC_GAP_BOUND.  Each round's kernels count num_layers x its
+    dispatches (#1, #2 or #3) and num_layers x draft_len x its dispatches
+    (#6, #7 or #8).  Then an f32 self-draft at Qwen2.5-7B width cut to
+    F32_LAYERS layers over a bf16 cache: its 8 greedy streams equal the
+    target-only engine's whole, acceptance >= 0.95.  Then config B
+    (Qwen2.5-1.5B with a Qwen2.5-0.5B draft, through the server).  First
+    the kernels at the shapes speculative decoding adds
+    (``_spec_kernels``).
+    Logs acceptance, accepted length, a spec step beside a target-only
+    pipe step (launches, device ms), 8-stream tok/s with spec on and off,
+    the draft cache bytes and the peak device memory."""
+    from arks_tpu_torch.models import get_config
+    from arks_tpu_torch.models import transformer as tf
+    t_phase = time.perf_counter()
+    cfg = get_config(MODEL)
+    res = dict(rounds={}, syncs=0, launches=collections.Counter())
+    rows = res["rounds"]
+    res["kernel_errs"] = _spec_kernels(torch, dev)
+
+    def run(tag, draft=True, depth="2", kv="bf16", preempt=False, inject="",
+            lp=False, p=params, c=cfg, dtype="bfloat16", seeded=True,
+            tokens=SPEC_TOKENS):
+        engine = _spec_engine(torch, dev, p, c, depth, draft, kv, preempt,
+                              dtype)
+        want_mode = "off" if not preempt else "replay"
+        if engine.resolved_config["preempt"] != want_mode or \
+                engine.resolved_config["spec_mixed"] != str(draft).lower():
+            raise AssertionError(f"[spec {tag}] {engine.resolved_config}")
+        got, row = _spec_round(torch, engine, tag, lp, seeded, tokens,
+                               inject)
+        if draft:
+            row["draft_bytes"] = sum(t.nbytes for t in engine._draft_cache
+                                     if t is not None)
+        res["syncs"] += row["issues"]
+        res["launches"].update(row["launches"])
+        log(f"[spec {tag}] {json.dumps({k: v for k, v in row.items()})}")
+        if row["syncs"]:
+            raise AssertionError(f"[spec {tag}] host syncs {row['syncs']}")
+        _spec_launch_check(tag, c, row, kv=kv, draft=draft)
+        bad = {k: v[1:3] for k, v in got.items() if v[1] != "length"}
+        if bad:
+            raise AssertionError(f"[spec {tag}] streams not whole: {bad}")
+        rows[tag] = row
+        ref = weakref.ref(engine)
+        del engine
+        _freed_by_del(ref, f"spec {tag}")
+        torch.cuda.empty_cache()
+        return got
+
+    target = run("target", draft=False, lp=True)
+    base = run("depth 2")
+    _spec_whole("depth 0", run("depth 0", depth="0"), base)
+    _spec_whole("fault", run("fault", inject=SPEC_FAULT), base)
+    _spec_whole("preempt", run("preempt", preempt=True), base)
+    run("int8", kv="int8")
+    r = rows
+    if r["fault"]["faults"] != 1 or r["fault"]["quarantined"]:
+        raise AssertionError(f"[spec fault] {r['fault']}")
+    if r["preempt"]["preempted"] != SPEC_ARRIVALS:
+        raise AssertionError(f"[spec preempt] {r['preempt']}")
+    ties = _spec_near_ties(base, target)
+    gaps = _spec_gaps(target)
+    # f32 at Qwen2.5-7B width cut to F32_LAYERS, bf16 cache: greedy.
+    f32cfg = dataclasses.replace(cfg, num_layers=F32_LAYERS)
+    f32p = tf.init_params(f32cfg, SEED, torch.float32, dev)
+    kw = dict(kv="bf16", p=f32p, c=f32cfg, dtype="float32", seeded=False,
+              tokens=SPEC_F32_TOKENS)
+    f32_base = run("f32 target", draft=False, **kw)
+    _spec_whole("f32", run("f32", **kw), f32_base)
+    if r["f32"]["acceptance"] < 0.95:
+        raise AssertionError(f"[spec f32] acceptance {r['f32']}")
+    del f32p
+    torch.cuda.empty_cache()
+    step = _spec_step_profile(torch, dev, params, cfg)
+    b_res, b_launch, b_acc, b_bytes, b_peak = _spec_config_b(torch, dev)
+    res["launches"].update(b_launch)
+    if any(x[:2] != (200, "length") or x[2] != 32 for x in b_res) or \
+            not all(b_launch[k] for k in (
+                "paged_kv_update", "paged_mixed_attention",
+                "kv_cache_update", "ragged_decode_attention")):
+        raise AssertionError(f"[spec config B] {b_res} {b_launch}")
+    res.update(
+        acceptance=r["depth 2"]["acceptance"],
+        accepted_len=r["depth 2"]["accepted_len"],
+        acceptance_int8=r["int8"]["acceptance"],
+        acceptance_f32=r["f32"]["acceptance"], acceptance_b=b_acc,
+        tok_s=(r["target"]["tok_s"], r["depth 2"]["tok_s"]),
+        step=step, draft_bytes=r["depth 2"]["draft_bytes"],
+        draft_bytes_b=b_bytes, peak=(r["target"]["peak"],
+                                     r["depth 2"]["peak"], b_peak),
+        ties=ties, gaps=gaps)
+    log(f"[spec table] Qwen2.5-7B self-draft bf16, draft_len {SPEC_DK}: "
+        f"acceptance {res['acceptance']:.4f} (int8 pool "
+        f"{res['acceptance_int8']:.4f}, f32 {res['acceptance_f32']:.4f}, "
+        f"config B {res['acceptance_b']:.4f}), accepted length "
+        f"{res['accepted_len']:.3f}; greedy streams differing from the "
+        f"target-only run {len(ties)} {ties} (bound {SPEC_GAP_BOUND}; "
+        f"the target-only run's top-2 gaps: median {gaps[0]}, mean "
+        f"{gaps[1]}, share below the bound {gaps[2]}); "
+        f"8-stream tok/s target-only {res['tok_s'][0]:.1f}, spec "
+        f"{res['tok_s'][1]:.1f}; spec step host {step['spec'][0]:.2f} ms, "
+        f"device {step['spec'][1]:.3f} ms, {step['spec'][2]:.0f} launches; "
+        f"target-only pipe step host {step['pipe'][0]:.2f} ms, device "
+        f"{step['pipe'][1]:.3f} ms, {step['pipe'][2]:.0f} launches; draft "
+        f"cache bytes {res['draft_bytes']} (config B {b_bytes}); peak "
+        f"device memory target-only {res['peak'][0]} B, spec "
+        f"{res['peak'][1]} B, config B {res['peak'][2]} B above the config "
+        f"A weights; config B "
+        f"{b_res}; issues sync-checked {res['syncs']}; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -5725,6 +6337,7 @@ def main() -> int:
     _reset_counts()
     pre = phase_preempt(torch, dev, params, ops)
     pre["launches"] = _read_counts()
+    spec = phase_spec(torch, dev, params)
     del params
     torch.cuda.empty_cache()
     upd_t, attn_t, dense_t = phase_times(torch, b)
@@ -5744,7 +6357,8 @@ def main() -> int:
     pipe_n.update(ops["counts"])          # the operability engine and the
     pipe_n.update(ckpt_n)                 # checkpoint-loaded ones, and
     pipe_n.update(recov["launches"])      # the recovery phase's engines,
-    pipe_n.update(pre["launches"])        # the preemption phase's
+    pipe_n.update(pre["launches"])        # the preemption phase's and
+    pipe_n.update(spec["launches"])       # the speculative phase's
     attn_launches = (serve["launches"]["paged_mixed_attention"]
                      + serve8["launches"]["paged_mixed_attention"]
                      + paged4["launches"]["paged_mixed_attention"]
@@ -5863,6 +6477,16 @@ def main() -> int:
         f"{pre['resume_s']}; bytes per victim {pre['bytes']}; peak device "
         f"memory {pre['peak']}; launches per steady step {pre['steady']}; "
         f"issues sync-checked {pre['syncs']}; launches {pre['launches']}")
+    log(f"[spec table] acceptance {spec['acceptance']:.4f}, accepted "
+        f"length {spec['accepted_len']:.3f}; tok/s target-only / spec "
+        f"{spec['tok_s']}; spec step (host ms, device ms, launches) "
+        f"{spec['step']['spec']} beside the pipe step "
+        f"{spec['step']['pipe']}; draft cache bytes {spec['draft_bytes']} "
+        f"(config B {spec['draft_bytes_b']}); peak device memory "
+        f"{spec['peak']}; differing greedy streams {spec['ties']} (top-2 "
+        f"gaps median, mean, share below {SPEC_GAP_BOUND}: {spec['gaps']}); "
+        f"issues "
+        f"sync-checked {spec['syncs']}; launches {dict(spec['launches'])}")
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}))

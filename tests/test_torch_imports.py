@@ -136,8 +136,11 @@ def test_server_cli_without_cuda_raises(monkeypatch):
     ("data_parallel", 2), ("pipeline_parallel", 2),
 ])
 def test_engine_config_outside_the_slice_raises(field, value):
+    # A draft model is served since speculative decoding landed; with
+    # parallelism it is not yet.
+    extra = {"tensor_parallel": 2} if field == "draft_model" else {}
     ecfg = EngineConfig(model="tiny", max_cache_len=32, prefill_chunk=16,
-                        **{field: value})
+                        **{field: value}, **extra)
     with pytest.raises(NotImplementedError):
         InferenceEngine(get_config("tiny"), ecfg, ByteTokenizer(),
                         device="cpu")

@@ -20,6 +20,8 @@ every scenario of it (request ids carry the scenario).
 
 import contextlib
 import os
+import threading
+import time
 
 import jax
 import numpy as np
@@ -643,3 +645,68 @@ def test_sampler_row_round_trip():
     sampler_mod.restore_counts(st, 2, counts)
     assert torch.equal(st.key[2], key) and int(st.guide_row[2]) == 5
     assert int(st.counts[2, 4]) == 3 and int(st.counts[2].sum()) == 3
+
+
+def test_a_guide_that_publishes_mid_prefill_moves_every_chunk_cut(weights):
+    """Why a harness that compares rounds of separate engines compiles
+    their guides first (``chip_smoke.py``'s ``_pre_round``): a guided
+    request admitted before its compile has published parks and joins the
+    chunked prefill later, so the even quota (the chunk budget over the
+    prompts prefilling) cuts every other prompt elsewhere, and on the card
+    a row's bits depend on those cuts (``_ReplayShape``).  When the guide
+    publishes depends on the compile's thread; compiled first, the cuts
+    are the same in every run."""
+    guide = ("regex", "[a-f]+")
+
+    def run(gate=None):
+        with _env(ARKS_MIXED_STEP="1", ARKS_PIPELINE_DEPTH="0"):
+            eng = InferenceEngine(
+                get_config(NAME),
+                EngineConfig(**dict(KW, num_slots=4), kv_layout="paged"),
+                ByteTokenizer(), params=weights[1], device="cpu")
+        shapes = {}
+        real = eng._register_slot
+
+        def register(req, slot, first, num_prompt, first_lp=None,
+                     shape=None):
+            shapes.setdefault(req.request_id, shape)
+            return real(req, slot, first, num_prompt, first_lp, shape)
+
+        eng._register_slot = register
+        if gate is None:
+            eng.guides.compile(*guide)
+        else:
+            build = eng.guides._build
+
+            def gated(rx):
+                assert gate.wait(60)
+                return build(rx)
+
+            eng.guides._build = gated
+        reqs = [Request(f"p{i}", [10 + i] * 24, SamplingParams(
+                    max_tokens=2, temperature=0.0, ignore_eos=True))
+                for i in range(3)]
+        reqs.append(Request("g", [20] * 24, SamplingParams(
+            max_tokens=2, temperature=0.0, ignore_eos=True, guide=guide)))
+        for r in reqs:
+            eng.add_request(r)
+        if gate is not None:
+            for _ in range(2):
+                _step(eng)
+            assert eng._awaiting_guide and 3 == len(eng._prefilling)
+            gate.set()
+            deadline = time.monotonic() + 60
+            while eng.guides.lookup(*guide) is None:
+                assert time.monotonic() < deadline
+                time.sleep(0.01)
+        _drive(eng)
+        del eng._register_slot
+        return {r.request_id: (_collect(r), shapes[r.request_id])
+                for r in reqs}
+
+    first, again = run(), run()
+    assert first == again
+    late = run(threading.Event())
+    cuts = {k: (first[k][1].takes, late[k][1].takes) for k in first}
+    assert cuts["p0"][0] == (4, 4, 4, 4, 4, 4)    # a quarter of 16 each
+    assert all(a != b for a, b in cuts.values()), cuts

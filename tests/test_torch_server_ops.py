@@ -138,9 +138,12 @@ def test_metrics_and_readiness(monkeypatch):
         assert _metric(text, 'ttft_seconds_count{tier="default"}') == n
         assert 'engine_config_info{' in text and \
             'decode_impl="plain"' in text
-        # Speculative decoding is not served; fault recovery is (its
-        # families render, the engine serving).
-        assert "spec_decode" not in text and "engine_faults_total" in text
+        # Speculative decoding's and fault recovery's families render (the
+        # reference registers both on every engine); without a draft model
+        # the spec counters hold no sample.
+        assert "# TYPE spec_decode_proposed_tokens_total counter" in text
+        assert "\nspec_decode_proposed_tokens_total " not in text
+        assert "engine_faults_total" in text
         assert _metric(text, "engine_state") == 0
     finally:
         srv.stop()
