@@ -114,8 +114,20 @@ min_tokens, a prompt the draft prefilled); the others advance one token a
 step through the same dispatch.  A speculative engine preempts in replay
 mode (the draft cache has no swap snapshot).
 
+One engine serves several models through the weight pool
+(``engine/model_pool.py``, ``pool``): a request for another registered
+model parks while the pool streams its weights in on a background thread
+(the resident model keeps decoding), and the engine switches its whole
+per-model context (``_init_model_state``) at a drained boundary.  An idle
+engine scales to zero (``ARKS_ELASTIC_IDLE_ZERO_S``: weights and KV pool
+dropped) and re-arms on the next request.  Under windowed residency
+(``ARKS_RESIDENCY_WINDOW_PAGES``, ``engine/residency.py``) a slot's device
+pages are bounded by the window: a context that outgrows it keeps its cold
+pages in host RAM and decodes span by span through the ragged kernel's
+carried state, byte-identical to a pool that holds it whole.
+
 What the reference does and this port does not — the disk prefix tier,
-peer prefix fetch, the cache sketch, windowed residency, parallelism — is
+peer prefix fetch, the cache sketch, live resize, parallelism — is
 rejected (``EngineConfig.validate``, and ``check_unserved_knobs`` for the
 environment) rather than silently ignored.
 """
@@ -144,12 +156,16 @@ from arks_tpu_torch.engine import sampler as sampler_mod
 from arks_tpu_torch.engine.faults import StepFault
 from arks_tpu_torch.engine.guides import Guide, GuideCompiler, GuideError
 from arks_tpu_torch.engine.metrics import EngineMetrics
+from arks_tpu_torch.engine.model_pool import (LoadTicket, ModelPool,
+                                              PoolFullError, tree_tensors)
 from arks_tpu_torch.engine.paged import (PageAllocator, chain_digests,
                                          mixed_grid_steps, mixed_kv_bytes,
                                          pages_needed)
 from arks_tpu_torch.engine.prefix_cache import (HostPrefixTier, PrefixKVCache,
                                                 SwapStore)
-from arks_tpu_torch.engine.types import Request, RequestOutput
+from arks_tpu_torch.engine.residency import ResidencyManager
+from arks_tpu_torch.engine.types import (Request, RequestOutput,
+                                         SamplingParams)
 from arks_tpu_torch.models import quant
 from arks_tpu_torch.models import transformer as tf
 from arks_tpu_torch.models.config import ModelConfig, get_config
@@ -315,18 +331,13 @@ def prefix_host_mb_knob() -> int:
 
 def check_unserved_knobs() -> None:
     """Raise on a knob that asks for a reference subsystem the port does
-    not have yet: the disk prefix tier (``ARKS_PREFIX_DISK_MB`` > 0), peer
-    prefix fetch (``ARKS_PEER_FETCH``, ``ARKS_PEER_ADDRS``) and windowed
-    residency (``ARKS_RESIDENCY_WINDOW_PAGES`` > 0)."""
+    not have yet: the disk prefix tier (``ARKS_PREFIX_DISK_MB`` > 0) and
+    peer prefix fetch (``ARKS_PEER_FETCH``, ``ARKS_PEER_ADDRS``)."""
     on = ("1", "true", "yes", "on")
     disk = knobs.get_str("ARKS_PREFIX_DISK_MB").strip()
     asked = []
     if disk not in ("0", ""):
         asked.append(f"ARKS_PREFIX_DISK_MB={disk} (the disk prefix tier)")
-    window = knobs.get_str("ARKS_RESIDENCY_WINDOW_PAGES").strip()
-    if window not in ("0", ""):
-        asked.append(f"ARKS_RESIDENCY_WINDOW_PAGES={window} (windowed "
-                     "residency)")
     if knobs.get_str("ARKS_PEER_FETCH").strip().lower() in on:
         asked.append("ARKS_PEER_FETCH (peer prefix fetch)")
     if knobs.get_str("ARKS_PEER_ADDRS", "").strip():
@@ -955,7 +966,188 @@ class InferenceEngine:
                  tokenizer, params: tf.Params | None = None,
                  device: str | torch.device | None = None,
                  draft_params: tf.Params | None = None,
-                 draft_cfg: ModelConfig | None = None) -> None:
+                 draft_cfg: ModelConfig | None = None,
+                 pool: ModelPool | None = None) -> None:
+        """Engine-global state here; everything that belongs to one model
+        (weights, pool, mirrors, guides, tiers, draft) in
+        ``_init_model_state``, whose attribute names a model switch swaps
+        wholesale (``_model_attr_names``).  ``pool``: the multi-model
+        weight pool (``engine/model_pool.py``); the primary is adopted
+        into it pinned, with its draft."""
+        check_unserved_knobs()
+        self.device = resolve_device(device)
+        self.tokenizer = tokenizer
+        self._admit_sizes = admit_batch_sizes()
+        self._pipe_depth = pipeline_depth_knob()
+        self._sampler_fuse = sampler_fuse_knob()
+        self._overlap = overlap_decode_knob(self.device)
+        # Preemptive KV swap (ARKS_PREEMPT): the knobs, the replay-mode
+        # victims on their way back to a slot and each victim's last
+        # preempt (the anti-thrash cooldown).  The victims in flight or
+        # parked in host RAM belong to their model's context.
+        self._preempt_on = knobs.get_bool("ARKS_PREEMPT")
+        self._preempt_max = knobs.get_int("ARKS_PREEMPT_MAX_INFLIGHT",
+                                          minimum=1)
+        self._preempt_cooldown_s = knobs.get_float("ARKS_PREEMPT_COOLDOWN_S",
+                                                   minimum=0)
+        self._resuming: set[str] = set()
+        self._preempt_last: dict[str, float] = {}
+        self._request_seed = 0
+        # Free pinned buffers of the async result copies, by shape.
+        self._host_bufs: dict = {}
+        self.metrics = EngineMetrics()
+        m = self.metrics
+        # Fault isolation and token replay (engine/faults.py): the chaos
+        # hook, the per-request retry budget and fault counts, the
+        # replaying requests (re-queued, not yet decoding again), how each
+        # replayer's original prefill ran, the pinned copies a recovery
+        # drops, and the state /readiness reads.  The step
+        # heartbeat (phase, t0) feeds the watchdog; ``_exit_fn`` is the
+        # escalation's exit (injectable for tests).
+        self._faults = faults_mod.FaultInjector()
+        self._fault_retries = knobs.get_int("ARKS_FAULT_RETRIES", minimum=0)
+        self._fault_counts: dict[str, int] = {}
+        self._consec_faults = 0
+        self._replaying: set[str] = set()
+        self._replay_shape: dict[str, _ReplayShape] = {}
+        self._dropped_copies: list[_PinnedCopy] = []
+        self._recover_t0 = 0.0
+        self._state = "serving"
+        m.engine_state.set(faults_mod.STATE_SERVING)
+        self._step_hb: tuple[str, float] | None = None
+        self._watchdog: faults_mod.Watchdog | None = None
+        self._exit_fn = os._exit
+        # Request tracing (its collector thread starts in ``start``) and
+        # the profiler windows.
+        self.trace = Tracer()
+        self.profiler = ProfilerWindows()
+        self._pipe_seq = 0
+
+        # Shared with caller threads.  The admission queue is tenant-fair
+        # and bounded for the callers' puts (``fairqueue.FairQueue``).
+        self._queue = fairqueue.FairQueue()
+        self._queue_seq = 0
+        self._shed_deadline_factor = knobs.get_float("ARKS_SHED_DEADLINE",
+                                                     minimum=0)
+        self._tenant_labels = tenancy.TenantLabels()
+        self._slo = slo_mod.from_env()
+        self._slo_burn_window_s = knobs.get_float("ARKS_SLO_BURN_WINDOW_S")
+        self._slo_error_budget = max(
+            knobs.get_float("ARKS_SLO_ERROR_BUDGET"), 1e-6)
+        self._slo_events: dict[str, list] = {}
+        self._queue_aging_s = knobs.get_float("ARKS_QUEUE_AGING_S", minimum=0)
+        self._queue_age_last = 0.0
+        # The loop's first finished step (readiness).
+        self.warm = False
+        self._abort_lock = threading.Lock()
+        self._aborted: set[str] = set()
+        # Request ids waiting in the admission queue (under _abort_lock):
+        # with the in-flight structures, the replay-liveness universe.
+        self._queued_rids: set[str] = set()
+        self._running = False
+        self._thread: threading.Thread | None = None
+        # Mixed dispatches issued (each runs every layer's two kernels once),
+        # those that carried prefill chunks (run as two row blocks) and
+        # those that carried decode and prefill-chunk tokens together;
+        # legacy decode dispatches and their decode steps (each step runs
+        # every layer's update and attention kernels once).
+        self.dispatches = 0
+        self.chunk_dispatches = 0
+        self.shared_dispatches = 0
+        self.decode_dispatches = 0
+        self.decode_steps = 0
+        # Of those, the pipelined ones (fused depth-0 ones included), the
+        # in-flight count each issue left (occupancy -> dispatches) and its
+        # largest value.  (The fused ones, the resolve waits and the prefix
+        # counters are metric families; properties below read them.)
+        self.pipe_dispatches = 0
+        self.pipe_occupancy: dict[int, int] = {}
+        self.pipe_occupancy_max = 0
+        # Each host-tier restore's seconds from issue to unpark, and the
+        # prompt tokens the model computed (chunks and one-shot prefills).
+        self.prefix_restore_seconds: list[float] = []
+        self.prefill_tokens_total = 0
+
+        # Multi-model pool: requests for a pool model that is not active
+        # park in _awaiting_model (request, model, park time) while the
+        # pool streams its weights in the background; the scheduler
+        # switches contexts at a drained boundary ("model_switch" fault
+        # phase).  add_request drops a model's name into _model_prefetch
+        # so its load starts as soon as demand arrives.
+        self.pool = pool
+        self._awaiting_model: list[tuple[Request, str, float]] = []
+        self._model_loads: dict[str, LoadTicket] = {}
+        self._model_prefetch: set[str] = set()
+        self._model_ctxs: dict[str, dict] = {}      # saved per-model state
+        self._switch_target: str | None = None
+        self._switch_policy = knobs.get_enum("ARKS_MODEL_SWITCH_POLICY",
+                                             ("drain", "timeslice"))
+        self._switch_quantum = knobs.get_float("ARKS_MODEL_SWITCH_QUANTUM_S")
+        if self._switch_quantum <= 0:
+            raise ValueError(f"ARKS_MODEL_SWITCH_QUANTUM_S="
+                             f"{self._switch_quantum}: must be > 0")
+        self._slice_t0 = time.monotonic()   # the active model's timeslice
+        self._switch_t0: dict[str, float] = {}   # first park per model
+        # Dispatches issued while a load is in flight, and the deepest
+        # pipeline among them: the proof that the resident model kept its
+        # depth while the next one streamed in.
+        self._switch_stats = {"dispatches": 0, "max_depth": 0}
+        self.last_switch_stats: dict | None = None
+
+        # Scale-to-zero (ARKS_ELASTIC_IDLE_ZERO_S): an engine idle for the
+        # window drops its weights and device KV until demand re-arms it.
+        self._armed = True
+        self._zero_t0 = 0.0
+        self._idle_since: float | None = None
+        self._rearm_loader = None   # optional cfg -> params
+        self._idle_zero_s = knobs.get_float("ARKS_ELASTIC_IDLE_ZERO_S",
+                                            minimum=0)
+        self._elastic_warmup = knobs.get_bool("ARKS_ELASTIC_WARMUP")
+        self._warmup_seq = 0
+        self._rearm_fail_t = -1e9
+        self.last_rearm_stats: dict | None = None
+
+        pre = set(vars(self))
+        self._init_model_state(cfg, engine_cfg, params=params,
+                               draft_params=draft_params, draft_cfg=draft_cfg)
+        # Every per-model attribute (weights, pool, mirrors, guides, tiers,
+        # draft): _switch_to swaps exactly these between saved contexts.
+        self._model_attr_names = tuple(sorted(set(vars(self)) - pre))
+        self._primary_model = cfg.name
+        self._primary_ecfg = self.ecfg
+        if self.pool is not None:
+            self.pool.adopt(cfg.name, cfg, self.params, pinned=True)
+            self.pool.acquire(cfg.name)   # the active model's ref
+            if self._draft_cfg is not None:
+                self.pool.adopt(self._draft_cfg.name, self._draft_cfg,
+                                self._draft_params, pinned=True)
+            if self.pool.metrics is None:
+                self.pool.metrics = SimpleNamespace(
+                    resident_bytes=m.model_pool_resident_bytes,
+                    cold_starts=m.model_cold_starts_total)
+                self.pool._publish_metrics()
+            # An eviction drops the model's saved context too: it holds a
+            # params reference, so the card would not get the bytes back.
+            # A closure over the dict, not a bound method: pool -> engine
+            # would be a cycle that keeps the engine alive past ``del``.
+            ctxs = self._model_ctxs
+            self.pool.on_evict = lambda n: ctxs.pop(n, None)
+
+    def _init_model_state(self, cfg: ModelConfig, engine_cfg: EngineConfig,
+                          params: tf.Params | None = None,
+                          draft_params: tf.Params | None = None,
+                          draft_cfg: ModelConfig | None = None,
+                          keep_tiers: dict | None = None) -> None:
+        """Build ALL per-model engine state: weights, the KV pool and its
+        allocator, the sampling rows, the guide compiler, the host
+        mirrors, the prefix tiers, the draft, and the scheduler's per-model
+        queues.  Called from ``__init__`` for the primary, from
+        ``_switch_to`` for a pool model's first activation, and from
+        ``_rearm``.  Every attribute assigned here is saved and restored
+        wholesale by a model switch, which is legal only because switches
+        happen at fully drained boundaries.  ``keep_tiers`` (a re-arm):
+        reuse the host prefix tier, the swap store and the swapped-out
+        victims instead of building fresh ones."""
         # A model config's KV dtype preference applies when the engine's
         # setting is "auto" (an explicit engine setting wins).
         if engine_cfg.kv_cache_dtype == "auto" and \
@@ -965,11 +1157,8 @@ class InferenceEngine:
             log.info("kv_cache_dtype=%s from the model config",
                      cfg.kv_cache_dtype)
         engine_cfg.validate()
-        check_unserved_knobs()
-        self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = engine_cfg
-        self.tokenizer = tokenizer
         dtype = tf.torch_dtype(engine_cfg.dtype or cfg.dtype)
         wbits = quant.weight_bits(engine_cfg.weight_dtype)
         if params is None:
@@ -1009,12 +1198,18 @@ class InferenceEngine:
                 f"ARKS_MIXED_STEP={knob})")
         quantized = kv in ("int8", "int4")
         n = engine_cfg.num_slots
+        # Windowed residency (ARKS_RESIDENCY_WINDOW_PAGES): a slot's
+        # RESIDENT page budget below its logical table width; a slot whose
+        # context outgrows it decodes span by span (engine/residency.py).
+        self._residency_window = 0
+        self._residency = None
+        window = knobs.get_int("ARKS_RESIDENCY_WINDOW_PAGES", minimum=0)
         if self._paged:
             self._max_pages = engine_cfg.max_cache_len // c
-            # Every slot's full table always fits; prefix_cache_mb adds
-            # retention pages for the device index (capped in proportion,
-            # so a tiny model's pool stays small), as the reference sizes
-            # its pool.
+            # Every slot's full table (or window) always fits;
+            # prefix_cache_mb adds retention pages for the device index
+            # (capped in proportion, so a tiny model's pool stays small),
+            # as the reference sizes its pool.
             bits = (4 if kv == "int4" else 8) if quantized else \
                 torch.finfo(cache_dtype).bits
             page_bytes = (cfg.num_layers * cfg.num_kv_heads * c
@@ -1024,7 +1219,16 @@ class InferenceEngine:
             self._page_bytes = page_bytes
             extra = min(engine_cfg.prefix_cache_mb * 2**20 // page_bytes,
                         n * self._max_pages * 4)
-            num_pages = n * self._max_pages + extra
+            per_slot = self._max_pages
+            if window and window < self._max_pages:
+                if window < 4:
+                    raise ValueError(
+                        f"ARKS_RESIDENCY_WINDOW_PAGES={window}: the window "
+                        "must cover 2 hot-tail pages + 2 staging halves "
+                        "(>= 4)")
+                per_slot = window
+                self._residency_window = window
+            num_pages = n * per_slot + extra
             self.cache = tf.init_paged_cache(
                 cfg, num_pages, c, cache_dtype, self.device,
                 quantized=quantized,
@@ -1061,29 +1265,25 @@ class InferenceEngine:
         # cache's host prefix cache.  Spills and restores move whole pages
         # in groups of a fixed size, as the reference's.
         host_mb = prefix_host_mb_knob()
-        self._host = None
         # (digest, page) evicted from the device index since the last
         # spill flush.
         self._spill_victims: list = []
-        if self._paged and host_mb:
-            self._host = HostPrefixTier(c, host_mb * 2**20)
-        # Preemptive KV swap (ARKS_PREEMPT): victims' decode state parks in
-        # the SwapStore, inside the host tier's budget, so swap mode needs
-        # the host tier; without it victims preempt in replay mode.
-        # Victims whose spill copies are in flight, those parked in host
-        # RAM, the replay-mode ones on their way back to a slot, and each
-        # victim's last preempt (the anti-thrash cooldown).
-        self._preempt_on = knobs.get_bool("ARKS_PREEMPT")
-        self._preempt_max = knobs.get_int("ARKS_PREEMPT_MAX_INFLIGHT",
-                                          minimum=1)
-        self._preempt_cooldown_s = knobs.get_float("ARKS_PREEMPT_COOLDOWN_S",
-                                                   minimum=0)
-        self._swap = SwapStore(self._host) if self._host is not None \
-            else None
+        # Preemptive KV swap: victims' decode state parks in the SwapStore,
+        # inside the host tier's budget, so swap mode needs the host tier;
+        # without it victims preempt in replay mode.  The victims whose
+        # spill copies are in flight and those parked in host RAM.
+        if keep_tiers is not None:
+            self._host = keep_tiers["host"]
+            self._swap = keep_tiers["swap"]
+            self._swapped: dict[str, _SwapRecord] = keep_tiers["swapped"]
+        else:
+            self._host = None
+            if self._paged and host_mb:
+                self._host = HostPrefixTier(c, host_mb * 2**20)
+            self._swap = SwapStore(self._host) if self._host is not None \
+                else None
+            self._swapped = {}
         self._swap_pending: list[_SwapState] = []
-        self._swapped: dict[str, _SwapRecord] = {}
-        self._resuming: set[str] = set()
-        self._preempt_last: dict[str, float] = {}
         self._alloc = self._new_allocator(num_pages) if self._paged else None
         self._prefix = None
         if not self._paged and engine_cfg.prefix_cache_mb:
@@ -1098,10 +1298,6 @@ class InferenceEngine:
                                    minimum=1)
             self._mixed_budget = min(budget, engine_cfg.max_cache_len)
         self._buckets = engine_cfg.resolve_buckets()
-        self._admit_sizes = admit_batch_sizes()
-        self._pipe_depth = pipeline_depth_knob()
-        self._sampler_fuse = sampler_fuse_knob()
-        self._overlap = overlap_decode_knob(self.device)
         # Rows a pipelined dispatch writes per slot (speculative: its verify
         # block; mixed: its one-token step; legacy: the K-step loop), also
         # dead_len's cache margin.
@@ -1120,7 +1316,6 @@ class InferenceEngine:
         self._prefilling: dict[int, _ChunkState] = {}
         self._slot_pages: dict[int, list[int]] = {}
         self._free: list[int] = list(range(n))
-        self._request_seed = 0
         # Bumped at every registration: a pipelined resolve drops the
         # tokens of a slot retired (or re-registered) since its issue.
         self._slot_gen = np.zeros((n,), np.int64)
@@ -1130,12 +1325,12 @@ class InferenceEngine:
         self._pipe_inflight: collections.deque = collections.deque()
         self._pipe_state = None
         self._pipe_cols = None
+        # The last pipelined resolve's time (TPOT by resolve interarrival).
+        self._pipe_last_resolve: float | None = None
         # Deferred admissions: issued one-shot batches whose first tokens
         # have not been read yet (FIFO), and their request count.
         self._pending_admits: collections.deque = collections.deque()
         self._pending_n = 0
-        # Free pinned buffers of the async result copies, by shape.
-        self._host_bufs: dict = {}
         # Each slot's sampling row and decode key (registered slots' rows
         # are read).
         self._sampling = sampler_mod.init_sampling_state(
@@ -1144,36 +1339,10 @@ class InferenceEngine:
         # copies have fixed budget shapes and take new CONTENTS (engine
         # thread, between dispatches) when its version bumps.
         eos_all = tuple(dict.fromkeys(list(cfg.eos_token_ids)
-                                      + list(tokenizer.eos_token_ids)))
-        self.metrics = EngineMetrics()
+                                      + list(self.tokenizer.eos_token_ids)))
         m = self.metrics
-        # Fault isolation and token replay (engine/faults.py): the chaos
-        # hook, the per-request retry budget and fault counts, the
-        # replaying requests (re-queued, not yet decoding again), how each
-        # replayer's original prefill ran, the pinned copies a recovery
-        # drops, and the state /readiness reads.  The step
-        # heartbeat (phase, t0) feeds the watchdog; ``_exit_fn`` is the
-        # escalation's exit (injectable for tests).
-        self._faults = faults_mod.FaultInjector()
-        self._fault_retries = knobs.get_int("ARKS_FAULT_RETRIES", minimum=0)
-        self._fault_counts: dict[str, int] = {}
-        self._consec_faults = 0
-        self._replaying: set[str] = set()
-        self._replay_shape: dict[str, _ReplayShape] = {}
-        self._dropped_copies: list[_PinnedCopy] = []
-        self._recover_t0 = 0.0
-        self._state = "serving"
-        m.engine_state.set(faults_mod.STATE_SERVING)
-        self._step_hb: tuple[str, float] | None = None
-        self._watchdog: faults_mod.Watchdog | None = None
-        self._exit_fn = os._exit
-        # Request tracing (its collector thread starts in ``start``) and
-        # the profiler windows.
-        self.trace = Tracer()
-        self.profiler = ProfilerWindows()
-        self._pipe_seq = 0
         self.guides = GuideCompiler(
-            tokenizer, cfg.vocab_size, eos_all,
+            self.tokenizer, cfg.vocab_size, eos_all,
             metrics=SimpleNamespace(
                 compile_seconds=m.guide_compile_seconds,
                 hits=m.guide_cache_hits_total,
@@ -1190,53 +1359,23 @@ class InferenceEngine:
         # held from admission to the request's end.
         self._awaiting_guide: list = []
         self._guide_pins: dict[str, tuple[str, str]] = {}
-
-        # Shared with caller threads.  The admission queue is tenant-fair
-        # and bounded for the callers' puts (``fairqueue.FairQueue``).
-        self._queue = fairqueue.FairQueue()
-        self._queue_seq = 0
-        self._shed_deadline_factor = knobs.get_float("ARKS_SHED_DEADLINE",
-                                                     minimum=0)
-        self._tenant_labels = tenancy.TenantLabels()
-        self._slo = slo_mod.from_env()
-        self._slo_burn_window_s = knobs.get_float("ARKS_SLO_BURN_WINDOW_S")
-        self._slo_error_budget = max(
-            knobs.get_float("ARKS_SLO_ERROR_BUDGET"), 1e-6)
-        self._slo_events: dict[str, list] = {}
-        self._queue_aging_s = knobs.get_float("ARKS_QUEUE_AGING_S", minimum=0)
-        self._queue_age_last = 0.0
-        # The last pipelined resolve's time (TPOT by resolve interarrival).
-        self._pipe_last_resolve: float | None = None
-        # The loop's first finished step (readiness).
-        self.warm = False
-        self._abort_lock = threading.Lock()
-        self._aborted: set[str] = set()
-        # Request ids waiting in the admission queue (under _abort_lock):
-        # with the in-flight structures, the replay-liveness universe.
-        self._queued_rids: set[str] = set()
-        self._running = False
-        self._thread: threading.Thread | None = None
-        # Mixed dispatches issued (each runs every layer's two kernels once),
-        # those that carried prefill chunks (run as two row blocks) and
-        # those that carried decode and prefill-chunk tokens together;
-        # legacy decode dispatches and their decode steps (each step runs
-        # every layer's update and attention kernels once).
-        self.dispatches = 0
-        self.chunk_dispatches = 0
-        self.shared_dispatches = 0
-        self.decode_dispatches = 0
-        self.decode_steps = 0
-        # Of those, the pipelined ones (fused depth-0 ones included), the
-        # in-flight count each issue left (occupancy -> dispatches) and its
-        # largest value.  (The fused ones, the resolve waits and the prefix
-        # counters are metric families; properties below read them.)
-        self.pipe_dispatches = 0
-        self.pipe_occupancy: dict[int, int] = {}
-        self.pipe_occupancy_max = 0
-        # Each host-tier restore's seconds from issue to unpark, and the
-        # prompt tokens the model computed (chunks and one-shot prefills).
-        self.prefix_restore_seconds: list[float] = []
-        self.prefill_tokens_total = 0
+        if self._residency_window:
+            # The span chain rides the mixed scheduler's step forms; a
+            # speculative verify block never takes the span path.
+            if not self._mixed:
+                raise ValueError(
+                    "ARKS_RESIDENCY_WINDOW_PAGES requires the mixed "
+                    "scheduler (paged KV + chunked prefill, "
+                    "ARKS_MIXED_STEP!=0)")
+            if self._draft_cfg is not None:
+                raise ValueError(
+                    "ARKS_RESIDENCY_WINDOW_PAGES is incompatible with "
+                    "speculative decoding (spec verify blocks never ride "
+                    "the span-streaming path)")
+            self._residency = ResidencyManager(self, self._residency_window)
+            log.info("windowed residency: %d-page window (2x%d staging), "
+                     "%d-page logical tables", self._residency_window,
+                     self._residency.chunk, self._max_pages)
         # The configuration this engine runs, under the reference's label
         # names (``engine_config_info``).
         self.resolved_config = {
@@ -1326,8 +1465,15 @@ class InferenceEngine:
 
     @property
     def max_prompt_len(self) -> int:
-        """Largest admissible prompt (the decode reserve kept)."""
-        return self.ecfg.max_cache_len - self.ecfg.steps_per_dispatch - 1
+        """Largest admissible prompt (the decode reserve kept).  Under
+        windowed residency a prompt must fit the window with that reserve:
+        residency streams decode-grown context, and a prefill chunk
+        attends its whole causal prefix on the device."""
+        k = self.ecfg.steps_per_dispatch
+        limit = self.ecfg.max_cache_len - k - 1
+        if self._residency_window:
+            limit = min(limit, self._residency_window * self._page - k)
+        return limit
 
     def min_tokens_suppress_ids(self, p) -> list[int]:
         """Deduped token ids suppressed while a request is below
@@ -1359,8 +1505,19 @@ class InferenceEngine:
         if p.guide is not None:
             if self.guides.lookup(*p.guide) is None:
                 self.guides.validate(*p.guide)
-            self.guides.ensure(*p.guide)
+            # Compile into the active model's registry only: a request for
+            # another pool model compiles after its switch (the guide gate
+            # ensures it then).
+            if request.model in (None, self.cfg.name):
+                self.guides.ensure(*p.guide)
             self.metrics.guided_requests_total.inc(1, kind=p.guide[0])
+        if (request.model is not None and self.pool is not None
+                and request.model != self.cfg.name
+                and self.pool.has(request.model)):
+            # Cold-start prefetch: start streaming the model's weights as
+            # soon as demand arrives, not once the request parks behind
+            # busy slots.
+            self._model_prefetch.add(request.model)
         if self.trace.enabled:
             # Register the trace context (caller's thread: locking is fine
             # here) and open the queue span.
@@ -1468,10 +1625,12 @@ class InferenceEngine:
         # Preempted victims: spill in flight, in host RAM, or scattering
         # back into a slot.
         preempt = len(self._swap_pending) + len(self._swapped) + resume
+        model = len(self._awaiting_model)
         m.num_requests_waiting.set(self._queue.qsize() + guide + restore
-                                   + preempt)
+                                   + preempt + model)
         m.requests_parked.set(guide, reason="guide")
         m.requests_parked.set(restore, reason="restore")
+        m.requests_parked.set(model, reason="model")
         m.requests_parked.set(preempt, reason="preempt")
 
     def abort(self, request_id: str) -> None:
@@ -1550,7 +1709,7 @@ class InferenceEngine:
                 and self._pipe_state is None
                 and not self._awaiting_guide and not self._awaiting_restore
                 and not self._swap_pending and not self._swapped
-                and self._queue.empty())
+                and not self._awaiting_model and self._queue.empty())
 
     @property
     def serving(self) -> bool:
@@ -1564,6 +1723,7 @@ class InferenceEngine:
         finally:
             # No scheduler remains to unpark or register them.
             self._abort_awaiting_guide()
+            self._abort_awaiting_model()
             self._abort_pending_admits()
             self._abort_awaiting_restores()
             self._abort_swapped()
@@ -1862,6 +2022,17 @@ class InferenceEngine:
         serve no specific request — nobody's retry budget burns for one."""
         if phase == "guide":
             return ()
+        if phase == "model_switch":
+            # The switch serves the requests parked for its target; nobody
+            # else is in flight (switches run drained).
+            return [req.request_id for req, want, _ in self._awaiting_model
+                    if want == self._switch_target]
+        if phase == "residency":
+            # The span-streaming step works for the engaged slots alone.
+            if self._residency is None:
+                return ()
+            return [self._slots[s].request.request_id
+                    for s in self._residency.slots if s in self._slots]
         if phase == "preempt":
             # Every preempt site names its victim; an unattributed preempt
             # fault is host-side scheduling code: blame the swap traffic,
@@ -1886,6 +2057,7 @@ class InferenceEngine:
                  for req, _, _ in rec[0]}
         live |= {req.request_id for req, _ in self._awaiting_guide}
         live |= {rec.request.request_id for rec in self._awaiting_restore}
+        live |= {req.request_id for req, _, _ in self._awaiting_model}
         live |= {sw.rec.request.request_id for sw in self._swap_pending}
         live |= set(self._swapped)
         return live
@@ -1951,6 +2123,7 @@ class InferenceEngine:
             self._abort_prefill(slot)
         self._abort_pending_admits()
         self._abort_awaiting_restores()
+        self._abort_awaiting_model()
         # Preempted victims fail too, and their SwapStore entries go with
         # them: swapped-out KV may carry the poison back on resume.
         self._abort_swapped()
@@ -1999,6 +2172,10 @@ class InferenceEngine:
             self._alloc = self._new_allocator(self._alloc.num_pages)
             self._tables[:] = 0
             self._slot_pages.clear()
+            if self._residency is not None:
+                # The windowed slots' stores hold the pre-reset streams;
+                # their requests replay from the top.
+                self._residency.slots.clear()
         sampler_mod.reset_sampling_state_(self._sampling, self.ecfg.seed)
         self._lengths[:] = self._park_sentinel() if self._paged else 0
         self._last_token[:] = 0
@@ -2037,13 +2214,30 @@ class InferenceEngine:
         sec = self.metrics.scheduler_seconds_total
         t0 = time.monotonic()
         self._maybe_finish_recovery()
-        self._ensure_guides_uploaded()
+        if not self._armed:
+            # Scaled to zero: no device state exists; the only work is
+            # re-arming on demand.
+            return self._step_disarmed(block_s)
         worked = False
+        if self._idle_zero_s:
+            worked = self._maybe_scale_to_zero()
+            if not self._armed:
+                return True
+        self._ensure_guides_uploaded()
         if self._awaiting_guide:
-            worked = self._service_awaiting_guides()
+            worked = self._service_awaiting_guides() or worked
             tg = time.monotonic()
             sec.inc(tg - t0, phase="guide_wait")
             t0 = tg
+        if self._awaiting_model or self._model_loads or self._model_prefetch:
+            # Multi-model parks: start or poll the next model's background
+            # load, and switch contexts once it is resident and the engine
+            # drained.  Never blocks: while the load streams, the resident
+            # model keeps its pipeline (the fast path below).
+            worked = self._issue_model_load() or worked
+            tm = time.monotonic()
+            sec.inc(tm - t0, phase="model_wait")
+            t0 = tm
         if self._pipe_ready():
             self._step_pipelined()
             sec.inc(time.monotonic() - t0, phase="decode")
@@ -2058,6 +2252,14 @@ class InferenceEngine:
             self._step_fused()
             sec.inc(time.monotonic() - t0, phase="mixed")
             return True
+        if self._residency_active():
+            # Windowed-residency slots decode span by span on the host loop
+            # (cold pages rotate through staging while the resident spans
+            # attend), ahead of the mixed dispatch, whose lanes they leave.
+            worked = self._residency_step() or worked
+            tw = time.monotonic()
+            sec.inc(tw - t0, phase="residency")
+            t0 = tw
         if self._awaiting_restore:
             # Restores whose scatter landed continue into the chunked path
             # (on exact host mirrors: the pipeline drained above).
@@ -2140,8 +2342,9 @@ class InferenceEngine:
         if worked:
             return True
         if self._awaiting_restore or self._spills or self._swap_pending \
-                or self._swapped:
-            # They land on device time, not on queue arrivals: poll again.
+                or self._swapped or self._awaiting_model or self._model_loads:
+            # They land on device (or loader-thread) time, not on queue
+            # arrivals: poll again.
             time.sleep(0.001)
             return True
         self._purge_stale_aborts()
@@ -2333,6 +2536,15 @@ class InferenceEngine:
                         num_emitted=req.outputs.client_total,
                         shape=self._replay_shape.get(req.request_id))]
                 ) from e
+        want = req.model or self._primary_model
+        if want != self.cfg.name or (self._switch_target is not None
+                                     and self._switch_target != self.cfg.name):
+            # The request targets a pool model that is not active, or a
+            # switch away from the active model is committed (admitting
+            # would keep the drain from converging): park it.  Before the
+            # guide gate: a guide's pin belongs to its model's compiler.
+            self._park_awaiting_model(req, want)
+            return None
         ids = list(req.prompt_ids)
         if not ids or len(ids) > self.max_prompt_len:
             self._unpin_guide(req)
@@ -2547,6 +2759,10 @@ class InferenceEngine:
         self._faults.fire("pages")
         rows *= ahead + 1
         for slot in self._slots:
+            if self._residency is not None and slot in self._residency.slots:
+                # An engaged slot owns staging + hot-tail pages only; the
+                # residency manager grows its tail itself.
+                continue
             need = pages_needed(int(self._lengths[slot]), rows, self._page,
                                 self._max_pages)
             row = self._slot_pages[slot]
@@ -3272,8 +3488,15 @@ class InferenceEngine:
         self._grow_slot_pages(1)
         self._faults.fire("decode")
         n = self.ecfg.num_slots
-        a = self._mixed_arrays(n)
         dec_slots = list(self._slots)
+        if self._residency is not None:
+            # Engaged slots decode through _residency_step: the classic
+            # attend needs the whole causal prefix resident.
+            dec_slots = [s for s in dec_slots
+                         if s not in self._residency.slots]
+            if not dec_slots and not self._prefilling:
+                return None
+        a = self._mixed_arrays(n)
         for slot in dec_slots:
             a["tokens"][slot] = self._last_token[slot]
             a["token_slot"][slot] = slot
@@ -3966,13 +4189,18 @@ class InferenceEngine:
         slot, no landed preempt spill or resume, no swapped-out victim
         with a free slot to resume into, and no preemption wanted (a
         port gate the reference lacks: a victim resumes as soon as a slot
-        is free).  The reference's other gates guard subsystems the port
-        does not have (windowed residency, disk or peer fetches) and are
-        left out; so is
+        is free), and no slot decoding (or about to decode) through
+        windowed residency.  The reference's other gates guard subsystems
+        the port does not have (disk or peer fetches) and are left out; so
+        is
         its wait for the pipe programs' ahead-of-time compile: eager
         PyTorch has nothing to compile, and the kernels build at their
         first launch."""
         if not self._slots or self._prefilling or self._pending_admits:
+            return False
+        if self._residency_active():
+            # Windowed-residency slots decode span by span on the host
+            # loop: no steady-state program covers them.
             return False
         if self._awaiting_restore and self._free and \
                 self._restore_ready_any():
@@ -4112,6 +4340,12 @@ class InferenceEngine:
         self._pipe_inflight.append((snapshot, want_lp, copy, t0))
         occ = len(self._pipe_inflight)
         self.metrics.pipeline_depth_occupancy.observe(occ)
+        if self._model_loads:
+            # The switch-overlap proof: dispatches issued while another
+            # model's weights stream, and the depth they kept.
+            self._switch_stats["dispatches"] += 1
+            self._switch_stats["max_depth"] = max(
+                self._switch_stats["max_depth"], occ)
         self.pipe_dispatches += 1
         self.pipe_occupancy[occ] = self.pipe_occupancy.get(occ, 0) + 1
         self.pipe_occupancy_max = max(self.pipe_occupancy_max, occ)
@@ -4258,6 +4492,10 @@ class InferenceEngine:
             rid = st.request.request_id
             if prio <= head or rid in self._replaying or \
                     rid in self._resuming:
+                continue
+            if self._residency is not None and slot in self._residency.slots:
+                # An engaged slot's KV is split across the host store,
+                # staging and tail: it finishes in place.
                 continue
             if now - self._preempt_last.get(rid, -1e9) < \
                     self._preempt_cooldown_s:
@@ -4616,6 +4854,10 @@ class InferenceEngine:
             self._sampling = sampler_mod.clear_slot_penalties(self._sampling,
                                                               slot)
         if self._paged:
+            if self._residency is not None:
+                # An engaged slot's pages are staging + tail (returned
+                # below); its host store just drops.
+                self._residency.release(slot)
             pages = self._slot_pages.pop(slot, [])
             if pages:
                 self._alloc.decref(pages)
@@ -4645,3 +4887,579 @@ class InferenceEngine:
         m.request_success_total.inc(reason=reason)
         m.num_requests_running.set(len(self._slots))
         self.trace.evt(st.request.request_id, "finish", "I", reason)
+
+    # ------------------------------------------------------------------
+    # Multi-model serving (engine/model_pool.py)
+    # ------------------------------------------------------------------
+
+    def served_models(self) -> list[str]:
+        """The model names this engine serves: the primary and every pool
+        registration (the server routes a request's ``model`` field
+        against this)."""
+        names = [self._primary_model]
+        if self.pool is not None:
+            names += [n for n in self.pool.names() if n not in names]
+        return names
+
+    def register_model(self, model, model_path: str | None = None,
+                       pinned: bool = False) -> None:
+        """Register a secondary model with the pool.  ``model`` is a config
+        name or a ModelConfig.  The loader reads real weights from
+        ``model_path`` (``models/weights.py``, quantized on load as the
+        primary's) and otherwise draws the SAME random init a single-model
+        engine of this config boots with (``ecfg.seed``, quantized the
+        same way), which is what makes pooled streams byte-identical to
+        single-model ones.  Secondary models share the engine's
+        tokenizer."""
+        if self.pool is None:
+            raise RuntimeError("engine has no model pool")
+        from arks_tpu_torch.models.weights import load_params
+        cfg2 = get_config(model) if isinstance(model, str) else model
+        ecfg = self._primary_ecfg
+        device = self.device
+
+        def loader(cfg2=cfg2, model_path=model_path):
+            return load_params(cfg2, model_path,
+                               dtype=ecfg.dtype or cfg2.dtype,
+                               weight_dtype=ecfg.weight_dtype, device=device,
+                               seed=ecfg.seed)
+
+        self.pool.register(cfg2.name, cfg2, model_path=model_path,
+                           loader=loader, pinned=pinned)
+
+    def _park_awaiting_model(self, req: Request, want: str) -> None:
+        """Park a request until its model is active (like the guide and
+        restore parks: abortable, failed on engine exit).  A request for an
+        unknown model, or on an engine without a pool, fails at once."""
+        if self.pool is None or not (want == self._primary_model
+                                     or self.pool.has(want)):
+            error = ("model_not_found" if self.pool is not None
+                     else "multi_model_unsupported")
+            req.outputs.put(RequestOutput(
+                request_id=req.request_id, token_ids=[], finished=True,
+                finish_reason="error", error=error,
+                num_prompt_tokens=len(req.prompt_ids)))
+            log.info("rejected %s: %s (model=%r)", req.request_id, error,
+                     want)
+            return
+        self._awaiting_model.append((req, want, time.monotonic()))
+        self.trace.evt(req.request_id, "park.model", "B", want)
+        self._switch_t0.setdefault(want, time.monotonic())
+        self._update_waiting()
+
+    def _abort_awaiting_model(self) -> None:
+        """Fail every model-parked request (engine exit, blanket abort): no
+        scheduler remains to switch models for them."""
+        for req, _want, _t in self._awaiting_model:
+            req.outputs.put(RequestOutput(
+                request_id=req.request_id, token_ids=[], finished=True,
+                finish_reason="abort", num_prompt_tokens=len(req.prompt_ids)))
+        self._awaiting_model = []
+        self._update_waiting()
+
+    def _fail_parked_for(self, want: str, error: str) -> None:
+        """Fail the requests parked for ``want`` (its load failed or the
+        pool cannot fit it); other models' parked requests stay."""
+        keep = []
+        for req, w, t in self._awaiting_model:
+            if w != want:
+                keep.append((req, w, t))
+                continue
+            self._fault_counts.pop(req.request_id, None)
+            req.outputs.put(RequestOutput(
+                request_id=req.request_id, token_ids=[], finished=True,
+                finish_reason="error", error=error,
+                num_prompt_tokens=len(req.prompt_ids)))
+            self.metrics.request_success_total.inc(reason="error")
+            log.info("rejected %s: %s", req.request_id, error)
+        self._awaiting_model = keep
+        self._switch_t0.pop(want, None)
+        self._model_loads.pop(want, None)
+        if self._switch_target == want:
+            self._switch_target = None
+        self._update_waiting()
+
+    def _switch_due_policy(self, target: str) -> bool:
+        """May a switch to ``target`` be committed now?  drain: as soon as
+        the target is resident (running requests finish first; slots are
+        never preempted).  timeslice: once the active model had its
+        quantum, or has no runnable work left."""
+        if self._switch_policy == "drain":
+            return True
+        return (time.monotonic() - self._slice_t0 >= self._switch_quantum
+                or (not self._slots and not self._prefilling
+                    and not self._pending_admits and self._queue.empty()))
+
+    def _drained_for_switch(self) -> bool:
+        """A switch swaps the per-model context wholesale, legal only when
+        every scheduling member is at its empty state: no slots, prefills,
+        deferred admissions, pipelined dispatches, spills, restores,
+        preempted victims or queued requests (a committed target parks the
+        queue through ``_preadmit`` first)."""
+        return (not self._slots and not self._prefilling
+                and not self._pending_admits and not self._pipe_inflight
+                and self._pipe_state is None
+                and not self._awaiting_restore and not self._spills
+                and not self._swap_pending and not self._swapped
+                and self._queue.empty())
+
+    def _issue_model_load(self) -> bool:
+        """Service the model park: consume aborts, start or poll the
+        head-of-line model's background load (``pool.ensure``, which never
+        blocks), commit a switch target by policy, park the admission
+        queue once committed, and switch at the drained boundary."""
+        worked = False
+        with self._abort_lock:
+            dead = {req.request_id for req, _, _ in self._awaiting_model
+                    if req.request_id in self._aborted}
+            self._aborted -= dead
+        if dead:
+            keep = []
+            for req, want, t in self._awaiting_model:
+                if req.request_id not in dead:
+                    keep.append((req, want, t))
+                    continue
+                req.outputs.put(RequestOutput(
+                    request_id=req.request_id, token_ids=[], finished=True,
+                    finish_reason="abort",
+                    num_prompt_tokens=len(req.prompt_ids)))
+            self._awaiting_model = keep
+            self._update_waiting()
+            worked = True
+        # Prefetch hints from add_request: start the load while the request
+        # still waits in the queue.  Errors surface when it parks.
+        while self._model_prefetch:
+            name = self._model_prefetch.pop()
+            if name == self.cfg.name or not self.pool.has(name):
+                continue
+            try:
+                got = self.pool.ensure(name)
+            except (KeyError, PoolFullError):
+                continue
+            if isinstance(got, LoadTicket) and \
+                    self._model_loads.get(name) is not got:
+                self._model_loads[name] = got
+                self._switch_t0.setdefault(name, got.t0)
+                self._switch_stats = {"dispatches": 0, "max_depth": 0}
+                worked = True
+        if not self._awaiting_model:
+            self._switch_target = None
+            for name, t in list(self._model_loads.items()):
+                if t.event.is_set():
+                    self._model_loads.pop(name, None)
+                    self._switch_t0.pop(name, None)
+            return worked
+        target = self._switch_target or self._awaiting_model[0][1]
+        if target == self.cfg.name:
+            # The target became active while these waited: re-queue them.
+            self._switch_target = None
+            self._unpark_for(target)
+            return True
+        try:
+            got = self.pool.ensure(target)
+        except KeyError as e:
+            self._fail_parked_for(target, f"model_not_found: {e}")
+            return True
+        except PoolFullError as e:
+            self._pool_full(target, f"model_pool_exhausted: {e}")
+            return True
+        resident = not isinstance(got, LoadTicket)
+        if not resident:
+            if self._model_loads.get(target) is not got:
+                self._model_loads[target] = got
+                self._switch_t0.setdefault(target, got.t0)
+                self._switch_stats = {"dispatches": 0, "max_depth": 0}
+                worked = True
+            if got.event.is_set():
+                self._model_loads.pop(target, None)
+                if got.error and "model_pool_exhausted" in got.error:
+                    self._pool_full(target, got.error)
+                    return True
+                if got.error:
+                    self._fail_parked_for(
+                        target, f"model_load_failed: {got.error}")
+                    return True
+                resident = True
+        else:
+            self._model_loads.pop(target, None)
+        if not resident:
+            return worked
+        if self._switch_target is None and self._switch_due_policy(target):
+            self._switch_target = target
+            worked = True
+        if self._switch_target != target:
+            return worked
+        # Committed: every request the queue still holds parks (for its
+        # own model), so the queue empties for the drained check below.
+        while True:
+            try:
+                _, _, req = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            pre = self._preadmit(req)
+            if pre is not None:
+                self._resolve_admit_batch(self._issue_admit_batch([pre]))
+            worked = True
+        if self._drained_for_switch():
+            self._switch_to(target)
+            worked = True
+        return worked
+
+    def _pool_full(self, target: str, error: str) -> None:
+        """The pool cannot fit ``target``.  When the active model is an
+        unpinned secondary, its own reference is what holds the room: step
+        back to the primary (a committed switch, at the next drained
+        boundary), which releases it to the LRU, and the target's load
+        retries from there.  Otherwise the requests parked for the target
+        fail (``model_pool_exhausted``: 503 with Retry-After)."""
+        if self.pool.entry(self.cfg.name).pinned:
+            self._fail_parked_for(target, error)
+            return
+        if self._switch_target is None:
+            log.info("model %s does not fit beside the active %s; stepping "
+                     "back to %s first", target, self.cfg.name,
+                     self._primary_model)
+            self._switch_target = self._primary_model
+
+    def _unpark_for(self, name: str) -> None:
+        """Re-queue every request parked for ``name``."""
+        keep = []
+        for req, want, t in self._awaiting_model:
+            if want != name:
+                keep.append((req, want, t))
+                continue
+            self._requeue(req)
+            self.trace.evt(req.request_id, "park.model", "E")
+        self._awaiting_model = keep
+        self._switch_t0.pop(name, None)
+        self._update_waiting()
+
+    def _switch_fault(self, name: str, e: Exception) -> StepFault:
+        """The StepFault of a failed switch: the requests parked for the
+        target are its culprits (their retry budgets burn; over budget they
+        fail alone) and its survivors (nothing was emitted: recovery
+        re-queues them and the switch retries when they park again)."""
+        self._switch_target = None
+        self._switch_t0.pop(name, None)
+        survivors, keep = [], []
+        for req, want, t in self._awaiting_model:
+            if want != name:
+                keep.append((req, want, t))
+                continue
+            survivors.append(_Survivor(
+                request=req, seed=self._resolve_seed(req),
+                num_prompt=len(req.prompt_ids)))
+        self._awaiting_model = keep
+        self._update_waiting()
+        return StepFault("model_switch", faults_mod.classify(e),
+                         culprits=[sv.request.request_id for sv in survivors],
+                         survivors=survivors)
+
+    def _switch_to(self, name: str) -> None:
+        """Activate pool model ``name`` at a drained boundary: save the
+        active model's context (every ``_model_attr_names`` attribute:
+        weights, pool, mirrors, guides, tiers), then restore ``name``'s
+        saved context or build a fresh one on the pool's resident
+        weights."""
+        t0 = time.monotonic()
+        old = self.cfg.name
+        try:
+            self._faults.fire("model_switch")
+            entry = self.pool.acquire(name)
+        except Exception as e:
+            raise self._switch_fault(name, e) from e
+        if entry.ready is not None:
+            # A background load's weights: this stream waits on the load
+            # stream's event (on the device, not the host), and their
+            # blocks are kept from reuse until this stream is done.
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(entry.ready)
+            for t in tree_tensors(entry.params):
+                t.record_stream(stream)
+            entry.ready = None
+        # Guide-parked requests belong to the old model's compiler: park
+        # them on that model, so they re-admit (and re-ensure their guide)
+        # after a switch back.
+        for req, _ticket in self._awaiting_guide:
+            self._awaiting_model.append((req, old, time.monotonic()))
+        self._awaiting_guide = []
+        ctx = {a: getattr(self, a) for a in self._model_attr_names}
+        try:
+            saved = self._model_ctxs.pop(name, None)
+            if saved is not None:
+                for a, v in saved.items():
+                    setattr(self, a, v)
+                # The pool may have reloaded the weights since an eviction
+                # dropped this context: the pool's params are the truth.
+                self.params = entry.params
+            elif name == self._primary_model:
+                ecfg2 = self._primary_ecfg
+                dname = ecfg2.draft_model
+                dcfg = self.pool.entry(dname).cfg if dname else None
+                dparams = self.pool.params_of(dname) if dname else None
+                self._init_model_state(entry.cfg, ecfg2, params=entry.params,
+                                       draft_params=dparams, draft_cfg=dcfg)
+            else:
+                # A secondary model runs without a draft.
+                ecfg2 = dataclasses.replace(self._primary_ecfg, model=name,
+                                            draft_model=None)
+                self._init_model_state(entry.cfg, ecfg2, params=entry.params)
+        except Exception as e:
+            # The old context back before faulting, so recovery rebuilds a
+            # coherent device state.
+            for a, v in ctx.items():
+                setattr(self, a, v)
+            self.pool.release(name)
+            raise self._switch_fault(name, e) from e
+        self._model_ctxs[old] = ctx
+        self.pool.release(old)
+        self._switch_target = None
+        self._slice_t0 = time.monotonic()
+        dt = time.monotonic() - self._switch_t0.pop(name, t0)
+        self.metrics.model_switch_seconds.observe(dt)
+        self.last_switch_stats = {
+            "model": name, "from": old, "seconds": dt,
+            "overlap_dispatches": self._switch_stats["dispatches"],
+            "overlap_max_depth": self._switch_stats["max_depth"],
+        }
+        self.metrics.engine_config_info.set(1, **self.resolved_config)
+        log.info("model switch %s -> %s in %.3fs (overlap: %d dispatches, "
+                 "max pipeline depth %d)", old, name, dt,
+                 self._switch_stats["dispatches"],
+                 self._switch_stats["max_depth"])
+        self._unpark_for(name)
+
+    # ------------------------------------------------------------------
+    # Scale-to-zero and re-arm (ARKS_ELASTIC_IDLE_ZERO_S)
+    # ------------------------------------------------------------------
+    # An engine idle for the window disarms: its weights, KV pool and
+    # sampling rows drop (the card gets the bytes back), the host prefix
+    # tier and swapped-out victims stay, and the first queue arrival
+    # re-arms it.  Live resize is not served (a single-card engine).
+
+    def set_rearm_loader(self, fn) -> None:
+        """Install the re-arm weight source: ``fn(cfg) -> params`` (a
+        checkpoint reload).  Without one, a re-arm takes the pool's loader
+        of the active model when it has one, else the seed's init."""
+        self._rearm_loader = fn
+
+    @property
+    def armed(self) -> bool:
+        """False while scaled to zero (no device state exists)."""
+        return self._armed
+
+    def elastic_status(self) -> dict:
+        """The operator's and readiness's view of the elastic state (any
+        thread; plain attribute reads)."""
+        return {
+            "armed": self._armed,
+            "shape": "tp1xdp1",
+            "resize_inflight": False,
+            "last_resize": None,
+            "last_rearm": self.last_rearm_stats,
+        }
+
+    def _maybe_scale_to_zero(self) -> bool:
+        """Track the idle window and disarm once the engine has been
+        COMPLETELY quiet (no parked work, no spills, no loads) for all of
+        it."""
+        quiet = (self.idle and not self._spills and not self._model_loads
+                 and not self._model_prefetch and self._state == "serving")
+        if not quiet:
+            self._idle_since = None
+            return False
+        now = time.monotonic()
+        if self._idle_since is None:
+            self._idle_since = now
+            return False
+        if now - self._idle_since < self._idle_zero_s:
+            return False
+        self._scale_to_zero()
+        return True
+
+    def _scale_to_zero(self) -> None:
+        """Disarm an idle engine: drop the weights, the KV pool, the draft
+        and the sampling rows, every saved model context and the pool's
+        residency of the active model, and give the caching allocator's
+        freed blocks back to the card.  The host tier and the swapped-out
+        victims stay for the re-arm."""
+        self.params = None
+        self.cache = None
+        self._sampling = None
+        self._draft_params = None
+        self._draft_cache = None
+        self._alloc = None
+        self._guide_dev = None
+        self._model_ctxs.clear()
+        if self.pool is not None:
+            try:
+                self.pool.scale_to_zero(self.cfg.name)
+                if self._draft_cfg is not None:
+                    self.pool.scale_to_zero(self._draft_cfg.name)
+            except RuntimeError as e:
+                faults_mod.swallowed("scale_to_zero.pool", e)
+        if self.device.type == "cuda":
+            # The cuBLAS workspaces live in the caching allocator too: a
+            # workspace left in a segment keeps the whole segment reserved.
+            clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+            if clear is not None:
+                clear()
+            torch.cuda.empty_cache()
+        self._armed = False
+        self._zero_t0 = time.monotonic()
+        self._idle_since = None
+        self.metrics.engine_resizes_total.inc(1, mode="scale_to_zero",
+                                              outcome="ok")
+        log.info("idle %.1fs: scaled to zero (weights and device KV "
+                 "dropped; the host tier stays)", self._idle_zero_s)
+
+    def _step_disarmed(self, block_s: float) -> bool:
+        """The step loop while scaled to zero: wait for demand (a queue
+        arrival), then re-arm and re-queue it.  A failed re-arm retries on
+        the next demand after a second's backoff; the engine stays
+        disarmed rather than crash-loop."""
+        try:
+            prio, seq, demand = self._queue.get(timeout=block_s)
+        except queue.Empty:
+            return False
+        if time.monotonic() - self._rearm_fail_t < 1.0:
+            self._queue.put((prio, seq, demand))
+            time.sleep(min(block_s, 0.1))
+            return False
+        self._rearm()
+        self._queue.put((prio, seq, demand))
+        return True
+
+    def _rearm(self) -> bool:
+        """Scale from zero: the weights back (the re-arm loader, else the
+        pool's loader of the active model, else the seed's init) and the
+        device context rebuilt at the same shape, with the host tier and
+        any swapped-out victims carried across.  Rolls back and stays
+        disarmed on failure."""
+        t0 = time.monotonic()
+        cfg, draft_cfg = self.cfg, self._draft_cfg
+        keep = {"host": self._host, "swap": self._swap,
+                "swapped": self._swapped}
+        ctx = {a: getattr(self, a) for a in self._model_attr_names}
+        streamed = self._rearm_loader is not None
+        try:
+            params = draft_params = None
+            if self._rearm_loader is not None:
+                params = self._rearm_loader(cfg)
+            elif self.pool is not None and self.pool.has(cfg.name) and \
+                    self.pool.entry(cfg.name).loader is not None:
+                params, streamed = self.pool.load(cfg.name), True
+            if draft_cfg is not None and self.pool is not None and \
+                    self.pool.has(draft_cfg.name) and \
+                    self.pool.entry(draft_cfg.name).loader is not None:
+                draft_params = self.pool.load(draft_cfg.name)
+            self._init_model_state(cfg, self.ecfg, params=params,
+                                   draft_params=draft_params,
+                                   draft_cfg=draft_cfg, keep_tiers=keep)
+        except Exception as e:
+            for a, v in ctx.items():
+                setattr(self, a, v)
+            self._rearm_fail_t = time.monotonic()
+            self.metrics.engine_resizes_total.inc(1, mode="rearm",
+                                                  outcome="error")
+            log.error("scale-from-zero re-arm failed: %s: %s",
+                      type(e).__name__, e)
+            # The engine stays disarmed and retries on the next demand: a
+            # failed re-arm must not take the step thread down.
+            faults_mod.swallowed("elastic.rearm", e)
+            return False
+        self._armed = True
+        self._idle_since = None
+        if self.pool is not None:
+            self.pool.adopt(cfg.name, cfg, self.params, pinned=True)
+            if draft_cfg is not None:
+                self.pool.adopt(draft_cfg.name, draft_cfg,
+                                self._draft_params, pinned=True)
+        dt = time.monotonic() - t0
+        self.metrics.scale_from_zero_seconds.observe(dt)
+        self.metrics.engine_resizes_total.inc(1, mode="rearm", outcome="ok")
+        self.last_rearm_stats = {
+            "seconds": dt, "shape": "tp1xdp1",
+            "idle_seconds": t0 - self._zero_t0, "streamed": streamed,
+        }
+        self._issue_warmup_request()
+        log.info("re-armed from zero in %.3fs (%s weights)", dt,
+                 "streamed" if streamed else "re-init")
+        return True
+
+    def _issue_warmup_request(self) -> bool:
+        """Queue one tiny greedy self-request after a re-arm, ahead of the
+        demand that woke the engine (``ARKS_ELASTIC_WARMUP``): the kernels'
+        first launches run on it.  Its output sinks (no client); its seed
+        is fixed, so it takes no request seed from later requests."""
+        if not self._elastic_warmup:
+            return False
+        self._warmup_seq += 1
+        req = Request(
+            request_id=f"__warmup__{self._warmup_seq}",
+            prompt_ids=[min(3, self.cfg.vocab_size - 1)] * 4,
+            params=SamplingParams(max_tokens=2, top_k=1, seed=0),
+            outputs=_WarmupSink())
+        self._requeue(req)
+        return True
+
+    # ------------------------------------------------------------------
+    # Windowed residency (ARKS_RESIDENCY_WINDOW_PAGES)
+    # ------------------------------------------------------------------
+
+    def _residency_active(self) -> bool:
+        """A slot decodes (or is about to) through windowed residency.  The
+        margin drains the pipelined path a few tokens BEFORE a slot's page
+        need crosses the window, so pipelined page growth never allocates
+        past the resident budget while dispatches are in flight."""
+        r = self._residency
+        if r is None:
+            return False
+        if r.slots:
+            return True
+        margin = 1 + max(self._pipe_depth, 1)
+        return any(pages_needed(int(self._lengths[s]), margin, self._page,
+                                self._max_pages) > r.window
+                   for s in self._slots)
+
+    @_scoped("residency")
+    def _residency_step(self) -> bool:
+        """Advance every engaged slot one token: the span-streaming forward
+        and the classic step's sampler tail (``_issue_residency``), then
+        the host read of its token (the sync point) and the shared
+        fan-out."""
+        r = self._residency
+        self._abort_and_retire(2)
+        r.engage_pending()
+        if not r.slots:
+            return False
+        self._faults.fire("residency")
+        for slot in list(r.slots):
+            if slot not in self._slots:
+                r.release(slot)
+                continue
+            t0 = time.monotonic()
+            ids_dev, lp = self._issue_residency(slot)
+            ids, lp_h = _to_host(ids_dev, lp)
+            rows = None
+            if lp_h is not None:
+                rows = tuple(x[slot: slot + 1] for x in lp_h)
+            self._fanout_decode_tokens(slot, [int(ids[slot])], rows,
+                                       max(time.monotonic() - t0, 1e-6))
+        return True
+
+    def _issue_residency(self, slot: int):
+        """One engaged slot's token on the device, no host sync: the span
+        chain's logits [num_slots, V] sampled as a decode lane of the
+        classic mixed step (the same sampler on the same rows).  Returns
+        (ids [B], None | logprob data)."""
+        self._ensure_guides_uploaded()
+        logits = self._residency.forward(slot)
+        return self._sample_mixed(logits, [slot], [])
+
+
+class _WarmupSink:
+    """The outputs of the re-arm's warm-up request: discarded."""
+
+    def put(self, item) -> None:
+        pass

@@ -19,10 +19,11 @@ port of ``arks_tpu/engine/faults.py``).
   allocation), ``guide`` (guide-table upload), ``spill`` (a host-tier
   spill issue), ``restore`` (a host-tier restore issue or unpark),
   ``preempt`` (a preemption's spill, harvest or resume) and ``spec`` (a
-  speculative dispatch issue, pipelined or not).  The parser does not
-  check phase names: the reference's other phases (``disk_spill``,
-  ``peer_fetch``, ``residency``, ``resize``, ``model_switch``) parse and
-  never fire here.  Kinds:
+  speculative dispatch issue, pipelined or not), ``model_switch`` (a
+  pool model's activation) and ``residency`` (a windowed-residency
+  step).  The parser does not check phase names: the reference's other
+  phases (``disk_spill``, ``peer_fetch``, ``resize``) parse and never
+  fire here.  Kinds:
   ``runtime``, ``value``, ``oom`` (a RESOURCE_EXHAUSTED-shaped error),
   ``hang`` (sleeps ``ARKS_FAULT_HANG_S``, default 3600 — the
   watchdog-escalation fixture).

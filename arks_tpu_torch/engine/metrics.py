@@ -4,10 +4,9 @@ buckets, in its registration order, so ``GET /metrics`` reads the same on
 both servers.
 
 Only the families whose mechanism the port has are registered.  Left out,
-with their subsystems: windowed residency (``residency_*``), the multi-model pool (``model_pool_*``,
-``model_switch_seconds``, ``model_cold_starts_total``), elastic resize (``engine_resizes_total``,
-``resize_seconds``, ``scale_from_zero_seconds``), and the disk tier and
-peer fetch (``prefix_disk_*``, ``prefix_peer_fetch_*``).
+with their subsystems: live resize (``resize_seconds``; the
+``engine_resizes_total`` family counts scale-to-zero and re-arm only), and
+the disk tier and peer fetch (``prefix_disk_*``, ``prefix_peer_fetch_*``).
 
 Every update reads host-side values (the engine's host mirrors and batch
 arrays), never a device tensor.
@@ -151,6 +150,15 @@ class EngineMetrics:
             "mixed_kv_bytes_ideal_total",
             "KV bytes a perfect once-per-page schedule would stream for "
             "the same mixed dispatches")
+        # Windowed-residency decode (ARKS_RESIDENCY_WINDOW_PAGES): spans
+        # attended and cold pages prefetched for contexts larger than the
+        # device page pool.
+        self.residency_spans_total = r.counter(
+            "residency_spans_total",
+            "Windowed-residency attention spans attended")
+        self.residency_prefetch_pages_total = r.counter(
+            "residency_prefetch_pages_total",
+            "Cold KV pages restored into staging by residency prefetch")
         self.sampler_fused_dispatch_total = r.counter(
             "sampler_fused_dispatch_total",
             "Steady-state decode dispatches issued through the fused "
@@ -205,10 +213,34 @@ class EngineMetrics:
         self.engine_config_info = r.gauge(
             "engine_config_info",
             "Resolved engine configuration (labels; value is always 1)")
+        # ---- Multi-model pool (engine/model_pool.py)
+        self.model_pool_resident_bytes = r.gauge(
+            "model_pool_resident_bytes",
+            "Device weight bytes per pool model (0 while evicted)")
+        self.model_switch_seconds = r.histogram(
+            "model_switch_seconds",
+            "Model switch latency: first request parked for the model to "
+            "the model serving (includes the overlapped weight load)",
+            buckets=[0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+                     60.0, 120.0])
+        self.model_cold_starts_total = r.counter(
+            "model_cold_starts_total",
+            "Pool model loads from cold (weights not resident)")
         self.requests_parked = r.gauge(
             "requests_parked",
             "Requests parked by reason: guide compile, host-tier KV "
             "restore, a pending model switch, or a preemptive KV swap")
+        # ---- Scale-to-zero of an idle engine and its re-arm
+        self.engine_resizes_total = r.counter(
+            "engine_resizes_total",
+            "Live topology resizes by mode (resize|scale_to_zero|rearm) "
+            "and outcome (ok|error|rejected)")
+        self.scale_from_zero_seconds = r.histogram(
+            "scale_from_zero_seconds",
+            "Scale-from-zero re-arm latency: demand arrival to serving "
+            "(weight stream + cache/program rebuild + warm-up issue)",
+            buckets=[0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+                     60.0, 120.0])
         # ---- SLO tiers + preemptive KV swap (arks_tpu_torch.slo,
         # ARKS_PREEMPT)
         # Per-tier latency families carry the tier NAME as a label so one

@@ -2,7 +2,7 @@
 ``arks_tpu/engine/types.py``).  ``SamplingParams`` keeps every field of the
 reference, and the port's engine serves each of them, so one request means
 the same thing to both engines.  ``Request`` drops the fields of features
-that are later slices (disaggregated prefill, model pool, peer fetch)."""
+that are later slices (disaggregated prefill, peer fetch)."""
 
 from __future__ import annotations
 
@@ -59,6 +59,10 @@ class Request:
     # id and any upstream (gateway/router) spans.  None = untraced or an
     # engine-local request; the engine mints a local trace id on demand.
     trace: object | None = None
+    # Multi-model serving: the pool model this request targets (None = the
+    # engine's primary).  A request for another registered model parks
+    # until the engine switches to it.
+    model: str | None = None
 
 
 @dataclasses.dataclass

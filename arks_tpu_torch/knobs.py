@@ -23,8 +23,16 @@ DEFAULTS: dict[str, str | None] = {
     "ARKS_PREFIX_DISK_MB": "0",
     "ARKS_PEER_FETCH": "0",
     "ARKS_PEER_ADDRS": None,
-    # Windowed residency is refused (not ported).
+    # Windowed-residency decode: a slot's resident page budget (0 = off).
     "ARKS_RESIDENCY_WINDOW_PAGES": "0",
+    # The multi-model weight pool and its switch policy
+    # (engine/model_pool.py).
+    "ARKS_MODEL_POOL_HBM_MB": "0",
+    "ARKS_MODEL_SWITCH_POLICY": "drain",
+    "ARKS_MODEL_SWITCH_QUANTUM_S": "5",
+    # Scale-to-zero of an idle engine and its re-arm.
+    "ARKS_ELASTIC_IDLE_ZERO_S": "0",
+    "ARKS_ELASTIC_WARMUP": "1",
     # Preemptive KV swap for SLO tiers.
     "ARKS_PREEMPT": "0",
     "ARKS_PREEMPT_MAX_INFLIGHT": "1",
@@ -68,6 +76,8 @@ DEFAULTS: dict[str, str | None] = {
     "ARKS_PROF_AUTO_ARM": "0",
     "ARKS_PROF_WINDOW_S": "5",
     "ARKS_PROF_DIR": "/tmp/arks-prof",
+    # The server's SIGTERM grace (server/__main__.py --drain-timeout).
+    "ARKS_DRAIN_TIMEOUT": "20",
 }
 
 

@@ -692,25 +692,68 @@ def _lanes_to_flat(x, span, valid, t):
 
 
 def _fold(state, piece):
-    """The left fold of two online-softmax states (m, l, acc)."""
+    """The left fold of two online-softmax states (m, l, acc).  The
+    rescale factors' exp runs in f64 and rounds to f32: a CPU f32 exp's
+    bits depend on where the element falls in its vectorized loop, and a
+    lane's fold must not depend on the other lanes of its batch."""
     m, l, acc = state
     mp, lp, accp = piece
     mx = torch.maximum(m, mp)
-    a, b = torch.exp(m - mx), torch.exp(mp - mx)
+    a = torch.exp((m - mx).double()).float()
+    b = torch.exp((mp - mx).double()).float()
     return mx, l * a + lp * b, acc * a[..., None] + accp * b[..., None]
 
 
-def _mixed_piece(scores, seen, vc, vsc, p_dtype):
-    """(m, l, acc) of the visible positions alone, from (-1e30, 0, 0):
+def _mixed_pieces_plain(scores, seen, vc, vsc, p_dtype, plen: int, lo: int,
+                        hi: int):
+    """The split form's pieces over positions [lo, hi) (piece-aligned):
+    each (m, l, acc) of its visible positions alone, from (-1e30, 0, 0):
     p = exp(s - m) there and 0 elsewhere, times the v scale, rounded to
-    p_dtype before p.V."""
-    m = torch.where(seen, scores, _NEG_INF).amax(dim=-1)
-    p = torch.where(seen, torch.exp(scores - m[..., None]), 0.0)
+    p_dtype before p.V.  The exp runs once over the whole [.., C] layout
+    (as the one-pass form's), so a row's bits do not depend on the batch's
+    other rows."""
+    shape = scores.shape[:-1]
+    n = scores.shape[-1] // plen
+    sc = scores.reshape(*shape, n, plen)
+    se = seen.reshape(*seen.shape[:-1], n, plen)
+    m = torch.where(se, sc, _NEG_INF).amax(dim=-1)             # [.., n]
+    p = torch.where(se, torch.exp(sc - m[..., None]), 0.0)
     l = p.sum(dim=-1)
     if vsc is not None:
-        p = p * vsc
-    acc = torch.einsum("skgqc,skcd->skgqd", p.to(p_dtype).float(), vc.float())
-    return m, l, acc
+        p = p * vsc.reshape(*vsc.shape[:-1], n, plen)
+    vf = vc.float()
+    for i in range(lo // plen, -(-hi // plen)):
+        sl = slice(i * plen, (i + 1) * plen)
+        yield m[..., i], l[..., i], _pv(p[..., i, :].to(p_dtype).float(),
+                                        vf[:, :, sl])
+
+
+def _pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """p [S, Hkv, G, Q, C] . v [S, Hkv, C, D] -> [S, Hkv, G, Q, D].  On the
+    CPU as products summed over a contiguous C, whose bits do not depend
+    on Q (a CPU matmul's do, through its row count); on a card one batched
+    product."""
+    if p.is_cuda:
+        return torch.einsum("skgqc,skcd->skgqd", p, v)
+    return (p.unsqueeze(-2) * v.transpose(-1, -2)[:, :, None, None]).sum(-1)
+
+
+def _visible_range(q_len, pos_start, page_lo, page_hi, page: int,
+                   cover: int, plen: int) -> tuple[int, int]:
+    """The positions [lo, hi) any lane sees, ``lo`` on a piece boundary:
+    the split form folds only the pieces there (a piece no lane sees folds
+    as the identity, bit for bit).  Read on the host for CPU tensors; a
+    device tensor takes the whole coverage (no sync)."""
+    if q_len.device.type != "cpu":
+        return 0, cover
+    act = q_len > 0
+    if not bool(act.any()):
+        return 0, 0
+    end = (pos_start.long() + q_len.long())[act]
+    if page_hi is not None:
+        end = torch.minimum(end, page_hi.long()[act] * page)
+    lo = 0 if page_lo is None else int(page_lo.long()[act].min()) * page
+    return lo // plen * plen, min(int(end.max()), cover)
 
 
 def paged_mixed_attention_plain(q, k_pool, v_pool, tables, seq_q_start,
@@ -735,7 +778,10 @@ def paged_mixed_attention_plain(q, k_pool, v_pool, tables, seq_q_start,
     rescaled to it — or, with ``split``, the kernel's split-KV form: one
     state per piece of at most MIXED_PIECE positions, folded left in page
     order (the same function up to the rounding of p against each piece's
-    m instead of the span's)."""
+    m instead of the span's).  The split form is what
+    ``paged_mixed_attention`` runs on CPU tensors: like the kernel's, its
+    span chain gives the single call's bytes, since its pieces are pages
+    and its fold a left fold."""
     t, h, d = q.shape
     hkv = k_pool.shape[2]
     qmax = qmax or _default_qmax(t, q_len.shape[0])
@@ -758,12 +804,16 @@ def paged_mixed_attention_plain(q, k_pool, v_pool, tables, seq_q_start,
         state = tuple(_flat_to_lanes(x.float(), span, hkv)
                       for x in carry_state)
     if split:
-        plen = min(pool_page_tokens(k_pool, k_scale), MIXED_PIECE)
-        pos = torch.arange(scores.shape[-1], device=q.device)
-        for p0 in range(0, scores.shape[-1], plen):
-            piece = seen & (pos >= p0) & (pos < p0 + plen)
-            state = _fold(state, _mixed_piece(scores, piece, vc, vsc,
-                                              q.dtype))
+        page = pool_page_tokens(k_pool, k_scale)
+        plen = min(page, MIXED_PIECE)
+        if page % plen:
+            plen = page
+        for piece in _mixed_pieces_plain(scores, seen, vc, vsc, q.dtype,
+                                         plen, *_visible_range(
+                                             q_len, pos_start, page_lo,
+                                             page_hi, page,
+                                             scores.shape[-1], plen)):
+            state = _fold(state, piece)
     else:
         m_c, l_c, acc_c = state
         m = torch.maximum(m_c, torch.where(seen, scores, _NEG_INF)
@@ -874,7 +924,8 @@ def paged_mixed_attention(
     launch: CUDA tensors launch ``csrc/paged_mixed_attention.cu`` over the
     work list (replaces the Pallas ``_paged_mixed_ragged_kernel``) or over
     the dense grid (``paged_mixed_attention_dense``); CPU tensors take
-    ``paged_mixed_attention_plain``, the same function on either grid.
+    ``paged_mixed_attention_plain`` in its split form (the kernel's pieces
+    and left fold), the same function on either grid.
 
     The reference's span and state arguments: ``page_lo``/``page_hi`` bound
     lane s's pages to [page_lo[s], page_hi[s]) (pass them here, or to the
@@ -895,7 +946,8 @@ def paged_mixed_attention(
         return paged_mixed_attention_plain(
             q, k_pool, v_pool, tables, seq_q_start, q_len, pos_start, layer,
             k_scale=k_scale, v_scale=v_scale, qmax=qmax, page_lo=page_lo,
-            page_hi=page_hi, carry_state=carry_state, emit_state=emit_state)
+            page_hi=page_hi, carry_state=carry_state, emit_state=emit_state,
+            split=True)
     grid = grid or (work.grid if work is not None else mixed_grid_mode())
     if grid == "dense" and (spans or stateful):
         raise ValueError("page spans and carried/emitted state need the "

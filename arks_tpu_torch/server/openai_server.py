@@ -15,14 +15,21 @@ surface of ``arks_tpu/server/openai_server.py``).
   the output come back as ``tool_calls``); ``n`` from 1 to 16 (seeded
   children take ``seed + j``); batched prompts; completions ``echo``.
   ``best_of`` is ignored.
-- GET /v1/models, /health; GET /metrics (the engine's metric families,
-  Prometheus text ``version=0.0.4``); GET /readiness: 200 ``{"status":
-  "ready", "admission": ..., "slo_burn": ...}`` once the server listens
-  and the engine's loop has finished a step, 503 while draining, before
-  that, while the engine recovers from a fault ("recovering") or is wedged
-  ("wedged"), or once the loop has stopped.  The reference's worker-gang,
-  scaled-to-zero and cache-sketch branches belong to subsystems the port
-  does not have.
+- GET /v1/models (with a model pool, every registered model, each with
+  its ``arks`` residency block), /health; GET /metrics (the engine's
+  metric families, Prometheus text ``version=0.0.4``); GET /readiness:
+  200 ``{"status": "ready", "admission": ..., "slo_burn": ...,
+  "elastic": ...}`` once the server listens and the engine's loop has
+  finished a step, 503 while draining, before that, while the engine
+  recovers from a fault ("recovering") or is wedged ("wedged"), while it
+  is scaled to zero ("scaled to zero (disarmed)"), or once the loop has
+  stopped.  GET /v1/elastic/status (reachable while disarmed); POST
+  /v1/elastic/resize answers 501 (no live resize on one card).  The
+  reference's worker-gang and cache-sketch branches belong to subsystems
+  the port does not have.
+- Multi-model: a request's ``model`` field routes it to a pool model
+  (404 for an unknown one); ``model_pool_exhausted`` answers 503 with
+  ``Retry-After``, ``model_load_failed`` 500.
 - Tracing: a single-choice request carries a W3C ``traceparent`` context
   (continued from the header, folding in ``x-arks-trace-spans``, or
   minted).  GET /v1/traces (the retained traces' index),
@@ -255,9 +262,10 @@ class OpenAIServer:
 
             def do_GET(self):
                 if self.path == "/v1/models":
-                    self._json(200, {"object": "list", "data": [{
-                        "id": server.served_model_name, "object": "model",
-                        "created": 0, "owned_by": "arks"}]})
+                    self._json(200, server.models_payload())
+                elif self.path == "/v1/elastic/status":
+                    # Reachable while disarmed, unlike /readiness.
+                    self._json(200, server.engine.elastic_status())
                 elif self.path in ("/health", "/healthz"):
                     self._json(200, {"status": "ok"})
                 elif self.path == "/metrics":
@@ -304,6 +312,11 @@ class OpenAIServer:
                     self._error(404, f"no route {self.path}")
 
             def do_POST(self):
+                if self.path == "/v1/elastic/resize":
+                    # The reference's answer for an engine without live
+                    # resize (one card: no topology to change).
+                    return self._error(
+                        501, "engine has no elastic resize support")
                 if self.path not in ("/v1/completions",
                                      "/v1/chat/completions",
                                      "/v1/profiler/start",
@@ -389,13 +402,39 @@ class OpenAIServer:
             # awaiting its exit ("wedged"): routes pull this backend;
             # in-flight streams keep draining.
             return 503, self.engine.state
+        if not self.engine.armed:
+            # Scaled to zero: no device state exists until demand re-arms.
+            return 503, "scaled to zero (disarmed)"
         if not self.engine.warm:
             return 503, "not ready"
         if not self.engine.serving:
             return 503, "engine loop stopped"
         return 200, {"status": "ready",
                      "admission": self.engine.saturation(),
-                     "slo_burn": self.engine.slo_burn()}
+                     "slo_burn": self.engine.slo_burn(),
+                     "elastic": self.engine.elastic_status()}
+
+    def models_payload(self) -> dict:
+        """``/v1/models``: the primary under the served name, and with a
+        model pool every other registered model; each pooled one carries
+        its ``arks`` residency block (extra metadata OpenAI clients
+        ignore)."""
+        data = [{"id": self.served_model_name, "object": "model",
+                 "created": 0, "owned_by": "arks"}]
+        pool = self.engine.pool
+        if pool is None:
+            return {"object": "list", "data": data}
+        primary = self.engine.served_models()[0]
+        for row in pool.snapshot():
+            arks = {"state": row["state"], "pinned": row["pinned"],
+                    "resident_bytes": row["resident_bytes"],
+                    "cold_starts": row["cold_starts"]}
+            if row["name"] == primary:
+                data[0]["arks"] = arks
+                continue
+            data.append({"id": row["name"], "object": "model", "created": 0,
+                         "owned_by": "arks", "arks": arks})
+        return {"object": "list", "data": data}
 
     def drain(self, timeout_s: float = 20.0) -> None:
         """Graceful shutdown: readiness turns 503 (routes pull this
@@ -445,8 +484,16 @@ class OpenAIServer:
 
     def handle_completion(self, h, body: dict, chat: bool) -> None:
         model = body.get("model") or self.served_model_name
+        # The served name is the primary's alias; another name routes to a
+        # pool model (engine_model None = the primary).
+        engine_model = None
         if model != self.served_model_name:
-            return h._error(404, f"model {model!r} not found")
+            served = self.engine.served_models() \
+                if self.engine.pool is not None else []
+            if model not in served:
+                return h._error(404, f"model {model!r} not found")
+            if model != served[0]:
+                engine_model = model
         try:
             tools, tool_choice = (tools_mod.validate_tools(body) if chat
                                   else (None, "none"))
@@ -518,7 +565,8 @@ class OpenAIServer:
                     p = dataclasses.replace(params, seed=params.seed + j)
                 req = Request(request_id=f"req-{uuid.uuid4().hex[:16]}",
                               prompt_ids=list(prompt_ids), params=p,
-                              tenant=tenant, trace=ctx if single else None)
+                              tenant=tenant, trace=ctx if single else None,
+                              model=engine_model)
                 try:
                     with logctx.bound(req.request_id,
                                       ctx.trace_id if ctx is not None
@@ -588,6 +636,19 @@ class OpenAIServer:
                 "type": "server_error", "code": "shed_deadline"}},
                 headers={"Retry-After": str(self.engine.queue_retry_after()),
                          tenancy.HDR_SATURATION: f"{sat['saturation']:.2f}"})
+        if fin.error and fin.error.startswith("model_pool_exhausted"):
+            # Capacity, not the client's fault: the pool cannot fit the
+            # model right now.
+            return h._json(503, {"error": {
+                "message": f"model is not loadable right now ({fin.error})",
+                "type": "server_error", "code": "model_pool_exhausted"}},
+                headers={"Retry-After": "5"})
+        if fin.error and fin.error.startswith("model_load_failed"):
+            return h._json(500, {"error": {
+                "message": f"model failed to load ({fin.error})",
+                "type": "server_error", "code": "model_load_failed"}})
+        if fin.error and fin.error.startswith("model_not_found"):
+            return h._error(404, fin.error)
         return h._error(400, fin.error or "request rejected")
 
     def _respond(self, h, req: Request, chat: bool, model: str, body: dict,

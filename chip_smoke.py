@@ -276,12 +276,48 @@ Phases (any failure raises and exits non-zero):
               64, G 7 on the slot kernels; G 6 on the mixed attention).
               Logs acceptance, accepted length, a spec step beside a pipe
               step, tok/s on and off, draft cache bytes, peak memory.
+ 12. the weight pool (phase_pool) on Qwen2.5-7B bf16 (the pinned primary,
+              8 slots x 4096, depth 2) with Qwen2.5-1.5B and Qwen2.5-0.5B
+              registered, ARKS_MODEL_POOL_HBM_MB from the trees' bytes so
+              that 7B + 1.5B fit and the three do not: rounds of 4 greedy
+              and 4 seeded streams to 7B, 1.5B, 0.5B, 1.5B, 7B, each
+              arriving while the one before decodes; the 1.5B evicted and
+              back as a cold start; every stream equal, bit for bit and cut
+              alike, to its single-model engine's; every issue
+              sync-checked; switch seconds, the dispatches during each
+              load, resident bytes beside memory_allocated, peak memory.
+              The server's entry: --extra-model, --model-pool-hbm-mb and a
+              pinned --draft-model in the pool, /v1/models with the arks
+              blocks, a request to the extra model, 404 for an unknown one.
+ 13. scale-to-zero (phase_zero) on the same engine shape with
+              ARKS_ELASTIC_IDLE_ZERO_S=1 behind the server: after a greedy
+              and a seeded request the engine disarms, memory_allocated
+              and memory_reserved fall by at least its weights plus its
+              K+V pool, readiness 503 "scaled to zero (disarmed)",
+              /v1/elastic/status armed false; the same requests re-arm it
+              and give the same streams; the steady step's launches after
+              the re-arm within half a launch of phase_operability's.
+ 14. windowed residency (phase_residency) on Qwen2.5-7B bf16, one slot,
+              ARKS_RESIDENCY_WINDOW_PAGES=6 (1,536 tokens), a 1,200-token
+              prompt and 512 tokens: greedy with logprobs at depth 2 (bf16
+              pool), seeded at depth 0 (bf16), greedy with logprobs at
+              depth 2 (int8), each equal bit for bit (logprobs included)
+              to a control with the window off; spans and prefetched
+              pages, host and device ms and launches of a windowed token
+              beside a control token, its host-to-device copy time and
+              overlap, the host store's bytes, peak memory.
+phase_pipeline, phase_recovery's engines, the preemption rounds (not
+their steady window) and phase_spec run Qwen2.5-7B at full width cut to
+its first CUT_LAYERS (14) of 28 layers, phase_residency to RES_LAYERS (7):
+their checks hold engines of one shape against each other, and the cut
+keeps the script well inside its time limit.
 The line before the last is the kernels JSON (nine counterparts); the last
 line is the device JSON.  A kernel's "launches" counts its launches in the
 runs of the served path: phase 4's, the request surface's, the pipeline's,
 prefix reuse's, operability's, the recovery phase's (its replays
 included), the preemption phase's, the speculative phase's (the draft's
-slot-cache kernels) and the checkpoint-loaded engines'
+slot-cache kernels), the pool's, scale-to-zero's, residency's (its span
+chains) and the checkpoint-loaded engines'
 included
 (the dense launch: its greedy run) and phase 7's (grouped_matmul, every
 quantized product).
@@ -289,6 +325,7 @@ quantized product).
 
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
 import dataclasses
@@ -317,6 +354,10 @@ DECODE_SRC = "arks_tpu_torch/csrc/decode_attention.cu"
 SLOT_UPDATE_SRC = "arks_tpu_torch/csrc/kv_cache_update.cu"
 GROUPED_SRC = "arks_tpu_torch/csrc/grouped_matmul.cu"
 SLOT_LEN = 4096                  # slot cache length (= MAX_PAGES * PAGE)
+# Qwen2.5-7B cut in depth (its first layers, full width) for the phases
+# whose checks compare engines of one shape with each other, so that the
+# whole script stays well inside its time limit.
+CUT_LAYERS = 14
 F32_LAYERS = 2                   # depth of phase 4's f32 engine (full width)
 KV_BITS = {"int8": 8, "int4": 4}
 # Attention, phase 3: the bf16 kernel vs the bf16 plain version (one bf16
@@ -1962,10 +2003,11 @@ PIPE_CONFIGS = (("depth 0, fusion off", "0", "0"),
                 ("depth 1", "1", "1"), ("depth 2", "2", "1"))
 
 
-def _pipe_engine(torch, dev, params, sched, depth, fuse):
-    """A Qwen2.5-7B engine on ``params`` (bf16, 8 slots x 4096, chunk 256):
-    the mixed scheduler on a bf16 pool or the legacy one on the bf16 slot
-    cache, at pipeline depth ``depth`` with fusion ``fuse``."""
+def _pipe_engine(torch, dev, params, sched, depth, fuse, cfg=None):
+    """A Qwen2.5-7B engine on ``params`` (``cfg``, by default the full
+    model; bf16, 8 slots x 4096, chunk 256): the mixed scheduler on a bf16
+    pool or the legacy one on the bf16 slot cache, at pipeline depth
+    ``depth`` with fusion ``fuse``."""
     import os
 
     from arks_tpu_torch.engine import EngineConfig, InferenceEngine
@@ -1975,7 +2017,7 @@ def _pipe_engine(torch, dev, params, sched, depth, fuse):
                                           "ARKS_SAMPLER_FUSE")}
     os.environ.update(ARKS_PIPELINE_DEPTH=depth, ARKS_SAMPLER_FUSE=fuse)
     try:
-        engine = InferenceEngine(get_config(MODEL), EngineConfig(
+        engine = InferenceEngine(cfg or get_config(MODEL), EngineConfig(
             model=MODEL, num_slots=8, max_cache_len=MAX_PAGES * PAGE,
             prefill_chunk=PAGE, dtype="bfloat16", kv_cache_dtype="bf16",
             kv_layout="paged" if sched == "mixed" else "slot", seed=SEED),
@@ -1985,6 +2027,22 @@ def _pipe_engine(torch, dev, params, sched, depth, fuse):
     if engine._mixed != (sched == "mixed"):
         raise AssertionError(f"[pipeline {sched}] wrong scheduler")
     return engine
+
+
+def _cut_model(params, layers=None):
+    """(config, params) of MODEL cut to its first ``layers`` (default
+    CUT_LAYERS) layers: the published widths, the stacked layer leaves
+    sliced (views, no copy)."""
+    from arks_tpu_torch.models import get_config
+    layers = layers or CUT_LAYERS
+
+    def cut(x):
+        return {k: v[:layers] for k, v in x.items()} \
+            if isinstance(x, dict) else x[:layers]
+
+    cfg = dataclasses.replace(get_config(MODEL), num_layers=layers)
+    return cfg, dict(params, layers={k: cut(v) for k, v in
+                                     params["layers"].items()})
 
 
 def _restore_env(os, old: dict) -> None:
@@ -2106,8 +2164,9 @@ def _pipe_batch(torch, engine, prompts, max_tokens, window=False,
 
 
 def phase_pipeline(torch, dev, params):
-    """The reference's default engine shape on Qwen2.5-7B at full width
-    (``params``: phase 4's bf16 weights), on the mixed scheduler (bf16
+    """The reference's default engine shape on Qwen2.5-7B at full width,
+    cut to CUT_LAYERS layers (``params``: phase 4's bf16 weights, their
+    first layers), on the mixed scheduler (bf16
     pool) and the legacy one (bf16 slot cache), at each of PIPE_CONFIGS:
     a warm-up request, then one greedy stream of PIPE_TOKENS_B1 tokens
     and 8 greedy streams of PIPE_TOKENS admitted together (prompts of 22
@@ -2125,6 +2184,7 @@ def phase_pipeline(torch, dev, params):
     PIPE_WINDOW steady decode steps, and the phase's seconds.  Returns
     {"launches": summed counts, "rows": {(sched, tag): numbers}}."""
     t_phase = time.perf_counter()
+    cut_cfg, params = _cut_model(params)
     prompts = [f"lane {i} of the pipeline" for i in range(8)]
     total = collections.Counter()
     rows = {}
@@ -2134,7 +2194,8 @@ def phase_pipeline(torch, dev, params):
             if sched == "legacy" and tag == "depth 0, fusion on":
                 continue
             name = f"[pipeline {sched} {tag}]"
-            engine = _pipe_engine(torch, dev, params, sched, depth, fuse)
+            engine = _pipe_engine(torch, dev, params, sched, depth, fuse,
+                                  cut_cfg)
             cfg = engine.cfg
             _pipe_batch(torch, engine, ["warm up"], 8)
             one, secs1, _ = _pipe_batch(torch, engine, prompts[:1],
@@ -4513,8 +4574,10 @@ def phase_operability(torch, dev, params, step_launches):
                     raise AssertionError("[operability] never ready")
                 time.sleep(0.05)
             st, ready, _ = _get(port, "/readiness")
-            if set(ready) != {"status", "admission", "slo_burn"} or \
-                    ready["admission"]["queue_max"] != OPS_QUEUE_MAX:
+            if set(ready) != {"status", "admission", "slo_burn",
+                              "elastic"} or \
+                    ready["admission"]["queue_max"] != OPS_QUEUE_MAX or \
+                    ready["elastic"]["armed"] is not True:
                 raise AssertionError(f"[operability] readiness {ready}")
             _reset_counts()
             text0 = _get(port, "/metrics")[1]
@@ -4782,8 +4845,8 @@ def _rec_run(torch, engine, tag, inject=""):
     return ([got[r.request_id] for r in reqs], delta, mem0, peak)
 
 
-def _rec_engine(torch, dev, params, sched, depth):
-    eng = _pipe_engine(torch, dev, params, sched, depth, "1")
+def _rec_engine(torch, dev, params, sched, depth, cfg=None):
+    eng = _pipe_engine(torch, dev, params, sched, depth, "1", cfg)
     if eng.state != "serving" or not eng.trace.enabled \
             or eng._fault_retries != 1:
         raise AssertionError("[recovery] not the reference's defaults")
@@ -5293,7 +5356,8 @@ def _freed_by_del(ref, tag, wait_s=5.0) -> bool:
 
 def phase_recovery(torch, dev, params):
     """Fault isolation, token replay and the watchdog on Qwen2.5-7B bf16
-    at full width (``params``), 8 streams of 64 tokens (greedy and seeded
+    at full width, cut to CUT_LAYERS layers (``params``' first layers), 8
+    streams of 64 tokens (greedy and seeded
     sampling), every dispatch issue (and the mixed engines' admissions)
     under set_sync_debug_mode("error"):
     - the mixed bf16 paged engine at depths 0 and 2 and the legacy bf16
@@ -5320,9 +5384,10 @@ def phase_recovery(torch, dev, params):
     import tempfile
     t_phase = time.perf_counter()
     res = dict(diverged=0, recovery_s=[], peak=[], syncs=0, freed_by_del=[])
+    cut_cfg, params = _cut_model(params)
     for sched, depth in (("mixed", "0"), ("mixed", "2"), ("legacy", "0")):
         tag = f"{sched} depth {depth}"
-        engine = _rec_engine(torch, dev, params, sched, depth)
+        engine = _rec_engine(torch, dev, params, sched, depth, cut_cfg)
         names = REC_ISSUES + (("_admit",) if sched == "mixed" else ())
         with _SyncGuard(torch, engine, names) as guard:
             _rec_engine_checks(torch, engine, tag, res)
@@ -5381,7 +5446,7 @@ PRE_ISSUES = ("_pipe_issue", "_issue_mixed", "_issue_decode",
 
 
 def _pre_engine(torch, dev, params, preempt, depth="2", kv="bf16",
-                layout="paged"):
+                layout="paged", cfg=None):
     """A Qwen2.5-7B engine on ``params`` (8 slots x 4096, chunk 256) with
     the SLO ladder, ``ARKS_PREFIX_HOST_MB=1024`` and two preemptions in
     flight at most: the mixed scheduler on a ``kv`` pool, or the legacy
@@ -5397,7 +5462,7 @@ def _pre_engine(torch, dev, params, preempt, depth="2", kv="bf16",
     old = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        return InferenceEngine(get_config(MODEL), EngineConfig(
+        return InferenceEngine(cfg or get_config(MODEL), EngineConfig(
             model=MODEL, num_slots=8, max_cache_len=MAX_PAGES * PAGE,
             prefill_chunk=PAGE, dtype="bfloat16", kv_cache_dtype=kv,
             kv_layout=layout, seed=SEED), ByteTokenizer(), params=params,
@@ -5589,8 +5654,9 @@ def _median_ttft(got):
 
 
 def phase_preempt(torch, dev, params, ops):
-    """Preemptive KV swap for SLO tiers on Qwen2.5-7B bf16 at full width
-    (``params``): 8 batch-tier streams of 512-token prompts and 96 tokens
+    """Preemptive KV swap for SLO tiers on Qwen2.5-7B bf16 at full width,
+    its rounds cut to CUT_LAYERS layers (``params``' first layers; the
+    steady window at full depth): 8 batch-tier streams of 512-token prompts and 96 tokens
     (greedy, seeded sampling, one with presence and frequency penalties,
     one guided), then 2 latency-tier requests (64-token prompts, 32
     tokens) once every stream has decoded 16 dispatches; 8 slots, so
@@ -5611,10 +5677,14 @@ def phase_preempt(torch, dev, params, ops):
     t_phase = time.perf_counter()
     res = dict(syncs=0, rounds={})
     bases = {}
+    # The rounds on the model cut in depth; the steady window (held to
+    # phase_operability's) at full depth.
+    cut_cfg, cut_params = _cut_model(params)
 
     def run(tag, preempt, depth="2", kv="bf16", layout="paged", inject="",
             hook=None, base=None, allow=()):
-        engine = _pre_engine(torch, dev, params, preempt, depth, kv, layout)
+        engine = _pre_engine(torch, dev, cut_params, preempt, depth, kv,
+                             layout, cut_cfg)
         want = ("swap" if layout == "paged" else "replay") if preempt \
             else "off"
         if engine.resolved_config["preempt"] != want:
@@ -6154,8 +6224,8 @@ def _spec_config_b(torch, dev):
 
 
 def phase_spec(torch, dev, params):
-    """Speculative decoding on Qwen2.5-7B bf16 at full width and depth
-    (``params``) with a self-draft on the same params (draft_len 4): 8
+    """Speculative decoding on Qwen2.5-7B bf16 at full width, cut to
+    CUT_LAYERS layers (``params``' first layers), with a self-draft on the same params (draft_len 4): 8
     batch-tier streams of 128-token prompts and 64 tokens (greedy and
     seeded by turns) and 2 greedy latency-tier arrivals after 6
     dispatches, every issue under set_sync_debug_mode("error").
@@ -6179,7 +6249,7 @@ def phase_spec(torch, dev, params):
     from arks_tpu_torch.models import get_config
     from arks_tpu_torch.models import transformer as tf
     t_phase = time.perf_counter()
-    cfg = get_config(MODEL)
+    cfg, params = _cut_model(params)
     res = dict(rounds={}, syncs=0, launches=collections.Counter())
     rows = res["rounds"]
     res["kernel_errs"] = _spec_kernels(torch, dev)
@@ -6278,6 +6348,624 @@ def phase_spec(torch, dev, params):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Multi-model pool, scale-to-zero, windowed residency
+# ---------------------------------------------------------------------------
+
+POOL_MODELS = (MODEL, "qwen2.5-1.5b", "qwen2.5-0.5b")   # primary, the pool's
+POOL_ORDER = (0, 1, 2, 1, 0)     # the rounds' models, by index
+POOL_PROMPT, POOL_TOKENS = 200, 32   # 4 greedy + 4 seeded streams a round
+POOL_AFTER = 4                   # dispatches of a round before the next's
+POOL_ISSUES = ("_pipe_issue", "_issue_mixed")
+ZERO_IDLE_S = "1"                # ARKS_ELASTIC_IDLE_ZERO_S of phase_zero
+ZERO_TOKENS = 32
+RES_WINDOW, RES_PROMPT, RES_TOKENS = 6, 1200, 512
+RES_LAYERS = 7                   # Qwen2.5-7B's first layers (full width)
+RES_PROF_STEPS = 16              # tokens a timed / traced window
+RES_ISSUES = ("_pipe_issue", "_issue_mixed", "_issue_residency")
+RES_ROUNDS = (("greedy d2 bf16", "2", "bf16", False),    # tag, depth, pool,
+              ("seeded d0 bf16", "0", "bf16", True),     # seeded
+              ("greedy d2 int8", "2", "int8", False))
+MIB = 1 << 20
+
+
+def _pool_ecfg(model, **kw):
+    from arks_tpu_torch.engine import EngineConfig
+    return EngineConfig(**dict(dict(
+        model=model, num_slots=8, max_cache_len=MAX_PAGES * PAGE,
+        prefill_chunk=PAGE, dtype="bfloat16", kv_cache_dtype="bf16",
+        seed=SEED), **kw))
+
+
+def _pool_requests(rnd, model):
+    """Round ``rnd``'s 8 streams for ``model`` (None: the primary): its own
+    prompts (no prefix is shared across rounds), greedy and seeded by
+    turns."""
+    from arks_tpu_torch.engine import Request, SamplingParams
+    rng = np.random.default_rng(SEED + 40 + rnd)
+    reqs = []
+    for i in range(8):
+        kw = dict(max_tokens=POOL_TOKENS, ignore_eos=True,
+                  temperature=0.0 if i % 2 == 0 else 0.8, top_k=50,
+                  seed=700 + 10 * rnd + i)
+        reqs.append(Request(f"r{rnd}-{i}", [int(x) for x in rng.integers(
+            32, 120, POOL_PROMPT)], SamplingParams(**kw), model=model))
+    return reqs
+
+
+def _drive_rounds(torch, engine, rounds, after=None, on_step=None):
+    """Drive ``rounds`` (lists of requests) from this thread through the
+    engine's step/recover contract: round k+1 is added once round k's
+    streams all decode and ``after`` more dispatches ran (None: once round
+    k has ended).  ``on_step(engine)`` runs after every step.  Returns
+    ({rid: [tokens, finish, error, first-prefill shape]}, host syncs
+    caught on the issue paths)."""
+    import queue
+    out, shapes = {}, {}
+    real_reg = engine._register_slot
+
+    def register(req, slot, first, num_prompt, first_lp=None, shape=None):
+        shapes.setdefault(req.request_id, shape)
+        return real_reg(req, slot, first, num_prompt, first_lp, shape)
+
+    engine._register_slot = register
+    added, live, mark = 0, [], None
+    try:
+        with _SyncGuard(torch, engine, POOL_ISSUES) as guard:
+            for _ in range(200_000):
+                cur = rounds[added - 1] if added else []
+                if added < len(rounds) and (
+                        not added or (after is not None and mark is not None
+                                      and engine.dispatches - mark >= after)
+                        or all(out[r.request_id][1] for r in cur)):
+                    for r in rounds[added]:
+                        out[r.request_id] = [[], None, None]
+                        engine.add_request(r)
+                    live += rounds[added]
+                    added, mark = added + 1, None
+                try:
+                    engine.step(block_s=0.001)
+                    engine._consec_faults = 0
+                except Exception as e:  # routed as the run loop routes it
+                    engine._recover_from_fault(e)
+                for r in live:
+                    rec = out[r.request_id]
+                    while True:
+                        try:
+                            o = r.outputs.get_nowait()
+                        except queue.Empty:
+                            break
+                        rec[0] += o.token_ids
+                        if o.finished:
+                            rec[1], rec[2] = o.finish_reason, o.error
+                cur = rounds[added - 1]
+                if mark is None and all(out[r.request_id][0] for r in cur):
+                    mark = engine.dispatches
+                if on_step is not None:
+                    on_step(engine)
+                if added == len(rounds) and all(v[1] for v in out.values()) \
+                        and engine.idle and not engine._model_loads:
+                    break
+            else:
+                raise AssertionError("[pool] the rounds never drained")
+    finally:
+        del engine._register_slot
+    return ({k: tuple(v) + (shapes.get(k),) for k, v in out.items()},
+            (guard.issues, guard.violations))
+
+
+def _pool_same(tag, got, base):
+    """Every stream of ``got`` was prefilled as in ``base`` (the same chunk
+    cuts) and equals it: token ids, finish reason, no error."""
+    cut = {k: (got[k][3], base[k][3]) for k in base if got[k][3] != base[k][3]}
+    if cut:
+        raise AssertionError(f"[pool {tag}] streams prefilled otherwise than "
+                             f"on their single-model engine: {cut}")
+    bad = {k: next((i for i, (a, b) in enumerate(zip(got[k][0], base[k][0]))
+                    if a != b), None)
+           for k in base if got[k][:3] != base[k][:3]}
+    if bad:
+        raise AssertionError(f"[pool {tag}] streams differ from their "
+                             f"single-model engine's (first differing token "
+                             f"{bad}): {[got[k][1:3] for k in bad]}")
+
+
+def _pool_server(torch, dev):
+    """The server's entry: ``build_engine`` of Qwen2.5-1.5B with a
+    Qwen2.5-0.5B draft, ``--extra-model`` Qwen2.5-7B and a
+    ``--model-pool-hbm-mb`` that holds all three, behind the OpenAI
+    server: ``/v1/models`` lists the three with their ``arks`` blocks, the
+    draft a pinned pool entry; a request naming Qwen2.5-7B is served by it
+    (its load, then a switch), one naming an unknown model gets 404."""
+    from arks_tpu_torch.engine.model_pool import tree_bytes
+    from arks_tpu_torch.server import OpenAIServer
+    from arks_tpu_torch.server import __main__ as server_main
+    primary, draft = POOL_MODELS[1], POOL_MODELS[2]
+    args = server_main.parse_args([
+        "--model", primary, "--draft-model", draft, "--draft-len", "4",
+        "--extra-model", POOL_MODELS[0], "--model-pool-hbm-mb", "65536",
+        "--dtype", "bfloat16", "--kv-cache-dtype", "bf16",
+        "--num-slots", "8", "--max-model-len", str(MAX_PAGES * PAGE),
+        "--seed", str(SEED), "--device", dev.type])
+    _, engine = server_main.build_engine(args)
+    server = OpenAIServer(engine, primary, host="127.0.0.1", port=0)
+    server.start(background=True)
+    engine.start()
+    try:
+        st, models, _ = _get(server.port, "/v1/models")
+        rows = {m["id"]: m.get("arks") for m in models["data"]}
+        entry = engine.pool.entry(draft)
+        if st != 200 or set(rows) != set(POOL_MODELS) or \
+                not all(rows.values()) or not rows[draft]["pinned"] or \
+                not entry.pinned or entry.params is not engine._draft_params:
+            raise AssertionError(f"[pool server] /v1/models {models}")
+        body = {"prompt": "pool server request", "max_tokens": 16,
+                "ignore_eos": True, "temperature": 0.0}
+        st, data, _, _ = _request(server.port, "/v1/completions",
+                                  dict(body, model=POOL_MODELS[0]))
+        if st != 200 or data["choices"][0]["finish_reason"] != "length" or \
+                data["model"] != POOL_MODELS[0]:
+            raise AssertionError(f"[pool server] extra model: {st} {data}")
+        st, data, _, _ = _request(server.port, "/v1/completions",
+                                  dict(body, model="no-such-model"))
+        if st != 404:
+            raise AssertionError(f"[pool server] unknown model: {st} {data}")
+        st, models, _ = _get(server.port, "/v1/models")
+        res = dict(models={m["id"]: m.get("arks") for m in models["data"]},
+                   switch=engine.last_switch_stats,
+                   draft_bytes=tree_bytes(engine.pool.params_of(draft)))
+    finally:
+        server.stop()
+        engine.stop()
+    ref = weakref.ref(engine)
+    del engine, server, entry
+    _freed_by_del(ref, "pool server")
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_pool(torch, dev, params):
+    """The weight pool on Qwen2.5-7B bf16 at full width (``params``, the
+    pinned primary), 8 slots x 4096, depth 2: Qwen2.5-1.5B and
+    Qwen2.5-0.5B registered with ``register_model`` (the seed's init, as a
+    single-model engine of each boots), ``ARKS_MODEL_POOL_HBM_MB`` set from
+    the three trees' ``tree_bytes`` so that 7B + 1.5B fit and the three do
+    not.  Rounds of 4 greedy and 4 seeded streams go to 7B, 1.5B, 0.5B,
+    1.5B, 7B; each round's requests arrive while the one before it is
+    still decoding (its load streams beside it).  The 0.5B does not fit
+    beside the active 1.5B: the engine steps back to the 7B, the 1.5B is
+    evicted (its saved context and KV pool dropped), and it comes back as
+    a cold start.  Every stream equals the same request on a single-model
+    engine of its model, bit for bit, prefilled with the same chunk cuts;
+    every issue sync-checked.  Logs each switch's seconds and the
+    dispatches issued during its load (and their deepest pipeline), the
+    pool's resident bytes beside memory_allocated after each switch and
+    eviction, and the peak device memory.  Then the server's entry
+    (``_pool_server``)."""
+    import os
+
+    from arks_tpu_torch.engine import InferenceEngine
+    from arks_tpu_torch.engine.model_pool import ModelPool, tree_bytes
+    from arks_tpu_torch.engine.tokenizer import ByteTokenizer
+    from arks_tpu_torch.models import get_config
+    from arks_tpu_torch.models import transformer as tf
+    t_phase = time.perf_counter()
+    cfgs = [get_config(n) for n in POOL_MODELS]
+    sizes = [tree_bytes(params)]
+    for c in cfgs[1:]:
+        p = tf.init_params(c, SEED, torch.bfloat16, dev)
+        sizes.append(tree_bytes(p))
+        del p
+    torch.cuda.empty_cache()
+    budget_mb = -(-(sizes[0] + sizes[1] + sizes[2] // 2) // MIB)
+    if sizes[0] + sizes[1] > budget_mb * MIB or \
+            sum(sizes) <= budget_mb * MIB:
+        raise AssertionError(f"[pool] budget {budget_mb} MiB for {sizes}")
+    names = [None if i == 0 else cfgs[i].name for i in POOL_ORDER]
+    rounds = [_pool_requests(k, m) for k, m in enumerate(names)]
+    # The single-model baselines: one engine a model, its rounds in order.
+    base, launches = {}, collections.Counter()
+    for i, c in enumerate(cfgs):
+        env = dict(ARKS_PIPELINE_DEPTH="2")
+        old = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            engine = InferenceEngine(c, _pool_ecfg(c.name), ByteTokenizer(),
+                                     params=params if i == 0 else None,
+                                     device=dev)
+        finally:
+            _restore_env(os, old)
+        mine = [[dataclasses.replace(r, model=None, outputs=type(
+            r.outputs)()) for r in rnd]
+            for k, rnd in enumerate(rounds) if POOL_ORDER[k] == i]
+        _reset_counts()
+        got, (issues, viol) = _drive_rounds(torch, engine, mine)
+        launches.update(_read_counts())
+        if viol:
+            raise AssertionError(f"[pool base {c.name}] host syncs {viol}")
+        base.update(got)
+        ref = weakref.ref(engine)
+        del engine
+        _freed_by_del(ref, f"pool base {c.name}")
+        torch.cuda.empty_cache()
+    # The pooled engine.
+    env = dict(ARKS_PIPELINE_DEPTH="2", ARKS_MODEL_POOL_HBM_MB=str(budget_mb))
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        engine = InferenceEngine(cfgs[0], _pool_ecfg(MODEL), ByteTokenizer(),
+                                 params=params, device=dev, pool=ModelPool())
+    finally:
+        _restore_env(os, old)
+    for c in cfgs[1:]:
+        engine.register_model(c.name)
+    pool = engine.pool
+    evictions, switches, seen = [], [], [engine.cfg.name, None]
+    real_evict = pool.on_evict
+
+    def on_evict(name):
+        real_evict(name)
+        evictions.append(name)
+
+    pool.on_evict = on_evict
+
+    def on_step(eng):
+        if eng.last_switch_stats is not seen[1]:
+            seen[1] = eng.last_switch_stats
+            torch.cuda.synchronize()
+            switches.append(dict(eng.last_switch_stats, evicted=list(
+                evictions), resident=pool.resident_bytes(),
+                allocated=torch.cuda.memory_allocated() - held))
+            evictions.clear()
+
+    _reset_counts()
+    got, (issues, viol) = _drive_rounds(torch, engine, rounds,
+                                        after=POOL_AFTER, on_step=on_step)
+    counts = _read_counts()
+    launches.update(counts)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    if viol:
+        raise AssertionError(f"[pool] host syncs on the issue paths {viol}")
+    _pool_same("pooled", {k: got[k] for k in base}, base)
+    cold = {c.name: int(engine.metrics.model_cold_starts_total.get(
+        model=c.name)) for c in cfgs[1:]}
+    evicted = [name for s in switches for name in s["evicted"]]
+    m = engine.metrics
+    res = dict(switches=switches, cold=cold, peak=peak, issues=issues,
+               switch_s=m.model_switch_seconds._data,
+               faults=m.engine_faults_total.total(), sizes=sizes,
+               budget_mb=budget_mb, pooled_launches=counts)
+    log(f"[pool] {json.dumps({k: v for k, v in res.items() if k != 'switch_s'}, default=str)}")
+    if cold != {cfgs[1].name: 2, cfgs[2].name: 1} or \
+            cfgs[1].name not in evicted or res["faults"] or \
+            [s["model"] for s in switches if s["model"] != MODEL] != \
+            [cfgs[i].name for i in POOL_ORDER if i]:
+        raise AssertionError(f"[pool] evictions and cold starts: {res}")
+    if not (counts["paged_kv_update"] and counts["paged_mixed_attention"]):
+        raise AssertionError(f"[pool] kernels {counts}")
+    del pool.on_evict
+    ref = weakref.ref(engine)
+    del engine, pool, real_evict, on_evict, on_step
+    _freed_by_del(ref, "pool")
+    torch.cuda.empty_cache()
+    _reset_counts()
+    res["server"] = _pool_server(torch, dev)
+    launches.update(_read_counts())
+    res["launches"] = launches
+    log(f"[pool table] budget {budget_mb} MiB for trees {sizes} B; "
+        f"switches (model, seconds, dispatches during the load, deepest "
+        f"pipeline, evicted, pool resident B, allocated above the phase "
+        f"start B) {[(s['model'], round(s['seconds'], 3), s['overlap_dispatches'], s['overlap_max_depth'], s['evicted'], s['resident'], s['allocated']) for s in switches]}; "
+        f"cold starts {cold}; peak device memory above the primary's "
+        f"weights {peak} B; server pass {res['server']}; issues "
+        f"sync-checked {issues}; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+def phase_zero(torch, dev, ops):
+    """Scale-to-zero on the Qwen2.5-7B bf16 engine shape (8 slots x 4096,
+    depth 2) with ARKS_ELASTIC_IDLE_ZERO_S=1, behind the OpenAI server.  The
+    engine draws its own weights from SEED (they must free with it).  A
+    greedy and a seeded request, then the idle engine disarms:
+    memory_allocated and memory_reserved fall by at least its weight bytes
+    plus its K+V pool bytes, /readiness answers 503 "scaled to zero
+    (disarmed)" and /v1/elastic/status armed false.  The same requests
+    re-arm it and give the streams they gave before.  Logs
+    scale_from_zero_seconds, then the steady step's launches (a window as
+    phase_operability's) against phase_operability's: under half a launch
+    a step apart, no kernel name new."""
+    import os
+
+    from arks_tpu_torch.engine import InferenceEngine
+    from arks_tpu_torch.engine.model_pool import tree_bytes
+    from arks_tpu_torch.engine.tokenizer import ByteTokenizer
+    from arks_tpu_torch.models import get_config
+    from arks_tpu_torch.server import OpenAIServer
+    t_phase = time.perf_counter()
+    env = dict(ARKS_PIPELINE_DEPTH="2", ARKS_ELASTIC_IDLE_ZERO_S=ZERO_IDLE_S)
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        engine = InferenceEngine(get_config(MODEL), _pool_ecfg(MODEL),
+                                 ByteTokenizer(), device=dev)
+    finally:
+        _restore_env(os, old)
+    wbytes = tree_bytes(engine.params)
+    kvbytes = sum(t.nbytes for t in engine.cache if t is not None)
+    server = OpenAIServer(engine, MODEL, host="127.0.0.1", port=0)
+    server.start(background=True)
+    engine.start()
+    bodies = [{"prompt": f"scale to zero request {i}: " * 8,
+               "max_tokens": ZERO_TOKENS, "ignore_eos": True,
+               "temperature": 0.0 if i == 0 else 0.8, "seed": 900 + i}
+              for i in range(2)]
+
+    def serve():
+        out = []
+        for body in bodies:
+            st, data, _, _ = _request(server.port, "/v1/completions", body)
+            if st != 200:
+                raise AssertionError(f"[zero] {st} {data}")
+            out.append(data["choices"][0]["text"])
+        return out
+
+    try:
+        _reset_counts()
+        first = serve()
+        torch.cuda.synchronize()
+        before = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+        deadline = time.monotonic() + 60
+        while engine.armed and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if engine.armed:
+            raise AssertionError("[zero] the idle engine never disarmed")
+        torch.cuda.synchronize()
+        after = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+        st_r, rdy, _ = _get(server.port, "/readiness")
+        st_s, status, _ = _get(server.port, "/v1/elastic/status")
+        drop = (before[0] - after[0], before[1] - after[1])
+        if min(drop) < wbytes + kvbytes or st_r != 503 or \
+                "disarmed" not in json.dumps(rdy) or st_s != 200 or \
+                status["armed"] is not False:
+            raise AssertionError(f"[zero] disarm: memory before {before}, "
+                                 f"after {after}, weights {wbytes} + K+V "
+                                 f"{kvbytes}; readiness {st_r} {rdy}; "
+                                 f"status {st_s} {status}")
+        second = serve()
+        launches = _read_counts()
+        if second != first:
+            raise AssertionError(f"[zero] streams after the re-arm differ: "
+                                 f"{first} vs {second}")
+        rearm = dict(engine.last_rearm_stats)
+        st_r, rdy, _ = _get(server.port, "/readiness")
+        if st_r != 200 or rdy["elastic"]["armed"] is not True:
+            raise AssertionError(f"[zero] readiness after the re-arm {rdy}")
+    finally:
+        server.stop()
+        engine.stop()
+    host_ms, per_step, names = _steady_launches(torch, engine)
+    m = engine.metrics
+    res = dict(before=before, after=after, drop=drop, weight_bytes=wbytes,
+               kv_bytes=kvbytes, rearm=rearm,
+               zero_events=m.engine_resizes_total.get(mode="scale_to_zero",
+                                                      outcome="ok"),
+               scale_from_zero_seconds=m.scale_from_zero_seconds._data,
+               steady=(ops["launches_per_step"][0], per_step),
+               steady_host_ms=(ops["host_ms_per_step"][0], host_ms),
+               launches=launches)
+    ref = weakref.ref(engine)
+    del engine, server
+    _freed_by_del(ref, "zero")
+    torch.cuda.empty_cache()
+    off_names = ops["steady_names"]
+    only_new = sorted(set(names) - set(off_names))
+    log(f"[zero table] memory allocated / reserved before the disarm "
+        f"{before}, after {after}, fell {drop} B (weights {wbytes} + K+V "
+        f"pool {kvbytes} B); re-arm {rearm}; scale_from_zero_seconds "
+        f"{res['scale_from_zero_seconds']}; launches per steady step "
+        f"phase_operability {res['steady'][0]:.2f}, after the re-arm "
+        f"{res['steady'][1]:.2f}; host ms {res['steady_host_ms']}; phase "
+        f"took {time.perf_counter() - t_phase:.1f} s")
+    if res["zero_events"] < 1 or \
+            abs(res["steady"][1] - res["steady"][0]) >= 0.5 or only_new:
+        raise AssertionError(f"[zero] steady step after the re-arm: "
+                             f"{res['steady']} (new kernels {only_new})")
+    return res
+
+
+def _res_engine(torch, dev, cfg, params, window, depth, kv):
+    import os
+
+    from arks_tpu_torch.engine import InferenceEngine
+    from arks_tpu_torch.engine.tokenizer import ByteTokenizer
+    env = dict(ARKS_PIPELINE_DEPTH=depth,
+               ARKS_RESIDENCY_WINDOW_PAGES=str(window))
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return InferenceEngine(cfg, _pool_ecfg(
+            MODEL, num_slots=1, kv_cache_dtype=kv, prefix_cache_mb=0),
+            ByteTokenizer(), params=params, device=dev)
+    finally:
+        _restore_env(os, old)
+
+
+def _res_window(torch, engine, steps):
+    """Host ms per token over ``steps`` synchronised steps (one token a
+    step), then over as many under torch.profiler: device µs and launches
+    per token, and the device timeline's host-to-device copies against its
+    kernels (copy µs, and the copy µs that ran while a kernel ran)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.step(block_s=0.001)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            engine.step(block_s=0.001)
+        torch.cuda.synchronize()
+    kern, us, _ = _trace_counts(torch, prof)
+    copies, kernels = [], []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (ev.start_ns(), ev.end_ns())
+        (copies if "Memcpy HtoD" in ev.name() else kernels).append(span)
+    copy_us = sum(b - a for a, b in copies) / 1e3
+    # The kernels' busy intervals merged, then each copy's time inside them.
+    busy = []
+    for a, b in sorted(kernels):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    starts = [a for a, _ in busy]
+    overlap_us = 0.0
+    for a, b in copies:
+        i = max(bisect.bisect_right(starts, a) - 1, 0)
+        while i < len(busy) and busy[i][0] < b:
+            overlap_us += max(0, min(b, busy[i][1]) - max(a, busy[i][0])) / 1e3
+            i += 1
+    return dict(host_ms=host_ms, device_us=us / steps,
+                launches=sum(kern.values()) / steps,
+                htod_us=copy_us / steps, htod_overlap_us=overlap_us / steps)
+
+
+def _res_run(torch, dev, cfg, params, tag, window, depth, kv, seeded):
+    """One request of RES_PROMPT tokens and RES_TOKENS (greedy with top-2
+    logprobs, or seeded) on a one-slot engine, driven from this thread
+    with every issue sync-checked; a timed and a traced window of
+    RES_PROF_STEPS tokens once the slot decodes past 1,536 positions
+    (engaged, on a windowed engine).  Returns ((tokens, logprobs, finish),
+    row)."""
+    import queue
+
+    from arks_tpu_torch.engine import Request, SamplingParams
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    engine = _res_engine(torch, dev, cfg, params, window, depth, kv)
+    rng = np.random.default_rng(SEED + 60)
+    kw = dict(temperature=0.8, top_k=50, seed=61) if seeded else \
+        dict(temperature=0.0, logprobs=2)
+    req = Request(f"res-{tag}", [int(x) for x in rng.integers(
+        32, 120, RES_PROMPT)], SamplingParams(
+            max_tokens=RES_TOKENS, ignore_eos=True, **kw))
+    toks, lps, fin, win, store = [], [], None, None, 0
+    per_token = None
+    # Wall seconds of the steps by the slot's state after them (prefill,
+    # decoding resident, engaged), their counts and the slowest one.
+    walls = collections.defaultdict(lambda: [0.0, 0, 0.0])
+    engine.add_request(req)
+    with _SyncGuard(torch, engine, RES_ISSUES) as guard:
+        for _ in range(100_000):
+            t_step = time.perf_counter()
+            engine.step(block_s=0.001)
+            dt = time.perf_counter() - t_step
+            r = engine._residency
+            state = ("engaged" if r is not None and r.slots else
+                     "decode" if toks else "prefill")
+            w = walls[state]
+            w[0], w[1], w[2] = w[0] + dt, w[1] + 1, max(w[2], dt)
+            while True:
+                try:
+                    o = req.outputs.get_nowait()
+                except queue.Empty:
+                    break
+                toks += o.token_ids
+                lps += o.logprobs or []
+                if o.finished:
+                    fin = o.finish_reason
+            if r is not None and r.slots:
+                store = max(store, r.store_bytes())
+            if win is None and len(toks) >= RES_WINDOW * PAGE - RES_PROMPT \
+                    + 8 and RES_TOKENS - len(toks) > 3 * RES_PROF_STEPS:
+                _reset_counts()
+                win = _res_window(torch, engine, RES_PROF_STEPS)
+                # One token a step, timed and traced windows alike.
+                per_token = {k: v / (2 * RES_PROF_STEPS)
+                             for k, v in _read_counts().items() if v}
+            if fin is not None and engine.idle:
+                break
+    torch.cuda.synchronize()
+    m = engine.metrics
+    row = dict(window=window, depth=depth, kv=kv, seeded=seeded,
+               spans=m.residency_spans_total.total(),
+               prefetch_pages=m.residency_prefetch_pages_total.total(),
+               store_bytes=store, pool_pages=engine._alloc.num_pages,
+               peak=torch.cuda.max_memory_allocated() - held,
+               issues=guard.issues, syncs=len(guard.violations),
+               prof=win, launches_per_token=per_token,
+               context=RES_PROMPT + len(toks),
+               walls={k: (round(v[0], 3), v[1], round(v[2], 4))
+                      for k, v in walls.items()})
+    violations = guard.violations
+    ref = weakref.ref(engine)
+    del engine, guard
+    _freed_by_del(ref, f"residency {tag}")
+    torch.cuda.empty_cache()
+    if violations:
+        raise AssertionError(f"[residency {tag}] host syncs {violations}")
+    return (toks, lps, fin), row
+
+
+def phase_residency(torch, dev, params):
+    """Windowed residency on Qwen2.5-7B bf16 at full width, cut to
+    RES_LAYERS layers (``params``, their first layers): one slot, pages of 256, ARKS_RESIDENCY_WINDOW_PAGES=6 (a 1,536-token
+    device pool), a 1,200-token prompt and 512 generated tokens (a
+    1,712-token final context, past the pool: ~170 tokens decode through
+    the span chain).  Rounds: greedy with logprobs at depth 2 over a bf16
+    pool, seeded at depth 0 over bf16, greedy with logprobs at depth 2
+    over an int8 pool; each against a control engine with the window off
+    at the same depth and pool: token ids, finish reason and logprob
+    floats equal bit for bit, residency_spans_total > 0, every issue
+    (the windowed token's ``_issue_residency`` included) sync-checked.
+    Logs the spans and prefetched pages, host and device ms and launches
+    per windowed token beside a control token, the host-to-device copy
+    time of a windowed token and how much of it ran beside a kernel, the
+    host-store bytes and each engine's peak device memory."""
+    t_phase = time.perf_counter()
+    cfg, params = _cut_model(params, RES_LAYERS)
+    rows, launches = {}, collections.Counter()
+    for tag, depth, kv, seeded in RES_ROUNDS:
+        _reset_counts()
+        base, brow = _res_run(torch, dev, cfg, params, tag + " control", 0,
+                              depth, kv, seeded)
+        got, row = _res_run(torch, dev, cfg, params, tag, RES_WINDOW, depth,
+                            kv, seeded)
+        launches.update(_read_counts())
+        rows[tag] = (row, brow)
+        log(f"[residency {tag}] {json.dumps(dict(windowed=row, control=brow), default=str)}")
+        if got != base or base[2] != "length" or len(got[0]) != RES_TOKENS:
+            first = next((i for i, (a, b) in enumerate(zip(got[0], base[0]))
+                          if a != b), None)
+            raise AssertionError(
+                f"[residency {tag}] the windowed stream differs from the "
+                f"control's (first differing token {first}; logprobs equal "
+                f"{got[1] == base[1]}; finish {got[2]} / {base[2]})")
+        if row["spans"] <= 0 or row["prefetch_pages"] <= 0 or \
+                row["context"] <= row["pool_pages"] * PAGE:
+            raise AssertionError(f"[residency {tag}] the span path did not "
+                                 f"run: {row}")
+    res = dict(rows=rows, launches=launches)
+    w, c = rows["greedy d2 bf16"]
+    log(f"[residency table] {torch.cuda.get_device_name(0)}: per windowed "
+        f"token (greedy, depth 2, bf16) {w['prof']} vs a control token "
+        f"{c['prof']}; launches per windowed token {w['launches_per_token']}"
+        f"; spans {w['spans']}, prefetched pages {w['prefetch_pages']}; "
+        f"host store {w['store_bytes']} B; peak device memory windowed "
+        f"{w['peak']} B, control {c['peak']} B; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -6338,6 +7026,9 @@ def main() -> int:
     pre = phase_preempt(torch, dev, params, ops)
     pre["launches"] = _read_counts()
     spec = phase_spec(torch, dev, params)
+    pool = phase_pool(torch, dev, params)
+    zero = phase_zero(torch, dev, ops)
+    resid = phase_residency(torch, dev, params)
     del params
     torch.cuda.empty_cache()
     upd_t, attn_t, dense_t = phase_times(torch, b)
@@ -6358,7 +7049,10 @@ def main() -> int:
     pipe_n.update(ckpt_n)                 # checkpoint-loaded ones, and
     pipe_n.update(recov["launches"])      # the recovery phase's engines,
     pipe_n.update(pre["launches"])        # the preemption phase's and
-    pipe_n.update(spec["launches"])       # the speculative phase's
+    pipe_n.update(spec["launches"])       # the speculative phase's, the
+    pipe_n.update(pool["launches"])       # pool's (its baselines and the
+    pipe_n.update(zero["launches"])       # server pass), scale-to-zero's
+    pipe_n.update(resid["launches"])      # and residency's (span chains)
     attn_launches = (serve["launches"]["paged_mixed_attention"]
                      + serve8["launches"]["paged_mixed_attention"]
                      + paged4["launches"]["paged_mixed_attention"]

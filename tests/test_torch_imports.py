@@ -56,6 +56,8 @@ def test_importing_every_module_loads_no_jax_and_no_arks_tpu():
             "arks_tpu_torch.engine.metrics",
             "arks_tpu_torch.utils.metrics",
             "arks_tpu_torch.engine.faults", "arks_tpu_torch.utils.swallow",
+            "arks_tpu_torch.engine.model_pool",
+            "arks_tpu_torch.engine.residency",
             "arks_tpu_torch.obs.trace", "arks_tpu_torch.obs.logctx",
             "arks_tpu_torch.obs.perfetto",
             "arks_tpu_torch.obs.profiler"} <= imported

@@ -530,8 +530,8 @@ def test_paged_mixed_attention_plain_span_state_vs_pallas(kv):
 def test_paged_mixed_attention_split_plain_vs_unsplit(kv):
     """The kernel's split-KV form (pieces of one page, each from
     (-1e30, 0, 0), folded left in page order) against the one-pass plain
-    version within 1e-5 in f32, and the CPU wrapper is the one-pass
-    form."""
+    version within 1e-5 in f32, and the CPU wrapper is the split form
+    (whose span chain is the single call bit for bit, as the kernel's)."""
     c, _, qmax, pools, tsc, _ = _span_case(kv, seed=16)
     targs = (torch.from_numpy(c["q"]), *pools, torch.from_numpy(c["tables"]),
              torch.from_numpy(c["seq_q_start"]),
@@ -542,4 +542,4 @@ def test_paged_mixed_attention_split_plain_vs_unsplit(kv):
                                             **tsc)
     torch.testing.assert_close(split, one, atol=1e-5, rtol=0)
     assert torch.equal(tpa.paged_mixed_attention(*targs, qmax=qmax, **tsc),
-                       one)
+                       split)

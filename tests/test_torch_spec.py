@@ -576,7 +576,8 @@ def test_spec_config_validation(weights, monkeypatch):
     """The reference's checks (``tests/test_spec_decode.py``):
     draft_len >= 2, no pipeline or data parallelism, the mixed scheduler
     (paged layout, chunked prefill, ``ARKS_MIXED_STEP`` not 0), a draft
-    vocabulary equal to the target's; windowed residency stays refused."""
+    vocabulary equal to the target's; windowed residency refuses a draft,
+    as the reference's does."""
     cfg = get_config(TARGET)
 
     def build(**kw):
@@ -603,8 +604,8 @@ def test_spec_config_validation(weights, monkeypatch):
         build(kv_layout="paged", prefill_chunk=16)
     monkeypatch.delenv("ARKS_MIXED_STEP")
     monkeypatch.setenv("ARKS_RESIDENCY_WINDOW_PAGES", "4")
-    with pytest.raises(NotImplementedError, match="residency"):
-        build()
+    with pytest.raises(ValueError, match="speculative"):
+        build(prefill_chunk=16)     # 64 pages a slot: the window engages
 
 
 def _fault_requests(tag):
