@@ -126,10 +126,24 @@ pages are bounded by the window: a context that outgrows it keeps its cold
 pages in host RAM and decodes span by span through the ragged kernel's
 carried state, byte-identical to a pool that holds it whole.
 
-What the reference does and this port does not — the disk prefix tier,
-peer prefix fetch, the cache sketch, live resize, parallelism — is
-rejected (``EngineConfig.validate``, and ``check_unserved_knobs`` for the
-environment) rather than silently ignored.
+The engine is a member of a fleet, as the reference's is.  A prefill-only
+engine runs ``prefill_detached`` from server threads (its step loop never
+starts) and hands the first token and the prompt's K/V over as a
+``PrefilledState``; a decode engine admits such a request by inserting the
+K/V (``_admit_prefilled``, either scheduler) and decoding on from
+``fold_in(key(seed), 1)``.  Behind the host tier a paged pool may keep a
+disk tier (``ARKS_PREFIX_DISK_MB``, ``DiskPrefixTier``: the host tier's
+evictions written by a writer thread, re-indexed at boot) and fetch
+missing prefix blocks from the disk tier or from peer replicas
+(``ARKS_PEER_FETCH``: a worker thread stages them into the host tier,
+whence the ordinary restore brings them to the pool).  ``cache_sketch``
+summarizes which digests each tier holds for the router.  Both threads
+touch host memory only, and every block they move carries the pool
+layout's epoch.
+
+What the reference does and this port does not (live resize,
+parallelism) is rejected (``EngineConfig.validate``) rather than silently
+ignored.
 """
 
 from __future__ import annotations
@@ -150,7 +164,7 @@ import torch
 from arks_tpu_torch import knobs, tenancy
 from arks_tpu_torch import slo as slo_mod
 from arks_tpu_torch.device import resolve_device
-from arks_tpu_torch.engine import fairqueue, prng
+from arks_tpu_torch.engine import fairqueue, kv_transfer, prng
 from arks_tpu_torch.engine import faults as faults_mod
 from arks_tpu_torch.engine import sampler as sampler_mod
 from arks_tpu_torch.engine.faults import StepFault
@@ -161,11 +175,12 @@ from arks_tpu_torch.engine.model_pool import (LoadTicket, ModelPool,
 from arks_tpu_torch.engine.paged import (PageAllocator, chain_digests,
                                          mixed_grid_steps, mixed_kv_bytes,
                                          pages_needed)
-from arks_tpu_torch.engine.prefix_cache import (HostPrefixTier, PrefixKVCache,
+from arks_tpu_torch.engine.prefix_cache import (DiskPrefixTier,
+                                                HostPrefixTier, PrefixKVCache,
                                                 SwapStore)
 from arks_tpu_torch.engine.residency import ResidencyManager
-from arks_tpu_torch.engine.types import (Request, RequestOutput,
-                                         SamplingParams)
+from arks_tpu_torch.engine.types import (PrefilledState, Request,
+                                         RequestOutput, SamplingParams)
 from arks_tpu_torch.models import quant
 from arks_tpu_torch.models import transformer as tf
 from arks_tpu_torch.models.config import ModelConfig, get_config
@@ -173,6 +188,7 @@ from arks_tpu_torch.obs import logctx
 from arks_tpu_torch.obs.profiler import ProfilerWindows
 from arks_tpu_torch.obs.trace import Tracer
 from arks_tpu_torch.ops.paged_attention import mixed_grid_mode, mixed_grid_plan
+from arks_tpu_torch.prefix_sketch import SketchExporter, canonical_prompt_text
 
 log = logging.getLogger("arks_tpu_torch.engine")
 logctx.install(log)
@@ -329,24 +345,6 @@ def prefix_host_mb_knob() -> int:
     return knobs.get_int("ARKS_PREFIX_HOST_MB", minimum=0)
 
 
-def check_unserved_knobs() -> None:
-    """Raise on a knob that asks for a reference subsystem the port does
-    not have yet: the disk prefix tier (``ARKS_PREFIX_DISK_MB`` > 0) and
-    peer prefix fetch (``ARKS_PEER_FETCH``, ``ARKS_PEER_ADDRS``)."""
-    on = ("1", "true", "yes", "on")
-    disk = knobs.get_str("ARKS_PREFIX_DISK_MB").strip()
-    asked = []
-    if disk not in ("0", ""):
-        asked.append(f"ARKS_PREFIX_DISK_MB={disk} (the disk prefix tier)")
-    if knobs.get_str("ARKS_PEER_FETCH").strip().lower() in on:
-        asked.append("ARKS_PEER_FETCH (peer prefix fetch)")
-    if knobs.get_str("ARKS_PEER_ADDRS", "").strip():
-        asked.append("ARKS_PEER_ADDRS (peer prefix fetch)")
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)}: not served by this port yet")
-
-
 def overlap_decode_knob(device: torch.device) -> bool:
     """``ARKS_OVERLAP_DECODE`` ("auto", "0", "1"): the legacy scheduler
     issues its decode dispatch before admission and resolves it after.
@@ -413,6 +411,28 @@ class _RestoreState:
     pages: list[int]     # fresh pages the scatter writes
     done: object         # a CUDA event after the last scatter, or None
     t0: float
+
+
+@dataclasses.dataclass
+class _FetchState:
+    """A disk or peer prefix fetch in flight: the request parks here while
+    the fetch worker stages its missing blocks from the disk tier or a
+    peer INTO THE HOST TIER.  No device pages are held across the park:
+    ``_resolve_fetches`` re-runs the admission match, so the request rides
+    the ordinary host-tier restore (or a plain chunked prefill when the
+    fetch came back empty).  The worker writes only ``done`` and
+    ``fetched_*``."""
+
+    request: Request
+    ids: list[int]
+    digests: list          # the usable digest chain (computed at match)
+    start: int             # the first uncovered digest at park time
+    peer: str | None       # the hinted peer ("host:port")
+    seed: int
+    t0: float
+    done: bool = False
+    fetched_disk: int = 0
+    fetched_peer: int = 0
 
 
 @dataclasses.dataclass
@@ -961,6 +981,134 @@ def spec_pipe(params: tf.Params, cfg: ModelConfig, dparams: tf.Params,
     return toks, lp, torch.where(alive, last, 0), lengths, alive, sstate
 
 
+class _DiskStats:
+    """The disk tier's counters mirrored into the metric families, from
+    the writer and fetch threads (no engine reference: a thread holding
+    the engine would keep it alive past ``del``)."""
+
+    def __init__(self, disk: DiskPrefixTier, metrics) -> None:
+        self.disk, self.metrics = disk, metrics
+        self._lock = threading.Lock()
+        self._evicted = disk.evicted_blocks
+        self._corrupt = disk.corrupt_blocks
+
+    def mirror(self) -> None:
+        d, m = self.disk, self.metrics
+        m.prefix_cache_usage_bytes.set(d.bytes_used, tier="disk")
+        with self._lock:
+            ev, co = d.evicted_blocks, d.corrupt_blocks
+            if ev > self._evicted:
+                m.prefix_disk_evictions_total.inc(ev - self._evicted)
+                self._evicted = ev
+            if co > self._corrupt:
+                m.prefix_disk_corrupt_total.inc(co - self._corrupt)
+                self._corrupt = co
+
+
+def _disk_write_loop(q: queue.Queue, disk: DiskPrefixTier,
+                     stats: _DiskStats) -> None:
+    """The disk tier's writer thread: persist the queued host-tier
+    evictions (host tensors only) until the None sentinel.  A failed write
+    costs warmth, never correctness: swallowed."""
+    while True:
+        item = q.get()
+        if item is None:
+            return
+        try:
+            disk.put(*item)
+        except Exception as e:
+            faults_mod.swallowed("disk_spill.write", e)
+        stats.mirror()
+
+
+class _BlockFetcher:
+    """The fetch worker's side of disk and peer prefix fetch: stages a
+    parked admission's missing blocks into the host tier, from the disk
+    tier first, then the hinted peer, then ``ARKS_PEER_ADDRS``.  Host
+    memory and sockets only."""
+
+    def __init__(self, host: HostPrefixTier, disk, peers: list[str],
+                 timeout_s: float, epoch: str, stats) -> None:
+        self.host, self.disk, self.peers = host, disk, peers
+        self.timeout_s, self.epoch, self.stats = timeout_s, epoch, stats
+
+    def run(self, q: queue.Queue) -> None:
+        """Serve parked fetches until the None sentinel.  Every failure
+        ends in ``done`` with whatever run was staged: the resolve then
+        restores that and prefills the rest (a peer dying mid-fetch costs
+        latency, never correctness)."""
+        while True:
+            st = q.get()
+            if st is None:
+                return
+            try:
+                self.fetch(st)
+            except Exception as e:
+                faults_mod.swallowed("prefix_fetch", e)
+            st.done = True
+
+    def fetch(self, st: _FetchState) -> None:
+        """Stage ``st``'s uncovered digests, consecutively (a gap stops the
+        run: a restore needs a contiguous prefix)."""
+        peers = [a for a in ([st.peer] if st.peer else []) + self.peers
+                 if a]
+        for d in st.digests[st.start:]:
+            if self.host.has(d):
+                continue
+            blk = self.disk.get(d) if self.disk is not None else None
+            src = "disk"
+            if blk is None and peers:
+                blk = self.from_peers(peers, d)
+                src = "peer"
+            if blk is None:
+                break
+            if not self.host.put(d, blk) and not self.host.has(d):
+                break       # the host budget cannot hold the staged run
+            if src == "disk":
+                st.fetched_disk += 1
+            else:
+                st.fetched_peer += 1
+        if self.stats is not None:
+            self.stats.mirror()
+
+    def from_peers(self, peers: list[str], digest: bytes) -> dict | None:
+        """One block from the first peer that has it, checked against this
+        pool's layout epoch (another layout's block is refused, never
+        reinterpreted)."""
+        for addr in peers:
+            buf = self.block_get(addr, digest)
+            if buf is None:
+                continue
+            try:
+                return kv_transfer.unpack_block(buf, digest, self.epoch)
+            except ValueError as e:
+                faults_mod.swallowed("peer_fetch.unpack", e)
+        return None
+
+    def block_get(self, addr: str, digest: bytes) -> bytes | None:
+        """``GET /v1/cache/blocks/{digest}`` from one peer; None on any
+        failure (timeout, refusal, 404, a body cut short)."""
+        import http.client
+        addr = addr.split("//", 1)[-1].rstrip("/")
+        host, _, port = addr.rpartition(":")
+        try:
+            conn = http.client.HTTPConnection(
+                host or addr, int(port) if port else 80,
+                timeout=self.timeout_s)
+            try:
+                conn.request("GET", f"/v1/cache/blocks/{digest.hex()}")
+                resp = conn.getresponse()
+                if resp.status != 200:
+                    resp.read()
+                    return None
+                return resp.read()
+            finally:
+                conn.close()
+        except Exception as e:
+            faults_mod.swallowed("peer_fetch.http", e)
+            return None
+
+
 class InferenceEngine:
     def __init__(self, cfg: ModelConfig, engine_cfg: EngineConfig,
                  tokenizer, params: tf.Params | None = None,
@@ -974,7 +1122,6 @@ class InferenceEngine:
         wholesale (``_model_attr_names``).  ``pool``: the multi-model
         weight pool (``engine/model_pool.py``); the primary is adopted
         into it pinned, with its draft."""
-        check_unserved_knobs()
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
         self._admit_sizes = admit_batch_sizes()
@@ -1107,12 +1254,20 @@ class InferenceEngine:
         self._rearm_fail_t = -1e9
         self.last_rearm_stats: dict | None = None
 
+        # Detached prefills (a prefill-only engine) run on server threads:
+        # one at a time on the device.
+        self._prefill_lock = threading.Lock()
+
         pre = set(vars(self))
         self._init_model_state(cfg, engine_cfg, params=params,
                                draft_params=draft_params, draft_cfg=draft_cfg)
         # Every per-model attribute (weights, pool, mirrors, guides, tiers,
         # draft): _switch_to swaps exactly these between saved contexts.
         self._model_attr_names = tuple(sorted(set(vars(self)) - pre))
+        # The prefix-digest sketch for cache-aware routing: one per engine,
+        # not per model (its epoch follows this engine's resets, which is
+        # what routers key staleness on), so it stays out of the contexts.
+        self._sketch = SketchExporter(self._page) if self._paged else None
         self._primary_model = cfg.name
         self._primary_ecfg = self.ecfg
         if self.pool is not None:
@@ -1290,6 +1445,8 @@ class InferenceEngine:
             self._prefix = PrefixKVCache(c, engine_cfg.prefix_cache_mb * 2**20)
         self._spill_group = min(8, max(self._max_pages, 1))
         self._spills: collections.deque = collections.deque()
+        self._kv_epoch = self._kv_layout_epoch()
+        self._init_fleet_tiers(keep_tiers)
         # Host-tier restores and preempt-swap resumes in flight.
         self._awaiting_restore: list = []
         self._mixed_budget = 0
@@ -1406,6 +1563,89 @@ class InferenceEngine:
             "data_parallel": "1",
         }
         self.metrics.engine_config_info.set(1, **self.resolved_config)
+
+    def _init_fleet_tiers(self, keep_tiers: dict | None) -> None:
+        """The disk tier behind the host tier (``ARKS_PREFIX_DISK_MB``,
+        ``ARKS_PREFIX_DISK_DIR``) with its writer thread, and the fetch
+        worker of disk and peer prefix fetch (``ARKS_PEER_FETCH``,
+        ``ARKS_PEER_ADDRS``, ``ARKS_PEER_FETCH_TIMEOUT_S``), both on a
+        paged pool with the host tier.  The host tier's evictions queue in
+        ``_disk_spill_pending`` (a closure over the deque: the tier must
+        not hold the engine); the step loop hands them to the writer.  A
+        re-arm (``keep_tiers``) keeps the tier, its queues and threads."""
+        self._disk_spill_pending: collections.deque = collections.deque()
+        self._awaiting_fetch: list[_FetchState] = []
+        disk_mb = knobs.get_int("ARKS_PREFIX_DISK_MB")
+        if disk_mb < 0:
+            raise ValueError(f"ARKS_PREFIX_DISK_MB={disk_mb}: must be >= 0")
+        timeout = knobs.get_float("ARKS_PEER_FETCH_TIMEOUT_S")
+        if timeout <= 0:
+            raise ValueError(f"ARKS_PEER_FETCH_TIMEOUT_S={timeout}: must "
+                             "be > 0")
+        self._peer_addrs = knobs.get_list("ARKS_PEER_ADDRS")
+        self._peer_fetch = (knobs.get_bool("ARKS_PEER_FETCH")
+                            and self._host is not None)
+        if keep_tiers is not None and "disk" in keep_tiers:
+            for name in ("disk", "disk_write_queue", "disk_writer",
+                         "fetch_queue", "disk_stats"):
+                setattr(self, "_" + name, keep_tiers[name])
+        else:
+            self._disk = self._disk_write_queue = self._disk_writer = None
+            self._fetch_queue = self._disk_stats = None
+            if disk_mb and self._host is not None:
+                import tempfile
+                ddir = knobs.get_str("ARKS_PREFIX_DISK_DIR") or os.path.join(
+                    tempfile.gettempdir(), "arks-prefix-disk")
+                self._disk = DiskPrefixTier(self._page, disk_mb * 2**20,
+                                            ddir, self._kv_epoch)
+                self._disk_stats = _DiskStats(self._disk, self.metrics)
+                # Bounded: a spill storm drops blocks (warmth is best
+                # effort) rather than growing a backlog of host RAM.
+                self._disk_write_queue = queue.Queue(maxsize=256)
+                self._disk_writer = threading.Thread(
+                    target=_disk_write_loop, name="disk-spill", daemon=True,
+                    args=(self._disk_write_queue, self._disk,
+                          self._disk_stats))
+                self._disk_writer.start()
+            if self._disk is not None or self._peer_fetch:
+                self._fetch_queue = queue.Queue()
+                fetcher = _BlockFetcher(self._host, self._disk,
+                                        self._peer_addrs, timeout,
+                                        self._kv_epoch, self._disk_stats)
+                threading.Thread(target=fetcher.run, args=(self._fetch_queue,),
+                                 name="prefix-fetch", daemon=True).start()
+        if self._disk is not None:
+            pending = self._disk_spill_pending
+
+            def note_evicted(digest, block, pending=pending):
+                # Bookkeeping only, from whichever thread evicted: the step
+                # loop drains it to the writer.
+                if len(pending) < 1024:
+                    pending.append((digest, block))
+
+            self._host.on_evict = note_evicted
+
+    def _kv_layout_epoch(self) -> str:
+        """The pool layout's signature: chain digests key content only,
+        so every disk file and every peer block carries this stamp and a
+        reader on another layout refuses the bytes.  The fields are the
+        reference's, but the port stores head_dim unpadded: where the
+        reference pads the stored head dim (its 128-lane tile) its
+        ``_page_bytes``, and so its epoch, differ from the port's for the
+        same model and pool dtype, and the two refuse each other's
+        blocks."""
+        import hashlib
+        kvd = self.ecfg.resolve_kv_cache_dtype()
+        sig = "|".join(str(x) for x in (
+            self.cfg.name, self._page, self.cfg.num_layers,
+            self.cfg.num_kv_heads, self._page_bytes, self.ecfg.kv_quantized,
+            {"int4": 4, "int8": 8}.get(kvd, 16), kvd))
+        return hashlib.sha1(sig.encode()).hexdigest()[:16]
+
+    @property
+    def kv_epoch(self) -> str:
+        """The layout epoch peers check fetched blocks against."""
+        return self._kv_epoch
 
     def _new_allocator(self, num_pages: int) -> PageAllocator:
         """An empty page allocator over the pool.  With the host tier, its
@@ -1591,9 +1831,11 @@ class InferenceEngine:
         if not self._shed_deadline_factor or not self._slo:
             return False
         if isinstance(req.outputs, _ReplayGate) or \
-                req.request_id in self._resuming:
+                req.request_id in self._resuming or \
+                req.prefilled is not None:
             # A replayer was decoding before its fault or its preemption:
             # shedding it would break the stream its client already holds.
+            # A prefilled request's expensive half is already paid for.
             return False
         tier = self._slo.get(self._slo.tier_of(req.params.priority))
         if tier is None or not tier.ttft_ms:
@@ -1660,11 +1902,30 @@ class InferenceEngine:
         self._running = False
         self.trace.stop()
         if self._watchdog is not None:
+            # Its callbacks close over this engine: a watchdog kept past
+            # the stop would be a cycle holding it.
             self._watchdog.stop()
+            self._watchdog = None
         if self._thread is not None:
             self._thread.join(timeout=120.0)
             if self._thread.is_alive():
                 log.warning("engine thread did not exit within 120s")
+        # Graceful stop: the warm prefixes still on the device or in the
+        # host tier go to the disk tier before the writer's sentinel, so a
+        # relaunch on the same directory serves them without a prefill.
+        if self._disk is not None:
+            try:
+                self._flush_warm_to_disk()
+            except Exception as e:   # warmth, not the shutdown
+                faults_mod.swallowed("disk_tier.flush", e)
+        for wq in (self._disk_write_queue, self._fetch_queue):
+            if wq is not None:
+                try:
+                    wq.put(None, timeout=5.0)
+                except queue.Full as e:
+                    faults_mod.swallowed("fleet_tiers.stop", e)
+        if self._disk_writer is not None:
+            self._disk_writer.join(timeout=30.0)
 
     def _on_wedged(self, phase: str, age_s: float) -> None:
         """Watchdog callback: record the wedged state (readiness reads it)
@@ -1708,6 +1969,7 @@ class InferenceEngine:
                 and not self._pending_admits and not self._pipe_inflight
                 and self._pipe_state is None
                 and not self._awaiting_guide and not self._awaiting_restore
+                and not self._awaiting_fetch
                 and not self._swap_pending and not self._swapped
                 and not self._awaiting_model and self._queue.empty())
 
@@ -1726,6 +1988,7 @@ class InferenceEngine:
             self._abort_awaiting_model()
             self._abort_pending_admits()
             self._abort_awaiting_restores()
+            self._abort_awaiting_fetches()
             self._abort_swapped()
 
     def _run_loop(self) -> None:
@@ -1914,6 +2177,14 @@ class InferenceEngine:
                 request=rst.request, seed=self._resolve_seed(rst.request),
                 num_prompt=len(rst.ids)))
         self._awaiting_restore = []
+        for fs in self._awaiting_fetch:
+            # Fetch-parked requests emitted nothing and hold no pages: a
+            # plain re-queue; the blocks the worker staged stay in the host
+            # tier for the re-run (a worker still fetching finishes into it
+            # harmlessly).
+            survivors.append(_Survivor(request=fs.request, seed=fs.seed,
+                                       num_prompt=len(fs.ids)))
+        self._awaiting_fetch = []
         # Preempted victims (spill in flight, or parked in host RAM) replay
         # rather than trust a snapshot that may share the fault's stream;
         # their SwapStore bytes come back.
@@ -2057,6 +2328,7 @@ class InferenceEngine:
                  for req, _, _ in rec[0]}
         live |= {req.request_id for req, _ in self._awaiting_guide}
         live |= {rec.request.request_id for rec in self._awaiting_restore}
+        live |= {st.request.request_id for st in self._awaiting_fetch}
         live |= {req.request_id for req, _, _ in self._awaiting_model}
         live |= {sw.rec.request.request_id for sw in self._swap_pending}
         live |= set(self._swapped)
@@ -2123,6 +2395,7 @@ class InferenceEngine:
             self._abort_prefill(slot)
         self._abort_pending_admits()
         self._abort_awaiting_restores()
+        self._abort_awaiting_fetches()
         self._abort_awaiting_model()
         # Preempted victims fail too, and their SwapStore entries go with
         # them: swapped-out KV may carry the poison back on resume.
@@ -2134,6 +2407,12 @@ class InferenceEngine:
         if self._host is not None:
             self._host.clear()
             self.metrics.prefix_cache_usage_bytes.set(0, tier="host")
+        if self._disk is not None:
+            # The disk tier too, files and all, or the poison would come
+            # back with the next boot's scan.
+            self._disk_spill_pending.clear()
+            self._disk.clear()
+            self.metrics.prefix_cache_usage_bytes.set(0, tier="disk")
         self._fault_counts.clear()
         self._consec_faults = 0
         self._reset_device_state()
@@ -2182,6 +2461,10 @@ class InferenceEngine:
         # A fault between ``_free.pop()`` and registration would otherwise
         # leak the slot index.
         self._free = [s for s in range(n) if s not in self._slots]
+        if self._sketch is not None:
+            # The rebuilt index is empty: a new epoch makes routers drop
+            # the pre-reset sketch at their next poll.
+            self._sketch.bump_epoch()
 
     # ------------------------------------------------------------------
     # Scheduler
@@ -2267,8 +2550,17 @@ class InferenceEngine:
             tr = time.monotonic()
             sec.inc(tr - t0, phase="restore")
             t0 = tr
+        if self._awaiting_fetch:
+            # Disk and peer fetches whose worker finished re-enter the
+            # admission match; those in flight stay parked.
+            worked = self._resolve_fetches() or worked
+            tq = time.monotonic()
+            sec.inc(tq - t0, phase="fetch")
+            t0 = tq
         if self._spills:
             worked = self._resolve_spills() or worked
+        if self._disk_spill_pending:
+            worked = self._drain_disk_spills() or worked
         self._queue_age_tick()
         if self._swap_pending or self._swapped or self._preempt_on:
             # Preemptive KV swap: harvest landed victim spills into the
@@ -2342,7 +2634,8 @@ class InferenceEngine:
         if worked:
             return True
         if self._awaiting_restore or self._spills or self._swap_pending \
-                or self._swapped or self._awaiting_model or self._model_loads:
+                or self._swapped or self._awaiting_model or self._model_loads \
+                or self._awaiting_fetch:
             # They land on device (or loader-thread) time, not on queue
             # arrivals: poll again.
             time.sleep(0.001)
@@ -2545,6 +2838,12 @@ class InferenceEngine:
             # guide gate: a guide's pin belongs to its model's compiler.
             self._park_awaiting_model(req, want)
             return None
+        if req.prefilled is not None:
+            if req.params.guide is not None and \
+                    self._gate_guide_or_fail(req, req.prefilled.num_prompt):
+                return None
+            self._admit_prefilled(req)
+            return None
         ids = list(req.prompt_ids)
         if not ids or len(ids) > self.max_prompt_len:
             self._unpin_guide(req)
@@ -2555,28 +2854,32 @@ class InferenceEngine:
             log.info("rejected %s: prompt of %d tokens (limit %d)",
                      req.request_id, len(ids), self.max_prompt_len)
             return None
-        if req.params.guide is not None:
-            # Park while the guide compiles; fail on a compile error; PIN
-            # the published guide for the request's life, so eviction
-            # cannot repack the rows its slot decodes against.
-            gate = self._gate_guide(req)
-            if gate == "park":
-                return None
-            if gate is not None:
-                req.outputs.put(RequestOutput(
-                    request_id=req.request_id, token_ids=[], finished=True,
-                    finish_reason="error",
-                    error=f"guide_compile_failed: {gate}",
-                    num_prompt_tokens=len(ids)))
-                log.info("rejected %s: guide compile failed: %s",
-                         req.request_id, gate)
-                return None
+        if req.params.guide is not None and \
+                self._gate_guide_or_fail(req, len(ids)):
+            return None
         if self._prefix_hit(req, ids):
             return None
         if self._mixed or len(ids) > self._one_shot_limit():
             self._start_chunked(req, ids)
             return None
         return req, ids, self._pad_to_bucket(ids)
+
+    def _gate_guide_or_fail(self, req: Request, num_prompt: int) -> bool:
+        """The guide gate at admission: park while the guide compiles, fail
+        on a compile error, else PIN the published guide for the request's
+        life (eviction cannot repack the rows its slot decodes against).
+        Returns True when the request was parked or failed here."""
+        gate = self._gate_guide(req)
+        if gate is None:
+            return False
+        if gate != "park":
+            req.outputs.put(RequestOutput(
+                request_id=req.request_id, token_ids=[], finished=True,
+                finish_reason="error", error=f"guide_compile_failed: {gate}",
+                num_prompt_tokens=num_prompt))
+            log.info("rejected %s: guide compile failed: %s",
+                     req.request_id, gate)
+        return True
 
     def _prefix_hit(self, req: Request, ids: list[int]) -> bool:
         """Prefix reuse at admission (the reference's ``_preadmit``).  A
@@ -2606,6 +2909,16 @@ class InferenceEngine:
             plen, hlen = len(shared) * page, len(blocks) * page
             self._alloc.record_query(len(ids), plen + hlen)
             self._count_prefix(len(ids), plen, hlen, self._alloc.hit_rate)
+            covered = len(shared) + len(blocks)
+            if covered < len(usable) and \
+                    self._fetch_candidate(req, usable, covered):
+                # The uncovered span is on the local disk or (by the
+                # router's hint) on a peer: park for a fetch into the host
+                # tier instead of prefilling it.  The device references
+                # go back: the resolve matches afresh.
+                self._alloc.decref(shared)
+                self._issue_fetch(req, ids, usable, covered)
+                return True
             if blocks:
                 self._issue_restore(req, ids, digests, shared, blocks)
                 return True
@@ -4149,6 +4462,371 @@ class InferenceEngine:
         return bool(self._swap_pending) and self._swap_pending[0].ready()
 
     # ------------------------------------------------------------------
+    # Disaggregated prefill/decode: the detached prefill and the prefilled
+    # admission
+    # ------------------------------------------------------------------
+
+    def prefill_detached(self, prompt_ids: list[int],
+                         params: SamplingParams) -> PrefilledState:
+        """Prefill a prompt and sample its first token, and return the
+        transferable state instead of inserting it here: the prefill
+        server's call, from its threads, on an engine whose step loop never
+        runs.  One-shot (``tf.prefill`` at the prompt's bucket, as the
+        reference's detached prefill is whatever the scheduler), so a
+        prompt past the largest bucket raises
+        ``ContextLengthExceededError`` (HTTP 400).  The first token is
+        drawn with ``key(seed)``; the decode side continues from
+        ``fold_in(key(seed), 1)``.  A guide compiles here, outside the
+        prefill lock, and stays pinned over the dispatch."""
+        ids = list(prompt_ids)
+        if not ids or len(ids) > self._one_shot_limit():
+            raise ContextLengthExceededError(
+                f"prompt has {len(ids)} tokens but the disaggregated "
+                f"prefill limit is {self._one_shot_limit()}")
+        pinned = False
+        if params.guide is not None:
+            self.guides.compile(*params.guide)
+            self.guides.acquire(*params.guide)
+            pinned = True
+        try:
+            with self._prefill_lock:
+                self._request_seed += 1
+                seed = params.seed if params.seed is not None \
+                    else self._request_seed
+                logits, ks, vs = tf.prefill(
+                    self.params, self.cfg,
+                    self._upload(self._pad_to_bucket(ids)),
+                    self._upload(np.array([len(ids)], np.int32)))
+                keys = self._upload(prng.np_prng_key(seed)[None].astype(
+                    np.int64))
+                firsts, lp, _ = self._sample_first(logits, [params], keys)
+                first = int(firsts[0])
+                first_lp = None
+                if lp is not None:
+                    clp, vals, lids = (x[0].cpu().numpy() for x in lp)
+                    first_lp = self._lp_entry(clp, vals, lids,
+                                              params.logprobs)
+                gid, row0 = self._guide_cols(params)
+                k, v = ks.cpu(), vs.cpu()
+        finally:
+            if pinned:
+                self.guides.release(*params.guide)
+        self.metrics.prompt_tokens_total.inc(len(ids))
+        return PrefilledState(
+            first_token=first, num_prompt=len(ids), seed=seed, k=k, v=v,
+            first_lp=first_lp,
+            guide_row=(self.guides.next_row(row0, first) - row0
+                       if gid >= 0 else 0),
+            prompt_ids=ids,
+            kv_dtype=str(k.dtype).replace("torch.", ""))
+
+    def _admit_prefilled(self, req: Request) -> None:
+        """Admit a request whose prefill ran on another engine (the
+        disaggregated decode side), on either scheduler: insert the
+        transferred K/V (``tf.insert_pages`` into fresh pool pages, int8
+        and int4 pools quantizing; ``tf.insert`` into the slot cache),
+        write the slot's sampling row with the decode key
+        ``fold_in(key(seed), 1)`` and the guide row rebased onto this
+        engine's table, and register the slot with the transferred first
+        token.  On a paged pool the prompt's full pages then enter the
+        device index and are spilled to the host tier from the pool pages
+        themselves (the pool-canonical bytes).  A logprob request whose
+        state carries no first-token entry fails with
+        ``logprobs_unavailable``; a prompt past the decode window is
+        aborted.  The K/V stay on the request, so a fault re-queues it
+        whole."""
+        pf = req.prefilled
+        p = req.params
+        if p.logprobs is not None and pf.first_lp is None:
+            self._unpin_guide(req)
+            req.outputs.put(RequestOutput(
+                request_id=req.request_id, token_ids=[], finished=True,
+                finish_reason="error", error="logprobs_unavailable",
+                num_prompt_tokens=pf.num_prompt))
+            return
+        if pf.num_prompt > self.max_prompt_len:
+            self._unpin_guide(req)
+            req.outputs.put(RequestOutput(
+                request_id=req.request_id, token_ids=[], finished=True,
+                finish_reason="abort", num_prompt_tokens=pf.num_prompt))
+            return
+        if req.params.seed is None:
+            req.assigned_seed = pf.seed
+        k, v = (torch.as_tensor(x) for x in (pf.k, pf.v))
+        cap = self.ecfg.max_cache_len
+        slot = self._free.pop()
+        try:
+            self._faults.fire("admit")
+            k_d = self._upload_tensor(k[:, :, :cap].contiguous())
+            v_d = self._upload_tensor(v[:, :, :cap].contiguous())
+            if self._paged:
+                n = -(-pf.num_prompt // self._page)
+                row = self._assign_slot_pages(slot, n)
+                tf.insert_pages(self.cache, k_d, v_d,
+                                self._upload(row[:n].astype(np.int64)), n)
+            else:
+                tf.insert(self.cache, k_d, v_d, slot)
+            gid, start = self._guide_cols(p)
+            self._ensure_guides_uploaded()
+            keys = self._upload(prng.np_prng_key(pf.seed)[None].astype(
+                np.int64))
+            self._set_slots([slot], [p], prng.fold_in(keys, 1),
+                            [pf.num_prompt],
+                            [start + pf.guide_row if gid >= 0 else 0])
+        except Exception as e:
+            raise StepFault(
+                "admit", faults_mod.classify(e), culprits=[req.request_id],
+                survivors=[_Survivor(request=req, seed=pf.seed,
+                                     num_prompt=pf.num_prompt)]) from e
+        self.trace.evt(req.request_id, "queue", "E")
+        self.trace.evt(req.request_id, "prefill", "B", pf.num_prompt)
+        self._register_slot(req, slot, pf.first_token, pf.num_prompt,
+                            first_lp=pf.first_lp if p.logprobs is not None
+                            else None)
+        if self._paged and pf.prompt_ids:
+            # Publish the transferred prefix: its full pages enter the
+            # device index (tier 0) and go to the host tier, so a restart
+            # or a later eviction keeps the prefill peer's work.
+            ids = [int(t) for t in pf.prompt_ids]
+            pages = list(self._slot_pages.get(slot, []))
+            self._register_prompt_pages(ids, pages)
+            if self._host is not None:
+                nreg = min(len(ids) // self._page, len(pages))
+                for d, pg in zip(chain_digests(ids, self._page, nreg),
+                                 pages[:nreg]):
+                    if not self._host.has(d):
+                        self._spill_victims.append((d, pg))
+                self._spill_flush()
+
+    # ------------------------------------------------------------------
+    # The fleet's prefix tiers: the disk tier, disk and peer fetch, block
+    # export, and the routing sketch
+    # ------------------------------------------------------------------
+
+    def _drain_disk_spills(self) -> bool:
+        """Hand the host tier's queued evictions to the disk writer
+        (engine thread; no file IO).  A "disk_spill" fault has no culprit:
+        a spill serves no request."""
+        if self._disk is None or not self._disk_spill_pending:
+            return False
+        try:
+            self._faults.fire("disk_spill")
+        except Exception as e:
+            if isinstance(e, StepFault):
+                raise
+            raise StepFault("disk_spill", faults_mod.classify(e)) from e
+        n = 0
+        while self._disk_spill_pending:
+            digest, blk = self._disk_spill_pending.popleft()
+            if self._disk.has(digest):
+                continue
+            try:
+                self._disk_write_queue.put_nowait((digest, blk))
+            except queue.Full as e:
+                # Losing a spill costs one future prefill; blocking the
+                # step loop would cost every stream in flight.
+                faults_mod.swallowed("disk_spill.queue_full", e)
+                self._disk_spill_pending.clear()
+                break
+            n += 1
+        if n:
+            self.trace.evt("", "disk_spill", "I", n)
+        return n > 0
+
+    def _flush_warm_to_disk(self) -> None:
+        """Persist the warm prefixes: every page still in the device index
+        (gathered as the spill path gathers) and every host-tier block go
+        to the disk tier, synchronously (a graceful stop or a
+        scale-to-zero: no step runs).  Best effort."""
+        disk, host, alloc = self._disk, self._host, self._alloc
+        if alloc is not None and self.cache is not None:
+            victims = [(d, pg) for d, pg in alloc._index.items()
+                       if not disk.has(d)]
+            g = self._spill_group
+            for i in range(0, len(victims), g):
+                grp = victims[i: i + g]
+                pages = [pg for _, pg in grp]
+                try:
+                    out = tf.gather_pool_pages(self.cache, self._upload(
+                        np.asarray(pages, np.int64)))
+                    arrays = [x.cpu() for x in out if x is not None]
+                except Exception as e:
+                    faults_mod.swallowed("disk_tier.flush", e)
+                    continue
+                names = ("k", "v", "k_scale", "v_scale")[:len(arrays)]
+                for j, (d, _) in enumerate(grp):
+                    disk.put(d, {n: a[:, j].clone()
+                                 for n, a in zip(names, arrays)})
+        if host is not None:
+            digests, _ = host.snapshot()
+            for d in digests:
+                blk = None if disk.has(d) else host.peek(d)
+                if blk is not None:
+                    disk.put(d, blk)
+        self._disk_stats.mirror()
+
+    def _fetch_candidate(self, req: Request, digests: list,
+                         covered: int) -> bool:
+        """Can the disk tier or a peer extend this admission's coverage?
+        Host probes only (the disk check is its in-memory index)."""
+        if self._fetch_queue is None or self._host is None:
+            return False
+        if self._disk is not None and \
+                self._disk.match_digests(digests, covered):
+            return True
+        return self._peer_fetch and bool(req.peer_hint or self._peer_addrs)
+
+    def _issue_fetch(self, req: Request, ids: list[int], digests: list,
+                     start: int) -> None:
+        """Park an admission miss whose uncovered digests the disk tier or
+        a peer may hold; the fetch worker stages them into the host tier.
+        No pages are held across the park."""
+        st = _FetchState(request=req, ids=ids, digests=digests, start=start,
+                         peer=req.peer_hint or None,
+                         seed=self._resolve_seed(req), t0=time.monotonic())
+        self._awaiting_fetch.append(st)
+        self._fetch_queue.put(st)
+        self.trace.evt(req.request_id, "park.fetch", "B",
+                       len(digests) - start)
+
+    def _fetch_ready_any(self) -> bool:
+        return bool(self._free) and any(st.done
+                                        for st in self._awaiting_fetch)
+
+    def _resolve_fetches(self) -> bool:
+        """Unpark the fetches whose worker finished while a slot is free:
+        the admission match runs again (the staged blocks now sit in the
+        host tier) and the request goes on through the host-tier restore
+        or the chunked path.  A fault here is the fetching request's alone
+        (phase "peer_fetch"); an abort while parked just ends it."""
+        did = False
+        pending = self._awaiting_fetch
+        i = 0
+        while i < len(pending):
+            st = pending[i]
+            rid = st.request.request_id
+            with self._abort_lock:
+                aborted = rid in self._aborted
+                self._aborted.discard(rid)
+            if aborted:
+                pending.pop(i)
+                did = True
+                self._unpin_guide(st.request)
+                st.request.outputs.put(RequestOutput(
+                    request_id=rid, token_ids=[], finished=True,
+                    finish_reason="abort", num_prompt_tokens=len(st.ids)))
+                continue
+            if not st.done or not self._free:
+                i += 1
+                continue
+            pending.pop(i)       # before the fault hook: recovery must not
+            did = True           # count the request twice
+            try:
+                self._faults.fire("peer_fetch")
+            except Exception as e:
+                if isinstance(e, StepFault):
+                    raise
+                raise StepFault(
+                    "peer_fetch", faults_mod.classify(e), culprits=[rid],
+                    survivors=[_Survivor(request=st.request, seed=st.seed,
+                                         num_prompt=len(st.ids))]) from e
+            m, page = self.metrics, self._page
+            if st.fetched_disk:
+                m.prefix_peer_fetch_blocks_total.inc(st.fetched_disk,
+                                                     source="disk")
+                m.prefix_cache_hit_tokens_total.inc(st.fetched_disk * page,
+                                                    tier="disk")
+            if st.fetched_peer:
+                m.prefix_peer_fetch_blocks_total.inc(st.fetched_peer,
+                                                     source="peer")
+                m.prefix_cache_hit_tokens_total.inc(st.fetched_peer * page,
+                                                    tier="peer")
+            if st.fetched_disk or st.fetched_peer:
+                m.prefix_peer_fetch_seconds.observe(time.monotonic() - st.t0)
+            self.trace.evt(rid, "park.fetch", "E",
+                           st.fetched_disk + st.fetched_peer)
+            self._admit_after_fetch(st)
+        return did
+
+    def _admit_after_fetch(self, st: _FetchState) -> None:
+        """An unparked fetch through the admission match: the device run
+        (it may have changed while parked), then the host tier (now
+        holding the staged blocks), then the chunked tail.  An empty fetch
+        is a plain chunked prefill: never worse than no fetch."""
+        req, ids, digests = st.request, st.ids, st.digests
+        shared = self._alloc.match(digests)
+        blocks = self._host.match_blocks(digests, len(shared)) \
+            if len(shared) < len(digests) else []
+        if blocks:
+            self._issue_restore(req, ids, digests, shared, blocks)
+        elif shared:
+            self._start_chunked(req, ids, prefix_len=len(shared) * self._page,
+                                prefix_pages=shared, digests=digests)
+        else:
+            self._start_chunked(req, ids)
+
+    def _abort_awaiting_fetches(self) -> None:
+        """End every fetch-parked request (engine exit, the blanket
+        abort)."""
+        for st in self._awaiting_fetch:
+            self._unpin_guide(st.request)
+            st.request.outputs.put(RequestOutput(
+                request_id=st.request.request_id, token_ids=[],
+                finished=True, finish_reason="abort",
+                num_prompt_tokens=len(st.ids)))
+        self._awaiting_fetch = []
+
+    def block_for_export(self, digest: bytes) -> dict | None:
+        """One prefix block for a peer's ``GET /v1/cache/blocks/{digest}``
+        (server threads): the host tier first, peeked (a remote read must
+        not reorder this replica's recency), then the disk tier; None is
+        a 404."""
+        host = self._host
+        if host is not None:
+            blk = host.peek(digest)
+            if blk is not None:
+                return blk
+        disk = self._disk
+        return disk.get(digest) if disk is not None else None
+
+    def cache_sketch(self) -> dict:
+        """The payload of ``GET /v1/cache/sketch`` (server threads): built
+        from the tiers' host-side membership snapshots, never from device
+        data, and cached by the exporter until a membership or the epoch
+        moves.  Scaled to zero, tier 0 is empty while the host and disk
+        tiers stay advertised."""
+        sk = self._sketch
+        if sk is None:
+            return {"enabled": False}
+        alloc = self._alloc if self._armed else None
+        device, dkey = [], (0, -1)
+        if alloc is not None:
+            device, ver = alloc.index_snapshot()
+            # A fresh allocator (a reset, a switch) restarts its version.
+            dkey = (id(alloc), ver)
+        host_list, hver = (self._host.snapshot() if self._host is not None
+                           else ([], -1))
+        disk_list, dkver = (self._disk.snapshot() if self._disk is not None
+                            else ([], -1))
+        hits = self.metrics.prefix_cache_hit_tokens_total
+        return sk.build(
+            device, dkey, host_list, hver, disk=disk_list, disk_key=dkver,
+            hit_tokens={"device": hits.get(tier="device"),
+                        "host": hits.get(tier="host"),
+                        "disk": hits.get(tier="disk")},
+            query_tokens=self.metrics.prefix_cache_query_tokens_total.total(),
+            extra={"model": self.cfg.name})
+
+    def note_prompt_text(self, body: dict, ids) -> None:
+        """Record a request's text-to-token digest alignment in the
+        sketch's ledger (server threads; host hashing only)."""
+        if self._sketch is None:
+            return
+        text = canonical_prompt_text(body)
+        if text:
+            self._sketch.link(text, ids)
+
+    # ------------------------------------------------------------------
     # Pipelined decode (ARKS_PIPELINE_DEPTH) and depth-0 sampler fusion
     # ------------------------------------------------------------------
 
@@ -4190,10 +4868,9 @@ class InferenceEngine:
         with a free slot to resume into, and no preemption wanted (a
         port gate the reference lacks: a victim resumes as soon as a slot
         is free), and no slot decoding (or about to decode) through
-        windowed residency.  The reference's other gates guard subsystems
-        the port does not have (disk or peer fetches) and are left out; so
-        is
-        its wait for the pipe programs' ahead-of-time compile: eager
+        windowed residency, and no finished disk or peer fetch with a free
+        slot to take.  The reference's wait for the pipe programs'
+        ahead-of-time compile is left out: eager
         PyTorch has nothing to compile, and the kernels build at their
         first launch."""
         if not self._slots or self._prefilling or self._pending_admits:
@@ -4206,6 +4883,11 @@ class InferenceEngine:
                 self._restore_ready_any():
             # A restore landed: drain so it can take a slot on exact host
             # mirrors (restores in flight keep the pipeline going).
+            return False
+        if self._fetch_ready_any():
+            # A disk or peer fetch finished staging: drain so it re-enters
+            # admission on exact mirrors (fetches in flight are the
+            # worker's: the pipeline goes on).
             return False
         if self._free and not self._queue.empty():
             return False
@@ -5214,6 +5896,9 @@ class InferenceEngine:
         self._model_ctxs[old] = ctx
         self.pool.release(old)
         self._switch_target = None
+        if self._sketch is not None:
+            # Another model's pool: its blocks are other bytes.
+            self._sketch.bump_epoch("model_switch")
         self._slice_t0 = time.monotonic()
         dt = time.monotonic() - self._switch_t0.pop(name, t0)
         self.metrics.model_switch_seconds.observe(dt)
@@ -5282,7 +5967,14 @@ class InferenceEngine:
         and the sampling rows, every saved model context and the pool's
         residency of the active model, and give the caching allocator's
         freed blocks back to the card.  The host tier and the swapped-out
-        victims stay for the re-arm."""
+        victims stay for the re-arm, and with a disk tier the warm prefixes
+        are written there first (a drained boundary: the flush may wait
+        for the card)."""
+        if self._disk is not None:
+            try:
+                self._flush_warm_to_disk()
+            except Exception as e:
+                faults_mod.swallowed("scale_to_zero.flush", e)
         self.params = None
         self.cache = None
         self._sampling = None
@@ -5305,6 +5997,9 @@ class InferenceEngine:
             if clear is not None:
                 clear()
             torch.cuda.empty_cache()
+        if self._sketch is not None:
+            # Tier 0 died with the pool (host and disk stay advertised).
+            self._sketch.bump_epoch("scale_to_zero")
         self._armed = False
         self._zero_t0 = time.monotonic()
         self._idle_since = None
@@ -5339,7 +6034,11 @@ class InferenceEngine:
         t0 = time.monotonic()
         cfg, draft_cfg = self.cfg, self._draft_cfg
         keep = {"host": self._host, "swap": self._swap,
-                "swapped": self._swapped}
+                "swapped": self._swapped, "disk": self._disk,
+                "disk_write_queue": self._disk_write_queue,
+                "disk_writer": self._disk_writer,
+                "fetch_queue": self._fetch_queue,
+                "disk_stats": self._disk_stats}
         ctx = {a: getattr(self, a) for a in self._model_attr_names}
         streamed = self._rearm_loader is not None
         try:
@@ -5370,6 +6069,8 @@ class InferenceEngine:
             return False
         self._armed = True
         self._idle_since = None
+        if self._sketch is not None:
+            self._sketch.bump_epoch("rearm")
         if self.pool is not None:
             self.pool.adopt(cfg.name, cfg, self.params, pinned=True)
             if draft_cfg is not None:

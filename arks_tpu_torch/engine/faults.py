@@ -238,12 +238,19 @@ class Watchdog:
         self._thread.start()
 
     def stop(self) -> None:
+        """Stop and join the thread, and drop the callbacks: they close
+        over the engine, which a finished watchdog must not keep alive."""
         self._stop.set()
+        t = self._thread
+        if t is not None and t is not threading.current_thread():
+            t.join(timeout=5.0)
+        self._heartbeat = self._on_wedged = None
 
     def _run(self) -> None:
         poll = max(min(self.deadline_s / 4.0, 1.0), 0.02)
+        heartbeat, on_wedged = self._heartbeat, self._on_wedged
         while not self._stop.wait(poll):
-            hb = self._heartbeat()
+            hb = heartbeat()
             if hb is None:
                 continue
             phase, t0 = hb
@@ -256,7 +263,7 @@ class Watchdog:
                 "the supervisor restarts the process", age, self.deadline_s,
                 phase)
             try:
-                self._on_wedged(phase, age)
+                on_wedged(phase, age)
             except Exception as e:  # the escalation must not be derailed
                 swallowed("watchdog.on_wedged", e)
             self._exit_fn(70)

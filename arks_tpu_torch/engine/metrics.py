@@ -4,9 +4,8 @@ buckets, in its registration order, so ``GET /metrics`` reads the same on
 both servers.
 
 Only the families whose mechanism the port has are registered.  Left out,
-with their subsystems: live resize (``resize_seconds``; the
-``engine_resizes_total`` family counts scale-to-zero and re-arm only), and
-the disk tier and peer fetch (``prefix_disk_*``, ``prefix_peer_fetch_*``).
+with its subsystem: live resize (``resize_seconds``; the
+``engine_resizes_total`` family counts scale-to-zero and re-arm only).
 
 Every update reads host-side values (the engine's host mirrors and batch
 arrays), never a device tensor.
@@ -72,6 +71,26 @@ class EngineMetrics:
             "Host-tier restore latency (scatter issue -> request unparked)",
             buckets=[0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
                      0.5, 1, 2.5])
+        # Tier 2 (the disk tier) and fleet peer fetch: disk-budget churn,
+        # a poisoned disk tier (corrupt reads), and fetches.
+        self.prefix_disk_evictions_total = r.counter(
+            "prefix_disk_evictions_total",
+            "KV page blocks LRU-evicted from the tier-2 disk store past "
+            "its byte budget")
+        self.prefix_disk_corrupt_total = r.counter(
+            "prefix_disk_corrupt_total",
+            "Tier-2 block files rejected on read (corrupt, truncated, or "
+            "stale-epoch) and deleted")
+        self.prefix_peer_fetch_blocks_total = r.counter(
+            "prefix_peer_fetch_blocks_total",
+            "Prefix KV blocks fetched into the host tier, by source "
+            "(disk = local tier 2, peer = remote replica)")
+        self.prefix_peer_fetch_seconds = r.histogram(
+            "prefix_peer_fetch_seconds",
+            "Disk/peer prefix fetch latency (park -> blocks staged in "
+            "the host tier)",
+            buckets=[0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1,
+                     2.5, 5, 10])
         self.guided_requests_total = r.counter(
             "guided_requests_total",
             "Admitted guided-decoding requests by guide kind")

@@ -18,13 +18,17 @@ tables); this is the authority over which pool page holds what:
   mirrors of one mixed dispatch's page steps and KV bytes that feed the
   engine's ``mixed_grid_steps*`` / ``mixed_kv_bytes*`` counters.
 
-The reference's membership mirror for the routing sketch serves the cache
-sketch endpoint, which the port's server does not have, and is not copied.
-Thread-safety: engine thread only.
+- **Membership mirror** (``index_snapshot``): which digests the index
+  holds, in registration order, with a version that moves only when the
+  membership does: the tier-0 input of the routing sketch, read from
+  server threads under its own lock.
+
+Thread-safety: the engine thread only, except ``index_snapshot``.
 """
 
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 
 import numpy as np
@@ -128,6 +132,13 @@ class PageAllocator:
         # Must not raise and must not call back into the allocator (it
         # runs mid-alloc).
         self.on_evict = on_evict
+        # Membership mirror for the routing sketch: server threads read a
+        # consistent view of WHICH digests are indexed while _index stays
+        # engine-thread only.  It follows registrations and evictions, not
+        # LRU touches, so a match never takes the lock.
+        self._mirror_lock = threading.Lock()
+        self._mirror: "OrderedDict[bytes, None]" = OrderedDict()
+        self.index_version = 0
         self.hit_tokens = 0
         self.query_tokens = 0
 
@@ -159,6 +170,9 @@ class PageAllocator:
     def _evict_lru(self) -> None:
         digest, pg = self._index.popitem(last=False)
         del self._page_digest[pg]
+        with self._mirror_lock:
+            self._mirror.pop(digest, None)
+            self.index_version += 1
         if self.on_evict is not None:
             self.on_evict(digest, pg)
         self._ref[pg] -= 1
@@ -211,6 +225,16 @@ class PageAllocator:
             self._index[d] = pg
             self._page_digest[pg] = d
             self._ref[pg] += 1
+            with self._mirror_lock:
+                self._mirror[d] = None
+                self._mirror.move_to_end(d)
+                self.index_version += 1
+
+    def index_snapshot(self) -> tuple[list[bytes], int]:
+        """Indexed digests (registration order, oldest first) and the
+        membership version: the routing sketch's tier 0.  Any thread."""
+        with self._mirror_lock:
+            return list(self._mirror), self.index_version
 
     # -- stats ---------------------------------------------------------
 

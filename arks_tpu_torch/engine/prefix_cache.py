@@ -1,10 +1,10 @@
-"""Host-RAM prefix KV stores — the port's copy of
-``arks_tpu/engine/prefix_cache.py``'s ``PrefixKVCache`` and
-``HostPrefixTier``.
+"""Host-RAM and disk prefix KV stores — the port's copy of
+``arks_tpu/engine/prefix_cache.py``'s ``PrefixKVCache``, ``HostPrefixTier``,
+``DiskPrefixTier`` and ``SwapStore``.
 
-Both key blocks of ``block``/``page`` tokens by the chained content digest
+Each keys blocks of ``block``/``page`` tokens by the chained content digest
 of the whole prompt prefix up to the block's end (``prefix_sketch``), so two
-prompts share entries exactly as far as their tokens agree, and both evict
+prompts share entries exactly as far as their tokens agree, and each evicts
 least-recently-used blocks past a byte budget.  Values are CPU tensors (the
 reference keeps numpy arrays; numpy has no bfloat16).
 
@@ -15,26 +15,36 @@ reference keeps numpy arrays; numpy has no bfloat16).
   pool pages (``{"k", "v"[, "k_scale", "v_scale"]}``, each ``[L, Hkv, P(/2),
   D]`` — int8 and packed int4 pages with their f32 scales), spilled when
   the index evicts them and scattered back at a later admission, so a
-  restore reproduces the pool's bytes exactly.
-
+  restore reproduces the pool's bytes exactly.  Its blocks evicted past
+  the budget go to ``on_evict`` (the disk tier's spill queue), and
+  ``snapshot`` gives the routing sketch its membership.
+- ``DiskPrefixTier`` is tier 2: the same blocks, one AKV1 file each
+  (``kv_transfer.pack_block``), so warm prefixes survive a restart and can
+  be served verbatim to a fetching peer.
 - ``SwapStore`` holds preempted requests' decode state (``ARKS_PREEMPT``):
   their raw pool pages and sampler row, keyed by request id, never
   evicted, its bytes reserved out of the host tier's budget.
 
-Not copied yet: the disk tier behind the host tier (``DiskPrefixTier``)
-and the host tier's eviction hook and membership snapshot, which serve it
-and the routing sketch.  Thread-safety: engine thread only (the
-reference's locks guard its disaggregated-prefill and peer-serving
-threads, which the port does not have).
+Thread-safety: the host tier's map is guarded by a lock (the engine thread
+spills and restores; server threads export blocks to peers, the fetch
+worker stages blocks from disk and peers, and the sketch reads its
+membership); the disk tier's index likewise, its file IO running on the
+writer, fetch and server threads.  ``PrefixKVCache`` and ``SwapStore``'s
+map are the engine thread's.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import threading
 from collections import OrderedDict
 
 import torch
 
+from arks_tpu_torch.engine import kv_transfer
 from arks_tpu_torch.prefix_sketch import chain_digests, iter_chain_digests
+from arks_tpu_torch.utils.swallow import swallowed
 
 
 def _nbytes(block) -> int:
@@ -132,55 +142,92 @@ class HostPrefixTier:
             raise ValueError("page_tokens must be positive")
         self.page = page_tokens
         self.capacity = capacity_bytes
+        # Eviction sink: on_evict(digest, block) for every block evicted
+        # past the budget (the disk tier's spill queue), called after the
+        # lock is released.
+        self.on_evict = None
+        self.reserved = 0
+        self._lock = threading.Lock()
         # digest -> block {"k", "v"[, "k_scale", "v_scale"]}, LRU order.
         self._blocks: "OrderedDict[bytes, dict]" = OrderedDict()
         self._bytes = 0
-        self.reserved = 0
+        # Membership version for the routing sketch: moves on every insert,
+        # eviction and clear (not on LRU touches).
+        self.version = 0
         self.spilled_blocks = 0
         self.restored_blocks = 0
 
     def has(self, digest: bytes) -> bool:
-        return digest in self._blocks
+        with self._lock:
+            return digest in self._blocks
 
     def put(self, digest: bytes, block: dict) -> bool:
         """Store one pool page block (an LRU touch if present).  Returns
         True when the block was newly stored and survived the budget."""
         block = {k: v for k, v in block.items() if v is not None}
-        if digest in self._blocks:
-            self._blocks.move_to_end(digest)
-            return False
-        self._blocks[digest] = block
-        self._bytes += _nbytes(block.values())
-        self.spilled_blocks += 1
-        self._evict_to_budget()
-        return digest in self._blocks
+        with self._lock:
+            if digest in self._blocks:
+                self._blocks.move_to_end(digest)
+                return False
+            self._blocks[digest] = block
+            self._bytes += _nbytes(block.values())
+            self.spilled_blocks += 1
+            self.version += 1
+            evicted = self._evict_to_budget()
+            stored = digest in self._blocks
+        self._notify_evicted(evicted)
+        return stored
 
-    def _evict_to_budget(self) -> None:
-        """LRU-evict prefix blocks past ``capacity - reserved``."""
+    def _evict_to_budget(self) -> list:
+        """LRU-evict prefix blocks past ``capacity - reserved`` (the lock
+        held); returns the evicted (digest, block) pairs for
+        ``on_evict``."""
         budget = max(self.capacity - self.reserved, 0)
+        evicted = []
         while self._bytes > budget and self._blocks:
-            _, old = self._blocks.popitem(last=False)
+            d, old = self._blocks.popitem(last=False)
             self._bytes -= _nbytes(old.values())
+            self.version += 1
+            evicted.append((d, old))
+        return evicted
+
+    def _notify_evicted(self, evicted: list) -> None:
+        cb = self.on_evict
+        if cb is not None:
+            for d, blk in evicted:
+                cb(d, blk)
 
     def match_blocks(self, digests: list[bytes], start: int) -> list[dict]:
         """The longest run of consecutively stored blocks for
-        ``digests[start:]``, LRU-touched.  Callers must not mutate them."""
+        ``digests[start:]``, LRU-touched under one lock hold.  Callers
+        must not mutate them."""
         out: list[dict] = []
-        for d in digests[start:]:
-            blk = self._blocks.get(d)
-            if blk is None:
-                break
-            self._blocks.move_to_end(d)
-            out.append(blk)
+        with self._lock:
+            for d in digests[start:]:
+                blk = self._blocks.get(d)
+                if blk is None:
+                    break
+                self._blocks.move_to_end(d)
+                out.append(blk)
         return out
 
     def peek(self, digest: bytes) -> dict | None:
-        """The stored block without an LRU touch."""
-        return self._blocks.get(digest)
+        """The stored block without an LRU touch (a peer's fetch must not
+        reorder this replica's recency)."""
+        with self._lock:
+            return self._blocks.get(digest)
 
     def clear(self) -> None:
-        self._blocks.clear()
-        self._bytes = 0
+        with self._lock:
+            self._blocks.clear()
+            self._bytes = 0
+            self.version += 1
+
+    def snapshot(self) -> tuple[list[bytes], int]:
+        """Stored digests (LRU order, oldest first) and the membership
+        version: the routing sketch's tier 1."""
+        with self._lock:
+            return list(self._blocks), self.version
 
     @property
     def bytes_used(self) -> int:
@@ -188,7 +235,227 @@ class HostPrefixTier:
 
     @property
     def num_blocks(self) -> int:
-        return len(self._blocks)
+        with self._lock:
+            return len(self._blocks)
+
+
+class DiskPrefixTier:
+    """Tier 2 behind the host tier: the same digest keys and pool-native
+    blocks, one AKV1 file each (``kv_transfer.pack_block``), LRU by bytes
+    (``ARKS_PREFIX_DISK_MB``).  The directory is re-indexed at boot, so
+    warm prefixes survive a restart.
+
+    Layout safety: digests are content-only, so every file carries the
+    pool layout signature (``epoch``) and a ``manifest.json`` stamps the
+    directory; a boot under another layout wipes it, and a file of another
+    epoch is refused on read.  Crash safety: writes go tmp + fsync +
+    rename (a torn write leaves a ``.tmp`` orphan, removed at boot); a
+    corrupt, truncated or stale file is deleted on read and counted in
+    ``corrupt_blocks``, and the caller sees a miss.
+
+    The index (digest -> file size) is lock-guarded and cheap; the file
+    IO (``get``/``put``) runs on the writer, fetch and server threads."""
+
+    SUFFIX = ".akv"
+    MANIFEST = "manifest.json"
+    FORMAT = 1
+
+    def __init__(self, page_tokens: int, capacity_bytes: int,
+                 directory: str, epoch: str) -> None:
+        if page_tokens <= 0:
+            raise ValueError("page_tokens must be positive")
+        self.page = page_tokens
+        self.capacity = capacity_bytes
+        self.epoch = epoch
+        self.dir = directory
+        self._lock = threading.Lock()
+        # digest -> file size in bytes, LRU order (oldest first).
+        self._index: "OrderedDict[bytes, int]" = OrderedDict()
+        self._bytes = 0
+        self.version = 0
+        self.spilled_blocks = 0
+        self.restored_blocks = 0
+        self.evicted_blocks = 0
+        self.corrupt_blocks = 0
+        os.makedirs(self.dir, exist_ok=True)
+        self._boot_scan()
+
+    def _path(self, digest: bytes) -> str:
+        return os.path.join(self.dir, digest.hex() + self.SUFFIX)
+
+    def _boot_scan(self) -> None:
+        """Adopt, or wipe, what an earlier process left: a manifest of
+        another layout means every block there has other bytes per page."""
+        mpath = os.path.join(self.dir, self.MANIFEST)
+        try:
+            with open(mpath, encoding="utf-8") as f:
+                m = json.load(f)
+            stale = (m.get("epoch") != self.epoch
+                     or m.get("format") != self.FORMAT)
+        except FileNotFoundError:
+            stale = False
+        except (OSError, ValueError, AttributeError) as e:
+            swallowed("disk_tier.manifest", e)
+            stale = True
+        for name in sorted(os.listdir(self.dir)):
+            path = os.path.join(self.dir, name)
+            if name.endswith(".tmp"):
+                self._unlink(path)        # a torn write: never adopted
+                continue
+            if not name.endswith(self.SUFFIX):
+                continue
+            if stale:
+                self._unlink(path)
+                continue
+            try:
+                digest = bytes.fromhex(name[:-len(self.SUFFIX)])
+                size = os.path.getsize(path)
+            except (ValueError, OSError) as e:
+                swallowed("disk_tier.scan", e)
+                self._unlink(path)
+                continue
+            self._index[digest] = size
+            self._bytes += size
+        tmp = mpath + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump({"epoch": self.epoch, "format": self.FORMAT}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, mpath)
+        with self._lock:
+            for d in self._evict_to_budget():
+                self._unlink(self._path(d))
+
+    @staticmethod
+    def _unlink(path: str) -> None:
+        try:
+            os.unlink(path)
+        except OSError as e:
+            swallowed("disk_tier.unlink", e)
+
+    def has(self, digest: bytes) -> bool:
+        with self._lock:
+            return digest in self._index
+
+    def match_digests(self, digests: list[bytes], start: int) -> list[bytes]:
+        """The longest run of indexed digests from ``digests[start:]``,
+        LRU-touched: an in-memory probe (the engine thread's admission;
+        the file reads happen later, off that thread)."""
+        out: list[bytes] = []
+        with self._lock:
+            for d in digests[start:]:
+                if d not in self._index:
+                    break
+                self._index.move_to_end(d)
+                out.append(d)
+        return out
+
+    def snapshot(self) -> tuple[list[bytes], int]:
+        """Indexed digests and the membership version (the sketch's
+        tier 2)."""
+        with self._lock:
+            return list(self._index), self.version
+
+    def put(self, digest: bytes, block: dict) -> bool:
+        """Persist one block (tmp + fsync + rename).  Returns True when
+        newly stored; an IO failure is swallowed and leaves it absent."""
+        with self._lock:
+            if digest in self._index:
+                self._index.move_to_end(digest)
+                return False
+        buf = kv_transfer.pack_block(digest, self.epoch, block)
+        path = self._path(digest)
+        tmp = path + f".{os.getpid()}.{threading.get_ident()}.tmp"
+        try:
+            with open(tmp, "wb") as f:
+                f.write(buf)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+        except OSError as e:
+            swallowed("disk_tier.put", e)
+            self._unlink(tmp)
+            return False
+        with self._lock:
+            if digest in self._index:       # another writer won the race
+                return False
+            self._index[digest] = len(buf)
+            self._bytes += len(buf)
+            self.spilled_blocks += 1
+            self.version += 1
+            evicted = self._evict_to_budget()
+        for d in evicted:
+            self._unlink(self._path(d))
+        return True
+
+    def get(self, digest: bytes) -> dict | None:
+        """Read and validate one block; a missing, corrupt, truncated or
+        cross-epoch file is a miss (and, but for a missing one, deleted
+        and counted)."""
+        path = self._path(digest)
+        try:
+            with open(path, "rb") as f:
+                buf = f.read()
+        except FileNotFoundError:
+            self._drop(digest)
+            return None
+        except OSError as e:
+            swallowed("disk_tier.read", e)
+            self._drop(digest)
+            return None
+        try:
+            blk = kv_transfer.unpack_block(buf, digest, self.epoch)
+        except Exception as e:   # any malformed file is a miss
+            swallowed("disk_tier.get", e)
+            self._unlink(path)
+            with self._lock:
+                self.corrupt_blocks += 1
+            self._drop(digest)
+            return None
+        with self._lock:
+            if digest in self._index:
+                self._index.move_to_end(digest)
+            self.restored_blocks += 1
+        return blk
+
+    def _drop(self, digest: bytes) -> None:
+        with self._lock:
+            size = self._index.pop(digest, None)
+            if size is not None:
+                self._bytes -= size
+                self.version += 1
+
+    def _evict_to_budget(self) -> list[bytes]:
+        """LRU-evict past the byte budget (the lock held); returns the
+        evicted digests, whose files the caller deletes outside it."""
+        evicted: list[bytes] = []
+        while self._bytes > self.capacity and self._index:
+            d, size = self._index.popitem(last=False)
+            self._bytes -= size
+            self.version += 1
+            self.evicted_blocks += 1
+            evicted.append(d)
+        return evicted
+
+    def clear(self) -> None:
+        """Drop every block, index and files (the blanket abort's deep
+        clean: a poisoned tier must not come back at the next boot)."""
+        with self._lock:
+            digests = list(self._index)
+            self._index.clear()
+            self._bytes = 0
+            self.version += 1
+        for d in digests:
+            self._unlink(self._path(d))
+
+    @property
+    def bytes_used(self) -> int:
+        return self._bytes
+
+    @property
+    def num_blocks(self) -> int:
+        with self._lock:
+            return len(self._index)
 
 
 class SwapStore:
@@ -229,10 +496,12 @@ class SwapStore:
         t = self._tier
         if rid in self._entries:
             return True
-        if t.reserved + need > t.capacity:
-            return False
-        t.reserved += need
-        t._evict_to_budget()
+        with t._lock:
+            if t.reserved + need > t.capacity:
+                return False
+            t.reserved += need
+            evicted = t._evict_to_budget()
+        t._notify_evicted(evicted)
         self._entries[rid] = (entry, need)
         return True
 
@@ -242,7 +511,8 @@ class SwapStore:
         if rec is None:
             return None
         entry, need = rec
-        self._tier.reserved = max(self._tier.reserved - need, 0)
+        with self._tier._lock:
+            self._tier.reserved = max(self._tier.reserved - need, 0)
         return entry
 
     def discard(self, rid: str) -> bool:

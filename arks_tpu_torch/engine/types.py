@@ -1,8 +1,9 @@
 """Request/response dataclasses for the serving engine (copy of
 ``arks_tpu/engine/types.py``).  ``SamplingParams`` keeps every field of the
 reference, and the port's engine serves each of them, so one request means
-the same thing to both engines.  ``Request`` drops the fields of features
-that are later slices (disaggregated prefill, peer fetch)."""
+the same thing to both engines, and ``Request`` carries the reference's
+fields: a disaggregated decode side's ``prefilled`` state and the router's
+``peer_hint``."""
 
 from __future__ import annotations
 
@@ -39,6 +40,36 @@ class SamplingParams:
 
 
 @dataclasses.dataclass
+class PrefilledState:
+    """A detached prefill's result, moved from a prefill engine to a decode
+    engine (``server/disagg.py``, over the AKV1 wire).
+
+    K/V are ``[L, 1, T, Hkv, D]`` host tensors (T = the prefill bucket) in
+    the prefill engine's compute dtype; the decode engine inserts them
+    into its own cache (quantizing for an int8/int4 pool).  The prefill
+    side sampled the first token with ``key(seed)``; the decode side
+    continues from ``fold_in(key(seed), 1)``, so the stream is the one a
+    single engine would have produced with that seed."""
+
+    first_token: int
+    num_prompt: int
+    seed: int
+    k: object
+    v: object
+    # The first token's logprob entry (chosen, [(id, logprob), ...]) when
+    # the request asked for logprobs.
+    first_lp: object | None = None
+    # The guide's DFA row after the first token, RELATIVE to the guide's
+    # start row (the decode side rebases it onto its own guide table).
+    guide_row: int = 0
+    # The prompt's ids: the decode side keys the inserted pages by chain
+    # digest (device index, host tier).  Empty from a peer that sends none.
+    prompt_ids: list | None = None
+    # Informational: the dtype the K/V travel in.
+    kv_dtype: str = "bf16"
+
+
+@dataclasses.dataclass
 class Request:
     request_id: str
     prompt_ids: list[int]
@@ -63,6 +94,13 @@ class Request:
     # engine's primary).  A request for another registered model parks
     # until the engine switches to it.
     model: str | None = None
+    # Disaggregated serving: K/V prefilled by another engine; when set,
+    # this engine inserts them instead of running the prefill.
+    prefilled: PrefilledState | None = None
+    # Fleet prefix cache: the peer ("host:port") the router believes
+    # holds this prompt's warm prefix blocks (``x-arks-peer-hint``); with
+    # ARKS_PEER_FETCH an admission miss fetches the blocks from it.
+    peer_hint: str | None = None
 
 
 @dataclasses.dataclass

@@ -18,11 +18,19 @@ DEFAULTS: dict[str, str | None] = {
     "ARKS_PIPELINE_DEPTH": "2",
     "ARKS_SAMPLER_FUSE": "1",
     "ARKS_OVERLAP_DECODE": "auto",
-    # Prefix tiers; the disk tier and peer fetch are refused.
+    # Prefix tiers: host RAM, local disk, and blocks fetched from peers.
     "ARKS_PREFIX_HOST_MB": "256",
     "ARKS_PREFIX_DISK_MB": "0",
+    "ARKS_PREFIX_DISK_DIR": None,           # <tmpdir>/arks-prefix-disk
     "ARKS_PEER_FETCH": "0",
+    "ARKS_PEER_FETCH_TIMEOUT_S": "5",
     "ARKS_PEER_ADDRS": None,
+    # The prefix-digest sketch the router polls (prefix_sketch.py).
+    "ARKS_ROUTER_SKETCH_CHARS": "256",
+    "ARKS_ROUTER_SKETCH_BITS": "16384",
+    "ARKS_ROUTER_SKETCH_HASHES": "4",
+    "ARKS_ROUTER_SKETCH_TOPK": "128",
+    "ARKS_ROUTER_SKETCH_LINKS": "4096",
     # Windowed-residency decode: a slot's resident page budget (0 = off).
     "ARKS_RESIDENCY_WINDOW_PAGES": "0",
     # The multi-model weight pool and its switch policy
@@ -122,6 +130,11 @@ def get_enum(name: str, values: tuple[str, ...]) -> str:
         raise ValueError(f"{name}={v!r}: expected one of "
                          f"{', '.join(values)}")
     return v
+
+
+def get_list(name: str) -> list[str]:
+    """Comma-separated setting as a list of its non-empty items."""
+    return [x.strip() for x in (raw(name) or "").split(",") if x.strip()]
 
 
 def get_bool(name: str) -> bool:

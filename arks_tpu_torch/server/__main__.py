@@ -23,10 +23,19 @@ weight budget, ``ARKS_MODEL_POOL_HBM_MB``; LRU-evicts idle secondary
 models) or ``--draft-model`` is given; the primary and the draft are
 pinned in it.
 
+``--disaggregation-mode prefill`` serves ``POST /v1/prefill`` on an
+engine that never starts its step loop (``server/disagg.py``
+``PrefillServer``); ``decode`` serves the OpenAI endpoints and
+``/v1/disagg/*``, which pull each prompt's K/V from the prefill server
+named in ``X-Arks-Prefill-Addr`` (``DecodeServer``).  The prefix tiers
+behind the pool read the environment: ``ARKS_PREFIX_DISK_MB`` and
+``ARKS_PREFIX_DISK_DIR`` (the disk tier), ``ARKS_PEER_FETCH``,
+``ARKS_PEER_ADDRS`` and ``ARKS_PEER_FETCH_TIMEOUT_S`` (peer block fetch).
+
 The reference's parallelism flags (``--tensor-parallel-size`` and the
-others) are accepted at 1 and refused above it; ``--disaggregation-mode``
-is refused.  ``--dispatch-deadline`` and ``--fault-retries`` set
-``ARKS_DISPATCH_DEADLINE_S`` and ``ARKS_FAULT_RETRIES``.
+others) are accepted at 1 and refused above it.  ``--dispatch-deadline``
+and ``--fault-retries`` set ``ARKS_DISPATCH_DEADLINE_S`` and
+``ARKS_FAULT_RETRIES``.
 
 SIGTERM drains (readiness 503, new completions 503, in-flight requests
 finish for up to ``--drain-timeout`` seconds, default
@@ -130,8 +139,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         "ARKS_FAULT_RETRIES; default 1)")
     p.add_argument("--disaggregation-mode", choices=("prefill", "decode"),
                    default=None, dest="disagg",
-                   help="disaggregated prefill/decode role: refused (not "
-                        "served by this port yet)")
+                   help="disaggregated serving role: prefill (POST "
+                        "/v1/prefill, no decode loop) or decode (pulls the "
+                        "K/V from X-Arks-Prefill-Addr on /v1/disagg/*)")
     return p.parse_args(argv)
 
 
@@ -146,10 +156,6 @@ def build_engine(args: argparse.Namespace):
     from arks_tpu_torch.models.config import ModelConfig, get_config
     from arks_tpu_torch.models.weights import has_real_weights, load_params
 
-    if args.disagg:
-        raise NotImplementedError(
-            f"--disaggregation-mode {args.disagg}: disaggregated prefill/"
-            "decode serving is not served by this port yet")
     if (args.num_slices or 1) > 1:
         raise NotImplementedError(
             f"num_slices={args.num_slices}: parallelism arrives with the "
@@ -240,15 +246,27 @@ def build_engine(args: argparse.Namespace):
     return cfg, engine
 
 
+def make_server(args: argparse.Namespace, engine, served: str):
+    """The server class of ``--disaggregation-mode``: PrefillServer,
+    DecodeServer, or the unified OpenAIServer."""
+    if args.disagg == "prefill":
+        from arks_tpu_torch.server.disagg import PrefillServer as cls
+    elif args.disagg == "decode":
+        from arks_tpu_torch.server.disagg import DecodeServer as cls
+    else:
+        from arks_tpu_torch.server.openai_server import OpenAIServer as cls
+    return cls(engine, served, host=args.host, port=args.port)
+
+
 def main(argv: list[str] | None = None) -> None:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     cfg, engine = build_engine(args)
-    from arks_tpu_torch.server.openai_server import OpenAIServer
-    server = OpenAIServer(engine, args.served_model_name or cfg.name,
-                          host=args.host, port=args.port)
+    server = make_server(args, engine, args.served_model_name or cfg.name)
     log = logging.getLogger("arks_tpu_torch.server")
-    engine.start()
+    if args.disagg != "prefill":
+        # A prefill server's engine runs detached prefills only.
+        engine.start()
     done = threading.Event()
 
     def _drain_then_exit():
@@ -264,8 +282,8 @@ def main(argv: list[str] | None = None) -> None:
     signal.signal(signal.SIGTERM, _on_term)
     signal.signal(signal.SIGINT, lambda *_: done.set())
     server.start(background=True)
-    log.info("serving %s on %s:%d (%s)", cfg.name, args.host, server.port,
-             engine.device)
+    log.info("serving %s on %s:%d (%s, %s)", cfg.name, args.host,
+             server.port, engine.device, args.disagg or "unified")
     # A timed wait: a signal delivered to another thread runs its handler
     # only once the main thread next runs Python code.
     while not done.wait(0.1):

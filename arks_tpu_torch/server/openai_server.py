@@ -20,13 +20,19 @@ surface of ``arks_tpu/server/openai_server.py``).
   metric families, Prometheus text ``version=0.0.4``); GET /readiness:
   200 ``{"status": "ready", "admission": ..., "slo_burn": ...,
   "elastic": ...}`` once the server listens and the engine's loop has
-  finished a step, 503 while draining, before that, while the engine
+  finished a step (with the ``sketch`` block: the routing sketch's epoch,
+  version and age), 503 while draining, before that, while the engine
   recovers from a fault ("recovering") or is wedged ("wedged"), while it
   is scaled to zero ("scaled to zero (disarmed)"), or once the loop has
   stopped.  GET /v1/elastic/status (reachable while disarmed); POST
   /v1/elastic/resize answers 501 (no live resize on one card).  The
-  reference's worker-gang and cache-sketch branches belong to subsystems
-  the port does not have.
+  reference's worker-gang branches belong to a subsystem the port does
+  not have.
+- The fleet: GET /v1/cache/sketch (the prefix-digest sketch a router
+  polls), GET /v1/cache/blocks/{digest} (one prefix block as an AKV1
+  message for a fetching peer; 404 when not held), and the
+  ``x-arks-peer-hint`` header (the peer a fetch asks first).  Subclasses
+  add POST routes through ``handle_post`` (``server/disagg.py``).
 - Multi-model: a request's ``model`` field routes it to a pool model
   (404 for an unknown one); ``model_pool_exhausted`` answers 503 with
   ``Retry-After``, ``model_load_failed`` 500.
@@ -52,6 +58,7 @@ work to the engine thread and read its output queue.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -63,7 +70,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from arks_tpu_torch import slo as slo_mod
 from arks_tpu_torch import tenancy
-from arks_tpu_torch.engine import fairqueue
+from arks_tpu_torch.engine import fairqueue, kv_transfer
 from arks_tpu_torch.engine import sampler as sampler_mod
 from arks_tpu_torch.engine.engine import InferenceEngine
 from arks_tpu_torch.engine.tokenizer import IncrementalDetokenizer
@@ -230,6 +237,9 @@ class OpenAIServer:
         self.draining = False
         self._active = 0
         self._active_lock = threading.Lock()
+        # Every handler between its first and its last byte (GET and
+        # POST): ``stop`` waits for them.
+        self._handlers = 0
         self._stopped = False
 
     def start(self, background: bool = True) -> None:
@@ -261,6 +271,14 @@ class OpenAIServer:
                                             "code": code}})
 
             def do_GET(self):
+                with server.handling():
+                    self._get()
+
+            def do_POST(self):
+                with server.handling():
+                    self._post()
+
+            def _get(self):
                 if self.path == "/v1/models":
                     self._json(200, server.models_payload())
                 elif self.path == "/v1/elastic/status":
@@ -298,6 +316,25 @@ class OpenAIServer:
                          "flags": t["flags"], "tier": t.get("tier"),
                          "spans": len(t["spans"])}
                         for t in tracer.store.all()]})
+                elif self.path.startswith("/v1/cache/blocks/"):
+                    # One raw AKV1 block for a fetching peer (the host tier
+                    # peeked, then the disk tier); 404 sends the peer to
+                    # its own prefill.
+                    buf = server.block_payload(
+                        self.path[len("/v1/cache/blocks/"):])
+                    if buf is None:
+                        self._error(404, "block not resident")
+                    else:
+                        self.send_response(200)
+                        self.send_header("Content-Type",
+                                         "application/octet-stream")
+                        self.send_header("Content-Length", str(len(buf)))
+                        self.end_headers()
+                        self.wfile.write(buf)
+                elif self.path == "/v1/cache/sketch":
+                    # The routing sketch, from host-side membership
+                    # snapshots only.
+                    self._json(200, server.engine.cache_sketch())
                 elif self.path.startswith("/v1/traces/"):
                     # By trace id OR request id.
                     tracer = server.engine.trace
@@ -311,7 +348,7 @@ class OpenAIServer:
                 else:
                     self._error(404, f"no route {self.path}")
 
-            def do_POST(self):
+            def _post(self):
                 if self.path == "/v1/elastic/resize":
                     # The reference's answer for an engine without live
                     # resize (one card: no topology to change).
@@ -320,7 +357,8 @@ class OpenAIServer:
                 if self.path not in ("/v1/completions",
                                      "/v1/chat/completions",
                                      "/v1/profiler/start",
-                                     "/v1/profiler/stop"):
+                                     "/v1/profiler/stop") and \
+                        self.path not in server.post_routes:
                     return self._error(404, f"no route {self.path}")
                 try:
                     n = int(self.headers.get("Content-Length") or 0)
@@ -341,8 +379,10 @@ class OpenAIServer:
                         return self._error(503, "server is draining")
                     server._active += 1
                 try:
-                    server.handle_completion(
-                        self, body, chat=self.path == "/v1/chat/completions")
+                    if not server.handle_post(self, body, self.path):
+                        server.handle_completion(
+                            self, body,
+                            chat=self.path == "/v1/chat/completions")
                 except BrokenPipeError:
                     pass
                 except Exception as e:  # engine/request failure -> 500
@@ -390,7 +430,28 @@ class OpenAIServer:
             httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout=10.0)
+        # A handler thread runs on in this server's (or its engine's)
+        # method for a moment after its client has the last byte, its frame
+        # holding the server or the engine: wait for those frames to end,
+        # so that a stopped server dropped by ``del`` frees its engine at
+        # once.
+        deadline = time.monotonic() + 10.0
+        while time.monotonic() < deadline:
+            with self._active_lock:
+                if self._handlers == 0:
+                    break
+            time.sleep(0.005)
 
+    @contextlib.contextmanager
+    def handling(self):
+        """Count one request handler in flight (``stop`` waits for it)."""
+        with self._active_lock:
+            self._handlers += 1
+        try:
+            yield
+        finally:
+            with self._active_lock:
+                self._handlers -= 1
     def readiness(self) -> tuple[int, dict | str]:
         """(200, the ready payload) or (503, the reason)."""
         if self.draining:
@@ -405,14 +466,49 @@ class OpenAIServer:
         if not self.engine.armed:
             # Scaled to zero: no device state exists until demand re-arms.
             return 503, "scaled to zero (disarmed)"
-        if not self.engine.warm:
+        if self.needs_loop and not self.engine.warm:
             return 503, "not ready"
-        if not self.engine.serving:
+        if self.needs_loop and not self.engine.serving:
             return 503, "engine loop stopped"
         return 200, {"status": "ready",
+                     "sketch": self.sketch_meta(),
                      "admission": self.engine.saturation(),
                      "slo_burn": self.engine.slo_burn(),
                      "elastic": self.engine.elastic_status()}
+
+    # Routes a subclass serves by POST (``handle_post``), and whether the
+    # engine's step loop must run for the server to be ready (a prefill
+    # server's engine never starts it).
+    post_routes: tuple[str, ...] = ()
+    needs_loop = True
+
+    def handle_post(self, h, body: dict, path: str) -> bool:
+        """A subclass's POST route; False hands the request to the
+        completion endpoints."""
+        return False
+
+    def block_payload(self, hexdigest: str) -> bytes | None:
+        """One prefix block packed for the peer-fetch wire (``GET
+        /v1/cache/blocks/{digest}``): the engine looks the tiers up, and
+        the packing runs here, on the server thread."""
+        try:
+            digest = bytes.fromhex(hexdigest)
+        except ValueError:
+            return None
+        blk = self.engine.block_for_export(digest)
+        if blk is None:
+            return None
+        return kv_transfer.pack_block(digest, self.engine.kv_epoch, blk)
+
+    def sketch_meta(self) -> dict:
+        """The readiness payload's sketch block (not the sketch)."""
+        p = self.engine.cache_sketch()
+        if not p.get("enabled"):
+            return {"enabled": False}
+        return {"enabled": True, "epoch": p.get("epoch"),
+                "version": p.get("version"),
+                "age_s": round(max(0.0, time.time()
+                                   - float(p.get("built_unix", 0.0))), 3)}
 
     def models_payload(self) -> dict:
         """``/v1/models``: the primary under the served name, and with a
@@ -547,6 +643,11 @@ class OpenAIServer:
         for prompt_ids in batch:
             if len(prompt_ids) > limit:
                 return self._context_length_error(h, len(prompt_ids), limit)
+        # The one place that sees a text prompt beside its ids: record the
+        # alignment the router's tokenizer-free scoring reads.
+        self.engine.note_prompt_text(body, batch[0])
+        # The router's deepest-covering replica: a fetch asks it first.
+        peer_hint = (h.headers.get("x-arks-peer-hint") or "").strip() or None
         # W3C trace context: continue the gateway/router-propagated trace
         # (folding in their completed spans from the x-arks-trace-spans
         # header) or mint a fresh root.  Only a single-choice request
@@ -566,7 +667,7 @@ class OpenAIServer:
                 req = Request(request_id=f"req-{uuid.uuid4().hex[:16]}",
                               prompt_ids=list(prompt_ids), params=p,
                               tenant=tenant, trace=ctx if single else None,
-                              model=engine_model)
+                              model=engine_model, peer_hint=peer_hint)
                 try:
                     with logctx.bound(req.request_id,
                                       ctx.trace_id if ctx is not None

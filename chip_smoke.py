@@ -306,6 +306,25 @@ Phases (any failure raises and exits non-zero):
               pages, host and device ms and launches of a windowed token
               beside a control token, its host-to-device copy time and
               overlap, the host store's bytes, peak memory.
+ 15. disaggregation (phase_disagg) on Qwen2.5-7B at full width and
+              depth: the prefill server a child process (``python -m
+              arks_tpu_torch.server --disaggregation-mode prefill``), the
+              DecodeServer here, bf16 then int8 pool, depth 2, eight
+              requests of 100-1,024 tokens (greedy, seeded, logprobs, a
+              guide) concurrently with every issue and prefilled admission
+              under the sync guard: each served stream equals the same
+              pulled state's stream in process bit for bit, each prompt's
+              full pool pages equal insert_pages of the received K/V byte
+              for byte, greedy streams keep the near-tie rule against the
+              unified engine's; bytes per transfer, pull seconds, TTFTs.
+ 16. the fleet's prefix tiers (phase_fleet) on Qwen2.5-7B: replica B
+              restores a 1,024-token prefix from replica A over GET
+              /v1/cache/blocks/ (x-arks-peer-hint), its pages A's bytes
+              and its stream A's warm stream; A's sketch lists the warm
+              digests at tier 0; a disk-tier engine rebuilt on its
+              directory serves the prefix from disk (tier="disk" hits,
+              the warm stream), and scale-to-zero leaves its warm blocks
+              on disk.
 phase_pipeline, phase_recovery's engines, the preemption rounds (not
 their steady window) and phase_spec run Qwen2.5-7B at full width cut to
 its first CUT_LAYERS (14) of 28 layers, phase_residency to RES_LAYERS (7):
@@ -317,7 +336,8 @@ runs of the served path: phase 4's, the request surface's, the pipeline's,
 prefix reuse's, operability's, the recovery phase's (its replays
 included), the preemption phase's, the speculative phase's (the draft's
 slot-cache kernels), the pool's, scale-to-zero's, residency's (its span
-chains) and the checkpoint-loaded engines'
+chains), the disaggregated decode engines' and the fleet replicas', and
+the checkpoint-loaded engines'
 included
 (the dense launch: its greedy run) and phase 7's (grouped_matmul, every
 quantized product).
@@ -1832,22 +1852,48 @@ _UNLISTED_OPS = frozenset(("aten::is_leaf", "aten::output_nr",
                            "aten::_version"))
 
 
-def _trace_counts(torch, prof):
+def _trace_counts(torch, prof, bracket=False):
     """A finished profiler window read from its raw trace results: (device
     events by name, their device µs, the host's aten ops by name) — what
     ``key_averages`` sums, without the per-event records it builds first
-    (tens of seconds for a window of 10^5 kernels)."""
+    (tens of seconds for a window of 10^5 kernels).  With ``bracket``,
+    only the device events that start between the window's two marker
+    kernels (``_window_marker``) count."""
     cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
     kern, ops, us = collections.Counter(), collections.Counter(), 0.0
-    for ev in prof.profiler.kineto_results.events():
+    events = list(prof.profiler.kineto_results.events())
+    lo, hi = None, None
+    if bracket:
+        marks = sorted(ev.start_ns() for ev in events
+                       if ev.device_type() == cuda
+                       and MARKER_KERNEL in ev.name())
+        if len(marks) != 2:
+            raise AssertionError(f"the profiler's trace holds {len(marks)} "
+                                 f"window markers, not 2")
+        lo, hi = marks
+    for ev in events:
         dt, name = ev.device_type(), ev.name()
         if dt == cuda:
+            if lo is not None and not lo < ev.start_ns() < hi:
+                continue
             kern[name] += 1
             us += (ev.end_ns() - ev.start_ns()) / 1e3
         elif dt == cpu and name.startswith("aten::") and \
                 name not in _UNLISTED_OPS:
             ops[name] += 1
     return kern, us, ops
+
+
+# A window's marker: the kernel ``torch.cuda._sleep`` launches, which the
+# port never launches.
+MARKER_KERNEL = "spin_kernel"
+
+
+def _window_marker(torch):
+    """One marker kernel on the current stream: the port's steps issue on
+    that stream, so every kernel a step launches after it starts after it
+    on the device."""
+    torch.cuda._sleep(1)
 
 
 def _profile_step(torch, fn, steps_per_call):
@@ -2093,7 +2139,7 @@ class _NoSync:
 
 
 def _pipe_batch(torch, engine, prompts, max_tokens, window=False,
-                window_steps=None):
+                window_steps=None, lead_in=0):
     """One greedy request per prompt, added together and driven by
     ``engine.step()`` from this thread until the engine is idle.  Returns
     (streams, decode seconds: from the step at which the last stream got
@@ -2102,7 +2148,10 @@ def _pipe_batch(torch, engine, prompts, max_tokens, window=False,
     synchronised steps covering PIPE_WINDOW decode steps, or
     ``window_steps`` scheduler steps, then device µs and kernel launches
     per scheduler step from torch.profiler over the next as many, and
-    those launches by kernel name))."""
+    those launches by kernel name)).  With ``lead_in``, the profiler
+    records that many steps first and counts only the window's steps,
+    between two marker kernels: the events the trace drops at a session's
+    start fall in the lead-in."""
     import queue
 
     from torch.profiler import ProfilerActivity, profile
@@ -2147,10 +2196,16 @@ def _pipe_batch(torch, engine, prompts, max_tokens, window=False,
             # Device activity only: the host's ~17,000 aten ops a step
             # would take the profiler longer to record than the window.
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(lead_in):
+                    engine.step(block_s=0.001)
+                if lead_in:
+                    _window_marker(torch)
                 for _ in range(steps):
                     engine.step(block_s=0.001)
+                if lead_in:
+                    _window_marker(torch)
                 torch.cuda.synchronize()
-            kern, us, _ = _trace_counts(torch, prof)
+            kern, us, _ = _trace_counts(torch, prof, bracket=lead_in > 0)
             win = (host_ms, us / steps, sum(kern.values()) / steps, kern)
             drain()
         if engine.idle and len(fins) == len(reqs):
@@ -4140,6 +4195,7 @@ OPS_QUEUE_MAX, OPS_TENANT_MAX = 4, 3      # the flood's bounds
 OPS_HOLD_TOKENS = 128                     # the slot-holding streams
 OPS_DRAIN_TOKENS = 48                     # streams in flight at the drain
 OPS_WINDOW = 128                          # steps a launch-count window
+OPS_LEAD_IN = 4                           # profiled steps before it
 ST_DTYPES = {"bfloat16": "BF16", "float32": "F32"}
 
 
@@ -4453,12 +4509,15 @@ def _post_h(port, body, headers):
 def _steady_launches(torch, engine):
     """(host ms per steady scheduler step over OPS_WINDOW synchronised
     steps, kernel launches per step over a profiler window of as many, and
-    those launches by kernel name), 8 streams at depth 2.  The window is
-    long, so the events a profiler drops at a window's start move the mean
-    by a fraction of a launch."""
+    those launches by kernel name), 8 streams at depth 2.  The profiler
+    drops a session's first events now and then (up to 81 of a 128-step
+    window on the H100, up to 0.63 launches a step), so the window's
+    steps are counted between markers after OPS_LEAD_IN steps: what they
+    launched, whole."""
     _, _, win = _pipe_batch(torch, engine, [
         f"steady window stream {j}" for j in range(8)],
-        2 * OPS_WINDOW + 32, window=True, window_steps=OPS_WINDOW)
+        2 * OPS_WINDOW + 32, window=True, window_steps=OPS_WINDOW,
+        lead_in=OPS_LEAD_IN)
     return win[0], win[2], win[3]
 
 
@@ -4533,8 +4592,9 @@ def phase_operability(torch, dev, params, step_launches):
     if moved:
         log(f"[operability] launches by kernel name, metrics less inert, "
             f"over the window: {moved}")
-    # The profiler drops a window's first events now and then (fewer,
-    # never more: ~24 in a window in the runs so far, 0.2 a step here); one
+    # The windows count their steps between markers, past the events the
+    # profiler drops at a session's start (_steady_launches); windows still
+    # differ by a few launches where their steps did other work.  One
     # added kernel a step would add a whole launch to the mean, and a
     # rarer one a name that only the window with the metrics shows.
     only_real = sorted(set(names_real) - set(names_inert))
@@ -4574,8 +4634,9 @@ def phase_operability(torch, dev, params, step_launches):
                     raise AssertionError("[operability] never ready")
                 time.sleep(0.05)
             st, ready, _ = _get(port, "/readiness")
-            if set(ready) != {"status", "admission", "slo_burn",
+            if set(ready) != {"status", "sketch", "admission", "slo_burn",
                               "elastic"} or \
+                    ready["sketch"]["enabled"] is not True or \
                     ready["admission"]["queue_max"] != OPS_QUEUE_MAX or \
                     ready["elastic"]["armed"] is not True:
                 raise AssertionError(f"[operability] readiness {ready}")
@@ -6764,17 +6825,22 @@ def phase_zero(torch, dev, ops):
     torch.cuda.empty_cache()
     off_names = ops["steady_names"]
     only_new = sorted(set(names) - set(off_names))
+    moved = {k[:80]: names[k] - off_names[k] for k in names | off_names
+             if names[k] != off_names[k]}
     log(f"[zero table] memory allocated / reserved before the disarm "
         f"{before}, after {after}, fell {drop} B (weights {wbytes} + K+V "
         f"pool {kvbytes} B); re-arm {rearm}; scale_from_zero_seconds "
         f"{res['scale_from_zero_seconds']}; launches per steady step "
         f"phase_operability {res['steady'][0]:.2f}, after the re-arm "
-        f"{res['steady'][1]:.2f}; host ms {res['steady_host_ms']}; phase "
-        f"took {time.perf_counter() - t_phase:.1f} s")
+        f"{res['steady'][1]:.2f}; by kernel name, after the re-arm less "
+        f"phase_operability, over the window: {moved}; host ms "
+        f"{res['steady_host_ms']}; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
     if res["zero_events"] < 1 or \
             abs(res["steady"][1] - res["steady"][0]) >= 0.5 or only_new:
         raise AssertionError(f"[zero] steady step after the re-arm: "
-                             f"{res['steady']} (new kernels {only_new})")
+                             f"{res['steady']} (new kernels {only_new}, "
+                             f"by name {moved})")
     return res
 
 
@@ -6966,6 +7032,700 @@ def phase_residency(torch, dev, params):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase: disaggregated prefill/decode (prefill server in a child process)
+# ---------------------------------------------------------------------------
+
+DIS_LENS = (100, 256, 400, 560, 700, 850, 1000, 1024)   # prompt tokens
+DIS_KINDS = ("greedy", "seeded", "logprobs", "guided", "greedy", "seeded",
+             "greedy", "greedy")
+DIS_TOKENS = 32
+DIS_GUIDE = "[a-f]+"
+DIS_CHILD_TIMEOUT = 240
+DIS_ISSUES = ("_pipe_issue", "_issue_mixed", "_admit_prefilled")
+# The parent's own one-shot prefill against the child's K/V: the same
+# weights (both drawn from SEED on the card) give the same bits, or a bf16
+# ulp if a GEMM picked another algorithm; other weights differ by O(1).
+DIS_SAME_WEIGHTS_TOL = 0.0625
+
+
+class _Tee:
+    """A request's output queue that also keeps what it carried (token
+    ids, logprob entries, the finish): the server reads the same queue."""
+
+    def __init__(self):
+        import queue
+        self.q = queue.Queue()
+        self.ids, self.lps = [], []
+        self.finish = self.error = None
+        self.done = threading.Event()
+
+    def put(self, item, *a, **kw):
+        self.ids += item.token_ids
+        self.lps += item.logprobs or []
+        if item.finished:
+            self.finish, self.error = item.finish_reason, item.error
+            self.done.set()
+        self.q.put(item, *a, **kw)
+
+    def get(self, *a, **kw):
+        return self.q.get(*a, **kw)
+
+    def get_nowait(self):
+        return self.q.get_nowait()
+
+    def empty(self):
+        return self.q.empty()
+
+
+@contextlib.contextmanager
+def _teed(engine, tees):
+    """Give every request added to ``engine`` a ``_Tee``, keyed in
+    ``tees`` by its prompt length (the prefilled state's for a transferred
+    request).  The instance attribute goes on exit (a bound method kept
+    there would be a cycle holding the engine)."""
+    outer = vars(engine).get("add_request")
+    orig = engine.add_request
+
+    def add(req):
+        if not isinstance(req.outputs, _Tee):
+            req.outputs = _Tee()
+        n = req.prefilled.num_prompt if req.prefilled is not None \
+            else len(req.prompt_ids)
+        tees[n] = req.outputs
+        orig(req)
+
+    engine.add_request = add
+    try:
+        yield tees
+    finally:
+        if outer is None:
+            del engine.add_request
+        else:
+            engine.add_request = outer
+
+
+def _post_stream(port, path, body, headers=None):
+    """POST a streaming completion: (status, error payload or None, seconds
+    to the first SSE frame, total seconds)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    t0 = time.perf_counter()
+    conn.request("POST", path, json.dumps(dict(body, stream=True)),
+                 dict({"Content-Type": "application/json"}, **(headers or {})))
+    resp = conn.getresponse()
+    if resp.status != 200:
+        data = resp.read()
+        conn.close()
+        return resp.status, data[:300], None, time.perf_counter() - t0
+    t_first = None
+    for raw in resp:
+        line = raw.decode().strip()
+        if line.startswith("data: ") and t_first is None:
+            t_first = time.perf_counter() - t0
+        if line == "data: [DONE]":
+            break
+    conn.close()
+    return 200, None, t_first, time.perf_counter() - t0
+
+
+def _concurrently(fn, items):
+    out = [None] * len(items)
+
+    def run(i, x):
+        out[i] = fn(x)
+
+    threads = [threading.Thread(target=run, args=(i, x))
+               for i, x in enumerate(items)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def _dis_bodies():
+    """The eight requests: token-id prompts of DIS_LENS tokens, greedy and
+    seeded, one with logprobs, one guided (greedy)."""
+    rng = np.random.default_rng(SEED + 71)
+    bodies = []
+    for i, (n, kind) in enumerate(zip(DIS_LENS, DIS_KINDS)):
+        body = {"prompt": [int(x) for x in rng.integers(32, 120, n)],
+                "max_tokens": DIS_TOKENS, "temperature": 0.0}
+        if kind == "seeded":
+            body.update(temperature=0.8, top_k=50, seed=500 + i,
+                        ignore_eos=True)
+        elif kind == "guided":
+            body["guided_regex"] = DIS_GUIDE
+        else:
+            body["ignore_eos"] = True
+        if kind == "logprobs":
+            body["logprobs"] = 2
+        bodies.append(body)
+    return bodies
+
+
+def _dis_child(dev):
+    """Start ``python -m arks_tpu_torch.server --disaggregation-mode
+    prefill`` (Qwen2.5-7B at full width, random weights from SEED, one
+    slot, no prefix retention); returns (process, port, log path) once its
+    readiness answers 200."""
+    import os
+    import socket
+    import tempfile
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    fd, path = tempfile.mkstemp(prefix="arks-prefill-", suffix=".log")
+    env = dict(os.environ, ARKS_PREFIX_HOST_MB="0")
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "arks_tpu_torch.server", "--model", MODEL,
+         "--disaggregation-mode", "prefill", "--host", "127.0.0.1",
+         "--port", str(port), "--device", dev.type, "--dtype", "bfloat16",
+         "--kv-cache-dtype", "bf16", "--num-slots", "1",
+         "--max-model-len", str(MAX_PAGES * PAGE), "--prefix-cache-mb", "0",
+         "--seed", str(SEED)], cwd=root, env=env, stdout=fd,
+        stderr=subprocess.STDOUT)
+    os.close(fd)
+    deadline = time.monotonic() + DIS_CHILD_TIMEOUT
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            break
+        try:
+            if _get(port, "/readiness")[0] == 200:
+                return proc, port, path
+        except OSError:
+            pass
+        time.sleep(0.25)
+    _dis_stop_child(proc)
+    with open(path, errors="replace") as f:
+        tail = f.read()[-3000:]
+    raise AssertionError(f"[disagg] the prefill server did not come up "
+                         f"(exit {proc.returncode}): {tail}")
+
+
+def _dis_stop_child(proc):
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+
+
+def _dis_engine(torch, dev, params, kv):
+    """A Qwen2.5-7B decode (or unified) engine on ``params``: 8 slots x
+    4096, chunk = page = 256, a ``kv`` pool, depth 2, with DIS_GUIDE
+    compiled before any request comes (a compile racing admission moves
+    chunk cuts)."""
+    import os
+
+    from arks_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arks_tpu_torch.engine.tokenizer import ByteTokenizer
+    from arks_tpu_torch.models import get_config
+    old = {"ARKS_PIPELINE_DEPTH": os.environ.get("ARKS_PIPELINE_DEPTH")}
+    os.environ["ARKS_PIPELINE_DEPTH"] = "2"
+    try:
+        engine = InferenceEngine(get_config(MODEL), EngineConfig(
+            model=MODEL, num_slots=8, max_cache_len=MAX_PAGES * PAGE,
+            prefill_chunk=PAGE, dtype="bfloat16", kv_cache_dtype=kv,
+            seed=SEED), ByteTokenizer(), params=params, device=dev)
+    finally:
+        _restore_env(os, old)
+    engine.guides.compile("regex", DIS_GUIDE)
+    return engine
+
+
+def _dis_unified(torch, dev, params, kv, bodies):
+    """The unified baseline: the eight requests through ``/v1/completions``
+    of a fresh engine, concurrently (the greedy ones with top-2 logprobs,
+    for the near-tie rule).  Returns ({prompt length: (ids, finish, error,
+    logprob entries)}, TTFTs)."""
+    from arks_tpu_torch.server import OpenAIServer
+    engine = _dis_engine(torch, dev, params, kv)
+    server = OpenAIServer(engine, MODEL, host="127.0.0.1", port=0)
+    server.start(background=True)
+    engine.start()
+    tees = {}
+    try:
+        with _teed(engine, tees):
+            res = _concurrently(lambda b: _post_stream(
+                server.port, "/v1/completions",
+                dict(b, logprobs=b.get("logprobs", 2))
+                if b["temperature"] == 0.0 else b), bodies)
+    finally:
+        server.stop()
+        engine.stop()
+    bad = [r for r in res if r[0] != 200]
+    if bad:
+        raise AssertionError(f"[disagg unified {kv}] {bad}")
+    out = {n: (t.ids, t.finish, t.error, t.lps) for n, t in tees.items()}
+    ref = weakref.ref(engine)
+    del engine, server, tees
+    _freed_by_del(ref, f"disagg unified {kv}")
+    torch.cuda.empty_cache()
+    return out, [r[2] for r in res]
+
+
+def _dis_near_ties(tag, got, base):
+    """Greedy disaggregated streams against the unified ones: equal, or
+    parting first where the unified stream's top-2 logprob gap is at most
+    SPEC_GAP_BOUND (one-shot and chunked prefills round apart in bf16).
+    Returns [(prompt length, first differing token, gap)]."""
+    diff = []
+    for n, (ids, fin, err, _) in got.items():
+        bids, _, _, blps = base[n]
+        if err is not None:
+            raise AssertionError(f"[disagg {tag}] prompt {n}: {fin} {err}")
+        if DIS_KINDS[DIS_LENS.index(n)] == "seeded":
+            continue
+        i = next((j for j, (a, b) in enumerate(zip(ids, bids)) if a != b),
+                 None)
+        if i is None:
+            if ids != bids:
+                raise AssertionError(f"[disagg {tag}] prompt {n}: "
+                                     f"{len(ids)} tokens against "
+                                     f"{len(bids)}")
+            continue
+        top = blps[i][1]
+        gap = top[0][1] - top[1][1]
+        diff.append((n, i, gap))
+        if gap > SPEC_GAP_BOUND:
+            raise AssertionError(f"[disagg {tag}] prompt {n} leaves the "
+                                 f"unified stream at token {i}, top-2 gap "
+                                 f"{gap:.4f} > {SPEC_GAP_BOUND}")
+    return diff
+
+
+def _dis_pages(torch, engine, pulled, kv):
+    """Every transferred prompt's full pages, found through the device
+    index, against ``tf.insert_pages`` of the K/V the server received,
+    byte for byte (k, v and, on an int8 pool, the scales).  Returns the
+    pages compared."""
+    from arks_tpu_torch.engine.paged import chain_digests
+    from arks_tpu_torch.models import transformer as tf
+    from arks_tpu_torch.models.config import get_config
+    cfg = get_config(MODEL)
+    compared = 0
+    for n, (meta, k, v) in pulled.items():
+        full = n // PAGE
+        if not full:
+            continue
+        digs = chain_digests(meta["prompt_ids"], PAGE, full)
+        pages = [engine._alloc._index.get(d) for d in digs]
+        if None in pages:
+            raise AssertionError(f"[disagg {kv}] prompt {n}: a full page "
+                                 "is not in the device index")
+        npg = -(-n // PAGE)
+        scratch = tf.init_paged_cache(
+            cfg, npg, PAGE, torch.bfloat16, engine.device,
+            quantized=kv == "int8", kv_bits=8)
+        tf.insert_pages(scratch, k.to(engine.device), v.to(engine.device),
+                        torch.arange(npg, device=engine.device), npg)
+        for j, pg in enumerate(pages):
+            for name, pool, want in zip(("k", "v", "k_scale", "v_scale"),
+                                        engine.cache, scratch):
+                if pool is None:
+                    continue
+                if not torch.equal(pool[:, pg], want[:, j]):
+                    raise AssertionError(f"[disagg {kv}] prompt {n} page "
+                                         f"{j}: {name} bytes differ from "
+                                         "insert_pages of the received K/V")
+            compared += 1
+        del scratch
+    return compared
+
+
+def _dis_round(torch, dev, params, kv, bodies, child_port, base):
+    """One decode pool dtype: the eight requests through the DecodeServer's
+    ``/v1/disagg/completions`` (it pulls from the child), every issue and
+    every prefilled admission under the sync guard; the same pulled states
+    handed to the engine in process; then the checks.  Returns the row."""
+    from arks_tpu_torch.engine import Request
+    from arks_tpu_torch.engine import kv_transfer
+    from arks_tpu_torch.server.disagg import DecodeServer, prefilled_state
+    from arks_tpu_torch.server.openai_server import sampling_from_body
+    engine = _dis_engine(torch, dev, params, kv)
+    server = DecodeServer(engine, MODEL, host="127.0.0.1", port=0)
+    server.start(background=True)
+    addr = f"127.0.0.1:{child_port}"
+    pulled, pulls = {}, {}
+    orig_pull = server.pull_kv
+
+    def pull(a, body, chat):
+        t0 = time.perf_counter()
+        meta, (k, v) = orig_pull(a, body, chat)
+        pulls[meta["num_prompt"]] = (time.perf_counter() - t0,
+                                     k.nbytes + v.nbytes)
+        pulled[meta["num_prompt"]] = (meta, k, v)
+        return meta, (k, v)
+
+    server.pull_kv = pull
+    engine.start()
+    tees, own = {}, {}
+    c0 = _read_counts()
+    d0 = engine.dispatches
+    try:
+        with _NoSync(torch, engine, DIS_ISSUES) as guard, \
+                _teed(engine, tees):
+            res = _concurrently(lambda b: _post_stream(
+                server.port, "/v1/disagg/completions", b,
+                {"X-Arks-Prefill-Addr": addr}), bodies)
+            bad = [r for r in res if r[0] != 200]
+            if bad:
+                raise AssertionError(f"[disagg {kv}] {bad}")
+            launches = {k: v - c0[k] for k, v in _read_counts().items()}
+            # The wire round trip: the same bodies pulled here and handed
+            # to the engine in process.
+            states = []
+            for b in bodies:
+                t0 = time.perf_counter()
+                meta, (k, v) = orig_pull(addr, b, False)
+                states.append((b, prefilled_state(meta, k, v),
+                               time.perf_counter() - t0,
+                               len(kv_transfer.pack(meta, [k, v]))))
+            tees_own = {}
+            with _teed(engine, tees_own):
+                for b, pf, _, _ in states:
+                    params_b, _ = sampling_from_body(b, engine.tokenizer,
+                                                     engine)
+                    engine.add_request(Request(
+                        f"own-{pf.num_prompt}", [], params_b, prefilled=pf))
+                for t in tees_own.values():
+                    if not t.done.wait(600):
+                        raise AssertionError(f"[disagg {kv}] an in-process "
+                                             "request did not finish")
+            own = tees_own
+            syncs = dict(guard.calls)
+        del guard
+    finally:
+        server.stop()
+        engine.stop()
+    del server.pull_kv
+    got = {n: (t.ids, t.finish, t.error, t.lps) for n, t in tees.items()}
+    mine = {n: (t.ids, t.finish, t.error, t.lps) for n, t in own.items()}
+    for n in got:
+        if got[n][:3] != mine[n][:3] or len(got[n][3]) != len(mine[n][3]) \
+                or any(a[0] != b[0] for a, b in zip(got[n][3], mine[n][3])):
+            raise AssertionError(f"[disagg {kv}] prompt {n}: the served "
+                                 f"stream {got[n][:3]} is not the in-process "
+                                 f"one {mine[n][:3]}")
+    lp_n = DIS_LENS[DIS_KINDS.index("logprobs")]
+    if len(got[lp_n][3]) != DIS_TOKENS:
+        raise AssertionError(f"[disagg {kv}] the logprob stream carries "
+                             f"{len(got[lp_n][3])} entries")
+    g_n = DIS_LENS[DIS_KINDS.index("guided")]
+    if not _walks(engine.guides, ("regex", DIS_GUIDE), got[g_n][0]):
+        raise AssertionError(f"[disagg {kv}] the guided stream leaves its "
+                             f"guide: {got[g_n][0]}")
+    ties = _dis_near_ties(kv, got, base)
+    pages = _dis_pages(torch, engine, pulled, kv)
+    n_steps = engine.dispatches - d0
+    upd = "paged_kv_update_quant" if kv == "int8" else "paged_kv_update"
+    if not launches["paged_mixed_attention"] or not launches[upd] or \
+            syncs.get("_admit_prefilled", 0) < len(bodies):
+        raise AssertionError(f"[disagg {kv}] launches {launches}, "
+                             f"guarded calls {syncs}")
+    row = dict(ttft_disagg=[r[2] for r in res], pulls=pulls,
+               own_pull_s=[s for _, _, s, _ in states],
+               wire_bytes=[nb for _, _, _, nb in states],
+               ties=ties, pages=pages, launches=launches, syncs=syncs,
+               dispatches=n_steps)
+    ref = weakref.ref(engine)
+    del engine, server, tees, own, pulled
+    _freed_by_del(ref, f"disagg {kv}")
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_disagg(torch, dev, params):
+    """Prefill/decode disaggregation on Qwen2.5-7B at full width and depth:
+    the prefill server a child process (``python -m arks_tpu_torch.server
+    --disaggregation-mode prefill``, its own weights from SEED), the decode
+    server (DecodeServer, the mixed scheduler at depth 2) in this process
+    on ``params`` with a bf16 pool and then an int8 one.  Eight requests of
+    100-1,024 tokens (the one-shot limit), greedy and seeded, one with
+    logprobs, one guided, concurrently:
+    - each served stream equals, bit for bit, the stream of the same
+      pulled state handed to the engine in process (the wire round trip);
+    - each prompt's full pool pages equal ``tf.insert_pages`` of the
+      received K/V, byte for byte;
+    - greedy streams against the unified engine's keep the near-tie rule
+      (a one-shot and a chunked prefill round apart in bf16);
+    - the child's K/V equal this process's own one-shot prefill within
+      DIS_SAME_WEIGHTS_TOL (the same weights on both sides).
+    Logs the bytes per transfer, the pull seconds and the TTFTs."""
+    from arks_tpu_torch.models import transformer as tf
+    from arks_tpu_torch.models.config import get_config
+    from arks_tpu_torch.server.disagg import DecodeServer
+    t_phase = time.perf_counter()
+    bodies = _dis_bodies()
+    proc, port, path = _dis_child(dev)
+    t_up = time.perf_counter() - t_phase
+    rows = {}
+    _reset_counts()
+    try:
+        meta, (k, _) = DecodeServer.pull_kv(f"127.0.0.1:{port}", bodies[0],
+                                            False)
+        ids = meta["prompt_ids"]
+        bucket = k.shape[2]
+        toks = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+        toks[0, :len(ids)] = torch.tensor(ids, device=dev)
+        _, ks, _ = tf.prefill(params, get_config(MODEL), toks,
+                              torch.tensor([len(ids)], dtype=torch.int32,
+                                           device=dev))
+        same_w = (ks.cpu().float() - k.float()).abs().max().item()
+        del ks
+        if same_w > DIS_SAME_WEIGHTS_TOL:
+            raise AssertionError(f"[disagg] the child's K differ from this "
+                                 f"process's prefill by {same_w}: other "
+                                 "weights")
+        for kv in ("bf16", "int8"):
+            base, ttft_u = _dis_unified(torch, dev, params, kv, bodies)
+            row = _dis_round(torch, dev, params, kv, bodies, port, base)
+            row["ttft_unified"] = ttft_u
+            rows[kv] = row
+            log(f"[disagg {kv}] " + json.dumps(dict(
+                bytes_per_transfer=dict(zip(DIS_LENS, row["wire_bytes"])),
+                pull_s_served={n: round(s, 4) for n, (s, _) in
+                               sorted(row["pulls"].items())},
+                pull_s_own=dict(zip(DIS_LENS, [round(s, 4) for s in
+                                               row["own_pull_s"]])),
+                ttft_disagg_s=dict(zip(DIS_LENS, [round(s, 4) for s in
+                                                  row["ttft_disagg"]])),
+                ttft_unified_s=dict(zip(DIS_LENS, [round(s, 4) for s in
+                                                   ttft_u])),
+                near_ties=row["ties"], pages_compared=row["pages"],
+                guarded_calls=row["syncs"], launches=row["launches"])))
+    finally:
+        _dis_stop_child(proc)
+    launches = _read_counts()
+    log(f"[disagg table] prefill child up in {t_up:.1f} s; its K within "
+        f"{same_w} of this process's prefill; 1,024-token transfer "
+        f"{rows['bf16']['wire_bytes'][-1]} B; launches {launches}; phase "
+        f"took {time.perf_counter() - t_phase:.1f} s")
+    return dict(rows=rows, launches=launches, same_weights=same_w)
+
+
+# ---------------------------------------------------------------------------
+# Phase: the fleet's prefix tiers (peer fetch, the disk tier, the sketch)
+# ---------------------------------------------------------------------------
+
+FLEET_PREFIX, FLEET_TAIL, FLEET_TOKENS = 1024, 100, 32
+FLEET_HOST_PAGES = 2          # the disk engine's host budget, in pages
+FLEET_ISSUES = ("_pipe_issue", "_issue_mixed", "_issue_restore",
+                "_spill_flush")
+
+
+def _hist_sum(h):
+    """(observations, their sum in seconds) of an unlabelled histogram."""
+    n = total = 0
+    for _, t, c in h._data.values():
+        n, total = n + c, total + t
+    return n, total
+
+
+def _fleet_engine(torch, dev, params, **env):
+    """A Qwen2.5-7B engine on ``params`` (8 slots x 4096, chunk = page =
+    256, bf16 pool, depth 2) under the ``env`` knobs."""
+    import os
+    env = dict({"ARKS_PIPELINE_DEPTH": "2"}, **env)
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return _dis_engine(torch, dev, params, "bf16")
+    finally:
+        _restore_env(os, old)
+
+
+def _fleet_serve(engine, port, body, headers=None):
+    """One streamed completion through ``port`` (the engine's thread
+    running): (ids, TTFT seconds)."""
+    tees = {}
+    with _teed(engine, tees):
+        st, err, t_first, _ = _post_stream(port, "/v1/completions", body,
+                                           headers)
+    if st != 200:
+        raise AssertionError(f"[fleet] {st} {err}")
+    (tee,) = tees.values()
+    if tee.error is not None or len(tee.ids) != FLEET_TOKENS:
+        raise AssertionError(f"[fleet] {tee.finish} {tee.error}")
+    return tee.ids, t_first
+
+
+def phase_fleet(torch, dev, params):
+    """The fleet's prefix tiers on Qwen2.5-7B at full width (``params``
+    shared by every replica), bf16 pools, depth 2:
+    - peer fetch: replica A serves a 1,024-token shared prefix plus a
+      tail, its pages evicted into its host tier; A's warm stream restores
+      them.  Replica B (``ARKS_PEER_FETCH=1``) gets the request with
+      ``x-arks-peer-hint`` A: its 4 pages come from A over ``GET
+      /v1/cache/blocks/``, only the tail is prefilled, its restored pages
+      equal A's host blocks byte for byte and its stream A's warm stream
+      bit for bit;
+    - the sketch: A's ``GET /v1/cache/sketch`` lists the warm digests at
+      tier 0;
+    - disk: engine C (``ARKS_PREFIX_DISK_MB``, a host tier of
+      FLEET_HOST_PAGES pages) serves the prompt, its pages evicted through
+      the host tier to disk; stopped and rebuilt on the same directory, it
+      serves the prompt with ``prefix_cache_hit_tokens_total{tier="disk"}``
+      1,024 and A's warm stream;
+    - scale-to-zero: the rebuilt engine serves a second prompt, disarms
+      when idle (``ARKS_ELASTIC_IDLE_ZERO_S``), and the second prompt's
+      warm pages are on disk.
+    Every issue of A, B and C runs under the sync guard.  Logs the peer
+    and disk restore seconds and the TTFTs."""
+    import shutil
+    import tempfile
+
+    from arks_tpu_torch.engine.paged import chain_digests
+    from arks_tpu_torch.server import OpenAIServer
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 91)
+    prefix = [int(x) for x in rng.integers(32, 120, FLEET_PREFIX)]
+    body = {"prompt": prefix + [int(x) for x in rng.integers(
+        32, 120, FLEET_TAIL)], "max_tokens": FLEET_TOKENS,
+        "temperature": 0.0, "ignore_eos": True}
+    digs = chain_digests(body["prompt"], PAGE, FLEET_PREFIX // PAGE)
+    launches = collections.Counter()
+    ddir = tempfile.mkdtemp(prefix="arks-fleet-disk-")
+    res = {}
+    try:
+        # ---- replica A: cold, evicted to its host tier, warm ------------
+        a = _fleet_engine(torch, dev, params)
+        srv_a = OpenAIServer(a, MODEL, host="127.0.0.1", port=0)
+        srv_a.start(background=True)
+        a.start()
+        _reset_counts()
+        with _NoSync(torch, a, FLEET_ISSUES):
+            cold, ttft_cold = _fleet_serve(a, srv_a.port, body)
+            a.stop()
+            _evict_prefix(a, digs)
+            _settle_spills(a)
+            host = _spilled(a, digs, "[fleet A]")
+            a.start()
+            warm, ttft_warm = _fleet_serve(a, srv_a.port, body)
+        st, sketch, _ = _get(srv_a.port, "/v1/cache/sketch")
+        tops = set(sketch["tiers"]["device"]["top"]) if st == 200 else set()
+        if any(d[:8].hex() not in tops for d in digs):
+            raise AssertionError(f"[fleet sketch] the warm digests are not "
+                                 f"at tier 0: {st} {sketch}")
+        res["sketch"] = dict(epoch=sketch["epoch"],
+                             device=sketch["tiers"]["device"]["count"],
+                             host=sketch["tiers"]["host"]["count"])
+        # ---- replica B: the same prompt, its prefix from A --------------
+        b = _fleet_engine(torch, dev, params, ARKS_PEER_FETCH="1")
+        srv_b = OpenAIServer(b, MODEL, host="127.0.0.1", port=0)
+        srv_b.start(background=True)
+        b.start()
+        p0 = b.prefill_tokens_total
+        try:
+            with _NoSync(torch, b, FLEET_ISSUES):
+                got_b, ttft_b = _fleet_serve(
+                    b, srv_b.port, body,
+                    {"x-arks-peer-hint": f"127.0.0.1:{srv_a.port}"})
+        finally:
+            srv_b.stop()
+            b.stop()
+            srv_a.stop()
+            a.stop()
+        m = b.metrics
+        fetched = m.prefix_peer_fetch_blocks_total.get(source="peer")
+        prefilled = b.prefill_tokens_total - p0
+        if fetched != len(digs) or \
+                m.prefix_cache_hit_tokens_total.get(tier="peer") != \
+                FLEET_PREFIX or prefilled != FLEET_TAIL:
+            raise AssertionError(f"[fleet peer] fetched {fetched} blocks, "
+                                 f"prefilled {prefilled} tokens")
+        same = _same_pages(torch, b, digs, host, "[fleet peer]")
+        if got_b != warm:
+            raise AssertionError(f"[fleet peer] B's stream {got_b} is not "
+                                 f"A's warm stream {warm}")
+        res["peer"] = dict(
+            ttft_cold=ttft_cold, ttft_warm=ttft_warm, ttft_peer=ttft_b,
+            fetch_s=_hist_sum(m.prefix_peer_fetch_seconds),
+            restore_s=list(b.prefix_restore_seconds), pages_equal=same,
+            cold_equals_warm=cold == warm)
+        launches.update(_read_counts())
+        refs = [weakref.ref(x) for x in (a, b)]
+        del a, b, srv_a, srv_b, m
+        for r, tag in zip(refs, ("fleet A", "fleet B")):
+            _freed_by_del(r, tag)
+        torch.cuda.empty_cache()
+        # ---- the disk tier across a restart (driven from this thread) ---
+        disk_env = dict(ARKS_PREFIX_DISK_MB="4096", ARKS_PREFIX_DISK_DIR=ddir)
+        c = _fleet_engine(torch, dev, params, **disk_env)
+        c._host.capacity = FLEET_HOST_PAGES * c._page_bytes
+        _reset_counts()
+        with _NoSync(torch, c, FLEET_ISSUES):
+            _prefix_run(torch, c, body["prompt"], FLEET_TOKENS)
+            _evict_prefix(c, digs)
+            _settle_spills(c)
+            for _ in range(1000):             # the writer takes the rest
+                c.step(block_s=0.001)
+                if not c._disk_spill_pending and \
+                        c._disk_write_queue.empty():
+                    break
+        spilled = c._disk.num_blocks
+        c.stop()                       # flushes the host tier's blocks too
+        if not spilled or not all(c._disk.has(x) for x in digs):
+            raise AssertionError(f"[fleet disk] blocks on disk {spilled} "
+                                 f"before the stop, digests there "
+                                 f"{[c._disk.has(x) for x in digs]}")
+        ref = weakref.ref(c)
+        del c
+        _freed_by_del(ref, "fleet C")
+        torch.cuda.empty_cache()
+        d = _fleet_engine(torch, dev, params, ARKS_ELASTIC_IDLE_ZERO_S="1",
+                          **disk_env)
+        second = [int(x) for x in rng.integers(32, 120, FLEET_PREFIX
+                                               + FLEET_TAIL)]
+        digs2 = chain_digests(second, PAGE, FLEET_PREFIX // PAGE)
+        try:
+            with _NoSync(torch, d, FLEET_ISSUES):
+                got_d, ttft_d, pre_d = _prefix_run(torch, d, body["prompt"],
+                                                   FLEET_TOKENS)
+                _prefix_run(torch, d, second, FLEET_TOKENS)
+            deadline = time.monotonic() + 60
+            while d.armed and time.monotonic() < deadline:
+                d.step(block_s=0.05)
+            zero_ok = not d.armed and all(d._disk.has(x) for x in digs2)
+        finally:
+            d.stop()
+        md = d.metrics
+        if got_d != warm or pre_d != FLEET_TAIL or \
+                md.prefix_cache_hit_tokens_total.get(tier="disk") != \
+                FLEET_PREFIX or not zero_ok:
+            raise AssertionError(
+                f"[fleet disk] stream equal {got_d == warm}, prefilled "
+                f"{pre_d}, disk hit tokens "
+                f"{md.prefix_cache_hit_tokens_total.get(tier='disk')}, "
+                f"scale-to-zero left the warm blocks on disk {zero_ok}")
+        res["disk"] = dict(ttft=ttft_d,
+                           fetch_s=_hist_sum(md.prefix_peer_fetch_seconds),
+                           restore_s=list(d.prefix_restore_seconds),
+                           spilled_before_stop=spilled,
+                           blocks=d._disk.num_blocks,
+                           bytes=d._disk.bytes_used,
+                           host_pages=FLEET_HOST_PAGES)
+        launches.update(_read_counts())
+        ref = weakref.ref(d)
+        del d, md
+        _freed_by_del(ref, "fleet D")
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ddir, ignore_errors=True)
+    if not launches["paged_mixed_attention"] or \
+            not launches["paged_kv_update"]:
+        raise AssertionError(f"[fleet] launches {dict(launches)}")
+    log(f"[fleet table] " + json.dumps(dict(
+        res, launches=dict(launches),
+        seconds=round(time.perf_counter() - t_phase, 1)), default=str))
+    return dict(res, launches=launches)
+
+
 def main() -> int:
     try:
         import torch
@@ -7029,6 +7789,8 @@ def main() -> int:
     pool = phase_pool(torch, dev, params)
     zero = phase_zero(torch, dev, ops)
     resid = phase_residency(torch, dev, params)
+    disagg = phase_disagg(torch, dev, params)
+    fleet = phase_fleet(torch, dev, params)
     del params
     torch.cuda.empty_cache()
     upd_t, attn_t, dense_t = phase_times(torch, b)
@@ -7052,7 +7814,9 @@ def main() -> int:
     pipe_n.update(spec["launches"])       # the speculative phase's, the
     pipe_n.update(pool["launches"])       # pool's (its baselines and the
     pipe_n.update(zero["launches"])       # server pass), scale-to-zero's
-    pipe_n.update(resid["launches"])      # and residency's (span chains)
+    pipe_n.update(resid["launches"])      # residency's (span chains),
+    pipe_n.update(disagg["launches"])     # the disaggregated decode
+    pipe_n.update(fleet["launches"])      # engines' and the fleet's
     attn_launches = (serve["launches"]["paged_mixed_attention"]
                      + serve8["launches"]["paged_mixed_attention"]
                      + paged4["launches"]["paged_mixed_attention"]

@@ -60,7 +60,10 @@ def test_importing_every_module_loads_no_jax_and_no_arks_tpu():
             "arks_tpu_torch.engine.residency",
             "arks_tpu_torch.obs.trace", "arks_tpu_torch.obs.logctx",
             "arks_tpu_torch.obs.perfetto",
-            "arks_tpu_torch.obs.profiler"} <= imported
+            "arks_tpu_torch.obs.profiler",
+            "arks_tpu_torch.engine.kv_transfer",
+            "arks_tpu_torch.server.disagg",
+            "arks_tpu_torch.prefix_sketch"} <= imported
 
 
 def _imported_modules(path: Path):

@@ -1,5 +1,5 @@
 """Prefix reuse in the port against the reference's, on the same inputs:
-the page allocator's spill hook and stats, the host stores
+the page allocator's spill hook, stats and membership mirror, the host stores
 (``HostPrefixTier``, ``PrefixKVCache``), the whole-page pool copies of the
 host tier (bit for bit on bf16, int8 and int4 pools), and the engines:
 mixed and legacy paged schedulers at pipeline depths 0 and 2 with the
@@ -106,6 +106,9 @@ def test_allocator_eviction_spill_hook_and_stats_match_the_reference():
             ta.decref(pages)
         assert ta._free == ja._free and ta._ref == ja._ref
         assert list(ta._index.items()) == list(ja._index.items())
+        # The routing sketch's tier-0 mirror: the same membership, in
+        # registration order, at the same version.
+        assert ta.index_snapshot() == ja.index_snapshot()
     assert evicted["t"] == evicted["j"] and len(evicted["t"]) > 10
     assert (ta.hit_tokens, ta.query_tokens) == (ja.hit_tokens, ja.query_tokens)
     assert ta.hit_rate == ja.hit_rate > 0
@@ -544,17 +547,25 @@ def test_slot_cache_prefix_reuse_equals_the_jax_engine(params, monkeypatch):
     assert teng.prefill_tokens_total == cold.prefill_tokens_total - 80
 
 
-def test_unserved_prefix_knobs_raise(monkeypatch):
-    """The disk tier and peer fetch are refused, not ignored; preemptive
-    swap is served (``test_torch_preempt.py``); a negative budget
-    raises."""
-    for name, value in (("ARKS_PREFIX_DISK_MB", "64"),
-                        ("ARKS_PEER_FETCH", "1"),
-                        ("ARKS_PEER_ADDRS", "http://localhost:1")):
+def test_prefix_knobs_build_their_tiers_and_bad_budgets_raise(
+        monkeypatch, tmp_path):
+    """The disk tier and peer fetch are served: each knob builds its tier
+    (the disk tier behind the host tier, the fetch worker, the peer list);
+    preemptive swap is served (``test_torch_preempt.py``); a negative
+    budget raises."""
+    for name, value, built in (
+            ("ARKS_PREFIX_DISK_MB", "64",
+             lambda e: e._disk is not None and e._disk.capacity == 64 << 20),
+            ("ARKS_PEER_FETCH", "1",
+             lambda e: e._peer_fetch and e._fetch_queue is not None),
+            ("ARKS_PEER_ADDRS", "http://localhost:1",
+             lambda e: e._peer_addrs == ["http://localhost:1"])):
         with monkeypatch.context() as m:
             m.setenv(name, value)
-            with pytest.raises(NotImplementedError, match=name):
-                _torch_engine(None)
+            m.setenv("ARKS_PREFIX_DISK_DIR", str(tmp_path))
+            eng = _torch_engine(None)
+            assert built(eng), name
+            eng.stop()
     with monkeypatch.context() as m:
         m.setenv("ARKS_PREEMPT", "1")
         assert _torch_engine(None).resolved_config["preempt"] != "off"

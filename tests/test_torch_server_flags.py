@@ -3,11 +3,10 @@
 ``--drain-timeout`` default, ``--steps-per-dispatch``, ``--dispatch-
 deadline`` and ``--fault-retries`` reaching the engine, the parallelism
 flags accepted at 1 and refused above it, ``--disaggregation-mode``
-refused, the weight pool behind ``--extra-model``,
+building its server, the weight pool behind ``--extra-model``,
 ``--model-pool-hbm-mb`` and ``--draft-model`` (``/v1/models`` with its
 ``arks`` blocks, routing by ``model``, 404 for an unknown one), and the
-knobs the engine refuses (the disk tier, peer fetch) against the one it
-now serves (the residency window)."""
+fleet knobs building their tiers (the disk tier, peer fetch)."""
 
 import json
 import urllib.error
@@ -17,8 +16,8 @@ import pytest
 import torch
 
 from arks_tpu_torch import knobs
-from arks_tpu_torch.engine import engine as engine_mod
 from arks_tpu_torch.server import __main__ as server_main
+from arks_tpu_torch.server.disagg import DecodeServer, PrefillServer
 from arks_tpu_torch.server.openai_server import OpenAIServer
 
 torch.set_num_threads(2)
@@ -32,8 +31,13 @@ def _clean_env(monkeypatch):
     for name in ("ARKS_DRAIN_TIMEOUT", "ARKS_DISPATCH_DEADLINE_S",
                  "ARKS_FAULT_RETRIES", "ARKS_MODEL_POOL_HBM_MB",
                  "ARKS_RESIDENCY_WINDOW_PAGES", "ARKS_PREFIX_DISK_MB",
-                 "ARKS_PEER_FETCH", "ARKS_PEER_ADDRS"):
-        monkeypatch.delenv(name, raising=False)
+                 "ARKS_PREFIX_DISK_DIR", "ARKS_PEER_FETCH",
+                 "ARKS_PEER_ADDRS", "ARKS_PEER_FETCH_TIMEOUT_S"):
+        # Set, then delete: the fixture then restores each to what it was
+        # before the test, also where ``build_engine`` wrote it (a leaked
+        # ARKS_DISPATCH_DEADLINE_S would start watchdogs in later tests).
+        monkeypatch.setenv(name, "")
+        monkeypatch.delenv(name)
 
 
 def _build(*extra):
@@ -69,21 +73,52 @@ def test_parallelism_flags_accepted_at_one_refused_above(flag):
         _build(flag, "2")
 
 
-def test_disaggregation_mode_is_refused():
-    with pytest.raises(NotImplementedError, match="disaggregat"):
-        _build("--disaggregation-mode", "prefill")
+@pytest.mark.parametrize("mode,cls", [("prefill", PrefillServer),
+                                      ("decode", DecodeServer),
+                                      (None, OpenAIServer)])
+def test_disaggregation_mode_builds_its_server(mode, cls):
+    """``--disaggregation-mode`` picks the server class; a prefill server
+    is ready without its engine's loop, which it never starts."""
+    args = server_main.parse_args(
+        BASE + (["--disaggregation-mode", mode] if mode else []))
+    cfg, eng = server_main.build_engine(args)
+    srv = server_main.make_server(args, eng, cfg.name)
+    assert type(srv) is cls
+    assert srv.needs_loop == (mode != "prefill")
 
 
-def test_unserved_knobs_refuse_the_disk_tier_and_peer_fetch(monkeypatch):
-    monkeypatch.setenv("ARKS_RESIDENCY_WINDOW_PAGES", "4")
-    engine_mod.check_unserved_knobs()
-    for name, value, what in (("ARKS_PREFIX_DISK_MB", "64", "disk"),
-                              ("ARKS_PEER_FETCH", "1", "peer"),
-                              ("ARKS_PEER_ADDRS", "h:1", "peer")):
-        monkeypatch.setenv(name, value)
-        with pytest.raises(NotImplementedError, match=what):
-            engine_mod.check_unserved_knobs()
-        monkeypatch.delenv(name)
+@pytest.mark.parametrize("knob", ["disk", "peer_fetch", "peer_addrs"])
+def test_fleet_knobs_build_their_tiers(monkeypatch, tmp_path, knob):
+    """``ARKS_PREFIX_DISK_MB`` (with ``ARKS_PREFIX_DISK_DIR``) builds the
+    disk tier and its writer, ``ARKS_PEER_FETCH`` the fetch worker and
+    ``ARKS_PEER_ADDRS`` its probe list; a negative disk budget and a
+    non-positive fetch timeout raise."""
+    monkeypatch.setenv("ARKS_PREFIX_DISK_DIR", str(tmp_path))
+    if knob == "disk":
+        monkeypatch.setenv("ARKS_PREFIX_DISK_MB", "8")
+        _, eng = _build()
+        assert eng._disk is not None and eng._disk.dir == str(tmp_path)
+        assert eng._disk.capacity == 8 << 20
+        assert eng._disk_writer.is_alive() and eng._fetch_queue is not None
+        assert eng._host.on_evict is not None
+        eng.stop()
+        assert not eng._disk_writer.is_alive()
+        monkeypatch.setenv("ARKS_PREFIX_DISK_MB", "-1")
+        with pytest.raises(ValueError, match="ARKS_PREFIX_DISK_MB"):
+            _build()
+    elif knob == "peer_fetch":
+        _, eng = _build()
+        assert eng._disk is None and eng._fetch_queue is None
+        monkeypatch.setenv("ARKS_PEER_FETCH", "1")
+        _, eng = _build()
+        assert eng._peer_fetch and eng._fetch_queue is not None
+        monkeypatch.setenv("ARKS_PEER_FETCH_TIMEOUT_S", "0")
+        with pytest.raises(ValueError, match="TIMEOUT"):
+            _build()
+    else:
+        monkeypatch.setenv("ARKS_PEER_ADDRS", "h1:8000, h2:9000,")
+        _, eng = _build()
+        assert eng._peer_addrs == ["h1:8000", "h2:9000"]
 
 
 def _get(port, path):
