@@ -145,7 +145,10 @@ def moe_ffn_grouped(x: torch.Tensor, mp: Params, cfg, *,
     flat_expert = idx.reshape(-1)                            # [T*k]
     order = torch.argsort(flat_expert, stable=True)
     token_of = order // k
-    xs = x2[token_of]                                        # [T*k, E]
+    # A row gather whose backward adds each token's k rows in a fixed
+    # order on the CPU and the card (indexing's accumulate does not on
+    # the CPU), so training steps repeat bit for bit.
+    xs = torch.nn.functional.embedding(token_of, x2)         # [T*k, E]
     group_sizes = torch.bincount(flat_expert, minlength=nx)
     if moe_impl() == "pallas":
         down = grouped_ffn(xs, flat_expert[order], group_sizes,

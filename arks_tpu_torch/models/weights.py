@@ -82,7 +82,9 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy())
 
 
-def _expected_shapes(cfg: ModelConfig) -> dict[str, tuple]:
+def param_shapes(cfg: ModelConfig) -> dict[str, tuple]:
+    """Every leaf's shape, by its path in the params tree ("embed",
+    "layers/wq", ...)."""
     l, e, f, v = (cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
                   cfg.vocab_size)
     qd, kvd = cfg.q_dim, cfg.kv_dim
@@ -138,7 +140,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig,
     device = resolve_device(device)
     dtype = torch_dtype(dtype) if dtype is not None else None
     out: Params = {"layers": {}}
-    for path, shape in _expected_shapes(cfg).items():
+    for path, shape in param_shapes(cfg).items():
         node, dst = tree, out
         *parents, leaf = path.split("/")
         for key in parents:
@@ -396,7 +398,7 @@ def _leaf_sources(cfg: ModelConfig, names) -> dict:
     """param path -> (shape, [(leading index, HF name, transpose,
     reshape)]) in the reference's names and stacking (``params_from_hf``
     :53, ``_moe_from_hf`` :157)."""
-    shapes = _expected_shapes(cfg)
+    shapes = param_shapes(cfg)
     l = cfg.num_layers
     out: dict = {}
 

@@ -262,7 +262,15 @@ def grouped_ffn(xs: torch.Tensor, sorted_expert: torch.Tensor,
                 impl: str | None = None) -> torch.Tensor:
     """The gate/up/silu/down expert FFN over expert-sorted rows through
     three ``grouped_matmul`` launches.  Returns rows in the same sorted
-    order as ``xs``."""
+    order as ``xs``.  The kernel has no backward: with a gradient to take
+    it raises, as the reference's ``pallas_call`` does under
+    ``jax.value_and_grad``."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (xs, w_gate, w_up, w_down)):
+        raise NotImplementedError(
+            "grouped_matmul has no backward (ARKS_MOE_KERNEL=pallas): "
+            "train with ARKS_MOE_KERNEL=xla or auto")
     wg, sg = _weight_operand(w_gate)
     wu, su = _weight_operand(w_up)
     wd, sd = _weight_operand(w_down)

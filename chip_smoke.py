@@ -325,9 +325,29 @@ Phases (any failure raises and exits non-zero):
               directory serves the prefix from disk (tier="disk" hits,
               the warm stream), and scale-to-zero leaves its warm blocks
               on disk.
+ 17. training (phase_train, after phase 7, ARKS_MOE_KERNEL=auto: the
+              grouped matmul has no backward) in f32 from seed-drawn
+              weights on a seeded ByteTokenizer corpus packed by
+              PackedDataset: (a) Qwen2.5-1.5B at full width and depth,
+              8 x 512 tokens, AdamW lr 1e-4, 8 steps (losses, CUDA-event
+              ms, tok/s, peak memory beside the 24.70 GB state; the loss
+              falls); one step profiled (aten-level launches); the
+              training forward's last-position logits against prefill's
+              (1e-5 of max |logit|); a second run's first four losses
+              bit-identical; a save at step 2, a restore into a fresh
+              state (peak within the state + its largest leaf + 64 MiB)
+              whose next two losses and final leaves (params, moments,
+              count) equal the uninterrupted run's bit for bit.  (b)
+              Qwen2-57B-A14B at full widths, 1 layer, 4 x 512, 3 steps
+              twice (losses bit-identical and falling; the first step's
+              gradients nonzero on the router, the shared expert and its
+              gate, and on exactly the experts that received rows).  (c)
+              ``python -m arks_tpu_torch.train --model qwen2.5-0.5b``
+              without --device, 6 steps with checkpoints every 3, then
+              12 resumed from step 6.  None of the nine kernels launches.
 phase_pipeline, phase_recovery's engines, the preemption rounds (not
 their steady window) and phase_spec run Qwen2.5-7B at full width cut to
-its first CUT_LAYERS (14) of 28 layers, phase_residency to RES_LAYERS (7):
+its first CUT_LAYERS (7) of 28 layers, phase_residency to RES_LAYERS (7):
 their checks hold engines of one shape against each other, and the cut
 keeps the script well inside its time limit.
 The line before the last is the kernels JSON (nine counterparts); the last
@@ -377,7 +397,7 @@ SLOT_LEN = 4096                  # slot cache length (= MAX_PAGES * PAGE)
 # Qwen2.5-7B cut in depth (its first layers, full width) for the phases
 # whose checks compare engines of one shape with each other, so that the
 # whole script stays well inside its time limit.
-CUT_LAYERS = 14
+CUT_LAYERS = 7
 F32_LAYERS = 2                   # depth of phase 4's f32 engine (full width)
 KV_BITS = {"int8": 8, "int4": 4}
 # Attention, phase 3: the bf16 kernel vs the bf16 plain version (one bf16
@@ -7726,6 +7746,441 @@ def phase_fleet(torch, dev, params):
     return dict(res, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: training (arks_tpu_torch/train/)
+# ---------------------------------------------------------------------------
+
+TRAIN_MODEL = "qwen2.5-1.5b"          # (a): full widths and depth
+TRAIN_PARAMS = 1_543_714_304          # its leaves (embedding tied)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8
+TRAIN_LR = 1e-4
+TRAIN_MOE_MODEL = "qwen2-57b-a14b"     # (b): full widths, 1 of 28 layers
+TRAIN_MOE_PARAMS = 3_100_494_336
+TRAIN_MOE_LAYERS, TRAIN_MOE_BATCH, TRAIN_MOE_STEPS = 1, 4, 3
+# (b)'s leaves whose first-step gradient is read: every expert of the
+# w_ stacks that received rows nonzero (and the others zero), the rest
+# nonzero.
+TRAIN_MOE_GRADS = ("layers/router", "layers/shared_gate",
+                   "layers/shared_gate_proj", "layers/shared_up",
+                   "layers/shared_down", "layers/w_gate", "layers/w_up",
+                   "layers/w_down")
+TRAIN_CLI_MODEL = "qwen2.5-0.5b"       # (c): the entry point
+TRAIN_CLI_TIMEOUT = 300
+# The restore's peak device memory may pass the state it allocates by its
+# largest leaf (one staged copy) and this much more (allocator rounding).
+TRAIN_RESTORE_SLACK = 64 << 20
+# The training forward's last-position logits vs prefill's: the layer
+# body is shared, only the unembed's row count M differs (B * T vs B), so
+# cuBLAS may pick another f32 GEMM.  Relative to max |logit|.
+TRAIN_LOGIT_RTOL = 1e-5
+# A state in bytes: params, gradients and two AdamW moments, all f32.
+STATE_BYTES_PER_PARAM = 16
+
+
+def _train_corpus(n=160, seed=SEED):
+    """Seeded records of random lowercase words, every fourth a
+    prompt/completion pair (its prompt masked out of the loss)."""
+    import random
+    import string
+    rng = random.Random(seed)
+
+    def words(lo, hi):
+        return " ".join("".join(rng.choice(string.ascii_lowercase)
+                                for _ in range(rng.randint(2, 9)))
+                        for _ in range(rng.randint(lo, hi)))
+
+    return [{"prompt": words(5, 40), "completion": " " + words(20, 160)}
+            if i % 4 == 3 else {"text": words(20, 200)} for i in range(n)]
+
+
+def _train_batches(torch, dev, records, batch, seq, steps):
+    from arks_tpu_torch.engine.tokenizer import ByteTokenizer
+    from arks_tpu_torch.train.data import PackedDataset
+    ds = PackedDataset(records, ByteTokenizer(), seq_len=seq,
+                       batch_size=batch, seed=SEED)
+    out = []
+    for b in ds.epoch(0):
+        out.append(tuple(torch.from_numpy(b[k]).to(dev) for k in
+                         ("tokens", "targets", "loss_mask")))
+        if len(out) == steps:
+            return out
+    raise AssertionError(f"[train] the corpus packs {len(out)} batches of "
+                         f"{batch} x {seq}, not {steps}")
+
+
+def _train_run(torch, state, step, batches, tag):
+    """Steps ``state`` through ``batches``: (state, losses, ms per step
+    from CUDA events)."""
+    losses, ms = [], []
+    for batch in batches:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, loss = step(state, *batch)
+        e1.record()
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        losses.append(loss.item())
+    log(f"[train {tag}] losses {losses}; ms per step {ms}")
+    return state, losses, ms
+
+
+def _state_bytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors.values()
+               if t.is_cuda)
+
+
+def _same_bits(torch, a, b) -> bool:
+    """Equal dtype, shape and bits (a view as integers: -0.0 and 0.0
+    differ, NaNs with equal bits agree)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    kind = ints[a.element_size()]
+    return torch.equal(a.contiguous().view(kind), b.contiguous().view(kind))
+
+
+def _device_ms_by_kind(torch, prof) -> dict:
+    """A profiled window's device ms by kernel kind: the GEMMs (cuBLAS /
+    CUTLASS names), reductions, the other elementwise kernels, copies and
+    memsets."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = collections.Counter()
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != cuda:
+            continue
+        name = ev.name().lower()
+        kind = ("gemm" if any(k in name for k in ("gemm", "cutlass", "sm90",
+                                                  "cublas")) else
+                "reduce" if "reduce" in name else
+                "copy/memset" if any(k in name for k in ("memcpy", "memset",
+                                                         "copy")) else
+                "elementwise")
+        out[kind] += (ev.end_ns() - ev.start_ns()) / 1e6
+    return {k: round(v, 1) for k, v in out.most_common()}
+
+
+def _free_state(torch):
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _train_dense(torch, dev, records):
+    """(a) Qwen2.5-1.5B at full width and depth, f32: TRAIN_STEPS steps,
+    one profiled; the training forward's logits against prefill's; a
+    second run's first four losses, a save at step 2 and a restore into a
+    fresh state whose two next steps equal the uninterrupted run's
+    losses and every leaf of its state bit for bit; the restore's peak
+    memory."""
+    import os
+    import shutil
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+
+    from arks_tpu_torch.models import get_config
+    from arks_tpu_torch.models import transformer as tf
+    from arks_tpu_torch.train import checkpoint as ckpt
+    from arks_tpu_torch.train import sft
+    cfg = get_config(TRAIN_MODEL)
+    opt = sft.adamw(TRAIN_LR)
+    step = sft.make_train_step(cfg, opt)
+    batches = _train_batches(torch, dev, records, TRAIN_BATCH, TRAIN_SEQ,
+                             TRAIN_STEPS)
+    res = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = sft.train_init(cfg, SEED, opt, dev)
+    n = sum(p.numel() for _, p in sft.named_leaves(state.params))
+    if n != TRAIN_PARAMS:
+        raise AssertionError(f"[train a] {n} parameters, not {TRAIN_PARAMS}")
+    state_gb = n * STATE_BYTES_PER_PARAM / 1e9
+    state, losses, ms = _train_run(torch, state, step, batches, "a")
+    peak = torch.cuda.max_memory_allocated() - base
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"[train a] losses {losses} do not fall")
+    steady = sorted(ms[1:])[len(ms[1:]) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    res.update(losses=losses, ms=ms, ms_median=steady,
+               tok_s=tokens / steady * 1e3, peak_bytes=peak,
+               state_gb=state_gb, batch=TRAIN_BATCH)
+    log(f"[train a] {TRAIN_MODEL} f32, {TRAIN_BATCH} x {TRAIN_SEQ}: "
+        f"{steady:.1f} ms per step (median of steps 2-{TRAIN_STEPS}; the "
+        f"first {ms[0]:.1f}), {res['tok_s']:.0f} tok/s, peak device memory "
+        f"{peak / 1e9:.2f} GB beside the {state_gb:.2f} GB state")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        state, _ = step(state, *batches[0])
+        torch.cuda.synchronize()
+    kern, dev_us, aten = _trace_counts(torch, prof)
+    by_kind = _device_ms_by_kind(torch, prof)
+    res.update(step_launches=sum(kern.values()), step_device_ms=dev_us / 1e3,
+               step_aten_ops=sum(aten.values()), step_ms_by_kind=by_kind)
+    log(f"[train a] one profiled step: {res['step_launches']} device "
+        f"kernel launches, {res['step_device_ms']:.1f} ms device "
+        f"(by kind, ms: {by_kind}), {res['step_aten_ops']} aten ops; most "
+        f"launched {[(n, name[:60]) for name, n in kern.most_common(4)]}")
+    with torch.no_grad():
+        toks = batches[0][0]
+        got = sft.forward_train(state.params, cfg, toks)[:, -1]
+        want, _, _ = tf.prefill(state.params, cfg, toks, torch.full(
+            (toks.shape[0],), TRAIN_SEQ, dtype=torch.int32, device=dev))
+    err = (got - want).abs().max().item()
+    tol = TRAIN_LOGIT_RTOL * want.abs().max().item()
+    res["logit_err"] = err
+    log(f"[train a] training forward vs prefill, last-position logits: "
+        f"max |diff| {err:.3e} (limit {tol:.3e})")
+    if not err <= tol:
+        raise AssertionError(f"[train a] logits differ by {err} > {tol}")
+    del state, got, want
+    _free_state(torch)
+
+    d = tempfile.mkdtemp(prefix="arks-train-")
+    try:
+        state = sft.train_init(cfg, SEED, opt, dev)
+        state, first, _ = _train_run(torch, state, step, batches[:2],
+                                     "a second run")
+        t0 = time.perf_counter()
+        ckpt.save_train_state(ckpt.make_manager(d), state, wait=True)
+        res["save_s"] = time.perf_counter() - t0
+        saved_bytes = os.path.getsize(os.path.join(d, "2", ckpt.STATE_FILE))
+        state, more, _ = _train_run(torch, state, step, batches[2:4],
+                                    "a second run")
+        if first + more != losses[:4]:
+            raise AssertionError(f"[train a] a second run's losses "
+                                 f"{first + more} != {losses[:4]}")
+        t0 = time.perf_counter()
+        want = {k: ckpt.host_copy(t) for k, t in
+                ckpt.state_tensors(state).items()}
+        res["copy_s"] = time.perf_counter() - t0
+        del state
+        _free_state(torch)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        resumed = ckpt.restore_train_state(ckpt.make_manager(d), cfg, opt,
+                                           dev)
+        torch.cuda.synchronize()
+        res["restore_s"] = time.perf_counter() - t0
+        restore_peak = torch.cuda.max_memory_allocated() - base
+        tensors = ckpt.state_tensors(resumed)
+        restored = _state_bytes(tensors)
+        largest = max(t.numel() * t.element_size() for t in tensors.values())
+        bound = restored + largest + TRAIN_RESTORE_SLACK
+        res.update(restore_peak=restore_peak, restored_bytes=restored,
+                   saved_bytes=saved_bytes)
+        log(f"[train a] checkpoint at step 2: {saved_bytes} B written in "
+            f"{res['save_s']:.1f} s, restored in {res['restore_s']:.1f} s; "
+            f"restore peak device memory {restore_peak} B against the "
+            f"bound {bound} B (the restored state {restored} B + its "
+            f"largest leaf {largest} B + {TRAIN_RESTORE_SLACK} B)")
+        if resumed.step != 2 or restore_peak > bound:
+            raise AssertionError(f"[train a] restore: step {resumed.step}, "
+                                 f"peak {restore_peak} > {bound}")
+        del tensors
+        resumed, after, _ = _train_run(torch, resumed, step, batches[2:4],
+                                       "a resumed")
+        if after != losses[2:4]:
+            raise AssertionError(f"[train a] resumed losses {after} != "
+                                 f"{losses[2:4]}")
+        t0 = time.perf_counter()
+        got = ckpt.state_tensors(resumed)
+        bad = [k for k in want if k not in got or not _same_bits(
+            torch, got[k], want[k].to(got[k].device))]
+        res["compare_s"] = time.perf_counter() - t0
+        if bad or got.keys() != want.keys():
+            raise AssertionError(f"[train a] the resumed state differs from "
+                                 f"the uninterrupted one in {bad[:8]}")
+        res["resume_leaves"] = len(want)
+        log(f"[train a] resume bit-identical: losses after the restore "
+            f"{after} equal the uninterrupted run's, and all {len(want)} "
+            f"leaves (params, moments, the update count, step) equal bit "
+            f"for bit "
+            f"(host copy {res['copy_s']:.1f} s, compare "
+            f"{res['compare_s']:.1f} s)")
+        del resumed, got, want
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    _free_state(torch)
+    return res
+
+
+def _train_moe(torch, dev, records):
+    """(b) Qwen2-57B-A14B at full widths, TRAIN_MOE_LAYERS layer, f32:
+    TRAIN_MOE_STEPS steps twice from one seed; the first step's gradients
+    reach the router, the shared expert and its gate, and exactly the
+    experts that received rows."""
+    from arks_tpu_torch.models import get_config
+    from arks_tpu_torch.models import moe
+    from arks_tpu_torch.train import sft
+    cfg = dataclasses.replace(get_config(TRAIN_MOE_MODEL),
+                              num_layers=TRAIN_MOE_LAYERS)
+    opt = sft.adamw(TRAIN_LR)
+    step = sft.make_train_step(cfg, opt)
+    batches = _train_batches(torch, dev, records, TRAIN_MOE_BATCH,
+                             TRAIN_SEQ, TRAIN_MOE_STEPS)
+    sizes, grads = [], {}
+    real_ragged = moe.ragged_dot
+
+    def spy(xs, w, group_sizes):
+        sizes.append(group_sizes.tolist())
+        return real_ragged(xs, w, group_sizes)
+
+    runs, res = [], {}
+    moe.ragged_dot = spy
+    try:
+        for run in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            state = sft.train_init(cfg, SEED, opt, dev)
+            leaves = dict(sft.named_leaves(state.params))
+            n = sum(p.numel() for p in leaves.values())
+            if n != TRAIN_MOE_PARAMS:
+                raise AssertionError(f"[train b] {n} parameters")
+            hooks = []
+            if run == 0:
+                def keep(name):
+                    def hook(p):
+                        if name not in grads:
+                            g = p.grad[0]
+                            grads[name] = (g.reshape(g.shape[0], -1).abs()
+                                           .amax(dim=1).tolist()
+                                           if name.startswith("layers/w_")
+                                           else g.abs().max().item())
+                    return hook
+                hooks = [leaves[name].register_post_accumulate_grad_hook(
+                    keep(name)) for name in TRAIN_MOE_GRADS]
+            state, losses, ms = _train_run(torch, state, step, batches,
+                                           f"b run {run + 1}")
+            for h in hooks:
+                h.remove()
+            peak = torch.cuda.max_memory_allocated() - base
+            runs.append(losses)
+            if run == 0:
+                steady = sorted(ms[1:])[len(ms[1:]) // 2]
+                res.update(losses=losses, ms=ms, ms_median=steady,
+                           tok_s=TRAIN_MOE_BATCH * TRAIN_SEQ / steady * 1e3,
+                           peak_bytes=peak,
+                           state_gb=n * STATE_BYTES_PER_PARAM / 1e9)
+            elif losses != runs[0]:
+                raise AssertionError(f"[train b] a second identical run's "
+                                     f"losses {losses} != {runs[0]}")
+            del state, leaves
+            _free_state(torch)
+    finally:
+        moe.ragged_dot = real_ragged
+    losses = runs[0]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"[train b] losses {losses} do not fall")
+    routed = sizes[0]                    # the first step's gate products
+    if len(routed) != cfg.num_experts or sum(routed) != \
+            TRAIN_MOE_BATCH * TRAIN_SEQ * cfg.num_experts_per_tok:
+        raise AssertionError(f"[train b] group sizes {routed}")
+    zero = [name for name in TRAIN_MOE_GRADS
+            if not name.startswith("layers/w_") and not grads[name] > 0]
+    for name in ("layers/w_gate", "layers/w_up", "layers/w_down"):
+        zero += [f"{name}[{e}]" for e, (rows, g) in
+                 enumerate(zip(routed, grads[name])) if (rows > 0) != (g > 0)]
+    if zero:
+        raise AssertionError(f"[train b] gradients zero (or nonzero on an "
+                             f"expert with no rows): {zero}")
+    res.update(experts_with_rows=sum(r > 0 for r in routed),
+               router_grad=grads["layers/router"],
+               shared_gate_grad=grads["layers/shared_gate"])
+    log(f"[train b] {TRAIN_MOE_MODEL} f32 at full widths, "
+        f"{TRAIN_MOE_LAYERS} layer, {TRAIN_MOE_BATCH} x {TRAIN_SEQ}: "
+        f"losses {losses} (a second run's bit-identical); "
+        f"{res['ms_median']:.1f} ms per step, {res['tok_s']:.0f} tok/s, "
+        f"peak device memory {res['peak_bytes'] / 1e9:.2f} GB beside the "
+        f"{res['state_gb']:.2f} GB state; rows per expert {routed}; max "
+        f"|grad| router {res['router_grad']:.3e}, shared_gate "
+        f"{res['shared_gate_grad']:.3e}, every expert with rows nonzero, "
+        f"the {cfg.num_experts - res['experts_with_rows']} without zero")
+    return res
+
+
+def _stamped(line: str, start: float) -> str:
+    """A trainer log line as "<seconds since ``start``>s <message>"."""
+    import datetime
+    at = datetime.datetime.strptime(line[:23], "%Y-%m-%d %H:%M:%S,%f")
+    return (f"{at.timestamp() - start:.1f}s "
+            f"{line.split(' arks_tpu_torch.train INFO ')[-1]}")
+
+
+def _train_cli(torch, records):
+    """(c) ``python -m arks_tpu_torch.train`` twice without --device: 6
+    steps with checkpoints every 3, then 12 resumed from step 6."""
+    import os
+    import shutil
+    import tempfile
+    d = tempfile.mkdtemp(prefix="arks-train-cli-")
+    try:
+        data = os.path.join(d, "corpus.jsonl")
+        with open(data, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in records)
+        secs, err, logged = [], [], []
+        for steps in (6, 12):
+            t0, start = time.perf_counter(), time.time()
+            r = subprocess.run(
+                [sys.executable, "-m", "arks_tpu_torch.train", "--model",
+                 TRAIN_CLI_MODEL, "--data", data, "--seq-len", "256",
+                 "--batch-size", "4", "--steps", str(steps), "--ckpt-every",
+                 "3", "--ckpt-dir", os.path.join(d, "run")],
+                capture_output=True, text=True, timeout=TRAIN_CLI_TIMEOUT)
+            secs.append(time.perf_counter() - t0)
+            err.append(r.stderr)
+            logged += [_stamped(ln, start) for ln in r.stderr.splitlines()
+                       if " arks_tpu_torch.train INFO " in ln]
+            if r.returncode != 0:
+                raise AssertionError(f"[train c] --steps {steps} exited "
+                                     f"{r.returncode}: {r.stderr[-3000:]}")
+        need = [(0, "final checkpoint at step 6"), (1, "resumed from step 6"),
+                (1, "final checkpoint at step 12")]
+        missing = [line for i, line in need if line not in err[i]]
+        if missing:
+            raise AssertionError(f"[train c] missing log lines {missing}: "
+                                 f"{err[1][-3000:]}")
+        steps = sorted(os.listdir(os.path.join(d, "run")))
+        log(f"[train c] python -m arks_tpu_torch.train --model "
+            f"{TRAIN_CLI_MODEL} (no --device): {secs[0]:.1f} s for 6 steps, "
+            f"{secs[1]:.1f} s resumed to 12; its log lines, at seconds "
+            f"since the process started: {logged}; kept {steps}")
+        return dict(seconds=secs)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def phase_train(torch, dev):
+    """Phase 17: the trainer on the card (``arks_tpu_torch/train/``), with
+    the grouped MoE route's plain products (ARKS_MOE_KERNEL=auto: the
+    grouped matmul kernel has no backward).  Launches none of the nine
+    kernels: their counts stay 0 through the phase."""
+    import os
+    os.environ["ARKS_MOE_KERNEL"] = "auto"
+    t_phase = time.perf_counter()
+    _reset_counts()
+    records = _train_corpus()
+    res = {"a": _train_dense(torch, dev, records),
+           "b": _train_moe(torch, dev, records),
+           "c": _train_cli(torch, records)}
+    counts = _read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"[train] kernel launches {counts}")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[train] the training phases launched none of the nine kernels "
+        f"({counts}); one training step of {TRAIN_MODEL} is "
+        f"{res['a']['step_launches']} device kernel launches (aten level) "
+        f"and {res['a']['step_aten_ops']} aten ops; phase took "
+        f"{res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -7802,6 +8257,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     ckpt, ckpt_n = phase_checkpoint(torch, dev)
     gm, routes, moe_serve, moe_short = phase_moe(torch, dev)
+    train = phase_train(torch, dev)
     gm_row = gm[("528-row", "gate", "int8")]
     slot16, slot8 = legacy[("slot", "bf16")], legacy[("slot", "int8")]
     paged8, paged4 = legacy[("paged", "int8")], legacy[("paged", "int4")]
@@ -7945,6 +8401,18 @@ def main() -> int:
         f"gaps median, mean, share below {SPEC_GAP_BOUND}: {spec['gaps']}); "
         f"issues "
         f"sync-checked {spec['syncs']}; launches {dict(spec['launches'])}")
+    ta, tb = train["a"], train["b"]
+    log(f"[train table] {TRAIN_MODEL} f32 {ta['batch']} x {TRAIN_SEQ}: "
+        f"{ta['ms_median']:.1f} ms per step, {ta['tok_s']:.0f} tok/s, peak "
+        f"{ta['peak_bytes']} B beside the {ta['state_gb']:.2f} GB state, "
+        f"{ta['step_launches']} launches per step; resume bit-identical "
+        f"over {ta['resume_leaves']} leaves (save {ta['save_s']:.1f} s, "
+        f"restore {ta['restore_s']:.1f} s, restore peak "
+        f"{ta['restore_peak']} B); {TRAIN_MOE_MODEL} x{TRAIN_MOE_LAYERS} "
+        f"layer {TRAIN_MOE_BATCH} x {TRAIN_SEQ}: {tb['ms_median']:.1f} ms "
+        f"per step, {tb['tok_s']:.0f} tok/s, peak {tb['peak_bytes']} B "
+        f"beside the {tb['state_gb']:.2f} GB state; the entry point "
+        f"{train['c']['seconds']}; phase {train['seconds']:.1f} s")
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}))
