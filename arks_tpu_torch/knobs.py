@@ -86,6 +86,28 @@ DEFAULTS: dict[str, str | None] = {
     "ARKS_PROF_DIR": "/tmp/arks-prof",
     # The server's SIGTERM grace (server/__main__.py --drain-timeout).
     "ARKS_DRAIN_TIMEOUT": "20",
+    # The gang a local driver launches a server into (control/workloads.py
+    # sets them; the server serves gangs of one process only).
+    "ARKS_GANG_SIZE": None,
+    "ARKS_NUM_PROCESSES": "1",
+    # The operator: the reference's Orbax conversion switch, which the
+    # port's model controller refuses (control/model_controller.py), and
+    # the default images of the GPU runtimes it only renders
+    # (control/workloads.py).
+    "ARKS_CONVERT_ORBAX": "0",
+    "ARKS_RUNTIME_DEFAULT_VLLM_IMAGE": None,
+    "ARKS_RUNTIME_DEFAULT_SGLANG_IMAGE": None,
+    "ARKS_RUNTIME_DEFAULT_DYNAMO_IMAGE": None,
+    # The autoscaler's signals mode (control/autoscaler.py).
+    "ARKS_ELASTIC_COOLDOWN_S": "30",
+    "ARKS_ELASTIC_BURN_HI": "1.0",
+    "ARKS_ELASTIC_BURN_LO": "0.25",
+    "ARKS_ELASTIC_SAT_HI": "0.9",
+    "ARKS_ELASTIC_SAT_LO": "0.3",
+    # The gateway (gateway/server.py).
+    "ARKS_GW_COLD_START_WAIT_S": "10",
+    "ARKS_GW_SHED_INFLIGHT": "0",
+    "ARKS_GW_DISCONNECT_DRAIN_S": "10",
 }
 
 

@@ -33,7 +33,9 @@ behind the pool read the environment: ``ARKS_PREFIX_DISK_MB`` and
 ``ARKS_PEER_ADDRS`` and ``ARKS_PEER_FETCH_TIMEOUT_S`` (peer block fetch).
 
 The reference's parallelism flags (``--tensor-parallel-size`` and the
-others) are accepted at 1 and refused above it.  ``--dispatch-deadline``
+others) are accepted at 1 and refused above it, and so is a gang of more
+than one process (``ARKS_GANG_SIZE`` / ``ARKS_NUM_PROCESSES``, which the
+operator's local driver sets).  ``--dispatch-deadline``
 and ``--fault-retries`` set ``ARKS_DISPATCH_DEADLINE_S`` and
 ``ARKS_FAULT_RETRIES``.
 
@@ -160,6 +162,15 @@ def build_engine(args: argparse.Namespace):
         raise NotImplementedError(
             f"num_slices={args.num_slices}: parallelism arrives with the "
             "parallelism slice")
+    # A gang the operator's local driver launched (ARKS_GANG_SIZE, and the
+    # rendezvous's ARKS_NUM_PROCESSES for more than one process).
+    gang = max(knobs.get_int("ARKS_GANG_SIZE", 1),
+               knobs.get_int("ARKS_NUM_PROCESSES"))
+    if gang > 1:
+        raise NotImplementedError(
+            f"a gang of {gang} processes: this server serves gangs of one "
+            "process (multi-host serving arrives with the parallelism "
+            "slice); set the Application's size to 1")
     # Fault-tolerance flags travel by the environment, where the engine
     # and its watchdog read them; an explicit flag wins over it.
     if args.dispatch_deadline is not None:

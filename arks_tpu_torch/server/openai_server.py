@@ -24,7 +24,10 @@ surface of ``arks_tpu/server/openai_server.py``).
   version and age), 503 while draining, before that, while the engine
   recovers from a fault ("recovering") or is wedged ("wedged"), while it
   is scaled to zero ("scaled to zero (disarmed)"), or once the loop has
-  stopped.  GET /v1/elastic/status (reachable while disarmed); POST
+  stopped.  GET /v1/device: this process's pid, its device, the device's
+  name and bytes allocated there, and each hand-written kernel's launches
+  (an operator's proof that a replica serves on the card, through the
+  kernels).  GET /v1/elastic/status (reachable while disarmed); POST
   /v1/elastic/resize answers 501 (no live resize on one card).  The
   reference's worker-gang branches belong to a subsystem the port does
   not have.
@@ -62,6 +65,7 @@ import contextlib
 import dataclasses
 import json
 import logging
+import os
 import threading
 import time
 import uuid
@@ -284,6 +288,8 @@ class OpenAIServer:
                 elif self.path == "/v1/elastic/status":
                     # Reachable while disarmed, unlike /readiness.
                     self._json(200, server.engine.elastic_status())
+                elif self.path == "/v1/device":
+                    self._json(200, server.device_payload())
                 elif self.path in ("/health", "/healthz"):
                     self._json(200, {"status": "ok"})
                 elif self.path == "/metrics":
@@ -509,6 +515,20 @@ class OpenAIServer:
                 "version": p.get("version"),
                 "age_s": round(max(0.0, time.time()
                                    - float(p.get("built_unix", 0.0))), 3)}
+
+    def device_payload(self) -> dict:
+        """``/v1/device``: where this replica serves (host-side reads, no
+        device sync)."""
+        import torch
+
+        from arks_tpu_torch.ops import kernel_launches
+        dev = self.engine.device
+        cuda = dev.type == "cuda"
+        return {"pid": os.getpid(), "device": str(dev),
+                "name": torch.cuda.get_device_name(dev) if cuda else "cpu",
+                "memory_allocated": (torch.cuda.memory_allocated(dev)
+                                     if cuda else 0),
+                "kernel_launches": kernel_launches()}
 
     def models_payload(self) -> dict:
         """``/v1/models``: the primary under the served name, and with a

@@ -345,6 +345,29 @@ Phases (any failure raises and exits non-zero):
               ``python -m arks_tpu_torch.train --model qwen2.5-0.5b``
               without --device, 6 steps with checkpoints every 3, then
               12 resumed from step 6.  None of the nine kernels launches.
+ 18. the operator and the gateway (phase_operator, last): this process
+              runs the port's build_manager over a LocalProcessDriver and
+              its Gateway, and applies examples/quickstart/
+              quickstart_torch.yaml: two ``python -m arks_tpu_torch.server``
+              replicas of Qwen2.5-7B at full width and depth (random
+              weights from SEED, 8 slots x 1024) on this card behind a
+              token (RPM 20) and a Quota.  Both reach Running and the
+              Endpoint lists both; each says (GET /v1/device) it serves on
+              the CUDA device in the driver's process holding at least
+              its weight bytes; eight greedy requests through the gateway
+              (4 completions, 4 chats, 4 streamed) equal, but for ids and
+              timestamps, the same requests sent straight to the replica
+              that served each (its finished-request counter), and the
+              replicas' kernel counters moved; the Quota's usage is the
+              sum of the responses' usage; the request past the RPM limit
+              gets 429 and moves no replica's counter; --num-slots 8 -> 6
+              rolls the replicas one at a time while a client through the
+              gateway sees every request finish whole and the old
+              replicas exit 0 after their drain; deleting the Application
+              stops both and the card's free memory comes back within
+              1 GiB.  TTFT and total time of a 32-token stream through the
+              gateway and direct (medians of 5), each replica's time to
+              Running and the roll's time are logged.
 phase_pipeline, phase_recovery's engines, the preemption rounds (not
 their steady window) and phase_spec run Qwen2.5-7B at full width cut to
 its first CUT_LAYERS (7) of 28 layers, phase_residency to RES_LAYERS (7):
@@ -356,8 +379,10 @@ runs of the served path: phase 4's, the request surface's, the pipeline's,
 prefix reuse's, operability's, the recovery phase's (its replays
 included), the preemption phase's, the speculative phase's (the draft's
 slot-cache kernels), the pool's, scale-to-zero's, residency's (its span
-chains), the disaggregated decode engines' and the fleet replicas', and
-the checkpoint-loaded engines'
+chains), the disaggregated decode engines' and the fleet replicas', the
+operator's replicas' over the eight gateway requests (read from each
+replica's GET /v1/device before and after), and the checkpoint-loaded
+engines'
 included
 (the dense launch: its greedy run) and phase 7's (grouped_matmul, every
 quantized product).
@@ -1052,29 +1077,15 @@ def phase_legacy_kernels(torch, dev):
 # ---------------------------------------------------------------------------
 
 
-def _counted():
-    """Every kernel wrapper of the port, by name."""
-    from arks_tpu_torch.ops import moe_kernel as mk
-    from arks_tpu_torch.ops import paged_attention as pa
-    from arks_tpu_torch.ops import pallas_attention as pl
-    return {"paged_kv_update": pa.paged_kv_update,
-            "paged_kv_update_quant": pa.paged_kv_update_quant,
-            "paged_mixed_attention": pa.paged_mixed_attention,
-            "paged_mixed_attention_dense": pa.paged_mixed_attention_dense,
-            "grouped_matmul": mk.grouped_matmul,
-            "paged_decode_attention": pa.paged_decode_attention,
-            "kv_cache_update": pl.kv_cache_update,
-            "kv_cache_update_quant": pl.kv_cache_update_quant,
-            "ragged_decode_attention": pl.ragged_decode_attention}
-
-
 def _reset_counts():
-    for fn in _counted().values():
+    from arks_tpu_torch.ops import kernel_wrappers
+    for fn in kernel_wrappers().values():
         fn.launches = 0
 
 
 def _read_counts():
-    return {name: fn.launches for name, fn in _counted().items()}
+    from arks_tpu_torch.ops import kernel_launches
+    return kernel_launches()
 
 
 def _request(port, path, body, stream=False):
@@ -8181,6 +8192,504 @@ def phase_train(torch, dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the operator and the gateway in front of the port
+# ---------------------------------------------------------------------------
+
+OP_MANIFEST = "examples/quickstart/quickstart_torch.yaml"
+OP_APP, OP_SERVED, OP_NS = "qwen2.5-app", "qwen2.5", "default"
+OP_TOKEN, OP_USER, OP_QUOTA = "sk-quickstart", "quickstart-user", \
+    "quickstart-quota"
+OP_LOAD_TOKEN = "sk-operator-load"     # the roll's client and the TTFT runs
+OP_TOKENS = 16                         # greedy tokens of a checked request
+OP_TTFT_TOKENS = 32                    # tokens of a timed stream
+OP_TTFT_RUNS = 5                       # timed streams a median, each way
+OP_BOOT_TIMEOUT = 240
+OP_ROLL_TIMEOUT = 300
+OP_MEM_SLACK = 1 << 30                 # device bytes a teardown may keep
+
+
+def _op_get(addr, path):
+    host, _, port = addr.partition(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _op_served(addr) -> float:
+    """The replica's finished requests: request_success_total's samples."""
+    status, raw = _op_get(addr, "/metrics")
+    if status != 200:
+        raise AssertionError(f"[operator] {addr}/metrics: {status}")
+    return sum(float(line.rsplit(" ", 1)[1])
+               for line in raw.decode().splitlines()
+               if line.startswith("request_success_total"))
+
+
+def _op_device(addr) -> dict:
+    status, raw = _op_get(addr, "/v1/device")
+    if status != 200:
+        raise AssertionError(f"[operator] {addr}/v1/device: {status}")
+    return json.loads(raw)
+
+
+def _op_call(addr, path, body, token=None):
+    """POST ``body``: (status, the response as JSON, or its SSE data frames
+    as JSON with "[DONE]" last, or the error text), seconds to the first
+    SSE frame or None, total seconds)."""
+    host, _, port = addr.partition(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=600)
+    headers = {"Content-Type": "application/json"}
+    if token:
+        headers["Authorization"] = f"Bearer {token}"
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", path, json.dumps(body), headers)
+        resp = conn.getresponse()
+        if resp.status != 200 or not body.get("stream"):
+            raw = resp.read()
+            try:
+                data = json.loads(raw)
+            except ValueError:
+                data = raw.decode(errors="replace")
+            return resp.status, data, None, time.perf_counter() - t0
+        frames, t_first = [], None
+        for line in resp:
+            line = line.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if t_first is None:
+                t_first = time.perf_counter() - t0
+            frames.append("[DONE]" if line == "data: [DONE]"
+                          else json.loads(line[6:]))
+        return 200, frames, t_first, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def _op_strip(data):
+    """A response without what each response mints anew (id, created)."""
+    if isinstance(data, list):
+        return [_op_strip(f) for f in data]
+    if isinstance(data, dict):
+        return {k: v for k, v in data.items() if k not in ("id", "created")}
+    return data
+
+
+def _op_usage(data) -> dict:
+    if isinstance(data, list):
+        (usage,) = [f["usage"] for f in data
+                    if isinstance(f, dict) and f.get("usage")]
+        return usage
+    return data["usage"]
+
+
+def _op_text(data) -> str:
+    if isinstance(data, list):
+        return "".join(c.get("text") or c.get("delta", {}).get("content")
+                       or "" for f in data if isinstance(f, dict)
+                       for c in f["choices"])
+    c = data["choices"][0]
+    return c.get("text") or c["message"]["content"]
+
+
+def _op_bodies():
+    """Phase 18's eight requests: four completions and four chats, two of
+    each streamed, greedy, OP_TOKENS tokens each."""
+    out = []
+    for j in range(8):
+        chat, stream = j % 2 == 1, j in (2, 3, 6, 7)
+        body = {"model": OP_SERVED, "max_tokens": OP_TOKENS,
+                "temperature": 0, "ignore_eos": True}
+        if chat:
+            body["messages"] = [{"role": "user",
+                                 "content": f"operator check {j}: hello"}]
+        else:
+            body["prompt"] = f"operator check {j}: the gateway in front"
+        if stream:
+            body.update(stream=True, stream_options={"include_usage": True})
+        out.append(("/v1/chat/completions" if chat else "/v1/completions",
+                    body))
+    return out
+
+
+def _op_groups(driver):
+    """{group index: (pid, port, the process)} of the deployed gang."""
+    with driver._lock:
+        groups = dict(driver._groups.get((OP_NS, OP_APP), {}))
+    return {i: (g.proc.pid, g.port, g.proc) for i, g in groups.items()}
+
+
+def _op_wait(what, pred, timeout, driver, logs):
+    import os
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        v = pred()
+        if v:
+            return v
+        time.sleep(0.1)
+    tails = []
+    for name in sorted(os.listdir(logs)):
+        with open(os.path.join(logs, name), errors="replace") as f:
+            tails.append(f"--- {name}\n{f.read()[-2000:]}")
+    raise AssertionError(f"[operator] {what} not within {timeout} s; "
+                         f"groups {_op_groups(driver)}\n" + "\n".join(tails))
+
+
+def _op_roll_client(gw_port, stop, results):
+    """Requests through the gateway until ``stop``: completions of 16
+    tokens, every other one streamed; each (status, finish reasons, text,
+    whole: a stream ended with its usage frame and [DONE])."""
+    j = 0
+    while not stop.is_set():
+        body = {"model": OP_SERVED, "prompt": f"rolling {j}",
+                "max_tokens": 16, "temperature": 0, "ignore_eos": True}
+        if j % 2:
+            body.update(stream=True, stream_options={"include_usage": True})
+        try:
+            status, data, _, _ = _op_call(f"127.0.0.1:{gw_port}",
+                                          "/v1/completions", body,
+                                          OP_LOAD_TOKEN)
+        except OSError as e:
+            results.append((0, repr(e), "", False))
+            j += 1
+            continue
+        if status != 200:
+            results.append((status, str(data)[:200], "", False))
+        else:
+            frames = data if isinstance(data, list) else [data]
+            finish = [c["finish_reason"] for f in frames
+                      if isinstance(f, dict) for c in f["choices"]
+                      if c.get("finish_reason")]
+            whole = not isinstance(data, list) or (
+                data[-1] == "[DONE]" and any(
+                    isinstance(f, dict) and f.get("usage") for f in data))
+            results.append((status, finish, _op_text(data), whole))
+        j += 1
+
+
+def phase_operator(torch, dev, smi):
+    """Phase 18: ``python -m arks_tpu_torch.control``'s parts in this process
+    (``build_manager`` over a ``LocalProcessDriver``, the ``Gateway`` on an
+    ephemeral port) deploy the port's quickstart manifest: two replicas of
+    ``python -m arks_tpu_torch.server`` serving Qwen2.5-7B at full width
+    and depth (random weights from the seed) on this card.  Checks, each
+    fatal: both replicas Running with the Endpoint listing both, each on
+    the CUDA device holding at least its weight bytes there; eight greedy
+    requests through the gateway (four streamed) equal, but for ids and
+    timestamps, the same requests sent straight to the replica that served
+    each, whose kernels ran; the Quota's usage is the sum of the
+    responses'; a request over the token's RPM limit gets 429 and reaches
+    no replica; a rolling update (--num-slots 8 -> 6) restarts the two one
+    at a time while a client sending through the gateway sees every
+    request finish, and the old replicas exit 0 after their drain;
+    deleting the Application stops both and the card's memory comes back.
+    Returns the replicas' kernel launches over the eight requests and the
+    phase's numbers."""
+    import os
+    import shutil
+    import tempfile
+
+    from arks_tpu_torch.control import resources as res
+    from arks_tpu_torch.control.__main__ import apply_manifests
+    from arks_tpu_torch.control.manager import build_manager
+    from arks_tpu_torch.control.workloads import (LocalProcessDriver,
+                                                  spec_hash)
+    from arks_tpu_torch.gateway.ratelimiter import window_key
+    from arks_tpu_torch.gateway.server import Gateway
+    from arks_tpu_torch.models import get_config
+    from arks_tpu_torch.models.weights import param_shapes
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = get_config(MODEL)
+    weight_bytes = 2 * sum(math.prod(s) for s in param_shapes(cfg).values())
+    torch.cuda.empty_cache()
+    free0, _ = torch.cuda.mem_get_info()
+    log(f"[operator] this process holds {torch.cuda.memory_reserved()} B "
+        f"reserved; the card has {free0} B free; a replica's weights are "
+        f"{weight_bytes} B")
+    # The replicas take the defaults: no earlier phase's ARKS_* setting
+    # reaches them.  They import the checkout's package.
+    saved = {k: v for k, v in os.environ.items() if k.startswith("ARKS_")}
+    saved["PYTHONPATH"] = os.environ.get("PYTHONPATH")
+    for k in saved:
+        os.environ.pop(k, None)
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, saved["PYTHONPATH"]) if p)
+    tmp = tempfile.mkdtemp(prefix="arks-operator-")
+    logs = os.path.join(tmp, "logs")
+    driver = LocalProcessDriver(log_dir=logs)
+    mgr = build_manager(models_root=os.path.join(tmp, "models"),
+                        driver=driver)
+    gw = Gateway(mgr.store, host="127.0.0.1", port=0, quota_sync_s=0.5)
+    out = {}
+    try:
+        mgr.start()
+        gw.start(background=True)
+        gwa = f"127.0.0.1:{gw.port}"
+        store = mgr.store
+        t0 = time.perf_counter()
+        apply_manifests(store, os.path.join(root, OP_MANIFEST))
+        store.create(res.Token(name="operator-load", spec={
+            "token": OP_LOAD_TOKEN, "qos": [{
+                "endpoint": {"name": OP_SERVED},
+                "rateLimits": [{"type": "rpm", "value": 100000},
+                               {"type": "tpm", "value": 100000000}]}]}))
+        app = store.get(res.Application, OP_APP)
+        args = app.spec["runtimeCommonArgs"]
+        if (app.spec["replicas"], app.spec["modelConfig"],
+                args[args.index("--seed") + 1]) != (2, MODEL, str(SEED)):
+            raise AssertionError(f"[operator] the manifest deploys "
+                                 f"{app.spec}")
+        # 1. Both replicas Running; the Endpoint lists both.
+        running = {}
+
+        def up():
+            gs = store.try_get(res.GangSet, OP_APP)
+            for g in (driver.status(gs)["groups"] if gs else []):
+                if g["phase"] == "Running" and g["index"] not in running:
+                    running[g["index"]] = time.perf_counter() - t0
+            routes = store.get(res.Endpoint, OP_SERVED).status.get("routes")
+            return (len(running) == 2 and routes
+                    and len(routes[0]["backend"]["addresses"]) == 2
+                    and store.get(res.Application, OP_APP).phase
+                    == res.PHASE_RUNNING and routes)
+
+        routes = _op_wait("both replicas Running", up, OP_BOOT_TIMEOUT,
+                          driver, logs)
+        addrs = sorted(routes[0]["backend"]["addresses"])
+        groups = _op_groups(driver)
+        by_port = {port: (i, pid) for i, (pid, port, _) in groups.items()}
+        devs = {}
+        for a in addrs:
+            d = devs[a] = _op_device(a)
+            i, pid = by_port[int(a.rpartition(":")[2])]
+            if not (d["device"].startswith("cuda") and d["pid"] == pid
+                    and d["memory_allocated"] >= weight_bytes):
+                raise AssertionError(f"[operator] replica {i} at {a}: {d}")
+            log(f"[operator] replica {i} (pid {pid}, {a}) Running after "
+                f"{running[i]:.2f} s on {d['device']} ({d['name']}), "
+                f"{d['memory_allocated']} B allocated there")
+        free_up, _ = torch.cuda.mem_get_info()
+        if free0 - free_up < 2 * weight_bytes:
+            raise AssertionError(f"[operator] the card lost only "
+                                 f"{free0 - free_up} B to two replicas")
+        apps_smi = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().replace("\n", "; ")
+        log(f"[operator] the card's free memory {free0} -> {free_up} B with "
+            f"both replicas up; nvidia-smi compute apps: {apps_smi}")
+        # 2. Eight requests through the gateway, each equal to the same
+        # request sent straight to the replica that served it.
+        wait = time.monotonic() + 10
+        while not (gw.qos.token_known(OP_TOKEN)
+                   and gw.qos.token_known(OP_LOAD_TOKEN)):
+            if time.monotonic() > wait:
+                raise AssertionError("[operator] tokens not indexed")
+            time.sleep(0.02)
+        k0 = {a: devs[a]["kernel_launches"] for a in addrs}
+        via, usage_sum = [], 0
+        for path, body in _op_bodies():
+            before = {a: _op_served(a) for a in addrs}
+            status, data, _, _ = _op_call(gwa, path, body, OP_TOKEN)
+            after = {a: _op_served(a) for a in addrs}
+            served = [a for a in addrs if after[a] != before[a]]
+            if status != 200 or len(served) != 1 \
+                    or after[served[0]] != before[served[0]] + 1:
+                raise AssertionError(f"[operator] {path} via the gateway: "
+                                     f"{status} {str(data)[:300]}, served "
+                                     f"{before} -> {after}")
+            usage = _op_usage(data)
+            if usage["completion_tokens"] != OP_TOKENS or not _op_text(data):
+                raise AssertionError(f"[operator] {path}: usage {usage}")
+            usage_sum += usage["total_tokens"]
+            via.append((path, body, served[0], data))
+        launches = collections.Counter()
+        for a in addrs:
+            k1 = _op_device(a)["kernel_launches"]
+            launches.update({k: k1[k] - k0[a][k] for k in k1})
+        for name in ("paged_kv_update", "paged_mixed_attention"):
+            if launches[name] <= 0:
+                raise AssertionError(f"[operator] the replicas launched "
+                                     f"{dict(launches)}")
+        for path, body, a, data in via:
+            status, direct, _, _ = _op_call(a, path, body)
+            if status != 200 or _op_strip(direct) != _op_strip(data):
+                raise AssertionError(
+                    f"[operator] {path} {body.get('stream', False)}: the "
+                    f"gateway's answer differs from {a}'s own:\n"
+                    f"{_op_strip(data)}\n{_op_strip(direct)}")
+        log(f"[operator] 8 requests through the gateway (4 streamed) equal "
+            f"their replicas' direct answers but for ids and timestamps; "
+            f"served by {collections.Counter(v[2] for v in via)}; the "
+            f"replicas' kernel launches over them {dict(launches)}")
+        # TTFT and total time, through the gateway and direct, alternating.
+        body = {"model": OP_SERVED, "prompt": "time to first token",
+                "max_tokens": OP_TTFT_TOKENS, "temperature": 0,
+                "ignore_eos": True, "stream": True,
+                "stream_options": {"include_usage": True}}
+        runs = {"gateway": [], "direct": []}
+        for _ in range(OP_TTFT_RUNS):
+            for way, addr, tok in (("gateway", gwa, OP_LOAD_TOKEN),
+                                   ("direct", addrs[0], None)):
+                status, data, t_first, total = _op_call(
+                    addr, "/v1/completions", body, tok)
+                if status != 200 or data[-1] != "[DONE]":
+                    raise AssertionError(f"[operator] {way}: {status}")
+                runs[way].append((t_first, total))
+        med = {way: (float(np.median([r[0] for r in v])),
+                     float(np.median([r[1] for r in v])))
+               for way, v in runs.items()}
+        log(f"[operator] {OP_TTFT_TOKENS}-token stream, medians of "
+            f"{OP_TTFT_RUNS} (host clock, {smi}): through the gateway TTFT "
+            f"{med['gateway'][0] * 1e3:.2f} ms, total "
+            f"{med['gateway'][1] * 1e3:.2f} ms; direct TTFT "
+            f"{med['direct'][0] * 1e3:.2f} ms, total "
+            f"{med['direct'][1] * 1e3:.2f} ms")
+        # 4. Over the RPM limit: 429, and no replica sees the request.
+        tok = store.get(res.Token, OP_USER)
+        limit = {r["type"]: r["value"] for r in
+                 tok.spec["qos"][0]["rateLimits"]}["rpm"]
+        if time.time() % 60 > 50:
+            time.sleep(60.5 - time.time() % 60)
+        window = time.time() // 60
+        key = window_key(OP_NS, OP_USER, OP_SERVED, "rpm")
+        fill = {"model": OP_SERVED, "prompt": "fill", "max_tokens": 1,
+                "temperature": 0}
+        for _ in range(limit - gw.limiter.backend.get(key)):
+            status, data, _, _ = _op_call(gwa, "/v1/completions", fill,
+                                          OP_TOKEN)
+            if status != 200:
+                raise AssertionError(f"[operator] under the limit: {status}"
+                                     f" {data}")
+            usage_sum += data["usage"]["total_tokens"]
+        before = {a: _op_served(a) for a in addrs}
+        status, data, _, _ = _op_call(gwa, "/v1/completions", fill, OP_TOKEN)
+        after = {a: _op_served(a) for a in addrs}
+        if time.time() // 60 != window:
+            raise AssertionError("[operator] the rate window turned")
+        if status != 429 or "rate limit exceeded: rpm" not in str(data) \
+                or after != before:
+            raise AssertionError(f"[operator] over the limit: {status} "
+                                 f"{data}; served {before} -> {after}")
+        log(f"[operator] request {limit + 1} of the minute: 429 "
+            f"{data['error']['message']!r}; the replicas' finished requests "
+            f"stayed {after}")
+        # 3. The Quota's usage: the sum of the responses'.
+        used = gw.quota.get_usage(OP_NS, OP_QUOTA)
+        _op_wait("the Quota's status", lambda: [
+            s["used"] for s in store.get(res.Quota, OP_QUOTA).status.get(
+                "quotaStatus", []) if s["type"] == "total"] == [usage_sum],
+            10, driver, logs)
+        if used["total"] != usage_sum:
+            raise AssertionError(f"[operator] quota {used} against the "
+                                 f"responses' {usage_sum}")
+        log(f"[operator] quota {used} equals the responses' total "
+            f"{usage_sum}, also in the Quota's status")
+        # 5. A rolling update under load.
+        old = _op_groups(driver)
+        stop, results = threading.Event(), []
+        client = threading.Thread(target=_op_roll_client,
+                                  args=(gw.port, stop, results), daemon=True)
+        client.start()
+        time.sleep(1.0)
+        t_roll = time.perf_counter()
+        app = store.get(res.Application, OP_APP)
+        args = list(app.spec["runtimeCommonArgs"])
+        args[args.index("--num-slots") + 1] = "6"
+        app.spec["runtimeCommonArgs"] = args
+        store.update(app)
+        events = []                   # (seconds, group, "restart"|"ready")
+
+        def rolled():
+            now = time.perf_counter() - t_roll
+            cur = _op_groups(driver)
+            for i, (pid, port, _) in cur.items():
+                if pid != old[i][0] and (i, "restart") not in \
+                        {(e[1], e[2]) for e in events}:
+                    events.append((now, i, "restart"))
+            gs = store.try_get(res.GangSet, OP_APP)
+            st = driver.status(gs)["groups"] if gs else []
+            for g in st:
+                i = g["index"]
+                if g["phase"] == "Running" and cur.get(i, old[i])[0] \
+                        != old[i][0] and (i, "ready") not in \
+                        {(e[1], e[2]) for e in events}:
+                    events.append((now, i, "ready"))
+            want = spec_hash(gs) if gs else None
+            with driver._lock:
+                hashes = [g.spec_hash for g in
+                          driver._groups.get((OP_NS, OP_APP), {}).values()]
+            routes = store.get(res.Endpoint, OP_SERVED).status.get("routes")
+            news = {f"127.0.0.1:{p}" for _, p, _ in cur.values()}
+            return (len(events) == 4 and hashes == [want, want]
+                    and routes and set(routes[0]["backend"]["addresses"])
+                    == news)
+
+        _op_wait("the rolling update", rolled, OP_ROLL_TIMEOUT, driver, logs)
+        roll_s = time.perf_counter() - t_roll
+        time.sleep(1.0)
+        stop.set()
+        client.join(timeout=120)
+        if client.is_alive():
+            raise AssertionError("[operator] the roll's client hung")
+        order = sorted(events)
+        first, second = order[0][1], [e for e in order if e[1] != order[0][1]]
+        ready_first = [t for t, i, e in events if i == first and e == "ready"]
+        restart_second = [t for t, i, e in second if e == "restart"]
+        rcs = [p.wait(timeout=60) for _, _, p in old.values()]
+        bad = [r for r in results if r[0] != 200 or r[1] != ["length"]
+               or not r[2] or not r[3]]
+        if bad or not results or rcs != [0, 0] or \
+                restart_second[0] < ready_first[0]:
+            raise AssertionError(f"[operator] roll: {len(results)} requests,"
+                                 f" failed {bad[:5]}; old replicas' exit "
+                                 f"codes {rcs}; events {order}")
+        for i, (pid, port, p) in _op_groups(driver).items():
+            if p.args[p.args.index("--num-slots") + 1] != "6":
+                raise AssertionError(f"[operator] group {i}: {p.args}")
+        log(f"[operator] rolling update --num-slots 8 -> 6 in {roll_s:.2f} s"
+            f" ({smi}): restarts and readiness at "
+            + ", ".join(f"{t:.2f} s group {i} {e}" for t, i, e in order)
+            + f"; the client's {len(results)} requests through the gateway "
+            f"all finished whole; the old replicas exited {rcs} after their "
+            f"drain")
+        # 6. Teardown gives the card's memory back.
+        procs = [p for _, _, p in _op_groups(driver).values()]
+        t_down = time.perf_counter()
+        store.delete(res.Application, OP_APP)
+        _op_wait("teardown", lambda: store.try_get(res.GangSet, OP_APP) is None
+                 and all(p.poll() is not None for p in procs), 60, driver,
+                 logs)
+        _op_wait("the card's memory back", lambda: torch.cuda.mem_get_info()[
+            0] >= free0 - OP_MEM_SLACK, 30, driver, logs)
+        log(f"[operator] teardown in {time.perf_counter() - t_down:.2f} s: "
+            f"both replicas exited, the card has "
+            f"{torch.cuda.mem_get_info()[0]} B free (before the phase "
+            f"{free0})")
+        out = {"launches": launches, "running_s": running, "roll_s": roll_s,
+               "ttft": med, "requests_during_roll": len(results)}
+    finally:
+        gw.stop()
+        mgr.stop()
+        driver.teardown_all()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[operator] phase took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -8193,7 +8702,7 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
-    phase_device(torch)
+    smi = phase_device(torch)
     phase_build()
     b, upd_err, attn_err = phase_kernels(torch, dev)
     qres = phase_quant_kernels(torch, dev, b)
@@ -8258,6 +8767,7 @@ def main() -> int:
     ckpt, ckpt_n = phase_checkpoint(torch, dev)
     gm, routes, moe_serve, moe_short = phase_moe(torch, dev)
     train = phase_train(torch, dev)
+    operator = phase_operator(torch, dev, smi)
     gm_row = gm[("528-row", "gate", "int8")]
     slot16, slot8 = legacy[("slot", "bf16")], legacy[("slot", "int8")]
     paged8, paged4 = legacy[("paged", "int8")], legacy[("paged", "int4")]
@@ -8272,7 +8782,8 @@ def main() -> int:
     pipe_n.update(zero["launches"])       # server pass), scale-to-zero's
     pipe_n.update(resid["launches"])      # residency's (span chains),
     pipe_n.update(disagg["launches"])     # the disaggregated decode
-    pipe_n.update(fleet["launches"])      # engines' and the fleet's
+    pipe_n.update(fleet["launches"])      # engines' and the fleet's,
+    pipe_n.update(operator["launches"])   # and the operator's replicas'
     attn_launches = (serve["launches"]["paged_mixed_attention"]
                      + serve8["launches"]["paged_mixed_attention"]
                      + paged4["launches"]["paged_mixed_attention"]
@@ -8413,6 +8924,16 @@ def main() -> int:
         f"per step, {tb['tok_s']:.0f} tok/s, peak {tb['peak_bytes']} B "
         f"beside the {tb['state_gb']:.2f} GB state; the entry point "
         f"{train['c']['seconds']}; phase {train['seconds']:.1f} s")
+    log(f"[operator table] {smi}: replicas Running after "
+        + ", ".join(f"{t:.2f} s" for _, t in sorted(
+            operator["running_s"].items()))
+        + f"; roll {operator['roll_s']:.2f} s under "
+        f"{operator['requests_during_roll']} requests; TTFT / total ms "
+        f"gateway {operator['ttft']['gateway'][0] * 1e3:.2f} / "
+        f"{operator['ttft']['gateway'][1] * 1e3:.2f}, direct "
+        f"{operator['ttft']['direct'][0] * 1e3:.2f} / "
+        f"{operator['ttft']['direct'][1] * 1e3:.2f}; phase "
+        f"{operator['seconds']:.1f} s")
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}))

@@ -1,13 +1,15 @@
 """The port stands alone: importing every ``arks_tpu_torch`` module pulls in
 neither ``jax`` nor anything of ``arks_tpu``, nor ``safetensors`` (the
 port reads checkpoints with its own reader and needs no such package);
-no source file of the port (or ``chip_smoke.py``) imports them; and entry
-points refuse to carry on on the CPU when no GPU is present and the caller
-did not ask for the CPU."""
+no source file of the port (or ``chip_smoke.py``) imports them; no command
+the port's operator builds runs a module of ``arks_tpu``; and entry points
+refuse to carry on on the CPU when no GPU is present and the caller did
+not ask for the CPU."""
 
 import ast
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -63,7 +65,12 @@ def test_importing_every_module_loads_no_jax_and_no_arks_tpu():
             "arks_tpu_torch.obs.profiler",
             "arks_tpu_torch.engine.kv_transfer",
             "arks_tpu_torch.server.disagg",
-            "arks_tpu_torch.prefix_sketch"} <= imported
+            "arks_tpu_torch.prefix_sketch",
+            "arks_tpu_torch.control.manager",
+            "arks_tpu_torch.control.autoscaler",
+            "arks_tpu_torch.control.__main__",
+            "arks_tpu_torch.gateway.server",
+            "arks_tpu_torch.gateway.__main__"} <= imported
 
 
 def _imported_modules(path: Path):
@@ -83,6 +90,48 @@ def test_no_source_imports_jax_or_the_jax_package(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "arks_tpu", "safetensors"), \
             (path, mod)
+
+
+def test_no_operator_command_names_the_jax_package(tmp_path):
+    """Every command the port's controllers build, for every runtime and
+    every Application of the examples (the reference's as the port takes
+    them, and the port's quickstart), runs nothing of ``arks_tpu``."""
+    import yaml
+
+    from arks_tpu_torch.control import resources as res
+    from arks_tpu_torch.control import workloads
+    from arks_tpu_torch.control.application_controller import (
+        ApplicationController,
+    )
+    from arks_tpu_torch.control.store import Store
+
+    store = Store()
+    ctl = ApplicationController(store)
+    model = res.Model(name="m", status={"path": str(tmp_path)})
+    commands = [workloads.torch_serve_command(
+        "tiny", "s", "$(PORT)", 2, 2, [], model_path="/m", device="cpu",
+        context_parallel=2, num_slices=2)]
+    commands += [workloads.gpu_runtime_command(rt, "/m", "s", 1, 2, [])
+                 for rt in ("vllm", "sglang", "dynamo")]
+    apps = [{"runtime": rt, "model": {"name": "m"}}
+            for rt in res.VALID_RUNTIMES]
+    for path in sorted((REPO / "examples").rglob("*.yaml")):
+        for doc in yaml.safe_load_all(path.read_text()):
+            if doc and doc.get("kind") == "Application":
+                spec = dict(doc["spec"])
+                if spec.get("runtime", "jax") == "jax":
+                    spec["runtime"] = "torch"
+                apps.append(spec)
+    for spec in apps:
+        for dev in (None, "cpu"):
+            ctl.local_device = dev
+            gs = ctl._generate_gangset_spec(res.Application(
+                name="a", spec=spec), model)
+            commands += [gs["leader"]["command"], gs["worker"]["command"]]
+    assert len(commands) > 10
+    for cmd in commands:
+        for arg in cmd:
+            assert not re.search(r"\barks_tpu\.", arg), cmd
 
 
 def test_engine_without_cuda_raises_unless_cpu_requested(monkeypatch):
