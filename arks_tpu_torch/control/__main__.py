@@ -10,9 +10,15 @@ store, optionally the QoS gateway, and applies manifests — so
 
 deploys replicas of ``python -m arks_tpu_torch.server`` on this host's GPU
 (``--local-device cpu`` runs them on the CPU) behind the gateway's tokens,
-rate limits and quota.  Manifests are YAML documents with the same
-kind/metadata/spec shape as the reference CRs.  A DisaggregatedApplication
-is refused (``NotImplementedError``): its router is not ported yet.
+rate limits and quota, and
+
+    python -m arks_tpu_torch.control \\
+        --manifests examples/quickstart/disaggregated_torch.yaml
+
+deploys a DisaggregatedApplication: prefill and decode replicas of the
+server behind the port's cache-aware router (``python -m
+arks_tpu_torch.router``).  Manifests are YAML documents with the same
+kind/metadata/spec shape as the reference CRs.
 """
 
 from __future__ import annotations
@@ -28,13 +34,10 @@ log = logging.getLogger("arks_tpu_torch.operator")
 def apply_manifests(store, path: str) -> list:
     """Create (or update the spec of) every resource in the YAML file
     ``path``.  Every document is checked before any is applied: an unknown
-    kind raises ``ValueError`` and a DisaggregatedApplication raises
-    ``NotImplementedError``, and then nothing of the file is applied."""
+    kind raises ``ValueError``, and then nothing of the file is applied."""
     import yaml
 
-    from arks_tpu_torch.control.resources import (
-        KIND_BY_NAME, DisaggregatedApplication,
-    )
+    from arks_tpu_torch.control.resources import KIND_BY_NAME
     from arks_tpu_torch.control.store import Conflict
 
     with open(path) as f:
@@ -45,11 +48,6 @@ def apply_manifests(store, path: str) -> list:
         cls = KIND_BY_NAME.get(kind)
         if cls is None:
             raise ValueError(f"unknown kind {kind!r} in {path}")
-        if cls is DisaggregatedApplication:
-            raise NotImplementedError(
-                f"{kind} in {path}: prefill/decode applications need the "
-                "router, which this port does not have yet (ROADMAP.md "
-                "queue 1 item 5)")
         objs.append(cls.from_dict(doc))
     for obj in objs:
         try:

@@ -5,6 +5,8 @@ ported yet: a GPU node-pool renderer is queued in ``ROADMAP.md``).
 - ``validate_instance_spec``: the reserved model mount and the gang's
   rendezvous env (reference precheck :236-264), a copy.
 - ``validate_pod_group_policy``: exactly one gang scheduler, a copy.
+- ``validate_dapp_mode``: a DisaggregatedApplication's layout, ``legacy``
+  or ``unified``, a copy.
 - ``try_shape``: the reference derives a gang's size and slice count from
   a TPU topology name (``tpu-v5e-16``, ``tpu-v5p-16x2``).  The port serves
   NVIDIA GPUs, so a TPU topology name is refused (``ValueError``, which the
@@ -55,6 +57,16 @@ def validate_pod_group_policy(policy: dict | None) -> None:
         raise ValueError(
             "podGroupPolicy must set exactly one of kubeScheduling / "
             f"volcanoScheduling (got {srcs or 'neither'})")
+
+
+VALID_DAPP_MODES = ("legacy", "unified")
+
+
+def validate_dapp_mode(mode: str) -> None:
+    if mode not in VALID_DAPP_MODES:
+        raise ValueError(
+            f"spec.mode must be one of {'|'.join(VALID_DAPP_MODES)}, "
+            f"got {mode!r}")
 
 
 def try_shape(accelerator: str | None) -> None:

@@ -1,15 +1,13 @@
 """Operator assembly: store + the controller set (cmd/main.go analogue; the
-port's copy of ``arks_tpu/control/manager.py``).
-
-The reference also registers ``DisaggregatedApplicationController``, whose
-router gang runs the router; the port has no router yet (``ROADMAP.md``
-queue 1 item 5), so no controller converges a DisaggregatedApplication and
-``__main__.apply_manifests`` refuses the kind."""
+port's copy of ``arks_tpu/control/manager.py``)."""
 
 from __future__ import annotations
 
 from arks_tpu_torch.control.application_controller import (
     ApplicationController,
+)
+from arks_tpu_torch.control.disaggregated_controller import (
+    DisaggregatedApplicationController,
 )
 from arks_tpu_torch.control.endpoint_controller import EndpointController
 from arks_tpu_torch.control.gangset_controller import GangSetController
@@ -29,6 +27,7 @@ def build_manager(
     local_device: str | None = None,
     rate_source=None,
     autoscale_interval_s: float = 10.0,
+    router_discovery: str = "file",
 ) -> Manager:
     """Wire the controller set over one store.
 
@@ -47,6 +46,9 @@ def build_manager(
     mgr.add(ModelController(mgr.store, models_root, fetcher=fetcher))
     mgr.add(GangSetController(mgr.store, driver))
     mgr.add(ApplicationController(mgr.store, local_device=local_device))
+    mgr.add(DisaggregatedApplicationController(
+        mgr.store, local_device=local_device,
+        router_discovery=router_discovery))
     mgr.add(EndpointController(mgr.store))
     if rate_source is not None:
         from arks_tpu_torch.control.autoscaler import AutoscalerController

@@ -7,10 +7,10 @@ from YAML manifests instead of a live operator store.  When embedded next
 to the operator (python -m arks_tpu_torch.control), the gateway shares the
 operator's store instead and this entrypoint is not used.
 
-Counter stores: ``auto`` and ``memory`` are the in-memory store (one
-gateway replica).  ``native`` (the reference's C++ store) and ``redis``
-(its shared store for HA gateways) are not ported yet and raise
-``NotImplementedError``.
+Counter stores (``--backend``): ``auto`` is the native C++ store when its
+library builds, else the in-memory one; ``memory`` and ``native`` name one;
+``redis`` keeps the rate windows and the quota ledger on a RESP server
+(``--redis-addr``), which gateway replicas share.
 """
 
 from __future__ import annotations
@@ -32,8 +32,16 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--port", type=int, default=8081)
     p.add_argument("--backend", choices=("auto", "memory", "native", "redis"),
                    default="auto",
-                   help="counter store: auto = memory (single replica); "
-                        "native and redis are not ported yet")
+                   help="counter/quota store: auto = native C++ if built "
+                        "else memory (single replica); redis = shared store "
+                        "for HA gateways (reference redis_impl.go parity)")
+    p.add_argument("--redis-addr", default="127.0.0.1:6379",
+                   help="RESP server address(es) for --backend redis — "
+                        "comma-separated list selects cluster mode; with "
+                        "--redis-sentinel-master the list is sentinel "
+                        "addresses (reference cmd/gateway/main.go:137-170)")
+    p.add_argument("--redis-sentinel-master", default=None,
+                   help="Redis Sentinel master name (enables sentinel mode)")
     p.add_argument("--max-body-bytes", type=int, default=4 * 1024 * 1024,
                    help="request-body cap -> 413 (reference "
                         "ClientTrafficPolicy 4MiB client buffer)")
@@ -49,8 +57,15 @@ def main(argv: list[str] | None = None) -> None:
     )
     from arks_tpu_torch.gateway.server import Gateway
 
-    # Refuse an unported store before anything starts.
-    rate_limiter = RateLimiter(make_counter_backend(args.backend))
+    # The store first: one that cannot be reached or built fails before
+    # anything starts.
+    backend = make_counter_backend(args.backend, args.redis_addr,
+                                   args.redis_sentinel_master)
+    rate_limiter = RateLimiter(backend)
+    quota = None
+    if args.backend == "redis":
+        from arks_tpu_torch.gateway.rediskv import RedisQuotaService
+        quota = RedisQuotaService(backend.client)
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
@@ -59,12 +74,12 @@ def main(argv: list[str] | None = None) -> None:
         apply_manifests(store, path)
 
     gw = Gateway(store, host=args.host, port=args.port,
-                 rate_limiter=rate_limiter,
+                 rate_limiter=rate_limiter, quota=quota,
                  max_body_bytes=args.max_body_bytes,
                  process_timeout_s=args.process_timeout)
     gw.start(background=True)
-    log.info("gateway on %s:%d (/v1/* + /metrics, backend=%s)",
-             args.host, gw.port, args.backend)
+    log.info("gateway on %s:%d (/v1/* + /metrics, backend=%s: %s)",
+             args.host, gw.port, args.backend, type(backend).__name__)
 
     stop: list[int] = []
     signal.signal(signal.SIGTERM, lambda *a: stop.append(1))

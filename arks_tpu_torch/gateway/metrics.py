@@ -1,7 +1,6 @@
-"""Gateway Prometheus metrics — same families as the reference
+"""Gateway and router Prometheus metrics — same families as the reference
 (pkg/gateway/metrics/metrics.go:24-132); a copy of
-``arks_tpu/gateway/metrics.py``'s ``GatewayMetrics``.  Its
-``RouterMetrics`` comes with the router, which is not ported yet."""
+``arks_tpu/gateway/metrics.py``."""
 
 from __future__ import annotations
 
@@ -49,3 +48,48 @@ class GatewayMetrics:
             "Disconnected streams abandoned before the usage frame arrived "
             "(ARKS_GW_DISCONNECT_DRAIN_S exceeded) — billed-but-unmetered "
             "tokens; should be ~0")
+
+
+class RouterMetrics:
+    """Routing-layer families (the router is part of the same data-plane
+    metrics surface as the gateway).  Besides the request/backend basics,
+    this carries the sketch-routing observability set: per-backend sketch
+    age, route decisions by reason, and the expected-vs-actual hit-depth
+    pair that makes a mis-scoring sketch visible in monitoring."""
+
+    def __init__(self, registry: prom.Registry | None = None):
+        self.registry = registry or prom.Registry()
+        r = self.registry
+        self.requests_total = r.counter(
+            "router_requests_total", "Routed requests")
+        self.backends = r.gauge("router_backends", "Known backends")
+        self.retries_total = r.counter(
+            "router_retries_total",
+            "Requests retried on another backend (by reason)")
+        self.sketch_age = r.gauge(
+            "router_sketch_age_seconds",
+            "Seconds since each backend's sketch was last accepted")
+        self.route_decisions_total = r.counter(
+            "router_route_decisions_total",
+            "Routing decisions by reason "
+            '(sketch_hit|tie_fallback|stale_sketch|no_key)')
+        self.expected_hit_blocks_total = r.counter(
+            "router_expected_hit_blocks_total",
+            "Sketch-predicted prefix hit depth in blocks, by backend/tier "
+            "(compare against the actual router_backend_hit_tokens)")
+        self.backend_hit_tokens = r.gauge(
+            "router_backend_hit_tokens",
+            "Actual cumulative per-tier prefix hit tokens each backend "
+            "reports in its sketch")
+        self.sketch_epoch_drops_total = r.counter(
+            "router_sketch_epoch_drops_total",
+            "Sketches dropped because the backend's epoch changed "
+            "(restart/reset)")
+        self.planned_membership_total = r.counter(
+            "router_planned_membership_total",
+            "Planned membership changes by op (join|leave) and outcome "
+            "(ok|timeout) — the elastic scale-up/down handoff path")
+        self.join_seconds = r.gauge(
+            "router_join_seconds",
+            "Duration of the last planned join per backend: readiness "
+            "polling + sketch prime, before first traffic was routed")

@@ -9,20 +9,22 @@ rules (rpm/rpd) increment by 1 at admission; token-type rules (tpm/tpd)
 increment by actual usage at completion.
 
 A copy of ``arks_tpu/gateway/ratelimiter.py``.  Backends are pluggable
-(``CounterBackend``).  The reference picks its native C++ counter store
-(``arks_tpu/gateway/native.py``) when it builds and offers a Redis store
-for HA gateways; neither is ported yet, so ``auto`` (the default) means
-the in-memory store and asking for ``native`` or ``redis`` raises
-``NotImplementedError`` (``make_counter_backend``).
+(``CounterBackend``, ``make_counter_backend``): the native C++ counter
+store (``gateway/native.py``) when it builds, the pure-Python in-memory
+store otherwise, and a Redis store (``gateway/rediskv.py``) that gateway
+replicas share.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from typing import Protocol
 
 from arks_tpu_torch.control.resources import RL_RPD, RL_RPM, RL_TPD, RL_TPM
+
+log = logging.getLogger("arks_tpu_torch.gateway.ratelimiter")
 
 MINUTE = 60
 DAY = 24 * 3600
@@ -84,17 +86,35 @@ def window_key(namespace: str, user: str, model: str, rule: str,
     return f"arks:ns={namespace}:user={user}:model={model}:{rule}:{start}"
 
 
-def make_counter_backend(kind: str = "auto") -> CounterBackend:
-    """The counter store ``kind`` names: ``auto`` and ``memory`` give the
-    in-memory store (one gateway replica); ``native`` and ``redis`` are not
-    ported yet and raise."""
-    if kind in ("auto", "memory"):
+def make_counter_backend(kind: str = "auto",
+                         redis_addr: str = "127.0.0.1:6379",
+                         redis_sentinel_master: str | None = None
+                         ) -> CounterBackend:
+    """The counter store ``kind`` names.  ``auto`` (the reference's default
+    store) is the native store when its library builds and loads, else the
+    in-memory one; ``memory`` is the in-memory store (one gateway replica);
+    ``native`` the C++ store, raising ``RuntimeError`` when its library
+    does not build or load; ``redis`` a RESP server at ``redis_addr`` (a
+    comma-separated list selects cluster mode; with
+    ``redis_sentinel_master`` the list is of sentinels), shared by gateway
+    replicas."""
+    if kind == "memory":
         return MemoryCounterBackend()
-    if kind in ("native", "redis"):
-        raise NotImplementedError(
-            f"the {kind} counter store is not ported yet (ROADMAP.md queue "
-            "1 item 5: gateway/native.py and gateway/rediskv.py); use "
-            "memory")
+    if kind in ("auto", "native"):
+        from arks_tpu_torch.gateway import native
+        if kind == "native" or native.available():
+            backend = native.NativeCounterBackend()
+        else:
+            backend = MemoryCounterBackend()
+        if kind == "auto":
+            log.info("counter store: %s", type(backend).__name__)
+        return backend
+    if kind == "redis":
+        from arks_tpu_torch.gateway.rediskv import (
+            RedisCounterBackend, make_resp_client,
+        )
+        return RedisCounterBackend(make_resp_client(redis_addr,
+                                                    redis_sentinel_master))
     raise ValueError(f"unknown counter store {kind!r}")
 
 

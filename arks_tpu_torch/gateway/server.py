@@ -27,11 +27,11 @@ routing (arksendpoint_controller.go:283-369 + dist/gateway.yaml:230-248):
 
 defaults (types.go:24-64): rpm=100 when unset; tpm=rpm*1000 when unset.
 
-The reference's native library (``arks_tpu/gateway/native.py``: a C++
-counter store and SSE usage scanner) is not ported yet: the counters are
-the in-memory store unless a ``rate_limiter`` is given
-(``ratelimiter.make_counter_backend``: ``auto`` means memory, ``native``
-raises), and streams are scanned by ``PyUsageScanner``.
+The counters are ``ratelimiter.make_counter_backend``'s ``auto`` store (the
+native library's when it builds, else the in-memory one) unless a
+``rate_limiter`` is given, and streams are scanned by the native library's
+``SseUsageScanner`` when it builds, else by ``PyUsageScanner``
+(``make_usage_scanner``).
 """
 
 from __future__ import annotations
@@ -120,8 +120,8 @@ class _ApiError(Exception):
 
 
 class PyUsageScanner:
-    """Pure-Python SSE usage scan (the reference's fallback beside its
-    native ``SseUsageScanner``)."""
+    """Pure-Python SSE usage scan — the fallback for (and the test oracle
+    of) arks_tpu_torch.gateway.native.SseUsageScanner."""
 
     def __init__(self) -> None:
         self._buf = b""
@@ -160,6 +160,13 @@ class PyUsageScanner:
 
     def usage(self) -> dict | None:
         return self._usage
+
+
+def make_usage_scanner():
+    from arks_tpu_torch.gateway import native
+    if native.available():
+        return native.SseUsageScanner()
+    return PyUsageScanner()
 
 
 class RequestRateTracker:
@@ -750,14 +757,15 @@ class Gateway:
     def _relay_stream(self, handler, resp, account) -> None:
         """Relay SSE to the client, scanning frames for the usage object
         (handle_response.go:113-133). Robust to chunk fragmentation: frames
-        are reassembled on blank-line boundaries."""
+        are reassembled on blank-line boundaries.  The scan runs in the
+        native library when available (arks_tpu_torch.gateway.native)."""
         handler.send_response(resp.status)
         handler.send_header("Content-Type",
                             resp.headers.get("Content-Type", "text/event-stream"))
         handler.send_header("Transfer-Encoding", "chunked")
         handler.end_headers()
 
-        scanner = PyUsageScanner()
+        scanner = make_usage_scanner()
         t_proc = 0.0
         client_dead = False
         drain_deadline = None

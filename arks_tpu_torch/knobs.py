@@ -31,6 +31,19 @@ DEFAULTS: dict[str, str | None] = {
     "ARKS_ROUTER_SKETCH_HASHES": "4",
     "ARKS_ROUTER_SKETCH_TOPK": "128",
     "ARKS_ROUTER_SKETCH_LINKS": "4096",
+    # The router (router/__init__.py): its static backends, failover
+    # backoff, sketch scoring and the planned-join wait.
+    "ARKS_PREFILL_ADDRS": None,
+    "ARKS_DECODE_ADDRS": None,
+    "ARKS_ROUTER_UNIFIED": "0",
+    "ARKS_ROUTER_RETRY_BACKOFF_S": "0.05",
+    "ARKS_ROUTER_SKETCH": "1",
+    "ARKS_ROUTER_SKETCH_POLL_S": "2.0",
+    "ARKS_ROUTER_SKETCH_STALE_S": "10",
+    "ARKS_ROUTER_SKETCH_T0_WEIGHT": "1.0",
+    "ARKS_ROUTER_SKETCH_DISK_WEIGHT": "0.5",
+    "ARKS_ROUTER_SKETCH_MAX_BLOCKS": "64",
+    "ARKS_ELASTIC_JOIN_TIMEOUT_S": "10",
     # Windowed-residency decode: a slot's resident page budget (0 = off).
     "ARKS_RESIDENCY_WINDOW_PAGES": "0",
     # The multi-model weight pool and its switch policy
@@ -104,7 +117,10 @@ DEFAULTS: dict[str, str | None] = {
     "ARKS_ELASTIC_BURN_LO": "0.25",
     "ARKS_ELASTIC_SAT_HI": "0.9",
     "ARKS_ELASTIC_SAT_LO": "0.3",
-    # The gateway (gateway/server.py).
+    # The gateway (gateway/server.py) and its native library
+    # (gateway/native.py): off, or a prebuilt one in place of the build.
+    "ARKS_NATIVE": "1",
+    "ARKS_NATIVE_LIB": None,
     "ARKS_GW_COLD_START_WAIT_S": "10",
     "ARKS_GW_SHED_INFLIGHT": "0",
     "ARKS_GW_DISCONNECT_DRAIN_S": "10",

@@ -18,8 +18,8 @@ Two digest domains, so that the router needs no tokenizer:
   (``SketchExporter.link``); a text digest is advertised in a tier iff its
   token digest is there, the required token depth rounded UP.
 
-The router's reader (``BackendSketch``) stays with the router; this module
-holds what the engine and the server need.  It imports nothing of the
+The engine and the server build and export (``SketchExporter``); the
+router parses and scores (``BackendSketch``).  It imports nothing of the
 engine.
 """
 
@@ -318,3 +318,71 @@ class SketchExporter:
         if extra:
             out.update(extra)
         return out
+
+
+# ---------------------------------------------------------------------------
+# Router side: parse + score
+# ---------------------------------------------------------------------------
+
+class _TierView:
+    def __init__(self, tier: dict, text: bool):
+        pre = "text_" if text else ""
+        self._top = set(tier.get(pre + "top") or [])
+        b = tier.get(pre + "bloom")
+        self._bloom = BloomSketch.from_payload(b) if b else None
+        self.count = int(tier.get(pre + "count" if text else "count", 0))
+
+    def contains(self, digest: bytes) -> bool:
+        if _top_key(digest) in self._top:
+            return True
+        return self._bloom is not None and digest in self._bloom
+
+
+class BackendSketch:
+    """One backend's parsed sketch, as the router scores against it."""
+
+    def __init__(self, payload: dict):
+        self.enabled = bool(payload.get("enabled"))
+        self.epoch = str(payload.get("epoch", ""))
+        self.version = int(payload.get("version", 0))
+        self.page_tokens = int(payload.get("page_tokens", 0) or 0)
+        self.text_chars = int(payload.get("text_chars", 0) or 0)
+        self.hit_tokens = {k: float(v) for k, v in
+                           (payload.get("hit_tokens") or {}).items()}
+        self.query_tokens = float(payload.get("query_tokens", 0) or 0)
+        tiers = payload.get("tiers") or {}
+        self._views = {}
+        for tier in ("device", "host", "disk"):
+            # "disk" is absent from pre-tier-2 backends' payloads; the
+            # empty view then simply never extends a chain's coverage.
+            t = tiers.get(tier) or {}
+            self._views[(tier, "token")] = _TierView(t, text=False)
+            self._views[(tier, "text")] = _TierView(t, text=True)
+
+    @classmethod
+    def from_payload(cls, payload: dict) -> "BackendSketch":
+        return cls(payload)
+
+    def score_chain(self, digests: list[bytes],
+                    domain: str = "token") -> tuple[int, int, int]:
+        """Expected hit depth for one request chain: the initial
+        consecutive run resident in tier 0 (device), then the
+        consecutive continuation resident in tier 1 (host), then the
+        continuation resident in tier 2 (disk).  Returns
+        (device_blocks, host_blocks, disk_blocks) — deterministic for a
+        given sketch and chain."""
+        dev_view = self._views[("device", domain)]
+        host_view = self._views[("host", domain)]
+        disk_view = self._views[("disk", domain)]
+        dev = 0
+        n = len(digests)
+        while dev < n and dev_view.contains(digests[dev]):
+            dev += 1
+        host = 0
+        while dev + host < n and host_view.contains(digests[dev + host]):
+            host += 1
+        disk = 0
+        while (dev + host + disk < n
+               and disk_view.contains(digests[dev + host + disk])):
+            disk += 1
+        return dev, host, disk

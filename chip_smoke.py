@@ -368,9 +368,34 @@ Phases (any failure raises and exits non-zero):
               1 GiB.  TTFT and total time of a 32-token stream through the
               gateway and direct (medians of 5), each replica's time to
               Running and the roll's time are logged.
+ 19. a DisaggregatedApplication behind the port's router (phase_router,
+              last): the same build_manager and Gateway (on the native
+              counter store and SSE scanner, built with g++ there) apply
+              examples/quickstart/disaggregated_torch.yaml: one prefill
+              and two decode replicas of Qwen2.5-7B at full width and
+              depth and ``python -m arks_tpu_torch.router --policy
+              cache_aware``, on this card.  The three components and the
+              app reach Running; the discovery file lists the prefill and
+              both decode addresses; the Endpoint routes to the router's
+              Service and its readiness is 200; eight greedy requests
+              (4 completions, 4 chats, 4 streamed, top-2 logprobs) go
+              gateway -> router -> decode, the K/V pulled from the prefill
+              replica, and each equals the same request sent straight to
+              the decode replica that served it under phase_disagg's
+              near-tie rule; both decode replicas' #1 and #2 counters
+              moved; a 768-token prefix in token ids with 6 distinct
+              32-token tails, one after another: after the first, each
+              lands on the decode replica that holds the prefix, which
+              the router counts as 5 sketch hits of 3 device blocks; the
+              request past the RPM limit gets 429 from the native store
+              and moves no replica's or router's counter; deleting the
+              app stops the four processes and the card's memory comes
+              back.  Logs seconds to Running per component, TTFT and
+              total of a 32-token stream through gateway -> router and
+              direct (medians of 5), the bytes and seconds of a pull.
 phase_pipeline, phase_recovery's engines, the preemption rounds (not
 their steady window) and phase_spec run Qwen2.5-7B at full width cut to
-its first CUT_LAYERS (7) of 28 layers, phase_residency to RES_LAYERS (7):
+its first CUT_LAYERS (4) of 28 layers, phase_residency to RES_LAYERS (3):
 their checks hold engines of one shape against each other, and the cut
 keeps the script well inside its time limit.
 The line before the last is the kernels JSON (nine counterparts); the last
@@ -380,9 +405,9 @@ prefix reuse's, operability's, the recovery phase's (its replays
 included), the preemption phase's, the speculative phase's (the draft's
 slot-cache kernels), the pool's, scale-to-zero's, residency's (its span
 chains), the disaggregated decode engines' and the fleet replicas', the
-operator's replicas' over the eight gateway requests (read from each
-replica's GET /v1/device before and after), and the checkpoint-loaded
-engines'
+operator's and the router phase's replicas' over their eight gateway
+requests (read from each replica's GET /v1/device before and after), and
+the checkpoint-loaded engines'
 included
 (the dense launch: its greedy run) and phase 7's (grouped_matmul, every
 quantized product).
@@ -422,7 +447,7 @@ SLOT_LEN = 4096                  # slot cache length (= MAX_PAGES * PAGE)
 # Qwen2.5-7B cut in depth (its first layers, full width) for the phases
 # whose checks compare engines of one shape with each other, so that the
 # whole script stays well inside its time limit.
-CUT_LAYERS = 7
+CUT_LAYERS = 4
 F32_LAYERS = 2                   # depth of phase 4's f32 engine (full width)
 KV_BITS = {"int8": 8, "int4": 4}
 # Attention, phase 3: the bf16 kernel vs the bf16 plain version (one bf16
@@ -6452,7 +6477,7 @@ POOL_ISSUES = ("_pipe_issue", "_issue_mixed")
 ZERO_IDLE_S = "1"                # ARKS_ELASTIC_IDLE_ZERO_S of phase_zero
 ZERO_TOKENS = 32
 RES_WINDOW, RES_PROMPT, RES_TOKENS = 6, 1200, 512
-RES_LAYERS = 7                   # Qwen2.5-7B's first layers (full width)
+RES_LAYERS = 3                   # Qwen2.5-7B's first layers (full width)
 RES_PROF_STEPS = 16              # tokens a timed / traced window
 RES_ISSUES = ("_pipe_issue", "_issue_mixed", "_issue_residency")
 RES_ROUNDS = (("greedy d2 bf16", "2", "bf16", False),    # tag, depth, pool,
@@ -7300,11 +7325,31 @@ def _dis_unified(torch, dev, params, kv, bodies):
     return out, [r[2] for r in res]
 
 
+def _near_tie(what, toks, btoks, gap):
+    """The near-tie rule: a disaggregated greedy stream ``toks`` against
+    the unified one ``btoks`` is equal, or parts first where the unified
+    stream's top-2 logprob gap (``gap(i)``) is at most SPEC_GAP_BOUND
+    (one-shot and chunked prefills round apart in bf16).  Returns None
+    when equal, else (first differing token, its gap); raises otherwise.
+    ``what`` names the stream in the error."""
+    i = next((j for j, (a, b) in enumerate(zip(toks, btoks)) if a != b),
+             None)
+    if i is None:
+        if len(toks) != len(btoks):
+            raise AssertionError(f"{what}: {len(toks)} tokens against "
+                                 f"{len(btoks)}")
+        return None
+    g = gap(i)
+    if g > SPEC_GAP_BOUND:
+        raise AssertionError(f"{what} leaves the unified stream at token "
+                             f"{i}, top-2 gap {g:.4f} > {SPEC_GAP_BOUND}")
+    return i, g
+
+
 def _dis_near_ties(tag, got, base):
-    """Greedy disaggregated streams against the unified ones: equal, or
-    parting first where the unified stream's top-2 logprob gap is at most
-    SPEC_GAP_BOUND (one-shot and chunked prefills round apart in bf16).
-    Returns [(prompt length, first differing token, gap)]."""
+    """Greedy disaggregated streams against the unified ones under the
+    near-tie rule (``_near_tie``).  Returns [(prompt length, first
+    differing token, gap)]."""
     diff = []
     for n, (ids, fin, err, _) in got.items():
         bids, _, _, blps = base[n]
@@ -7312,21 +7357,10 @@ def _dis_near_ties(tag, got, base):
             raise AssertionError(f"[disagg {tag}] prompt {n}: {fin} {err}")
         if DIS_KINDS[DIS_LENS.index(n)] == "seeded":
             continue
-        i = next((j for j, (a, b) in enumerate(zip(ids, bids)) if a != b),
-                 None)
-        if i is None:
-            if ids != bids:
-                raise AssertionError(f"[disagg {tag}] prompt {n}: "
-                                     f"{len(ids)} tokens against "
-                                     f"{len(bids)}")
-            continue
-        top = blps[i][1]
-        gap = top[0][1] - top[1][1]
-        diff.append((n, i, gap))
-        if gap > SPEC_GAP_BOUND:
-            raise AssertionError(f"[disagg {tag}] prompt {n} leaves the "
-                                 f"unified stream at token {i}, top-2 gap "
-                                 f"{gap:.4f} > {SPEC_GAP_BOUND}")
+        tie = _near_tie(f"[disagg {tag}] prompt {n}", ids, bids,
+                        lambda i: blps[i][1][0][1] - blps[i][1][1][1])
+        if tie is not None:
+            diff.append((n, *tie))
     return diff
 
 
@@ -8690,6 +8724,485 @@ def phase_operator(torch, dev, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: a DisaggregatedApplication behind the port's router
+# ---------------------------------------------------------------------------
+
+RT_MANIFEST = "examples/quickstart/disaggregated_torch.yaml"
+RT_APP, RT_SERVED, RT_NS = "qwen2.5-pd-app", "qwen2.5-pd", "default"
+RT_TOKEN, RT_USER = "sk-pd-quickstart", "pd-quickstart-user"
+RT_LOAD_TOKEN = "sk-router-load"       # the cache-aware and TTFT requests
+RT_PREFIX_PAGES = 3                    # full pages of the shared prefix
+RT_TAIL, RT_TAILS = 32, 6              # distinct tails after the prefix
+RT_BOOT_TIMEOUT = 300
+RT_REPLICA_BYTES = 18_600_000_000      # one replica on the card (nvidia-smi)
+
+
+def _rt_groups(driver, app):
+    """{(component, group index): (pid, port, the process)} of the app's
+    three gangs."""
+    out = {}
+    with driver._lock:
+        for comp in ("router", "prefill", "decode"):
+            for i, g in driver._groups.get((RT_NS, f"{app}-{comp}"),
+                                           {}).items():
+                out[(comp, i)] = (g.proc.pid, g.port, g.proc)
+    return out
+
+
+def _rt_logprobs(data):
+    """A response's (or its SSE frames') tokens as [(text, top-2 gap,
+    whether its runner-up decodes to the same text)].  Completions carry
+    {text: logprob} for the top two (one key when both decode alike, its
+    value the runner-up's) beside the chosen token's logprob; chat carries
+    both entries."""
+    frames = data if isinstance(data, list) else [data]
+    out = []
+    for f in frames:
+        if not isinstance(f, dict):
+            continue
+        for c in f.get("choices", []):
+            lp = c.get("logprobs")
+            if not lp:
+                continue
+            for e in lp.get("content") or []:
+                (a, b) = e["top_logprobs"][:2]
+                out.append((e["token"], a["logprob"] - b["logprob"],
+                            a["token"] == b["token"]))
+            for tok, clp, top in zip(lp.get("tokens") or [],
+                                     lp.get("token_logprobs") or [],
+                                     lp.get("top_logprobs") or []):
+                vals = sorted(top.values(), reverse=True)
+                out.append((tok, vals[0] - vals[1] if len(vals) > 1
+                            else clp - vals[0], len(vals) == 1))
+    return out
+
+
+def _rt_same(what, got, direct):
+    """A routed answer against the decode replica's own, under the near-
+    tie rule (``_near_tie``) on the token texts.  The answers carry no
+    token ids and the byte tokenizer decodes many ids to one text, so the
+    streams may have parted at an earlier token whose top-2 decode alike:
+    such a token with a gap within the bound also satisfies the rule.
+    Returns None when the texts agree (and then the answers are equal but
+    for ids, timestamps and logprob values), else (token, gap)."""
+    toks, btoks = _rt_logprobs(got), _rt_logprobs(direct)
+    if not toks or len(toks) != len(btoks):
+        raise AssertionError(f"{what}: {len(toks)} tokens against "
+                             f"{len(btoks)}")
+
+    def drop_lp(d):
+        d = _op_strip(d)
+        if isinstance(d, list):
+            return [drop_lp(x) for x in d]
+        if isinstance(d, dict):
+            return {k: (drop_lp(v) if k == "choices" else v)
+                    for k, v in d.items() if k != "logprobs"}
+        return d
+
+    try:
+        tie = _near_tie(what, [t for t, _, _ in toks],
+                        [t for t, _, _ in btoks], lambda i: btoks[i][1])
+    except AssertionError:
+        i = next(j for j, (a, b) in enumerate(zip(toks, btoks))
+                 if a[0] != b[0])
+        hidden = [(j, g) for j, (_, g, alike) in enumerate(btoks[:i])
+                  if alike and g <= SPEC_GAP_BOUND]
+        if not hidden:
+            raise
+        tie = hidden[0]
+    if tie is None:
+        if drop_lp(got) != drop_lp(direct):
+            raise AssertionError(f"{what}: the answers differ:\n"
+                                 f"{drop_lp(got)}\n{drop_lp(direct)}")
+    elif _op_usage(got) != _op_usage(direct):
+        raise AssertionError(f"{what}: usage {_op_usage(got)} against "
+                             f"{_op_usage(direct)}")
+    return tie
+
+
+def _rt_bodies():
+    """Phase 19's eight requests: four completions and four chats, two of
+    each streamed, greedy, OP_TOKENS tokens each, with top-2 logprobs (for
+    the near-tie rule)."""
+    out = []
+    for path, body in _op_bodies():
+        body = dict(body, model=RT_SERVED)
+        if "messages" in body:
+            body.update(logprobs=True, top_logprobs=2)
+        else:
+            body["logprobs"] = 2
+        out.append((path, body))
+    return out
+
+
+def _rt_metric(addr, key) -> float:
+    """One sample of ``addr``'s /metrics; with a bare family name, the sum
+    of its samples."""
+    status, raw = _op_get(addr, "/metrics")
+    if status != 200:
+        raise AssertionError(f"[router] {addr}/metrics: {status}")
+    if "{" in key:
+        return _metric_value(raw.decode(), key)
+    return sum(float(line.rsplit(" ", 1)[1])
+               for line in raw.decode().splitlines()
+               if line.startswith(key + "{") or line.startswith(key + " "))
+
+
+def phase_router(torch, dev, smi):
+    """Phase 19: ``python -m arks_tpu_torch.control``'s parts in this process
+    (``build_manager`` over a ``LocalProcessDriver``, the ``Gateway`` on the
+    native counter store and SSE scanner) deploy the port's disaggregated
+    quickstart: one prefill and two decode replicas of ``python -m
+    arks_tpu_torch.server`` serving Qwen2.5-7B at full width and depth
+    (random weights from the seed) and the port's router (``python -m
+    arks_tpu_torch.router --policy cache_aware``), all on this card.
+    Checks, each fatal: the three components Running and the app Running;
+    the discovery file lists the prefill and both decode addresses, written
+    before the router started; the Endpoint routes to ``<app>-router-svc``
+    and the router's readiness is 200; eight greedy requests through
+    gateway -> router -> decode (four streamed), the K/V pulled from the
+    prefill replica, each equal to the same request sent straight to the
+    decode replica that served it under the near-tie rule; the decode
+    replicas' kernel counters moved (#1 and #2); a prefix of
+    RT_PREFIX_PAGES pages with RT_TAILS distinct tails, in token ids, one
+    request after another: after the first, each lands on the decode
+    replica that holds the prefix, counted by the router as sketch hits of
+    RT_PREFIX_PAGES device blocks; the request past the token's RPM limit
+    gets 429 from the native store and reaches neither the router nor a
+    replica; deleting the app stops the four processes and the card's
+    memory comes back.  Logs the seconds to Running per component, TTFT
+    and total time through gateway -> router beside direct (medians of
+    OP_TTFT_RUNS), the bytes and seconds of a pull, and the phase's
+    seconds.  Returns the replicas' kernel launches over the eight
+    requests and the phase's numbers."""
+    import os
+    import shutil
+    import tempfile
+
+    from arks_tpu_torch import knobs
+    from arks_tpu_torch import prefix_sketch as ps
+    from arks_tpu_torch.control import resources as res
+    from arks_tpu_torch.control.__main__ import apply_manifests
+    from arks_tpu_torch.control.manager import build_manager
+    from arks_tpu_torch.control.workloads import LocalProcessDriver
+    from arks_tpu_torch.engine import kv_transfer
+    from arks_tpu_torch.gateway import native
+    from arks_tpu_torch.gateway.ratelimiter import (RateLimiter,
+                                                    make_counter_backend,
+                                                    window_key)
+    from arks_tpu_torch.gateway.server import Gateway, make_usage_scanner
+    from arks_tpu_torch.models import get_config
+    from arks_tpu_torch.models.weights import param_shapes
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = get_config(MODEL)
+    weight_bytes = 2 * sum(math.prod(s) for s in param_shapes(cfg).values())
+    torch.cuda.empty_cache()
+    free0, _ = torch.cuda.mem_get_info()
+    log(f"[router] this process holds {torch.cuda.memory_reserved()} B "
+        f"reserved; the card has {free0} B free; three replicas take about "
+        f"{3 * RT_REPLICA_BYTES} B")
+    if free0 < 3 * RT_REPLICA_BYTES:
+        raise AssertionError(f"[router] {free0} B free: not enough for "
+                             f"three replicas")
+    saved = {k: v for k, v in os.environ.items() if k.startswith("ARKS_")}
+    saved["PYTHONPATH"] = os.environ.get("PYTHONPATH")
+    for k in saved:
+        os.environ.pop(k, None)
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, saved["PYTHONPATH"]) if p)
+    tmp = tempfile.mkdtemp(prefix="arks-router-")
+    logs = os.path.join(tmp, "logs")
+    driver = LocalProcessDriver(log_dir=logs)
+    mgr = build_manager(models_root=os.path.join(tmp, "models"),
+                        driver=driver)
+    gw = Gateway(mgr.store, host="127.0.0.1", port=0, quota_sync_s=0.5,
+                 rate_limiter=RateLimiter(make_counter_backend("native")))
+    out = {}
+    try:
+        if type(gw.limiter.backend).__name__ != "NativeCounterBackend" or \
+                type(make_usage_scanner()).__name__ != "SseUsageScanner":
+            raise AssertionError("[router] the native library did not load")
+        log(f"[router] the gateway's native library: {native.lib_path()}")
+        mgr.start()
+        gw.start(background=True)
+        gwa = f"127.0.0.1:{gw.port}"
+        store = mgr.store
+        t0 = time.perf_counter()
+        apply_manifests(store, os.path.join(root, RT_MANIFEST))
+        store.create(res.Token(name="router-load", spec={
+            "token": RT_LOAD_TOKEN, "qos": [{
+                "endpoint": {"name": RT_SERVED},
+                "rateLimits": [{"type": "rpm", "value": 100000},
+                               {"type": "tpm", "value": 100000000}]}]}))
+        app = store.get(res.DisaggregatedApplication, RT_APP)
+        args = app.spec["runtimeCommonArgs"]
+        if (app.spec["modelConfig"], args[args.index("--seed") + 1],
+                app.spec["prefill"]["replicas"],
+                app.spec["decode"]["replicas"]) != (MODEL, str(SEED), 1, 2):
+            raise AssertionError(f"[router] the manifest deploys {app.spec}")
+        # 1. Every component Running, the app Running, the route.
+        running = {}
+
+        def up():
+            for comp in ("router", "prefill", "decode"):
+                gs = store.try_get(res.GangSet, f"{RT_APP}-{comp}")
+                for g in (driver.status(gs)["groups"] if gs else []):
+                    key = (comp, g["index"])
+                    if g["phase"] == "Running" and key not in running:
+                        running[key] = time.perf_counter() - t0
+            svc = store.try_get(res.Service, f"{RT_APP}-router-svc")
+            routes = store.get(res.Endpoint, RT_SERVED).status.get("routes")
+            return (len(running) == 4 and store.get(
+                res.DisaggregatedApplication, RT_APP).phase
+                == res.PHASE_RUNNING and svc is not None and routes
+                and routes[0]["backend"].get("service")
+                == f"{RT_APP}-router-svc"
+                and routes[0]["backend"]["addresses"]
+                == svc.status.get("addresses") and routes)
+
+        routes = _op_wait("the three components Running", up,
+                          RT_BOOT_TIMEOUT, driver, logs)
+        (router,) = routes[0]["backend"]["addresses"]
+        groups = _rt_groups(driver, RT_APP)
+        cmd = store.get(res.GangSet, f"{RT_APP}-router").spec["leader"][
+            "command"]
+        with open(cmd[cmd.index("--discovery-file") + 1]) as f:
+            disc = json.load(f)
+        addr = {k: f"127.0.0.1:{port}" for k, (_, port, _) in groups.items()}
+        prefill = addr[("prefill", 0)]
+        decodes = sorted(addr[("decode", i)] for i in range(2))
+        if (disc["prefill"], sorted(disc["decode"])) != ([prefill], decodes) \
+                or addr[("router", 0)] != router:
+            raise AssertionError(f"[router] discovery {disc}, groups {addr}, "
+                                 f"route {router}")
+        if _op_get(router, "/readiness")[0] != 200:
+            raise AssertionError("[router] the router is not ready")
+        devs = {}
+        for key, a in sorted(addr.items()):
+            if key[0] == "router":
+                continue
+            d = devs[a] = _op_device(a)
+            pid = groups[key][0]
+            if not (d["device"].startswith("cuda") and d["pid"] == pid
+                    and d["memory_allocated"] >= weight_bytes):
+                raise AssertionError(f"[router] {key} at {a}: {d}")
+        log(f"[router] Running after " + ", ".join(
+            f"{c}-{i} {t:.2f} s" for (c, i), t in sorted(running.items()))
+            + f"; router {router}, prefill {prefill}, decode {decodes}; "
+            f"replicas on {sorted({d['device'] for d in devs.values()})}, "
+            f"allocated {[devs[a]['memory_allocated'] for a in sorted(devs)]}"
+            f" B; the card's free memory {free0} -> "
+            f"{torch.cuda.mem_get_info()[0]} B")
+        # 2. Eight requests through gateway -> router -> decode.
+        wait = time.monotonic() + 10
+        while not (gw.qos.token_known(RT_TOKEN)
+                   and gw.qos.token_known(RT_LOAD_TOKEN)):
+            if time.monotonic() > wait:
+                raise AssertionError("[router] tokens not indexed")
+            time.sleep(0.02)
+        k0 = {a: devs[a]["kernel_launches"] for a in devs}
+        via, usage_sum = [], 0
+        for path, body in _rt_bodies():
+            before = {a: _op_served(a) for a in decodes}
+            status, data, _, _ = _op_call(gwa, path, body, RT_TOKEN)
+            after = {a: _op_served(a) for a in decodes}
+            served = [a for a in decodes if after[a] != before[a]]
+            if status != 200 or len(served) != 1 \
+                    or after[served[0]] != before[served[0]] + 1:
+                raise AssertionError(f"[router] {path} via the gateway: "
+                                     f"{status} {str(data)[:300]}, served "
+                                     f"{before} -> {after}")
+            usage = _op_usage(data)
+            if usage["completion_tokens"] != OP_TOKENS:
+                raise AssertionError(f"[router] {path}: usage {usage}")
+            usage_sum += usage["total_tokens"]
+            via.append((path, body, served[0], data))
+        launches, per = collections.Counter(), {}
+        for a in devs:
+            k1 = _op_device(a)["kernel_launches"]
+            per[a] = {k: k1[k] - k0[a][k] for k in k1 if k1[k] != k0[a][k]}
+            launches.update(per[a])
+        for a in decodes:
+            if not (per[a].get("paged_kv_update", 0) > 0
+                    and per[a].get("paged_mixed_attention", 0) > 0):
+                raise AssertionError(f"[router] decode {a} launched "
+                                     f"{per[a]}")
+        ties = []
+        for path, body, a, data in via:
+            status, direct, _, _ = _op_call(a, path, body)
+            if status != 200:
+                raise AssertionError(f"[router] direct {a}: {status}")
+            tie = _rt_same(f"[router] {path} stream="
+                           f"{body.get('stream', False)} on {a}", data,
+                           direct)
+            if tie is not None:
+                ties.append((path, bool(body.get("stream")), *tie))
+        log(f"[router] 8 requests gateway -> router -> decode (4 streamed) "
+            f"equal their decode replicas' direct answers under the "
+            f"near-tie rule (parted at near-ties: {ties}); served by "
+            f"{dict(collections.Counter(v[2] for v in via))}; kernel "
+            f"launches over them {per}")
+        # 3. Cache-aware routing of a shared prefix, in token ids.
+        rng = np.random.default_rng(SEED + 91)
+        prefix = [int(x) for x in rng.integers(32, 120,
+                                               RT_PREFIX_PAGES * PAGE)]
+        chain = ps.chain_digests(prefix, PAGE, RT_PREFIX_PAGES)
+        poll_s = knobs.get_float("ARKS_ROUTER_SKETCH_POLL_S")
+        m0 = {"hit": _rt_metric(
+            router, 'router_route_decisions_total{reason="sketch_hit"}')}
+        landed, holder = [], None
+        for j in range(RT_TAILS):
+            body = {"model": RT_SERVED, "max_tokens": 4, "temperature": 0,
+                    "ignore_eos": True, "prompt": prefix + [
+                        int(x) for x in rng.integers(32, 120, RT_TAIL)]}
+            before = {a: _op_served(a) for a in decodes}
+            status, data, _, _ = _op_call(gwa, "/v1/completions", body,
+                                          RT_LOAD_TOKEN)
+            after = {a: _op_served(a) for a in decodes}
+            served = [a for a in decodes if after[a] != before[a]]
+            if status != 200 or len(served) != 1:
+                raise AssertionError(f"[router] prefix request {j}: "
+                                     f"{status} {str(data)[:300]}")
+            landed.append(served[0])
+            if j == 0:
+                holder = served[0]
+                m0["blocks"] = _rt_metric(
+                    router, 'router_expected_hit_blocks_total{backend="'
+                    f'{holder}",tier="device"}}')
+                # The holder's own sketch lists the prefix at tier 0; a
+                # poll of the router that starts after this has ended
+                # within two intervals (each fetch takes milliseconds).
+                status, raw = _op_get(holder, "/v1/cache/sketch")
+                got = ps.BackendSketch.from_payload(json.loads(raw))
+                if got.score_chain(chain, "token") != (RT_PREFIX_PAGES, 0,
+                                                       0):
+                    raise AssertionError(f"[router] {holder}'s sketch "
+                                         f"scores {got.score_chain(chain)}")
+                time.sleep(2 * poll_s)
+        hits = _rt_metric(
+            router, 'router_route_decisions_total{reason="sketch_hit"}'
+        ) - m0["hit"]
+        blocks = _rt_metric(
+            router, f'router_expected_hit_blocks_total{{backend="{holder}",'
+            'tier="device"}') - m0["blocks"]
+        if landed[1:] != [holder] * (RT_TAILS - 1) or \
+                hits != RT_TAILS - 1 or \
+                blocks != RT_PREFIX_PAGES * (RT_TAILS - 1):
+            raise AssertionError(f"[router] prefix requests landed {landed}"
+                                 f" (holder {holder}); sketch hits {hits}, "
+                                 f"expected device blocks {blocks}")
+        log(f"[router] a {RT_PREFIX_PAGES * PAGE}-token prefix with "
+            f"{RT_TAILS} distinct {RT_TAIL}-token tails: the first landed on "
+            f"{holder}, every later one there too; the router counted "
+            f"{hits:.0f} sketch hits and {blocks:.0f} expected device "
+            f"blocks (poll interval {poll_s} s)")
+        # 4. TTFT and total time: through gateway -> router, and direct.
+        body = {"model": RT_SERVED, "prompt": "time to first token",
+                "max_tokens": OP_TTFT_TOKENS, "temperature": 0,
+                "ignore_eos": True, "stream": True,
+                "stream_options": {"include_usage": True}}
+        runs = {"gateway -> router": [], "direct": []}
+        for _ in range(OP_TTFT_RUNS):
+            for way, a, tok in (("gateway -> router", gwa, RT_LOAD_TOKEN),
+                                ("direct", decodes[0], None)):
+                status, data, t_first, total = _op_call(
+                    a, "/v1/completions", body, tok)
+                if status != 200 or data[-1] != "[DONE]":
+                    raise AssertionError(f"[router] {way}: {status}")
+                runs[way].append((t_first, total))
+        med = {way: (float(np.median([r[0] for r in v])),
+                     float(np.median([r[1] for r in v])))
+               for way, v in runs.items()}
+        # A pull: the prefill replica's /v1/prefill answer, bytes and time.
+        pulls = []
+        for _ in range(3):
+            host, _, port = prefill.partition(":")
+            conn = http.client.HTTPConnection(host, int(port), timeout=120)
+            t1 = time.perf_counter()
+            conn.request("POST", "/v1/prefill", json.dumps(dict(
+                body, stream=False, _chat=False)),
+                {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            raw = resp.read()
+            dt = time.perf_counter() - t1
+            conn.close()
+            if resp.status != 200:
+                raise AssertionError(f"[router] pull: {resp.status}")
+            meta, _ = kv_transfer.unpack(raw)
+            pulls.append((len(raw), dt))
+        log(f"[router] {OP_TTFT_TOKENS}-token stream, medians of "
+            f"{OP_TTFT_RUNS} (host clock, {smi}): " + "; ".join(
+                f"{way} TTFT {v[0] * 1e3:.2f} ms, total {v[1] * 1e3:.2f} ms"
+                for way, v in med.items())
+            + f"; a pull of its {meta['num_prompt']}-token prompt: "
+            f"{pulls[0][0]} B in " + ", ".join(f"{s * 1e3:.2f}" for _, s in
+                                               pulls) + " ms")
+        # 5. Over the RPM limit: 429 from the native store; nothing moves.
+        tok = store.get(res.Token, RT_USER)
+        limit = {r["type"]: r["value"] for r in
+                 tok.spec["qos"][0]["rateLimits"]}["rpm"]
+        if time.time() % 60 > 50:
+            time.sleep(60.5 - time.time() % 60)
+        window = time.time() // 60
+        key = window_key(RT_NS, RT_USER, RT_SERVED, "rpm")
+        fill = {"model": RT_SERVED, "prompt": "fill", "max_tokens": 1,
+                "temperature": 0}
+        for _ in range(limit - gw.limiter.backend.get(key)):
+            status, data, _, _ = _op_call(gwa, "/v1/completions", fill,
+                                          RT_TOKEN)
+            if status != 200:
+                raise AssertionError(f"[router] under the limit: {status} "
+                                     f"{data}")
+        before = {a: _op_served(a) for a in decodes + [prefill]}
+        r_before = _rt_metric(router, "router_requests_total")
+        status, data, _, _ = _op_call(gwa, "/v1/completions", fill, RT_TOKEN)
+        after = {a: _op_served(a) for a in decodes + [prefill]}
+        r_after = _rt_metric(router, "router_requests_total")
+        if time.time() // 60 != window:
+            raise AssertionError("[router] the rate window turned")
+        if status != 429 or "rate limit exceeded: rpm" not in str(data) \
+                or after != before or r_after != r_before:
+            raise AssertionError(f"[router] over the limit: {status} {data};"
+                                 f" served {before} -> {after}, router "
+                                 f"{r_before} -> {r_after}")
+        log(f"[router] request {limit + 1} of the minute: 429 "
+            f"{data['error']['message']!r} from the "
+            f"{type(gw.limiter.backend).__name__}; the replicas' and the "
+            f"router's counters stayed")
+        # 6. Deleting the app stops the four processes.
+        procs = [p for _, _, p in _rt_groups(driver, RT_APP).values()]
+        t_down = time.perf_counter()
+        store.delete(res.DisaggregatedApplication, RT_APP)
+        _op_wait("teardown", lambda: all(
+            store.try_get(res.GangSet, f"{RT_APP}-{c}") is None
+            for c in ("router", "prefill", "decode"))
+            and all(p.poll() is not None for p in procs), 60, driver, logs)
+        _op_wait("the card's memory back", lambda: torch.cuda.mem_get_info()[
+            0] >= free0 - OP_MEM_SLACK, 30, driver, logs)
+        log(f"[router] teardown in {time.perf_counter() - t_down:.2f} s: the "
+            f"{len(procs)} processes exited, the card has "
+            f"{torch.cuda.mem_get_info()[0]} B free (before the phase "
+            f"{free0})")
+        out = {"launches": launches, "running_s": running, "ttft": med,
+               "pull": pulls, "ties": ties}
+    finally:
+        gw.stop()
+        mgr.stop()
+        driver.teardown_all()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[router] phase took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -8768,6 +9281,7 @@ def main() -> int:
     gm, routes, moe_serve, moe_short = phase_moe(torch, dev)
     train = phase_train(torch, dev)
     operator = phase_operator(torch, dev, smi)
+    router = phase_router(torch, dev, smi)
     gm_row = gm[("528-row", "gate", "int8")]
     slot16, slot8 = legacy[("slot", "bf16")], legacy[("slot", "int8")]
     paged8, paged4 = legacy[("paged", "int8")], legacy[("paged", "int4")]
@@ -8783,7 +9297,8 @@ def main() -> int:
     pipe_n.update(resid["launches"])      # residency's (span chains),
     pipe_n.update(disagg["launches"])     # the disaggregated decode
     pipe_n.update(fleet["launches"])      # engines' and the fleet's,
-    pipe_n.update(operator["launches"])   # and the operator's replicas'
+    pipe_n.update(operator["launches"])   # the operator's replicas' and
+    pipe_n.update(router["launches"])     # the routed replicas'
     attn_launches = (serve["launches"]["paged_mixed_attention"]
                      + serve8["launches"]["paged_mixed_attention"]
                      + paged4["launches"]["paged_mixed_attention"]
@@ -8934,6 +9449,16 @@ def main() -> int:
         f"{operator['ttft']['direct'][0] * 1e3:.2f} / "
         f"{operator['ttft']['direct'][1] * 1e3:.2f}; phase "
         f"{operator['seconds']:.1f} s")
+    log(f"[router table] {smi}: Running after " + ", ".join(
+        f"{c}-{i} {t:.2f} s" for (c, i), t in sorted(
+            router["running_s"].items()))
+        + "; TTFT / total ms " + ", ".join(
+            f"{way} {v[0] * 1e3:.2f} / {v[1] * 1e3:.2f}"
+            for way, v in router["ttft"].items())
+        + f"; pull {router['pull'][0][0]} B in "
+        f"{min(s for _, s in router['pull']) * 1e3:.2f} ms (least of "
+        f"{len(router['pull'])}); near-ties {router['ties']}; phase "
+        f"{router['seconds']:.1f} s")
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}))

@@ -3,7 +3,7 @@ the same manifests through both ``build_manager`` stacks over their fake
 gang drivers settle into the same objects, workloads and routes; the pure
 functions, the store's events and the autoscaler decide alike; and the
 port refuses what it does not deploy (``runtime: jax``, TPU accelerators,
-Orbax conversion, DisaggregatedApplication)."""
+Orbax conversion, a DisaggregatedApplication it cannot serve)."""
 
 import copy
 import glob
@@ -421,16 +421,60 @@ def test_orbax_conversion_fails_the_model(stack, monkeypatch, how):
 
 
 def test_disaggregated_application_is_refused_and_nothing_applied(tmp_path):
-    store = port_store.Store()
-    docs = [{"kind": "Model", "metadata": {"name": "m"}, "spec": {}}]
-    docs += list(yaml.safe_load_all(open(os.path.join(
-        REPO, "examples", "samples", "disaggregated.yaml"))))
-    with pytest.raises(NotImplementedError, match="router"):
-        apply_manifests(store, _write(tmp_path, "d.yaml", docs))
-    assert store.list(res.Model) == []
+    """The reference's sample DisaggregatedApplication applies and fails
+    its precheck with the stated reason, and deploys nothing: as it is
+    (``runtime: jax``), ``InvalidRuntime``; as the port's runtime, its TPU
+    accelerators, then its ``contextParallel: 4``, ``InvalidSpec``.  An
+    unknown kind raises and nothing of its file is applied."""
+    mgr = build_manager(models_root=str(tmp_path / "models"),
+                        driver=workloads.FakeGangDriver(),
+                        fetcher=_no_download)
+    store = mgr.store
+    sample = [d for d in yaml.safe_load_all(open(os.path.join(
+        REPO, "examples", "samples", "disaggregated.yaml"))) if d]
+    (app,) = sample
+    assert (app["spec"]["runtime"], app["spec"]["prefill"][
+        "contextParallel"]) == ("jax", 4)
+    torch_rt = copy.deepcopy(app)
+    torch_rt["metadata"]["name"] = "qwen-pd-torch"
+    torch_rt["spec"]["runtime"] = "torch"
+    gpu = copy.deepcopy(torch_rt)
+    gpu["metadata"]["name"] = "qwen-pd-gpu"
+    for tier in ("prefill", "decode"):
+        gpu["spec"][tier]["accelerator"] = "nvidia-h100"
+    docs = [{"kind": "Model", "metadata": {"name": "qwen2.5-7b",
+                                           "namespace": "team-a"},
+             "spec": {}}, app, torch_rt, gpu]
+    mgr.start()
+    try:
+        objs = apply_manifests(store, _write(tmp_path, "d.yaml", docs))
+        assert [o.KIND for o in objs] == ["Model"] + [
+            "DisaggregatedApplication"] * 3
+        want = {"qwen-pd": ("InvalidRuntime",
+                            "requires runtime 'torch', got 'jax'"),
+                "qwen-pd-torch": ("InvalidSpec",
+                                  "'tpu-v5e-8' is a TPU topology"),
+                "qwen-pd-gpu": ("InvalidSpec",
+                                "prefill.contextParallel=4: the port's "
+                                "server runs one device per process")}
+        for name, (reason, message) in want.items():
+            a = wait_for(lambda: (lambda a: a.phase == res.PHASE_FAILED
+                                  and a)(store.get(
+                res.DisaggregatedApplication, name, "team-a")))
+            c = _cond(a, res.COND_PRECHECK)
+            assert (c["status"], c["reason"]) == ("False", reason)
+            assert message in c["message"], c["message"]
+        assert mgr.wait_idle()
+        assert store.list(res.GangSet) == []
+        assert store.list(res.Service) == []
+    finally:
+        mgr.stop()
+    empty = port_store.Store()
     with pytest.raises(ValueError, match="unknown kind"):
-        apply_manifests(store, _write(tmp_path, "u.yaml", [
+        apply_manifests(empty, _write(tmp_path, "u.yaml", [
+            {"kind": "Model", "metadata": {"name": "x"}, "spec": {}},
             {"kind": "Widget", "metadata": {"name": "w"}}]))
+    assert empty.list(res.Model) == []
 
 
 def test_apply_manifests_updates_a_spec(tmp_path):

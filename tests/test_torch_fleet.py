@@ -437,15 +437,17 @@ def test_prefill_and_decode_servers_over_loopback(monkeypatch):
     prompt past the prefill limit is 400 ``context_length_exceeded``; a
     dead prefill server 502; no header 400; ``n`` > 1 and ``echo`` 400;
     the prefill server's completions 501 and its readiness 200 without a
-    loop; then the reference's router in PD mode fronts the pair."""
+    loop; then the reference's router in PD mode fronts the pair, and the
+    port's router does the same."""
     from arks_tpu.router import Discovery, Router
+    from arks_tpu_torch import router as port_router
     (pe, de), ps, ds = _pair(monkeypatch)
     hdr = {"X-Arks-Prefill-Addr": f"127.0.0.1:{ps.port}"}
     body = {"model": "tiny", "prompt": "hello fleet of replicas",
             "max_tokens": 6, "temperature": 0, "ignore_eos": True}
     chat = {"model": "tiny", "max_tokens": 5, "temperature": 0.7, "seed": 4,
             "messages": [{"role": "user", "content": "hi there"}]}
-    router = None
+    routers = []
     try:
         st, dis = _post(ds.port, "/v1/disagg/completions", body, hdr)
         assert st == 200
@@ -477,15 +479,21 @@ def test_prefill_and_decode_servers_over_loopback(monkeypatch):
         assert (ready["sketch"]["epoch"], ready["sketch"]["version"]) == \
             (sketch["epoch"], sketch["version"])
         assert sketch["tiers"]["device"]["count"] >= 1
-        disc = Discovery(None)
-        disc.add("prefill", f"127.0.0.1:{ps.port}")
-        disc.add("decode", f"127.0.0.1:{ds.port}")
-        router = Router(disc, "tiny", host="127.0.0.1", port=0)
-        router.start(background=True)
-        st, routed = _post(router.port, "/v1/completions", body)
-        assert st == 200 and routed["choices"] == uni["choices"]
+        for disc_cls, router_cls in ((Discovery, Router),
+                                     (port_router.Discovery,
+                                      port_router.Router)):
+            disc = disc_cls(None)
+            disc.add("prefill", f"127.0.0.1:{ps.port}")
+            disc.add("decode", f"127.0.0.1:{ds.port}")
+            router = router_cls(disc, "tiny", host="127.0.0.1", port=0)
+            routers.append(router)
+            router.start(background=True)
+            st, routed = _post(router.port, "/v1/completions", body)
+            assert st == 200 and routed["choices"] == uni["choices"]
+        st, rchat = _post(router.port, "/v1/chat/completions", chat)
+        assert st == 200 and rchat["choices"] == uchat["choices"]
     finally:
-        if router is not None:
+        for router in routers:
             router.stop()
             # Its sketch poller may be polling still: a poll that outlived
             # the test would reach the next test's server on a reused port.

@@ -2,8 +2,8 @@
 each fronts its own stub OpenAI backend, one scripted request list goes
 through both, and the status codes, error bodies, relayed bytes, requests
 forwarded to the stubs and metered usage must be equal.  Then the port's
-own differences: a backend's 503 fails over to the next backend, and the
-counter stores not ported yet are refused."""
+own difference, a backend's 503 fails over to the next backend, and the
+entry point on the native and Redis counter stores."""
 
 import json
 import threading
@@ -258,13 +258,80 @@ def test_last_backend_503_reaches_the_client(failover):
 
 
 @pytest.mark.parametrize("kind", ["native", "redis"])
-def test_unported_counter_stores_are_refused(kind):
-    from arks_tpu_torch.gateway.__main__ import main
-    with pytest.raises(NotImplementedError, match=kind):
-        port_rl.make_counter_backend(kind)
-    with pytest.raises(NotImplementedError):
-        main(["--backend", kind, "--port", "0"])
-    assert isinstance(port_rl.make_counter_backend("auto"),
-                      port_rl.MemoryCounterBackend)
-    assert isinstance(port_rl.RateLimiter().backend,
-                      port_rl.MemoryCounterBackend)
+def test_unported_counter_stores_are_refused(kind, tmp_path):
+    """Both shared counter stores serve (the name is from before they were
+    ported): ``make_counter_backend`` gives each, and the gateway's entry
+    point on each admits a token's RPM limit and answers 429 past it."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    import yaml
+
+    from arks_tpu_torch.gateway.rediskv import RespServer
+    srv = RespServer()
+    srv.start()
+    addr = f"127.0.0.1:{srv.port}"
+    stub = _Stub()
+    gw = None
+    try:
+        backend = port_rl.make_counter_backend(kind, addr)
+        assert type(backend).__name__ == {
+            "native": "NativeCounterBackend",
+            "redis": "RedisCounterBackend"}[kind]
+        assert backend.incr("k", 3, 60) == 3 and backend.get("k") == 3
+        manifest = tmp_path / "qos.yaml"
+        manifest.write_text(yaml.safe_dump_all([
+            # The file provider's Endpoint: its routes as an operator's
+            # endpoint controller would have written them.
+            {"kind": "Endpoint", "metadata": {"name": "m1"}, "spec": {},
+             "status": {"routes": [{"backend": {"addresses": [stub.addr]},
+                                    "weight": 1}]}},
+            {"kind": "Token", "metadata": {"name": "bob"}, "spec": {
+                "token": "sk-bob", "qos": [{"endpoint": {"name": "m1"},
+                                            "rateLimits": [
+                                                {"type": "rpm",
+                                                 "value": 2}]}]}}]))
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        gw = subprocess.Popen(
+            [sys.executable, "-m", "arks_tpu_torch.gateway", "--backend",
+             kind, "--redis-addr", addr, "--port", str(port), "--host",
+             "127.0.0.1", "--manifests", str(manifest)],
+            cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        body = {"model": "m1", "messages": [{"role": "user",
+                                             "content": "x"}]}
+        codes, deadline = [], time.monotonic() + 60
+        while len(codes) < 3:
+            assert time.monotonic() < deadline and gw.poll() is None
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/v1/chat/completions",
+                data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json",
+                         "Authorization": "Bearer sk-bob"})
+            try:
+                with urllib.request.urlopen(req, timeout=10) as r:
+                    r.read()
+                    codes.append(r.status)
+            except urllib.error.HTTPError as e:
+                if e.code != 401:         # the token is not indexed yet
+                    codes.append(e.code)
+            except OSError:
+                time.sleep(0.1)           # not listening yet
+        assert codes == [200, 200, 429]
+        assert len(stub.requests) == 2
+        if kind == "redis":               # the window lives in the server
+            from arks_tpu_torch.gateway.rediskv import RespClient
+            key = port_rl.window_key("default", "bob", "m1", "rpm")
+            assert RespClient(srv.host, srv.port).command("GET", key) == b"2"
+    finally:
+        if gw is not None:
+            gw.terminate()
+            out = gw.communicate(timeout=30)[0].decode(errors="replace")
+            assert f"backend={kind}" in out, out
+        stub.stop()
+        srv.stop()
